@@ -5,33 +5,53 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. the card's name and power limit; build every CUDA kernel of the path
-   from paddle_tpu_torch/csrc (one nvcc per source, started together);
+1. the card's name and power limit; build every CUDA kernel of the
+   serving paths from paddle_tpu_torch/csrc (one nvcc per source, all
+   started together): the ragged paged attention and the paged decode
+   attention;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and at edge cases, with its time,
+   shapes the serving paths give it and at edge cases, with its time,
    the plain version's time, a PyTorch library call's time and the
    least time the card could take (its bound);
 3. the generation engine at BertConfig.base() (random weights from a
-   seed, initializer_range 0.6): warmup, then 8 prompts x 96 greedy
-   tokens through the kernel — every request must finish, the kernel
-   must launch once per layer per step, and nothing may compile after
-   warmup; the same prompts through the plain attention and one
-   seeded-sampling batch report their matched-prefix fraction.  The
-   same weights cut to 2 layers then hold the tokens to a reference:
-   every greedy token of the kernel engine and of the plain-attention
-   engine must be the plain full recompute's argmax.  Last, one
-   generate call under torch.profiler: device kernel time by name and
-   the device's busy share;
+   seed, initializer_range 0.6), each path driven with the launch
+   counts set to 0 just before it and read just after:
+   a. chunked scheduling: warmup, then 8 prompts x 96 greedy tokens
+      through the ragged kernel — every request must finish, the kernel
+      must launch once per layer per step, and nothing may compile after
+      warmup; the same prompts through the plain attention and one
+      seeded-sampling batch report their matched-prefix fraction;
+   b. legacy scheduling: 8 prompts of 8..32 tokens (two prefill
+      buckets) x 96 greedy tokens — the paged decode kernel must launch
+      once per layer per decode step and the ragged kernel never; again
+      with the dense cache (plain attention);
+   c. the prefix cache: 8 prompts sharing a 64-token (4-page) prefix —
+      hits, pages reused, and the allocator audit after the run;
+   d. speculation: ngram drafting on prompts that repeat n-grams, and a
+      2-layer cut of the same weights as the draft model — acceptance
+      ratios;
+   At full depth this model is numerically chaotic, so agreement between
+   paths is reported, not gated.  The same weights cut to 2 layers then
+   hold the tokens to references: every greedy token of the chunked
+   kernel engine and of the plain-attention engine must be the plain
+   full recompute's argmax, and the legacy (paged and dense), prefix
+   cache, ngram and draft engines must give the chunked engine's tokens
+   and reach the recompute's argmax.  Last, one chunked and one legacy
+   generate under torch.profiler: device kernel time by name and the
+   device's busy share;
 4. the server: GenerationBackend behind InferenceServer, 4 concurrent
-   clients, answers equal to a direct engine.generate.
+   clients, answers equal to a direct engine.generate, for a chunked and
+   a legacy engine.
 
-The line before the card's line is {"kernels": [...]}; the last line is
+The line before the card's line is {"kernels": [...]}, one entry per
+kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 The script imports nothing of JAX and nothing of paddle_tpu.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -61,11 +81,22 @@ FP32_FLOPS = 67e12
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
-KERNELS = [dict(
-    name="ragged_paged_attention", route="cuda",
-    source="paddle_tpu_torch/csrc/ragged_attention.cu",
-    replaces="paddle_tpu/generation/ragged_attention.py:101",
-    build="ragged_attention")]
+KERNELS = [
+    dict(name="ragged_paged_attention", route="cuda",
+         source="paddle_tpu_torch/csrc/ragged_attention.cu",
+         replaces="paddle_tpu/generation/ragged_attention.py:101",
+         build="ragged_attention"),
+    dict(name="paged_decode_attention", route="cuda",
+         source="paddle_tpu_torch/csrc/paged_decode.cu",
+         replaces="paddle_tpu/generation/attention.py:101",
+         build="paged_decode"),
+]
+#: legacy prompts: two prefill seq buckets (16 and 32) at page_size 16
+LEGACY_LENGTHS = (8, 12, 16, 20, 24, 28, 32, 32)
+#: shared prefix of the prefix-cache prompts: 4 full pages
+PREFIX_LEN = 64
+#: depth of the draft model: a cut of the target's own weights
+DRAFT_LAYERS = 2
 
 
 def log(msg):
@@ -87,17 +118,41 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+@functools.cache
+def _spin_cycles_per_ms():
+    """Clock cycles of torch.cuda._sleep per millisecond on this card."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
 def time_ms(fn, device, iters=200, warm=10):
-    """Mean milliseconds per call: CUDA events around ``iters`` calls on
-    the card (host clock on the CPU, for rehearsals)."""
+    """Mean milliseconds of DEVICE time per call on the card: the calls
+    are queued behind a spin kernel that outlasts the host's enqueueing
+    of them (three times its measured length), so the CUDA events around
+    them time the device's back-to-back execution, not the host's
+    dispatch of a Python wrapper.  Host clock on the CPU, for
+    rehearsals."""
     import torch
 
     for _ in range(warm):
         fn()
     sync(device)
     if device.type == "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        sync(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(3 * host_ms * _spin_cycles_per_ms()))
         start.record()
         for _ in range(iters):
             fn()
@@ -232,7 +287,121 @@ def kernel_phase(device, model_cfg):
     report["timing"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             bytes=nbytes, flops=flops)
-    return worst, report
+    report["max_abs_err"] = worst
+    return report
+
+
+def decode_case(rng, head_dim, device, tight=False):
+    """One legacy decode step's paged-decode inputs: MAX_SEQS slots,
+    hidden 768 split into heads of ``head_dim``, PAGE_SIZE-token pages,
+    lengths drawn from 0..MAX_SEQ_LEN with 0, 1, one page, one page + 1
+    and the full capacity among them.  The pool holds every slot's full
+    table (65 pages at the slice's shapes) or, ``tight``, only the live
+    pages, with the tables' tails on scratch page 0 as the cache leaves
+    them."""
+    import torch
+
+    H = 768
+    pps = MAX_SEQ_LEN // PAGE_SIZE
+    lens = rng.randint(0, MAX_SEQ_LEN + 1, MAX_SEQS)
+    lens[:5] = (0, 1, PAGE_SIZE, PAGE_SIZE + 1, MAX_SEQ_LEN)
+    live = [-(-int(n) // PAGE_SIZE) for n in lens]
+    num_pages = 1 + (sum(live) if tight else MAX_SEQS * pps)
+    pages = rng.permutation(np.arange(1, num_pages))
+    tables = np.zeros((MAX_SEQS, pps), np.int32)
+    at = 0
+    for s in range(MAX_SEQS):
+        n = live[s] if tight else pps
+        tables[s, :n] = pages[at:at + n]
+        at += n
+    g = torch.Generator().manual_seed(int(rng.randint(2 ** 31)))
+    kp = torch.randn(num_pages, PAGE_SIZE, H, generator=g)
+    vp = torch.randn(num_pages, PAGE_SIZE, H, generator=g)
+    q = torch.randn(MAX_SEQS, H, generator=g)
+    return dict(q=q.to(device), k_pages=kp.to(device), v_pages=vp.to(device),
+                page_table=torch.from_numpy(tables).to(device),
+                eff_lens=torch.from_numpy(lens.astype(np.int32)).to(device),
+                num_heads=H // head_dim)
+
+
+def decode_bound_ms(case):
+    """Least time for the slots' work: bytes = q + out + the table + the
+    lengths + K and V of every key < eff_len (each read once); ops = 2
+    flops per element of q.k and of p.v over every live key."""
+    lens = np.minimum(case["eff_lens"].cpu().numpy(), MAX_SEQ_LEN)
+    S, H = case["q"].shape
+    keys = int(lens.sum())
+    nbytes = (2 * S * H * 4 + case["page_table"].numel() * 4 + S * 4
+              + keys * H * 4 * 2)
+    flops = 4 * keys * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def decode_kernel_phase(device):
+    """The paged decode kernel against paged_ref_decode_attention: live
+    slots within KERNEL_ATOL, empty slots exactly zero."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.generation.attention import (
+        paged_decode_attention, paged_plain_decode_attention,
+        paged_ref_decode_attention)
+
+    rng = np.random.RandomState(SEED + 200)
+    cases = {"step": decode_case(rng, 64, device),
+             "head_dim_32": decode_case(rng, 32, device),
+             "head_dim_128": decode_case(rng, 128, device),
+             "tight_pool": decode_case(rng, 64, device, tight=True)}
+    worst = 0.0
+    report = {}
+    for name, c in cases.items():
+        out = paged_decode_attention(**c)
+        ref = paged_ref_decode_attention(**c)
+        sync(device)
+        live = c["eff_lens"] > 0
+        err = float((out[live] - ref[live]).abs().max())
+        zeros = bool((out[~live] == 0).all())
+        log(f"  paged decode {name}: S={MAX_SEQS} heads={c['num_heads']} "
+            f"pages={c['k_pages'].shape[0]} lens="
+            f"{c['eff_lens'].tolist()} max_abs_err={err:.3e} (atol "
+            f"{KERNEL_ATOL:g}) empty_slots_exact_zero={zeros}")
+        if not np.isfinite(err) or err > KERNEL_ATOL or not zeros:
+            raise AssertionError(f"paged decode kernel disagrees on {name}")
+        worst = max(worst, err)
+        report[name] = dict(heads=c["num_heads"],
+                            num_pages=int(c["k_pages"].shape[0]),
+                            lens=c["eff_lens"].tolist(), max_abs_err=err)
+
+    c = cases["step"]
+    ms = time_ms(lambda: paged_decode_attention(**c), device)
+    plain_ms = time_ms(lambda: paged_plain_decode_attention(**c), device)
+    # yardstick: PyTorch's fused attention over the slots' context,
+    # gathered beforehand (the port never calls it)
+    S, H = c["q"].shape
+    nh = c["num_heads"]
+    D = H // nh
+    L = c["page_table"].shape[1] * PAGE_SIZE
+    idx = c["page_table"].long()
+    kctx = c["k_pages"][idx].reshape(S, L, nh, D).transpose(1, 2)
+    vctx = c["v_pages"][idx].reshape(S, L, nh, D).transpose(1, 2)
+    qh = c["q"].reshape(S, nh, 1, D)
+    mask = (torch.arange(L, device=device)[None, None, None, :]
+            < c["eff_lens"].long()[:, None, None, None])
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kctx, vctx, attn_mask=mask), device)
+    bound_ms, bound_by, nbytes, flops = decode_bound_ms(c)
+    log(f"  paged decode timing (step case): ms={ms:.5f} plain_ms="
+        f"{plain_ms:.5f} library_ms(sdpa, context pre-gathered)="
+        f"{library_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} "
+        f"bytes, {flops} flops)")
+    report["timing"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            bytes=nbytes, flops=flops)
+    report["max_abs_err"] = worst
+    return report
 
 
 # -- phase 3: the engine ----------------------------------------------------
@@ -269,20 +438,26 @@ def recompute_gaps(params, model_cfg, prompts, results, device):
     """Teacher-forced comparison with lm_forward (the plain full
     recompute): for every generated position, how far the greedy token's
     logit falls below that position's max logit.  Returns
-    (worst gap, fraction of positions within GREEDY_LOGIT_TOL)."""
+    (worst gap, fraction of positions within GREEDY_LOGIT_TOL).
+    Sequences of equal length are recomputed as one batch."""
     import torch
 
     from paddle_tpu_torch.models import lm_forward
 
     seqs = [p + r.tokens[:-1] for p, r in zip(prompts, results)]
+    logits = [None] * len(seqs)
     with torch.no_grad():
-        logits = lm_forward(params, model_cfg,
-                            torch.tensor(seqs, device=device))
+        for n in sorted({len(q) for q in seqs}):
+            idx = [i for i, q in enumerate(seqs) if len(q) == n]
+            out = lm_forward(params, model_cfg, torch.tensor(
+                [seqs[i] for i in idx], device=device))
+            for j, i in enumerate(idx):
+                logits[i] = out[j]
     gaps = []
     for b, (p, r) in enumerate(zip(prompts, results)):
         pos = torch.arange(len(p) - 1, len(p) - 1 + len(r.tokens),
                            device=device)
-        row = logits[b, pos]
+        row = logits[b][pos]
         chosen = row.gather(1, torch.tensor(r.tokens, device=device)[:, None])
         gaps.append((row.max(dim=1).values - chosen[:, 0]).cpu().numpy())
     gaps = np.concatenate(gaps)
@@ -375,10 +550,8 @@ def reference_phase(device, model_cfg, gen_cfg, params, layers, n_prompts,
     plain-attention engine must be the plain full recompute's argmax
     (within GREEDY_LOGIT_TOL) at every position."""
     from paddle_tpu_torch.generation import GenerationEngine, SamplingParams
-    from paddle_tpu_torch.models import lm_param_names
 
-    cut = dataclasses.replace(model_cfg, num_layers=layers)
-    cut_params = {n: params[n] for n in lm_param_names(cut)}
+    cut, cut_params = cut_model(model_cfg, params, layers)
     prompts = make_prompts(np.random.RandomState(SEED + 3), n_prompts,
                            prompt_len, cut.vocab_size)
     greedy = SamplingParams(max_new_tokens=max_new)
@@ -399,17 +572,261 @@ def reference_phase(device, model_cfg, gen_cfg, params, layers, n_prompts,
         if not out[name]["worst_gap"] <= GREEDY_LOGIT_TOL:
             raise AssertionError(
                 f"{name} engine: a greedy token is not the recompute argmax")
-    return dict(layers=layers, matched_prefix=match,
-                **{f"{n}_worst_gap": v["worst_gap"] for n, v in out.items()})
+    report = dict(layers=layers, matched_prefix=match,
+                  **{f"{n}_worst_gap": v["worst_gap"] for n, v in out.items()})
+    report["features"] = feature_gates(device, cut, gen_cfg, cut_params)
+    return report
 
 
-def profile_phase(engine, model_cfg, device, max_new=32):
+def cut_model(model_cfg, params, layers):
+    """The same weights cut to ``layers`` layers."""
+    from paddle_tpu_torch.models import lm_param_names
+
+    cut = dataclasses.replace(model_cfg, num_layers=layers)
+    return cut, {n: params[n] for n in lm_param_names(cut)}
+
+
+def legacy_prompts(vocab):
+    rng = np.random.RandomState(SEED + 5)
+    return [rng.randint(1, vocab, (n,)).tolist() for n in LEGACY_LENGTHS]
+
+
+def prefix_prompts(vocab):
+    """A 64-token system prompt alone (the request that publishes it),
+    then 8 prompts that share it, with tails of 1..8 tokens."""
+    rng = np.random.RandomState(SEED + 6)
+    system = rng.randint(1, vocab, (PREFIX_LEN,)).tolist()
+    tails = [rng.randint(1, vocab, (n,)).tolist()
+             for n in (1, 5, 2, 8, 3, 7, 4, 6)]
+    return [system], [system + t for t in tails]
+
+
+def spec_prompts(vocab):
+    """8 prompts that repeat short patterns, so suffix n-grams recur."""
+    rng = np.random.RandomState(SEED + 7)
+    return [np.tile(rng.randint(1, vocab, (n,)), reps).tolist()
+            for n, reps in ((3, 8), (4, 6), (5, 5), (2, 12), (6, 4),
+                            (8, 3), (4, 8), (7, 4))]
+
+
+def run_feature(device, model_cfg, gen_cfg, params, feature, prompts,
+                max_new):
+    """One engine with ``feature`` on: warmup, then ``prompts`` (a list
+    of prompt lists, generated one call after another) with greedy
+    sampling.  Returns (engine, results of the last call, launches of
+    all calls, wall seconds).  A draft model is the first DRAFT_LAYERS
+    layers of the same weights."""
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.generation import GenerationEngine, SamplingParams
+
+    kw = dict(FEATURES[feature])
+    draft = None
+    if kw.get("speculation") == "draft":
+        draft = cut_model(model_cfg, params, DRAFT_LAYERS)
+    eng = GenerationEngine(model_cfg, params,
+                           dataclasses.replace(gen_cfg, **kw),
+                           device=device, draft_model=draft)
+    eng.warmup()
+    sync(device)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for batch in prompts:
+        results = eng.generate(batch, SamplingParams(max_new_tokens=max_new))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    return eng, results, launches, wall
+
+
+#: engine configurations of the phase-3 paths beyond chunked scheduling
+FEATURES = {
+    "chunked": {},
+    "legacy_paged": dict(scheduling="legacy"),
+    "legacy_dense": dict(scheduling="legacy", use_paged=False),
+    "prefix_cache": dict(prefix_cache=True),
+    "ngram": dict(speculation="ngram", spec_k=4),
+    "draft": dict(speculation="draft", spec_k=4),
+}
+
+
+def feature_gates(device, cut, gen_cfg, cut_params):
+    """At the reference depth: every feature engine's greedy tokens must
+    equal the chunked engine's on the same prompts (the same engine with
+    the feature off) and reach the plain recompute's argmax within
+    GREEDY_LOGIT_TOL."""
+    workloads = {
+        "legacy_paged": ([legacy_prompts(cut.vocab_size)], MAX_NEW),
+        "legacy_dense": ([legacy_prompts(cut.vocab_size)], MAX_NEW),
+        "prefix_cache": (list(prefix_prompts(cut.vocab_size)), 32),
+        "ngram": ([spec_prompts(cut.vocab_size)], MAX_NEW),
+        "draft": ([spec_prompts(cut.vocab_size)], MAX_NEW),
+    }
+    out = {}
+    base_cache = {}
+    for feature, (prompts, max_new) in workloads.items():
+        key = (str(prompts), max_new)
+        if key not in base_cache:
+            base_cache[key] = run_feature(device, cut, gen_cfg, cut_params,
+                                          "chunked", prompts, max_new)[1]
+        base = base_cache[key]
+        eng, results, _, _ = run_feature(
+            device, cut, gen_cfg, cut_params, feature, prompts, max_new)
+        same = all(a.tokens == b.tokens for a, b in zip(results, base))
+        gap, agree = recompute_gaps(cut_params, cut, prompts[-1], results,
+                                    device)
+        snap = eng.stats.snapshot()
+        log(f"  depth {cut.num_layers} {feature}: tokens equal to the "
+            f"chunked engine's: {same}; worst logit gap to the recompute's "
+            f"argmax {gap:.3e} (tol {GREEDY_LOGIT_TOL:g})"
+            + (f"; accept ratio {snap['spec_accept_ratio']}"
+               if feature in ("ngram", "draft") else "")
+            + (f"; prefix hits {snap['prefix_hits']}"
+               if feature == "prefix_cache" else ""))
+        if not same:
+            raise AssertionError(
+                f"depth {cut.num_layers} {feature}: tokens differ from the "
+                f"chunked engine's")
+        if not gap <= GREEDY_LOGIT_TOL:
+            raise AssertionError(
+                f"depth {cut.num_layers} {feature}: a greedy token is not "
+                f"the recompute argmax")
+        out[feature] = dict(equal_to_chunked=same, worst_gap=gap,
+                            recompute_agreement=agree,
+                            spec_accept_ratio=snap["spec_accept_ratio"],
+                            prefix_hits=snap["prefix_hits"])
+    return out
+
+
+def check_finished(results, max_new, vocab, what):
+    if any(r is None or len(r.tokens) != max_new
+           or r.finish_reason != "length" for r in results):
+        raise AssertionError(f"{what}: a greedy request did not finish")
+    if not all(0 <= t < vocab for r in results for t in r.tokens):
+        raise AssertionError(f"{what}: token id out of the vocabulary")
+
+
+def feature_phase(device, model_cfg, gen_cfg, params):
+    """Phase 3b-d at full depth: legacy scheduling (paged and dense), the
+    prefix cache and speculation (ngram and draft).  Each path's launch
+    counts are set to 0 just before it runs and read just after.
+    Returns (report, {feature: engine})."""
+    L, V = model_cfg.num_layers, model_cfg.vocab_size
+    # launches expected of a kernel path: one per layer per step on the
+    # card, none on the CPU (a rehearsal there runs the plain versions)
+    per_step = L if device.type == "cuda" else 0
+    report, engines, results = {}, {}, {}
+
+    def run(feature, prompts, max_new, name=None):
+        name = name or feature
+        eng, res, launches, wall = run_feature(
+            device, model_cfg, gen_cfg, params, feature, prompts, max_new)
+        snap = eng.stats.snapshot()
+        check_finished(res, max_new, V, name)
+        if snap["compiles_after_warmup"] != 0:
+            raise AssertionError(f"{name}: compiled after warmup")
+        engines[name], results[name] = eng, res
+        n_steps = (snap["decode_steps"] if feature.startswith("legacy")
+                   else snap["steps"])
+        report[name] = dict(
+            steps=n_steps, prefill_batches=snap["prefill_batches"],
+            launches=launches, wall_s=wall,
+            prefill_tokens=snap["prefill_tokens"],
+            prefill_tokens_per_sec=snap["prefill_tokens_per_sec"],
+            decode_tokens_per_sec=snap["decode_tokens_per_sec"],
+            inter_token=snap["inter_token"])
+        return eng, res, launches, snap, n_steps
+
+    # b. legacy scheduling: the paged decode kernel, once per layer per
+    # decode step; the ragged kernel never
+    for feature in ("legacy_paged", "legacy_dense"):
+        _, _, launches, snap, steps = run(feature, [legacy_prompts(V)],
+                                          MAX_NEW)
+        n_dec = launches.get("paged_decode_attention", 0)
+        n_rag = launches.get("ragged_paged_attention", 0)
+        want = per_step * steps if feature == "legacy_paged" else 0
+        log(f"  {feature}: prompts {LEGACY_LENGTHS} x {MAX_NEW} greedy, "
+            f"{snap['prefill_batches']} prefills + {steps} decode steps in "
+            f"{report[feature]['wall_s']:.3f} s; prefill "
+            f"{snap['prefill_tokens_per_sec']} tok/s, decode "
+            f"{snap['decode_tokens_per_sec']} tok/s; paged decode launches "
+            f"{n_dec} (= {want}? {n_dec == want}), ragged launches {n_rag}; "
+            f"compiles_after_warmup={snap['compiles_after_warmup']}")
+        if n_dec != want or n_rag != 0:
+            raise AssertionError(
+                f"{feature}: paged decode launched {n_dec} times (expected "
+                f"{want}), ragged {n_rag} times (expected 0)")
+    run("chunked", [legacy_prompts(V)], MAX_NEW, "chunked_legacy_prompts")
+    report["legacy_matched_prefix"] = dict(
+        paged_vs_dense=matched_prefix(results["legacy_paged"],
+                                      results["legacy_dense"]),
+        paged_vs_chunked=matched_prefix(results["legacy_paged"],
+                                        results["chunked_legacy_prompts"]))
+    log(f"  legacy matched-prefix fractions (reported, not gated): "
+        f"{report['legacy_matched_prefix']}")
+
+    # c. the prefix cache: a system prompt published, then 8 prompts
+    # sharing it
+    eng, _, launches, snap, steps = run("prefix_cache",
+                                        list(prefix_prompts(V)), 32)
+    eng.cache.check_invariants()
+    n_rag = launches.get("ragged_paged_attention", 0)
+    run("chunked", list(prefix_prompts(V)), 32, "chunked_prefix_prompts")
+    off = report["chunked_prefix_prompts"]
+    report["prefix_cache"].update(
+        hits=snap["prefix_hits"], lookups=snap["prefix_lookups"],
+        pages_reused=snap["prefix_pages_reused"],
+        cow_copies=snap["prefix_cow_copies"],
+        retained_pages=eng.cache.retained_pages(),
+        matched_prefix_vs_cache_off=matched_prefix(
+            results["prefix_cache"], results["chunked_prefix_prompts"]))
+    log(f"  prefix_cache: {snap['prefix_hits']}/{snap['prefix_lookups']} "
+        f"admissions hit, {snap['prefix_pages_reused']} pages reused, "
+        f"prefill tokens {snap['prefill_tokens']} (cache off "
+        f"{off['prefill_tokens']}), invariants hold; ragged "
+        f"launches {n_rag} (= {per_step} x {steps}? "
+        f"{n_rag == per_step * steps}); matched prefix vs cache off "
+        f"{report['prefix_cache']['matched_prefix_vs_cache_off']:.4f}")
+    if not (snap["prefix_hits"] > 0 and snap["prefix_pages_reused"] > 0):
+        raise AssertionError("prefix cache: no hits")
+    if n_rag != per_step * steps:
+        raise AssertionError("prefix cache: ragged launches != L x steps")
+
+    # d. speculation: ngram drafting and a 2-layer draft model
+    run("chunked", [spec_prompts(V)], MAX_NEW, "chunked_spec_prompts")
+    base_steps = report["chunked_spec_prompts"]["steps"]
+    for feature in ("ngram", "draft"):
+        eng, _, launches, snap, steps = run(feature, [spec_prompts(V)],
+                                            MAX_NEW)
+        n_rag = launches.get("ragged_paged_attention", 0)
+        report[feature].update(
+            drafted=snap["spec_drafted"], accepted=snap["spec_accepted"],
+            accept_ratio=snap["spec_accept_ratio"],
+            steps_without_speculation=base_steps,
+            matched_prefix_vs_off=matched_prefix(
+                results[feature], results["chunked_spec_prompts"]))
+        eng.cache.check_invariants()
+        log(f"  {feature}: accepted {snap['spec_accepted']} of "
+            f"{snap['spec_drafted']} drafted (ratio "
+            f"{snap['spec_accept_ratio']}); {steps} steps (without "
+            f"speculation {base_steps}) in {report[feature]['wall_s']:.3f} "
+            f"s; ragged launches {n_rag} (= {per_step} x {steps}? "
+            f"{n_rag == per_step * steps}); matched prefix vs speculation off "
+            f"{report[feature]['matched_prefix_vs_off']:.4f}")
+        if n_rag != per_step * steps:
+            raise AssertionError(f"{feature}: ragged launches != L x steps")
+    return report, engines
+
+
+def profile_phase(engine, model_cfg, device, max_new=32, steps_key="steps",
+                  kernel="ragged_attention"):
     """Where a generate call's time goes: torch.profiler over one greedy
     generate (8 prompts), device kernel time by name, and the device's
     busy share of the profiled wall time (kernel intervals merged).  The
     profiler's own host overhead lengthens the wall, so the busy share
-    is a lower bound.  Device times are None when the profiler records
-    no device activity."""
+    is a lower bound.  Per-step numbers divide by the snapshot's
+    ``steps_key`` (unified steps, or legacy decode steps); ``kernel``
+    names the attention kernel whose time is reported apart.  Device
+    times are None when the profiler records no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -421,7 +838,7 @@ def profile_phase(engine, model_cfg, device, max_new=32):
     sp = SamplingParams(max_new_tokens=max_new)
     engine.generate(prompts, sp)
     sync(device)
-    steps0 = engine.stats.snapshot()["steps"]
+    steps0 = engine.stats.snapshot()[steps_key]
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
@@ -430,7 +847,7 @@ def profile_phase(engine, model_cfg, device, max_new=32):
         engine.generate(prompts, sp)
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
-    steps = engine.stats.snapshot()["steps"] - steps0
+    steps = engine.stats.snapshot()[steps_key] - steps0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     by_name = {}
@@ -445,23 +862,23 @@ def profile_phase(engine, model_cfg, device, max_new=32):
             cur_end = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     kernel_us = sum(by_name.values())
-    ragged_us = sum(us for name, us in by_name.items()
-                    if "ragged_attention" in name)
+    attn_us = sum(us for name, us in by_name.items() if kernel in name)
     out = dict(steps=steps, wall_ms_per_step=wall_us / 1e3 / steps,
                device_kernels=len(spans))
     if spans:
         out.update(
             device_busy_share=busy / wall_us,
             device_ms_per_step=kernel_us / 1e3 / steps,
-            ragged_ms_per_step=ragged_us / 1e3 / steps,
+            attention_kernel=kernel,
+            attention_ms_per_step=attn_us / 1e3 / steps,
             kernels_per_step=len(spans) / steps,
             top_kernels_ms=[(name[:80], us / 1e3) for name, us in top])
-        log(f"  profiled generate (8 x {max_new} greedy): {steps} steps, "
-            f"{out['wall_ms_per_step']:.3f} ms/step wall under the "
-            f"profiler, device kernels {out['device_ms_per_step']:.3f} "
+        log(f"  profiled generate (8 x {max_new} greedy): {steps} "
+            f"{steps_key}, {out['wall_ms_per_step']:.3f} ms/step wall under "
+            f"the profiler, device kernels {out['device_ms_per_step']:.3f} "
             f"ms/step ({out['kernels_per_step']:.1f} kernels/step), busy "
-            f"share {out['device_busy_share']:.4f}, ragged attention "
-            f"{out['ragged_ms_per_step']:.4f} ms/step")
+            f"share {out['device_busy_share']:.4f}, {kernel} "
+            f"{out['attention_ms_per_step']:.4f} ms/step")
         for name, ms in out["top_kernels_ms"]:
             log(f"    {ms:9.3f} ms  {name}")
     else:
@@ -553,7 +970,9 @@ def main():
         model_cfg = dataclasses.replace(BertConfig.base(),
                                         initializer_range=0.6)
         log("[2] kernels against their plain versions")
-        worst, report["kernels"] = kernel_phase(device, model_cfg)
+        report["kernels"] = {
+            "ragged_paged_attention": kernel_phase(device, model_cfg),
+            "paged_decode_attention": decode_kernel_phase(device)}
 
         log("[3] engine at BertConfig.base() width")
         t0 = time.perf_counter()
@@ -564,25 +983,43 @@ def main():
         engine, params, report["engine"] = engine_phase(
             device, model_cfg, gen_cfg, N_PROMPTS, PROMPT_LEN, MAX_NEW,
             params_np)
+        report["features"], engines = feature_phase(device, model_cfg,
+                                                    gen_cfg, params)
+        # each kernel's launches on its own path's main run
+        report["kernels"]["ragged_paged_attention"]["launches"] = \
+            report["engine"]["launches"]
+        report["kernels"]["paged_decode_attention"]["launches"] = \
+            report["features"]["legacy_paged"]["launches"].get(
+                "paged_decode_attention", 0)
         report["reference"] = reference_phase(
             device, model_cfg, gen_cfg, params, REFERENCE_LAYERS, N_PROMPTS,
             PROMPT_LEN, MAX_NEW)
-        report["profile"] = profile_phase(engine, model_cfg, device)
+        legacy = engines["legacy_paged"]
+        report["profile"] = {
+            "chunked": profile_phase(engine, model_cfg, device),
+            "legacy": profile_phase(legacy, model_cfg, device,
+                                    steps_key="decode_steps",
+                                    kernel="paged_decode")}
 
         log("[4] server")
-        report["server"] = server_phase(engine, model_cfg)
+        report["server"] = {
+            "chunked": server_phase(engine, model_cfg),
+            "legacy": server_phase(legacy, model_cfg)}
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    t = report["kernels"]["timing"]
-    line = {"kernels": [dict(
-        name=k["name"], route=k["route"], source=k["source"],
-        replaces=k["replaces"], launches=report["engine"]["launches"],
-        max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"],
-        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=t["library_ms"]) for k in KERNELS]}
+    line = {"kernels": []}
+    for k in KERNELS:
+        r = report["kernels"][k["name"]]
+        t = r["timing"]
+        line["kernels"].append(dict(
+            name=k["name"], route=k["route"], source=k["source"],
+            replaces=k["replaces"], launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     OUT_DIR.mkdir(exist_ok=True)
     report["card"] = card
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,

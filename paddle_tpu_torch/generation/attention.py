@@ -1,12 +1,23 @@
-"""Plain paged decode attention: one query token per sequence attends
-over that sequence's page list.
+"""Paged decode attention: one query token per sequence attends over
+that sequence's page list — the attention of the legacy scheduler's
+decode step.
 
-Counterpart of the plain half of paddle_tpu/generation/attention.py.
-``gathered_decode_attention`` is the one masked-softmax function every
-plain attention of the generation path reduces to (f32 scores and
-softmax whatever the input dtype); ``paged_ref_decode_attention``
-gathers a page list into the contiguous layout first.  The paged decode
-kernel serves the legacy scheduler and comes with it in a later slice.
+Counterpart of paddle_tpu/generation/attention.py.  Two implementations
+behind one entry point, ``paged_decode_attention``, chosen by where the
+tensors live and nothing else:
+
+* ``csrc/paged_decode.cu`` — the hand-written CUDA kernel for Hopper
+  (sm_90a), float32.  ``paged_kernel_decode_attention`` launches it for
+  CUDA tensors, adds one to ``_cuda.LAUNCHES["paged_decode_attention"]``
+  per launch, and raises on anything it cannot take; there is no
+  fallback.
+* ``paged_ref_decode_attention`` — plain PyTorch, the JAX reference:
+  gather a page list into the contiguous layout, then
+  ``gathered_decode_attention``, the one masked-softmax function every
+  plain attention of the generation path reduces to (f32 scores and
+  softmax whatever the input dtype).  ``paged_plain_decode_attention``
+  zeroes its empty slots as the kernel does; CPU tensors take it, and
+  ``chip_smoke.py`` holds the kernel against it on the card.
 
 Shapes (packed head layout, H = num_heads * d_head):
   q [S, H]; k_pages/v_pages [num_pages, page_size, H];
@@ -15,19 +26,31 @@ Shapes (packed head layout, H = num_heads * d_head):
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from .. import _cuda
 from ..ops.attention import _NEG_INF
 
 __all__ = ["paged_decode_shapes_ok", "gathered_decode_attention",
-           "paged_ref_decode_attention"]
+           "paged_ref_decode_attention", "paged_plain_decode_attention",
+           "paged_kernel_decode_attention", "paged_decode_attention",
+           "KERNEL"]
+
+#: source name of the kernel (csrc/paged_decode.cu)
+KERNEL = "paged_decode"
+_COUNTER = "paged_decode_attention"
+#: shared memory the kernel's per-slot scores and page ids may take: a
+#: launch's default 48 KB less the kernel's static buffers
+_SMEM_BYTES = 43 * 1024
 
 
 def paged_decode_shapes_ok(page_size, hidden, num_heads):
-    """Shape gate of the TPU decode kernels: whole heads in 128-lane
-    tiles and sublane-aligned pages."""
+    """Shapes the decode kernels take: whole heads of at most 128 that
+    divide 128 (the TPU's lane tile; on the card, whole float4 lane
+    groups), and pages of a multiple of 8 tokens."""
     if hidden % num_heads:
         return False
     d = hidden // num_heads
@@ -65,3 +88,97 @@ def paged_ref_decode_attention(q, k_pages, v_pages, page_table, eff_lens,
     v_ctx = v_pages[idx].reshape(S, -1, H)
     return gathered_decode_attention(q, k_ctx, v_ctx, eff_lens, num_heads,
                                      sm_scale=sm_scale)
+
+
+def paged_plain_decode_attention(q, k_pages, v_pages, page_table, eff_lens,
+                                 num_heads, sm_scale=None):
+    """The kernel's function in plain PyTorch, wherever the tensors
+    live: the reference, with empty slots zeroed (the reference alone
+    averages their masked keys)."""
+    out = paged_ref_decode_attention(q, k_pages, v_pages, page_table,
+                                     eff_lens, num_heads, sm_scale=sm_scale)
+    active = (eff_lens.to(out.device) > 0)[:, None]
+    return torch.where(active, out, torch.zeros_like(out))
+
+
+def _bind(lib):
+    fn = lib.paged_decode_attention_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p,
+                       i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    return fn
+
+
+def paged_kernel_decode_attention(q, k_pages, v_pages, page_table,
+                                  eff_lens, num_heads, sm_scale=None):
+    """Launch the CUDA kernel (CUDA tensors only; see module doc)."""
+    S, H = q.shape
+    NP, PS, Hk = k_pages.shape
+    if H % num_heads:
+        raise ValueError(f"hidden {H} does not split into {num_heads} heads")
+    D = H // num_heads
+    if D < 4 or D > 128 or 128 % D:
+        raise ValueError(
+            f"head_dim {D}: the kernel takes head_dim in "
+            f"{{4, 8, 16, 32, 64, 128}}")
+    if S > 65535:
+        raise ValueError(f"{S} sequences exceed the kernel's grid (65535)")
+    if Hk != H or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"q [.., {H}] does not match pages {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != S:
+        raise ValueError(
+            f"page_table {tuple(page_table.shape)} must have {S} rows")
+    if page_table.shape[1] * (PS * 4 + 4) > _SMEM_BYTES:
+        raise ValueError(
+            f"{page_table.shape[1]} pages of {PS} exceed the kernel's "
+            f"shared memory ({_SMEM_BYTES} bytes of scores and page ids)")
+    if tuple(eff_lens.shape) != (S,):
+        raise ValueError(f"eff_lens {tuple(eff_lens.shape)} must be [{S}]")
+    for name, t, dt in (("q", q, torch.float32),
+                        ("k_pages", k_pages, torch.float32),
+                        ("v_pages", v_pages, torch.float32),
+                        ("page_table", page_table, torch.int32),
+                        ("eff_lens", eff_lens, torch.int32)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if name != "q" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.stride(1) != 1:
+        raise ValueError("q rows must be contiguous (stride(1) == 1)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("k_pages / v_pages must be 16-byte aligned")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    out = torch.empty((S, H), dtype=q.dtype, device=q.device)
+    lib = _cuda.library(KERNEL)
+    fn = _bind(lib)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), q.stride(0), k_pages.data_ptr(),
+                v_pages.data_ptr(), page_table.data_ptr(),
+                eff_lens.data_ptr(), out.data_ptr(), S, H, num_heads, PS,
+                NP, page_table.shape[1], float(sm_scale), stream)
+    _cuda.check(lib, rc, "paged_decode_attention launch")
+    _cuda.LAUNCHES[_COUNTER] += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, eff_lens,
+                           num_heads, sm_scale=None):
+    """Public entry: the CUDA kernel for tensors on a CUDA device, the
+    plain version for tensors on the CPU."""
+    if q.device.type == "cuda":
+        return paged_kernel_decode_attention(
+            q, k_pages, v_pages, page_table, eff_lens, num_heads,
+            sm_scale=sm_scale)
+    if q.device.type == "cpu":
+        return paged_plain_decode_attention(
+            q, k_pages, v_pages, page_table, eff_lens, num_heads,
+            sm_scale=sm_scale)
+    raise ValueError(f"no paged decode attention for device {q.device}")

@@ -22,9 +22,10 @@ import torch
 
 from ..ops.attention import _NEG_INF
 from . import _threefry
+from ._xla_math import xla_cumsum, xla_softmax
 
 __all__ = ["SamplingParams", "sample_tokens_folded", "fold_data_for",
-           "root_key_data", "batch_sampling_arrays"]
+           "root_key_data", "batch_sampling_arrays", "speculative_accept"]
 
 #: bits reserved for the token position inside a fold word
 _POS_BITS = 20
@@ -72,7 +73,8 @@ class SamplingParams:
 
 def _truncate(logits, temperatures, top_ks, top_ps):
     """Temperature scaling + top-k + top-p truncation; rows with
-    temperature 0 pass through (their draw is replaced by the argmax)."""
+    temperature 0 pass through (their draw is replaced by the argmax).
+    Kept sets and kept values equal the JAX sampler's exactly."""
     S, V = logits.shape
     neg = torch.full_like(logits, _NEG_INF)
     safe_t = torch.where(temperatures > 0, temperatures,
@@ -88,12 +90,12 @@ def _truncate(logits, temperatures, top_ks, top_ps):
 
     # top-p over the top-k-truncated distribution: keep the smallest
     # prefix of descending-probability tokens whose mass reaches top_p
-    # (the top-1 token always survives)
-    mx = scaled.max(dim=-1, keepdim=True).values
-    unnorm = torch.exp(scaled - mx)
-    probs = unnorm / unnorm.sum(dim=-1, keepdim=True)
+    # (the top-1 token always survives).  Probabilities and running mass
+    # are the reference's to the last bit (_xla_math), so a token on the
+    # nucleus boundary falls on the same side in both packages.
+    probs = xla_softmax(scaled)
     p_desc = torch.sort(probs, dim=-1, descending=True).values
-    csum = torch.cumsum(p_desc, dim=-1)
+    csum = xla_cumsum(p_desc)
     n_keep = ((csum - p_desc) < top_ps[:, None]).sum(dim=-1).clamp_min(1)
     p_min = p_desc.gather(1, (n_keep - 1)[:, None])
     return torch.where(probs >= p_min, scaled, neg)
@@ -117,6 +119,32 @@ def sample_tokens_folded(logits, root_data, fold_data, temperatures,
                              fold_data)
     drawn = _threefry.categorical(keys, scaled)
     return torch.where(temperatures > 0, drawn, greedy)
+
+
+def speculative_accept(draft_tokens, model_tokens):
+    """Speculative rejection on folded keys: given the K drafted tokens
+    of a verify window and the model's own samples at the same (request,
+    position) folds, return ``(n_accepted, emitted)``.
+
+    The model's sample at every position is a deterministic function of
+    the prefix (its key is a pure function of request uid and position),
+    so the rejection rule is exact prefix matching: draft j is accepted
+    iff it equals the token the model samples there anyway.  ``emitted``
+    is the accepted prefix plus the model's sample at the first mismatch
+    — token for token what plain decoding produces, greedy or seeded.
+
+    ``draft_tokens`` [K] are the proposals for positions p+1..p+K;
+    ``model_tokens`` [K+1] the model's samples at positions p+1..p+K+1
+    (row 0 of the window feeds the committed last token)."""
+    drafts = np.asarray(draft_tokens, np.int64).reshape(-1)
+    model = np.asarray(model_tokens, np.int64).reshape(-1)
+    if model.size != drafts.size + 1:
+        raise ValueError(
+            f"model_tokens must have len(draft_tokens)+1 samples, got "
+            f"{model.size} for {drafts.size} drafts")
+    mismatch = drafts != model[:drafts.size]
+    n_acc = int(np.argmax(mismatch)) if mismatch.any() else drafts.size
+    return n_acc, model[:n_acc + 1].astype(np.int32)
 
 
 def batch_sampling_arrays(params_list, size):

@@ -243,17 +243,24 @@ class ServingStats:
         return path
 
 
+#: the paged cache's prefix counters, as ``prefix_counters()`` names them
+_PREFIX_COUNTERS = ("lookups", "hits", "pages_reused", "pages_evicted",
+                    "cow_copies")
+
+
 class GenerationStats:
     """Counters for one generation engine: phase-split token throughput
     (prefill and decode must not be averaged together), unified steps,
-    KV page occupancy, inter-token latency and the compile accounting
+    KV page occupancy, inter-token latency, speculative acceptance, the
+    prefix cache's reuse and the compile accounting
     (`compiles_after_warmup == 0` is the steady-state contract)."""
 
     def __init__(self):
         self._c = _Counters(
             "prefill_tok", "prefill_batches", "prefill_s", "decode_tok",
             "decode_steps", "decode_s", "done", "chunks", "steps",
-            "compiles")
+            "spec_drafted", "spec_accepted", "compiles",
+            *(f"prefix_{n}" for n in _PREFIX_COUNTERS))
         self._itl = LatencyHistogram()
         self._occ = LatencyHistogram(
             bounds=tuple(i / 20 for i in range(1, 21)))
@@ -286,6 +293,19 @@ class GenerationStats:
         sequence — the streaming latency chunked scheduling protects."""
         self._itl.observe(ms)
 
+    def on_spec(self, drafted, accepted):
+        """One speculative verify window: ``drafted`` tokens proposed,
+        ``accepted`` of them matched the model's own samples."""
+        self._c.inc("spec_drafted", int(drafted))
+        self._c.inc("spec_accepted", int(accepted))
+
+    def update_prefix(self, counters):
+        """Take the paged cache's monotonic prefix counters
+        (``PagedKVCache.prefix_counters()``); the engine calls this once
+        per step."""
+        for name in _PREFIX_COUNTERS:
+            self._c.set(f"prefix_{name}", counters.get(name, 0))
+
     def set_compiles(self, total):
         self._c.set("compiles", total)
 
@@ -304,6 +324,9 @@ class GenerationStats:
         occ_n, occ_sum, occ_max, _ = self._occ.state()
         compiles_total = int(c["compiles"])
         itl = self._itl.summary()
+        spec_drafted = int(c["spec_drafted"])
+        spec_accepted = int(c["spec_accepted"])
+        pfx = {n: int(c[f"prefix_{n}"]) for n in _PREFIX_COUNTERS}
         snap = {
             "schema_version": SNAPSHOT_SCHEMA_VERSION,
             "requests_done": int(c["done"]),
@@ -325,7 +348,20 @@ class GenerationStats:
                 round(occ_sum / occ_n, 4) if occ_n else None),
             "cache_occupancy_max": round(occ_max, 4),
             "prefill_chunks": int(c["chunks"]),
+            "spec_drafted": spec_drafted,
+            "spec_accepted": spec_accepted,
+            "spec_accept_ratio": (
+                round(spec_accepted / spec_drafted, 4)
+                if spec_drafted else None),
             "inter_token": itl,
+            "prefix_lookups": pfx["lookups"],
+            "prefix_hits": pfx["hits"],
+            "prefix_hit_rate": (
+                round(pfx["hits"] / pfx["lookups"], 4)
+                if pfx["lookups"] else None),
+            "prefix_pages_reused": pfx["pages_reused"],
+            "prefix_pages_evicted": pfx["pages_evicted"],
+            "prefix_cow_copies": pfx["cow_copies"],
             "compiles_total": compiles_total,
             "compiles_at_warmup": caw,
             "compiles_after_warmup": (
@@ -339,6 +375,13 @@ class GenerationStats:
             "decode_tokens_total": snap["decode_tokens"],
             "decode_steps_total": snap["decode_steps"],
             "prefill_chunks_total": snap["prefill_chunks"],
+            "spec_drafted_total": snap["spec_drafted"],
+            "spec_accepted_total": snap["spec_accepted"],
+            "prefix_lookups_total": snap["prefix_lookups"],
+            "prefix_hit_total": snap["prefix_hits"],
+            "prefix_pages_reused_total": snap["prefix_pages_reused"],
+            "prefix_pages_evicted_total": snap["prefix_pages_evicted"],
+            "prefix_cow_total": snap["prefix_cow_copies"],
             "inter_token_ms": itl,
         })
         return snap

@@ -152,15 +152,26 @@ def test_engine_guards():
     with pytest.raises(ValueError, match="max_position"):
         GenerationEngine(CFG, PARAMS, GenerationConfig(
             page_size=8, max_seq_len=256), device="cpu")
-    for kw in (dict(scheduling="legacy"), dict(speculation="ngram"),
-               dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            GenerationEngine(CFG, PARAMS, GenerationConfig(**GEN, **kw),
-                             device="cpu")
-    with pytest.raises(NotImplementedError):
-        GenerationEngine(CFG, PARAMS, GenerationConfig(**GEN),
-                         device="cpu", draft_model=object())
+    # the JAX engine's configuration checks, ported with it
+    for kw, match in ((dict(scheduling="legacy", speculation="ngram"),
+                       "chunked"),
+                      (dict(scheduling="legacy", prefix_cache=True),
+                       "chunked"),
+                      (dict(use_paged=False, prefix_cache=True),
+                       "use_paged"),
+                      (dict(speculation="ngram", spec_k=16), "spec_k"),
+                      (dict(speculation="beam"), "speculation"),
+                      (dict(prefill_seq_buckets=(8, 128)), "exceed")):
+        with pytest.raises(ValueError, match=match):
+            GenerationConfig(**GEN, **kw)
+    with pytest.raises(ValueError, match="draft_model"):
+        GenerationEngine(CFG, PARAMS, GenerationConfig(
+            **GEN, speculation="draft"), device="cpu")
     port = _port()
+    # the cluster prefill/decode handoff is a later slice
+    for name in ("prefill_detached", "decode_prefilled", "stream_open"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            getattr(port, name)([1, 2, 3])
     with pytest.raises(ValueError, match="empty"):
         list(port.stream([[]]))
     with pytest.raises(ValueError, match="max_seq_len"):

@@ -5,8 +5,9 @@ hash, ``fold_in``, the random bits, the uniforms and the Gumbel noise of
 ``paddle_tpu_torch.generation._threefry`` must equal ``jax.random``'s
 exactly (compared as uint32 / float32 bit patterns, tolerance 0), and
 ``sample_tokens_folded`` must pick the same token in every row.  The
-truncation (temperature, top-k, top-p) must keep the same sets, up to
-tokens on the nucleus boundary (see test_truncate_keeps_the_same_sets).
+truncation (temperature, top-k, top-p) must keep the same sets with the
+same values, bit for bit: its softmax and running sums are XLA's CPU
+arithmetic, reproduced in ``_xla_math``.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu.generation import sampler as jsampler
-from paddle_tpu_torch.generation import (SamplingParams, _threefry,
+from paddle_tpu_torch.generation import (SamplingParams, _threefry, _xla_math,
                                          batch_sampling_arrays, fold_data_for,
                                          root_key_data, sample_tokens_folded)
 from paddle_tpu_torch.generation.sampler import _truncate
@@ -103,31 +104,48 @@ def _knobs(rng, R):
 
 
 def test_truncate_keeps_the_same_sets():
-    """Equal sets, but for tokens on the nucleus boundary: the running
-    probability mass is summed in float64 by PyTorch's CPU cumsum and in
-    float32 by XLA's, so a token whose preceding mass lies within
-    float32 rounding (1e-6) of top_p may fall on either side — at
-    top_p = 1 that is the far tail, whose mass is below 1e-6."""
+    """The kept sets and the kept values are JAX's exactly: the
+    probabilities and their running mass are summed in XLA's order."""
     rng = np.random.RandomState(0)
-    R, V = 24, 257
-    logits = (rng.randn(R, V) * 3).astype(np.float32)
-    temps, tks, tps = _knobs(rng, R)
-    want = np.asarray(jsampler._truncate(
-        jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(tks),
-        jnp.asarray(tps)))
-    got = _truncate(*[torch.from_numpy(a) for a in
-                      (logits, temps, tks, tps)]).numpy()
-    differ = (got > -1e29) != (want > -1e29)
-    for r, c in zip(*np.nonzero(differ)):
-        scaled = want[r].astype(np.float64) if want[r, c] > -1e29 \
-            else got[r].astype(np.float64)
-        p = np.exp(scaled - scaled.max())
-        p /= p.sum()
-        before = p[p > p[c]].sum()          # mass ranked ahead of c
-        assert abs(before - tps[r]) < 1e-6, (r, c, before, tps[r])
-    assert differ.sum() <= 4
-    kept = (want > -1e29) & (got > -1e29)
-    np.testing.assert_allclose(got[kept], want[kept], rtol=1e-6, atol=0)
+    R = 24
+    for V, scale in ((257, 3), (257, 30), (1024, 10), (4099, 3)):
+        logits = (rng.randn(R, V) * scale).astype(np.float32)
+        temps, tks, tps = _knobs(rng, R)
+        want = np.asarray(jsampler._truncate(
+            jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(tks),
+            jnp.asarray(tps)))
+        got = _truncate(*[torch.from_numpy(a) for a in
+                          (logits, temps, tks, tps)]).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("V", [5, 16, 17, 100, 257, 4099, 30522])
+def test_xla_softmax_and_cumsum_equal_jax_bit_for_bit(V):
+    """XLA's CPU tree sum and tiled scan, reproduced at sizes below one
+    tile, one level, and the BERT vocabulary's four levels."""
+    rng = np.random.RandomState(V)
+    x = (rng.randn(6, V) * 20).astype(np.float32)
+    x[:, ::7] = -1e30                         # masked, as after top-k
+    want = np.asarray(jax.jit(lambda a: jax.nn.softmax(a, axis=-1))(x))
+    got = _xla_math.xla_softmax(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    p = -np.sort(-want, axis=1)
+    want_c = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=-1))(p))
+    got_c = _xla_math.xla_cumsum(torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(_bits(got_c), _bits(want_c))
+    want_s = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=-1))(p))
+    got_s = _xla_math.xla_sum(torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(_bits(got_s), _bits(want_s))
+
+
+def test_xla_exp_equals_jax_bit_for_bit():
+    """Over the softmax's domain, down into the flushed underflow."""
+    rng = np.random.RandomState(2)
+    x = np.concatenate([-rng.rand(20000) * 100, rng.randn(20000) * 3,
+                        rng.rand(2000) * 88.3]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    got = _xla_math.xla_exp(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("greedy_only", [False, True])
