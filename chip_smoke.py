@@ -5,14 +5,15 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. the card's name and power limit; build every CUDA kernel of the
-   serving paths from paddle_tpu_torch/csrc (one nvcc per source, all
-   started together): the ragged paged attention and the paged decode
-   attention;
+1. the card's name and power limit; build every CUDA kernel from
+   paddle_tpu_torch/csrc (one nvcc per source, all started together):
+   the ragged paged attention and the paged decode attention of the
+   serving paths, and the flash-attention forward, dq and dk/dv kernels
+   of training (one source);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving paths give it and at edge cases, with its time,
-   the plain version's time, a PyTorch library call's time and the
-   least time the card could take (its bound);
+   shapes its path gives it and at edge cases, with its time, the plain
+   version's time, a PyTorch library call's time and the least time the
+   card could take (its bound);
 3. the generation engine at BertConfig.base() (random weights from a
    seed, initializer_range 0.6), each path driven with the launch
    counts set to 0 just before it and read just after:
@@ -41,7 +42,18 @@ Phases (any failure exits non-zero and prints no result):
    device's busy share;
 4. the server: GenerationBackend behind InferenceServer, 4 concurrent
    clients, answers equal to a direct engine.generate, for a chunked and
-   a legacy engine.
+   a legacy engine;
+5. training: BERT-base pretraining (BertConfig.base(), dropout 0.1,
+   batch 32 x 128 tokens, ~15% of positions labelled, random weights from
+   a seed) through the port's front end — build_bert_pretrain ->
+   Adam(1e-4).minimize -> Executor.run — for 2 warm-up and 10 timed
+   steps: every loss finite, each flash kernel launched once per layer
+   per step, the plain attention never, no kernel library loaded after
+   the first step; one step under torch.profiler; then the parity gate
+   at dropout 0 from the same weights: 5 Adam steps of the fused program
+   (the kernels) against the unfused matmul/softmax program, every
+   step's loss within 2e-3 and every first-step gradient within a
+   relative norm error of 1e-3.
 
 The line before the card's line is {"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
@@ -90,6 +102,18 @@ KERNELS = [
          source="paddle_tpu_torch/csrc/paged_decode.cu",
          replaces="paddle_tpu/generation/attention.py:101",
          build="paged_decode"),
+    dict(name="flash_fwd_packed", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas_ops.py:148",
+         build="flash_attention"),
+    dict(name="flash_bwd_dq_packed", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas_ops.py:445",
+         build="flash_attention"),
+    dict(name="flash_bwd_dkv_packed", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas_ops.py:502",
+         build="flash_attention"),
 ]
 #: legacy prompts: two prefill seq buckets (16 and 32) at page_size 16
 LEGACY_LENGTHS = (8, 12, 16, 20, 24, 28, 32, 32)
@@ -97,6 +121,32 @@ LEGACY_LENGTHS = (8, 12, 16, 20, 24, 28, 32, 32)
 PREFIX_LEN = 64
 #: depth of the draft model: a cut of the target's own weights
 DRAFT_LAYERS = 2
+
+#: training: batch x tokens, Adam's learning rate, warm-up / timed /
+#: parity steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 32, 128, 1e-4
+TRAIN_WARMUP, TRAIN_STEPS, PARITY_STEPS = 2, 10, 5
+#: fused (kernel) vs unfused program at dropout 0: |loss difference| at
+#: every step (the JAX package's _PARITY_TOL, __graft_entry__.py:26), and
+#: the relative norm error of every first-step gradient
+PARITY_LOSS_TOL, PARITY_GRAD_RTOL = 2e-3, 1e-3
+#: flash kernels vs their plain versions: forward atol (o, lse: float32
+#: online softmax over <= 128 unit-scale keys, summed in another order);
+#: gradients atol + rtol (dq, dk, dv, dbias sum a few hundred such
+#: products per element, dbias over 12 heads too)
+FLASH_FWD_ATOL = 1e-5
+FLASH_GRAD_ATOL = FLASH_GRAD_RTOL = 1e-4
+#: kernel-phase cases: (B, Tq, Tk, nh, D, causal, strided qkv views,
+#: dropout rate); "step" is one layer of the training step
+FLASH_CASES = {
+    "step": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 12, 64, False, True, 0.0),
+    "causal": (4, 128, 128, 12, 64, True, False, 0.0),
+    "causal_tq_lt_tk": (4, 80, 128, 12, 64, True, False, 0.0),
+    "t100": (4, 100, 100, 12, 64, False, True, 0.0),
+    "d32": (4, 128, 128, 8, 32, False, False, 0.0),
+    "d128": (4, 128, 128, 4, 128, False, False, 0.0),
+    "dropout": (8, 128, 128, 12, 64, False, True, 0.1),
+}
 
 
 def log(msg):
@@ -401,6 +451,201 @@ def decode_kernel_phase(device):
                             bound_ms=bound_ms, bound_by=bound_by,
                             bytes=nbytes, flops=flops)
     report["max_abs_err"] = worst
+    return report
+
+
+def flash_case(device, B, Tq, Tk, nh, D, causal, strided, rate, seed=0):
+    """One flash-attention call's inputs: q, k, v (column slices of one
+    [B, T, 3H] tensor when ``strided``, as the BERT layer passes them),
+    the key-padding bias that masks the last quarter of the keys of half
+    the batch (0 / -1e4, as BERT's input mask makes it), an output
+    cotangent."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 300 + seed)
+    H = nh * D
+    if strided:
+        qkv = torch.randn(B, max(Tq, Tk), 3 * H, generator=g).to(device)
+        q, k, v = qkv[:, :Tq, :H], qkv[:, :Tk, H:2 * H], qkv[:, :Tk, 2 * H:]
+    else:
+        q = torch.randn(B, Tq, H, generator=g).to(device)
+        k, v = (torch.randn(B, Tk, H, generator=g).to(device)
+                for _ in range(2))
+    bias = torch.zeros(B, Tk)
+    bias[: B // 2, Tk - Tk // 4:] = -1e4
+    do = torch.randn(B, Tq, H, generator=g).to(device)
+    return dict(q=q, k=k, v=v, bias=bias.to(device), num_heads=nh,
+                causal=causal, dropout_rate=rate, seed=SEED + 1234 + seed), do
+
+
+def flash_bounds(c):
+    """Least time of each kernel's work at this call: flops = 2 per
+    multiply-add of its products over every (query, key, dim) — forward
+    q.k and p.v (4), dq adds do.v and ds.k (6), dk/dv adds p.do and ds.q
+    (8) — over the float32 peak; bytes = each input read once and each
+    output written once over HBM's rate.  Returns {kernel: (ms, bound_by,
+    bytes, flops)}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, Tq, H = c["q"].shape
+    Tk, nh = c["k"].shape[1], c["num_heads"]
+    unit = B * nh * Tq * Tk * (H // nh)
+    q_b, kv_b = B * Tq * H * 4, B * Tk * H * 4
+    rows, bias_b = B * nh * Tq * 4, B * Tk * 4
+    work = {
+        fa.FWD: (4 * unit, q_b + 2 * kv_b + bias_b + q_b + rows),
+        fa.DQ: (6 * unit, q_b + 2 * kv_b + bias_b + q_b + 2 * rows + q_b),
+        fa.DKV: (8 * unit, q_b + 2 * kv_b + bias_b + q_b + 2 * rows
+                 + 2 * kv_b + B * nh * Tk * 4),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                     flops)
+    return out
+
+
+def _tol_excess(got, want, atol, rtol):
+    """max(|got - want| - rtol * |want|): <= atol is torch's allclose."""
+    return float(((got - want).abs() - rtol * want.abs()).max())
+
+
+def flash_kernel_phase(device):
+    """The three flash kernels against flash_ref_forward / _backward in
+    every FLASH_CASES case (dropout through the kernels' own mask, whose
+    keep fraction must lie within 4 sigma of 1 - rate), then their times
+    at the training step's shape and dropout."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.models import BertConfig
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    errs = {fa.FWD: 0.0, fa.DQ: 0.0, fa.DKV: 0.0}
+    cases = {}
+    for name, spec in FLASH_CASES.items():
+        c, do = flash_case(device, *spec)
+        B, Tq, _ = c["q"].shape
+        Tk, nh, rate = c["k"].shape[1], c["num_heads"], c["dropout_rate"]
+        kw = dict(bias=c["bias"], causal=c["causal"], dropout_rate=rate)
+        mask, keep = None, None
+        if rate > 0:
+            mask = fa.flash_kernel_dropout_mask(B, nh, Tq, Tk, rate,
+                                                c["seed"], device)
+            keep = float(mask.float().mean())
+            sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
+            if abs(keep - (1 - rate)) > 4 * sigma:
+                raise AssertionError(
+                    f"flash dropout keeps {keep}, not within 4 sigma "
+                    f"({sigma:.2e}) of {1 - rate}")
+        o, lse = fa.flash_kernel_forward(c["q"], c["k"], c["v"], nh,
+                                         seed=c["seed"], **kw)
+        o_ref, lse_ref = fa.flash_ref_forward(c["q"], c["k"], c["v"], nh,
+                                              keep_mask=mask, **kw)
+        delta = fa.flash_delta(o, do, nh)
+        bw = dict(causal=c["causal"], dropout_rate=rate, seed=c["seed"])
+        dq = fa.flash_kernel_dq(c["q"], c["k"], c["v"], c["bias"], do, lse,
+                                delta, nh, **bw)
+        dk, dv, dbias_h = fa.flash_kernel_dkv(c["q"], c["k"], c["v"],
+                                              c["bias"], do, lse, delta, nh,
+                                              **bw)
+        refs = fa.flash_ref_backward(c["q"], c["k"], c["v"], c["bias"],
+                                     o_ref, lse_ref, do, nh,
+                                     causal=c["causal"], dropout_rate=rate,
+                                     keep_mask=mask)
+        sync(device)
+        got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv, dbias=dbias_h.sum(1))
+        want = dict(zip(("o", "lse"), (o_ref, lse_ref)))
+        want.update(zip(("dq", "dk", "dv", "dbias"), refs))
+        err = {n: float((got[n] - want[n]).abs().max()) for n in got}
+        fwd_ok = max(err["o"], err["lse"]) <= FLASH_FWD_ATOL
+        grad_ok = all(_tol_excess(got[n], want[n], FLASH_GRAD_ATOL,
+                                  FLASH_GRAD_RTOL) <= FLASH_GRAD_ATOL
+                      for n in ("dq", "dk", "dv", "dbias"))
+        finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+        log(f"  flash {name}: B={B} Tq={Tq} Tk={Tk} nh={nh} D="
+            f"{c['q'].shape[2] // nh} causal={c['causal']} strided="
+            f"{not c['q'].is_contiguous()} dropout={rate}"
+            + (f" keep={keep:.5f}" if keep is not None else "")
+            + " max_abs_err " + " ".join(f"{n}={e:.3e}" for n, e in
+                                          err.items())
+            + f" (fwd atol {FLASH_FWD_ATOL:g}; grads atol {FLASH_GRAD_ATOL:g}"
+            f" rtol {FLASH_GRAD_RTOL:g})")
+        if not (fwd_ok and grad_ok and finite):
+            raise AssertionError(f"flash kernels disagree with plain on "
+                                 f"{name}")
+        errs[fa.FWD] = max(errs[fa.FWD], err["o"], err["lse"])
+        errs[fa.DQ] = max(errs[fa.DQ], err["dq"])
+        errs[fa.DKV] = max(errs[fa.DKV], err["dk"], err["dv"], err["dbias"])
+        cases[name] = dict(err, keep_fraction=keep)
+
+    # times at one layer of the training step, with its dropout rate
+    spec = FLASH_CASES["step"][:-1] + (BertConfig.base().attn_dropout,)
+    c, do = flash_case(device, *spec)
+    nh, rate = c["num_heads"], c["dropout_rate"]
+    B, Tq, H = c["q"].shape
+    D = H // nh
+    qkv = (c["q"], c["k"], c["v"])
+    mask = fa.flash_kernel_dropout_mask(B, nh, Tq, c["k"].shape[1], rate,
+                                        c["seed"], device)
+    o, lse = fa.flash_kernel_forward(*qkv, nh, bias=c["bias"],
+                                     dropout_rate=rate, seed=c["seed"])
+    delta = fa.flash_delta(o, do, nh)
+    bw = dict(dropout_rate=rate, seed=c["seed"])
+    times = {
+        fa.FWD: time_ms(lambda: fa.flash_kernel_forward(
+            *qkv, nh, bias=c["bias"], dropout_rate=rate, seed=c["seed"]),
+            device),
+        fa.DQ: time_ms(lambda: fa.flash_kernel_dq(
+            *qkv, c["bias"], do, lse, delta, nh, **bw), device),
+        fa.DKV: time_ms(lambda: fa.flash_kernel_dkv(
+            *qkv, c["bias"], do, lse, delta, nh, **bw), device),
+    }
+    no_dropout_ms = {
+        fa.FWD: time_ms(lambda: fa.flash_kernel_forward(
+            *qkv, nh, bias=c["bias"]), device),
+        fa.DQ: time_ms(lambda: fa.flash_kernel_dq(
+            *qkv, c["bias"], do, lse, delta, nh), device),
+        fa.DKV: time_ms(lambda: fa.flash_kernel_dkv(
+            *qkv, c["bias"], do, lse, delta, nh), device)}
+    plain_fwd = time_ms(lambda: fa.flash_ref_forward(
+        *qkv, nh, bias=c["bias"], dropout_rate=rate, keep_mask=mask), device)
+    plain_bwd = time_ms(lambda: fa.flash_ref_backward(
+        *qkv, c["bias"], o, lse, do, nh, dropout_rate=rate, keep_mask=mask),
+        device)
+    # yardstick: PyTorch's fused attention on the same heads and bias
+    # (forward for the forward kernel; its autograd backward, dq, dk and
+    # dv together, for the two backward kernels); the port never calls it
+    heads = [x.reshape(B, -1, nh, D).transpose(1, 2).contiguous()
+             .requires_grad_() for x in qkv]
+    attn_mask = c["bias"][:, None, None, :]
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, attn_mask=attn_mask, dropout_p=rate), device)
+    lib_out = F.scaled_dot_product_attention(*heads, attn_mask=attn_mask,
+                                             dropout_p=rate)
+    do_h = do.reshape(B, Tq, nh, D).transpose(1, 2).contiguous()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, heads, do_h, retain_graph=True), device)
+    bounds = flash_bounds(c)
+    report = {}
+    for name in (fa.FWD, fa.DQ, fa.DKV):
+        bound_ms, bound_by, nbytes, flops = bounds[name]
+        fwd = name == fa.FWD
+        report[name] = dict(max_abs_err=errs[name], cases=cases, timing=dict(
+            ms=times[name], ms_without_dropout=no_dropout_ms[name],
+            plain_ms=plain_fwd if fwd else plain_bwd,
+            library_ms=lib_fwd if fwd else lib_bwd, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, flops=flops,
+            shape=dict(B=B, T=Tq, nh=nh, D=D, dropout=rate)))
+        log(f"  {name} timing (B={B} T={Tq} nh={nh} D={D} dropout={rate}): "
+            f"ms={times[name]:.5f} (no dropout {no_dropout_ms[name]:.5f}) "
+            f"plain_ms={report[name]['timing']['plain_ms']:.5f} library_ms"
+            f"(sdpa {'forward' if fwd else 'backward, dq+dk+dv'})="
+            f"{report[name]['timing']['library_ms']:.5f} bound_ms="
+            f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops)")
     return report
 
 
@@ -817,6 +1062,37 @@ def feature_phase(device, model_cfg, gen_cfg, params):
     return report, engines
 
 
+def _span_summary(prof, wall_us, steps, kernel_names):
+    """Device kernel time by name, busy share of the wall (kernel
+    intervals merged) and the named kernels' time, from a profile;
+    None when the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    by_name, busy, cur_end = {}, 0.0, None
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if cur_end is None or start > cur_end:
+            busy += end - start
+            cur_end = end
+        elif end > cur_end:
+            busy += end - cur_end
+            cur_end = end
+    kernel_us = sum(by_name.values())
+    named_us = sum(us for name, us in by_name.items()
+                   if any(k in name for k in kernel_names))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(device_busy_share=busy / wall_us,
+                device_ms_per_step=kernel_us / 1e3 / steps,
+                kernels_per_step=len(spans) / steps,
+                named_kernels_ms_per_step=named_us / 1e3 / steps,
+                top_kernels_ms=[(name[:80], us / 1e3 / steps)
+                                for name, us in top])
+
+
 def profile_phase(engine, model_cfg, device, max_new=32, steps_key="steps",
                   kernel="ragged_attention"):
     """Where a generate call's time goes: torch.profiler over one greedy
@@ -826,9 +1102,7 @@ def profile_phase(engine, model_cfg, device, max_new=32, steps_key="steps",
     is a lower bound.  Per-step numbers divide by the snapshot's
     ``steps_key`` (unified steps, or legacy decode steps); ``kernel``
     names the attention kernel whose time is reported apart.  Device
-    times are None when the profiler records no device activity."""
-    import torch
-    from torch.autograd import DeviceType
+    times are absent when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.generation import SamplingParams
@@ -848,39 +1122,18 @@ def profile_phase(engine, model_cfg, device, max_new=32, steps_key="steps",
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
     steps = engine.stats.snapshot()[steps_key] - steps0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    by_name = {}
-    busy, cur_end = 0.0, None
-    for start, end, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-        if cur_end is None or start > cur_end:
-            busy += end - start
-            cur_end = end
-        elif end > cur_end:
-            busy += end - cur_end
-            cur_end = end
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    kernel_us = sum(by_name.values())
-    attn_us = sum(us for name, us in by_name.items() if kernel in name)
-    out = dict(steps=steps, wall_ms_per_step=wall_us / 1e3 / steps,
-               device_kernels=len(spans))
-    if spans:
-        out.update(
-            device_busy_share=busy / wall_us,
-            device_ms_per_step=kernel_us / 1e3 / steps,
-            attention_kernel=kernel,
-            attention_ms_per_step=attn_us / 1e3 / steps,
-            kernels_per_step=len(spans) / steps,
-            top_kernels_ms=[(name[:80], us / 1e3) for name, us in top])
+    out = dict(steps=steps, wall_ms_per_step=wall_us / 1e3 / steps)
+    summary = _span_summary(prof, wall_us, steps, (kernel,))
+    if summary is not None:
+        out.update(summary, attention_kernel=kernel)
         log(f"  profiled generate (8 x {max_new} greedy): {steps} "
             f"{steps_key}, {out['wall_ms_per_step']:.3f} ms/step wall under "
             f"the profiler, device kernels {out['device_ms_per_step']:.3f} "
             f"ms/step ({out['kernels_per_step']:.1f} kernels/step), busy "
             f"share {out['device_busy_share']:.4f}, {kernel} "
-            f"{out['attention_ms_per_step']:.4f} ms/step")
+            f"{out['named_kernels_ms_per_step']:.4f} ms/step")
         for name, ms in out["top_kernels_ms"]:
-            log(f"    {ms:9.3f} ms  {name}")
+            log(f"    {ms:9.4f} ms/step  {name}")
     else:
         log(f"  profiled generate: {steps} steps, "
             f"{out['wall_ms_per_step']:.3f} ms/step wall; device time not "
@@ -939,6 +1192,225 @@ def server_phase(engine, model_cfg):
                 latency=stats["latency"])
 
 
+# -- phase 5: training ------------------------------------------------------
+
+def build_train(cfg):
+    """build_bert_pretrain(cfg, TRAIN_SEQ) + Adam(TRAIN_LR).minimize in
+    fresh programs -> (main, startup, loss, grad names, param names)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED + 11
+    main.random_seed = SEED + 12
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
+        _, params_grads = pt.optimizer.Adam(TRAIN_LR).minimize(loss)
+    return (main, startup, loss, [g.name for _, g in params_grads],
+            [p.name for p, _ in params_grads])
+
+
+def train_batch(vocab, device):
+    """One pretraining batch from a numpy seed, on the card: token ids,
+    an input mask that pads the tail of a quarter of the rows, and labels
+    at ~15% of the real positions (-1 elsewhere)."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 8)
+    B, T = TRAIN_BATCH, TRAIN_SEQ
+    src = rng.randint(0, vocab, (B, T)).astype(np.int64)
+    mask = np.ones((B, T), np.float32)
+    for b in range(B // 4):
+        mask[b, rng.randint(T // 2, T):] = 0.0
+    labels = np.full((B, T, 1), -1, np.int64)
+    pick = (rng.rand(B, T) < 0.15) & (mask > 0)
+    labels[pick] = src[pick][:, None]
+    return {n: torch.from_numpy(a).to(device) for n, a in
+            (("src_ids", src), ("input_mask", mask), ("masked_labels",
+                                                      labels))}
+
+
+class _PlainAttentionCalls:
+    """Counts calls of the port's plain attention functions (the flash
+    plain versions and the composite) while active."""
+
+    NAMES = ("flash_ref_forward", "flash_ref_backward", "attention",
+             "attention_packed")
+
+    def __init__(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+
+        self.module, self.calls, self.saved = fa, 0, {}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            fn = self.saved[n] = getattr(self.module, n)
+
+            def counted(*a, _fn=fn, **kw):
+                self.calls += 1
+                return _fn(*a, **kw)
+
+            setattr(self.module, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+        return False
+
+
+def training_phase(device, cfg):
+    """``cfg`` pretraining for TRAIN_WARMUP + TRAIN_STEPS steps with the
+    launch, plain-attention and no-load gates, one profiled step, then
+    the fused-vs-unfused parity gate.  On the CPU (a rehearsal) the plain
+    versions run and the launch gates expect none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = device.type == "cuda"
+    main, startup, loss, _, params = build_train(cfg)
+    exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
+    scope = pt.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    sync(device)
+    startup_s = time.perf_counter() - t0
+    n_params = sum(scope.find_var(p).numel() for p in params)
+    feed = train_batch(cfg.vocab_size, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    warm = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+            for _ in range(TRAIN_WARMUP)]
+    sync(device)
+    warm_s = time.perf_counter() - t0
+
+    with _PlainAttentionCalls() as plain:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)[0] for _ in range(TRAIN_STEPS)]
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    losses = [float(x) for x in warm] + [float(x) for x in losses]
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    want = cfg.num_layers * TRAIN_STEPS if on_card else 0
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    got = {k: launches.get(k, 0) for k in (fa.FWD, fa.DQ, fa.DKV)}
+    log(f"  BERT ({n_params} parameters) pretraining, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, Adam({TRAIN_LR:g}), dropout "
+        f"{cfg.hidden_dropout}: startup {startup_s:.2f} s, {TRAIN_WARMUP} "
+        f"warm-up steps {warm_s:.2f} s; {TRAIN_STEPS} steps: {step_ms:.3f} "
+        f"ms/step, {tokens_per_s:.1f} tokens/s; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {got} (= {cfg.num_layers} x {TRAIN_STEPS} = {want}?)"
+        f"; plain attention calls {plain.calls}; libraries loaded after the "
+        f"first step {exe.compiles_after_first_step}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    if any(n != want for n in got.values()):
+        raise AssertionError(f"flash kernel launches {got}, expected {want} "
+                             f"each")
+    if on_card and plain.calls:
+        raise AssertionError("the plain attention ran on the card")
+    if exe.compiles_after_first_step:
+        raise AssertionError("a kernel library was loaded after the first "
+                             "step")
+
+    # one step under the profiler
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof_out = _span_summary(prof, wall_us, 1, ("flash_",))
+    if prof_out is None:
+        log(f"  profiled step: {wall_us / 1e3:.3f} ms wall; device time not "
+            f"measured (the profiler recorded no device activity)")
+    else:
+        log(f"  profiled step: {wall_us / 1e3:.3f} ms wall under the "
+            f"profiler, device kernels {prof_out['device_ms_per_step']:.3f} "
+            f"ms ({prof_out['kernels_per_step']:.0f} kernels), busy share "
+            f"{prof_out['device_busy_share']:.4f}, flash kernels "
+            f"{prof_out['named_kernels_ms_per_step']:.3f} ms")
+        for name, ms in prof_out["top_kernels_ms"]:
+            log(f"    {ms:9.3f} ms  {name}")
+    report = dict(
+        config=dataclasses.asdict(cfg), parameters=n_params, batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+        step_ms=step_ms, tokens_per_s=tokens_per_s, launches=got,
+        startup_s=startup_s, warmup_s=warm_s,
+        peak_memory_bytes=peak,
+        profile=dict(wall_ms=wall_us / 1e3, **(prof_out or {})))
+    del scope
+    report["parity"] = parity_gate(device, exe, cfg)
+    return report
+
+
+def parity_gate(device, exe, cfg):
+    """At dropout 0 from the same weights: PARITY_STEPS Adam steps of the
+    fused program (the flash kernels) and of the unfused matmul/softmax
+    program (the JAX package's cfg.fused_attention=False branch)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
+    runs = {}
+    weights = None
+    for name, fused in (("fused", True), ("unfused", False)):
+        main, startup, loss, grads, _ = build_train(
+            dataclasses.replace(cfg, fused_attention=fused))
+        scope = pt.Scope()
+        if weights is None:
+            exe.run(startup, scope=scope)
+            weights = {n: scope.find_var(n).clone()
+                       for n in pt.io.persistable_names(main)}
+        else:
+            if set(weights) != set(pt.io.persistable_names(main)):
+                raise AssertionError("fused and unfused programs differ in "
+                                     "their persistables")
+            for n, t in weights.items():
+                scope.set_var(n, t.clone())
+        feed = train_batch(cfg.vocab_size, device)
+        losses, first = [], None
+        for step in range(PARITY_STEPS):
+            out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + (grads if step == 0 else []))
+            losses.append(float(out[0]))
+            if step == 0:
+                first = dict(zip(grads, out[1:]))
+        runs[name] = (losses, first)
+        del scope
+    (lf, gf), (lu, gu) = runs["fused"], runs["unfused"]
+    dloss = [abs(a - b) for a, b in zip(lf, lu)]
+    rel = {n: float(torch.linalg.vector_norm(gf[n] - gu[n])
+                    / torch.linalg.vector_norm(gu[n]).clamp_min(1e-30))
+           for n in gu}
+    worst = max(rel, key=rel.get)
+    log(f"  parity at dropout 0, same weights, {PARITY_STEPS} Adam steps: "
+        f"fused losses " + " ".join(f"{x:.6f}" for x in lf) + "; unfused "
+        + " ".join(f"{x:.6f}" for x in lu) + f"; max |dloss| "
+        f"{max(dloss):.3e} (tol {PARITY_LOSS_TOL:g}); first-step gradient "
+        f"relative norm error max {rel[worst]:.3e} ({worst}; tol "
+        f"{PARITY_GRAD_RTOL:g})")
+    if not max(dloss) < PARITY_LOSS_TOL:
+        raise AssertionError("fused and unfused losses diverge")
+    if not rel[worst] < PARITY_GRAD_RTOL:
+        raise AssertionError("fused and unfused gradients disagree")
+    return dict(fused_losses=lf, unfused_losses=lu, max_dloss=max(dloss),
+                max_grad_rel_err=rel[worst], worst_grad=worst)
+
+
 def main():
     import torch
 
@@ -959,7 +1431,7 @@ def main():
     try:
         card = card_line()
         log(f"[1] card: {card}")
-        built = _cuda.build([k["build"] for k in KERNELS])
+        built = _cuda.build(sorted({k["build"] for k in KERNELS}))
         for name, secs in built.items():
             log(f"  built {name}.cu in {secs:.2f} s; ptxas: "
                 + " | ".join(line.strip() for line in
@@ -972,7 +1444,8 @@ def main():
         log("[2] kernels against their plain versions")
         report["kernels"] = {
             "ragged_paged_attention": kernel_phase(device, model_cfg),
-            "paged_decode_attention": decode_kernel_phase(device)}
+            "paged_decode_attention": decode_kernel_phase(device),
+            **flash_kernel_phase(device)}
 
         log("[3] engine at BertConfig.base() width")
         t0 = time.perf_counter()
@@ -1005,6 +1478,12 @@ def main():
         report["server"] = {
             "chunked": server_phase(engine, model_cfg),
             "legacy": server_phase(legacy, model_cfg)}
+        del engine, engines, legacy, params
+
+        log("[5] training: BERT-base pretraining through the Executor")
+        report["training"] = training_phase(device, BertConfig.base())
+        for name, n in report["training"]["launches"].items():
+            report["kernels"][name]["launches"] = n
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

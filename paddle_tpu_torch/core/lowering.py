@@ -1,0 +1,204 @@
+"""Block lowering: turn a Program block into one Python function over
+torch tensors.
+
+Counterpart of paddle_tpu/core/lowering.py, for what training needs:
+``analyze_block``, ``lower_block``, ``_interp_ops``, ``_run_vjp_grad``.
+The JAX package traces the op list into one jitted XLA function; here the
+function interprets the op list eagerly over a name -> tensor env, each
+op dispatching its own PyTorch calls and kernels.
+
+Gradient ops (type ``vjp_grad``, appended by core/backward.py) take the
+place of ``jax.vjp``: a forward op whose uid some ``vjp_grad`` op names
+runs under autograd on detached leaf copies of its inputs (views, not
+copies), so its graph is its own; the ``vjp_grad`` op then calls
+``torch.autograd.grad`` on that op's outputs with the cotangents from the
+env and drops the saved graph.  Backward reuses the forward's saved
+tensors exactly like the JAX tape — no recomputation, no per-op grad
+kernels.
+
+Not ported: control-flow sub-blocks, recompute, pipeline, AMP and the
+GEMM-epilogue fusion pass.  Their ops are not registered, so a program
+that holds one raises at run time, naming the op.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .program import EMPTY_VAR_NAME, Program
+from .registry import REGISTRY, OpContext
+
+VJP_GRAD_OP = "vjp_grad"
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data): splitmix64 of their mix —
+    the port's counterpart of ``jax.random.fold_in``.  Deterministic and
+    platform-independent, so a step's random ops draw the same streams
+    on every run of the same program and seed."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+@dataclasses.dataclass
+class LoweredBlock:
+    fn: object  # (feeds, mut_params, const_params, seed) -> (fetches, new_persist)
+    feed_names: tuple
+    mut_param_names: tuple  # persistables read AND written
+    const_param_names: tuple  # persistables/scope vars read only
+    persist_out_names: tuple  # persistables written back to scope
+    fetch_names: tuple
+    runs: int = 0   # steps run through fn (the Executor counts them)
+
+
+def analyze_block(program: Program, block_idx: int, feed_names, fetch_names):
+    """Classify variables: external inputs (from scope), written persistables."""
+    block = program.blocks[block_idx]
+    produced = set(feed_names)
+    external = []
+    ext_set = set()
+    written_persist = []
+    for op in block.ops:
+        for n in op.input_names():
+            if n == EMPTY_VAR_NAME:
+                continue
+            if n not in produced and n not in ext_set:
+                ext_set.add(n)
+                external.append(n)
+        for n in op.output_names():
+            produced.add(n)
+            var = block._find_var_recursive(n)
+            if var is not None and var.persistable and n not in written_persist:
+                written_persist.append(n)
+    # fetches of vars never produced in this block must come from scope
+    for n in fetch_names:
+        if n not in produced and n not in ext_set:
+            ext_set.add(n)
+            external.append(n)
+    mut = tuple(n for n in external if n in written_persist)
+    const = tuple(n for n in external if n not in written_persist)
+    return mut, const, tuple(written_persist)
+
+
+def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
+                device) -> LoweredBlock:
+    """The block as ``fn(feeds, mut_params, const_params, seed)``: every
+    op's outputs land on ``device`` (ops with tensor inputs follow their
+    inputs; ops that create tensors use ``OpContext.device``)."""
+    block = program.blocks[block_idx]
+    ops = list(block.ops)
+    feed_names = tuple(feed_names)
+    fetch_names = tuple(fetch_names)
+    mut, const, persist_out = analyze_block(
+        program, block_idx, feed_names, fetch_names)
+    vjp_uids = frozenset(
+        op.attrs["fwd_uid"] for op in ops if op.type == VJP_GRAD_OP)
+
+    def run_block(feeds, mut_params, const_params, seed):
+        env = {}
+        env.update(const_params)
+        env.update(mut_params)
+        env.update(feeds)
+        with torch.no_grad():
+            _interp_ops(ops, env, seed, {}, vjp_uids, device)
+        fetches = [env[n] for n in fetch_names]
+        new_persist = {n: env[n] for n in persist_out}
+        return fetches, new_persist
+
+    return LoweredBlock(fn=run_block, feed_names=feed_names,
+                        mut_param_names=mut, const_param_names=const,
+                        persist_out_names=persist_out,
+                        fetch_names=fetch_names)
+
+
+def _leaf(v):
+    """A detached view of ``v`` that autograd differentiates (floating
+    tensors) — the op's own graph starts here."""
+    if torch.is_tensor(v) and (v.is_floating_point() or v.is_complex()):
+        return v.detach().requires_grad_()
+    return v
+
+
+def _interp_ops(ops, env, seed, vjps, vjp_uids, device):
+    """Execute an op list over ``env`` (name -> tensor), in place.
+
+    Runs under ``torch.no_grad``; a forward op in ``vjp_uids`` runs under
+    autograd on leaf copies of its inputs and leaves (inputs, outputs) in
+    ``vjps`` for its ``vjp_grad`` op."""
+    for i, op in enumerate(ops):
+        try:
+            if op.type == VJP_GRAD_OP:
+                outs = _run_vjp_grad(op, env, vjps)
+            else:
+                opdef = REGISTRY.get(op.type)
+                ins = {slot: [env[n] for n in names]
+                       for slot, names in op.inputs.items()}
+                ctx = OpContext(
+                    # fold by uid: unique program-wide, so no two ops
+                    # share a stream
+                    rng=fold_seed(seed, op.uid) if opdef.needs_rng else None,
+                    is_test=bool(op.attrs.get("is_test", False)),
+                    attrs=op.attrs, device=device)
+                if op.uid in vjp_uids:
+                    ins = {slot: [_leaf(v) for v in vals]
+                           for slot, vals in ins.items()}
+                    with torch.enable_grad():
+                        outs = opdef.compute(ctx, ins, op.attrs)
+                    vjps[op.uid] = (ins, outs)
+                else:
+                    outs = opdef.compute(ctx, ins, op.attrs)
+        except KeyError as e:
+            raise RuntimeError(
+                f"Lowering failed at op #{i} {op!r}: missing variable "
+                f"{e}. Did you run the startup program / feed all data?"
+            ) from e
+        for slot, names in op.outputs.items():
+            vals = outs.get(slot, [])
+            for n, v in zip(names, vals):
+                if n != EMPTY_VAR_NAME:
+                    env[n] = v
+    return env
+
+
+def _run_vjp_grad(op, env, vjps):
+    """Execute a generic gradient op: ``torch.autograd.grad`` through the
+    forward op's own graph, then drop it.  Outputs without a cotangent
+    (no grad var, integer outputs, outputs autograd did not track) take a
+    zero cotangent by being left out, as ``_zero_cotangent`` does in the
+    JAX package; an input autograd did not reach gets zeros."""
+    fwd_uid = op.attrs["fwd_uid"]
+    if fwd_uid not in vjps:
+        raise RuntimeError(
+            f"vjp_grad op references forward op uid={fwd_uid} which was not "
+            f"executed in this block (grad ops must follow their forward op)")
+    ins, outs = vjps.pop(fwd_uid)
+    prims, cts = [], []
+    for slot, vals in outs.items():
+        names = op.inputs.get("OG@" + slot, [])
+        for j, p in enumerate(vals):
+            n = names[j] if j < len(names) else EMPTY_VAR_NAME
+            if n == EMPTY_VAR_NAME or n not in env or not p.requires_grad:
+                continue
+            prims.append(p)
+            cts.append(env[n].to(p.dtype))
+    wanted, targets = [], []
+    for slot, vals in ins.items():
+        names = op.outputs.get("IG@" + slot, [])
+        for j, v in enumerate(vals):
+            if (j < len(names) and names[j] != EMPTY_VAR_NAME
+                    and torch.is_tensor(v) and v.requires_grad):
+                wanted.append((slot, j))
+                targets.append(v)
+    grads = [None] * len(targets)
+    if prims and targets:
+        grads = torch.autograd.grad(prims, targets, cts, allow_unused=True)
+    result = {"IG@" + slot: [None] * len(vals) for slot, vals in ins.items()}
+    for (slot, j), g, t in zip(wanted, grads, targets):
+        result["IG@" + slot][j] = (g if g is not None
+                                   else torch.zeros_like(t)).detach()
+    return result

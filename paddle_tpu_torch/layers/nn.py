@@ -1,0 +1,240 @@
+"""The layers the ported training path emits: graph-building functions
+over the op registry.
+
+Counterpart of paddle_tpu/layers/nn.py (and ``not_equal`` of
+paddle_tpu/layers/control_flow.py), copied close to verbatim so that
+both packages build the same ops under the same names.  Each layer
+creates parameters through LayerHelper and appends ops (parity:
+python/paddle/fluid/layers/nn.py + fluid/layer_helper.py).  Ported: the
+layers the BERT builders and a small fc program emit.
+"""
+from __future__ import annotations
+
+from ..initializer import ConstantInitializer, XavierInitializer
+from .helper import LayerHelper
+
+
+def _prod(dims):
+    p = 1
+    for d in dims:
+        p *= int(d)
+    return p
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """Fully-connected layer: ``mul`` + ``elementwise_add`` + the
+    activation (parity: layers/nn.py fc)."""
+    helper = LayerHelper("fc", name=name)
+    input = helper.input(input)
+    in_features = _prod(input.shape[num_flatten_dims:])
+    w = helper.create_parameter(param_attr, [in_features, size], input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="mul",
+        inputs={"X": [input.name], "Y": [w.name]},
+        outputs={"Out": [out.name]},
+        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+    )
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [size], input.dtype,
+                                    is_bias=True)
+        tmp = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(
+            type="elementwise_add",
+            inputs={"X": [out.name], "Y": [b.name]},
+            outputs={"Out": [tmp.name]},
+            attrs={"axis": num_flatten_dims},
+        )
+        out = tmp
+    return helper.append_activation(out, act)
+
+
+def embedding(input, size, is_sparse=False, padding_idx=None,
+              param_attr=None, dtype="float32", name=None):
+    """Embedding lookup (parity: layers/nn.py embedding).  The sparse
+    (SelectedRows) gradient is not ported: ``is_sparse=True`` raises."""
+    if is_sparse:
+        raise NotImplementedError(
+            "is_sparse embeddings (SelectedRows gradients) are not ported "
+            "to paddle_tpu_torch")
+    helper = LayerHelper("embedding", name=name)
+    input = helper.input(input)
+    w = helper.create_parameter(
+        param_attr, list(size), dtype,
+        default_initializer=XavierInitializer())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="lookup_table",
+        inputs={"W": [w.name], "Ids": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"padding_idx": -1 if padding_idx is None else padding_idx,
+               "is_sparse": bool(is_sparse)},
+    )
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", name=name)
+    input = helper.input(input)
+    norm_shape = [_prod(input.shape[begin_norm_axis:])]
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(
+            param_attr, norm_shape, input.dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(bias_attr, norm_shape, input.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b.name]
+    y = helper.create_variable_for_type_inference(input.dtype)
+    mean = helper.create_variable_for_type_inference(input.dtype, True)
+    var = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(
+        type="layer_norm",
+        inputs=inputs,
+        outputs={"Y": [y.name], "Mean": [mean.name], "Variance": [var.name]},
+        attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon},
+    )
+    return helper.append_activation(y, act)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None,
+            dropout_implementation="downgrade_in_infer", name=None):
+    helper = LayerHelper("dropout", name=name)
+    x = helper.input(x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x.name]},
+        outputs={"Out": [out.name], "Mask": [mask.name]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "dropout_implementation": dropout_implementation},
+    )
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False, name=None):
+    helper = LayerHelper("softmax_with_cross_entropy", name=name)
+    logits, label = helper.input(logits), helper.input(label)
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits.name], "Label": [label.name]},
+        outputs={"Softmax": [softmax_out.name], "Loss": [loss.name]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+               "axis": axis},
+    )
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def fused_multihead_attention(q, k, v, attn_bias=None, dropout_rate=0.0,
+                              causal=False, sm_scale=None, is_test=False,
+                              num_heads=None, name=None):
+    """Fused scaled-dot-product attention (parity:
+    operators/fused/multihead_matmul_op.cu, but trainable).
+
+    Packed [B, T, H·D] operands with num_heads set run the hand-written
+    flash-attention kernels on the card (ops/flash_attention.py); the
+    [B, H, T, D] layout (num_heads=None) runs only on the CPU for now.
+    attn_bias: optional additive bias broadcastable to [B, 1, 1, Tk]."""
+    helper = LayerHelper("fused_attention", name=name)
+    out_var = helper.create_variable_for_type_inference(q.dtype)
+    ins = {"Q": [q.name], "K": [k.name], "V": [v.name]}
+    if attn_bias is not None:
+        ins["Bias"] = [attn_bias.name]
+    attrs = {"causal": causal, "dropout_rate": dropout_rate,
+             "is_test": is_test}
+    if num_heads is not None:
+        attrs["num_heads"] = int(num_heads)
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    helper.append_op(
+        type="fused_attention",
+        inputs=ins,
+        outputs={"Out": [out_var.name]},
+        attrs=attrs,
+    )
+    return out_var
+
+
+# ---------------------------------------------------------------------------
+# generic builders
+# ---------------------------------------------------------------------------
+
+def _unary_layer(op_type):
+    def layer(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        x = helper.input(x)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(
+            type=op_type,
+            inputs={"X": [x.name]},
+            outputs={"Out": [out.name]},
+            attrs=attrs,
+        )
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+def _binary_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        x = helper.input(x)
+        attrs["axis"] = axis
+        inputs = {"X": [x.name]}
+        if isinstance(y, (int, float)):
+            attrs["scalar_y"] = float(y)
+        else:
+            inputs["Y"] = [helper.input(y).name]
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(
+            type=op_type,
+            inputs=inputs,
+            outputs={"Out": [out.name]},
+            attrs=attrs,
+        )
+        return helper.append_activation(out, act)
+
+    layer.__name__ = op_type
+    return layer
+
+
+def not_equal(x, y, cond=None, name=None):
+    """Elementwise x != y as a bool tensor (parity:
+    layers/control_flow.py not_equal)."""
+    helper = LayerHelper("not_equal", name=name)
+    x = helper.input(x)
+    attrs = {}
+    inputs = {"X": [x.name]}
+    if isinstance(y, (int, float)):
+        attrs["scalar_y"] = float(y)
+    else:
+        inputs["Y"] = [helper.input(y).name]
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool")
+        cond.stop_gradient = True
+    helper.append_op(type="not_equal", inputs=inputs,
+                     outputs={"Out": [cond.name]}, attrs=attrs)
+    return cond
+
+
+_UNARY_OPS = ["gelu", "softmax"]
+for _op in _UNARY_OPS:
+    globals()[_op] = _unary_layer(_op)
+
+_BINARY_OPS = ["elementwise_add", "elementwise_sub", "elementwise_mul",
+               "elementwise_div", "elementwise_max"]
+for _op in _BINARY_OPS:
+    globals()[_op] = _binary_layer(_op)

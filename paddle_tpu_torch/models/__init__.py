@@ -1,9 +1,13 @@
-"""Models of the port (counterpart of paddle_tpu.models): the causal LM
-the generation engine serves."""
-from .transformer import (BertConfig, lm_embed, lm_forward, lm_layer_finish,
-                          lm_layer_qkv, lm_logits, lm_param_names,
-                          lm_params_from_numpy, lm_random_params)
+"""Models of the port (counterpart of paddle_tpu.models): the BERT
+pretraining graph builders and the causal LM the generation engine
+serves."""
+from .transformer import (BertConfig, bert_encoder, bert_pretrain_loss,
+                          build_bert_pretrain, encoder_layer, lm_embed,
+                          lm_forward, lm_layer_finish, lm_layer_qkv,
+                          lm_logits, lm_param_names, lm_params_from_numpy,
+                          lm_random_params)
 
-__all__ = ["BertConfig", "lm_param_names", "lm_random_params",
-           "lm_params_from_numpy", "lm_embed", "lm_layer_qkv",
-           "lm_layer_finish", "lm_logits", "lm_forward"]
+__all__ = ["BertConfig", "encoder_layer", "bert_encoder",
+           "bert_pretrain_loss", "build_bert_pretrain", "lm_param_names",
+           "lm_random_params", "lm_params_from_numpy", "lm_embed",
+           "lm_layer_qkv", "lm_layer_finish", "lm_logits", "lm_forward"]

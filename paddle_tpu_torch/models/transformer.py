@@ -1,12 +1,18 @@
-"""The BERT-shaped causal LM of the generation path, in plain PyTorch.
+"""BERT: the pretraining graph builders and the causal LM of the
+generation path.
 
-Counterpart of paddle_tpu/models/transformer.py's pure-jnp ``lm_*``
-functions (the graph builders are not ported).  Parameters are the same
-flat ``"lm.*"`` dict: ``lm_random_params`` makes the numpy arrays exactly
-as the JAX package does, and ``lm_params_from_numpy`` turns either
-package's dict into tensors on one device, so both compute with the same
-weights.  Layout is the JAX package's: packed heads, ``x [..., H]``,
-weights ``[in, out]``.
+Counterpart of paddle_tpu/models/transformer.py:
+
+* the graph builders ``encoder_layer``, ``bert_encoder``,
+  ``bert_pretrain_loss`` and ``build_bert_pretrain`` (dense MLM head),
+  built from the port's ``layers`` under the JAX package's deterministic
+  parameter names, so one program description serves both packages;
+* the pure-tensor ``lm_*`` functions the generation engine composes with
+  its KV cache.  Parameters are the same flat ``"lm.*"`` dict:
+  ``lm_random_params`` makes the numpy arrays exactly as the JAX package
+  does, and ``lm_params_from_numpy`` turns either package's dict into
+  tensors on one device.  Layout is the JAX package's: packed heads,
+  ``x [..., H]``, weights ``[in, out]``.
 
 Numerics follow the reference: layer norm over the feature axis with the
 population variance and eps 1e-5, exact-erf GELU, float32 matmuls.
@@ -20,9 +26,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import layers
+from ..initializer import ConstantInitializer, TruncatedNormalInitializer
 from ..ops.attention import attention_packed
+from ..param_attr import ParamAttr
 
-__all__ = ["BertConfig", "LM_PARAM_SUFFIXES", "lm_param_names",
+__all__ = ["BertConfig", "encoder_layer", "bert_encoder",
+           "bert_pretrain_loss", "build_bert_pretrain",
+           "LM_PARAM_SUFFIXES", "lm_param_names",
            "lm_random_params", "lm_params_from_numpy", "lm_embed",
            "lm_layer_qkv", "lm_layer_finish", "lm_logits", "lm_forward"]
 
@@ -39,6 +50,8 @@ class BertConfig:
     hidden_dropout: float = 0.1
     attn_dropout: float = 0.1
     initializer_range: float = 0.02
+    # the fused (flash) attention op — the hand-written kernels on the
+    # card; off = the unfused matmul/softmax ops
     fused_attention: bool = True
 
     @staticmethod
@@ -65,6 +78,147 @@ class BertConfig:
         """For tests & dry runs."""
         return BertConfig(vocab_size=1024, hidden_size=64, num_layers=2,
                           num_heads=4, ffn_size=128, max_position=128)
+
+
+# --------------------------------------------------------------------------
+# Graph builders (the layers API): BERT pretraining
+# --------------------------------------------------------------------------
+
+def _w(name, cfg):
+    return ParamAttr(
+        name=name,
+        initializer=TruncatedNormalInitializer(0.0, cfg.initializer_range))
+
+
+def _b(name):
+    return ParamAttr(name=name, initializer=ConstantInitializer(0.0))
+
+
+def _fc(x, size, name, cfg, act=None, num_flatten_dims=2):
+    return layers.fc(
+        x, size, num_flatten_dims=num_flatten_dims,
+        param_attr=_w(name + ".w", cfg), bias_attr=_b(name + ".b"), act=act)
+
+
+def _graph_ln(x, name):
+    return layers.layer_norm(
+        x, begin_norm_axis=2,
+        param_attr=ParamAttr(name=f"{name}.scale",
+                             initializer=ConstantInitializer(1.0)),
+        bias_attr=ParamAttr(name=f"{name}.bias",
+                            initializer=ConstantInitializer(0.0)))
+
+
+def encoder_layer(x, attn_bias, cfg: BertConfig, name: str, is_test=False):
+    """Post-LN transformer layer, matching the original BERT."""
+    h = cfg.hidden_size
+    n_head = cfg.num_heads
+    d_head = h // n_head
+
+    qkv = _fc(x, 3 * h, f"{name}.attn.qkv", cfg)  # [B, L, 3H]
+    if cfg.fused_attention:
+        # packed layout: slice [B, L, 3H] into three strided [B, L, H]
+        # views; the flash kernels read the heads by offset (no copies)
+        q = layers.slice(qkv, [2], [0], [h])
+        k = layers.slice(qkv, [2], [h], [2 * h])
+        v = layers.slice(qkv, [2], [2 * h], [3 * h])
+        ctxt = layers.fused_multihead_attention(
+            q, k, v, attn_bias=attn_bias, dropout_rate=cfg.attn_dropout,
+            sm_scale=1.0 / math.sqrt(d_head), is_test=is_test,
+            num_heads=n_head)  # [B, L, H]
+    else:
+        qkv = layers.reshape(qkv, [0, 0, 3, n_head, d_head])
+        qkv = layers.transpose(qkv, [2, 0, 3, 1, 4])  # [3, B, nh, L, dh]
+        q = layers.squeeze(layers.slice(qkv, [0], [0], [1]), [0])
+        k = layers.squeeze(layers.slice(qkv, [0], [1], [2]), [0])
+        v = layers.squeeze(layers.slice(qkv, [0], [2], [3]), [0])
+        scores = layers.matmul(q, k, transpose_y=True,
+                               alpha=1.0 / math.sqrt(d_head))  # [B,nh,L,L]
+        if attn_bias is not None:
+            scores = layers.elementwise_add(scores, attn_bias)
+        probs = layers.softmax(scores)
+        if cfg.attn_dropout > 0:
+            probs = layers.dropout(
+                probs, cfg.attn_dropout, is_test=is_test,
+                dropout_implementation="upscale_in_train")
+        ctxt = layers.matmul(probs, v)  # [B, nh, L, dh]
+        ctxt = layers.transpose(ctxt, [0, 2, 1, 3])
+        ctxt = layers.reshape(ctxt, [0, 0, h])
+
+    attn_out = _fc(ctxt, h, f"{name}.attn.out", cfg)
+    if cfg.hidden_dropout > 0:
+        attn_out = layers.dropout(
+            attn_out, cfg.hidden_dropout, is_test=is_test,
+            dropout_implementation="upscale_in_train")
+    x = _graph_ln(layers.elementwise_add(x, attn_out), f"{name}.ln1")
+
+    ffn = _fc(x, cfg.ffn_size, f"{name}.ffn.in", cfg, act="gelu")
+    ffn = _fc(ffn, h, f"{name}.ffn.out", cfg)
+    if cfg.hidden_dropout > 0:
+        ffn = layers.dropout(ffn, cfg.hidden_dropout, is_test=is_test,
+                             dropout_implementation="upscale_in_train")
+    return _graph_ln(layers.elementwise_add(x, ffn), f"{name}.ln2")
+
+
+def bert_encoder(src_ids, input_mask, cfg: BertConfig, is_test=False):
+    """src_ids: [B, L] int; input_mask: [B, L] float (1 = real token).
+    Returns the [B, L, H] sequence output."""
+    emb = layers.embedding(
+        src_ids, (cfg.vocab_size, cfg.hidden_size),
+        param_attr=_w("embeddings.word", cfg))
+    pos = layers.range(0, cfg.max_position, 1, "int64")
+    pos_emb_table = layers.embedding(
+        pos, (cfg.max_position, cfg.hidden_size),
+        param_attr=_w("embeddings.position", cfg))  # [max_pos, H]
+    L = src_ids.shape[1]
+    pos_emb = layers.slice(pos_emb_table, [0], [0], [L])  # [L, H]
+    x = layers.elementwise_add(emb, pos_emb, axis=1)
+    x = _graph_ln(x, "embeddings.ln")
+    if cfg.hidden_dropout > 0:
+        x = layers.dropout(x, cfg.hidden_dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+
+    # additive attention bias: [B, 1, 1, L], 0 for keep, -1e4 for pad
+    bias = layers.scale(input_mask, scale=1e4, bias=-1e4)
+    attn_bias = layers.unsqueeze(bias, [1, 2])
+    for i in range(cfg.num_layers):
+        x = encoder_layer(x, attn_bias, cfg, f"encoder.layer{i}",
+                          is_test=is_test)
+    return x
+
+
+def bert_pretrain_loss(seq_out, masked_labels, cfg: BertConfig):
+    """MLM head: project to vocab, softmax-CE with ignore_index=-1 on
+    unmasked positions (parity: ERNIE pretraining objective)."""
+    logits = _fc(seq_out, cfg.vocab_size, "mlm.out", cfg)
+    loss = layers.softmax_with_cross_entropy(
+        logits, masked_labels, ignore_index=-1)
+    total = layers.reduce_sum(loss)
+    valid = layers.reduce_sum(
+        layers.cast(layers.not_equal(masked_labels, -1), "float32"))
+    return layers.elementwise_div(
+        total, layers.elementwise_max(valid, 1.0))
+
+
+def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
+                        num_pipeline_stages=None, max_masked=None):
+    """Declares the feeds (src_ids [B, L] int64, input_mask [B, L]
+    float32, masked_labels [B, L, 1] int64 with -1 = unmasked) and builds
+    the pretrain graph with the dense MLM head.  Returns (loss, feeds).
+    The masked-position head and pipeline cuts are not ported."""
+    from ..core.program import data
+
+    if max_masked is not None or num_pipeline_stages:
+        raise NotImplementedError(
+            "the masked-position head (max_masked) and pipeline cuts are "
+            "not ported to paddle_tpu_torch")
+    src_ids = data("src_ids", [None, seq_len], "int64")
+    input_mask = data("input_mask", [None, seq_len], "float32")
+    seq_out = bert_encoder(src_ids, input_mask, cfg, is_test=is_test)
+    masked_labels = data("masked_labels", [None, seq_len, 1], "int64")
+    loss = bert_pretrain_loss(seq_out, masked_labels, cfg)
+    return loss, {"src_ids": src_ids, "input_mask": input_mask,
+                  "masked_labels": masked_labels}
 
 
 LM_PARAM_SUFFIXES = (

@@ -1,0 +1,444 @@
+"""Flash attention over packed heads, forward and backward, and the
+``fused_attention`` op.
+
+Counterpart of paddle_tpu/ops/pallas_ops.py: ``flash_attention_packed``
+(its packed-layout custom VJP over the Pallas kernels ``_fwd_kernel_packed``,
+``_bwd_dq_kernel_packed`` and ``_bwd_dkv_kernel_packed``) and the
+``fused_attention`` op.  Semantics (the JAX kernels'): f32 scores
+``(q . k) * sm_scale + bias`` with a key-padding bias [B, Tk], an
+end-aligned causal mask with the finite value -1e30, dropout on the
+probabilities (kept when the pair's random bits exceed rate * 2^32,
+scaled by 1 / (1 - rate)), and ``lse`` saved for a backward that
+recomputes the probabilities.
+
+Two implementations behind one autograd function, chosen by where the
+tensors live and nothing else:
+
+* ``csrc/flash_attention.cu`` — three hand-written CUDA kernels for
+  Hopper (sm_90a), float32: ``flash_fwd_packed`` (o and lse),
+  ``flash_bwd_dq_packed`` and ``flash_bwd_dkv_packed`` (dk, dv and a
+  per-head dbias the wrapper sums over heads, as the JAX wrapper sums
+  its lane groups).  Each wrapper adds one to ``_cuda.LAUNCHES[name]``
+  per launch and raises on anything its kernel cannot take (a bias that
+  is not key-padding shaped, d_head > 128, a non-float32 tensor); there
+  is no fallback.  The dropout mask comes from Philox keyed by the op's
+  seed, regenerated in every kernel; ``flash_kernel_dropout_mask`` writes
+  it out so the plain version can be handed the same mask.
+* ``flash_ref_forward`` / ``flash_ref_backward`` — the same arithmetic in
+  plain PyTorch, given the keep mask.  CPU tensors take them (their mask
+  from a ``torch.Generator`` seeded by the op's seed); ``chip_smoke.py``
+  holds the kernels against them on the card.
+
+``delta = rowsum(do * o)`` per head is a small torch op between the
+forward and the backward kernels, as XLA computes it outside the Pallas
+kernels.  The 4-D [B, H, T, D] layout (TPU kernels ``_fwd_kernel``,
+``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) is not ported: on a CUDA tensor
+that branch of the op raises; on the CPU it runs the plain composite.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _cuda
+from ..core.registry import out, register_op, single
+from .attention import _NEG_INF, _heads, attention, attention_packed
+
+__all__ = ["flash_attention_packed", "flash_ref_forward",
+           "flash_ref_backward", "flash_kernel_forward", "flash_delta",
+           "flash_kernel_dq", "flash_kernel_dkv", "flash_kernel_backward",
+           "flash_kernel_dropout_mask", "OP", "KERNEL", "FWD", "DQ", "DKV"]
+
+#: the operator type, the kernels' source name and their launch-counter keys
+OP = "fused_attention"
+KERNEL = "flash_attention"
+FWD, DQ, DKV = "flash_fwd_packed", "flash_bwd_dq_packed", "flash_bwd_dkv_packed"
+_MASK = "flash_dropout_mask"
+
+
+# -- plain versions ----------------------------------------------------------
+
+def _scores(qh, kh, bias, causal, sm_scale):
+    """[B, nh, Tq, Tk] f32 scores with bias [B, Tk] and the causal mask."""
+    s = torch.matmul(qh, kh.transpose(-1, -2)).float() * sm_scale
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    if causal:
+        Tq, Tk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(Tq, Tk, dtype=torch.bool,
+                          device=s.device).tril(Tk - Tq)
+        s = s.masked_fill(~mask, _NEG_INF)
+    return s
+
+
+def _merge(xh):
+    B, nh, T, D = xh.shape
+    return xh.transpose(1, 2).reshape(B, T, nh * D)
+
+
+def _dropped(x, keep_mask, dropout_rate):
+    if dropout_rate <= 0.0:
+        return x
+    return torch.where(keep_mask, x / (1.0 - dropout_rate),
+                       torch.zeros_like(x))
+
+
+def flash_ref_forward(q, k, v, num_heads, bias=None, causal=False,
+                      sm_scale=None, dropout_rate=0.0, keep_mask=None):
+    """Plain forward: q [B, Tq, H], k/v [B, Tk, H], bias [B, Tk] or None,
+    keep_mask bool [B, nh, Tq, Tk] (needed when dropout_rate > 0) ->
+    (o [B, Tq, H], lse [B, nh, Tq] f32)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    s = _scores(_heads(q, num_heads), _heads(k, num_heads), bias, causal,
+                sm_scale)
+    p = _dropped(torch.softmax(s, dim=-1), keep_mask, dropout_rate)
+    o = torch.matmul(p, _heads(v, num_heads).float())
+    return _merge(o).to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def flash_ref_backward(q, k, v, bias, o, lse, do, num_heads, causal=False,
+                       sm_scale=None, dropout_rate=0.0, keep_mask=None):
+    """Plain backward, the kernels' arithmetic: p = exp(s - lse),
+    ds = p * (drop(dp) - rowsum(do * o)) -> (dq, dk, dv [B, T, H],
+    dbias [B, Tk] summed over heads and queries)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    qh, kh, vh = (_heads(x, num_heads).float() for x in (q, k, v))
+    oh, doh = _heads(o, num_heads).float(), _heads(do, num_heads).float()
+    p = torch.exp(_scores(qh, kh, bias, causal, sm_scale) - lse[..., None])
+    dp = _dropped(torch.matmul(doh, vh.transpose(-1, -2)), keep_mask,
+                  dropout_rate)
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kh) * sm_scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * sm_scale
+    dv = torch.matmul(_dropped(p, keep_mask, dropout_rate).transpose(-1, -2),
+                      doh)
+    return (_merge(dq).to(q.dtype), _merge(dk).to(k.dtype),
+            _merge(dv).to(v.dtype), ds.sum(dim=(1, 2)))
+
+
+# -- the kernels -------------------------------------------------------------
+
+_P, _LL, _I, _F, _U = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_uint)
+_QKV = [_P, _LL, _LL] * 3 + [_P]            # q, k, v (ptr, sb, st), bias
+_DIMS = [_I, _I, _I, _I, _I, _F, _I, _F, _U, _U, _P]
+_ARGTYPES = {
+    "flash_fwd_packed_f32": _QKV + [_P, _LL, _LL, _P] + _DIMS,
+    "flash_bwd_dq_packed_f32": _QKV + [_P, _LL, _LL, _P, _P, _P, _LL, _LL]
+    + _DIMS,
+    "flash_bwd_dkv_packed_f32": _QKV + [_P, _LL, _LL, _P, _P, _P, _P, _P]
+    + _DIMS,
+    "flash_dropout_mask_u8": [_P, _I, _I, _I, _I, _F, _U, _U, _P],
+}
+
+
+def _fn(lib, name):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
+    return fn
+
+
+def _seed_words(seed):
+    seed = int(seed) & ((1 << 64) - 1)
+    return seed & 0xFFFFFFFF, seed >> 32
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check(q, k, v, num_heads, bias):
+    """Shapes, dtypes and layouts the kernels take; raises otherwise."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash kernels take packed [B, T, H] q, k, v")
+    B, Tq, H = q.shape
+    Tk = k.shape[1]
+    if H % num_heads:
+        raise ValueError(f"hidden {H} does not split into {num_heads} heads")
+    D = H // num_heads
+    if D > 128:
+        raise ValueError(f"d_head {D} > 128: the flash kernels hold at most "
+                         f"128 dims per head")
+    if tuple(k.shape) != (B, Tk, H) or tuple(v.shape) != (B, Tk, H):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.stride(2) != 1:
+            raise ValueError(f"{name}: the head dimension must be "
+                             f"contiguous (stride(2) == 1)")
+    if bias is not None:
+        if (tuple(bias.shape) != (B, Tk) or bias.dtype != torch.float32
+                or not bias.is_contiguous() or bias.device != q.device):
+            raise ValueError(
+                f"the flash kernels take a contiguous float32 key-padding "
+                f"bias [B, Tk] = [{B}, {Tk}] on {q.device}; got "
+                f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    return B, Tq, Tk, H, D
+
+
+def _strided(t):
+    return (t.data_ptr(), t.stride(0), t.stride(1))
+
+
+def _dims(B, nh, Tq, Tk, D, sm_scale, causal, dropout_rate, seed, device):
+    s0, s1 = _seed_words(seed)
+    return (B, nh, Tq, Tk, D, float(sm_scale), int(bool(causal)),
+            float(dropout_rate), s0, s1, _stream(device))
+
+
+def flash_kernel_forward(q, k, v, num_heads, bias=None, causal=False,
+                         sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_fwd_packed`` (CUDA tensors only): -> (o [B, Tq, H],
+    lse [B, nh, Tq])."""
+    B, Tq, Tk, H, D = _check(q, k, v, num_heads, bias)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    o = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
+                      device=q.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(q.device):
+        rc = _fn(lib, "flash_fwd_packed_f32")(
+            *_strided(q), *_strided(k), *_strided(v),
+            None if bias is None else bias.data_ptr(), *_strided(o),
+            lse.data_ptr(), *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal,
+                                   dropout_rate, seed, q.device))
+    _cuda.check(lib, rc, "flash_fwd_packed launch")
+    _cuda.LAUNCHES[FWD] += 1
+    return o, lse
+
+
+def flash_delta(o, do, num_heads):
+    """delta = rowsum(do * o) per head: [B, nh, Tq] f32 (a small torch
+    op between the forward and the backward kernels)."""
+    B, Tq, H = o.shape
+    return (do.float() * o.float()).reshape(B, Tq, num_heads, -1).sum(
+        -1).transpose(1, 2).contiguous()
+
+
+def _check_bwd(q, k, v, bias, do, lse, delta, num_heads):
+    B, Tq, Tk, H, D = _check(q, k, v, num_heads, bias)
+    if tuple(do.shape) != (B, Tq, H) or do.dtype != torch.float32 \
+            or do.stride(2) != 1 or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must be float32 "
+                         f"[{B}, {Tq}, {H}] on {q.device} with a contiguous "
+                         f"head dim")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, num_heads, Tq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[{B}, {num_heads}, {Tq}] on {q.device}")
+    return B, Tq, Tk, H, D
+
+
+def flash_kernel_dq(q, k, v, bias, do, lse, delta, num_heads, causal=False,
+                    sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_bwd_dq_packed`` (CUDA tensors only) -> dq
+    [B, Tq, H]."""
+    B, Tq, Tk, H, D = _check_bwd(q, k, v, bias, do, lse, delta, num_heads)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dq = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(q.device):
+        rc = _fn(lib, "flash_bwd_dq_packed_f32")(
+            *_strided(q), *_strided(k), *_strided(v),
+            None if bias is None else bias.data_ptr(), *_strided(do),
+            lse.data_ptr(), delta.data_ptr(), *_strided(dq),
+            *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal, dropout_rate,
+                   seed, q.device))
+    _cuda.check(lib, rc, "flash_bwd_dq_packed launch")
+    _cuda.LAUNCHES[DQ] += 1
+    return dq
+
+
+def flash_kernel_dkv(q, k, v, bias, do, lse, delta, num_heads, causal=False,
+                     sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_bwd_dkv_packed`` (CUDA tensors only) -> (dk, dv
+    [B, Tk, H], dbias per head [B, nh, Tk])."""
+    B, Tq, Tk, H, D = _check_bwd(q, k, v, bias, do, lse, delta, num_heads)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dk = torch.empty((B, Tk, H), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    dbias_h = torch.empty((B, num_heads, Tk), dtype=torch.float32,
+                          device=q.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(q.device):
+        rc = _fn(lib, "flash_bwd_dkv_packed_f32")(
+            *_strided(q), *_strided(k), *_strided(v),
+            None if bias is None else bias.data_ptr(), *_strided(do),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias_h.data_ptr(),
+            *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal, dropout_rate,
+                   seed, q.device))
+    _cuda.check(lib, rc, "flash_bwd_dkv_packed launch")
+    _cuda.LAUNCHES[DKV] += 1
+    return dk, dv, dbias_h
+
+
+def flash_kernel_backward(q, k, v, bias, o, lse, do, num_heads,
+                          causal=False, sm_scale=None, dropout_rate=0.0,
+                          seed=0):
+    """delta, then the dq and dk/dv kernels (CUDA tensors only) ->
+    (dq, dk, dv [B, T, H], dbias [B, Tk] summed over heads)."""
+    delta = flash_delta(o, do, num_heads)
+    kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
+              seed=seed)
+    dq = flash_kernel_dq(q, k, v, bias, do, lse, delta, num_heads, **kw)
+    dk, dv, dbias_h = flash_kernel_dkv(q, k, v, bias, do, lse, delta,
+                                       num_heads, **kw)
+    return dq, dk, dv, dbias_h.sum(dim=1)
+
+
+def flash_kernel_dropout_mask(B, num_heads, Tq, Tk, dropout_rate, seed,
+                              device):
+    """The keep mask bool [B, nh, Tq, Tk] the kernels draw for
+    (dropout_rate, seed) — a debug entry, so a plain version can be
+    handed the kernels' mask."""
+    mask = torch.empty((B, num_heads, Tq, Tk), dtype=torch.uint8,
+                       device=device)
+    lib = _cuda.library(KERNEL)
+    s0, s1 = _seed_words(seed)
+    with torch.cuda.device(device):
+        rc = _fn(lib, "flash_dropout_mask_u8")(
+            mask.data_ptr(), B, num_heads, Tq, Tk, float(dropout_rate), s0,
+            s1, _stream(device))
+    _cuda.check(lib, rc, "flash_dropout_mask launch")
+    _cuda.LAUNCHES[_MASK] += 1
+    return mask.bool()
+
+
+# -- autograd ----------------------------------------------------------------
+
+def _cpu_keep_mask(seed, dropout_rate, shape):
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.rand(shape, generator=gen) >= dropout_rate
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernels on CUDA tensors, the plain versions on CPU tensors;
+    saves (q, k, v, bias, o, lse) and recomputes p in backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads, causal, sm_scale,
+                dropout_rate, seed):
+        mask = None
+        if q.device.type == "cuda":
+            o, lse = flash_kernel_forward(q, k, v, num_heads, bias, causal,
+                                          sm_scale, dropout_rate, seed)
+        else:
+            if dropout_rate > 0.0:
+                mask = _cpu_keep_mask(seed, dropout_rate,
+                                      (q.shape[0], num_heads, q.shape[1],
+                                       k.shape[1]))
+            o, lse = flash_ref_forward(q, k, v, num_heads, bias, causal,
+                                       sm_scale, dropout_rate, mask)
+        ctx.save_for_backward(q, k, v, bias, o, lse, mask)
+        ctx.cfg = (num_heads, causal, sm_scale, dropout_rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse, mask = ctx.saved_tensors
+        num_heads, causal, sm_scale, dropout_rate, seed = ctx.cfg
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        if q.device.type == "cuda":
+            dq, dk, dv, dbias = flash_kernel_backward(
+                q, k, v, bias, o, lse, do, num_heads, causal, sm_scale,
+                dropout_rate, seed)
+        else:
+            dq, dk, dv, dbias = flash_ref_backward(
+                q, k, v, bias, o, lse, do, num_heads, causal, sm_scale,
+                dropout_rate, mask)
+        if bias is None or not ctx.needs_input_grad[3]:
+            dbias = None
+        return dq, dk, dv, dbias, None, None, None, None, None
+
+
+def _key_padding(bias, B, Tk):
+    """A [B, 1, 1, Tk]-shaped bias (the 0/-1e4 padding-mask form) as the
+    kernels' [B, Tk] float32, or None for any other shape."""
+    if bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1 \
+            and bias.shape[3] == Tk and bias.shape[0] in (1, B):
+        return bias.float().expand(B, 1, 1, Tk).reshape(B, Tk).contiguous()
+    return None
+
+
+def flash_attention_packed(q, k, v, num_heads, bias=None, causal=False,
+                           sm_scale=None, dropout_rate=0.0, seed=0):
+    """Flash attention in the packed layout: q [B, Tq, H], k/v [B, Tk, H]
+    (strided views allowed), bias broadcastable to [B, 1, 1, Tk] or None
+    -> [B, Tq, H], differentiable.  On CUDA tensors it launches the three
+    kernels or raises; on CPU tensors it runs the plain versions (a bias
+    of another shape then takes the plain composite)."""
+    B, Tq, H = q.shape
+    Tk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(H // num_heads)
+    kp = None if bias is None else _key_padding(bias, B, Tk)
+    if bias is not None and kp is None:
+        if q.device.type == "cuda":
+            raise NotImplementedError(
+                f"the flash kernels take a key-padding bias broadcastable "
+                f"to [B, 1, 1, Tk]; got {tuple(bias.shape)}")
+        gen = torch.Generator().manual_seed(int(seed))
+        return attention_packed(q, k, v, num_heads, causal=causal,
+                                sm_scale=sm_scale, bias=bias,
+                                dropout_rate=dropout_rate, generator=gen)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    return _FlashAttention.apply(q, k, v, kp, int(num_heads), bool(causal),
+                                 float(sm_scale), float(dropout_rate),
+                                 int(seed))
+
+
+# -- the operator ------------------------------------------------------------
+
+@register_op(OP, inputs=("Q", "K", "V", "Bias"),
+             outputs=("Out",), needs_rng=True, no_grad_slots=("Bias",))
+def fused_attention_op(ctx, inputs, attrs):
+    """Fused scaled-dot-product attention op (parity:
+    operators/fused/multihead_matmul_op.cu, but trainable).
+
+    Packed Q/K/V [B, T, H] with attr num_heads: the flash kernels on the
+    card, their plain versions on the CPU, shapes alone on ``meta``.
+    Q/K/V [B, H, T, D]: the plain composite on the CPU; no kernel yet.
+    Bias (optional): additive, broadcastable to [B, 1, 1, Tk].  Attrs:
+    causal, sm_scale, dropout_rate (0 at inference)."""
+    q = single(inputs, "Q")
+    k = single(inputs, "K")
+    v = single(inputs, "V")
+    bias = single(inputs, "Bias")
+    causal = bool(attrs.get("causal", False))
+    sm_scale = attrs.get("sm_scale")
+    rate = 0.0 if ctx.is_test else float(attrs.get("dropout_rate", 0.0))
+    if q.device.type == "meta":
+        return out(Out=torch.empty(tuple(q.shape[:-1]) + (v.shape[-1],),
+                                   dtype=q.dtype, device="meta"))
+    if q.dim() == 3:
+        return out(Out=flash_attention_packed(
+            q, k, v, int(attrs["num_heads"]), bias=bias, causal=causal,
+            sm_scale=sm_scale, dropout_rate=rate, seed=ctx.rng or 0))
+    if q.device.type == "cuda":
+        raise NotImplementedError(
+            "fused_attention on the 4-D [B, H, T, D] layout has no CUDA "
+            "kernel yet: TPU kernels _fwd_kernel, _bwd_dq_kernel and "
+            "_bwd_dkv_kernel (paddle_tpu/ops/pallas_ops.py:88, :335, :381) "
+            "are still to be ported; use the packed layout (num_heads)")
+    gen = torch.Generator().manual_seed(int(ctx.rng or 0))
+    return out(Out=attention(q, k, v, bias=bias, causal=causal,
+                             sm_scale=sm_scale, dropout_rate=rate,
+                             generator=gen))

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (the ragged paged attention and
-the paged decode attention) against their plain versions, on the card.
+"""The port's hand-written CUDA kernels (the ragged paged attention, the
+paged decode attention and the three flash-attention kernels of
+training) against their plain versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips on a host without a card.  On a machine with one (no JAX needed):
@@ -10,7 +11,11 @@ skips on a host without a card.  On a machine with one (no JAX needed):
 Tolerance: atol 1e-5 / rtol 1e-5 — float32 online softmax against the
 plain version's float32 softmax, summed in another order over at most
 a few hundred unit-scale keys (a thousand for the longest decode case).
-Inactive rows and empty decode slots must be exactly zero.
+Inactive rows and empty decode slots must be exactly zero.  Flash
+attention: forward atol 1e-5 (o, lse); gradients atol 1e-4 / rtol 1e-4 —
+dq, dk, dv and dbias sum up to a few hundred products of unit-scale
+values per element (dbias over heads and queries too), in float32, in
+another order than the plain version's matmuls.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ from paddle_tpu_torch.generation.attention import (
     paged_ref_decode_attention)
 from paddle_tpu_torch.generation.ragged_attention import (
     ragged_kernel_attention, ragged_paged_attention, ragged_ref_attention)
+from paddle_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -175,3 +181,112 @@ def test_paged_decode_wrapper_raises_instead_of_falling_back(device):
         paged_kernel_decode_attention(q, k, v, tables, lens, 256)
     with pytest.raises(ValueError, match="rows"):
         paged_kernel_decode_attention(q, k, v, tables[:3], lens, nh)
+
+
+# -- flash attention (training) ---------------------------------------------
+
+FLASH_FWD_ATOL = 1e-5
+FLASH_GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+#: the kernel-phase cases of chip_smoke.py: (B, Tq, Tk, nh, D, causal,
+#: strided qkv, dropout rate)
+FLASH_CASES = {
+    "step": (32, 128, 128, 12, 64, False, True, 0.0),
+    "causal": (4, 128, 128, 12, 64, True, False, 0.0),
+    "causal_tq_lt_tk": (4, 80, 128, 12, 64, True, False, 0.0),
+    "t100": (4, 100, 100, 12, 64, False, True, 0.0),
+    "d32": (4, 128, 128, 8, 32, False, False, 0.0),
+    "d128": (4, 128, 128, 4, 128, False, False, 0.0),
+    "dropout": (8, 128, 128, 12, 64, False, True, 0.1),
+}
+
+
+def _flash_case(device, B, Tq, Tk, nh, D, causal, strided, rate, seed=0):
+    """q, k, v (strided column slices of one [B, T, 3H] tensor when
+    ``strided``), the key-padding bias that masks the last quarter of the
+    keys of half the batch, an output cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    H = nh * D
+    if strided:
+        qkv = torch.randn(B, max(Tq, Tk), 3 * H, generator=g).to(device)
+        q, k, v = qkv[:, :Tq, :H], qkv[:, :Tk, H:2 * H], qkv[:, :Tk, 2 * H:]
+    else:
+        q = torch.randn(B, Tq, H, generator=g).to(device)
+        k, v = (torch.randn(B, Tk, H, generator=g).to(device)
+                for _ in range(2))
+    bias = torch.zeros(B, Tk)
+    bias[: B // 2, Tk - Tk // 4:] = -1e4
+    do = torch.randn(B, Tq, H, generator=g).to(device)
+    return dict(q=q, k=k, v=v, bias=bias.to(device), num_heads=nh,
+                causal=causal, dropout_rate=rate, seed=1234 + seed), do
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain_versions(device, case):
+    c, do = _flash_case(device, *FLASH_CASES[case])
+    B, Tq, H = c["q"].shape
+    nh, rate = c["num_heads"], c["dropout_rate"]
+    mask = None
+    if rate > 0:
+        mask = fa.flash_kernel_dropout_mask(B, nh, Tq, c["k"].shape[1], rate,
+                                            c["seed"], device)
+        keep = mask.float().mean().item()
+        sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
+        assert abs(keep - (1 - rate)) < 4 * sigma, keep
+    kw = dict(bias=c["bias"], causal=c["causal"], dropout_rate=rate)
+    before = {n: _cuda.LAUNCHES[n] for n in (fa.FWD, fa.DQ, fa.DKV)}
+    o, lse = fa.flash_kernel_forward(c["q"], c["k"], c["v"], nh, seed=c["seed"],
+                                     **kw)
+    o_ref, lse_ref = fa.flash_ref_forward(c["q"], c["k"], c["v"], nh,
+                                          keep_mask=mask, **kw)
+    grads = fa.flash_kernel_backward(c["q"], c["k"], c["v"], c["bias"], o,
+                                     lse, do, nh, causal=c["causal"],
+                                     dropout_rate=rate, seed=c["seed"])
+    refs = fa.flash_ref_backward(c["q"], c["k"], c["v"], c["bias"], o_ref,
+                                 lse_ref, do, nh, causal=c["causal"],
+                                 dropout_rate=rate, keep_mask=mask)
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {fa.FWD: 1, fa.DQ: 1, fa.DKV: 1}
+    torch.testing.assert_close(o, o_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, r, msg=name, **FLASH_GRAD_TOL)
+
+
+def test_flash_op_trains_through_the_kernels(device):
+    """The autograd function on CUDA tensors launches the three kernels,
+    once each per forward + backward, and matches the CPU path."""
+    c, do = _flash_case(device, *FLASH_CASES["t100"])
+    leaves = [t.detach().requires_grad_() for t in (c["q"], c["k"], c["v"])]
+    before = {n: _cuda.LAUNCHES[n] for n in (fa.FWD, fa.DQ, fa.DKV)}
+    out = fa.flash_attention_packed(*leaves, c["num_heads"],
+                                    bias=c["bias"][:, None, None, :])
+    got = torch.autograd.grad(out, leaves, do)
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    out_cpu = fa.flash_attention_packed(*cpu, c["num_heads"],
+                                        bias=c["bias"].cpu()[:, None, None])
+    want = torch.autograd.grad(out_cpu, cpu, do.cpu())
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {fa.FWD: 1, fa.DQ: 1, fa.DKV: 1}
+    torch.testing.assert_close(out.cpu(), out_cpu.detach(),
+                               atol=FLASH_FWD_ATOL, rtol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **FLASH_GRAD_TOL)
+
+
+def test_flash_wrappers_raise_instead_of_falling_back(device):
+    c, do = _flash_case(device, *FLASH_CASES["d32"])
+    q, k, v, nh = c["q"], c["k"], c["v"], c["num_heads"]
+    with pytest.raises(TypeError):
+        fa.flash_kernel_forward(q.double(), k, v, nh)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_kernel_forward(q, k.cpu(), v, nh)
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_kernel_forward(q, k, v, 1)
+    with pytest.raises(ValueError, match="key-padding"):
+        fa.flash_kernel_forward(q, k, v, nh, bias=c["bias"][:, :-1])
+    with pytest.raises(NotImplementedError, match="key-padding"):
+        fa.flash_attention_packed(q, k, v, nh, bias=torch.zeros(
+            q.shape[0], nh, q.shape[1], k.shape[1], device=device))

@@ -82,6 +82,27 @@ def test_entry_points_default_to_the_card():
     assert engine.cache.k.device.type == "cpu"
 
 
+def test_executor_defaults_to_the_card():
+    """``Executor()`` and ``Executor(CUDAPlace(0))`` run on the card and
+    raise without one; ``Executor(CPUPlace())`` runs a program here."""
+    if torch.cuda.is_available():
+        assert paddle_tpu_torch.Executor().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle_tpu_torch.Executor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle_tpu_torch.Executor(paddle_tpu_torch.CUDAPlace(0))
+    pt = paddle_tpu_torch
+    with pt.new_program_scope():
+        x = pt.data("x", [None, 3])
+        y = pt.layers.fc(x, 2)
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(pt.default_startup_program())
+        (got,) = exe.run(feed={"x": np.ones((4, 3), np.float32)},
+                         fetch_list=[y])
+    assert got.shape == (4, 2) and exe.device.type == "cpu"
+
+
 def test_strict_fp32_is_stated():
     paddle_tpu_torch.set_strict_fp32()
     assert torch.backends.cuda.matmul.allow_tf32 is False
