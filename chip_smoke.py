@@ -8,12 +8,15 @@ Phases (any failure exits non-zero and prints no result):
 1. the card's name and power limit; build every CUDA kernel from
    paddle_tpu_torch/csrc (one nvcc per source, all started together):
    the ragged paged attention and the paged decode attention of the
-   serving paths, and the flash-attention forward, dq and dk/dv kernels
-   of training (one source);
+   serving paths, the flash-attention forward, dq and dk/dv kernels and
+   the qkv-folded flash forward of training (one source), and the fused
+   matmul epilogue and the FFN chain of the fusion pass (one source);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, with its time, the plain
    version's time, a PyTorch library call's time and the least time the
-   card could take (its bound);
+   card could take (its bound); the qkv-folded forward's gradients
+   through the dq and dk/dv kernels, and the fused matmul's and FFN
+   chain's through their autograd functions, against the plain ones;
 3. the generation engine at BertConfig.base() (random weights from a
    seed, initializer_range 0.6), each path driven with the launch
    counts set to 0 just before it and read just after:
@@ -46,22 +49,34 @@ Phases (any failure exits non-zero and prints no result):
 5. training: BERT-base pretraining (BertConfig.base(), dropout 0.1,
    batch 32 x 128 tokens, ~15% of positions labelled, random weights from
    a seed) through the port's front end — build_bert_pretrain ->
-   Adam(1e-4).minimize -> Executor.run — for 2 warm-up and 10 timed
-   steps: every loss finite, each flash kernel launched once per layer
-   per step, the plain attention never, no kernel library loaded after
-   the first step; one step under torch.profiler; then the parity gate
-   at dropout 0 from the same weights: 5 Adam steps of the fused program
-   (the kernels) against the unfused matmul/softmax program, every
-   step's loss within 2e-3 and every first-step gradient within a
+   Adam(1e-4).minimize -> Executor.run, whose GEMM-epilogue fusion pass
+   is on by default — for 2 warm-up and 10 timed steps: the plan must
+   hold 12 attention, 13 fused-matmul and 12 FFN-chain groups (the MLM
+   head's N = 30522 replays), every loss must be finite, the qkv-folded
+   forward, the fused matmul, the FFN chain and the flash dq and dk/dv
+   kernels must launch once per layer per step and the packed flash
+   forward never, no plain version of a kernel may run and no kernel
+   library may load after the first step; one step under
+   torch.profiler; then the parity gate at dropout 0 from the same
+   weights: 5 Adam steps each of the fused program, the unfused lowering
+   (BuildStrategy.fuse_epilogues = False: the packed flash kernels) and
+   the plain matmul/softmax program (fused_attention=False, unfused:
+   none of the port's kernels), each launching only its own kernels
+   once per layer per step; every step's loss of the first two within
+   2e-3 of the plain program's and every first-step gradient within a
    relative norm error of 1e-3.
 
 The line before the card's line is {"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
-{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+{"ok": true, "device": {...}}.  A kernel's launches are those of its own
+path's run: the unfused lowering's for the packed flash forward, the
+fused training steps' for the other training kernels.  Details go to
+chiprun_out/chip_smoke.json.
 The script imports nothing of JAX and nothing of paddle_tpu.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -114,6 +129,18 @@ KERNELS = [
          source="paddle_tpu_torch/csrc/flash_attention.cu",
          replaces="paddle_tpu/ops/pallas_ops.py:502",
          build="flash_attention"),
+    dict(name="flash_fwd_qkv", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/attention_epilogue.py:119",
+         build="flash_attention"),
+    dict(name="gemm_epilogue", route="cuda",
+         source="paddle_tpu_torch/csrc/gemm_epilogue.cu",
+         replaces="paddle_tpu/ops/pallas_matmul.py:161",
+         build="gemm_epilogue"),
+    dict(name="ffn_chain", route="cuda",
+         source="paddle_tpu_torch/csrc/gemm_epilogue.cu",
+         replaces="paddle_tpu/ops/pallas_ffn_chain.py:163",
+         build="gemm_epilogue"),
 ]
 #: legacy prompts: two prefill seq buckets (16 and 32) at page_size 16
 LEGACY_LENGTHS = (8, 12, 16, 20, 24, 28, 32, 32)
@@ -126,6 +153,8 @@ DRAFT_LAYERS = 2
 #: parity steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 32, 128, 1e-4
 TRAIN_WARMUP, TRAIN_STEPS, PARITY_STEPS = 2, 10, 5
+#: timed steps of the unfused lowering beside the fused program
+COMPARE_STEPS = 5
 #: fused (kernel) vs unfused program at dropout 0: |loss difference| at
 #: every step (the JAX package's _PARITY_TOL, __graft_entry__.py:26), and
 #: the relative norm error of every first-step gradient
@@ -649,6 +678,344 @@ def flash_kernel_phase(device):
     return report
 
 
+def _epi_case(M, K, N, seed, bias=True, residual=False, gamma=False,
+              beta=False, **spec):
+    """Inputs of one fused matmul-epilogue call: x [M, K] and a residual
+    of unit scale, w scaled by 1 / sqrt(K) (so z is of unit scale too),
+    bias, gamma and beta near their BERT values."""
+    import torch
+
+    from paddle_tpu_torch.ops.fused_matmul import EpilogueSpec
+
+    g = torch.Generator().manual_seed(SEED + 400 + seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    return dict(x=rnd(M, K), w=rnd(K, N, scale=K ** -0.5),
+                bias=rnd(N, scale=0.1) if bias else None,
+                residual=rnd(M, N) if residual else None,
+                gamma=rnd(N, scale=0.1, shift=1.0) if gamma else None,
+                beta=rnd(N, scale=0.1) if beta else None,
+                seed=SEED + 4321 + seed, spec=EpilogueSpec(**spec))
+
+
+#: fused matmul-epilogue cases: (M, K, N, options); "step" is the attention
+#: output projection of the training step (bias, dropout, residual, layer
+#: norm), "relu" the FFN's up-projection shape, "ragged" an M and N that
+#: fill no tile
+GEMM_CASES = {
+    "step": (TRAIN_BATCH * TRAIN_SEQ, 768, 768, dict(
+        residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "no_bias": (TRAIN_BATCH * TRAIN_SEQ, 768, 768, dict(bias=False)),
+    "relu": (TRAIN_BATCH * TRAIN_SEQ, 768, 3072, dict(act="relu")),
+    "gelu_tanh": (512, 768, 3072, dict(act="gelu", act_approximate=True)),
+    "no_norm": (TRAIN_BATCH * TRAIN_SEQ, 768, 768, dict(
+        residual=True, dropout_rate=0.1)),
+    "rms_norm": (TRAIN_BATCH * TRAIN_SEQ, 768, 768, dict(
+        residual=True, gamma=True, norm="rms_norm")),
+    "affine_only": (TRAIN_BATCH * TRAIN_SEQ, 768, 768, dict(residual=True)),
+    "ragged": (1000, 512, 1000, dict(
+        act="gelu", residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "n128": (96, 64, 128, dict(act="gelu", gamma=True, beta=True,
+                               norm="layer_norm")),
+}
+#: FFN-chain cases: (M, K, F, N, options); "step" is one layer's FFN
+FFN_CASES = {
+    "step": (TRAIN_BATCH * TRAIN_SEQ, 768, 3072, 768, dict(
+        act="gelu", residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "relu": (TRAIN_BATCH * TRAIN_SEQ, 768, 3072, 768, dict(
+        act="relu", residual=True, gamma=True, beta=True,
+        norm="layer_norm")),
+    "no_b2": (TRAIN_BATCH * TRAIN_SEQ, 768, 3072, 768, dict(
+        act="gelu", bias=False)),
+    "ragged": (1000, 256, 1024, 512, dict(
+        act="gelu", residual=True, gamma=True, dropout_rate=0.1,
+        norm="rms_norm")),
+    "n128": (96, 64, 128, 128, dict(act="gelu", residual=True, gamma=True,
+                                    beta=True, norm="layer_norm")),
+}
+#: qkv-folded flash forward cases: (B, T, nh, D, causal, key-padding bias,
+#: dropout rate); "step" is one layer of the training step
+QKV_CASES = {
+    "step": (TRAIN_BATCH, TRAIN_SEQ, 12, 64, False, True, 0.1),
+    "causal": (4, 128, 12, 64, True, True, 0.0),
+    "no_bias": (4, 128, 12, 64, False, False, 0.0),
+    "t100_d32": (4, 100, 8, 32, False, True, 0.0),
+}
+#: fused matmul / FFN chain against their plain versions: atol + rtol
+#: (float32 sums over K = 768 or F = 3072 unit-scale products in another
+#: order than cuBLAS's; the norm divides by a row's spread)
+EPI_ATOL = EPI_RTOL = 1e-4
+
+
+def _gemm_bound(M, K, N, c, z0, dropout):
+    flops = 2 * M * K * N
+    nbytes = 4 * (M * K + K * N + M * N) + (M * N if dropout else 0)
+    nbytes += 4 * M * N * (bool(z0) + (c["residual"] is not None))
+    nbytes += 4 * N * sum(c[k] is not None for k in ("bias", "gamma", "beta"))
+    return _bound(flops, nbytes)
+
+
+def _bound(flops, nbytes):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def _keep_ok(mask, rate):
+    keep = float(mask.float().mean())
+    sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
+    if abs(keep - (1 - rate)) > 4 * sigma:
+        raise AssertionError(f"dropout keeps {keep}, not within 4 sigma "
+                             f"({sigma:.2e}) of {1 - rate}")
+    return keep
+
+
+def _grad_check(fn_kernel, fn_plain, inputs, dy):
+    """Gradients of a kernel-backed autograd function against those of
+    its plain version: the worst atol excess at EPI_RTOL."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    got = torch.autograd.grad(fn_kernel(*leaves), leaves, dy)
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    want = torch.autograd.grad(fn_plain(*leaves), leaves, dy)
+    return max(_tol_excess(a, b, EPI_ATOL, EPI_RTOL)
+               for a, b in zip(got, want))
+
+
+def epilogue_kernel_phase(device):
+    """The fused matmul-epilogue (#10) and FFN-chain (#11) kernels against
+    their plain versions (handed the kernels' own dropout masks) in every
+    GEMM_CASES / FFN_CASES case, gradients of the step cases through the
+    autograd functions, then the times of the step cases."""
+    import torch
+
+    from paddle_tpu_torch.ops import ffn_chain as fc
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    report = {fm.LAUNCH: dict(max_abs_err=0.0, cases={}),
+              fc.LAUNCH: dict(max_abs_err=0.0, cases={})}
+    made = {}
+    for name, (M, K, N, opts) in GEMM_CASES.items():
+        c = _epi_case(M, K, N, len(made), **opts)
+        c = {k: (v.to(device) if torch.is_tensor(v) else v)
+             for k, v in c.items()}
+        made["gemm", name] = c
+        args = [c[k] for k in ("x", "w", "bias", "residual", "gamma", "beta")]
+        y, z0, mask = fm.fused_matmul_kernel(*args, seed=c["seed"],
+                                             spec=c["spec"])
+        y_ref, z0_ref = fm.reference_matmul_epilogue(
+            *args, spec=c["spec"], mask=mask)
+        sync(device)
+        keep = _keep_ok(mask, c["spec"].dropout_rate) if mask is not None \
+            else None
+        err = float((y - y_ref).abs().max())
+        excess = _tol_excess(y, y_ref, EPI_ATOL, EPI_RTOL)
+        if z0 is not None:
+            excess = max(excess, _tol_excess(z0, z0_ref, EPI_ATOL, EPI_RTOL))
+            err = max(err, float((z0 - z0_ref).abs().max()))
+        if name == "step":
+            dy = torch.randn(M, N, generator=torch.Generator().manual_seed(
+                SEED + 5)).to(device)
+            excess = max(excess, _grad_check(
+                lambda *t: fm.fused_matmul(*t, seed=c["seed"],
+                                           spec=c["spec"]),
+                lambda *t: fm.reference_matmul_epilogue(
+                    *t, spec=c["spec"], mask=mask)[0],
+                args, dy))
+        z0_note = "z0 checked" if z0 is not None else "no z0 (affine)"
+        log(f"  gemm_epilogue {name}: M={M} K={K} N={N} {c['spec']} "
+            + (f"keep={keep:.5f} " if keep is not None else "")
+            + f"max_abs_err={err:.3e} ({z0_note}; atol {EPI_ATOL:g} rtol "
+            f"{EPI_RTOL:g}{', gradients too' if name == 'step' else ''})")
+        if not (excess <= EPI_ATOL and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"gemm_epilogue disagrees with plain on "
+                                 f"{name}")
+        report[fm.LAUNCH]["max_abs_err"] = max(
+            report[fm.LAUNCH]["max_abs_err"], err)
+        report[fm.LAUNCH]["cases"][name] = dict(max_abs_err=err,
+                                                keep_fraction=keep)
+
+    for name, (M, K, F, N, opts) in FFN_CASES.items():
+        opts = dict(opts)
+        has_b2 = opts.pop("bias", True)
+        c = _epi_case(M, K, F, len(made), **opts)       # x, w1, b1
+        c2 = _epi_case(M, F, N, len(made) + 50, bias=has_b2,
+                       residual=opts.get("residual", False),
+                       gamma=opts.get("gamma", False),
+                       beta=opts.get("beta", False))   # w2, b2, tail
+        args = [c["x"], c["w"], c["bias"], c2["w"], c2["bias"],
+                c2["residual"], c2["gamma"], c2["beta"]]
+        args = [None if t is None else t.to(device) for t in args]
+        made["ffn", name] = (args, c)
+        y, mask = fc.ffn_chain_kernel(*args, seed=c["seed"], spec=c["spec"])
+        y_ref = fc.reference_ffn_chain(*args, spec=c["spec"], mask=mask)
+        sync(device)
+        keep = _keep_ok(mask, c["spec"].dropout_rate) if mask is not None \
+            else None
+        err = float((y - y_ref).abs().max())
+        excess = _tol_excess(y, y_ref, EPI_ATOL, EPI_RTOL)
+        if name == "step":
+            dy = torch.randn(M, N, generator=torch.Generator().manual_seed(
+                SEED + 6)).to(device)
+            excess = max(excess, _grad_check(
+                lambda *t: fc.fused_ffn_chain(*t, seed=c["seed"],
+                                              spec=c["spec"]),
+                lambda *t: fc.reference_ffn_chain(*t, spec=c["spec"],
+                                                  mask=mask),
+                args, dy))
+        log(f"  ffn_chain {name}: M={M} K={K} F={F} N={N} {c['spec']} b2="
+            f"{has_b2} " + (f"keep={keep:.5f} " if keep is not None else "")
+            + f"max_abs_err={err:.3e} (atol {EPI_ATOL:g} rtol {EPI_RTOL:g}"
+            f"{', gradients too' if name == 'step' else ''})")
+        if not (excess <= EPI_ATOL and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"ffn_chain disagrees with plain on {name}")
+        report[fc.LAUNCH]["max_abs_err"] = max(
+            report[fc.LAUNCH]["max_abs_err"], err)
+        report[fc.LAUNCH]["cases"][name] = dict(max_abs_err=err,
+                                                keep_fraction=keep)
+
+    # times at the training step's shapes (dropout 0.1)
+    c = made["gemm", "step"]
+    args = [c[k] for k in ("x", "w", "bias", "residual", "gamma", "beta")]
+    M, K = c["x"].shape
+    N = c["w"].shape[1]
+    _, _, mask = fm.fused_matmul_kernel(*args, seed=c["seed"], spec=c["spec"])
+    ms = time_ms(lambda: fm.fused_matmul_kernel(*args, seed=c["seed"],
+                                                spec=c["spec"]), device)
+    plain_ms = time_ms(lambda: fm.reference_matmul_epilogue(
+        *args, spec=c["spec"], mask=mask), device)
+    library_ms = time_ms(lambda: torch.addmm(c["bias"], c["x"], c["w"]),
+                         device)
+    bound_ms, bound_by, nbytes, flops = _gemm_bound(M, K, N, c, True, True)
+    report[fm.LAUNCH]["timing"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, flops=flops,
+        library="torch.addmm (cuBLAS): the GEMM and bias alone",
+        shape=dict(M=M, K=K, N=N, spec=str(c["spec"])))
+    log(f"  gemm_epilogue timing (M={M} K={K} N={N}, bias dropout 0.1 "
+        f"residual layer_norm): ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms(addmm, the GEMM alone)={library_ms:.5f} bound_ms="
+        f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops; "
+        f"{flops / ms / 1e9:.2f} TFLOP/s)")
+
+    args, c = made["ffn", "step"]
+    x, w1, b1, w2, b2 = args[:5]
+    M, K = x.shape
+    F, N = w2.shape
+    _, mask = fc.ffn_chain_kernel(*args, seed=c["seed"], spec=c["spec"])
+    ms = time_ms(lambda: fc.ffn_chain_kernel(*args, seed=c["seed"],
+                                             spec=c["spec"]), device, iters=50)
+    plain_ms = time_ms(lambda: fc.reference_ffn_chain(
+        *args, spec=c["spec"], mask=mask), device, iters=50)
+    library_ms = time_ms(lambda: torch.addmm(
+        b2, torch.addmm(b1, x, w1), w2), device, iters=50)
+    flops = 2 * M * (K * F + F * N)
+    nbytes = 4 * (M * K + K * F + F + F * N + 3 * N + 2 * M * N) + M * N
+    bound_ms, bound_by, nbytes, flops = _bound(flops, nbytes)
+    report[fc.LAUNCH]["timing"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, flops=flops,
+        library="two torch.addmm (cuBLAS): the GEMMs and biases alone",
+        shape=dict(M=M, K=K, F=F, N=N, spec=str(c["spec"])))
+    log(f"  ffn_chain timing (M={M} K={K} F={F} N={N}, gelu dropout 0.1 "
+        f"residual layer_norm): ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms(two addmm, the GEMMs alone)={library_ms:.5f} bound_ms="
+        f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops; "
+        f"{flops / ms / 1e9:.2f} TFLOP/s)")
+    return report
+
+
+def qkv_kernel_phase(device):
+    """The qkv-folded flash forward (#9) against its plain version in
+    every QKV_CASES case (dropout through the kernel's own mask), and
+    the gradients of fused_qkv_attention — #9, then the packed dq and
+    dk/dv kernels on the re-biased qkv — against the plain composite's,
+    then its time at the training step's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import attention_epilogue as ae
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    worst, cases, made = 0.0, {}, {}
+    for name, (B, T, nh, D, causal, with_bias, rate) in QKV_CASES.items():
+        H = nh * D
+        g = torch.Generator().manual_seed(SEED + 500 + len(cases))
+        x = torch.randn(B, T, H, generator=g).to(device)
+        w = (torch.randn(H, 3 * H, generator=g) * H ** -0.5).to(device)
+        b = (torch.randn(3 * H, generator=g) * 0.1).to(device)
+        mask4 = None
+        if with_bias:
+            pad = torch.zeros(B, 1, 1, T)
+            pad[: B // 2, ..., T - T // 4:] = -1e4
+            mask4 = pad.to(device)
+        kp = None if mask4 is None else mask4.reshape(B, T).contiguous()
+        seed = SEED + 999 + len(cases)
+        keep = fa.flash_kernel_dropout_mask(B, nh, T, T, rate, seed, device) \
+            if rate > 0 else None
+        qkv = torch.matmul(x, w)
+        o, lse = fa.flash_kernel_forward_qkv(qkv, b, nh, kp, causal,
+                                             dropout_rate=rate, seed=seed)
+        o_ref, lse_ref = ae.qkv_ref_forward(qkv, b, nh, kp, causal,
+                                            dropout_rate=rate,
+                                            keep_mask=keep)
+        do = torch.randn(B, T, H, generator=g).to(device)
+        grad_excess = _grad_check(
+            lambda x_, w_, b_: ae.fused_qkv_attention(
+                x_, w_, b_, nh, mask4, causal, dropout_rate=rate, seed=seed),
+            lambda x_, w_, b_: ae.plain_qkv_attention(
+                x_, w_, b_, nh, mask4, causal, dropout_rate=rate,
+                keep_mask=keep),
+            [x, w, b], do)
+        sync(device)
+        err = max(float((o - o_ref).abs().max()),
+                  float((lse - lse_ref).abs().max()))
+        log(f"  flash_fwd_qkv {name}: B={B} T={T} nh={nh} D={D} causal="
+            f"{causal} bias={with_bias} dropout={rate} max_abs_err={err:.3e} "
+            f"(atol {FLASH_FWD_ATOL:g}); gradients through dq/dk-dv: worst "
+            f"excess {grad_excess:.3e} (atol {EPI_ATOL:g} rtol {EPI_RTOL:g})")
+        if not (err <= FLASH_FWD_ATOL and grad_excess <= EPI_ATOL
+                and bool(torch.isfinite(o).all())):
+            raise AssertionError(f"flash_fwd_qkv disagrees with plain on "
+                                 f"{name}")
+        worst = max(worst, err)
+        cases[name] = dict(max_abs_err=err, grad_excess=grad_excess)
+        made[name] = (qkv, b, kp, keep, x, w, mask4)
+
+    qkv, b, kp, keep, x, w, mask4 = made["step"]
+    B, T, nh, D, causal, _, rate = QKV_CASES["step"]
+    seed = SEED + 999
+    ms = time_ms(lambda: fa.flash_kernel_forward_qkv(
+        qkv, b, nh, kp, dropout_rate=rate, seed=seed), device)
+    plain_ms = time_ms(lambda: ae.qkv_ref_forward(
+        qkv, b, nh, kp, dropout_rate=rate, keep_mask=keep), device)
+    H = nh * D
+    heads = [t.reshape(B, T, nh, D).transpose(1, 2)
+             for t in (qkv + b).split(H, dim=-1)]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, attn_mask=mask4, dropout_p=rate), device)
+    flops = 4 * B * nh * T * T * D
+    nbytes = 4 * (3 * B * T * H + 3 * H + B * T + B * T * H + B * nh * T)
+    bound_ms, bound_by, nbytes, flops = _bound(flops, nbytes)
+    log(f"  flash_fwd_qkv timing (B={B} T={T} nh={nh} D={D} dropout={rate}): "
+        f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms(sdpa forward over "
+        f"bias-added q/k/v)={library_ms:.5f} bound_ms={bound_ms:.6f} "
+        f"({bound_by}: {nbytes} bytes, {flops} flops)")
+    return {fa.QKV: dict(max_abs_err=worst, cases=cases, timing=dict(
+        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, flops=flops,
+        library="scaled_dot_product_attention forward over q/k/v with the "
+                "bias added",
+        shape=dict(B=B, T=T, nh=nh, D=D, dropout=rate)))}
+
+
 # -- phase 3: the engine ----------------------------------------------------
 
 def make_prompts(rng, n, length, vocab):
@@ -1085,7 +1452,10 @@ def _span_summary(prof, wall_us, steps, kernel_names):
     named_us = sum(us for name, us in by_name.items()
                    if any(k in name for k in kernel_names))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(device_busy_share=busy / wall_us,
+    counts = collections.Counter(name[:60] for _, _, name in spans)
+    return dict(most_launched=[(name, n / steps) for name, n in
+                               counts.most_common(8)],
+                device_busy_share=busy / wall_us,
                 device_ms_per_step=kernel_us / 1e3 / steps,
                 kernels_per_step=len(spans) / steps,
                 named_kernels_ms_per_step=named_us / 1e3 / steps,
@@ -1230,48 +1600,131 @@ def train_batch(vocab, device):
                                                       labels))}
 
 
-class _PlainAttentionCalls:
-    """Counts calls of the port's plain attention functions (the flash
-    plain versions and the composite) while active."""
+class _PlainCalls:
+    """Counts calls of the port's plain kernel versions while active: the
+    flash plain versions and the composite attention, the qkv-folded
+    forward's, the fused matmul epilogue's and the FFN chain's, under
+    every module-level name the ops look them up by.  (The fused matmul
+    and FFN-chain backward passes are plain PyTorch by design, as the
+    JAX package's custom VJPs are XLA; they call none of these.)"""
 
-    NAMES = ("flash_ref_forward", "flash_ref_backward", "attention",
-             "attention_packed")
+    NAMES = {
+        "flash_attention": ("flash_ref_forward", "flash_ref_backward",
+                            "attention", "attention_packed"),
+        "attention_epilogue": ("qkv_ref_forward", "plain_qkv_attention",
+                               "flash_ref_forward", "flash_ref_backward"),
+        "fused_matmul": ("reference_matmul_epilogue",),
+        "ffn_chain": ("reference_ffn_chain",),
+    }
 
     def __init__(self):
-        from paddle_tpu_torch.ops import flash_attention as fa
+        import importlib
 
-        self.module, self.calls, self.saved = fa, 0, {}
+        self.calls, self.saved = 0, []
+        self.modules = {m: importlib.import_module(f"paddle_tpu_torch.ops.{m}")
+                        for m in self.NAMES}
 
     def __enter__(self):
-        for n in self.NAMES:
-            fn = self.saved[n] = getattr(self.module, n)
+        for m, names in self.NAMES.items():
+            module = self.modules[m]
+            for n in names:
+                fn = getattr(module, n)
+                self.saved.append((module, n, fn))
 
-            def counted(*a, _fn=fn, **kw):
-                self.calls += 1
-                return _fn(*a, **kw)
+                def counted(*a, _fn=fn, **kw):
+                    self.calls += 1
+                    return _fn(*a, **kw)
 
-            setattr(self.module, n, counted)
+                setattr(module, n, counted)
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(self.module, n, fn)
+        for module, n, fn in reversed(self.saved):
+            setattr(module, n, fn)
+        self.saved.clear()
         return False
 
 
-def training_phase(device, cfg):
-    """``cfg`` pretraining for TRAIN_WARMUP + TRAIN_STEPS steps with the
-    launch, plain-attention and no-load gates, one profiled step, then
-    the fused-vs-unfused parity gate.  On the CPU (a rehearsal) the plain
-    versions run and the launch gates expect none."""
+#: the kernels of the fused training step (the fusion pass's default
+#: program): each launched once per layer per step
+FUSED_STEP_KERNELS = ("flash_fwd_qkv", "gemm_epilogue", "ffn_chain",
+                      "flash_bwd_dq_packed", "flash_bwd_dkv_packed")
+
+
+def _plan_kinds(main):
+    """Group kinds of every fusion plan the Executor lowered for
+    ``main`` (one per feed/fetch signature)."""
+    kinds = []
+    for lowered in main._exec_cache.values():
+        plan = lowered.fusion_plan
+        kinds.append(None if plan is None else collections.Counter(
+            g.kind for g in plan.groups))
+    return kinds
+
+
+def launch_cost_us(device, n=2000):
+    """Host microseconds per small eager PyTorch op (an in-place add on a
+    one-element tensor, ``n`` times, then a sync): the dispatch cost an
+    eager, host-bound step pays per kernel.  Read at the start of the run
+    and around the profiled steps: a profiler session may leave its
+    tracing on and slow every later launch."""
     import torch
+
+    t = torch.zeros(1, device=device)
+    for _ in range(50):
+        t.add_(1.0)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t.add_(1.0)
+    sync(device)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _profile_step(exe, program, feed, loss, scope, device, what):
+    """One training step under torch.profiler: its wall time and the
+    device summary of _span_summary."""
     from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        exe.run(program, feed=feed, fetch_list=[loss], scope=scope)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = _span_summary(prof, wall_us, 1, ("flash_", "gemm_epilogue",
+                                           "ffn_chain"))
+    if out is None:
+        log(f"  profiled {what} step: {wall_us / 1e3:.3f} ms wall; device "
+            f"time not measured (the profiler recorded no device activity)")
+        return dict(wall_ms=wall_us / 1e3)
+    log(f"  profiled {what} step: {wall_us / 1e3:.3f} ms wall under the "
+        f"profiler, device kernels {out['device_ms_per_step']:.3f} ms "
+        f"({out['kernels_per_step']:.0f} kernels), busy share "
+        f"{out['device_busy_share']:.4f}, the port's kernels "
+        f"{out['named_kernels_ms_per_step']:.3f} ms")
+    for name, ms in out["top_kernels_ms"]:
+        log(f"    {ms:9.3f} ms  {name}")
+    log("    most launched: " + "; ".join(
+        f"{n} x {name}" for name, n in out["most_launched"]))
+    return dict(wall_ms=wall_us / 1e3, **out)
+
+
+def training_phase(device, cfg):
+    """``cfg`` pretraining through the default (fused) program for
+    TRAIN_WARMUP + TRAIN_STEPS steps with the plan, launch, plain-call
+    and no-load gates, one profiled step, then the three-way parity
+    gate.  On the CPU (a rehearsal) the plain versions run and the
+    launch gates expect none."""
+    import torch
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import _cuda
     from paddle_tpu_torch.ops import flash_attention as fa
 
     on_card = device.type == "cuda"
+    before_us = launch_cost_us(device)
     main, startup, loss, _, params = build_train(cfg)
     exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
     scope = pt.Scope()
@@ -1289,7 +1742,7 @@ def training_phase(device, cfg):
     sync(device)
     warm_s = time.perf_counter() - t0
 
-    with _PlainAttentionCalls() as plain:
+    with _PlainCalls() as plain:
         _cuda.reset_launches()
         t0 = time.perf_counter()
         losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
@@ -1300,76 +1753,122 @@ def training_phase(device, cfg):
     losses = [float(x) for x in warm] + [float(x) for x in losses]
     step_ms = wall / TRAIN_STEPS * 1e3
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
-    want = cfg.num_layers * TRAIN_STEPS if on_card else 0
+    L = cfg.num_layers
+    want = L * TRAIN_STEPS if on_card else 0
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    got = {k: launches.get(k, 0) for k in (fa.FWD, fa.DQ, fa.DKV)}
+    got = {k: launches.get(k, 0) for k in FUSED_STEP_KERNELS + (fa.FWD,)}
+    kinds = _plan_kinds(main)
+    want_kinds = collections.Counter(attn=L, gemm=L + 1, ffn_chain=L)
     log(f"  BERT ({n_params} parameters) pretraining, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}, Adam({TRAIN_LR:g}), dropout "
-        f"{cfg.hidden_dropout}: startup {startup_s:.2f} s, {TRAIN_WARMUP} "
-        f"warm-up steps {warm_s:.2f} s; {TRAIN_STEPS} steps: {step_ms:.3f} "
-        f"ms/step, {tokens_per_s:.1f} tokens/s; losses "
+        f"{cfg.hidden_dropout}, the fusion pass's default program "
+        f"(groups {dict(kinds[0])}): startup {startup_s:.2f} s, "
+        f"{TRAIN_WARMUP} warm-up steps {warm_s:.2f} s; {TRAIN_STEPS} steps: "
+        f"{step_ms:.3f} ms/step, {tokens_per_s:.1f} tokens/s; losses "
         + " ".join(f"{x:.4f}" for x in losses)
-        + f"; launches {got} (= {cfg.num_layers} x {TRAIN_STEPS} = {want}?)"
-        f"; plain attention calls {plain.calls}; libraries loaded after the "
-        f"first step {exe.compiles_after_first_step}; peak memory "
+        + f"; launches {got} (= {L} x {TRAIN_STEPS} = {want} each, "
+        f"{fa.FWD} 0?); plain kernel versions called {plain.calls}; "
+        f"libraries loaded after the first step "
+        f"{exe.compiles_after_first_step}; peak memory "
         f"{peak / 2**30:.2f} GiB")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"a training loss is not finite: {losses}")
-    if any(n != want for n in got.values()):
-        raise AssertionError(f"flash kernel launches {got}, expected {want} "
-                             f"each")
+    if kinds != [want_kinds]:
+        raise AssertionError(f"fusion plan groups {kinds}, expected "
+                             f"{dict(want_kinds)}")
+    if any(got[k] != want for k in FUSED_STEP_KERNELS) or got[fa.FWD]:
+        raise AssertionError(f"kernel launches {got}, expected {want} each "
+                             f"and no {fa.FWD}")
     if on_card and plain.calls:
-        raise AssertionError("the plain attention ran on the card")
+        raise AssertionError("a plain kernel version ran on the card")
     if exe.compiles_after_first_step:
         raise AssertionError("a kernel library was loaded after the first "
                              "step")
 
-    # one step under the profiler
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if on_card else [])
-    with profile(activities=activities) as prof:
+    # the unfused lowering of the same program, continuing from the same
+    # scope: where the fusion pass moves the step.  Timed in turns with
+    # the fused program (fused, unfused, unfused, fused: COMPARE_STEPS
+    # each), and before either is profiled (see launch_cost_us)
+    bs = pt.BuildStrategy()
+    bs.fuse_epilogues = False
+    unfused = pt.CompiledProgram(main, build_strategy=bs)
+    exe.run(unfused, feed=feed, fetch_list=[loss], scope=scope)
+    sync(device)
+    turns = {"fused": [], "unfused": []}
+    for name in ("fused", "unfused", "unfused", "fused"):
+        program = main if name == "fused" else unfused
         t0 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        for _ in range(COMPARE_STEPS):
+            exe.run(program, feed=feed, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
         sync(device)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    prof_out = _span_summary(prof, wall_us, 1, ("flash_",))
-    if prof_out is None:
-        log(f"  profiled step: {wall_us / 1e3:.3f} ms wall; device time not "
-            f"measured (the profiler recorded no device activity)")
-    else:
-        log(f"  profiled step: {wall_us / 1e3:.3f} ms wall under the "
-            f"profiler, device kernels {prof_out['device_ms_per_step']:.3f} "
-            f"ms ({prof_out['kernels_per_step']:.0f} kernels), busy share "
-            f"{prof_out['device_busy_share']:.4f}, flash kernels "
-            f"{prof_out['named_kernels_ms_per_step']:.3f} ms")
-        for name, ms in prof_out["top_kernels_ms"]:
-            log(f"    {ms:9.3f} ms  {name}")
+        turns[name].append((time.perf_counter() - t0) / COMPARE_STEPS * 1e3)
+    log(f"  fused and unfused lowering in turns, {COMPARE_STEPS} steps each: "
+        f"fused {turns['fused'][0]:.3f}, unfused {turns['unfused'][0]:.3f}, "
+        f"unfused {turns['unfused'][1]:.3f}, fused {turns['fused'][1]:.3f} "
+        f"ms/step")
+
+    prof_out = _profile_step(exe, main, feed, loss, scope, device, "fused")
+    after_prof = dict(launch_cost_us=launch_cost_us(device))
+    t0 = time.perf_counter()
+    for _ in range(COMPARE_STEPS):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    sync(device)
+    after_prof["fused_step_ms"] = (time.perf_counter() - t0) \
+        / COMPARE_STEPS * 1e3
+    log(f"  after the profiled step: {after_prof['launch_cost_us']:.2f} us "
+        f"per small eager op (before it {before_us:.2f}), fused "
+        f"{after_prof['fused_step_ms']:.3f} ms/step")
+    unfused_prof = _profile_step(exe, unfused, feed, loss, scope, device,
+                                 "unfused lowering")
     report = dict(
         config=dataclasses.asdict(cfg), parameters=n_params, batch=TRAIN_BATCH,
         seq_len=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
         step_ms=step_ms, tokens_per_s=tokens_per_s, launches=got,
-        startup_s=startup_s, warmup_s=warm_s,
-        peak_memory_bytes=peak,
-        profile=dict(wall_ms=wall_us / 1e3, **(prof_out or {})))
+        plan_groups=dict(kinds[0]), startup_s=startup_s, warmup_s=warm_s,
+        peak_memory_bytes=peak, profile=prof_out, turns_ms=turns,
+        launch_cost_us=before_us, after_profile=after_prof,
+        unfused_lowering=dict(profile=unfused_prof))
     del scope
     report["parity"] = parity_gate(device, exe, cfg)
     return report
 
 
+#: the parity gate's programs: (cfg.fused_attention, fuse_epilogues) and
+#: the kernels each launches once per layer per step on the card
+PARITY_RUNS = {
+    "blocks": (True, True, FUSED_STEP_KERNELS),
+    "unfused_lowering": (True, False, ("flash_fwd_packed",
+                                       "flash_bwd_dq_packed",
+                                       "flash_bwd_dkv_packed")),
+    "plain": (False, False, ()),
+}
+
+
 def parity_gate(device, exe, cfg):
-    """At dropout 0 from the same weights: PARITY_STEPS Adam steps of the
-    fused program (the flash kernels) and of the unfused matmul/softmax
-    program (the JAX package's cfg.fused_attention=False branch)."""
+    """At dropout 0 from the same weights, PARITY_STEPS Adam steps of
+    three programs: the fusion pass's default (the qkv-folded flash,
+    fused matmul and FFN-chain kernels), the unfused lowering
+    (``fuse_epilogues=False``: the packed flash kernels) and the plain
+    matmul/softmax program (``fused_attention=False``, unfused: none of
+    the port's kernels).  Each is held to the plain one, and each
+    launches its own kernels once per layer per step and no other."""
     import torch
 
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
 
     cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
-    runs = {}
+    on_card = device.type == "cuda"
+    runs, launches = {}, {}
     weights = None
-    for name, fused in (("fused", True), ("unfused", False)):
+    for name, (fused_attn, fuse, kernels) in PARITY_RUNS.items():
         main, startup, loss, grads, _ = build_train(
-            dataclasses.replace(cfg, fused_attention=fused))
+            dataclasses.replace(cfg, fused_attention=fused_attn))
+        bs = pt.BuildStrategy()
+        bs.fuse_epilogues = fuse
+        program = pt.CompiledProgram(main, build_strategy=bs)
         scope = pt.Scope()
         if weights is None:
             exe.run(startup, scope=scope)
@@ -1377,38 +1876,51 @@ def parity_gate(device, exe, cfg):
                        for n in pt.io.persistable_names(main)}
         else:
             if set(weights) != set(pt.io.persistable_names(main)):
-                raise AssertionError("fused and unfused programs differ in "
-                                     "their persistables")
+                raise AssertionError(f"the {name} program differs from the "
+                                     f"first in its persistables")
             for n, t in weights.items():
                 scope.set_var(n, t.clone())
         feed = train_batch(cfg.vocab_size, device)
         losses, first = [], None
+        _cuda.reset_launches()
         for step in range(PARITY_STEPS):
-            out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+            out = exe.run(program, feed=feed, scope=scope, return_numpy=False,
                           fetch_list=[loss] + (grads if step == 0 else []))
             losses.append(float(out[0]))
             if step == 0:
                 first = dict(zip(grads, out[1:]))
+        sync(device)
+        launches[name] = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+        want = {k: cfg.num_layers * PARITY_STEPS for k in kernels} \
+            if on_card else {}
+        if launches[name] != want:
+            raise AssertionError(f"the {name} program launched "
+                                 f"{launches[name]}, expected {want}")
         runs[name] = (losses, first)
         del scope
-    (lf, gf), (lu, gu) = runs["fused"], runs["unfused"]
-    dloss = [abs(a - b) for a, b in zip(lf, lu)]
-    rel = {n: float(torch.linalg.vector_norm(gf[n] - gu[n])
-                    / torch.linalg.vector_norm(gu[n]).clamp_min(1e-30))
-           for n in gu}
-    worst = max(rel, key=rel.get)
-    log(f"  parity at dropout 0, same weights, {PARITY_STEPS} Adam steps: "
-        f"fused losses " + " ".join(f"{x:.6f}" for x in lf) + "; unfused "
-        + " ".join(f"{x:.6f}" for x in lu) + f"; max |dloss| "
-        f"{max(dloss):.3e} (tol {PARITY_LOSS_TOL:g}); first-step gradient "
-        f"relative norm error max {rel[worst]:.3e} ({worst}; tol "
-        f"{PARITY_GRAD_RTOL:g})")
-    if not max(dloss) < PARITY_LOSS_TOL:
-        raise AssertionError("fused and unfused losses diverge")
-    if not rel[worst] < PARITY_GRAD_RTOL:
-        raise AssertionError("fused and unfused gradients disagree")
-    return dict(fused_losses=lf, unfused_losses=lu, max_dloss=max(dloss),
-                max_grad_rel_err=rel[worst], worst_grad=worst)
+    lp, gp = runs["plain"]
+    out = dict(plain_losses=lp, launches=launches)
+    for name in ("blocks", "unfused_lowering"):
+        lf, gf = runs[name]
+        dloss = [abs(a - b) for a, b in zip(lf, lp)]
+        rel = {n: float(torch.linalg.vector_norm(gf[n] - gp[n])
+                        / torch.linalg.vector_norm(gp[n]).clamp_min(1e-30))
+               for n in gp}
+        worst = max(rel, key=rel.get)
+        log(f"  parity at dropout 0, same weights, {PARITY_STEPS} Adam "
+            f"steps, {name} against plain: losses "
+            + " ".join(f"{x:.6f}" for x in lf) + "; plain "
+            + " ".join(f"{x:.6f}" for x in lp) + f"; max |dloss| "
+            f"{max(dloss):.3e} (tol {PARITY_LOSS_TOL:g}); first-step "
+            f"gradient relative norm error max {rel[worst]:.3e} ({worst}; "
+            f"tol {PARITY_GRAD_RTOL:g}); launches {launches[name]}")
+        if not max(dloss) < PARITY_LOSS_TOL:
+            raise AssertionError(f"{name} and plain losses diverge")
+        if not rel[worst] < PARITY_GRAD_RTOL:
+            raise AssertionError(f"{name} and plain gradients disagree")
+        out[name] = dict(losses=lf, max_dloss=max(dloss),
+                         max_grad_rel_err=rel[worst], worst_grad=worst)
+    return out
 
 
 def main():
@@ -1438,6 +1950,9 @@ def main():
                              _cuda.BUILD_LOG[name][1].splitlines()
                              if "registers" in line or "spill" in line))
         report["build_s"] = built
+        report["launch_cost_us"] = launch_cost_us(device)
+        log(f"  {report['launch_cost_us']:.2f} us per small eager op "
+            f"(before any profiler session)")
 
         model_cfg = dataclasses.replace(BertConfig.base(),
                                         initializer_range=0.6)
@@ -1445,7 +1960,8 @@ def main():
         report["kernels"] = {
             "ragged_paged_attention": kernel_phase(device, model_cfg),
             "paged_decode_attention": decode_kernel_phase(device),
-            **flash_kernel_phase(device)}
+            **flash_kernel_phase(device), **qkv_kernel_phase(device),
+            **epilogue_kernel_phase(device)}
 
         log("[3] engine at BertConfig.base() width")
         t0 = time.perf_counter()
@@ -1484,6 +2000,10 @@ def main():
         report["training"] = training_phase(device, BertConfig.base())
         for name, n in report["training"]["launches"].items():
             report["kernels"][name]["launches"] = n
+        # the packed flash forward's path is the unfused lowering's
+        report["kernels"]["flash_fwd_packed"]["launches"] = \
+            report["training"]["parity"]["launches"]["unfused_lowering"][
+                "flash_fwd_packed"]
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -13,8 +13,11 @@ Ported so far: the serving path — ``generation.GenerationEngine`` (chunked
 and legacy scheduling, paged / dense / prefix caches, speculation) and
 ``serving.InferenceServer`` — and training through the Program/Executor
 front end: build a program with ``layers``, ``optimizer.Adam(lr)
-.minimize(loss)``, run it with ``Executor`` (the unfused lowering: no
-fusion pass, control flow, meshes or AMP yet).
+.minimize(loss)``, run it with ``Executor``.  As in the JAX package the
+GEMM-epilogue fusion pass is on by default (core/fusion.py: the fused
+matmul-epilogue, FFN-chain and qkv-folded flash kernels); a
+``CompiledProgram`` whose ``BuildStrategy`` sets ``fuse_epilogues =
+False`` runs the unfused lowering.  No control flow, meshes or AMP yet.
 """
 from ._device import resolve_device, set_strict_fp32
 from .core import (  # noqa: F401
@@ -36,7 +39,8 @@ from .core import (  # noqa: F401
 )
 from .core import unique_name  # noqa: F401
 from . import ops  # noqa: F401  (registers all operators)
-from . import initializer, io, layers, optimizer  # noqa: F401
+from . import compiler, initializer, io, layers, optimizer  # noqa: F401
+from .compiler import BuildStrategy, CompiledProgram  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 
 __version__ = "0.1.0"
@@ -63,4 +67,5 @@ __all__ = ["resolve_device", "set_strict_fp32", "__version__",
            "default_startup_program", "global_scope", "program_guard",
            "scope_guard", "append_backward", "unique_name",
            "layers", "optimizer", "initializer", "io", "ParamAttr",
-           "new_program_scope"]
+           "new_program_scope", "compiler", "BuildStrategy",
+           "CompiledProgram"]

@@ -6,6 +6,14 @@ Executor::Run and python/paddle/fluid/executor.py:432).  ``run`` lowers
 torch tensors (core/lowering.py), caches it on the program, and runs it
 eagerly: every op dispatches its own PyTorch calls and CUDA kernels.
 
+Fusion: ``run`` takes a program or a ``compiler.CompiledProgram``; the
+GEMM-epilogue fusion pass (core/fusion.py) and its block patterns are on
+unless the CompiledProgram's ``BuildStrategy`` turns them off
+(``fuse_epilogues``, ``fuse_block_epilogues``), as in the JAX package.
+The knobs join the cache signature.  The JAX package's environment
+switches (``PADDLE_TPU_FUSE_EPILOGUES``, ``PADDLE_TPU_FUSE_BLOCK_EPILOGUES``),
+``FLAGS_check_nan_inf`` and AMP are not carried over.
+
 Placement: ``Executor()`` runs on the first CUDA card and raises when
 there is none; ``Executor(CPUPlace())`` runs the plain PyTorch path on
 the CPU (the tests do); ``Executor(CUDAPlace(i))`` names a card.
@@ -43,6 +51,15 @@ class Executor:
 
         Persistable outputs (parameters, optimizer accumulators) are
         written back into the scope, detached, after the step."""
+        fuse, fuse_block = True, True
+        if program is not None and hasattr(program, "build_strategy") \
+                and hasattr(program, "program"):
+            # a CompiledProgram: read its knobs before unwrapping it
+            bs = program.build_strategy
+            fuse = bool(getattr(bs, "fuse_epilogues", True))
+            fuse_block = fuse and bool(getattr(bs, "fuse_block_epilogues",
+                                               True))
+            program = program.program
         program = program if program is not None else default_main_program()
         feed = feed or {}
         fetch_list = fetch_list or []
@@ -54,11 +71,12 @@ class Executor:
         dev_feed = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
         sig = (tuple(sorted((n, tuple(t.shape), str(t.dtype))
                             for n, t in dev_feed.items())), fetch_names,
-               str(self.device))
+               str(self.device), fuse, fuse_block)
         lowered = program._exec_cache.get(sig)
         if lowered is None:
             lowered = lower_block(program, 0, tuple(dev_feed), fetch_names,
-                                  self.device)
+                                  self.device, fuse_epilogues=fuse,
+                                  fuse_block_epilogues=fuse_block)
             program._exec_cache[sig] = lowered
 
         mut = {n: self._from_scope(scope, block, n)

@@ -16,9 +16,15 @@ env and drops the saved graph.  Backward reuses the forward's saved
 tensors exactly like the JAX tape — no recomputation, no per-op grad
 kernels.
 
-Not ported: control-flow sub-blocks, recompute, pipeline, AMP and the
-GEMM-epilogue fusion pass.  Their ops are not registered, so a program
-that holds one raises at run time, naming the op.
+The GEMM-epilogue fusion pass (core/fusion.py) plans once per lowered
+block 0 when ``fuse_epilogues`` is on: ``_interp_ops`` skips the planned
+members but the last and the internal gradient sums, runs each group at
+its last member, and routes the members' ``vjp_grad`` ops to
+``run_fused_grad``.
+
+Not ported: control-flow sub-blocks, recompute, pipeline and AMP.  Their
+ops are not registered, so a program that holds one raises at run time,
+naming the op.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import dataclasses
 
 import torch
 
+from .fusion import UNBOUND, FusionExec, plan_fusion, run_fused_grad, \
+    run_fused_group
 from .program import EMPTY_VAR_NAME, Program
 from .registry import REGISTRY, OpContext
 
@@ -54,6 +62,7 @@ class LoweredBlock:
     persist_out_names: tuple  # persistables written back to scope
     fetch_names: tuple
     runs: int = 0   # steps run through fn (the Executor counts them)
+    fusion_plan: object = None  # core/fusion.FusionPlan, or None
 
 
 def analyze_block(program: Program, block_idx: int, feed_names, fetch_names):
@@ -86,10 +95,13 @@ def analyze_block(program: Program, block_idx: int, feed_names, fetch_names):
 
 
 def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
-                device) -> LoweredBlock:
+                device, fuse_epilogues=False,
+                fuse_block_epilogues=False) -> LoweredBlock:
     """The block as ``fn(feeds, mut_params, const_params, seed)``: every
     op's outputs land on ``device`` (ops with tensor inputs follow their
-    inputs; ops that create tensors use ``OpContext.device``)."""
+    inputs; ops that create tensors use ``OpContext.device``).  With
+    ``fuse_epilogues`` block 0 runs its matched chains as fused groups
+    (``fuse_block_epilogues`` adds the block patterns)."""
     block = program.blocks[block_idx]
     ops = list(block.ops)
     feed_names = tuple(feed_names)
@@ -98,14 +110,19 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         program, block_idx, feed_names, fetch_names)
     vjp_uids = frozenset(
         op.attrs["fwd_uid"] for op in ops if op.type == VJP_GRAD_OP)
+    fusion_plan = None
+    if fuse_epilogues and block_idx == 0:
+        fusion_plan = plan_fusion(program, ops, feed_names, fetch_names,
+                                  block_patterns=fuse_block_epilogues)
 
     def run_block(feeds, mut_params, const_params, seed):
         env = {}
         env.update(const_params)
         env.update(mut_params)
         env.update(feeds)
+        fusion = None if fusion_plan is None else FusionExec(fusion_plan)
         with torch.no_grad():
-            _interp_ops(ops, env, seed, {}, vjp_uids, device)
+            _interp_ops(ops, env, seed, {}, vjp_uids, device, fusion)
         fetches = [env[n] for n in fetch_names]
         new_persist = {n: env[n] for n in persist_out}
         return fetches, new_persist
@@ -113,7 +130,7 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
     return LoweredBlock(fn=run_block, feed_names=feed_names,
                         mut_param_names=mut, const_param_names=const,
                         persist_out_names=persist_out,
-                        fetch_names=fetch_names)
+                        fetch_names=fetch_names, fusion_plan=fusion_plan)
 
 
 def _leaf(v):
@@ -124,16 +141,28 @@ def _leaf(v):
     return v
 
 
-def _interp_ops(ops, env, seed, vjps, vjp_uids, device):
+def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
     """Execute an op list over ``env`` (name -> tensor), in place.
 
     Runs under ``torch.no_grad``; a forward op in ``vjp_uids`` runs under
     autograd on leaf copies of its inputs and leaves (inputs, outputs) in
-    ``vjps`` for its ``vjp_grad`` op."""
+    ``vjps`` for its ``vjp_grad`` op.  ``fusion`` (a FusionExec): planned
+    groups run at their last member (earlier members and internal
+    gradient sums are skipped) and member ``vjp_grad`` ops bind from the
+    group's gradients, never binding ``UNBOUND``."""
+    plan = fusion.plan if fusion is not None else None
     for i, op in enumerate(ops):
+        if plan is not None and op.uid in plan.skip_uids:
+            continue
         try:
             if op.type == VJP_GRAD_OP:
-                outs = _run_vjp_grad(op, env, vjps)
+                grp = None if plan is None else plan.member_group.get(
+                    op.attrs.get("fwd_uid"))
+                outs = (_run_vjp_grad(op, env, vjps) if grp is None
+                        else run_fused_grad(op, fusion, grp, env))
+            elif plan is not None and op.uid in plan.by_last:
+                outs = run_fused_group(fusion, plan.by_last[op.uid], env,
+                                       seed, device, vjp_uids)
             else:
                 opdef = REGISTRY.get(op.type)
                 ins = {slot: [env[n] for n in names]
@@ -160,7 +189,7 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device):
         for slot, names in op.outputs.items():
             vals = outs.get(slot, [])
             for n, v in zip(names, vals):
-                if n != EMPTY_VAR_NAME:
+                if n != EMPTY_VAR_NAME and v is not UNBOUND:
                     env[n] = v
     return env
 

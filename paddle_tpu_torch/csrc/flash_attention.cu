@@ -1,10 +1,18 @@
 // Flash attention over packed heads for Hopper (sm_90a), float32:
-// the forward and its two backward kernels.
+// two forwards and the two backward kernels they share.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_ops.py:
 //   flash_fwd_packed     <- `_fwd_kernel_packed`      (launched by `_flash_fwd_packed`)
 //   flash_bwd_dq_packed  <- `_bwd_dq_kernel_packed`   (launched by `_flash_bwd_packed`)
 //   flash_bwd_dkv_packed <- `_bwd_dkv_kernel_packed`  (launched by `_flash_bwd_packed`)
+// and of paddle_tpu/ops/attention_epilogue.py:
+//   flash_fwd_qkv        <- `_qkv_fwd_kernel`         (launched by `_qkv_attn_fwd`)
+// flash_fwd_qkv is flash_fwd_packed reading q, k and v at column offsets
+// 0, H and 2H of the PRE-bias [B, T, 3H] qkv projection (row stride 3H) and
+// adding the matching slice of the qkv bias [3H] as each tile is loaded, so
+// neither the biased qkv nor its slices are ever written; its dropout
+// stream and lse layout are flash_fwd_packed's, so the two backward
+// kernels differentiate it (on strided views of the re-biased qkv).
 //
 // What they compute, per batch b and head h (q, k, v are [B, T, nh*D]
 // packed-head tensors, read through their batch and row strides, so the
@@ -66,6 +74,7 @@ struct FlashParams {
   const float* v;
   long long v_sb, v_st;
   const float* bias;  // [B, Tk] key-padding bias, or nullptr
+  const float* qkv_bias;  // flash_fwd_qkv: [3H], added to q | k | v on load
   const float* dout;  // backward: the output cotangent
   long long do_sb, do_st;
   const float* lse;    // backward: [B, nh, Tq]
@@ -128,15 +137,20 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // rows [r0, r0 + kTile) x dims [0, DM) of a strided [T, *] head slice into
-// shared memory (leading dimension DM + 1), zeros past `rows` and `D`
-template <int DM>
+// shared memory (leading dimension DM + 1), zeros past `rows` and `D`;
+// with ADD, add[d] (the head's slice of the qkv bias) to every loaded row
+template <int DM, bool ADD = false>
 __device__ __forceinline__ void load_tile(float* s, const float* g,
                                           long long st, int r0, int rows,
-                                          int D) {
+                                          int D, const float* add = nullptr) {
   for (int idx = threadIdx.x; idx < kTile * DM; idx += kThreads) {
     const int r = idx / DM, d = idx % DM, row = r0 + r;
-    s[r * (DM + 1) + d] =
-        (row < rows && d < D) ? __ldg(g + (long long)row * st + d) : 0.f;
+    float x = 0.f;
+    if (row < rows && d < D) {
+      x = __ldg(g + (long long)row * st + d);
+      if (ADD) x += __ldg(add + d);
+    }
+    s[r * (DM + 1) + d] = x;
   }
 }
 
@@ -159,7 +173,8 @@ __device__ __forceinline__ int key_end(const FlashParams& P, int q0) {
   return P.Tk;
 }
 
-template <int DM>
+// QKV: flash_fwd_qkv (q, k, v biased on load by P.qkv_bias)
+template <int DM, bool QKV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -173,7 +188,12 @@ flash_fwd_kernel(const FlashParams P) {
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sQ, P.q + b * P.q_sb + (long long)h * D, P.q_st, q0, P.Tq, D);
+  const int H = P.nh * D;
+  const float* qadd = QKV ? P.qkv_bias + (long long)h * D : nullptr;
+  const float* kadd = QKV ? qadd + H : nullptr;
+  const float* vadd = QKV ? qadd + 2 * H : nullptr;
+  load_tile<DM, QKV>(sQ, P.q + b * P.q_sb + (long long)h * D, P.q_st, q0,
+                     P.Tq, D, qadd);
   const float* kb = P.k + b * P.k_sb + (long long)h * D;
   const float* vb = P.v + b * P.v_sb + (long long)h * D;
 
@@ -189,8 +209,8 @@ flash_fwd_kernel(const FlashParams P) {
   const int k_end = key_end(P, q0);
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's sK / sV / sP are consumed
-    load_tile<DM>(sK, kb, P.k_st, k0, P.Tk, D);
-    load_tile<DM>(sV, vb, P.v_st, k0, P.Tk, D);
+    load_tile<DM, QKV>(sK, kb, P.k_st, k0, P.Tk, D, kadd);
+    load_tile<DM, QKV>(sV, vb, P.v_st, k0, P.Tk, D, vadd);
     __syncthreads();
 
     float s[4][4];
@@ -526,14 +546,15 @@ __global__ void dropout_mask_kernel(const FlashParams P, uint8_t* mask) {
   }
 }
 
-enum Which { kFwd, kDq, kDkv };
+enum Which { kFwd, kDq, kDkv, kFwdQkv };
 
 template <int DM>
 size_t smem_bytes(Which w) {
   const size_t tile = (size_t)kTile * (DM + 1);
   const size_t sq = (size_t)kTile * kLdS;
   switch (w) {
-    case kFwd: return (3 * tile + sq) * sizeof(float);
+    case kFwd:
+    case kFwdQkv: return (3 * tile + sq) * sizeof(float);
     case kDq: return (4 * tile + sq) * sizeof(float);
     default: return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
   }
@@ -542,8 +563,9 @@ size_t smem_bytes(Which w) {
 template <int DM>
 cudaError_t launch_dm(Which w, const FlashParams& P, cudaStream_t stream) {
   void (*kernel)(const FlashParams) =
-      w == kFwd ? flash_fwd_kernel<DM>
-                : (w == kDq ? flash_bwd_dq_kernel<DM> : flash_bwd_dkv_kernel<DM>);
+      w == kFwd ? flash_fwd_kernel<DM, false>
+      : w == kFwdQkv ? flash_fwd_kernel<DM, true>
+      : w == kDq ? flash_bwd_dq_kernel<DM> : flash_bwd_dkv_kernel<DM>;
   const size_t bytes = smem_bytes<DM>(w);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -647,6 +669,26 @@ int flash_bwd_dkv_packed_f32(const float* q, long long q_sb, long long q_st,
   P.lse = lse; P.delta = delta;
   P.dk = dk; P.dv = dv; P.dbias = dbias;
   return launch(kDkv, P, stream);
+}
+
+// q, k, v at column offsets 0, H, 2H of the pre-bias packed projection
+// qkv [B, T, 3H] (strides qkv_sb, qkv_st), biased on load by b_qkv [3H];
+// self-attention (Tq = Tk = T), o and lse as flash_fwd_packed_f32's.
+int flash_fwd_qkv_f32(const float* qkv, long long qkv_sb, long long qkv_st,
+                      const float* b_qkv, const float* bias, float* o,
+                      long long o_sb, long long o_st, float* lse, int B,
+                      int nh, int Tq, int Tk, int D, float scale, int causal,
+                      float rate, unsigned int seed0, unsigned int seed1,
+                      void* stream) {
+  if (Tq != Tk || b_qkv == nullptr) return (int)cudaErrorInvalidValue;
+  const long long H = (long long)nh * D;
+  FlashParams P = make_params(qkv, qkv_sb, qkv_st, qkv + H, qkv_sb, qkv_st,
+                              qkv + 2 * H, qkv_sb, qkv_st, bias, B, nh, Tq,
+                              Tk, D, scale, causal, rate, seed0, seed1);
+  P.qkv_bias = b_qkv;
+  P.out = o; P.out_sb = o_sb; P.out_st = o_st;
+  P.lse_out = lse;
+  return launch(kFwdQkv, P, stream);
 }
 
 // Debug entry: the keep mask [B, nh, Tq, Tk] (1 = kept) the three kernels

@@ -4,7 +4,7 @@ from ..core.program import data  # noqa: F401  (layers.data parity)
 from .nn import (  # noqa: F401
     dropout, elementwise_add, elementwise_div, elementwise_max,
     elementwise_mul, elementwise_sub, embedding, fc,
-    fused_multihead_attention, gelu, layer_norm, not_equal, softmax,
+    fused_multihead_attention, gelu, layer_norm, not_equal, relu, softmax,
     softmax_with_cross_entropy,
 )
 from .tensor import (  # noqa: F401

@@ -230,7 +230,7 @@ def not_equal(x, y, cond=None, name=None):
     return cond
 
 
-_UNARY_OPS = ["gelu", "softmax"]
+_UNARY_OPS = ["gelu", "relu", "softmax"]
 for _op in _UNARY_OPS:
     globals()[_op] = _unary_layer(_op)
 

@@ -1,0 +1,212 @@
+"""The FFN as one chained two-GEMM kernel:
+
+    x @ w1 + b1 -> gelu/relu -> (.) @ w2 + b2
+      -> [dropout] -> [residual add] -> [layer/rms norm]
+
+Counterpart of paddle_tpu/ops/pallas_ffn_chain.py (its Pallas TPU kernel
+``_chain_kernel`` and the custom VJP around it).  The [M, F] activated
+intermediate never reaches device memory: one CTA owns a block of rows,
+walks F in panels, keeps each activated panel in shared memory and
+contracts it at once into the [rows, N] output accumulator; the output
+epilogue is ops/fused_matmul.py's (the same device code).
+
+* ``csrc/gemm_epilogue.cu``, kernel ``ffn_chain`` (CUDA C++ for sm_90a,
+  float32): y and, when dropout is live, the keep mask (uint8), keyed
+  by (seed, row, column) like ``gemm_epilogue``'s.  ``ffn_chain_kernel``
+  launches it, adds one to ``_cuda.LAUNCHES["ffn_chain"]`` and raises on
+  anything the kernel does not take.
+* ``reference_ffn_chain`` — the same arithmetic in plain PyTorch, given
+  the mask; CPU tensors take it.
+
+``ffn_chain_shapes_ok`` is the kernel's real rule: where it fails,
+core/fusion.py runs the chain as two fused matmul-epilogue calls.
+
+Backward recomputes through the plain reference with the saved mask, as
+the JAX custom VJP does: the [M, F] intermediate is never stored, at
+the price of re-deriving it (two more GEMMs) in backward.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _cuda
+from .fused_matmul import (EpilogueSpec, _ACTS, _NORMS, _apply_act,
+                           _epilogue_from_z0, check_operand, cpu_keep_mask,
+                           dense, seed_words)
+
+__all__ = ["ffn_chain_shapes_ok", "ffn_chain_smem_bytes",
+           "reference_ffn_chain", "ffn_chain_kernel", "fused_ffn_chain",
+           "KERNEL", "LAUNCH"]
+
+KERNEL = "gemm_epilogue"
+LAUNCH = "ffn_chain"
+
+#: the kernel's tiles: rows per CTA, F panel width, K tile of the first
+#: GEMM, F tile of the second; N in groups of 256 columns held in
+#: registers (at most 3: 96 float32 accumulators a thread)
+BLOCK_M, BLOCK_F, BLOCK_K1, BLOCK_K2 = 32, 128, 16, 8
+MAX_N = 768
+#: dynamic shared memory a block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def ffn_chain_smem_bytes(K, N):
+    """Shared memory of one CTA: the x rows (transposed, [K, 32]), two
+    w1 tiles [16, 128], the activated panel [128, 32] and two w2 tiles
+    [8, 256 * ceil(N / 256)], float32."""
+    nv = -(-N // 256)
+    return 4 * (K * BLOCK_M + 2 * BLOCK_K1 * BLOCK_F + BLOCK_F * BLOCK_M
+                + 2 * BLOCK_K2 * 256 * nv)
+
+
+def ffn_chain_shapes_ok(M, K, F, N, dtype=torch.float32):
+    """The chain kernel's rule, a static function of shapes and dtype:
+    float32; K a multiple of 16 and F of 128 (its tiles); N a multiple
+    of 4, at most 768 (the accumulator row a CTA holds in registers);
+    the x rows and tiles within the shared memory of a block.  It takes
+    BERT-base's FFN (M 4096, K 768, F 3072, N 768)."""
+    return (dtype == torch.float32 and M >= 1
+            and K >= BLOCK_K1 and K % BLOCK_K1 == 0
+            and F >= BLOCK_F and F % BLOCK_F == 0
+            and N >= 4 and N % 4 == 0 and N <= MAX_N
+            and ffn_chain_smem_bytes(K, N) <= SMEM_LIMIT)
+
+
+# -- plain version -----------------------------------------------------------
+
+def _chain(x, w1, b1, w2, b2, residual, gamma, beta, spec, mask):
+    """The chain's arithmetic in float32 PyTorch (differentiable): what
+    the plain forward computes and what backward recomputes."""
+    z1 = torch.matmul(x.float(), w1.float())
+    if b1 is not None:
+        z1 = z1 + b1.float()
+    h1 = _apply_act(z1, spec.act, spec.act_approximate)
+    z2 = torch.matmul(h1, w2.float())
+    if b2 is not None:
+        z2 = z2 + b2.float()
+    return _epilogue_from_z0(z2, mask, residual, gamma, beta,
+                             spec._replace(act=None))
+
+
+def reference_ffn_chain(x, w1, b1=None, w2=None, b2=None, residual=None,
+                        gamma=None, beta=None, spec=EpilogueSpec(),
+                        mask=None):
+    """Plain forward with the kernel's semantics: float32 GEMM1 + bias +
+    activation, then GEMM2 + the fused matmul epilogue with the keep
+    mask (needed when dropout is live).  Differentiable."""
+    if spec.dropout_rate > 0.0 and mask is None:
+        raise ValueError("dropout_rate > 0 needs the keep mask")
+    return _chain(x, w1, b1, w2, b2, residual, gamma, beta, spec, mask)
+
+
+# -- the kernel --------------------------------------------------------------
+
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _I, _F, _U, _U, _P]
+
+
+def _fn(lib):
+    fn = lib.ffn_chain_f32
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = _I
+    return fn
+
+
+def ffn_chain_kernel(x, w1, b1, w2, b2=None, residual=None, gamma=None,
+                     beta=None, seed=0, spec=EpilogueSpec()):
+    """Launch ``ffn_chain`` (CUDA tensors only) -> (y [M, N], keep mask
+    uint8 [M, N] or None)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the ffn_chain kernel runs on CUDA tensors; x is "
+                         f"on {x.device}")
+    if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2 \
+            or w1.shape[0] != x.shape[1] or w2.shape[0] != w1.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} @ w1 {tuple(w1.shape)} @ w2 "
+                         f"{tuple(w2.shape)} is not a two-GEMM chain")
+    M, K = x.shape
+    F, N = w2.shape
+    if not ffn_chain_shapes_ok(M, K, F, N, x.dtype):
+        raise ValueError(f"ffn_chain does not take M={M} K={K} F={F} N={N} "
+                         f"{x.dtype} (ffn_chain_shapes_ok)")
+    if spec.act not in _ACTS or spec.norm not in _NORMS:
+        raise ValueError(f"unknown epilogue {spec}")
+    if not 0.0 <= spec.dropout_rate < 1.0:
+        raise ValueError(f"dropout rate {spec.dropout_rate} not in [0, 1)")
+    dev = x.device
+    for name, t, shape in (("x", x, (M, K)), ("w1", w1, (K, F)),
+                           ("b1", b1, (F,)), ("w2", w2, (F, N)),
+                           ("b2", b2, (N,)), ("residual", residual, (M, N)),
+                           ("gamma", gamma, (N,)), ("beta", beta, (N,))):
+        check_operand(name, t, shape, dev)
+    y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    mask = (torch.empty((M, N), dtype=torch.uint8, device=dev)
+            if spec.dropout_rate > 0.0 else None)
+    s0, s1 = seed_words(seed)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(dev):
+        rc = _fn(lib)(
+            ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(residual),
+            ptr(gamma), ptr(beta), ptr(y), ptr(mask), M, K, F, N,
+            _ACTS[spec.act], int(bool(spec.act_approximate)),
+            float(spec.dropout_rate), _NORMS[spec.norm],
+            float(spec.norm_eps), s0, s1,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "ffn_chain launch")
+    _cuda.LAUNCHES[LAUNCH] += 1
+    return y, mask
+
+
+# -- autograd ----------------------------------------------------------------
+
+class _FFNChain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, residual, gamma, beta, seed, spec):
+        if x.device.type == "cuda":
+            y, mask = ffn_chain_kernel(
+                *(dense(t) for t in (x, w1, b1, w2, b2, residual, gamma,
+                                     beta)), seed=seed, spec=spec)
+        else:
+            mask = (cpu_keep_mask(seed, spec.dropout_rate,
+                                  (x.shape[0], w2.shape[1]))
+                    if spec.dropout_rate > 0.0 else None)
+            y = reference_ffn_chain(x, w1, b1, w2, b2, residual, gamma,
+                                    beta, spec, mask)
+        # no [M, F] intermediate is saved: backward recomputes it
+        ctx.save_for_backward(x, w1, b1, w2, b2, residual, gamma, beta,
+                              mask)
+        ctx.spec = spec
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        mask = saved[-1]
+        ins = [t.detach().requires_grad_() if t is not None and need
+               else t for t, need in zip(saved[:-1], ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = _chain(*ins, ctx.spec, mask)
+            wanted = [t for t in ins if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(y, wanted, dy.float()))
+        grads = [next(got) if t is not None and t.requires_grad else None
+                 for t in ins]
+        return (*grads, None, None)
+
+
+def fused_ffn_chain(x, w1, b1=None, w2=None, b2=None, residual=None,
+                    gamma=None, beta=None, seed=0, spec=EpilogueSpec()):
+    """Differentiable chained FFN: x [M, K], w1 [K, F], w2 [F, N]; b1 [F],
+    b2/gamma/beta [N] or None; residual [M, N] or None; ``spec.act`` is
+    the activation between the GEMMs, the rest the output epilogue.  The
+    kernel on CUDA tensors (or a raise), the plain version on CPU
+    tensors."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no FFN chain for device {x.device}")
+    return _FFNChain.apply(x, w1, b1, w2, b2, residual, gamma, beta,
+                           int(seed), spec)

@@ -49,12 +49,15 @@ from .attention import _NEG_INF, _heads, attention, attention_packed
 __all__ = ["flash_attention_packed", "flash_ref_forward",
            "flash_ref_backward", "flash_kernel_forward", "flash_delta",
            "flash_kernel_dq", "flash_kernel_dkv", "flash_kernel_backward",
-           "flash_kernel_dropout_mask", "OP", "KERNEL", "FWD", "DQ", "DKV"]
+           "flash_kernel_dropout_mask", "flash_kernel_forward_qkv", "OP",
+           "KERNEL", "FWD", "DQ", "DKV", "QKV"]
 
 #: the operator type, the kernels' source name and their launch-counter keys
 OP = "fused_attention"
 KERNEL = "flash_attention"
 FWD, DQ, DKV = "flash_fwd_packed", "flash_bwd_dq_packed", "flash_bwd_dkv_packed"
+#: the qkv-folded forward (ops/attention_epilogue.py)
+QKV = "flash_fwd_qkv"
 _MASK = "flash_dropout_mask"
 
 
@@ -134,6 +137,7 @@ _ARGTYPES = {
     "flash_bwd_dkv_packed_f32": _QKV + [_P, _LL, _LL, _P, _P, _P, _P, _P]
     + _DIMS,
     "flash_dropout_mask_u8": [_P, _I, _I, _I, _I, _F, _U, _U, _P],
+    "flash_fwd_qkv_f32": [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _P] + _DIMS,
 }
 
 
@@ -216,6 +220,42 @@ def flash_kernel_forward(q, k, v, num_heads, bias=None, causal=False,
                                    dropout_rate, seed, q.device))
     _cuda.check(lib, rc, "flash_fwd_packed launch")
     _cuda.LAUNCHES[FWD] += 1
+    return o, lse
+
+
+def flash_kernel_forward_qkv(qkv, b_qkv, num_heads, bias=None, causal=False,
+                             sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_fwd_qkv`` (CUDA tensors only): the forward reading
+    q, k and v at column offsets 0, H and 2H of the PRE-bias packed
+    projection qkv [B, T, 3H] (head dim contiguous), adding the matching
+    slice of b_qkv [3H] as it loads them -> (o [B, T, H], lse
+    [B, nh, T]), the layout and dropout stream of ``flash_fwd_packed``,
+    so the dq and dk/dv kernels differentiate it."""
+    if qkv.dim() != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not a packed [B, T, 3H] "
+                         f"projection")
+    H = qkv.shape[2] // 3
+    q, k, v = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:]
+    B, T, _, _, D = _check(q, k, v, num_heads, bias)
+    if tuple(b_qkv.shape) != (3 * H,) or b_qkv.dtype != torch.float32 \
+            or not b_qkv.is_contiguous() or b_qkv.device != qkv.device:
+        raise ValueError(f"b_qkv must be a contiguous float32 [{3 * H}] on "
+                         f"{qkv.device}; got {tuple(b_qkv.shape)} "
+                         f"{b_qkv.dtype} on {b_qkv.device}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    o = torch.empty((B, T, H), dtype=torch.float32, device=qkv.device)
+    lse = torch.empty((B, num_heads, T), dtype=torch.float32,
+                      device=qkv.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(qkv.device):
+        rc = _fn(lib, "flash_fwd_qkv_f32")(
+            *_strided(qkv), b_qkv.data_ptr(),
+            None if bias is None else bias.data_ptr(), *_strided(o),
+            lse.data_ptr(), *_dims(B, num_heads, T, T, D, sm_scale, causal,
+                                   dropout_rate, seed, qkv.device))
+    _cuda.check(lib, rc, "flash_fwd_qkv launch")
+    _cuda.LAUNCHES[QKV] += 1
     return o, lse
 
 

@@ -126,6 +126,7 @@ def _register_unary(name, fn):
         return out(Out=fn(single(inputs, "X"), attrs))
 
 
+_register_unary("relu", lambda x, a: torch.relu(x))
 # exact-erf gelu unless asked otherwise, as the JAX op's default
 _register_unary("gelu", lambda x, a: F.gelu(
     x, approximate="tanh" if a.get("approximate", False) else "none"))

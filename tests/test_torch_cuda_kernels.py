@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (the ragged paged attention, the
-paged decode attention and the three flash-attention kernels of
-training) against their plain versions, on the card.
+paged decode attention, the three flash-attention kernels of training,
+the qkv-folded flash forward, the fused matmul epilogue and the FFN
+chain of the fusion pass) against their plain versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips on a host without a card.  On a machine with one (no JAX needed):
@@ -15,7 +16,12 @@ Inactive rows and empty decode slots must be exactly zero.  Flash
 attention: forward atol 1e-5 (o, lse); gradients atol 1e-4 / rtol 1e-4 —
 dq, dk, dv and dbias sum up to a few hundred products of unit-scale
 values per element (dbias over heads and queries too), in float32, in
-another order than the plain version's matmuls.
+another order than the plain version's matmuls.  The qkv-folded forward
+takes the flash forward's tolerance, its gradients through the dq and
+dk/dv kernels the flash gradients'.  Fused matmul and FFN chain: atol
+1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
+products in another order than cuBLAS's, then a norm that divides by a
+row's spread.
 """
 import numpy as np
 import pytest
@@ -27,7 +33,10 @@ from paddle_tpu_torch.generation.attention import (
     paged_ref_decode_attention)
 from paddle_tpu_torch.generation.ragged_attention import (
     ragged_kernel_attention, ragged_paged_attention, ragged_ref_attention)
+from paddle_tpu_torch.ops import attention_epilogue as ae
+from paddle_tpu_torch.ops import ffn_chain as fc
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_matmul as fm
 
 pytestmark = pytest.mark.cuda
 
@@ -290,3 +299,199 @@ def test_flash_wrappers_raise_instead_of_falling_back(device):
     with pytest.raises(NotImplementedError, match="key-padding"):
         fa.flash_attention_packed(q, k, v, nh, bias=torch.zeros(
             q.shape[0], nh, q.shape[1], k.shape[1], device=device))
+
+
+# -- the fusion pass's kernels -----------------------------------------------
+
+EPI_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _rnd(g, device, *shape, scale=1.0, shift=0.0):
+    return (torch.randn(*shape, generator=g) * scale + shift).to(device)
+
+
+@pytest.mark.parametrize("causal,with_bias,rate,shape", [
+    (False, True, 0.1, (8, 128, 12, 64)),
+    (True, True, 0.0, (4, 128, 12, 64)),
+    (False, False, 0.0, (4, 100, 8, 32)),
+], ids=["dropout", "causal", "no_bias_t100_d32"])
+def test_qkv_folded_forward_matches_plain_version(device, causal, with_bias,
+                                                  rate, shape):
+    """flash_fwd_qkv against the plain forward over the re-biased qkv
+    (dropout through the packed kernels' own mask), then the gradients
+    of fused_qkv_attention through the dq and dk/dv kernels against the
+    plain composite's."""
+    B, T, nh, D = shape
+    H = nh * D
+    g = torch.Generator().manual_seed(7)
+    x = _rnd(g, device, B, T, H)
+    w = _rnd(g, device, H, 3 * H, scale=H ** -0.5)
+    b = _rnd(g, device, 3 * H, scale=0.1)
+    mask4 = None
+    if with_bias:
+        pad = torch.zeros(B, 1, 1, T)
+        pad[: B // 2, ..., T - T // 4:] = -1e4
+        mask4 = pad.to(device)
+    kp = None if mask4 is None else mask4.reshape(B, T).contiguous()
+    seed = 4321
+    keep = (fa.flash_kernel_dropout_mask(B, nh, T, T, rate, seed, device)
+            if rate > 0 else None)
+    qkv = torch.matmul(x, w)
+    before = {n: _cuda.LAUNCHES[n] for n in (fa.QKV, fa.FWD, fa.DQ, fa.DKV)}
+    o, lse = fa.flash_kernel_forward_qkv(qkv, b, nh, kp, causal,
+                                         dropout_rate=rate, seed=seed)
+    o_ref, lse_ref = ae.qkv_ref_forward(qkv, b, nh, kp, causal,
+                                        dropout_rate=rate, keep_mask=keep)
+    torch.testing.assert_close(o, o_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=FLASH_FWD_ATOL, rtol=0)
+
+    do = _rnd(g, device, B, T, H)
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    got = torch.autograd.grad(ae.fused_qkv_attention(
+        *leaves, nh, mask4, causal, dropout_rate=rate, seed=seed), leaves, do)
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    want = torch.autograd.grad(ae.plain_qkv_attention(
+        *leaves, nh, mask4, causal, dropout_rate=rate, keep_mask=keep),
+        leaves, do)
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in before} == \
+        {fa.QKV: 2, fa.FWD: 0, fa.DQ: 1, fa.DKV: 1}
+    for name, a, r in zip(("dx", "dw", "db"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, r, msg=name, **FLASH_GRAD_TOL)
+
+
+GEMM_CASES = {
+    "attn_out": (512, 768, 768, dict(residual=True, norm="layer_norm",
+                                     dropout_rate=0.1)),
+    "relu_no_bias": (256, 768, 3072, dict(bias=False, act="relu")),
+    "gelu_tanh": (128, 256, 1024, dict(act="gelu", act_approximate=True)),
+    "rms_norm": (300, 512, 1000, dict(residual=True, norm="rms_norm")),
+    "affine_only": (256, 768, 768, dict(residual=True, norm=None)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_gemm_epilogue_matches_plain_version(device, case):
+    M, K, N, opts = GEMM_CASES[case]
+    opts = dict(opts)
+    has_bias, has_res = opts.pop("bias", True), opts.pop("residual", False)
+    spec = fm.EpilogueSpec(**opts)
+    g = torch.Generator().manual_seed(11)
+    x, w = _rnd(g, device, M, K), _rnd(g, device, K, N, scale=K ** -0.5)
+    bias = _rnd(g, device, N, scale=0.1) if has_bias else None
+    res = _rnd(g, device, M, N) if has_res else None
+    gamma, beta = ((_rnd(g, device, N, scale=0.1, shift=1.0),
+                    _rnd(g, device, N, scale=0.1))
+                   if spec.norm else (None, None))
+    args = (x, w, bias, res, gamma, beta)
+    before = _cuda.LAUNCHES[fm.LAUNCH]
+    y, z0, mask = fm.fused_matmul_kernel(*args, seed=99, spec=spec)
+    y_ref, z0_ref = fm.reference_matmul_epilogue(*args, spec=spec, mask=mask)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[fm.LAUNCH] == before + 1
+    assert (z0 is None) == (spec.act is None and spec.norm is None)
+    assert (mask is None) == (spec.dropout_rate == 0.0)
+    if mask is not None:
+        keep = mask.float().mean().item()
+        sigma = (spec.dropout_rate * (1 - spec.dropout_rate)
+                 / mask.numel()) ** 0.5
+        assert abs(keep - (1 - spec.dropout_rate)) < 4 * sigma, keep
+    torch.testing.assert_close(y, y_ref, **EPI_TOL)
+    if z0 is not None:
+        torch.testing.assert_close(z0, z0_ref, **EPI_TOL)
+
+    dy = _rnd(g, device, M, N)
+    leaves = [t.detach().requires_grad_() if t is not None else None
+              for t in args]
+    live = [t for t in leaves if t is not None]
+    got = torch.autograd.grad(fm.fused_matmul(*leaves, seed=99, spec=spec),
+                              live, dy)
+    leaves = [t.detach().requires_grad_() if t is not None else None
+              for t in args]
+    live = [t for t in leaves if t is not None]
+    want = torch.autograd.grad(fm.reference_matmul_epilogue(
+        *leaves, spec=spec, mask=mask)[0], live, dy)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **EPI_TOL)
+
+
+FFN_CASES = {
+    "bert_ffn": (512, 768, 3072, 768, dict(act="gelu", dropout_rate=0.1,
+                                           norm="layer_norm")),
+    "relu": (256, 768, 3072, 768, dict(act="relu", norm="layer_norm")),
+    "no_b2_no_norm": (256, 256, 1024, 512, dict(act="gelu", b2=False)),
+    "ragged_rms": (300, 256, 512, 500, dict(act="gelu", norm="rms_norm",
+                                            dropout_rate=0.1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FFN_CASES))
+def test_ffn_chain_matches_plain_version(device, case):
+    M, K, F, N, opts = FFN_CASES[case]
+    opts = dict(opts)
+    has_b2 = opts.pop("b2", True)
+    spec = fm.EpilogueSpec(**opts)
+    assert fc.ffn_chain_shapes_ok(M, K, F, N)
+    g = torch.Generator().manual_seed(13)
+    x = _rnd(g, device, M, K)
+    w1, b1 = _rnd(g, device, K, F, scale=K ** -0.5), _rnd(g, device, F,
+                                                          scale=0.1)
+    w2 = _rnd(g, device, F, N, scale=F ** -0.5)
+    b2 = _rnd(g, device, N, scale=0.1) if has_b2 else None
+    res = _rnd(g, device, M, N) if spec.norm else None
+    gamma, beta = ((_rnd(g, device, N, scale=0.1, shift=1.0),
+                    _rnd(g, device, N, scale=0.1))
+                   if spec.norm else (None, None))
+    args = (x, w1, b1, w2, b2, res, gamma, beta)
+    before = _cuda.LAUNCHES[fc.LAUNCH]
+    y, mask = fc.ffn_chain_kernel(*args, seed=5, spec=spec)
+    y_ref = fc.reference_ffn_chain(*args, spec=spec, mask=mask)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[fc.LAUNCH] == before + 1
+    assert (mask is None) == (spec.dropout_rate == 0.0)
+    torch.testing.assert_close(y, y_ref, **EPI_TOL)
+
+    dy = _rnd(g, device, M, N)
+    leaves = [t.detach().requires_grad_() if t is not None else None
+              for t in args]
+    live = [t for t in leaves if t is not None]
+    got = torch.autograd.grad(fc.fused_ffn_chain(*leaves, seed=5, spec=spec),
+                              live, dy)
+    leaves = [t.detach().requires_grad_() if t is not None else None
+              for t in args]
+    live = [t for t in leaves if t is not None]
+    want = torch.autograd.grad(fc.reference_ffn_chain(
+        *leaves, spec=spec, mask=mask), live, dy)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, **EPI_TOL)
+
+
+def test_bert_ffn_takes_the_chain_and_the_head_replays():
+    """The predicates, as the fusion pass reads them at BERT-base: the
+    FFN takes the chain kernel, attn.out the fused matmul, the MLM head
+    (N = 30522) neither."""
+    assert fc.ffn_chain_shapes_ok(4096, 768, 3072, 768)
+    assert fm.fused_shapes_ok(4096, 768, 768)
+    assert not fm.fused_shapes_ok(4096, 768, 30522)
+    assert ae.attn_epilogue_shapes_ok(128, 768, 12)
+
+
+def test_fusion_wrappers_raise_instead_of_falling_back(device):
+    x = torch.zeros(64, 768, device=device)
+    w = torch.zeros(768, 768, device=device)
+    with pytest.raises(TypeError):
+        fm.fused_matmul_kernel(x, w.double())
+    with pytest.raises(ValueError, match="fused_shapes_ok"):
+        fm.fused_matmul_kernel(x, torch.zeros(768, 30522, device=device))
+    with pytest.raises(ValueError, match="on cpu"):
+        fm.fused_matmul_kernel(x, w, bias=torch.zeros(768))
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_matmul_kernel(x, w, residual=torch.zeros(
+            768, 64, device=device).t())
+    with pytest.raises(ValueError, match="ffn_chain_shapes_ok"):
+        fc.ffn_chain_kernel(x, torch.zeros(768, 3072, device=device), None,
+                            torch.zeros(3072, 1024, device=device))
+    qkv = torch.zeros(2, 16, 3 * 64, device=device)
+    with pytest.raises(ValueError, match="b_qkv"):
+        fa.flash_kernel_forward_qkv(qkv, torch.zeros(64, device=device), 4)
