@@ -8,8 +8,9 @@ Phases (any failure exits non-zero and prints no result):
 1. the card's name and power limit; build every CUDA kernel from
    paddle_tpu_torch/csrc (one nvcc per source, all started together):
    the ragged paged attention and the paged decode attention of the
-   serving paths, the flash-attention forward, dq and dk/dv kernels and
-   the qkv-folded flash forward of training (one source), and the fused
+   serving paths, the flash-attention forward, dq and dk/dv kernels (packed
+   and flat layouts) and the qkv-folded flash forward of training (one
+   source), and the fused
    matmul epilogue and the FFN chain of the fusion pass (one source);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, with its time, the plain
@@ -64,13 +65,30 @@ Phases (any failure exits non-zero and prints no result):
    none of the port's kernels), each launching only its own kernels
    once per layer per step; every step's loss of the first two within
    2e-3 of the plain program's and every first-step gradient within a
-   relative norm error of 1e-3.
+   relative norm error of 1e-3;
+6. the 4-D fused_attention op through the Executor at BERT-base
+   attention width: x, y [8, 12, 512, 64], q = fc(x) over the head dim,
+   attention of q over x with a key-padding bias and dropout 0.1, the
+   mean squared error, Adam(1e-3), 2 warm-up and 10 timed steps — finite
+   losses, the flat forward, dq and dk/dv kernels once per step each, no
+   packed kernel, no plain version, no library load after the first
+   step; then at dropout 0 from the same weights 5 steps against the
+   matmul/softmax program: losses within 2e-3, first-step gradients
+   within a relative norm error of 1e-3;
+7. the sequence-parallel train step of _dryrun_seq (__graft_entry__.py)
+   on a one-rank NCCL group and a data 1 x seq 1 mesh: q = x w, causal
+   ring attention over the seq group, the MSE, the gradient all-reduced
+   over data and seq, SGD(0.1), 10 steps at [2, 12, 4096, 64] — the flat
+   kernels once per step each, no plain version, every loss within 2e-3
+   of the plain composite's step and w within a relative norm error of
+   1e-4; peak memory of both steps.
 
 The line before the card's line is {"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
-fused training steps' for the other training kernels.  Details go to
+fused training steps' for the other training kernels, phase 6's timed
+steps for the flat kernels.  Details go to
 chiprun_out/chip_smoke.json.
 The script imports nothing of JAX and nothing of paddle_tpu.
 """
@@ -80,6 +98,7 @@ import collections
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -141,6 +160,18 @@ KERNELS = [
          source="paddle_tpu_torch/csrc/gemm_epilogue.cu",
          replaces="paddle_tpu/ops/pallas_ffn_chain.py:163",
          build="gemm_epilogue"),
+    dict(name="flash_fwd_flat", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas_ops.py:88",
+         build="flash_attention"),
+    dict(name="flash_bwd_dq_flat", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas_ops.py:335",
+         build="flash_attention"),
+    dict(name="flash_bwd_dkv_flat", route="cuda",
+         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         replaces="paddle_tpu/ops/pallas_ops.py:381",
+         build="flash_attention"),
 ]
 #: legacy prompts: two prefill seq buckets (16 and 32) at page_size 16
 LEGACY_LENGTHS = (8, 12, 16, 20, 24, 28, 32, 32)
@@ -160,9 +191,12 @@ COMPARE_STEPS = 5
 #: the relative norm error of every first-step gradient
 PARITY_LOSS_TOL, PARITY_GRAD_RTOL = 2e-3, 1e-3
 #: flash kernels vs their plain versions: forward atol (o, lse: float32
-#: online softmax over <= 128 unit-scale keys, summed in another order);
+#: online softmax over unit-scale keys, summed in another order);
 #: gradients atol + rtol (dq, dk, dv, dbias sum a few hundred such
-#: products per element, dbias over 12 heads too)
+#: products per element, dbias over 12 heads too).  The flat cases hold
+#: them unchanged up to 4096 keys: the scores are unit-scale, so a longer
+#: sum adds rounding only as its square root and the online softmax's
+#: rescaling keeps every partial sum below the row's total
 FLASH_FWD_ATOL = 1e-5
 FLASH_GRAD_ATOL = FLASH_GRAD_RTOL = 1e-4
 #: kernel-phase cases: (B, Tq, Tk, nh, D, causal, strided qkv views,
@@ -180,6 +214,27 @@ FLASH_CASES = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def ptxas_entries(build_log):
+    """[(entry function, registers, spill store bytes)] from ptxas -v
+    output, one per kernel instantiation in the order ptxas compiled
+    them."""
+    entries, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            entries.append((name, int(m.group(1)), spill))
+            name = None
+    return entries
 
 
 def card_line():
@@ -1016,6 +1071,212 @@ def qkv_kernel_phase(device):
         shape=dict(B=B, T=T, nh=nh, D=D, dropout=rate)))}
 
 
+#: flat-layout flash cases: (B, H, Tq, Tk, D, causal, bias: None |
+#: "padding" (a [B, 1, 1, Tk] 0 / -1e4 mask of the last quarter of the
+#: keys) | "kbias" (a random [B, 1, 1, Tk] key bias, as ring attention
+#: rotates) | "per_head" (a random [B, H, 1, Tk]), dropout rate, a random
+#: nonzero lse cotangent).  "op_step" is one step of phase 6's 4-D op,
+#: "ring_p1" the causal chunk of phase 7's one-rank ring, "ring_chunk" a
+#: non-causal ring chunk of a four-rank ring at the same length
+FLAT_CASES = {
+    "op_step": (8, 12, 512, 512, 64, False, "padding", 0.1, False),
+    "ring_p1": (2, 12, 4096, 4096, 64, True, None, 0.0, False),
+    "ring_chunk": (2, 12, 1024, 1024, 64, False, "kbias", 0.0, True),
+    "per_head_bias": (4, 12, 256, 256, 64, False, "per_head", 0.0, False),
+    "tq128_tk256": (2, 2, 128, 256, 32, False, "padding", 0.0, False),
+    "causal_tq80_tk128": (4, 12, 80, 128, 64, True, "padding", 0.0, False),
+    "t100": (4, 12, 100, 100, 64, False, "padding", 0.0, False),
+    "t100_d32": (4, 8, 100, 100, 32, False, "padding", 0.0, False),
+    "t100_d128": (4, 4, 100, 100, 128, False, "padding", 0.0, False),
+}
+
+
+def padding_bias(B, Tk):
+    """The 0 / -1e4 key-padding bias [B, 1, 1, Tk] that masks the last
+    quarter of every row's keys, as an input mask makes it."""
+    import torch
+
+    bias = torch.zeros(B, 1, 1, Tk)
+    bias[..., Tk - Tk // 4:] = -1e4
+    return bias
+
+
+def flat_case(device, B, H, Tq, Tk, D, causal, bias, rate, dlse, seed):
+    """One flat flash call's inputs on the card: unit-scale q, k, v, an
+    output cotangent, the bias as the kernels' [B, H, 1, Tk] view (or
+    None), an lse cotangent when ``dlse``."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 600 + seed)
+    q = torch.randn(B, H, Tq, D, generator=g)
+    k, v = (torch.randn(B, H, Tk, D, generator=g) for _ in range(2))
+    do = torch.randn(B, H, Tq, D, generator=g)
+    b = {None: None, "padding": padding_bias(B, Tk),
+         "kbias": torch.randn(B, 1, 1, Tk, generator=g),
+         "per_head": torch.randn(B, H, 1, Tk, generator=g)}[bias]
+    u = torch.randn(B, H, Tq, generator=g) if dlse else None
+    move = (lambda t: None if t is None else t.to(device))
+    return dict(q=move(q), k=move(k), v=move(v), do=move(do), dlse=move(u),
+                bias=None if b is None else move(b).expand(B, H, 1, Tk),
+                bias_src=move(b), causal=causal, dropout_rate=rate,
+                seed=SEED + 2345 + seed)
+
+
+def visible_pairs(Tq, Tk, causal):
+    """(query, key) pairs a row sees: all of them, or under the
+    end-aligned causal mask those with key <= query + Tk - Tq."""
+    if not causal:
+        return Tq * Tk
+    return sum(min(Tk, max(0, i + Tk - Tq + 1)) for i in range(Tq))
+
+
+def flat_bounds(c):
+    """Least time of each flat kernel's work at this call: 4 (forward), 6
+    (dq) and 8 (dk/dv) flops per visible (query, key, dim) over the
+    float32 peak; each input read once and each output written once
+    over HBM's rate.  Returns {kernel: (ms, bound_by, bytes, flops)}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, H, Tq, D = c["q"].shape
+    Tk = c["k"].shape[2]
+    unit = B * H * visible_pairs(Tq, Tk, c["causal"]) * D
+    q_b, kv_b, rows = 4 * B * H * Tq * D, 4 * B * H * Tk * D, 4 * B * H * Tq
+    bias_b = 0 if c["bias_src"] is None else 4 * c["bias_src"].numel()
+    ins = q_b + 2 * kv_b + bias_b
+    return {fa.FWD_FLAT: _bound(4 * unit, ins + q_b + rows),
+            fa.DQ_FLAT: _bound(6 * unit, ins + q_b + 2 * rows + q_b),
+            fa.DKV_FLAT: _bound(8 * unit, ins + q_b + 2 * rows + 2 * kv_b
+                                + 4 * B * H * Tk)}
+
+
+def flat_kernel_phase(device):
+    """The flat flash kernels (#4, #7, #8) against flash_ref_forward_flat
+    / _backward_flat in every FLAT_CASES case (dropout through the
+    kernels' own mask, a nonzero lse cotangent folded into delta where
+    the case has one), each case timed beside its plain versions, a
+    library call and its bounds.  The kernels line takes the op step's
+    times (phase 6's main path) and the worst error over the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.attention import _NEG_INF
+
+    names = (fa.FWD_FLAT, fa.DQ_FLAT, fa.DKV_FLAT)
+    errs = dict.fromkeys(names, 0.0)
+    cases = {}
+    for i, (name, spec) in enumerate(FLAT_CASES.items()):
+        c = flat_case(device, *spec, seed=i)
+        q, k, v, bias, do, dlse = (c[n] for n in ("q", "k", "v", "bias", "do",
+                                                  "dlse"))
+        B, H, Tq, D = q.shape
+        Tk, rate, causal, seed = k.shape[2], c["dropout_rate"], c["causal"], \
+            c["seed"]
+        kw = dict(causal=causal, dropout_rate=rate)
+        mask = keep = None
+        if rate > 0:
+            mask = fa.flash_kernel_dropout_mask(B, H, Tq, Tk, rate, seed,
+                                                device)
+            keep = _keep_ok(mask, rate)
+        o, lse = fa.flash_kernel_forward_flat(q, k, v, bias, seed=seed, **kw)
+        o_ref, lse_ref = fa.flash_ref_forward_flat(q, k, v, bias,
+                                                   keep_mask=mask, **kw)
+        delta = fa.flash_delta_flat(o, do, dlse)
+        dq = fa.flash_kernel_dq_flat(q, k, v, bias, do, lse, delta, seed=seed,
+                                     **kw)
+        dk, dv, dbias = fa.flash_kernel_dkv_flat(q, k, v, bias, do, lse, delta,
+                                                 seed=seed, **kw)
+        refs = fa.flash_ref_backward_flat(q, k, v, bias, o_ref, lse_ref, do,
+                                          keep_mask=mask, dlse=dlse, **kw)
+        sync(device)
+        got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv, dbias=dbias)
+        want = dict(o=o_ref, lse=lse_ref)
+        want.update(zip(("dq", "dk", "dv", "dbias"), refs))
+        err = {n: float((got[n] - want[n]).abs().max()) for n in got}
+        excess = {n: _tol_excess(got[n], want[n], FLASH_GRAD_ATOL,
+                                 FLASH_GRAD_RTOL)
+                  for n in ("dq", "dk", "dv", "dbias")}
+        fwd_ok = max(err["o"], err["lse"]) <= FLASH_FWD_ATOL
+        grad_ok = max(excess.values()) <= FLASH_GRAD_ATOL
+        finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+        del refs, o_ref, lse_ref, got, want
+
+        # times: the kernels, their plain versions, and PyTorch's fused
+        # attention on the same q, k, v and bias (forward; its autograd
+        # backward, dq + dk + dv, for the two backward kernels)
+        iters = 200 if Tq * Tk <= 512 * 512 else 20
+        times = {
+            fa.FWD_FLAT: time_ms(lambda: fa.flash_kernel_forward_flat(
+                q, k, v, bias, seed=seed, **kw), device, iters),
+            fa.DQ_FLAT: time_ms(lambda: fa.flash_kernel_dq_flat(
+                q, k, v, bias, do, lse, delta, seed=seed, **kw), device,
+                iters),
+            fa.DKV_FLAT: time_ms(lambda: fa.flash_kernel_dkv_flat(
+                q, k, v, bias, do, lse, delta, seed=seed, **kw), device,
+                iters)}
+        plain_fwd = time_ms(lambda: fa.flash_ref_forward_flat(
+            q, k, v, bias, keep_mask=mask, **kw), device, iters)
+        plain_bwd = time_ms(lambda: fa.flash_ref_backward_flat(
+            q, k, v, bias, o, lse, do, keep_mask=mask, dlse=dlse, **kw),
+            device, iters)
+        attn_mask = c["bias_src"]
+        if causal:
+            vis = torch.ones(Tq, Tk, dtype=torch.bool, device=device).tril(
+                Tk - Tq)
+            cmask = torch.zeros(Tq, Tk, device=device).masked_fill(~vis,
+                                                                   _NEG_INF)
+            attn_mask = cmask if attn_mask is None else attn_mask + cmask
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=attn_mask, dropout_p=rate), device, iters)
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                                 dropout_p=rate)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), device, iters)
+        del lib_out, leaves
+        bounds = flat_bounds(c)
+        case = dict(err=err, grad_excess=excess, keep_fraction=keep,
+                    shape=dict(B=B, H=H, Tq=Tq, Tk=Tk, D=D, causal=causal,
+                               bias=spec[6], dropout=rate, dlse=spec[8]),
+                    timing={})
+        for n in names:
+            fwd = n == fa.FWD_FLAT
+            b_ms, b_by, nbytes, flops = bounds[n]
+            case["timing"][n] = dict(
+                ms=times[n], plain_ms=plain_fwd if fwd else plain_bwd,
+                library_ms=lib_fwd if fwd else lib_bwd, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops)
+        cases[name] = case
+        log(f"  flat flash {name}: B={B} H={H} Tq={Tq} Tk={Tk} D={D} causal="
+            f"{causal} bias={spec[6]} dropout={rate} dlse={spec[8]}"
+            + (f" keep={keep:.5f}" if keep is not None else "")
+            + " max_abs_err " + " ".join(f"{n}={e:.3e}" for n, e in err.items())
+            + f" (fwd atol {FLASH_FWD_ATOL:g}; grads atol {FLASH_GRAD_ATOL:g}"
+            f" rtol {FLASH_GRAD_RTOL:g})")
+        log("    " + "; ".join(
+            f"{n} ms={t['ms']:.5f} bound={t['bound_ms']:.5f} ({t['bound_by']})"
+            f" x{t['ms'] / t['bound_ms']:.2f}" for n, t in case["timing"].items())
+            + f"; plain fwd {plain_fwd:.5f} bwd {plain_bwd:.5f}; sdpa fwd "
+            f"{lib_fwd:.5f} bwd {lib_bwd:.5f}")
+        if not (fwd_ok and grad_ok and finite):
+            raise AssertionError(f"flat flash kernels disagree with plain on "
+                                 f"{name}")
+        errs[fa.FWD_FLAT] = max(errs[fa.FWD_FLAT], err["o"], err["lse"])
+        errs[fa.DQ_FLAT] = max(errs[fa.DQ_FLAT], err["dq"])
+        errs[fa.DKV_FLAT] = max(errs[fa.DKV_FLAT], err["dk"], err["dv"],
+                                err["dbias"])
+        del c, q, k, v, bias, do, dlse, o, lse, delta, dq, dk, dv, dbias, mask
+
+    return {n: dict(max_abs_err=errs[n], cases=cases,
+                    timing=dict(cases["op_step"]["timing"][n],
+                                library="scaled_dot_product_attention on "
+                                        "[B, H, T, D] with the bias as "
+                                        "attn_mask" + ("" if n == fa.FWD_FLAT
+                                                       else ", its autograd "
+                                                       "backward (dq+dk+dv)"),
+                                shape=cases["op_step"]["shape"]))
+            for n in names}
+
 # -- phase 3: the engine ----------------------------------------------------
 
 def make_prompts(rng, n, length, vocab):
@@ -1602,15 +1863,19 @@ def train_batch(vocab, device):
 
 class _PlainCalls:
     """Counts calls of the port's plain kernel versions while active: the
-    flash plain versions and the composite attention, the qkv-folded
-    forward's, the fused matmul epilogue's and the FFN chain's, under
-    every module-level name the ops look them up by.  (The fused matmul
+    flash plain versions (packed and flat; the ring attention module
+    reads the flat ones from the flash module) and the composite
+    attention, the qkv-folded forward's, the fused matmul epilogue's and
+    the FFN chain's, under every module-level name the ops look them up
+    by.  (The fused matmul
     and FFN-chain backward passes are plain PyTorch by design, as the
     JAX package's custom VJPs are XLA; they call none of these.)"""
 
     NAMES = {
         "flash_attention": ("flash_ref_forward", "flash_ref_backward",
-                            "attention", "attention_packed"),
+                            "flash_ref_forward_flat",
+                            "flash_ref_backward_flat", "attention",
+                            "attention_packed"),
         "attention_epilogue": ("qkv_ref_forward", "plain_qkv_attention",
                                "flash_ref_forward", "flash_ref_backward"),
         "fused_matmul": ("reference_matmul_epilogue",),
@@ -1923,6 +2188,293 @@ def parity_gate(device, exe, cfg):
     return out
 
 
+# -- phase 6: the 4-D fused_attention op ---------------------------------------
+
+#: phase 6: [B, H, T, D] at BERT-base attention width (12 heads of 64,
+#: max_position 512), Adam's rate, warm-up / timed / parity steps
+OP4D_SHAPE, OP4D_LR, OP4D_DROPOUT = (8, 12, 512, 64), 1e-3, 0.1
+OP4D_WARMUP, OP4D_STEPS, OP4D_PARITY_STEPS = 2, 10, 5
+FLAT_KERNELS = ("flash_fwd_flat", "flash_bwd_dq_flat", "flash_bwd_dkv_flat")
+
+
+def build_op4d(fused, dropout_rate):
+    """The program of tests/test_pallas_attention.py:95 at OP4D_SHAPE:
+    q = fc(x) over the head dim, attention of q over x with a key-padding
+    bias, the mean squared error against y, Adam.  ``fused``: one
+    fused_multihead_attention op (4-D, no num_heads); else the same
+    attention from matmul, elementwise_add and softmax layers.  ->
+    (main, startup, loss, grad names)."""
+    import paddle_tpu_torch as pt
+
+    B, H, T, D = OP4D_SHAPE
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED + 21
+    main.random_seed = SEED + 22
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.data("x", shape=[B, H, T, D], dtype="float32")
+        y = pt.data("y", shape=[B, H, T, D], dtype="float32")
+        bias = pt.data("bias", shape=[B, 1, 1, T], dtype="float32")
+        q = pt.layers.fc(x, size=D, num_flatten_dims=3, bias_attr=False)
+        if fused:
+            o = pt.layers.fused_multihead_attention(
+                q, x, x, attn_bias=bias, dropout_rate=dropout_rate)
+        else:
+            s = pt.layers.matmul(q, x, transpose_y=True, alpha=D ** -0.5)
+            p = pt.layers.softmax(pt.layers.elementwise_add(s, bias))
+            o = pt.layers.matmul(p, x)
+        loss = pt.layers.reduce_mean(pt.layers.square_error_cost(o, y))
+        _, params_grads = pt.optimizer.Adam(OP4D_LR).minimize(loss)
+    return main, startup, loss, [g.name for _, g in params_grads]
+
+
+def op4d_feed(device):
+    import torch
+
+    B, H, T, D = OP4D_SHAPE
+    rng = np.random.RandomState(SEED + 23)
+    x, y = (rng.randn(B, H, T, D).astype(np.float32) for _ in range(2))
+    feed = {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
+            "bias": padding_bias(B, T)}
+    return {n: t.to(device) for n, t in feed.items()}
+
+
+def op4d_phase(device):
+    """The 4-D fused_attention op through the Executor: OP4D_WARMUP +
+    OP4D_STEPS Adam steps with dropout, gated on finite losses, one
+    launch per step of each flat kernel, no packed kernel and no plain
+    version, and no library load after the first step; then the parity
+    gate at dropout 0 against the matmul/softmax program from the same
+    weights."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    on_card = device.type == "cuda"
+    exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
+    main, startup, loss, _ = build_op4d(True, OP4D_DROPOUT)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = op4d_feed(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    warm = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+            for _ in range(OP4D_WARMUP)]
+    sync(device)
+    with _PlainCalls() as plain:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)[0] for _ in range(OP4D_STEPS)]
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+    losses = [float(x) for x in warm] + [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    want = {k: OP4D_STEPS for k in FLAT_KERNELS} if on_card else {}
+    step_ms = wall / OP4D_STEPS * 1e3
+    log(f"  4-D op program {list(OP4D_SHAPE)}, key padding, dropout "
+        f"{OP4D_DROPOUT}, Adam({OP4D_LR:g}): {OP4D_STEPS} steps "
+        f"{step_ms:.3f} ms/step; losses " + " ".join(f"{x:.5f}" for x in losses)
+        + f"; launches {launches} (want {want}); plain kernel versions "
+        f"called {plain.calls}; libraries loaded after the first step "
+        f"{exe.compiles_after_first_step}; peak memory {peak / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a 4-D op loss is not finite: {losses}")
+    if launches != want:
+        raise AssertionError(f"4-D op launches {launches}, expected {want} "
+                             f"(each flat kernel once per step, nothing else)")
+    if on_card and plain.calls:
+        raise AssertionError("a plain kernel version ran on the card")
+    if exe.compiles_after_first_step:
+        raise AssertionError("a kernel library was loaded after the first "
+                             "step")
+    del scope
+    return dict(shape=list(OP4D_SHAPE), losses=losses, step_ms=step_ms,
+                launches=launches, peak_memory_bytes=peak,
+                parity=op4d_parity(device, exe))
+
+
+def op4d_parity(device, exe):
+    """At dropout 0 from the same weights: OP4D_PARITY_STEPS Adam steps
+    of the 4-D op program (the flat kernels, each once per step) and of
+    the matmul/softmax program (no kernel of the port); every loss within
+    PARITY_LOSS_TOL and every first-step gradient within a relative norm
+    error of PARITY_GRAD_RTOL."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    on_card = device.type == "cuda"
+    feed = op4d_feed(device)
+    runs, weights = {}, None
+    for fused in (True, False):
+        main, startup, loss, grads = build_op4d(fused, 0.0)
+        scope = pt.Scope()
+        if weights is None:
+            exe.run(startup, scope=scope)
+            weights = {n: scope.find_var(n).clone()
+                       for n in pt.io.persistable_names(main)}
+        else:
+            for n, t in weights.items():
+                scope.set_var(n, t.clone())
+        losses, first = [], None
+        _cuda.reset_launches()
+        for step in range(OP4D_PARITY_STEPS):
+            out = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                          fetch_list=[loss] + (grads if step == 0 else []))
+            losses.append(float(out[0]))
+            if step == 0:
+                first = dict(zip(grads, out[1:]))
+        sync(device)
+        launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+        want = {k: OP4D_PARITY_STEPS for k in FLAT_KERNELS} \
+            if fused and on_card else {}
+        if launches != want:
+            raise AssertionError(f"the {'fused' if fused else 'plain'} 4-D "
+                                 f"program launched {launches}, expected "
+                                 f"{want}")
+        runs[fused] = (losses, first)
+        del scope
+    (lf, gf), (lp, gp) = runs[True], runs[False]
+    dloss = max(abs(a - b) for a, b in zip(lf, lp))
+    rel = {n: float(torch.linalg.vector_norm(gf[n] - gp[n])
+                    / torch.linalg.vector_norm(gp[n]).clamp_min(1e-30))
+           for n in gp}
+    log(f"  4-D op parity at dropout 0, same weights, {OP4D_PARITY_STEPS} "
+        f"Adam steps: fused " + " ".join(f"{x:.6f}" for x in lf) + "; plain "
+        + " ".join(f"{x:.6f}" for x in lp) + f"; max |dloss| {dloss:.3e} "
+        f"(tol {PARITY_LOSS_TOL:g}); first-step gradient relative norm "
+        f"error {rel} (tol {PARITY_GRAD_RTOL:g})")
+    if not dloss < PARITY_LOSS_TOL:
+        raise AssertionError("4-D op and plain program losses diverge")
+    if not max(rel.values()) < PARITY_GRAD_RTOL:
+        raise AssertionError("4-D op and plain program gradients disagree")
+    return dict(fused_losses=lf, plain_losses=lp, max_dloss=dloss,
+                grad_rel_err=rel)
+
+
+# -- phase 7: the sequence-parallel train step -------------------------------
+
+#: phase 7: _dryrun_seq's step (__graft_entry__.py:321) at [B, H, T, D]
+#: on a one-rank data x seq mesh: steps, SGD rate
+SEQ_SHAPE, SEQ_STEPS, SEQ_LR = (2, 12, 4096, 64), 10, 0.1
+#: the ring's w after SEQ_STEPS steps against the plain step's: relative
+#: norm error
+SEQ_W_RTOL = 1e-4
+
+
+def seq_parallel_phase(device):
+    """_dryrun_seq's data x seq train step on a one-rank NCCL group (a
+    file store in a temporary directory) and build_mesh({"data": 1,
+    "seq": 1}): q = x w, causal ring_attention(q, x, x) over the seq
+    group, the squared error against y over the element count, the loss
+    and gradient all-reduced over data and seq, SGD; one untimed warm-up
+    step, then SEQ_STEPS timed ones from the same w.  Gated: the flat
+    kernels launch once per step each and no plain version runs; every
+    loss within PARITY_LOSS_TOL of the same step over the plain
+    attention composite, and w after SEQ_STEPS steps within SEQ_W_RTOL.
+    Peak memory of both steps is reported: the ring never holds the
+    [B, H, T, T] scores."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.ops.attention import attention
+    from paddle_tpu_torch.parallel import build_mesh, ring_attention
+
+    on_card = device.type == "cuda"
+    B, H, T, D = SEQ_SHAPE
+    rng = np.random.RandomState(SEED + 5)
+    x, y = (torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32))
+            .to(device) for _ in range(2))
+    w0 = torch.from_numpy((rng.randn(D, D) * 0.1).astype(np.float32)).to(
+        device)
+    total = float(y.numel())
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = build_mesh({"data": 1, "seq": 1},
+                              device_type=device.type)
+            for name in ("ring", "plain"):
+                def step(w):
+                    leaf = w.clone().requires_grad_()
+                    q = torch.einsum("bhtd,de->bhte", x, leaf)
+                    if name == "ring":
+                        o = ring_attention(q, x, x, mesh=mesh, axis="seq",
+                                           causal=True)
+                    else:
+                        o = attention(q, x, x, causal=True)
+                    loss = ((o - y) ** 2).sum() / total
+                    (g,) = torch.autograd.grad(loss, [leaf])
+                    loss = loss.detach()
+                    for axis in ("data", "seq"):
+                        dist.all_reduce(loss, group=mesh.get_group(axis))
+                        dist.all_reduce(g, group=mesh.get_group(axis))
+                    return loss, w - SEQ_LR * g
+
+                step(w0)    # warm-up: the groups' communicators, caches
+                sync(device)
+                w, losses = w0.clone(), []
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats(device)
+                with _PlainCalls() as plain:
+                    _cuda.reset_launches()
+                    t0 = time.perf_counter()
+                    for _ in range(SEQ_STEPS):
+                        loss, w = step(w)
+                        losses.append(loss)
+                    sync(device)
+                    wall = time.perf_counter() - t0
+                    launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+                results[name] = dict(
+                    losses=[float(v) for v in losses], w=w,
+                    step_ms=wall / SEQ_STEPS * 1e3, launches=launches,
+                    plain_calls=plain.calls,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(device)
+                    if on_card else 0)
+        finally:
+            dist.destroy_process_group()
+    ring, ref = results["ring"], results["plain"]
+    want = {k: SEQ_STEPS for k in FLAT_KERNELS} if on_card else {}
+    dloss = max(abs(a - b) for a, b in zip(ring["losses"], ref["losses"]))
+    w_err = float(torch.linalg.vector_norm(ring["w"] - ref["w"])
+                  / torch.linalg.vector_norm(ref["w"]))
+    scores = B * H * T * T * 4
+    log(f"  sequence-parallel step {list(SEQ_SHAPE)}, mesh data 1 x seq 1 "
+        f"({'NCCL' if on_card else 'gloo'}), causal ring attention, SGD({SEQ_LR:g}), {SEQ_STEPS} steps: "
+        f"ring {ring['step_ms']:.3f} ms/step, plain {ref['step_ms']:.3f} "
+        f"ms/step; losses ring " + " ".join(f"{v:.6f}" for v in ring["losses"])
+        + "; plain " + " ".join(f"{v:.6f}" for v in ref["losses"])
+        + f"; max |dloss| {dloss:.3e} (tol {PARITY_LOSS_TOL:g}); w relative "
+        f"norm error {w_err:.3e} (tol {SEQ_W_RTOL:g}); launches "
+        f"{ring['launches']} (want {want}); plain versions called "
+        f"{ring['plain_calls']}; peak memory ring "
+        f"{ring['peak_memory_bytes'] / 2**30:.3f} GiB, plain "
+        f"{ref['peak_memory_bytes'] / 2**30:.3f} GiB (one [B, H, T, T] f32 "
+        f"score tensor is {scores / 2**30:.3f} GiB)")
+    if ring["launches"] != want:
+        raise AssertionError(f"ring launches {ring['launches']}, expected "
+                             f"{want}")
+    if on_card and ring["plain_calls"]:
+        raise AssertionError("a plain kernel version ran in the ring step")
+    if not dloss < PARITY_LOSS_TOL:
+        raise AssertionError("ring and plain step losses diverge")
+    if not w_err < SEQ_W_RTOL:
+        raise AssertionError("ring and plain step weights diverge")
+    if on_card and not ring["peak_memory_bytes"] < scores:
+        raise AssertionError("the ring step held a [B, H, T, T] tensor")
+    for r in results.values():
+        del r["w"]
+    return dict(shape=list(SEQ_SHAPE), max_dloss=dloss, w_rel_err=w_err,
+                score_tensor_bytes=scores, **results)
+
 def main():
     import torch
 
@@ -1944,11 +2496,13 @@ def main():
         card = card_line()
         log(f"[1] card: {card}")
         built = _cuda.build(sorted({k["build"] for k in KERNELS}))
+        report["ptxas"] = {}
         for name, secs in built.items():
-            log(f"  built {name}.cu in {secs:.2f} s; ptxas: "
-                + " | ".join(line.strip() for line in
-                             _cuda.BUILD_LOG[name][1].splitlines()
-                             if "registers" in line or "spill" in line))
+            entries = ptxas_entries(_cuda.BUILD_LOG[name][1])
+            report["ptxas"][name] = entries
+            log(f"  built {name}.cu in {secs:.2f} s; ptxas (entry: "
+                f"registers/spill bytes): " + " | ".join(
+                    f"{e} {r}/{sp}" for e, r, sp in entries))
         report["build_s"] = built
         report["launch_cost_us"] = launch_cost_us(device)
         log(f"  {report['launch_cost_us']:.2f} us per small eager op "
@@ -1961,7 +2515,7 @@ def main():
             "ragged_paged_attention": kernel_phase(device, model_cfg),
             "paged_decode_attention": decode_kernel_phase(device),
             **flash_kernel_phase(device), **qkv_kernel_phase(device),
-            **epilogue_kernel_phase(device)}
+            **epilogue_kernel_phase(device), **flat_kernel_phase(device)}
 
         log("[3] engine at BertConfig.base() width")
         t0 = time.perf_counter()
@@ -2004,6 +2558,15 @@ def main():
         report["kernels"]["flash_fwd_packed"]["launches"] = \
             report["training"]["parity"]["launches"]["unfused_lowering"][
                 "flash_fwd_packed"]
+
+        log("[6] the 4-D fused_attention op through the Executor")
+        report["op4d"] = op4d_phase(device)
+        for name in FLAT_KERNELS:
+            report["kernels"][name]["launches"] = \
+                report["op4d"]["launches"][name]
+
+        log("[7] the sequence-parallel train step (ring attention)")
+        report["seq_parallel"] = seq_parallel_phase(device)
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

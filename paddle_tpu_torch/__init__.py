@@ -17,7 +17,10 @@ front end: build a program with ``layers``, ``optimizer.Adam(lr)
 GEMM-epilogue fusion pass is on by default (core/fusion.py: the fused
 matmul-epilogue, FFN-chain and qkv-folded flash kernels); a
 ``CompiledProgram`` whose ``BuildStrategy`` sets ``fuse_epilogues =
-False`` runs the unfused lowering.  No control flow, meshes or AMP yet.
+False`` runs the unfused lowering.  ``parallel`` holds named meshes over
+``torch.distributed`` and sequence parallelism (ring attention through
+the flat flash kernels, Ulysses).  No control flow, Executor meshes or
+AMP yet.
 """
 from ._device import resolve_device, set_strict_fp32
 from .core import (  # noqa: F401

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from .lowering import fold_seed, lower_block
+from .._rng import fold_seed
+from .lowering import lower_block
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope
 from .types import CUDAPlace, Place, runtime_dtype

@@ -56,6 +56,7 @@ import dataclasses
 
 import torch
 
+from .._rng import fold_seed
 from .program import EMPTY_VAR_NAME
 from .registry import REGISTRY, OpContext
 
@@ -779,7 +780,6 @@ def run_fused_group(fx, grp, env, seed, device, vjp_uids):
 
 
 def _run_group(grp, gins, seed, device):
-    from .lowering import fold_seed
 
     cov = _try_kernel(grp, gins, seed)
     tmp = {}
@@ -866,7 +866,6 @@ def _rows(mm, x):
 def _dropout(grp, seed):
     """(rate, kernel seed) of the group's dropout member: the seed the
     unfused lowering would give that op."""
-    from .lowering import fold_seed
 
     if grp.dropout is None:
         return 0.0, 0
@@ -881,7 +880,6 @@ def _try_kernel_attn(grp, gins, seed):
     kernel entry (ops/attention_epilogue.py): the qkv bias add and the
     softmax scale apply in the flash forward kernel."""
     from ..ops import attention_epilogue as ae
-    from .lowering import fold_seed
 
     getv = _group_getv(grp, gins)
     x, w, b_qkv = getv("x"), getv("w"), getv("qkv_bias")

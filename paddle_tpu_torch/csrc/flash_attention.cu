@@ -1,12 +1,23 @@
-// Flash attention over packed heads for Hopper (sm_90a), float32:
-// two forwards and the two backward kernels they share.
+// Flash attention for Hopper (sm_90a), float32: three forwards and the
+// backward kernels they share, over packed heads and over the flat
+// [B, H, T, D] layout.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_ops.py:
 //   flash_fwd_packed     <- `_fwd_kernel_packed`      (launched by `_flash_fwd_packed`)
 //   flash_bwd_dq_packed  <- `_bwd_dq_kernel_packed`   (launched by `_flash_bwd_packed`)
 //   flash_bwd_dkv_packed <- `_bwd_dkv_kernel_packed`  (launched by `_flash_bwd_packed`)
+//   flash_fwd_flat       <- `_fwd_kernel`             (launched by `_flash_fwd`)
+//   flash_bwd_dq_flat    <- `_bwd_dq_kernel`          (launched by `_flash_bwd`)
+//   flash_bwd_dkv_flat   <- `_bwd_dkv_kernel`         (launched by `_flash_bwd`)
 // and of paddle_tpu/ops/attention_epilogue.py:
 //   flash_fwd_qkv        <- `_qkv_fwd_kernel`         (launched by `_qkv_attn_fwd`)
+// The flat kernels are the packed ones instantiated with FLAT: a head
+// starts `*_sh` elements (T*D in [B, H, T, D]) into its batch instead of
+// h*D, the key bias is one row per (batch, head) (bias_sb, bias_sh: 0
+// broadcasts), dk and dv are written in [B, H, Tk, D], and dbias stays
+// per (batch, head), as the JAX custom VJP returns it.  The lse cotangent
+// of flash_attention_lse is folded into delta by the caller (delta =
+// rowsum(do*o) - dlse), so the backward kernels are unchanged by it.
 // flash_fwd_qkv is flash_fwd_packed reading q, k and v at column offsets
 // 0, H and 2H of the PRE-bias [B, T, 3H] qkv projection (row stride 3H) and
 // adding the matching slice of the qkv bias [3H] as each tile is loaded, so
@@ -17,7 +28,8 @@
 // What they compute, per batch b and head h (q, k, v are [B, T, nh*D]
 // packed-head tensors, read through their batch and row strides, so the
 // three slices of one [B, T, 3H] qkv projection are read in place):
-//   s[i][j] = (q_i . k_j) * sm_scale + bias[b][j]       (float32)
+//   s[i][j] = (q_i . k_j) * sm_scale + bias[b][j]       (float32;
+//             bias[b][h][j] in the flat layout)
 //   s[i][j] = -1e30 where causal and j > i + Tk - Tq    (end-aligned; a
 //             finite mask value, so a fully masked row stays finite)
 //   p = softmax_j(s); o_i = sum_j drop(p)[i][j] v_j; lse_i = logsumexp_j s
@@ -25,7 +37,8 @@
 // Backward, from lse (p = exp(s - lse)) and delta_i = do_i . o_i:
 //   dp = do . v^T (dropped like p), ds = p * (dp - delta)
 //   dq = sm_scale * ds k, dk = sm_scale * ds^T q, dv = drop(p)^T do,
-//   dbias[b][h][j] = sum_i ds[i][j]   (summed over heads by the caller).
+//   dbias[b][h][j] = sum_i ds[i][j]   (summed over heads by the packed
+//                                      caller).
 // The dropout mask is never stored: bit (b, h, i, j) is Philox-4x32-10 of
 // counter (j, i, b*nh + h, 0) under the 64-bit seed, kept when it exceeds
 // rate * 2^32, so all three kernels (and the debug mask entry) regenerate
@@ -36,7 +49,10 @@
 // over ~50 MB of q, k, v, o; backward recomputes the scores (dq: 6, dk/dv:
 // 8 flops per (i, j, d)), all in float32 outside the tensor cores (the
 // reference computes in float32, and TF32 would not hold the 1e-5
-// tolerance), so 67 TFLOP/s bounds them, not the 3.35 TB/s of HBM.
+// tolerance), so 67 TFLOP/s bounds them, not the 3.35 TB/s of HBM.  The
+// flat kernels likewise: at the 4-D op's step (B=8, H=12, T=512, D=64) the
+// forward is 6.4 GFLOP over ~50 MB; a causal ring chunk at T=4096 skips
+// the tiles above the diagonal, about half.
 //
 // Design: the TPU kernels walked a sequential grid, carrying the online
 // softmax state (or the dq / dk, dv accumulators) in VMEM scratch from one
@@ -73,7 +89,8 @@ struct FlashParams {
   long long k_sb, k_st;
   const float* v;
   long long v_sb, v_st;
-  const float* bias;  // [B, Tk] key-padding bias, or nullptr
+  const float* bias;  // [B, Tk] key-padding bias (flat: strided rows per
+                      // (b, h), see bias_sb / bias_sh), or nullptr
   const float* qkv_bias;  // flash_fwd_qkv: [3H], added to q | k | v on load
   const float* dout;  // backward: the output cotangent
   long long do_sb, do_st;
@@ -82,7 +99,7 @@ struct FlashParams {
   float* out;          // forward: o; dq kernel: dq (strides below)
   long long out_sb, out_st;
   float* lse_out;  // forward: [B, nh, Tq]
-  float* dk;       // dk/dv kernel: [B, Tk, nh*D] contiguous
+  float* dk;       // dk/dv kernel: [B, Tk, nh*D] (flat: [B, nh, Tk, D])
   float* dv;
   float* dbias;  // dk/dv kernel: [B, nh, Tk]
   int B, nh, Tq, Tk, D;
@@ -92,6 +109,11 @@ struct FlashParams {
   uint32_t drop_threshold;  // keep when bits > threshold
   float drop_scale;         // 1 / (1 - rate)
   uint32_t seed0, seed1;
+  // the flat layout only, last so that the packed kernels' parameters
+  // keep their offsets: the bias row of (b, h) at b*bias_sb + h*bias_sh,
+  // and the head strides
+  long long bias_sb, bias_sh;
+  long long q_sh, k_sh, v_sh, do_sh, out_sh;
 };
 
 __device__ __forceinline__ uint32_t philox_bits(uint32_t c0, uint32_t c1,
@@ -154,11 +176,30 @@ __device__ __forceinline__ void load_tile(float* s, const float* g,
   }
 }
 
+// Offset of head h in a batch: h*D packed, h*sh flat.  The packed
+// branches here and in masked_score are written apart from the flat ones
+// on purpose: a bias row pointer shared by both layouts was hoisted out
+// of the key loop and cost the packed forward 3 registers, a spill and a
+// fifth of its time; as written, the packed kernels compile to the same
+// SASS as they do without the flat layout.
+template <bool FLAT>
+__device__ __forceinline__ long long head_off(long long sh, int h, int D) {
+  if constexpr (FLAT) return (long long)h * sh;
+  else return (long long)h * D;
+}
+
 // the score (i = query, j = key) after scale, bias and the causal mask
+template <bool FLAT>
 __device__ __forceinline__ float masked_score(const FlashParams& P, float dot,
-                                              int b, int query, int key) {
-  float x = dot * P.scale + (P.bias ? __ldg(P.bias + (long long)b * P.Tk + key)
-                                    : 0.f);
+                                              int b, int h, int query,
+                                              int key) {
+  float x;
+  if constexpr (FLAT)
+    x = dot * P.scale +
+        (P.bias ? __ldg(P.bias + b * P.bias_sb + h * P.bias_sh + key) : 0.f);
+  else
+    x = dot * P.scale +
+        (P.bias ? __ldg(P.bias + (long long)b * P.Tk + key) : 0.f);
   if (P.causal && key > query + P.Tk - P.Tq) x = kNegInf;
   return x;
 }
@@ -173,8 +214,9 @@ __device__ __forceinline__ int key_end(const FlashParams& P, int q0) {
   return P.Tk;
 }
 
-// QKV: flash_fwd_qkv (q, k, v biased on load by P.qkv_bias)
-template <int DM, bool QKV>
+// QKV: flash_fwd_qkv (q, k, v biased on load by P.qkv_bias); FLAT: the
+// [B, H, T, D] layout (never with QKV)
+template <int DM, bool QKV, bool FLAT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -192,10 +234,10 @@ flash_fwd_kernel(const FlashParams P) {
   const float* qadd = QKV ? P.qkv_bias + (long long)h * D : nullptr;
   const float* kadd = QKV ? qadd + H : nullptr;
   const float* vadd = QKV ? qadd + 2 * H : nullptr;
-  load_tile<DM, QKV>(sQ, P.q + b * P.q_sb + (long long)h * D, P.q_st, q0,
-                     P.Tq, D, qadd);
-  const float* kb = P.k + b * P.k_sb + (long long)h * D;
-  const float* vb = P.v + b * P.v_sb + (long long)h * D;
+  load_tile<DM, QKV>(sQ, P.q + b * P.q_sb + head_off<FLAT>(P.q_sh, h, D),
+                     P.q_st, q0, P.Tq, D, qadd);
+  const float* kb = P.k + b * P.k_sb + head_off<FLAT>(P.k_sh, h, D);
+  const float* vb = P.v + b * P.v_sb + head_off<FLAT>(P.v_sh, h, D);
 
   float m[4], l[4], acc[4][ND];
 #pragma unroll
@@ -238,7 +280,7 @@ flash_fwd_kernel(const FlashParams P) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        s[i][j] = kj < P.Tk ? masked_score(P, s[i][j], b, qi, kj)
+        s[i][j] = kj < P.Tk ? masked_score<FLAT>(P, s[i][j], b, h, qi, kj)
                             : -CUDART_INF_F;  // past the keys: p = 0
         mx = fmaxf(mx, s[i][j]);
       }
@@ -279,7 +321,8 @@ flash_fwd_kernel(const FlashParams P) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= P.Tq) continue;
     const float inv = 1.f / l[i];
-    float* o = P.out + b * P.out_sb + qi * P.out_st + (long long)h * D;
+    float* o = P.out + b * P.out_sb + qi * P.out_st
+               + head_off<FLAT>(P.out_sh, h, D);
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -289,7 +332,7 @@ flash_fwd_kernel(const FlashParams P) {
   }
 }
 
-template <int DM>
+template <int DM, bool FLAT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -304,11 +347,12 @@ flash_bwd_dq_kernel(const FlashParams P) {
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sQ, P.q + b * P.q_sb + (long long)h * D, P.q_st, q0, P.Tq, D);
-  load_tile<DM>(sdO, P.dout + b * P.do_sb + (long long)h * D, P.do_st, q0,
-                P.Tq, D);
-  const float* kb = P.k + b * P.k_sb + (long long)h * D;
-  const float* vb = P.v + b * P.v_sb + (long long)h * D;
+  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off<FLAT>(P.q_sh, h, D), P.q_st,
+                q0, P.Tq, D);
+  load_tile<DM>(sdO, P.dout + b * P.do_sb + head_off<FLAT>(P.do_sh, h, D),
+                P.do_st, q0, P.Tq, D);
+  const float* kb = P.k + b * P.k_sb + head_off<FLAT>(P.k_sh, h, D);
+  const float* vb = P.v + b * P.v_sb + head_off<FLAT>(P.v_sh, h, D);
 
   float lse[4], delta[4], acc[4][ND];
 #pragma unroll
@@ -361,7 +405,8 @@ flash_bwd_dq_kernel(const FlashParams P) {
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
         float p = 0.f, dpv = dp[i][j];
-        if (kj < P.Tk) p = expf(masked_score(P, s[i][j], b, qi, kj) - lse[i]);
+        if (kj < P.Tk)
+          p = expf(masked_score<FLAT>(P, s[i][j], b, h, qi, kj) - lse[i]);
         if (P.dropout) dpv = keep_pair(P, kj, qi, bh) ? dpv * P.drop_scale : 0.f;
         sS[(ty + 16 * i) * kLdS + tx + 16 * j] = p * (dpv - delta[i]);
       }
@@ -386,7 +431,8 @@ flash_bwd_dq_kernel(const FlashParams P) {
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= P.Tq) continue;
-    float* dq = P.out + b * P.out_sb + qi * P.out_st + (long long)h * D;
+    float* dq = P.out + b * P.out_sb + qi * P.out_st
+                + head_off<FLAT>(P.out_sh, h, D);
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -395,7 +441,7 @@ flash_bwd_dq_kernel(const FlashParams P) {
   }
 }
 
-template <int DM>
+template <int DM, bool FLAT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -413,10 +459,12 @@ flash_bwd_dkv_kernel(const FlashParams P) {
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sK, P.k + b * P.k_sb + (long long)h * D, P.k_st, k0, P.Tk, D);
-  load_tile<DM>(sV, P.v + b * P.v_sb + (long long)h * D, P.v_st, k0, P.Tk, D);
-  const float* qb = P.q + b * P.q_sb + (long long)h * D;
-  const float* dob = P.dout + b * P.do_sb + (long long)h * D;
+  load_tile<DM>(sK, P.k + b * P.k_sb + head_off<FLAT>(P.k_sh, h, D), P.k_st,
+                k0, P.Tk, D);
+  load_tile<DM>(sV, P.v + b * P.v_sb + head_off<FLAT>(P.v_sh, h, D), P.v_st,
+                k0, P.Tk, D);
+  const float* qb = P.q + b * P.q_sb + head_off<FLAT>(P.q_sh, h, D);
+  const float* dob = P.dout + b * P.do_sb + head_off<FLAT>(P.do_sh, h, D);
 
   float dk[4][ND], dv[4][ND], db[4];
 #pragma unroll
@@ -478,7 +526,7 @@ flash_bwd_dkv_kernel(const FlashParams P) {
         const int ql = tx + 16 * j, qi = q0 + ql;
         float p = 0.f;
         if (kj < P.Tk && qi < P.Tq)
-          p = expf(masked_score(P, s[i][j], b, qi, kj) - sL[ql]);
+          p = expf(masked_score<FLAT>(P, s[i][j], b, h, qi, kj) - sL[ql]);
         float pd = p, dpv = dp[i][j];
         if (P.dropout) {
           const bool keep = keep_pair(P, kj, qi, bh);
@@ -522,7 +570,9 @@ flash_bwd_dkv_kernel(const FlashParams P) {
     const float dbias = row_sum(db[i]);
     const int kj = k0 + ty + 16 * i;
     if (kj >= P.Tk) continue;
-    const long long row = ((long long)b * P.Tk + kj) * H + (long long)h * D;
+    const long long row =
+        FLAT ? ((long long)bh * P.Tk + kj) * D
+             : ((long long)b * P.Tk + kj) * H + (long long)h * D;
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -546,7 +596,7 @@ __global__ void dropout_mask_kernel(const FlashParams P, uint8_t* mask) {
   }
 }
 
-enum Which { kFwd, kDq, kDkv, kFwdQkv };
+enum Which { kFwd, kDq, kDkv, kFwdQkv, kFwdFlat, kDqFlat, kDkvFlat };
 
 template <int DM>
 size_t smem_bytes(Which w) {
@@ -554,8 +604,10 @@ size_t smem_bytes(Which w) {
   const size_t sq = (size_t)kTile * kLdS;
   switch (w) {
     case kFwd:
-    case kFwdQkv: return (3 * tile + sq) * sizeof(float);
-    case kDq: return (4 * tile + sq) * sizeof(float);
+    case kFwdQkv:
+    case kFwdFlat: return (3 * tile + sq) * sizeof(float);
+    case kDq:
+    case kDqFlat: return (4 * tile + sq) * sizeof(float);
     default: return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
   }
 }
@@ -563,14 +615,18 @@ size_t smem_bytes(Which w) {
 template <int DM>
 cudaError_t launch_dm(Which w, const FlashParams& P, cudaStream_t stream) {
   void (*kernel)(const FlashParams) =
-      w == kFwd ? flash_fwd_kernel<DM, false>
-      : w == kFwdQkv ? flash_fwd_kernel<DM, true>
-      : w == kDq ? flash_bwd_dq_kernel<DM> : flash_bwd_dkv_kernel<DM>;
+      w == kFwd ? flash_fwd_kernel<DM, false, false>
+      : w == kFwdQkv ? flash_fwd_kernel<DM, true, false>
+      : w == kFwdFlat ? flash_fwd_kernel<DM, false, true>
+      : w == kDq ? flash_bwd_dq_kernel<DM, false>
+      : w == kDqFlat ? flash_bwd_dq_kernel<DM, true>
+      : w == kDkv ? flash_bwd_dkv_kernel<DM, false>
+      : flash_bwd_dkv_kernel<DM, true>;
   const size_t bytes = smem_bytes<DM>(w);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const int rows = w == kDkv ? P.Tk : P.Tq;
+  const int rows = (w == kDkv || w == kDkvFlat) ? P.Tk : P.Tq;
   const dim3 grid((rows + kTile - 1) / kTile, P.nh, P.B);
   kernel<<<grid, kThreads, bytes, stream>>>(P);
   return cudaGetLastError();
@@ -614,8 +670,8 @@ FlashParams make_params(const float* q, long long q_sb, long long q_st,
 extern "C" {
 
 // Each entry launches on `stream` and returns cudaGetLastError() (0 =
-// launched).  Strides are in elements: `*_sb` between batches, `*_st`
-// between rows; the head dimension is contiguous.
+// launched).  Packed entries: strides are in elements, `*_sb` between
+// batches, `*_st` between rows; the head dimension is contiguous.
 
 int flash_fwd_packed_f32(const float* q, long long q_sb, long long q_st,
                          const float* k, long long k_sb, long long k_st,
@@ -689,6 +745,77 @@ int flash_fwd_qkv_f32(const float* qkv, long long qkv_sb, long long qkv_st,
   P.out = o; P.out_sb = o_sb; P.out_st = o_st;
   P.lse_out = lse;
   return launch(kFwdQkv, P, stream);
+}
+
+// The flat [B, H, T, D] layout: strides in elements, `*_sb` between
+// batches, `*_sh` between heads, `*_st` between rows (the head dimension
+// contiguous); the key bias row of (b, h) starts at b*bias_sb + h*bias_sh
+// (0 broadcasts a [1|B, 1|H, 1, Tk] bias); lse and delta are [B, H, Tq];
+// dk and dv are written contiguous [B, H, Tk, D], dbias [B, H, Tk].
+int flash_fwd_flat_f32(const float* q, long long q_sb, long long q_sh,
+                       long long q_st, const float* k, long long k_sb,
+                       long long k_sh, long long k_st, const float* v,
+                       long long v_sb, long long v_sh, long long v_st,
+                       const float* bias, long long bias_sb,
+                       long long bias_sh, float* o, long long o_sb,
+                       long long o_sh, long long o_st, float* lse, int B,
+                       int nh, int Tq, int Tk, int D, float scale, int causal,
+                       float rate, unsigned int seed0, unsigned int seed1,
+                       void* stream) {
+  FlashParams P = make_params(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
+                              bias, B, nh, Tq, Tk, D, scale, causal, rate,
+                              seed0, seed1);
+  P.q_sh = q_sh; P.k_sh = k_sh; P.v_sh = v_sh;
+  P.bias_sb = bias_sb; P.bias_sh = bias_sh;
+  P.out = o; P.out_sb = o_sb; P.out_sh = o_sh; P.out_st = o_st;
+  P.lse_out = lse;
+  return launch(kFwdFlat, P, stream);
+}
+
+int flash_bwd_dq_flat_f32(const float* q, long long q_sb, long long q_sh,
+                          long long q_st, const float* k, long long k_sb,
+                          long long k_sh, long long k_st, const float* v,
+                          long long v_sb, long long v_sh, long long v_st,
+                          const float* bias, long long bias_sb,
+                          long long bias_sh, const float* dout,
+                          long long do_sb, long long do_sh, long long do_st,
+                          const float* lse, const float* delta, float* dq,
+                          long long dq_sb, long long dq_sh, long long dq_st,
+                          int B, int nh, int Tq, int Tk, int D, float scale,
+                          int causal, float rate, unsigned int seed0,
+                          unsigned int seed1, void* stream) {
+  FlashParams P = make_params(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
+                              bias, B, nh, Tq, Tk, D, scale, causal, rate,
+                              seed0, seed1);
+  P.q_sh = q_sh; P.k_sh = k_sh; P.v_sh = v_sh;
+  P.bias_sb = bias_sb; P.bias_sh = bias_sh;
+  P.dout = dout; P.do_sb = do_sb; P.do_sh = do_sh; P.do_st = do_st;
+  P.lse = lse; P.delta = delta;
+  P.out = dq; P.out_sb = dq_sb; P.out_sh = dq_sh; P.out_st = dq_st;
+  return launch(kDqFlat, P, stream);
+}
+
+int flash_bwd_dkv_flat_f32(const float* q, long long q_sb, long long q_sh,
+                           long long q_st, const float* k, long long k_sb,
+                           long long k_sh, long long k_st, const float* v,
+                           long long v_sb, long long v_sh, long long v_st,
+                           const float* bias, long long bias_sb,
+                           long long bias_sh, const float* dout,
+                           long long do_sb, long long do_sh, long long do_st,
+                           const float* lse, const float* delta, float* dk,
+                           float* dv, float* dbias, int B, int nh, int Tq,
+                           int Tk, int D, float scale, int causal, float rate,
+                           unsigned int seed0, unsigned int seed1,
+                           void* stream) {
+  FlashParams P = make_params(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
+                              bias, B, nh, Tq, Tk, D, scale, causal, rate,
+                              seed0, seed1);
+  P.q_sh = q_sh; P.k_sh = k_sh; P.v_sh = v_sh;
+  P.bias_sb = bias_sb; P.bias_sh = bias_sh;
+  P.dout = dout; P.do_sb = do_sb; P.do_sh = do_sh; P.do_st = do_st;
+  P.lse = lse; P.delta = delta;
+  P.dk = dk; P.dv = dv; P.dbias = dbias;
+  return launch(kDkvFlat, P, stream);
 }
 
 // Debug entry: the keep mask [B, nh, Tq, Tk] (1 = kept) the three kernels

@@ -6,7 +6,8 @@ paddle_tpu/layers/control_flow.py), copied close to verbatim so that
 both packages build the same ops under the same names.  Each layer
 creates parameters through LayerHelper and appends ops (parity:
 python/paddle/fluid/layers/nn.py + fluid/layer_helper.py).  Ported: the
-layers the BERT builders and a small fc program emit.
+layers the BERT builders, a small fc program and the 4-D attention
+program (``square_error_cost``) emit.
 """
 from __future__ import annotations
 
@@ -137,15 +138,29 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    input, label = helper.input(input), helper.input(label)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="mse_loss",
+        inputs={"X": [input.name], "Y": [label.name]},
+        outputs={"Out": [out.name]},
+        attrs={},
+    )
+    return out
+
+
 def fused_multihead_attention(q, k, v, attn_bias=None, dropout_rate=0.0,
                               causal=False, sm_scale=None, is_test=False,
                               num_heads=None, name=None):
     """Fused scaled-dot-product attention (parity:
     operators/fused/multihead_matmul_op.cu, but trainable).
 
-    Packed [B, T, H·D] operands with num_heads set run the hand-written
-    flash-attention kernels on the card (ops/flash_attention.py); the
-    [B, H, T, D] layout (num_heads=None) runs only on the CPU for now.
+    Two layouts: [B, H, T, D] tensors (num_heads=None), or the packed
+    [B, T, H·D] layout with num_heads set.  Both run the hand-written
+    flash-attention kernels of their layout on the card
+    (ops/flash_attention.py) and their plain versions on the CPU.
     attn_bias: optional additive bias broadcastable to [B, 1, 1, Tk]."""
     helper = LayerHelper("fused_attention", name=name)
     out_var = helper.create_variable_for_type_inference(q.dtype)

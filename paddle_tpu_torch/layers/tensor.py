@@ -45,13 +45,21 @@ def mean(x, name=None):
     return _simple(helper, "mean", {"X": [x.name]}, {}, x.dtype)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    x = helper.input(input)
-    attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
-    if dim is not None:
-        attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
-    return _simple(helper, "reduce_sum", {"X": [x.name]}, attrs, x.dtype)
+def _reduce(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        x = helper.input(input)
+        attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
+        if dim is not None:
+            attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+        return _simple(helper, op_type, {"X": [x.name]}, attrs, x.dtype)
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce("reduce_sum")
+reduce_mean = _reduce("reduce_mean")
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):

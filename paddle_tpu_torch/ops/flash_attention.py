@@ -1,11 +1,15 @@
-"""Flash attention over packed heads, forward and backward, and the
-``fused_attention`` op.
+"""Flash attention, forward and backward, over packed heads and over the
+flat [B, H, T, D] layout, and the ``fused_attention`` op.
 
 Counterpart of paddle_tpu/ops/pallas_ops.py: ``flash_attention_packed``
 (its packed-layout custom VJP over the Pallas kernels ``_fwd_kernel_packed``,
-``_bwd_dq_kernel_packed`` and ``_bwd_dkv_kernel_packed``) and the
+``_bwd_dq_kernel_packed`` and ``_bwd_dkv_kernel_packed``),
+``flash_attention`` and ``flash_attention_lse`` (the flat custom VJP of
+``_make_flash_lse`` over ``_fwd_kernel``, ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``, whose backward takes an lse cotangent), and the
 ``fused_attention`` op.  Semantics (the JAX kernels'): f32 scores
-``(q . k) * sm_scale + bias`` with a key-padding bias [B, Tk], an
+``(q . k) * sm_scale + bias`` with a key bias [B, Tk] (packed) or one
+row per (batch, head) (flat, from a [B|1, H|1, 1, Tk] bias), an
 end-aligned causal mask with the finite value -1e30, dropout on the
 probabilities (kept when the pair's random bits exceed rate * 2^32,
 scaled by 1 / (1 - rate)), and ``lse`` saved for a backward that
@@ -14,26 +18,31 @@ recomputes the probabilities.
 Two implementations behind one autograd function, chosen by where the
 tensors live and nothing else:
 
-* ``csrc/flash_attention.cu`` — three hand-written CUDA kernels for
-  Hopper (sm_90a), float32: ``flash_fwd_packed`` (o and lse),
+* ``csrc/flash_attention.cu`` — hand-written CUDA kernels for Hopper
+  (sm_90a), float32: ``flash_fwd_packed`` (o and lse),
   ``flash_bwd_dq_packed`` and ``flash_bwd_dkv_packed`` (dk, dv and a
   per-head dbias the wrapper sums over heads, as the JAX wrapper sums
-  its lane groups).  Each wrapper adds one to ``_cuda.LAUNCHES[name]``
-  per launch and raises on anything its kernel cannot take (a bias that
-  is not key-padding shaped, d_head > 128, a non-float32 tensor); there
-  is no fallback.  The dropout mask comes from Philox keyed by the op's
-  seed, regenerated in every kernel; ``flash_kernel_dropout_mask`` writes
-  it out so the plain version can be handed the same mask.
-* ``flash_ref_forward`` / ``flash_ref_backward`` — the same arithmetic in
-  plain PyTorch, given the keep mask.  CPU tensors take them (their mask
+  its lane groups), and the same three on the flat layout,
+  ``flash_fwd_flat``, ``flash_bwd_dq_flat`` and ``flash_bwd_dkv_flat``
+  (head strides, a bias row per (batch, head), dbias kept per (batch,
+  head) as the JAX VJP returns it).  Each wrapper adds one to
+  ``_cuda.LAUNCHES[name]`` per launch and raises on anything its kernel
+  cannot take (a bias that is not key-padding shaped, d_head > 128, a
+  non-float32 tensor); there is no fallback.  The dropout mask comes
+  from Philox keyed by the op's seed, regenerated in every kernel;
+  ``flash_kernel_dropout_mask`` writes it out so the plain version can
+  be handed the same mask.
+* ``flash_ref_forward`` / ``flash_ref_backward`` (and ``*_flat``) — the
+  same arithmetic in plain PyTorch, given the keep mask.  CPU tensors take them (their mask
   from a ``torch.Generator`` seeded by the op's seed); ``chip_smoke.py``
   holds the kernels against them on the card.
 
-``delta = rowsum(do * o)`` per head is a small torch op between the
+``delta = rowsum(do * o)`` per head (minus the lse cotangent on the flat
+path: ``ds = p * (dp - (delta - dlse))``) is a small torch op between the
 forward and the backward kernels, as XLA computes it outside the Pallas
-kernels.  The 4-D [B, H, T, D] layout (TPU kernels ``_fwd_kernel``,
-``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) is not ported: on a CUDA tensor
-that branch of the op raises; on the CPU it runs the plain composite.
+kernels.  The op takes the packed layout with ``num_heads`` and the 4-D
+[B, H, T, D] layout without it; both run their kernels on the card, their
+plain versions on the CPU and shapes alone on ``meta``.
 """
 from __future__ import annotations
 
@@ -49,8 +58,13 @@ from .attention import _NEG_INF, _heads, attention, attention_packed
 __all__ = ["flash_attention_packed", "flash_ref_forward",
            "flash_ref_backward", "flash_kernel_forward", "flash_delta",
            "flash_kernel_dq", "flash_kernel_dkv", "flash_kernel_backward",
-           "flash_kernel_dropout_mask", "flash_kernel_forward_qkv", "OP",
-           "KERNEL", "FWD", "DQ", "DKV", "QKV"]
+           "flash_kernel_dropout_mask", "flash_kernel_forward_qkv",
+           "flash_attention", "flash_attention_lse", "flash_ref_forward_flat",
+           "flash_ref_backward_flat", "flash_kernel_forward_flat",
+           "flash_delta_flat", "flash_kernel_dq_flat", "flash_kernel_dkv_flat",
+           "flash_kernel_backward_flat", "flash_forward_flat",
+           "flash_backward_flat", "OP", "KERNEL", "FWD", "DQ", "DKV",
+           "QKV", "FWD_FLAT", "DQ_FLAT", "DKV_FLAT"]
 
 #: the operator type, the kernels' source name and their launch-counter keys
 OP = "fused_attention"
@@ -58,6 +72,9 @@ KERNEL = "flash_attention"
 FWD, DQ, DKV = "flash_fwd_packed", "flash_bwd_dq_packed", "flash_bwd_dkv_packed"
 #: the qkv-folded forward (ops/attention_epilogue.py)
 QKV = "flash_fwd_qkv"
+#: the flat [B, H, T, D] layout
+FWD_FLAT, DQ_FLAT, DKV_FLAT = ("flash_fwd_flat", "flash_bwd_dq_flat",
+                               "flash_bwd_dkv_flat")
 _MASK = "flash_dropout_mask"
 
 
@@ -139,6 +156,14 @@ _ARGTYPES = {
     "flash_dropout_mask_u8": [_P, _I, _I, _I, _I, _F, _U, _U, _P],
     "flash_fwd_qkv_f32": [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _P] + _DIMS,
 }
+_FLAT = [_P, _LL, _LL, _LL] * 3 + [_P, _LL, _LL]    # q, k, v, bias (strided)
+_ARGTYPES.update({
+    "flash_fwd_flat_f32": _FLAT + [_P, _LL, _LL, _LL, _P] + _DIMS,
+    "flash_bwd_dq_flat_f32": _FLAT + [_P, _LL, _LL, _LL, _P, _P, _P, _LL,
+                                      _LL, _LL] + _DIMS,
+    "flash_bwd_dkv_flat_f32": _FLAT + [_P, _LL, _LL, _LL, _P, _P, _P, _P,
+                                       _P] + _DIMS,
+})
 
 
 def _fn(lib, name):
@@ -445,6 +470,336 @@ def flash_attention_packed(q, k, v, num_heads, bias=None, causal=False,
                                  int(seed))
 
 
+# -- the flat [B, H, T, D] layout --------------------------------------------
+
+def _flat_bias(bias, B, H, Tk):
+    """A [B|1, H|1, 1, Tk] bias (one key row per (batch, head)) as a
+    float32 [B, H, 1, Tk] view whose broadcast dims have stride 0, or None
+    for any other shape."""
+    if bias.dim() != 4 or bias.shape[2] != 1 or bias.shape[3] != Tk \
+            or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H):
+        return None
+    bias = bias.float()
+    if Tk > 1 and bias.stride(3) != 1:
+        bias = bias.contiguous()
+    return bias.expand(B, H, 1, Tk)
+
+
+def flash_ref_forward_flat(q, k, v, bias=None, causal=False, sm_scale=None,
+                           dropout_rate=0.0, keep_mask=None):
+    """Plain forward: q [B, H, Tq, D], k/v [B, H, Tk, D], bias
+    broadcastable to [B, H, 1, Tk] or None, keep_mask bool [B, H, Tq, Tk]
+    (needed when dropout_rate > 0) -> (o [B, H, Tq, D], lse [B, H, Tq]
+    f32)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores_flat(q, k, bias, causal, sm_scale)
+    p = _dropped(torch.softmax(s, dim=-1), keep_mask, dropout_rate)
+    o = torch.matmul(p, v.float())
+    return o.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def _scores_flat(q, k, bias, causal, sm_scale):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        Tq, Tk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(Tq, Tk, dtype=torch.bool,
+                          device=s.device).tril(Tk - Tq)
+        s = s.masked_fill(~mask, _NEG_INF)
+    return s
+
+
+def flash_ref_backward_flat(q, k, v, bias, o, lse, do, causal=False,
+                            sm_scale=None, dropout_rate=0.0, keep_mask=None,
+                            dlse=None, delta=None):
+    """Plain backward, the kernels' arithmetic: p = exp(s - lse),
+    ds = p * (drop(dp) - (rowsum(do * o) - dlse)) -> (dq [B, H, Tq, D],
+    dk, dv [B, H, Tk, D], dbias [B, H, Tk] per (batch, head), summed over
+    queries).  ``delta``: ``flash_delta_flat(o, do, dlse)`` when the
+    caller already holds it (o and dlse are then not read)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if delta is None:
+        delta = flash_delta_flat(o, do, dlse)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    p = torch.exp(_scores_flat(qf, kf, bias, causal, sm_scale)
+                  - lse[..., None])
+    dp = _dropped(torch.matmul(do.float(), vf.transpose(-1, -2)), keep_mask,
+                  dropout_rate)
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, kf) * sm_scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * sm_scale
+    dv = torch.matmul(_dropped(p, keep_mask, dropout_rate).transpose(-1, -2),
+                      do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=2)
+
+
+def flash_delta_flat(o, do, dlse=None):
+    """delta = rowsum(do * o) - dlse: [B, H, Tq] f32, contiguous (the
+    lse cotangent folds into delta, as ``_flash_bwd`` folds it)."""
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float().reshape(delta.shape)
+    return delta.contiguous()
+
+
+def _check_flat(q, k, v, bias):
+    """Shapes, dtypes and layouts the flat kernels take; raises
+    otherwise.  Returns (B, H, Tq, Tk, D)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("the flat flash kernels take [B, H, T, D] q, k, v")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if D > 128:
+        raise ValueError(f"d_head {D} > 128: the flash kernels hold at most "
+                         f"128 dims per head")
+    if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the head dimension must be "
+                             f"contiguous (stride(3) == 1)")
+    if bias is not None:
+        if (tuple(bias.shape) != (B, H, 1, Tk) or bias.dtype != torch.float32
+                or (Tk > 1 and bias.stride(3) != 1)
+                or bias.device != q.device):
+            raise ValueError(
+                f"the flat flash kernels take a float32 key bias "
+                f"[B, H, 1, Tk] = [{B}, {H}, 1, {Tk}] (a broadcast view "
+                f"is fine) with contiguous keys on {q.device}; got "
+                f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    return B, H, Tq, Tk, D
+
+
+def _strided4(t):
+    return (t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))
+
+
+def _bias_args(bias):
+    if bias is None:
+        return (None, 0, 0)
+    return (bias.data_ptr(), bias.stride(0), bias.stride(1))
+
+
+def flash_kernel_forward_flat(q, k, v, bias=None, causal=False,
+                              sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_fwd_flat`` (CUDA tensors only): q [B, H, Tq, D],
+    k/v [B, H, Tk, D], bias [B, H, 1, Tk] (a broadcast view) or None ->
+    (o [B, H, Tq, D], lse [B, H, Tq])."""
+    B, H, Tq, Tk, D = _check_flat(q, k, v, bias)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    o = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(q.device):
+        rc = _fn(lib, "flash_fwd_flat_f32")(
+            *_strided4(q), *_strided4(k), *_strided4(v), *_bias_args(bias),
+            *_strided4(o), lse.data_ptr(),
+            *_dims(B, H, Tq, Tk, D, sm_scale, causal, dropout_rate, seed,
+                   q.device))
+    _cuda.check(lib, rc, "flash_fwd_flat launch")
+    _cuda.LAUNCHES[FWD_FLAT] += 1
+    return o, lse
+
+
+def _check_bwd_flat(q, k, v, bias, do, lse, delta):
+    B, H, Tq, Tk, D = _check_flat(q, k, v, bias)
+    if tuple(do.shape) != (B, H, Tq, D) or do.dtype != torch.float32 \
+            or do.stride(3) != 1 or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must be float32 "
+                         f"[{B}, {H}, {Tq}, {D}] on {q.device} with a "
+                         f"contiguous head dim")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, H, Tq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[{B}, {H}, {Tq}] on {q.device}")
+    return B, H, Tq, Tk, D
+
+
+def flash_kernel_dq_flat(q, k, v, bias, do, lse, delta, causal=False,
+                         sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_bwd_dq_flat`` (CUDA tensors only) -> dq
+    [B, H, Tq, D].  ``delta`` is ``flash_delta_flat(o, do, dlse)``."""
+    B, H, Tq, Tk, D = _check_bwd_flat(q, k, v, bias, do, lse, delta)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dq = torch.empty((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(q.device):
+        rc = _fn(lib, "flash_bwd_dq_flat_f32")(
+            *_strided4(q), *_strided4(k), *_strided4(v), *_bias_args(bias),
+            *_strided4(do), lse.data_ptr(), delta.data_ptr(), *_strided4(dq),
+            *_dims(B, H, Tq, Tk, D, sm_scale, causal, dropout_rate, seed,
+                   q.device))
+    _cuda.check(lib, rc, "flash_bwd_dq_flat launch")
+    _cuda.LAUNCHES[DQ_FLAT] += 1
+    return dq
+
+
+def flash_kernel_dkv_flat(q, k, v, bias, do, lse, delta, causal=False,
+                          sm_scale=None, dropout_rate=0.0, seed=0):
+    """Launch ``flash_bwd_dkv_flat`` (CUDA tensors only) -> (dk, dv
+    [B, H, Tk, D], dbias [B, H, Tk] per (batch, head))."""
+    B, H, Tq, Tk, D = _check_bwd_flat(q, k, v, bias, do, lse, delta)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    dk = torch.empty((B, H, Tk, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    dbias = torch.empty((B, H, Tk), dtype=torch.float32, device=q.device)
+    lib = _cuda.library(KERNEL)
+    with torch.cuda.device(q.device):
+        rc = _fn(lib, "flash_bwd_dkv_flat_f32")(
+            *_strided4(q), *_strided4(k), *_strided4(v), *_bias_args(bias),
+            *_strided4(do), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(),
+            *_dims(B, H, Tq, Tk, D, sm_scale, causal, dropout_rate, seed,
+                   q.device))
+    _cuda.check(lib, rc, "flash_bwd_dkv_flat launch")
+    _cuda.LAUNCHES[DKV_FLAT] += 1
+    return dk, dv, dbias
+
+
+def flash_kernel_backward_flat(q, k, v, bias, o, lse, do, causal=False,
+                               sm_scale=None, dropout_rate=0.0, seed=0,
+                               dlse=None):
+    """delta (with the lse cotangent folded in), then the flat dq and
+    dk/dv kernels (CUDA tensors only) -> (dq, dk, dv, dbias [B, H, Tk])."""
+    delta = flash_delta_flat(o, do, dlse)
+    kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate,
+              seed=seed)
+    dq = flash_kernel_dq_flat(q, k, v, bias, do, lse, delta, **kw)
+    dk, dv, dbias = flash_kernel_dkv_flat(q, k, v, bias, do, lse, delta, **kw)
+    return dq, dk, dv, dbias
+
+
+def flash_forward_flat(q, k, v, bias=None, causal=False, sm_scale=None,
+                       dropout_rate=0.0, seed=0, keep_mask=None):
+    """(o, lse [B, H, Tq]) of the flat layout: the kernel on CUDA tensors
+    (raising on what it cannot take), its plain version under
+    ``keep_mask`` on CPU tensors."""
+    if q.device.type == "cuda":
+        return flash_kernel_forward_flat(q, k, v, bias, causal, sm_scale,
+                                         dropout_rate, seed)
+    return flash_ref_forward_flat(q, k, v, bias, causal, sm_scale,
+                                  dropout_rate, keep_mask)
+
+
+def flash_backward_flat(q, k, v, bias, do, lse, delta, causal=False,
+                        sm_scale=None, dropout_rate=0.0, seed=0,
+                        keep_mask=None):
+    """(dq, dk, dv, dbias [B, H, Tk]) from a given ``delta``
+    (``flash_delta_flat``): the dq and dk/dv kernels on CUDA tensors, the
+    plain backward on CPU tensors."""
+    kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=dropout_rate)
+    if q.device.type == "cuda":
+        dq = flash_kernel_dq_flat(q, k, v, bias, do, lse, delta, seed=seed,
+                                  **kw)
+        return (dq, *flash_kernel_dkv_flat(q, k, v, bias, do, lse, delta,
+                                           seed=seed, **kw))
+    return flash_ref_backward_flat(q, k, v, bias, None, lse, do,
+                                   keep_mask=keep_mask, delta=delta, **kw)
+
+
+class _FlashAttentionLse(torch.autograd.Function):
+    """The flat counterpart of ``_make_flash_lse``: outputs (o, lse
+    [B, H, Tq]); backward takes (do, dlse) and folds dlse into delta.  The
+    kernels on CUDA tensors, the plain versions on CPU tensors; the bias
+    is the [B, H, 1, Tk] view of ``_flat_bias`` (autograd sums its
+    gradient back to the caller's broadcast shape)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale, dropout_rate, seed):
+        ctx.set_materialize_grads(False)
+        mask = None
+        if q.device.type != "cuda" and dropout_rate > 0.0:
+            mask = _cpu_keep_mask(seed, dropout_rate,
+                                  tuple(q.shape[:3]) + (k.shape[2],))
+        o, lse = flash_forward_flat(q, k, v, bias, causal, sm_scale,
+                                    dropout_rate, seed, mask)
+        ctx.save_for_backward(q, k, v, bias, o, lse, mask)
+        ctx.cfg = (causal, sm_scale, dropout_rate, seed)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, o, lse, mask = ctx.saved_tensors
+        causal, sm_scale, dropout_rate, seed = ctx.cfg
+        if do is None:
+            do = torch.zeros_like(o)
+        elif do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv, dbias = flash_backward_flat(
+            q, k, v, bias, do, lse, flash_delta_flat(o, do, dlse), causal,
+            sm_scale, dropout_rate, seed, mask)
+        if bias is None or not ctx.needs_input_grad[3]:
+            dbias = None
+        else:
+            dbias = dbias[:, :, None, :]
+        return dq, dk, dv, dbias, None, None, None, None
+
+
+def _flash_call(q, k, v, bias, causal, sm_scale, dropout_rate, seed):
+    """Default sm_scale and seed, the bias as its [B, H, 1, Tk] view, then
+    the autograd function -> (o [B, H, Tq, D], lse [B, H, Tq]).  A bias of
+    another shape raises."""
+    B, H, _, D = q.shape
+    Tk = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    bias_v = None
+    if bias is not None:
+        bias_v = _flat_bias(bias, B, H, Tk)
+        if bias_v is None:
+            raise NotImplementedError(
+                f"the flat flash kernels take a key bias broadcastable to "
+                f"[B, H, 1, Tk] = [{B}, {H}, 1, {Tk}]; got "
+                f"{tuple(bias.shape)}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    return _FlashAttentionLse.apply(q, k, v, bias_v, bool(causal),
+                                    float(sm_scale), float(dropout_rate),
+                                    int(seed or 0))
+
+
+def flash_attention_lse(q, k, v, bias=None, causal=False, sm_scale=None):
+    """Flash attention returning (out [B, H, Tq, D], lse [B, H, Tq, 1]
+    f32), differentiable in both: the lse makes per-chunk results
+    mergeable (ring attention) and the backward takes its cotangent.  No
+    dropout on this path, as in the JAX package.  bias: broadcastable to
+    [B, H, 1, Tk] or None.  There is no ``interpret`` switch: CUDA
+    tensors launch the kernels, CPU tensors run the plain versions."""
+    o, lse = _flash_call(q, k, v, bias, causal, sm_scale, 0.0, None)
+    return o, lse[..., None]
+
+
+def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None,
+                    dropout_rate=0.0, seed=None):
+    """Tiled flash attention: q [B, H, Tq, D], k/v [B, H, Tk, D], bias
+    broadcastable to [B, H, 1, Tk] (e.g. the 0 / -1e4 input mask as
+    [B, 1, 1, Tk]) or None -> [B, H, Tq, D], differentiable.  On CUDA
+    tensors it launches the three flat kernels or raises; on CPU tensors
+    it runs their plain versions (a bias of another shape then takes the
+    plain composite)."""
+    if bias is not None and q.device.type != "cuda" \
+            and _flat_bias(bias, q.shape[0], q.shape[1], k.shape[2]) is None:
+        gen = torch.Generator().manual_seed(int(seed or 0))
+        return attention(q, k, v, bias=bias, causal=causal,
+                         sm_scale=sm_scale, dropout_rate=dropout_rate,
+                         generator=gen)
+    o, _ = _flash_call(q, k, v, bias, causal, sm_scale, dropout_rate, seed)
+    return o
+
+
 # -- the operator ------------------------------------------------------------
 
 @register_op(OP, inputs=("Q", "K", "V", "Bias"),
@@ -453,11 +808,12 @@ def fused_attention_op(ctx, inputs, attrs):
     """Fused scaled-dot-product attention op (parity:
     operators/fused/multihead_matmul_op.cu, but trainable).
 
-    Packed Q/K/V [B, T, H] with attr num_heads: the flash kernels on the
-    card, their plain versions on the CPU, shapes alone on ``meta``.
-    Q/K/V [B, H, T, D]: the plain composite on the CPU; no kernel yet.
-    Bias (optional): additive, broadcastable to [B, 1, 1, Tk].  Attrs:
-    causal, sm_scale, dropout_rate (0 at inference)."""
+    Packed Q/K/V [B, T, H] with attr num_heads, or Q/K/V [B, H, T, D]:
+    the flash kernels of that layout on the card, their plain versions on
+    the CPU, shapes alone on ``meta``.  Bias (optional): additive,
+    broadcastable to [B, 1, 1, Tk] (packed) or [B, H, 1, Tk] (4-D); any
+    other shape raises on the card and takes the plain composite on the
+    CPU.  Attrs: causal, sm_scale, dropout_rate (0 at inference)."""
     q = single(inputs, "Q")
     k = single(inputs, "K")
     v = single(inputs, "V")
@@ -472,13 +828,6 @@ def fused_attention_op(ctx, inputs, attrs):
         return out(Out=flash_attention_packed(
             q, k, v, int(attrs["num_heads"]), bias=bias, causal=causal,
             sm_scale=sm_scale, dropout_rate=rate, seed=ctx.rng or 0))
-    if q.device.type == "cuda":
-        raise NotImplementedError(
-            "fused_attention on the 4-D [B, H, T, D] layout has no CUDA "
-            "kernel yet: TPU kernels _fwd_kernel, _bwd_dq_kernel and "
-            "_bwd_dkv_kernel (paddle_tpu/ops/pallas_ops.py:88, :335, :381) "
-            "are still to be ported; use the packed layout (num_heads)")
-    gen = torch.Generator().manual_seed(int(ctx.rng or 0))
-    return out(Out=attention(q, k, v, bias=bias, causal=causal,
-                             sm_scale=sm_scale, dropout_rate=rate,
-                             generator=gen))
+    return out(Out=flash_attention(q, k, v, bias=bias, causal=causal,
+                                   sm_scale=sm_scale, dropout_rate=rate,
+                                   seed=ctx.rng or 0))

@@ -1,5 +1,6 @@
 """Math ops of the ported training path: matmul, the broadcasted
-elementwise family, reductions, activations, softmax, comparison.
+elementwise family, reductions (sum, mean), activations, softmax,
+comparison.
 
 Counterpart of paddle_tpu/ops/math.py (parity: operators/matmul_op.cc,
 mul_op.cc, elementwise/, reduce_ops/, activation_op.cc, scale_op.cc).
@@ -98,19 +99,24 @@ def scale(ctx, inputs, attrs):
 
 # -- reductions ------------------------------------------------------------
 
-@register_op("reduce_sum", inputs=("X",), outputs=("Out",))
-def reduce_sum(ctx, inputs, attrs):
-    x = single(inputs, "X")
-    keep = attrs.get("keep_dim", False)
-    dim = attrs.get("dim", None)
-    if attrs.get("reduce_all", False) or dim is None:
-        res = x.sum()
-        if keep:
-            res = res.reshape((1,) * x.dim())
-        return out(Out=res)
-    dim = tuple(d % x.dim() for d in
-                (dim if isinstance(dim, (list, tuple)) else [dim]))
-    return out(Out=x.sum(dim=dim, keepdim=keep))
+def _register_reduce(name, fn):
+    @register_op(f"reduce_{name}", inputs=("X",), outputs=("Out",))
+    def red(ctx, inputs, attrs, fn=fn):
+        x = single(inputs, "X")
+        keep = attrs.get("keep_dim", False)
+        dim = attrs.get("dim", None)
+        if attrs.get("reduce_all", False) or dim is None:
+            res = fn(x)
+            if keep:
+                res = res.reshape((1,) * x.dim())
+            return out(Out=res)
+        dim = tuple(d % x.dim() for d in
+                    (dim if isinstance(dim, (list, tuple)) else [dim]))
+        return out(Out=fn(x, dim=dim, keepdim=keep))
+
+
+_register_reduce("sum", torch.sum)
+_register_reduce("mean", torch.mean)
 
 
 @register_op("mean", inputs=("X",), outputs=("Out",))

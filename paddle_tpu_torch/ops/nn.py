@@ -1,5 +1,5 @@
 """Neural-net ops of the ported training path: layer norm, dropout,
-softmax with cross entropy.
+softmax with cross entropy, the squared error.
 
 Counterpart of paddle_tpu/ops/nn.py (parity: operators/layer_norm_op.cc,
 dropout_op.cc, softmax_with_cross_entropy_op.cc), with its numerics:
@@ -77,3 +77,10 @@ def softmax_with_cross_entropy(ctx, inputs, attrs):
         picked = torch.take_along_dim(logp, safe, dim=axis)
         loss = torch.where(valid, -picked, torch.zeros_like(picked))
     return out(Softmax=logp.exp(), Loss=loss)
+
+
+@register_op("mse_loss", inputs=("X", "Y"), outputs=("Out",))
+def mse_loss(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    y = single(inputs, "Y")
+    return out(Out=(x - y) ** 2)

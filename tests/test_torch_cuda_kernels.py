@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (the ragged paged attention, the
 paged decode attention, the three flash-attention kernels of training,
-the qkv-folded flash forward, the fused matmul epilogue and the FFN
-chain of the fusion pass) against their plain versions, on the card.
+their three counterparts on the flat [B, H, T, D] layout, the qkv-folded
+flash forward, the fused matmul epilogue and the FFN chain of the fusion
+pass) against their plain versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here is marked ``cuda`` and
 skips on a host without a card.  On a machine with one (no JAX needed):
@@ -16,7 +17,8 @@ Inactive rows and empty decode slots must be exactly zero.  Flash
 attention: forward atol 1e-5 (o, lse); gradients atol 1e-4 / rtol 1e-4 —
 dq, dk, dv and dbias sum up to a few hundred products of unit-scale
 values per element (dbias over heads and queries too), in float32, in
-another order than the plain version's matmuls.  The qkv-folded forward
+another order than the plain version's matmuls; the flat kernels take
+the same tolerances, up to 1024 keys.  The qkv-folded forward
 takes the flash forward's tolerance, its gradients through the dq and
 dk/dv kernels the flash gradients'.  Fused matmul and FFN chain: atol
 1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
@@ -299,6 +301,141 @@ def test_flash_wrappers_raise_instead_of_falling_back(device):
     with pytest.raises(NotImplementedError, match="key-padding"):
         fa.flash_attention_packed(q, k, v, nh, bias=torch.zeros(
             q.shape[0], nh, q.shape[1], k.shape[1], device=device))
+
+
+# -- flash attention on the flat [B, H, T, D] layout --------------------------
+
+#: (B, H, Tq, Tk, D, causal, bias: None | "padding" | "per_head", dropout
+#: rate, dlse): chip_smoke.py's phase-2 flat cases at test size
+FLAT_CASES = {
+    "op_step": (2, 12, 512, 512, 64, False, "padding", 0.1, False),
+    "ring_chunk": (1, 4, 1024, 1024, 64, False, "padding", 0.0, True),
+    "causal": (2, 4, 256, 256, 64, True, None, 0.0, False),
+    "per_head_bias": (2, 4, 128, 128, 64, False, "per_head", 0.0, False),
+    "tq128_tk256": (2, 4, 128, 256, 64, False, "padding", 0.0, False),
+    "causal_tq_lt_tk": (2, 4, 80, 128, 64, True, "padding", 0.0, False),
+    "t100": (2, 4, 100, 100, 64, False, "padding", 0.0, False),
+    "d32": (2, 4, 100, 100, 32, False, "padding", 0.0, False),
+    "d128": (2, 4, 100, 100, 128, False, "padding", 0.0, False),
+}
+
+
+def _flat_case(device, B, H, Tq, Tk, D, causal, bias, rate, dlse, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, Tq, D, generator=g).to(device)
+    k, v = (torch.randn(B, H, Tk, D, generator=g).to(device)
+            for _ in range(2))
+    b = None
+    if bias == "padding":
+        b = torch.zeros(B, 1, 1, Tk)
+        b[: (B + 1) // 2, ..., Tk - Tk // 4:] = -1e4
+    elif bias == "per_head":
+        b = torch.randn(B, H, 1, Tk, generator=g)
+    do = torch.randn(B, H, Tq, D, generator=g).to(device)
+    u = torch.randn(B, H, Tq, generator=g).to(device) if dlse else None
+    return (q, k, v, None if b is None else b.to(device).expand(B, H, 1, Tk),
+            do, u, causal, rate, 4321 + seed)
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_flash_kernels_match_plain_versions(device, case):
+    q, k, v, bias, do, dlse, causal, rate, seed = _flat_case(
+        device, *FLAT_CASES[case])
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    mask = None
+    if rate > 0:
+        mask = fa.flash_kernel_dropout_mask(B, H, Tq, Tk, rate, seed, device)
+        keep = mask.float().mean().item()
+        assert abs(keep - (1 - rate)) < 4 * (rate * (1 - rate)
+                                             / mask.numel()) ** 0.5, keep
+    kw = dict(causal=causal, dropout_rate=rate)
+    names = (fa.FWD_FLAT, fa.DQ_FLAT, fa.DKV_FLAT)
+    before = {n: _cuda.LAUNCHES[n] for n in names}
+    o, lse = fa.flash_kernel_forward_flat(q, k, v, bias, seed=seed, **kw)
+    o_ref, lse_ref = fa.flash_ref_forward_flat(q, k, v, bias, keep_mask=mask,
+                                               **kw)
+    grads = fa.flash_kernel_backward_flat(q, k, v, bias, o, lse, do,
+                                          seed=seed, dlse=dlse, **kw)
+    refs = fa.flash_ref_backward_flat(q, k, v, bias, o_ref, lse_ref, do,
+                                      keep_mask=mask, dlse=dlse, **kw)
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in names} == \
+        {n: 1 for n in names}
+    torch.testing.assert_close(o, o_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, r, msg=name, **FLASH_GRAD_TOL)
+
+
+def test_flat_flash_autograd_launches_the_kernels(device):
+    """flash_attention_lse on CUDA tensors launches the three flat
+    kernels, once each per forward + backward, and matches the CPU path,
+    the bias gradient summed back to its [B, 1, 1, Tk] shape."""
+    q, k, v, bias, do, _, _, _, _ = _flat_case(device, *FLAT_CASES["t100"])
+    u = torch.randn(q.shape[:3] + (1,), device=device)
+    b = bias[:, :1].contiguous()
+    names = (fa.FWD_FLAT, fa.DQ_FLAT, fa.DKV_FLAT)
+
+    def run(tensors):
+        leaves = [t.detach().clone().requires_grad_() for t in tensors]
+        o, lse = fa.flash_attention_lse(*leaves[:3], bias=leaves[3])
+        return o, torch.autograd.grad(
+            (o * do.to(o.device)).sum() + (lse * u.to(o.device)).sum(),
+            leaves)
+
+    before = {n: _cuda.LAUNCHES[n] for n in names}
+    o, got = run((q, k, v, b))
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in names} == \
+        {n: 1 for n in names}
+    o_cpu, want = run(t.cpu() for t in (q, k, v, b))
+    torch.testing.assert_close(o.cpu(), o_cpu.detach(), atol=FLASH_FWD_ATOL,
+                               rtol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **FLASH_GRAD_TOL)
+
+
+def test_flat_flash_wrappers_raise_instead_of_falling_back(device):
+    q, k, v, bias, *_ = _flat_case(device, *FLAT_CASES["d32"])
+    with pytest.raises(TypeError):
+        fa.flash_kernel_forward_flat(q.double(), k, v)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_kernel_forward_flat(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_kernel_forward_flat(*(torch.zeros(1, 1, 8, 160,
+                                                   device=device),) * 3)
+    with pytest.raises(ValueError, match="key bias"):
+        fa.flash_kernel_forward_flat(q, k, v, bias[..., :-1])
+    with pytest.raises(NotImplementedError, match="key bias"):
+        fa.flash_attention(q, k, v, bias=torch.zeros(
+            q.shape[0], q.shape[1], q.shape[2], k.shape[2], device=device))
+
+
+def test_ring_attention_on_the_card_runs_the_flat_kernels_or_raises(device):
+    """On CUDA tensors the default ring takes the flash body: a bf16 or
+    d_head 160 chunk raises in the flat kernels' wrappers instead of
+    running the einsum ring, and an f32 one-rank causal ring launches the
+    flat forward once and equals the einsum ring (use_flash=False, which
+    launches nothing)."""
+    from paddle_tpu_torch.parallel import ring_attention
+
+    q, k, v, *_ = _flat_case(device, 1, 2, 64, 64, 64, True, None, 0.0,
+                             False)
+    with pytest.raises(TypeError, match="float32"):
+        ring_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True)
+    wide = torch.zeros(1, 2, 64, 160, device=device)
+    with pytest.raises(ValueError, match="128"):
+        ring_attention(wide, wide, wide)
+    names = (fa.FWD_FLAT, fa.DQ_FLAT, fa.DKV_FLAT)
+    before = {n: _cuda.LAUNCHES[n] for n in names}
+    o = ring_attention(q, k, v, causal=True)
+    plain = ring_attention(q, k, v, causal=True, use_flash=False)
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in names} == \
+        {fa.FWD_FLAT: 1, fa.DQ_FLAT: 0, fa.DKV_FLAT: 0}
+    torch.testing.assert_close(o, plain, atol=FLASH_FWD_ATOL, rtol=0)
 
 
 # -- the fusion pass's kernels -----------------------------------------------

@@ -108,3 +108,44 @@ def test_strict_fp32_is_stated():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_parallel_stands_alone_and_defaults_to_the_card(tmp_path):
+    """``paddle_tpu_torch.parallel`` imports no JAX, ``build_mesh`` is a
+    CUDA (NCCL) mesh unless the caller asks for the CPU (gloo), and the
+    one-rank ring is plain attention.  In a subprocess, so the process
+    group it starts stays out of this one."""
+    code = f"""
+import sys
+import torch
+import torch.distributed as dist
+from paddle_tpu_torch.ops.attention import attention
+from paddle_tpu_torch.parallel import (build_mesh, ring_attention,
+                                       single_device_mesh, ulysses_attention)
+assert not [m for m in sys.modules if m.split('.')[0] in
+            ('jax', 'jaxlib', 'paddle_tpu')]
+dist.init_process_group("gloo", store=dist.FileStore({str(tmp_path / 's')!r},
+                        1), rank=0, world_size=1)
+if not torch.cuda.is_available():
+    try:
+        build_mesh({{"seq": 1}})
+        raise SystemExit("build_mesh ran without a card")
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+mesh = build_mesh({{"data": 1, "seq": -1}}, device_type="cpu")
+assert mesh.mesh_dim_names == ("data", "seq")
+assert single_device_mesh("cpu").mesh_dim_names == ("data",)
+g = torch.Generator().manual_seed(0)
+q, k, v = (torch.randn(2, 4, 32, 8, generator=g) for _ in range(3))
+for causal in (False, True):
+    want = attention(q, k, v, causal=causal)
+    for fn in (ring_attention, ulysses_attention):
+        got = fn(q, k, v, mesh=mesh, axis="seq", causal=causal)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
+dist.destroy_process_group()
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, \
+        proc.stdout + proc.stderr
