@@ -792,6 +792,17 @@ FFN_CASES = {
         norm="rms_norm")),
     "n128": (96, 64, 128, 128, dict(act="gelu", residual=True, gamma=True,
                                     beta=True, norm="layer_norm")),
+    # the edges of the cluster-pair tiles (64 rows, panels of 512, half of
+    # N a CTA): fewer rows than a cluster, a partial last panel and the
+    # second half of N past N; 1000 rows with N 500 (a ragged second
+    # half); a K whose x rows the one-CTA kernel could not hold
+    "m40_n384": (40, 256, 640, 384, dict(
+        act="gelu", residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "n500": (1000, 128, 640, 500, dict(act="relu", residual=True, gamma=True,
+                                       beta=True, norm="layer_norm")),
+    "k2048": (256, 2048, 1024, 768, dict(act="gelu", residual=True,
+                                         dropout_rate=0.1)),
 }
 #: qkv-folded flash forward cases: (B, T, nh, D, causal, key-padding bias,
 #: dropout rate); "step" is one layer of the training step
@@ -847,8 +858,9 @@ def _grad_check(fn_kernel, fn_plain, inputs, dy):
 def epilogue_kernel_phase(device):
     """The fused matmul-epilogue (#10) and FFN-chain (#11) kernels against
     their plain versions (handed the kernels' own dropout masks) in every
-    GEMM_CASES / FFN_CASES case, gradients of the step cases through the
-    autograd functions, then the times of the step cases."""
+    GEMM_CASES / FFN_CASES case, each chain mask against #10's at the same
+    seed (bit for bit), gradients of the step cases through the autograd
+    functions, then the times of the step cases."""
     import torch
 
     from paddle_tpu_torch.ops import ffn_chain as fc
@@ -914,6 +926,15 @@ def epilogue_kernel_phase(device):
         sync(device)
         keep = _keep_ok(mask, c["spec"].dropout_rate) if mask is not None \
             else None
+        if mask is not None:
+            # both kernels key dropout by Philox of (column, row) under the
+            # seed: the chain's tiles must leave the mask bit for bit
+            _, _, want = fm.fused_matmul_kernel(
+                args[0], torch.zeros(K, N, device=device), seed=c["seed"],
+                spec=fm.EpilogueSpec(dropout_rate=c["spec"].dropout_rate))
+            if not torch.equal(mask, want):
+                raise AssertionError(f"ffn_chain's keep mask on {name} is not "
+                                     f"gemm_epilogue's at the same seed")
         err = float((y - y_ref).abs().max())
         excess = _tol_excess(y, y_ref, EPI_ATOL, EPI_RTOL)
         if name == "step":
@@ -926,7 +947,8 @@ def epilogue_kernel_phase(device):
                                                   mask=mask),
                 args, dy))
         log(f"  ffn_chain {name}: M={M} K={K} F={F} N={N} {c['spec']} b2="
-            f"{has_b2} " + (f"keep={keep:.5f} " if keep is not None else "")
+            f"{has_b2} " + (f"keep={keep:.5f} (== gemm_epilogue's mask) "
+                            if keep is not None else "")
             + f"max_abs_err={err:.3e} (atol {EPI_ATOL:g} rtol {EPI_RTOL:g}"
             f"{', gradients too' if name == 'step' else ''})")
         if not (excess <= EPI_ATOL and bool(torch.isfinite(y).all())):

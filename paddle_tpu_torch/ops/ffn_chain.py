@@ -5,10 +5,13 @@
 
 Counterpart of paddle_tpu/ops/pallas_ffn_chain.py (its Pallas TPU kernel
 ``_chain_kernel`` and the custom VJP around it).  The [M, F] activated
-intermediate never reaches device memory: one CTA owns a block of rows,
-walks F in panels, keeps each activated panel in shared memory and
-contracts it at once into the [rows, N] output accumulator; the output
-epilogue is ops/fused_matmul.py's (the same device code).
+intermediate never reaches device memory: a cluster of two CTAs owns 64
+rows and walks F in panels of 512; each CTA computes the activated half
+of a panel, writes it into both CTAs' shared memory (Hopper's
+distributed shared memory) and contracts the whole panel into its half
+of the [64, N] output accumulator; the row norm of the output epilogue
+sums across the pair.  The epilogue's arithmetic and its dropout mask
+are ops/fused_matmul.py's.
 
 * ``csrc/gemm_epilogue.cu``, kernel ``ffn_chain`` (CUDA C++ for sm_90a,
   float32): y and, when dropout is live, the keep mask (uint8), keyed
@@ -43,35 +46,43 @@ __all__ = ["ffn_chain_shapes_ok", "ffn_chain_smem_bytes",
 KERNEL = "gemm_epilogue"
 LAUNCH = "ffn_chain"
 
-#: the kernel's tiles: rows per CTA, F panel width, K tile of the first
-#: GEMM, F tile of the second; N in groups of 256 columns held in
-#: registers (at most 3: 96 float32 accumulators a thread)
-BLOCK_M, BLOCK_F, BLOCK_K1, BLOCK_K2 = 32, 128, 16, 8
+#: the kernel's tiles: rows of a two-CTA cluster, F panel (each CTA
+#: computes half of it), K depth of a GEMM1 stage, F depth of a GEMM2
+#: stage, stages of the ring of TMA loads; each CTA holds half of N, in
+#: groups of 128 columns in registers (at most 3: 96 float32
+#: accumulators a thread, so N <= 768)
+BLOCK_M, BLOCK_F, BLOCK_K1, BLOCK_K2, STAGES = 64, 512, 32, 16, 2
 MAX_N = 768
+#: K and F must be multiples of these (a last stage or panel may be
+#: partial)
+K_MULTIPLE, F_MULTIPLE = 16, 128
 #: dynamic shared memory a block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232448
 
 
-def ffn_chain_smem_bytes(K, N):
-    """Shared memory of one CTA: the x rows (transposed, [K, 32]), two
-    w1 tiles [16, 128], the activated panel [128, 32] and two w2 tiles
-    [8, 256 * ceil(N / 256)], float32."""
-    nv = -(-N // 256)
-    return 4 * (K * BLOCK_M + 2 * BLOCK_K1 * BLOCK_F + BLOCK_F * BLOCK_M
-                + 2 * BLOCK_K2 * 256 * nv)
+def ffn_chain_smem_bytes():
+    """Shared memory of one CTA, whatever the shapes: the ring of TMA
+    loads (STAGES stages of x [64, 32] and w1 [32, 256], the larger of
+    the two kinds of stage; a w2 stage [16, 128 * NV] fits in one), the
+    activated panel [512, 64 + 4] (transposed, rows padded) and the row
+    sums the pair exchanges [2, 2, 64], float32, and an 8-byte mbarrier
+    a stage."""
+    stage = max(BLOCK_K1 * (BLOCK_M + BLOCK_F // 2), BLOCK_K2 * MAX_N // 2)
+    return (4 * (STAGES * stage + BLOCK_F * (BLOCK_M + 4) + 4 * BLOCK_M)
+            + 8 * STAGES)
 
 
 def ffn_chain_shapes_ok(M, K, F, N, dtype=torch.float32):
     """The chain kernel's rule, a static function of shapes and dtype:
-    float32; K a multiple of 16 and F of 128 (its tiles); N a multiple
-    of 4, at most 768 (the accumulator row a CTA holds in registers);
-    the x rows and tiles within the shared memory of a block.  It takes
-    BERT-base's FFN (M 4096, K 768, F 3072, N 768)."""
+    float32; K a multiple of 16 and F of 128; N a multiple of 4, at most
+    768 (each CTA of the pair holds half of the accumulator row in
+    registers).  x is streamed in k tiles, so shared memory does not
+    grow with K.  It takes BERT-base's FFN (M 4096, K 768, F 3072, N
+    768)."""
     return (dtype == torch.float32 and M >= 1
-            and K >= BLOCK_K1 and K % BLOCK_K1 == 0
-            and F >= BLOCK_F and F % BLOCK_F == 0
-            and N >= 4 and N % 4 == 0 and N <= MAX_N
-            and ffn_chain_smem_bytes(K, N) <= SMEM_LIMIT)
+            and K >= K_MULTIPLE and K % K_MULTIPLE == 0
+            and F >= F_MULTIPLE and F % F_MULTIPLE == 0
+            and N >= 4 and N % 4 == 0 and N <= MAX_N)
 
 
 # -- plain version -----------------------------------------------------------

@@ -560,6 +560,18 @@ FFN_CASES = {
     "no_b2_no_norm": (256, 256, 1024, 512, dict(act="gelu", b2=False)),
     "ragged_rms": (300, 256, 512, 500, dict(act="gelu", norm="rms_norm",
                                             dropout_rate=0.1)),
+    # the edges of the cluster-pair tiles: fewer rows than a cluster's 64,
+    # N 384 (the second CTA's 256 columns half past N) and F 640 (a
+    # partial last panel); 1000 rows (not a multiple of 64) with F 128
+    # (less than one panel) and N 128 (all in the first CTA's half); a K
+    # whose x rows the one-CTA kernel could not hold in shared memory; K
+    # 16 (half of one 32-deep TMA stage) with N 4
+    "m40_n384": (40, 256, 640, 384, dict(act="gelu", dropout_rate=0.1,
+                                         norm="layer_norm")),
+    "m1000_f128_n128": (1000, 64, 128, 128, dict(act="relu",
+                                                 norm="layer_norm")),
+    "k2048": (256, 2048, 1024, 768, dict(act="gelu", dropout_rate=0.1)),
+    "k16_n4": (100, 16, 256, 4, dict(act="gelu", norm="layer_norm")),
 }
 
 
@@ -602,6 +614,27 @@ def test_ffn_chain_matches_plain_version(device, case):
         *leaves, spec=spec, mask=mask), live, dy)
     for a, r in zip(got, want):
         torch.testing.assert_close(a, r, **EPI_TOL)
+
+
+@pytest.mark.parametrize("M,N", [(4096, 768), (1000, 500), (40, 384)],
+                         ids=["bert_base", "ragged", "m40"])
+def test_ffn_chain_mask_is_the_fused_matmul_mask(device, M, N):
+    """Both kernels keep an element when Philox-4x32-10 of (column, row)
+    under the op's seed clears the rate: at the same seed, rate, M and N
+    the chain's keep mask equals fused_matmul_kernel's bit for bit, so
+    the cluster-pair tiles left it alone."""
+    g = torch.Generator().manual_seed(17)
+    K, F = 64, 640
+    x = _rnd(g, device, M, K)
+    _, keep = fc.ffn_chain_kernel(
+        x, _rnd(g, device, K, F), None, _rnd(g, device, F, N), seed=31,
+        spec=fm.EpilogueSpec(act="gelu", dropout_rate=0.1))
+    _, _, want = fm.fused_matmul_kernel(
+        x, _rnd(g, device, K, N), seed=31,
+        spec=fm.EpilogueSpec(dropout_rate=0.1))
+    torch.cuda.synchronize()
+    assert keep.dtype == want.dtype == torch.uint8
+    assert torch.equal(keep, want)
 
 
 def test_bert_ffn_takes_the_chain_and_the_head_replays():

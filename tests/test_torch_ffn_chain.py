@@ -122,17 +122,42 @@ def test_backward_saves_no_intermediate():
     assert (M, F) not in shapes
 
 
-def test_shape_rule():
-    """The kernel's real rule: it takes BERT-base's FFN (M 4096, K 768,
-    F 3072, N 768) and BERT-tiny's; N above 768 (the accumulator row a
-    CTA holds in registers), F not a multiple of 128, K not of 16, or a
-    K whose x rows overflow shared memory do not fit."""
+def _rule_before_the_cluster_kernel(M, K, F, N):
+    """ffn_chain_shapes_ok as it read when one CTA kept x's 32 rows whole
+    in shared memory (copied here so the new rule is held against it)."""
+    smem = 4 * (K * 32 + 2 * 16 * 128 + 128 * 32 + 2 * 8 * 256 * -(-N // 256))
+    return (M >= 1 and K >= 16 and K % 16 == 0 and F >= 128
+            and F % 128 == 0 and N >= 4 and N % 4 == 0 and N <= 768
+            and smem <= 232448)
+
+
+@pytest.mark.parametrize("F", range(128, 4097, 128))
+def test_shape_rule(F):
+    """The kernel's real rule takes every shape the rule before it took
+    (K over the multiples of 16 up to 2048, N over those of 4 up to 768,
+    at this F), and the K that the whole x rows in shared memory used to
+    refuse."""
+    for K in range(16, 2049, 16):
+        for N in range(4, 769, 4):
+            if _rule_before_the_cluster_kernel(4096, K, F, N):
+                assert fc.ffn_chain_shapes_ok(4096, K, F, N), (K, F, N)
+    assert not _rule_before_the_cluster_kernel(4096, 2048, F, 768)
+    assert fc.ffn_chain_shapes_ok(4096, 2048, F, 768)
+
+
+def test_shape_rule_edges():
+    """It takes BERT-base's FFN (M 4096, K 768, F 3072, N 768) and
+    BERT-tiny's; N above 768 (each CTA of the pair holds half of the
+    accumulator row in registers), F not a multiple of 128, K not of 16
+    or another dtype do not fit.  Shared memory is the same for every
+    shape and within a block's."""
     assert fc.ffn_chain_shapes_ok(4096, 768, 3072, 768)
     assert fc.ffn_chain_shapes_ok(256, 128, 128, 128)
     assert fc.ffn_chain_shapes_ok(64, 64, 128, 64)
+    assert fc.ffn_chain_shapes_ok(40, 4096, 640, 500)
     assert not fc.ffn_chain_shapes_ok(4096, 1024, 4096, 1024)
     assert not fc.ffn_chain_shapes_ok(4096, 768, 3000, 768)
     assert not fc.ffn_chain_shapes_ok(4096, 760, 3072, 768)
-    assert not fc.ffn_chain_shapes_ok(4096, 2048, 3072, 768)
+    assert not fc.ffn_chain_shapes_ok(0, 768, 3072, 768)
     assert not fc.ffn_chain_shapes_ok(4096, 768, 3072, 768, torch.float16)
-    assert fc.ffn_chain_smem_bytes(768, 768) == 180224
+    assert fc.ffn_chain_smem_bytes() == 222224 <= fc.SMEM_LIMIT
