@@ -124,6 +124,10 @@ REFERENCE_LAYERS = 2
 #: float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+#: dense TF32 tensor-core FLOP/s (same datasheet), and the TF32 products
+#: a float32-accurate 3xTF32 product takes (big.small, small.big, big.big)
+TF32_FLOPS = 495e12
+TF32_PASSES = 3
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -1154,9 +1158,13 @@ def visible_pairs(Tq, Tk, causal):
 
 def flat_bounds(c):
     """Least time of each flat kernel's work at this call: 4 (forward), 6
-    (dq) and 8 (dk/dv) flops per visible (query, key, dim) over the
-    float32 peak; each input read once and each output written once
-    over HBM's rate.  Returns {kernel: (ms, bound_by, bytes, flops)}."""
+    (dq) and 8 (dk/dv) flops per visible (query, key, dim); each input
+    read once and each output written once over HBM's rate.  The forward
+    runs float32 FMA (its flops over the float32 peak); the backward pair
+    runs its products as 3xTF32 on the tensor cores (three TF32 flops per
+    flop over the TF32 peak), and its float32 FMA bound stays beside, as
+    earlier runs reported it.  Returns {kernel: (ms, bound_by, bytes,
+    flops, fma_ms)}; fma_ms is None for the forward."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, H, Tq, D = c["q"].shape
@@ -1165,10 +1173,17 @@ def flat_bounds(c):
     q_b, kv_b, rows = 4 * B * H * Tq * D, 4 * B * H * Tk * D, 4 * B * H * Tq
     bias_b = 0 if c["bias_src"] is None else 4 * c["bias_src"].numel()
     ins = q_b + 2 * kv_b + bias_b
-    return {fa.FWD_FLAT: _bound(4 * unit, ins + q_b + rows),
-            fa.DQ_FLAT: _bound(6 * unit, ins + q_b + 2 * rows + q_b),
-            fa.DKV_FLAT: _bound(8 * unit, ins + q_b + 2 * rows + 2 * kv_b
-                                + 4 * B * H * Tk)}
+    out = {fa.FWD_FLAT: (*_bound(4 * unit, ins + q_b + rows), None)}
+    for name, flops, nbytes in (
+            (fa.DQ_FLAT, 6 * unit, ins + q_b + 2 * rows + q_b),
+            (fa.DKV_FLAT, 8 * unit,
+             ins + q_b + 2 * rows + 2 * kv_b + 4 * B * H * Tk)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = TF32_PASSES * flops / TF32_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                     flops, _bound(flops, nbytes)[0])
+    return out
 
 
 def flat_kernel_phase(device):
@@ -1263,11 +1278,15 @@ def flat_kernel_phase(device):
                     timing={})
         for n in names:
             fwd = n == fa.FWD_FLAT
-            b_ms, b_by, nbytes, flops = bounds[n]
+            b_ms, b_by, nbytes, flops, fma_ms = bounds[n]
             case["timing"][n] = dict(
                 ms=times[n], plain_ms=plain_fwd if fwd else plain_bwd,
                 library_ms=lib_fwd if fwd else lib_bwd, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops)
+                bound_by=b_by, bytes=nbytes, flops=flops,
+                bound_rate="float32 FMA, 67 TFLOP/s" if fwd else
+                "3xTF32 on the tensor cores, 495 TFLOP/s TF32")
+            if not fwd:
+                case["timing"][n]["fma_bound_ms"] = fma_ms
         cases[name] = case
         log(f"  flat flash {name}: B={B} H={H} Tq={Tq} Tk={Tk} D={D} causal="
             f"{causal} bias={spec[6]} dropout={rate} dlse={spec[8]}"
@@ -1277,7 +1296,9 @@ def flat_kernel_phase(device):
             f" rtol {FLASH_GRAD_RTOL:g})")
         log("    " + "; ".join(
             f"{n} ms={t['ms']:.5f} bound={t['bound_ms']:.5f} ({t['bound_by']})"
-            f" x{t['ms'] / t['bound_ms']:.2f}" for n, t in case["timing"].items())
+            f" x{t['ms'] / t['bound_ms']:.2f}"
+            + (f" fma_bound={t['fma_bound_ms']:.5f}" if "fma_bound_ms" in t
+               else "") for n, t in case["timing"].items())
             + f"; plain fwd {plain_fwd:.5f} bwd {plain_bwd:.5f}; sdpa fwd "
             f"{lib_fwd:.5f} bwd {lib_bwd:.5f}")
         if not (fwd_ok and grad_ok and finite):

@@ -11,13 +11,16 @@
 //   flash_bwd_dkv_flat   <- `_bwd_dkv_kernel`         (launched by `_flash_bwd`)
 // and of paddle_tpu/ops/attention_epilogue.py:
 //   flash_fwd_qkv        <- `_qkv_fwd_kernel`         (launched by `_qkv_attn_fwd`)
-// The flat kernels are the packed ones instantiated with FLAT: a head
+// flash_fwd_flat is flash_fwd_packed instantiated with FLAT: a head
 // starts `*_sh` elements (T*D in [B, H, T, D]) into its batch instead of
-// h*D, the key bias is one row per (batch, head) (bias_sb, bias_sh: 0
-// broadcasts), dk and dv are written in [B, H, Tk, D], and dbias stays
-// per (batch, head), as the JAX custom VJP returns it.  The lse cotangent
-// of flash_attention_lse is folded into delta by the caller (delta =
-// rowsum(do*o) - dlse), so the backward kernels are unchanged by it.
+// h*D and the key bias is one row per (batch, head) (bias_sb, bias_sh: 0
+// broadcasts).  The flat backward pair (flash_bwd_dq_flat,
+// flash_bwd_dkv_flat) are kernels of their own on the tensor cores (see
+// their note below): same function, dk and dv written in [B, H, Tk, D]
+// and dbias per (batch, head), as the JAX custom VJP returns it.  The lse
+// cotangent of flash_attention_lse is folded into delta by the caller
+// (delta = rowsum(do*o) - dlse), so the backward kernels are unchanged by
+// it.
 // flash_fwd_qkv is flash_fwd_packed reading q, k and v at column offsets
 // 0, H and 2H of the PRE-bias [B, T, 3H] qkv projection (row stride 3H) and
 // adding the matching slice of the qkv bias [3H] as each tile is loaded, so
@@ -47,12 +50,17 @@
 // What bounds them on this card: operations.  At BERT-base shapes (B=32,
 // T=128, nh=12, D=64) the forward does 4*B*nh*T*T*D flops (1.6 GFLOP)
 // over ~50 MB of q, k, v, o; backward recomputes the scores (dq: 6, dk/dv:
-// 8 flops per (i, j, d)), all in float32 outside the tensor cores (the
-// reference computes in float32, and TF32 would not hold the 1e-5
-// tolerance), so 67 TFLOP/s bounds them, not the 3.35 TB/s of HBM.  The
-// flat kernels likewise: at the 4-D op's step (B=8, H=12, T=512, D=64) the
-// forward is 6.4 GFLOP over ~50 MB; a causal ring chunk at T=4096 skips
-// the tiles above the diagonal, about half.
+// 8 flops per (i, j, d)).  The reference computes in float32.  One TF32
+// product keeps 11 bits of each operand, too few for the gradients'
+// tolerance; "3xTF32" keeps float32's accuracy on the tensor cores: each
+// operand x is split into big = tf32(x) and small = tf32(x - big), and
+// a.b is summed as big.small + small.big + big.big in float32, three TF32
+// products per float32 one (495 TFLOP/s TF32: 165 effective).  The flat
+// backward pair runs so; the other kernels still run float32 FMA outside
+// the tensor cores, which 67 TFLOP/s bounds, not the 3.35 TB/s of HBM.
+// The flat kernels see the same: at the 4-D op's step (B=8, H=12, T=512,
+// D=64) the forward is 6.4 GFLOP over ~50 MB; a causal ring chunk at
+// T=4096 skips the tiles above the diagonal, about half.
 //
 // Design: the TPU kernels walked a sequential grid, carrying the online
 // softmax state (or the dq / dk, dv accumulators) in VMEM scratch from one
@@ -70,7 +78,8 @@
 // the 16 threads of a row with warp shuffles.  Ragged tails (any T) are
 // masked: keys past Tk get p = 0 and rows past Tq are not written.  Causal
 // tiles entirely above the diagonal are skipped where that is exact.
-// Later work: wgmma on tf32/bf16 operands, TMA loads, a deeper pipeline.
+// The flat backward pair has its own design (its note below); the
+// other kernels take it up in later work.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -114,6 +123,7 @@ struct FlashParams {
   // and the head strides
   long long bias_sb, bias_sh;
   long long q_sh, k_sh, v_sh, do_sh, out_sh;
+  int vec;  // flat backward: q, k, v, dout load as 16-byte copies
 };
 
 __device__ __forceinline__ uint32_t philox_bits(uint32_t c0, uint32_t c1,
@@ -332,7 +342,7 @@ flash_fwd_kernel(const FlashParams P) {
   }
 }
 
-template <int DM, bool FLAT>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -347,12 +357,12 @@ flash_bwd_dq_kernel(const FlashParams P) {
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off<FLAT>(P.q_sh, h, D), P.q_st,
+  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off<false>(P.q_sh, h, D), P.q_st,
                 q0, P.Tq, D);
-  load_tile<DM>(sdO, P.dout + b * P.do_sb + head_off<FLAT>(P.do_sh, h, D),
+  load_tile<DM>(sdO, P.dout + b * P.do_sb + head_off<false>(P.do_sh, h, D),
                 P.do_st, q0, P.Tq, D);
-  const float* kb = P.k + b * P.k_sb + head_off<FLAT>(P.k_sh, h, D);
-  const float* vb = P.v + b * P.v_sb + head_off<FLAT>(P.v_sh, h, D);
+  const float* kb = P.k + b * P.k_sb + head_off<false>(P.k_sh, h, D);
+  const float* vb = P.v + b * P.v_sb + head_off<false>(P.v_sh, h, D);
 
   float lse[4], delta[4], acc[4][ND];
 #pragma unroll
@@ -406,7 +416,7 @@ flash_bwd_dq_kernel(const FlashParams P) {
         const int kj = k0 + tx + 16 * j;
         float p = 0.f, dpv = dp[i][j];
         if (kj < P.Tk)
-          p = expf(masked_score<FLAT>(P, s[i][j], b, h, qi, kj) - lse[i]);
+          p = expf(masked_score<false>(P, s[i][j], b, h, qi, kj) - lse[i]);
         if (P.dropout) dpv = keep_pair(P, kj, qi, bh) ? dpv * P.drop_scale : 0.f;
         sS[(ty + 16 * i) * kLdS + tx + 16 * j] = p * (dpv - delta[i]);
       }
@@ -432,7 +442,7 @@ flash_bwd_dq_kernel(const FlashParams P) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= P.Tq) continue;
     float* dq = P.out + b * P.out_sb + qi * P.out_st
-                + head_off<FLAT>(P.out_sh, h, D);
+                + head_off<false>(P.out_sh, h, D);
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -441,7 +451,7 @@ flash_bwd_dq_kernel(const FlashParams P) {
   }
 }
 
-template <int DM, bool FLAT>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -459,12 +469,12 @@ flash_bwd_dkv_kernel(const FlashParams P) {
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sK, P.k + b * P.k_sb + head_off<FLAT>(P.k_sh, h, D), P.k_st,
+  load_tile<DM>(sK, P.k + b * P.k_sb + head_off<false>(P.k_sh, h, D), P.k_st,
                 k0, P.Tk, D);
-  load_tile<DM>(sV, P.v + b * P.v_sb + head_off<FLAT>(P.v_sh, h, D), P.v_st,
+  load_tile<DM>(sV, P.v + b * P.v_sb + head_off<false>(P.v_sh, h, D), P.v_st,
                 k0, P.Tk, D);
-  const float* qb = P.q + b * P.q_sb + head_off<FLAT>(P.q_sh, h, D);
-  const float* dob = P.dout + b * P.do_sb + head_off<FLAT>(P.do_sh, h, D);
+  const float* qb = P.q + b * P.q_sb + head_off<false>(P.q_sh, h, D);
+  const float* dob = P.dout + b * P.do_sb + head_off<false>(P.do_sh, h, D);
 
   float dk[4][ND], dv[4][ND], db[4];
 #pragma unroll
@@ -526,7 +536,7 @@ flash_bwd_dkv_kernel(const FlashParams P) {
         const int ql = tx + 16 * j, qi = q0 + ql;
         float p = 0.f;
         if (kj < P.Tk && qi < P.Tq)
-          p = expf(masked_score<FLAT>(P, s[i][j], b, h, qi, kj) - sL[ql]);
+          p = expf(masked_score<false>(P, s[i][j], b, h, qi, kj) - sL[ql]);
         float pd = p, dpv = dp[i][j];
         if (P.dropout) {
           const bool keep = keep_pair(P, kj, qi, bh);
@@ -570,9 +580,7 @@ flash_bwd_dkv_kernel(const FlashParams P) {
     const float dbias = row_sum(db[i]);
     const int kj = k0 + ty + 16 * i;
     if (kj >= P.Tk) continue;
-    const long long row =
-        FLAT ? ((long long)bh * P.Tk + kj) * D
-             : ((long long)b * P.Tk + kj) * H + (long long)h * D;
+    const long long row = ((long long)b * P.Tk + kj) * H + (long long)h * D;
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -582,6 +590,484 @@ flash_bwd_dkv_kernel(const FlashParams P) {
       }
     }
     if (tx == 0) P.dbias[(long long)bh * P.Tk + kj] = dbias;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The flat backward pair on the tensor cores: flash_bwd_dq_flat and
+// flash_bwd_dkv_flat.
+//
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_ops.py
+// `_bwd_dq_kernel` (dq) and `_bwd_dkv_kernel` (dk, dv, dbias), both
+// launched by `_flash_bwd`.  The function is the backward in the header,
+// on [B, H, T, D].
+//
+// Bound: operations.  The dq kernel's three products (S = Q K^T,
+// dP = dO V^T, dQ += dS K) and the dk/dv kernel's four (S^T = K Q^T,
+// dP^T = V dO^T, dV += P~^T dO, dK += dS^T Q) run as TF32
+// mma.sync.m16n8k8 with the 3xTF32 split, three TF32 products per float32
+// one on tensor cores rated 495 TFLOP/s: 3 * flops / 495e12 is the least
+// time, about 2.5x under the float32 FMA bound.  What the design does:
+// - 3xTF32: big = tf32(x), small = tf32(x - big), tf32 being
+//   cvt.rna.tf32.f32 done as two integer operations (tf32_rna);
+//   c += big.small, then small.big, then big.big (small.small dropped),
+//   accumulated in float32 by the MMA: about 2^-22 relative a product,
+//   float32's own rounding, where big.big alone (2^-11) would not hold the
+//   gradients' 1e-4.
+// - Each operand is split once.  The streamed tiles (K and V for dq, Q
+//   and dO for dk/dv) are the B operands all four warps read: each thread
+//   splits the elements it copied itself as soon as its copies land (so
+//   no barrier comes first), big in place, small in a plane beside.  The
+//   A operands (the CTA's own rows, and ds and p~ from the accumulators)
+//   belong to one warp and are split in registers as their fragment is
+//   read.  Planes for the CTA's own rows too would leave one CTA an SM at
+//   D 64; as it is two fit (104,704 and 104,960 bytes; one at D 128).
+// - One warp per 16 rows of the CTA's 64 (query rows for dq, key rows for
+//   dk/dv) across the whole streamed tile: S and dP land in the same
+//   accumulator layout, so p = exp(s - lse), the keep bit, ds =
+//   p (dp - delta) and the dbias sums are computed in registers, element
+//   for element.  The accumulator (C) layout is carried into the next
+//   product's A operand with no data movement: a lane holds columns 2t and
+//   2t + 1 of its rows, A wants columns t and t + 4, and a sum over k does
+//   not care which k is which, so A's column t is read as key (or query)
+//   2t and its column t + 4 as 2t + 1, and the B fragment is read from
+//   shared memory under the same permutation (rows 2t and 2t + 1).  That
+//   needs neither a shared-memory strip (a store, a barrier and a load a
+//   tile) nor quad shuffles (four a fragment).
+// - Streamed tiles of 32 rows (16 query rows for dk/dv at D 128, whose dk
+//   and dv take 128 registers) land by cp.async in a 2-stage ring: tile
+//   j + 1 is issued right after the barrier that opens tile j, so it lands
+//   while j is multiplied.  Rows are padded to D + 4 floats, which puts
+//   both fragment reads (row g, column t; and row 2t, column g) on 32
+//   distinct banks.
+// - The Philox keep bits are the other kernels' (same counter, same
+//   seed), drawn element for element beside ds.  Dropout is a template
+//   flag, so the path without it carries none of the Philox code and
+//   its registers.
+// - Grid (B*H, tiles), the tile slowest and the heaviest causal tiles
+//   first (the last query tiles for dq, the first key tiles for dk/dv), so
+//   the triangle's long tiles do not trail the launch.  The causal tile
+//   skips are the exact ones above (key_end, q_begin).  Each output element
+//   is written by one CTA: no atomics, the same bits on every launch.
+constexpr int kTcThreads = 128;  // 4 warps x 16 rows = kTile rows
+constexpr int kTcStream = 32;    // rows of a streamed tile
+
+// query rows of the dk/dv kernel's streamed tile: 16 at D 128, where dk
+// and dv alone hold 128 accumulators a thread
+__host__ __device__ constexpr int tc_dkv_rows(int dm) {
+  return dm > 64 ? 16 : kTcStream;
+}
+
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, 10 mantissa
+// bits kept), bit for bit on finite values: half a unit of the last kept
+// place added to the magnitude bits, the 13 dropped bits cleared.  Two
+// integer operations, where the PTX instruction compiles to a longer
+// sequence with range checks and selects
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// an m16n8k8 operand fragment as TF32 big and small parts
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ Frag<4> frag_a(float a0, float a1, float a2,
+                                          float a3) {
+  Frag<4> f;
+  split_tf32(a0, f.big[0], f.small[0]);
+  split_tf32(a1, f.big[1], f.small[1]);
+  split_tf32(a2, f.big[2], f.small[2]);
+  split_tf32(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+// a B fragment split as its tile landed: big parts at b and b + o1 (rows
+// t and t + 4 of the fragment), small parts `small` floats on
+__device__ __forceinline__ Frag<2> frag_b_split(const float* b, int small,
+                                                int o1) {
+  Frag<2> f;
+  f.big[0] = __float_as_uint(b[0]);
+  f.big[1] = __float_as_uint(b[o1]);
+  f.small[0] = __float_as_uint(b[small]);
+  f.small[1] = __float_as_uint(b[small + o1]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at float32 accuracy: the cross terms first, then big.big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Frag<4>& a,
+                                           const Frag<2>& b) {
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.big);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// rows [r0, r0 + ROWS) x dims [0, DM) of a [T, D] head slice (row stride
+// st) into shared memory (leading dimension DM + 4) by cp.async, zeros
+// past `rows` and D; vec: 16-byte copies (D, st and g 16-byte aligned)
+template <int DM, int ROWS>
+__device__ __forceinline__ void tile_async(float* s, const float* g,
+                                           long long st, int r0, int rows,
+                                           int D, bool vec) {
+  constexpr int LD = DM + 4;
+  if (vec) {
+    constexpr int C = DM / 4;
+    for (int idx = threadIdx.x; idx < ROWS * C; idx += kTcThreads) {
+      const int r = idx / C, d = idx % C * 4, row = r0 + r;
+      const bool ok = row < rows && d < D;
+      cp_async16(s + r * LD + d, ok ? g + (long long)row * st + d : g, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * DM; idx += kTcThreads) {
+      const int r = idx / DM, d = idx % DM, row = r0 + r;
+      const bool ok = row < rows && d < D;
+      cp_async4(s + r * LD + d, ok ? g + (long long)row * st + d : g, ok);
+    }
+  }
+}
+
+// after cp.async.wait_group: split the elements of a tile that this thread
+// copied with tile_async<DM, ROWS> (so no barrier is needed first), big in
+// place, small `small` floats on
+template <int DM, int ROWS>
+__device__ __forceinline__ void split_landed(float* s, int small, bool vec) {
+  constexpr int LD = DM + 4;
+  if (vec) {
+    constexpr int C = DM / 4;
+    for (int idx = threadIdx.x; idx < ROWS * C; idx += kTcThreads) {
+      float4* x = reinterpret_cast<float4*>(s + idx / C * LD + idx % C * 4);
+      float4 big = *x, sm;
+      uint32_t b, m;
+      split_tf32(big.x, b, m); big.x = __uint_as_float(b); sm.x = __uint_as_float(m);
+      split_tf32(big.y, b, m); big.y = __uint_as_float(b); sm.y = __uint_as_float(m);
+      split_tf32(big.z, b, m); big.z = __uint_as_float(b); sm.z = __uint_as_float(m);
+      split_tf32(big.w, b, m); big.w = __uint_as_float(b); sm.w = __uint_as_float(m);
+      *x = big;
+      x[small / 4] = sm;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * DM; idx += kTcThreads) {
+      float* x = s + idx / DM * LD + idx % DM;
+      uint32_t b, m;
+      split_tf32(*x, b, m);
+      *x = __uint_as_float(b);
+      x[small] = __uint_as_float(m);
+    }
+  }
+}
+
+// g[c0 .. c0 + N) into s, zeros past n
+template <int N>
+__device__ __forceinline__ void row_async(float* s, const float* g, int c0,
+                                          int n) {
+  for (int i = threadIdx.x; i < N; i += kTcThreads) {
+    const bool ok = c0 + i < n;
+    cp_async4(s + i, ok ? g + c0 + i : g, ok);
+  }
+}
+
+// the keep bit of the tensor-core kernels: keep_pair's, bit for bit (a
+// function of its own so that tools/flash_bwd_breakdown.py can compile
+// Philox out of these two kernels alone)
+__device__ __forceinline__ bool tc_keep(const FlashParams& P, int key,
+                                        int query, int bh) {
+  return keep_pair(P, key, query, bh);
+}
+
+template <int DM, bool DROP>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_tc_kernel(const FlashParams P) {
+  constexpr int BK = kTcStream, LD = DM + 4, TILE = kTile * LD, KT = BK * LD,
+                NJ = BK / 8, ND = DM / 8;
+  extern __shared__ __align__(16) float tc_smem[];
+  float* sQ = tc_smem;
+  float* sdO = sQ + TILE;
+  float* sKV = sdO + TILE;      // 2 stages x (K, V, then their small parts)
+  float* sBias = sKV + 8 * KT;  // 2 stages x BK
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / P.nh, h = bh - b * P.nh;
+  const int tile = P.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * kTile, D = P.D, off = P.Tk - P.Tq;
+  const bool vec = P.vec;
+  const float* kb = P.k + b * P.k_sb + h * P.k_sh;
+  const float* vb = P.v + b * P.v_sb + h * P.v_sh;
+  const float* biasb =
+      P.bias ? P.bias + b * P.bias_sb + h * P.bias_sh : nullptr;
+
+  tile_async<DM, kTile>(sQ, P.q + b * P.q_sb + h * P.q_sh, P.q_st, q0, P.Tq,
+                        D, vec);
+  tile_async<DM, kTile>(sdO, P.dout + b * P.do_sb + h * P.do_sh, P.do_st, q0,
+                        P.Tq, D, vec);
+  auto issue = [&](int k0, int s) {  // stage s <- the key tile at k0
+    float* sk = sKV + s * 4 * KT;
+    tile_async<DM, BK>(sk, kb, P.k_st, k0, P.Tk, D, vec);
+    tile_async<DM, BK>(sk + KT, vb, P.v_st, k0, P.Tk, D, vec);
+    if (biasb) row_async<BK>(sBias + s * BK, biasb, k0, P.Tk);
+    cp_async_commit();
+  };
+  issue(0, 0);
+
+  // this lane's rows: g and g + 8 of the warp's 16
+  const int qlo = q0 + 16 * warp + g, qhi = qlo + 8;
+  const long long rows = (long long)bh * P.Tq;
+  const float lse_lo = qlo < P.Tq ? P.lse[rows + qlo] : 0.f;
+  const float lse_hi = qhi < P.Tq ? P.lse[rows + qhi] : 0.f;
+  const float dl_lo = qlo < P.Tq ? P.delta[rows + qlo] : 0.f;
+  const float dl_hi = qhi < P.Tq ? P.delta[rows + qhi] : 0.f;
+  const float* aQ = sQ + (16 * warp + g) * LD + t;
+  const float* aO = sdO + (16 * warp + g) * LD + t;
+
+  float acc[ND][4] = {};
+  const int k_end = key_end(P, q0);
+  for (int it = 0, k0 = 0; k0 < k_end; ++it, k0 += BK) {
+    float* sK = sKV + (it & 1) * 4 * KT;
+    const float* sV = sK + KT;
+    cp_async_wait_all();
+    split_landed<DM, BK>(sK, 2 * KT, vec);
+    split_landed<DM, BK>(sK + KT, 2 * KT, vec);
+    __syncthreads();  // tile `it` landed for all; tile it - 1's stage is free
+    if (k0 + BK < k_end) issue(k0 + BK, (it + 1) & 1);
+    const float* sB = sBias + (it & 1) * BK;
+
+    float s[NJ][4] = {}, dp[NJ][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      const int c = 8 * kk;
+      const Frag<4> qa = frag_a(aQ[c], aQ[8 * LD + c], aQ[c + 4],
+                                aQ[8 * LD + c + 4]);
+      const Frag<4> oa = frag_a(aO[c], aO[8 * LD + c], aO[c + 4],
+                                aO[8 * LD + c + 4]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* kr = sK + (8 * j + g) * LD + c + t;
+        const float* vr = sV + (8 * j + g) * LD + c + t;
+        mma_3xtf32(s[j], qa, frag_b_split(kr, 2 * KT, 4));
+        mma_3xtf32(dp[j], oa, frag_b_split(vr, 2 * KT, 4));
+      }
+    }
+
+    // element (row g + 8 (e / 2), key 8j + 2t + e % 2): ds in place of s
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = e < 2 ? qlo : qhi;
+        const int kl = 8 * j + 2 * t + (e & 1), kj = k0 + kl;
+        float p = 0.f;
+        if (kj < P.Tk) {
+          float x = s[j][e] * P.scale + (biasb ? sB[kl] : 0.f);
+          if (P.causal && kj > qi + off) x = kNegInf;
+          p = expf(x - (e < 2 ? lse_lo : lse_hi));
+        }
+        float dpv = dp[j][e];
+        if (DROP) dpv = tc_keep(P, kj, qi, bh) ? dpv * P.drop_scale : 0.f;
+        s[j][e] = p * (dpv - (e < 2 ? dl_lo : dl_hi));
+      }
+
+    // dQ += dS K, A's column t read as key 2t and t + 4 as key 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      const Frag<4> da = frag_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* kr = sK + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        mma_3xtf32(acc[n], da, frag_b_split(kr + 8 * n, 2 * KT, LD));
+    }
+  }
+
+  float* dq = P.out + b * P.out_sb + h * P.out_sh;
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = e < 2 ? qlo : qhi, d = 8 * n + 2 * t + (e & 1);
+      if (qi < P.Tq && d < D)
+        dq[(long long)qi * P.out_st + d] = acc[n][e] * P.scale;
+    }
+}
+
+template <int DM, bool DROP>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dkv_tc_kernel(const FlashParams P) {
+  constexpr int BN = tc_dkv_rows(DM), LD = DM + 4, KT = kTile * LD,
+                QT = BN * LD, NJ = BN / 8, ND = DM / 8;
+  extern __shared__ __align__(16) float tc_smem[];
+  float* sK = tc_smem;         // key rows of this CTA
+  float* sV = sK + KT;
+  float* sQdO = sV + KT;       // 2 stages x (Q, dO, then their small parts)
+  float* sLD = sQdO + 8 * QT;  // 2 stages x (lse, delta)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / P.nh, h = bh - b * P.nh;
+  const int k0 = blockIdx.y * kTile, D = P.D, off = P.Tk - P.Tq;
+  const bool vec = P.vec;
+  const float* qb = P.q + b * P.q_sb + h * P.q_sh;
+  const float* dob = P.dout + b * P.do_sb + h * P.do_sh;
+  const long long rows = (long long)bh * P.Tq;
+
+  tile_async<DM, kTile>(sK, P.k + b * P.k_sb + h * P.k_sh, P.k_st, k0, P.Tk,
+                        D, vec);
+  tile_async<DM, kTile>(sV, P.v + b * P.v_sb + h * P.v_sh, P.v_st, k0, P.Tk,
+                        D, vec);
+  auto issue = [&](int q0, int s) {  // stage s <- the query tile at q0
+    float* sq = sQdO + s * 4 * QT;
+    tile_async<DM, BN>(sq, qb, P.q_st, q0, P.Tq, D, vec);
+    tile_async<DM, BN>(sq + QT, dob, P.do_st, q0, P.Tq, D, vec);
+    row_async<BN>(sLD + s * 2 * BN, P.lse + rows, q0, P.Tq);
+    row_async<BN>(sLD + s * 2 * BN + BN, P.delta + rows, q0, P.Tq);
+    cp_async_commit();
+  };
+  // under the causal mask, query tiles wholly before the first query that
+  // sees key k0 contribute exactly 0, unless some row sees no key at all
+  // (Tq > Tk), which attends uniformly and so reaches every key
+  int q_begin = 0;
+  if (P.causal && P.Tq <= P.Tk) q_begin = max(0, k0 - off) / BN * BN;
+  issue(q_begin, 0);
+
+  // this lane's key rows: g and g + 8 of the warp's 16
+  const int klo = k0 + 16 * warp + g, khi = klo + 8;
+  const float* biasb =
+      P.bias ? P.bias + b * P.bias_sb + h * P.bias_sh : nullptr;
+  const float bias_lo = biasb && klo < P.Tk ? __ldg(biasb + klo) : 0.f;
+  const float bias_hi = biasb && khi < P.Tk ? __ldg(biasb + khi) : 0.f;
+  const float* aK = sK + (16 * warp + g) * LD + t;
+  const float* aV = sV + (16 * warp + g) * LD + t;
+
+  float dk[ND][4] = {}, dv[ND][4] = {};
+  float db_lo = 0.f, db_hi = 0.f;
+  for (int it = 0, q0 = q_begin; q0 < P.Tq; ++it, q0 += BN) {
+    float* sQ = sQdO + (it & 1) * 4 * QT;
+    const float* sdO = sQ + QT;
+    cp_async_wait_all();
+    split_landed<DM, BN>(sQ, 2 * QT, vec);
+    split_landed<DM, BN>(sQ + QT, 2 * QT, vec);
+    __syncthreads();  // tile `it` landed for all; tile it - 1's stage is free
+    if (q0 + BN < P.Tq) issue(q0 + BN, (it + 1) & 1);
+    const float* sL = sLD + (it & 1) * 2 * BN;
+    const float* sDl = sL + BN;
+
+    float s[NJ][4] = {}, dp[NJ][4] = {};  // [key][query]
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      const int c = 8 * kk;
+      const Frag<4> ka = frag_a(aK[c], aK[8 * LD + c], aK[c + 4],
+                                aK[8 * LD + c + 4]);
+      const Frag<4> va = frag_a(aV[c], aV[8 * LD + c], aV[c + 4],
+                                aV[8 * LD + c + 4]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* qr = sQ + (8 * j + g) * LD + c + t;
+        const float* gr = sdO + (8 * j + g) * LD + c + t;
+        mma_3xtf32(s[j], ka, frag_b_split(qr, 2 * QT, 4));
+        mma_3xtf32(dp[j], va, frag_b_split(gr, 2 * QT, 4));
+      }
+    }
+
+    // element (key g + 8 (e / 2), query 8j + 2t + e % 2): the dropped p in
+    // place of s, ds in place of dp
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = e < 2 ? klo : khi;
+        const int ql = 8 * j + 2 * t + (e & 1), qi = q0 + ql;
+        float p = 0.f;
+        if (kj < P.Tk && qi < P.Tq) {
+          float x = s[j][e] * P.scale + (e < 2 ? bias_lo : bias_hi);
+          if (P.causal && kj > qi + off) x = kNegInf;
+          p = expf(x - sL[ql]);
+        }
+        float pd = p, dpv = dp[j][e];
+        if (DROP) {
+          const bool kept = tc_keep(P, kj, qi, bh);
+          pd = kept ? p * P.drop_scale : 0.f;
+          dpv = kept ? dpv * P.drop_scale : 0.f;
+        }
+        const float ds = p * (dpv - sDl[ql]);
+        if (e < 2) db_lo += ds;
+        else db_hi += ds;
+        s[j][e] = pd;
+        dp[j][e] = ds;
+      }
+
+    // dV += P~^T dO and dK += dS^T Q, A's column t read as query 2t and
+    // t + 4 as query 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      const Frag<4> pa = frag_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const Frag<4> da = frag_a(dp[kk][0], dp[kk][2], dp[kk][1], dp[kk][3]);
+      const float* gr = sdO + (8 * kk + 2 * t) * LD + g;
+      const float* qr = sQ + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        mma_3xtf32(dv[n], pa, frag_b_split(gr + 8 * n, 2 * QT, LD));
+        mma_3xtf32(dk[n], da, frag_b_split(qr + 8 * n, 2 * QT, LD));
+      }
+    }
+  }
+
+  // dbias: a key row's sum, over the quad's columns
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    db_lo += __shfl_xor_sync(0xffffffffu, db_lo, o);
+    db_hi += __shfl_xor_sync(0xffffffffu, db_hi, o);
+  }
+  const long long krow = (long long)bh * P.Tk;
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kj = e < 2 ? klo : khi, d = 8 * n + 2 * t + (e & 1);
+      if (kj < P.Tk && d < D) {
+        const long long i = (krow + kj) * D + d;
+        P.dk[i] = dk[n][e] * P.scale;
+        P.dv[i] = dv[n][e];
+      }
+    }
+  if (t == 0) {
+    if (klo < P.Tk) P.dbias[krow + klo] = db_lo;
+    if (khi < P.Tk) P.dbias[krow + khi] = db_hi;
   }
 }
 
@@ -606,27 +1092,50 @@ size_t smem_bytes(Which w) {
     case kFwd:
     case kFwdQkv:
     case kFwdFlat: return (3 * tile + sq) * sizeof(float);
-    case kDq:
-    case kDqFlat: return (4 * tile + sq) * sizeof(float);
+    case kDq: return (4 * tile + sq) * sizeof(float);
     default: return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
   }
 }
 
+// the flat backward pair (tensor cores); grid (B*H, tiles)
+template <int DM>
+cudaError_t launch_tc(Which w, const FlashParams& P, cudaStream_t stream) {
+  constexpr int LD = DM + 4;
+  const bool dq = w == kDqFlat;
+  void (*kernel)(const FlashParams) =
+      dq ? (P.dropout ? flash_bwd_dq_tc_kernel<DM, true>
+                      : flash_bwd_dq_tc_kernel<DM, false>)
+         : (P.dropout ? flash_bwd_dkv_tc_kernel<DM, true>
+                      : flash_bwd_dkv_tc_kernel<DM, false>);
+  // dq: Q, dO and 2 stages of K, V (+ small parts) and the bias row;
+  // dk/dv: K, V and 2 stages of Q, dO (+ small parts), lse and delta
+  const int rows = dq ? kTcStream : tc_dkv_rows(DM);
+  const size_t bytes =
+      (2 * kTile * LD + 8 * rows * LD + (dq ? 2 : 4) * rows) * sizeof(float);
+  const int tiles = ((dq ? P.Tq : P.Tk) + kTile - 1) / kTile;
+  if (tiles > 65535 || (long long)P.B * P.nh > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(P.B * P.nh, tiles), kTcThreads, bytes, stream>>>(P);
+  return cudaGetLastError();
+}
+
 template <int DM>
 cudaError_t launch_dm(Which w, const FlashParams& P, cudaStream_t stream) {
+  if (w == kDqFlat || w == kDkvFlat) return launch_tc<DM>(w, P, stream);
   void (*kernel)(const FlashParams) =
       w == kFwd ? flash_fwd_kernel<DM, false, false>
       : w == kFwdQkv ? flash_fwd_kernel<DM, true, false>
       : w == kFwdFlat ? flash_fwd_kernel<DM, false, true>
-      : w == kDq ? flash_bwd_dq_kernel<DM, false>
-      : w == kDqFlat ? flash_bwd_dq_kernel<DM, true>
-      : w == kDkv ? flash_bwd_dkv_kernel<DM, false>
-      : flash_bwd_dkv_kernel<DM, true>;
+      : w == kDq ? flash_bwd_dq_kernel<DM>
+      : flash_bwd_dkv_kernel<DM>;
   const size_t bytes = smem_bytes<DM>(w);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const int rows = (w == kDkv || w == kDkvFlat) ? P.Tk : P.Tq;
+  const int rows = w == kDkv ? P.Tk : P.Tq;
   const dim3 grid((rows + kTile - 1) / kTile, P.nh, P.B);
   kernel<<<grid, kThreads, bytes, stream>>>(P);
   return cudaGetLastError();
@@ -663,6 +1172,19 @@ FlashParams make_params(const float* q, long long q_sb, long long q_st,
   P.seed0 = seed0;
   P.seed1 = seed1;
   return P;
+}
+
+// the flat backward pair may load q, k, v and dout as 16-byte copies:
+// D, every stride and every base a multiple of 4 floats
+bool vec_loads(const FlashParams& P) {
+  const float* base[] = {P.q, P.k, P.v, P.dout};
+  const long long strides[] = {P.q_sb, P.q_sh, P.q_st, P.k_sb, P.k_sh,
+                               P.k_st, P.v_sb, P.v_sh, P.v_st, P.do_sb,
+                               P.do_sh, P.do_st};
+  bool ok = P.D % 4 == 0;
+  for (const float* p : base) ok = ok && (uintptr_t)p % 16 == 0;
+  for (long long st : strides) ok = ok && st % 4 == 0;
+  return ok;
 }
 
 }  // namespace
@@ -792,6 +1314,7 @@ int flash_bwd_dq_flat_f32(const float* q, long long q_sb, long long q_sh,
   P.dout = dout; P.do_sb = do_sb; P.do_sh = do_sh; P.do_st = do_st;
   P.lse = lse; P.delta = delta;
   P.out = dq; P.out_sb = dq_sb; P.out_sh = dq_sh; P.out_st = dq_st;
+  P.vec = vec_loads(P);
   return launch(kDqFlat, P, stream);
 }
 
@@ -815,6 +1338,7 @@ int flash_bwd_dkv_flat_f32(const float* q, long long q_sb, long long q_sh,
   P.dout = dout; P.do_sb = do_sb; P.do_sh = do_sh; P.do_st = do_st;
   P.lse = lse; P.delta = delta;
   P.dk = dk; P.dv = dv; P.dbias = dbias;
+  P.vec = vec_loads(P);
   return launch(kDkvFlat, P, stream);
 }
 

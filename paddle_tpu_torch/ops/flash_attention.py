@@ -25,7 +25,9 @@ tensors live and nothing else:
   its lane groups), and the same three on the flat layout,
   ``flash_fwd_flat``, ``flash_bwd_dq_flat`` and ``flash_bwd_dkv_flat``
   (head strides, a bias row per (batch, head), dbias kept per (batch,
-  head) as the JAX VJP returns it).  Each wrapper adds one to
+  head) as the JAX VJP returns it; the flat backward pair runs its
+  products on the tensor cores as 3xTF32, float32's accuracy).  Each
+  wrapper adds one to
   ``_cuda.LAUNCHES[name]`` per launch and raises on anything its kernel
   cannot take (a bias that is not key-padding shaped, d_head > 128, a
   non-float32 tensor); there is no fallback.  The dropout mask comes

@@ -18,7 +18,8 @@ attention: forward atol 1e-5 (o, lse); gradients atol 1e-4 / rtol 1e-4 —
 dq, dk, dv and dbias sum up to a few hundred products of unit-scale
 values per element (dbias over heads and queries too), in float32, in
 another order than the plain version's matmuls; the flat kernels take
-the same tolerances, up to 1024 keys.  The qkv-folded forward
+the same tolerances, up to 4096 keys (the flat backward pair's 3xTF32
+products round as float32 does).  The qkv-folded forward
 takes the flash forward's tolerance, its gradients through the dq and
 dk/dv kernels the flash gradients'.  Fused matmul and FFN chain: atol
 1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
@@ -317,6 +318,12 @@ FLAT_CASES = {
     "t100": (2, 4, 100, 100, 64, False, "padding", 0.0, False),
     "d32": (2, 4, 100, 100, 32, False, "padding", 0.0, False),
     "d128": (2, 4, 100, 100, 128, False, "padding", 0.0, False),
+    "d128_causal_dropout_tq96_tk160": (2, 4, 96, 160, 128, True, "padding",
+                                       0.1, False),
+    "t4096_causal": (1, 2, 4096, 4096, 64, True, None, 0.0, False),
+    # d_head 20: the flat backward pair's 4-byte copies (16-byte ones need
+    # D and every stride a multiple of 4 floats)
+    "d20_causal_dropout": (2, 3, 70, 90, 20, True, "padding", 0.1, False),
 }
 
 
@@ -367,6 +374,48 @@ def test_flat_flash_kernels_match_plain_versions(device, case):
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g, r, msg=name, **FLASH_GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["op_step", "causal_tq_lt_tk"])
+def test_flat_flash_backward_is_deterministic(device, case):
+    """Each output element of the dq and dk/dv kernels is written by one
+    CTA (no atomics): two launches on the same inputs give the same
+    bits."""
+    q, k, v, bias, do, dlse, causal, rate, seed = _flat_case(
+        device, *FLAT_CASES[case])
+    kw = dict(causal=causal, dropout_rate=rate, seed=seed)
+    o, lse = fa.flash_kernel_forward_flat(q, k, v, bias, **kw)
+    delta = fa.flash_delta_flat(o, do, dlse)
+    runs = [(fa.flash_kernel_dq_flat(q, k, v, bias, do, lse, delta, **kw),
+             *fa.flash_kernel_dkv_flat(q, k, v, bias, do, lse, delta, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+
+
+def test_flat_flash_keep_bits_are_the_dropout_mask_kernels(device):
+    """The dq and dk/dv kernels drop exactly the pairs that
+    flash_kernel_dropout_mask draws for their seed: the plain backward
+    fed that mask matches them, fed the mask of another seed it does
+    not."""
+    q, k, v, bias, do, dlse, causal, rate, seed = _flat_case(
+        device, *FLAT_CASES["op_step"])
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    kw = dict(causal=causal, dropout_rate=rate)
+    o, lse = fa.flash_kernel_forward_flat(q, k, v, bias, seed=seed, **kw)
+    grads = fa.flash_kernel_backward_flat(q, k, v, bias, o, lse, do,
+                                          seed=seed, **kw)
+    for mask_seed, same in ((seed, True), (seed + 1, False)):
+        mask = fa.flash_kernel_dropout_mask(B, H, Tq, Tk, rate, mask_seed,
+                                            device)
+        refs = fa.flash_ref_backward_flat(q, k, v, bias, o, lse, do,
+                                          keep_mask=mask, **kw)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+            close = torch.allclose(g, r, **FLASH_GRAD_TOL)
+            assert close == same, (name, mask_seed)
 
 
 def test_flat_flash_autograd_launches_the_kernels(device):

@@ -1,0 +1,183 @@
+"""The numerics the flat flash backward kernels (#7 ``flash_bwd_dq_flat``,
+#8 ``flash_bwd_dkv_flat``, ``paddle_tpu_torch/csrc/flash_attention.cu``)
+rest on, emulated on the CPU: their seven products run as 3xTF32 on the
+card's tensor cores.
+
+Each float32 operand x is split into big = tf32(x) and small =
+tf32(x - big), where tf32 is PTX's ``cvt.rna.tf32.f32`` (round to
+nearest, ties away from zero, 10 mantissa bits kept), emulated here with
+integer bit operations; a product a.b is summed, eight products of k at
+a time as one ``mma.sync.m16n8k8`` does, as big.small + small.big +
+big.big into a float32 accumulator (small.small is dropped).  The
+backward recomputed so (S, dP, dQ; S^T, dP^T, dV, dK) must match the
+plain float32 backward ``flash_ref_backward_flat`` within chip_smoke.py's
+FLASH_GRAD_ATOL / FLASH_GRAD_RTOL (1e-4, 1e-4), the tolerance the kernels
+are held to on the card; one TF32 product alone (big.big) must miss it
+by at least ten times the 3xTF32 error, which is why the split is there.
+Cases are shaped like chip_smoke.FLAT_CASES at test size: ragged T 100,
+Tq 128 with Tk 256, causal Tq 80 with Tk 128, D 32, 64 and 128, key
+padding, a dropout mask fed to both sides.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as fa
+
+#: chip_smoke.py's FLASH_GRAD_ATOL / FLASH_GRAD_RTOL (unchanged)
+GRAD_ATOL = GRAD_RTOL = 1e-4
+#: 1xTF32 must be at least this many times further from the plain
+#: backward than 3xTF32
+SPLIT_GAIN = 10.0
+
+#: (B, H, Tq, Tk, D, causal, key padding, dropout rate)
+CASES = {
+    "t100": (2, 2, 100, 100, 64, False, True, 0.0),
+    "tq128_tk256_d32": (2, 2, 128, 256, 32, False, True, 0.0),
+    "causal_tq80_tk128": (2, 3, 80, 128, 64, True, True, 0.0),
+    "t100_d128": (1, 2, 100, 100, 128, False, True, 0.0),
+    "dropout": (2, 2, 128, 128, 64, False, True, 0.1),
+    "causal_dropout_d32": (1, 2, 96, 160, 32, True, False, 0.1),
+}
+
+
+def tf32_rna(x):
+    """PTX cvt.rna.tf32.f32 on a float32 tensor: keep 10 mantissa bits,
+    rounding to nearest with ties away from zero (add half a unit of the
+    kept last place to the magnitude bits, then clear the 13 dropped
+    bits); the result is a float32 whose low 13 bits are zero."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def split(x):
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def mma(a, b, passes=3):
+    """a [..., M, K] @ b [..., K, N] as m16n8k8 TF32 MMAs into a float32
+    accumulator, eight k at a time: 3xTF32 (big.small, small.big, then
+    big.big) or, with passes=1, big.big alone."""
+    ab, as_ = split(a.float())
+    bb, bs = split(b.float())
+    terms = ((ab, bs), (as_, bb), (ab, bb)) if passes == 3 else ((ab, bb),)
+    c = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            # each product of two TF32 values is exact in float32
+            c = c + torch.matmul(x[..., k0:k0 + 8], y[..., k0:k0 + 8, :])
+    return c
+
+
+def emulated_backward(q, k, v, bias, lse, delta, do, causal, keep, rate,
+                      passes):
+    """The dq kernel's and the dk/dv kernel's arithmetic with their
+    products through ``mma``: (dq, dk, dv, dbias)."""
+    D, Tq, Tk = q.shape[-1], q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    masked = None
+    if causal:
+        masked = (torch.arange(Tk)[None, :]
+                  > torch.arange(Tq)[:, None] + Tk - Tq)
+
+    def probs(s):  # s [B, H, Tq, Tk] -> p
+        x = s * scale + (0.0 if bias is None else bias)
+        if masked is not None:
+            x = x.masked_fill(masked, -1e30)
+        return torch.exp(x - lse[..., None])
+
+    def dropped(x):
+        return x if keep is None else torch.where(keep, x / (1 - rate), 0.0)
+
+    # dq kernel: S = Q K^T, dP = dO V^T, dQ = dS K
+    p = probs(mma(q, k.transpose(-1, -2), passes))
+    ds = p * (dropped(mma(do, v.transpose(-1, -2), passes))
+              - delta[..., None])
+    dq = mma(ds, k, passes) * scale
+    # dk/dv kernel: S^T = K Q^T, dP^T = V dO^T, dV = P~^T dO, dK = dS^T Q
+    pt = probs(mma(k, q.transpose(-1, -2), passes).transpose(-1, -2))
+    dst = pt * (dropped(mma(v, do.transpose(-1, -2), passes)
+                        .transpose(-1, -2)) - delta[..., None])
+    dv = mma(dropped(pt).transpose(-1, -2), do, passes)
+    dk = mma(dst.transpose(-1, -2), q, passes) * scale
+    return dq, dk, dv, dst.sum(dim=2)
+
+
+def _case(name):
+    B, H, Tq, Tk, D, causal, padding, rate = CASES[name]
+    rng = np.random.RandomState(sorted(CASES).index(name))
+    q = torch.from_numpy(rng.randn(B, H, Tq, D).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(B, H, Tk, D).astype(np.float32))
+            for _ in range(2))
+    do = torch.from_numpy(rng.randn(B, H, Tq, D).astype(np.float32))
+    bias = None
+    if padding:
+        b = np.zeros((B, 1, 1, Tk), np.float32)
+        b[..., Tk - Tk // 4:] = -1e4
+        bias = torch.from_numpy(b).expand(B, H, 1, Tk)
+    keep = None
+    if rate:
+        keep = torch.from_numpy(rng.rand(B, H, Tq, Tk) >= rate)
+    kw = dict(causal=causal, dropout_rate=rate, keep_mask=keep)
+    o, lse = fa.flash_ref_forward_flat(q, k, v, bias, **kw)
+    delta = fa.flash_delta_flat(o, do)
+    want = fa.flash_ref_backward_flat(q, k, v, bias, o, lse, do, **kw)
+    return (q, k, v, bias, lse, delta, do, causal, keep, rate), want
+
+
+def _errors(got, want):
+    """Per gradient: (max |got - want|, max (|got - want| - rtol |want|))."""
+    return [(float((g - w).abs().max()),
+             float(((g - w).abs() - GRAD_RTOL * w.abs()).max()))
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("value,rounded", [
+    (1.0, 1.0),
+    (1.0 + 2 ** -11, 1.0 + 2 ** -10),         # a tie rounds away from zero
+    (-(1.0 + 2 ** -11), -(1.0 + 2 ** -10)),
+    (1.0 + 2 ** -12, 1.0),                    # below the tie: down
+    (1.0 + 2 ** -11 + 2 ** -23, 1.0 + 2 ** -10),
+    (1.0 + 3 * 2 ** -11, 1.0 + 2 * 2 ** -10),  # a tie above an odd last bit
+    (2.0 - 2 ** -12, 2.0),                    # the carry reaches the exponent
+])
+def test_tf32_rounding_is_cvt_rna(value, rounded):
+    got = tf32_rna(torch.tensor([value], dtype=torch.float32))
+    assert got.item() == rounded
+    assert got.view(torch.int32).item() & 0x1FFF == 0
+
+
+def test_split_keeps_float32_accuracy():
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096)
+                         .astype(np.float32))
+    big, small = split(x)
+    rel = ((big.double() + small.double() - x.double()).abs()
+           / x.double().abs()).max().item()
+    assert rel <= 2.0 ** -21, rel
+    assert ((big.double() - x.double()).abs()
+            / x.double().abs()).max().item() > 2.0 ** -13
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_3xtf32_backward_holds_the_kernel_tolerance(name):
+    args, want = _case(name)
+    got = emulated_backward(*args, passes=3)
+    for grad, (err, excess) in zip(("dq", "dk", "dv", "dbias"),
+                                   _errors(got, want)):
+        assert excess <= GRAD_ATOL, (grad, err, excess)
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_1xtf32_is_ten_times_further_off(name):
+    args, want = _case(name)
+    three = _errors(emulated_backward(*args, passes=3), want)
+    one = _errors(emulated_backward(*args, passes=1), want)
+    worst3 = max(err for err, _ in three)
+    worst1 = max(err for err, _ in one)
+    assert worst1 >= SPLIT_GAIN * worst3, (worst1, worst3)
