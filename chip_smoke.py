@@ -837,6 +837,17 @@ def _bound(flops, nbytes):
             nbytes, flops)
 
 
+def _tc_bound(flops, nbytes):
+    """The bound of a kernel whose products run as 3xTF32 on the tensor
+    cores (three TF32 flops per flop over the TF32 peak), and its float32
+    FMA bound beside, as earlier runs reported it: (ms, bound_by, bytes,
+    flops, fma_ms)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = TF32_PASSES * flops / TF32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops, _bound(flops, nbytes)[0])
+
+
 def _keep_ok(mask, rate):
     keep = float(mask.float().mean())
     sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
@@ -1084,14 +1095,16 @@ def qkv_kernel_phase(device):
         *heads, attn_mask=mask4, dropout_p=rate), device)
     flops = 4 * B * nh * T * T * D
     nbytes = 4 * (3 * B * T * H + 3 * H + B * T + B * T * H + B * nh * T)
-    bound_ms, bound_by, nbytes, flops = _bound(flops, nbytes)
+    bound_ms, bound_by, nbytes, flops, fma_ms = _tc_bound(flops, nbytes)
     log(f"  flash_fwd_qkv timing (B={B} T={T} nh={nh} D={D} dropout={rate}): "
         f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms(sdpa forward over "
         f"bias-added q/k/v)={library_ms:.5f} bound_ms={bound_ms:.6f} "
-        f"({bound_by}: {nbytes} bytes, {flops} flops)")
+        f"({bound_by}: {nbytes} bytes, {flops} flops; 3xTF32) fma_bound_ms="
+        f"{fma_ms:.6f}")
     return {fa.QKV: dict(max_abs_err=worst, cases=cases, timing=dict(
         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by=bound_by, bytes=nbytes, flops=flops,
+        bound_by=bound_by, bytes=nbytes, flops=flops, fma_bound_ms=fma_ms,
+        bound_rate="3xTF32 on the tensor cores, 495 TFLOP/s TF32",
         library="scaled_dot_product_attention forward over q/k/v with the "
                 "bias added",
         shape=dict(B=B, T=T, nh=nh, D=D, dropout=rate)))}
@@ -1159,12 +1172,10 @@ def visible_pairs(Tq, Tk, causal):
 def flat_bounds(c):
     """Least time of each flat kernel's work at this call: 4 (forward), 6
     (dq) and 8 (dk/dv) flops per visible (query, key, dim); each input
-    read once and each output written once over HBM's rate.  The forward
-    runs float32 FMA (its flops over the float32 peak); the backward pair
-    runs its products as 3xTF32 on the tensor cores (three TF32 flops per
-    flop over the TF32 peak), and its float32 FMA bound stays beside, as
-    earlier runs reported it.  Returns {kernel: (ms, bound_by, bytes,
-    flops, fma_ms)}; fma_ms is None for the forward."""
+    read once and each output written once over HBM's rate.  All three
+    run their products as 3xTF32 on the tensor cores (``_tc_bound``), and
+    each float32 FMA bound stays beside, as earlier runs reported it.
+    Returns {kernel: (ms, bound_by, bytes, flops, fma_ms)}."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, H, Tq, D = c["q"].shape
@@ -1173,17 +1184,11 @@ def flat_bounds(c):
     q_b, kv_b, rows = 4 * B * H * Tq * D, 4 * B * H * Tk * D, 4 * B * H * Tq
     bias_b = 0 if c["bias_src"] is None else 4 * c["bias_src"].numel()
     ins = q_b + 2 * kv_b + bias_b
-    out = {fa.FWD_FLAT: (*_bound(4 * unit, ins + q_b + rows), None)}
-    for name, flops, nbytes in (
-            (fa.DQ_FLAT, 6 * unit, ins + q_b + 2 * rows + q_b),
-            (fa.DKV_FLAT, 8 * unit,
-             ins + q_b + 2 * rows + 2 * kv_b + 4 * B * H * Tk)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = TF32_PASSES * flops / TF32_FLOPS * 1e3
-        out[name] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
-                     flops, _bound(flops, nbytes)[0])
-    return out
+    return {name: _tc_bound(flops, nbytes) for name, flops, nbytes in (
+        (fa.FWD_FLAT, 4 * unit, ins + q_b + rows),
+        (fa.DQ_FLAT, 6 * unit, ins + q_b + 2 * rows + q_b),
+        (fa.DKV_FLAT, 8 * unit,
+         ins + q_b + 2 * rows + 2 * kv_b + 4 * B * H * Tk))}
 
 
 def flat_kernel_phase(device):
@@ -1282,11 +1287,8 @@ def flat_kernel_phase(device):
             case["timing"][n] = dict(
                 ms=times[n], plain_ms=plain_fwd if fwd else plain_bwd,
                 library_ms=lib_fwd if fwd else lib_bwd, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops,
-                bound_rate="float32 FMA, 67 TFLOP/s" if fwd else
-                "3xTF32 on the tensor cores, 495 TFLOP/s TF32")
-            if not fwd:
-                case["timing"][n]["fma_bound_ms"] = fma_ms
+                bound_by=b_by, bytes=nbytes, flops=flops, fma_bound_ms=fma_ms,
+                bound_rate="3xTF32 on the tensor cores, 495 TFLOP/s TF32")
         cases[name] = case
         log(f"  flat flash {name}: B={B} H={H} Tq={Tq} Tk={Tk} D={D} causal="
             f"{causal} bias={spec[6]} dropout={rate} dlse={spec[8]}"
@@ -1296,9 +1298,8 @@ def flat_kernel_phase(device):
             f" rtol {FLASH_GRAD_RTOL:g})")
         log("    " + "; ".join(
             f"{n} ms={t['ms']:.5f} bound={t['bound_ms']:.5f} ({t['bound_by']})"
-            f" x{t['ms'] / t['bound_ms']:.2f}"
-            + (f" fma_bound={t['fma_bound_ms']:.5f}" if "fma_bound_ms" in t
-               else "") for n, t in case["timing"].items())
+            f" x{t['ms'] / t['bound_ms']:.2f} fma_bound={t['fma_bound_ms']:.5f}"
+            for n, t in case["timing"].items())
             + f"; plain fwd {plain_fwd:.5f} bwd {plain_bwd:.5f}; sdpa fwd "
             f"{lib_fwd:.5f} bwd {lib_bwd:.5f}")
         if not (fwd_ok and grad_ok and finite):

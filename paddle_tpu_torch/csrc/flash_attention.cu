@@ -11,22 +11,22 @@
 //   flash_bwd_dkv_flat   <- `_bwd_dkv_kernel`         (launched by `_flash_bwd`)
 // and of paddle_tpu/ops/attention_epilogue.py:
 //   flash_fwd_qkv        <- `_qkv_fwd_kernel`         (launched by `_qkv_attn_fwd`)
-// flash_fwd_flat is flash_fwd_packed instantiated with FLAT: a head
-// starts `*_sh` elements (T*D in [B, H, T, D]) into its batch instead of
-// h*D and the key bias is one row per (batch, head) (bias_sb, bias_sh: 0
-// broadcasts).  The flat backward pair (flash_bwd_dq_flat,
-// flash_bwd_dkv_flat) are kernels of their own on the tensor cores (see
-// their note below): same function, dk and dv written in [B, H, Tk, D]
-// and dbias per (batch, head), as the JAX custom VJP returns it.  The lse
+// The packed kernels (flash_fwd_packed and the packed backward pair) share
+// the float32 FMA design below.  The flat kernels and flash_fwd_qkv run on
+// the tensor cores (see their notes further down): the flat layout puts a
+// head `*_sh` elements (T*D in [B, H, T, D]) into its batch instead of h*D,
+// its key bias is one row per (batch, head) (bias_sb, bias_sh: 0
+// broadcasts), and the flat dk and dv are written in [B, H, Tk, D] with
+// dbias per (batch, head), as the JAX custom VJP returns it.  The lse
 // cotangent of flash_attention_lse is folded into delta by the caller
 // (delta = rowsum(do*o) - dlse), so the backward kernels are unchanged by
 // it.
-// flash_fwd_qkv is flash_fwd_packed reading q, k and v at column offsets
-// 0, H and 2H of the PRE-bias [B, T, 3H] qkv projection (row stride 3H) and
-// adding the matching slice of the qkv bias [3H] as each tile is loaded, so
-// neither the biased qkv nor its slices are ever written; its dropout
-// stream and lse layout are flash_fwd_packed's, so the two backward
-// kernels differentiate it (on strided views of the re-biased qkv).
+// flash_fwd_qkv reads q, k and v at column offsets 0, H and 2H of the
+// PRE-bias [B, T, 3H] qkv projection (row stride 3H) and adds the matching
+// slice of the qkv bias [3H] as each tile lands, so neither the biased qkv
+// nor its slices are ever written; its dropout stream and lse layout are
+// flash_fwd_packed's, so the packed backward kernels differentiate it (on
+// strided views of the re-biased qkv).
 //
 // What they compute, per batch b and head h (q, k, v are [B, T, nh*D]
 // packed-head tensors, read through their batch and row strides, so the
@@ -44,42 +44,43 @@
 //                                      caller).
 // The dropout mask is never stored: bit (b, h, i, j) is Philox-4x32-10 of
 // counter (j, i, b*nh + h, 0) under the 64-bit seed, kept when it exceeds
-// rate * 2^32, so all three kernels (and the debug mask entry) regenerate
-// the same mask.
+// rate * 2^32, so every kernel (and the debug mask entry) regenerates the
+// same mask.
 //
 // What bounds them on this card: operations.  At BERT-base shapes (B=32,
 // T=128, nh=12, D=64) the forward does 4*B*nh*T*T*D flops (1.6 GFLOP)
 // over ~50 MB of q, k, v, o; backward recomputes the scores (dq: 6, dk/dv:
 // 8 flops per (i, j, d)).  The reference computes in float32.  One TF32
-// product keeps 11 bits of each operand, too few for the gradients'
-// tolerance; "3xTF32" keeps float32's accuracy on the tensor cores: each
-// operand x is split into big = tf32(x) and small = tf32(x - big), and
-// a.b is summed as big.small + small.big + big.big in float32, three TF32
-// products per float32 one (495 TFLOP/s TF32: 165 effective).  The flat
-// backward pair runs so; the other kernels still run float32 FMA outside
+// product keeps 11 bits of each operand, too few for the tolerances;
+// "3xTF32" keeps float32's accuracy on the tensor cores: each operand x is
+// split into big = tf32(x) and small = tf32(x - big), and a.b is summed as
+// big.small + small.big + big.big in float32, three TF32 products per
+// float32 one (495 TFLOP/s TF32: 165 effective).  The flat kernels and
+// flash_fwd_qkv run so; the packed kernels still run float32 FMA outside
 // the tensor cores, which 67 TFLOP/s bounds, not the 3.35 TB/s of HBM.
 // The flat kernels see the same: at the 4-D op's step (B=8, H=12, T=512,
 // D=64) the forward is 6.4 GFLOP over ~50 MB; a causal ring chunk at
 // T=4096 skips the tiles above the diagonal, about half.
 //
-// Design: the TPU kernels walked a sequential grid, carrying the online
-// softmax state (or the dq / dk, dv accumulators) in VMEM scratch from one
-// grid step to the next, and sliced 128-lane head groups out of the packed
-// layout with BlockSpec index maps.  Hopper runs blocks in parallel and in
-// no order, so each CTA owns one (64-row tile, head, batch) and loops over
-// the other sequence axis itself: the forward and dq kernels loop over key
-// tiles for a query tile, the dk/dv kernel loops over query tiles for a key
-// tile, so no reduction crosses CTAs and no atomics are needed.  Tiles of
-// 64 rows x D are staged in shared memory (rows padded by one float, so the
-// 16 threads of a half-warp that read one column of 16 rows hit 16 banks);
-// 256 threads as a 16 x 16 grid each hold a 4 x 4 block of the 64 x 64
-// score tile (rows ty + 16i, columns tx + 16j) and a 4 x D/16 block of the
-// output accumulator, all float32 FMA.  Row maxima and sums reduce across
-// the 16 threads of a row with warp shuffles.  Ragged tails (any T) are
-// masked: keys past Tk get p = 0 and rows past Tq are not written.  Causal
-// tiles entirely above the diagonal are skipped where that is exact.
-// The flat backward pair has its own design (its note below); the
-// other kernels take it up in later work.
+// Design of the packed kernels: the TPU kernels walked a sequential grid,
+// carrying the online softmax state (or the dq / dk, dv accumulators) in
+// VMEM scratch from one grid step to the next, and sliced 128-lane head
+// groups out of the packed layout with BlockSpec index maps.  Hopper runs
+// blocks in parallel and in no order, so each CTA owns one (64-row tile,
+// head, batch) and loops over the other sequence axis itself: the forward
+// and dq kernels loop over key tiles for a query tile, the dk/dv kernel
+// loops over query tiles for a key tile, so no reduction crosses CTAs and
+// no atomics are needed.  Tiles of 64 rows x D are staged in shared memory
+// (rows padded by one float, so the 16 threads of a half-warp that read
+// one column of 16 rows hit 16 banks); 256 threads as a 16 x 16 grid each
+// hold a 4 x 4 block of the 64 x 64 score tile (rows ty + 16i, columns
+// tx + 16j) and a 4 x D/16 block of the output accumulator, all float32
+// FMA.  Row maxima and sums reduce across the 16 threads of a row with
+// warp shuffles.  Ragged tails (any T) are masked: keys past Tk get p = 0
+// and rows past Tq are not written.  Causal tiles entirely above the
+// diagonal are skipped where that is exact.  The tensor-core kernels keep
+// the CTA-per-tile scheme and the same masks; their products and tiles
+// are their own (notes below).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -118,12 +119,12 @@ struct FlashParams {
   uint32_t drop_threshold;  // keep when bits > threshold
   float drop_scale;         // 1 / (1 - rate)
   uint32_t seed0, seed1;
-  // the flat layout only, last so that the packed kernels' parameters
-  // keep their offsets: the bias row of (b, h) at b*bias_sb + h*bias_sh,
-  // and the head strides
+  // the tensor-core kernels only, last so that the packed kernels'
+  // parameters keep their offsets: the bias row of (b, h) at
+  // b*bias_sb + h*bias_sh, and the head strides
   long long bias_sb, bias_sh;
   long long q_sh, k_sh, v_sh, do_sh, out_sh;
-  int vec;  // flat backward: q, k, v, dout load as 16-byte copies
+  int vec;  // tensor-core kernels: q, k, v, dout load as 16-byte copies
 };
 
 __device__ __forceinline__ uint32_t philox_bits(uint32_t c0, uint32_t c1,
@@ -169,64 +170,47 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // rows [r0, r0 + kTile) x dims [0, DM) of a strided [T, *] head slice into
-// shared memory (leading dimension DM + 1), zeros past `rows` and `D`;
-// with ADD, add[d] (the head's slice of the qkv bias) to every loaded row
-template <int DM, bool ADD = false>
+// shared memory (leading dimension DM + 1), zeros past `rows` and `D`
+template <int DM>
 __device__ __forceinline__ void load_tile(float* s, const float* g,
                                           long long st, int r0, int rows,
-                                          int D, const float* add = nullptr) {
+                                          int D) {
   for (int idx = threadIdx.x; idx < kTile * DM; idx += kThreads) {
     const int r = idx / DM, d = idx % DM, row = r0 + r;
     float x = 0.f;
-    if (row < rows && d < D) {
-      x = __ldg(g + (long long)row * st + d);
-      if (ADD) x += __ldg(add + d);
-    }
+    if (row < rows && d < D) x = __ldg(g + (long long)row * st + d);
     s[r * (DM + 1) + d] = x;
   }
 }
 
-// Offset of head h in a batch: h*D packed, h*sh flat.  The packed
-// branches here and in masked_score are written apart from the flat ones
-// on purpose: a bias row pointer shared by both layouts was hoisted out
-// of the key loop and cost the packed forward 3 registers, a spill and a
-// fifth of its time; as written, the packed kernels compile to the same
-// SASS as they do without the flat layout.
-template <bool FLAT>
-__device__ __forceinline__ long long head_off(long long sh, int h, int D) {
-  if constexpr (FLAT) return (long long)h * sh;
-  else return (long long)h * D;
+// offset of head h in a packed [B, T, nh*D] batch
+__device__ __forceinline__ long long head_off(int h, int D) {
+  return (long long)h * D;
 }
 
-// the score (i = query, j = key) after scale, bias and the causal mask
-template <bool FLAT>
+// the packed score (i = query, j = key) after scale, key bias [B, Tk] and
+// the causal mask
 __device__ __forceinline__ float masked_score(const FlashParams& P, float dot,
-                                              int b, int h, int query,
-                                              int key) {
-  float x;
-  if constexpr (FLAT)
-    x = dot * P.scale +
-        (P.bias ? __ldg(P.bias + b * P.bias_sb + h * P.bias_sh + key) : 0.f);
-  else
-    x = dot * P.scale +
-        (P.bias ? __ldg(P.bias + (long long)b * P.Tk + key) : 0.f);
+                                              int b, int query, int key) {
+  float x = dot * P.scale +
+            (P.bias ? __ldg(P.bias + (long long)b * P.Tk + key) : 0.f);
   if (P.causal && key > query + P.Tk - P.Tq) x = kNegInf;
   return x;
 }
 
-// key tiles a query tile must visit: under the causal mask, tiles right of
-// the diagonal hold only masked keys, whose p is exactly 0 when the row
-// sees key 0 (a row with no visible key attends uniformly to all keys, as
-// the reference's softmax over -1e30 does, so then nothing is skipped)
-__device__ __forceinline__ int key_end(const FlashParams& P, int q0) {
+// key tiles a query tile of `rows` rows must visit: under the causal mask,
+// tiles right of the diagonal hold only masked keys, whose p is exactly 0
+// when the row sees key 0 (a row with no visible key attends uniformly to
+// all keys, as the reference's softmax over -1e30 does, so then nothing is
+// skipped)
+__device__ __forceinline__ int key_end(const FlashParams& P, int q0,
+                                       int rows = kTile) {
   const int off = P.Tk - P.Tq;
-  if (P.causal && q0 + off >= 0) return min(P.Tk, q0 + kTile + off);
+  if (P.causal && q0 + off >= 0) return min(P.Tk, q0 + rows + off);
   return P.Tk;
 }
 
-// QKV: flash_fwd_qkv (q, k, v biased on load by P.qkv_bias); FLAT: the
-// [B, H, T, D] layout (never with QKV)
-template <int DM, bool QKV, bool FLAT>
+template <int DM>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const FlashParams P) {
   constexpr int LD = DM + 1;
@@ -240,14 +224,9 @@ flash_fwd_kernel(const FlashParams P) {
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  const int H = P.nh * D;
-  const float* qadd = QKV ? P.qkv_bias + (long long)h * D : nullptr;
-  const float* kadd = QKV ? qadd + H : nullptr;
-  const float* vadd = QKV ? qadd + 2 * H : nullptr;
-  load_tile<DM, QKV>(sQ, P.q + b * P.q_sb + head_off<FLAT>(P.q_sh, h, D),
-                     P.q_st, q0, P.Tq, D, qadd);
-  const float* kb = P.k + b * P.k_sb + head_off<FLAT>(P.k_sh, h, D);
-  const float* vb = P.v + b * P.v_sb + head_off<FLAT>(P.v_sh, h, D);
+  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off(h, D), P.q_st, q0, P.Tq, D);
+  const float* kb = P.k + b * P.k_sb + head_off(h, D);
+  const float* vb = P.v + b * P.v_sb + head_off(h, D);
 
   float m[4], l[4], acc[4][ND];
 #pragma unroll
@@ -261,8 +240,8 @@ flash_fwd_kernel(const FlashParams P) {
   const int k_end = key_end(P, q0);
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's sK / sV / sP are consumed
-    load_tile<DM, QKV>(sK, kb, P.k_st, k0, P.Tk, D, kadd);
-    load_tile<DM, QKV>(sV, vb, P.v_st, k0, P.Tk, D, vadd);
+    load_tile<DM>(sK, kb, P.k_st, k0, P.Tk, D);
+    load_tile<DM>(sV, vb, P.v_st, k0, P.Tk, D);
     __syncthreads();
 
     float s[4][4];
@@ -290,7 +269,7 @@ flash_fwd_kernel(const FlashParams P) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        s[i][j] = kj < P.Tk ? masked_score<FLAT>(P, s[i][j], b, h, qi, kj)
+        s[i][j] = kj < P.Tk ? masked_score(P, s[i][j], b, qi, kj)
                             : -CUDART_INF_F;  // past the keys: p = 0
         mx = fmaxf(mx, s[i][j]);
       }
@@ -331,8 +310,7 @@ flash_fwd_kernel(const FlashParams P) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= P.Tq) continue;
     const float inv = 1.f / l[i];
-    float* o = P.out + b * P.out_sb + qi * P.out_st
-               + head_off<FLAT>(P.out_sh, h, D);
+    float* o = P.out + b * P.out_sb + qi * P.out_st + head_off(h, D);
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -357,12 +335,11 @@ flash_bwd_dq_kernel(const FlashParams P) {
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off<false>(P.q_sh, h, D), P.q_st,
-                q0, P.Tq, D);
-  load_tile<DM>(sdO, P.dout + b * P.do_sb + head_off<false>(P.do_sh, h, D),
-                P.do_st, q0, P.Tq, D);
-  const float* kb = P.k + b * P.k_sb + head_off<false>(P.k_sh, h, D);
-  const float* vb = P.v + b * P.v_sb + head_off<false>(P.v_sh, h, D);
+  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off(h, D), P.q_st, q0, P.Tq, D);
+  load_tile<DM>(sdO, P.dout + b * P.do_sb + head_off(h, D), P.do_st, q0,
+                P.Tq, D);
+  const float* kb = P.k + b * P.k_sb + head_off(h, D);
+  const float* vb = P.v + b * P.v_sb + head_off(h, D);
 
   float lse[4], delta[4], acc[4][ND];
 #pragma unroll
@@ -416,7 +393,7 @@ flash_bwd_dq_kernel(const FlashParams P) {
         const int kj = k0 + tx + 16 * j;
         float p = 0.f, dpv = dp[i][j];
         if (kj < P.Tk)
-          p = expf(masked_score<false>(P, s[i][j], b, h, qi, kj) - lse[i]);
+          p = expf(masked_score(P, s[i][j], b, qi, kj) - lse[i]);
         if (P.dropout) dpv = keep_pair(P, kj, qi, bh) ? dpv * P.drop_scale : 0.f;
         sS[(ty + 16 * i) * kLdS + tx + 16 * j] = p * (dpv - delta[i]);
       }
@@ -441,8 +418,7 @@ flash_bwd_dq_kernel(const FlashParams P) {
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= P.Tq) continue;
-    float* dq = P.out + b * P.out_sb + qi * P.out_st
-                + head_off<false>(P.out_sh, h, D);
+    float* dq = P.out + b * P.out_sb + qi * P.out_st + head_off(h, D);
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
       const int d = tx + 16 * c;
@@ -469,12 +445,10 @@ flash_bwd_dkv_kernel(const FlashParams P) {
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = P.D, bh = b * P.nh + h;
 
-  load_tile<DM>(sK, P.k + b * P.k_sb + head_off<false>(P.k_sh, h, D), P.k_st,
-                k0, P.Tk, D);
-  load_tile<DM>(sV, P.v + b * P.v_sb + head_off<false>(P.v_sh, h, D), P.v_st,
-                k0, P.Tk, D);
-  const float* qb = P.q + b * P.q_sb + head_off<false>(P.q_sh, h, D);
-  const float* dob = P.dout + b * P.do_sb + head_off<false>(P.do_sh, h, D);
+  load_tile<DM>(sK, P.k + b * P.k_sb + head_off(h, D), P.k_st, k0, P.Tk, D);
+  load_tile<DM>(sV, P.v + b * P.v_sb + head_off(h, D), P.v_st, k0, P.Tk, D);
+  const float* qb = P.q + b * P.q_sb + head_off(h, D);
+  const float* dob = P.dout + b * P.do_sb + head_off(h, D);
 
   float dk[4][ND], dv[4][ND], db[4];
 #pragma unroll
@@ -536,7 +510,7 @@ flash_bwd_dkv_kernel(const FlashParams P) {
         const int ql = tx + 16 * j, qi = q0 + ql;
         float p = 0.f;
         if (kj < P.Tk && qi < P.Tq)
-          p = expf(masked_score<false>(P, s[i][j], b, h, qi, kj) - sL[ql]);
+          p = expf(masked_score(P, s[i][j], b, qi, kj) - sL[ql]);
         float pd = p, dpv = dp[i][j];
         if (P.dropout) {
           const bool keep = keep_pair(P, kj, qi, bh);
@@ -744,21 +718,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // rows [r0, r0 + ROWS) x dims [0, DM) of a [T, D] head slice (row stride
 // st) into shared memory (leading dimension DM + 4) by cp.async, zeros
-// past `rows` and D; vec: 16-byte copies (D, st and g 16-byte aligned)
-template <int DM, int ROWS>
+// past `rows` and D; vec: 16-byte copies (D, st and g 16-byte aligned); NT
+// threads copy
+template <int DM, int ROWS, int NT = kTcThreads>
 __device__ __forceinline__ void tile_async(float* s, const float* g,
                                            long long st, int r0, int rows,
                                            int D, bool vec) {
   constexpr int LD = DM + 4;
   if (vec) {
     constexpr int C = DM / 4;
-    for (int idx = threadIdx.x; idx < ROWS * C; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * C; idx += NT) {
       const int r = idx / C, d = idx % C * 4, row = r0 + r;
       const bool ok = row < rows && d < D;
       cp_async16(s + r * LD + d, ok ? g + (long long)row * st + d : g, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * DM; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * DM; idx += NT) {
       const int r = idx / DM, d = idx % DM, row = r0 + r;
       const bool ok = row < rows && d < D;
       cp_async4(s + r * LD + d, ok ? g + (long long)row * st + d : g, ok);
@@ -768,15 +743,21 @@ __device__ __forceinline__ void tile_async(float* s, const float* g,
 
 // after cp.async.wait_group: split the elements of a tile that this thread
 // copied with tile_async<DM, ROWS> (so no barrier is needed first), big in
-// place, small `small` floats on
-template <int DM, int ROWS>
-__device__ __forceinline__ void split_landed(float* s, int small, bool vec) {
+// place, small `small` floats on; with ADD, first add add[d] (shared
+// memory, DM floats) to every element of column d
+template <int DM, int ROWS, bool ADD = false, int NT = kTcThreads>
+__device__ __forceinline__ void split_landed(float* s, int small, bool vec,
+                                             const float* add = nullptr) {
   constexpr int LD = DM + 4;
   if (vec) {
     constexpr int C = DM / 4;
-    for (int idx = threadIdx.x; idx < ROWS * C; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * C; idx += NT) {
       float4* x = reinterpret_cast<float4*>(s + idx / C * LD + idx % C * 4);
       float4 big = *x, sm;
+      if (ADD) {
+        const float4 a = *reinterpret_cast<const float4*>(add + idx % C * 4);
+        big.x += a.x; big.y += a.y; big.z += a.z; big.w += a.w;
+      }
       uint32_t b, m;
       split_tf32(big.x, b, m); big.x = __uint_as_float(b); sm.x = __uint_as_float(m);
       split_tf32(big.y, b, m); big.y = __uint_as_float(b); sm.y = __uint_as_float(m);
@@ -786,10 +767,10 @@ __device__ __forceinline__ void split_landed(float* s, int small, bool vec) {
       x[small / 4] = sm;
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * DM; idx += kTcThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * DM; idx += NT) {
       float* x = s + idx / DM * LD + idx % DM;
       uint32_t b, m;
-      split_tf32(*x, b, m);
+      split_tf32(ADD ? *x + add[idx % DM] : *x, b, m);
       *x = __uint_as_float(b);
       x[small] = __uint_as_float(m);
     }
@@ -797,10 +778,10 @@ __device__ __forceinline__ void split_landed(float* s, int small, bool vec) {
 }
 
 // g[c0 .. c0 + N) into s, zeros past n
-template <int N>
+template <int N, int NT = kTcThreads>
 __device__ __forceinline__ void row_async(float* s, const float* g, int c0,
                                           int n) {
-  for (int i = threadIdx.x; i < N; i += kTcThreads) {
+  for (int i = threadIdx.x; i < N; i += NT) {
     const bool ok = c0 + i < n;
     cp_async4(s + i, ok ? g + c0 + i : g, ok);
   }
@@ -1071,6 +1052,283 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The flat and qkv-folded forwards on the tensor cores: flash_fwd_flat and
+// flash_fwd_qkv.
+//
+// Replace the Pallas TPU kernels `_fwd_kernel` (paddle_tpu/ops/
+// pallas_ops.py, launched by `_flash_fwd`) and `_qkv_fwd_kernel`
+// (paddle_tpu/ops/attention_epilogue.py, launched by `_qkv_attn_fwd`).  The
+// function is the forward in the header: o and lse, the flat layout's
+// strided heads and per-(batch, head) bias rows, or the packed qkv
+// projection biased as it lands (its head stride D, its bias [B, Tk]).
+//
+// Bound: operations.  S = Q K^T and O += P~ V run as TF32
+// mma.sync.m16n8k8 with the 3xTF32 split of the backward pair above:
+// 4 flops per visible (query, key, dim), three TF32 products per float32
+// one, 495 TFLOP/s.  What the design does:
+// - One warp per 16 query rows, across the whole streamed key tile: S
+//   lands in the accumulator layout, where the scale, the key bias, the
+//   masks, the online maximum (two quad shuffles a row), expf, the row
+//   sums and the keep bit are worked element for element.  P~ then becomes
+//   the A operand of P~ V with no data movement, by the backward pair's
+//   column permutation (V's B fragment read from rows 2t and 2t + 1): no
+//   probability tile in shared memory and no third barrier a tile.
+// - Q is the A operand of every key tile, so it is split once.  The flat
+//   forward at D <= 64 keeps its big and small fragments in registers (64
+//   a thread at D 64), read from a Q tile that lands in the second stage
+//   of the K/V ring before that stage is first used: 4 warps and 69,888
+//   bytes of shared memory.  With dropout it runs three CTAs an SM (168
+//   registers, a small spill), whose warps hide the Philox work; without,
+//   two (no spill), which measured faster than three with the spill that
+//   ptxas makes there.  Where
+//   registers do not hold them beside the output (D 128) or beside
+//   flash_fwd_qkv's bias work (it spilled there), Q is split into big and
+//   small planes in shared memory, with the q slice of the qkv bias added
+//   first.  flash_fwd_qkv's CTA is 8 warps (128 query rows) at D <= 64, so
+//   the T 128 of a training step streams its K and V once a head, not
+//   twice (one CTA an SM, 140,288 bytes); at D 128, 4 warps and one CTA.
+// - K and V stream in 32-key tiles through a 2-stage cp.async ring: tile
+//   j + 1 is issued right after the barrier that opens tile j, and each
+//   thread splits the elements it copied as they land (flash_fwd_qkv adds
+//   the k or v bias slice first, from a copy of the head's slices in
+//   shared memory).  The key-bias row of a tile lands beside it.  Rows are
+//   padded to D + 4 floats: both fragment reads hit 32 banks.  A third
+//   stage (two CTAs an SM) was slower.
+// - Each key tile's P~ V is summed from zero on the tensor cores, then
+//   added to the running output as o = o * alpha + tile in IEEE float32
+//   FFMA, so the tensor cores' own accumulation never spans more than one
+//   tile of 32 keys, however long the row.  The loop runs over the output
+//   columns outside and the tile's keys inside, so a tile sum takes four
+//   registers and P~'s fragments (32) stay live across it.
+// - Dropout is a template flag: the path without it (the ring, the parity
+//   gates) carries none of the Philox code.  The keep bits are every other
+//   kernel's (same counter, same seed).
+// - Grid (B*H, query tiles), causal tiles heaviest first; key tiles past
+//   key_end are skipped exactly.
+constexpr int kTcKeys = 32;  // keys of a streamed K/V tile
+
+// The forward's shape at D (see the note above): Q split into registers,
+// else into shared-memory planes; warps of a CTA, 16 query rows each; CTAs
+// an SM (the launch bound: three leave 168 registers a thread)
+__host__ __device__ constexpr bool tc_fwd_qreg(int dm, bool qkv) {
+  return dm <= 64 && !qkv;
+}
+
+__host__ __device__ constexpr int tc_fwd_warps(int dm, bool qkv) {
+  return qkv && dm <= 64 ? 8 : 4;
+}
+
+__host__ __device__ constexpr int tc_fwd_ctas(int dm, bool qkv, bool drop) {
+  return tc_fwd_qreg(dm, qkv) ? (drop ? 3 : 2) : 1;
+}
+
+// shared memory of the forward: 2 stages of K, V (+ small parts) and the
+// bias row; QKV: the head's q, k, v bias slices; Q's planes
+__host__ __device__ constexpr int tc_fwd_smem_floats(int dm, bool qkv) {
+  return 2 * (4 * kTcKeys * (dm + 4) + kTcKeys) + (qkv ? 3 * dm : 0) +
+         (tc_fwd_qreg(dm, qkv) ? 0 : 2 * 16 * tc_fwd_warps(dm, qkv) * (dm + 4));
+}
+
+// an A fragment whose big and small parts sit in planes `small` floats
+// apart: rows g and g + 8 (8 * LD on), columns t and t + 4
+template <int LD>
+__device__ __forceinline__ Frag<4> frag_a_split(const float* a, int small) {
+  Frag<4> f;
+  f.big[0] = __float_as_uint(a[0]);
+  f.big[1] = __float_as_uint(a[8 * LD]);
+  f.big[2] = __float_as_uint(a[4]);
+  f.big[3] = __float_as_uint(a[8 * LD + 4]);
+  f.small[0] = __float_as_uint(a[small]);
+  f.small[1] = __float_as_uint(a[small + 8 * LD]);
+  f.small[2] = __float_as_uint(a[small + 4]);
+  f.small[3] = __float_as_uint(a[small + 8 * LD + 4]);
+  return f;
+}
+
+// QKV: flash_fwd_qkv (q, k, v biased as they land by P.qkv_bias)
+template <int DM, bool QKV, bool DROP>
+__global__ void __launch_bounds__(32 * tc_fwd_warps(DM, QKV),
+                                  tc_fwd_ctas(DM, QKV, DROP))
+flash_fwd_tc_kernel(const FlashParams P) {
+  constexpr int NT = 32 * tc_fwd_warps(DM, QKV), ROWS = NT / 2,  // 16 a warp
+                BK = kTcKeys, LD = DM + 4, KT = BK * LD, QT = ROWS * LD,
+                NJ = BK / 8, ND = DM / 8;
+  constexpr bool QREG = tc_fwd_qreg(DM, QKV);
+  static_assert(!QREG || (ROWS <= 4 * BK && !QKV),
+                "Q lands in one stage of the ring, unbiased");
+  extern __shared__ __align__(16) float tc_smem[];
+  float* sKV = tc_smem;         // 2 stages x (K, V, then their small parts)
+  float* sBias = sKV + 8 * KT;  // 2 stages x BK
+  float* sAdd = sBias + 2 * BK;  // QKV: the q, k and v bias slices, DM each
+  // the Q tile: in stage 1 of the ring (QREG), else big and small planes
+  float* sQ = QREG ? sKV + 4 * KT : sAdd + (QKV ? 3 * DM : 0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / P.nh, h = bh - b * P.nh;
+  const int tile = P.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * ROWS, D = P.D, off = P.Tk - P.Tq;
+  const bool vec = P.vec;
+  const float* kb = P.k + b * P.k_sb + h * P.k_sh;
+  const float* vb = P.v + b * P.v_sb + h * P.v_sh;
+  const float* biasb =
+      P.bias ? P.bias + b * P.bias_sb + h * P.bias_sh : nullptr;
+
+  tile_async<DM, ROWS, NT>(sQ, P.q + b * P.q_sb + h * P.q_sh, P.q_st, q0,
+                           P.Tq, D, vec);
+  auto issue = [&](int k0, int s) {  // stage s <- the key tile at k0
+    float* sk = sKV + s * 4 * KT;
+    tile_async<DM, BK, NT>(sk, kb, P.k_st, k0, P.Tk, D, vec);
+    tile_async<DM, BK, NT>(sk + KT, vb, P.v_st, k0, P.Tk, D, vec);
+    if (biasb) row_async<BK, NT>(sBias + s * BK, biasb, k0, P.Tk);
+    cp_async_commit();
+  };
+  issue(0, 0);
+  if constexpr (QKV) {
+    // this head's slices of the qkv bias [3H] (zeros past D)
+    const long long H = (long long)P.nh * D;
+    for (int i = threadIdx.x; i < 3 * DM; i += NT) {
+      const int part = i / DM, d = i - part * DM;
+      sAdd[i] = d < D ? __ldg(P.qkv_bias + part * H + (long long)h * D + d)
+                      : 0.f;
+    }
+  }
+
+  // this lane's rows: g and g + 8 of the warp's 16
+  const int qlo = q0 + 16 * warp + g, qhi = qlo + 8;
+  const float* aQ = sQ + (16 * warp + g) * LD + t;
+  Frag<4> qf[QREG ? ND : 1];
+  cp_async_wait_all();
+  if constexpr (QREG) {
+    __syncthreads();  // the Q tile landed for all
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      const int c = 8 * kk;
+      qf[kk] = frag_a(aQ[c], aQ[8 * LD + c], aQ[c + 4], aQ[8 * LD + c + 4]);
+    }
+  } else {
+    if constexpr (QKV) __syncthreads();  // the bias slices landed for all
+    // Q's planes, published by the first tile's barrier
+    split_landed<DM, ROWS, QKV, NT>(sQ, QT, vec, sAdd);
+  }
+
+  float o[ND][4] = {};
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  const int k_end = key_end(P, q0, ROWS);
+  for (int it = 0, k0 = 0; k0 < k_end; ++it, k0 += BK) {
+    float* sK = sKV + (it & 1) * 4 * KT;
+    const float* sV = sK + KT;
+    cp_async_wait_all();
+    split_landed<DM, BK, QKV, NT>(sK, 2 * KT, vec, sAdd + DM);
+    split_landed<DM, BK, QKV, NT>(sK + KT, 2 * KT, vec, sAdd + 2 * DM);
+    __syncthreads();  // tile `it` landed for all; tile it - 1's stage is free
+    if (k0 + BK < k_end) issue(k0 + BK, (it + 1) & 1);
+    const float* sB = sBias + (it & 1) * BK;
+
+    // S = Q K^T
+    float s[NJ][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      const int c = 8 * kk;
+      Frag<4> qa;
+      if constexpr (QREG) qa = qf[kk];
+      else qa = frag_a_split<LD>(aQ + c, QT);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_3xtf32(s[j], qa,
+                   frag_b_split(sK + (8 * j + g) * LD + c + t, 2 * KT, 4));
+    }
+
+    // element (row g + 8 (e / 2), key 8j + 2t + e % 2): the masked score,
+    // then the row's new maximum
+    float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = e < 2 ? qlo : qhi;
+        const int kl = 8 * j + 2 * t + (e & 1), kj = k0 + kl;
+        float x = -CUDART_INF_F;  // past the keys: p = 0
+        if (kj < P.Tk) {
+          x = s[j][e] * P.scale + (biasb ? sB[kl] : 0.f);
+          if (P.causal && kj > qi + off) x = kNegInf;
+        }
+        s[j][e] = x;
+        if (e < 2) mx_lo = fmaxf(mx_lo, x);
+        else mx_hi = fmaxf(mx_hi, x);
+      }
+#pragma unroll
+    for (int o1 = 1; o1 < 4; o1 <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o1));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+
+    // p, the row sums (every key, dropped or not), then the dropped p~
+    float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[j][e] - (e < 2 ? mn_lo : mn_hi));
+        if (e < 2) rs_lo += p;
+        else rs_hi += p;
+        if (DROP) {
+          const int kj = k0 + 8 * j + 2 * t + (e & 1);
+          p = tc_keep(P, kj, e < 2 ? qlo : qhi, bh) ? p * P.drop_scale : 0.f;
+        }
+        s[j][e] = p;
+      }
+    l_lo = l_lo * al_lo + rs_lo;
+    l_hi = l_hi * al_hi + rs_hi;
+
+    // O = O * alpha + P~ V, the tile's sum from zero; A's column t read as
+    // key 2t and t + 4 as key 2t + 1
+    Frag<4> pa[NJ];
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk)
+      pa[kk] = frag_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      float pv[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk)
+        mma_3xtf32(pv, pa[kk],
+                   frag_b_split(sV + (8 * kk + 2 * t) * LD + 8 * n + g,
+                                2 * KT, LD));
+      o[n][0] = fmaf(o[n][0], al_lo, pv[0]);
+      o[n][1] = fmaf(o[n][1], al_lo, pv[1]);
+      o[n][2] = fmaf(o[n][2], al_hi, pv[2]);
+      o[n][3] = fmaf(o[n][3], al_hi, pv[3]);
+    }
+  }
+
+  // a row's sum over the quad's columns
+#pragma unroll
+  for (int o1 = 1; o1 < 4; o1 <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o1);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o1);
+  }
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  float* ob = P.out + b * P.out_sb + h * P.out_sh;
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = e < 2 ? qlo : qhi, d = 8 * n + 2 * t + (e & 1);
+      if (qi < P.Tq && d < D)
+        ob[(long long)qi * P.out_st + d] = o[n][e] * (e < 2 ? inv_lo : inv_hi);
+    }
+  if (t == 0) {
+    const long long rows = (long long)bh * P.Tq;
+    if (qlo < P.Tq) P.lse_out[rows + qlo] = m_lo + logf(l_lo);
+    if (qhi < P.Tq) P.lse_out[rows + qhi] = m_hi + logf(l_hi);
+  }
+}
+
 __global__ void dropout_mask_kernel(const FlashParams P, uint8_t* mask) {
   const long long n = (long long)P.B * P.nh * P.Tq * P.Tk;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -1084,17 +1342,37 @@ __global__ void dropout_mask_kernel(const FlashParams P, uint8_t* mask) {
 
 enum Which { kFwd, kDq, kDkv, kFwdQkv, kFwdFlat, kDqFlat, kDkvFlat };
 
+// the packed FMA kernels
 template <int DM>
 size_t smem_bytes(Which w) {
   const size_t tile = (size_t)kTile * (DM + 1);
   const size_t sq = (size_t)kTile * kLdS;
   switch (w) {
-    case kFwd:
-    case kFwdQkv:
-    case kFwdFlat: return (3 * tile + sq) * sizeof(float);
+    case kFwd: return (3 * tile + sq) * sizeof(float);
     case kDq: return (4 * tile + sq) * sizeof(float);
     default: return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
   }
+}
+
+// the flat and qkv-folded forwards (tensor cores); grid (B*H, query tiles)
+template <int DM>
+cudaError_t launch_tc_fwd(Which w, const FlashParams& P, cudaStream_t stream) {
+  const bool qkv = w == kFwdQkv;
+  void (*kernel)(const FlashParams) =
+      qkv ? (P.dropout ? flash_fwd_tc_kernel<DM, true, true>
+                       : flash_fwd_tc_kernel<DM, true, false>)
+          : (P.dropout ? flash_fwd_tc_kernel<DM, false, true>
+                       : flash_fwd_tc_kernel<DM, false, false>);
+  const size_t bytes = tc_fwd_smem_floats(DM, qkv) * sizeof(float);
+  const int rows = 16 * tc_fwd_warps(DM, qkv);
+  const int tiles = (P.Tq + rows - 1) / rows;
+  if (tiles > 65535 || (long long)P.B * P.nh > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(P.B * P.nh, tiles), 2 * rows, bytes, stream>>>(P);
+  return cudaGetLastError();
 }
 
 // the flat backward pair (tensor cores); grid (B*H, tiles)
@@ -1125,10 +1403,9 @@ cudaError_t launch_tc(Which w, const FlashParams& P, cudaStream_t stream) {
 template <int DM>
 cudaError_t launch_dm(Which w, const FlashParams& P, cudaStream_t stream) {
   if (w == kDqFlat || w == kDkvFlat) return launch_tc<DM>(w, P, stream);
+  if (w == kFwdFlat || w == kFwdQkv) return launch_tc_fwd<DM>(w, P, stream);
   void (*kernel)(const FlashParams) =
-      w == kFwd ? flash_fwd_kernel<DM, false, false>
-      : w == kFwdQkv ? flash_fwd_kernel<DM, true, false>
-      : w == kFwdFlat ? flash_fwd_kernel<DM, false, true>
+      w == kFwd ? flash_fwd_kernel<DM>
       : w == kDq ? flash_bwd_dq_kernel<DM>
       : flash_bwd_dkv_kernel<DM>;
   const size_t bytes = smem_bytes<DM>(w);
@@ -1174,7 +1451,7 @@ FlashParams make_params(const float* q, long long q_sb, long long q_st,
   return P;
 }
 
-// the flat backward pair may load q, k, v and dout as 16-byte copies:
+// the tensor-core kernels may load q, k, v and dout as 16-byte copies:
 // D, every stride and every base a multiple of 4 floats
 bool vec_loads(const FlashParams& P) {
   const float* base[] = {P.q, P.k, P.v, P.dout};
@@ -1266,6 +1543,12 @@ int flash_fwd_qkv_f32(const float* qkv, long long qkv_sb, long long qkv_st,
   P.qkv_bias = b_qkv;
   P.out = o; P.out_sb = o_sb; P.out_st = o_st;
   P.lse_out = lse;
+  // the packed layout in the flat kernel's terms: heads D apart, the key
+  // bias one [Tk] row per batch
+  P.q_sh = P.k_sh = P.v_sh = P.out_sh = D;
+  P.bias_sb = Tk;
+  P.bias_sh = 0;
+  P.vec = vec_loads(P);
   return launch(kFwdQkv, P, stream);
 }
 
@@ -1291,6 +1574,7 @@ int flash_fwd_flat_f32(const float* q, long long q_sb, long long q_sh,
   P.bias_sb = bias_sb; P.bias_sh = bias_sh;
   P.out = o; P.out_sb = o_sb; P.out_sh = o_sh; P.out_st = o_st;
   P.lse_out = lse;
+  P.vec = vec_loads(P);
   return launch(kFwdFlat, P, stream);
 }
 
@@ -1342,7 +1626,7 @@ int flash_bwd_dkv_flat_f32(const float* q, long long q_sb, long long q_sh,
   return launch(kDkvFlat, P, stream);
 }
 
-// Debug entry: the keep mask [B, nh, Tq, Tk] (1 = kept) the three kernels
+// Debug entry: the keep mask [B, nh, Tq, Tk] (1 = kept) the kernels
 // draw for (rate, seed), so a plain version can be handed the same mask.
 int flash_dropout_mask_u8(unsigned char* mask, int B, int nh, int Tq,
                           int Tk, float rate, unsigned int seed0,

@@ -18,11 +18,12 @@ attention: forward atol 1e-5 (o, lse); gradients atol 1e-4 / rtol 1e-4 —
 dq, dk, dv and dbias sum up to a few hundred products of unit-scale
 values per element (dbias over heads and queries too), in float32, in
 another order than the plain version's matmuls; the flat kernels take
-the same tolerances, up to 4096 keys (the flat backward pair's 3xTF32
-products round as float32 does).  The qkv-folded forward
-takes the flash forward's tolerance, its gradients through the dq and
-dk/dv kernels the flash gradients'.  Fused matmul and FFN chain: atol
-1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
+the same tolerances, up to 4096 keys (their 3xTF32 products round as
+float32 does).  The qkv-folded forward takes the flash forward's
+tolerance, its gradients through the dq and dk/dv kernels the flash
+gradients'; the tensor-core forwards (#4, #9) hold the forward's at T
+4096 and through their 4-byte copies too.  Fused matmul and FFN chain:
+atol 1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
 products in another order than cuBLAS's, then a norm that divides by a
 row's spread.
 """
@@ -485,6 +486,92 @@ def test_ring_attention_on_the_card_runs_the_flat_kernels_or_raises(device):
     assert {n: _cuda.LAUNCHES[n] - before[n] for n in names} == \
         {fa.FWD_FLAT: 1, fa.DQ_FLAT: 0, fa.DKV_FLAT: 0}
     torch.testing.assert_close(o, plain, atol=FLASH_FWD_ATOL, rtol=0)
+
+
+# -- the tensor-core forwards #4 and #9 ---------------------------------------
+
+def _qkv_inputs(device, B, T, nh, D, pad_cols=0, seed=11):
+    """A pre-bias qkv projection [B, T, 3H] (a view of a [B, T, 3H +
+    pad_cols] tensor when pad_cols, so its row stride is 3H + pad_cols),
+    its bias [3H] and a key-padding bias [B, T]."""
+    g = torch.Generator().manual_seed(seed)
+    H = nh * D
+    qkv = torch.randn(B, T, 3 * H + pad_cols, generator=g).to(device)
+    b = (torch.randn(3 * H, generator=g) * 0.1).to(device)
+    kp = torch.zeros(B, T)
+    kp[: (B + 1) // 2, T - T // 4:] = -1e4
+    return qkv[..., :3 * H], b, kp.to(device)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("kernel", ["flat", "qkv"])
+def test_tc_forwards_are_deterministic(device, kernel, rate):
+    """Each o and lse element of the tensor-core forwards is written by
+    one CTA in a fixed order: two launches give the same bits."""
+    if kernel == "flat":
+        q, k, v, bias, *_ = _flat_case(device, *FLAT_CASES["op_step"])
+        runs = [fa.flash_kernel_forward_flat(q, k, v, bias, dropout_rate=rate,
+                                             seed=5) for _ in range(2)]
+    else:
+        qkv, b, kp = _qkv_inputs(device, 8, 128, 12, 64)
+        runs = [fa.flash_kernel_forward_qkv(qkv, b, 12, kp, dropout_rate=rate,
+                                            seed=5) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, r in zip(("o", "lse"), *runs):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["row_stride", "base"])
+def test_tc_forwards_four_byte_copies_match_plain(device, offset):
+    """The 4-byte copy path of the tensor-core forwards (16-byte copies
+    need D, every stride and every base a multiple of 4 floats): a d_head
+    of 36 read through views whose row stride (or base) is not a multiple
+    of 4 floats, with dropout, matches the plain versions."""
+    B, H, T, D, rate, seed = 2, 3, 130, 36, 0.1, 21
+    g = torch.Generator().manual_seed(3)
+    wide = torch.randn(3, B, H, T, D + 1, generator=g).to(device)
+    q, k, v = (x[..., offset:offset + D] for x in wide)
+    bias = torch.zeros(B, 1, 1, T)
+    bias[..., T - T // 4:] = -1e4
+    bias = bias.to(device).expand(B, H, 1, T)
+    mask = fa.flash_kernel_dropout_mask(B, H, T, T, rate, seed, device)
+    kw = dict(causal=True, dropout_rate=rate)
+    o, lse = fa.flash_kernel_forward_flat(q, k, v, bias, seed=seed, **kw)
+    o_ref, lse_ref = fa.flash_ref_forward_flat(q, k, v, bias, keep_mask=mask,
+                                               **kw)
+
+    qkv, b, kp = _qkv_inputs(device, B, T, H, D, pad_cols=1)
+    if offset:   # the projection one float into its storage
+        store = torch.randn(B * T * 3 * H * D + 1, device=device)
+        store[1:] = qkv.reshape(-1)
+        qkv = store[1:].view(B, T, 3 * H * D)
+    keep = fa.flash_kernel_dropout_mask(B, H, T, T, rate, seed, device)
+    oq, lq = fa.flash_kernel_forward_qkv(qkv, b, H, kp, dropout_rate=rate,
+                                         seed=seed)
+    oq_ref, lq_ref = ae.qkv_ref_forward(qkv, b, H, kp, dropout_rate=rate,
+                                        keep_mask=keep)
+    torch.cuda.synchronize()
+    for got, want in ((o, o_ref), (lse, lse_ref), (oq, oq_ref),
+                      (lq, lq_ref)):
+        torch.testing.assert_close(got, want, atol=FLASH_FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 1000, 4096), (1, 2, 4096, 4096)],
+                         ids=["tq1000_tk4096", "t4096"])
+def test_tc_forward_skips_causal_tiles_exactly(device, shape):
+    """Under the end-aligned causal mask the forward skips the key tiles
+    right of a query tile's diagonal (key_end): at Tq < Tk and at T 4096,
+    B 1, o and lse match the plain version over every key."""
+    B, H, Tq, Tk = shape
+    g = torch.Generator().manual_seed(8)
+    q = torch.randn(B, H, Tq, 64, generator=g).to(device)
+    k, v = (torch.randn(B, H, Tk, 64, generator=g).to(device)
+            for _ in range(2))
+    o, lse = fa.flash_kernel_forward_flat(q, k, v, causal=True)
+    o_ref, lse_ref = fa.flash_ref_forward_flat(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=FLASH_FWD_ATOL, rtol=0)
 
 
 # -- the fusion pass's kernels -----------------------------------------------

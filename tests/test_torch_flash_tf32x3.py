@@ -1,7 +1,8 @@
-"""The numerics the flat flash backward kernels (#7 ``flash_bwd_dq_flat``,
-#8 ``flash_bwd_dkv_flat``, ``paddle_tpu_torch/csrc/flash_attention.cu``)
-rest on, emulated on the CPU: their seven products run as 3xTF32 on the
-card's tensor cores.
+"""The numerics the tensor-core flash kernels (the flat backward pair #7
+``flash_bwd_dq_flat`` and #8 ``flash_bwd_dkv_flat``, and the forwards #4
+``flash_fwd_flat`` and #9 ``flash_fwd_qkv``,
+``paddle_tpu_torch/csrc/flash_attention.cu``) rest on, emulated on the
+CPU: their products run as 3xTF32 on the card's tensor cores.
 
 Each float32 operand x is split into big = tf32(x) and small =
 tf32(x - big), where tf32 is PTX's ``cvt.rna.tf32.f32`` (round to
@@ -14,9 +15,16 @@ plain float32 backward ``flash_ref_backward_flat`` within chip_smoke.py's
 FLASH_GRAD_ATOL / FLASH_GRAD_RTOL (1e-4, 1e-4), the tolerance the kernels
 are held to on the card; one TF32 product alone (big.big) must miss it
 by at least ten times the 3xTF32 error, which is why the split is there.
+The forward recomputed so (S = Q K^T for each streamed 32-key tile, the
+online softmax, each tile's P~ V summed from zero and added to the
+rescaled output, for #9 the qkv bias added before the split) must match
+the plain forwards ``flash_ref_forward_flat`` and ``qkv_ref_forward``
+within chip_smoke.py's FLASH_FWD_ATOL (1e-5) in o and lse, and one TF32
+product must again miss it by ten times.
 Cases are shaped like chip_smoke.FLAT_CASES at test size: ragged T 100,
 Tq 128 with Tk 256, causal Tq 80 with Tk 128, D 32, 64 and 128, key
-padding, a dropout mask fed to both sides.
+padding, a dropout mask fed to both sides; the forward adds a qkv-folded
+case with the qkv bias.
 """
 import math
 
@@ -24,10 +32,15 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import attention_epilogue as ae
 from paddle_tpu_torch.ops import flash_attention as fa
 
 #: chip_smoke.py's FLASH_GRAD_ATOL / FLASH_GRAD_RTOL (unchanged)
 GRAD_ATOL = GRAD_RTOL = 1e-4
+#: chip_smoke.py's FLASH_FWD_ATOL (unchanged)
+FWD_ATOL = 1e-5
+#: keys of the forward kernel's streamed K/V tile (csrc kTcKeys)
+KEY_TILE = 32
 #: 1xTF32 must be at least this many times further from the plain
 #: backward than 3xTF32
 SPLIT_GAIN = 10.0
@@ -180,4 +193,102 @@ def test_1xtf32_is_ten_times_further_off(name):
     one = _errors(emulated_backward(*args, passes=1), want)
     worst3 = max(err for err, _ in three)
     worst1 = max(err for err, _ in one)
+    assert worst1 >= SPLIT_GAIN * worst3, (worst1, worst3)
+
+
+# -- the forward (#4, #9) -----------------------------------------------------
+
+#: the qkv-folded forward's case: (B, T, nh, D, causal, key padding,
+#: dropout rate), a qkv bias of chip_smoke.QKV_CASES' scale
+QKV_CASE = (2, 100, 3, 32, False, True, 0.1)
+
+
+def emulated_forward(q, k, v, bias, causal, keep, rate, passes,
+                     add=(None, None, None)):
+    """The forward kernel's arithmetic on [B, H, T, D]: per streamed
+    32-key tile, S through ``mma``, the online softmax (a row's running
+    maximum and sum), and the tile's P~ V through ``mma`` from zero,
+    added to the running output rescaled by exp(m_old - m_new); ``add``:
+    the q, k, v bias slices [H, D] (#9), added before the split ->
+    (o, lse)."""
+    q, k, v = (x if a is None else x + a[None, :, None, :]
+               for x, a in zip((q, k, v), add))
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B, H, Tq), -1e30)
+    row_sum = torch.zeros(B, H, Tq)
+    o = torch.zeros(B, H, Tq, D)
+    for k0 in range(0, Tk, KEY_TILE):
+        k1 = min(Tk, k0 + KEY_TILE)
+        x = mma(q, k[:, :, k0:k1].transpose(-1, -2), passes) * scale
+        if bias is not None:
+            x = x + bias[..., k0:k1]
+        if causal:
+            masked = (torch.arange(k0, k1)[None, :]
+                      > torch.arange(Tq)[:, None] + Tk - Tq)
+            x = x.masked_fill(masked, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        row_sum = row_sum * alpha + p.sum(-1)
+        if keep is not None:
+            p = torch.where(keep[..., k0:k1], p / (1 - rate), 0.0)
+        o = o * alpha[..., None] + mma(p, v[:, :, k0:k1], passes)
+        m = m_new
+    return o / row_sum[..., None], m + torch.log(row_sum)
+
+
+def _fwd_case(name):
+    """(emulated_forward's inputs, its ``add``, the plain forward's (o,
+    lse), a function taking the emulation's [B, H, T, D] o to the plain
+    one's layout)."""
+    if name == "qkv_bias":
+        B, T, nh, D, causal, padding, rate = QKV_CASE
+        H = nh * D
+        rng = np.random.RandomState(len(CASES))
+        qkv = torch.from_numpy(rng.randn(B, T, 3 * H).astype(np.float32))
+        b = torch.from_numpy((rng.randn(3 * H) * 0.1).astype(np.float32))
+        kp = None
+        if padding:
+            kp = torch.zeros(B, T)
+            kp[: B // 2, T - T // 4:] = -1e4
+        keep = (torch.from_numpy(rng.rand(B, nh, T, T) >= rate)
+                if rate else None)
+        want = ae.qkv_ref_forward(qkv, b, nh, kp, causal, dropout_rate=rate,
+                                  keep_mask=keep)
+        q, k, v = (x.reshape(B, T, nh, D).transpose(1, 2)
+                   for x in qkv.split(H, dim=-1))
+        add = tuple(a.reshape(nh, D) for a in b.split(H))
+        bias = None if kp is None else kp[:, None, None, :]
+        return (q, k, v, bias, causal, keep, rate), add, want, fa._merge
+    (q, k, v, bias, _, _, _, causal, keep, rate), _ = _case(name)
+    want = fa.flash_ref_forward_flat(q, k, v, bias, causal=causal,
+                                     dropout_rate=rate, keep_mask=keep)
+    return ((q, k, v, bias, causal, keep, rate), (None,) * 3, want,
+            lambda o: o)
+
+
+FWD_CASES = sorted(CASES) + ["qkv_bias"]
+
+
+def _fwd_errors(name, passes):
+    """(max |o - o_plain|, max |lse - lse_plain|) of the emulation."""
+    args, add, (o_ref, lse_ref), layout = _fwd_case(name)
+    o, lse = emulated_forward(*args, passes=passes, add=add)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    return (float((layout(o) - o_ref).abs().max()),
+            float((lse - lse_ref).abs().max()))
+
+
+@pytest.mark.parametrize("name", FWD_CASES)
+def test_3xtf32_forward_holds_the_kernel_tolerance(name):
+    err_o, err_lse = _fwd_errors(name, passes=3)
+    assert err_o <= FWD_ATOL and err_lse <= FWD_ATOL, (err_o, err_lse)
+
+
+@pytest.mark.parametrize("name", FWD_CASES)
+def test_1xtf32_forward_is_ten_times_further_off(name):
+    worst3 = max(_fwd_errors(name, passes=3))
+    worst1 = max(_fwd_errors(name, passes=1))
     assert worst1 >= SPLIT_GAIN * worst3, (worst1, worst3)
