@@ -570,9 +570,11 @@ def flash_bounds(c):
     """Least time of each kernel's work at this call: flops = 2 per
     multiply-add of its products over every (query, key, dim) — forward
     q.k and p.v (4), dq adds do.v and ds.k (6), dk/dv adds p.do and ds.q
-    (8) — over the float32 peak; bytes = each input read once and each
-    output written once over HBM's rate.  Returns {kernel: (ms, bound_by,
-    bytes, flops)}."""
+    (8) — over the float32 peak for the packed backward pair, over the
+    3xTF32 tensor-core rate (``_tc_bound``) for the forward, which runs
+    there; bytes = each input read once and each output written once over
+    HBM's rate.  Returns {kernel: (ms, bound_by, bytes, flops, float32 FMA
+    ms)}."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, Tq, H = c["q"].shape
@@ -588,11 +590,9 @@ def flash_bounds(c):
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
-        out[name] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
-                     flops)
+        bound = _bound(flops, nbytes)
+        out[name] = bound + (bound[0],)  # the float32 FMA bound itself
+    out[fa.FWD] = _tc_bound(*work[fa.FWD])
     return out
 
 
@@ -720,20 +720,24 @@ def flash_kernel_phase(device):
     bounds = flash_bounds(c)
     report = {}
     for name in (fa.FWD, fa.DQ, fa.DKV):
-        bound_ms, bound_by, nbytes, flops = bounds[name]
+        bound_ms, bound_by, nbytes, flops, fma_ms = bounds[name]
         fwd = name == fa.FWD
         report[name] = dict(max_abs_err=errs[name], cases=cases, timing=dict(
             ms=times[name], ms_without_dropout=no_dropout_ms[name],
             plain_ms=plain_fwd if fwd else plain_bwd,
             library_ms=lib_fwd if fwd else lib_bwd, bound_ms=bound_ms,
             bound_by=bound_by, bytes=nbytes, flops=flops,
+            fma_bound_ms=fma_ms,
+            bound_rate=("3xTF32 on the tensor cores, 495 TFLOP/s TF32" if fwd
+                        else "float32 FMA, 67 TFLOP/s"),
             shape=dict(B=B, T=Tq, nh=nh, D=D, dropout=rate)))
         log(f"  {name} timing (B={B} T={Tq} nh={nh} D={D} dropout={rate}): "
             f"ms={times[name]:.5f} (no dropout {no_dropout_ms[name]:.5f}) "
             f"plain_ms={report[name]['timing']['plain_ms']:.5f} library_ms"
             f"(sdpa {'forward' if fwd else 'backward, dq+dk+dv'})="
             f"{report[name]['timing']['library_ms']:.5f} bound_ms="
-            f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops)")
+            f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops"
+            + ("; 3xTF32" if fwd else "") + f") fma_bound_ms={fma_ms:.5f}")
     return report
 
 
@@ -762,7 +766,7 @@ def _epi_case(M, K, N, seed, bias=True, residual=False, gamma=False,
 #: fused matmul-epilogue cases: (M, K, N, options); "step" is the attention
 #: output projection of the training step (bias, dropout, residual, layer
 #: norm), "relu" the FFN's up-projection shape, "ragged" an M and N that
-#: fill no tile
+#: fill no tile (its rows wider than one chunk of 768 columns)
 GEMM_CASES = {
     "step": (TRAIN_BATCH * TRAIN_SEQ, 768, 768, dict(
         residual=True, gamma=True, beta=True, dropout_rate=0.1,
@@ -780,6 +784,12 @@ GEMM_CASES = {
         norm="layer_norm")),
     "n128": (96, 64, 128, dict(act="gelu", gamma=True, beta=True,
                                norm="layer_norm")),
+    # the widest rows the rule takes (the chunk walk, the norm from y) and
+    # a K that is a tail of one 32-deep stage
+    "n8192": (512, 768, 8192, dict(residual=True, gamma=True, beta=True,
+                                   norm="layer_norm")),
+    "k24": (1000, 24, 768, dict(residual=True, gamma=True, beta=True,
+                                dropout_rate=0.1, norm="layer_norm")),
 }
 #: FFN-chain cases: (M, K, F, N, options); "step" is one layer's FFN
 FFN_CASES = {
@@ -823,11 +833,14 @@ EPI_ATOL = EPI_RTOL = 1e-4
 
 
 def _gemm_bound(M, K, N, c, z0, dropout):
+    """#10's work at one call: 2 flops per multiply-add of x w, run as
+    3xTF32 on the tensor cores (``_tc_bound``); bytes: x, w, y, z0, the
+    mask, the residual, bias, gamma, beta, each once."""
     flops = 2 * M * K * N
     nbytes = 4 * (M * K + K * N + M * N) + (M * N if dropout else 0)
     nbytes += 4 * M * N * (bool(z0) + (c["residual"] is not None))
     nbytes += 4 * N * sum(c[k] is not None for k in ("bias", "gamma", "beta"))
-    return _bound(flops, nbytes)
+    return _tc_bound(flops, nbytes)
 
 
 def _bound(flops, nbytes):
@@ -985,16 +998,19 @@ def epilogue_kernel_phase(device):
         *args, spec=c["spec"], mask=mask), device)
     library_ms = time_ms(lambda: torch.addmm(c["bias"], c["x"], c["w"]),
                          device)
-    bound_ms, bound_by, nbytes, flops = _gemm_bound(M, K, N, c, True, True)
+    bound_ms, bound_by, nbytes, flops, fma_ms = _gemm_bound(M, K, N, c, True,
+                                                           True)
     report[fm.LAUNCH]["timing"] = dict(
         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by=bound_by, bytes=nbytes, flops=flops,
+        bound_by=bound_by, bytes=nbytes, flops=flops, fma_bound_ms=fma_ms,
+        bound_rate="3xTF32 on the tensor cores, 495 TFLOP/s TF32",
         library="torch.addmm (cuBLAS): the GEMM and bias alone",
         shape=dict(M=M, K=K, N=N, spec=str(c["spec"])))
     log(f"  gemm_epilogue timing (M={M} K={K} N={N}, bias dropout 0.1 "
         f"residual layer_norm): ms={ms:.5f} plain_ms={plain_ms:.5f} "
         f"library_ms(addmm, the GEMM alone)={library_ms:.5f} bound_ms="
         f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops; "
+        f"3xTF32) fma_bound_ms={fma_ms:.5f}; "
         f"{flops / ms / 1e9:.2f} TFLOP/s)")
 
     args, c = made["ffn", "step"]

@@ -11,9 +11,10 @@
 //   flash_bwd_dkv_flat   <- `_bwd_dkv_kernel`         (launched by `_flash_bwd`)
 // and of paddle_tpu/ops/attention_epilogue.py:
 //   flash_fwd_qkv        <- `_qkv_fwd_kernel`         (launched by `_qkv_attn_fwd`)
-// The packed kernels (flash_fwd_packed and the packed backward pair) share
-// the float32 FMA design below.  The flat kernels and flash_fwd_qkv run on
-// the tensor cores (see their notes further down): the flat layout puts a
+// The packed backward pair shares the float32 FMA design below.  The
+// forwards (flash_fwd_packed, flash_fwd_flat, flash_fwd_qkv: one device
+// function) and the flat backward pair run on the tensor cores (see their
+// notes further down): the flat layout puts a
 // head `*_sh` elements (T*D in [B, H, T, D]) into its batch instead of h*D,
 // its key bias is one row per (batch, head) (bias_sb, bias_sh: 0
 // broadcasts), and the flat dk and dv are written in [B, H, Tk, D] with
@@ -55,32 +56,33 @@
 // "3xTF32" keeps float32's accuracy on the tensor cores: each operand x is
 // split into big = tf32(x) and small = tf32(x - big), and a.b is summed as
 // big.small + small.big + big.big in float32, three TF32 products per
-// float32 one (495 TFLOP/s TF32: 165 effective).  The flat kernels and
-// flash_fwd_qkv run so; the packed kernels still run float32 FMA outside
-// the tensor cores, which 67 TFLOP/s bounds, not the 3.35 TB/s of HBM.
+// float32 one (495 TFLOP/s TF32: 165 effective).  The forwards and the
+// flat backward pair run so (at the training layer the forward's 50 MB of
+// q, k, v and o then bound it, not its operations); the packed backward
+// pair still runs float32 FMA outside the tensor cores, which 67 TFLOP/s
+// bounds, not the 3.35 TB/s of HBM.
 // The flat kernels see the same: at the 4-D op's step (B=8, H=12, T=512,
 // D=64) the forward is 6.4 GFLOP over ~50 MB; a causal ring chunk at
 // T=4096 skips the tiles above the diagonal, about half.
 //
-// Design of the packed kernels: the TPU kernels walked a sequential grid,
-// carrying the online softmax state (or the dq / dk, dv accumulators) in
-// VMEM scratch from one grid step to the next, and sliced 128-lane head
-// groups out of the packed layout with BlockSpec index maps.  Hopper runs
-// blocks in parallel and in no order, so each CTA owns one (64-row tile,
-// head, batch) and loops over the other sequence axis itself: the forward
-// and dq kernels loop over key tiles for a query tile, the dk/dv kernel
-// loops over query tiles for a key tile, so no reduction crosses CTAs and
-// no atomics are needed.  Tiles of 64 rows x D are staged in shared memory
-// (rows padded by one float, so the 16 threads of a half-warp that read
-// one column of 16 rows hit 16 banks); 256 threads as a 16 x 16 grid each
-// hold a 4 x 4 block of the 64 x 64 score tile (rows ty + 16i, columns
-// tx + 16j) and a 4 x D/16 block of the output accumulator, all float32
-// FMA.  Row maxima and sums reduce across the 16 threads of a row with
-// warp shuffles.  Ragged tails (any T) are masked: keys past Tk get p = 0
-// and rows past Tq are not written.  Causal tiles entirely above the
-// diagonal are skipped where that is exact.  The tensor-core kernels keep
-// the CTA-per-tile scheme and the same masks; their products and tiles
-// are their own (notes below).
+// Design of the packed backward kernels: the TPU kernels walked a
+// sequential grid, carrying the dq (or dk, dv) accumulators in VMEM
+// scratch from one grid step to the next, and sliced 128-lane head groups
+// out of the packed layout with BlockSpec index maps.  Hopper runs blocks
+// in parallel and in no order, so each CTA owns one (64-row tile, head,
+// batch) and loops over the other sequence axis itself: the dq kernel
+// loops over key tiles for a query tile, the dk/dv kernel over query tiles
+// for a key tile, so no reduction crosses CTAs and no atomics are needed.
+// Tiles of 64 rows x D are staged in shared memory (rows padded by one
+// float, so the 16 threads of a half-warp that read one column of 16 rows
+// hit 16 banks); 256 threads as a 16 x 16 grid each hold a 4 x 4 block of
+// the 64 x 64 score tile (rows ty + 16i, columns tx + 16j) and a 4 x D/16
+// block of the output accumulators, all float32 FMA.  Sums reduce across
+// the 16 threads of a row with warp shuffles.  Ragged tails (any T) are
+// masked: keys past Tk get p = 0 and rows past Tq are not written.  Causal
+// tiles entirely above the diagonal are skipped where that is exact.  The
+// tensor-core kernels keep the CTA-per-tile scheme and the same masks;
+// their products and tiles are their own (notes below).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -153,15 +155,8 @@ __device__ __forceinline__ bool keep_pair(const FlashParams& P, int key,
                      P.seed1) > P.drop_threshold;
 }
 
-// reductions over the 16 threads of one score row (lanes that differ in
-// their low four bits)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
+// a sum over the 16 threads of one score row (lanes that differ in their
+// low four bits)
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -208,116 +203,6 @@ __device__ __forceinline__ int key_end(const FlashParams& P, int q0,
   const int off = P.Tk - P.Tq;
   if (P.causal && q0 + off >= 0) return min(P.Tk, q0 + rows + off);
   return P.Tk;
-}
-
-template <int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const FlashParams P) {
-  constexpr int LD = DM + 1;
-  constexpr int ND = DM / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sP = sV + kTile * LD;  // [kTile][kLdS]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int D = P.D, bh = b * P.nh + h;
-
-  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off(h, D), P.q_st, q0, P.Tq, D);
-  const float* kb = P.k + b * P.k_sb + head_off(h, D);
-  const float* vb = P.v + b * P.v_sb + head_off(h, D);
-
-  float m[4], l[4], acc[4][ND];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < ND; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = key_end(P, q0);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's sK / sV / sP are consumed
-    load_tile<DM>(sK, kb, P.k_st, k0, P.Tk, D);
-    load_tile<DM>(sV, vb, P.v_st, k0, P.Tk, D);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DM; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        s[i][j] = kj < P.Tk ? masked_score(P, s[i][j], b, qi, kj)
-                            : -CUDART_INF_F;  // past the keys: p = 0
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float p = expf(s[i][j] - m_new);
-        rs += p;  // the denominator counts every key, dropped or not
-        if (P.dropout) p = keep_pair(P, kj, qi, bh) ? p * P.drop_scale : 0.f;
-        sP[(ty + 16 * i) * kLdS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < ND; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < kTile; ++n) {
-      float pv[4], vv[ND];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kLdS + n];
-#pragma unroll
-      for (int c = 0; c < ND; ++c) vv[c] = sV[n * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < ND; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= P.Tq) continue;
-    const float inv = 1.f / l[i];
-    float* o = P.out + b * P.out_sb + qi * P.out_st + head_off(h, D);
-#pragma unroll
-    for (int c = 0; c < ND; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) o[d] = acc[i][c] * inv;
-    }
-    if (tx == 0) P.lse_out[(long long)bh * P.Tq + qi] = m[i] + logf(l[i]);
-  }
 }
 
 template <int DM>
@@ -788,8 +673,8 @@ __device__ __forceinline__ void row_async(float* s, const float* g, int c0,
 }
 
 // the keep bit of the tensor-core kernels: keep_pair's, bit for bit (a
-// function of its own so that tools/flash_bwd_breakdown.py can compile
-// Philox out of these two kernels alone)
+// function of its own so that tools/flash_breakdown.py can compile
+// Philox out of the tensor-core kernels alone)
 __device__ __forceinline__ bool tc_keep(const FlashParams& P, int key,
                                         int query, int bh) {
   return keep_pair(P, key, query, bh);
@@ -1053,15 +938,17 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
 }
 
 // ---------------------------------------------------------------------------
-// The flat and qkv-folded forwards on the tensor cores: flash_fwd_flat and
-// flash_fwd_qkv.
+// The forwards on the tensor cores: flash_fwd_flat, flash_fwd_qkv and
+// flash_fwd_packed.
 //
-// Replace the Pallas TPU kernels `_fwd_kernel` (paddle_tpu/ops/
-// pallas_ops.py, launched by `_flash_fwd`) and `_qkv_fwd_kernel`
-// (paddle_tpu/ops/attention_epilogue.py, launched by `_qkv_attn_fwd`).  The
-// function is the forward in the header: o and lse, the flat layout's
-// strided heads and per-(batch, head) bias rows, or the packed qkv
-// projection biased as it lands (its head stride D, its bias [B, Tk]).
+// Replace the Pallas TPU kernels `_fwd_kernel` and `_fwd_kernel_packed`
+// (paddle_tpu/ops/pallas_ops.py, launched by `_flash_fwd` and
+// `_flash_fwd_packed`) and `_qkv_fwd_kernel` (paddle_tpu/ops/
+// attention_epilogue.py, launched by `_qkv_attn_fwd`).  The function is the
+// forward in the header: o and lse, over the flat layout's strided heads
+// and per-(batch, head) bias rows, or over the packed layout (its head
+// stride D, its bias [B, Tk]): flash_fwd_packed's q, k, v, or
+// flash_fwd_qkv's packed qkv projection, biased as it lands.
 //
 // Bound: operations.  S = Q K^T and O += P~ V run as TF32
 // mma.sync.m16n8k8 with the 3xTF32 split of the backward pair above:
@@ -1088,6 +975,9 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
 //   first.  flash_fwd_qkv's CTA is 8 warps (128 query rows) at D <= 64, so
 //   the T 128 of a training step streams its K and V once a head, not
 //   twice (one CTA an SM, 140,288 bytes); at D 128, 4 warps and one CTA.
+//   flash_fwd_packed takes that shape without the bias work (its own
+//   layout): at a training layer's T 128 it measured faster than the flat
+//   forward's 4 warps with Q in registers, in all of six turns.
 // - K and V stream in 32-key tiles through a 2-stage cp.async ring: tile
 //   j + 1 is issued right after the barrier that opens tile j, and each
 //   thread splits the elements it copied as they land (flash_fwd_qkv adds
@@ -1108,26 +998,34 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
 //   key_end are skipped exactly.
 constexpr int kTcKeys = 32;  // keys of a streamed K/V tile
 
+// the forward's layouts: flash_fwd_flat's [B, H, T, D]; flash_fwd_qkv's
+// pre-bias qkv projection, biased as it lands; flash_fwd_packed's
+// [B, T, nh D]
+enum FwdLayout { kFlatFwd, kQkvFwd, kPackedFwd };
+
 // The forward's shape at D (see the note above): Q split into registers,
 // else into shared-memory planes; warps of a CTA, 16 query rows each; CTAs
 // an SM (the launch bound: three leave 168 registers a thread)
-__host__ __device__ constexpr bool tc_fwd_qreg(int dm, bool qkv) {
-  return dm <= 64 && !qkv;
+__host__ __device__ constexpr bool tc_fwd_qreg(int dm, int layout) {
+  return dm <= 64 && layout == kFlatFwd;
 }
 
-__host__ __device__ constexpr int tc_fwd_warps(int dm, bool qkv) {
-  return qkv && dm <= 64 ? 8 : 4;
+__host__ __device__ constexpr int tc_fwd_warps(int dm, int layout) {
+  return layout != kFlatFwd && dm <= 64 ? 8 : 4;
 }
 
-__host__ __device__ constexpr int tc_fwd_ctas(int dm, bool qkv, bool drop) {
-  return tc_fwd_qreg(dm, qkv) ? (drop ? 3 : 2) : 1;
+__host__ __device__ constexpr int tc_fwd_ctas(int dm, int layout, bool drop) {
+  return tc_fwd_qreg(dm, layout) ? (drop ? 3 : 2) : 1;
 }
 
 // shared memory of the forward: 2 stages of K, V (+ small parts) and the
-// bias row; QKV: the head's q, k, v bias slices; Q's planes
-__host__ __device__ constexpr int tc_fwd_smem_floats(int dm, bool qkv) {
-  return 2 * (4 * kTcKeys * (dm + 4) + kTcKeys) + (qkv ? 3 * dm : 0) +
-         (tc_fwd_qreg(dm, qkv) ? 0 : 2 * 16 * tc_fwd_warps(dm, qkv) * (dm + 4));
+// bias row; kQkvFwd: the head's q, k, v bias slices; Q's planes
+__host__ __device__ constexpr int tc_fwd_smem_floats(int dm, int layout) {
+  return 2 * (4 * kTcKeys * (dm + 4) + kTcKeys) +
+         (layout == kQkvFwd ? 3 * dm : 0) +
+         (tc_fwd_qreg(dm, layout)
+              ? 0
+              : 2 * 16 * tc_fwd_warps(dm, layout) * (dm + 4));
 }
 
 // an A fragment whose big and small parts sit in planes `small` floats
@@ -1146,15 +1044,17 @@ __device__ __forceinline__ Frag<4> frag_a_split(const float* a, int small) {
   return f;
 }
 
-// QKV: flash_fwd_qkv (q, k, v biased as they land by P.qkv_bias)
-template <int DM, bool QKV, bool DROP>
-__global__ void __launch_bounds__(32 * tc_fwd_warps(DM, QKV),
-                                  tc_fwd_ctas(DM, QKV, DROP))
+// LAYOUT: a FwdLayout (kQkvFwd: q, k, v biased as they land by
+// P.qkv_bias)
+template <int DM, int LAYOUT, bool DROP>
+__global__ void __launch_bounds__(32 * tc_fwd_warps(DM, LAYOUT),
+                                  tc_fwd_ctas(DM, LAYOUT, DROP))
 flash_fwd_tc_kernel(const FlashParams P) {
-  constexpr int NT = 32 * tc_fwd_warps(DM, QKV), ROWS = NT / 2,  // 16 a warp
+  constexpr bool QKV = LAYOUT == kQkvFwd;
+  constexpr int NT = 32 * tc_fwd_warps(DM, LAYOUT), ROWS = NT / 2,  // 16 a warp
                 BK = kTcKeys, LD = DM + 4, KT = BK * LD, QT = ROWS * LD,
                 NJ = BK / 8, ND = DM / 8;
-  constexpr bool QREG = tc_fwd_qreg(DM, QKV);
+  constexpr bool QREG = tc_fwd_qreg(DM, LAYOUT);
   static_assert(!QREG || (ROWS <= 4 * BK && !QKV),
                 "Q lands in one stage of the ring, unbiased");
   extern __shared__ __align__(16) float tc_smem[];
@@ -1340,31 +1240,25 @@ __global__ void dropout_mask_kernel(const FlashParams P, uint8_t* mask) {
   }
 }
 
-enum Which { kFwd, kDq, kDkv, kFwdQkv, kFwdFlat, kDqFlat, kDkvFlat };
+enum Which { kDq, kDkv, kFwdPacked, kFwdQkv, kFwdFlat, kDqFlat, kDkvFlat };
 
-// the packed FMA kernels
+// the packed FMA backward kernels
 template <int DM>
 size_t smem_bytes(Which w) {
   const size_t tile = (size_t)kTile * (DM + 1);
   const size_t sq = (size_t)kTile * kLdS;
-  switch (w) {
-    case kFwd: return (3 * tile + sq) * sizeof(float);
-    case kDq: return (4 * tile + sq) * sizeof(float);
-    default: return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
-  }
+  if (w == kDq) return (4 * tile + sq) * sizeof(float);
+  return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
 }
 
-// the flat and qkv-folded forwards (tensor cores); grid (B*H, query tiles)
-template <int DM>
-cudaError_t launch_tc_fwd(Which w, const FlashParams& P, cudaStream_t stream) {
-  const bool qkv = w == kFwdQkv;
+// the forwards (tensor cores); grid (B*H, query tiles)
+template <int DM, int LAYOUT>
+cudaError_t launch_tc_fwd(const FlashParams& P, cudaStream_t stream) {
   void (*kernel)(const FlashParams) =
-      qkv ? (P.dropout ? flash_fwd_tc_kernel<DM, true, true>
-                       : flash_fwd_tc_kernel<DM, true, false>)
-          : (P.dropout ? flash_fwd_tc_kernel<DM, false, true>
-                       : flash_fwd_tc_kernel<DM, false, false>);
-  const size_t bytes = tc_fwd_smem_floats(DM, qkv) * sizeof(float);
-  const int rows = 16 * tc_fwd_warps(DM, qkv);
+      P.dropout ? flash_fwd_tc_kernel<DM, LAYOUT, true>
+                : flash_fwd_tc_kernel<DM, LAYOUT, false>;
+  const size_t bytes = tc_fwd_smem_floats(DM, LAYOUT) * sizeof(float);
+  const int rows = 16 * tc_fwd_warps(DM, LAYOUT);
   const int tiles = (P.Tq + rows - 1) / rows;
   if (tiles > 65535 || (long long)P.B * P.nh > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -1403,11 +1297,11 @@ cudaError_t launch_tc(Which w, const FlashParams& P, cudaStream_t stream) {
 template <int DM>
 cudaError_t launch_dm(Which w, const FlashParams& P, cudaStream_t stream) {
   if (w == kDqFlat || w == kDkvFlat) return launch_tc<DM>(w, P, stream);
-  if (w == kFwdFlat || w == kFwdQkv) return launch_tc_fwd<DM>(w, P, stream);
+  if (w == kFwdFlat) return launch_tc_fwd<DM, kFlatFwd>(P, stream);
+  if (w == kFwdQkv) return launch_tc_fwd<DM, kQkvFwd>(P, stream);
+  if (w == kFwdPacked) return launch_tc_fwd<DM, kPackedFwd>(P, stream);
   void (*kernel)(const FlashParams) =
-      w == kFwd ? flash_fwd_kernel<DM>
-      : w == kDq ? flash_bwd_dq_kernel<DM>
-      : flash_bwd_dkv_kernel<DM>;
+      w == kDq ? flash_bwd_dq_kernel<DM> : flash_bwd_dkv_kernel<DM>;
   const size_t bytes = smem_bytes<DM>(w);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1485,7 +1379,13 @@ int flash_fwd_packed_f32(const float* q, long long q_sb, long long q_st,
                               seed0, seed1);
   P.out = o; P.out_sb = o_sb; P.out_st = o_st;
   P.lse_out = lse;
-  return launch(kFwd, P, stream);
+  // the packed layout in the flat kernel's terms, as flash_fwd_qkv_f32's:
+  // heads D apart, the key bias one [Tk] row per batch
+  P.q_sh = P.k_sh = P.v_sh = P.out_sh = D;
+  P.bias_sb = Tk;
+  P.bias_sh = 0;
+  P.vec = vec_loads(P);
+  return launch(kFwdPacked, P, stream);
 }
 
 int flash_bwd_dq_packed_f32(const float* q, long long q_sb, long long q_st,

@@ -22,31 +22,80 @@
 //        (h - mean) * rsqrt(var + eps)) or rms norm (h * rsqrt(mean(h^2) +
 //        eps)), then * gamma + beta.
 //
-// What bounds them on this card: operations.  At BERT-base (M = 4096 rows,
-// K = 768) gemm_epilogue's attention-output call does 2*M*K*N = 4.8 GFLOP
-// over ~65 MB, and ffn_chain 2*M*(K*F + F*N) = 38.7 GFLOP over ~69 MB
-// (F = 3072, N = 768), in float32 outside the tensor cores (the reference
-// computes in float32; TF32 would not hold the parity gates), so 67
-// TFLOP/s bounds them, not the 3.35 TB/s of HBM.
+// What bounds them on this card: operations.  gemm_epilogue runs x w as
+// TF32 mma.sync.m16n8k8 on the tensor cores with the 3xTF32 split of
+// flash_attention.cu (float32's accuracy: the reference computes in float32
+// and one TF32 product would not hold the parity gates), three TF32 products
+// per float32 one: at BERT-base's attention output (M = 4096 rows, K = N =
+// 768) 3 * 4.83 GFLOP over 495 TFLOP/s of TF32 is 0.0293 ms, over the 55.8
+// MB that it must move (0.0167 ms at 3.35 TB/s).  ffn_chain still runs
+// float32 FMA outside the tensor cores: 2*M*(K*F + F*N) = 38.7 GFLOP (F =
+// 3072, N = 768) over 67 TFLOP/s, not the ~69 MB it moves.
 //
 // The TPU kernels walked a sequential grid with an f32 accumulator in VMEM
 // scratch and ran the epilogue on the last K step; the norm reduced over a
 // whole [bm, N] row block held in VMEM.
 //
-// gemm_epilogue: one CTA of 256 threads owns 32 rows.  Its threads are
-// 4 x 2 warps: a warp covers 8 rows and half of a column chunk of 256*NV
-// columns, a lane 8 rows x 4*NV columns (float4 groups 128 columns apart,
-// so a warp's shared-memory reads of a weight row are 512 contiguous
-// bytes), all float32 FMA with the accumulators in registers (NV = 3: 96 a
-// thread).  The x tile is stored transposed ([k][row]) so the 8 rows a
-// warp needs at one k are two broadcast 16-byte reads.  Weight tiles
-// stream through a double buffer filled by cp.async (zero-filled past N)
-// while the previous tile is consumed.  Without a norm, blockIdx.y picks
-// the column chunk; with one, the CTA walks every chunk of its rows, writes
-// the pre-norm rows to y, and then each warp normalises 4 whole rows (two
-// reads for the mean and the variance, one for the result, from L2/L1).
-// 4096 / 32 = 128 CTAs fill 128 of the 132 SMs in one wave.
-//
+// gemm_epilogue (gemm_tc_kernel):
+//   * A cluster of two CTAs (__cluster_dims__(2, 1, 1)) owns 64 rows; CTA r
+//     computes the columns [32 NB r, 32 NB (r + 1)) of a cluster chunk of
+//     64 NB (NB = 12 at N 768: 384 columns a CTA), so each w element
+//     crosses L2 once per 64 rows (151 MB a call at BERT-base, where 32-row
+//     CTAs that each streamed all of w moved 302 MB) and 64 clusters fill
+//     128 SMs.  Each of the 8 warps holds all 64 rows x every eighth n8
+//     tile of the CTA's columns: 4 m16 x NB / 2 n8 MMA tiles, 96
+//     accumulators a thread at NB 12.
+//   * One ring of 3 stages: lanes of warp 0 load a stage as 2-D TMA boxes,
+//     the x box [64][32] and NB w boxes [32][32] (128-byte rows, written
+//     with the 128-byte swizzle; zeros past M, K and N, so K's, M's and N's
+//     tails need no code), counted on the stage's mbarrier; one
+//     __syncthreads a stage frees the slot for the next load.
+//   * x, which all 8 warps read, is split into TF32 big and small planes
+//     once, as the stage lands (each thread its 8 floats, before the
+//     stage's barrier); w, which one warp reads, stays raw and is split as
+//     its fragments are read.  A thread's k slots t and t + 4 of an m16n8k8
+//     step read k = 2t + p and 2t + 1 - p (p the parity of t ^ t >> 1): a
+//     sum over k does not care which k is which, and with the swizzle this
+//     order puts both the x reads (rows g, g + 8) and the w reads (the k
+//     slot's row, column g) on 32 distinct banks.
+//   * The tensor cores round each accumulation toward zero.  Over the 288
+//     MMAs of one running sum at K 768 that shrank every z by up to 4e-5,
+//     always toward zero, and the sums over rows that the backward takes
+//     (dgamma, dw) added the shrinkage up past EPI_ATOL.  So the three
+//     MMAs of a k8 step sum from zero and the step is added to the
+//     accumulator in IEEE float32: z's error falls to the plain float32
+//     GEMM's (7e-6), at 4 FADDs an MMA tile a step.
+//   * The epilogue runs on the accumulators: bias, z0, the activation,
+//     dropout, the residual.  Dropout is a template flag (the path without
+//     it carries no Philox code); the keep bits are drawn during the first
+//     16 k stages, where the Philox work overlaps the tensor cores', into
+//     three words a thread.  The residual tile is prefetched into L2 when a
+//     chunk starts, and a row's residual pairs are loaded together ahead of
+//     its stores (loads behind the z0 and mask stores could not be hoisted,
+//     and each exposed its latency).  With a norm and N <= 768 (one chunk)
+//     the rows stay in registers: each warp's quads sum their rows' parts,
+//     lane 0 of a quad writes them into both CTAs' shared memory, one
+//     cluster barrier, and both CTAs add the 16 partials of a row in one
+//     order (the mean first, then the centred variance, as norm_rows).
+//     Wider rows walk the chunks, write the pre-norm rows to y, and after a
+//     cluster barrier each CTA normalises 32 of the pair's rows from y
+//     (norm_rows).  Without a norm, blockIdx.y picks the chunk.
+//   Shared memory at NB 12: 3 stages of 65,536 bytes (x's planes, the w
+//   boxes), 8,192 bytes of row sums, the mbarriers and 1,024 bytes of
+//   alignment slack: 205,848 bytes, one CTA an SM.  ptxas: 255 registers
+//   at NB 12, no spill (the step sums and FADDs took it there from 208).
+//   Tried and dropped, on one H100 at BERT-base: 2 x 4 warps of 32 x 96
+//   with both operands split as read (0.154 ms against 0.153 for this
+//   shape before the tail fixes); Philox drawn before the main loop (0.019
+//   ms not hidden); a keep-mask word per n8 tile (a 56-byte spill); one
+//   running sum (0.107 ms, but the gradient gates failed); spans of 128 k
+//   folded through y (too close to the gates at 4096 rows in a CPU model
+//   of the rounding, and each fold waits on its loads); all four x
+//   fragments held across the step's folds (76-80 bytes spilled, 0.129
+//   ms).  Left for later: wgmma (TF32 needs both shared-memory operands
+//   K-major: y^T = w^T x^T with w^T from registers), a TMA multicast of x
+//   and w in a 2 x 2 cluster (L2 traffic of w halves again).
+
 // ffn_chain: f32 FMA on the CUDA cores is fed from shared memory, and a
 // warp's shared-memory read costs its 32 lanes' worth of bandwidth even
 // when every lane reads the same word, so a thread tile of r x c outputs
@@ -90,8 +139,8 @@
 //   24,576 of them), the panel 512 x 68 floats (139,264 bytes), 1,024
 //   bytes of row sums and 2 mbarriers: 222,224 bytes, one CTA an SM.
 //   ptxas: 255 registers and no spill at NV = 3 (168 at 1, 221 at 2).
-//   Left for later: tensor cores (tf32, 3xtf32 or bf16 operands change the
-//   numerics the parity gates assume), a TMA multicast of the x tile that
+//   Left for later: the tensor cores (3xTF32 holds the gates, as
+//   gemm_epilogue shows), a TMA multicast of the x tile that
 //   both CTAs of a pair read, and splitting GEMM1 and GEMM2 between
 //   specialised warps (tried with 8 and with 12 warps: the 8-warp split
 //   spills its 192 accumulators a thread, the 12-warp one leaves one GEMM1
@@ -105,8 +154,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 32;    // gemm_epilogue: rows per CTA
-constexpr int kBK = 8;     // gemm_epilogue: K tile
+constexpr int kBM = 32;    // gemm_epilogue: rows a CTA normalises
 
 // ffn_chain
 constexpr int kRows = 64;          // rows of a cluster (both CTAs)
@@ -182,55 +230,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// 16 bytes global -> shared without registers; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The epilogue up to the norm for 4 consecutive columns of one row; the
-// result goes to y (and z0, the mask) — a function of (row, col) alone.
-__device__ __forceinline__ void epilogue4(const Epilogue& E, int row, int col,
-                                          float v[4]) {
-  const long long o = (long long)row * E.N + col;
-  if (E.bias) {
-    const float4 b = __ldg(reinterpret_cast<const float4*>(E.bias + col));
-    v[0] += b.x; v[1] += b.y; v[2] += b.z; v[3] += b.w;
-  }
-  if (E.z0)
-    *reinterpret_cast<float4*>(E.z0 + o) = make_float4(v[0], v[1], v[2], v[3]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = activation(v[e], E.act, E.approximate);
-  if (E.dropout) {
-    uchar4 m;
-    unsigned char* mb = reinterpret_cast<unsigned char*>(&m);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool keep = philox_bits((uint32_t)(col + e), (uint32_t)row, 0u,
-                                    E.seed0, E.seed1) > E.drop_threshold;
-      v[e] = keep ? v[e] * E.drop_scale : 0.f;
-      mb[e] = keep ? 1 : 0;
-    }
-    *reinterpret_cast<uchar4*>(E.mask + o) = m;
-  }
-  if (E.residual) {
-    const float4 r = __ldg(reinterpret_cast<const float4*>(E.residual + o));
-    v[0] += r.x; v[1] += r.y; v[2] += r.z; v[3] += r.w;
-  }
-  *reinterpret_cast<float4*>(E.y + o) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // The norm over whole rows [row0, row0 + kBM) of y, written by this CTA
 // before the barrier that precedes this call: warp w takes rows w, w + 8, ...
 __device__ void norm_rows(const Epilogue& E, int row0) {
@@ -270,136 +269,6 @@ __device__ void norm_rows(const Epilogue& E, int row0) {
       }
       *reinterpret_cast<float4*>(yr + c) = make_float4(o[0], o[1], o[2], o[3]);
     }
-  }
-}
-
-// acc[8][4*NV] += A[k][rows 8wr..8wr+7] * B[k][lane's columns] over KT
-// steps; A is [KT][32] (transposed rows), B is [KT][256*NV].
-template <int NV, int KT>
-__device__ __forceinline__ void mma_rows8(float (&acc)[8][4 * NV],
-                                          const float* sA, const float* sB,
-                                          int wr, int wc, int lane) {
-  constexpr int BN = 256 * NV, HW = 128 * NV;
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(sA + k * kBM + 8 * wr);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(sA + k * kBM + 8 * wr + 4);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    float b[4 * NV];
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const float4 t = *reinterpret_cast<const float4*>(
-          sB + k * BN + wc * HW + c * 128 + 4 * lane);
-      b[4 * c] = t.x; b[4 * c + 1] = t.y; b[4 * c + 2] = t.z;
-      b[4 * c + 3] = t.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4 * NV; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// the thread's accumulators through epilogue4 (rows past M, columns past N
-// are skipped; N % 4 == 0, so a float4 group is all in or all out)
-template <int NV>
-__device__ __forceinline__ void store_rows8(const Epilogue& E,
-                                            float (&acc)[8][4 * NV], int row0,
-                                            int n0, int wr, int wc, int lane) {
-  constexpr int HW = 128 * NV;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + 8 * wr + i;
-    if (row >= E.M) continue;
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const int col = n0 + wc * HW + c * 128 + 4 * lane;
-      if (col >= E.N) continue;
-      float v[4] = {acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
-                    acc[i][4 * c + 3]};
-      epilogue4(E, row, col, v);
-    }
-  }
-}
-
-// a [rows, 256*NV] tile of a row-major [*, ld] matrix into shared memory
-// by cp.async, columns at or past n_valid zero-filled
-template <int NV, int ROWS>
-__device__ __forceinline__ void load_b_tile(float* s, const float* g,
-                                            long long ld, int n0,
-                                            int n_valid) {
-  constexpr int BN = 256 * NV, CH = ROWS * BN / 4;
-  for (int idx = threadIdx.x; idx < CH; idx += kThreads) {
-    const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-    const bool ok = n0 + c < n_valid;
-    cp_async16(s + r * BN + c, ok ? g + r * ld + n0 + c : g, ok);
-  }
-}
-
-template <int NV>
-__global__ void __launch_bounds__(kThreads, 1)
-gemm_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const Epilogue E, int K) {
-  constexpr int BN = 256 * NV;
-  extern __shared__ __align__(16) float smem[];
-  float* sA = smem;                 // [2][kBK][kBM]
-  float* sB = sA + 2 * kBK * kBM;   // [2][kBK][BN]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int row0 = blockIdx.x * kBM;
-  const int nk = K / kBK;
-  // x tile loaders: threads 0..63 each move one float4 (row, 4 k's)
-  const int ar = tid >> 1, ak = (tid & 1) * 4;
-  const bool a_loader = tid < kBM * kBK / 4;
-  const bool a_row_ok = a_loader && row0 + ar < E.M;
-  const float* xa = x + (long long)(row0 + ar) * K + ak;
-
-  for (int n0 = blockIdx.y * BN; n0 < E.N; n0 += gridDim.y * BN) {
-    float acc[8][4 * NV];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4 * NV; ++j) acc[i][j] = 0.f;
-
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();  // the previous chunk's tiles are consumed
-    load_b_tile<NV, kBK>(sB, w, E.N, n0, E.N);
-    cp_async_commit();
-    if (a_row_ok) av = __ldg(reinterpret_cast<const float4*>(xa));
-    if (a_loader) {
-      sA[(ak + 0) * kBM + ar] = av.x; sA[(ak + 1) * kBM + ar] = av.y;
-      sA[(ak + 2) * kBM + ar] = av.z; sA[(ak + 3) * kBM + ar] = av.w;
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      const int buf = kt & 1;
-      const bool more = kt + 1 < nk;
-      if (more) {
-        load_b_tile<NV, kBK>(sB + (buf ^ 1) * kBK * BN,
-                             w + (long long)(kt + 1) * kBK * E.N, E.N, n0,
-                             E.N);
-        cp_async_commit();
-        if (a_row_ok)
-          av = __ldg(reinterpret_cast<const float4*>(xa + (kt + 1) * kBK));
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      mma_rows8<NV, kBK>(acc, sA + buf * kBK * kBM, sB + buf * kBK * BN, wr,
-                         wc, lane);
-      if (more && a_loader) {
-        float* d = sA + (buf ^ 1) * kBK * kBM;
-        d[(ak + 0) * kBM + ar] = av.x; d[(ak + 1) * kBM + ar] = av.y;
-        d[(ak + 2) * kBM + ar] = av.z; d[(ak + 3) * kBM + ar] = av.w;
-      }
-      __syncthreads();
-    }
-    store_rows8<NV>(E, acc, row0, n0, wr, wc, lane);
-  }
-  if (E.norm) {
-    __syncthreads();  // every chunk of these rows is in y
-    norm_rows(E, row0);
   }
 }
 
@@ -530,7 +399,7 @@ __device__ __forceinline__ void ffn_gemm2(float (&acc)[8][4 * NV],
 
 // the chain's output epilogue up to the norm for 4 consecutive columns of
 // one row, in place: b2, dropout (the keep mask written out: Philox of
-// (column, row), as epilogue4), the residual
+// (column, row), as gemm_keep), the residual
 __device__ __forceinline__ void ffn_tail4(const Epilogue& E, int row, int col,
                                           float* v) {
   const long long o = (long long)row * E.N + col;
@@ -788,6 +657,437 @@ ffn_chain_kernel(const __grid_constant__ CUtensorMap tx,
     }
 }
 
+// ---- gemm_epilogue: a 3xTF32 tensor-core GEMM, a two-CTA cluster per 64 rows
+
+constexpr int kGRows = 64;   // rows of a cluster (both CTAs compute all 64)
+constexpr int kGK = 32;      // K depth of a stage: the x box's 128-byte rows
+constexpr int kGBox = 32;    // columns of a w box: 128-byte rows
+constexpr int kGStages = 3;  // the ring of TMA stages
+
+// floats of one stage: the x box [kGRows][kGK] (split in place: its big
+// parts) and its small parts, then NB w boxes [kGK][kGBox]
+__host__ __device__ constexpr int gemm_stage_floats(int nb) {
+  return 2 * kGRows * kGK + nb * kGK * kGBox;
+}
+
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, 10 mantissa
+// bits kept), bit for bit on finite values: half a unit of the last kept
+// place added to the magnitude bits, the 13 dropped bits cleared.  Two
+// integer operations, where the PTX instruction compiles to a longer
+// sequence with range checks and selects.  (This helper and the four below
+// are flash_attention.cu's, copied: each kernel source builds alone.)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// an m16n8k8 operand fragment as TF32 big and small parts
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at float32 accuracy: the cross terms first, then big.big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Frag<4>& a,
+                                           const Frag<2>& b) {
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.big);
+}
+
+// the GEMM's keep bit: Philox of (column, row), as ffn_tail4 draws it (a
+// function of its own so that tools/gemm_breakdown.py can compile Philox
+// out of this kernel alone)
+__device__ __forceinline__ bool gemm_keep(const Epilogue& E, int row,
+                                          int col) {
+  return philox_bits((uint32_t)col, (uint32_t)row, 0u, E.seed0, E.seed1) >
+         E.drop_threshold;
+}
+
+// The epilogue up to the norm for columns col and col + 1 of one row, in
+// place, given the bias b and the residual r of the pair (zeros where
+// absent) and the keep bits k0, k1: bias, z0 written, the activation,
+// dropout (the keep mask written), the residual.  col is even and N % 4
+// == 0, so the pair is all in or out.
+template <bool DROP>
+__device__ __forceinline__ void epilogue2(const Epilogue& E, int row,
+                                          int col, float& v0, float& v1,
+                                          float2 b, float2 r, bool k0,
+                                          bool k1) {
+  const long long o = (long long)row * E.N + col;
+  v0 += b.x;
+  v1 += b.y;
+  if (E.z0) *reinterpret_cast<float2*>(E.z0 + o) = make_float2(v0, v1);
+  v0 = activation(v0, E.act, E.approximate);
+  v1 = activation(v1, E.act, E.approximate);
+  if (DROP) {
+    v0 = k0 ? v0 * E.drop_scale : 0.f;
+    v1 = k1 ? v1 * E.drop_scale : 0.f;
+    *reinterpret_cast<uchar2*>(E.mask + o) = make_uchar2(k0, k1);
+  }
+  v0 += r.x;
+  v1 += r.y;
+}
+
+// 128 bytes at p into L2 (a hint)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// the sums of this thread's 8 rows (8 i + g of the cluster's 64) over the
+// pair's columns: each s[i] summed over the quad, lane t = 0 writes it to
+// slot [rank][warp][row] of red ([2 ranks][8 warps][kGRows]) in both CTAs,
+// one cluster barrier, then the 16 partials of a row added in one order
+// (rank 0's warps, then rank 1's) in both CTAs, so both normalise a row by
+// the same numbers
+__device__ __forceinline__ void gemm_pair_sums(float (&s)[8], float* red,
+                                               float* peer_red, unsigned rank,
+                                               int warp, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 2);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int o = (rank * 8 + warp) * kGRows + 8 * i + g;
+      red[o] = s[i];
+      peer_red[o] = s[i];
+    }
+  }
+  cluster_arrive();  // this CTA's partial sums are in both CTAs' red
+  cluster_wait();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * i + g;
+    float a = red[r];
+#pragma unroll
+    for (int q = 1; q < 16; ++q) a += red[q * kGRows + r];
+    s[i] = a;
+  }
+}
+
+// One cluster of two CTAs owns kGRows rows; cluster chunk c of N is 64 NB
+// columns, CTA r computes [64 NB c + 32 NB r, + 32 NB).  Warp w holds all
+// 64 rows x NB / 2 n8 tiles of the CTA's columns, every eighth: acc[mi][j]
+// is the m16n8 tile (rows 16 mi, columns 64 j + 8 w), element e at row
+// g + 8 (e / 2), column 2t + e % 2.  Without a norm blockIdx.y is the
+// chunk; with one the cluster walks every chunk (gridDim.y = 1), in
+// registers when there is only one.
+template <int NB, bool DROP>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+gemm_tc_kernel(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tw, const Epilogue E,
+               int K) {
+  constexpr int STAGE = gemm_stage_floats(NB), CW = kGBox * NB, NJ = NB / 2,
+                XT = kGRows * kGK;  // the x box; its small plane XT on
+  extern __shared__ float gsm[];
+  // the ring at a 1024-byte boundary, the period of the 128-byte swizzle
+  float* ring = gsm + ((1024u - (smem_u32(gsm) & 1023u)) & 1023u) / 4;
+  float* sRed = ring + kGStages * STAGE;  // [2 passes][2 ranks][8][kGRows]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sRed + 32 * kGRows);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const unsigned rank = cluster_rank();
+  float* peer_red = cluster.map_shared_rank(sRed, rank ^ 1);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (blockIdx.x >> 1) * kGRows;
+  const int T = (K + kGK - 1) / kGK;  // stages of a chunk
+  const int chunks = (E.N + 2 * CW - 1) / (2 * CW);
+  const int steps =
+      (chunks - (int)blockIdx.y + (int)gridDim.y - 1) / (int)gridDim.y * T;
+  const bool reg_norm = E.norm && chunks == 1;
+
+  // stage s (chunk blockIdx.y + s / T * gridDim.y, k tile s % T) into ring
+  // slot `slot`, by warp 0: lane 0 counts the stage's bytes on the slot's
+  // mbarrier and loads the x box, lane 1 + b the w box b (a box counts all
+  // its bytes, the zeros past M, K and N too)
+  auto issue = [&](int s, int slot) {
+    const int c = blockIdx.y + s / T * gridDim.y, k0 = s % T * kGK;
+    float* buf = ring + slot * STAGE;
+    if (lane == 0) {
+      mbar_expect(full + slot, (XT + NB * kGK * kGBox) * 4);
+      tma_load(buf, tx, k0, row0, full + slot);
+    } else if (lane <= NB) {
+      tma_load(buf + 2 * XT + (lane - 1) * kGK * kGBox, tw,
+               c * 2 * CW + rank * CW + (lane - 1) * kGBox, k0, full + slot);
+    }
+  };
+
+  // fragment offsets.  The swizzle stores the 16-byte chunk q of a box's
+  // row r at chunk q ^ (r % 8).  k slot t of an m16n8k8 step reads k = 2t
+  // + p, slot t + 4 reads 2t + 1 - p (p = parity of t ^ t >> 1): the four
+  // k's of a slot then differ in k % 4 and in k / 2, which spreads the x
+  // reads (row g, chunk (k / 4) ^ g, word k % 4) and the w reads (row k,
+  // chunk (2 (warp % 4) + g / 4) ^ k, word g % 4) over 32 banks.  The
+  // warp's n8 tile j is the CTA's 8 j + warp: w box 2 j + warp / 4, its
+  // columns 8 (warp % 4) on, so one offset a k slot serves every j
+  const int p = (t ^ (t >> 1)) & 1;
+  const int ks0 = 2 * t + p, ks1 = 2 * t + 1 - p;
+  const int ag = (t >> 1) ^ g;  // x chunk of k step kk: ag ^ 2 kk
+  const int xo0 = g * kGK + (ks0 & 3), xo1 = g * kGK + (ks1 & 3);
+  const int wbox = 2 * XT + (warp >> 2) * kGK * kGBox;
+  const int wo0 = wbox + ks0 * kGBox + 8 * ((warp & 3) ^ t) +
+                  4 * ((g >> 2) ^ (ks0 & 1)) + (g & 3);
+  const int wo1 = wbox + ks1 * kGBox + 8 * ((warp & 3) ^ t) +
+                  4 * ((g >> 2) ^ (ks1 & 1)) + (g & 3);
+
+  float acc[4][NJ][4];
+  if (tid == 0) {  // a stage lands when lane 0 arrived and its bytes did
+    for (int b = 0; b < kGStages; ++b) mbar_init(full + b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int s = 0; s < kGStages - 1 && s < steps; ++s)
+    if (warp == 0) issue(s, s);
+  cluster_arrive();  // "this CTA runs": the peer may write its red
+  int s = 0, c = blockIdx.y;
+  for (;; c += gridDim.y) {
+    // this thread's first column: its n8 tile j holds columns n0 + 64 j
+    // and n0 + 64 j + 1
+    const int n0 = c * 2 * CW + rank * CW + 8 * warp + 2 * t;
+    if (E.residual) {
+      // the chunk's residual tile into L2 while the products run, a line
+      // of 32 floats a thread at a time, so that the epilogue finds it
+      // there
+      const int ncta = c * 2 * CW + rank * CW;
+      for (int l = tid; l < kGRows * NB; l += kThreads) {
+        const int row = row0 + l / NB, col = ncta + l % NB * kGBox;
+        if (row < E.M && col < E.N)
+          prefetch_l2(E.residual + (long long)row * E.N + col);
+      }
+    }
+    // the keep bits, drawn during the chunk's first 16 stages (the Philox
+    // work then overlaps the tensor cores'): draw(q) draws those of
+    // (row 8 (q / 2) + g, column n0 + 64 j + q % 2) for every j into bit
+    // q of the j-th half-word of kb
+    uint32_t kb[(NJ + 1) / 2] = {};
+    auto draw = [&](int q) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        kb[j >> 1] |= (uint32_t)gemm_keep(E, row0 + 8 * (q >> 1) + g,
+                                          n0 + 64 * j + (q & 1))
+                      << (16 * (j & 1) + q);
+    };
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+    for (int kt = 0; kt < T; ++kt, ++s) {
+      float* st = ring + s % kGStages * STAGE;
+      mbar_wait(full + s % kGStages, (s / kGStages) & 1);  // stage s is in
+      {
+        // the x box, which all 8 warps read, split once: this thread's 8
+        // floats, big in place, small XT floats on
+        float4* xb = reinterpret_cast<float4*>(st) + 2 * tid;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float4 v = xb[q], sm;
+          uint32_t b, m;
+          split_tf32(v.x, b, m); v.x = __uint_as_float(b); sm.x = __uint_as_float(m);
+          split_tf32(v.y, b, m); v.y = __uint_as_float(b); sm.y = __uint_as_float(m);
+          split_tf32(v.z, b, m); v.z = __uint_as_float(b); sm.z = __uint_as_float(m);
+          split_tf32(v.w, b, m); v.w = __uint_as_float(b); sm.w = __uint_as_float(m);
+          xb[q] = v;
+          xb[q + XT / 4] = sm;
+        }
+      }
+      // stage s - 1's slot is consumed and stage s's x planes are written
+      __syncthreads();
+      if (warp == 0 && s + kGStages - 1 < steps) {
+        // the threads' accesses to the slot before the TMA unit's writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(s + kGStages - 1, (s + kGStages - 1) % kGStages);
+      }
+      if (DROP && kt < 16) draw(kt);
+#pragma unroll
+      for (int kk = 0; kk < kGK / 8; ++kk) {
+        // the k8 step's w fragments first, then one m16 row tile at a time:
+        // fewer live registers than all four x fragments at once
+        const float* xa = st + ((ag ^ (2 * kk)) << 2);
+        const float* wb = st + kk * 8 * kGBox;
+        Frag<2> b[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          split_tf32(wb[wo0 + 2 * j * kGK * kGBox], b[j].big[0],
+                     b[j].small[0]);
+          split_tf32(wb[wo1 + 2 * j * kGK * kGBox], b[j].big[1],
+                     b[j].small[1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const float* r0 = xa + xo0 + 512 * mi;
+          const float* r1 = xa + xo1 + 512 * mi;
+          Frag<4> a;
+          a.big[0] = __float_as_uint(r0[0]);
+          a.big[1] = __float_as_uint(r0[256]);
+          a.big[2] = __float_as_uint(r1[0]);
+          a.big[3] = __float_as_uint(r1[256]);
+          a.small[0] = __float_as_uint(r0[XT]);
+          a.small[1] = __float_as_uint(r0[XT + 256]);
+          a.small[2] = __float_as_uint(r1[XT]);
+          a.small[3] = __float_as_uint(r1[XT + 256]);
+          // the tensor cores round each accumulation toward zero, a bias
+          // that would grow with the 3 K / 8 MMAs of one running sum: they
+          // sum one k8 step from zero, and that is added in IEEE float32
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            float step[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3xtf32(step, a, b[j]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][j][e] += step[e];
+          }
+        }
+      }
+    }
+
+    if (DROP)
+      for (int q = T; q < 16; ++q) draw(q);  // K shorter than 16 stages
+
+    // the epilogue up to the norm; values past M or N become 0.  A row's
+    // residual pairs are loaded together, ahead of its stores
+    float2 bias[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      bias[j] = E.bias && n0 + 64 * j < E.N
+                    ? __ldg(reinterpret_cast<const float2*>(E.bias + n0 +
+                                                            64 * j))
+                    : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + 8 * i + g;
+      float2 res[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        res[j] = E.residual && row < E.M && n0 + 64 * j < E.N
+                     ? __ldg(reinterpret_cast<const float2*>(
+                           E.residual + (long long)row * E.N + n0 + 64 * j))
+                     : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float& v0 = acc[i >> 1][j][2 * (i & 1)];
+        float& v1 = acc[i >> 1][j][2 * (i & 1) + 1];
+        if (row < E.M && n0 + 64 * j < E.N) {
+          const uint32_t bits = kb[j >> 1] >> (16 * (j & 1) + 2 * i);
+          epilogue2<DROP>(E, row, n0 + 64 * j, v0, v1, bias[j], res[j],
+                          bits & 1, (bits >> 1) & 1);
+        } else {
+          v0 = 0.f;
+          v1 = 0.f;
+        }
+      }
+    }
+    if (reg_norm) break;  // one chunk: the norm below, in registers
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + 8 * i + g;
+      if (row >= E.M) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (n0 + 64 * j < E.N)
+          *reinterpret_cast<float2*>(E.y + (long long)row * E.N + n0 +
+                                     64 * j) =
+              make_float2(acc[i >> 1][j][2 * (i & 1)],
+                          acc[i >> 1][j][2 * (i & 1) + 1]);
+    }
+    if (c + (int)gridDim.y >= chunks) break;
+  }
+  cluster_wait();  // the peer runs
+
+  if (reg_norm) {
+    // the row norm over both CTAs' columns (the mean, then the centred
+    // variance, as norm_rows); row i of the thread is 8 i + g
+    const float inv_n = 1.f / (float)E.N;
+    const int n0 = rank * CW + 8 * warp + 2 * t;
+    float sum[8];
+    if (E.norm == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        sum[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          sum[i] += acc[i >> 1][j][2 * (i & 1)] +
+                    acc[i >> 1][j][2 * (i & 1) + 1];
+      }
+      gemm_pair_sums(sum, sRed, peer_red, rank, warp, g, t);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float mu = sum[i] * inv_n;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[i >> 1][j][2 * (i & 1)] -= mu;
+          acc[i >> 1][j][2 * (i & 1) + 1] -= mu;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sum[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (n0 + 64 * j >= E.N) continue;
+        const float a = acc[i >> 1][j][2 * (i & 1)];
+        const float b = acc[i >> 1][j][2 * (i & 1) + 1];
+        sum[i] += a * a + b * b;
+      }
+    }
+    gemm_pair_sums(sum, sRed + 16 * kGRows, peer_red + 16 * kGRows, rank,
+                   warp, g, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + 8 * i + g;
+      if (row >= E.M) continue;
+      const float inv = rsqrtf(sum[i] * inv_n + E.eps);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = n0 + 64 * j;
+        if (col >= E.N) continue;
+        float o0 = acc[i >> 1][j][2 * (i & 1)] * inv;
+        float o1 = acc[i >> 1][j][2 * (i & 1) + 1] * inv;
+        if (E.gamma) {
+          const float2 gm =
+              __ldg(reinterpret_cast<const float2*>(E.gamma + col));
+          o0 *= gm.x;
+          o1 *= gm.y;
+        }
+        if (E.beta) {
+          const float2 bt =
+              __ldg(reinterpret_cast<const float2*>(E.beta + col));
+          o0 += bt.x;
+          o1 += bt.y;
+        }
+        *reinterpret_cast<float2*>(E.y + (long long)row * E.N + col) =
+            make_float2(o0, o1);
+      }
+    }
+  } else if (E.norm) {
+    // wider rows: both CTAs' pre-norm columns are in y; each normalises 32
+    // of the pair's rows
+    __threadfence();
+    cluster_arrive();
+    cluster_wait();
+    norm_rows(E, row0 + (int)rank * kBM);
+  }
+}
+
 Epilogue make_epilogue(const float* bias, const float* residual,
                        const float* gamma, const float* beta, float* y,
                        float* z0, unsigned char* mask, int M, int N, int act,
@@ -807,32 +1107,6 @@ Epilogue make_epilogue(const float* bias, const float* residual,
   return E;
 }
 
-// column groups of 256 a CTA chunk holds: the NV in {3, 2, 1} that pads N
-// least (the larger on a tie)
-int pick_nv(int N, int max_nv) {
-  int best = 1;
-  long long best_w = 1LL << 40;
-  for (int nv = max_nv; nv >= 1; --nv) {
-    const long long w = (long long)((N + 256 * nv - 1) / (256 * nv)) * 256 * nv;
-    if (w < best_w) { best_w = w; best = nv; }
-  }
-  return best;
-}
-
-template <int NV>
-cudaError_t launch_gemm(const float* x, const float* w, const Epilogue& E,
-                        int K, cudaStream_t stream) {
-  const size_t bytes = (size_t)(2 * kBK * kBM + 2 * kBK * 256 * NV) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_epilogue_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int chunks = (E.N + 256 * NV - 1) / (256 * NV);
-  const dim3 grid((E.M + kBM - 1) / kBM, E.norm ? 1 : chunks);
-  gemm_epilogue_kernel<NV><<<grid, kThreads, bytes, stream>>>(x, w, E, K);
-  return cudaGetLastError();
-}
-
 size_t ffn_smem_bytes(int NV) {
   return (size_t)(kStages * ffn_stage_floats(NV) + kPanel * kLdh +
                   4 * kRows) * 4 + kStages * sizeof(uint64_t);
@@ -846,10 +1120,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // the TMA descriptor of a row-major [rows, cols] float32 tensor read in
-// boxes of [brows, bcols]; the driver's encoder is found through the runtime,
-// so the library links no libcuda
-cudaError_t tensor_map(CUtensorMap* map, const float* p, int rows, int cols,
-                       int brows, int bcols) {
+// boxes of [brows, bcols] (written to shared memory with `swizzle`); the
+// driver's encoder is found through the runtime, so the library links no
+// libcuda
+cudaError_t tensor_map(
+    CUtensorMap* map, const float* p, int rows, int cols, int brows,
+    int bcols, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     void* fn = nullptr;
@@ -867,7 +1143,7 @@ cudaError_t tensor_map(CUtensorMap* map, const float* p, int rows, int cols,
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
                             (void*)p, dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE,
+                            swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -893,6 +1169,55 @@ cudaError_t launch_ffn(const float* x, const float* w1, const float* b1,
   return cudaGetLastError();
 }
 
+// w boxes a CTA's columns span (32 NB of a cluster chunk of 64 NB): with a
+// norm and N <= 768, the fewest that hold a row in one chunk (the norm then
+// runs in registers); else the NB in {12, 8, 4} that pads N least (the
+// larger on a tie)
+int pick_nb(int N, bool norm) {
+  if (norm && N <= 64 * 12) return N <= 64 * 4 ? 4 : N <= 64 * 8 ? 8 : 12;
+  int best = 12;
+  long long best_w = 1LL << 40;
+  for (int nb = 12; nb >= 4; nb -= 4) {
+    const long long w = (long long)((N + 64 * nb - 1) / (64 * nb)) * 64 * nb;
+    if (w < best_w) { best_w = w; best = nb; }
+  }
+  return best;
+}
+
+size_t gemm_smem_bytes(int NB) {
+  // the ring, 2 passes of row sums, the mbarriers, and the slack that puts
+  // the ring on a 1024-byte boundary
+  return (size_t)(kGStages * gemm_stage_floats(NB) + 32 * kGRows) * 4 +
+         kGStages * sizeof(uint64_t) + 1024;
+}
+
+template <int NB, bool DROP>
+cudaError_t launch_gemm_tc(const float* x, const float* w, const Epilogue& E,
+                           int K, cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  cudaError_t err = tensor_map(&tx, x, E.M, K, kGRows, kGK,
+                               CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = tensor_map(&tw, w, K, E.N, kGK, kGBox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = gemm_smem_bytes(NB);
+  err = cudaFuncSetAttribute(gemm_tc_kernel<NB, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int chunks = (E.N + 64 * NB - 1) / (64 * NB);
+  const dim3 grid(2 * (unsigned)(((long long)E.M + kGRows - 1) / kGRows),
+                  E.norm ? 1 : chunks);
+  gemm_tc_kernel<NB, DROP><<<grid, kThreads, bytes, stream>>>(tx, tw, E, K);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_gemm(const float* x, const float* w, const Epilogue& E,
+                        int K, cudaStream_t stream) {
+  return E.dropout ? launch_gemm_tc<NB, true>(x, w, E, K, stream)
+                   : launch_gemm_tc<NB, false>(x, w, E, K, stream);
+}
 }  // namespace
 
 extern "C" {
@@ -908,17 +1233,19 @@ int gemm_epilogue_f32(const float* x, const float* w, const float* bias,
                       int approximate, float rate, int norm, float eps,
                       unsigned int seed0, unsigned int seed1, void* stream) {
   if (M == 0 || N == 0) return 0;
-  if (K <= 0 || K % kBK || N % 4 || N > 8192 || M < 0 ||
-      (M + kBM - 1) / kBM > 2147483647)
+  // K % 8 and N % 4: the wrapper's rule (fused_shapes_ok); the kernel
+  // zero-fills the tails of K, M and N itself
+  if (K <= 0 || K % 8 || N % 4 || N > 8192 || M < 0 ||
+      (M + kGRows - 1) / kGRows > 1073741823)
     return (int)cudaErrorInvalidValue;
   const Epilogue E = make_epilogue(bias, residual, gamma, beta, y, z0, mask,
                                    M, N, act, approximate, rate, norm, eps,
                                    seed0, seed1);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (pick_nv(N, 3)) {
-    case 3: return (int)launch_gemm<3>(x, w, E, K, s);
-    case 2: return (int)launch_gemm<2>(x, w, E, K, s);
-    default: return (int)launch_gemm<1>(x, w, E, K, s);
+  switch (pick_nb(N, norm != 0)) {
+    case 12: return (int)launch_gemm<12>(x, w, E, K, s);
+    case 8: return (int)launch_gemm<8>(x, w, E, K, s);
+    default: return (int)launch_gemm<4>(x, w, E, K, s);
   }
 }
 

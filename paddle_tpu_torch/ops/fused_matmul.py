@@ -9,15 +9,19 @@ composition, chosen by a static ``EpilogueSpec``, of
 applied to the float32 accumulator before the row leaves the kernel, so
 core/fusion.py lowers every matched fc / attention-output chain onto
 one call.  The norm reduces over the whole row: a row of N values is
-owned by one CTA.
+owned by one two-CTA cluster, whose CTAs add their halves' sums through
+distributed shared memory.
 
 Two implementations behind one autograd function, chosen by where the
 tensors live and nothing else:
 
 * ``csrc/gemm_epilogue.cu``, kernel ``gemm_epilogue`` (CUDA C++ for
-  sm_90a, float32): y, the post-bias pre-activation z0 when the
-  epilogue is nonlinear in it (an activation or a norm), and the
-  dropout keep mask (uint8) when dropout is live.  Dropout keeps an
+  sm_90a, float32): x @ w on the tensor cores as 3xTF32 ``mma.sync``
+  (each operand split into two TF32 parts, three products: float32's
+  accuracy), the epilogue on the accumulators; it writes y, the
+  post-bias pre-activation z0 when the epilogue is nonlinear in it (an
+  activation or a norm), and the dropout keep mask (uint8) when
+  dropout is live.  Dropout keeps an
   element where its Philox-4x32-10 bits, keyed by (seed, row, column),
   exceed rate * 2^32.  ``fused_matmul_kernel`` launches it, adds one to
   ``_cuda.LAUNCHES["gemm_epilogue"]`` and raises on anything the kernel
@@ -53,7 +57,8 @@ LAUNCH = "gemm_epilogue"
 #: values in one CTA) — the JAX kernel's limit too, so an N = 30522
 #: vocabulary projection replays on both
 MAX_N = 8192
-#: K is consumed in tiles of this many columns
+#: K must be a multiple of this (the rule the JAX planner gates on; the
+#: kernel zero-fills K's tail past its own 32-deep stages)
 BLOCK_K = 8
 
 _ACTS = {None: 0, "gelu": 1, "relu": 2}

@@ -1,16 +1,17 @@
 """Where the tensor-core flash kernels (``csrc/flash_attention.cu``) spend
-their time on the card: the forwards #4 ``flash_fwd_flat`` and #9
-``flash_fwd_qkv``, and the flat backward pair #7 ``flash_bwd_dq_flat`` and
-#8 ``flash_bwd_dkv_flat``.
+their time on the card: the forwards #4 ``flash_fwd_flat``, #9
+``flash_fwd_qkv`` and #3 ``flash_fwd_packed``, and the flat backward pair
+#7 ``flash_bwd_dq_flat`` and #8 ``flash_bwd_dkv_flat``.
 
 A per-instruction profiler (ncu) does not run where the kernels are
 measured, so this script builds variants of the kernels from a patched
 copy of their source, each with one part compiled out, and times them
 beside the kernels as they are and PyTorch's fused attention (its forward
-beside #4 and #9, its autograd backward, dq + dk + dv, beside #7 and #8):
-#4, #7 and #8 at phase 6's op step and phase 7's causal ring chunk
-(``chip_smoke.FLAT_CASES["op_step"]`` and ``["ring_p1"]``), #9 at one
-layer of the training step (``chip_smoke.QKV_CASES["step"]``):
+beside #4, #9 and #3, its autograd backward, dq + dk + dv, beside #7 and
+#8): #4, #7 and #8 at phase 6's op step and phase 7's causal ring chunk
+(``chip_smoke.FLAT_CASES["op_step"]`` and ``["ring_p1"]``), #9 and #3 at
+one layer of the training step (``chip_smoke.QKV_CASES["step"]``, and
+``chip_smoke.FLASH_CASES["step"]`` with the model's dropout 0.1):
 
 * ``as_is``     - the kernels, first held against their plain versions;
 * ``no_mma``    - the tensor-core products compiled out (the fragment
@@ -23,8 +24,8 @@ layer of the training step (``chip_smoke.QKV_CASES["step"]``):
 * ``no_copies`` - the streamed tiles after the first never issued nor
   waited for (the MMAs run on whatever shared memory holds).
 
-The switches sit in the helpers the four kernels share, so each variant
-changes all four.  Only ``as_is`` computes the function; the rest are
+The switches sit in the helpers the five kernels share, so each variant
+changes all five.  Only ``as_is`` computes the function; the rest are
 timings.  On the card: ``python3 -m paddle_tpu_torch.tools.flash_breakdown``;
 it prints one line per variant and case (the variants in order, then
 back) and writes ``chiprun_out/flash_breakdown.json``.
@@ -63,6 +64,10 @@ VARIANTS = {
 }
 FLAT_CASES = ("op_step", "ring_p1")
 QKV_CASE = "step"
+PACKED_CASE = "step"
+#: the packed forward's dropout at a training layer (BertConfig's
+#: attention dropout)
+PACKED_RATE = 0.1
 
 
 def patched_source(text):
@@ -286,6 +291,39 @@ def main():
     report["cases"][f"qkv_{QKV_CASE}"] = dict(
         shape=dict(B=B, T=T, nh=nh, D=H // nh, causal=c["causal"],
                    dropout=rate, bias=kp is not None),
+        ms=times, sdpa_forward_ms=lib_ms, as_is=dict(forward_err=err))
+
+    # #3 at a training layer: q, k, v column slices of one [B, T, 3H]
+    # projection, the key padding, dropout
+    spec = cs.FLASH_CASES[PACKED_CASE][:-1] + (PACKED_RATE,)
+    c, _ = cs.flash_case(device, *spec)
+    q, k, v, kp, nh = c["q"], c["k"], c["v"], c["bias"], c["num_heads"]
+    B, T, H = q.shape
+    kw = dict(bias=kp, causal=c["causal"], dropout_rate=PACKED_RATE)
+    keep = fa.flash_kernel_dropout_mask(B, nh, T, k.shape[1], PACKED_RATE,
+                                        c["seed"], device)
+    o, lse = fa.flash_kernel_forward(q, k, v, nh, seed=c["seed"], **kw)
+    o_ref, lse_ref = fa.flash_ref_forward(q, k, v, nh, keep_mask=keep, **kw)
+    torch.cuda.synchronize()
+    err = max(float((o - o_ref).abs().max()),
+              float((lse - lse_ref).abs().max()))
+    if not err <= cs.FLASH_FWD_ATOL:
+        raise AssertionError(f"as_is flash_fwd_packed disagrees with its "
+                             f"plain version ({err:.3e})")
+    heads = [t.reshape(B, -1, nh, H // nh).transpose(1, 2).contiguous()
+             for t in (q, k, v)]
+    mask4 = kp[:, None, None, :]
+    times, lib_ms = time_variants(
+        libs, {"packed": lambda: fa.flash_kernel_forward(
+            q, k, v, nh, seed=c["seed"], **kw)},
+        lambda: F.scaled_dot_product_attention(*heads, attn_mask=mask4,
+                                               dropout_p=PACKED_RATE),
+        device, 200, f"packed_{PACKED_CASE}", cs, fa)
+    print(f"  packed_{PACKED_CASE} SDPA forward: {lib_ms[0]:.5f}, "
+          f"{lib_ms[1]:.5f} ms", flush=True)
+    report["cases"][f"packed_{PACKED_CASE}"] = dict(
+        shape=dict(B=B, T=T, nh=nh, D=H // nh, causal=c["causal"],
+                   dropout=PACKED_RATE, bias=True),
         ms=times, sdpa_forward_ms=lib_ms, as_is=dict(forward_err=err))
     cs.OUT_DIR.mkdir(exist_ok=True)
     (cs.OUT_DIR / "flash_breakdown.json").write_text(

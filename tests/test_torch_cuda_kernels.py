@@ -24,8 +24,9 @@ tolerance, its gradients through the dq and dk/dv kernels the flash
 gradients'; the tensor-core forwards (#4, #9) hold the forward's at T
 4096 and through their 4-byte copies too.  Fused matmul and FFN chain:
 atol 1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
-products in another order than cuBLAS's, then a norm that divides by a
-row's spread.
+products in another order than cuBLAS's (the fused matmul's as 3xTF32,
+which rounds as float32 does), then a norm that divides by a row's
+spread.
 """
 import numpy as np
 import pytest
@@ -265,6 +266,34 @@ def test_flash_kernels_match_plain_versions(device, case):
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
         assert torch.isfinite(g).all(), name
         torch.testing.assert_close(g, r, msg=name, **FLASH_GRAD_TOL)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,nh,D,causal,rate", [
+    (8, 128, 128, 12, 64, False, 0.1),
+    (4, 80, 200, 12, 64, True, 0.1),
+    (4, 128, 128, 8, 32, False, 0.0),
+    (4, 96, 96, 4, 128, False, 0.1),
+], ids=["padded_keys", "causal_tq_lt_tk", "d32", "d128"])
+def test_packed_forward_is_deterministic_and_matches_plain(device, B, Tq, Tk,
+                                                           nh, D, causal,
+                                                           rate):
+    """#3 runs the tensor-core forward on the packed layout (heads D apart,
+    one key-bias row per batch): two launches give the same bits, and o
+    and lse match the plain forward under its own dropout mask."""
+    c, _ = _flash_case(device, B, Tq, Tk, nh, D, causal, True, rate, seed=4)
+    kw = dict(bias=c["bias"], causal=causal, dropout_rate=rate)
+    runs = [fa.flash_kernel_forward(c["q"], c["k"], c["v"], nh,
+                                    seed=c["seed"], **kw) for _ in range(2)]
+    mask = (fa.flash_kernel_dropout_mask(B, nh, Tq, Tk, rate, c["seed"],
+                                         device) if rate > 0 else None)
+    o_ref, lse_ref = fa.flash_ref_forward(c["q"], c["k"], c["v"], nh,
+                                          keep_mask=mask, **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(*runs):
+        assert torch.equal(a, r)
+    torch.testing.assert_close(runs[0][0], o_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    torch.testing.assert_close(runs[0][1], lse_ref, atol=FLASH_FWD_ATOL,
+                               rtol=0)
 
 
 def test_flash_op_trains_through_the_kernels(device):
@@ -687,6 +716,53 @@ def test_gemm_epilogue_matches_plain_version(device, case):
         *leaves, spec=spec, mask=mask)[0], live, dy)
     for a, r in zip(got, want):
         torch.testing.assert_close(a, r, **EPI_TOL)
+
+
+#: the tensor-core GEMM's edges (#10): M, K and N tails of its 64-row
+#: clusters, 32-deep stages and 32-column boxes, one row, the widest rows
+#: (their norm walks chunks of columns), every M with every N
+GEMM_EDGE_SHAPES = [(M, (8, 24, 520)[i % 3], N) for i, (M, N) in enumerate(
+    (M, N) for M in (1, 33, 1000) for N in (4, 132, 772, 8192))]
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_EDGE_SHAPES,
+                         ids=[f"m{M}_k{K}_n{N}" for M, K, N in
+                              GEMM_EDGE_SHAPES])
+def test_gemm_epilogue_edges_match_plain_version(device, M, K, N):
+    """The layer-norm epilogue with bias, dropout and residual at the
+    edges of the kernel's tiles, against the plain version."""
+    spec = fm.EpilogueSpec(dropout_rate=0.1, norm="layer_norm")
+    g = torch.Generator().manual_seed(M + K + N)
+    x, w = _rnd(g, device, M, K), _rnd(g, device, K, N, scale=K ** -0.5)
+    args = (x, w, _rnd(g, device, N, scale=0.1), _rnd(g, device, M, N),
+            _rnd(g, device, N, scale=0.1, shift=1.0),
+            _rnd(g, device, N, scale=0.1))
+    y, z0, mask = fm.fused_matmul_kernel(*args, seed=3, spec=spec)
+    y_ref, z0_ref = fm.reference_matmul_epilogue(*args, spec=spec, mask=mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **EPI_TOL)
+    torch.testing.assert_close(z0, z0_ref, **EPI_TOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+def test_gemm_epilogue_is_deterministic(device, rate):
+    """Each output element of #10 is summed by one warp in a fixed order
+    and each row's norm sums are added in one order: two launches give the
+    same bits in y, z0 and the mask."""
+    spec = fm.EpilogueSpec(act="gelu", dropout_rate=rate, norm="layer_norm")
+    g = torch.Generator().manual_seed(19)
+    M, K, N = 1000, 768, 768
+    args = (_rnd(g, device, M, K), _rnd(g, device, K, N, scale=K ** -0.5),
+            _rnd(g, device, N, scale=0.1), _rnd(g, device, M, N),
+            _rnd(g, device, N, scale=0.1, shift=1.0),
+            _rnd(g, device, N, scale=0.1))
+    runs = [fm.fused_matmul_kernel(*args, seed=23, spec=spec)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, r in zip(("y", "z0", "mask"), *runs):
+        assert (a is None) == (r is None) == (name == "mask" and rate == 0)
+        if a is not None:
+            assert torch.equal(a, r), name
 
 
 FFN_CASES = {

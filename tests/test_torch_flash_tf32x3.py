@@ -1,6 +1,6 @@
 """The numerics the tensor-core flash kernels (the flat backward pair #7
 ``flash_bwd_dq_flat`` and #8 ``flash_bwd_dkv_flat``, and the forwards #4
-``flash_fwd_flat`` and #9 ``flash_fwd_qkv``,
+``flash_fwd_flat``, #9 ``flash_fwd_qkv`` and #3 ``flash_fwd_packed``,
 ``paddle_tpu_torch/csrc/flash_attention.cu``) rest on, emulated on the
 CPU: their products run as 3xTF32 on the card's tensor cores.
 
@@ -17,14 +17,15 @@ are held to on the card; one TF32 product alone (big.big) must miss it
 by at least ten times the 3xTF32 error, which is why the split is there.
 The forward recomputed so (S = Q K^T for each streamed 32-key tile, the
 online softmax, each tile's P~ V summed from zero and added to the
-rescaled output, for #9 the qkv bias added before the split) must match
-the plain forwards ``flash_ref_forward_flat`` and ``qkv_ref_forward``
-within chip_smoke.py's FLASH_FWD_ATOL (1e-5) in o and lse, and one TF32
-product must again miss it by ten times.
+rescaled output, for #9 the qkv bias added before the split; #3
+``flash_fwd_packed`` runs the same kernel on the packed layout) must
+match the plain forwards ``flash_ref_forward_flat``, ``qkv_ref_forward``
+and ``flash_ref_forward`` within chip_smoke.py's FLASH_FWD_ATOL (1e-5) in
+o and lse, and one TF32 product must again miss it by ten times.
 Cases are shaped like chip_smoke.FLAT_CASES at test size: ragged T 100,
 Tq 128 with Tk 256, causal Tq 80 with Tk 128, D 32, 64 and 128, key
 padding, a dropout mask fed to both sides; the forward adds a qkv-folded
-case with the qkv bias.
+case with the qkv bias and a packed case at a training layer's T 128.
 """
 import math
 
@@ -201,6 +202,10 @@ def test_1xtf32_is_ten_times_further_off(name):
 #: the qkv-folded forward's case: (B, T, nh, D, causal, key padding,
 #: dropout rate), a qkv bias of chip_smoke.QKV_CASES' scale
 QKV_CASE = (2, 100, 3, 32, False, True, 0.1)
+#: the packed forward's case (#3 runs the flat kernel on [B, T, nh D] with
+#: heads D apart and one [Tk] key-bias row per batch): a training layer's
+#: T 128 at test size, key padding, dropout
+PACKED_CASE = (2, 128, 3, 64, False, True, 0.1)
 
 
 def emulated_forward(q, k, v, bias, causal, keep, rate, passes,
@@ -262,6 +267,25 @@ def _fwd_case(name):
         add = tuple(a.reshape(nh, D) for a in b.split(H))
         bias = None if kp is None else kp[:, None, None, :]
         return (q, k, v, bias, causal, keep, rate), add, want, fa._merge
+    if name == "packed_t128":
+        B, T, nh, D, causal, padding, rate = PACKED_CASE
+        H = nh * D
+        rng = np.random.RandomState(len(CASES) + 1)
+        q, k, v = (torch.from_numpy(rng.randn(B, T, H).astype(np.float32))
+                   for _ in range(3))
+        kp = None
+        if padding:
+            kp = torch.zeros(B, T)
+            kp[: B // 2, T - T // 4:] = -1e4
+        keep = (torch.from_numpy(rng.rand(B, nh, T, T) >= rate)
+                if rate else None)
+        want = fa.flash_ref_forward(q, k, v, nh, bias=kp, causal=causal,
+                                    dropout_rate=rate, keep_mask=keep)
+        heads = tuple(x.reshape(B, T, nh, D).transpose(1, 2)
+                      for x in (q, k, v))
+        bias = None if kp is None else kp[:, None, None, :]
+        return (*heads, bias, causal, keep, rate), (None,) * 3, want, \
+            fa._merge
     (q, k, v, bias, _, _, _, causal, keep, rate), _ = _case(name)
     want = fa.flash_ref_forward_flat(q, k, v, bias, causal=causal,
                                      dropout_rate=rate, keep_mask=keep)
@@ -269,7 +293,7 @@ def _fwd_case(name):
             lambda o: o)
 
 
-FWD_CASES = sorted(CASES) + ["qkv_bias"]
+FWD_CASES = sorted(CASES) + ["qkv_bias", "packed_t128"]
 
 
 def _fwd_errors(name, passes):

@@ -5,12 +5,14 @@ the wrong build.  CPU only: the patched sources are built on the card."""
 import pytest
 
 from paddle_tpu_torch import _cuda
-from paddle_tpu_torch.tools import ffn_chain_breakdown, flash_breakdown
+from paddle_tpu_torch.tools import (ffn_chain_breakdown, flash_breakdown,
+                                    gemm_breakdown)
 
 
 @pytest.mark.parametrize("tool,source", [
     (ffn_chain_breakdown, "gemm_epilogue.cu"),
     (flash_breakdown, "flash_attention.cu"),
+    (gemm_breakdown, "gemm_epilogue.cu"),
 ])
 def test_breakdown_switches_match_the_source(tool, source):
     text = (_cuda.CSRC / source).read_text()
