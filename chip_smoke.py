@@ -570,11 +570,10 @@ def flash_bounds(c):
     """Least time of each kernel's work at this call: flops = 2 per
     multiply-add of its products over every (query, key, dim) — forward
     q.k and p.v (4), dq adds do.v and ds.k (6), dk/dv adds p.do and ds.q
-    (8) — over the float32 peak for the packed backward pair, over the
-    3xTF32 tensor-core rate (``_tc_bound``) for the forward, which runs
-    there; bytes = each input read once and each output written once over
-    HBM's rate.  Returns {kernel: (ms, bound_by, bytes, flops, float32 FMA
-    ms)}."""
+    (8) — over the 3xTF32 tensor-core rate (``_tc_bound``), where all
+    three run; bytes = each input read once and each output written once
+    over HBM's rate.  Returns {kernel: (ms, bound_by, bytes, flops, float32
+    FMA ms)}."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, Tq, H = c["q"].shape
@@ -588,12 +587,7 @@ def flash_bounds(c):
         fa.DKV: (8 * unit, q_b + 2 * kv_b + bias_b + q_b + 2 * rows
                  + 2 * kv_b + B * nh * Tk * 4),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        bound = _bound(flops, nbytes)
-        out[name] = bound + (bound[0],)  # the float32 FMA bound itself
-    out[fa.FWD] = _tc_bound(*work[fa.FWD])
-    return out
+    return {name: _tc_bound(*w) for name, w in work.items()}
 
 
 def _tol_excess(got, want, atol, rtol):
@@ -728,16 +722,15 @@ def flash_kernel_phase(device):
             library_ms=lib_fwd if fwd else lib_bwd, bound_ms=bound_ms,
             bound_by=bound_by, bytes=nbytes, flops=flops,
             fma_bound_ms=fma_ms,
-            bound_rate=("3xTF32 on the tensor cores, 495 TFLOP/s TF32" if fwd
-                        else "float32 FMA, 67 TFLOP/s"),
+            bound_rate="3xTF32 on the tensor cores, 495 TFLOP/s TF32",
             shape=dict(B=B, T=Tq, nh=nh, D=D, dropout=rate)))
         log(f"  {name} timing (B={B} T={Tq} nh={nh} D={D} dropout={rate}): "
             f"ms={times[name]:.5f} (no dropout {no_dropout_ms[name]:.5f}) "
             f"plain_ms={report[name]['timing']['plain_ms']:.5f} library_ms"
             f"(sdpa {'forward' if fwd else 'backward, dq+dk+dv'})="
             f"{report[name]['timing']['library_ms']:.5f} bound_ms="
-            f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops"
-            + ("; 3xTF32" if fwd else "") + f") fma_bound_ms={fma_ms:.5f}")
+            f"{bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} flops; "
+            f"3xTF32) fma_bound_ms={fma_ms:.5f}")
     return report
 
 

@@ -1,6 +1,6 @@
-// Flash attention for Hopper (sm_90a), float32: three forwards and the
-// backward kernels they share, over packed heads and over the flat
-// [B, H, T, D] layout.
+// Flash attention for Hopper (sm_90a), float32, on the tensor cores: three
+// forwards and the backward pair they share, over packed heads and over the
+// flat [B, H, T, D] layout.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_ops.py:
 //   flash_fwd_packed     <- `_fwd_kernel_packed`      (launched by `_flash_fwd_packed`)
@@ -11,29 +11,30 @@
 //   flash_bwd_dkv_flat   <- `_bwd_dkv_kernel`         (launched by `_flash_bwd`)
 // and of paddle_tpu/ops/attention_epilogue.py:
 //   flash_fwd_qkv        <- `_qkv_fwd_kernel`         (launched by `_qkv_attn_fwd`)
-// The packed backward pair shares the float32 FMA design below.  The
-// forwards (flash_fwd_packed, flash_fwd_flat, flash_fwd_qkv: one device
-// function) and the flat backward pair run on the tensor cores (see their
-// notes further down): the flat layout puts a
-// head `*_sh` elements (T*D in [B, H, T, D]) into its batch instead of h*D,
-// its key bias is one row per (batch, head) (bias_sb, bias_sh: 0
-// broadcasts), and the flat dk and dv are written in [B, H, Tk, D] with
-// dbias per (batch, head), as the JAX custom VJP returns it.  The lse
+// Three device functions carry them (notes further down): the forward
+// flash_fwd_tc_kernel, whose layout template argument sets its CTA's shape,
+// and the backward pair flash_bwd_dq_tc_kernel and flash_bwd_dkv_tc_kernel,
+// one shape for both layouts (the dk/dv kernel's PACKED argument picks its
+// store).  The strides each entry passes set the layout.  The packed layout
+// [B, T, nh*D] puts head h at column h*D of its row (so the three column
+// slices of one [B, T, 3H] qkv projection are read in place, row stride 3H),
+// its key bias is one [Tk] row per batch, and its dk and dv are written in
+// [B, Tk, nh*D] or into the column slices of one [B, T, 3H] dqkv.  The flat
+// layout puts a head `*_sh` elements (T*D) into its batch, its key bias is
+// one row per (batch, head) (bias_sb, bias_sh: 0 broadcasts), and its dk and
+// dv are written in [B, H, Tk, D].  dbias is per (batch, head), as the JAX
+// custom VJP returns it; the packed caller sums it over heads.  The lse
 // cotangent of flash_attention_lse is folded into delta by the caller
 // (delta = rowsum(do*o) - dlse), so the backward kernels are unchanged by
-// it.
-// flash_fwd_qkv reads q, k and v at column offsets 0, H and 2H of the
-// PRE-bias [B, T, 3H] qkv projection (row stride 3H) and adds the matching
-// slice of the qkv bias [3H] as each tile lands, so neither the biased qkv
-// nor its slices are ever written; its dropout stream and lse layout are
-// flash_fwd_packed's, so the packed backward kernels differentiate it (on
+// it.  flash_fwd_qkv reads q, k and v at column offsets 0, H and 2H of the
+// PRE-bias [B, T, 3H] qkv projection and adds the matching slice of the qkv
+// bias [3H] as each tile lands, so neither the biased qkv nor its slices
+// are ever written; its dropout stream and lse layout are
+// flash_fwd_packed's, so the packed backward pair differentiates it (on
 // strided views of the re-biased qkv).
 //
-// What they compute, per batch b and head h (q, k, v are [B, T, nh*D]
-// packed-head tensors, read through their batch and row strides, so the
-// three slices of one [B, T, 3H] qkv projection are read in place):
-//   s[i][j] = (q_i . k_j) * sm_scale + bias[b][j]       (float32;
-//             bias[b][h][j] in the flat layout)
+// What they compute, per batch b and head h:
+//   s[i][j] = (q_i . k_j) * sm_scale + bias[b][(h)][j]  (float32)
 //   s[i][j] = -1e30 where causal and j > i + Tk - Tq    (end-aligned; a
 //             finite mask value, so a fully masked row stays finite)
 //   p = softmax_j(s); o_i = sum_j drop(p)[i][j] v_j; lse_i = logsumexp_j s
@@ -41,78 +42,67 @@
 // Backward, from lse (p = exp(s - lse)) and delta_i = do_i . o_i:
 //   dp = do . v^T (dropped like p), ds = p * (dp - delta)
 //   dq = sm_scale * ds k, dk = sm_scale * ds^T q, dv = drop(p)^T do,
-//   dbias[b][h][j] = sum_i ds[i][j]   (summed over heads by the packed
-//                                      caller).
+//   dbias[b][h][j] = sum_i ds[i][j].
 // The dropout mask is never stored: bit (b, h, i, j) is Philox-4x32-10 of
 // counter (j, i, b*nh + h, 0) under the 64-bit seed, kept when it exceeds
 // rate * 2^32, so every kernel (and the debug mask entry) regenerates the
 // same mask.
 //
-// What bounds them on this card: operations.  At BERT-base shapes (B=32,
-// T=128, nh=12, D=64) the forward does 4*B*nh*T*T*D flops (1.6 GFLOP)
-// over ~50 MB of q, k, v, o; backward recomputes the scores (dq: 6, dk/dv:
-// 8 flops per (i, j, d)).  The reference computes in float32.  One TF32
-// product keeps 11 bits of each operand, too few for the tolerances;
+// What bounds them on this card.  The reference computes in float32.  One
+// TF32 product keeps 11 bits of each operand, too few for the tolerances;
 // "3xTF32" keeps float32's accuracy on the tensor cores: each operand x is
 // split into big = tf32(x) and small = tf32(x - big), and a.b is summed as
 // big.small + small.big + big.big in float32, three TF32 products per
-// float32 one (495 TFLOP/s TF32: 165 effective).  The forwards and the
-// flat backward pair run so (at the training layer the forward's 50 MB of
-// q, k, v and o then bound it, not its operations); the packed backward
-// pair still runs float32 FMA outside the tensor cores, which 67 TFLOP/s
-// bounds, not the 3.35 TB/s of HBM.
-// The flat kernels see the same: at the 4-D op's step (B=8, H=12, T=512,
-// D=64) the forward is 6.4 GFLOP over ~50 MB; a causal ring chunk at
-// T=4096 skips the tiles above the diagonal, about half.
+// float32 one (495 TFLOP/s TF32: 165 effective).  The forward does 4 flops
+// per visible (query, key, dim), dq 6 and dk/dv 8.  At BERT-base's training
+// layer (B=32, T=128, nh=12, D=64) that is 1.6, 2.4 and 3.2 GFLOP over 50,
+// 63 and 76 MB of inputs and outputs, so bytes bound all three there (at
+// 3.35 TB/s); at the 4-D op's step (B=8, H=12, T=512, D=64: 6.4 GFLOP of
+// forward over ~50 MB) and on a causal ring chunk at T=4096 (about half the
+// tiles skipped) operations do.
 //
-// Design of the packed backward kernels: the TPU kernels walked a
-// sequential grid, carrying the dq (or dk, dv) accumulators in VMEM
-// scratch from one grid step to the next, and sliced 128-lane head groups
-// out of the packed layout with BlockSpec index maps.  Hopper runs blocks
-// in parallel and in no order, so each CTA owns one (64-row tile, head,
-// batch) and loops over the other sequence axis itself: the dq kernel
-// loops over key tiles for a query tile, the dk/dv kernel over query tiles
-// for a key tile, so no reduction crosses CTAs and no atomics are needed.
-// Tiles of 64 rows x D are staged in shared memory (rows padded by one
-// float, so the 16 threads of a half-warp that read one column of 16 rows
-// hit 16 banks); 256 threads as a 16 x 16 grid each hold a 4 x 4 block of
-// the 64 x 64 score tile (rows ty + 16i, columns tx + 16j) and a 4 x D/16
-// block of the output accumulators, all float32 FMA.  Sums reduce across
-// the 16 threads of a row with warp shuffles.  Ragged tails (any T) are
-// masked: keys past Tk get p = 0 and rows past Tq are not written.  Causal
-// tiles entirely above the diagonal are skipped where that is exact.  The
-// tensor-core kernels keep the CTA-per-tile scheme and the same masks;
-// their products and tiles are their own (notes below).
+// What they share: the TPU kernels walked a sequential grid, carrying the
+// accumulators in VMEM scratch from one grid step to the next, and sliced
+// 128-lane head groups out of the packed layout with BlockSpec index maps.
+// Hopper runs blocks in parallel and in no order, so each CTA owns one
+// (row tile, head, batch) and loops over the other sequence axis itself:
+// the forward and the dq kernel over key tiles for a query tile, the dk/dv
+// kernel over query tiles for a key tile, so no reduction crosses CTAs and
+// no atomics are needed.  Ragged tails (any T) are masked: keys past Tk get
+// p = 0 and rows past Tq are not written.  Causal tiles entirely above the
+// diagonal are skipped where that is exact.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;       // query rows and key columns per tile
-constexpr int kThreads = 256;   // a 16 x 16 thread grid
-constexpr int kLdS = kTile + 1;
 constexpr float kNegInf = -1e30f;  // the reference's finite mask value
 
+// Strides are in elements: the [T, D] rows of (batch b, head h) start at
+// b*_sb + h*_sh and lie _st apart; the head dimension is contiguous.
 struct FlashParams {
   const float* q;
-  long long q_sb, q_st;
+  long long q_sb, q_sh, q_st;
   const float* k;
-  long long k_sb, k_st;
+  long long k_sb, k_sh, k_st;
   const float* v;
-  long long v_sb, v_st;
-  const float* bias;  // [B, Tk] key-padding bias (flat: strided rows per
-                      // (b, h), see bias_sb / bias_sh), or nullptr
+  long long v_sb, v_sh, v_st;
+  const float* bias;  // the key-bias row of (b, h) at b*bias_sb + h*bias_sh,
+                      // or nullptr
+  long long bias_sb, bias_sh;
   const float* qkv_bias;  // flash_fwd_qkv: [3H], added to q | k | v on load
-  const float* dout;  // backward: the output cotangent
-  long long do_sb, do_st;
+  const float* dout;      // backward: the output cotangent
+  long long do_sb, do_sh, do_st;
   const float* lse;    // backward: [B, nh, Tq]
   const float* delta;  // backward: [B, nh, Tq]
-  float* out;          // forward: o; dq kernel: dq (strides below)
-  long long out_sb, out_st;
+  float* out;          // forward: o; dq kernel: dq
+  long long out_sb, out_sh, out_st;
   float* lse_out;  // forward: [B, nh, Tq]
-  float* dk;       // dk/dv kernel: [B, Tk, nh*D] (flat: [B, nh, Tk, D])
+  float* dk;       // dk/dv kernel: [B, H, Tk, D], or (packed) rows of
+  long long dk_sb, dk_st;  // [B, Tk, nh*D] at these strides
   float* dv;
+  long long dv_sb, dv_st;
   float* dbias;  // dk/dv kernel: [B, nh, Tk]
   int B, nh, Tq, Tk, D;
   float scale;
@@ -121,12 +111,7 @@ struct FlashParams {
   uint32_t drop_threshold;  // keep when bits > threshold
   float drop_scale;         // 1 / (1 - rate)
   uint32_t seed0, seed1;
-  // the tensor-core kernels only, last so that the packed kernels'
-  // parameters keep their offsets: the bias row of (b, h) at
-  // b*bias_sb + h*bias_sh, and the head strides
-  long long bias_sb, bias_sh;
-  long long q_sh, k_sh, v_sh, do_sh, out_sh;
-  int vec;  // tensor-core kernels: q, k, v, dout load as 16-byte copies
+  int vec;  // q, k, v, dout load as 16-byte copies
 };
 
 __device__ __forceinline__ uint32_t philox_bits(uint32_t c0, uint32_t c1,
@@ -155,333 +140,57 @@ __device__ __forceinline__ bool keep_pair(const FlashParams& P, int key,
                      P.seed1) > P.drop_threshold;
 }
 
-// a sum over the 16 threads of one score row (lanes that differ in their
-// low four bits)
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// rows [r0, r0 + kTile) x dims [0, DM) of a strided [T, *] head slice into
-// shared memory (leading dimension DM + 1), zeros past `rows` and `D`
-template <int DM>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          long long st, int r0, int rows,
-                                          int D) {
-  for (int idx = threadIdx.x; idx < kTile * DM; idx += kThreads) {
-    const int r = idx / DM, d = idx % DM, row = r0 + r;
-    float x = 0.f;
-    if (row < rows && d < D) x = __ldg(g + (long long)row * st + d);
-    s[r * (DM + 1) + d] = x;
-  }
-}
-
-// offset of head h in a packed [B, T, nh*D] batch
-__device__ __forceinline__ long long head_off(int h, int D) {
-  return (long long)h * D;
-}
-
-// the packed score (i = query, j = key) after scale, key bias [B, Tk] and
-// the causal mask
-__device__ __forceinline__ float masked_score(const FlashParams& P, float dot,
-                                              int b, int query, int key) {
-  float x = dot * P.scale +
-            (P.bias ? __ldg(P.bias + (long long)b * P.Tk + key) : 0.f);
-  if (P.causal && key > query + P.Tk - P.Tq) x = kNegInf;
-  return x;
-}
-
 // key tiles a query tile of `rows` rows must visit: under the causal mask,
 // tiles right of the diagonal hold only masked keys, whose p is exactly 0
 // when the row sees key 0 (a row with no visible key attends uniformly to
 // all keys, as the reference's softmax over -1e30 does, so then nothing is
 // skipped)
 __device__ __forceinline__ int key_end(const FlashParams& P, int q0,
-                                       int rows = kTile) {
+                                       int rows) {
   const int off = P.Tk - P.Tq;
   if (P.causal && q0 + off >= 0) return min(P.Tk, q0 + rows + off);
   return P.Tk;
 }
 
-template <int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const FlashParams P) {
-  constexpr int LD = DM + 1;
-  constexpr int ND = DM / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kTile * LD;
-  float* sK = sdO + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sS = sV + kTile * LD;  // ds, [kTile][kLdS]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int D = P.D, bh = b * P.nh + h;
-
-  load_tile<DM>(sQ, P.q + b * P.q_sb + head_off(h, D), P.q_st, q0, P.Tq, D);
-  load_tile<DM>(sdO, P.dout + b * P.do_sb + head_off(h, D), P.do_st, q0,
-                P.Tq, D);
-  const float* kb = P.k + b * P.k_sb + head_off(h, D);
-  const float* vb = P.v + b * P.v_sb + head_off(h, D);
-
-  float lse[4], delta[4], acc[4][ND];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    lse[i] = qi < P.Tq ? P.lse[(long long)bh * P.Tq + qi] : 0.f;
-    delta[i] = qi < P.Tq ? P.delta[(long long)bh * P.Tq + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < ND; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = key_end(P, q0);
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<DM>(sK, kb, P.k_st, k0, P.Tk, D);
-    load_tile<DM>(sV, vb, P.v_st, k0, P.Tk, D);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DM; ++d) {
-      float a[4], g[4], c[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sQ[(ty + 16 * i) * LD + d];
-        g[i] = sdO[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[j] = sK[(tx + 16 * j) * LD + d];
-        w[j] = sV[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], c[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float p = 0.f, dpv = dp[i][j];
-        if (kj < P.Tk)
-          p = expf(masked_score(P, s[i][j], b, qi, kj) - lse[i]);
-        if (P.dropout) dpv = keep_pair(P, kj, qi, bh) ? dpv * P.drop_scale : 0.f;
-        sS[(ty + 16 * i) * kLdS + tx + 16 * j] = p * (dpv - delta[i]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < kTile; ++n) {
-      float ds[4], kv[ND];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sS[(ty + 16 * i) * kLdS + n];
-#pragma unroll
-      for (int c = 0; c < ND; ++c) kv[c] = sK[n * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < ND; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= P.Tq) continue;
-    float* dq = P.out + b * P.out_sb + qi * P.out_st + head_off(h, D);
-#pragma unroll
-    for (int c = 0; c < ND; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) dq[d] = acc[i][c] * P.scale;
-    }
-  }
-}
-
-template <int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const FlashParams P) {
-  constexpr int LD = DM + 1;
-  constexpr int ND = DM / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;               // key rows of this CTA
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;    // query rows of the current tile
-  float* sdO = sQ + kTile * LD;
-  float* sPd = sdO + kTile * LD;  // dropped p, [key][query], kLdS
-  float* sS = sPd + kTile * kLdS; // ds, [key][query], kLdS
-  float* sL = sS + kTile * kLdS;  // lse of the query tile
-  float* sDl = sL + kTile;        // delta of the query tile
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int D = P.D, bh = b * P.nh + h;
-
-  load_tile<DM>(sK, P.k + b * P.k_sb + head_off(h, D), P.k_st, k0, P.Tk, D);
-  load_tile<DM>(sV, P.v + b * P.v_sb + head_off(h, D), P.v_st, k0, P.Tk, D);
-  const float* qb = P.q + b * P.q_sb + head_off(h, D);
-  const float* dob = P.dout + b * P.do_sb + head_off(h, D);
-
-  float dk[4][ND], dv[4][ND], db[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    db[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < ND; ++c) dk[i][c] = dv[i][c] = 0.f;
-  }
-
-  // under the causal mask, query tiles wholly before the first query that
-  // sees key k0 contribute exactly 0 — unless some row sees no key at all
-  // (Tq > Tk), which attends uniformly and so reaches every key
-  int q_begin = 0;
-  if (P.causal && P.Tq <= P.Tk)
-    q_begin = max(0, k0 - (P.Tk - P.Tq)) / kTile * kTile;
-  for (int q0 = q_begin; q0 < P.Tq; q0 += kTile) {
-    __syncthreads();
-    load_tile<DM>(sQ, qb, P.q_st, q0, P.Tq, D);
-    load_tile<DM>(sdO, dob, P.do_st, q0, P.Tq, D);
-    if (tid < kTile) {
-      const int qi = q0 + tid;
-      sL[tid] = qi < P.Tq ? P.lse[(long long)bh * P.Tq + qi] : 0.f;
-      sDl[tid] = qi < P.Tq ? P.delta[(long long)bh * P.Tq + qi] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];  // [key i][query j]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DM; ++d) {
-      float a[4], w[4], c[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sK[(ty + 16 * i) * LD + d];
-        w[i] = sV[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[j] = sQ[(tx + 16 * j) * LD + d];
-        g[j] = sdO[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], c[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = tx + 16 * j, qi = q0 + ql;
-        float p = 0.f;
-        if (kj < P.Tk && qi < P.Tq)
-          p = expf(masked_score(P, s[i][j], b, qi, kj) - sL[ql]);
-        float pd = p, dpv = dp[i][j];
-        if (P.dropout) {
-          const bool keep = keep_pair(P, kj, qi, bh);
-          pd = keep ? p * P.drop_scale : 0.f;
-          dpv = keep ? dpv * P.drop_scale : 0.f;
-        }
-        const float ds = p * (dpv - sDl[ql]);
-        sPd[(ty + 16 * i) * kLdS + ql] = pd;
-        sS[(ty + 16 * i) * kLdS + ql] = ds;
-        db[i] += ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < kTile; ++n) {
-      float pd[4], ds[4], qv[ND], gv[ND];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pd[i] = sPd[(ty + 16 * i) * kLdS + n];
-        ds[i] = sS[(ty + 16 * i) * kLdS + n];
-      }
-#pragma unroll
-      for (int c = 0; c < ND; ++c) {
-        qv[c] = sQ[n * LD + tx + 16 * c];
-        gv[c] = sdO[n * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < ND; ++c) {
-          dv[i][c] = fmaf(pd[i], gv[c], dv[i][c]);
-          dk[i][c] = fmaf(ds[i], qv[c], dk[i][c]);
-        }
-    }
-  }
-
-  const int H = P.nh * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float dbias = row_sum(db[i]);
-    const int kj = k0 + ty + 16 * i;
-    if (kj >= P.Tk) continue;
-    const long long row = ((long long)b * P.Tk + kj) * H + (long long)h * D;
-#pragma unroll
-    for (int c = 0; c < ND; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) {
-        P.dk[row + d] = dk[i][c] * P.scale;
-        P.dv[row + d] = dv[i][c];
-      }
-    }
-    if (tx == 0) P.dbias[(long long)bh * P.Tk + kj] = dbias;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The flat backward pair on the tensor cores: flash_bwd_dq_flat and
-// flash_bwd_dkv_flat.
+// The backward pair: flash_bwd_dq_flat and flash_bwd_dkv_flat,
+// flash_bwd_dq_packed and flash_bwd_dkv_packed.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_ops.py
-// `_bwd_dq_kernel` (dq) and `_bwd_dkv_kernel` (dk, dv, dbias), both
-// launched by `_flash_bwd`.  The function is the backward in the header,
-// on [B, H, T, D].
+// `_bwd_dq_kernel` and `_bwd_dq_kernel_packed` (dq), `_bwd_dkv_kernel` and
+// `_bwd_dkv_kernel_packed` (dk, dv, dbias), launched by `_flash_bwd` and
+// `_flash_bwd_packed`.  The function is the backward in the header, on
+// either layout.
 //
-// Bound: operations.  The dq kernel's three products (S = Q K^T,
-// dP = dO V^T, dQ += dS K) and the dk/dv kernel's four (S^T = K Q^T,
-// dP^T = V dO^T, dV += P~^T dO, dK += dS^T Q) run as TF32
+// Bound: operations at the 4-D op's step and the ring's chunks, bytes at a
+// training layer (see the header).  The dq kernel's three products
+// (S = Q K^T, dP = dO V^T, dQ += dS K) and the dk/dv kernel's four
+// (S^T = K Q^T, dP^T = V dO^T, dV += P~^T dO, dK += dS^T Q) run as TF32
 // mma.sync.m16n8k8 with the 3xTF32 split, three TF32 products per float32
-// one on tensor cores rated 495 TFLOP/s: 3 * flops / 495e12 is the least
-// time, about 2.5x under the float32 FMA bound.  What the design does:
+// one on tensor cores rated 495 TFLOP/s: 3 * flops / 495e12, about 2.5x
+// under the float32 FMA bound.  What the design does:
 // - 3xTF32: big = tf32(x), small = tf32(x - big), tf32 being
 //   cvt.rna.tf32.f32 done as two integer operations (tf32_rna);
 //   c += big.small, then small.big, then big.big (small.small dropped),
 //   accumulated in float32 by the MMA: about 2^-22 relative a product,
 //   float32's own rounding, where big.big alone (2^-11) would not hold the
-//   gradients' 1e-4.
+//   gradients' 1e-4.  Each MMA rounds its sum toward zero; dQ, dK and dV
+//   run over the whole sequence in one accumulator each, which a CPU model
+//   of that rounding (tests/test_torch_flash_tf32x3.py) shows to hold the
+//   gradient tolerance more than 20 times over at T 128 to 256, and the
+//   qkv projection's gradients that a training step sums over 4096 rows
+//   hundreds of times over, so no tile is folded into an IEEE sum here
+//   (the forward folds each key tile, the GEMM #10 each k8 step).
 // - Each operand is split once.  The streamed tiles (K and V for dq, Q
-//   and dO for dk/dv) are the B operands all four warps read: each thread
+//   and dO for dk/dv) are the B operands all warps read: each thread
 //   splits the elements it copied itself as soon as its copies land (so
 //   no barrier comes first), big in place, small in a plane beside.  The
 //   A operands (the CTA's own rows, and ds and p~ from the accumulators)
 //   belong to one warp and are split in registers as their fragment is
-//   read.  Planes for the CTA's own rows too would leave one CTA an SM at
-//   D 64; as it is two fit (104,704 and 104,960 bytes; one at D 128).
-// - One warp per 16 rows of the CTA's 64 (query rows for dq, key rows for
+//   read.  Planes for the CTA's own rows too would leave one 4-warp CTA
+//   an SM at D 64; as it is two fit (104,704 and 104,960 bytes; one at
+//   D 128).
+// - One warp per 16 rows of the CTA's (query rows for dq, key rows for
 //   dk/dv) across the whole streamed tile: S and dP land in the same
 //   accumulator layout, so p = exp(s - lse), the keep bit, ds =
 //   p (dp - delta) and the dbias sums are computed in registers, element
@@ -493,12 +202,23 @@ flash_bwd_dkv_kernel(const FlashParams P) {
 //   shared memory under the same permutation (rows 2t and 2t + 1).  That
 //   needs neither a shared-memory strip (a store, a barrier and a load a
 //   tile) nor quad shuffles (four a fragment).
+// - The CTA's shape (kBwdWarps): 4 warps, 64 rows, two CTAs an SM, for
+//   both layouts.  A training layer's T is 128, so a 64-row CTA streams
+//   only four tiles and each head's K and V (or Q and dO) is read and split
+//   by two CTAs; an 8-warp CTA at D <= 64 (128 rows, one an SM, 139,520 and
+//   139,776 bytes) reads and splits them once, for the same warps an SM.
+//   Timed against each other on the packed layout at the training layer
+//   (python3 -m paddle_tpu_torch.tools.flash_breakdown), the 4-warp shape
+//   was faster in all of six turns: one CTA an SM leaves each CTA's first
+//   copies and its stores unhidden.
 // - Streamed tiles of 32 rows (16 query rows for dk/dv at D 128, whose dk
 //   and dv take 128 registers) land by cp.async in a 2-stage ring: tile
 //   j + 1 is issued right after the barrier that opens tile j, so it lands
 //   while j is multiplied.  Rows are padded to D + 4 floats, which puts
 //   both fragment reads (row g, column t; and row 2t, column g) on 32
-//   distinct banks.
+//   distinct banks.  The packed layout's q, k, v views of one [B, T, 3H]
+//   projection have row stride 3H, a multiple of 4, so they land as 16-byte
+//   copies too.
 // - The Philox keep bits are the other kernels' (same counter, same
 //   seed), drawn element for element beside ds.  Dropout is a template
 //   flag, so the path without it carries none of the Philox code and
@@ -508,8 +228,27 @@ flash_bwd_dkv_kernel(const FlashParams P) {
 //   the triangle's long tiles do not trail the launch.  The causal tile
 //   skips are the exact ones above (key_end, q_begin).  Each output element
 //   is written by one CTA: no atomics, the same bits on every launch.
-constexpr int kTcThreads = 128;  // 4 warps x 16 rows = kTile rows
-constexpr int kTcStream = 32;    // rows of a streamed tile
+// - dq is written through its strides in both layouts.  dk and dv are too
+//   in the packed instantiations of the dk/dv kernel (PACKED), so the
+//   fused backward hands it the column slices of one dqkv; the flat ones
+//   keep their contiguous index: one store loop through strides for both
+//   moved ptxas's allocation of the flat kernels and cost the ring's
+//   causal T 4096 dk/dv 2% (PERF.md).
+constexpr int kTcStream = 32;  // rows of a streamed tile
+
+// warps of a backward CTA at D <= 64 (16 rows each; 4 at D 128, where 8
+// would not fit the dq kernel's tiles in shared memory): 4, measured faster
+// than 8 (see the note above)
+constexpr int kBwdWarps = 4;
+
+// the backward's CTA shape: warps and CTAs an SM
+__host__ __device__ constexpr int tc_bwd_warps(int dm) {
+  return dm <= 64 ? kBwdWarps : 4;
+}
+
+__host__ __device__ constexpr int tc_bwd_ctas(int dm) {
+  return tc_bwd_warps(dm) > 4 ? 1 : 2;
+}
 
 // query rows of the dk/dv kernel's streamed tile: 16 at D 128, where dk
 // and dv alone hold 128 accumulators a thread
@@ -605,7 +344,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // st) into shared memory (leading dimension DM + 4) by cp.async, zeros
 // past `rows` and D; vec: 16-byte copies (D, st and g 16-byte aligned); NT
 // threads copy
-template <int DM, int ROWS, int NT = kTcThreads>
+template <int DM, int ROWS, int NT>
 __device__ __forceinline__ void tile_async(float* s, const float* g,
                                            long long st, int r0, int rows,
                                            int D, bool vec) {
@@ -627,10 +366,10 @@ __device__ __forceinline__ void tile_async(float* s, const float* g,
 }
 
 // after cp.async.wait_group: split the elements of a tile that this thread
-// copied with tile_async<DM, ROWS> (so no barrier is needed first), big in
-// place, small `small` floats on; with ADD, first add add[d] (shared
+// copied with tile_async<DM, ROWS, NT> (so no barrier is needed first), big
+// in place, small `small` floats on; with ADD, first add add[d] (shared
 // memory, DM floats) to every element of column d
-template <int DM, int ROWS, bool ADD = false, int NT = kTcThreads>
+template <int DM, int ROWS, int NT, bool ADD = false>
 __device__ __forceinline__ void split_landed(float* s, int small, bool vec,
                                              const float* add = nullptr) {
   constexpr int LD = DM + 4;
@@ -662,8 +401,8 @@ __device__ __forceinline__ void split_landed(float* s, int small, bool vec,
   }
 }
 
-// g[c0 .. c0 + N) into s, zeros past n
-template <int N, int NT = kTcThreads>
+// g[c0 .. c0 + N) into s, zeros past n; NT threads copy
+template <int N, int NT>
 __device__ __forceinline__ void row_async(float* s, const float* g, int c0,
                                           int n) {
   for (int i = threadIdx.x; i < N; i += NT) {
@@ -672,18 +411,19 @@ __device__ __forceinline__ void row_async(float* s, const float* g, int c0,
   }
 }
 
-// the keep bit of the tensor-core kernels: keep_pair's, bit for bit (a
+// the keep bit of the attention kernels: keep_pair's, bit for bit (a
 // function of its own so that tools/flash_breakdown.py can compile
-// Philox out of the tensor-core kernels alone)
+// Philox out of them and not out of the mask entry)
 __device__ __forceinline__ bool tc_keep(const FlashParams& P, int key,
                                         int query, int bh) {
   return keep_pair(P, key, query, bh);
 }
 
 template <int DM, bool DROP>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(32 * tc_bwd_warps(DM), tc_bwd_ctas(DM))
 flash_bwd_dq_tc_kernel(const FlashParams P) {
-  constexpr int BK = kTcStream, LD = DM + 4, TILE = kTile * LD, KT = BK * LD,
+  constexpr int NT = 32 * tc_bwd_warps(DM), ROWS = NT / 2,  // 16 a warp
+                BK = kTcStream, LD = DM + 4, TILE = ROWS * LD, KT = BK * LD,
                 NJ = BK / 8, ND = DM / 8;
   extern __shared__ __align__(16) float tc_smem[];
   float* sQ = tc_smem;
@@ -694,22 +434,22 @@ flash_bwd_dq_tc_kernel(const FlashParams P) {
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / P.nh, h = bh - b * P.nh;
   const int tile = P.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = tile * kTile, D = P.D, off = P.Tk - P.Tq;
+  const int q0 = tile * ROWS, D = P.D, off = P.Tk - P.Tq;
   const bool vec = P.vec;
   const float* kb = P.k + b * P.k_sb + h * P.k_sh;
   const float* vb = P.v + b * P.v_sb + h * P.v_sh;
   const float* biasb =
       P.bias ? P.bias + b * P.bias_sb + h * P.bias_sh : nullptr;
 
-  tile_async<DM, kTile>(sQ, P.q + b * P.q_sb + h * P.q_sh, P.q_st, q0, P.Tq,
-                        D, vec);
-  tile_async<DM, kTile>(sdO, P.dout + b * P.do_sb + h * P.do_sh, P.do_st, q0,
-                        P.Tq, D, vec);
+  tile_async<DM, ROWS, NT>(sQ, P.q + b * P.q_sb + h * P.q_sh, P.q_st, q0,
+                           P.Tq, D, vec);
+  tile_async<DM, ROWS, NT>(sdO, P.dout + b * P.do_sb + h * P.do_sh, P.do_st,
+                           q0, P.Tq, D, vec);
   auto issue = [&](int k0, int s) {  // stage s <- the key tile at k0
     float* sk = sKV + s * 4 * KT;
-    tile_async<DM, BK>(sk, kb, P.k_st, k0, P.Tk, D, vec);
-    tile_async<DM, BK>(sk + KT, vb, P.v_st, k0, P.Tk, D, vec);
-    if (biasb) row_async<BK>(sBias + s * BK, biasb, k0, P.Tk);
+    tile_async<DM, BK, NT>(sk, kb, P.k_st, k0, P.Tk, D, vec);
+    tile_async<DM, BK, NT>(sk + KT, vb, P.v_st, k0, P.Tk, D, vec);
+    if (biasb) row_async<BK, NT>(sBias + s * BK, biasb, k0, P.Tk);
     cp_async_commit();
   };
   issue(0, 0);
@@ -725,13 +465,13 @@ flash_bwd_dq_tc_kernel(const FlashParams P) {
   const float* aO = sdO + (16 * warp + g) * LD + t;
 
   float acc[ND][4] = {};
-  const int k_end = key_end(P, q0);
+  const int k_end = key_end(P, q0, ROWS);
   for (int it = 0, k0 = 0; k0 < k_end; ++it, k0 += BK) {
     float* sK = sKV + (it & 1) * 4 * KT;
     const float* sV = sK + KT;
     cp_async_wait_all();
-    split_landed<DM, BK>(sK, 2 * KT, vec);
-    split_landed<DM, BK>(sK + KT, 2 * KT, vec);
+    split_landed<DM, BK, NT>(sK, 2 * KT, vec);
+    split_landed<DM, BK, NT>(sK + KT, 2 * KT, vec);
     __syncthreads();  // tile `it` landed for all; tile it - 1's stage is free
     if (k0 + BK < k_end) issue(k0 + BK, (it + 1) & 1);
     const float* sB = sBias + (it & 1) * BK;
@@ -793,10 +533,13 @@ flash_bwd_dq_tc_kernel(const FlashParams P) {
     }
 }
 
-template <int DM, bool DROP>
-__global__ void __launch_bounds__(kTcThreads, 2)
+// PACKED: dk and dv are written as the packed entries take them, head h
+// at column h*D of rows dk_st (dv_st) apart; else contiguous [B, H, Tk, D]
+template <int DM, bool PACKED, bool DROP>
+__global__ void __launch_bounds__(32 * tc_bwd_warps(DM), tc_bwd_ctas(DM))
 flash_bwd_dkv_tc_kernel(const FlashParams P) {
-  constexpr int BN = tc_dkv_rows(DM), LD = DM + 4, KT = kTile * LD,
+  constexpr int NT = 32 * tc_bwd_warps(DM), ROWS = NT / 2,  // 16 a warp
+                BN = tc_dkv_rows(DM), LD = DM + 4, KT = ROWS * LD,
                 QT = BN * LD, NJ = BN / 8, ND = DM / 8;
   extern __shared__ __align__(16) float tc_smem[];
   float* sK = tc_smem;         // key rows of this CTA
@@ -806,22 +549,22 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / P.nh, h = bh - b * P.nh;
-  const int k0 = blockIdx.y * kTile, D = P.D, off = P.Tk - P.Tq;
+  const int k0 = blockIdx.y * ROWS, D = P.D, off = P.Tk - P.Tq;
   const bool vec = P.vec;
   const float* qb = P.q + b * P.q_sb + h * P.q_sh;
   const float* dob = P.dout + b * P.do_sb + h * P.do_sh;
   const long long rows = (long long)bh * P.Tq;
 
-  tile_async<DM, kTile>(sK, P.k + b * P.k_sb + h * P.k_sh, P.k_st, k0, P.Tk,
-                        D, vec);
-  tile_async<DM, kTile>(sV, P.v + b * P.v_sb + h * P.v_sh, P.v_st, k0, P.Tk,
-                        D, vec);
+  tile_async<DM, ROWS, NT>(sK, P.k + b * P.k_sb + h * P.k_sh, P.k_st, k0,
+                           P.Tk, D, vec);
+  tile_async<DM, ROWS, NT>(sV, P.v + b * P.v_sb + h * P.v_sh, P.v_st, k0,
+                           P.Tk, D, vec);
   auto issue = [&](int q0, int s) {  // stage s <- the query tile at q0
     float* sq = sQdO + s * 4 * QT;
-    tile_async<DM, BN>(sq, qb, P.q_st, q0, P.Tq, D, vec);
-    tile_async<DM, BN>(sq + QT, dob, P.do_st, q0, P.Tq, D, vec);
-    row_async<BN>(sLD + s * 2 * BN, P.lse + rows, q0, P.Tq);
-    row_async<BN>(sLD + s * 2 * BN + BN, P.delta + rows, q0, P.Tq);
+    tile_async<DM, BN, NT>(sq, qb, P.q_st, q0, P.Tq, D, vec);
+    tile_async<DM, BN, NT>(sq + QT, dob, P.do_st, q0, P.Tq, D, vec);
+    row_async<BN, NT>(sLD + s * 2 * BN, P.lse + rows, q0, P.Tq);
+    row_async<BN, NT>(sLD + s * 2 * BN + BN, P.delta + rows, q0, P.Tq);
     cp_async_commit();
   };
   // under the causal mask, query tiles wholly before the first query that
@@ -846,8 +589,8 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
     float* sQ = sQdO + (it & 1) * 4 * QT;
     const float* sdO = sQ + QT;
     cp_async_wait_all();
-    split_landed<DM, BN>(sQ, 2 * QT, vec);
-    split_landed<DM, BN>(sQ + QT, 2 * QT, vec);
+    split_landed<DM, BN, NT>(sQ, 2 * QT, vec);
+    split_landed<DM, BN, NT>(sQ + QT, 2 * QT, vec);
     __syncthreads();  // tile `it` landed for all; tile it - 1's stage is free
     if (q0 + BN < P.Tq) issue(q0 + BN, (it + 1) & 1);
     const float* sL = sLD + (it & 1) * 2 * BN;
@@ -920,15 +663,22 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
     db_hi += __shfl_xor_sync(0xffffffffu, db_hi, o);
   }
   const long long krow = (long long)bh * P.Tk;
+  float* dkb = P.dk + (PACKED ? b * P.dk_sb + (long long)h * D : 0);
+  float* dvb = P.dv + (PACKED ? b * P.dv_sb + (long long)h * D : 0);
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int kj = e < 2 ? klo : khi, d = 8 * n + 2 * t + (e & 1);
       if (kj < P.Tk && d < D) {
-        const long long i = (krow + kj) * D + d;
-        P.dk[i] = dk[n][e] * P.scale;
-        P.dv[i] = dv[n][e];
+        if constexpr (PACKED) {
+          dkb[(long long)kj * P.dk_st + d] = dk[n][e] * P.scale;
+          dvb[(long long)kj * P.dv_st + d] = dv[n][e];
+        } else {  // contiguous: one index for both
+          const long long i = (krow + kj) * D + d;
+          P.dk[i] = dk[n][e] * P.scale;
+          P.dv[i] = dv[n][e];
+        }
       }
     }
   if (t == 0) {
@@ -950,7 +700,8 @@ flash_bwd_dkv_tc_kernel(const FlashParams P) {
 // stride D, its bias [B, Tk]): flash_fwd_packed's q, k, v, or
 // flash_fwd_qkv's packed qkv projection, biased as it lands.
 //
-// Bound: operations.  S = Q K^T and O += P~ V run as TF32
+// Bound: operations at the 4-D op's step and the ring's chunks, bytes at a
+// training layer (see the header).  S = Q K^T and O += P~ V run as TF32
 // mma.sync.m16n8k8 with the 3xTF32 split of the backward pair above:
 // 4 flops per visible (query, key, dim), three TF32 products per float32
 // one, 495 TFLOP/s.  What the design does:
@@ -1109,7 +860,7 @@ flash_fwd_tc_kernel(const FlashParams P) {
   } else {
     if constexpr (QKV) __syncthreads();  // the bias slices landed for all
     // Q's planes, published by the first tile's barrier
-    split_landed<DM, ROWS, QKV, NT>(sQ, QT, vec, sAdd);
+    split_landed<DM, ROWS, NT, QKV>(sQ, QT, vec, sAdd);
   }
 
   float o[ND][4] = {};
@@ -1119,8 +870,8 @@ flash_fwd_tc_kernel(const FlashParams P) {
     float* sK = sKV + (it & 1) * 4 * KT;
     const float* sV = sK + KT;
     cp_async_wait_all();
-    split_landed<DM, BK, QKV, NT>(sK, 2 * KT, vec, sAdd + DM);
-    split_landed<DM, BK, QKV, NT>(sK + KT, 2 * KT, vec, sAdd + 2 * DM);
+    split_landed<DM, BK, NT, QKV>(sK, 2 * KT, vec, sAdd + DM);
+    split_landed<DM, BK, NT, QKV>(sK + KT, 2 * KT, vec, sAdd + 2 * DM);
     __syncthreads();  // tile `it` landed for all; tile it - 1's stage is free
     if (k0 + BK < k_end) issue(k0 + BK, (it + 1) & 1);
     const float* sB = sBias + (it & 1) * BK;
@@ -1240,20 +991,11 @@ __global__ void dropout_mask_kernel(const FlashParams P, uint8_t* mask) {
   }
 }
 
-enum Which { kDq, kDkv, kFwdPacked, kFwdQkv, kFwdFlat, kDqFlat, kDkvFlat };
+enum Which { kFwdFlat, kFwdQkv, kFwdPacked, kDq, kDkvFlat, kDkvPacked };
 
-// the packed FMA backward kernels
-template <int DM>
-size_t smem_bytes(Which w) {
-  const size_t tile = (size_t)kTile * (DM + 1);
-  const size_t sq = (size_t)kTile * kLdS;
-  if (w == kDq) return (4 * tile + sq) * sizeof(float);
-  return (4 * tile + 2 * sq + 2 * kTile) * sizeof(float);
-}
-
-// the forwards (tensor cores); grid (B*H, query tiles)
+// the forwards; grid (B*H, query tiles)
 template <int DM, int LAYOUT>
-cudaError_t launch_tc_fwd(const FlashParams& P, cudaStream_t stream) {
+cudaError_t launch_fwd(const FlashParams& P, cudaStream_t stream) {
   void (*kernel)(const FlashParams) =
       P.dropout ? flash_fwd_tc_kernel<DM, LAYOUT, true>
                 : flash_fwd_tc_kernel<DM, LAYOUT, false>;
@@ -1269,53 +1011,45 @@ cudaError_t launch_tc_fwd(const FlashParams& P, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the flat backward pair (tensor cores); grid (B*H, tiles)
+// the backward pair, either layout; grid (B*H, tiles)
 template <int DM>
-cudaError_t launch_tc(Which w, const FlashParams& P, cudaStream_t stream) {
-  constexpr int LD = DM + 4;
-  const bool dq = w == kDqFlat;
+cudaError_t launch_bwd(Which w, const FlashParams& P, cudaStream_t stream) {
+  constexpr int LD = DM + 4, ROWS = 16 * tc_bwd_warps(DM);
+  const bool dq = w == kDq;
   void (*kernel)(const FlashParams) =
       dq ? (P.dropout ? flash_bwd_dq_tc_kernel<DM, true>
                       : flash_bwd_dq_tc_kernel<DM, false>)
-         : (P.dropout ? flash_bwd_dkv_tc_kernel<DM, true>
-                      : flash_bwd_dkv_tc_kernel<DM, false>);
+      : w == kDkvPacked ? (P.dropout ? flash_bwd_dkv_tc_kernel<DM, true, true>
+                                     : flash_bwd_dkv_tc_kernel<DM, true, false>)
+                        : (P.dropout ? flash_bwd_dkv_tc_kernel<DM, false, true>
+                                     : flash_bwd_dkv_tc_kernel<DM, false, false>);
   // dq: Q, dO and 2 stages of K, V (+ small parts) and the bias row;
   // dk/dv: K, V and 2 stages of Q, dO (+ small parts), lse and delta
   const int rows = dq ? kTcStream : tc_dkv_rows(DM);
   const size_t bytes =
-      (2 * kTile * LD + 8 * rows * LD + (dq ? 2 : 4) * rows) * sizeof(float);
-  const int tiles = ((dq ? P.Tq : P.Tk) + kTile - 1) / kTile;
+      (2 * ROWS * LD + 8 * rows * LD + (dq ? 2 : 4) * rows) * sizeof(float);
+  const int tiles = ((dq ? P.Tq : P.Tk) + ROWS - 1) / ROWS;
   if (tiles > 65535 || (long long)P.B * P.nh > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(P.B * P.nh, tiles), kTcThreads, bytes, stream>>>(P);
+  kernel<<<dim3(P.B * P.nh, tiles), 2 * ROWS, bytes, stream>>>(P);
   return cudaGetLastError();
 }
 
 template <int DM>
 cudaError_t launch_dm(Which w, const FlashParams& P, cudaStream_t stream) {
-  if (w == kDqFlat || w == kDkvFlat) return launch_tc<DM>(w, P, stream);
-  if (w == kFwdFlat) return launch_tc_fwd<DM, kFlatFwd>(P, stream);
-  if (w == kFwdQkv) return launch_tc_fwd<DM, kQkvFwd>(P, stream);
-  if (w == kFwdPacked) return launch_tc_fwd<DM, kPackedFwd>(P, stream);
-  void (*kernel)(const FlashParams) =
-      w == kDq ? flash_bwd_dq_kernel<DM> : flash_bwd_dkv_kernel<DM>;
-  const size_t bytes = smem_bytes<DM>(w);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int rows = w == kDkv ? P.Tk : P.Tq;
-  const dim3 grid((rows + kTile - 1) / kTile, P.nh, P.B);
-  kernel<<<grid, kThreads, bytes, stream>>>(P);
-  return cudaGetLastError();
+  if (w == kDq || w == kDkvFlat || w == kDkvPacked)
+    return launch_bwd<DM>(w, P, stream);
+  if (w == kFwdFlat) return launch_fwd<DM, kFlatFwd>(P, stream);
+  if (w == kFwdQkv) return launch_fwd<DM, kQkvFwd>(P, stream);
+  return launch_fwd<DM, kPackedFwd>(P, stream);
 }
 
 int launch(Which w, const FlashParams& P, void* stream) {
   if (P.B == 0 || P.nh == 0 || P.Tq == 0 || P.Tk == 0) return 0;
-  if (P.D <= 0 || P.D > 128 || P.B > 65535 || P.nh > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (P.D <= 0 || P.D > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (P.D <= 32) return (int)launch_dm<32>(w, P, s);
   if (P.D <= 64) return (int)launch_dm<64>(w, P, s);
@@ -1345,8 +1079,16 @@ FlashParams make_params(const float* q, long long q_sb, long long q_st,
   return P;
 }
 
-// the tensor-core kernels may load q, k, v and dout as 16-byte copies:
-// D, every stride and every base a multiple of 4 floats
+// the packed layout in the kernels' terms: heads D apart in every tensor,
+// the key bias one [Tk] row per batch
+void set_packed(FlashParams& P) {
+  P.q_sh = P.k_sh = P.v_sh = P.do_sh = P.out_sh = P.D;
+  P.bias_sb = P.Tk;
+  P.bias_sh = 0;
+}
+
+// the kernels may load q, k, v and dout as 16-byte copies: D, every stride
+// and every base a multiple of 4 floats
 bool vec_loads(const FlashParams& P) {
   const float* base[] = {P.q, P.k, P.v, P.dout};
   const long long strides[] = {P.q_sb, P.q_sh, P.q_st, P.k_sb, P.k_sh,
@@ -1379,11 +1121,7 @@ int flash_fwd_packed_f32(const float* q, long long q_sb, long long q_st,
                               seed0, seed1);
   P.out = o; P.out_sb = o_sb; P.out_st = o_st;
   P.lse_out = lse;
-  // the packed layout in the flat kernel's terms, as flash_fwd_qkv_f32's:
-  // heads D apart, the key bias one [Tk] row per batch
-  P.q_sh = P.k_sh = P.v_sh = P.out_sh = D;
-  P.bias_sb = Tk;
-  P.bias_sh = 0;
+  set_packed(P);
   P.vec = vec_loads(P);
   return launch(kFwdPacked, P, stream);
 }
@@ -1404,26 +1142,36 @@ int flash_bwd_dq_packed_f32(const float* q, long long q_sb, long long q_st,
   P.dout = dout; P.do_sb = do_sb; P.do_st = do_st;
   P.lse = lse; P.delta = delta;
   P.out = dq; P.out_sb = dq_sb; P.out_st = dq_st;
+  set_packed(P);
+  P.vec = vec_loads(P);
   return launch(kDq, P, stream);
 }
 
+// dk and dv [B, Tk, nh*D] at their own strides (the column slices of one
+// [B, T, 3H] dqkv, say); dbias [B, nh, Tk]
 int flash_bwd_dkv_packed_f32(const float* q, long long q_sb, long long q_st,
                              const float* k, long long k_sb, long long k_st,
                              const float* v, long long v_sb, long long v_st,
                              const float* bias, const float* dout,
                              long long do_sb, long long do_st,
                              const float* lse, const float* delta, float* dk,
-                             float* dv, float* dbias, int B, int nh, int Tq,
-                             int Tk, int D, float scale, int causal,
-                             float rate, unsigned int seed0,
-                             unsigned int seed1, void* stream) {
+                             long long dk_sb, long long dk_st, float* dv,
+                             long long dv_sb, long long dv_st, float* dbias,
+                             int B, int nh, int Tq, int Tk, int D,
+                             float scale, int causal, float rate,
+                             unsigned int seed0, unsigned int seed1,
+                             void* stream) {
   FlashParams P = make_params(q, q_sb, q_st, k, k_sb, k_st, v, v_sb, v_st,
                               bias, B, nh, Tq, Tk, D, scale, causal, rate,
                               seed0, seed1);
   P.dout = dout; P.do_sb = do_sb; P.do_st = do_st;
   P.lse = lse; P.delta = delta;
-  P.dk = dk; P.dv = dv; P.dbias = dbias;
-  return launch(kDkv, P, stream);
+  P.dk = dk; P.dk_sb = dk_sb; P.dk_st = dk_st;
+  P.dv = dv; P.dv_sb = dv_sb; P.dv_st = dv_st;
+  P.dbias = dbias;
+  set_packed(P);
+  P.vec = vec_loads(P);
+  return launch(kDkvPacked, P, stream);
 }
 
 // q, k, v at column offsets 0, H, 2H of the pre-bias packed projection
@@ -1443,11 +1191,7 @@ int flash_fwd_qkv_f32(const float* qkv, long long qkv_sb, long long qkv_st,
   P.qkv_bias = b_qkv;
   P.out = o; P.out_sb = o_sb; P.out_st = o_st;
   P.lse_out = lse;
-  // the packed layout in the flat kernel's terms: heads D apart, the key
-  // bias one [Tk] row per batch
-  P.q_sh = P.k_sh = P.v_sh = P.out_sh = D;
-  P.bias_sb = Tk;
-  P.bias_sh = 0;
+  set_packed(P);
   P.vec = vec_loads(P);
   return launch(kFwdQkv, P, stream);
 }
@@ -1499,7 +1243,7 @@ int flash_bwd_dq_flat_f32(const float* q, long long q_sb, long long q_sh,
   P.lse = lse; P.delta = delta;
   P.out = dq; P.out_sb = dq_sb; P.out_sh = dq_sh; P.out_st = dq_st;
   P.vec = vec_loads(P);
-  return launch(kDqFlat, P, stream);
+  return launch(kDq, P, stream);
 }
 
 int flash_bwd_dkv_flat_f32(const float* q, long long q_sb, long long q_sh,

@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..models.transformer import (lm_embed, lm_layer_finish, lm_layer_qkv,
                                   lm_logits, lm_params_from_numpy)
 from .kv_cache import DenseKVCache
@@ -101,13 +102,13 @@ class DraftModelDrafter:
     them."""
 
     def __init__(self, model_cfg, params, max_seqs, max_len,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=None):
         if max_len > model_cfg.max_position:
             raise ValueError(
                 f"draft model max_position {model_cfg.max_position} < "
                 f"engine max_seq_len {max_len}")
         self.model_cfg = model_cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = lm_params_from_numpy(params, self.device, dtype)
         self.max_seqs = int(max_seqs)
         self.max_len = int(max_len)
@@ -192,7 +193,7 @@ class DraftModelDrafter:
 
 
 def make_drafter(kind, *, spec_ngram=3, max_seqs=None, max_len=None,
-                 draft_model=None, dtype=torch.float32, device="cpu"):
+                 draft_model=None, dtype=torch.float32, device=None):
     """The drafter for ``GenerationConfig.speculation``; ``draft_model``
     is the ``(model_cfg, params)`` pair for ``kind == "draft"``."""
     if kind == "ngram":

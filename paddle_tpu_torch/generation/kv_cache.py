@@ -50,6 +50,7 @@ import hashlib
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .attention import (gathered_decode_attention, paged_decode_attention,
                         paged_plain_decode_attention)
 from .ragged_attention import ragged_paged_attention, ragged_ref_attention
@@ -155,7 +156,7 @@ class PagedKVCache(_CacheBase):
     kind = "paged"
 
     def __init__(self, num_layers, hidden, page_size, num_pages, max_seqs,
-                 max_len, dtype=torch.float32, device="cpu",
+                 max_len, dtype=torch.float32, device=None,
                  prefix_cache=False):
         if max_len % page_size:
             raise ValueError(
@@ -170,7 +171,7 @@ class PagedKVCache(_CacheBase):
         self.prefix_cache = bool(prefix_cache)
         self.k = torch.zeros(
             (num_layers, num_pages, page_size, hidden), dtype=dtype,
-            device=device)
+            device=resolve_device(device))
         self.v = torch.zeros_like(self.k)
         # page 0 = scratch; never handed out
         self._free = list(range(num_pages - 1, 0, -1))
@@ -524,7 +525,7 @@ class DenseKVCache(_CacheBase):
     kind = "dense"
 
     def __init__(self, num_layers, hidden, max_seqs, max_len,
-                 dtype=torch.float32, device="cpu", page_size=None,
+                 dtype=torch.float32, device=None, page_size=None,
                  num_pages=None, prefix_cache=False):
         if prefix_cache:
             raise ValueError(
@@ -534,7 +535,7 @@ class DenseKVCache(_CacheBase):
         self.prefix_cache = False
         self.k = torch.zeros(
             (num_layers, self.max_seqs + 1, self.max_len, hidden),
-            dtype=dtype, device=device)
+            dtype=dtype, device=resolve_device(device))
         self.v = torch.zeros_like(self.k)
 
     # dense admission never fragments: a free slot is all it needs

@@ -18,8 +18,9 @@ and its lse the same layout, so the packed backward kernels
 (``flash_bwd_dq_packed``, ``flash_bwd_dkv_packed``) differentiate it.
 
 Backward (the JAX VJP's): re-bias the saved pre-bias qkv, run the dq and
-dk/dv kernels on its three strided views, and close the bias and GEMM
-adjoints with torch ops.  CPU tensors take the plain versions
+dk/dv kernels on its three strided views, writing dq, dk and dv straight
+into the three column slices of one [B, T, 3H] dqkv, and close the bias
+and GEMM adjoints with torch ops.  CPU tensors take the plain versions
 (``qkv_ref_forward`` and ops/flash_attention.py's ``flash_ref_backward``)
 with a keep mask from a ``torch.Generator``.
 """
@@ -29,9 +30,10 @@ import math
 
 import torch
 
-from .flash_attention import (_key_padding, _cpu_keep_mask,
-                              flash_kernel_backward, flash_kernel_forward_qkv,
-                              flash_ref_backward, flash_ref_forward)
+from .flash_attention import (_key_padding, _cpu_keep_mask, flash_delta,
+                              flash_kernel_dkv, flash_kernel_dq,
+                              flash_kernel_forward_qkv, flash_ref_backward,
+                              flash_ref_forward)
 
 __all__ = ["attn_epilogue_shapes_ok", "key_padding_ok", "qkv_ref_forward",
            "plain_qkv_attention", "fused_qkv_attention"]
@@ -112,14 +114,22 @@ class _QKVAttention(torch.autograd.Function):
             do = do.contiguous()
         q, k, v = _split(qkv, b_qkv)      # rebias: strided [B, T, H] views
         if x.device.type == "cuda":
-            dq, dk, dv, dbias = flash_kernel_backward(
-                q, k, v, bias, o, lse, do, num_heads, causal, sm_scale,
-                dropout_rate, seed)
+            # the kernels write dq, dk and dv into dqkv's column slices
+            H = q.shape[-1]
+            dqkv = torch.empty_like(qkv)              # [B, T, 3H]
+            delta = flash_delta(o, do, num_heads)
+            kw = dict(causal=causal, sm_scale=sm_scale,
+                      dropout_rate=dropout_rate, seed=seed)
+            flash_kernel_dq(q, k, v, bias, do, lse, delta, num_heads,
+                            out=dqkv[..., :H], **kw)
+            dbias = flash_kernel_dkv(
+                q, k, v, bias, do, lse, delta, num_heads,
+                out=(dqkv[..., H:2 * H], dqkv[..., 2 * H:]), **kw)[2].sum(1)
         else:
             dq, dk, dv, dbias = flash_ref_backward(
                 q, k, v, bias, o, lse, do, num_heads, causal, sm_scale,
                 dropout_rate, mask)
-        dqkv = torch.cat([dq, dk, dv], dim=-1)        # [B, T, 3H]
+            dqkv = torch.cat([dq, dk, dv], dim=-1)    # [B, T, 3H]
         B, T, K = x.shape
         d2 = dqkv.reshape(B * T, -1)
         needs = ctx.needs_input_grad

@@ -25,8 +25,10 @@ tensors live and nothing else:
   its lane groups), and the same three on the flat layout,
   ``flash_fwd_flat``, ``flash_bwd_dq_flat`` and ``flash_bwd_dkv_flat``
   (head strides, a bias row per (batch, head), dbias kept per (batch,
-  head) as the JAX VJP returns it; the flat backward pair runs its
-  products on the tensor cores as 3xTF32, float32's accuracy).  Each
+  head) as the JAX VJP returns it).  All of them run their products on
+  the tensor cores as 3xTF32, float32's accuracy; the packed backward
+  pair writes dq, dk and dv through their strides, so a caller may hand
+  it the column slices of one [B, T, 3H] dqkv (``out=``).  Each
   wrapper adds one to
   ``_cuda.LAUNCHES[name]`` per launch and raises on anything its kernel
   cannot take (a bias that is not key-padding shaped, d_head > 128, a
@@ -153,8 +155,8 @@ _ARGTYPES = {
     "flash_fwd_packed_f32": _QKV + [_P, _LL, _LL, _P] + _DIMS,
     "flash_bwd_dq_packed_f32": _QKV + [_P, _LL, _LL, _P, _P, _P, _LL, _LL]
     + _DIMS,
-    "flash_bwd_dkv_packed_f32": _QKV + [_P, _LL, _LL, _P, _P, _P, _P, _P]
-    + _DIMS,
+    "flash_bwd_dkv_packed_f32": _QKV + [_P, _LL, _LL, _P, _P]
+    + [_P, _LL, _LL] * 2 + [_P] + _DIMS,
     "flash_dropout_mask_u8": [_P, _I, _I, _I, _I, _F, _U, _U, _P],
     "flash_fwd_qkv_f32": [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _P] + _DIMS,
 }
@@ -309,14 +311,28 @@ def _check_bwd(q, k, v, bias, do, lse, delta, num_heads):
     return B, Tq, Tk, H, D
 
 
+def _out(out, B, T, H, device, name):
+    """The caller's [B, T, H] output (any row and batch strides, the
+    head dimension contiguous), checked, or a new one."""
+    if out is None:
+        return torch.empty((B, T, H), dtype=torch.float32, device=device)
+    if tuple(out.shape) != (B, T, H) or out.dtype != torch.float32 \
+            or out.stride(2) != 1 or out.device != device:
+        raise ValueError(f"{name} must be float32 [{B}, {T}, {H}] on "
+                         f"{device} with a contiguous head dim; got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    return out
+
+
 def flash_kernel_dq(q, k, v, bias, do, lse, delta, num_heads, causal=False,
-                    sm_scale=None, dropout_rate=0.0, seed=0):
+                    sm_scale=None, dropout_rate=0.0, seed=0, out=None):
     """Launch ``flash_bwd_dq_packed`` (CUDA tensors only) -> dq
-    [B, Tq, H]."""
+    [B, Tq, H], written into ``out`` when given (a strided view, such as
+    a column slice of one [B, T, 3H] dqkv)."""
     B, Tq, Tk, H, D = _check_bwd(q, k, v, bias, do, lse, delta, num_heads)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    dq = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+    dq = _out(out, B, Tq, H, q.device, "out")
     lib = _cuda.library(KERNEL)
     with torch.cuda.device(q.device):
         rc = _fn(lib, "flash_bwd_dq_packed_f32")(
@@ -331,14 +347,16 @@ def flash_kernel_dq(q, k, v, bias, do, lse, delta, num_heads, causal=False,
 
 
 def flash_kernel_dkv(q, k, v, bias, do, lse, delta, num_heads, causal=False,
-                     sm_scale=None, dropout_rate=0.0, seed=0):
+                     sm_scale=None, dropout_rate=0.0, seed=0, out=None):
     """Launch ``flash_bwd_dkv_packed`` (CUDA tensors only) -> (dk, dv
-    [B, Tk, H], dbias per head [B, nh, Tk])."""
+    [B, Tk, H], dbias per head [B, nh, Tk]); dk and dv are written into
+    ``out = (dk, dv)`` when given (strided views, such as column slices of
+    one [B, T, 3H] dqkv)."""
     B, Tq, Tk, H, D = _check_bwd(q, k, v, bias, do, lse, delta, num_heads)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    dk = torch.empty((B, Tk, H), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dk, dv = (_out(o, B, Tk, H, q.device, name)
+              for o, name in zip(out or (None, None), ("out[0]", "out[1]")))
     dbias_h = torch.empty((B, num_heads, Tk), dtype=torch.float32,
                           device=q.device)
     lib = _cuda.library(KERNEL)
@@ -346,7 +364,7 @@ def flash_kernel_dkv(q, k, v, bias, do, lse, delta, num_heads, causal=False,
         rc = _fn(lib, "flash_bwd_dkv_packed_f32")(
             *_strided(q), *_strided(k), *_strided(v),
             None if bias is None else bias.data_ptr(), *_strided(do),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *_strided(dk), *_strided(dv),
             dbias_h.data_ptr(),
             *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal, dropout_rate,
                    seed, q.device))

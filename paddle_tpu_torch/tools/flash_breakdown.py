@@ -1,17 +1,19 @@
-"""Where the tensor-core flash kernels (``csrc/flash_attention.cu``) spend
-their time on the card: the forwards #4 ``flash_fwd_flat``, #9
-``flash_fwd_qkv`` and #3 ``flash_fwd_packed``, and the flat backward pair
-#7 ``flash_bwd_dq_flat`` and #8 ``flash_bwd_dkv_flat``.
+"""Where the flash kernels (``csrc/flash_attention.cu``) spend their time on
+the card: the forwards #4 ``flash_fwd_flat``, #9 ``flash_fwd_qkv`` and #3
+``flash_fwd_packed``, the flat backward pair #7 ``flash_bwd_dq_flat`` and
+#8 ``flash_bwd_dkv_flat``, and the packed backward pair #5
+``flash_bwd_dq_packed`` and #6 ``flash_bwd_dkv_packed``.
 
 A per-instruction profiler (ncu) does not run where the kernels are
 measured, so this script builds variants of the kernels from a patched
 copy of their source, each with one part compiled out, and times them
 beside the kernels as they are and PyTorch's fused attention (its forward
 beside #4, #9 and #3, its autograd backward, dq + dk + dv, beside #7 and
-#8): #4, #7 and #8 at phase 6's op step and phase 7's causal ring chunk
-(``chip_smoke.FLAT_CASES["op_step"]`` and ``["ring_p1"]``), #9 and #3 at
-one layer of the training step (``chip_smoke.QKV_CASES["step"]``, and
-``chip_smoke.FLASH_CASES["step"]`` with the model's dropout 0.1):
+#8 and beside #5 and #6): #4, #7 and #8 at phase 6's op step and phase
+7's causal ring chunk (``chip_smoke.FLAT_CASES["op_step"]`` and
+``["ring_p1"]``), #9, #3, #5 and #6 at one layer of the training step
+(``chip_smoke.QKV_CASES["step"]``, and ``chip_smoke.FLASH_CASES["step"]``
+with the model's dropout 0.1):
 
 * ``as_is``     - the kernels, first held against their plain versions;
 * ``no_mma``    - the tensor-core products compiled out (the fragment
@@ -24,11 +26,16 @@ one layer of the training step (``chip_smoke.QKV_CASES["step"]``, and
 * ``no_copies`` - the streamed tiles after the first never issued nor
   waited for (the MMAs run on whatever shared memory holds).
 
-The switches sit in the helpers the five kernels share, so each variant
-changes all five.  Only ``as_is`` computes the function; the rest are
-timings.  On the card: ``python3 -m paddle_tpu_torch.tools.flash_breakdown``;
-it prints one line per variant and case (the variants in order, then
-back) and writes ``chiprun_out/flash_breakdown.json``.
+The switches sit in the helpers the kernels share, so each variant
+changes all of them.  Only ``as_is`` computes the function; the rest are
+timings.  Beside the parts, the backward pair's CTA shape at D <= 64:
+``other_shape`` builds the other of its two shapes (4 warps, 64 rows,
+two CTAs an SM, or 8 warps, 128 rows, one; ``kBwdWarps``), checked
+against the plain backward too, and times #5 and #6 in six turns of each
+(as is, other, other, as is, ...).  On the card: ``python3 -m
+paddle_tpu_torch.tools.flash_breakdown``; it prints one line per variant
+and case (the variants in order, then back) and writes
+``chiprun_out/flash_breakdown.json``.
 """
 from __future__ import annotations
 
@@ -54,6 +61,9 @@ _SWITCHES = (
      "FB_NO_COPIES", ""),
     ("    if (q0 + BN < P.Tq) issue(q0 + BN, (it + 1) & 1);\n", 1,
      "FB_NO_COPIES", ""),
+    # the backward pair's other CTA shape
+    ("constexpr int kBwdWarps = 4;\n", 1, "FB_OTHER_SHAPE",
+     "constexpr int kBwdWarps = 8;\n"),
 )
 VARIANTS = {
     "as_is": (),
@@ -62,6 +72,9 @@ VARIANTS = {
     "no_philox": ("FB_NO_PHILOX",),
     "no_copies": ("FB_NO_COPIES",),
 }
+#: the build with the packed backward's other CTA shape, and its turns
+SHAPE_VARIANT = "other_shape"
+SHAPE_TURNS = 6
 FLAT_CASES = ("op_step", "ring_p1")
 QKV_CASE = "step"
 PACKED_CASE = "step"
@@ -89,7 +102,8 @@ def build(out_dir):
     src.write_text(patched_source(
         (_cuda.CSRC / "flash_attention.cu").read_text()))
     procs = {}
-    for name, macros in VARIANTS.items():
+    builds = {**VARIANTS, SHAPE_VARIANT: ("FB_OTHER_SHAPE",)}
+    for name, macros in builds.items():
         so = out_dir / f"lib{name}.so"
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS,
                *(f"-D{m}" for m in macros), "-o", str(so), str(src)]
@@ -209,6 +223,45 @@ def time_variants(libs, kernels, lib_fn, device, iters, label, cs, fa):
     return times, lib_ms
 
 
+def check_packed_bwd(c, do, o, lse, keep, cs, fa):
+    """#5 and #6 of the loaded library against the plain backward on the
+    case: the worst excess over the gradients' tolerance (raises past
+    it)."""
+    import torch
+
+    q, k, v, kp, nh = c["q"], c["k"], c["v"], c["bias"], c["num_heads"]
+    kw = dict(causal=c["causal"], dropout_rate=PACKED_RATE)
+    got = fa.flash_kernel_backward(q, k, v, kp, o, lse, do, nh,
+                                   seed=c["seed"], **kw)
+    want = fa.flash_ref_backward(q, k, v, kp, o, lse, do, nh, keep_mask=keep,
+                                 **kw)
+    torch.cuda.synchronize()
+    excess = max(cs._tol_excess(a, b, cs.FLASH_GRAD_ATOL, cs.FLASH_GRAD_RTOL)
+                 for a, b in zip(got, want))
+    if not excess <= cs.FLASH_GRAD_ATOL:
+        raise AssertionError(f"the packed backward disagrees with its plain "
+                             f"version (gradients' excess {excess:.3e})")
+    return excess
+
+
+def time_turns(libs, kernels, names, turns, device, label, cs, fa):
+    """Each kernel under each named build in turns (a, b, then b, a, and
+    so on): {build: {kernel: [ms] * turns}}."""
+    from paddle_tpu_torch import _cuda
+
+    times = {name: {kn: [] for kn in kernels} for name in names}
+    for i in range(turns):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            _cuda._libs[fa.KERNEL] = libs[name]
+            for kn, fn in kernels.items():
+                times[name][kn].append(cs.time_ms(fn, device))
+            print(f"  {label} turn {i} {name}: " + ", ".join(
+                f"{kn} {times[name][kn][-1]:.5f} ms" for kn in kernels),
+                flush=True)
+    _cuda._libs[fa.KERNEL] = libs["as_is"]
+    return times
+
+
 def main():
     import torch
 
@@ -296,7 +349,7 @@ def main():
     # #3 at a training layer: q, k, v column slices of one [B, T, 3H]
     # projection, the key padding, dropout
     spec = cs.FLASH_CASES[PACKED_CASE][:-1] + (PACKED_RATE,)
-    c, _ = cs.flash_case(device, *spec)
+    c, do = cs.flash_case(device, *spec)
     q, k, v, kp, nh = c["q"], c["k"], c["v"], c["bias"], c["num_heads"]
     B, T, H = q.shape
     kw = dict(bias=kp, causal=c["causal"], dropout_rate=PACKED_RATE)
@@ -325,6 +378,38 @@ def main():
         shape=dict(B=B, T=T, nh=nh, D=H // nh, causal=c["causal"],
                    dropout=PACKED_RATE, bias=True),
         ms=times, sdpa_forward_ms=lib_ms, as_is=dict(forward_err=err))
+
+    # #5 and #6 on the same inputs: the parts beside SDPA's backward, then
+    # the two CTA shapes in turns
+    delta = fa.flash_delta(o, do, nh)
+    bw = dict(causal=c["causal"], dropout_rate=PACKED_RATE, seed=c["seed"])
+    bwd = {"dq": lambda: fa.flash_kernel_dq(q, k, v, kp, do, lse, delta, nh,
+                                            **bw),
+           "dkv": lambda: fa.flash_kernel_dkv(q, k, v, kp, do, lse, delta,
+                                              nh, **bw)}
+    excess = {}
+    for name in ("as_is", SHAPE_VARIANT):
+        _cuda._libs[fa.KERNEL] = libs[name]
+        excess[name] = check_packed_bwd(c, do, o, lse, keep, cs, fa)
+    _cuda._libs[fa.KERNEL] = libs["as_is"]
+    leaves = [t.requires_grad_() for t in heads]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4,
+                                             dropout_p=PACKED_RATE)
+    do_h = do.reshape(B, T, nh, H // nh).transpose(1, 2).contiguous()
+    label = f"packed_bwd_{PACKED_CASE}"
+    times, lib_ms = time_variants(
+        libs, bwd, lambda: torch.autograd.grad(lib_out, leaves, do_h,
+                                               retain_graph=True),
+        device, 200, label, cs, fa)
+    print(f"  {label} SDPA backward: {lib_ms[0]:.5f}, {lib_ms[1]:.5f} ms",
+          flush=True)
+    turns = time_turns(libs, bwd, ["as_is", SHAPE_VARIANT], SHAPE_TURNS,
+                       device, label, cs, fa)
+    report["cases"][label] = dict(
+        shape=dict(B=B, T=T, nh=nh, D=H // nh, causal=c["causal"],
+                   dropout=PACKED_RATE, bias=True),
+        ms=times, sdpa_backward_ms=lib_ms, grad_excess=excess,
+        shape_turns=turns)
     cs.OUT_DIR.mkdir(exist_ok=True)
     (cs.OUT_DIR / "flash_breakdown.json").write_text(
         json.dumps(report, indent=1))

@@ -19,7 +19,8 @@ dq, dk, dv and dbias sum up to a few hundred products of unit-scale
 values per element (dbias over heads and queries too), in float32, in
 another order than the plain version's matmuls; the flat kernels take
 the same tolerances, up to 4096 keys (their 3xTF32 products round as
-float32 does).  The qkv-folded forward takes the flash forward's
+float32 does), and so does the packed backward pair through its 4-byte
+copies.  The qkv-folded forward takes the flash forward's
 tolerance, its gradients through the dq and dk/dv kernels the flash
 gradients'; the tensor-core forwards (#4, #9) hold the forward's at T
 4096 and through their 4-byte copies too.  Fused matmul and FFN chain:
@@ -294,6 +295,78 @@ def test_packed_forward_is_deterministic_and_matches_plain(device, B, Tq, Tk,
     torch.testing.assert_close(runs[0][0], o_ref, atol=FLASH_FWD_ATOL, rtol=0)
     torch.testing.assert_close(runs[0][1], lse_ref, atol=FLASH_FWD_ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+def test_packed_backward_is_deterministic(device, rate):
+    """Each dq, dk, dv and dbias element of the packed backward pair (#5,
+    #6) is written by one CTA (no atomics): two launches give the same
+    bits, with and without dropout."""
+    c, do = _flash_case(device, 8, 128, 128, 12, 64, False, True, rate,
+                        seed=6)
+    nh, kw = c["num_heads"], dict(dropout_rate=rate, seed=c["seed"])
+    o, lse = fa.flash_kernel_forward(c["q"], c["k"], c["v"], nh,
+                                     bias=c["bias"], **kw)
+    runs = [fa.flash_kernel_backward(c["q"], c["k"], c["v"], c["bias"], o,
+                                     lse, do, nh, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["row_stride", "base"])
+def test_packed_backward_four_byte_copies_match_plain(device, offset):
+    """The 4-byte copy path of the packed backward pair (16-byte copies
+    need D, every stride and every base a multiple of 4 floats): q, k, v
+    and do read at a d_head of 36 through views whose row stride (or
+    base) is not a multiple of 4 floats, causal over two row tiles, with
+    dropout, match the plain backward."""
+    B, T, nh, D, rate, seed = 2, 130, 3, 36, 0.1, 23
+    H = nh * D
+    g = torch.Generator().manual_seed(7)
+    wide = torch.randn(B, T, 4 * H + 1, generator=g).to(device)
+    q, k, v, do = (wide[..., offset + i * H:offset + (i + 1) * H]
+                   for i in range(4))
+    bias = torch.zeros(B, T)
+    bias[:, T - T // 4:] = -1e4
+    bias = bias.to(device)
+    mask = fa.flash_kernel_dropout_mask(B, nh, T, T, rate, seed, device)
+    kw = dict(causal=True, dropout_rate=rate)
+    o, lse = fa.flash_ref_forward(q, k, v, nh, bias, keep_mask=mask, **kw)
+    got = fa.flash_kernel_backward(q, k, v, bias, o, lse, do, nh, seed=seed,
+                                   **kw)
+    want = fa.flash_ref_backward(q, k, v, bias, o, lse, do, nh,
+                                 keep_mask=mask, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a, r, msg=name, **FLASH_GRAD_TOL)
+
+
+def test_packed_backward_writes_the_slices_of_one_dqkv(device):
+    """Given ``out=``, the dq and dk/dv kernels write the three column
+    slices of one [B, T, 3H] dqkv (row stride 3H), bit for bit what they
+    write into tensors of their own, and nothing else of it."""
+    c, do = _flash_case(device, 4, 128, 128, 12, 64, False, True, 0.1,
+                        seed=8)
+    q, k, v, nh = c["q"], c["k"], c["v"], c["num_heads"]
+    kw = dict(dropout_rate=0.1, seed=c["seed"])
+    o, lse = fa.flash_kernel_forward(q, k, v, nh, bias=c["bias"], **kw)
+    delta = fa.flash_delta(o, do, nh)
+    args = (q, k, v, c["bias"], do, lse, delta, nh)
+    H = q.shape[-1]
+    dqkv = torch.full((4, 128, 3 * H), float("nan"), device=device)
+    dq = fa.flash_kernel_dq(*args, out=dqkv[..., :H], **kw)
+    dk, dv, dbias = fa.flash_kernel_dkv(
+        *args, out=(dqkv[..., H:2 * H], dqkv[..., 2 * H:]), **kw)
+    own = (fa.flash_kernel_dq(*args, **kw), *fa.flash_kernel_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert dq.data_ptr() == dqkv.data_ptr()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"),
+                          (dq, dk, dv, dbias), own):
+        assert torch.equal(a, b), name
+    assert torch.equal(dqkv, torch.cat(own[:3], dim=-1))
+    with pytest.raises(ValueError, match="out"):
+        fa.flash_kernel_dq(*args, out=dqkv[..., :H - 1], **kw)
 
 
 def test_flash_op_trains_through_the_kernels(device):

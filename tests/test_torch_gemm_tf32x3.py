@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import fused_matmul as fm
-from test_torch_flash_tf32x3 import SPLIT_GAIN, split
+from test_torch_flash_tf32x3 import SPLIT_GAIN, round_to_zero, split
 
 #: chip_smoke.py's EPI_ATOL / EPI_RTOL (unchanged)
 EPI_ATOL = EPI_RTOL = 1e-4
@@ -91,14 +91,6 @@ def _named(name):
     return _case(*CASES[name], seed=sorted(CASES).index(name))
 
 
-def _round_to_zero(v):
-    """float64 -> float32, rounded toward zero."""
-    f = v.float()
-    over = f.double().abs() > v.abs()
-    f[over] = torch.nextafter(f[over], torch.zeros_like(f[over]))
-    return f
-
-
 def tensor_core_gemm(x, w, passes, steps=True):
     """x w as the kernel's MMAs: per k8 step, 3xTF32 (big.small,
     small.big, big.big) or with passes=1 big.big alone, each MMA's exact
@@ -112,7 +104,7 @@ def tensor_core_gemm(x, w, passes, steps=True):
     for k0 in range(0, x.shape[1], 8):
         t = torch.zeros_like(c) if steps else c
         for a, b in terms:
-            t = _round_to_zero(t.double() + a[:, k0:k0 + 8] @ b[k0:k0 + 8])
+            t = round_to_zero(t.double() + a[:, k0:k0 + 8] @ b[k0:k0 + 8])
         c = c + t if steps else t
     return c
 

@@ -25,7 +25,7 @@ GEOM = dict(num_layers=2, hidden=16, page_size=4, num_pages=13,
 
 
 def _both():
-    return JCache(**GEOM), PagedKVCache(**GEOM)
+    return JCache(**GEOM), PagedKVCache(**GEOM, device="cpu")
 
 
 def _same_state(j, t):
@@ -71,7 +71,7 @@ def test_exhaustion_raises_like_the_reference():
 
 
 def test_audit_catches_corruption():
-    t = PagedKVCache(**GEOM)
+    t = PagedKVCache(**GEOM, device="cpu")
     t.admit(0, 6)
     t.page_table[1, 0] = 5          # a stale entry beyond owned range
     with pytest.raises(AssertionError, match="stale"):
@@ -127,10 +127,19 @@ def test_prefix_cache_is_a_later_slice():
     """The prefix cache came with the second slice of the port; the
     cross-process page export/import of the cluster handoff is still a
     later one and raises."""
-    t = PagedKVCache(**GEOM, prefix_cache=True)
+    t = PagedKVCache(**GEOM, prefix_cache=True, device="cpu")
     assert t.prefix_cache and t.prefix_counters()["lookups"] == 0
     t.admit(0, 5, tokens=np.arange(5))
     for call in (lambda: t.export_seq(0, 5),
                  lambda: t.import_span(0, 0, None, None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             call()
+
+
+def test_cache_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``device=None`` is the card, as for the engine: with no card
+    visible the cache raises rather than build CPU tensors silently."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(**GEOM)
+    assert PagedKVCache(**GEOM, device="cpu").k.device.type == "cpu"

@@ -38,8 +38,8 @@ GEOM = dict(num_layers=2, hidden=4, page_size=4, num_pages=16, max_seqs=4,
 
 def _both(**geom):
     g = {**GEOM, **geom}
-    return JCache(**g, prefix_cache=True), PagedKVCache(**g,
-                                                         prefix_cache=True)
+    return JCache(**g, prefix_cache=True), PagedKVCache(
+        **g, prefix_cache=True, device="cpu")
 
 
 def _same_state(j, t):
@@ -146,7 +146,7 @@ def test_randomized_sequence_follows_the_reference():
 
 
 def test_copy_on_write_copies_the_shared_page_in_place():
-    t = PagedKVCache(**GEOM, prefix_cache=True)
+    t = PagedKVCache(**GEOM, prefix_cache=True, device="cpu")
     toks = np.arange(9)
     t.admit(0, 9, tokens=toks)
     t.k.copy_(torch.randn_like(t.k))
