@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result):
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, with its time, the plain
    version's time, a PyTorch library call's time and the least time the
-   card could take (its bound); the qkv-folded forward's gradients
+   card could take (its bound) — the two serving kernels also at a
+   serving-scale "long" case (64 sequences of up to 2048 keys, K/V far
+   past the L2) and each with its launch floor (the same launch with
+   every length 0); the qkv-folded forward's gradients
    through the dq and dk/dv kernels, and the fused matmul's and FFN
    chain's through their autograd functions, against the plain ones;
 3. the generation engine at BertConfig.base() (random weights from a
@@ -305,41 +308,73 @@ def time_ms(fn, device, iters=200, warm=10):
 
 # -- phase 2: kernel against its plain version ------------------------------
 
+#: the serving-scale "long" cases of phase 2: a decode batch of
+#: LONG_SLOTS sequences of up to LONG_PPS pages (2048 keys) at BERT-base
+#: width, the ragged step's last slot prefilling a LONG_CHUNK-row chunk at
+#: positions LONG_CHUNK_START.. (causal).  Their K/V (~0.8 GB of pool,
+#: about half of it live) is far past the card's 50 MB L2, so the kernels
+#: read it from HBM, where their byte bound is the real limit
+LONG_SLOTS, LONG_PPS, LONG_CHUNK, LONG_CHUNK_START = 64, 128, 64, 1024
+
+
+def _randn_pages(num_pages, hidden, device, seed):
+    """k_pages, v_pages [num_pages, PAGE_SIZE, hidden] drawn on the
+    device itself (a long case's pool is ~0.8 GB)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(num_pages, PAGE_SIZE, hidden, generator=g,
+                        device=device) for _ in range(2)]
+
+
 def ragged_case(rng, kind, num_heads, hidden, block_rows, device):
     """One step's ragged-attention inputs as the engine builds them:
-    MAX_SEQS slots of PAGE_SIZE-token pages (pool = every slot at full
-    length + scratch page 0), a decode block per slot, then the prefill
-    chunk blocks bound to the last slot, which is still prefilling (its
-    decode row is inactive).  ``kind``:
+    slots of PAGE_SIZE-token pages (pool = every slot at full length +
+    scratch page 0), a decode block per slot, then the prefill chunk
+    blocks bound to the last slot, which is still prefilling (its decode
+    row is inactive).  ``kind``:
 
-    * "step" — decode lengths at random in [1, MAX_SEQ_LEN] (mostly not
-      page multiples), the chunk = prompt positions 16..31 (causal);
-    * "full" — every decode row at MAX_SEQ_LEN, the chunk at 0..15.
+    * "step" — MAX_SEQS slots, decode lengths at random in [1,
+      MAX_SEQ_LEN] (mostly not page multiples), the chunk = prompt
+      positions 16..31 (causal);
+    * "full" — every decode row at MAX_SEQ_LEN, the chunk at 0..15;
+    * "long" — LONG_SLOTS slots of LONG_PPS pages, decode lengths at
+      random in [1, LONG_PPS * PAGE_SIZE], the chunk = LONG_CHUNK rows at
+      LONG_CHUNK_START.. (K/V drawn on the device).
     """
     import torch
 
-    pps = MAX_SEQ_LEN // PAGE_SIZE
-    num_pages = MAX_SEQS * pps + 1
-    chunk_rows = 16
-    nb = MAX_SEQS + -(-chunk_rows // block_rows)
+    long = kind == "long"
+    slots = LONG_SLOTS if long else MAX_SEQS
+    pps = LONG_PPS if long else MAX_SEQ_LEN // PAGE_SIZE
+    cap = pps * PAGE_SIZE
+    num_pages = slots * pps + 1
+    chunk_rows = LONG_CHUNK if long else 16
+    nb = slots + -(-chunk_rows // block_rows)
     R = nb * block_rows
-    pages = rng.permutation(np.arange(1, num_pages)).reshape(MAX_SEQS, pps)
+    pages = rng.permutation(np.arange(1, num_pages)).reshape(slots, pps)
     tables = np.zeros((nb, pps), np.int32)
     lens = np.zeros(R, np.int32)
-    for s in range(MAX_SEQS - 1):
+    for s in range(slots - 1):
         tables[s] = pages[s]
-        lens[s * block_rows] = (MAX_SEQ_LEN if kind == "full"
-                                else rng.randint(1, MAX_SEQ_LEN + 1))
-    prefill = MAX_SEQS - 1
-    start = 0 if kind == "full" else 16
+        lens[s * block_rows] = (cap if kind == "full"
+                                else rng.randint(1, cap + 1))
+    prefill = slots - 1
+    start = {"full": 0, "step": 16, "long": LONG_CHUNK_START}[kind]
     for j in range(chunk_rows):
-        blk = MAX_SEQS + j // block_rows
+        blk = slots + j // block_rows
         tables[blk] = pages[prefill]
         lens[blk * block_rows + j % block_rows] = start + j + 1
-    g = torch.Generator().manual_seed(int(rng.randint(2 ** 31)))
-    kp = torch.randn(num_pages, PAGE_SIZE, hidden, generator=g)
-    vp = torch.randn(num_pages, PAGE_SIZE, hidden, generator=g)
-    q = torch.randn(R, hidden, generator=g)
+    seed = int(rng.randint(2 ** 31))
+    if long:
+        kp, vp = _randn_pages(num_pages, hidden, device, seed)
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        q = torch.randn(R, hidden, generator=g, device=device)
+    else:
+        g = torch.Generator().manual_seed(seed)
+        kp = torch.randn(num_pages, PAGE_SIZE, hidden, generator=g)
+        vp = torch.randn(num_pages, PAGE_SIZE, hidden, generator=g)
+        q = torch.randn(R, hidden, generator=g)
     return dict(q=q.to(device), k_pages=kp.to(device), v_pages=vp.to(device),
                 block_tables=torch.from_numpy(tables).to(device),
                 row_lens=torch.from_numpy(lens).to(device),
@@ -354,33 +389,76 @@ def ragged_bound_ms(case):
     lens = case["row_lens"].cpu().numpy()
     R, H = case["q"].shape
     bm = case["block_rows"]
-    needed = set()
+    needed = np.zeros((case["k_pages"].shape[0], PAGE_SIZE), bool)
     flops = 0
     for r in range(R):
         n = int(min(lens[r], tables.shape[1] * PAGE_SIZE))
-        for j in range(n):
-            needed.add((int(tables[r // bm, j // PAGE_SIZE]), j % PAGE_SIZE))
+        full, rem = divmod(n, PAGE_SIZE)
+        row = tables[r // bm]
+        needed[row[:full]] = True
+        if rem:
+            needed[row[full], :rem] = True
         flops += 4 * n * H
     nbytes = (2 * R * H * 4 + tables.size * 4 + lens.size * 4
-              + len(needed) * H * 4 * 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, flops)
+              + int(needed.sum()) * H * 4 * 2)
+    return _bound(flops, nbytes)
 
 
-def kernel_phase(device, model_cfg):
+def paged_timing(fn, plain, case, tables, lens_key, bound, device):
+    """Device times of one case: the kernel, its launch floor (the same
+    kernel on the same shapes with every length 0), the plain version,
+    PyTorch's fused attention over the rows' context gathered beforehand
+    (a yardstick the port never calls), and the bound."""
     import torch
     import torch.nn.functional as F
 
+    ms = time_ms(lambda: fn(**case), device)
+    empty = dict(case, **{lens_key: torch.zeros_like(case[lens_key])})
+    floor_ms = time_ms(lambda: fn(**empty), device)
+    plain_ms = time_ms(lambda: plain(**case), device)
+    R, H = case["q"].shape
+    nh = case["num_heads"]
+    D = H // nh
+    L = tables.shape[1] * PAGE_SIZE
+    idx = tables.long()
+    kctx = case["k_pages"][idx].reshape(R, L, nh, D).transpose(1, 2)
+    vctx = case["v_pages"][idx].reshape(R, L, nh, D).transpose(1, 2)
+    qh = case["q"].reshape(R, nh, 1, D)
+    mask = (torch.arange(L, device=device)[None, None, None, :]
+            < case[lens_key].long()[:, None, None, None])
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kctx, vctx, attn_mask=mask), device)
+    del kctx, vctx
+    bound_ms, bound_by, nbytes, flops = bound(case)
+    return dict(ms=ms, floor_ms=floor_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops)
+
+
+def log_timing(what, case_name, t):
+    log(f"  {what} timing ({case_name} case): ms={t['ms']:.5f} "
+        f"floor_ms(every length 0)={t['floor_ms']:.5f} plain_ms="
+        f"{t['plain_ms']:.5f} library_ms(sdpa, context pre-gathered)="
+        f"{t['library_ms']:.5f} bound_ms={t['bound_ms']:.6f} "
+        f"({t['bound_by']}: {t['bytes']} bytes, {t['flops']} flops)")
+
+
+def ragged_cases(device, model_cfg):
+    """Phase 2's ragged-attention cases, from the phase's seed."""
+    rng = np.random.RandomState(SEED + 100)
+    nh, H = model_cfg.num_heads, model_cfg.hidden_size
+    return {"step": ragged_case(rng, "step", nh, H, 1, device),
+            "step_block_rows_2": ragged_case(rng, "step", nh, H, 2, device),
+            "full": ragged_case(rng, "full", nh, H, 1, device),
+            "long": ragged_case(rng, "long", nh, H, 1, device)}
+
+
+def kernel_phase(device, model_cfg):
     from paddle_tpu_torch.generation.ragged_attention import (
         ragged_paged_attention, ragged_ref_attention)
 
-    rng = np.random.RandomState(SEED + 100)
     nh, H = model_cfg.num_heads, model_cfg.hidden_size
-    cases = {"step": ragged_case(rng, "step", nh, H, 1, device),
-             "step_block_rows_2": ragged_case(rng, "step", nh, H, 2, device),
-             "full": ragged_case(rng, "full", nh, H, 1, device)}
+    cases = ragged_cases(device, model_cfg)
     worst = 0.0
     report = {}
     for name, c in cases.items():
@@ -392,70 +470,63 @@ def kernel_phase(device, model_cfg):
         zeros = bool((out[inactive] == 0).all())
         rows = c["q"].shape[0]
         log(f"  kernel {name}: R={rows} H={H} heads={nh} block_rows="
-            f"{c['block_rows']} inactive_rows={len(inactive)} "
-            f"max_abs_err={err:.3e} (atol {KERNEL_ATOL:g}) "
-            f"inactive_exact_zero={zeros}")
+            f"{c['block_rows']} pages_per_seq={c['block_tables'].shape[1]} "
+            f"inactive_rows={len(inactive)} max_abs_err={err:.3e} (atol "
+            f"{KERNEL_ATOL:g}) inactive_exact_zero={zeros}")
         if not np.isfinite(err) or err > KERNEL_ATOL or not zeros:
             raise AssertionError(f"kernel disagrees with plain on {name}")
         worst = max(worst, err)
         report[name] = dict(rows=rows, block_rows=c["block_rows"],
                             max_abs_err=err)
+        del out, ref
 
-    c = cases["step"]
-    ms = time_ms(lambda: ragged_paged_attention(**c), device)
-    plain_ms = time_ms(lambda: ragged_ref_attention(**c), device)
-    # yardstick: PyTorch's fused attention over the same rows' context,
-    # gathered beforehand (the port never calls it)
-    R = c["q"].shape[0]
-    D = H // nh
-    rows = c["block_tables"].long().repeat_interleave(c["block_rows"], 0)
-    L = rows.shape[1] * PAGE_SIZE
-    kctx = c["k_pages"][rows].reshape(R, L, nh, D).transpose(1, 2)
-    vctx = c["v_pages"][rows].reshape(R, L, nh, D).transpose(1, 2)
-    qh = c["q"].reshape(R, nh, 1, D)
-    mask = (torch.arange(L, device=device)[None, None, None, :]
-            < c["row_lens"].long()[:, None, None, None])
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kctx, vctx, attn_mask=mask), device)
-    bound_ms, bound_by, nbytes, flops = ragged_bound_ms(c)
-    log(f"  kernel timing (step case): ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"library_ms(sdpa, context pre-gathered)={library_ms:.5f} "
-        f"bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} bytes, {flops} "
-        f"flops)")
-    report["timing"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            bytes=nbytes, flops=flops)
+    for name, key in (("step", "timing"), ("long", "timing_long")):
+        c = cases[name]
+        tables = c["block_tables"].repeat_interleave(c["block_rows"], 0)
+        report[key] = paged_timing(
+            ragged_paged_attention, ragged_ref_attention, c, tables,
+            "row_lens", ragged_bound_ms, device)
+        log_timing("kernel", name, report[key])
     report["max_abs_err"] = worst
     return report
 
 
-def decode_case(rng, head_dim, device, tight=False):
-    """One legacy decode step's paged-decode inputs: MAX_SEQS slots,
-    hidden 768 split into heads of ``head_dim``, PAGE_SIZE-token pages,
-    lengths drawn from 0..MAX_SEQ_LEN with 0, 1, one page, one page + 1
-    and the full capacity among them.  The pool holds every slot's full
-    table (65 pages at the slice's shapes) or, ``tight``, only the live
-    pages, with the tables' tails on scratch page 0 as the cache leaves
-    them."""
+def decode_case(rng, head_dim, device, tight=False, long=False):
+    """One legacy decode step's paged-decode inputs: MAX_SEQS slots (or,
+    ``long``, LONG_SLOTS slots of up to LONG_PPS pages, K/V drawn on the
+    device), hidden 768 split into heads of ``head_dim``, PAGE_SIZE-token
+    pages, lengths drawn from 0..capacity with 0, 1, one page, one page
+    + 1 and the full capacity among them.  The pool holds every slot's
+    full table (65 pages at the slice's shapes) or, ``tight``, only the
+    live pages, with the tables' tails on scratch page 0 as the cache
+    leaves them."""
     import torch
 
     H = 768
-    pps = MAX_SEQ_LEN // PAGE_SIZE
-    lens = rng.randint(0, MAX_SEQ_LEN + 1, MAX_SEQS)
-    lens[:5] = (0, 1, PAGE_SIZE, PAGE_SIZE + 1, MAX_SEQ_LEN)
+    slots = LONG_SLOTS if long else MAX_SEQS
+    pps = LONG_PPS if long else MAX_SEQ_LEN // PAGE_SIZE
+    cap = pps * PAGE_SIZE
+    lens = rng.randint(0, cap + 1, slots)
+    lens[:5] = (0, 1, PAGE_SIZE, PAGE_SIZE + 1, cap)
     live = [-(-int(n) // PAGE_SIZE) for n in lens]
-    num_pages = 1 + (sum(live) if tight else MAX_SEQS * pps)
+    num_pages = 1 + (sum(live) if tight else slots * pps)
     pages = rng.permutation(np.arange(1, num_pages))
-    tables = np.zeros((MAX_SEQS, pps), np.int32)
+    tables = np.zeros((slots, pps), np.int32)
     at = 0
-    for s in range(MAX_SEQS):
+    for s in range(slots):
         n = live[s] if tight else pps
         tables[s, :n] = pages[at:at + n]
         at += n
-    g = torch.Generator().manual_seed(int(rng.randint(2 ** 31)))
-    kp = torch.randn(num_pages, PAGE_SIZE, H, generator=g)
-    vp = torch.randn(num_pages, PAGE_SIZE, H, generator=g)
-    q = torch.randn(MAX_SEQS, H, generator=g)
+    seed = int(rng.randint(2 ** 31))
+    if long:
+        kp, vp = _randn_pages(num_pages, H, device, seed)
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        q = torch.randn(slots, H, generator=g, device=device)
+    else:
+        g = torch.Generator().manual_seed(seed)
+        kp = torch.randn(num_pages, PAGE_SIZE, H, generator=g)
+        vp = torch.randn(num_pages, PAGE_SIZE, H, generator=g)
+        q = torch.randn(slots, H, generator=g)
     return dict(q=q.to(device), k_pages=kp.to(device), v_pages=vp.to(device),
                 page_table=torch.from_numpy(tables).to(device),
                 eff_lens=torch.from_numpy(lens.astype(np.int32)).to(device),
@@ -466,33 +537,34 @@ def decode_bound_ms(case):
     """Least time for the slots' work: bytes = q + out + the table + the
     lengths + K and V of every key < eff_len (each read once); ops = 2
     flops per element of q.k and of p.v over every live key."""
-    lens = np.minimum(case["eff_lens"].cpu().numpy(), MAX_SEQ_LEN)
+    cap = case["page_table"].shape[1] * PAGE_SIZE
+    lens = np.minimum(case["eff_lens"].cpu().numpy(), cap)
     S, H = case["q"].shape
     keys = int(lens.sum())
     nbytes = (2 * S * H * 4 + case["page_table"].numel() * 4 + S * 4
               + keys * H * 4 * 2)
     flops = 4 * keys * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, flops)
+    return _bound(flops, nbytes)
+
+
+def decode_cases(device):
+    """Phase 2's paged-decode cases, from the phase's seed."""
+    rng = np.random.RandomState(SEED + 200)
+    return {"step": decode_case(rng, 64, device),
+            "head_dim_32": decode_case(rng, 32, device),
+            "head_dim_128": decode_case(rng, 128, device),
+            "tight_pool": decode_case(rng, 64, device, tight=True),
+            "long": decode_case(rng, 64, device, long=True)}
 
 
 def decode_kernel_phase(device):
     """The paged decode kernel against paged_ref_decode_attention: live
     slots within KERNEL_ATOL, empty slots exactly zero."""
-    import torch
-    import torch.nn.functional as F
-
     from paddle_tpu_torch.generation.attention import (
         paged_decode_attention, paged_plain_decode_attention,
         paged_ref_decode_attention)
 
-    rng = np.random.RandomState(SEED + 200)
-    cases = {"step": decode_case(rng, 64, device),
-             "head_dim_32": decode_case(rng, 32, device),
-             "head_dim_128": decode_case(rng, 128, device),
-             "tight_pool": decode_case(rng, 64, device, tight=True)}
+    cases = decode_cases(device)
     worst = 0.0
     report = {}
     for name, c in cases.items():
@@ -502,42 +574,26 @@ def decode_kernel_phase(device):
         live = c["eff_lens"] > 0
         err = float((out[live] - ref[live]).abs().max())
         zeros = bool((out[~live] == 0).all())
-        log(f"  paged decode {name}: S={MAX_SEQS} heads={c['num_heads']} "
+        lens = c["eff_lens"].tolist()
+        log(f"  paged decode {name}: S={len(lens)} heads={c['num_heads']} "
             f"pages={c['k_pages'].shape[0]} lens="
-            f"{c['eff_lens'].tolist()} max_abs_err={err:.3e} (atol "
-            f"{KERNEL_ATOL:g}) empty_slots_exact_zero={zeros}")
+            f"{lens if len(lens) <= MAX_SEQS else lens[:8] + ['...']} "
+            f"max_abs_err={err:.3e} (atol {KERNEL_ATOL:g}) "
+            f"empty_slots_exact_zero={zeros}")
         if not np.isfinite(err) or err > KERNEL_ATOL or not zeros:
             raise AssertionError(f"paged decode kernel disagrees on {name}")
         worst = max(worst, err)
         report[name] = dict(heads=c["num_heads"],
                             num_pages=int(c["k_pages"].shape[0]),
-                            lens=c["eff_lens"].tolist(), max_abs_err=err)
+                            lens=lens, max_abs_err=err)
+        del out, ref
 
-    c = cases["step"]
-    ms = time_ms(lambda: paged_decode_attention(**c), device)
-    plain_ms = time_ms(lambda: paged_plain_decode_attention(**c), device)
-    # yardstick: PyTorch's fused attention over the slots' context,
-    # gathered beforehand (the port never calls it)
-    S, H = c["q"].shape
-    nh = c["num_heads"]
-    D = H // nh
-    L = c["page_table"].shape[1] * PAGE_SIZE
-    idx = c["page_table"].long()
-    kctx = c["k_pages"][idx].reshape(S, L, nh, D).transpose(1, 2)
-    vctx = c["v_pages"][idx].reshape(S, L, nh, D).transpose(1, 2)
-    qh = c["q"].reshape(S, nh, 1, D)
-    mask = (torch.arange(L, device=device)[None, None, None, :]
-            < c["eff_lens"].long()[:, None, None, None])
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kctx, vctx, attn_mask=mask), device)
-    bound_ms, bound_by, nbytes, flops = decode_bound_ms(c)
-    log(f"  paged decode timing (step case): ms={ms:.5f} plain_ms="
-        f"{plain_ms:.5f} library_ms(sdpa, context pre-gathered)="
-        f"{library_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}: {nbytes} "
-        f"bytes, {flops} flops)")
-    report["timing"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            bytes=nbytes, flops=flops)
+    for name, key in (("step", "timing"), ("long", "timing_long")):
+        c = cases[name]
+        report[key] = paged_timing(
+            paged_decode_attention, paged_plain_decode_attention, c,
+            c["page_table"], "eff_lens", decode_bound_ms, device)
+        log_timing("paged decode", name, report[key])
     report["max_abs_err"] = worst
     return report
 

@@ -4,7 +4,8 @@ Each kernel source ``csrc/<name>.cu`` exposes a plain C interface and is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library that is
 loaded with ``ctypes``.  The build happens at first use, into
 ``paddle_tpu_torch/_build`` (git ignores it), and the library's file
-name carries a hash of the source and the flags, so an edited source is
+name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is
 rebuilt and a stale library is never loaded.
 
 Two process-wide counters make the kernel path observable:
@@ -71,6 +72,9 @@ def _nvcc():
 def _target(name):
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # headers the sources share
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -7,10 +7,13 @@ behind one entry point, ``paged_decode_attention``, chosen by where the
 tensors live and nothing else:
 
 * ``csrc/paged_decode.cu`` — the hand-written CUDA kernel for Hopper
-  (sm_90a), float32.  ``paged_kernel_decode_attention`` launches it for
-  CUDA tensors, adds one to ``_cuda.LAUNCHES["paged_decode_attention"]``
-  per launch, and raises on anything it cannot take; there is no
-  fallback.
+  (sm_90a), float32: the split-key design of ``csrc/paged_split.cuh``
+  (each slot's keys cut into spans of whole pages by ``split_spans``,
+  the spans of a (slot, head) one thread-block cluster that merges
+  them), shared with the ragged kernel.
+  ``paged_kernel_decode_attention`` launches it for CUDA tensors, adds
+  one to ``_cuda.LAUNCHES["paged_decode_attention"]`` per launch, and
+  raises on anything it cannot take; there is no fallback.
 * ``paged_ref_decode_attention`` — plain PyTorch, the JAX reference:
   gather a page list into the contiguous layout, then
   ``gathered_decode_attention``, the one masked-softmax function every
@@ -34,7 +37,8 @@ import torch
 from .. import _cuda
 from ..ops.attention import _NEG_INF
 
-__all__ = ["paged_decode_shapes_ok", "gathered_decode_attention",
+__all__ = ["paged_decode_shapes_ok", "split_spans",
+           "gathered_decode_attention",
            "paged_ref_decode_attention", "paged_plain_decode_attention",
            "paged_kernel_decode_attention", "paged_decode_attention",
            "KERNEL"]
@@ -42,9 +46,20 @@ __all__ = ["paged_decode_shapes_ok", "gathered_decode_attention",
 #: source name of the kernel (csrc/paged_decode.cu)
 KERNEL = "paged_decode"
 _COUNTER = "paged_decode_attention"
-#: shared memory the kernel's per-slot scores and page ids may take: a
-#: launch's default 48 KB less the kernel's static buffers
-_SMEM_BYTES = 43 * 1024
+#: the split-key kernels' spans: at most MAX_SPLIT a (row, head) (one
+#: thread-block cluster; 8 CTAs is the portable most), at least
+#: MIN_SPAN_KEYS keys each where the table holds them (a span costs a
+#: cluster's launch and merge; a CTA streams 16-64 keys a stage)
+MAX_SPLIT, MIN_SPAN_KEYS = 8, 128
+
+
+def split_spans(pages_per_seq, page_size):
+    """(pages per span, spans) of the split-key kernels, from the table's
+    width and the page size alone: the grid depends only on the engine's
+    fixed shapes, never on the lengths."""
+    span = max(-(-pages_per_seq // MAX_SPLIT), -(-MIN_SPAN_KEYS // page_size))
+    span = max(1, min(span, pages_per_seq))
+    return span, max(1, -(-pages_per_seq // span))
 
 
 def paged_decode_shapes_ok(page_size, hidden, num_heads):
@@ -106,7 +121,7 @@ def _bind(lib):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p,
-                       i, i, i, i, i, i, ctypes.c_float, p]
+                       i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -132,10 +147,6 @@ def paged_kernel_decode_attention(q, k_pages, v_pages, page_table,
     if page_table.dim() != 2 or page_table.shape[0] != S:
         raise ValueError(
             f"page_table {tuple(page_table.shape)} must have {S} rows")
-    if page_table.shape[1] * (PS * 4 + 4) > _SMEM_BYTES:
-        raise ValueError(
-            f"{page_table.shape[1]} pages of {PS} exceed the kernel's "
-            f"shared memory ({_SMEM_BYTES} bytes of scores and page ids)")
     if tuple(eff_lens.shape) != (S,):
         raise ValueError(f"eff_lens {tuple(eff_lens.shape)} must be [{S}]")
     for name, t, dt in (("q", q, torch.float32),
@@ -163,7 +174,9 @@ def paged_kernel_decode_attention(q, k_pages, v_pages, page_table,
         rc = fn(q.data_ptr(), q.stride(0), k_pages.data_ptr(),
                 v_pages.data_ptr(), page_table.data_ptr(),
                 eff_lens.data_ptr(), out.data_ptr(), S, H, num_heads, PS,
-                NP, page_table.shape[1], float(sm_scale), stream)
+                NP, page_table.shape[1],
+                split_spans(page_table.shape[1], PS)[0], float(sm_scale),
+                stream)
     _cuda.check(lib, rc, "paged_decode_attention launch")
     _cuda.LAUNCHES[_COUNTER] += 1
     return out

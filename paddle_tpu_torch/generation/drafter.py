@@ -47,7 +47,9 @@ class NgramDrafter:
     suffix n-gram (n from ``max_n`` down to 1) and proposes the k tokens
     that followed it.  No match -> no drafts -> a plain decode row."""
 
-    def __init__(self, max_n=3):
+    def __init__(self, max_n=3, max_seqs=None):
+        # max_seqs is accepted and ignored, as in the JAX package: the
+        # history is a dict keyed by slot
         if max_n < 1:
             raise ValueError("max_n must be >= 1")
         self.max_n = int(max_n)

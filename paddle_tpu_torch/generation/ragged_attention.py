@@ -11,10 +11,13 @@ Two implementations behind one entry point, chosen by where the tensors
 live and nothing else:
 
 * ``csrc/ragged_attention.cu`` — the hand-written CUDA kernel for
-  Hopper (sm_90a), float32.  ``ragged_paged_attention`` launches it for
-  CUDA tensors, adds one to ``_cuda.LAUNCHES["ragged_paged_attention"]``
-  per launch, and raises on anything it cannot take; there is no
-  fallback.
+  Hopper (sm_90a), float32: the split-key design of
+  ``csrc/paged_split.cuh`` (each row's keys cut into spans of whole
+  pages by ``attention.split_spans``, the spans of a (row, head) one
+  thread-block cluster that merges them), shared with the paged decode
+  kernel.  ``ragged_paged_attention`` launches it for CUDA tensors, adds
+  one to ``_cuda.LAUNCHES["ragged_paged_attention"]`` per launch, and
+  raises on anything it cannot take; there is no fallback.
 * ``ragged_ref_attention`` — plain PyTorch: expand the block tables to
   per-row page lists, gather, and run the decode reference's masked
   softmax.  CPU tensors take it; ``chip_smoke.py`` holds the kernel
@@ -33,7 +36,7 @@ import math
 import torch
 
 from .. import _cuda
-from .attention import paged_ref_decode_attention
+from .attention import paged_ref_decode_attention, split_spans
 
 __all__ = ["ragged_paged_attention", "ragged_ref_attention",
            "ragged_kernel_attention", "KERNEL"]
@@ -60,7 +63,7 @@ def _bind(lib):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p,
-                       i, i, i, i, i, i, i, ctypes.c_float, p]
+                       i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -70,9 +73,13 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
     """Launch the CUDA kernel (CUDA tensors only; see module doc)."""
     R, H = q.shape
     NP, PS, Hk = k_pages.shape
-    if H % num_heads or H // num_heads > 128:
+    if H % num_heads:
+        raise ValueError(f"hidden {H} does not split into {num_heads} heads")
+    D = H // num_heads
+    if D < 4 or D > 128 or 128 % D:
         raise ValueError(
-            f"hidden {H} must split into {num_heads} heads of <= 128")
+            f"head_dim {D}: the kernel takes head_dim in "
+            f"{{4, 8, 16, 32, 64, 128}}")
     if block_rows < 1 or R % block_rows:
         raise ValueError(f"{R} rows do not tile by block_rows={block_rows}")
     if R > 65535:
@@ -100,8 +107,10 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
             raise ValueError(f"{name} must be contiguous")
     if q.stride(1) != 1:
         raise ValueError("q rows must be contiguous (stride(1) == 1)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("k_pages / v_pages must be 16-byte aligned")
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(H // num_heads)
+        sm_scale = 1.0 / math.sqrt(D)
     out = torch.empty((R, H), dtype=q.dtype, device=q.device)
     lib = _cuda.library(KERNEL)
     fn = _bind(lib)
@@ -110,7 +119,8 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
         rc = fn(q.data_ptr(), q.stride(0), k_pages.data_ptr(),
                 v_pages.data_ptr(), block_tables.data_ptr(),
                 row_lens.data_ptr(), out.data_ptr(), R, H, num_heads, PS,
-                NP, block_tables.shape[1], block_rows, float(sm_scale),
+                NP, block_tables.shape[1], block_rows,
+                split_spans(block_tables.shape[1], PS)[0], float(sm_scale),
                 stream)
     _cuda.check(lib, rc, "ragged_paged_attention launch")
     _cuda.LAUNCHES[_COUNTER] += 1

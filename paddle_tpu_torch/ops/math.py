@@ -112,6 +112,10 @@ def _register_reduce(name, fn):
             return out(Out=res)
         dim = tuple(d % x.dim() for d in
                     (dim if isinstance(dim, (list, tuple)) else [dim]))
+        if not dim:
+            # an empty dim reduces nothing, as jnp.sum(axis=()) does
+            # (torch.sum(dim=()) would reduce every axis)
+            return out(Out=x)
         return out(Out=fn(x, dim=dim, keepdim=keep))
 
 

@@ -74,7 +74,12 @@ def squeeze(ctx, inputs, attrs):
     x = single(inputs, "X")
     axes = attrs.get("axes", None)
     if axes:
-        return out(Out=x.squeeze(tuple(a % x.dim() for a in axes)))
+        axes = tuple(a % x.dim() for a in axes)
+        for a in axes:
+            if x.shape[a] != 1:    # jnp.squeeze raises; torch skips the axis
+                raise ValueError(
+                    f"squeeze: axis {a} has size {x.shape[a]}, not 1")
+        return out(Out=x.squeeze(axes))
     return out(Out=x.squeeze())
 
 

@@ -112,7 +112,12 @@ class AdamOptimizer(Optimizer):
     AdamW, its other subclass, is not ported)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_mode=False, **kwargs):
+        if lazy_mode:
+            raise NotImplementedError(
+                "AdamOptimizer(lazy_mode=True) updates only the rows of a "
+                "sparse gradient; the port has no sparse gradients yet "
+                "(ROADMAP Queue 1 item 3)")
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 

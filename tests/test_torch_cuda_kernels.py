@@ -12,7 +12,7 @@ skips on a host without a card.  On a machine with one (no JAX needed):
 
 Tolerance: atol 1e-5 / rtol 1e-5 — float32 online softmax against the
 plain version's float32 softmax, summed in another order over at most
-a few hundred unit-scale keys (a thousand for the longest decode case).
+a few hundred unit-scale keys (2048 for the split-key edge cases).
 Inactive rows and empty decode slots must be exactly zero.  Flash
 attention: forward atol 1e-5 (o, lse); gradients atol 1e-4 / rtol 1e-4 —
 dq, dk, dv and dbias sum up to a few hundred products of unit-scale
@@ -36,7 +36,7 @@ import torch
 from paddle_tpu_torch import _cuda
 from paddle_tpu_torch.generation.attention import (
     paged_decode_attention, paged_kernel_decode_attention,
-    paged_ref_decode_attention)
+    paged_ref_decode_attention, split_spans)
 from paddle_tpu_torch.generation.ragged_attention import (
     ragged_kernel_attention, ragged_paged_attention, ragged_ref_attention)
 from paddle_tpu_torch.ops import attention_epilogue as ae
@@ -196,6 +196,76 @@ def test_paged_decode_wrapper_raises_instead_of_falling_back(device):
         paged_kernel_decode_attention(q, k, v, tables, lens, 256)
     with pytest.raises(ValueError, match="rows"):
         paged_kernel_decode_attention(q, k, v, tables[:3], lens, nh)
+
+
+# -- the split-key design of both serving kernels ---------------------------
+
+def _edge_lens(page_size, pages_per_seq, rows, rng):
+    """0, 1, one page, one page + 1, every span boundary +- 1, the cap
+    and above it (clipped), then random lengths to fill ``rows``."""
+    cap = page_size * pages_per_seq
+    span_keys = split_spans(pages_per_seq, page_size)[0] * page_size
+    lens = [0, 1, page_size, page_size + 1, cap, cap + 7]
+    for b in range(span_keys, cap, span_keys):
+        lens += [b - 1, b, b + 1]
+    while len(lens) < rows:
+        lens.append(int(rng.randint(0, cap + 1)))
+    return np.asarray(lens[:rows], np.int32)
+
+
+def _split_case(device, head_dim, block_rows, rows=30, page_size=16,
+                pages_per_seq=128, seed=0):
+    rng = np.random.RandomState(seed)
+    nh = 768 // 64
+    H = nh * head_dim
+    blocks = rows // block_rows
+    num_pages = blocks * pages_per_seq + 1
+    g = torch.Generator(device=device).manual_seed(seed)
+    k, v = (torch.randn(num_pages, page_size, H, generator=g, device=device)
+            for _ in range(2))
+    q = torch.randn(rows, H, generator=g, device=device)
+    tables = rng.permutation(np.arange(1, num_pages)).reshape(
+        blocks, pages_per_seq).astype(np.int32)
+    lens = _edge_lens(page_size, pages_per_seq, rows, rng)
+    return (q, k, v, torch.from_numpy(tables).to(device),
+            torch.from_numpy(lens).to(device), nh)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("block_rows", [1, 2, 3])
+def test_ragged_split_edge_lengths(device, head_dim, block_rows):
+    """Spans of 16 pages (8 a row): lengths on and around every span
+    boundary, 0, 1, one page + 1, the cap and past it; one launch a call,
+    the same bits from a second launch."""
+    args = _split_case(device, head_dim, block_rows, seed=head_dim)
+    lens = args[4]
+    before = _cuda.LAUNCHES["ragged_paged_attention"]
+    got = ragged_paged_attention(*args, block_rows=block_rows)
+    assert _cuda.LAUNCHES["ragged_paged_attention"] == before + 1
+    again = ragged_paged_attention(*args, block_rows=block_rows)
+    want = ragged_ref_attention(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert (got[lens == 0] == 0).all()
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_paged_decode_split_edge_lengths(device, head_dim):
+    args = _split_case(device, head_dim, 1, seed=head_dim + 1)
+    lens = args[4]
+    before = _cuda.LAUNCHES["paged_decode_attention"]
+    got = paged_decode_attention(*args)
+    assert _cuda.LAUNCHES["paged_decode_attention"] == before + 1
+    again = paged_decode_attention(*args)
+    want = paged_ref_decode_attention(*args)
+    torch.cuda.synchronize()
+    live = lens > 0
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got[live], want[live], atol=ATOL, rtol=RTOL)
+    assert (got[~live] == 0).all()
 
 
 # -- flash attention (training) ---------------------------------------------
