@@ -84,15 +84,41 @@ Phases (any failure exits non-zero and prints no result):
    over data and seq, SGD(0.1), 10 steps at [2, 12, 4096, 64] — the flat
    kernels once per step each, no plain version, every loss within 2e-3
    of the plain composite's step and w within a relative norm error of
-   1e-4; peak memory of both steps.
+   1e-4; peak memory of both steps;
+8. the traced path (phases 1-7 run with the profiler off and the flight
+   recorder disarmed; here both are on): a fresh chunked and a fresh
+   legacy engine at phase 3a's configuration behind InferenceServer +
+   GenerationBackend, 4 client threads each sending 2 of phase 3a's
+   prompts as one request inside its own span("client_request"), under
+   profiler.start_profiler("All", tracer_path=...) — the answers must
+   equal the same engine's untraced generate, the attention kernel must
+   launch once per layer per step with no plain version and nothing
+   loaded after warmup, every batch span and queue wait must join the
+   trace of the client whose request is first in the batch and every
+   step span must have a batch span as an ancestor, the registry must
+   agree with the stats (generation_tokens_total, serving_requests_total)
+   and the ledger counters with the snapshot, the Prometheus text must
+   parse, the flight recorder's ring must hold the step spans and one
+   seq_finish per sequence, and in the Kineto trace every attention
+   kernel must run inside a step range; then one step of phase 5's fused
+   program inside span("train:step") under the profiler, whose Kineto
+   trace must place every fused-matmul, FFN-chain and qkv-folded flash
+   kernel inside a program op's "type:first_output" scope.  Phase 5
+   also holds the registry: one fused_epilogue_hits_total per planned
+   group, fused_block_hits_total 12 attention and 12 FFN-chain blocks,
+   executor_compiles_total one per lowering, optimizer_state_bytes equal
+   to Adam's state, and a TrainingMonitor's JSONL one record per timed
+   step with that step's wall time.
 
-The line before the card's line is {"kernels": [...]}, one entry per
+Before the card's line come {"observability": {...}} (phase 8's
+numbers) and {"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
 fused training steps' for the other training kernels, phase 6's timed
 steps for the flat kernels.  Details go to
-chiprun_out/chip_smoke.json.
+chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
+Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
 """
 from __future__ import annotations
@@ -133,6 +159,8 @@ TF32_FLOPS = 495e12
 TF32_PASSES = 3
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+#: phase 8's traces (Kineto and host, gzipped) and the monitor's JSONL
+TRACE_DIR = OUT_DIR / "phase8"
 
 KERNELS = [
     dict(name="ragged_paged_attention", route="cuda",
@@ -1981,25 +2009,26 @@ class _PlainCalls:
     JAX package's custom VJPs are XLA; they call none of these.)"""
 
     NAMES = {
-        "flash_attention": ("flash_ref_forward", "flash_ref_backward",
-                            "flash_ref_forward_flat",
-                            "flash_ref_backward_flat", "attention",
-                            "attention_packed"),
-        "attention_epilogue": ("qkv_ref_forward", "plain_qkv_attention",
-                               "flash_ref_forward", "flash_ref_backward"),
-        "fused_matmul": ("reference_matmul_epilogue",),
-        "ffn_chain": ("reference_ffn_chain",),
+        "ops.flash_attention": ("flash_ref_forward", "flash_ref_backward",
+                                "flash_ref_forward_flat",
+                                "flash_ref_backward_flat", "attention",
+                                "attention_packed"),
+        "ops.attention_epilogue": ("qkv_ref_forward", "plain_qkv_attention",
+                                   "flash_ref_forward", "flash_ref_backward"),
+        "ops.fused_matmul": ("reference_matmul_epilogue",),
+        "ops.ffn_chain": ("reference_ffn_chain",),
     }
 
-    def __init__(self):
+    def __init__(self, names=None):
         import importlib
 
+        self.names = names or self.NAMES
         self.calls, self.saved = 0, []
-        self.modules = {m: importlib.import_module(f"paddle_tpu_torch.ops.{m}")
-                        for m in self.NAMES}
+        self.modules = {m: importlib.import_module(f"paddle_tpu_torch.{m}")
+                        for m in self.names}
 
     def __enter__(self):
-        for m, names in self.NAMES.items():
+        for m, names in self.names.items():
             module = self.modules[m]
             for n in names:
                 fn = getattr(module, n)
@@ -2085,12 +2114,99 @@ def _profile_step(exe, program, feed, loss, scope, device, what):
     return dict(wall_ms=wall_us / 1e3, **out)
 
 
+def _series_total(metric, **labels):
+    """Sum of a registry counter's series whose labels include
+    ``labels``."""
+    from paddle_tpu_torch.observability import get_registry
+
+    return sum(s.value() for lb, s in get_registry().counter(metric).series()
+               if all(dict(lb).get(k) == v for k, v in labels.items()))
+
+
+def _train_series():
+    """The registry totals phase 5 reads; fusion block hits by pattern."""
+    out = {m: _series_total(m) for m in ("executor_compiles_total",
+                                         "fused_epilogue_hits_total")}
+    for pattern in ("attention_epilogue", "ffn_chain"):
+        out[f"fused_block_hits_total:{pattern}"] = _series_total(
+            "fused_block_hits_total", pattern=pattern)
+    return out
+
+
+def registry_gates(cfg, reg0, kinds):
+    """After the fused program's first lowering and its steps: one
+    fused_epilogue_hits_total per planned group (37 at BERT-base: 12
+    attention, 13 fused-matmul, 12 FFN-chain), a
+    fused_block_hits_total{pattern} per attention and FFN-chain group,
+    and one executor lowering each for the startup and the main
+    program."""
+    got = {k: v - reg0[k] for k, v in _train_series().items()}
+    L = cfg.num_layers
+    want = {"fused_epilogue_hits_total": float(sum(kinds.values())),
+            "fused_block_hits_total:attention_epilogue": float(L),
+            "fused_block_hits_total:ffn_chain": float(L),
+            "executor_compiles_total": 2.0}
+    log(f"  registry after the fused steps: " + ", ".join(
+        f"{k} +{got[k]:g} (want {v:g})" for k, v in want.items()))
+    bad = {k: got[k] for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"registry series {bad}, expected {want}")
+    return got
+
+
+def monitor_gate(losses, step_walls):
+    """A TrainingMonitor fed the timed steps (after they ran: the monitor
+    costs the timed loop nothing): its JSONL must hold one record per
+    step whose step_ms is that step's wall time."""
+    from paddle_tpu_torch.observability import TrainingMonitor
+
+    path = TRACE_DIR / "train_monitor.jsonl"
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    mon = TrainingMonitor(jsonl_path=str(path), run="chip_smoke")
+    for step, (loss, wall_s) in enumerate(zip(losses, step_walls)):
+        mon.on_step(step, loss=loss, wall_s=wall_s, examples=TRAIN_BATCH)
+    mon.close()
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    want = [round(w * 1e3, 3) for w in step_walls]
+    got = [r["step_ms"] for r in recs]
+    log(f"  TrainingMonitor: {len(recs)} records, step_ms {got}")
+    if len(recs) != len(step_walls) or got != want:
+        raise AssertionError(f"monitor records {got}, expected {want}")
+    if [r["step"] for r in recs] != list(range(len(step_walls))):
+        raise AssertionError("monitor records out of step order")
+    return dict(records=len(recs), step_ms=got,
+                summary=mon.summary())
+
+
+def optimizer_state_gate(scope, params):
+    """After the first lowering of a CompiledProgram: the
+    optimizer_state_bytes gauge holds Adam's state — two float32 moments
+    per parameter element and two one-element beta powers per
+    parameter — globally and per device (equal without a mesh)."""
+    from paddle_tpu_torch.observability import get_registry
+
+    n = sum(scope.find_var(p).numel() for p in params)
+    want = float(2 * 4 * n + 2 * 4 * len(params))
+    gauge = get_registry().gauge("optimizer_state_bytes")
+    got = {pl: gauge.value(placement=pl) for pl in ("global", "per_device")}
+    log(f"  optimizer_state_bytes {got} (want {want:.0f}: 2 x {n} x 4 "
+        f"moments + 2 x {len(params)} x 4 beta powers)")
+    if got != {"global": want, "per_device": want}:
+        raise AssertionError(f"optimizer_state_bytes {got}, expected "
+                             f"{want}")
+    return dict(optimizer_state_bytes=got)
+
+
 def training_phase(device, cfg):
     """``cfg`` pretraining through the default (fused) program for
     TRAIN_WARMUP + TRAIN_STEPS steps with the plan, launch, plain-call
     and no-load gates, one profiled step, then the three-way parity
     gate.  On the CPU (a rehearsal) the plain versions run and the
-    launch gates expect none."""
+    launch gates expect none.  Also holds the registry series of the
+    fused steps, the optimizer-state gauge and a TrainingMonitor's
+    records."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -2102,6 +2218,7 @@ def training_phase(device, cfg):
     main, startup, loss, _, params = build_train(cfg)
     exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
     scope = pt.Scope()
+    reg0 = _train_series()
     t0 = time.perf_counter()
     exe.run(startup, scope=scope)
     sync(device)
@@ -2119,12 +2236,18 @@ def training_phase(device, cfg):
     with _PlainCalls() as plain:
         _cuda.reset_launches()
         t0 = time.perf_counter()
-        losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                          return_numpy=False)[0] for _ in range(TRAIN_STEPS)]
+        losses, stamps = [], [t0]
+        for _ in range(TRAIN_STEPS):
+            losses.append(exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope, return_numpy=False)[0])
+            stamps.append(time.perf_counter())
         sync(device)
-        wall = time.perf_counter() - t0
+        stamps[-1] = time.perf_counter()
+        wall = stamps[-1] - t0
         launches = dict(_cuda.LAUNCHES)
-    losses = [float(x) for x in warm] + [float(x) for x in losses]
+    step_walls = [b - a for a, b in zip(stamps, stamps[1:])]
+    timed_losses = [float(x) for x in losses]
+    losses = [float(x) for x in warm] + timed_losses
     step_ms = wall / TRAIN_STEPS * 1e3
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
     L = cfg.num_layers
@@ -2158,6 +2281,8 @@ def training_phase(device, cfg):
     if exe.compiles_after_first_step:
         raise AssertionError("a kernel library was loaded after the first "
                              "step")
+    registry = registry_gates(cfg, reg0, kinds[0])
+    registry["monitor"] = monitor_gate(timed_losses, step_walls)
 
     # the unfused lowering of the same program, continuing from the same
     # scope: where the fusion pass moves the step.  Timed in turns with
@@ -2168,6 +2293,7 @@ def training_phase(device, cfg):
     unfused = pt.CompiledProgram(main, build_strategy=bs)
     exe.run(unfused, feed=feed, fetch_list=[loss], scope=scope)
     sync(device)
+    registry.update(optimizer_state_gate(scope, params))
     turns = {"fused": [], "unfused": []}
     for name in ("fused", "unfused", "unfused", "fused"):
         program = main if name == "fused" else unfused
@@ -2203,9 +2329,20 @@ def training_phase(device, cfg):
         plan_groups=dict(kinds[0]), startup_s=startup_s, warmup_s=warm_s,
         peak_memory_bytes=peak, profile=prof_out, turns_ms=turns,
         launch_cost_us=before_us, after_profile=after_prof,
-        unfused_lowering=dict(profile=unfused_prof))
+        unfused_lowering=dict(profile=unfused_prof), registry=registry)
     del scope
     report["parity"] = parity_gate(device, exe, cfg)
+    # one executor_compiles_total per lowering phase 5 made: a program's
+    # cache holds one per feed/fetch signature and build strategy
+    lowerings = _series_total("executor_compiles_total") \
+        - reg0["executor_compiles_total"]
+    made = (len(startup._exec_cache) + len(main._exec_cache)
+            + report["parity"]["lowerings"])
+    log(f"  executor_compiles_total +{lowerings:g}, lowerings made {made}")
+    if lowerings != made:
+        raise AssertionError(f"executor_compiles_total rose by {lowerings}, "
+                             f"phase 5 made {made} lowerings")
+    registry["executor_compiles_total"] = lowerings
     return report
 
 
@@ -2236,7 +2373,7 @@ def parity_gate(device, exe, cfg):
     cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
     on_card = device.type == "cuda"
     runs, launches = {}, {}
-    weights = None
+    weights, lowerings = None, 0
     for name, (fused_attn, fuse, kernels) in PARITY_RUNS.items():
         main, startup, loss, grads, _ = build_train(
             dataclasses.replace(cfg, fused_attention=fused_attn))
@@ -2271,9 +2408,10 @@ def parity_gate(device, exe, cfg):
             raise AssertionError(f"the {name} program launched "
                                  f"{launches[name]}, expected {want}")
         runs[name] = (losses, first)
+        lowerings += len(main._exec_cache) + len(startup._exec_cache)
         del scope
     lp, gp = runs["plain"]
-    out = dict(plain_losses=lp, launches=launches)
+    out = dict(plain_losses=lp, launches=launches, lowerings=lowerings)
     for name in ("blocks", "unfused_lowering"):
         lf, gf = runs[name]
         dloss = [abs(a - b) for a, b in zip(lf, lp)]
@@ -2584,6 +2722,432 @@ def seq_parallel_phase(device):
     return dict(shape=list(SEQ_SHAPE), max_dloss=dloss, w_rel_err=w_err,
                 score_tensor_bytes=scores, **results)
 
+# -- phase 8: the traced path -----------------------------------------------
+
+#: phase 8a: client threads, each sending N_PROMPTS // SERVE_CLIENTS
+#: prompts as one request; the batcher waits up to SERVE_WAIT_MS for
+#: them, so the engine sees the batch phase 3 gave it
+SERVE_CLIENTS = 4
+SERVE_WAIT_MS = 2000.0
+#: the serving paths' plain attention versions, by module
+SERVING_PLAIN = {
+    "generation.kv_cache": ("ragged_ref_attention",
+                            "paged_plain_decode_attention",
+                            "gathered_decode_attention"),
+    "generation.ragged_attention": ("ragged_ref_attention",),
+    "generation.attention": ("paged_ref_decode_attention",
+                             "paged_plain_decode_attention"),
+}
+#: phase 8b: the kernels whose launches the Kineto trace must attribute
+#: to a program op's scope (name counted by _cuda, kernel entry)
+TRAIN_TRACED = (("gemm_epilogue", "gemm_tc_kernel"),
+                ("ffn_chain", "ffn_chain_kernel"),
+                ("flash_fwd_qkv", "flash_fwd_tc_kernel"))
+_PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? (\S+)$')
+
+
+def _host_spans(events):
+    """{span_id: (name, trace_id, parent_span_id, t0, t1)} of the
+    profiler's host events that carry span ids."""
+    return {a["span_id"]: (n, a["trace_id"], a["parent_span_id"], t0, t1)
+            for n, t0, t1, _, a in events if a and "span_id" in a}
+
+
+def _has_ancestor(spans, sid, prefix):
+    seen = set()
+    while sid is not None and sid not in seen:
+        seen.add(sid)
+        name, _, parent, _, _ = spans.get(sid, (None, None, None, 0, 0))
+        if name is not None and name.startswith(prefix):
+            return True
+        sid = parent
+    return False
+
+
+def _prometheus_gate(path):
+    """Every line of a Prometheus text file parses: HELP/TYPE comments
+    or ``name{labels} value`` with a float value."""
+    from paddle_tpu_torch.observability import write_prometheus
+
+    write_prometheus(str(path))
+    lines = path.read_text().splitlines()
+    for line in lines:
+        if line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"unparsable Prometheus line {line!r}")
+        float(m.group(4))
+    return len(lines)
+
+
+def _gzip(path):
+    """Gzip a trace in place (chiprun_out is bounded) -> the new path."""
+    import gzip
+    import shutil
+
+    path = Path(path)
+    out = path.with_name(path.name + ".gz")
+    with open(path, "rb") as f, gzip.open(out, "wb") as g:
+        shutil.copyfileobj(f, g)
+    path.unlink()
+    return str(out.relative_to(OUT_DIR.parent))
+
+
+def _device_in_ranges(doc, range_name):
+    """(host us of the ``range_name`` ranges, device us of the kernels
+    that ran inside their device side, number of ranges)."""
+    from paddle_tpu_torch import profiler
+
+    host = profiler.trace_ranges(doc, range_name)
+    ranges = profiler.trace_ranges(doc, range_name, device=True)
+    dev = sum(t1 - t0 for _, t0, t1 in profiler.trace_kernels(doc)
+              if any(r0 <= t0 and t1 <= r1 for _, r0, r1 in ranges))
+    return sum(t1 - t0 for _, t0, t1 in host), dev, len(host)
+
+
+def traced_serving_phase(device, model_cfg, gen_cfg, params, mode):
+    """Phase 8a: a fresh engine (``mode`` chunked or legacy; ``params``
+    phase 3's weights, as numpy arrays or tensors) behind
+    InferenceServer + GenerationBackend, served to SERVE_CLIENTS client
+    threads, each inside its own span, with the profiler's device trace
+    on and the flight recorder armed.  Gates: the answers equal the same
+    engine's untraced generate; the attention kernel launches once per
+    layer per step, no plain version runs, nothing loads after warmup;
+    every batch span and queue wait joins the trace of the client that
+    submitted the batch's first request, and every step span has a batch
+    span as an ancestor; the registry agrees with the stats; the ledger
+    counters move with the snapshot; the Prometheus text parses; the
+    ring holds the step spans and one seq_finish per sequence; in the
+    Kineto trace every attention kernel runs inside a step range's
+    device side (``profiler.kernels_inside``).  Reports decode tokens/s traced and untraced and where a
+    step's host time goes."""
+    from paddle_tpu_torch import _cuda, profiler
+    from paddle_tpu_torch.generation import (GenerationBackend,
+                                             GenerationEngine, SamplingParams)
+    from paddle_tpu_torch.observability import flightrec, tracing
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+
+    on_card = device.type == "cuda"
+    legacy = mode == "legacy"
+    kernel = "paged_decode_attention" if legacy else "ragged_paged_attention"
+    other = "ragged_paged_attention" if legacy else "paged_decode_attention"
+    entry = "paged_decode_kernel" if legacy else "ragged_attention_kernel"
+    step_span = "generation:decode_step" if legacy else \
+        "generation:chunk_step"
+    steps_key = "decode_steps" if legacy else "steps"
+    cfg = dataclasses.replace(gen_cfg, scheduling="legacy") if legacy \
+        else gen_cfg
+    L = model_cfg.num_layers
+    prompts = make_prompts(np.random.RandomState(SEED + 1), N_PROMPTS,
+                           PROMPT_LEN, model_cfg.vocab_size)
+    greedy = SamplingParams(max_new_tokens=MAX_NEW)
+    engine = GenerationEngine(model_cfg, params, cfg, device=device)
+    engine.warmup()
+    eid = engine.stats.engine_id
+
+    def decode_s():
+        return _series_total("generation_seconds_total", engine=eid,
+                             phase="decode")
+
+    s0, d0 = engine.stats.snapshot()["decode_tokens"], decode_s()
+    ref, _, ref_wall = drive(engine, prompts, greedy, device)
+    untraced_tps = (engine.stats.snapshot()["decode_tokens"] - s0) \
+        / (decode_s() - d0)
+    backend = GenerationBackend(engine, max_new_tokens=MAX_NEW)
+    per = N_PROMPTS // SERVE_CLIENTS
+    server = InferenceServer(backend, ServingConfig(
+        batch_buckets=(N_PROMPTS,), seq_buckets=(PROMPT_LEN,),
+        pad_values={"prompt_lens": 1},
+        max_batch_wait_ms=SERVE_WAIT_MS)).start()
+    answers, errors = [None] * SERVE_CLIENTS, []
+    trace_dir = TRACE_DIR / f"serving_{mode}"
+    try:
+        server.warmup()
+        sync(device)
+        snap0, ledger0 = engine.stats.snapshot(), engine.ledger_counters()
+        d0, loads0 = decode_s(), _cuda.library_loads()
+
+        def client(c):
+            rows = np.asarray(prompts[c * per:(c + 1) * per], np.int32)
+            try:
+                with tracing.span("client_request", client=c):
+                    out, n = server.infer(
+                        {"token_ids": rows, "prompt_lens": np.full(
+                            per, PROMPT_LEN, np.int32)}, timeout_ms=600_000)
+                answers[c] = [out[i, :int(n[i])].tolist()
+                              for i in range(per)]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        profiler.reset_profiler()
+        flightrec.arm()
+        flightrec.get_recorder().clear()
+        profiler.start_profiler("All" if on_card else "CPU",
+                                tracer_path=str(trace_dir))
+        try:
+            with _PlainCalls(SERVING_PLAIN) as plain:
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(SERVE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                sync(device)
+                wall = time.perf_counter() - t0
+                launches = dict(_cuda.LAUNCHES)
+        finally:
+            profiler.stop_profiler(quiet=True)
+            ring = flightrec.get_recorder().dump()
+            flightrec.disarm(clear=True)
+        stats = server.stats()
+        sid = server._stats.server_id
+    finally:
+        server.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"traced clients failed: {errors}")
+    snap1, ledger1 = engine.stats.snapshot(), engine.ledger_counters()
+    events = list(profiler._events)
+    host_path = profiler.export_chrome_tracing(str(trace_dir / "host.json"))
+    doc = profiler.load_device_trace()
+    kineto_path = profiler.last_device_trace()
+
+    # tracing changes nothing; the kernel path is unchanged
+    served = [a for c in answers for a in c]
+    same = [a == r.tokens for a, r in zip(served, ref)]
+    steps = snap1[steps_key] - snap0[steps_key]
+    plain_calls = plain.calls
+    if not all(same):
+        raise AssertionError(f"traced answers differ from the untraced "
+                             f"generate: {same}")
+    want = L * steps if on_card else 0
+    if launches.get(kernel, 0) != want or launches.get(other, 0):
+        raise AssertionError(f"launches {launches}, expected {kernel} "
+                             f"{want} and no {other}")
+    if on_card and plain_calls:
+        raise AssertionError("a plain attention version ran")
+    if (_cuda.library_loads() != loads0 or snap1["compiles_after_warmup"]
+            or stats["compiles_after_warmup"]):
+        raise AssertionError("something compiled or loaded after warmup")
+
+    # span structure: batches and queue waits join their clients' traces
+    spans = _host_spans(events)
+    clients = {tid: sid_ for sid_, (n, tid, _, _, _) in spans.items()
+               if n == "client_request"}
+    pending, n_batches, n_waits = [], 0, 0
+    for name, _, _, _, a in events:
+        if name == "serving:queue_wait":
+            if a["trace_id"] not in clients \
+                    or a["parent_span_id"] != clients[a["trace_id"]]:
+                raise AssertionError(f"a queue wait outside its client's "
+                                     f"trace: {a}")
+            pending.append(a)
+            n_waits += 1
+        elif name.startswith("serving:batch_b"):
+            if not pending or a["trace_id"] != pending[0]["trace_id"] \
+                    or a["parent_span_id"] != clients[a["trace_id"]]:
+                raise AssertionError(f"batch span {a} does not join the "
+                                     f"trace of its first request")
+            pending, n_batches = [], n_batches + 1
+    step_ids = [sid_ for sid_, v in spans.items() if v[0] == step_span]
+    orphans = [s for s in step_ids
+               if not _has_ancestor(spans, s, "serving:batch_b")]
+    if n_waits != SERVE_CLIENTS or not n_batches or len(step_ids) != steps \
+            or orphans:
+        raise AssertionError(
+            f"{n_waits} queue waits, {n_batches} batches, {len(step_ids)} "
+            f"of {steps} step spans, {len(orphans)} without a batch "
+            f"ancestor")
+
+    # the registry agrees with the stats; the ledger moves with them
+    tokens = _series_total("generation_tokens_total", engine=eid)
+    requests = _series_total("serving_requests_total", server=sid)
+    ok = _series_total("serving_requests_total", server=sid, outcome="ok")
+    if tokens != snap1["prefill_tokens"] + snap1["decode_tokens"]:
+        raise AssertionError(f"generation_tokens_total {tokens} != the "
+                             f"snapshot's prefill + decode tokens")
+    if requests != SERVE_CLIENTS or ok != SERVE_CLIENTS:
+        raise AssertionError(f"serving_requests_total {requests} (ok "
+                             f"{ok}), expected {SERVE_CLIENTS}")
+    for k in ("decode_tokens", "prefill_chunks", "spec_drafted",
+              "spec_accepted"):
+        if ledger1[k] - ledger0[k] != snap1[k] - snap0[k]:
+            raise AssertionError(f"ledger {k} moved {ledger1[k] - ledger0[k]}"
+                                 f", the snapshot {snap1[k] - snap0[k]}")
+    prom_lines = _prometheus_gate(trace_dir / "metrics.prom")
+
+    # the flight recorder's ring
+    ring_steps = sum(e["kind"] == "span" and e["name"] == step_span
+                     for e in ring["events"])
+    finished = sum(e["kind"] == "note" and e["note"] == "seq_finish"
+                   and e["fields"]["engine"] == eid for e in ring["events"])
+    if ring_steps != steps or finished != N_PROMPTS:
+        raise AssertionError(f"ring: {ring_steps} step spans of {steps}, "
+                             f"{finished} seq_finish of {N_PROMPTS}")
+
+    # the Kineto trace: every attention kernel launched inside a step
+    n_kernel, inside = profiler.kernels_inside(doc, entry, step_span)
+    if n_kernel != want or inside != n_kernel:
+        raise AssertionError(
+            f"Kineto: {n_kernel} {entry} kernels, {inside} inside "
+            f"{step_span}; expected {want}; kernels "
+            f"{[k for k in profiler.trace_kernels(doc) if entry in k[0]][:3]}"
+            f", device ranges "
+            f"{profiler.trace_ranges(doc, step_span, device=True)[:3]}")
+    with open(host_path) as f:
+        host_doc = json.load(f)
+    if "perf_origin_unix_us" not in host_doc["metadata"]:
+        raise AssertionError("the host trace lacks perf_origin_unix_us")
+
+    # where the host's time goes, by span
+    def span_ms(prefix):
+        return [(t1 - t0) * 1e3 for n, t0, t1, _, _ in events
+                if n.startswith(prefix)]
+
+    batch_ms, step_ms = span_ms("serving:batch_b"), span_ms(step_span)
+    host_us, dev_us, n_ranges = _device_in_ranges(doc, step_span)
+    traced_tps = (snap1["decode_tokens"] - snap0["decode_tokens"]) \
+        / (decode_s() - d0)
+    out = dict(
+        steps=steps, batches=n_batches, wall_s=wall, launches=launches,
+        answers_equal=True, untraced_wall_s=ref_wall,
+        decode_tokens_per_s=dict(traced=traced_tps, untraced=untraced_tps,
+                                 ratio=traced_tps / untraced_tps),
+        spans_ms=dict(
+            batch=sum(batch_ms), steps=sum(step_ms),
+            batch_outside_steps=sum(batch_ms) - sum(step_ms),
+            step_mean=float(np.mean(step_ms)),
+            step_device_busy_mean=dev_us / 1e3 / n_ranges,
+            step_device_busy_share=dev_us / host_us),
+        prometheus_lines=prom_lines, ring_events=len(ring["events"]),
+        kineto_trace=_gzip(kineto_path), host_trace=_gzip(host_path))
+    log(f"  traced {mode} serving: {SERVE_CLIENTS} clients x {per} prompts, "
+        f"{n_batches} batch(es), {steps} {steps_key}, answers equal to the "
+        f"untraced generate; {kernel} {launches.get(kernel, 0)} launches "
+        f"(= {L} x {steps}), all inside {step_span} in the Kineto trace; "
+        f"decode {traced_tps:.1f} tok/s traced vs {untraced_tps:.1f} "
+        f"untraced ({traced_tps / untraced_tps:.3f}); batch span "
+        f"{sum(batch_ms):.1f} ms = steps {sum(step_ms):.1f} ms + between "
+        f"steps {sum(batch_ms) - sum(step_ms):.1f} ms; a step "
+        f"{np.mean(step_ms):.3f} ms host, device busy "
+        f"{dev_us / 1e3 / n_ranges:.3f} ms of it "
+        f"({dev_us / host_us:.3f}); Prometheus {prom_lines} lines parse")
+    return out
+
+
+def _op_scope_of(ranges, kernel):
+    """The innermost program-op scope (the device side of a
+    ``type:first_output`` range) a kernel ran inside, or None."""
+    _, t0, t1 = kernel
+    inside = [(r1 - r0, name) for name, r0, r1 in ranges
+              if r0 <= t0 and t1 <= r1]
+    return min(inside)[1] if inside else None
+
+
+def traced_training_phase(device, cfg):
+    """Phase 8b: phase 5's fused program (``cfg`` pretraining, 32 x 128)
+    set up anew, TRAIN_WARMUP steps, COMPARE_STEPS untraced steps, then
+    one step inside ``span("train:step")`` under the profiler's device
+    trace.  Gates: the kernels launch as in phase 5; every gemm_epilogue,
+    ffn_chain and flash_fwd_qkv kernel runs inside a program op's
+    ``type:first_output`` scope.  Reports the traced and untraced step
+    times and where the traced step's host time goes."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda, profiler
+    from paddle_tpu_torch.core.lowering import _op_scope_name
+    from paddle_tpu_torch.observability import flightrec, tracing
+
+    main, startup, loss, _, _ = build_train(cfg)
+    exe = pt.Executor(pt.CUDAPlace(0) if device.type == "cuda"
+                      else pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = train_batch(cfg.vocab_size, device)
+    L = cfg.num_layers
+    for _ in range(TRAIN_WARMUP):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    t0 = time.perf_counter()
+    for _ in range(COMPARE_STEPS):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    sync(device)
+    untraced_ms = (time.perf_counter() - t0) / COMPARE_STEPS * 1e3
+    profiler.reset_profiler()
+    flightrec.arm()
+    _cuda.reset_launches()
+    profiler.start_profiler("All" if device.type == "cuda" else "CPU",
+                            tracer_path=str(TRACE_DIR / "training"))
+    try:
+        t0 = time.perf_counter()
+        with tracing.span("train:step", step=0):
+            out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        sync(device)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        profiler.stop_profiler(quiet=True)
+        flightrec.disarm(clear=True)
+    launches = dict(_cuda.LAUNCHES)
+    events = list(profiler._events)
+    doc = profiler.load_device_trace()
+    if not np.isfinite(out[0]).all():
+        raise AssertionError("the traced step's loss is not finite")
+    want = {k: L for k in FUSED_STEP_KERNELS} if device.type == "cuda" \
+        else {}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"traced step launches {got}, expected {want}")
+    scope_names = {_op_scope_name(op) for op in main.global_block().ops}
+    op_ranges = [(e["name"], e["ts"], e["ts"] + e.get("dur", 0))
+                 for e in doc["traceEvents"]
+                 if e.get("cat") == "gpu_user_annotation"
+                 and e.get("name") in scope_names]
+    attributed = {}
+    kernels = profiler.trace_kernels(doc)
+    for name, entry_ in TRAIN_TRACED:
+        found = [k for k in kernels if entry_ in k[0]]
+        scopes = [_op_scope_of(op_ranges, k) for k in found]
+        attributed[name] = collections.Counter(
+            s.split(":")[0] if s else None for s in scopes)
+        if len(found) != want.get(name, 0) or None in attributed[name]:
+            raise AssertionError(
+                f"{name}: {len(found)} {entry_} kernels in the trace "
+                f"(want {want.get(name, 0)}), op scopes {attributed[name]}")
+    # host time by scope: the step, run:, and the program ops by type
+    run_ms = sum((t1 - t0) * 1e3 for n, t0, t1, _, _ in events
+                 if n.startswith("run:"))
+    by_type = collections.Counter()
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e.get("name") in \
+                scope_names:
+            by_type[e["name"].split(":")[0]] += e.get("dur", 0) / 1e3
+    # the session holds the one step: its kernels are the step's (a
+    # range's device twin covers the kernels of the innermost range
+    # only, so train:step's own twin holds almost none)
+    host_us = sum(t1 - t0 for _, t0, t1 in profiler.trace_ranges(
+        doc, "train:step"))
+    dev_us = sum(t1 - t0 for _, t0, t1 in kernels)
+    out = dict(untraced_step_ms=untraced_ms, traced_step_ms=traced_ms,
+               ratio=traced_ms / untraced_ms, run_span_ms=run_ms,
+               op_scopes_ms=sum(by_type.values()),
+               op_scopes_by_type_ms=dict(by_type.most_common(10)),
+               device_busy_ms=dev_us / 1e3,
+               device_busy_share=dev_us / host_us if host_us else None,
+               launches=got, attributed={k: dict(v) for k, v in
+                                         attributed.items()},
+               kineto_trace=_gzip(profiler.last_device_trace()))
+    log(f"  traced training step: {traced_ms:.3f} ms (untraced "
+        f"{untraced_ms:.3f} ms/step, ratio {traced_ms / untraced_ms:.3f}); "
+        f"run: {run_ms:.3f} ms, op scopes {sum(by_type.values()):.3f} ms "
+        f"(" + ", ".join(f"{k} {v:.2f}" for k, v in by_type.most_common(6))
+        + f"), device busy {dev_us / 1e3:.3f} ms; kernels by op scope "
+        + "; ".join(f"{k}: {dict(v)}" for k, v in attributed.items()))
+    return out
+
+
 def main():
     import torch
 
@@ -2676,6 +3240,17 @@ def main():
 
         log("[7] the sequence-parallel train step (ring attention)")
         report["seq_parallel"] = seq_parallel_phase(device)
+
+        log("[8] the traced path: profiler device trace on, flight "
+            "recorder armed")
+        report["traced"] = {
+            mode: traced_serving_phase(device, model_cfg, gen_cfg,
+                                       params_np, mode)
+            for mode in ("chunked", "legacy")}
+        report["traced"]["training"] = traced_training_phase(
+            device, BertConfig.base())
+        report["traced"]["engine_untraced_decode_tokens_per_s"] = \
+            report["engine"]["snapshot"]["decode_tokens_per_sec"]
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2695,6 +3270,14 @@ def main():
     report["card"] = card
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                         default=str))
+    tr = report["traced"]
+    print(json.dumps({"observability": {
+        mode: {"decode_tokens_per_s": tr[mode]["decode_tokens_per_s"],
+               "spans_ms": tr[mode]["spans_ms"]}
+        for mode in ("chunked", "legacy")} | {"training": {
+            k: tr["training"][k] for k in (
+                "untraced_step_ms", "traced_step_ms", "ratio", "run_span_ms",
+                "op_scopes_ms", "device_busy_ms")}}}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

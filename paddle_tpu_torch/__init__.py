@@ -19,8 +19,11 @@ matmul-epilogue, FFN-chain and qkv-folded flash kernels); a
 ``CompiledProgram`` whose ``BuildStrategy`` sets ``fuse_epilogues =
 False`` runs the unfused lowering.  ``parallel`` holds named meshes over
 ``torch.distributed`` and sequence parallelism (ring attention through
-the flat flash kernels, Ulysses).  No control flow, Executor meshes or
-AMP yet.
+the flat flash kernels, Ulysses).  ``observability`` (the metrics
+registry, spans, the flight recorder, ledger, SLO and scrape modules) and
+``profiler`` (host events plus a torch.profiler device trace) instrument
+the engine, the server, the Executor and the fusion pass as in the JAX
+package.  No control flow, Executor meshes or AMP yet.
 """
 from ._device import resolve_device, set_strict_fp32
 from .core import (  # noqa: F401
@@ -45,6 +48,9 @@ from . import ops  # noqa: F401  (registers all operators)
 from . import compiler, initializer, io, layers, optimizer  # noqa: F401
 from .compiler import BuildStrategy, CompiledProgram  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
+from . import profiler  # noqa: F401
+from . import resilience  # noqa: F401  (the atomic file-write protocol)
+from . import observability  # noqa: F401  (metrics registry, span tracer)
 
 __version__ = "0.1.0"
 

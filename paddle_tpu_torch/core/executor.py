@@ -18,6 +18,16 @@ Placement: ``Executor()`` runs on the first CUDA card and raises when
 there is none; ``Executor(CPUPlace())`` runs the plain PyTorch path on
 the CPU (the tests do); ``Executor(CUDAPlace(i))`` names a card.
 
+Telemetry, as in the JAX executor: each lowering (a miss of the
+program's cache) counts on ``executor_compiles_total`` and
+``executor_compile_seconds_total`` and records a ``lower:<id>`` span;
+each run records a ``run:<id>`` span (and a Kineto range of that name
+while the profiler's device trace runs) — while the profiler is on the
+run first waits for the card, so the span covers device time (never
+otherwise: an untraced step does not synchronize); the first lowering
+of a ``CompiledProgram`` sets ``optimizer_state_bytes``
+(``placement="global"`` and ``"per_device"``, equal without a mesh).
+
 Random state: each run draws one step seed from the program's
 ``random_seed`` (or a seed chosen once per program when it is 0) and a
 step counter, and each random op folds its uid into it — the port's
@@ -25,17 +35,71 @@ replacement for the JAX package's ``_next_rng`` key.
 """
 from __future__ import annotations
 
+import contextlib
+import time
+
 import numpy as np
 import torch
 
 from .. import _cuda
+from .. import profiler as _prof
 from .._rng import fold_seed
+from ..observability import tracing as _tracing
+from ..observability.monitor import (EXECUTOR_COMPILE_SECONDS,
+                                     EXECUTOR_COMPILES,
+                                     OPTIMIZER_STATE_BYTES)
+from ..observability.registry import get_registry
 from .lowering import lower_block
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope
 from .types import CUDAPlace, Place, runtime_dtype
 
 __all__ = ["Executor"]
+
+
+def _record_compile(seconds):
+    """Count one program lowering (and its wall seconds) on the shared
+    registry.  Resolved per call (lowerings are cache misses — rare by
+    design), which keeps the handles valid across a registry.reset().
+    Best-effort: telemetry must never fail a training step."""
+    try:
+        reg = get_registry()
+        reg.counter(EXECUTOR_COMPILES,
+                    "executor program lowerings").inc()
+        reg.counter(EXECUTOR_COMPILE_SECONDS,
+                    "seconds spent lowering programs").inc(seconds)
+    except Exception:  # noqa: BLE001 — metrics are non-load-bearing
+        pass
+
+
+def _record_optimizer_state_bytes(block, placed):
+    """Gauge the optimizer-state footprint of a compiled program:
+    ``optimizer_state_bytes{placement="global"}`` (unique logical bytes)
+    and ``{placement="per_device"}`` (bytes resident on one device —
+    the same, as the port has no mesh yet).  Best-effort: telemetry
+    must never fail a training step."""
+    try:
+        total = 0
+        for name, val in placed.items():
+            var = block._find_var_recursive(name)
+            if var is None or not getattr(var, "is_optimizer_state",
+                                          False):
+                continue
+            total += val.numel() * val.element_size()
+        if total == 0:
+            # a program with no optimizer state (forward only, SGD) must
+            # not clobber the training program's footprint
+            return
+        gauge = get_registry().gauge(
+            OPTIMIZER_STATE_BYTES,
+            "optimizer accumulator bytes (global vs per-device)")
+        gauge.set(total, placement="global")
+        gauge.set(total, placement="per_device")
+        get_registry().gauge(
+            "data_parallel_degree",
+            "data-axis size of the active mesh").set(1)    # no mesh yet
+    except Exception:  # noqa: BLE001 — metrics are non-load-bearing
+        pass
 
 
 class Executor:
@@ -53,9 +117,11 @@ class Executor:
         Persistable outputs (parameters, optimizer accumulators) are
         written back into the scope, detached, after the step."""
         fuse, fuse_block = True, True
+        compiled = None
         if program is not None and hasattr(program, "build_strategy") \
                 and hasattr(program, "program"):
             # a CompiledProgram: read its knobs before unwrapping it
+            compiled = program
             bs = program.build_strategy
             fuse = bool(getattr(bs, "fuse_epilogues", True))
             fuse_block = fuse and bool(getattr(bs, "fuse_block_epilogues",
@@ -74,19 +140,38 @@ class Executor:
                             for n, t in dev_feed.items())), fetch_names,
                str(self.device), fuse, fuse_block)
         lowered = program._exec_cache.get(sig)
-        if lowered is None:
+        was_miss = lowered is None
+        if was_miss:
+            t0 = time.perf_counter()
             lowered = lower_block(program, 0, tuple(dev_feed), fetch_names,
                                   self.device, fuse_epilogues=fuse,
                                   fuse_block_epilogues=fuse_block)
             program._exec_cache[sig] = lowered
+            t1 = time.perf_counter()
+            _record_compile(t1 - t0)
+            _tracing.record_span(f"lower:{id(program)}", t0, t1)
 
         mut = {n: self._from_scope(scope, block, n)
                for n in lowered.mut_param_names}
         const = {n: self._from_scope(scope, block, n)
                  for n in lowered.const_param_names}
+        if was_miss and compiled is not None:
+            # once per lowering: publish the optimizer-state footprint
+            _record_optimizer_state_bytes(block, {**const, **mut})
         loads = _cuda.library_loads()
-        fetches, new_persist = lowered.fn(dev_feed, mut, const,
-                                          self._next_seed(program))
+        t0 = time.perf_counter()
+        # while a device trace runs, the run is also a Kineto range, so
+        # the trace holds it beside its op scopes and kernels
+        with (torch.profiler.record_function(f"run:{id(program)}")
+              if _prof.device_tracing() else contextlib.nullcontext()):
+            fetches, new_persist = lowered.fn(dev_feed, mut, const,
+                                              self._next_seed(program))
+            if _prof.is_profiling() and self.device.type == "cuda":
+                # wait for the card so the run: span covers its device
+                # time (the JAX executor's block_until_ready); untraced
+                # runs stay asynchronous
+                torch.cuda.synchronize(self.device)
+        _tracing.record_span(f"run:{id(program)}", t0, time.perf_counter())
         if lowered.runs > 0:
             self.compiles_after_first_step += _cuda.library_loads() - loads
         lowered.runs += 1

@@ -43,30 +43,29 @@ Safety model: a chain is only fused when every intermediate is consumed
 by exactly the next chain op (across ALL blocks), is not fetched, not
 persistable, and not rewritten between the first and last member.
 
+Each plan publishes its groups on the metrics registry, as in the JAX
+package: ``fused_epilogue_hits_total{pattern}`` per group and
+``fused_block_hits_total{pattern}`` per block family.
+
 Not carried over from the JAX package: its environment switches, the
 degradation registry and fault injection (whose only job is to fall
-back), the tuning-plan override, AMP, and the observability counters —
-``HITS`` counts the planned groups instead.
+back), the tuning-plan override and AMP.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 
 import torch
 
 from .._rng import fold_seed
+from ..observability.monitor import FUSED_BLOCK_HITS, FUSED_EPILOGUE_HITS
+from ..observability.registry import get_registry
 from .program import EMPTY_VAR_NAME
 from .registry import REGISTRY, OpContext
 
 #: sentinel for "this grad slot is internal to a fused group: bind nothing"
 UNBOUND = object()
-
-#: groups planned, the JAX package's two hit counters in one:
-#: ("epilogue", pattern) per group and ("block", family) per block family
-#: ("attention_epilogue" | "ffn_chain" | "residual_norm_boundary")
-HITS = collections.Counter()
 
 _ACT_OPS = ("gelu", "relu")
 
@@ -731,16 +730,27 @@ def _grad_order_ok(g, ops):
 
 
 def _record_hits(groups, block_patterns=False):
-    for g in groups:
-        HITS["epilogue", g.pattern] += 1
-        if not block_patterns:
-            continue
-        if g.kind == "attn":
-            HITS["block", "attention_epilogue"] += 1
-        elif g.kind == "ffn_chain":
-            HITS["block", "ffn_chain"] += 1
-        if "residual" in g.roles and g.norm is not None:
-            HITS["block", "residual_norm_boundary"] += 1
+    try:
+        reg = get_registry()
+        c = reg.counter(
+            FUSED_EPILOGUE_HITS,
+            "fused GEMM-epilogue chains lowered, by pattern")
+        b = reg.counter(
+            FUSED_BLOCK_HITS,
+            "block-level epilogue programs lowered, by pattern family") \
+            if block_patterns else None
+        for g in groups:
+            c.inc(1, pattern=g.pattern)
+            if b is None:
+                continue
+            if g.kind == "attn":
+                b.inc(1, pattern="attention_epilogue")
+            elif g.kind == "ffn_chain":
+                b.inc(1, pattern="ffn_chain")
+            if "residual" in g.roles and g.norm is not None:
+                b.inc(1, pattern="residual_norm_boundary")
+    except Exception:  # noqa: BLE001 — metrics are non-load-bearing
+        pass
 
 
 # --------------------------------------------------------------------------

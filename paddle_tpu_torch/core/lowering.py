@@ -22,16 +22,25 @@ members but the last and the internal gradient sums, runs each group at
 its last member, and routes the members' ``vjp_grad`` ops to
 ``run_fused_grad``.
 
+Per-op trace attribution, as the JAX lowering's ``jax.named_scope``:
+while the profiler's torch.profiler session runs, each op executes
+inside a ``torch.profiler.record_function`` named ``"type:first_output"``
+(a fused group under its last member's name), so a Kineto trace maps
+each CUDA kernel back to its program op.  The scope opens only then:
+the untraced step pays one flag check per op.
+
 Not ported: control-flow sub-blocks, recompute, pipeline and AMP.  Their
 ops are not registered, so a program that holds one raises at run time,
 naming the op.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
+from .. import profiler as _prof
 from .._rng import fold_seed
 from .fusion import UNBOUND, FusionExec, plan_fusion, run_fused_grad, \
     run_fused_group
@@ -129,6 +138,20 @@ def _leaf(v):
     return v
 
 
+#: the scope of an op when no device trace runs (reusable: no state)
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def _op_scope_name(op):
+    """Trace scope for one program op: "type:first_output".  '/' would
+    open a nested profiler scope, so it is flattened."""
+    for names in op.outputs.values():
+        for n in names:
+            if n != EMPTY_VAR_NAME:
+                return f"{op.type}:{n}".replace("/", "_")
+    return op.type
+
+
 def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
     """Execute an op list over ``env`` (name -> tensor), in place.
 
@@ -139,41 +162,46 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
     gradient sums are skipped) and member ``vjp_grad`` ops bind from the
     group's gradients, never binding ``UNBOUND``."""
     plan = fusion.plan if fusion is not None else None
+    scoped = _prof.device_tracing()
     for i, op in enumerate(ops):
         if plan is not None and op.uid in plan.skip_uids:
             continue
-        try:
-            if op.type == VJP_GRAD_OP:
-                grp = None if plan is None else plan.member_group.get(
-                    op.attrs.get("fwd_uid"))
-                outs = (_run_vjp_grad(op, env, vjps) if grp is None
-                        else run_fused_grad(op, fusion, grp, env))
-            elif plan is not None and op.uid in plan.by_last:
-                outs = run_fused_group(fusion, plan.by_last[op.uid], env,
-                                       seed, device, vjp_uids)
-            else:
-                opdef = REGISTRY.get(op.type)
-                ins = {slot: [env[n] for n in names]
-                       for slot, names in op.inputs.items()}
-                ctx = OpContext(
-                    # fold by uid: unique program-wide, so no two ops
-                    # share a stream
-                    rng=fold_seed(seed, op.uid) if opdef.needs_rng else None,
-                    is_test=bool(op.attrs.get("is_test", False)),
-                    attrs=op.attrs, device=device)
-                if op.uid in vjp_uids:
-                    ins = {slot: [_leaf(v) for v in vals]
-                           for slot, vals in ins.items()}
-                    with torch.enable_grad():
-                        outs = opdef.compute(ctx, ins, op.attrs)
-                    vjps[op.uid] = (ins, outs)
+        # per-op trace attribution (the JAX lowering's named_scope)
+        with (torch.profiler.record_function(_op_scope_name(op))
+              if scoped else _NO_SCOPE):
+            try:
+                if op.type == VJP_GRAD_OP:
+                    grp = None if plan is None else plan.member_group.get(
+                        op.attrs.get("fwd_uid"))
+                    outs = (_run_vjp_grad(op, env, vjps) if grp is None
+                            else run_fused_grad(op, fusion, grp, env))
+                elif plan is not None and op.uid in plan.by_last:
+                    outs = run_fused_group(fusion, plan.by_last[op.uid],
+                                           env, seed, device, vjp_uids)
                 else:
-                    outs = opdef.compute(ctx, ins, op.attrs)
-        except KeyError as e:
-            raise RuntimeError(
-                f"Lowering failed at op #{i} {op!r}: missing variable "
-                f"{e}. Did you run the startup program / feed all data?"
-            ) from e
+                    opdef = REGISTRY.get(op.type)
+                    ins = {slot: [env[n] for n in names]
+                           for slot, names in op.inputs.items()}
+                    ctx = OpContext(
+                        # fold by uid: unique program-wide, so no two ops
+                        # share a stream
+                        rng=(fold_seed(seed, op.uid) if opdef.needs_rng
+                             else None),
+                        is_test=bool(op.attrs.get("is_test", False)),
+                        attrs=op.attrs, device=device)
+                    if op.uid in vjp_uids:
+                        ins = {slot: [_leaf(v) for v in vals]
+                               for slot, vals in ins.items()}
+                        with torch.enable_grad():
+                            outs = opdef.compute(ctx, ins, op.attrs)
+                        vjps[op.uid] = (ins, outs)
+                    else:
+                        outs = opdef.compute(ctx, ins, op.attrs)
+            except KeyError as e:
+                raise RuntimeError(
+                    f"Lowering failed at op #{i} {op!r}: missing variable "
+                    f"{e}. Did you run the startup program / feed all data?"
+                ) from e
         for slot, names in op.outputs.items():
             vals = outs.get(slot, [])
             for n, v in zip(names, vals):

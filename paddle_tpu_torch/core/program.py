@@ -47,6 +47,9 @@ class Variable:
         self.persistable = persistable
         self.stop_gradient = stop_gradient
         self.is_data = is_data
+        #: an optimizer accumulator (moments, beta powers): what the
+        #: Executor's optimizer_state_bytes gauge sums
+        self.is_optimizer_state = False
 
     # -- convenience -------------------------------------------------------
     @property

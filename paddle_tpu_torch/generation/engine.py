@@ -42,6 +42,14 @@ as ragged rows of the SAME step.  Acceptance is exact prefix matching
 (sampler.speculative_accept), so the tokens equal plain decoding's;
 rejected tail pages roll back through ``kv_cache.truncate_to``.
 
+OBSERVABILITY, as in the JAX engine: the warmup shapes, every chunked
+step (``generation:chunk_step``), legacy prefill group
+(``generation:prefill_b{B}x{S}``) and decode step
+(``generation:decode_step``) run inside an ``observability.tracing``
+span with the JAX engine's args; a finished sequence drops a
+``seq_finish`` note in the flight recorder; ``stats`` are the
+registry-backed ``GenerationStats``.
+
 The engine runs on the card unless it is given ``device="cpu"``; with
 no card and no device it raises.  Not ported: the cluster
 prefill/decode handoff (its methods raise NotImplementedError).
@@ -60,6 +68,8 @@ from .. import _cuda
 from .._device import resolve_device
 from ..models.transformer import (lm_embed, lm_layer_finish, lm_layer_qkv,
                                   lm_logits, lm_params_from_numpy)
+from ..observability import flightrec as _flightrec
+from ..observability import tracing as _tracing
 from ..ops.attention import attention_packed
 from ..serving.buckets import BucketError, ShapeBucketer
 from ..serving.config import ServingConfig
@@ -445,29 +455,33 @@ class GenerationEngine:
             write_rows = self.cache.rows_for([None] * R)
             tables = self.cache.rows_for([None] * NB)
             z = np.zeros(R, np.int32)
-            for greedy_only in (True, False):
-                self._run_chunk(z, z, write_rows, tables, z,
-                                np.zeros(R, np.uint32),
-                                np.zeros(R, np.float32), z,
-                                np.ones(R, np.float32), greedy_only)
+            with _tracing.span(f"generation:warmup_chunk_r{R}"):
+                for greedy_only in (True, False):
+                    self._run_chunk(z, z, write_rows, tables, z,
+                                    np.zeros(R, np.uint32),
+                                    np.zeros(R, np.float32), z,
+                                    np.ones(R, np.float32), greedy_only)
             if self._drafter is not None:
-                self._drafter.warmup()
+                with _tracing.span("generation:warmup_drafter"):
+                    self._drafter.warmup()
         else:
             for sb in self.cfg.prefill_seq_buckets:
                 for bb in self.cfg.prefill_batch_buckets:
                     temps, tks, tps = batch_sampling_arrays([], bb)
-                    for greedy_only in (True, False):
-                        self._run_prefill(
-                            np.zeros((bb, sb), np.int32),
-                            np.ones(bb, np.int32),
-                            self.cache.rows_for([None] * bb),
-                            np.zeros(bb, np.uint32), temps, tks, tps,
-                            greedy_only)
+                    with _tracing.span(f"generation:warmup_b{bb}x{sb}"):
+                        for greedy_only in (True, False):
+                            self._run_prefill(
+                                np.zeros((bb, sb), np.int32),
+                                np.ones(bb, np.int32),
+                                self.cache.rows_for([None] * bb),
+                                np.zeros(bb, np.uint32), temps, tks, tps,
+                                greedy_only)
             S = self.cfg.max_seqs
             z = np.zeros(S, np.int32)
-            for greedy_only in (True, False):
-                self._run_decode(z, z, self.cache.rows_for([None] * S), z,
-                                 np.zeros(S, np.uint32), greedy_only)
+            with _tracing.span("generation:warmup_decode"):
+                for greedy_only in (True, False):
+                    self._run_decode(z, z, self.cache.rows_for([None] * S),
+                                     z, np.zeros(S, np.uint32), greedy_only)
         self._warmed = True
         self.stats.mark_warmup_done(self.compile_count())
         return self.compile_count()
@@ -481,6 +495,15 @@ class GenerationEngine:
         only compiles; PyTorch runs the rest, a draft model included,
         eagerly)."""
         return _cuda.library_loads()
+
+    def ledger_counters(self):
+        """Cumulative request-ledger work counters (a cheap read — a
+        worker diffs these around each op).  Prefix reuse is converted
+        from pages to the cached-prefix TOKENS actually spliced."""
+        c = self.stats.ledger_counters()
+        c["prefix_tokens"] = (c.pop("prefix_pages_reused")
+                              * self.cfg.page_size)
+        return c
 
     # -- client API --------------------------------------------------------
     def generate(self, prompts, sampling=None):
@@ -705,8 +728,12 @@ class GenerationEngine:
                           for st in active.values())
         n_spec_rows = sum(len(w) for _, _, w in spec_wins)
         t0 = time.perf_counter()
-        nxt = self._run_chunk(toks, pos, write_rows, tables, lens, fold,
-                              temps, tks, tps, greedy_only)
+        with _tracing.span("generation:chunk_step",
+                           decode=len(decode_rows),
+                           chunk_tokens=n_chunk_toks,
+                           spec_rows=n_spec_rows):
+            nxt = self._run_chunk(toks, pos, write_rows, tables, lens, fold,
+                                  temps, tks, tps, greedy_only)
         dt = time.perf_counter() - t0
         self.stats.on_step()
         n_rows = len(decode_rows) + n_chunk_toks + n_spec_rows
@@ -846,8 +873,10 @@ class GenerationEngine:
         rows = self.cache.rows_for(slots + [None] * (Bpad - B))
         greedy_only = all(sp.temperature == 0 for _, _, sp, _, _ in group)
         t0 = time.perf_counter()
-        first = self._run_prefill(tokens, lens, rows, fold, temps, tks, tps,
-                                  greedy_only)
+        with _tracing.span(f"generation:prefill_b{Bpad}x{sb}",
+                           n_prompts=B):
+            first = self._run_prefill(tokens, lens, rows, fold, temps, tks,
+                                      tps, greedy_only)
         self.stats.on_prefill(int(sum(p.size for _, p, _, _, _ in group)),
                               time.perf_counter() - t0)
         self.stats.set_compiles(self.compile_count())
@@ -900,7 +929,9 @@ class GenerationEngine:
             rows[slot] = self.cache.scratch_row()
         greedy_only = not bool(self._slot_temps.any())
         t0 = time.perf_counter()
-        nxt = self._run_decode(toks, pos, rows, eff, fold, greedy_only)
+        with _tracing.span("generation:decode_step",
+                           active=len(active) - len(stalled)):
+            nxt = self._run_decode(toks, pos, rows, eff, fold, greedy_only)
         self.stats.on_decode(len(active) - len(stalled),
                              time.perf_counter() - t0,
                              self.cache.occupancy())
@@ -939,6 +970,8 @@ class GenerationEngine:
         if self._drafter is not None:
             self._drafter.release(slot)
         self.cache.release(slot)
+        _flightrec.note("seq_finish", slot=int(slot),
+                        engine=self.stats.engine_id)
         self._slot_temps[slot] = 0.0
         self._slot_tks[slot] = 0
         self._slot_tps[slot] = 1.0

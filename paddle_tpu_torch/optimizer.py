@@ -64,6 +64,8 @@ class Optimizer:
                             persistable=True, stop_gradient=True)
         sv = startup.create_var(name=var_name, shape=shape, dtype=dtype,
                                 persistable=True, stop_gradient=True)
+        v.is_optimizer_state = True
+        sv.is_optimizer_state = True
         ConstantInitializer(float(fill_value)).append_op(sv, startup)
         self._accumulators[key] = v
         return v

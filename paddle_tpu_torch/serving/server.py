@@ -8,8 +8,13 @@ executes serially anyway).
 Backends: any object with ``run(feeds) -> [outputs]`` and
 ``compile_count()`` (e.g. ``generation.GenerationBackend``), or any
 ``feeds -> [outputs]`` callable (wrapped in `CallableBackend`).  The
-in-process ``Predictor`` backend, the profiler and the tracing spans
-come with the inference and observability slices.
+in-process ``Predictor`` backend comes with the inference slice.
+
+Tracing, as in the JAX server: ``submit`` captures the client thread's
+span context; the batcher worker records each request's
+``serving:queue_wait`` in that request's trace and runs the batch under
+the first traced request's context in a ``serving:batch_b{B}`` span, so
+the engine's step spans nest under it.
 
 Lifecycle::
 
@@ -28,6 +33,8 @@ import time
 
 import numpy as np
 
+from .. import profiler as _prof
+from ..observability import tracing as _tracing
 from .batcher import (BadRequestError, InferenceFuture, RequestQueue,
                       RequestTimeoutError, ServerClosedError)
 from .buckets import BucketError, ShapeBucketer
@@ -120,7 +127,8 @@ class InferenceServer:
                                   self._cfg.pad_values.get(name, 0),
                                   dtype=dt)
                     for name, (shp, dt) in sample_shapes.items()}
-                with self._exec_lock:
+                with _prof.RecordEvent(f"serving:warmup_b{b}"), \
+                        self._exec_lock:
                     self._backend.run(feeds)
         self._stats.mark_warmup_done(self._backend.compile_count())
         return self._backend.compile_count()
@@ -216,6 +224,10 @@ class InferenceServer:
         deadline = (time.monotonic() + timeout_ms / 1e3
                     if timeout_ms is not None else None)
         req = InferenceFuture(feeds, rows, key, deadline)
+        # capture the CLIENT thread's span context: the batcher worker
+        # attaches it, so queue wait + batch execute land in the
+        # submitting request's trace
+        req.trace_ctx = _tracing.current_span()
         self._queue.put(req)
         return req
 
@@ -328,8 +340,25 @@ class InferenceServer:
             self._bucketer.assemble(batch)
         rows_total = sum(r.rows for r in batch)
         t0 = time.perf_counter()
+        # each request's queue wait becomes a span in ITS OWN trace,
+        # ending at DEQUEUE (the serving_queue_wait_ms interval); the
+        # batch span parents on the oldest traced request.  t_dequeue_pc
+        # is CONSUMED so a failed batch re-run through _isolate does not
+        # record the same wait twice
+        for req in batch:
+            if req.t_dequeue_pc is not None:
+                _tracing.record_span("serving:queue_wait",
+                                     req.t_enqueue_pc,
+                                     req.t_dequeue_pc,
+                                     ctx=req.trace_ctx)
+                req.t_dequeue_pc = None
+        seed_ctx = next((r.trace_ctx for r in batch
+                         if r.trace_ctx is not None), None)
         try:
-            with self._exec_lock:
+            with _tracing.attach(seed_ctx), \
+                    _tracing.span(f"serving:batch_b{padded_batch}",
+                                  n_requests=len(batch)), \
+                    self._exec_lock:
                 outs = self._backend.run(feeds)
         except Exception as batch_exc:   # noqa: BLE001 — isolate below
             self._isolate(batch, batch_exc)
@@ -366,5 +395,6 @@ class InferenceServer:
                 False, (time.monotonic() - req.t_enqueue) * 1e3,
                 (req.t_dequeue - req.t_enqueue) * 1e3)
             return
-        for req in batch:
-            self._run_batch([req])
+        with _prof.RecordEvent("serving:isolate"):
+            for req in batch:
+                self._run_batch([req])

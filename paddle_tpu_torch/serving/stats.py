@@ -1,83 +1,109 @@
-"""Serving and generation statistics: latency histograms, throughput,
-queue depth, batch occupancy, padding waste and compile accounting.
+"""Serving observability: latency histograms, QPS, queue depth, batch
+occupancy, padding waste, and compile-cache accounting.
 
-Counterpart of paddle_tpu/serving/stats.py.  The snapshot keys the
-server and the generation engine fill keep their names and meaning;
-storage is plain counters under one lock per stats object (the
-process-wide metric registry belongs to the observability slice).
+Counterpart of paddle_tpu/serving/stats.py: the same registry series
+(names and labels) and the same snapshot keys, with two differences.
+``GenerationStats`` also counts the engine's steps (``steps`` /
+``steps_total``: unified chunked steps; not a registry series), and the
+snapshots carry no ``kernel_degradations`` — the port has no
+degradation registry: a kernel launches or raises.
+``compiles_*`` count kernel builds or library loads: 0 after warmup
+means steady state never compiled.
 
-``compiles_after_warmup`` counts kernel builds or library loads after
-warmup: 0 means steady state never compiled.
+Parity: the reference deploys Paddle Serving behind its own metrics
+sidecar; here the serving path instruments itself through the SAME
+pipes the training stack uses — every batch execute and queue wait
+lands as a span in the Chrome trace (``observability.tracing`` over
+`profiler`), and every counter/histogram is a labeled series on the
+process-wide ``observability.MetricsRegistry`` (one scrape endpoint for
+serving, generation, training, dataio and resilience).  The per-server
+JSON snapshot (`ServingStats.snapshot`) keeps its schema for existing
+dashboards/SLO monitors; ``schema_version`` tracks its evolution.
+
+Thread-safety: every mutator takes a lock (the stats lock for
+composite fields, the registry's per-metric locks for series);
+`observe` is called from the batcher worker and from client threads
+(rejections), so the histogram must not assume a single writer.
 """
 from __future__ import annotations
 
-import bisect
+import itertools
 import json
 import threading
 import time
 
-__all__ = ["LatencyHistogram", "ServingStats", "GenerationStats",
-           "SNAPSHOT_SCHEMA_VERSION", "nearest_rank"]
+from ..observability.monitor import (GENERATION_CACHE_OCCUPANCY,
+                                     GENERATION_COMPILES,
+                                     GENERATION_DISPATCHES,
+                                     GENERATION_INTER_TOKEN_MS,
+                                     GENERATION_PREFILL_CHUNKS,
+                                     GENERATION_REQUESTS_DONE,
+                                     GENERATION_SECONDS, GENERATION_TOKENS,
+                                     SERVING_BATCH_EXECUTE_MS,
+                                     SERVING_BATCHES, SERVING_COMPILES,
+                                     SERVING_ELEMENTS, SERVING_QUEUE_DEPTH,
+                                     SERVING_QUEUE_WAIT_MS,
+                                     SERVING_REQUEST_LATENCY_MS,
+                                     SERVING_REQUESTS, SERVING_ROWS,
+                                     SERVING_SLO_VIOLATIONS)
+from ..observability.registry import (DEFAULT_MS_BOUNDS, _HistogramSeries,
+                                      get_registry, nearest_rank)
 
+__all__ = ["LatencyHistogram", "ServingStats", "GenerationStats",
+           "SNAPSHOT_SCHEMA_VERSION"]
+
+#: Snapshot schema: v1 = pre-registry ad-hoc fields; v2 = registry-backed
+#: with unified ``*_ms`` / ``*_total`` aliases alongside the v1 keys.
 SNAPSHOT_SCHEMA_VERSION = 2
 
-#: 0.1ms .. ~105s in x2 steps
-DEFAULT_MS_BOUNDS = tuple(0.1 * 2 ** i for i in range(21))
-
-
-def nearest_rank(sorted_samples, p):
-    """Nearest-rank percentile over an already-sorted sample list."""
-    n = len(sorted_samples)
-    return sorted_samples[min(n - 1, max(0, int(round(
-        (p / 100.0) * (n - 1)))))]
+# one label value per stats object, so several servers/engines in one
+# process stay distinct series on the shared registry
+_server_seq = itertools.count(0)
+_engine_seq = itertools.count(0)
 
 
 class LatencyHistogram:
     """Fixed log-spaced buckets (for export) + a bounded reservoir of raw
-    samples (for p50/p95/p99 without holding every request of a
-    long-lived server).  The reservoir overwrites round-robin once full.
-    Thread-safe."""
+    samples (for accurate p50/p95/p99 without holding every request of a
+    long-lived server in memory).
+
+    ONE accumulator implementation: this wraps the registry's series
+    type (``observability.registry._HistogramSeries``) with a private
+    lock, so a standalone histogram (e.g. ``metrics.ServingLatency``)
+    and a registry-homed one can never drift in bucket or reservoir
+    semantics.  The class also owns the summary FORMAT
+    (:meth:`summarize`) ServingStats applies to registry series state.
+
+    Bucket upper bounds are 0.1ms .. ~105s in x2 steps — wide enough for
+    both a sub-ms CPU fc model and a long generate call."""
 
     BOUNDS = DEFAULT_MS_BOUNDS  # ms
 
-    def __init__(self, max_samples=65536, bounds=None):
-        self._lock = threading.Lock()
-        self._bounds = tuple(bounds) if bounds is not None else self.BOUNDS
-        self._counts = [0] * (len(self._bounds) + 1)
-        self._samples = []
-        self._max_samples = max_samples
-        self._n = 0
-        self._sum = 0.0
-        self._max = 0.0
+    def __init__(self, max_samples=65536):
+        self._series = _HistogramSeries(threading.Lock(), self.BOUNDS,
+                                        max_samples)
 
     def observe(self, ms):
-        ms = float(ms)
-        with self._lock:
-            self._counts[bisect.bisect_left(self._bounds, ms)] += 1
-            self._n += 1
-            self._sum += ms
-            self._max = max(self._max, ms)
-            if len(self._samples) < self._max_samples:
-                self._samples.append(ms)
-            else:
-                self._samples[self._n % self._max_samples] = ms
+        self._series.observe(ms)
 
-    def state(self):
-        """(n, sum, max, samples-copy), copied under the lock so the
-        percentile sort runs outside it."""
-        with self._lock:
-            return (self._n, self._sum, self._max, list(self._samples))
+    # the shared selection rule, kept under the historical name
+    _pick = staticmethod(nearest_rank)
 
     def percentile(self, p):
-        _, _, _, samples = self.state()
-        return nearest_rank(sorted(samples), p) if samples else None
+        return self._series.percentile(p)
+
+    def state(self):
+        """Cheap O(n) copy of the accumulator state, for summarizing
+        OUTSIDE the observe lock — the sort must not stall the request
+        path."""
+        return self._series.state()
 
     @staticmethod
     def summarize(state):
         n, total, mx, samples = state
         if n == 0:
             return {"count": 0}
-        s = sorted(samples)
+        s = sorted(samples)   # one sort for all three percentiles
         return {
             "count": n,
             "mean_ms": round(total / n, 3),
@@ -93,135 +119,165 @@ class LatencyHistogram:
     def buckets(self):
         """(upper_bound_ms, count) pairs for non-empty buckets; the last
         bound is +inf."""
-        with self._lock:
-            counts = list(self._counts)
-        bounds = self._bounds + (float("inf"),)
-        return [(b, c) for b, c in zip(bounds, counts) if c]
-
-
-class _Counters:
-    """Named float counters and gauges under one lock."""
-
-    def __init__(self, *names):
-        self._lock = threading.Lock()
-        self._v = dict.fromkeys(names, 0.0)
-
-    def inc(self, name, amount=1):
-        with self._lock:
-            self._v[name] += float(amount)
-
-    def set(self, name, value):
-        with self._lock:
-            self._v[name] = float(value)
-
-    def values(self):
-        with self._lock:
-            return dict(self._v)
+        return self._series.buckets()
 
 
 class ServingStats:
     """All counters/gauges for one `InferenceServer`, exported as one
-    JSON-able dict.  `slo_ms` adds an SLO violation counter over
-    end-to-end latency."""
+    JSON-able dict.  `slo_ms` (from ServingConfig) adds an SLO violation
+    counter over end-to-end latency.
 
-    def __init__(self, slo_ms=None):
-        self._slo_ms = slo_ms
-        self.latency = LatencyHistogram()
-        self.queue_wait = LatencyHistogram()
-        self.execute = LatencyHistogram()
-        self._c = _Counters(
-            "ok", "failed", "timeout", "rejected", "slo", "batches",
-            "real_rows", "padded_rows", "real_el", "padded_el", "depth",
-            "compiles")
+    Storage is labeled series on the process registry (label
+    ``server=<n>``): the snapshot below AND a Prometheus scrape of
+    ``observability.get_registry()`` report the same numbers."""
+
+    def __init__(self, slo_ms=None, registry=None, server=None):
+        reg = registry or get_registry()
+        sid = str(next(_server_seq)) if server is None else str(server)
+        self.server_id = sid
+        lb = {"server": sid}
         self._lock = threading.Lock()
+        self._slo_ms = slo_ms
+        self.latency = reg.histogram(
+            SERVING_REQUEST_LATENCY_MS,
+            "end-to-end request latency").labels(**lb)
+        self.queue_wait = reg.histogram(
+            SERVING_QUEUE_WAIT_MS,
+            "enqueue to batch assembly").labels(**lb)
+        self.execute = reg.histogram(
+            SERVING_BATCH_EXECUTE_MS,
+            "per-batch device execute time").labels(**lb)
+        req = reg.counter(SERVING_REQUESTS,
+                          "requests by outcome")
+        self._c_ok = req.labels(outcome="ok", **lb)
+        self._c_failed = req.labels(outcome="failed", **lb)
+        self._c_timeout = req.labels(outcome="timeout", **lb)
+        self._c_rejected = req.labels(outcome="rejected", **lb)
+        self._c_slo = reg.counter(
+            SERVING_SLO_VIOLATIONS,
+            "requests over the configured latency SLO").labels(**lb)
+        self._c_batches = reg.counter(
+            SERVING_BATCHES, "batches executed").labels(**lb)
+        rows = reg.counter(SERVING_ROWS,
+                           "batch rows by kind (real vs padded slot)")
+        self._c_real_rows = rows.labels(kind="real", **lb)
+        self._c_padded_rows = rows.labels(kind="padded", **lb)
+        el = reg.counter(SERVING_ELEMENTS,
+                         "tensor elements by kind (real vs padded)")
+        self._c_real_el = el.labels(kind="real", **lb)
+        self._c_padded_el = el.labels(kind="padded", **lb)
+        self._g_depth = reg.gauge(
+            SERVING_QUEUE_DEPTH, "requests waiting").labels(**lb)
+        self._g_compiles = reg.gauge(
+            SERVING_COMPILES, "backend compile-cache size").labels(**lb)
         self.compiles_at_warmup = None
         self._t_first = None
         self._t_last = None
 
     # -- mutators (called cross-thread) ------------------------------------
     def on_reject(self):
-        self._c.inc("rejected")
+        self._c_rejected.inc()
 
     def on_timeout(self, latency_ms=None):
-        """Timed-out requests are the WORST latencies: they land in the
-        histogram and the SLO counter."""
-        self._c.inc("timeout")
+        """A request expired before (or while) being served.  Timed-out
+        requests are the WORST latencies — they must land in the
+        histogram and the SLO counter, or a server missing its SLO on
+        every request would look healthy."""
+        self._c_timeout.inc()
         if latency_ms is not None:
             self.latency.observe(latency_ms)
             if self._slo_ms is not None and latency_ms > self._slo_ms:
-                self._c.inc("slo")
+                self._c_slo.inc()
 
     def on_queue_depth(self, depth):
-        self._c.set("depth", depth)
+        self._g_depth.set(depth)
 
     def on_batch(self, real_rows, padded_rows, real_elements,
                  padded_elements, execute_ms):
-        self._c.inc("batches")
-        self._c.inc("real_rows", real_rows)
-        self._c.inc("padded_rows", padded_rows)
-        self._c.inc("real_el", real_elements)
-        self._c.inc("padded_el", padded_elements)
+        self._c_batches.inc()
+        self._c_real_rows.inc(real_rows)
+        self._c_padded_rows.inc(padded_rows)
+        self._c_real_el.inc(real_elements)
+        self._c_padded_el.inc(padded_elements)
         self.execute.observe(execute_ms)
 
     def on_request_done(self, ok, latency_ms, wait_ms):
         now = time.perf_counter()
-        self._c.inc("ok" if ok else "failed")
+        (self._c_ok if ok else self._c_failed).inc()
         self.latency.observe(latency_ms)
         self.queue_wait.observe(wait_ms)
         if self._slo_ms is not None and latency_ms > self._slo_ms:
-            self._c.inc("slo")
+            self._c_slo.inc()
         with self._lock:
             if self._t_first is None:
                 self._t_first = now
             self._t_last = now
 
     def set_compiles(self, total):
-        self._c.set("compiles", total)
+        self._g_compiles.set(total)
 
     def mark_warmup_done(self, compile_count):
-        # gauge FIRST: a racing snapshot never reads the new
-        # compiles_at_warmup against the old gauge
-        self._c.set("compiles", compile_count)
+        # gauge FIRST: a snapshot racing this call must never read the
+        # new compiles_at_warmup against the old gauge (which would
+        # yield a negative compiles_after_warmup)
+        self._g_compiles.set(compile_count)
         with self._lock:
             self.compiles_at_warmup = compile_count
 
     # -- export ------------------------------------------------------------
     def snapshot(self):
+        # caw BEFORE the gauge (the mirror of mark_warmup_done's write
+        # order): compiles_after_warmup can then only ever be >= 0
         with self._lock:
             caw = self.compiles_at_warmup
+        # series values are float accumulators; these are integral by
+        # construction and were ints in schema v1 — keep them ints
+        ok = int(self._c_ok.value())
+        failed = int(self._c_failed.value())
+        batches = int(self._c_batches.value())
+        real_rows = int(self._c_real_rows.value())
+        padded_rows = int(self._c_padded_rows.value())
+        real_el = int(self._c_real_el.value())
+        padded_el = int(self._c_padded_el.value())
+        compiles_total = int(self._g_compiles.value())
+        with self._lock:
             span = ((self._t_last - self._t_first)
                     if (self._t_first is not None
                         and self._t_last > self._t_first) else None)
-        c = {k: int(v) for k, v in self._c.values().items()}
-        n_done = c["ok"] + c["failed"]
-        lat = self.latency.summary()
-        wait = self.queue_wait.summary()
-        execute = self.execute.summary()
+        n_done = ok + failed
+        # copy histogram state from the series; SORT outside any lock
+        # so a stats poll never stalls request completions
+        lat = LatencyHistogram.summarize(self.latency.state())
+        wait = LatencyHistogram.summarize(self.queue_wait.state())
+        execute = LatencyHistogram.summarize(self.execute.state())
         snap = {
             "schema_version": SNAPSHOT_SCHEMA_VERSION,
-            "requests_ok": c["ok"],
-            "requests_failed": c["failed"],
-            "requests_timeout": c["timeout"],
-            "requests_rejected": c["rejected"],
+            "server": self.server_id,
+            "requests_ok": ok,
+            "requests_failed": failed,
+            "requests_timeout": int(self._c_timeout.value()),
+            "requests_rejected": int(self._c_rejected.value()),
             "slo_ms": self._slo_ms,
-            "slo_violations": c["slo"],
+            "slo_violations": int(self._c_slo.value()),
             "qps": (round(n_done / span, 2) if span else None),
-            "batches": c["batches"],
-            "mean_batch_size": (round(c["real_rows"] / c["batches"], 2)
-                                if c["batches"] else None),
-            "batch_occupancy": (round(c["real_rows"] / c["padded_rows"], 4)
-                                if c["padded_rows"] else None),
-            "padding_waste": (round(1.0 - c["real_el"] / c["padded_el"], 4)
-                              if c["padded_el"] else None),
-            "queue_depth": c["depth"],
-            "compiles_total": c["compiles"],
+            "batches": batches,
+            "mean_batch_size": (round(real_rows / batches, 2)
+                                if batches else None),
+            "batch_occupancy": (round(real_rows / padded_rows, 4)
+                                if padded_rows else None),
+            "padding_waste": (round(1.0 - real_el / padded_el, 4)
+                              if padded_el else None),
+            "queue_depth": int(self._g_depth.value()),
+            "compiles_total": compiles_total,
             "compiles_at_warmup": caw,
-            "compiles_after_warmup": (c["compiles"] - caw
+            "compiles_after_warmup": (compiles_total - caw
                                       if caw is not None else None),
             "latency": lat,
             "queue_wait": wait,
             "batch_execute": execute,
         }
+        # unified *_total / *_ms aliases (schema v2) — same values, the
+        # suffixed names dashboards should key on going forward
         snap.update({
             "requests_ok_total": snap["requests_ok"],
             "requests_failed_total": snap["requests_failed"],
@@ -243,111 +299,214 @@ class ServingStats:
         return path
 
 
-#: the paged cache's prefix counters, as ``prefix_counters()`` names them
-_PREFIX_COUNTERS = ("lookups", "hits", "pages_reused", "pages_evicted",
-                    "cow_copies")
-
-
 class GenerationStats:
-    """Counters for one generation engine: phase-split token throughput
-    (prefill and decode must not be averaged together), unified steps,
-    KV page occupancy, inter-token latency, speculative acceptance, the
-    prefix cache's reuse and the compile accounting
-    (`compiles_after_warmup == 0` is the steady-state contract)."""
+    """Counters/gauges for one `generation.GenerationEngine`: phase-split
+    token throughput (prefill amortizes over many tokens per dispatch,
+    decode pays one dispatch per token — they must not be averaged
+    together), KV-cache page occupancy, and the same compile-cache
+    accounting contract as ServingStats (`compiles_after_warmup == 0`
+    is the steady-state-never-JITs invariant the bench gates on).
 
-    def __init__(self):
-        self._c = _Counters(
-            "prefill_tok", "prefill_batches", "prefill_s", "decode_tok",
-            "decode_steps", "decode_s", "done", "chunks", "steps",
-            "spec_drafted", "spec_accepted", "compiles",
-            *(f"prefix_{n}" for n in _PREFIX_COUNTERS))
-        self._itl = LatencyHistogram()
-        self._occ = LatencyHistogram(
-            bounds=tuple(i / 20 for i in range(1, 21)))
+    Like ServingStats, storage is labeled registry series (label
+    ``engine=<n>``); the engine itself is single-threaded but a serving
+    front-end polls `snapshot()` from other threads."""
+
+    def __init__(self, registry=None, engine=None):
+        reg = registry or get_registry()
+        eid = str(next(_engine_seq)) if engine is None else str(engine)
+        self.engine_id = eid
+        lb = {"engine": eid}
         self._lock = threading.Lock()
+        tok = reg.counter(GENERATION_TOKENS,
+                          "tokens processed, by phase")
+        self._c_prefill_tok = tok.labels(phase="prefill", **lb)
+        self._c_decode_tok = tok.labels(phase="decode", **lb)
+        batches = reg.counter(GENERATION_DISPATCHES,
+                              "device dispatches, by phase")
+        self._c_prefill_batches = batches.labels(phase="prefill", **lb)
+        self._c_decode_steps = batches.labels(phase="decode", **lb)
+        secs = reg.counter(GENERATION_SECONDS,
+                           "wall seconds in device dispatches, by phase")
+        self._c_prefill_s = secs.labels(phase="prefill", **lb)
+        self._c_decode_s = secs.labels(phase="decode", **lb)
+        self._c_done = reg.counter(
+            GENERATION_REQUESTS_DONE,
+            "sequences finished").labels(**lb)
+        self._c_chunks = reg.counter(
+            GENERATION_PREFILL_CHUNKS,
+            "prompt chunks fed through the unified step").labels(**lb)
+        self._h_itl = reg.histogram(
+            GENERATION_INTER_TOKEN_MS,
+            "gap between consecutive emitted tokens of one "
+            "sequence").labels(**lb)
+        self._h_occ = reg.histogram(
+            GENERATION_CACHE_OCCUPANCY,
+            "KV page-pool occupancy per decode step",
+            bounds=tuple(i / 20 for i in range(1, 21))).labels(**lb)
+        self._g_compiles = reg.gauge(
+            GENERATION_COMPILES,
+            "engine jit-cache size").labels(**lb)
+        from ..observability.monitor import (GENERATION_PREFIX_COW,
+                                             GENERATION_PREFIX_HITS,
+                                             GENERATION_PREFIX_LOOKUPS,
+                                             GENERATION_PREFIX_PAGES_EVICTED,
+                                             GENERATION_PREFIX_PAGES_REUSED,
+                                             GENERATION_SPEC_ACCEPT_RATIO,
+                                             GENERATION_SPEC_ACCEPTED,
+                                             GENERATION_SPEC_DRAFTED)
+
+        self._c_spec_drafted = reg.counter(
+            GENERATION_SPEC_DRAFTED,
+            "draft tokens proposed to verify windows").labels(**lb)
+        self._c_spec_accepted = reg.counter(
+            GENERATION_SPEC_ACCEPTED,
+            "draft tokens accepted by the rejection rule").labels(**lb)
+        self._g_spec_ratio = reg.gauge(
+            GENERATION_SPEC_ACCEPT_RATIO,
+            "cumulative accepted/drafted ratio").labels(**lb)
+        self._c_prefix = {
+            "lookups": reg.counter(
+                GENERATION_PREFIX_LOOKUPS,
+                "prompt admissions that consulted the prefix "
+                "index").labels(**lb),
+            "hits": reg.counter(
+                GENERATION_PREFIX_HITS,
+                "admissions that spliced >=1 cached page").labels(**lb),
+            "pages_reused": reg.counter(
+                GENERATION_PREFIX_PAGES_REUSED,
+                "KV pages spliced by reference instead of "
+                "prefilled").labels(**lb),
+            "pages_evicted": reg.counter(
+                GENERATION_PREFIX_PAGES_EVICTED,
+                "retained prefix pages evicted under pool "
+                "pressure").labels(**lb),
+            "cow_copies": reg.counter(
+                GENERATION_PREFIX_COW,
+                "copy-on-write page copies on divergence").labels(**lb),
+        }
+        self._prefix_last = dict.fromkeys(self._c_prefix, 0)
+        self._steps = 0
         self.compiles_at_warmup = None
 
     # -- mutators ----------------------------------------------------------
     def on_step(self):
-        self._c.inc("steps")
+        """One unified (chunked) step ran — the port's step count, which
+        per-step launch gates divide by."""
+        with self._lock:
+            self._steps += 1
 
     def on_prefill(self, real_tokens, elapsed_s):
-        self._c.inc("prefill_tok", int(real_tokens))
-        self._c.inc("prefill_batches")
-        self._c.inc("prefill_s", elapsed_s)
+        self._c_prefill_tok.inc(int(real_tokens))
+        self._c_prefill_batches.inc()
+        self._c_prefill_s.inc(float(elapsed_s))
 
     def on_decode(self, active_seqs, elapsed_s, occupancy):
-        self._c.inc("decode_tok", int(active_seqs))
-        self._c.inc("decode_steps")
-        self._c.inc("decode_s", elapsed_s)
-        self._occ.observe(occupancy)
+        self._c_decode_tok.inc(int(active_seqs))
+        self._c_decode_steps.inc()
+        self._c_decode_s.inc(float(elapsed_s))
+        self._h_occ.observe(float(occupancy))
 
     def on_request_done(self):
-        self._c.inc("done")
+        self._c_done.inc()
 
     def on_prefill_chunks(self, n=1):
-        self._c.inc("chunks", int(n))
-
-    def on_inter_token(self, ms):
-        """Gap (ms) between two consecutive tokens EMITTED for one
-        sequence — the streaming latency chunked scheduling protects."""
-        self._itl.observe(ms)
+        self._c_chunks.inc(int(n))
 
     def on_spec(self, drafted, accepted):
         """One speculative verify window: ``drafted`` tokens proposed,
-        ``accepted`` of them matched the model's own samples."""
-        self._c.inc("spec_drafted", int(drafted))
-        self._c.inc("spec_accepted", int(accepted))
+        ``accepted`` of them matched the model's own samples.  The
+        gauge tracks the cumulative ratio — the live signal for whether
+        speculation is paying for its drafting work."""
+        self._c_spec_drafted.inc(int(drafted))
+        self._c_spec_accepted.inc(int(accepted))
+        d = self._c_spec_drafted.value()
+        if d > 0:
+            self._g_spec_ratio.set(
+                self._c_spec_accepted.value() / d)
 
     def update_prefix(self, counters):
-        """Take the paged cache's monotonic prefix counters
-        (``PagedKVCache.prefix_counters()``); the engine calls this once
-        per step."""
-        for name in _PREFIX_COUNTERS:
-            self._c.set(f"prefix_{name}", counters.get(name, 0))
+        """Sync the paged cache's monotonic host-side prefix counters
+        (``PagedKVCache.prefix_counters()``) into the registry series —
+        the engine calls this once per step, so the cache itself stays
+        registry-free and the delta bookkeeping lives here."""
+        with self._lock:
+            for name, series in self._c_prefix.items():
+                delta = int(counters.get(name, 0)) - self._prefix_last[name]
+                if delta > 0:
+                    series.inc(delta)
+                    self._prefix_last[name] += delta
+
+    def on_inter_token(self, ms):
+        """Gap (ms) between two consecutive tokens EMITTED for one
+        sequence — the user-visible streaming latency the chunked
+        scheduler exists to protect (a monolithic prefill stalling the
+        batch shows up here as a p99 spike)."""
+        self._h_itl.observe(float(ms))
 
     def set_compiles(self, total):
-        self._c.set("compiles", total)
+        self._g_compiles.set(total)
 
     def mark_warmup_done(self, compile_count):
-        self._c.set("compiles", compile_count)
+        # same write/read ordering discipline as ServingStats: gauge
+        # first, so a racing snapshot never sees a negative
+        # compiles_after_warmup
+        self._g_compiles.set(compile_count)
         with self._lock:
             self.compiles_at_warmup = compile_count
 
     # -- export ------------------------------------------------------------
+    def ledger_counters(self):
+        """Cumulative work counters the worker diffs around one op to
+        fill the RPC reply's per-request ledger fields — five counter
+        reads, no lock, cheap enough to run per dispatch."""
+        return {
+            "decode_tokens": int(self._c_decode_tok.value()),
+            "spec_drafted": int(self._c_spec_drafted.value()),
+            "spec_accepted": int(self._c_spec_accepted.value()),
+            "prefill_chunks": int(self._c_chunks.value()),
+            "prefix_pages_reused": int(
+                self._c_prefix["pages_reused"].value()),
+        }
+
     def snapshot(self):
         with self._lock:
             caw = self.compiles_at_warmup
-        c = self._c.values()
-        prefill_tok, decode_tok = int(c["prefill_tok"]), int(c["decode_tok"])
-        decode_steps = int(c["decode_steps"])
-        occ_n, occ_sum, occ_max, _ = self._occ.state()
-        compiles_total = int(c["compiles"])
-        itl = self._itl.summary()
-        spec_drafted = int(c["spec_drafted"])
-        spec_accepted = int(c["spec_accepted"])
-        pfx = {n: int(c[f"prefix_{n}"]) for n in _PREFIX_COUNTERS}
+            steps = self._steps
+        prefill_tok = int(self._c_prefill_tok.value())
+        prefill_batches = int(self._c_prefill_batches.value())
+        prefill_s = self._c_prefill_s.value()
+        decode_tok = int(self._c_decode_tok.value())
+        decode_steps = int(self._c_decode_steps.value())
+        decode_s = self._c_decode_s.value()
+        occ_n, occ_sum, occ_max, _ = self._h_occ.state()
+        compiles_total = int(self._g_compiles.value())
+        itl = LatencyHistogram.summarize(self._h_itl.state())
+        spec_drafted = int(self._c_spec_drafted.value())
+        spec_accepted = int(self._c_spec_accepted.value())
+        pfx = {name: int(series.value())
+               for name, series in self._c_prefix.items()}
         snap = {
             "schema_version": SNAPSHOT_SCHEMA_VERSION,
-            "requests_done": int(c["done"]),
-            "steps": int(c["steps"]),
+            "engine": self.engine_id,
+            "requests_done": int(self._c_done.value()),
+            "steps": steps,
             "prefill_tokens": prefill_tok,
-            "prefill_batches": int(c["prefill_batches"]),
+            "prefill_batches": prefill_batches,
             "prefill_tokens_per_sec": (
-                round(prefill_tok / c["prefill_s"], 2)
-                if c["prefill_s"] > 0 else None),
+                round(prefill_tok / prefill_s, 2)
+                if prefill_s > 0 else None),
             "decode_tokens": decode_tok,
             "decode_steps": decode_steps,
             "decode_tokens_per_sec": (
-                round(decode_tok / c["decode_s"], 2)
-                if c["decode_s"] > 0 else None),
+                round(decode_tok / decode_s, 2)
+                if decode_s > 0 else None),
             "mean_decode_batch": (
                 round(decode_tok / decode_steps, 2)
                 if decode_steps else None),
             "cache_occupancy_mean": (
                 round(occ_sum / occ_n, 4) if occ_n else None),
             "cache_occupancy_max": round(occ_max, 4),
-            "prefill_chunks": int(c["chunks"]),
+            "prefill_chunks": int(self._c_chunks.value()),
             "spec_drafted": spec_drafted,
             "spec_accepted": spec_accepted,
             "spec_accept_ratio": (
@@ -367,6 +526,7 @@ class GenerationStats:
             "compiles_after_warmup": (
                 compiles_total - caw if caw is not None else None),
         }
+        # unified *_total aliases (schema v2)
         snap.update({
             "requests_done_total": snap["requests_done"],
             "steps_total": snap["steps"],

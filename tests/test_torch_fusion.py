@@ -28,6 +28,7 @@ from paddle_tpu.models import BertConfig as JaxBertConfig
 from paddle_tpu.models import build_bert_pretrain as jax_bert
 from paddle_tpu_torch.core import fusion
 from paddle_tpu_torch.models import BertConfig, build_bert_pretrain
+from paddle_tpu_torch.observability import get_registry
 from paddle_tpu_torch.ops import attention_epilogue as ae
 from paddle_tpu_torch.ops import ffn_chain as fc
 from paddle_tpu_torch.ops import fused_matmul as fm
@@ -429,15 +430,30 @@ def test_compiled_program_has_no_mesh_yet():
 
 
 def test_hits_count_planned_groups():
-    before = dict(fusion.HITS)
+    """A plan publishes its groups on the metrics registry under the JAX
+    package's series: fused_epilogue_hits_total{pattern} per group and
+    fused_block_hits_total{pattern} per block family."""
+    reg = get_registry()
+
+    def hits():
+        epi = reg.counter("fused_epilogue_hits_total")
+        blk = reg.counter("fused_block_hits_total")
+        return {("epilogue", "mul+bias+slice3+attention"):
+                epi.value(pattern="mul+bias+slice3+attention"),
+                ("block", "attention_epilogue"):
+                blk.value(pattern="attention_epilogue"),
+                ("block", "ffn_chain"): blk.value(pattern="ffn_chain")}
+
+    before = hits()
     _plans("encoder_block", True)
-    after = fusion.HITS
+    after = hits()
     assert after["block", "attention_epilogue"] == \
-        before.get(("block", "attention_epilogue"), 0) + 1
+        before["block", "attention_epilogue"] + 1
     assert after["block", "ffn_chain"] == \
-        before.get(("block", "ffn_chain"), 0) + 1
+        before["block", "ffn_chain"] + 1
     assert after["epilogue", "mul+bias+slice3+attention"] == \
-        before.get(("epilogue", "mul+bias+slice3+attention"), 0) + 1
+        before["epilogue", "mul+bias+slice3+attention"] + 1
+    assert not hasattr(fusion, "HITS")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
