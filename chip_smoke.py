@@ -108,10 +108,37 @@ Phases (any failure exits non-zero and prints no result):
    group, fused_block_hits_total 12 attention and 12 FFN-chain blocks,
    executor_compiles_total one per lowering, optimizer_state_bytes equal
    to Adam's state, and a TrainingMonitor's JSONL one record per timed
-   step with that step's wall time.
+   step with that step's wall time;
+9. disaggregated serving of phase 3a's 8 prompts (prefill on one engine,
+   the K/V handed to another that decodes), at full depth and cut to 2
+   layers:
+   a. in this process: a chunked prefill engine's prefill_detached
+      handoffs decode on a chunked and on a legacy decode engine, each
+      run with the launch counts set to 0 just before it and read just
+      after — the ragged kernel once per layer per step on the prefill
+      and the chunked decode engine, the paged decode kernel once per
+      layer per decode step (and the ragged kernel never) on the legacy
+      one, no plain attention, nothing loaded after warmup, every
+      request finished; the detached prefill's handoff equals the
+      concatenated chunks of prefill_stream bit for bit, and import_seq
+      then export_seq through a paged and a dense cache gives the same
+      bytes back; at depth 2 every token reaches the plain recompute's
+      argmax and the chunked decode's tokens equal a single chunked
+      engine's (the legacy decode's equality is reported); export,
+      import and wire (one RPC round trip of a handoff) ms a request;
+   b. over processes: a WorkerPool of one prefill and one decode worker
+      (python -m paddle_tpu_torch.cluster.worker, on this card) per
+      depth behind a GenerationRouter that streams pages, 4 client
+      threads — every request ok, both workers alive, chunks streamed
+      and no fallback, nothing loaded after warmup in a worker, at
+      depth 2 every token the recompute's argmax; time to first token,
+      decode tokens/s, against the same prompts through one engine and
+      through the monolithic handoff; the pools close in a finally and
+      no worker process may outlive them (their logs: workerlog.0 under
+      chiprun_out/phase9/<depth>_<role>/).
 
 Before the card's line come {"observability": {...}} (phase 8's
-numbers) and {"kernels": [...]}, one entry per
+numbers), {"cluster": {...}} (phase 9's) and {"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
@@ -3148,6 +3175,529 @@ def traced_training_phase(device, cfg):
     return out
 
 
+# -- phase 9: disaggregated serving -------------------------------------------
+
+#: phase 9b: client threads, each submitting N_PROMPTS // CLUSTER_CLIENTS
+#: of phase 3a's prompts to the router
+CLUSTER_CLIENTS = 4
+#: phase 9b: seconds a worker process has to start, make its weights and
+#: warm its engine up
+CLUSTER_READY_S = 300.0
+#: phase 9b: each pool's worker log (workerlog.0) goes to a directory here
+CLUSTER_LOG_DIR = OUT_DIR / "phase9"
+
+
+def cluster_engine(model="base", layers=None, scheduling="chunked",
+                   device=None):
+    """The worker factory of phase 9b (``chip_smoke:cluster_engine`` in a
+    WorkerSpec; a worker process imports this file as a module): phase
+    3a's engine — ``BertConfig.<model>()`` with initializer_range 0.6,
+    its weights made from SEED, cut to ``layers`` layers when given — on
+    the card unless ``device`` says otherwise."""
+    from paddle_tpu_torch.generation import GenerationConfig, GenerationEngine
+    from paddle_tpu_torch.models import BertConfig, lm_random_params
+
+    model_cfg = dataclasses.replace(getattr(BertConfig, model)(),
+                                    initializer_range=0.6)
+    params = lm_random_params(model_cfg, np.random.RandomState(SEED))
+    if layers:
+        model_cfg, params = cut_model(model_cfg, params, layers)
+    return GenerationEngine(model_cfg, params, GenerationConfig(
+        page_size=PAGE_SIZE, max_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
+        seed=SEED, scheduling=scheduling), device=device)
+
+
+def _bits_equal(a, b):
+    return (a is not None and b is not None and a.shape == b.shape
+            and a.dtype == b.dtype == np.float32
+            and np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+
+
+def _max_diff(a, b):
+    if a is None or b is None or a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a.astype(np.float64) - b).max())
+
+
+def _ttft_summary(ms):
+    return dict(p50=float(np.percentile(ms, 50)),
+                p99=float(np.percentile(ms, 99)), max=float(max(ms)))
+
+
+def single_engine_run(engine, prompts, sampling, device):
+    """The prompts through one engine's ``stream``: tokens, each
+    request's time to its first token, the wall time."""
+    toks = [[] for _ in prompts]
+    ttft = [None] * len(prompts)
+    t0 = time.perf_counter()
+    for ev in engine.stream(prompts, sampling=sampling):
+        if ttft[ev.index] is None:
+            ttft[ev.index] = (time.perf_counter() - t0) * 1e3
+        toks[ev.index].append(ev.token)
+    sync(device)
+    return toks, ttft, time.perf_counter() - t0
+
+
+def handoff_round_trips(device, model_cfg, engine, handoffs):
+    """Each handoff imported into ``engine``'s paged cache and into a
+    dense cache of the same geometry, then exported again: the bytes
+    must come back unchanged.  Returns the per-request import and export
+    milliseconds of the paged cache (host clock; each ends in a
+    synchronisation)."""
+    from paddle_tpu_torch.generation import DenseKVCache
+
+    dense = DenseKVCache(num_layers=model_cfg.num_layers,
+                         hidden=model_cfg.hidden_size, max_seqs=1,
+                         max_len=MAX_SEQ_LEN, device=device)
+    import_ms, export_ms = [], []
+    for i, h in enumerate(handoffs):
+        for cache in (engine.cache, dense):
+            slot = cache.free_slots()[0]
+            cache.admit(slot, h.prompt_len)
+            sync(device)
+            t0 = time.perf_counter()
+            cache.import_seq(slot, h.kv_k, h.kv_v)
+            sync(device)
+            t1 = time.perf_counter()
+            k, v = cache.export_seq(slot, h.prompt_len)
+            t2 = time.perf_counter()
+            cache.release(slot)
+            if not (_bits_equal(k, h.kv_k) and _bits_equal(v, h.kv_v)):
+                diff = max(_max_diff(k, h.kv_k), _max_diff(v, h.kv_v))
+                raise AssertionError(
+                    f"request {i}: import_seq then export_seq on the "
+                    f"{cache.kind} cache changed the K/V (largest "
+                    f"difference {diff:.3e})")
+            if cache is engine.cache:
+                import_ms.append((t1 - t0) * 1e3)
+                export_ms.append((t2 - t1) * 1e3)
+    return import_ms, export_ms
+
+
+def disaggregated_run(device, model_cfg, gen_cfg, params, prompts, greedy):
+    """Phase 9a at one depth: a chunked prefill engine P hands each
+    prompt to a chunked decode engine D and to a legacy decode engine,
+    beside one chunked engine S that runs the prompts itself.  Gates:
+    P's detached prefill and the concatenation of its streamed chunks
+    agree bit for bit (last token, finish, K/V); the handoffs survive an
+    import/export round trip through a paged and a dense cache bit for
+    bit; on the card P and D launch the ragged kernel once per layer per
+    step and the legacy engine the paged decode kernel once per layer per
+    decode step (and the ragged kernel never), no plain attention runs
+    and nothing is built or loaded after warmup; every request
+    finishes."""
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.generation import GenerationEngine
+
+    on_card = device.type == "cuda"
+    L, vocab = model_cfg.num_layers, model_cfg.vocab_size
+
+    def make(**kw):
+        eng = GenerationEngine(model_cfg, params, dataclasses.replace(
+            gen_cfg, **kw), device=device)
+        eng.warmup()
+        return eng
+
+    P, D, DL, S = make(), make(), make(scheduling="legacy"), make()
+    sync(device)
+    loads0 = _cuda.library_loads()
+    runs = {}
+
+    def counted(name, eng, steps_key, fn):
+        """One path's run with the launch counts set to 0 just before it
+        and read just after."""
+        s0 = eng.stats.snapshot()[steps_key]
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        runs[name] = dict(out=out, wall_s=time.perf_counter() - t0,
+                          launches=dict(_cuda.LAUNCHES),
+                          steps=eng.stats.snapshot()[steps_key] - s0)
+        return out
+
+    with _PlainCalls(SERVING_PLAIN) as plain:
+        detached = counted("prefill", P, "steps", lambda: [
+            P.prefill_detached(p, greedy) for p in prompts])
+        if any(done for _, done, _ in detached):
+            raise AssertionError("a request finished at prefill")
+        handoffs = [h for h, _, _ in detached]
+        counted("decode", D, "steps", lambda: D.decode_prefilled(handoffs))
+        counted("legacy_decode", DL, "decode_steps",
+                lambda: DL.decode_prefilled(handoffs))
+        plain_calls = plain.calls
+    for name, kernel, other in (
+            ("prefill", "ragged_paged_attention", "paged_decode_attention"),
+            ("decode", "ragged_paged_attention", "paged_decode_attention"),
+            ("legacy_decode", "paged_decode_attention",
+             "ragged_paged_attention")):
+        r = runs[name]
+        n = r["launches"].get(kernel, 0)
+        log(f"  depth {L} {name}: {r['steps']} steps in "
+            f"{r['wall_s']:.3f} s, {kernel} launches {n} (= {L} x "
+            f"{r['steps']}? {n == L * r['steps']}), {other} "
+            f"{r['launches'].get(other, 0)}")
+        if on_card and (n != L * r["steps"] or r["launches"].get(other)):
+            raise AssertionError(
+                f"{name}: {kernel} launched {n} times (want {L} x "
+                f"{r['steps']}), {other} {r['launches'].get(other, 0)}")
+    if on_card and plain_calls:
+        raise AssertionError(f"{plain_calls} plain attention calls")
+    # library loads are process-wide (an engine's compiles_after_warmup
+    # also counts the loads of engines warmed up after it): none may
+    # happen once all four engines are warm
+    loads = _cuda.library_loads() - loads0
+    if loads:
+        raise AssertionError(f"{loads} libraries loaded after warmup")
+    check_finished(runs["decode"]["out"], MAX_NEW, vocab, "decode")
+    check_finished(runs["legacy_decode"]["out"], MAX_NEW, vocab,
+                   "legacy decode")
+
+    # the detached prefill against the streamed one, bit for bit
+    worst = 0.0
+    for i, (p, h) in enumerate(zip(prompts, handoffs)):
+        items = list(P.prefill_stream(p, greedy))
+        final = items[-1]
+        ks = np.concatenate([it["k"] for it in items[:-1]], axis=1)
+        vs = np.concatenate([it["v"] for it in items[:-1]], axis=1)
+        same = (final["last_token"] == h.last_token and not final["done"]
+                and final["finish_reason"] is None
+                and _bits_equal(ks, h.kv_k) and _bits_equal(vs, h.kv_v))
+        worst = max(worst, _max_diff(ks, h.kv_k), _max_diff(vs, h.kv_v))
+        if not same:
+            raise AssertionError(
+                f"request {i}: prefill_detached and prefill_stream differ "
+                f"(tokens {h.last_token}, {final['last_token']}; largest "
+                f"K/V difference {worst:.3e})")
+    import_ms, export_ms = handoff_round_trips(device, model_cfg, D,
+                                               handoffs)
+    single, s_ttft, s_wall = single_engine_run(S, prompts, greedy, device)
+    s_snap = S.stats.snapshot()
+    d_snap = D.stats.snapshot()
+    nbytes = [h.kv_k.nbytes + h.kv_v.nbytes for h in handoffs]
+    tokens = {n: [r.tokens for r in runs[k]["out"]]
+              for n, k in (("chunked", "decode"),
+                           ("legacy", "legacy_decode"))}
+    match = {n: matched_prefix(_results(t), _results(single))
+             for n, t in tokens.items()}
+    log(f"  depth {L}: detached == streamed prefill, bit for bit (largest "
+        f"difference {worst:g}); import/export round trips bit-exact "
+        f"(paged, dense); handoff {nbytes[0]} bytes a request; import "
+        f"{np.mean(import_ms):.3f} ms, export {np.mean(export_ms):.3f} ms "
+        f"a request; matched prefix against the single engine: chunked "
+        f"{match['chunked']:.4f}, legacy {match['legacy']:.4f}")
+    return dict(
+        tokens=tokens, single_tokens=single, handoff_bytes=nbytes,
+        handoffs=handoffs, import_ms=import_ms, export_ms=export_ms,
+        prefill_step_ms=runs["prefill"]["wall_s"] * 1e3
+        / max(runs["prefill"]["steps"], 1),
+        decode_step_ms=runs["decode"]["wall_s"] * 1e3
+        / max(runs["decode"]["steps"], 1),
+        legacy_decode_step_ms=runs["legacy_decode"]["wall_s"] * 1e3
+        / max(runs["legacy_decode"]["steps"], 1),
+        launches={n: r["launches"] for n, r in runs.items()},
+        steps={n: r["steps"] for n, r in runs.items()},
+        decode_tokens_per_s=d_snap["decode_tokens_per_sec"],
+        single=dict(ttft_ms=s_ttft, wall_s=s_wall,
+                    decode_tokens_per_s=s_snap["decode_tokens_per_sec"]),
+        matched_prefix=match)
+
+
+_Tokens = collections.namedtuple("_Tokens", "tokens")
+
+
+def _results(tokens):
+    """Token lists as objects with ``.tokens`` (matched_prefix's and
+    recompute_gaps's input)."""
+    return [_Tokens(t) for t in tokens]
+
+
+def reference_gates(device, cut, cut_params, prompts, run, what):
+    """Depth-2 token gates: every token of ``run`` reaches the plain
+    recompute's argmax within GREEDY_LOGIT_TOL, and the chunked decode
+    engine's tokens equal the single chunked engine's (the same kernel
+    and the same K/V, bit for bit).  The legacy decode engine's equality
+    is reported: its decode kernel sums the keys in another order, and
+    on these prompts that flips a near tie (a token within 4e-3 of the
+    max logit) — both choices are the recompute's argmax within the
+    tolerance."""
+    out = {}
+    for name, toks in run["tokens"].items():
+        same = toks == run["single_tokens"]
+        gap, _ = recompute_gaps(cut_params, cut, prompts, _results(toks),
+                                device)
+        log(f"  depth {cut.num_layers} {what} {name}: tokens equal to the "
+            f"single engine's: {same} (matched prefix "
+            f"{run['matched_prefix'][name]:.4f}); "
+            f"worst logit gap to the recompute's argmax {gap:.3e} (tol "
+            f"{GREEDY_LOGIT_TOL:g})")
+        if not gap <= GREEDY_LOGIT_TOL or (name == "chunked" and not same):
+            raise AssertionError(
+                f"depth {cut.num_layers} {what} {name}: a token misses the "
+                f"recompute's argmax, or the chunked tokens differ from the "
+                f"single engine's")
+        out[name] = dict(equal_to_single=same, worst_gap=gap)
+    return out
+
+
+def wire_ms(handoffs):
+    """Per handoff: one RpcClient round trip carrying it (pickled) to an
+    RpcServer in this process over localhost, which unpickles it and
+    answers — the control plane's cost for the bytes a request ships."""
+    import pickle
+
+    from paddle_tpu_torch.cluster import RpcClient, RpcServer
+
+    srv = RpcServer("127.0.0.1", 0, lambda msg: {
+        "ok": True, "n": msg["handoff"].kv_k.nbytes}).start()
+    cli = RpcClient("127.0.0.1", srv.port, connect_timeout_s=10.0)
+    try:
+        cli.call("handoff", handoff=handoffs[0])      # connect and warm
+        out = []
+        for h in handoffs:
+            t0 = time.perf_counter()
+            cli.call("handoff", handoff=h)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out, len(pickle.dumps(handoffs[0],
+                                     protocol=pickle.HIGHEST_PROTOCOL))
+    finally:
+        cli.close()
+        srv.close()
+
+
+def _log_tails(pools):
+    for tag, pool in pools.items():
+        for h in pool.handles():
+            try:
+                tail = Path(h.log_path).read_text()[-3000:]
+            except OSError as e:
+                tail = f"(unreadable: {e})"
+            print(f"--- {tag} worker {h.rank} log ({h.log_path}) ---\n"
+                  f"{tail}", file=sys.stderr, flush=True)
+
+
+def routed_run(gr, prompts, sampling):
+    """CLUSTER_CLIENTS client threads, each submitting its share of the
+    prompts to the router and waiting for them: results in prompt order,
+    each request's time to its first token (the router's stamps: submit
+    to the prefill worker's answer), the wall time."""
+    futs = [None] * len(prompts)
+    errors = []
+    per = len(prompts) // CLUSTER_CLIENTS
+
+    def client(c):
+        try:
+            mine = range(c * per, (c + 1) * per)
+            for i in mine:
+                futs[i] = gr.submit(prompts[i], sampling=sampling)
+            for i in mine:
+                futs[i].result(timeout=600)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLUSTER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"client errors: {errors[:2]}")
+    results = [f.result(timeout=0) for f in futs]
+    ttft = [(f.t_first_token - f.t_submit) * 1e3 for f in futs]
+    return results, ttft, wall
+
+
+def _settled(gr, n, timeout_s=30.0):
+    """The router's snapshot once all ``n`` requests are counted (a
+    future wakes its waiter before the router's callback counts it)."""
+    deadline = time.monotonic() + timeout_s
+    snap = gr.stats()
+    while (snap["requests_ok"] + snap["requests_failed"] < n
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+        snap = gr.stats()
+    return snap
+
+
+def cluster_process_phase(device, model_cfg, model, prompts, inproc,
+                          cut_params):
+    """Phase 9b: one prefill and one decode worker process (``python -m
+    paddle_tpu_torch.cluster.worker``, the engine of ``cluster_engine``)
+    behind a GenerationRouter, at full depth and at REFERENCE_LAYERS;
+    CLUSTER_CLIENTS client threads send the prompts.  The router streams
+    pages (``stream_pages=True``); at full depth the same pools then
+    serve the prompts once more with the monolithic handoff, for
+    comparison.  Gates: every request ok, both workers alive, K/V chunks
+    streamed (none with the monolithic handoff) and no fallback, nothing
+    built or loaded after warmup in either worker; at REFERENCE_LAYERS
+    every token reaches the plain recompute's argmax (``cut_params``:
+    the weights cut to that depth, on ``device``).  The pools close in
+    ``finally``, and no worker process may outlive them."""
+    from paddle_tpu_torch.cluster import (ClusterConfig, GenerationRouter,
+                                          WorkerPool, WorkerSpec)
+    from paddle_tpu_torch.generation import SamplingParams
+
+    greedy = SamplingParams(max_new_tokens=MAX_NEW)
+    kw = dict(model=model, device=None if device.type == "cuda" else "cpu")
+    depths = {"full": None, f"depth{REFERENCE_LAYERS}": REFERENCE_LAYERS}
+    runs = (("full", "full", True), ("full_monolithic", "full", False),
+            (f"depth{REFERENCE_LAYERS}", f"depth{REFERENCE_LAYERS}", True))
+    pools, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        for tag, layers in depths.items():
+            for role in ("prefill", "decode"):
+                pools[f"{tag}_{role}"] = WorkerPool(
+                    WorkerSpec("chip_smoke:cluster_engine",
+                               dict(kw, layers=layers), role=role), 1,
+                    log_dir=str(CLUSTER_LOG_DIR / f"{tag}_{role}"),
+                    ready_timeout_s=CLUSTER_READY_S)
+        for pool in pools.values():
+            pool.wait_ready()
+        ready_s = time.perf_counter() - t0
+        log(f"  4 worker processes ready in {ready_s:.1f} s (logs under "
+            f"{CLUSTER_LOG_DIR})")
+        for name, tag, stream in runs:
+            gr = GenerationRouter(pools[f"{tag}_prefill"],
+                                  pools[f"{tag}_decode"],
+                                  ClusterConfig(stream_pages=stream,
+                                                decode_batch=MAX_SEQS))
+            try:
+                before = gr.engine_stats()["workers"]["decode:0"]
+                results, ttft, wall = routed_run(gr, prompts, greedy)
+                snap = _settled(gr, len(prompts))
+                workers = gr.engine_stats()["workers"]
+            finally:
+                gr.close()
+            check_finished(results, MAX_NEW, model_cfg.vocab_size, name)
+            toks = [r.tokens for r in results]
+            compiles = {w: s["compiles_after_warmup"]
+                        for w, s in workers.items()}
+            dec = workers["decode:0"]
+            d_tok = dec["decode_tokens"] - before["decode_tokens"]
+            d_s = (dec["decode_tokens"] / dec["decode_tokens_per_sec"]
+                   - (before["decode_tokens"]
+                      / before["decode_tokens_per_sec"]
+                      if before["decode_tokens"] else 0.0))
+            d_steps = dec["steps"] - before["steps"]
+            n_tok = sum(len(t) for t in toks)
+            log(f"  {name}: {len(prompts)} requests in {wall:.3f} s "
+                f"({n_tok / wall:.1f} tokens/s end to end); time to first "
+                f"token p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+                f"{np.percentile(ttft, 99):.1f} ms; decode worker "
+                f"{d_tok / d_s:.1f} tokens/s over {d_steps} steps; stream "
+                f"chunks {snap['stream_chunks_total']}, fallbacks "
+                f"{snap['stream_fallbacks_total']}, workers alive "
+                f"{snap['workers_alive']}; compiles after warmup "
+                f"{compiles}")
+            if (snap["requests_ok"] != len(prompts)
+                    or snap["workers_alive"] != 2
+                    or (snap["stream_chunks_total"] > 0) != stream
+                    or snap["stream_fallbacks_total"] != 0
+                    or any(compiles.values()) or len(workers) != 2):
+                raise AssertionError(f"{name}: router stats {snap}, "
+                                     f"worker compiles {compiles}")
+            r = dict(wall_s=wall, ttft_ms=ttft, ttft=_ttft_summary(ttft),
+                     e2e_tokens_per_s=n_tok / wall,
+                     decode_tokens_per_s=d_tok / d_s, decode_steps=d_steps,
+                     stream_chunks=snap["stream_chunks_total"],
+                     stream_fallbacks=snap["stream_fallbacks_total"],
+                     router_latency_ms=snap["latency_ms"],
+                     matched_prefix_vs_single=matched_prefix(
+                         results, _results(inproc[tag]["single_tokens"])))
+            if depths[tag]:
+                cut = dataclasses.replace(model_cfg, num_layers=depths[tag])
+                gap, _ = recompute_gaps(cut_params, cut, prompts, results,
+                                        device)
+                same = toks == inproc[tag]["single_tokens"]
+                log(f"  {name}: worst logit gap to the recompute's argmax "
+                    f"{gap:.3e} (tol {GREEDY_LOGIT_TOL:g}); tokens equal to "
+                    f"the in-process single engine's: {same}")
+                if not gap <= GREEDY_LOGIT_TOL:
+                    raise AssertionError(
+                        f"{name}: a routed token misses the recompute's "
+                        f"argmax")
+                r.update(worst_gap=gap, equal_to_single=same)
+            out[name] = r
+    except Exception:
+        _log_tails(pools)
+        raise
+    finally:
+        for pool in pools.values():
+            pool.close()
+    left = [h.proc.pid for pool in pools.values() for h in pool.handles()
+            if h.proc is not None and h.proc.poll() is None]
+    if left:
+        raise AssertionError(f"worker processes left running: {left}")
+    out["ready_s"] = ready_s
+    return out
+
+
+def cluster_phase(device, model_cfg, gen_cfg, params_np, model="base"):
+    """Phase 9: disaggregated serving of phase 3a's prompts — 9a in this
+    process (the launch counts are readable here), 9b over worker
+    processes behind the router — at full depth and at REFERENCE_LAYERS
+    (the same weights cut), where the token gates hold.  ``model`` names
+    ``model_cfg``'s BertConfig constructor for the worker processes."""
+    from paddle_tpu_torch.generation import SamplingParams
+    from paddle_tpu_torch.models import lm_params_from_numpy
+
+    greedy = SamplingParams(max_new_tokens=MAX_NEW)
+    prompts = make_prompts(np.random.RandomState(SEED + 1), N_PROMPTS,
+                           PROMPT_LEN, model_cfg.vocab_size)
+    params = lm_params_from_numpy(params_np, device)
+    inproc = {"full": disaggregated_run(device, model_cfg, gen_cfg, params,
+                                        prompts, greedy)}
+    cut, cut_params = cut_model(model_cfg, params, REFERENCE_LAYERS)
+    tag = f"depth{REFERENCE_LAYERS}"
+    inproc[tag] = disaggregated_run(device, cut, gen_cfg, cut_params,
+                                    prompts, greedy)
+    gates = reference_gates(device, cut, cut_params, prompts, inproc[tag],
+                            "in process")
+    full = inproc["full"]
+    wire, pickled = wire_ms(full["handoffs"])
+    log(f"  wire: {np.mean(wire):.3f} ms a request ({pickled} pickled "
+        f"bytes, one RPC round trip over localhost)")
+    procs = cluster_process_phase(device, model_cfg, model, prompts, inproc,
+                                  cut_params)
+    report = dict(
+        in_process={t: {k: v for k, v in r.items()
+                        if k not in ("handoffs", "tokens", "single_tokens")}
+                    for t, r in inproc.items()},
+        reference=gates, processes=procs, wire_ms=wire,
+        pickled_bytes=pickled)
+    single = full["single"]
+    report["line"] = dict(
+        ttft_ms=procs["full"]["ttft"],
+        decode_tokens_per_s=procs["full"]["decode_tokens_per_s"],
+        e2e_tokens_per_s=procs["full"]["e2e_tokens_per_s"],
+        handoff_bytes_per_request=int(np.mean(full["handoff_bytes"])),
+        export_ms=float(np.mean(full["export_ms"])),
+        wire_ms=float(np.mean(wire)),
+        import_ms=float(np.mean(full["import_ms"])),
+        prefill_step_ms=full["prefill_step_ms"],
+        decode_step_ms=full["decode_step_ms"],
+        stream_chunks=procs["full"]["stream_chunks"],
+        stream_fallbacks=procs["full"]["stream_fallbacks"],
+        matched_prefix_vs_single=dict(
+            in_process=full["matched_prefix"],
+            processes=procs["full"]["matched_prefix_vs_single"]),
+        monolithic=dict(
+            ttft_ms=procs["full_monolithic"]["ttft"],
+            decode_tokens_per_s=procs["full_monolithic"][
+                "decode_tokens_per_s"],
+            e2e_tokens_per_s=procs["full_monolithic"]["e2e_tokens_per_s"]),
+        single_engine=dict(
+            ttft_ms=_ttft_summary(single["ttft_ms"]),
+            decode_tokens_per_s=single["decode_tokens_per_s"],
+            e2e_tokens_per_s=sum(len(t) for t in full["single_tokens"])
+            / single["wall_s"]))
+    return report
+
+
 def main():
     import torch
 
@@ -3251,6 +3801,11 @@ def main():
             device, BertConfig.base())
         report["traced"]["engine_untraced_decode_tokens_per_s"] = \
             report["engine"]["snapshot"]["decode_tokens_per_sec"]
+
+        log("[9] disaggregated serving: prefill -> K/V handoff -> decode, "
+            "in process and over worker processes")
+        report["cluster"] = cluster_phase(device, model_cfg, gen_cfg,
+                                          params_np)
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3278,6 +3833,8 @@ def main():
             k: tr["training"][k] for k in (
                 "untraced_step_ms", "traced_step_ms", "ratio", "run_span_ms",
                 "op_scopes_ms", "device_busy_ms")}}}))
+    print(json.dumps({"cluster": dict(card=card,
+                                      **report["cluster"]["line"])}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

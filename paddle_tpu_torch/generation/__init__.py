@@ -8,14 +8,16 @@ attention — or the legacy one — bucketed prefill plus a decode step read
 by the paged decode attention (each a hand-written CUDA kernel on the
 card), with continuous batching, speculative decoding and
 schedule-invariant sampling that draws the JAX engine's tokens bit for
-bit.  The cluster prefill/decode handoff is not ported."""
+bit, and the prefill/decode handoff of the cluster tier
+(``PrefillHandoff``, ``prefill_detached``/``prefill_stream`` on one
+engine, ``decode_prefilled`` on another)."""
 from .attention import (gathered_decode_attention, paged_decode_attention,
                         paged_decode_shapes_ok, paged_plain_decode_attention,
                         paged_ref_decode_attention)
 from .backend import GenerationBackend
 from .drafter import DraftModelDrafter, NgramDrafter, make_drafter
 from .engine import (GenerationConfig, GenerationEngine, GenerationResult,
-                     StreamEvent)
+                     PrefillHandoff, StreamEvent)
 from .kv_cache import CacheFullError, DenseKVCache, PagedKVCache, PrefixIndex
 from .ragged_attention import ragged_paged_attention, ragged_ref_attention
 from .sampler import (SamplingParams, batch_sampling_arrays, fold_data_for,
@@ -24,7 +26,7 @@ from .sampler import (SamplingParams, batch_sampling_arrays, fold_data_for,
 
 __all__ = [
     "GenerationConfig", "GenerationEngine", "GenerationResult",
-    "StreamEvent", "GenerationBackend", "SamplingParams",
+    "StreamEvent", "PrefillHandoff", "GenerationBackend", "SamplingParams",
     "sample_tokens_folded", "fold_data_for", "root_key_data",
     "batch_sampling_arrays", "speculative_accept", "PagedKVCache",
     "DenseKVCache", "PrefixIndex", "CacheFullError", "NgramDrafter",

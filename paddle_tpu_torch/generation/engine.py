@@ -50,9 +50,16 @@ span with the JAX engine's args; a finished sequence drops a
 ``seq_finish`` note in the flight recorder; ``stats`` are the
 registry-backed ``GenerationStats``.
 
+PREFILL/DECODE DISAGGREGATION (the cluster tier): ``prefill_detached``
+runs one prompt's prefill and exports its K/V as a numpy
+``PrefillHandoff``; ``prefill_stream`` yields the K/V chunk by chunk as
+each prefill chunk retires; ``stream_open``/``stream_chunk``/
+``stream_commit`` import streamed chunks into a pre-admitted slot; and
+``decode_prefilled`` decodes handoffs (inline K/V, or a committed
+stream adopted by id) through either scheduler.
+
 The engine runs on the card unless it is given ``device="cpu"``; with
-no card and no device it raises.  Not ported: the cluster
-prefill/decode handoff (its methods raise NotImplementedError).
+no card and no device it raises.
 """
 from __future__ import annotations
 
@@ -75,14 +82,13 @@ from ..serving.buckets import BucketError, ShapeBucketer
 from ..serving.config import ServingConfig
 from ..serving.stats import GenerationStats
 from .drafter import make_drafter
-from .kv_cache import (CacheFullError, DenseKVCache, PagedKVCache,
-                       _cluster_handoff)
+from .kv_cache import CacheFullError, DenseKVCache, PagedKVCache
 from .sampler import (SamplingParams, batch_sampling_arrays, fold_data_for,
                       root_key_data, sample_tokens_folded,
                       speculative_accept)
 
 __all__ = ["GenerationConfig", "GenerationEngine", "GenerationResult",
-           "StreamEvent"]
+           "StreamEvent", "PrefillHandoff"]
 
 _DTYPES = {"float32": torch.float32}
 
@@ -242,6 +248,31 @@ StreamEvent = collections.namedtuple(
     "StreamEvent", ["index", "token", "finished", "finish_reason"])
 
 
+@dataclasses.dataclass
+class PrefillHandoff:
+    """The serialized result of a detached prefill — everything a DECODE
+    engine needs to continue a sequence another process prefilled: the
+    prompt's K/V for every layer as host arrays [L, prompt_len, H]
+    (page layout is NOT part of the contract; each side scatters into
+    its own cache), the first sampled token, and the sampling params.
+    numpy-only so it pickles over the cluster control plane."""
+
+    prompt_len: int
+    last_token: int
+    sampling: SamplingParams
+    kv_k: np.ndarray = None      # None when the request finished at
+    kv_v: np.ndarray = None      # prefill (eos / max_new_tokens == 1)
+    # prompt token ids [prompt_len] i32 — lets the DECODE side look up /
+    # register the prompt in ITS prefix index, so a system prompt
+    # prefilled once becomes a cache hit fleet-wide
+    prompt_tokens: np.ndarray = None
+    # set when the decode engine ALREADY holds the pages, imported
+    # chunk-by-chunk under this stream id (see stream_open/stream_chunk/
+    # stream_commit): kv_k/kv_v may then be None and admission adopts
+    # the pre-admitted slot instead of importing
+    stream: object = None
+
+
 class _Active:
     """Legacy-scheduler in-flight state (post-prefill decode only)."""
 
@@ -259,21 +290,30 @@ class _Active:
 class _ChunkReq:
     """One in-flight request under chunked scheduling: prompt-feed
     progress and decode state (a request is PREFILLING — fed < plen, no
-    token sampled yet — or DECODING)."""
+    token sampled yet — or DECODING).  A ``handoff`` (prefilled in
+    another engine) starts out decoding."""
 
-    __slots__ = ("index", "prompt", "plen", "sp", "uid", "fed",
-                 "last_tok", "n_gen", "last_emit")
+    __slots__ = ("index", "prompt", "plen", "sp", "uid", "handoff",
+                 "fed", "last_tok", "n_gen", "last_emit")
 
-    def __init__(self, index, prompt, sp, uid):
+    def __init__(self, index, prompt, sp, uid, handoff=None):
         self.index = index
-        self.prompt = prompt
-        self.plen = int(prompt.size)
         self.sp = sp
         self.uid = uid
-        self.fed = 0
-        self.last_tok = None
-        self.n_gen = 0
+        self.handoff = handoff
         self.last_emit = None
+        if handoff is None:
+            self.prompt = prompt
+            self.plen = int(prompt.size)
+            self.fed = 0
+            self.last_tok = None
+            self.n_gen = 0
+        else:                    # externally prefilled: decode-only
+            self.prompt = None
+            self.plen = int(handoff.prompt_len)
+            self.fed = self.plen
+            self.last_tok = int(handoff.last_token)
+            self.n_gen = 1
 
 
 class GenerationEngine:
@@ -306,6 +346,9 @@ class GenerationEngine:
             page_size=cfg.page_size, num_pages=cfg.num_pages,
             max_seqs=cfg.max_seqs, max_len=cfg.max_seq_len, dtype=dtype,
             device=self.device, prefix_cache=cfg.prefix_cache)
+        # in-flight cross-process KV streams (decode side): stream id ->
+        # {slot, plen, received, tokens, sampling, ready}
+        self._streams = {}
         self._bucketer = ShapeBucketer(ServingConfig(
             batch_buckets=cfg.prefill_batch_buckets,
             seq_buckets=cfg.prefill_seq_buckets))
@@ -572,6 +615,292 @@ class GenerationEngine:
                 self._finish(slot)
             active.clear()
 
+    # -- prefill/decode disaggregation (cluster tier) ----------------------
+    def _check_prompt(self, prompt, sp):
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        if p.size < 1:
+            raise ValueError("prompt is empty")
+        if p.size + sp.max_new_tokens > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt len {p.size} + max_new_tokens "
+                f"{sp.max_new_tokens} exceeds max_seq_len "
+                f"{self.cfg.max_seq_len}")
+        return p
+
+    def prefill_detached(self, prompt, sampling=None):
+        """Run ONE prompt's prefill and export the result instead of
+        decoding it here: returns ``(handoff, done, reason)``.  The slot
+        used for the forward is released before returning — a prefill
+        worker's cache only ever holds prompts in flight, so its pool
+        can stay small while the DECODE pool (which holds sequences for
+        their whole generation) scales independently.  Under chunked
+        scheduling the prompt feeds through the SAME unified step as
+        everything else (no bucketed prefill)."""
+        sp = sampling or SamplingParams()
+        p = self._check_prompt(prompt, sp)
+        chunked = self.cfg.scheduling == "chunked"
+        if not chunked:
+            try:
+                sb = self._bucketer.seq_bucket(p.size)
+            except BucketError as e:
+                raise ValueError(str(e)) from e
+        free = self.cache.free_slots()
+        if not free or not self.cache.can_admit(p.size):
+            raise CacheFullError(
+                f"no slot/pages for a {p.size}-token detached prefill")
+        slot = free[0]
+        if chunked:
+            req = _ChunkReq(0, p, sp, self._next_uid())
+            req.fed = self.cache.admit(slot, p.size, tokens=p)
+            active, order = {slot: req}, [slot]
+            try:
+                ev = None
+                while slot in active and req.n_gen < 1:
+                    for e in self._chunk_step(active, order):
+                        ev = e
+                return self._detached_result(slot, p, sp, ev)
+            finally:
+                if slot in active:
+                    self._finish(slot)
+        self.cache.admit(slot, p.size)
+        active = {}
+        try:
+            ev = list(self._prefill_group(
+                [(0, p, sp, slot, self._next_uid())], active, sb))[0]
+            return self._detached_result(slot, p, sp, ev)
+        finally:
+            # _prefill_group released the slot iff the request finished;
+            # otherwise it parked it in `active` — hand the pages back
+            if slot in active:
+                self._finish(slot)
+
+    def _detached_result(self, slot, p, sp, ev):
+        if ev.finished:
+            return (PrefillHandoff(int(p.size), ev.token, sp,
+                                   prompt_tokens=p),
+                    True, ev.finish_reason)
+        k_seq, v_seq = self.cache.export_seq(slot, int(p.size))
+        return (PrefillHandoff(int(p.size), ev.token, sp, k_seq, v_seq,
+                               prompt_tokens=p), False, None)
+
+    def prefill_stream(self, prompt, sampling=None):
+        """Chunk-granular detached prefill: a generator that yields the
+        KV of each prefill chunk AS IT RETIRES from the unified step —
+        the producer half of cluster page streaming, overlapping wire
+        transfer with the remaining prefill compute.
+
+        Yields ``{"kind": "chunk", "start", "end", "k", "v"}`` items
+        ([L, end-start, H] host arrays) covering positions [0, plen),
+        then one ``{"kind": "final", "prompt_len", "last_token",
+        "done", "finish_reason", "cached_len"}``.  A locally-cached
+        prefix is exported from the pool in the first chunk (no
+        recompute).  When ``done`` is True the request finished at
+        prefill and no KV is shipped (the trailing chunks are elided).
+        The slot is released on exhaustion or close, same as
+        :meth:`prefill_detached`."""
+        sp = sampling or SamplingParams()
+        p = self._check_prompt(prompt, sp)
+        if self.cfg.scheduling != "chunked":
+            raise ValueError(
+                "prefill_stream requires scheduling='chunked': chunk "
+                "retirement is what the stream yields")
+        free = self.cache.free_slots()
+        if not free or not self.cache.can_admit(p.size):
+            raise CacheFullError(
+                f"no slot/pages for a {p.size}-token streamed prefill")
+        slot = free[0]
+        req = _ChunkReq(0, p, sp, self._next_uid())
+        req.fed = cached = self.cache.admit(slot, p.size, tokens=p)
+        active, order = {slot: req}, [slot]
+        try:
+            if cached:
+                k_seq, v_seq = self.cache.export_span(slot, 0, cached)
+                yield {"kind": "chunk", "start": 0, "end": cached,
+                       "k": k_seq, "v": v_seq}
+            ev = None
+            while slot in active and req.n_gen < 1:
+                prev = req.fed
+                for e in self._chunk_step(active, order):
+                    ev = e
+                if slot in active and req.fed > prev:
+                    k_seq, v_seq = self.cache.export_span(
+                        slot, prev, req.fed)
+                    yield {"kind": "chunk", "start": prev,
+                           "end": req.fed, "k": k_seq, "v": v_seq}
+            yield {"kind": "final", "prompt_len": int(p.size),
+                   "last_token": int(ev.token),
+                   "done": bool(ev.finished),
+                   "finish_reason": ev.finish_reason,
+                   "cached_len": int(cached)}
+        finally:
+            if slot in active:
+                self._finish(slot)
+
+    # -- decode-side streamed-page import (cluster tier) -------------------
+    def stream_open(self, stream_id, prompt_tokens, sampling=None):
+        """Pre-admit a slot for a prompt whose KV will arrive in
+        streamed chunks.  The prompt is looked up in THIS pool's prefix
+        index first; returns cached_len — the caller may skip shipping
+        the already-resident span."""
+        if self.cfg.scheduling != "chunked":
+            raise ValueError(
+                "stream_open requires scheduling='chunked'")
+        if stream_id in self._streams:
+            raise ValueError(f"KV stream {stream_id!r} already open")
+        sp = sampling or SamplingParams()
+        p = self._check_prompt(prompt_tokens, sp)
+        free = self.cache.free_slots()
+        if not free or not self.cache.can_admit(p.size):
+            raise CacheFullError(
+                f"no slot/pages to pre-admit a {p.size}-token stream")
+        slot = free[0]
+        cached = self.cache.admit(slot, p.size, tokens=p)
+        self._streams[stream_id] = {
+            "slot": slot, "plen": int(p.size), "received": int(cached),
+            "tokens": p, "sampling": sp, "ready": None}
+        if self.cfg.prefix_cache:
+            self.stats.update_prefix(self.cache.prefix_counters())
+        return int(cached)
+
+    def stream_chunk(self, stream_id, start, k_seq, v_seq):
+        """Import one streamed chunk [start, start+T).  Chunks must
+        arrive in order but may overlap the already-resident span (the
+        overlap is dropped).  Returns positions received so far."""
+        info = self._streams.get(stream_id)
+        if info is None:
+            raise ValueError(f"unknown KV stream {stream_id!r}")
+        start = int(start)
+        end = start + int(k_seq.shape[1])
+        if start > info["received"]:
+            raise ValueError(
+                f"stream {stream_id!r}: chunk starts at {start} but "
+                f"only {info['received']} positions received")
+        if end > info["plen"]:
+            raise ValueError(
+                f"stream {stream_id!r}: chunk ends at {end}, past the "
+                f"{info['plen']}-token prompt")
+        if end > info["received"]:
+            off = info["received"] - start
+            self.cache.import_span(info["slot"], info["received"],
+                                   k_seq[:, off:], v_seq[:, off:])
+            info["received"] = end
+        return info["received"]
+
+    def stream_commit(self, stream_id, last_token):
+        """Seal a fully-received stream: register its prefix blocks in
+        this pool's index and stage a decode-ready handoff that
+        ``stream_prefilled`` adopts by stream id."""
+        info = self._streams.get(stream_id)
+        if info is None:
+            raise ValueError(f"unknown KV stream {stream_id!r}")
+        if info["received"] < info["plen"]:
+            raise ValueError(
+                f"stream {stream_id!r} incomplete: {info['received']}/"
+                f"{info['plen']} positions received")
+        self.cache.register_prefix(info["slot"], info["tokens"])
+        info["ready"] = PrefillHandoff(
+            info["plen"], int(last_token), info["sampling"],
+            prompt_tokens=info["tokens"], stream=stream_id)
+        if self.cfg.prefix_cache:
+            self.stats.update_prefix(self.cache.prefix_counters())
+        return info["ready"]
+
+    def stream_handoff(self, stream_id):
+        """The staged decode-ready handoff for a committed stream."""
+        info = self._streams.get(stream_id)
+        if info is None or info["ready"] is None:
+            raise ValueError(
+                f"unknown or uncommitted KV stream {stream_id!r}")
+        return info["ready"]
+
+    def stream_abort(self, stream_id):
+        """Release a stream's pre-admitted slot and partial pages (the
+        decode-side leak guard).  Idempotent: an unknown or already
+        adopted stream is a no-op."""
+        info = self._streams.pop(stream_id, None)
+        if info is None:
+            return False
+        self.cache.release(info["slot"])
+        return True
+
+    def stream_prefilled(self, handoffs):
+        """Continuous-batching decode over externally prefilled
+        sequences: the decode half of the disaggregated pair.  Yields
+        StreamEvents exactly like :meth:`stream` (index = position in
+        ``handoffs``), but the events cover only the DECODE phase — the
+        handoff's ``last_token`` (the prefill worker's first sample) is
+        already accounted as generated token #1 and is NOT re-emitted."""
+        queue = collections.deque()
+        for i, h in enumerate(handoffs):
+            if h.prompt_len + h.sampling.max_new_tokens \
+                    > self.cfg.max_seq_len:
+                raise ValueError(
+                    f"handoff {i}: prompt_len {h.prompt_len} + "
+                    f"max_new_tokens {h.sampling.max_new_tokens} exceeds "
+                    f"max_seq_len {self.cfg.max_seq_len}")
+            if h.stream is not None:
+                if self.cfg.scheduling != "chunked":
+                    raise ValueError(
+                        f"handoff {i}: stream adoption requires "
+                        f"scheduling='chunked'")
+            elif h.kv_k is None or h.kv_k.shape[1] != h.prompt_len:
+                raise ValueError(
+                    f"handoff {i}: kv arrays must cover the prompt "
+                    f"({h.prompt_len} positions)")
+            queue.append((i, h))
+        if self.cfg.scheduling == "chunked":
+            creqs = collections.deque(
+                _ChunkReq(i, None, h.sampling, self._next_uid(),
+                          handoff=h)
+                for i, h in queue)
+            yield from self._run_chunked(creqs)
+            return
+        active = {}
+        try:
+            while queue or active:
+                progressed = False
+                while queue:
+                    i, h = queue[0]
+                    free = self.cache.free_slots()
+                    if not free or not self.cache.can_admit(h.prompt_len):
+                        break
+                    queue.popleft()
+                    slot = free[0]
+                    self.cache.admit(slot, h.prompt_len)
+                    self.cache.import_seq(slot, h.kv_k, h.kv_v)
+                    sp = h.sampling
+                    self._slot_temps[slot] = sp.temperature
+                    self._slot_tks[slot] = sp.top_k
+                    self._slot_tps[slot] = sp.top_p
+                    active[slot] = _Active(i, sp, int(h.last_token),
+                                           self._next_uid())
+                    progressed = True
+                if active:
+                    yield from self._decode_step(active)
+                elif queue and not progressed:
+                    raise CacheFullError(
+                        f"handoff with prompt len {queue[0][1].prompt_len}"
+                        f" can never be admitted: page pool too small")
+        finally:
+            for slot in list(active):
+                self._finish(slot)
+            active.clear()
+
+    def decode_prefilled(self, handoffs):
+        """Drive :meth:`stream_prefilled` to completion; returns one
+        ``GenerationResult`` per handoff (tokens INCLUDE the prefill
+        worker's first token, so the result equals what the
+        single-process engine would have produced)."""
+        results = [None] * len(handoffs)
+        toks = [[h.last_token] for h in handoffs]
+        for ev in self.stream_prefilled(handoffs):
+            toks[ev.index].append(ev.token)
+            if ev.finished:
+                results[ev.index] = GenerationResult(
+                    tokens=toks[ev.index], finish_reason=ev.finish_reason,
+                    prompt_len=handoffs[ev.index].prompt_len)
+        return results
+
     # -- chunked scheduler internals ---------------------------------------
     def _run_chunked(self, queue):
         """Admit whole requests (pages for the full prompt + 1 token
@@ -600,18 +929,56 @@ class GenerationEngine:
     def _admit_chunked(self, queue, active, order):
         while queue:
             req = queue[0]
-            free = self.cache.free_slots()
-            if not free or not self.cache.can_admit(req.plen):
-                return
-            queue.popleft()
-            slot = free[0]
-            # with the prefix cache, the leading cached blocks are
-            # spliced in and prefill starts at the first miss
-            req.fed = self.cache.admit(slot, req.plen, tokens=req.prompt)
+            h = req.handoff
+            if h is not None and h.stream is not None:
+                # pages already imported chunk-by-chunk under this
+                # stream id: adopt the pre-admitted slot, no allocation
+                queue.popleft()
+                slot = self._adopt_stream(req)
+            else:
+                free = self.cache.free_slots()
+                if not free or not self.cache.can_admit(req.plen):
+                    return
+                queue.popleft()
+                slot = free[0]
+                if h is not None:
+                    cached = self.cache.admit(slot, req.plen,
+                                              tokens=h.prompt_tokens)
+                    # cached positions are already resident (spliced
+                    # from the prefix index, maybe shared with another
+                    # sequence) — import only the rest
+                    if cached < req.plen:
+                        self.cache.import_span(slot, cached,
+                                               h.kv_k[:, cached:],
+                                               h.kv_v[:, cached:])
+                    self.cache.register_prefix(slot, h.prompt_tokens)
+                else:
+                    # with the prefix cache, the leading cached blocks
+                    # are spliced in and prefill starts at the first miss
+                    req.fed = self.cache.admit(slot, req.plen,
+                                               tokens=req.prompt)
             if self._drafter is not None:
-                self._drafter.admit(slot, req.prompt)
+                # drafter history = prompt + emitted tokens; a handoff
+                # without prompt tokens sees only the emitted stream
+                # (weaker drafts, same correctness)
+                if req.prompt is not None:
+                    hist = [int(t) for t in req.prompt]
+                elif h is not None and h.prompt_tokens is not None:
+                    hist = ([int(t) for t in h.prompt_tokens]
+                            + [int(req.last_tok)])
+                else:
+                    hist = [int(req.last_tok)]
+                self._drafter.admit(slot, hist)
             active[slot] = req
             order.append(slot)
+
+    def _adopt_stream(self, req):
+        info = self._streams.pop(req.handoff.stream, None)
+        if info is None or info.get("ready") is None:
+            raise ValueError(
+                f"unknown or uncommitted KV stream "
+                f"{req.handoff.stream!r}")
+        return info["slot"]
 
     def _chunk_step(self, active, order):
         """ONE unified step: a decode row (or a speculative VERIFY
@@ -975,9 +1342,3 @@ class GenerationEngine:
         self._slot_temps[slot] = 0.0
         self._slot_tks[slot] = 0
         self._slot_tps[slot] = 1.0
-
-
-for _name in ("prefill_detached", "prefill_stream", "stream_prefilled",
-              "decode_prefilled", "stream_open", "stream_chunk",
-              "stream_commit", "stream_handoff", "stream_abort"):
-    setattr(GenerationEngine, _name, _cluster_handoff(_name))

@@ -39,9 +39,15 @@ only once the free list is empty, so `CacheFullError` means "nothing
 evictable remains".
 
 Allocation is host-side (a free-page stack; the table and lengths are
-small int32 numpy arrays shipped with each step).  The cross-process
-export/import of the cluster handoff is not ported (its methods raise
-NotImplementedError).
+small int32 numpy arrays shipped with each step).
+
+Cross-process handoff (the cluster's prefill/decode split): both caches
+``export_span`` a slot's positions [start, end) as host numpy arrays
+[L, end - start, H] — gathered from the slot's own pages, then one copy
+to the host — and ``import_span`` such arrays back into a slot's pages
+— one copy to the device, then one index-put.  Neither computes, and
+arrays of the cache's dtype (what an export gives) are not cast: the
+bits that leave one pool are the bits that land in the other.
 """
 from __future__ import annotations
 
@@ -113,13 +119,10 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _cluster_handoff(name):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.{name}: the cluster prefill/decode "
-            f"handoff is not ported yet")
-    method.__name__ = name
-    return method
+def _to_host(t):
+    """A host numpy copy of ``t`` that never aliases the cache (on the
+    CPU ``.cpu()`` would hand back the tensor itself)."""
+    return t.to("cpu", copy=True).numpy()
 
 
 class _CacheBase:
@@ -147,9 +150,43 @@ class _CacheBase:
         self._active[slot] = False
         self.seq_lens[slot] = 0
 
+    def buffers(self):
+        return self.k, self.v
 
-for _name in ("export_seq", "export_span", "import_seq", "import_span"):
-    setattr(_CacheBase, _name, _cluster_handoff(_name))
+    def set_buffers(self, k, v):
+        self.k, self.v = k, v
+
+    # -- cross-process handoff (cluster prefill/decode split) --------------
+    def export_seq(self, slot, length):
+        """Host copies of the slot's K/V for positions < ``length``: two
+        float arrays [L, length, H] — what a prefill worker ships."""
+        return self.export_span(slot, 0, length)
+
+    def import_seq(self, slot, k_seq, v_seq):
+        """Scatter host K/V [L, T, H] into the (already admitted) slot at
+        positions 0..T-1 — the receiving half of a prefill handoff."""
+        self.import_span(slot, 0, k_seq, v_seq)
+
+    def export_span(self, slot, start, end):
+        """Host copies of the slot's K/V for positions [start, end) — the
+        chunk-granular unit the cluster streams as each prefill chunk
+        retires: two float arrays [L, end - start, H]."""
+        index = self._span_index(slot, int(start), int(end))
+        return _to_host(self.k[index]), _to_host(self.v[index])
+
+    def import_span(self, slot, start, k_seq, v_seq):
+        """Scatter host K/V [L, T, H] into the slot at positions
+        start..start+T-1 — the receiving half of one streamed chunk."""
+        T = k_seq.shape[1]
+        if T == 0:
+            return
+        index = self._span_index(slot, int(start), int(start) + T)
+        self.k[index] = self._from_host(k_seq)
+        self.v[index] = self._from_host(v_seq)
+
+    def _from_host(self, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.k.device, dtype=self.k.dtype)
 
 
 class PagedKVCache(_CacheBase):
@@ -474,6 +511,16 @@ class PagedKVCache(_CacheBase):
                 out[i] = self.page_table[s]
         return out
 
+    def _span_index(self, slot, start, end):
+        """Index of positions [start, end) of ``slot`` into k/v: the
+        pages and in-page offsets of the slot's own page table."""
+        pos = np.arange(start, end)
+        pages = self.page_table[slot, pos // self.page_size]
+        dev = self.k.device
+        return (slice(None),
+                torch.from_numpy(pages.astype(np.int64)).to(dev),
+                torch.from_numpy(pos % self.page_size).to(dev))
+
     # -- device side -------------------------------------------------------
     def write_prompt(self, layer, k_new, v_new, rows):
         """Scatter whole prompts IN PLACE: k_new/v_new [B, T, H] at
@@ -577,6 +624,9 @@ class DenseKVCache(_CacheBase):
         """Dense scratch is row max_seqs (NOT 0 — that is slot 0's
         live KV)."""
         return np.int32(self.max_seqs)
+
+    def _span_index(self, slot, start, end):
+        return (slice(None), int(slot), slice(start, end))
 
     def rows_for(self, slots_or_none=None):
         """Dense 'rows' are slot indices (scratch for None entries)."""

@@ -1020,3 +1020,33 @@ def test_fusion_wrappers_raise_instead_of_falling_back(device):
     qkv = torch.zeros(2, 16, 3 * 64, device=device)
     with pytest.raises(ValueError, match="b_qkv"):
         fa.flash_kernel_forward_qkv(qkv, torch.zeros(64, device=device), 4)
+
+
+def test_paged_handoff_round_trip_is_bit_exact(device):
+    """The cluster handoff on the card: host K/V imported into a slot's
+    pages (spanning page boundaries, after another slot took pages in
+    between) and exported again come back bit for bit, through both
+    the whole-sequence and the span entries."""
+    from paddle_tpu_torch.generation import PagedKVCache
+
+    L, H, page = 12, 768, 16
+    cache = PagedKVCache(num_layers=L, hidden=H, page_size=page,
+                         num_pages=33, max_seqs=4, max_len=128,
+                         device=device)
+    rng = np.random.RandomState(13)
+    cache.admit(1, 20)
+    cache.admit(0, 45)
+    k = rng.standard_normal((L, 45, H)).astype(np.float32)
+    v = rng.standard_normal((L, 45, H)).astype(np.float32)
+    k[0, 0, 0], v[1, 2, 3] = np.float32(-0.0), np.float32(1e-40)
+    cache.import_seq(0, k, v)
+    got_k, got_v = cache.export_seq(0, 45)
+    for got, want in ((got_k, k), (got_v, v)):
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    cache.import_span(0, 13, k[:, :20] + 1, v[:, :20] + 1)
+    got_k, got_v = cache.export_span(0, 13, 33)
+    assert np.array_equal(got_k.view(np.uint32),
+                          (k[:, :20] + 1).view(np.uint32))
+    assert np.array_equal(got_v.view(np.uint32),
+                          (v[:, :20] + 1).view(np.uint32))

@@ -168,10 +168,18 @@ def test_engine_guards():
         GenerationEngine(CFG, PARAMS, GenerationConfig(
             **GEN, speculation="draft"), device="cpu")
     port = _port()
-    # the cluster prefill/decode handoff is a later slice
-    for name in ("prefill_detached", "decode_prefilled", "stream_open"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(port, name)([1, 2, 3])
+    # the cluster prefill/decode handoff works on the CPU and gives what
+    # the JAX engine gives (tests/test_torch_handoff.py holds it fully)
+    ref = JGenerationEngine(JCFG, PARAMS, JGenerationConfig(**GEN))
+    got, want = port.prefill_detached([1, 2, 3]), ref.prefill_detached(
+        [1, 2, 3])
+    assert (got[0].last_token, got[1], got[2]) == \
+        (want[0].last_token, want[1], want[2])
+    assert [r.tokens for r in port.decode_prefilled([got[0]])] == \
+        [r.tokens for r in ref.decode_prefilled([want[0]])]
+    assert port.stream_open("s", [1, 2, 3]) == ref.stream_open(
+        "s", [1, 2, 3]) == 0
+    assert port.stream_abort("s") and ref.stream_abort("s")
     with pytest.raises(ValueError, match="empty"):
         list(port.stream([[]]))
     with pytest.raises(ValueError, match="max_seq_len"):

@@ -124,16 +124,23 @@ def test_write_token_and_attend_rows_match_the_reference():
 
 
 def test_prefix_cache_is_a_later_slice():
-    """The prefix cache came with the second slice of the port; the
-    cross-process page export/import of the cluster handoff is still a
-    later one and raises."""
-    t = PagedKVCache(**GEOM, prefix_cache=True, device="cpu")
+    """The prefix cache came with the second slice of the port, the
+    cross-process page export/import of the cluster handoff with a later
+    one: on a prefix-cache pool an import then export gives the JAX
+    cache's arrays and pools (tests/test_torch_handoff.py holds the
+    handoff fully)."""
+    j, t = JCache(**GEOM, prefix_cache=True), PagedKVCache(
+        **GEOM, prefix_cache=True, device="cpu")
     assert t.prefix_cache and t.prefix_counters()["lookups"] == 0
-    t.admit(0, 5, tokens=np.arange(5))
-    for call in (lambda: t.export_seq(0, 5),
-                 lambda: t.import_span(0, 0, None, None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    kv = np.random.RandomState(5).standard_normal(
+        (2, GEOM["num_layers"], 5, GEOM["hidden"])).astype(np.float32)
+    for c in (j, t):
+        c.admit(0, 5, tokens=np.arange(5))
+        c.import_span(0, 0, kv[0], kv[1])
+    for got, want in zip(t.export_seq(0, 5), j.export_seq(0, 5)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(t.k.numpy(), np.asarray(j.k))
+    assert t.prefix_counters() == j.prefix_counters()
 
 
 def test_cache_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
