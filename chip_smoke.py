@@ -135,10 +135,38 @@ Phases (any failure exits non-zero and prints no result):
       decode tokens/s, against the same prompts through one engine and
       through the monolithic handoff; the pools close in a finally and
       no worker process may outlive them (their logs: workerlog.0 under
-      chiprun_out/phase9/<depth>_<role>/).
+      chiprun_out/phase9/<depth>_<role>/);
+10. BERT-base pretraining with the published recipe (Devlin et al. 2018,
+   appendix A.2; the global-norm clip of Paddle's BERT optimization.py)
+   through the default fused program: linear warmup over 4 steps, then
+   linear decay to step 12 (warmup 10,000 and 1,000,000 steps in the
+   recipe, cut so that one run crosses both), AdamW(weight_decay 0.01),
+   GradientClipByGlobalNorm(1.0), dropout 0.1, 32 x 128, in a
+   resilience.ResilientLoop with a CheckpointManager(keep=2) in a
+   temporary directory (removed in a finally):
+   a. 12 steps, a checkpoint every 4: every step's LR within 2 ulp of the
+      schedule's float32 closed form, the clip's scale in (0, 1], finite
+      losses, the five fused-step kernels 12 x 12 times each, the packed
+      flash forward and every plain kernel version never, no library
+      loaded after the first step; the save's time on the step path, the
+      background write's, a version's bytes and the disk peak;
+   b. the same weights again, preempted before step 6: a new executor,
+      scope and rebuilt program restore step 4 and run to 12 — every loss
+      bit-equal to (a)'s and the last version's checksums equal (a)'s,
+      array for array; the restore's time;
+   c. a NaN loss injected at step 2: that step skipped, every persistable
+      after it bit-equal to before it, finite losses after it, one
+      nan_skip flight-recorder trigger;
+   d. the eval clone (taken before minimize) on a held-out batch: two
+      runs bit-equal, the qkv-folded flash, fused matmul and FFN-chain
+      kernels 12 times each and nothing else, within 2e-3 of the unfused
+      clone, and save_inference_model then load_inference_model into a
+      fresh scope giving the same bits;
+   e. 10 steps without checkpoints: the recipe's step ms beside phase 5's.
 
 Before the card's line come {"observability": {...}} (phase 8's
-numbers), {"cluster": {...}} (phase 9's) and {"kernels": [...]}, one entry per
+numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's)
+and {"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
@@ -154,6 +182,7 @@ import collections
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3698,6 +3727,491 @@ def cluster_phase(device, model_cfg, gen_cfg, params_np, model="base"):
     return report
 
 
+# -- phase 10: BERT pretraining with the published recipe ---------------------
+
+#: the recipe (Devlin et al. 2018, appendix A.2; the clip of Paddle's BERT
+#: optimization.py), its schedule cut to the run: warmup 10,000 and decay
+#: to step 1,000,000 become RECIPE_WARMUP and RECIPE_DECAY, so that one run
+#: crosses both branches
+RECIPE_PEAK_LR, RECIPE_WARMUP, RECIPE_DECAY = 1e-4, 4, 12
+RECIPE_WEIGHT_DECAY, RECIPE_CLIP_NORM = 0.01, 1.0
+RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_KEEP = 12, 4, 2
+RECIPE_PREEMPT, RECIPE_NAN = 6, 2
+#: the recipe's fetched LR against its closed form: units in the last place
+RECIPE_LR_ULPS = 2
+#: the eval clone (fusion pass) against the unfused clone: the JAX
+#: package's _PARITY_TOL
+RECIPE_EVAL_TOL = 2e-3
+#: timed recipe steps (no checkpoint in them), beside phase 5's
+RECIPE_TIMED = 10
+
+
+def build_recipe(cfg):
+    """build_bert_pretrain(cfg, TRAIN_SEQ), its eval clone taken before
+    minimize, the warmup-then-decay LR and AdamW with a global-norm clip,
+    in fresh programs under unique_name.guard (a rebuild gives the same
+    names) -> (main, startup, test, loss, lr, scale name)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED + 21
+    main.random_seed = SEED + 22
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
+        test = main.clone(for_test=True)
+        lr = pt.layers.linear_lr_warmup(
+            pt.layers.polynomial_decay(RECIPE_PEAK_LR,
+                                       decay_steps=RECIPE_DECAY,
+                                       end_learning_rate=0.0),
+            warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK_LR)
+        pt.optimizer.AdamW(
+            lr, weight_decay=RECIPE_WEIGHT_DECAY,
+            grad_clip=pt.clip.GradientClipByGlobalNorm(RECIPE_CLIP_NORM)
+        ).minimize(loss)
+    # the global-norm clip's scale multiplies every gradient
+    scales = {op.inputs["Y"][0] for op in main.global_block().ops
+              if op.type == "elementwise_mul"
+              and op.inputs["X"][0].endswith("@GRAD")}
+    if len(scales) != 1:
+        raise AssertionError(f"clip scale variables {scales}")
+    return main, startup, test, loss, lr, scales.pop()
+
+
+def recipe_lr(step):
+    """The schedule's closed form in numpy float32, operation by
+    operation as the program computes it (each result rounded)."""
+    f = np.float32
+    s = f(step)
+    # linear_lr_warmup: start + (end - start) * (step / warmup), each a
+    # scale op (x * a + b)
+    ramp = f(f(s * f(1.0 / RECIPE_WARMUP)) * f(RECIPE_PEAK_LR)) + f(0.0)
+    # polynomial_decay: (1 - min(step, decay) / decay) ** 1 (a division
+    # of two variables), times the peak rate, plus the end rate 0
+    frac = f(f(f(min(s, f(RECIPE_DECAY)) / f(RECIPE_DECAY)) * f(-1.0))
+             + f(1.0))
+    decay = f(f(frac * f(RECIPE_PEAK_LR)) + f(0.0))
+    return ramp if s < f(RECIPE_WARMUP) else decay
+
+
+def recipe_feed(vocab, seed=SEED + 100):
+    """feed_fn(step): a pretraining batch per step from a numpy seed (the
+    resumability contract: a function of the step index), host arrays —
+    the fault plan's NaN poisoning works on them."""
+    def feed(step):
+        rng = np.random.RandomState(seed + step)
+        B, T = TRAIN_BATCH, TRAIN_SEQ
+        src = rng.randint(0, vocab, (B, T)).astype(np.int64)
+        mask = np.ones((B, T), np.float32)
+        for b in range(B // 4):
+            mask[b, rng.randint(T // 2, T):] = 0.0
+        labels = np.full((B, T, 1), -1, np.int64)
+        pick = (rng.rand(B, T) < 0.15) & (mask > 0)
+        labels[pick] = src[pick][:, None]
+        return {"src_ids": src, "input_mask": mask, "masked_labels": labels}
+    return feed
+
+
+class _Fetching:
+    """An executor that also fetches ``extra`` on every run and keeps
+    them (the train loop fetches the loss only)."""
+
+    def __init__(self, exe, extra):
+        self.exe, self.extra, self.rows = exe, list(extra), []
+
+    def run(self, program, feed=None, fetch_list=None, scope=None):
+        fetch_list = list(fetch_list or [])
+        out = self.exe.run(program, feed=feed, scope=scope,
+                           fetch_list=fetch_list + self.extra)
+        self.rows.append([np.asarray(v) for v in out[len(fetch_list):]])
+        return out[:len(fetch_list)]
+
+
+class _Monitor:
+    """The loop's monitor hooks, recorded: the save's time on the step
+    path, NaN skips, each step's wall time."""
+
+    def __init__(self):
+        self.save_s, self.skips, self.step_s = [], [], {}
+
+    def on_checkpoint(self, step, seconds):
+        self.save_s.append(seconds)
+
+    def on_nan_skip(self, step):
+        self.skips.append(step)
+
+    def on_step(self, step, loss=None, wall_s=None, examples=None):
+        self.step_s[step] = wall_s
+
+
+def _timed_manager(root):
+    """A CheckpointManager (keep RECIPE_KEEP) that times each version's
+    write: the background writer's work."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    class TimedCheckpoints(CheckpointManager):
+        def __init__(self, root):
+            super().__init__(root, keep=RECIPE_KEEP)
+            self.write_s = []
+
+        def _write_version(self, *a, **kw):
+            t0 = time.perf_counter()
+            final = super()._write_version(*a, **kw)
+            self.write_s.append(time.perf_counter() - t0)
+            return final
+
+    return TimedCheckpoints(root)
+
+
+def _disk_bytes(root):
+    total = 0
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            try:
+                total += Path(dirpath, f).stat().st_size
+            except OSError:       # a temp file renamed or removed meanwhile
+                pass
+    return total
+
+
+class _DiskPeak:
+    """Samples a directory's bytes every 20 ms on a thread, keeps the
+    most."""
+
+    def __init__(self, root):
+        self.root, self.peak = root, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, _disk_bytes(self.root))
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _disk_bytes(self.root))
+        return False
+
+
+def _manifest_crcs(root, step):
+    doc = json.loads((Path(root) / f"ckpt-{step:08d}" /
+                      "manifest.json").read_text())
+    return {n: a["crc32"] for n, a in doc["arrays"].items()}
+
+
+def _bits(t):
+    """A tensor's bytes as an integer tensor (NaN-safe bit equality)."""
+    import torch
+
+    t = t.detach()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def recipe_phase(device, cfg, phase5_step_ms=float("nan")):
+    """Phase 10: build_recipe at cfg, batch TRAIN_BATCH x TRAIN_SEQ,
+    through the default (fused) program and resilience.ResilientLoop:
+    (a) RECIPE_STEPS uninterrupted steps with checkpoints, (b) preempted at
+    RECIPE_PREEMPT and resumed by a new executor, scope and program from
+    the last checkpoint, (c) a NaN step rolled back, (d) the eval clone
+    and its inference model; then (e) RECIPE_TIMED timed steps, beside
+    ``phase5_step_ms``.  The checkpoint directories live in a temporary
+    directory removed in a finally.  On the CPU (a rehearsal) the launch
+    gates expect none."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.observability import flightrec
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.resilience import (CheckpointManager, FaultPlan,
+                                             Preempted, ResilientLoop)
+
+    on_card = device.type == "cuda"
+    place = pt.CUDAPlace(0) if on_card else pt.CPUPlace()
+    L = cfg.num_layers
+    feed_fn = recipe_feed(cfg.vocab_size)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_recipe_"))
+    report = {}
+    try:
+        exe = pt.Executor(place)
+        main, startup, test, loss, lr, scale = build_recipe(cfg)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        persist = pt.io.persistable_names(main)
+        # the initial weights, by reference: no op writes a scope tensor
+        # in place, so later scopes can start from the same tensors
+        init = {n: scope.find_var(n) for n in persist}
+        n_bytes = sum(t.numel() * t.element_size() for t in init.values())
+
+        # (a) uninterrupted
+        root_a = str(work / "a")
+        mgr_a = _timed_manager(root_a)
+        mon = _Monitor()
+        fetching = _Fetching(exe, [lr, scale])
+        loop = ResilientLoop(fetching, main, loss=loss, manager=mgr_a,
+                             checkpoint_every=RECIPE_CKPT_EVERY,
+                             nan_guard=True, scope=scope, monitor=mon)
+        with _PlainCalls() as plain, _DiskPeak(root_a) as disk_a:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            losses_a = loop.run(feed_fn, RECIPE_STEPS)
+            sync(device)
+            wall_a = time.perf_counter() - t0
+            launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+        lrs = [float(r[0]) for r in fetching.rows]
+        scales = [float(r[1]) for r in fetching.rows]
+        want_lr = [recipe_lr(s) for s in range(RECIPE_STEPS)]
+        lr_ulps = [float(abs(np.float32(g) - w)
+                         / np.spacing(np.abs(w)))
+                   for g, w in zip(lrs, want_lr)]
+        want = {k: L * RECIPE_STEPS for k in FUSED_STEP_KERNELS} \
+            if on_card else {}
+        crcs_a = _manifest_crcs(root_a, RECIPE_STEPS)
+        version_bytes = _disk_bytes(str(Path(root_a) /
+                                        f"ckpt-{RECIPE_STEPS:08d}"))
+        step_walls = [mon.step_s[s] for s in range(RECIPE_STEPS)
+                      if (s + 1) % RECIPE_CKPT_EVERY]
+        log(f"  (a) {RECIPE_STEPS} steps in a ResilientLoop (checkpoint "
+            f"every {RECIPE_CKPT_EVERY}, keep {RECIPE_KEEP}, NaN guard): "
+            f"{wall_a:.2f} s; losses " + " ".join(f"{x:.4f}" for x in
+                                                   losses_a)
+            + "; LR " + " ".join(f"{x:.4e}" for x in lrs)
+            + f" (ulps from the closed form {max(lr_ulps):g}); clip scale "
+            + " ".join(f"{x:.4f}" for x in scales)
+            + f"; launches {launches} (want {want}); plain kernel versions "
+            f"called {plain.calls}; libraries loaded after the first step "
+            f"{exe.compiles_after_first_step}; saves on the step path "
+            + " ".join(f"{s * 1e3:.1f}" for s in mon.save_s)
+            + " ms, writes " + " ".join(f"{s * 1e3:.1f}"
+                                        for s in mgr_a.write_s)
+            + f" ms, {version_bytes} bytes a version ({n_bytes} in the "
+            f"scope), disk peak {disk_a.peak} bytes")
+        if len(losses_a) != RECIPE_STEPS or not np.all(np.isfinite(
+                losses_a)):
+            raise AssertionError(f"recipe losses {losses_a}")
+        if max(lr_ulps) > RECIPE_LR_ULPS:
+            raise AssertionError(f"LR {lrs} against the closed form "
+                                 f"{want_lr}: {lr_ulps} ulps")
+        if not all(0.0 < s <= 1.0 for s in scales):
+            raise AssertionError(f"global-norm clip scales {scales}")
+        if launches != want or launches.get(fa.FWD):
+            raise AssertionError(f"recipe launches {launches}, expected "
+                                 f"{want}")
+        if on_card and plain.calls:
+            raise AssertionError("a plain kernel version ran on the card")
+        if exe.compiles_after_first_step:
+            raise AssertionError("a kernel library was loaded after the "
+                                 "first step")
+        report.update(
+            losses=losses_a, lr=lrs, lr_closed_form=[float(w) for w in
+                                                     want_lr],
+            lr_max_ulps=max(lr_ulps), clip_scale=scales, launches=launches,
+            wall_s=wall_a, parameters_and_state_bytes=n_bytes,
+            save_ms=[s * 1e3 for s in mon.save_s],
+            write_ms=[s * 1e3 for s in mgr_a.write_s],
+            version_bytes=version_bytes,
+            loop_step_ms_without_save=[w * 1e3 for w in step_walls])
+        trained = {n: scope.find_var(n) for n in persist}
+        del loop, fetching, scope
+        shutil.rmtree(root_a)
+
+        # (b) preempted at RECIPE_PREEMPT, resumed by a new executor,
+        # scope and program
+        root_b = str(work / "b")
+        scope_b = pt.Scope()
+        for n, t in init.items():
+            scope_b.set_var(n, t)
+        main._rng_counter = 0          # the same seeds as run (a)
+        mgr_b = _timed_manager(root_b)
+        loop = ResilientLoop(exe, main, loss=loss, manager=mgr_b,
+                             checkpoint_every=RECIPE_CKPT_EVERY,
+                             scope=scope_b)
+        with _DiskPeak(root_b) as disk_b:
+            with FaultPlan(preempt_steps={RECIPE_PREEMPT}).armed():
+                try:
+                    loop.run(feed_fn, RECIPE_STEPS)
+                except Preempted:
+                    pass
+                else:
+                    raise AssertionError("the preemption did not fire")
+            latest = mgr_b.latest_step()
+            del loop, scope_b
+            exe2 = pt.Executor(place)
+            main2, _, _, loss2, _, _ = build_recipe(cfg)
+            scope2 = pt.Scope()
+            mgr2 = _timed_manager(root_b)
+            t0 = time.perf_counter()
+            manifest = mgr2.restore(program=main2, scope=scope2)
+            restore_s = time.perf_counter() - t0
+            loop2 = ResilientLoop(exe2, main2, loss=loss2, manager=mgr2,
+                                  checkpoint_every=RECIPE_CKPT_EVERY,
+                                  scope=scope2)
+            losses_b = loop2.run(feed_fn, RECIPE_STEPS)
+        crcs_b = _manifest_crcs(root_b, RECIPE_STEPS)
+        resumed = losses_a[int(manifest["step"]):]
+        same_losses = [np.float32(a).tobytes() == np.float32(b).tobytes()
+                       for a, b in zip(resumed, losses_b)]
+        diff_crcs = sorted(n for n in crcs_a if crcs_a[n] != crcs_b.get(n))
+        log(f"  (b) preempted before step {RECIPE_PREEMPT} (latest "
+            f"checkpoint {latest}); a new executor, scope and program "
+            f"restored step {manifest['step']} in {restore_s * 1e3:.1f} ms "
+            f"and ran on (start {loop2.start_step}): losses "
+            + " ".join(f"{x:.4f}" for x in losses_b)
+            + f"; bit-equal to (a): {sum(same_losses)}/{len(same_losses)}; "
+            f"final manifest checksums differing from (a): {diff_crcs}; "
+            f"disk peak {disk_b.peak} bytes")
+        want_latest = RECIPE_PREEMPT // RECIPE_CKPT_EVERY * RECIPE_CKPT_EVERY
+        if latest != want_latest or loop2.start_step != latest:
+            raise AssertionError(f"resume: latest {latest}, start "
+                                 f"{loop2.start_step}")
+        if len(losses_b) != len(resumed) or not all(same_losses):
+            raise AssertionError(f"resumed losses {losses_b} differ from "
+                                 f"(a)'s {resumed}")
+        if set(crcs_a) != set(crcs_b) or diff_crcs:
+            raise AssertionError(f"final checkpoints differ: {diff_crcs}")
+        report.update(restore_ms=restore_s * 1e3, resumed_from=latest,
+                      resumed_losses=losses_b,
+                      disk_peak_bytes=max(disk_a.peak, disk_b.peak))
+        del loop2, scope2, exe2, main2
+        shutil.rmtree(root_b)
+
+        # (c) a NaN step rolled back: the state step RECIPE_NAN + 1
+        # starts from must be, bit for bit, the one step RECIPE_NAN did
+        scope_c = pt.Scope()
+        for n, t in init.items():
+            scope_c.set_var(n, t)
+        main._rng_counter = 0
+        mon_c = _Monitor()
+        loop = ResilientLoop(exe, main, loss=loss, scope=scope_c,
+                             monitor=mon_c)
+        before, kept = {}, {}
+
+        def feed_c(step):
+            if step == RECIPE_NAN:
+                before.update({n: _bits(scope_c.find_var(n)).clone()
+                               for n in persist})
+            elif step == RECIPE_NAN + 1:
+                kept.update({n: torch.equal(_bits(scope_c.find_var(n)),
+                                            before[n]) for n in persist})
+            return feed_fn(step)
+
+        triggers = []
+
+        def listener(reason, detail, fields):
+            triggers.append(reason)
+
+        was_armed = flightrec.armed()
+        flightrec.arm()
+        flightrec.add_trigger_listener(listener)
+        try:
+            with FaultPlan(nan_loss_steps={RECIPE_NAN}).armed():
+                losses_c = loop.run(feed_c, RECIPE_NAN + 2)
+        finally:
+            flightrec.remove_trigger_listener(listener)
+            if not was_armed:
+                flightrec.disarm()
+        changed = sorted(n for n, same in kept.items() if not same)
+        log(f"  (c) NaN loss injected at step {RECIPE_NAN}: skipped "
+            f"{loop.skipped_steps}, losses " + " ".join(
+                f"{x:.4f}" for x in losses_c)
+            + f"; persistables after the step bit-equal to before it: "
+            f"{len(kept) - len(changed)}/{len(persist)}; flight-recorder "
+            f"triggers {triggers}")
+        if loop.skipped_steps != [RECIPE_NAN] or mon_c.skips != [RECIPE_NAN]:
+            raise AssertionError(f"NaN skips {loop.skipped_steps}")
+        if len(kept) != len(persist) or changed:
+            raise AssertionError(f"persistables changed by the rolled-back "
+                                 f"step: {changed[:5]}")
+        if len(losses_c) != RECIPE_NAN + 1 or not np.all(np.isfinite(
+                losses_c)):
+            raise AssertionError(f"losses around the NaN step {losses_c}")
+        if triggers != ["nan_skip"]:
+            raise AssertionError(f"flight-recorder triggers {triggers}")
+        report.update(nan_skipped=loop.skipped_steps, nan_losses=losses_c,
+                      nan_triggers=triggers)
+        del loop, scope_c, before
+
+        # (d) the eval clone and its inference model, on (a)'s weights
+        scope_d = pt.Scope()
+        for n, t in trained.items():
+            scope_d.set_var(n, t)
+        held_out = recipe_feed(cfg.vocab_size, seed=SEED + 999)(0)
+        with _PlainCalls() as plain:
+            _cuda.reset_launches()
+            (e1,) = exe.run(test, feed=held_out, fetch_list=[loss],
+                            scope=scope_d)
+            launches_eval = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+        (e2,) = exe.run(test, feed=held_out, fetch_list=[loss], scope=scope_d)
+        bs = pt.BuildStrategy()
+        bs.fuse_epilogues = False
+        (eu,) = exe.run(pt.CompiledProgram(test, build_strategy=bs),
+                        feed=held_out, fetch_list=[loss], scope=scope_d)
+        infer_dir = str(work / "inference")
+        with pt.scope_guard(scope_d):
+            pt.io.save_inference_model(infer_dir, list(held_out), [loss],
+                                       exe, main_program=test)
+        with pt.scope_guard(pt.Scope()):
+            prog, _, fetch = pt.io.load_inference_model(infer_dir, exe)
+            (ei,) = exe.run(prog, feed=held_out, fetch_list=fetch)
+        want_eval = {k: L for k in ("flash_fwd_qkv", "gemm_epilogue",
+                                    "ffn_chain")} if on_card else {}
+        log(f"  (d) eval clone on a held-out batch: {float(e1):.6f}, again "
+            f"{float(e2):.6f}; unfused clone {float(eu):.6f} (|d| "
+            f"{abs(float(e1) - float(eu)):.3e}, tol {RECIPE_EVAL_TOL:g}); "
+            f"the inference model loaded into a fresh scope "
+            f"{float(ei):.6f}; launches {launches_eval} (want {want_eval}); "
+            f"plain kernel versions called {plain.calls}")
+        if e1.tobytes() != e2.tobytes():
+            raise AssertionError("the eval clone is not deterministic")
+        if launches_eval != want_eval:
+            raise AssertionError(f"eval launches {launches_eval}, expected "
+                                 f"{want_eval}")
+        if on_card and plain.calls:
+            raise AssertionError("a plain kernel version ran on the card")
+        if not abs(float(e1) - float(eu)) < RECIPE_EVAL_TOL:
+            raise AssertionError("the eval clone and the unfused clone "
+                                 "disagree")
+        if ei.tobytes() != e1.tobytes():
+            raise AssertionError("the inference model's loss differs from "
+                                 "the eval clone's")
+        report.update(eval_loss=float(e1), eval_unfused_loss=float(eu),
+                      inference_model_loss=float(ei),
+                      eval_launches=launches_eval)
+        del scope_d
+
+        # (e) RECIPE_TIMED steps without checkpoints, as phase 5 times its
+        # steps
+        scope_t = pt.Scope()
+        for n, t in trained.items():
+            scope_t.set_var(n, t)
+        feed = {k: torch.from_numpy(v).to(device)
+                for k, v in feed_fn(0).items()}
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope_t)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(RECIPE_TIMED):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope_t,
+                    return_numpy=False)
+        sync(device)
+        step_ms = (time.perf_counter() - t0) / RECIPE_TIMED * 1e3
+        log(f"  (e) {RECIPE_TIMED} recipe steps: {step_ms:.3f} ms/step "
+            f"(phase 5's Adam step {phase5_step_ms:.3f} ms/step)")
+        report.update(step_ms=step_ms, phase5_step_ms=phase5_step_ms)
+        del scope_t, trained, init
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
 def main():
     import torch
 
@@ -3806,6 +4320,11 @@ def main():
             "in process and over worker processes")
         report["cluster"] = cluster_phase(device, model_cfg, gen_cfg,
                                           params_np)
+
+        log("[10] BERT pretraining with the published recipe: schedule, "
+            "clip, AdamW, checkpoints, resume, NaN rollback, eval clone")
+        report["recipe"] = recipe_phase(device, BertConfig.base(),
+                                        report["training"]["step_ms"])
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3835,6 +4354,11 @@ def main():
                 "op_scopes_ms", "device_busy_ms")}}}))
     print(json.dumps({"cluster": dict(card=card,
                                       **report["cluster"]["line"])}))
+    rc = report["recipe"]
+    print(json.dumps({"recipe": dict(card=card, **{k: rc[k] for k in (
+        "step_ms", "phase5_step_ms", "save_ms", "write_ms", "version_bytes",
+        "restore_ms", "disk_peak_bytes", "launches", "eval_launches",
+        "lr_max_ulps", "losses", "eval_loss", "eval_unfused_loss")})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

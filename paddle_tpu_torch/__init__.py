@@ -12,18 +12,23 @@ sm_90a under ``csrc/``, built with ``nvcc`` at first use (``_cuda``).
 Ported so far: the serving path — ``generation.GenerationEngine`` (chunked
 and legacy scheduling, paged / dense / prefix caches, speculation) and
 ``serving.InferenceServer`` — and training through the Program/Executor
-front end: build a program with ``layers``, ``optimizer.Adam(lr)
-.minimize(loss)``, run it with ``Executor``.  As in the JAX package the
-GEMM-epilogue fusion pass is on by default (core/fusion.py: the fused
-matmul-epilogue, FFN-chain and qkv-folded flash kernels); a
-``CompiledProgram`` whose ``BuildStrategy`` sets ``fuse_epilogues =
-False`` runs the unfused lowering.  ``parallel`` holds named meshes over
-``torch.distributed`` and sequence parallelism (ring attention through
-the flat flash kernels, Ulysses).  ``observability`` (the metrics
+front end: build a program with ``layers``, take an eval program with
+``clone(for_test=True)``, ``optimizer.AdamW(lr, grad_clip=clip.
+GradientClipByGlobalNorm(1.0)).minimize(loss)`` (every dense optimizer,
+``regularizer``, ``clip``, the ``layers`` learning-rate schedules), run
+it with ``Executor`` or under ``resilience.ResilientLoop`` (atomic
+checkpoints, auto-resume, NaN rollback), save and load with ``io``.
+As in the JAX package the GEMM-epilogue fusion pass is on by default
+(core/fusion.py: the fused matmul-epilogue, FFN-chain and qkv-folded
+flash kernels); a ``CompiledProgram`` whose ``BuildStrategy`` sets
+``fuse_epilogues = False`` runs the unfused lowering.  ``parallel``
+holds named meshes over ``torch.distributed`` and sequence parallelism
+(ring attention through the flat flash kernels, Ulysses).  ``observability`` (the metrics
 registry, spans, the flight recorder, ledger, SLO and scrape modules) and
 ``profiler`` (host events plus a torch.profiler device trace) instrument
 the engine, the server, the Executor and the fusion pass as in the JAX
-package.  No control flow, Executor meshes or AMP yet.
+package.  No control flow, Executor meshes, sparse gradients or AMP
+yet.
 """
 from ._device import resolve_device, set_strict_fp32
 from .core import (  # noqa: F401
@@ -40,16 +45,18 @@ from .core import (  # noqa: F401
     default_main_program,
     default_startup_program,
     global_scope,
+    gradients,
     program_guard,
     scope_guard,
 )
 from .core import unique_name  # noqa: F401
 from . import ops  # noqa: F401  (registers all operators)
 from . import compiler, initializer, io, layers, optimizer  # noqa: F401
+from . import clip, regularizer  # noqa: F401
 from .compiler import BuildStrategy, CompiledProgram  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import profiler  # noqa: F401
-from . import resilience  # noqa: F401  (the atomic file-write protocol)
+from . import resilience  # noqa: F401  (checkpoints, resilient train loop)
 from . import observability  # noqa: F401  (metrics registry, span tracer)
 
 __version__ = "0.1.0"
@@ -77,4 +84,5 @@ __all__ = ["resolve_device", "set_strict_fp32", "__version__",
            "scope_guard", "append_backward", "unique_name",
            "layers", "optimizer", "initializer", "io", "ParamAttr",
            "new_program_scope", "compiler", "BuildStrategy",
-           "CompiledProgram"]
+           "CompiledProgram", "gradients", "clip", "regularizer",
+           "resilience"]

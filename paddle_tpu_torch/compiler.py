@@ -11,7 +11,7 @@ JAX package; the rest are informational.  ``Executor.run`` reads the two
 knobs of a ``CompiledProgram`` and runs its program.
 
 Meshes are not ported: ``with_data_parallel`` and ``with_sharding``
-raise (ROADMAP.md, Queue 1 item 9).
+raise (ROADMAP.md, Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from .core.program import Program
 __all__ = ["BuildStrategy", "ExecutionStrategy", "CompiledProgram"]
 
 _NO_MESH = ("meshes are not ported to paddle_tpu_torch yet (ROADMAP.md, "
-            "Queue 1 item 9): a CompiledProgram runs on one device")
+            "Queue 1 item 5): a CompiledProgram runs on one device")
 
 
 class BuildStrategy:

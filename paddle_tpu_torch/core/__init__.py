@@ -1,6 +1,6 @@
 """Core of the port: program IR, scope, lowering, executor, autodiff
 (counterpart of paddle_tpu.core)."""
-from .backward import append_backward  # noqa: F401
+from .backward import append_backward, gradients  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .program import (  # noqa: F401
     Block,

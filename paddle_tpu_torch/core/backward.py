@@ -228,3 +228,25 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
         params_and_grads.append((p, gvar))
     return params_and_grads
 
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Compute d(targets)/d(inputs) (parity: fluid.gradients).
+
+    Implemented via append_backward on the first target; returns grad
+    vars aligned with `inputs` (None where unreachable)."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    loss = targets[0]
+    block = loss.block.program.global_block()
+    for v in inputs:
+        if v.stop_gradient:
+            v.stop_gradient = False
+    append_backward(loss, no_grad_set=no_grad_set,
+                    parameter_list=[
+                        p.name for p in block.all_parameters() if p.trainable
+                    ] or None)
+    outs = []
+    for v in inputs:
+        gname = v.name + GRAD_SUFFIX
+        outs.append(block.var(gname) if block.has_var(gname) else None)
+    return outs

@@ -102,6 +102,15 @@ def _record_optimizer_state_bytes(block, placed):
         pass
 
 
+def _host_tensor(value):
+    """A host value as a CPU tensor of the same shape (np.ascontiguousarray
+    would turn a 0-d array — a beta power, the LR counter — into 1-d)."""
+    arr = np.asarray(value)
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    return torch.from_numpy(arr)
+
+
 class Executor:
     def __init__(self, place: Place = None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -185,8 +194,7 @@ class Executor:
         """A feed as a tensor on the device with the declared runtime
         dtype; a shape the program does not declare raises."""
         var = block._find_var_recursive(name)
-        t = value if torch.is_tensor(value) else torch.from_numpy(
-            np.ascontiguousarray(np.asarray(value)))
+        t = value if torch.is_tensor(value) else _host_tensor(value)
         if var is not None and var.shape is not None:
             declared = var.shape
             ok = len(t.shape) == len(declared) and all(
@@ -209,8 +217,7 @@ class Executor:
         if torch.is_tensor(val) and val.device == self.device:
             return val
         var = block._find_var_recursive(name)
-        t = val if torch.is_tensor(val) else torch.from_numpy(
-            np.ascontiguousarray(np.asarray(val)))
+        t = val if torch.is_tensor(val) else _host_tensor(val)
         dtype = runtime_dtype(var.dtype) if var is not None and \
             var.dtype is not None else None
         t = t.to(device=self.device, dtype=dtype)
@@ -228,3 +235,26 @@ class Executor:
                 seed = int(np.random.randint(0, 2**31 - 1))
                 program._auto_seed = seed
         return fold_seed(seed, counter)
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Dataset-driven training (parity: executor.py:1116) waits for
+        the port of ``core/trainer.py`` and ``dataset.py``."""
+        raise NotImplementedError(
+            "Executor.train_from_dataset needs core/trainer.py and "
+            "dataset.py, which are not ported to paddle_tpu_torch yet "
+            "(ROADMAP.md, Queue 1 item 3); drive Executor.run or "
+            "resilience.ResilientLoop with a feed function instead")
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Parity: executor.py:1049 — the same loop over a
+        clone(for_test=True) program; waits with train_from_dataset."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
+
+    def close(self):
+        """Nothing to release: lowered blocks live on their programs."""

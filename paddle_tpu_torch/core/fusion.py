@@ -774,24 +774,26 @@ def _group_inputs(grp, env, need_grad):
     return gins
 
 
-def run_fused_group(fx, grp, env, seed, device, vjp_uids):
+def run_fused_group(fx, grp, env, seed, device, vjp_uids, is_test=False):
     """Execute one fused group at the last member's program position;
     returns the last member's outputs (detached).  When a member has a
     grad op the group runs under autograd and its leaves and outputs
-    stay in ``fx.state`` for ``run_fused_grad``."""
+    stay in ``fx.state`` for ``run_fused_grad``.  ``is_test`` (a program
+    cloned for test) turns every member's dropout off, as the op's own
+    ``is_test`` attr does."""
     need_grad = any(m.uid in vjp_uids for m in grp.members)
     gins = _group_inputs(grp, env, need_grad)
     with torch.enable_grad() if need_grad else contextlib.nullcontext():
-        outs = _run_group(grp, gins, seed, device)
+        outs = _run_group(grp, gins, seed, device, is_test)
     if need_grad:
         fx.state[grp.gid] = [gins, outs, None]
     return {slot: [v.detach() if torch.is_tensor(v) else v for v in vals]
             for slot, vals in outs.items()}
 
 
-def _run_group(grp, gins, seed, device):
+def _run_group(grp, gins, seed, device, is_test=False):
 
-    cov = _try_kernel(grp, gins, seed)
+    cov = _try_kernel(grp, gins, seed, is_test)
     tmp = {}
     last_outs = None
     start_at = 0
@@ -819,7 +821,8 @@ def _run_group(grp, gins, seed, device):
         opdef = REGISTRY.get(m.type)
         ctx = OpContext(
             rng=fold_seed(seed, m.uid) if opdef.needs_rng else None,
-            is_test=bool(m.attrs.get("is_test", False)), attrs=m.attrs,
+            is_test=is_test or bool(m.attrs.get("is_test", False)),
+            attrs=m.attrs,
             device=device)
         outs = opdef.compute(ctx, ins, m.attrs)
         for slot, names in m.outputs.items():
@@ -830,7 +833,7 @@ def _run_group(grp, gins, seed, device):
     return last_outs
 
 
-def _try_kernel(grp, gins, seed):
+def _try_kernel(grp, gins, seed, is_test=False):
     """Lower the group onto its kernel when the shapes and dtypes allow.
 
     Returns ``(n_covered, outs)`` — the number of leading members the
@@ -839,10 +842,10 @@ def _try_kernel(grp, gins, seed):
     attention kernel covers through the fused_attention member and
     leaves any dropout/residual/norm tail to the replay loop."""
     if grp.kind == "attn":
-        return _try_kernel_attn(grp, gins, seed)
+        return _try_kernel_attn(grp, gins, seed, is_test)
     if grp.kind == "ffn_chain":
-        return _try_kernel_ffn(grp, gins, seed)
-    outs = _try_kernel_gemm(grp, gins, seed)
+        return _try_kernel_ffn(grp, gins, seed, is_test)
+    outs = _try_kernel_gemm(grp, gins, seed, is_test)
     return None if outs is None else (len(grp.members), outs)
 
 
@@ -873,19 +876,19 @@ def _rows(mm, x):
     return xnc, m_rows, k_dim
 
 
-def _dropout(grp, seed):
+def _dropout(grp, seed, is_test=False):
     """(rate, kernel seed) of the group's dropout member: the seed the
     unfused lowering would give that op."""
 
     if grp.dropout is None:
         return 0.0, 0
-    if grp.dropout["attrs"].get("is_test", False):
+    if is_test or grp.dropout["attrs"].get("is_test", False):
         return 0.0, 0
     rate = grp.dropout["prob"]
     return rate, (fold_seed(seed, grp.dropout["uid"]) if rate > 0.0 else 0)
 
 
-def _try_kernel_attn(grp, gins, seed):
+def _try_kernel_attn(grp, gins, seed, is_test=False):
     """qkv projection + bias + slice3 + packed flash attention as one
     kernel entry (ops/attention_epilogue.py): the qkv bias add and the
     softmax scale apply in the flash forward kernel."""
@@ -917,7 +920,7 @@ def _try_kernel_attn(grp, gins, seed):
         return None
     if attn_bias is not None and not ae.key_padding_ok(attn_bias, b, t_len):
         return None
-    rate = 0.0 if attn_m.attrs.get("is_test", False) \
+    rate = 0.0 if is_test or attn_m.attrs.get("is_test", False) \
         else float(attn_m.attrs.get("dropout_rate", 0.0))
     if rate >= 1.0:
         return None
@@ -929,7 +932,7 @@ def _try_kernel_attn(grp, gins, seed):
     return grp.extra["attn_pos"] + 1, {"Out": [o]}
 
 
-def _try_kernel_ffn(grp, gins, seed):
+def _try_kernel_ffn(grp, gins, seed, is_test=False):
     """FFN up/down chain: the two-GEMM chain kernel where
     ``ffn_chain_shapes_ok`` holds (ops/ffn_chain.py), else two fused
     matmul-epilogue calls, else None (replay)."""
@@ -981,7 +984,7 @@ def _try_kernel_ffn(grp, gins, seed):
     if res is not None and tuple(res.shape) != out_shape:
         return None
 
-    rate, dseed = _dropout(grp, seed)
+    rate, dseed = _dropout(grp, seed, is_test)
     if rate >= 1.0:
         return None
     spec = fm.EpilogueSpec(
@@ -1009,7 +1012,7 @@ def _try_kernel_ffn(grp, gins, seed):
     return len(grp.members), {grp.final_slot: [y2.reshape(out_shape)]}
 
 
-def _try_kernel_gemm(grp, gins, seed):
+def _try_kernel_gemm(grp, gins, seed, is_test=False):
     """The fused matmul-epilogue kernel when the shapes allow: the final
     member's outputs dict, or None for the replay path."""
     from ..ops import fused_matmul as fm
@@ -1039,7 +1042,7 @@ def _try_kernel_gemm(grp, gins, seed):
         return None
     if not fm.fused_shapes_ok(M, K, N, x.dtype):
         return None
-    rate, dseed = _dropout(grp, seed)
+    rate, dseed = _dropout(grp, seed, is_test)
     if rate >= 1.0:
         return None
     spec = fm.EpilogueSpec(

@@ -107,6 +107,8 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         program, block_idx, feed_names, fetch_names)
     vjp_uids = frozenset(
         op.attrs["fwd_uid"] for op in ops if op.type == VJP_GRAD_OP)
+    # a program cloned for test runs every op with is_test semantics
+    is_test = program.is_test
     fusion_plan = None
     if fuse_epilogues and block_idx == 0:
         fusion_plan = plan_fusion(program, ops, feed_names, fetch_names,
@@ -119,7 +121,8 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         env.update(feeds)
         fusion = None if fusion_plan is None else FusionExec(fusion_plan)
         with torch.no_grad():
-            _interp_ops(ops, env, seed, {}, vjp_uids, device, fusion)
+            _interp_ops(ops, env, seed, {}, vjp_uids, device, fusion,
+                        is_test)
         fetches = [env[n] for n in fetch_names]
         new_persist = {n: env[n] for n in persist_out}
         return fetches, new_persist
@@ -152,7 +155,8 @@ def _op_scope_name(op):
     return op.type
 
 
-def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
+def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None,
+                is_test=False):
     """Execute an op list over ``env`` (name -> tensor), in place.
 
     Runs under ``torch.no_grad``; a forward op in ``vjp_uids`` runs under
@@ -160,7 +164,8 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
     ``vjps`` for its ``vjp_grad`` op.  ``fusion`` (a FusionExec): planned
     groups run at their last member (earlier members and internal
     gradient sums are skipped) and member ``vjp_grad`` ops bind from the
-    group's gradients, never binding ``UNBOUND``."""
+    group's gradients, never binding ``UNBOUND``.  ``is_test`` (the
+    program's) is ORed into every op's own ``is_test`` attr."""
     plan = fusion.plan if fusion is not None else None
     scoped = _prof.device_tracing()
     for i, op in enumerate(ops):
@@ -177,7 +182,8 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
                             else run_fused_grad(op, fusion, grp, env))
                 elif plan is not None and op.uid in plan.by_last:
                     outs = run_fused_group(fusion, plan.by_last[op.uid],
-                                           env, seed, device, vjp_uids)
+                                           env, seed, device, vjp_uids,
+                                           is_test)
                 else:
                     opdef = REGISTRY.get(op.type)
                     ins = {slot: [env[n] for n in names]
@@ -187,7 +193,8 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None):
                         # share a stream
                         rng=(fold_seed(seed, op.uid) if opdef.needs_rng
                              else None),
-                        is_test=bool(op.attrs.get("is_test", False)),
+                        is_test=is_test or bool(op.attrs.get("is_test",
+                                                             False)),
                         attrs=op.attrs, device=device)
                     if op.uid in vjp_uids:
                         ins = {slot: [_leaf(v) for v in vals]

@@ -13,10 +13,17 @@ What differs from the JAX package:
     -1 dims are rediscovered the same way.
   * The Executor interprets the op list eagerly (core/lowering.py); there
     is no jit.
+
+``to_dict``/``from_dict`` write and read the JAX package's JSON program
+desc, field for field, so a model file written by one package loads in
+the other (io.save_inference_model).
 """
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
+
+import numpy as np
 
 from . import unique_name
 from .registry import REGISTRY, OpContext
@@ -55,6 +62,41 @@ class Variable:
     @property
     def ndim(self):
         return None if self.shape is None else len(self.shape)
+
+    def grad_name(self):
+        return self.name + GRAD_SUFFIX
+
+    def astype(self, dtype):
+        from .. import layers
+
+        return layers.cast(self, dtype)
+
+    def numpy(self):
+        """This variable's current value in the global scope, on the
+        host."""
+        import torch
+
+        from .scope import global_scope
+
+        val = global_scope().find_var(self.name)
+        if val is None:
+            raise RuntimeError(f"Variable {self.name} has no value in scope")
+        if torch.is_tensor(val):
+            return val.detach().cpu().numpy()
+        return np.asarray(val)
+
+    def to_dict(self):
+        return {
+            "name": self.name,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "is_data": self.is_data,
+            "is_parameter": isinstance(self, Parameter),
+            "trainable": getattr(self, "trainable", False),
+            "is_optimizer_state": self.is_optimizer_state,
+        }
 
     def __repr__(self):
         return (
@@ -99,6 +141,15 @@ class Operator:
             for n in names:
                 if n != EMPTY_VAR_NAME:
                     yield n
+
+    def to_dict(self):
+        return {
+            "uid": self.uid,
+            "type": self.type,
+            "inputs": {k: list(v) for k, v in self.inputs.items()},
+            "outputs": {k: list(v) for k, v in self.outputs.items()},
+            "attrs": _jsonable_attrs(self.attrs),
+        }
 
     def __repr__(self):
         ins = ", ".join(f"{k}={v}" for k, v in self.inputs.items())
@@ -174,6 +225,14 @@ class Block:
                 pass
         return op
 
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(
+            self, self.program._next_op_uid(), type, inputs, outputs, attrs
+        )
+        self.ops.insert(0, op)
+        self.program._bump()
+        return op
+
     def _infer_op_shapes(self, op):
         """Generic shape/dtype inference by double evaluation on meta
         tensors.
@@ -220,6 +279,14 @@ class Block:
                 var.shape = shape
                 var.dtype = canonical_dtype(a3.dtype)
 
+    def to_dict(self):
+        return {
+            "idx": self.idx,
+            "parent_idx": self.parent_idx,
+            "vars": [v.to_dict() for v in self.vars.values()],
+            "ops": [op.to_dict() for op in self.ops],
+        }
+
     def __repr__(self):
         lines = [f"Block {self.idx} ({len(self.vars)} vars, {len(self.ops)} ops)"]
         lines += [f"  {op!r}" for op in self.ops]
@@ -243,6 +310,25 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
 
+    def create_block(self, parent_idx=None) -> Block:
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self._current_block_idx = blk.idx
+        self._bump()
+        return blk
+
+    def rollback(self):
+        self._current_block_idx = self.current_block().parent_idx
+        if self._current_block_idx < 0:
+            self._current_block_idx = 0
+
+    def all_parameters(self):
+        params = []
+        for blk in self.blocks:
+            params.extend(blk.all_parameters())
+        return params
+
     def list_vars(self):
         for blk in self.blocks:
             yield from blk.vars.values()
@@ -254,6 +340,104 @@ class Program:
     def _next_op_uid(self):
         self._op_uid += 1
         return self._op_uid
+
+    # -- cloning / pruning -------------------------------------------------
+    def clone(self, for_test=False):
+        """Deep-copy the program with its own lowering cache.  With
+        ``for_test=True`` every op runs with is_test semantics (dropout
+        off, in the unfused ops and inside every fused group) — parity
+        with Program.clone(for_test=True) (framework.py:3706)."""
+        p = Program.__new__(Program)
+        p.blocks = []
+        p.random_seed = self.random_seed
+        p._op_uid = self._op_uid
+        p._current_block_idx = 0
+        p._exec_cache = {}
+        p._is_test = for_test or self.is_test
+        for blk in self.blocks:
+            nb = Block(p, blk.idx, blk.parent_idx)
+            for v in blk.vars.values():
+                nv = copy.copy(v)
+                nv.block = nb
+                nb.vars[nv.name] = nv
+            for op in blk.ops:
+                nb.ops.append(
+                    Operator(nb, op.uid, op.type, op.inputs, op.outputs,
+                             copy.deepcopy(op.attrs))
+                )
+            p.blocks.append(nb)
+        return p
+
+    @property
+    def is_test(self):
+        return getattr(self, "_is_test", False)
+
+    def prune(self, targets):
+        """Keep only the ops needed to compute ``targets`` (parity:
+        framework.py Program._prune / pybind.cc:1127)."""
+        target_names = {
+            t.name if isinstance(t, Variable) else t for t in targets
+        }
+        blk = self.global_block()
+        needed = set(target_names)
+        kept_uids = set()
+        for op in reversed(blk.ops):
+            if any(n in needed for n in op.output_names()):
+                kept_uids.add(op.uid)
+                needed.update(op.input_names())
+        p = self.clone()
+        nb = p.global_block()
+        nb.ops = [op for op in nb.ops if op.uid in kept_uids]
+        keep_vars = set()
+        for op in nb.ops:
+            keep_vars.update(op.input_names())
+            keep_vars.update(op.output_names())
+        keep_vars |= target_names
+        nb.vars = OrderedDict(
+            (k, v) for k, v in nb.vars.items() if k in keep_vars
+        )
+        p._bump()
+        return p
+
+    # -- serialization -----------------------------------------------------
+    def to_dict(self):
+        return {
+            "version": 1,
+            "random_seed": self.random_seed,
+            "blocks": [b.to_dict() for b in self.blocks],
+        }
+
+    @staticmethod
+    def from_dict(d) -> "Program":
+        p = Program()
+        p.random_seed = d.get("random_seed", 0)
+        p.blocks = []
+        for bd in d["blocks"]:
+            blk = Block(p, bd["idx"], bd["parent_idx"])
+            for vd in bd["vars"]:
+                if vd.get("is_parameter"):
+                    v = Parameter(
+                        blk, vd["name"], vd["shape"], vd["dtype"],
+                        trainable=vd.get("trainable", True),
+                    )
+                else:
+                    v = Variable(
+                        blk, vd["name"], vd["shape"], vd["dtype"],
+                        persistable=vd["persistable"],
+                        stop_gradient=vd["stop_gradient"],
+                        is_data=vd.get("is_data", False),
+                    )
+                v.is_optimizer_state = vd.get("is_optimizer_state", False)
+                blk.vars[v.name] = v
+            for od in bd["ops"]:
+                op = Operator(blk, od["uid"], od["type"], od["inputs"],
+                              od["outputs"], od["attrs"])
+                blk.ops.append(op)
+                p._op_uid = max(p._op_uid, op.uid)
+            p.blocks.append(blk)
+        if not p.blocks:
+            p.blocks = [Block(p, 0)]
+        return p
 
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)
@@ -324,4 +508,20 @@ def _normalize_shape(shape):
     if shape is None:
         return None
     return tuple(-1 if d is None else int(d) for d in shape)
+
+
+def _jsonable_attrs(attrs):
+    clean = {}
+    for k, v in attrs.items():
+        if isinstance(v, np.ndarray):
+            clean[k] = v.tolist()
+        elif isinstance(v, (np.integer,)):
+            clean[k] = int(v)
+        elif isinstance(v, (np.floating,)):
+            clean[k] = float(v)
+        elif isinstance(v, tuple):
+            clean[k] = list(v)
+        else:
+            clean[k] = v
+    return clean
 

@@ -170,7 +170,7 @@ __device__ __forceinline__ int key_end(const FlashParams& P, int q0,
 // one on tensor cores rated 495 TFLOP/s: 3 * flops / 495e12, about 2.5x
 // under the float32 FMA bound.  What the design does:
 // - 3xTF32: big = tf32(x), small = tf32(x - big), tf32 being
-//   cvt.rna.tf32.f32 done as two integer operations (tf32_rna);
+//   cvt.rna.tf32.f32 done with integer operations (tf32_rna);
 //   c += big.small, then small.big, then big.big (small.small dropped),
 //   accumulated in float32 by the MMA: about 2^-22 relative a product,
 //   float32's own rounding, where big.big alone (2^-11) would not hold the
@@ -257,10 +257,12 @@ __host__ __device__ constexpr int tc_dkv_rows(int dm) {
 }
 
 // cvt.rna.tf32.f32 (round to nearest, ties away from zero, 10 mantissa
-// bits kept), bit for bit on finite values: half a unit of the last kept
-// place added to the magnitude bits, the 13 dropped bits cleared.  Two
-// integer operations, where the PTX instruction compiles to a longer
-// sequence with range checks and selects
+// bits kept), bit for bit on finite values and infinities: half a unit of
+// the last kept place added to the magnitude bits, the 13 dropped bits
+// cleared.  Two integer operations, where the PTX instruction compiles to
+// a longer sequence with range checks and selects.  Not on a NaN: the add
+// carries the canonical NaN 0x7fffffff through the exponent into a zero
+// (split_tf32 keeps the NaN)
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -275,6 +277,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+  // a NaN operand stays a NaN in the product (the plain version's and
+  // the Pallas kernel's NaN), where tf32_rna would make it a zero
+  if (x != x) big = 0x7fffffffu;
 }
 
 __device__ __forceinline__ Frag<4> frag_a(float a0, float a1, float a2,

@@ -671,10 +671,12 @@ __host__ __device__ constexpr int gemm_stage_floats(int nb) {
 }
 
 // cvt.rna.tf32.f32 (round to nearest, ties away from zero, 10 mantissa
-// bits kept), bit for bit on finite values: half a unit of the last kept
-// place added to the magnitude bits, the 13 dropped bits cleared.  Two
-// integer operations, where the PTX instruction compiles to a longer
-// sequence with range checks and selects.  (This helper and the four below
+// bits kept), bit for bit on finite values and infinities: half a unit of
+// the last kept place added to the magnitude bits, the 13 dropped bits
+// cleared.  Two integer operations, where the PTX instruction compiles to
+// a longer sequence with range checks and selects.  Not on a NaN: the add
+// carries the canonical NaN 0x7fffffff through the exponent into a zero
+// (split_tf32 keeps the NaN).  (This helper and the four below
 // are flash_attention.cu's, copied: each kernel source builds alone.)
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
@@ -690,6 +692,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+  // a NaN operand stays a NaN in the product (the plain version's and
+  // the Pallas kernel's NaN), where tf32_rna would make it a zero
+  if (x != x) big = 0x7fffffffu;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4],

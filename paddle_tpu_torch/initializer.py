@@ -5,7 +5,8 @@ An initializer appends an init op (fill_constant / gaussian_random /
 uniform_random / truncated_gaussian_random) for a parameter into the
 *startup program*, so both packages emit the same startup ops; running
 the startup program materializes all parameters in the scope.  The
-numpy-array initializer (assign_value) is not ported.
+numpy-array initializer is not ported (its ``assign_value`` op is, in
+ops/tensor.py, for ``layers.assign``).
 """
 from __future__ import annotations
 

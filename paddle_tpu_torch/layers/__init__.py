@@ -1,13 +1,29 @@
-"""paddle_tpu_torch.layers — the layers of the ported training path
-(counterpart of paddle_tpu.layers)."""
+"""paddle_tpu_torch.layers — the layer library (counterpart of
+paddle_tpu.layers): what the BERT builders, the fc and 4-D attention
+programs, the learning-rate schedules and gradient clipping use, and
+every generated unary/binary layer of the JAX package.  Importing it
+patches Variable's operators (math_op_patch)."""
 from ..core.program import data  # noqa: F401  (layers.data parity)
+from .nn import *  # noqa: F401,F403
+from .nn import _BINARY_OPS, _UNARY_OPS  # noqa: F401
 from .nn import (  # noqa: F401
-    dropout, elementwise_add, elementwise_div, elementwise_max,
-    elementwise_mul, elementwise_sub, embedding, fc,
-    fused_multihead_attention, gelu, layer_norm, not_equal, relu, softmax,
-    softmax_with_cross_entropy, square_error_cost,
+    dropout, embedding, fc, fused_multihead_attention, increment,
+    layer_norm, softmax_with_cross_entropy, square_error_cost,
 )
 from .tensor import (  # noqa: F401
-    cast, matmul, mean, range, reduce_mean, reduce_sum, reshape, scale,
-    slice, squeeze, transpose, unsqueeze,
+    argmax, argmin, assign, cast, clip, clip_by_norm, concat, cumsum,
+    expand, fill_constant, fill_constant_batch_size_like, gather,
+    gaussian_random, gaussian_random_batch_size_like, matmul, mean, mul,
+    one_hot, ones, ones_like, pad, pow, range, reduce_all, reduce_any,
+    reduce_max, reduce_mean, reduce_min, reduce_prod, reduce_sum, reshape,
+    scale, scatter, shape, slice, split, squeeze, stack, topk, transpose,
+    uniform_random, uniform_random_batch_size_like, unsqueeze, unstack,
+    where, zeros, zeros_like,
 )
+from .learning_rate_scheduler import (  # noqa: F401
+    cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
+    natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay,
+)
+from .math_op_patch import monkey_patch_variable
+
+monkey_patch_variable()

@@ -1,12 +1,16 @@
-"""Math ops of the ported training path: matmul, the broadcasted
-elementwise family, reductions (sum, mean), activations, softmax,
-comparison.
+"""Math ops: matmul, the broadcasted elementwise family, clipping and
+norms, reductions, activations and pointwise math, comparisons and
+logical ops, softmax and the index ops (arg_max/min, top_k, cumsum).
 
-Counterpart of paddle_tpu/ops/math.py (parity: operators/matmul_op.cc,
-mul_op.cc, elementwise/, reduce_ops/, activation_op.cc, scale_op.cc).
-Float32 matmuls go to cuBLAS in full float32 (no TF32, see _device.py),
-as the JAX package left them to XLA.  Every function also runs on
-``meta`` tensors (shape inference).
+Counterpart of paddle_tpu/ops/math.py, op for op, with its attrs, its
+broadcasting ``axis`` and its result dtypes (bool for comparisons and
+``isfinite``, int32 for arg_max/arg_min/top_k indices) (parity:
+operators/matmul_op.cc, mul_op.cc, elementwise/, reduce_ops/,
+activation_op.cc, scale_op.cc, clip_op.cc, top_k_op.cc, arg_max/min,
+cumsum).  XLA compiled these for the JAX package with no Pallas kernel;
+here they are plain PyTorch.  Float32 matmuls go to cuBLAS in full
+float32 (no TF32, see _device.py).  Every function also runs on ``meta``
+tensors (shape inference).
 """
 from __future__ import annotations
 
@@ -83,6 +87,11 @@ _register_elementwise("sub", torch.sub)
 _register_elementwise("mul", torch.mul)
 _register_elementwise("div", torch.div)
 _register_elementwise("max", torch.maximum)
+_register_elementwise("min", torch.minimum)
+_register_elementwise("pow", torch.pow)
+# jnp.mod and jnp.floor_divide round toward -inf, as torch's do
+_register_elementwise("mod", torch.remainder)
+_register_elementwise("floordiv", torch.floor_divide)
 
 
 @register_op("scale", inputs=("X",), outputs=("Out",))
@@ -97,7 +106,30 @@ def scale(ctx, inputs, attrs):
     return out(Out=(x + b) * s)
 
 
+@register_op("clip", inputs=("X",), outputs=("Out",))
+def clip(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=torch.clamp(x, attrs.get("min"), attrs.get("max")))
+
+
+@register_op("clip_by_norm", inputs=("X",), outputs=("Out",))
+def clip_by_norm(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    return out(Out=torch.where(norm > max_norm, x * (max_norm / norm), x))
+
+
 # -- reductions ------------------------------------------------------------
+
+def _reduce_prod(x, dim=None, keepdim=False):
+    """torch.prod over a tuple of dims (torch's takes one)."""
+    if dim is None:
+        return torch.prod(x)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
 
 def _register_reduce(name, fn):
     @register_op(f"reduce_{name}", inputs=("X",), outputs=("Out",))
@@ -121,11 +153,28 @@ def _register_reduce(name, fn):
 
 _register_reduce("sum", torch.sum)
 _register_reduce("mean", torch.mean)
+_register_reduce("max", torch.amax)
+_register_reduce("min", torch.amin)
+_register_reduce("prod", _reduce_prod)
+_register_reduce("all", torch.all)
+_register_reduce("any", torch.any)
 
 
 @register_op("mean", inputs=("X",), outputs=("Out",))
 def mean(ctx, inputs, attrs):
     return out(Out=single(inputs, "X").mean())
+
+
+@register_op("squared_l2_norm", inputs=("X",), outputs=("Out",))
+def squared_l2_norm(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=torch.sum(x * x))
+
+
+@register_op("frobenius_norm", inputs=("X",), outputs=("Out",))
+def frobenius_norm(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=torch.sqrt(torch.sum(x * x)))
 
 
 # -- unary activations (parity: activation_op.cc) ---------------------------
@@ -137,26 +186,159 @@ def _register_unary(name, fn):
 
 
 _register_unary("relu", lambda x, a: torch.relu(x))
+_register_unary("sigmoid", lambda x, a: torch.sigmoid(x))
+_register_unary("tanh", lambda x, a: torch.tanh(x))
+_register_unary("exp", lambda x, a: torch.exp(x))
+_register_unary("log", lambda x, a: torch.log(x))
+_register_unary("log2", lambda x, a: torch.log2(x))
+_register_unary("log10", lambda x, a: torch.log10(x))
+_register_unary("log1p", lambda x, a: torch.log1p(x))
+_register_unary("sqrt", lambda x, a: torch.sqrt(x))
+_register_unary("rsqrt", lambda x, a: torch.rsqrt(x))
+_register_unary("square", lambda x, a: x * x)
+_register_unary("abs", lambda x, a: torch.abs(x))
+_register_unary("ceil", lambda x, a: torch.ceil(x))
+_register_unary("floor", lambda x, a: torch.floor(x))
+# half to even, as jnp.round
+_register_unary("round", lambda x, a: torch.round(x))
+_register_unary("reciprocal", lambda x, a: 1.0 / x)
+_register_unary("sign", lambda x, a: torch.sign(x))
+_register_unary("sin", lambda x, a: torch.sin(x))
+_register_unary("cos", lambda x, a: torch.cos(x))
+_register_unary("tan", lambda x, a: torch.tan(x))
+_register_unary("asin", lambda x, a: torch.asin(x))
+_register_unary("acos", lambda x, a: torch.acos(x))
+_register_unary("atan", lambda x, a: torch.atan(x))
+_register_unary("sinh", lambda x, a: torch.sinh(x))
+_register_unary("cosh", lambda x, a: torch.cosh(x))
+_register_unary("erf", lambda x, a: torch.erf(x))
 # exact-erf gelu unless asked otherwise, as the JAX op's default
 _register_unary("gelu", lambda x, a: F.gelu(
     x, approximate="tanh" if a.get("approximate", False) else "none"))
+_register_unary("leaky_relu", lambda x, a: F.leaky_relu(
+    x, negative_slope=a.get("alpha", 0.02)))
+_register_unary("elu", lambda x, a: F.elu(x, alpha=a.get("alpha", 1.0)))
+# log(1 + e^x) without F.softplus's linear cut past 20, as jax.nn.softplus
+_register_unary("softplus", lambda x, a: torch.logaddexp(
+    x, torch.zeros_like(x)))
+_register_unary("softsign", lambda x, a: x / (1.0 + torch.abs(x)))
+_register_unary("relu6", lambda x, a: torch.clamp(
+    x, 0.0, a.get("threshold", 6.0)))
+_register_unary("swish", lambda x, a: x * torch.sigmoid(
+    a.get("beta", 1.0) * x))
+_register_unary("hard_sigmoid", lambda x, a: torch.clamp(
+    a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
+_register_unary("hard_swish", lambda x, a: x * torch.clamp(
+    x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
+    / a.get("scale", 6.0))
+_register_unary("logsigmoid", lambda x, a: F.logsigmoid(x))
+_register_unary("thresholded_relu", lambda x, a: torch.where(
+    x > a.get("threshold", 1.0), x, torch.zeros_like(x)))
+_register_unary("hard_shrink", lambda x, a: torch.where(
+    torch.abs(x) > a.get("threshold", 0.5), x, torch.zeros_like(x)))
+_register_unary("soft_shrink", lambda x, a: torch.sign(x) * torch.relu(
+    torch.abs(x) - a.get("lambda", 0.5)))
+_register_unary("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+    a.get("scale_a", 0.67) * x))
 
 
-# -- comparison (parity: operators/controlflow/compare_op.cc) ---------------
-
-@register_op("not_equal", inputs=("X", "Y"), outputs=("Out",),
-             no_grad_slots=("X", "Y"))
-def not_equal(ctx, inputs, attrs):
+@register_op("pow", inputs=("X",), outputs=("Out",))
+def pow_op(ctx, inputs, attrs):
     x = single(inputs, "X")
-    y = single(inputs, "Y")
-    if y is None:
-        y = torch.full((), attrs["scalar_y"], dtype=x.dtype, device=x.device)
-    return out(Out=torch.ne(x, y))
+    return out(Out=torch.pow(x, attrs.get("factor", 1.0)))
 
 
-# -- softmax ---------------------------------------------------------------
+# -- comparisons / logical (parity: operators/controlflow/compare_op.cc) ---
+
+def _register_compare(name, fn):
+    @register_op(name, inputs=("X", "Y"), outputs=("Out",),
+                 no_grad_slots=("X", "Y"))
+    def cmp(ctx, inputs, attrs, fn=fn):
+        x = single(inputs, "X")
+        y = single(inputs, "Y")
+        if y is None:
+            y = torch.full((), attrs["scalar_y"], dtype=x.dtype,
+                           device=x.device)
+        return out(Out=fn(x, y))
+
+
+_register_compare("equal", torch.eq)
+_register_compare("not_equal", torch.ne)
+_register_compare("less_than", torch.lt)
+_register_compare("less_equal", torch.le)
+_register_compare("greater_than", torch.gt)
+_register_compare("greater_equal", torch.ge)
+_register_compare("logical_and", torch.logical_and)
+_register_compare("logical_or", torch.logical_or)
+_register_compare("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", inputs=("X",), outputs=("Out",),
+             no_grad_slots=("X",))
+def logical_not(ctx, inputs, attrs):
+    return out(Out=torch.logical_not(single(inputs, "X")))
+
+
+@register_op("isfinite", inputs=("X",), outputs=("Out",),
+             no_grad_slots=("X",))
+def isfinite(ctx, inputs, attrs):
+    return out(Out=torch.all(torch.isfinite(single(inputs, "X"))))
+
+
+# -- softmax / indices -----------------------------------------------------
 
 @register_op("softmax", inputs=("X",), outputs=("Out",))
 def softmax(ctx, inputs, attrs):
     x = single(inputs, "X")
     return out(Out=torch.softmax(x, dim=attrs.get("axis", -1)))
+
+
+@register_op("log_softmax", inputs=("X",), outputs=("Out",))
+def log_softmax(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=F.log_softmax(x, dim=attrs.get("axis", -1)))
+
+
+@register_op("arg_max", inputs=("X",), outputs=("Out",), no_grad_slots=("X",))
+def arg_max(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=torch.argmax(x, dim=attrs.get("axis", -1)).to(
+        torch.int32))
+
+
+@register_op("arg_min", inputs=("X",), outputs=("Out",), no_grad_slots=("X",))
+def arg_min(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=torch.argmin(x, dim=attrs.get("axis", -1)).to(
+        torch.int32))
+
+
+@register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),
+             no_grad_slots=("X",))
+def top_k(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    vals, idx = torch.topk(x, attrs.get("k", 1), dim=-1)
+    return out(Out=vals, Indices=idx.to(torch.int32))
+
+
+@register_op("cumsum", inputs=("X",), outputs=("Out",))
+def cumsum(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    axis = attrs.get("axis", -1) % x.dim()
+    res = torch.cumsum(x, dim=axis)
+    if attrs.get("reverse", False):
+        res = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
+    if attrs.get("exclusive", False):
+        # the JAX op pads one zero in front along the axis and drops the
+        # last entry, whichever way it summed
+        zero = torch.zeros_like(res.narrow(axis, 0, 1))
+        res = torch.cat([zero, res.narrow(axis, 0, res.shape[axis] - 1)],
+                        dim=axis)
+    return out(Out=res)
+
+
+@register_op("maximum_eps", inputs=("X",), outputs=("Out",))
+def maximum_eps(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return out(Out=torch.clamp_min(x, attrs.get("eps", 1e-12)))

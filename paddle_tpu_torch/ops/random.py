@@ -13,14 +13,18 @@ import math
 
 import torch
 
-from ..core.registry import out, register_op
+from ..core.registry import out, register_op, single
 from ..core.types import runtime_dtype
 
 
-def _draw(ctx, attrs, fn):
-    shape = tuple(int(d) for d in attrs["shape"])
+def _draw(ctx, attrs, fn, shape=None, seed=None):
+    shape = tuple(int(d) for d in (attrs["shape"] if shape is None
+                                   else shape))
     dtype = runtime_dtype(attrs.get("dtype", "float32"))
-    gen = torch.Generator(device=ctx.device).manual_seed(ctx.rng)
+    if ctx.device.type == "meta":       # shape inference: no generator
+        return torch.empty(shape, dtype=dtype, device="meta")
+    gen = torch.Generator(device=ctx.device).manual_seed(
+        ctx.rng if seed is None else seed)
     return fn(shape, generator=gen, device=ctx.device, dtype=dtype)
 
 
@@ -51,3 +55,33 @@ def truncated_gaussian_random(ctx, inputs, attrs):
     p = _CDF_LO + (_CDF_HI - _CDF_LO) * u
     z = (math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)).clamp(-2.0, 2.0)
     return out(Out=attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z)
+
+
+def _batch_size_like(ctx, inputs, attrs, fn):
+    """Draw ``attrs["shape"]`` with its output_dim_idx copied from the
+    input's input_dim_idx.  The reference's seed contract (the JAX
+    package's misc2._maybe_seeded): ``seed != 0`` draws the same numbers
+    every run, ``seed == 0`` a fresh stream from the program's."""
+    x = single(inputs, "Input")
+    shape = [int(d) for d in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        x.shape[int(attrs.get("input_dim_idx", 0))]
+    seed = int(attrs.get("seed", 0))
+    return _draw(ctx, attrs, fn, shape=shape, seed=seed or None)
+
+
+@register_op("uniform_random_batch_size_like", inputs=("Input",),
+             outputs=("Out",), needs_rng=True, no_grad_slots=("Input",))
+def uniform_random_batch_size_like(ctx, inputs, attrs):
+    lo = float(attrs.get("min", -1.0))
+    hi = float(attrs.get("max", 1.0))
+    u = _batch_size_like(ctx, inputs, attrs, torch.rand)
+    return out(Out=lo + (hi - lo) * u)
+
+
+@register_op("gaussian_random_batch_size_like", inputs=("Input",),
+             outputs=("Out",), needs_rng=True, no_grad_slots=("Input",))
+def gaussian_random_batch_size_like(ctx, inputs, attrs):
+    z = _batch_size_like(ctx, inputs, attrs, torch.randn)
+    return out(Out=z * float(attrs.get("std", 1.0))
+               + float(attrs.get("mean", 0.0)))

@@ -1,13 +1,17 @@
-"""Tensor-manipulation ops of the ported training path.
+"""Tensor-manipulation ops.
 
-Counterpart of paddle_tpu/ops/tensor.py (parity: the reference's
-fill_constant/assign/sum/cast/reshape/transpose/slice/squeeze/unsqueeze/
-lookup_table/range operator files).  Views where torch gives them
-(slice, transpose, squeeze): a slice of the packed qkv projection reaches
-the flash-attention kernel as a strided view, not a copy.
+Counterpart of paddle_tpu/ops/tensor.py, op for op but
+``lookup_table_sparse_grad`` (sparse gradients are not ported), plus
+``assign_value`` (paddle_tpu/initializer.py registers it there) (parity:
+the reference's assign/cast/concat/split/reshape/transpose/slice/gather/
+stack/fill_constant/sum/... operator files).  Views where torch gives
+them (slice, transpose, squeeze, unstack): a slice of the packed qkv
+projection reaches the flash-attention kernel as a strided view, not a
+copy.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +41,15 @@ def sum_op(ctx, inputs, attrs):
     return out(Out=acc)
 
 
+@register_op("assign_value", inputs=(), outputs=("Out",))
+def assign_value(ctx, inputs, attrs):
+    """A constant baked into the attrs (layers.assign of a numpy array)."""
+    arr = np.asarray(attrs["values"])
+    t = torch.tensor(arr, dtype=runtime_dtype(attrs.get("dtype", "float32")),
+                     device=ctx.device)
+    return out(Out=t.reshape(tuple(attrs["shape"])))
+
+
 @register_op("cast", inputs=("X",), outputs=("Out",))
 def cast(ctx, inputs, attrs):
     dtype = runtime_dtype(attrs.get("out_dtype", attrs.get("dtype", "float32")))
@@ -60,6 +73,31 @@ def transpose(ctx, inputs, attrs):
     return out(Out=x.permute(*perm))
 
 
+@register_op("concat", inputs=("X",), outputs=("Out",))
+def concat(ctx, inputs, attrs):
+    return out(Out=torch.cat(list(inputs["X"]), dim=attrs.get("axis", 0)))
+
+
+@register_op("split", inputs=("X",), outputs=("Out",))
+def split(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", None)
+    if sections:
+        idx, acc = [], 0
+        for s in sections[:-1]:
+            acc += s
+            idx.append(acc)
+        parts = torch.tensor_split(x, idx, dim=axis)
+    else:
+        num = attrs.get("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: axis {axis} of size {x.shape[axis]} "
+                             f"does not divide into {num} parts")
+        parts = torch.split(x, x.shape[axis] // num, dim=axis)
+    return {"Out": list(parts)}
+
+
 @register_op("slice", inputs=("Input",), outputs=("Out",))
 def slice_op(ctx, inputs, attrs):
     x = single(inputs, "Input")
@@ -67,6 +105,17 @@ def slice_op(ctx, inputs, attrs):
     for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
         idx[ax] = slice(st, en)
     return out(Out=x[tuple(idx)])
+
+
+@register_op("stack", inputs=("X",), outputs=("Out",))
+def stack(ctx, inputs, attrs):
+    return out(Out=torch.stack(list(inputs["X"]), dim=attrs.get("axis", 0)))
+
+
+@register_op("unstack", inputs=("X",), outputs=("Y",))
+def unstack(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    return {"Y": list(torch.unbind(x, dim=attrs.get("axis", 0)))}
 
 
 @register_op("squeeze", inputs=("X",), outputs=("Out",))
@@ -91,6 +140,46 @@ def unsqueeze(ctx, inputs, attrs):
     return out(Out=x)
 
 
+@register_op("expand", inputs=("X",), outputs=("Out",))
+def expand(ctx, inputs, attrs):
+    return out(Out=torch.tile(single(inputs, "X"),
+                              tuple(attrs["expand_times"])))
+
+
+@register_op("gather", inputs=("X", "Index"), outputs=("Out",),
+             no_grad_slots=("Index",))
+def gather(ctx, inputs, attrs):
+    """jnp.take(x, index, axis): the result's shape is x's with ``axis``
+    replaced by index's shape (a scalar index drops the axis)."""
+    x = single(inputs, "X")
+    index = single(inputs, "Index")
+    axis = attrs.get("axis", 0) % x.dim()
+    picked = torch.index_select(x, axis, index.reshape(-1).long())
+    return out(Out=picked.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
+                                  + tuple(x.shape[axis + 1:])))
+
+
+@register_op("scatter", inputs=("X", "Ids", "Updates"), outputs=("Out",),
+             no_grad_slots=("Ids",))
+def scatter(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    ids = single(inputs, "Ids").long()
+    upd = single(inputs, "Updates")
+    return out(Out=torch.index_put(
+        x, (ids,), upd, accumulate=not attrs.get("overwrite", True)))
+
+
+@register_op("one_hot", inputs=("X",), outputs=("Out",),
+             no_grad_slots=("X",))
+def one_hot(ctx, inputs, attrs):
+    """jax.nn.one_hot: an index outside [0, depth) gives a zero row."""
+    x = single(inputs, "X")
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    depth = torch.arange(attrs["depth"], device=x.device)
+    return out(Out=(x.long().unsqueeze(-1) == depth).to(torch.float32))
+
+
 @register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",),
              no_grad_slots=("Ids",))
 def lookup_table(ctx, inputs, attrs):
@@ -108,9 +197,64 @@ def lookup_table(ctx, inputs, attrs):
     return out(Out=res)
 
 
+@register_op("shape", inputs=("Input",), outputs=("Out",),
+             no_grad_slots=("Input",))
+def shape_op(ctx, inputs, attrs):
+    x = single(inputs, "Input")
+    return out(Out=torch.tensor(tuple(x.shape), dtype=torch.int32,
+                                device=x.device))
+
+
+@register_op("fill_constant_batch_size_like", inputs=("Input",),
+             outputs=("Out",), no_grad_slots=("Input",))
+def fill_constant_batch_size_like(ctx, inputs, attrs):
+    x = single(inputs, "Input")
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = x.shape[
+        attrs.get("input_dim_idx", 0)]
+    dtype = runtime_dtype(attrs.get("dtype", "float32"))
+    return out(Out=torch.full(tuple(shape), attrs.get("value", 0.0),
+                              dtype=dtype, device=x.device))
+
+
 @register_op("range", inputs=(), outputs=("Out",))
 def range_op(ctx, inputs, attrs):
     dtype = runtime_dtype(attrs.get("dtype", "int32"))
     return out(Out=torch.arange(attrs["start"], attrs["end"],
                                 attrs.get("step", 1), dtype=dtype,
                                 device=ctx.device))
+
+
+@register_op("tril_triu", inputs=("X",), outputs=("Out",))
+def tril_triu(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    diagonal = attrs.get("diagonal", 0)
+    if attrs.get("lower", True):
+        return out(Out=torch.tril(x, diagonal))
+    return out(Out=torch.triu(x, diagonal))
+
+
+@register_op("pad", inputs=("X",), outputs=("Out",))
+def pad(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    paddings = attrs["paddings"]  # flat [before0, after0, before1, ...]
+    # F.pad takes the last dim's pair first
+    flat = []
+    for i in reversed(range(x.dim())):
+        flat += [paddings[2 * i], paddings[2 * i + 1]]
+    return out(Out=F.pad(x, flat, value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("where", inputs=("Condition", "X", "Y"), outputs=("Out",),
+             no_grad_slots=("Condition",))
+def where(ctx, inputs, attrs):
+    return out(Out=torch.where(single(inputs, "Condition"),
+                               single(inputs, "X"), single(inputs, "Y")))
+
+
+@register_op("increment", inputs=("X",), outputs=("Out",))
+def increment(ctx, inputs, attrs):
+    """x + step in x's own dtype (the LR schedules' int64 step counter)."""
+    x = single(inputs, "X")
+    return out(Out=x + torch.full((), attrs.get("step", 1.0), dtype=x.dtype,
+                                  device=x.device))

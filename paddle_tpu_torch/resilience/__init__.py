@@ -1,12 +1,19 @@
-"""paddle_tpu_torch.resilience — what of the JAX package's resilience
-layer the port has so far: the atomic file-write protocol
-(:mod:`.atomic`), which ``observability.export`` uses; retries with
+"""paddle_tpu_torch.resilience — the JAX package's resilience layer on
+the port: the atomic file-write protocol (:mod:`.atomic`); retries with
 jittered backoff (:mod:`.retry`) and seeded fault injection
-(:mod:`.faults`), which the cluster tier uses.  Checkpoints and the
-resilient train loop come with their own slice; the port has no
-degradation registry (it never falls back).
+(:mod:`.faults`); atomic, versioned, checksummed checkpoints
+(:mod:`.checkpoint`, :class:`CheckpointManager`) and the auto-resuming,
+NaN-guarded train loop (:mod:`.train_loop`, :class:`ResilientLoop`).
+The port has no degradation registry (it never falls back).
+
+``CheckpointManager``, ``CheckpointError``, ``ResilientLoop`` and
+``NonFiniteLossError`` resolve lazily, as in the JAX package: the
+checkpoint module imports ``io`` and the program IR, which import this
+package's ``faults`` and ``atomic`` leaves.
 """
 from __future__ import annotations
+
+import importlib
 
 from .atomic import atomic_output, fsync_dir  # noqa: F401
 from .faults import (FaultPlan, InjectedFault, Preempted,  # noqa: F401
@@ -14,7 +21,24 @@ from .faults import (FaultPlan, InjectedFault, Preempted,  # noqa: F401
 from .retry import (RetryError, TransientError, backoff_delays,  # noqa: F401
                     retry, retry_call)
 
+_LAZY = {
+    "CheckpointManager": ".checkpoint",
+    "CheckpointError": ".checkpoint",
+    "ResilientLoop": ".train_loop",
+    "NonFiniteLossError": ".train_loop",
+}
+
+
+def __getattr__(name):
+    if name in ("checkpoint", "train_loop"):
+        return importlib.import_module(f".{name}", __name__)
+    target = _LAZY.get(name)
+    if target is not None:
+        return getattr(importlib.import_module(target, __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["atomic_output", "fsync_dir", "FaultPlan", "InjectedFault",
            "Preempted", "active_plan", "maybe_delay", "maybe_fail",
            "RetryError", "TransientError", "backoff_delays", "retry",
-           "retry_call"]
+           "retry_call", "checkpoint", "train_loop", *_LAZY]

@@ -1050,3 +1050,45 @@ def test_paged_handoff_round_trip_is_bit_exact(device):
                           (k[:, :20] + 1).view(np.uint32))
     assert np.array_equal(got_v.view(np.uint32),
                           (v[:, :20] + 1).view(np.uint32))
+
+
+def _nan_rows(t):
+    """Which rows (first axis) of t hold a NaN."""
+    return torch.isnan(t.reshape(t.shape[0], -1)).any(dim=1).tolist()
+
+
+@pytest.mark.parametrize("nan", [0x7FFFFFFF, 0x7FC00000],
+                         ids=["canonical", "quiet"])
+def test_a_nan_operand_stays_nan_through_the_tensor_core_kernels(device,
+                                                                 nan):
+    """A NaN in one batch row's input reaches that row's output (and
+    only that row's), as in each kernel's plain version: the 3xTF32
+    split must not round a NaN into a zero (CUDA arithmetic makes the
+    canonical NaN 0x7fffffff, whose rounding add carries through the
+    exponent)."""
+    nan = torch.tensor([nan], dtype=torch.int64).to(torch.int32) \
+        .view(torch.float32).item()
+    torch.manual_seed(0)
+    B, T, K, H, nh = 2, 128, 768, 768, 12
+    x = torch.randn(B, T, K, device=device)
+    x[0, 3, 5] = nan
+    w = torch.randn(K, 3 * H, device=device) * 0.03
+    b = torch.randn(3 * H, device=device) * 0.1
+    xg = x.clone().requires_grad_()
+    o = ae.fused_qkv_attention(xg, w, b, nh)                # #9
+    o.sum().backward()                                       # #5, #6
+    want = [True, False]
+    assert _nan_rows(o) == want and _nan_rows(xg.grad) == want
+    q, k, v = (x @ w + b).split(H, -1)
+    assert _nan_rows(fa.flash_attention_packed(q, k, v, nh)) == want  # #3
+    q4 = q.reshape(B, T, nh, H // nh).transpose(1, 2)
+    assert _nan_rows(fa.flash_attention(q4, q4, q4)) == want          # #4
+    x2 = x.reshape(B * T, K)
+    wm = torch.randn(K, H, device=device) * 0.03
+    y = fm.fused_matmul(x2, wm, spec=fm.EpilogueSpec(norm="layer_norm"))
+    assert _nan_rows(y.reshape(B, T, H)) == want                      # #10
+    w1 = torch.randn(K, 3072, device=device) * 0.03
+    w2 = torch.randn(3072, H, device=device) * 0.03
+    y = fc.fused_ffn_chain(x2, w1, None, w2,
+                           spec=fm.EpilogueSpec(act="gelu"))
+    assert _nan_rows(y.reshape(B, T, H)) == want                      # #11

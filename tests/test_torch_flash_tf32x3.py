@@ -88,8 +88,11 @@ def tf32_rna(x):
 
 
 def split(x):
+    """The kernels' split_tf32: a NaN's big part is the canonical NaN
+    (tf32_rna's add would carry it into a zero)."""
     big = tf32_rna(x)
-    return big, tf32_rna(x - big)
+    small = tf32_rna(x - big)
+    return torch.where(torch.isnan(x), float("nan"), big), small
 
 
 def round_to_zero(v):
@@ -208,6 +211,23 @@ def test_tf32_rounding_is_cvt_rna(value, rounded):
     got = tf32_rna(torch.tensor([value], dtype=torch.float32))
     assert got.item() == rounded
     assert got.view(torch.int32).item() & 0x1FFF == 0
+
+
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000,
+                                  0x7F800001, 0x7FFFF000])
+def test_tf32_rounding_keeps_a_nan(bits):
+    """A NaN operand's big part stays a NaN (tf32_rna's add would carry
+    the canonical NaN through the exponent into a zero); infinities
+    round to themselves."""
+    x = torch.tensor([bits - 2 ** 32 if bits >= 2 ** 31 else bits],
+                     dtype=torch.int32).view(torch.float32)
+    big, small = split(x)
+    assert torch.isnan(big).all()
+    # the product of the split with any finite value is NaN
+    w = torch.tensor([1.5])
+    assert torch.isnan(big * w + small * w + big * w).all()
+    for inf in (float("inf"), -float("inf")):
+        assert tf32_rna(torch.tensor([inf])).item() == inf
 
 
 def test_split_keeps_float32_accuracy():
