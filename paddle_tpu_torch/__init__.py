@@ -27,8 +27,11 @@ holds named meshes over ``torch.distributed`` and sequence parallelism
 registry, spans, the flight recorder, ledger, SLO and scrape modules) and
 ``profiler`` (host events plus a torch.profiler device trace) instrument
 the engine, the server, the Executor and the fusion pass as in the JAX
-package.  No control flow, Executor meshes, sparse gradients or AMP
-yet.
+package.  Control flow (``layers.While``, ``cond``, ``Switch``,
+``StaticRNN``) runs its sub-blocks in the Executor, and ``inference``
+serves a frozen program (``io.save_inference_model``) through a
+``Predictor``, also behind ``serving.InferenceServer``.  No Executor
+meshes, sparse gradients or AMP yet.
 """
 from ._device import resolve_device, set_strict_fp32
 from .core import (  # noqa: F401
@@ -53,6 +56,7 @@ from .core import unique_name  # noqa: F401
 from . import ops  # noqa: F401  (registers all operators)
 from . import compiler, initializer, io, layers, optimizer  # noqa: F401
 from . import clip, regularizer  # noqa: F401
+from . import inference  # noqa: F401  (Config, Predictor)
 from .compiler import BuildStrategy, CompiledProgram  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import profiler  # noqa: F401
@@ -85,4 +89,4 @@ __all__ = ["resolve_device", "set_strict_fp32", "__version__",
            "layers", "optimizer", "initializer", "io", "ParamAttr",
            "new_program_scope", "compiler", "BuildStrategy",
            "CompiledProgram", "gradients", "clip", "regularizer",
-           "resilience"]
+           "resilience", "inference"]

@@ -7,8 +7,8 @@ aggregation by sum-op insertion, backward.py:961).  It is pure IR: every
 forward op on the loss's path gets the same generic ``vjp_grad`` op keyed
 by the forward op's uid; core/lowering.py runs it with autograd.
 
-Not carried over: the SelectedRows (is_sparse embedding) gradient and the
-unbounded-While guard — neither op exists in the port yet.
+Not carried over: the SelectedRows (is_sparse embedding) gradient —
+``layers.embedding(is_sparse=True)`` raises (ROADMAP.md, Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -164,6 +164,17 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
         if not relevant[i]:
             continue
         op = fwd_ops[i]
+        if op.type == "while" and op.attrs.get("max_iters") is None:
+            # the JAX package's lax.while_loop has no reverse-mode, and the
+            # port keeps its contract; the reference builds while_grad
+            # (operators/controlflow/while_op.cc).  A trip bound —
+            # While(cond, max_iters=N) — makes the loop differentiable.
+            raise NotImplementedError(
+                "Cannot differentiate through an unbounded While loop: "
+                "it is forward only, as in the JAX package. Pass "
+                "While(cond, max_iters=N) for a bounded loop with exact "
+                "reverse-mode, or use layers.StaticRNN for trainable "
+                "recurrence.")
         og_inputs = {}
         any_ct = False
         for slot, names in op.outputs.items():

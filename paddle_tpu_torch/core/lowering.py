@@ -1,8 +1,8 @@
 """Block lowering: turn a Program block into one Python function over
 torch tensors.
 
-Counterpart of paddle_tpu/core/lowering.py, for what training needs:
-``analyze_block``, ``lower_block``, ``_interp_ops``, ``_run_vjp_grad``.
+Counterpart of paddle_tpu/core/lowering.py: ``analyze_block``,
+``lower_block``, ``_interp_ops``, ``_run_vjp_grad`` and the block ops.
 The JAX package traces the op list into one jitted XLA function; here the
 function interprets the op list eagerly over a name -> tensor env, each
 op dispatching its own PyTorch calls and kernels.
@@ -29,9 +29,19 @@ inside a ``torch.profiler.record_function`` named ``"type:first_output"``
 each CUDA kernel back to its program op.  The scope opens only then:
 the untraced step pays one flag check per op.
 
-Not ported: control-flow sub-blocks, recompute, pipeline and AMP.  Their
-ops are not registered, so a program that holds one raises at run time,
-naming the op.
+Control flow: the block ops (``BLOCK_OPS``: while, conditional_block,
+switch, static_rnn) run their sub-blocks through the same interpreter,
+eagerly — the JAX package's ``lax.while_loop`` / ``lax.scan`` /
+``lax.cond`` become Python loops and branches over tensors.  ``while``
+and ``conditional_block`` read their condition on the host (one
+device-to-host sync per trip or branch); ``static_rnn`` and ``switch``
+read none.  A block op in ``vjp_uids`` runs its whole sub-block under
+autograd on leaf copies of its declared inputs, so its ``vjp_grad`` op
+differentiates through the loop as one ``autograd.grad``; reads the op
+does not declare stay constants, as in the JAX package.
+
+Not ported: recompute, pipeline and AMP.  Their ops are not registered,
+so a program that holds one raises at run time, naming the op.
 """
 from __future__ import annotations
 
@@ -48,6 +58,11 @@ from .program import EMPTY_VAR_NAME, Program
 from .registry import REGISTRY, OpContext
 
 VJP_GRAD_OP = "vjp_grad"
+
+#: ops that run a sub-block of the program (parity: the JAX lowering's
+#: BLOCK_OPS and the reference's while_op.cc, conditional_block_op.cc,
+#: recurrent_op.cc); the interpreter runs them itself, like vjp_grad
+BLOCK_OPS = ("while", "conditional_block", "switch", "static_rnn")
 
 
 @dataclasses.dataclass
@@ -121,8 +136,8 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         env.update(feeds)
         fusion = None if fusion_plan is None else FusionExec(fusion_plan)
         with torch.no_grad():
-            _interp_ops(ops, env, seed, {}, vjp_uids, device, fusion,
-                        is_test)
+            _interp_ops(program, ops, env, seed, {}, vjp_uids, device,
+                        fusion, is_test)
         fetches = [env[n] for n in fetch_names]
         new_persist = {n: env[n] for n in persist_out}
         return fetches, new_persist
@@ -155,9 +170,10 @@ def _op_scope_name(op):
     return op.type
 
 
-def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None,
-                is_test=False):
-    """Execute an op list over ``env`` (name -> tensor), in place.
+def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
+                fusion=None, is_test=False):
+    """Execute an op list of ``program`` over ``env`` (name -> tensor), in
+    place.  Shared by block 0 and the sub-blocks of block ops.
 
     Runs under ``torch.no_grad``; a forward op in ``vjp_uids`` runs under
     autograd on leaf copies of its inputs and leaves (inputs, outputs) in
@@ -184,6 +200,9 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None,
                     outs = run_fused_group(fusion, plan.by_last[op.uid],
                                            env, seed, device, vjp_uids,
                                            is_test)
+                elif op.type in BLOCK_OPS:
+                    outs = _run_block_op(program, op, env, seed, vjps,
+                                         vjp_uids, device, is_test)
                 else:
                     opdef = REGISTRY.get(op.type)
                     ins = {slot: [env[n] for n in names]
@@ -215,6 +234,164 @@ def _interp_ops(ops, env, seed, vjps, vjp_uids, device, fusion=None,
                 if n != EMPTY_VAR_NAME and v is not UNBOUND:
                     env[n] = v
     return env
+
+
+def _run_block_op(program, op, env, seed, vjps, vjp_uids, device, is_test):
+    """Execute a control-flow op that owns sub-blocks.  In ``vjp_uids``
+    the whole op runs under autograd on leaf copies of its declared
+    inputs and leaves (inputs, outputs) for its ``vjp_grad`` op; the
+    sub-blocks' own ops capture nothing (no per-op vjp, no fusion)."""
+    runner = _BLOCK_RUNNERS[op.type]
+    ins = {slot: [env[n] for n in names] for slot, names in op.inputs.items()}
+    if op.uid not in vjp_uids:
+        return runner(program, op, ins, env, seed, device, is_test)
+    ins = {slot: [_leaf(v) for v in vals] for slot, vals in ins.items()}
+    with torch.enable_grad():
+        outs = runner(program, op, ins, env, seed, device, is_test)
+    vjps[op.uid] = (ins, outs)
+    return outs
+
+
+def _subblock_env(op, ins, outer_env):
+    """Base environment of a sub-block: the outer env (constants) with
+    the op's declared inputs (the differentiable operands) over it."""
+    env = dict(outer_env)
+    for slot, names in op.inputs.items():
+        for n, v in zip(names, ins.get(slot, [])):
+            env[n] = v
+    return env
+
+
+def _run_subblock(program, block_idx, env, seed, device, is_test):
+    """Interpret one sub-block over ``env``, capturing nothing: a block
+    op is differentiated as a unit."""
+    return _interp_ops(program, program.blocks[block_idx].ops, env, seed,
+                       {}, frozenset(), device, None, is_test)
+
+
+def _truth(t):
+    """A scalar condition tensor as a Python bool (a host sync on the
+    card)."""
+    return bool(t.reshape(()))
+
+
+def _run_while(program, op, ins, outer_env, seed, device, is_test):
+    """``while`` over a sub-block (parity: while_op.cc; the JAX lowering's
+    ``_run_while``).  The carried state is the op's Out vars and the
+    condition; every carried value is coerced back to its carry's dtype
+    and shape after a trip, and trip ``it`` draws from
+    ``fold_seed(seed, it)``, so dropout in the body draws a fresh mask
+    per trip.
+
+    With ``max_iters`` the loop is bounded: the JAX package runs exactly
+    ``max_iters`` trips of ``lax.cond(active, body, identity)``.  A trip
+    whose condition is false is the identity and leaves the condition
+    false, so the trips after the first false one are skipped here — the
+    same values, and the untaken body never runs (no 0 * inf in the
+    gradient).  A condition still true after ``max_iters`` trips
+    truncates the loop.  Unbounded, it loops while the condition holds
+    (forward only: core/backward.py refuses to differentiate it)."""
+    cond_name = op.inputs["Condition"][0]
+    out_names = list(op.outputs["Out"])
+    base_env = _subblock_env(op, ins, outer_env)
+    sub_idx = op.attrs["sub_block"]
+    max_iters = op.attrs.get("max_iters")
+    carry = {n: base_env[n] for n in sorted(set(out_names) | {cond_name})}
+    it = 0
+    while (max_iters is None or it < int(max_iters)) \
+            and _truth(carry[cond_name]):
+        env = dict(base_env)
+        env.update(carry)
+        _run_subblock(program, sub_idx, env, fold_seed(seed, it), device,
+                      is_test)
+        carry = {n: env[n].to(c.dtype).reshape(c.shape)
+                 for n, c in carry.items()}
+        it += 1
+    return {"Out": [carry[n] for n in out_names]}
+
+
+def _run_cond(program, op, ins, outer_env, seed, device, is_test):
+    """``conditional_block`` (parity: conditional_block_op.cc,
+    layers.cond): only the branch the predicate picks runs; its
+    ``*_out_names`` (the returned vars, then the outer writes) are the
+    op's Out."""
+    base_env = _subblock_env(op, ins, outer_env)
+    if _truth(base_env[op.inputs["Cond"][0]]):
+        block_idx, names = op.attrs["true_block"], op.attrs["true_out_names"]
+    else:
+        block_idx, names = (op.attrs["false_block"],
+                            op.attrs["false_out_names"])
+    env = dict(base_env)
+    _run_subblock(program, block_idx, env, seed, device, is_test)
+    return {"Out": [env[n] for n in names]}
+
+
+def _run_switch(program, op, ins, outer_env, seed, device, is_test):
+    """Switch/case (parity: layers.Switch, the JAX lowering's
+    ``_run_switch``): every case block and the default block run, and
+    nested ``torch.where`` selects each output — the first true case
+    wins.  No host sync."""
+    base_env = _subblock_env(op, ins, outer_env)
+    cond_names = op.inputs["Conds"]
+    case_envs = []
+    for bi in op.attrs["case_blocks"]:
+        env = dict(base_env)
+        _run_subblock(program, bi, env, seed, device, is_test)
+        case_envs.append(env)
+    default_block = op.attrs.get("default_block")
+    denv = base_env
+    if default_block is not None:
+        denv = dict(base_env)
+        _run_subblock(program, default_block, denv, seed, device, is_test)
+    outs = []
+    for n in op.outputs["Out"]:
+        acc = denv.get(n, base_env.get(n))
+        for cname, cenv in zip(reversed(cond_names), reversed(case_envs)):
+            v = cenv.get(n)
+            if v is None:
+                continue
+            pred = base_env[cname].reshape(()).to(torch.bool)
+            acc = torch.where(pred, v, acc)
+        outs.append(acc)
+    return {"Out": outs}
+
+
+def _run_static_rnn(program, op, ins, outer_env, seed, device, is_test):
+    """StaticRNN (parity: recurrent_op.cc; the JAX lowering's
+    ``lax.scan``): a Python loop over the leading T axis of the step
+    inputs; memories are the carry, step outputs are stacked along a new
+    axis 0, and step ``t`` draws from ``fold_seed(seed, t)``.  No host
+    sync."""
+    base_env = _subblock_env(op, ins, outer_env)
+    sub_idx = op.attrs["sub_block"]
+    xs = list(zip(op.attrs["x_local_names"], op.inputs.get("X", [])))
+    mem_locals = op.attrs["mem_local_names"]
+    mem_updates = op.attrs["mem_update_names"]
+    step_out_names = op.attrs["step_out_names"]
+    carry = {ln: base_env[n]
+             for ln, n in zip(mem_locals, op.inputs.get("Init", []))}
+    steps = base_env[xs[0][1]].shape[0]
+    ys = [[] for _ in step_out_names]
+    for t in range(steps):
+        env = dict(base_env)
+        env.update(carry)
+        for ln, n in xs:
+            env[ln] = base_env[n][t]
+        _run_subblock(program, sub_idx, env, fold_seed(seed, t), device,
+                      is_test)
+        carry = {ln: env[un] for ln, un in zip(mem_locals, mem_updates)}
+        for y, n in zip(ys, step_out_names):
+            y.append(env[n])
+    return {"Out": [torch.stack(y) for y in ys],
+            "LastMem": [carry[ln] for ln in mem_locals]}
+
+
+_BLOCK_RUNNERS = {
+    "while": _run_while,
+    "conditional_block": _run_cond,
+    "switch": _run_switch,
+    "static_rnn": _run_static_rnn,
+}
 
 
 def _run_vjp_grad(op, env, vjps):

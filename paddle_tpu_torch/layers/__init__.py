@@ -1,14 +1,15 @@
 """paddle_tpu_torch.layers — the layer library (counterpart of
 paddle_tpu.layers): what the BERT builders, the fc and 4-D attention
-programs, the learning-rate schedules and gradient clipping use, and
-every generated unary/binary layer of the JAX package.  Importing it
-patches Variable's operators (math_op_patch)."""
+programs, the learning-rate schedules and gradient clipping use, the
+control-flow layers (While, cond, Switch, StaticRNN), and every
+generated unary/binary layer of the JAX package.  Importing it patches
+Variable's operators (math_op_patch)."""
 from ..core.program import data  # noqa: F401  (layers.data parity)
 from .nn import *  # noqa: F401,F403
 from .nn import _BINARY_OPS, _UNARY_OPS  # noqa: F401
 from .nn import (  # noqa: F401
-    dropout, embedding, fc, fused_multihead_attention, increment,
-    layer_norm, softmax_with_cross_entropy, square_error_cost,
+    dropout, embedding, fc, fused_multihead_attention, layer_norm,
+    softmax_with_cross_entropy, square_error_cost,
 )
 from .tensor import (  # noqa: F401
     argmax, argmin, assign, cast, clip, clip_by_norm, concat, cumsum,
@@ -19,6 +20,11 @@ from .tensor import (  # noqa: F401
     scale, scatter, shape, slice, split, squeeze, stack, topk, transpose,
     uniform_random, uniform_random_batch_size_like, unsqueeze, unstack,
     where, zeros, zeros_like,
+)
+from .control_flow import (  # noqa: F401  (overrides nn's plain compare ops
+    # with cond=-capable versions, matching fluid.layers signatures)
+    StaticRNN, Switch, While, cond, equal, greater_equal, greater_than,
+    increment, less_equal, less_than, not_equal,
 )
 from .learning_rate_scheduler import (  # noqa: F401
     cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,

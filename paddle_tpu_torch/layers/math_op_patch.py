@@ -82,8 +82,8 @@ def monkey_patch_variable():
         raise TypeError(
             f"bool(Variable '{self.name}') is undefined in a static "
             f"graph: Python would silently treat the tensor as truthy "
-            f"(e.g. an infinite `while`). Tensor control flow is not "
-            f"ported to paddle_tpu_torch yet (ROADMAP.md, Queue 1 item "
-            f"3); for None-checks use `is not None`.")
+            f"(e.g. an infinite `while`). Use layers.cond / layers.While "
+            f"for tensor control flow; for None-checks use `is not "
+            f"None`.")
 
     Variable.__bool__ = _no_bool

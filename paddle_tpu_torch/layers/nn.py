@@ -1,8 +1,9 @@
 """Layers: graph-building functions over the op registry.
 
-Counterpart of paddle_tpu/layers/nn.py (and the comparisons and
-``increment`` of paddle_tpu/layers/control_flow.py), copied close to
-verbatim so that both packages build the same ops under the same names.
+Counterpart of paddle_tpu/layers/nn.py, copied close to verbatim so that
+both packages build the same ops under the same names (``layers``
+exports the comparisons of layers/control_flow.py, which take
+``cond=``, over the plain binary ones generated here).
 Each layer creates parameters through LayerHelper and appends ops
 (parity: python/paddle/fluid/layers/nn.py + fluid/layer_helper.py).
 Ported: the layers the BERT builders, a small fc program and the 4-D
@@ -228,44 +229,6 @@ def _binary_layer(op_type):
     return layer
 
 
-def _compare(op_type):
-    """A comparison as a bool tensor that takes ``cond=`` (parity:
-    layers/control_flow.py, whose versions the JAX package's ``layers``
-    exports over the plain binary layers)."""
-    def layer(x, y, cond=None, name=None):
-        helper = LayerHelper(op_type, name=name)
-        x = helper.input(x)
-        attrs = {}
-        inputs = {"X": [x.name]}
-        if isinstance(y, (int, float)):
-            attrs["scalar_y"] = float(y)
-        else:
-            inputs["Y"] = [helper.input(y).name]
-        if cond is None:
-            cond = helper.create_variable_for_type_inference("bool")
-            cond.stop_gradient = True
-        helper.append_op(type=op_type, inputs=inputs,
-                         outputs={"Out": [cond.name]}, attrs=attrs)
-        return cond
-
-    layer.__name__ = op_type
-    return layer
-
-
-def increment(x, value=1.0, in_place=True):
-    """x += value (parity: layers/control_flow.py increment)."""
-    helper = LayerHelper("increment")
-    out = x if in_place else helper.create_variable_for_type_inference(
-        x.dtype)
-    helper.append_op(
-        type="increment",
-        inputs={"X": [x.name]},
-        outputs={"Out": [out.name]},
-        attrs={"step": float(value)},
-    )
-    return out
-
-
 # unary activations & math
 _UNARY_OPS = [
     "relu", "sigmoid", "tanh", "exp", "log", "log2", "log10", "log1p",
@@ -286,8 +249,5 @@ _BINARY_OPS = [
     "equal", "not_equal", "less_than", "less_equal", "greater_than",
     "greater_equal", "logical_and", "logical_or", "logical_xor",
 ]
-# the comparisons take the control-flow layers' form (``cond=``)
-_COMPARE_OPS = ("equal", "not_equal", "less_than", "less_equal",
-                "greater_than", "greater_equal")
 for _op in _BINARY_OPS:
-    globals()[_op] = (_compare if _op in _COMPARE_OPS else _binary_layer)(_op)
+    globals()[_op] = _binary_layer(_op)

@@ -5,8 +5,11 @@ Counterpart of paddle_tpu/models/transformer.py:
 
 * the graph builders ``encoder_layer``, ``bert_encoder``,
   ``bert_pretrain_loss`` and ``build_bert_pretrain`` (dense MLM head),
-  built from the port's ``layers`` under the JAX package's deterministic
-  parameter names, so one program description serves both packages;
+  and the causal LM's ``lm_layer``, ``build_lm_logits`` and
+  ``build_lm_greedy_infer`` (one StaticRNN), built from the port's
+  ``layers`` under the JAX package's deterministic parameter names, so
+  one program description serves both packages; ``lm_params_from_scope``
+  reads the LM's weights back out of a scope;
 * the pure-tensor ``lm_*`` functions the generation engine composes with
   its KV cache.  Parameters are the same flat ``"lm.*"`` dict:
   ``lm_random_params`` makes the numpy arrays exactly as the JAX package
@@ -32,8 +35,9 @@ from ..ops.attention import attention_packed
 from ..param_attr import ParamAttr
 
 __all__ = ["BertConfig", "encoder_layer", "bert_encoder",
-           "bert_pretrain_loss", "build_bert_pretrain",
-           "LM_PARAM_SUFFIXES", "lm_param_names",
+           "bert_pretrain_loss", "build_bert_pretrain", "lm_layer",
+           "build_lm_logits", "build_lm_greedy_infer",
+           "LM_PARAM_SUFFIXES", "lm_param_names", "lm_params_from_scope",
            "lm_random_params", "lm_params_from_numpy", "lm_embed",
            "lm_layer_qkv", "lm_layer_finish", "lm_logits", "lm_forward"]
 
@@ -221,6 +225,125 @@ def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
                   "masked_labels": masked_labels}
 
 
+# --------------------------------------------------------------------------
+# Decoder-only causal LM (the generation workload)
+# --------------------------------------------------------------------------
+#
+# One parameter set, three execution forms, all sharing the "lm.*"
+# parameter names so weights move freely between them (and between the
+# packages):
+#
+#   1. `build_lm_logits`      — graph form (layers API): full-context
+#      causal forward;
+#   2. `build_lm_greedy_infer`— graph form: one StaticRNN whose every step
+#      RE-RUNS the causal forward over the whole token buffer — the
+#      uncached baseline the generation engine is measured against;
+#   3. the `lm_*` tensor functions below — the CACHED decode path that
+#      `generation.GenerationEngine` composes with its KV cache.
+#
+# Architecture: BERT-style post-LN blocks (gelu FFN) with causal
+# attention and the output projection tied to the word embedding.
+
+
+def lm_layer(x, cfg: BertConfig, name: str, is_test=True):
+    """Post-LN transformer block with CAUSAL packed fused attention
+    (graph form; parameters ``{name}.attn.qkv.w`` ... as
+    ``lm_param_names``)."""
+    h = cfg.hidden_size
+    d_head = h // cfg.num_heads
+    qkv = _fc(x, 3 * h, f"{name}.attn.qkv", cfg)
+    q = layers.slice(qkv, [2], [0], [h])
+    k = layers.slice(qkv, [2], [h], [2 * h])
+    v = layers.slice(qkv, [2], [2 * h], [3 * h])
+    ctxt = layers.fused_multihead_attention(
+        q, k, v, causal=True, dropout_rate=cfg.attn_dropout,
+        sm_scale=1.0 / math.sqrt(d_head), is_test=is_test,
+        num_heads=cfg.num_heads)
+    attn_out = _fc(ctxt, h, f"{name}.attn.out", cfg)
+    if cfg.hidden_dropout > 0:
+        attn_out = layers.dropout(
+            attn_out, cfg.hidden_dropout, is_test=is_test,
+            dropout_implementation="upscale_in_train")
+    x = _graph_ln(layers.elementwise_add(x, attn_out), f"{name}.ln1")
+    ffn = _fc(x, cfg.ffn_size, f"{name}.ffn.in", cfg, act="gelu")
+    ffn = _fc(ffn, h, f"{name}.ffn.out", cfg)
+    if cfg.hidden_dropout > 0:
+        ffn = layers.dropout(ffn, cfg.hidden_dropout, is_test=is_test,
+                             dropout_implementation="upscale_in_train")
+    return _graph_ln(layers.elementwise_add(x, ffn), f"{name}.ln2")
+
+
+def build_lm_logits(src_ids, cfg: BertConfig, is_test=True):
+    """Full-context causal LM: src_ids [B, T] int -> logits [B, T, V]
+    (projection tied to lm.word_emb)."""
+    emb = layers.embedding(
+        src_ids, (cfg.vocab_size, cfg.hidden_size),
+        param_attr=_w("lm.word_emb", cfg))
+    pos = layers.range(0, cfg.max_position, 1, "int64")
+    pos_table = layers.embedding(
+        pos, (cfg.max_position, cfg.hidden_size),
+        param_attr=_w("lm.pos_emb", cfg))
+    T = src_ids.shape[1]
+    pos_emb = layers.slice(pos_table, [0], [0], [T])
+    x = layers.elementwise_add(emb, pos_emb, axis=1)
+    x = _graph_ln(x, "lm.emb_ln")
+    if cfg.hidden_dropout > 0:
+        x = layers.dropout(x, cfg.hidden_dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    for i in range(cfg.num_layers):
+        x = lm_layer(x, cfg, f"lm.layer{i}", is_test=is_test)
+    emb_var = x.block.program.global_block().var("lm.word_emb")
+    return layers.matmul(x, emb_var, transpose_y=True)
+
+
+def build_lm_greedy_infer(cfg: BertConfig, batch: int, prompt_len: int,
+                          max_new: int):
+    """Uncached greedy decoder: ONE StaticRNN whose every step re-runs
+    the full causal LM over the whole padded token buffer and argmaxes
+    the current position — the re-attend baseline that the KV-cached
+    GenerationEngine must beat.
+
+    Feeds: prompt_ids [batch, prompt_len] int64.  Returns the step
+    outputs Variable: [max_new, batch] int64 generated tokens."""
+    from ..core.program import data
+
+    B, P, N = batch, prompt_len, max_new
+    T = P + N
+    if T > cfg.max_position:
+        raise ValueError(f"prompt_len + max_new = {T} exceeds "
+                         f"max_position {cfg.max_position}")
+    prompt_ids = data("prompt_ids", [B, P], "int64")
+    buf0 = layers.concat(
+        [prompt_ids, layers.fill_constant([B, N], "int64", 0.0)], axis=1)
+
+    eye = np.eye(T, dtype=np.float32)
+    sel_rows = layers.assign(eye[P - 1:P - 1 + N])         # [N, T]
+    put_rows = layers.assign(eye[P:P + N])                 # [N, T]
+
+    rnn = layers.StaticRNN()
+    with rnn.step():
+        sel_row = rnn.step_input(sel_rows)                 # [T]
+        put_row = rnn.step_input(put_rows)                 # [T]
+        buf = rnn.memory(init=buf0)                        # [B, T]
+        hid = build_lm_logits(buf, cfg, is_test=True)      # [B, T, V]
+        logit_t = layers.reduce_sum(                       # [B, V]
+            layers.elementwise_mul(
+                hid, layers.reshape(sel_row, [1, T, 1])), dim=1)
+        nxt = layers.cast(layers.argmax(logit_t, axis=-1), "int64")
+        nxt2 = layers.reshape(nxt, [B, 1])                 # [B, 1]
+        put = layers.reshape(put_row, [1, T])
+        keep = layers.elementwise_sub(
+            layers.fill_constant([1, T], "float32", 1.0), put)
+        buf_new = layers.cast(
+            layers.elementwise_add(
+                layers.elementwise_mul(layers.cast(buf, "float32"), keep),
+                layers.elementwise_mul(layers.cast(nxt2, "float32"), put)),
+            "int64")
+        rnn.update_memory(buf, buf_new)
+        rnn.step_output(nxt)
+    return rnn()                                           # [N, B]
+
+
 LM_PARAM_SUFFIXES = (
     ".attn.qkv.w", ".attn.qkv.b", ".attn.out.w", ".attn.out.b",
     ".ln1.scale", ".ln1.bias", ".ffn.in.w", ".ffn.in.b",
@@ -234,6 +357,26 @@ def lm_param_names(cfg: BertConfig):
     for i in range(cfg.num_layers):
         names.extend(f"lm.layer{i}{s}" for s in LM_PARAM_SUFFIXES)
     return names
+
+
+def lm_params_from_scope(cfg: BertConfig, scope=None):
+    """The LM parameters of a scope (after the startup program of a
+    build_lm_* graph ran) as the flat dict of numpy arrays the JAX
+    package's ``lm_params_from_scope`` returns; ``lm_params_from_numpy``
+    puts them on a device for the engine."""
+    from ..core.scope import global_scope
+
+    scope = scope or global_scope()
+    params = {}
+    for n in lm_param_names(cfg):
+        val = scope.find_var(n)
+        if val is None:
+            raise KeyError(
+                f"LM parameter '{n}' not found in scope — run the "
+                f"startup program of a build_lm_* graph first")
+        params[n] = (val.detach().cpu().numpy() if torch.is_tensor(val)
+                     else np.asarray(val))
+    return params
 
 
 def lm_random_params(cfg: BertConfig, rng):

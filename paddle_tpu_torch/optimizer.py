@@ -28,7 +28,8 @@ from .core.program import (Variable, default_main_program,
                            default_startup_program)
 from .initializer import ConstantInitializer
 
-__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
+__all__ = ["Optimizer", "RecomputeOptimizer", "SGDOptimizer",
+           "MomentumOptimizer",
            "LarsMomentumOptimizer", "AdamOptimizer", "AdamWOptimizer",
            "LambOptimizer", "AdagradOptimizer", "DecayedAdagradOptimizer",
            "AdadeltaOptimizer", "RMSPropOptimizer", "AdamaxOptimizer",
@@ -455,6 +456,19 @@ class DpsgdOptimizer(Optimizer):
                    "sigma": self._sigma},
             infer_shape=False,
         )
+
+
+class RecomputeOptimizer:
+    """Activation recomputation (parity: the JAX package's
+    RecomputeOptimizer, fluid/optimizer.py:3674) is not ported yet: its
+    ``recompute_grad`` op re-traces the forward, which the port's
+    lowering does not do."""
+
+    def __init__(self, optimizer):
+        raise NotImplementedError(
+            "RecomputeOptimizer is not ported to paddle_tpu_torch yet "
+            "(ROADMAP.md, Queue 1 item 3: EMA, ModelAverage, Lookahead, "
+            "GradientMerge, Recompute, Pipeline and DGC)")
 
 
 SGD = SGDOptimizer

@@ -8,11 +8,11 @@ from .batcher import (BadRequestError, InferenceFuture, QueueFullError,
                       RequestTimeoutError, ServerClosedError, ServingError)
 from .buckets import BucketError, ShapeBucketer
 from .config import ServingConfig
-from .server import CallableBackend, InferenceServer
+from .server import CallableBackend, InferenceServer, PredictorBackend
 from .stats import GenerationStats, LatencyHistogram, ServingStats
 
 __all__ = [
-    "ServingConfig", "InferenceServer", "CallableBackend",
+    "ServingConfig", "InferenceServer", "PredictorBackend", "CallableBackend",
     "ShapeBucketer", "ServingStats", "GenerationStats",
     "LatencyHistogram", "ServingError", "QueueFullError",
     "RequestTimeoutError", "ServerClosedError", "BadRequestError",

@@ -6,9 +6,9 @@ configured shape buckets, executed on ONE worker thread (the device
 executes serially anyway).
 
 Backends: any object with ``run(feeds) -> [outputs]`` and
-``compile_count()`` (e.g. ``generation.GenerationBackend``), or any
-``feeds -> [outputs]`` callable (wrapped in `CallableBackend`).  The
-in-process ``Predictor`` backend comes with the inference slice.
+``compile_count()`` (e.g. ``generation.GenerationBackend``), an
+``inference.Predictor`` (wrapped in `PredictorBackend`), or any
+``feeds -> [outputs]`` callable (wrapped in `CallableBackend`).
 
 Tracing, as in the JAX server: ``submit`` captures the client thread's
 span context; the batcher worker records each request's
@@ -41,7 +41,8 @@ from .buckets import BucketError, ShapeBucketer
 from .config import ServingConfig
 from .stats import ServingStats
 
-__all__ = ["InferenceServer", "CallableBackend", "input_signature"]
+__all__ = ["InferenceServer", "PredictorBackend", "CallableBackend",
+           "input_signature"]
 
 
 def input_signature(feeds):
@@ -49,6 +50,45 @@ def input_signature(feeds):
     keys on (name, shape, dtype) of its numpy array."""
     return tuple((name, np.shape(feeds[name]), str(np.asarray(
         feeds[name]).dtype)) for name in sorted(feeds))
+
+
+class PredictorBackend:
+    """Serve through an in-process `inference.Predictor`: every batch is
+    one `Predictor.run`, and the compile counter is the predictor
+    program's lowering cache size (one entry per input-shape signature)
+    — the ground truth for 'zero recompiles after warmup'."""
+
+    def __init__(self, predictor):
+        self._pred = predictor
+        self.input_names = list(predictor.get_input_names())
+        # the program is frozen once the predictor exists — build the
+        # spec once, not on every submit-path validation
+        self._spec = self._build_spec()
+
+    def _build_spec(self):
+        block = self._pred._program.global_block()
+        spec = {}
+        for name in self.input_names:
+            var = block._find_var_recursive(name)
+            if var is None or var.shape is None:
+                spec[name] = (None, np.float32)
+                continue
+            dims = tuple(None if (d is None or d < 0) else int(d)
+                         for d in var.shape[1:])
+            spec[name] = (dims, np.dtype(var.dtype))
+        return spec
+
+    def input_spec(self):
+        """{name: (per_sample_shape_with_None_for_dynamic, np_dtype)}
+        from the frozen program's feed var declarations (batch axis
+        dropped)."""
+        return self._spec
+
+    def run(self, feeds):
+        return self._pred.run([feeds[n] for n in self.input_names])
+
+    def compile_count(self):
+        return len(self._pred._program._exec_cache)
 
 
 class CallableBackend:
@@ -77,11 +117,13 @@ class CallableBackend:
 def _as_backend(backend):
     if hasattr(backend, "run") and hasattr(backend, "compile_count"):
         return backend
+    if hasattr(backend, "run") and hasattr(backend, "get_input_names"):
+        return PredictorBackend(backend)
     if callable(backend):
         return CallableBackend(backend)
     raise TypeError(
-        f"backend must be a feeds->outputs callable or a Backend object; "
-        f"got {type(backend).__name__}")
+        f"backend must be a Predictor, a feeds->outputs callable, or a "
+        f"Backend object; got {type(backend).__name__}")
 
 
 class InferenceServer:

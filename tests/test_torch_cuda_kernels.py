@@ -675,6 +675,32 @@ def _qkv_inputs(device, B, T, nh, D, pad_cols=0, seed=11):
     return qkv[..., :3 * H], b, kp.to(device)
 
 
+@pytest.mark.parametrize("kernel", ["packed", "qkv"])
+def test_decoder_causal_shape_matches_plain(device, kernel):
+    """#3 and #9 at the causal LM's shape (8 x 128 tokens, 12 heads of 64,
+    no key bias, dropout 0): the packed forward on the strided q/k/v
+    slices the StaticRNN decoder's unfused attention op passes, the
+    qkv-folded forward on the pre-bias projection the fused
+    build_lm_logits passes; one launch each, within the forward atol of
+    the plain versions."""
+    B, T, nh, D = 8, 128, 12, 64
+    qkv, b, _ = _qkv_inputs(device, B, T, nh, D, seed=15)
+    H = nh * D
+    name = fa.FWD if kernel == "packed" else fa.QKV
+    before = _cuda.LAUNCHES[name]
+    if kernel == "packed":
+        q, k, v = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:]
+        o, lse = fa.flash_kernel_forward(q, k, v, nh, causal=True)
+        o_ref, lse_ref = fa.flash_ref_forward(q, k, v, nh, causal=True)
+    else:
+        o, lse = fa.flash_kernel_forward_qkv(qkv, b, nh, None, True)
+        o_ref, lse_ref = ae.qkv_ref_forward(qkv, b, nh, None, True)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] - before == 1
+    torch.testing.assert_close(o, o_ref, atol=FLASH_FWD_ATOL, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=FLASH_FWD_ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
 @pytest.mark.parametrize("kernel", ["flat", "qkv"])
 def test_tc_forwards_are_deterministic(device, kernel, rate):
