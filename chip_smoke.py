@@ -196,20 +196,55 @@ Phases (any failure exits non-zero and prints no result):
       StaticRNN-trains and bounded-While programs on the card from the
       CPU path's weights — first-step gradients within 1e-5 relative of
       the CPU path's, finite and falling losses, no port kernel launched.
+12. training from files (phase 3's seed; files in a temporary directory,
+   removed in a finally):
+   a. the ops repaired against the JAX package (top_k's ties, gather
+      and lookup_table past their table, sign of NaN and -0.0, the mean
+      of integers, saturating casts, gelu at infinity, the gradients at
+      the kinks of clip, relu6, abs, leaky_relu, hard_sigmoid and
+      hard_swish) on the card against the CPU, over the inputs of their
+      CPU tests: equal (floats within 1e-6), out-of-range indices giving
+      their fill rows;
+   b. 4 MultiSlot parts of 256 instances written from a seed (src_ids,
+      input_mask, masked_labels; 128 values each, ~15% labelled): the
+      native slot parser and the plain Python parser give equal arrays,
+      ms per part;
+   c. BertConfig.base() (dropout 0.1) from 2-D feeds (build_dataset_bert)
+      with Adam(1e-4), batch 32, 8 steps a chunk: one QueueDataset epoch
+      and one InMemoryDataset epoch after local_shuffle(seed), both
+      train_from_dataset(thread=2) — 12 attention, 13 fused-matmul and
+      12 FFN-chain groups, the five fused-step kernels once per layer per
+      step and the packed flash forward never, no plain version, no
+      library loaded after the first chunk, finite chunk losses, the
+      batches pulled by the "paddle_tpu-feed" thread; step ms and
+      tokens/s beside phase 5's step and beside Executor.run steps of
+      the same program timed before and after the second epoch, the
+      feed's wait (dataio_prefetch_wait_ms), one profiled chunk's busy
+      share;
+   d. at dropout 0, one chunk through train_from_dataset against 8
+      Executor.run steps on the same weights and batches: last loss and
+      chunk mean within 2e-3 (the largest persistable difference
+      reported); at dropout 0.1, thread=0 and thread=2 from the same
+      weights and seeds give bit-equal losses and persistables;
+   e. FLAGS_check_nan_inf: train_from_dataset refuses it (ValueError);
+      Executor.run of the log of a negative feed raises RuntimeError
+      naming log and nan; a clean feed passes.
 Phase 2 also holds the packed and the qkv-folded flash forwards at the
 decoder's causal shape (8 x 128, 12 heads of 64, no key bias) against
 their plain versions and times them beside SDPA's causal forward.
 
 Before the card's line come {"observability": {...}} (phase 8's
 numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
-{"control_flow": {...}} (phase 11's) and {"kernels": [...]}, one entry per
+{"control_flow": {...}} (phase 11's), {"dataset": {...}} (phase 12's) and
+{"kernels": [...]}, one entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
 fused training steps' for the other training kernels, phase 6's timed
 steps for the flat kernels; the packed flash forward adds one phase-11
 greedy generate's, and the qkv-folded forward, the fused matmul and the
-FFN chain one phase-11 logits run's.  Details go to
+FFN chain one phase-11 logits run's, and the five fused-step kernels
+phase 12c's QueueDataset epoch's.  Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
@@ -4933,6 +4968,593 @@ def control_flow_phase(device, gen_cfg, cfg=None):
     return report
 
 
+# -- phase 12: training from files -------------------------------------------
+
+#: MultiSlot parts of phase 12: parts x instances, three slots of TRAIN_SEQ
+DATASET_PARTS, DATASET_INSTANCES = 4, 256
+#: steps per chunk of the dataset trainer (set_steps_per_dispatch)
+DATASET_K = 8
+#: parser threads of the threaded feed (train_from_dataset(thread=...))
+DATASET_THREADS = 2
+#: the three slots, in file order: (feed name, MultiSlot type)
+DATASET_SLOTS = (("src_ids", "u"), ("input_mask", "f"),
+                 ("masked_labels", "u"))
+#: card against CPU for the repaired ops: float outputs within this
+#: relative error (the same PyTorch op in two builds), the rest exact
+QUEUE3_RTOL = 1e-6
+
+
+def build_dataset_bert(P, models, cfg, seq_len, lr=TRAIN_LR, seed=SEED):
+    """BERT pretraining over 2-D feeds a Dataset can fill: src_ids and
+    masked_labels [None, seq_len] int64, input_mask [None, seq_len]
+    float32; the labels are reshaped in the graph to [B, seq_len, 1]
+    (build_bert_pretrain's 3-D labels feed cannot come from a Dataset,
+    which pads a slot to its variable's trailing dim).  ``P`` is the
+    package (paddle_tpu_torch, or the JAX package in the tests) and
+    ``models`` its models module; both build the same program from
+    public layers.  Returns (main, startup, loss, feed vars)."""
+    main, startup = P.Program(), P.Program()
+    startup.random_seed = seed + 21
+    main.random_seed = seed + 22
+    with P.program_guard(main, startup), P.unique_name.guard():
+        src = P.data("src_ids", [None, seq_len], "int64")
+        mask = P.data("input_mask", [None, seq_len], "float32")
+        labels = P.data("masked_labels", [None, seq_len], "int64")
+        seq_out = models.bert_encoder(src, mask, cfg)
+        loss = models.bert_pretrain_loss(
+            seq_out, P.layers.reshape(labels, [-1, seq_len, 1]), cfg)
+        P.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss, [src, mask, labels]
+
+
+def write_bert_parts(root, parts, instances, seq_len, vocab, seed=SEED):
+    """MultiSlot text parts for build_dataset_bert from a numpy seed: per
+    line src_ids (u), input_mask (f; a quarter of the rows pad a tail)
+    and masked_labels (u; the token at ~15% of the real positions, -1
+    elsewhere), seq_len values each.  Returns the paths."""
+    rng = np.random.RandomState(seed + 31)
+    paths = []
+    for p in range(parts):
+        src = rng.randint(0, vocab, (instances, seq_len))
+        mask = np.ones((instances, seq_len), np.float32)
+        for b in range(0, instances, 4):
+            mask[b, rng.randint(seq_len // 2, seq_len):] = 0.0
+        labels = np.full((instances, seq_len), -1, np.int64)
+        pick = (rng.rand(instances, seq_len) < 0.15) & (mask > 0)
+        labels[pick] = src[pick]
+        path = os.path.join(str(root), f"part-{p:05d}")
+        with open(path, "w") as f:
+            for i in range(instances):
+                f.write(" ".join(
+                    [str(seq_len), " ".join(map(str, src[i])),
+                     str(seq_len), " ".join(f"{v:g}" for v in mask[i]),
+                     str(seq_len), " ".join(map(str, labels[i]))]) + "\n")
+        paths.append(path)
+    return paths
+
+
+def make_dataset(kind, feed_vars, files):
+    """A ``kind`` dataset over ``files``: batch TRAIN_BATCH, DATASET_K
+    steps a chunk."""
+    import paddle_tpu_torch as pt
+
+    ds = pt.DatasetFactory().create_dataset(kind)
+    ds.set_batch_size(TRAIN_BATCH)
+    ds.set_use_var(feed_vars)
+    ds.set_filelist(files)
+    ds.set_steps_per_dispatch(DATASET_K)
+    return ds
+
+
+_NAN, _INF = float("nan"), float("inf")
+
+#: Queue 3's repaired ops over the inputs of their CPU tests: (name, op,
+#: inputs, attrs)
+QUEUE3_CASES = (
+    ("top_k_ties", "top_k", {"X": np.array([[0, 0, 0, 0], [1, 1, 2, 2]],
+                                           np.float32)}, {"k": 2}),
+    ("top_k_ties_int32", "top_k", {"X": np.array([[5, 5, 5, 1]], np.int32)},
+     {"k": 3}),
+    ("gather_wraps_and_fills", "gather", {
+        "X": np.arange(8, dtype=np.float32).reshape(4, 2),
+        "Index": np.array([-1, 5, -5, 0, -4], np.int32)}, {"axis": 0}),
+    ("gather_fills_int32", "gather", {
+        "X": np.arange(8, dtype=np.int32).reshape(4, 2),
+        "Index": np.array([-1, 5, -5, 0], np.int32)}, {"axis": 0}),
+    ("gather_fills_uint8", "gather", {
+        "X": np.arange(8, dtype=np.uint8).reshape(4, 2),
+        "Index": np.array([5, 1], np.int32)}, {"axis": 0}),
+    ("lookup_table_wraps_and_fills", "lookup_table", {
+        "W": np.arange(12, dtype=np.float32).reshape(4, 3),
+        "Ids": np.array([[-1], [4], [0], [-5], [2]], np.int64)}, {}),
+    ("sign_nan_and_signed_zero", "sign", {"X": np.array(
+        [_NAN, -0.0, 0.0, -2.5, 3.0, -_INF], np.float32)}, {}),
+    ("reduce_mean_int32", "reduce_mean", {"X": np.array([[1, 2]],
+                                                        np.int32)},
+     {"dim": [1], "keep_dim": False}),
+    ("mean_bool", "mean", {"X": np.array([True, False, True])}, {}),
+    ("cast_to_int32_saturates", "cast", {"X": np.array(
+        [_NAN, _INF, -_INF, 1e10, -1e10, -1.0, 300.0, 2.7, -2.7],
+        np.float32)}, {"out_dtype": "int32"}),
+    ("cast_to_uint8_saturates", "cast", {"X": np.array(
+        [_NAN, _INF, -_INF, 1e10, -1.0, 300.0, 255.5, 2.7], np.float32)},
+     {"out_dtype": "uint8"}),
+    ("cast_to_int32_at_its_ends", "cast", {"X": np.array(
+        [2147483520.0, 2147483648.0, -2147483648.0, -2147483904.0],
+        np.float32)}, {"out_dtype": "int32"}),
+    ("cast_half_to_int32_saturates", "cast", {"X": np.array(
+        [_NAN, _INF, -_INF, 65504.0, -65504.0, 2.5, -2.5], np.float16)},
+     {"out_dtype": "int32"}),
+    ("gelu_infinities", "gelu", {"X": np.array([_INF, -_INF, _NAN, 1.0,
+                                                -1.0], np.float32)}, {}),
+    ("gelu_tanh_infinities", "gelu", {"X": np.array([_INF, 1.0, -1.0],
+                                                    np.float32)},
+     {"approximate": True}),
+)
+
+#: (name, op, attrs, points): gradients at the kinks the repairs fixed,
+#: and the floordiv whose gradient is zero
+QUEUE3_KINKS = (
+    ("clip", "clip", {"min": -1.5, "max": 2.0}, [-1.5, 2.0, 0.3, -3.0]),
+    ("relu6", "relu6", {}, [0.0, 6.0, 3.0, 7.0, -1.0]),
+    ("abs", "abs", {}, [0.0, -0.0, 1.5, -2.0]),
+    ("leaky_relu", "leaky_relu", {}, [0.0, -1.0, 2.0]),
+    ("hard_sigmoid", "hard_sigmoid", {}, [-2.5, 2.5, 0.0, 3.0]),
+    ("hard_swish", "hard_swish", {}, [-3.0, 3.0, 0.0, -4.0, 4.0]),
+)
+
+
+def _queue3_compute(op, ins, attrs, device, grad=False):
+    import torch
+
+    from paddle_tpu_torch.core.registry import REGISTRY, OpContext
+
+    ctx = OpContext(rng=None, is_test=False, attrs=attrs, device=device)
+    tins = {s: [torch.from_numpy(np.array(v)).to(device)]
+            for s, v in ins.items()}
+    if not grad:
+        with torch.no_grad():
+            outs = REGISTRY.get(op).compute(ctx, tins, attrs)
+        return [t.cpu() for slot in sorted(outs) for t in outs[slot]]
+    x = tins["X"][0].requires_grad_()
+    y = REGISTRY.get(op).compute(ctx, {"X": [x]}, attrs)["Out"][0]
+    (g,) = torch.autograd.grad(y.sum(), x)
+    return [g.cpu()]
+
+
+def _same_result(got, want):
+    """Card against CPU: the same dtype and shape, NaN where NaN, zeros'
+    signs equal, floats within QUEUE3_RTOL, the rest exact.  Returns the
+    largest relative error of the floats."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{got.tolist()} != {want.tolist()}")
+        return 0.0
+    g, w = got.numpy(), want.numpy()
+    if not (np.array_equal(np.isnan(g), np.isnan(w))
+            and np.array_equal(np.isposinf(g), np.isposinf(w))
+            and np.array_equal(np.isneginf(g), np.isneginf(w))
+            and np.array_equal(np.signbit(g[w == 0]),
+                               np.signbit(w[w == 0]))):
+        raise AssertionError(f"{g.tolist()} != {w.tolist()}")
+    fin = np.isfinite(w)
+    err = np.abs(g[fin] - w[fin]) / np.maximum(np.abs(w[fin]), 1e-30)
+    worst = float(err.max()) if err.size else 0.0
+    if worst > QUEUE3_RTOL:
+        raise AssertionError(f"relative error {worst:.3e}: {g.tolist()} "
+                             f"against {w.tolist()}")
+    return worst
+
+
+def queue3_phase(device):
+    """12a: each repaired op on ``device`` against the CPU, forward and
+    at its kinks; out-of-range gather and lookup_table give their fill
+    rows (a device-side assert would fail every later call)."""
+    cpu = __import__("torch").device("cpu")
+    out = {}
+    for name, op, ins, attrs in QUEUE3_CASES:
+        worst = 0.0
+        for g, w in zip(_queue3_compute(op, ins, attrs, device),
+                        _queue3_compute(op, ins, attrs, cpu)):
+            try:
+                worst = max(worst, _same_result(g, w))
+            except AssertionError as e:
+                raise AssertionError(f"12a {name}: {e}") from None
+        out[name] = worst
+    for name, op, attrs, points in QUEUE3_KINKS:
+        x = {"X": np.array(points, np.float32)}
+        (g,) = _queue3_compute(op, x, attrs, device, grad=True)
+        (w,) = _queue3_compute(op, x, attrs, cpu, grad=True)
+        try:
+            out[f"grad_{name}"] = _same_result(g, w)
+        except AssertionError as e:
+            raise AssertionError(f"12a gradient of {name}: {e}") from None
+    # whether the gelu op needs its +inf guard here: F.gelu itself at +inf
+    import torch
+    import torch.nn.functional as F
+
+    raw = {form: bool(torch.isnan(F.gelu(torch.full(
+        (64,), float("inf"), device=device), approximate=form)).any())
+        for form in ("none", "tanh")}
+    log(f"  12a: {len(QUEUE3_CASES)} repaired-op cases and "
+        f"{len(QUEUE3_KINKS)} kink gradients equal on {device} and the CPU "
+        f"(largest float relative error {max(out.values()):.3e}); F.gelu "
+        f"of +inf is NaN on {device}: {raw}")
+    return out, raw
+
+
+def parser_phase(root, cfg):
+    """12b: DATASET_PARTS parts of DATASET_INSTANCES instances; the native
+    and the plain Python parser give equal arrays; ms per part each."""
+    from paddle_tpu_torch import native
+
+    files = write_bert_parts(root, DATASET_PARTS, DATASET_INSTANCES,
+                             TRAIN_SEQ, cfg.vocab_size)
+    types = [t for _, t in DATASET_SLOTS]
+    t0 = time.perf_counter()
+    native.get_slot_parser()
+    build_s = time.perf_counter() - t0
+    native_ms, plain_ms = [], []
+    for path in files:
+        t0 = time.perf_counter()
+        n, slots = native.parse_multislot_file(path, types)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        n2, slots2 = native.parse_multislot_file_python(path, types)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if n != DATASET_INSTANCES or n2 != n:
+            raise AssertionError(f"{path}: {n} and {n2} instances, "
+                                 f"expected {DATASET_INSTANCES}")
+        for (v, o), (v2, o2) in zip(slots, slots2):
+            if not (np.array_equal(v, v2) and np.array_equal(o, o2)
+                    and v.dtype == v2.dtype):
+                raise AssertionError(f"{path}: native and plain parsers "
+                                     f"differ")
+    nbytes = sum(os.path.getsize(p) for p in files)
+    log(f"  12b: {DATASET_PARTS} parts x {DATASET_INSTANCES} instances "
+        f"({nbytes} bytes); slot parser built/loaded in {build_s:.2f} s; "
+        f"native {np.mean(native_ms):.2f} ms a part, plain Python "
+        f"{np.mean(plain_ms):.2f} ms; equal arrays")
+    return files, dict(bytes=nbytes, build_s=build_s, native_ms=native_ms,
+                       plain_ms=plain_ms)
+
+
+def _chunk_losses(fn):
+    """Run ``fn`` (a train_from_dataset call with debug=True) and return
+    its result and the chunk means it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    means = [float(line.rsplit("=", 1)[1]) for line in
+             buf.getvalue().splitlines() if "] step " in line]
+    return res, means
+
+
+def _feed_threads(ds):
+    """Record the names of the threads that pull ``ds``'s batches."""
+    names = set()
+    orig = ds.batches
+
+    def spy():
+        for b in orig():
+            names.add(threading.current_thread().name)
+            yield b
+
+    ds.batches = spy
+    return names
+
+
+def _snapshot(scope, program):
+    """Device clones of every persistable in ``scope``."""
+    return {v.name: scope.find_var(v.name).clone()
+            for v in program.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+
+
+def _fill_scope(weights):
+    import paddle_tpu_torch as pt
+
+    scope = pt.Scope()
+    for n, t in weights.items():
+        scope.set_var(n, t.clone())
+    return scope
+
+
+def _max_param_diff(a, b, names):
+    import torch
+
+    return max(float((a.find_var(n).double() - b.find_var(n).double())
+                     .abs().max()) for n in names
+               if torch.is_tensor(a.find_var(n)))
+
+
+def dataset_train_phase(device, cfg, files, phase5_step_ms):
+    """12c: build_dataset_bert(cfg) from the parts: one QueueDataset
+    epoch with thread=DATASET_THREADS, then one InMemoryDataset epoch
+    after local_shuffle(SEED) (timed); the plan, launch, plain-call,
+    no-load, finite-loss and feed-thread gates; one profiled chunk."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch import models as M
+    from paddle_tpu_torch.observability import get_registry
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = device.type == "cuda"
+    exe = _executor(device)
+    main, startup, loss, feeds = build_dataset_bert(pt, M, cfg, TRAIN_SEQ)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    weights = _snapshot(scope, main)
+    L = cfg.num_layers
+    wait = get_registry().histogram(
+        "dataio_prefetch_wait_ms").labels(name="paddle_tpu-feed")
+    run_batches = list(make_dataset("QueueDataset", feeds,
+                                    files[:2]).batches())
+
+    def run_steps():
+        """Executor.run over two parts' batches: the same lowered step,
+        fed batch by batch, beside the epochs (launch costs drift with
+        the profiler sessions of earlier phases)."""
+        sync(device)
+        t0 = time.perf_counter()
+        for b in run_batches:
+            exe.run(main, feed=b, fetch_list=[loss], scope=scope,
+                    return_numpy=False)
+        sync(device)
+        return (time.perf_counter() - t0) / len(run_batches) * 1e3
+
+    epochs, run_ms = {}, []
+    eager_us = launch_cost_us(device)
+    with _PlainCalls() as plain:
+        for kind in ("QueueDataset", "InMemoryDataset"):
+            if kind == "InMemoryDataset":
+                run_ms.append(run_steps())
+            ds = make_dataset(kind, feeds, files)
+            if kind == "InMemoryDataset":
+                ds.load_into_memory()
+                ds.local_shuffle(SEED)
+            threads = _feed_threads(ds)
+            waits0 = (wait.count, wait.sum)
+            _cuda.reset_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            last, means = _chunk_losses(lambda: exe.train_from_dataset(
+                main, ds, scope=scope, thread=DATASET_THREADS,
+                fetch_list=[loss], debug=True))
+            sync(device)
+            wall = time.perf_counter() - t0
+            steps = DATASET_PARTS * DATASET_INSTANCES // TRAIN_BATCH
+            epochs[kind] = dict(
+                steps=steps, wall_s=wall, step_ms=wall / steps * 1e3,
+                tokens_per_s=steps * TRAIN_BATCH * TRAIN_SEQ / wall,
+                chunk_means=means, last_loss=float(last[0]),
+                launches={k: _cuda.LAUNCHES.get(k, 0)
+                          for k in FUSED_STEP_KERNELS + (fa.FWD,)},
+                feed_threads=sorted(threads),
+                feed_waits=wait.count - waits0[0],
+                feed_wait_ms=wait.sum - waits0[1])
+            e = epochs[kind]
+            log(f"  12c {kind}: {steps} steps in {len(means)} chunks of "
+                f"{DATASET_K}, {e['step_ms']:.3f} ms/step, "
+                f"{e['tokens_per_s']:.1f} tokens/s (phase 5: "
+                f"{phase5_step_ms:.3f} ms/step); chunk mean losses "
+                + " ".join(f"{x:.4f}" for x in means)
+                + f"; launches {e['launches']}; feed threads "
+                f"{e['feed_threads']}; feed waited {e['feed_wait_ms']:.3f} "
+                f"ms in {e['feed_waits']} waits")
+            want = L * steps if on_card else 0
+            if any(e["launches"][k] != want for k in FUSED_STEP_KERNELS) \
+                    or e["launches"][fa.FWD]:
+                raise AssertionError(f"12c {kind}: launches "
+                                     f"{e['launches']}, expected {want} "
+                                     f"each and no {fa.FWD}")
+            if len(means) != steps // DATASET_K \
+                    or not np.all(np.isfinite(means + [e["last_loss"]])):
+                raise AssertionError(f"12c {kind}: chunk losses {means}")
+            if e["feed_threads"] != ["paddle_tpu-feed"]:
+                raise AssertionError(f"12c {kind}: batches came off "
+                                     f"{e['feed_threads']}")
+        run_ms.append(run_steps())
+    log(f"  12c Executor.run of the same program on {len(run_batches)} "
+        f"batches, before and after the InMemoryDataset epoch: "
+        f"{run_ms[0]:.3f}, {run_ms[1]:.3f} ms/step ({eager_us:.2f} us per "
+        f"small eager op at the start of the phase)")
+    kinds = _plan_kinds(main)
+    want_kinds = collections.Counter(attn=L, gemm=L + 1, ffn_chain=L)
+    if kinds != [want_kinds] * 2:      # the loop's and Executor.run's
+        raise AssertionError(f"12c: fusion plan groups {kinds}, expected "
+                             f"{dict(want_kinds)}")
+    if on_card and plain.calls:
+        raise AssertionError("12c: a plain kernel version ran on the card")
+    if exe.compiles_after_first_step:
+        raise AssertionError("12c: a kernel library was loaded after the "
+                             "first chunk")
+
+    # one chunk under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = make_dataset("InMemoryDataset", feeds, files[:1])
+    ds.load_into_memory()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        exe.train_from_dataset(main, ds, scope=scope, fetch_list=[loss],
+                               print_period=0)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof_out = _span_summary(prof, wall_us, DATASET_K,
+                             ("flash_", "gemm_epilogue", "ffn_chain"))
+    if prof_out is None:
+        prof_out = {"device_busy_share": None}
+        log(f"  12c profiled chunk: {wall_us / 1e3:.3f} ms wall; device "
+            f"time not measured (no device activity recorded)")
+    else:
+        log(f"  12c profiled chunk of {DATASET_K} steps: "
+            f"{wall_us / 1e3:.3f} ms wall, device kernels "
+            f"{prof_out['device_ms_per_step']:.3f} ms a step, busy share "
+            f"{prof_out['device_busy_share']:.4f}")
+    prof_out["wall_ms"] = wall_us / 1e3
+    return dict(epochs=epochs, plan_groups=dict(kinds[0]),
+                run_step_ms=run_ms, launch_cost_us=eager_us,
+                profile=prof_out, weights=weights, main=main, loss=loss,
+                feeds=feeds, launches=epochs["QueueDataset"]["launches"])
+
+
+def dataset_parity_phase(device, cfg, files, trained):
+    """12d: at dropout 0, one chunk of DATASET_K through
+    train_from_dataset against DATASET_K Executor.run steps on the same
+    weights and batches (last loss, chunk mean and every persistable
+    after the chunk); then phase 12c's program (dropout 0.1) from its
+    startup weights with thread=0 and thread=DATASET_THREADS: bit-equal
+    losses and persistables."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import models as M
+
+    exe = _executor(device)
+    cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
+    main, startup, loss, feeds = build_dataset_bert(pt, M, cfg0, TRAIN_SEQ)
+    scope0 = pt.Scope()
+    exe.run(startup, scope=scope0)
+    weights = _snapshot(scope0, main)
+    del scope0
+    persist = sorted(weights)
+
+    ds = make_dataset("InMemoryDataset", feeds, files[:1])
+    ds.load_into_memory()
+    batches = list(ds.batches())[:DATASET_K]
+    scope_run = _fill_scope(weights)
+    run_losses = [float(exe.run(main, feed=b, fetch_list=[loss],
+                                scope=scope_run)[0]) for b in batches]
+    ds = make_dataset("InMemoryDataset", feeds, files[:1])  # one chunk
+    ds.load_into_memory()
+    scope_tfd = _fill_scope(weights)
+    last, means = _chunk_losses(lambda: exe.train_from_dataset(
+        main, ds, scope=scope_tfd, fetch_list=[loss], debug=True))
+    sync(device)
+    tfd_last, tfd_mean = float(last[0]), means[0]
+    dlast = abs(tfd_last - run_losses[-1])
+    dmean = abs(means[0] - float(np.mean(run_losses)))
+    dparam = _max_param_diff(scope_run, scope_tfd, persist)
+    log(f"  12d dropout 0: Executor.run losses "
+        + " ".join(f"{x:.6f}" for x in run_losses)
+        + f"; train_from_dataset last {tfd_last:.6f}, chunk mean "
+        f"{tfd_mean:.6f} (printed to 6 places): |dlast| {dlast:.3e}, "
+        f"|dmean| {dmean:.3e} (tol {PARITY_LOSS_TOL:g}), largest "
+        f"persistable difference {dparam:.3e}")
+    if not (dlast < PARITY_LOSS_TOL and dmean < PARITY_LOSS_TOL):
+        raise AssertionError("12d: train_from_dataset and Executor.run "
+                             "disagree")
+    del scope_run, scope_tfd
+
+    # thread=0 against thread=DATASET_THREADS at dropout 0.1: the same
+    # program, weights and seeds (the RNG counter rewound)
+    main, loss, feeds = trained["main"], trained["loss"], trained["feeds"]
+    runs = {}
+    for thread in (0, DATASET_THREADS):
+        main._rng_counter = 0
+        scope = _fill_scope(trained["weights"])
+        ds = make_dataset("QueueDataset", feeds, files[:2])
+        last, means = _chunk_losses(lambda: exe.train_from_dataset(
+            main, ds, scope=scope, thread=thread, fetch_list=[loss],
+            debug=True))
+        runs[thread] = (float(last[0]), means, scope)
+    (l0, m0, s0), (l2, m2, s2) = runs[0], runs[DATASET_THREADS]
+    persist = sorted(trained["weights"])
+    dthread = _max_param_diff(s0, s2, persist)
+    log(f"  12d dropout {cfg.hidden_dropout}: thread=0 chunk means "
+        + " ".join(f"{x!r}" for x in m0) + f", last {l0!r}; thread="
+        f"{DATASET_THREADS} " + " ".join(f"{x!r}" for x in m2)
+        + f", last {l2!r}; largest persistable difference {dthread:.3e}")
+    if l0 != l2 or m0 != m2 or dthread != 0.0:
+        raise AssertionError("12d: thread=0 and thread="
+                             f"{DATASET_THREADS} differ")
+    return dict(run_losses=run_losses, tfd_last=tfd_last,
+                tfd_mean=tfd_mean, dlast=dlast, dmean=dmean,
+                param_max_diff=dparam,
+                bit_equal=dlast == 0.0 and dparam == 0.0,
+                thread_bit_equal=True, thread_losses=[l0, m0])
+
+
+def flags_phase(device, trained, files):
+    """12e: under FLAGS_check_nan_inf train_from_dataset raises
+    ValueError, Executor.run of log(negative feed) raises RuntimeError
+    naming log and nan, a clean feed passes; the flag is reset after."""
+    import paddle_tpu_torch as pt
+
+    exe = _executor(device)
+    pt.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        ds = make_dataset("QueueDataset", trained["feeds"], files[:1])
+        try:
+            exe.train_from_dataset(trained["main"], ds, scope=pt.Scope(),
+                                   fetch_list=[trained["loss"]])
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("12e: train_from_dataset ran under "
+                                 "FLAGS_check_nan_inf")
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            x = pt.data("x", [4, 8])
+            y = pt.layers.mean(pt.layers.log(x))
+        scope = pt.Scope()
+        clean = exe.run(main, feed={"x": np.full((4, 8), 2.0, np.float32)},
+                        fetch_list=[y], scope=scope)[0]
+        bad = np.ones((4, 8), np.float32)
+        bad[1, 3] = -1.0
+        try:
+            exe.run(main, feed={"x": bad}, fetch_list=[y], scope=scope)
+        except RuntimeError as e:
+            message = str(e)
+        else:
+            raise AssertionError("12e: log of a negative feed passed the "
+                                 "NaN check")
+    finally:
+        pt.set_flags({"FLAGS_check_nan_inf": False})
+    if "'log'" not in message or " nan " not in message:
+        raise AssertionError(f"12e: the message {message!r}")
+    if not np.isclose(float(clean), np.log(2.0)):
+        raise AssertionError(f"12e: a clean run gave {clean}")
+    log(f"  12e: train_from_dataset refused ({refused[:60]}...); "
+        f"{message}")
+    return dict(refused=refused, message=message)
+
+
+def dataset_phase(device, cfg, phase5_step_ms=float("nan")):
+    """Phase 12: training from files (12a-12e) in a temporary directory
+    (removed in a finally)."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    try:
+        queue3, raw_gelu = queue3_phase(device)
+        out = dict(queue3=queue3, f_gelu_inf_is_nan=raw_gelu)
+        files, out["parser"] = parser_phase(root, cfg)
+        trained = dataset_train_phase(device, cfg, files, phase5_step_ms)
+        out["parity"] = dataset_parity_phase(device, cfg, files, trained)
+        out["flags"] = flags_phase(device, trained, files)
+        for k in ("epochs", "plan_groups", "profile", "launches",
+                  "run_step_ms", "launch_cost_us"):
+            out[k] = trained[k]
+        out["phase5_step_ms"] = phase5_step_ms
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -5054,6 +5676,14 @@ def main():
         report["control_flow"] = control_flow_phase(device, gen_cfg)
         for name, n in report["control_flow"]["kernel_launches"].items():
             report["kernels"][name]["launches"] += n
+
+        log("[12] training from files: the repaired ops on the card, the "
+            "slot parser, BERT-base through train_from_dataset, parity "
+            "with Executor.run, the flags")
+        report["dataset"] = dataset_phase(device, BertConfig.base(),
+                                          report["training"]["step_ms"])
+        for name, n in report["dataset"]["launches"].items():
+            report["kernels"][name]["launches"] += n
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5106,6 +5736,19 @@ def main():
         logits={k: cf["logits"][k] for k in (
             "plan_groups", "launches", "rel_err_by_depth")},
         loops={k: v["grad_rel_err"] for k, v in cf["loops"].items()})}))
+    ds = report["dataset"]
+    print(json.dumps({"dataset": dict(
+        card=card, phase5_step_ms=ds["phase5_step_ms"],
+        run_step_ms=ds["run_step_ms"], launch_cost_us=ds["launch_cost_us"],
+        epochs={kind: {k: e[k] for k in (
+            "step_ms", "tokens_per_s", "feed_wait_ms", "feed_waits",
+            "chunk_means", "launches")} for kind, e in ds["epochs"].items()},
+        busy_share=ds["profile"]["device_busy_share"],
+        parser={k: ds["parser"][k] for k in ("native_ms", "plain_ms")},
+        parity={k: ds["parity"][k] for k in (
+            "dlast", "dmean", "param_max_diff", "bit_equal",
+            "thread_bit_equal")},
+        queue3_max_rel_err=max(ds["queue3"].values()))}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

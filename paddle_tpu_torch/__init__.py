@@ -30,7 +30,13 @@ the engine, the server, the Executor and the fusion pass as in the JAX
 package.  Control flow (``layers.While``, ``cond``, ``Switch``,
 ``StaticRNN``) runs its sub-blocks in the Executor, and ``inference``
 serves a frozen program (``io.save_inference_model``) through a
-``Predictor``, also behind ``serving.InferenceServer``.  No Executor
+``Predictor``, also behind ``serving.InferenceServer``.  Dataset-driven training: a
+``DatasetFactory`` dataset (``QueueDataset``, ``InMemoryDataset``) of
+MultiSlot text files, parsed by the native slot parser (``native/``),
+local or remote (``fs``), drives ``Executor.train_from_dataset``
+(core/trainer.py: chunks of K steps of one lowered block); ``DataLoader``
+and ``DataFeeder`` feed ``Executor.run``; ``get_flags``/``set_flags``
+hold ``FLAGS_check_nan_inf`` and ``FLAGS_benchmark``.  No Executor
 meshes, sparse gradients or AMP yet.
 """
 from ._device import resolve_device, set_strict_fp32
@@ -62,6 +68,12 @@ from .param_attr import ParamAttr  # noqa: F401
 from . import profiler  # noqa: F401
 from . import resilience  # noqa: F401  (checkpoints, resilient train loop)
 from . import observability  # noqa: F401  (metrics registry, span tracer)
+from . import dataio, fs  # noqa: F401  (data pipeline, local/HDFS files)
+from .data_feeder import DataFeeder  # noqa: F401
+from .dataio import DataLoader  # noqa: F401
+from .dataset import (DatasetFactory, InMemoryDataset,  # noqa: F401
+                      QueueDataset)
+from .flags import get_flags, set_flags  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -89,4 +101,6 @@ __all__ = ["resolve_device", "set_strict_fp32", "__version__",
            "layers", "optimizer", "initializer", "io", "ParamAttr",
            "new_program_scope", "compiler", "BuildStrategy",
            "CompiledProgram", "gradients", "clip", "regularizer",
-           "resilience", "inference"]
+           "resilience", "inference", "fs", "dataio", "DataLoader",
+           "DataFeeder", "DatasetFactory", "InMemoryDataset", "QueueDataset",
+           "get_flags", "set_flags"]

@@ -11,8 +11,18 @@ GEMM-epilogue fusion pass (core/fusion.py) and its block patterns are on
 unless the CompiledProgram's ``BuildStrategy`` turns them off
 (``fuse_epilogues``, ``fuse_block_epilogues``), as in the JAX package.
 The knobs join the cache signature.  The JAX package's environment
-switches (``PADDLE_TPU_FUSE_EPILOGUES``, ``PADDLE_TPU_FUSE_BLOCK_EPILOGUES``),
-``FLAGS_check_nan_inf`` and AMP are not carried over.
+switches (``PADDLE_TPU_FUSE_EPILOGUES``, ``PADDLE_TPU_FUSE_BLOCK_EPILOGUES``)
+and AMP are not carried over.
+
+Flags (flags.py), as in the JAX executor: under ``FLAGS_check_nan_inf``
+the lowering scans every op's floating outputs (core/lowering.py; one
+host sync per op on the card) and the fusion pass is off, and the flag
+joins the cache signature; under ``FLAGS_benchmark`` each run waits for
+the card before it returns.
+
+Dataset-driven training: ``train_from_dataset`` and
+``infer_from_dataset`` drive a ``dataset.QueueDataset`` or
+``InMemoryDataset`` through core/trainer.py's multi-step loop.
 
 Placement: ``Executor()`` runs on the first CUDA card and raises when
 there is none; ``Executor(CPUPlace())`` runs the plain PyTorch path on
@@ -44,6 +54,7 @@ import torch
 from .. import _cuda
 from .. import profiler as _prof
 from .._rng import fold_seed
+from ..flags import flag as _flag
 from ..observability import tracing as _tracing
 from ..observability.monitor import (EXECUTOR_COMPILE_SECONDS,
                                      EXECUTOR_COMPILES,
@@ -102,6 +113,23 @@ def _record_optimizer_state_bytes(block, placed):
         pass
 
 
+def fusion_knobs(program):
+    """(program, the CompiledProgram or None, fuse_epilogues,
+    fuse_block_epilogues): a CompiledProgram's BuildStrategy knobs, read
+    before it is unwrapped; the default main program for None."""
+    fuse, fuse_block, compiled = True, True, None
+    if program is not None and hasattr(program, "build_strategy") \
+            and hasattr(program, "program"):
+        compiled = program
+        bs = program.build_strategy
+        fuse = bool(getattr(bs, "fuse_epilogues", True))
+        fuse_block = fuse and bool(getattr(bs, "fuse_block_epilogues",
+                                           True))
+        program = program.program
+    program = program if program is not None else default_main_program()
+    return program, compiled, fuse, fuse_block
+
+
 def _host_tensor(value):
     """A host value as a CPU tensor of the same shape (np.ascontiguousarray
     would turn a 0-d array — a beta power, the LR counter — into 1-d)."""
@@ -125,18 +153,11 @@ class Executor:
 
         Persistable outputs (parameters, optimizer accumulators) are
         written back into the scope, detached, after the step."""
-        fuse, fuse_block = True, True
-        compiled = None
-        if program is not None and hasattr(program, "build_strategy") \
-                and hasattr(program, "program"):
-            # a CompiledProgram: read its knobs before unwrapping it
-            compiled = program
-            bs = program.build_strategy
-            fuse = bool(getattr(bs, "fuse_epilogues", True))
-            fuse_block = fuse and bool(getattr(bs, "fuse_block_epilogues",
-                                               True))
-            program = program.program
-        program = program if program is not None else default_main_program()
+        program, compiled, fuse, fuse_block = fusion_knobs(program)
+        nan_check = _flag("FLAGS_check_nan_inf")
+        # the per-op scan must see every op's output: no fused groups
+        fuse = fuse and not nan_check
+        fuse_block = fuse_block and not nan_check
         feed = feed or {}
         fetch_list = fetch_list or []
         scope = scope or global_scope()
@@ -147,25 +168,52 @@ class Executor:
         dev_feed = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
         sig = (tuple(sorted((n, tuple(t.shape), str(t.dtype))
                             for n, t in dev_feed.items())), fetch_names,
-               str(self.device), fuse, fuse_block)
-        lowered = program._exec_cache.get(sig)
-        was_miss = lowered is None
-        if was_miss:
-            t0 = time.perf_counter()
-            lowered = lower_block(program, 0, tuple(dev_feed), fetch_names,
-                                  self.device, fuse_epilogues=fuse,
-                                  fuse_block_epilogues=fuse_block)
-            program._exec_cache[sig] = lowered
-            t1 = time.perf_counter()
-            _record_compile(t1 - t0)
-            _tracing.record_span(f"lower:{id(program)}", t0, t1)
+               str(self.device), fuse, fuse_block, nan_check)
+        lowered, was_miss = self._cached_lowering(
+            program, sig, lambda: lower_block(
+                program, 0, tuple(dev_feed), fetch_names, self.device,
+                fuse_epilogues=fuse, fuse_block_epilogues=fuse_block))
+        fetches = self._run_lowered(
+            program, lowered, scope,
+            lambda mut, const: lowered.fn(dev_feed, mut, const,
+                                          self._next_seed(program)),
+            # once per lowering: publish the optimizer-state footprint
+            record_state=was_miss and compiled is not None)
+        if return_numpy:
+            return [f.detach().cpu().numpy() for f in fetches]
+        return [f.detach() for f in fetches]
 
+    @staticmethod
+    def _cached_lowering(program, sig, make):
+        """(the program's lowering cached under ``sig``, whether it was a
+        miss).  A miss calls ``make()``, caches it, counts a compile and
+        records a ``lower:<id>`` span."""
+        lowered = program._exec_cache.get(sig)
+        if lowered is not None:
+            return lowered, False
+        t0 = time.perf_counter()
+        lowered = program._exec_cache[sig] = make()
+        t1 = time.perf_counter()
+        _record_compile(t1 - t0)
+        _tracing.record_span(f"lower:{id(program)}", t0, t1)
+        return lowered, True
+
+    def _run_lowered(self, program, lowered, scope, body, steps=1,
+                     record_state=False):
+        """The step body that ``run`` and the dataset trainer share:
+        read the lowering's mutable and constant persistables from the
+        scope, call ``body(mut, const) -> (fetches, new persistables)``
+        inside the ``run:<id>`` span (waiting for the card under the
+        profiler or ``FLAGS_benchmark``), count library loads made after
+        the lowering's first run, and write the new persistables back,
+        detached.  ``steps`` is how many steps ``body`` ran.  Returns the
+        fetches."""
+        block = program.global_block()
         mut = {n: self._from_scope(scope, block, n)
                for n in lowered.mut_param_names}
         const = {n: self._from_scope(scope, block, n)
                  for n in lowered.const_param_names}
-        if was_miss and compiled is not None:
-            # once per lowering: publish the optimizer-state footprint
+        if record_state:
             _record_optimizer_state_bytes(block, {**const, **mut})
         loads = _cuda.library_loads()
         t0 = time.perf_counter()
@@ -173,22 +221,21 @@ class Executor:
         # the trace holds it beside its op scopes and kernels
         with (torch.profiler.record_function(f"run:{id(program)}")
               if _prof.device_tracing() else contextlib.nullcontext()):
-            fetches, new_persist = lowered.fn(dev_feed, mut, const,
-                                              self._next_seed(program))
-            if _prof.is_profiling() and self.device.type == "cuda":
+            fetches, new_persist = body(mut, const)
+            if (_prof.is_profiling() or _flag("FLAGS_benchmark")) \
+                    and self.device.type == "cuda":
                 # wait for the card so the run: span covers its device
-                # time (the JAX executor's block_until_ready); untraced
+                # time (the JAX executor's block_until_ready); other
                 # runs stay asynchronous
                 torch.cuda.synchronize(self.device)
-        _tracing.record_span(f"run:{id(program)}", t0, time.perf_counter())
+        _tracing.record_span(f"run:{id(program)}", t0, time.perf_counter(),
+                             **({"steps": steps} if steps != 1 else {}))
         if lowered.runs > 0:
             self.compiles_after_first_step += _cuda.library_loads() - loads
-        lowered.runs += 1
+        lowered.runs += steps
         for n, v in new_persist.items():
             scope.set_var(n, v.detach())
-        if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
-        return [f.detach() for f in fetches]
+        return fetches
 
     def _feed_tensor(self, block, name, value):
         """A feed as a tensor on the device with the declared runtime
@@ -239,19 +286,25 @@ class Executor:
     def train_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
                            fetch_info=None, print_period=100):
-        """Dataset-driven training (parity: executor.py:1116) waits for
-        the port of ``core/trainer.py`` and ``dataset.py``."""
-        raise NotImplementedError(
-            "Executor.train_from_dataset needs core/trainer.py and "
-            "dataset.py, which are not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 3); drive Executor.run or "
-            "resilience.ResilientLoop with a feed function instead")
+        """Dataset-driven training with a multi-step loop (parity:
+        executor.py:1116 train_from_dataset and the C++ trainer/
+        DeviceWorker stack; see core/trainer.py).  A CompiledProgram's
+        fusion knobs apply, as in ``run``.  Returns the last step's
+        fetched values."""
+        from .trainer import run_from_dataset
+
+        program, _, fuse, fuse_block = fusion_knobs(program)
+        scope = scope or global_scope()
+        return run_from_dataset(self, program, dataset, scope, fetch_list,
+                                fetch_info, print_period, debug,
+                                thread=thread, fuse_epilogues=fuse,
+                                fuse_block_epilogues=fuse_block)
 
     def infer_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
                            fetch_info=None, print_period=100):
-        """Parity: executor.py:1049 — the same loop over a
-        clone(for_test=True) program; waits with train_from_dataset."""
+        """Parity: executor.py:1049 — the same loop, over a
+        clone(for_test=True) program with no optimizer ops."""
         return self.train_from_dataset(program, dataset, scope, thread,
                                        debug, fetch_list, fetch_info,
                                        print_period)

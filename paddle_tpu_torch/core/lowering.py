@@ -40,6 +40,11 @@ autograd on leaf copies of its declared inputs, so its ``vjp_grad`` op
 differentiates through the loop as one ``autograd.grad``; reads the op
 does not declare stay constants, as in the JAX package.
 
+``FLAGS_check_nan_inf`` (flags.py): every floating output an op writes
+is scanned for NaN and Inf, and the first raises ``RuntimeError`` naming
+the op's index, type and output, as in the JAX lowering.  The flag is
+read once per op list; off, the step pays that one read.
+
 Not ported: recompute, pipeline and AMP.  Their ops are not registered,
 so a program that holds one raises at run time, naming the op.
 """
@@ -52,6 +57,7 @@ import torch
 
 from .. import profiler as _prof
 from .._rng import fold_seed
+from ..flags import flag as _flag
 from .fusion import UNBOUND, FusionExec, plan_fusion, run_fused_grad, \
     run_fused_group
 from .program import EMPTY_VAR_NAME, Program
@@ -184,6 +190,7 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
     program's) is ORed into every op's own ``is_test`` attr."""
     plan = fusion.plan if fusion is not None else None
     scoped = _prof.device_tracing()
+    nan_check = _flag("FLAGS_check_nan_inf")
     for i, op in enumerate(ops):
         if plan is not None and op.uid in plan.skip_uids:
             continue
@@ -233,7 +240,26 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
             for n, v in zip(names, vals):
                 if n != EMPTY_VAR_NAME and v is not UNBOUND:
                     env[n] = v
+                    if nan_check:
+                        _check_nan_inf(op, i, n, v)
     return env
+
+
+def _check_nan_inf(op, op_idx, name, value):
+    """Per-op output scan (parity: FLAGS_check_nan_inf,
+    framework/operator.cc:1029; the JAX lowering's ``_check_nan_inf``,
+    the same message).  One host sync per floating output on the card:
+    it runs only under the flag, which also turns the fusion pass off so
+    every op's output is seen."""
+    if not torch.is_tensor(value) or not value.is_floating_point():
+        return
+    if not bool(torch.isfinite(value).all()):
+        kind = "nan" if bool(torch.isnan(value).any()) else "inf"
+        dtype = str(value.dtype).replace("torch.", "")
+        raise RuntimeError(
+            f"Operator #{op_idx} '{op.type}' output '{name}' contains "
+            f"{kind} (FLAGS_check_nan_inf); shape={tuple(value.shape)} "
+            f"dtype={dtype}")
 
 
 def _run_block_op(program, op, env, seed, vjps, vjp_uids, device, is_test):

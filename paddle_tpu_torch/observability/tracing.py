@@ -18,7 +18,7 @@ line them up against the Kineto device trace on one timeline.
 Propagation is a :mod:`contextvars` variable, so nesting follows the
 logical call tree, not the thread: the serving batcher adopts the
 submitting client's span context (:func:`attach`) before executing a
-batch (the dataio prefetch worker comes with the dataio slice) — queue
+batch and the dataio prefetch worker adopts its consumer's — queue
 waits and cross-thread work join the trace that caused them instead of
 dangling as parentless events.
 

@@ -91,7 +91,10 @@ _register_elementwise("min", torch.minimum)
 _register_elementwise("pow", torch.pow)
 # jnp.mod and jnp.floor_divide round toward -inf, as torch's do
 _register_elementwise("mod", torch.remainder)
-_register_elementwise("floordiv", torch.floor_divide)
+# jnp.floor_divide's gradient is zero; torch's has none (autograd raises),
+# so the operands leave the graph and the vjp hands back zeros
+_register_elementwise("floordiv", lambda x, y: torch.floor_divide(
+    x.detach(), y.detach()))
 
 
 @register_op("scale", inputs=("X",), outputs=("Out",))
@@ -106,10 +109,23 @@ def scale(ctx, inputs, attrs):
     return out(Out=(x + b) * s)
 
 
+def _clip(x, lo, hi):
+    """jnp.clip's expression, minimum(maximum(x, lo), hi): at x == lo or
+    hi the gradient is split between the two operands (0.5), where
+    torch.clamp passes it whole."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype,
+                                        device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype,
+                                        device=x.device))
+    return x
+
+
 @register_op("clip", inputs=("X",), outputs=("Out",))
 def clip(ctx, inputs, attrs):
-    x = single(inputs, "X")
-    return out(Out=torch.clamp(x, attrs.get("min"), attrs.get("max")))
+    return out(Out=_clip(single(inputs, "X"), attrs.get("min"),
+                         attrs.get("max")))
 
 
 @register_op("clip_by_norm", inputs=("X",), outputs=("Out",))
@@ -129,6 +145,12 @@ def _reduce_prod(x, dim=None, keepdim=False):
     for d in sorted(dim, reverse=True):
         x = torch.prod(x, dim=d, keepdim=keepdim)
     return x
+
+
+def _float_mean_input(x):
+    """jnp.mean of integer or bool input is float32; torch.mean raises."""
+    return x if x.is_floating_point() or x.is_complex() else \
+        x.to(torch.float32)
 
 
 def _register_reduce(name, fn):
@@ -152,7 +174,8 @@ def _register_reduce(name, fn):
 
 
 _register_reduce("sum", torch.sum)
-_register_reduce("mean", torch.mean)
+_register_reduce("mean", lambda x, **kw: torch.mean(_float_mean_input(x),
+                                                  **kw))
 _register_reduce("max", torch.amax)
 _register_reduce("min", torch.amin)
 _register_reduce("prod", _reduce_prod)
@@ -162,7 +185,7 @@ _register_reduce("any", torch.any)
 
 @register_op("mean", inputs=("X",), outputs=("Out",))
 def mean(ctx, inputs, attrs):
-    return out(Out=single(inputs, "X").mean())
+    return out(Out=_float_mean_input(single(inputs, "X")).mean())
 
 
 @register_op("squared_l2_norm", inputs=("X",), outputs=("Out",))
@@ -178,6 +201,58 @@ def frobenius_norm(ctx, inputs, attrs):
 
 
 # -- unary activations (parity: activation_op.cc) ---------------------------
+
+class _AbsFn(torch.autograd.Function):
+    """|x| with jnp.abs's gradient: sign where x >= 0 picks +1, so the
+    gradient at 0 is 1 (torch.abs gives 0 there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs(x):
+    if x.requires_grad and x.is_floating_point():
+        return _AbsFn.apply(x)
+    return torch.abs(x)
+
+
+def _sign(x):
+    """jnp.sign: NaN stays NaN and -0.0 stays -0.0 (torch.sign gives 0.0
+    for both); the gradient is zero, as torch.sign's."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    keep = (x == 0) | torch.isnan(x)
+    return torch.where(keep, x.detach(), torch.sign(x))
+
+
+# (device type, dtype, form) -> whether F.gelu gives NaN at +inf there
+_GELU_INF_IS_NAN = {}
+
+
+def _gelu(x, approximate):
+    """F.gelu, with jax.nn.gelu's +inf at +inf.  F.gelu's vectorized CPU
+    kernel for the erf form gives NaN there; a 64-element probe, run once
+    per device type, dtype and form, decides whether this device needs
+    the guard, so a device whose kernel is right pays nothing for it."""
+    form = "tanh" if approximate else "none"
+    y = F.gelu(x, approximate=form)
+    if x.is_meta:   # shape inference: nothing to probe
+        return y
+    key = (x.device.type, x.dtype, form)
+    guard = _GELU_INF_IS_NAN.get(key)
+    if guard is None:
+        probe = F.gelu(torch.full((64,), float("inf"), dtype=x.dtype,
+                                  device=x.device), approximate=form)
+        guard = _GELU_INF_IS_NAN[key] = bool(torch.isnan(probe).any())
+    return torch.where(x == float("inf"), x, y) if guard else y
+
 
 def _register_unary(name, fn):
     @register_op(name, inputs=("X",), outputs=("Out",))
@@ -196,13 +271,13 @@ _register_unary("log1p", lambda x, a: torch.log1p(x))
 _register_unary("sqrt", lambda x, a: torch.sqrt(x))
 _register_unary("rsqrt", lambda x, a: torch.rsqrt(x))
 _register_unary("square", lambda x, a: x * x)
-_register_unary("abs", lambda x, a: torch.abs(x))
+_register_unary("abs", lambda x, a: _abs(x))
 _register_unary("ceil", lambda x, a: torch.ceil(x))
 _register_unary("floor", lambda x, a: torch.floor(x))
 # half to even, as jnp.round
 _register_unary("round", lambda x, a: torch.round(x))
 _register_unary("reciprocal", lambda x, a: 1.0 / x)
-_register_unary("sign", lambda x, a: torch.sign(x))
+_register_unary("sign", lambda x, a: _sign(x))
 _register_unary("sin", lambda x, a: torch.sin(x))
 _register_unary("cos", lambda x, a: torch.cos(x))
 _register_unary("tan", lambda x, a: torch.tan(x))
@@ -213,22 +288,22 @@ _register_unary("sinh", lambda x, a: torch.sinh(x))
 _register_unary("cosh", lambda x, a: torch.cosh(x))
 _register_unary("erf", lambda x, a: torch.erf(x))
 # exact-erf gelu unless asked otherwise, as the JAX op's default
-_register_unary("gelu", lambda x, a: F.gelu(
-    x, approximate="tanh" if a.get("approximate", False) else "none"))
-_register_unary("leaky_relu", lambda x, a: F.leaky_relu(
-    x, negative_slope=a.get("alpha", 0.02)))
+_register_unary("gelu", lambda x, a: _gelu(x, a.get("approximate", False)))
+# jax.nn.leaky_relu's where(x >= 0, ...): the gradient at 0 is 1
+_register_unary("leaky_relu", lambda x, a: torch.where(
+    x >= 0, x, a.get("alpha", 0.02) * x))
 _register_unary("elu", lambda x, a: F.elu(x, alpha=a.get("alpha", 1.0)))
 # log(1 + e^x) without F.softplus's linear cut past 20, as jax.nn.softplus
 _register_unary("softplus", lambda x, a: torch.logaddexp(
     x, torch.zeros_like(x)))
 _register_unary("softsign", lambda x, a: x / (1.0 + torch.abs(x)))
-_register_unary("relu6", lambda x, a: torch.clamp(
+_register_unary("relu6", lambda x, a: _clip(
     x, 0.0, a.get("threshold", 6.0)))
 _register_unary("swish", lambda x, a: x * torch.sigmoid(
     a.get("beta", 1.0) * x))
-_register_unary("hard_sigmoid", lambda x, a: torch.clamp(
+_register_unary("hard_sigmoid", lambda x, a: _clip(
     a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
-_register_unary("hard_swish", lambda x, a: x * torch.clamp(
+_register_unary("hard_swish", lambda x, a: x * _clip(
     x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
     / a.get("scale", 6.0))
 _register_unary("logsigmoid", lambda x, a: F.logsigmoid(x))
@@ -317,8 +392,11 @@ def arg_min(ctx, inputs, attrs):
              no_grad_slots=("X",))
 def top_k(ctx, inputs, attrs):
     x = single(inputs, "X")
-    vals, idx = torch.topk(x, attrs.get("k", 1), dim=-1)
-    return out(Out=vals, Indices=idx.to(torch.int32))
+    k = attrs.get("k", 1)
+    # jax.lax.top_k puts the lower index first among equal values;
+    # torch.topk leaves their order open, a stable descending sort keeps it
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return out(Out=vals[..., :k], Indices=idx[..., :k].to(torch.int32))
 
 
 @register_op("cumsum", inputs=("X",), outputs=("Out",))

@@ -11,6 +11,9 @@ copy.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -53,7 +56,49 @@ def assign_value(ctx, inputs, attrs):
 @register_op("cast", inputs=("X",), outputs=("Out",))
 def cast(ctx, inputs, attrs):
     dtype = runtime_dtype(attrs.get("out_dtype", attrs.get("dtype", "float32")))
-    return out(Out=single(inputs, "X").to(dtype))
+    x = single(inputs, "X")
+    if x.is_floating_point() and dtype != torch.bool \
+            and not dtype.is_floating_point and not dtype.is_complex:
+        return out(Out=_saturating_cast(x, dtype))
+    return out(Out=x.to(dtype))
+
+
+def _saturating_cast(x, dtype):
+    """Float to integer as XLA's convert: NaN gives 0, and a value past
+    the type's range (an infinity included) gives its nearest end.
+    Tensor.to leaves those conversions undefined (int32 NaN -> INT_MIN,
+    uint8 300.0 -> 44).  A clamp to the float type's values nearest the
+    range from inside it and a NaN -> 0 keep only exact conversions; an
+    end the float type cannot hold (int32's max in float32) is set
+    after, where the input passed it.  Three ops (five for such an end):
+    the decoder's step casts its token buffer each step."""
+    info = torch.iinfo(dtype)
+    lo, hi = _cast_bounds(x.dtype, dtype)
+    y = x.clamp(lo, hi).nan_to_num_(0.0).to(dtype)
+    if hi < info.max:
+        y = y.masked_fill(x > hi, info.max)
+    if lo > info.min:
+        y = y.masked_fill(x < lo, info.min)
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _cast_bounds(float_dtype, int_dtype):
+    """(lo, hi): the values of ``float_dtype`` nearest to ``int_dtype``'s
+    range from inside it (its finite max where the range is wider)."""
+    fi, ii = torch.finfo(float_dtype), torch.iinfo(int_dtype)
+
+    def inside(end):
+        v = float(torch.tensor(float(end), dtype=torch.float64)
+                  .to(float_dtype))
+        if math.isinf(v):
+            return math.copysign(fi.max, end)
+        if abs(v) > abs(end):
+            # rounded past the end (2^k - 1 -> 2^k): one spacing back
+            v -= math.copysign(abs(v) * fi.eps / 2, end)
+        return v
+
+    return inside(ii.min), inside(ii.max)
 
 
 @register_op("reshape", inputs=("X",), outputs=("Out",))
@@ -154,9 +199,39 @@ def gather(ctx, inputs, attrs):
     x = single(inputs, "X")
     index = single(inputs, "Index")
     axis = attrs.get("axis", 0) % x.dim()
-    picked = torch.index_select(x, axis, index.reshape(-1).long())
-    return out(Out=picked.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
-                                  + tuple(x.shape[axis + 1:])))
+    safe, invalid = _take_index(index, x.shape[axis])
+    picked = torch.index_select(x, axis, safe.reshape(-1))
+    picked = picked.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
+                            + tuple(x.shape[axis + 1:]))
+    invalid = invalid.reshape((1,) * axis + tuple(index.shape)
+                              + (1,) * (x.dim() - axis - 1))
+    return out(Out=_fill_invalid(picked, invalid))
+
+
+def _take_index(index, n):
+    """jnp.take's default index rule over an axis of ``n``: an index in
+    [-n, 0) wraps, one outside [-n, n) selects the fill row.  Returns
+    (an index in [0, n), int64; the mask of the entries to fill), so that
+    no index out of range reaches a gather kernel (on the card that is a
+    device-side assert).  Three ops: a decode step is host-bound."""
+    idx = index.long()
+    return idx.remainder(n), idx.clamp(-n, n - 1) != idx
+
+
+def _fill_invalid(picked, invalid):
+    """``picked`` with the rows where ``invalid`` holds set to jnp.take's
+    fill value: NaN for floats, True for bool, the type's largest value
+    for unsigned and its smallest for signed integers.  The gradient of
+    a filled row is zero."""
+    dt = picked.dtype
+    if dt.is_floating_point or dt.is_complex:
+        fill = float("nan")
+    elif dt == torch.bool:
+        fill = True
+    else:
+        info = torch.iinfo(dt)
+        fill = info.max if info.min == 0 else info.min
+    return picked.masked_fill(invalid, fill)
 
 
 @register_op("scatter", inputs=("X", "Ids", "Updates"), outputs=("Out",),
@@ -189,11 +264,13 @@ def lookup_table(ctx, inputs, attrs):
     ids = single(inputs, "Ids")
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    res = F.embedding(ids.long(), w)
+    # jnp.take's index rule: a negative id wraps, one past the table
+    # gives a NaN row
+    safe, invalid = _take_index(ids, w.shape[0])
+    res = _fill_invalid(F.embedding(safe, w), invalid[..., None])
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
-        res = torch.where((ids != padding_idx)[..., None], res,
-                          torch.zeros_like(res))
+        res = res.masked_fill((ids == padding_idx)[..., None], 0.0)
     return out(Out=res)
 
 
@@ -238,6 +315,9 @@ def tril_triu(ctx, inputs, attrs):
 def pad(ctx, inputs, attrs):
     x = single(inputs, "X")
     paddings = attrs["paddings"]  # flat [before0, after0, before1, ...]
+    if any(p < 0 for p in paddings):
+        # jnp.pad refuses them; F.pad would crop
+        raise ValueError(f"pad: negative paddings {list(paddings)}")
     # F.pad takes the last dim's pair first
     flat = []
     for i in reversed(range(x.dim())):

@@ -41,8 +41,9 @@ format: a version written by one package restores in the other (the
 port keeps the LR counter in int64 where the JAX package holds 32 bits;
 each executor casts on placement).  The snapshot is a host copy of every
 persistable taken on the step path; the disk work may run on a
-background writer.  Mirroring to a remote store (``upload_to``) waits
-for the port of ``fs.py`` (ROADMAP.md, Queue 1 item 6).
+background writer.  ``upload_to`` mirrors each new version to a remote
+store through ``fs`` (HadoopFS commands retry transient failures with
+backoff), the ``latest`` pointer last.
 """
 from __future__ import annotations
 
@@ -119,15 +120,12 @@ class CheckpointManager:
     """Versioned checkpoint store for one training program.
 
     ``keep``: how many intact versions to retain (None = all).
-    ``upload_to``: a remote mirror; it raises until ``fs.py`` is ported.
+    ``upload_to``: optional remote url (e.g. ``hdfs://ns/ckpt``) each
+    new version is mirrored to through the `fs` layer — HadoopFS
+    commands are themselves retried with backoff on transient failures.
     """
 
     def __init__(self, root, keep=3, upload_to=None):
-        if upload_to:
-            raise NotImplementedError(
-                "CheckpointManager(upload_to=...) mirrors versions through "
-                "fs.py, which is not ported to paddle_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 6)")
         self.root = str(root)
         self.keep = keep
         self.upload_to = upload_to
@@ -318,6 +316,8 @@ class CheckpointManager:
         _atomic_write_text(os.path.join(self.root, LATEST_FILENAME),
                            _version_name(step))
         self._gc()
+        if self.upload_to:
+            self._upload_version(_version_name(step))
         return final
 
     @staticmethod
@@ -369,6 +369,19 @@ class CheckpointManager:
                 continue
             shutil.rmtree(os.path.join(self.root, _version_name(s)),
                           ignore_errors=True)
+
+    def _upload_version(self, version):
+        from .. import fs
+
+        src = os.path.join(self.root, version)
+        dst = f"{self.upload_to.rstrip('/')}/{version}"
+        fs.mkdir(dst)
+        for name in sorted(os.listdir(src)):
+            fs.upload(os.path.join(src, name), f"{dst}/{name}")
+        # pointer last: a remote reader never sees `latest` name a
+        # version whose files are still uploading
+        fs.upload(os.path.join(self.root, LATEST_FILENAME),
+                  f"{self.upload_to.rstrip('/')}/{LATEST_FILENAME}")
 
     # -- restore -----------------------------------------------------------
     def restore(self, program=None, scope=None, strict=True):

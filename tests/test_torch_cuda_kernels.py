@@ -1118,3 +1118,23 @@ def test_a_nan_operand_stays_nan_through_the_tensor_core_kernels(device,
     y = fc.fused_ffn_chain(x2, w1, None, w2,
                            spec=fm.EpilogueSpec(act="gelu"))
     assert _nan_rows(y.reshape(B, T, H)) == want                      # #11
+
+
+def test_dataloader_double_buffer_lands_on_the_card(device):
+    """The DataLoader's double buffer on a card (pinned host copies on a
+    side stream, the consumer's stream waiting on their event): every
+    batch arrives on the card equal to its host array, across more
+    batches than the queue holds, and is used right away by a kernel."""
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+
+    loader = pt.DataLoader.from_generator(feed_list=["x"], capacity=2)
+    loader.set_batch_generator(lambda: ({"x": np.full((512, 512), i,
+                                                      np.float32)}
+                                        for i in range(24)))
+    sums = []
+    for b in loader:
+        assert b["x"].device.type == "cuda"
+        sums.append(b["x"].sum())
+    assert [float(s) for s in sums] == [i * 512.0 * 512 for i in range(24)]

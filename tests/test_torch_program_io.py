@@ -333,10 +333,35 @@ def test_gradients_of_an_input():
     np.testing.assert_allclose(got, 2 * xv)
 
 
-def test_train_from_dataset_waits_for_the_trainer():
-    exe = pt.Executor(pt.CPUPlace())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        exe.train_from_dataset(pt.Program(), None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        exe.infer_from_dataset(pt.Program(), None)
+def test_train_from_dataset_waits_for_the_trainer(tmp_path):
+    """The trainer is ported: train_from_dataset trains a program from a
+    MultiSlot file and infer_from_dataset runs its test clone over the
+    same file (the same fetch as Executor.run on the last batch)."""
+    path = tmp_path / "part-0"
+    rng = np.random.RandomState(0)
+    with open(path, "w") as f:
+        for _ in range(8):
+            f.write("3 " + " ".join(f"{v:.3f}" for v in rng.rand(3)) + "\n")
+    with pt.new_program_scope():
+        pt.default_startup_program().random_seed = 2
+        x = pt.data("x", [None, 3])
+        loss = pt.layers.mean(pt.layers.square(pt.layers.fc(x, 1)))
+        test = pt.default_main_program().clone(for_test=True)
+        pt.optimizer.SGD(0.1).minimize(loss)
+        ds = pt.DatasetFactory().create_dataset("InMemoryDataset")
+        ds.set_batch_size(4)
+        ds.set_use_var([x])
+        ds.set_filelist([str(path)])
+        ds.set_steps_per_dispatch(2)
+        ds.load_into_memory()
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(pt.default_startup_program())
+        (trained,) = exe.train_from_dataset(fetch_list=[loss],
+                                            dataset=ds, print_period=0)
+        (inferred,) = exe.infer_from_dataset(test, ds, fetch_list=[loss],
+                                             print_period=0)
+        last = list(ds.batches())[-1]
+        (direct,) = exe.run(test, feed=last, fetch_list=[loss])
+    assert np.isfinite(trained)
+    np.testing.assert_array_equal(inferred, direct)
     exe.close()

@@ -248,9 +248,27 @@ def test_blocking_save_drains_pending_async_saves(tmp_path):
     mgr.close()
 
 
-def test_upload_waits_for_fs():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        CheckpointManager("unused", upload_to="hdfs://ns/ckpt")
+def test_upload_waits_for_fs(tmp_path):
+    """``upload_to`` mirrors each version through the port's ``fs``
+    (here a local directory: LocalFS), files then the ``latest``
+    pointer; retention applies to the local root only."""
+    prog, scope, names = _param_program()
+    remote = tmp_path / "mirror"
+    mgr = CheckpointManager(str(tmp_path / "ck"), keep=1,
+                            upload_to=str(remote))
+    for step in (1, 2):
+        _stamp(scope, names, step)
+        mgr.save(step, program=prog, scope=scope)
+    assert mgr.versions() == [2]
+    assert (remote / "latest").read_text() == "ckpt-00000002"
+    for step in (1, 2):
+        v = f"ckpt-{step:08d}"
+        assert sorted(os.listdir(remote / v)) == sorted(
+            os.listdir(tmp_path / "ck" / "ckpt-00000002"))
+    with np.load(remote / "ckpt-00000002" / "__params__.npz") as z:
+        for n in names:
+            np.testing.assert_array_equal(
+                z[n], _host(scope.find_var(n)))
 
 
 # -- ResilientLoop ----------------------------------------------------------

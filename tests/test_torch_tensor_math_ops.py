@@ -377,3 +377,194 @@ def test_variable_bool_raises():
         x = pt.data("x", [2])
         with pytest.raises(TypeError, match="undefined in a static graph"):
             bool(x > 0.0)
+
+
+# -- the faults closed against the reference: ties, NaN, out-of-range
+# indices, integer means, saturating casts, gradients at kinks ----------
+#
+# Each case fed the port a value the earlier random cases never did (a
+# tie, a NaN, an index out of range, a point on a kink).  Values are
+# compared as above, NaN equal to NaN; the sign of a zero is compared
+# too; gradients within 1e-6.
+
+_NAN, _INF = float("nan"), float("inf")
+
+FAULT_CASES = {
+    "top_k_ties": ("top_k", {"X": [np.array([[0, 0, 0, 0], [1, 1, 2, 2]],
+                                            np.float32)]}, {"k": 2}),
+    "top_k_ties_int32": ("top_k", {"X": [np.array([[5, 5, 5, 1]],
+                                                  np.int32)]}, {"k": 3}),
+    "gather_wraps_and_fills": ("gather", {
+        "X": [np.arange(8, dtype=np.float32).reshape(4, 2)],
+        "Index": [np.array([-1, 5, -5, 0, -4], np.int32)]}, {"axis": 0}),
+    "gather_fills_axis1": ("gather", {
+        "X": [np.arange(12, dtype=np.float32).reshape(2, 3, 2)],
+        "Index": [np.array([[3, -3], [-4, 2]], np.int64)]}, {"axis": 1}),
+    "gather_fills_int32": ("gather", {
+        "X": [np.arange(8, dtype=np.int32).reshape(4, 2)],
+        "Index": [np.array([-1, 5, -5, 0], np.int32)]}, {"axis": 0}),
+    "gather_fills_uint8": ("gather", {
+        "X": [np.arange(8, dtype=np.uint8).reshape(4, 2)],
+        "Index": [np.array([5, 1], np.int32)]}, {"axis": 0}),
+    "gather_fills_bool": ("gather", {
+        "X": [np.array([True, False, False])],
+        "Index": [np.array([4, 1, -1], np.int32)]}, {"axis": 0}),
+    "lookup_table_wraps_and_fills": ("lookup_table", {
+        "W": [np.arange(12, dtype=np.float32).reshape(4, 3)],
+        "Ids": [np.array([[-1], [4], [0], [-5], [2]], np.int64)]}, {}),
+    "lookup_table_fills_padding_idx": ("lookup_table", {
+        "W": [np.arange(12, dtype=np.float32).reshape(4, 3)],
+        "Ids": [np.array([[1, 7], [-2, 1]], np.int64)]}, {"padding_idx": 1}),
+    "sign_nan_and_signed_zero": ("sign", {"X": [np.array(
+        [_NAN, -0.0, 0.0, -2.5, 3.0, -_INF], np.float32)]}, {}),
+    "mean_int32": ("mean", {"X": [np.array([[1, 2], [3, 5]], np.int32)]},
+                   {}),
+    "mean_bool": ("mean", {"X": [np.array([True, False, True])]}, {}),
+    "reduce_mean_int32": ("reduce_mean", {"X": [np.array([[1, 2]],
+                                                         np.int32)]},
+                          {"dim": [1], "keep_dim": False}),
+    "reduce_mean_int64_all": ("reduce_mean", {"X": [np.array(
+        [[1, 2], [4, 4]], np.int64)]}, {"reduce_all": True}),
+    "cast_to_int32_saturates": ("cast", {"X": [np.array(
+        [_NAN, _INF, -_INF, 1e10, -1e10, -1.0, 300.0, 2.7, -2.7],
+        np.float32)]}, {"out_dtype": "int32"}),
+    "cast_to_uint8_saturates": ("cast", {"X": [np.array(
+        [_NAN, _INF, -_INF, 1e10, -1.0, 300.0, 255.5, 2.7], np.float32)]},
+        {"out_dtype": "uint8"}),
+    # float32's values next to int32's ends: 2^31 - 128 converts exactly,
+    # 2^31 and past it saturate, -2^31 is the end itself
+    "cast_to_int32_at_its_ends": ("cast", {"X": [np.array(
+        [2147483520.0, 2147483648.0, -2147483648.0, -2147483904.0],
+        np.float32)]}, {"out_dtype": "int32"}),
+    # float16 cannot hold int32's ends: only its infinities reach them
+    "cast_half_to_int32_saturates": ("cast", {"X": [np.array(
+        [_NAN, _INF, -_INF, 65504.0, -65504.0, 2.5, -2.5], np.float16)]},
+        {"out_dtype": "int32"}),
+    "gelu_infinities": ("gelu", {"X": [np.array([_INF, -_INF, _NAN, 1.0,
+                                                 -1.0], np.float32)]}, {}),
+    "gelu_tanh_infinities": ("gelu", {"X": [np.array(
+        [_INF, 1.0, -1.0], np.float32)]}, {"approximate": True}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_CASES))
+def test_fault_case_matches_the_jax_op(name):
+    op, ins, attrs = FAULT_CASES[name]
+    want = _jax_compute(op, ins, attrs)
+    got = _port_compute(op, ins, attrs)
+    for slot in want:
+        for j, (g, w) in enumerate(zip(got[slot], want[slot])):
+            g, w = g.numpy(), np.asarray(w)
+            if not np.issubdtype(w.dtype, np.floating):
+                _check(g, w, f"{name}:{slot}[{j}]")
+                continue
+            # _check's scale over the finite entries (an infinity in
+            # want would make its atol NaN)
+            finite = np.isfinite(w)
+            scale = float(np.abs(w[finite]).max()) if finite.any() else 0.
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=RTOL * scale,
+                                       err_msg=f"{name}:{slot}[{j}]")
+            zero = w == 0
+            if zero.any():
+                np.testing.assert_array_equal(
+                    np.signbit(g[zero]), np.signbit(w[zero]),
+                    err_msg=f"{name}: the sign of a zero")
+
+
+# (op, attrs, points): each op's gradient at its kinks, and beside them
+KINK_CASES = {
+    "clip": ("clip", {"min": -1.5, "max": 2.0}, [-1.5, 2.0, 0.3, -3.0]),
+    "clip_min_only": ("clip", {"min": 0.5}, [0.5, 1.0, -1.0]),
+    "relu6": ("relu6", {}, [0.0, 6.0, 3.0, 7.0, -1.0]),
+    "relu6_threshold": ("relu6", {"threshold": 2.0}, [0.0, 2.0]),
+    "abs": ("abs", {}, [0.0, -0.0, 1.5, -2.0]),
+    "leaky_relu": ("leaky_relu", {}, [0.0, -1.0, 2.0]),
+    "leaky_relu_alpha": ("leaky_relu", {"alpha": 0.1}, [0.0, -0.0, -3.0]),
+    "hard_sigmoid": ("hard_sigmoid", {}, [-2.5, 2.5, 0.0, 3.0]),
+    "hard_swish": ("hard_swish", {}, [-3.0, 3.0, 0.0, -4.0, 4.0]),
+    "sign": ("sign", {}, [0.0, 1.0, -1.0]),
+}
+
+
+def _jax_grad(op, x, attrs):
+    import jax
+
+    ctx = JCtx(rng=None, is_test=False, attrs=attrs)
+    fn = JREG.get(op).compute
+    return np.asarray(jax.grad(lambda v: fn(ctx, {"X": [v]}, attrs)[
+        "Out"][0].sum())(jnp.asarray(x)))
+
+
+def _port_grad(op, x, attrs):
+    ctx = PCtx(rng=None, is_test=False, attrs=attrs,
+               device=torch.device("cpu"))
+    t = torch.tensor(x, requires_grad=True)
+    y = PREG.get(op).compute(ctx, {"X": [t]}, attrs)["Out"][0]
+    (g,) = torch.autograd.grad(y.sum(), t)
+    return g.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(KINK_CASES))
+def test_gradient_at_kinks_matches_jax(name):
+    op, attrs, points = KINK_CASES[name]
+    x = np.array(points, np.float32)
+    np.testing.assert_allclose(_port_grad(op, x, attrs),
+                               _jax_grad(op, x, attrs), rtol=1e-6,
+                               atol=1e-6, err_msg=name)
+
+
+def _floordiv_program(P):
+    main, startup = P.Program(), P.Program()
+    with P.program_guard(main, startup), P.unique_name.guard():
+        x = P.data("x", [2, 3])
+        x.stop_gradient = False
+        y = P.layers.elementwise_floordiv(x, P.layers.fill_constant(
+            [2, 3], "float32", 2.0))
+        loss = P.layers.mean(P.layers.elementwise_add(y, x * 3.0))
+        P.append_backward(loss)
+    return main, loss
+
+
+def test_floordiv_gradient_is_zero_as_in_jax():
+    """A loss through elementwise_floordiv trains: the floordiv adds a
+    zero gradient (jnp.floor_divide's), only x * 3 reaches x@GRAD."""
+    xv = np.array([[0.5, -1.5, 3.0], [4.5, -0.25, 7.0]], np.float32)
+    res = []
+    for P, place in ((jpt, jpt.CPUPlace()), (pt, pt.CPUPlace())):
+        main, loss = _floordiv_program(P)
+        with P.scope_guard(P.Scope()):
+            res.append(P.Executor(place).run(
+                main, feed={"x": xv}, fetch_list=[loss, "x@GRAD"]))
+    (jl, jg), (pl, pg) = res
+    np.testing.assert_allclose(pl, jl, rtol=1e-6)
+    np.testing.assert_allclose(pg, jg, rtol=1e-6)
+    np.testing.assert_allclose(pg, np.full((2, 3), 0.5, np.float32))
+
+
+def test_pad_refuses_negative_paddings_as_jax():
+    x = {"X": [np.ones((2, 3), np.float32)]}
+    attrs = {"paddings": [0, -1, 1, 0]}
+    with pytest.raises(ValueError):
+        _jax_compute("pad", x, attrs)
+    with pytest.raises(ValueError, match="negative paddings"):
+        _port_compute("pad", x, attrs)
+
+
+def test_out_of_range_ids_never_reach_the_gather():
+    """The lookup gradient of a filled row is zero and the table's other
+    rows get theirs (no index past the table reaches F.embedding).  The
+    gradient flows from every row of the output, filled ones included;
+    the out-of-range ids 4 and -6 wrap onto rows 0 and 2, which no valid
+    id reaches, so those rows must get nothing."""
+    ctx = PCtx(rng=None, is_test=False, attrs={},
+               device=torch.device("cpu"))
+    w = torch.arange(12, dtype=torch.float32).reshape(4, 3).requires_grad_()
+    ids = torch.tensor([[4], [1], [-1], [-6]])
+    y = PREG.get("lookup_table").compute(ctx, {"W": [w], "Ids": [ids]},
+                                         {})["Out"][0]
+    assert torch.isnan(y[0]).all() and torch.isnan(y[3]).all()
+    (g,) = torch.autograd.grad(y, w, torch.ones_like(y))
+    want = np.zeros((4, 3), np.float32)
+    want[1] = want[3] = 1.0
+    np.testing.assert_array_equal(g.numpy(), want)
