@@ -229,14 +229,58 @@ Phases (any failure exits non-zero and prints no result):
    e. FLAGS_check_nan_inf: train_from_dataset refuses it (ValueError);
       Executor.run of the log of a negative feed raises RuntimeError
       naming log and nan; a clean feed passes.
+13. the rest of training (phase 3's seed):
+   a. build_bert_pretrain(BertConfig.base(), 128, max_masked=20) —
+      the masked-position head, as bench.py builds its feeds (20
+      distinct positions a row as pos + b·L, labels the ids there) —
+      dropout 0.1, Adam(1e-4), 32 x 128, 2 warm-up and 10 timed steps
+      through the default fused program: 12 attention, 13 fused-matmul
+      and 12 FFN-chain groups (the JAX planner's plan, which the CPU
+      tests hold group for group), the five fused-step kernels once per
+      layer per step, the packed forward and every plain version never,
+      no library loaded after the first step, finite losses; step ms
+      and tokens/s beside phase 5's dense head in turns in this call,
+      one profiled step of each (the difference of their device ms is
+      the heads'); the three-way parity gate of phase 5 on the masked
+      programs; the masked loss within 1e-4 relative of the dense
+      head's whose labels mark the same positions;
+   b. RecomputeOptimizer(Adam(1e-4)) with the 13 boundaries (the
+      embedding's and each layer's output) as checkpoints, against the
+      same program unfused without Recompute: no fusion plan, the packed
+      forward at most twice per layer per step and the dq and dk/dv
+      kernels once, no plain version, a lower peak memory (both
+      reported, and both step ms), at dropout 0.1 the first loss equal,
+      at dropout 0 five steps within 2e-3 and the first step's gradients
+      within a relative norm error of 1e-3;
+   c. tests/test_sparse_grad.py's extra-fc program at a 1,000,000 x 128
+      table (512 MB) with 4096 Zipf-drawn ids a batch (1% written as
+      their negative alias), SGD(0.5), Adam(0.01) and Adam(0.01,
+      lazy_mode=True) with GradientClipByGlobalNorm(1.0), 5 steps each,
+      beside the dense program: SGD and Adam within 1e-5 relative of
+      dense (losses and the table's norm), lazy Adam's untouched rows
+      and their moments bit-unchanged, table@GRAD [4096, 128], each run
+      bit-equal to a rerun, and one step whose ids hold some past the
+      table changing only the rows of valid ids (no device-side
+      assert); step ms sparse against dense;
+   d. GradientMerge(k=4) on (a)'s program at dropout 0 over 4 batches
+      of 8: the parameters' bits unchanged on steps 1-3, after step 4
+      within a relative norm error of 1e-4 of one Adam step on the
+      32-row batch; EMA(0.999) on (a)'s program: inside apply the
+      script's bias-corrected average within 1e-6, after restore the
+      same bits; ModelAverage, Lookahead and DGC momentum on their CPU
+      test programs, 6 steps on the card within 1e-5 of the CPU run;
+   e. the loss and metric ops (cross_entropy, sigmoid cross entropy,
+      smooth L1, Huber, accuracy, AUC) on the card against the CPU over
+      their tests' inputs, outputs and gradients within 1e-5.
 Phase 2 also holds the packed and the qkv-folded flash forwards at the
 decoder's causal shape (8 x 128, 12 heads of 64, no key bias) against
 their plain versions and times them beside SDPA's causal forward.
 
 Before the card's line come {"observability": {...}} (phase 8's
 numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
-{"control_flow": {...}} (phase 11's), {"dataset": {...}} (phase 12's) and
-{"kernels": [...]}, one entry per
+{"control_flow": {...}} (phase 11's), {"dataset": {...}} (phase 12's),
+{"sparse_recompute": {...}} (phase 13's) and {"kernels": [...]}, one
+entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
@@ -244,7 +288,8 @@ fused training steps' for the other training kernels, phase 6's timed
 steps for the flat kernels; the packed flash forward adds one phase-11
 greedy generate's, and the qkv-folded forward, the fused matmul and the
 FFN chain one phase-11 logits run's, and the five fused-step kernels
-phase 12c's QueueDataset epoch's.  Details go to
+phase 12c's QueueDataset epoch's, 13a's timed steps' and (the packed
+forward, dq and dk/dv) 13b's Recompute steps'.  Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
@@ -2167,9 +2212,12 @@ def server_phase(engine, model_cfg):
 
 # -- phase 5: training ------------------------------------------------------
 
-def build_train(cfg):
-    """build_bert_pretrain(cfg, TRAIN_SEQ) + Adam(TRAIN_LR).minimize in
-    fresh programs -> (main, startup, loss, grad names, param names)."""
+def build_train(cfg, max_masked=None, wrap=None):
+    """build_bert_pretrain(cfg, TRAIN_SEQ, max_masked=...) +
+    Adam(TRAIN_LR).minimize in fresh programs -> (main, startup, loss,
+    grad names, param names).  ``wrap(adam, boundaries)`` returns the
+    optimizer to minimize with (phase 13's wrappers; ``boundaries`` are
+    the embedding's and every layer's outputs)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import build_bert_pretrain
 
@@ -2177,8 +2225,13 @@ def build_train(cfg):
     startup.random_seed = SEED + 11
     main.random_seed = SEED + 12
     with pt.program_guard(main, startup), pt.unique_name.guard():
-        loss, _ = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
-        _, params_grads = pt.optimizer.Adam(TRAIN_LR).minimize(loss)
+        loss, _, bounds = build_bert_pretrain(
+            cfg, seq_len=TRAIN_SEQ, max_masked=max_masked,
+            want_boundaries=True)
+        opt = pt.optimizer.Adam(TRAIN_LR)
+        if wrap is not None:
+            opt = wrap(opt, bounds)
+        _, params_grads = opt.minimize(loss)
     return (main, startup, loss, [g.name for _, g in params_grads],
             [p.name for p, _ in params_grads])
 
@@ -2562,14 +2615,16 @@ PARITY_RUNS = {
 }
 
 
-def parity_gate(device, exe, cfg):
+def parity_gate(device, exe, cfg, max_masked=None):
     """At dropout 0 from the same weights, PARITY_STEPS Adam steps of
     three programs: the fusion pass's default (the qkv-folded flash,
     fused matmul and FFN-chain kernels), the unfused lowering
     (``fuse_epilogues=False``: the packed flash kernels) and the plain
     matmul/softmax program (``fused_attention=False``, unfused: none of
     the port's kernels).  Each is held to the plain one, and each
-    launches its own kernels once per layer per step and no other."""
+    launches its own kernels once per layer per step and no other.
+    With ``max_masked``, the masked-position head's programs (phase
+    13a)."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -2581,7 +2636,8 @@ def parity_gate(device, exe, cfg):
     weights, lowerings = None, 0
     for name, (fused_attn, fuse, kernels) in PARITY_RUNS.items():
         main, startup, loss, grads, _ = build_train(
-            dataclasses.replace(cfg, fused_attention=fused_attn))
+            dataclasses.replace(cfg, fused_attention=fused_attn),
+            max_masked=max_masked)
         bs = pt.BuildStrategy()
         bs.fuse_epilogues = fuse
         program = pt.CompiledProgram(main, build_strategy=bs)
@@ -2596,7 +2652,8 @@ def parity_gate(device, exe, cfg):
                                      f"first in its persistables")
             for n, t in weights.items():
                 scope.set_var(n, t.clone())
-        feed = train_batch(cfg.vocab_size, device)
+        feed = (train_batch(cfg.vocab_size, device) if max_masked is None
+                else masked_batch(cfg.vocab_size, device)[0])
         losses, first = [], None
         _cuda.reset_launches()
         for step in range(PARITY_STEPS):
@@ -5555,6 +5612,848 @@ def dataset_phase(device, cfg, phase5_step_ms=float("nan")):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 13: the rest of training -------------------------------------------
+
+#: 13a: masked positions a row (bench.py's BERT-base: 20 at 128 tokens)
+MASKED = 20
+#: 13a: the masked head's loss against the dense head's on the same
+#: positions (relative)
+MASKED_LOSS_RTOL = 1e-4
+#: 13b: Recompute's timed steps
+RECOMPUTE_STEPS = 5
+#: 13c: tests/test_sparse_grad.py's extra-fc program at a realistic table:
+#: 1M rows of 128 float32 (512 MB), 4096 Zipf-drawn ids a batch
+SPARSE_VOCAB, SPARSE_DIM, SPARSE_IDS, SPARSE_STEPS = 1_000_000, 128, 4096, 5
+SPARSE_ZIPF_A, SPARSE_NEGATIVE = 1.2, 0.01
+SPARSE_RTOL = 1e-5
+#: 13d: GradientMerge's k and micro-batch rows, EMA's decay and steps,
+#: the CPU test programs' steps and tolerances
+MERGE_K, MERGE_RTOL = 4, 1e-4
+EMA_DECAY, EMA_STEPS, EMA_RTOL = 0.999, 3, 1e-6
+WRAPPER_STEPS, WRAPPER_RTOL = 6, 1e-5
+#: 13e: the loss and metric ops, card against CPU (relative, with an
+#: absolute floor for entries near zero)
+LOSS_OPS_RTOL, LOSS_OPS_ATOL = 1e-5, 1e-6
+
+
+def masked_arrays(vocab, batch, seed=SEED + 8):
+    """bench.py's masked-head feeds as numpy arrays: ids from a seed, no
+    padding, MASKED distinct positions a row as the flat index pos +
+    b·TRAIN_SEQ, labels the ids there; also the [batch, MASKED]
+    positions."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, vocab, (batch, TRAIN_SEQ)).astype(np.int64)
+    pos = np.stack([rng.choice(TRAIN_SEQ, MASKED, replace=False)
+                    for _ in range(batch)])
+    flat = (pos + np.arange(batch)[:, None] * TRAIN_SEQ).reshape(-1)
+    labels = np.take_along_axis(src, pos, 1).reshape(-1, 1)
+    return {"src_ids": src,
+            "input_mask": np.ones((batch, TRAIN_SEQ), np.float32),
+            "mask_pos": flat.astype(np.int64),
+            "masked_labels": labels.astype(np.int64)}, pos
+
+
+def _on(device, arrays):
+    import torch
+
+    return {n: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for n, a in arrays.items()}
+
+
+def masked_batch(vocab, device, batch=None, seed=SEED + 8):
+    """masked_arrays on ``device`` (TRAIN_BATCH rows by default)."""
+    arrays, pos = masked_arrays(vocab, batch or TRAIN_BATCH, seed)
+    return _on(device, arrays), pos
+
+
+def _load(scope, weights, program):
+    """``weights`` (clones) into ``scope`` for every persistable of
+    ``program`` they hold; the rest must already be there."""
+    import paddle_tpu_torch as pt
+
+    for n in pt.io.persistable_names(program):
+        if n in weights:
+            scope.set_var(n, weights[n].clone())
+
+
+def _rel_norm(a, b):
+    """||a - b|| / ||b|| over tensors or lists of tensors (float64)."""
+    import torch
+
+    a = a if isinstance(a, (list, tuple)) else [a]
+    b = b if isinstance(b, (list, tuple)) else [b]
+    num = sum(float(torch.linalg.vector_norm((x.double() - y.double())))
+              ** 2 for x, y in zip(a, b))
+    den = sum(float(torch.linalg.vector_norm(y.double())) ** 2 for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def masked_head_phase(device, cfg, phase5_step_ms):
+    """13a: the masked-position head through the default fused program:
+    2 warm-up and 10 timed steps with the plan, launch, plain-call and
+    no-load gates; in turns with phase 5's dense head; one profiled step
+    each; the three-way parity gate; the masked loss against the dense
+    head's on the same positions."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    main, startup, loss, _, params = build_train(cfg, max_masked=MASKED)
+    exe, scope = _executor(device), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed, _ = masked_batch(cfg.vocab_size, device)
+    warm = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+            for _ in range(TRAIN_WARMUP)]
+    with _PlainCalls() as plain:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        timed = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                         return_numpy=False)[0] for _ in range(TRAIN_STEPS)]
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    losses = [float(x) for x in warm] + [float(x) for x in timed]
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    want = L * TRAIN_STEPS if on_card else 0
+    got = {k: launches.get(k, 0) for k in FUSED_STEP_KERNELS + (fa.FWD,)}
+    kinds = _plan_kinds(main)
+    want_kinds = collections.Counter(attn=L, gemm=L + 1, ffn_chain=L)
+    log(f"  13a masked head ({MASKED} positions a row), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, dropout {cfg.hidden_dropout}: "
+        f"groups {dict(kinds[0]) if kinds[0] else None}; {TRAIN_STEPS} "
+        f"steps {step_ms:.3f} ms/step, {tokens_per_s:.1f} tokens/s (phase "
+        f"5's dense head {phase5_step_ms:.3f} ms/step); losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; launches {got}; plain "
+        f"versions {plain.calls}; loads after the first step "
+        f"{exe.compiles_after_first_step}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"13a: a loss is not finite: {losses}")
+    if kinds != [want_kinds]:
+        raise AssertionError(f"13a: plan {kinds}, expected "
+                             f"{dict(want_kinds)}")
+    if any(got[k] != want for k in FUSED_STEP_KERNELS) or got[fa.FWD]:
+        raise AssertionError(f"13a: launches {got}, expected {want} each "
+                             f"and no {fa.FWD}")
+    if on_card and plain.calls:
+        raise AssertionError("13a: a plain kernel version ran on the card")
+    if exe.compiles_after_first_step:
+        raise AssertionError("13a: a library was loaded after the first "
+                             "step")
+
+    # phase 5's dense head in turns with the masked one, in this call
+    dmain, dstartup, dloss, _, _ = build_train(cfg)
+    dscope = pt.Scope()
+    exe.run(dstartup, scope=dscope)
+    dfeed = train_batch(cfg.vocab_size, device)
+    for _ in range(TRAIN_WARMUP):
+        exe.run(dmain, feed=dfeed, fetch_list=[dloss], scope=dscope)
+    turns = {"masked": [], "dense": []}
+    for name in ("masked", "dense", "dense", "masked"):
+        prog, f, lv, sc = ((main, feed, loss, scope) if name == "masked"
+                           else (dmain, dfeed, dloss, dscope))
+        t0 = time.perf_counter()
+        for _ in range(COMPARE_STEPS):
+            exe.run(prog, feed=f, fetch_list=[lv], scope=sc,
+                    return_numpy=False)
+        sync(device)
+        turns[name].append((time.perf_counter() - t0) / COMPARE_STEPS * 1e3)
+    log(f"  13a in turns, {COMPARE_STEPS} steps each: masked "
+        f"{turns['masked'][0]:.3f}, dense {turns['dense'][0]:.3f}, dense "
+        f"{turns['dense'][1]:.3f}, masked {turns['masked'][1]:.3f} ms/step")
+    prof = {"masked": _profile_step(exe, main, feed, loss, scope, device,
+                                    "13a masked-head"),
+            "dense": _profile_step(exe, dmain, dfeed, dloss, dscope, device,
+                                   "13a dense-head")}
+    head = None
+    if "device_ms_per_step" in prof["masked"] \
+            and "device_ms_per_step" in prof["dense"]:
+        # the encoders are the same: the difference is the heads'
+        head = prof["dense"]["device_ms_per_step"] \
+            - prof["masked"]["device_ms_per_step"]
+        log(f"  13a device ms a step: dense head "
+            f"{prof['dense']['device_ms_per_step']:.3f}, masked head "
+            f"{prof['masked']['device_ms_per_step']:.3f}: the masked head "
+            f"saves {head:.3f} ms of kernels")
+    del dscope, scope
+    parity = parity_gate(device, exe, cfg, max_masked=MASKED)
+    return dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens_per_s,
+                phase5_step_ms=phase5_step_ms, launches=got,
+                plan_groups=dict(kinds[0]), turns_ms=turns, profile=prof,
+                head_device_ms_saved=head, parity=parity,
+                dense_head=masked_loss_gate(device, exe, cfg))
+
+
+def masked_loss_gate(device, exe, cfg):
+    """The masked head's loss against the dense head's whose labels mark
+    the same positions: forward-only programs (is_test, dropout 0) on
+    the same weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
+    arrays, pos = masked_arrays(cfg.vocab_size, TRAIN_BATCH)
+    dense = np.full((TRAIN_BATCH, TRAIN_SEQ, 1), -1, np.int64)
+    np.put_along_axis(dense[..., 0], pos,
+                      arrays["masked_labels"].reshape(TRAIN_BATCH, MASKED), 1)
+    feeds = {True: arrays, False: {"src_ids": arrays["src_ids"],
+                                   "input_mask": arrays["input_mask"],
+                                   "masked_labels": dense}}
+    losses, weights = {}, None
+    for masked in (True, False):
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = SEED + 13
+        with pt.program_guard(main, startup), pt.unique_name.guard():
+            loss, _ = build_bert_pretrain(cfg, TRAIN_SEQ, is_test=True,
+                                          max_masked=MASKED if masked
+                                          else None)
+        scope = pt.Scope()
+        if weights is None:
+            exe.run(startup, scope=scope)
+            weights = _snapshot(scope, main)
+        else:
+            _load(scope, weights, main)
+        losses[masked] = float(exe.run(main, feed=_on(device, feeds[masked]),
+                                       fetch_list=[loss], scope=scope)[0])
+        del scope
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    log(f"  13a masked head loss {losses[True]:.7f}, dense head on the same "
+        f"positions {losses[False]:.7f}: relative {rel:.3e} (tol "
+        f"{MASKED_LOSS_RTOL:g})")
+    if not rel <= MASKED_LOSS_RTOL:
+        raise AssertionError("13a: the masked and the dense head disagree")
+    return dict(masked_loss=losses[True], dense_loss=losses[False],
+                rel_err=rel)
+
+
+def _recompute_wrap(opt, bounds):
+    import paddle_tpu_torch as pt
+
+    rc = pt.optimizer.RecomputeOptimizer(opt)
+    rc._set_checkpoints(bounds)
+    return rc
+
+
+def recompute_phase(device, cfg):
+    """13b: RecomputeOptimizer(Adam) with the embedding's and every
+    layer's outputs as checkpoints, on 13a's program, against the same
+    program run unfused without Recompute: peak memory and step ms at
+    dropout 0.1 (the first step's loss equal), then at dropout 0
+    PARITY_STEPS steps and the first step's gradients."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    exe = _executor(device)
+    feed, _ = masked_batch(cfg.vocab_size, device)
+    runs = {"recompute": _recompute_wrap, "unfused": None}
+    bs = pt.BuildStrategy()
+    bs.fuse_epilogues = False
+    out, weights = {}, None
+    for drop in (cfg.hidden_dropout, 0.0):
+        c = dataclasses.replace(cfg, hidden_dropout=drop, attn_dropout=drop)
+        for name, wrap in runs.items():
+            main, startup, loss, grads, _ = build_train(c, MASKED, wrap)
+            program = pt.CompiledProgram(main, build_strategy=bs)
+            scope = pt.Scope()
+            if weights is None:
+                exe.run(startup, scope=scope)
+                weights = _snapshot(scope, main)
+            else:
+                _load(scope, weights, main)
+            sync(device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            if drop:
+                grads = []     # kept gradients would count in the peaks
+            first = exe.run(program, feed=feed, scope=scope,
+                            return_numpy=False, fetch_list=[loss] + grads)
+            steps = RECOMPUTE_STEPS if drop else PARITY_STEPS - 1
+            with _PlainCalls() as plain:
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                rest = [exe.run(program, feed=feed, fetch_list=[loss],
+                                scope=scope, return_numpy=False)[0]
+                        for _ in range(steps)]
+                sync(device)
+                wall = time.perf_counter() - t0
+                launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+            r = dict(losses=[float(first[0])] + [float(x) for x in rest],
+                     grads=dict(zip(grads, first[1:])),
+                     step_ms=wall / steps * 1e3, launches=launches,
+                     plain_calls=plain.calls, plans=_plan_kinds(main),
+                     peak=(torch.cuda.max_memory_allocated(device)
+                           if on_card else 0))
+            out[(name, drop)] = r
+            del scope, first
+            if any(plan is not None for plan in r["plans"]):
+                raise AssertionError(f"13b {name}: fusion plan {r['plans']}")
+            want = {fa.FWD: L * steps, fa.DQ: L * steps,
+                    fa.DKV: L * steps} if on_card else {}
+            if name == "recompute" and on_card:
+                # the forward once, and again inside the backward
+                want[fa.FWD] = launches.get(fa.FWD, 0)
+                if not L * steps <= want[fa.FWD] <= 2 * L * steps:
+                    raise AssertionError(f"13b: {fa.FWD} launched "
+                                         f"{want[fa.FWD]} times")
+            if launches != want:
+                raise AssertionError(f"13b {name} (dropout {drop}): "
+                                     f"launches {launches}, expected {want}")
+            if on_card and plain.calls:
+                raise AssertionError(f"13b {name}: a plain kernel version "
+                                     f"ran on the card")
+            log(f"  13b {name}, dropout {drop}: {steps} steps "
+                f"{r['step_ms']:.3f} ms/step, peak memory "
+                f"{r['peak'] / 2**30:.3f} GiB; losses " + " ".join(
+                    f"{x:.6f}" for x in r["losses"]) + f"; launches "
+                f"{launches}")
+    rc, un = out[("recompute", cfg.hidden_dropout)], \
+        out[("unfused", cfg.hidden_dropout)]
+    if on_card and not rc["peak"] < un["peak"]:
+        raise AssertionError(f"13b: Recompute's peak {rc['peak']} is not "
+                             f"below the unfused program's {un['peak']}")
+    if rc["losses"][0] != un["losses"][0]:
+        raise AssertionError(f"13b: at dropout {cfg.hidden_dropout} the "
+                             f"first losses differ: {rc['losses'][0]} and "
+                             f"{un['losses'][0]}")
+    rc0, un0 = out[("recompute", 0.0)], out[("unfused", 0.0)]
+    dloss = max(abs(a - b) for a, b in zip(rc0["losses"], un0["losses"]))
+    rel = {n: _rel_norm(rc0["grads"][n], un0["grads"][n])
+           for n in un0["grads"]}
+    worst = max(rel, key=rel.get)
+    log(f"  13b at dropout 0: max |dloss| {dloss:.3e} (tol "
+        f"{PARITY_LOSS_TOL:g}), first-step gradient relative norm error "
+        f"max {rel[worst]:.3e} ({worst}; tol {PARITY_GRAD_RTOL:g}); peak "
+        f"memory at dropout {cfg.hidden_dropout}: Recompute "
+        f"{rc['peak'] / 2**30:.3f} GiB, unfused {un['peak'] / 2**30:.3f} "
+        f"GiB; step {rc['step_ms']:.3f} against {un['step_ms']:.3f} ms")
+    if not dloss < PARITY_LOSS_TOL:
+        raise AssertionError("13b: Recompute's losses diverge")
+    if not rel[worst] < PARITY_GRAD_RTOL:
+        raise AssertionError("13b: Recompute's gradients disagree")
+    return dict(step_ms=rc["step_ms"], unfused_step_ms=un["step_ms"],
+                peak_bytes=rc["peak"], unfused_peak_bytes=un["peak"],
+                launches=rc["launches"], losses=rc["losses"],
+                unfused_losses=un["losses"], max_dloss=dloss,
+                max_grad_rel_err=rel[worst])
+
+
+def build_sparse(is_sparse, optimizer, extra_fc=True):
+    """tests/test_sparse_grad.py's program at SPARSE_VOCAB x SPARSE_DIM
+    and SPARSE_IDS ids: ``optimizer()`` minimizes it."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 13
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        ids = pt.data("ids", [SPARSE_IDS, 1], "int64")
+        target = pt.data("target", [SPARSE_IDS, SPARSE_DIM])
+        emb = pt.layers.embedding(ids, (SPARSE_VOCAB, SPARSE_DIM),
+                                  is_sparse=is_sparse,
+                                  param_attr=pt.ParamAttr(name="table"))
+        if extra_fc:
+            emb = pt.layers.fc(emb, SPARSE_DIM,
+                               param_attr=pt.ParamAttr(name="fc_w"))
+        loss = pt.layers.mean(pt.layers.square_error_cost(emb, target))
+        optimizer().minimize(loss)
+    return main, startup, loss
+
+
+def sparse_feeds(steps=SPARSE_STEPS, seed=SEED + 30):
+    """Zipf-drawn ids (rows repeat), a share of them written as their
+    negative alias id - SPARSE_VOCAB (which wraps to the same row), and
+    a target, one batch a step."""
+    rng = np.random.RandomState(seed)
+    feeds = []
+    for _ in range(steps):
+        ids = (rng.zipf(SPARSE_ZIPF_A, SPARSE_IDS) - 1) % SPARSE_VOCAB
+        neg = rng.rand(SPARSE_IDS) < SPARSE_NEGATIVE
+        ids = np.where(neg, ids - SPARSE_VOCAB, ids).astype(np.int64)
+        feeds.append({"ids": ids[:, None], "target": rng.randn(
+            SPARSE_IDS, SPARSE_DIM).astype(np.float32)})
+    return feeds
+
+
+SPARSE_RUNS = {
+    "sgd": lambda pt: pt.optimizer.SGD(
+        0.5, grad_clip=pt.clip.GradientClipByGlobalNorm(1.0)),
+    "adam": lambda pt: pt.optimizer.Adam(
+        0.01, grad_clip=pt.clip.GradientClipByGlobalNorm(1.0)),
+    "lazy_adam": lambda pt: pt.optimizer.Adam(
+        0.01, lazy_mode=True, grad_clip=pt.clip.GradientClipByGlobalNorm(
+            1.0)),
+}
+
+
+def _sparse_run(device, exe, is_sparse, name, weights, feeds, fetch_grad):
+    import paddle_tpu_torch as pt
+
+    main, startup, loss = build_sparse(
+        is_sparse, lambda: SPARSE_RUNS[name](pt))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    if weights is None:
+        weights = {p.name: scope.find_var(p.name).clone()
+                   for p in main.global_block().all_parameters()}
+    _load(scope, weights, main)
+    losses, walls, grad = [], [], None
+    for step, f in enumerate(feeds):
+        t0 = time.perf_counter()
+        fetch = [loss] + (["table@GRAD", "table@GRAD@ROWS"]
+                          if fetch_grad and step == 0 else [])
+        got = exe.run(main, feed=_on(device, f), fetch_list=fetch,
+                      scope=scope, return_numpy=False)
+        losses.append(float(got[0]))
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+        if len(got) > 1:
+            grad = (tuple(got[1].shape), tuple(got[2].shape))
+    state = {n: scope.find_var(n) for n in pt.io.persistable_names(main)}
+    # the first step lowers the program: time the others
+    return dict(losses=losses, step_ms=float(np.mean(walls[1:])) * 1e3,
+                state=state, grad_shapes=grad), weights
+
+
+def sparse_phase(device):
+    """13c: SGD, Adam and lazy Adam with GradientClipByGlobalNorm(1.0)
+    on the sparse table, beside the dense program (SGD, Adam); lazy
+    Adam's untouched rows and moments; the fetched gradient's shape;
+    two runs bit-equal; ids past the table touch no row."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    exe = _executor(device)
+    feeds = sparse_feeds()
+    runs, weights = {}, None
+    for name in SPARSE_RUNS:
+        for is_sparse in (True, False) if name != "lazy_adam" else (True,):
+            runs[(name, is_sparse)], weights = _sparse_run(
+                device, exe, is_sparse, name, weights, feeds, is_sparse)
+    out = {}
+    for name in ("sgd", "adam"):
+        s, d = runs[(name, True)], runs[(name, False)]
+        dl = max(abs(a - b) / abs(b) for a, b in zip(s["losses"],
+                                                     d["losses"]))
+        dt = _rel_norm(s["state"]["table"], d["state"]["table"])
+        out[name] = dict(max_loss_rel_err=dl, table_rel_err=dt,
+                         sparse_step_ms=s["step_ms"],
+                         dense_step_ms=d["step_ms"], losses=s["losses"])
+        log(f"  13c {name}: losses " + " ".join(
+            f"{x:.6f}" for x in s["losses"]) + f"; against dense: loss "
+            f"relative {dl:.3e}, table relative norm {dt:.3e} (tol "
+            f"{SPARSE_RTOL:g}); step {s['step_ms']:.3f} ms sparse, "
+            f"{d['step_ms']:.3f} ms dense")
+        if not (dl <= SPARSE_RTOL and dt <= SPARSE_RTOL):
+            raise AssertionError(f"13c: sparse {name} departs from dense")
+    lazy = runs[("lazy_adam", True)]
+    n = SPARSE_VOCAB
+    touched = np.unique(np.concatenate([f["ids"].ravel() for f in feeds])
+                        % n)
+    keep = torch.ones(n, dtype=torch.bool)
+    keep[torch.from_numpy(touched)] = False
+    keep = keep.to(device)
+    table0 = weights["table"]
+    moments = [v for k, v in lazy["state"].items()
+               if k.startswith("table_moment")]
+    same = bool(torch.equal(lazy["state"]["table"][keep], table0[keep])) \
+        and all(bool((m[keep] == 0).all()) for m in moments) \
+        and not torch.equal(lazy["state"]["table"], table0)
+    log(f"  13c lazy Adam: {len(touched)} rows touched of {n}; the others "
+        f"and their moments bit-unchanged: {same}; step "
+        f"{lazy['step_ms']:.3f} ms; losses " + " ".join(
+            f"{x:.6f}" for x in lazy["losses"]))
+    if not same:
+        raise AssertionError("13c: lazy Adam touched a row it was not given")
+    out["lazy_adam"] = dict(rows_touched=int(len(touched)),
+                            step_ms=lazy["step_ms"], losses=lazy["losses"])
+    shapes = runs[("sgd", True)]["grad_shapes"]
+    if shapes != ((SPARSE_IDS, SPARSE_DIM), (SPARSE_IDS,)):
+        raise AssertionError(f"13c: table@GRAD, @ROWS shapes {shapes}")
+    # again from the same weights: the same bits
+    for name in SPARSE_RUNS:
+        again, _ = _sparse_run(device, exe, True, name, weights, feeds, False)
+        first = runs[(name, True)]
+        bits = again["losses"] == first["losses"] and all(
+            torch.equal(again["state"][k], v)
+            for k, v in first["state"].items())
+        out[name]["bit_equal_rerun"] = bits
+        if not bits:
+            raise AssertionError(f"13c: two {name} runs differ")
+    out["oob"] = sparse_oob_probe(device, exe, weights)
+    out["grad_shapes"] = shapes
+    log(f"  13c: table@GRAD {shapes[0]}, @ROWS {shapes[1]}; each sparse "
+        f"run bit-equal to its rerun")
+    return out
+
+
+def sparse_oob_probe(device, exe, weights):
+    """One sparse SGD step (no clip, no fc) whose ids hold some past the
+    table and some below -SPARSE_VOCAB: no device-side assert, the rows
+    of the valid ids change, every other row keeps its bits."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    main, startup, loss = build_sparse(True, lambda: pt.optimizer.SGD(0.5),
+                                       extra_fc=False)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    scope.set_var("table", weights["table"].clone())
+    f = sparse_feeds(1, seed=SEED + 31)[0]
+    n = SPARSE_VOCAB
+    f["ids"][:8, 0] = [n, n + 7, 2 * n, -n - 1, -3 * n, n + 1, -n - 2,
+                       10 * n]
+    exe.run(main, feed=_on(device, f), fetch_list=[loss], scope=scope)
+    sync(device)
+    table = scope.find_var("table")
+    ids = f["ids"].ravel()
+    valid = np.unique(ids[(ids >= -n) & (ids < n)] % n)
+    changed = torch.nonzero((table != weights["table"]).any(1)).ravel()
+    ok = (bool(torch.isfinite(table).all())
+          and set(changed.cpu().tolist()) <= set(valid.tolist()))
+    log(f"  13c ids past the table: 8 of {SPARSE_IDS}, no device-side "
+        f"assert; {len(changed)} rows changed, all of them rows of valid "
+        f"ids: {ok}")
+    if not ok:
+        raise AssertionError("13c: an id past the table reached a row")
+    return dict(rows_changed=int(len(changed)), valid_rows=int(len(valid)))
+
+
+def _merge_wrap(opt, bounds):
+    import paddle_tpu_torch as pt
+
+    return pt.optimizer.GradientMergeOptimizer(opt, k_steps=MERGE_K)
+
+
+def gradient_merge_gate(device, exe, cfg):
+    """13d: GradientMerge(k=MERGE_K) on 13a's program at dropout 0 over
+    MERGE_K micro-batches of TRAIN_BATCH / MERGE_K rows: the parameters
+    keep their bits on the first k - 1 steps, and after the k-th equal
+    one Adam step on the whole batch (every micro-batch holds the same
+    number of labels, so the mean of the means is the batch's mean)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
+    arrays, pos = masked_arrays(cfg.vocab_size, TRAIN_BATCH)
+    rows = TRAIN_BATCH // MERGE_K
+    micro = []
+    for j in range(MERGE_K):
+        sl = slice(j * rows, (j + 1) * rows)
+        flat = (pos[sl] + np.arange(rows)[:, None] * TRAIN_SEQ).reshape(-1)
+        micro.append({"src_ids": arrays["src_ids"][sl],
+                      "input_mask": arrays["input_mask"][sl],
+                      "mask_pos": flat.astype(np.int64),
+                      "masked_labels": arrays["masked_labels"].reshape(
+                          TRAIN_BATCH, MASKED, 1)[sl].reshape(-1, 1)})
+    gm, gstartup, gloss, _, params = build_train(cfg, MASKED, _merge_wrap)
+    scope = pt.Scope()
+    exe.run(gstartup, scope=scope)
+    weights = _snapshot(scope, gm)
+    before = [scope.find_var(p).clone() for p in params]
+    kept, losses = [], []
+    for j, f in enumerate(micro):
+        losses.append(float(exe.run(gm, feed=_on(device, f),
+                                    fetch_list=[gloss], scope=scope)[0]))
+        now = [scope.find_var(p) for p in params]
+        if j < MERGE_K - 1:
+            kept.append(all(torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+                            for a, b in zip(now, before)))
+    merged = [scope.find_var(p).clone() for p in params]
+    del scope
+    big, bstartup, bloss, _, _ = build_train(cfg, MASKED)
+    bscope = pt.Scope()
+    exe.run(bstartup, scope=bscope)
+    _load(bscope, weights, big)
+    exe.run(big, feed=_on(device, arrays), fetch_list=[bloss], scope=bscope)
+    one = [bscope.find_var(p) for p in params]
+    rel = _rel_norm(merged, one)
+    moved = _rel_norm(merged, before)
+    log(f"  13d GradientMerge(k={MERGE_K}) over {MERGE_K} batches of "
+        f"{rows}: parameters bit-unchanged on steps 1-{MERGE_K - 1}: "
+        f"{kept}; after step {MERGE_K}, relative norm error {rel:.3e} "
+        f"against one Adam step on the {TRAIN_BATCH}-row batch (tol "
+        f"{MERGE_RTOL:g}; the step moved them {moved:.3e}); losses "
+        + " ".join(f"{x:.5f}" for x in losses))
+    del bscope
+    if not all(kept):
+        raise AssertionError("13d: GradientMerge moved a parameter before "
+                             "its merge step")
+    if not rel <= MERGE_RTOL:
+        raise AssertionError("13d: the merged step is not the big batch's")
+    return dict(kept_bits=kept, rel_err=rel, moved=moved, losses=losses)
+
+
+def ema_gate(device, exe, cfg):
+    """13d: ExponentialMovingAverage(EMA_DECAY).update() on 13a's program
+    for EMA_STEPS steps; inside apply the weights equal the script's own
+    bias-corrected average of the weights it read after each step (the
+    program's float32 formulas, outside the program) within EMA_RTOL;
+    after restore they keep their bits."""
+    import math
+
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    ema = {}
+
+    def wrap(opt, bounds):
+        class _WithEMA:
+            def minimize(self, loss):
+                out = opt.minimize(loss)
+                ema["ema"] = pt.optimizer.ExponentialMovingAverage(EMA_DECAY)
+                ema["ema"].update()
+                return out
+        return _WithEMA()
+
+    main, startup, loss, _, params = build_train(cfg, MASKED, wrap)
+    scope = pt.Scope()
+    feed, _ = masked_batch(cfg.vocab_size, device)
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        avg = {p: torch.zeros_like(scope.find_var(p)) for p in params}
+        for _ in range(EMA_STEPS):
+            exe.run(main, feed=feed, fetch_list=[loss])
+            for p in params:
+                avg[p] = avg[p] * EMA_DECAY \
+                    + scope.find_var(p) * (1.0 - EMA_DECAY)
+        before = [scope.find_var(p).clone() for p in params]
+        step = torch.full((), float(EMA_STEPS), device=device)
+        debias = 1.0 - torch.exp(step * math.log(EMA_DECAY)) + 1e-12
+        want = [avg[p] / debias for p in params]
+        with ema["ema"].apply(exe):
+            inside = [scope.find_var(p).clone() for p in params]
+        after = [scope.find_var(p) for p in params]
+    rel = _rel_norm(inside, want)
+    restored = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(after, before))
+    log(f"  13d EMA({EMA_DECAY}) after {EMA_STEPS} steps: inside apply "
+        f"relative norm error {rel:.3e} against the script's "
+        f"bias-corrected average (tol {EMA_RTOL:g}); restore bit-equal: "
+        f"{restored}")
+    if not rel <= EMA_RTOL:
+        raise AssertionError("13d: EMA's applied weights are not the "
+                             "average")
+    if not restored:
+        raise AssertionError("13d: EMA's restore changed a weight")
+    return dict(rel_err=rel, restored_bits=restored)
+
+
+def _tiny_program(kind):
+    """tests/test_torch_optimizer_wrappers.py's programs for ModelAverage,
+    Lookahead and DGC momentum -> (main, startup, loss, wrapper)."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = 7
+    out = None
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        if kind.startswith("dgc"):
+            x = pt.data("x", [None, 10])
+        else:
+            x = pt.data("x", [4, 2], "float32")
+        y = pt.layers.fc(x, size=1, param_attr=pt.ParamAttr(name="w"),
+                         bias_attr=False)
+        loss = pt.layers.mean(y)
+        if kind == "model_average":
+            pt.optimizer.SGD(0.1).minimize(loss)
+            out = pt.optimizer.ModelAverage(average_window_rate=1.0,
+                                            min_average_window=1,
+                                            max_average_window=100)
+        elif kind == "lookahead":
+            pt.optimizer.LookaheadOptimizer(pt.optimizer.SGD(0.1),
+                                            alpha=0.5, k=2).minimize(loss)
+        elif kind == "dgc":
+            pt.optimizer.DGCMomentumOptimizer(
+                0.1, momentum=0.9, rampup_begin_step=0,
+                sparsity=[0.6]).minimize(loss)
+        else:
+            pt.optimizer.DGCMomentumOptimizer(
+                0.1, momentum=0.9, rampup_begin_step=2, rampup_step=3,
+                sparsity=[0.5, 0.75, 0.9]).minimize(loss)
+    return main, startup, loss, out
+
+
+def _tiny_feeds(kind):
+    rng = np.random.RandomState(3)
+    if kind.startswith("dgc"):
+        x = rng.randn(4, 10).astype(np.float32) * np.arange(1, 11)
+        return [{"x": x}] * WRAPPER_STEPS
+    return [{"x": rng.randn(4, 2).astype(np.float32)}
+            for _ in range(WRAPPER_STEPS)]
+
+
+def wrapper_programs_gate(device):
+    """13d: ModelAverage (with its apply), Lookahead and DGC momentum on
+    their CPU test programs, WRAPPER_STEPS steps on ``device`` against
+    the port's CPU run from the same weights: every loss and persistable
+    within WRAPPER_RTOL."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    cpu = torch.device("cpu")
+    out = {}
+    for kind in ("model_average", "lookahead", "dgc", "dgc_rampup"):
+        res, weights = {}, None
+        for dev in (cpu, device):
+            main, startup, loss, wrapper = _tiny_program(kind)
+            exe, scope = _executor(dev), pt.Scope()
+            with pt.scope_guard(scope):
+                exe.run(startup)
+                if weights is None:
+                    weights = {n: v.cpu() for n, v in _snapshot(
+                        scope, main).items()}
+                else:
+                    for n, v in weights.items():
+                        scope.set_var(n, v.to(dev))
+                losses = [float(exe.run(main, feed=f, fetch_list=[loss])[0])
+                          for f in _tiny_feeds(kind)]
+                applied = None
+                if wrapper is not None:
+                    with wrapper.apply(exe):
+                        applied = scope.find_var("w").cpu().clone()
+                state = {n: v.cpu() for n, v in _snapshot(scope,
+                                                          main).items()}
+            res[dev.type] = (losses, state, applied)
+        (lc, sc, ac), (lg, sg, ag) = res["cpu"], res[device.type]
+        worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, lc))
+        for n, v in sc.items():
+            if v.is_floating_point():
+                worst = max(worst, _rel_norm(sg[n], v))
+            elif not torch.equal(sg[n], v):
+                raise AssertionError(f"13d {kind}: {n} {sg[n]} != {v}")
+        if ac is not None:
+            worst = max(worst, _rel_norm(ag, ac))
+        out[kind] = worst
+        if not worst <= WRAPPER_RTOL:
+            raise AssertionError(f"13d {kind}: relative error {worst:.3e} "
+                                 f"against the CPU run")
+    log(f"  13d ModelAverage, Lookahead, DGC momentum ({WRAPPER_STEPS} "
+        f"steps) against the CPU: relative errors {out} (tol "
+        f"{WRAPPER_RTOL:g})")
+    return out
+
+
+def _probs(r, n, c):
+    e = np.exp(r.randn(n, c).astype(np.float32))
+    return e / e.sum(-1, keepdims=True)
+
+
+#: 13e: the loss and metric ops over their CPU tests' inputs: (name, op,
+#: inputs from a RandomState, attrs, the slot differentiated or None)
+LOSS_OP_CASES = (
+    ("ce_hard", "cross_entropy", lambda r: {
+        "X": _probs(r, 6, 5), "Label": r.randint(0, 5, (6, 1))}, {}, "X"),
+    ("ce_ignore", "cross_entropy", lambda r: {
+        "X": _probs(r, 6, 5),
+        "Label": np.array([[0], [-100], [4], [2], [-100], [1]])},
+     {"ignore_index": -100}, "X"),
+    ("ce_soft", "cross_entropy", lambda r: {
+        "X": _probs(r, 6, 5), "Label": _probs(r, 6, 5)},
+     {"soft_label": True}, "X"),
+    ("sigmoid_ce", "sigmoid_cross_entropy_with_logits", lambda r: {
+        "X": r.randn(4, 3).astype(np.float32) * 4,
+        "Label": (r.rand(4, 3) > 0.5).astype(np.float32)}, {}, "X"),
+    ("sigmoid_ce_ignore_norm", "sigmoid_cross_entropy_with_logits",
+     lambda r: {"X": r.randn(4, 3).astype(np.float32) * 4,
+                "Label": np.where(r.rand(4, 3) > 0.7, 2.0,
+                                  (r.rand(4, 3) > 0.5)).astype(np.float32)},
+     {"ignore_index": 2, "normalize": True}, "X"),
+    ("smooth_l1", "smooth_l1_loss", lambda r: {
+        "X": r.randn(5, 3).astype(np.float32),
+        "Y": r.randn(5, 3).astype(np.float32)}, {"sigma": 1.0}, "X"),
+    ("smooth_l1_sigma3", "smooth_l1_loss", lambda r: {
+        "X": r.randn(5, 2, 3).astype(np.float32),
+        "Y": r.randn(5, 2, 3).astype(np.float32)}, {"sigma": 3.0}, "X"),
+    ("huber", "huber_loss", lambda r: {
+        "X": r.randn(6, 2).astype(np.float32),
+        "Y": r.randn(6, 2).astype(np.float32)}, {"delta": 0.3}, "X"),
+    ("accuracy_ties", "accuracy", lambda r: {
+        "Out": r.randint(0, 3, (8, 4)).astype(np.float32),
+        "Label": r.randint(0, 4, (8, 1))}, {"k": 1}, None),
+    ("auc_ties", "auc", lambda r: {
+        "Predict": np.round(r.rand(40, 2), 1).astype(np.float32),
+        "Label": r.randint(0, 2, (40, 1))}, {}, None),
+)
+
+
+def _loss_op(op, ins, attrs, device, slot):
+    """The op's outputs (sorted by slot) on ``device``, and with ``slot``
+    the gradient of the sum of its first output with respect to it."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import REGISTRY, OpContext
+
+    ctx = OpContext(rng=None, is_test=False, attrs=attrs, device=device)
+    tins = {s: [torch.from_numpy(np.array(v)).to(device)]
+            for s, v in ins.items()}
+    if slot is not None:
+        tins[slot][0].requires_grad_()
+    outs = REGISTRY.get(op).compute(ctx, tins, attrs)
+    got = [outs[s][0].detach().cpu() for s in sorted(outs)]
+    if slot is not None:
+        y = outs["Out" if "Out" in outs else sorted(outs)[0]][0]
+        (g,) = torch.autograd.grad(y.sum(), tins[slot][0])
+        got.append(g.cpu())
+    return got
+
+
+def loss_ops_phase(device):
+    """13e: each loss and metric op on ``device`` against the CPU, forward
+    and gradient."""
+    cpu = __import__("torch").device("cpu")
+    out = {}
+    for i, (name, op, make, attrs, slot) in enumerate(LOSS_OP_CASES):
+        ins = make(np.random.RandomState(40 + i))
+        worst = 0.0
+        for g, w in zip(_loss_op(op, ins, attrs, device, slot),
+                        _loss_op(op, ins, attrs, cpu, slot)):
+            g, w = g.double().numpy(), w.double().numpy()
+            if g.shape != w.shape:
+                raise AssertionError(f"13e {name}: shape {g.shape} against "
+                                     f"{w.shape}")
+            err = np.abs(g - w) / np.maximum(np.abs(w), LOSS_OPS_ATOL
+                                             / LOSS_OPS_RTOL)
+            worst = max(worst, float(err.max()) if err.size else 0.0)
+        out[name] = worst
+        if not worst <= LOSS_OPS_RTOL:
+            raise AssertionError(f"13e {name}: relative error {worst:.3e}")
+    log(f"  13e: {len(LOSS_OP_CASES)} loss and metric op cases equal on "
+        f"{device} and the CPU (largest relative error "
+        f"{max(out.values()):.3e}, tol {LOSS_OPS_RTOL:g})")
+    return out
+
+
+def sparse_recompute_phase(device, cfg, phase5_step_ms=float("nan")):
+    """Phase 13: the masked head (13a), Recompute (13b), sparse gradients
+    at a realistic table (13c), the wrappers (13d), the loss and metric
+    ops (13e)."""
+    out = dict(masked=masked_head_phase(device, cfg, phase5_step_ms))
+    out["recompute"] = recompute_phase(device, cfg)
+    out["sparse"] = sparse_phase(device)
+    exe = _executor(device)
+    out["wrappers"] = dict(
+        gradient_merge=gradient_merge_gate(device, exe, cfg),
+        ema=ema_gate(device, exe, cfg),
+        programs=wrapper_programs_gate(device))
+    out["loss_ops"] = loss_ops_phase(device)
+    return out
+
+
+
 def main():
     import torch
 
@@ -5684,6 +6583,16 @@ def main():
                                           report["training"]["step_ms"])
         for name, n in report["dataset"]["launches"].items():
             report["kernels"][name]["launches"] += n
+
+        log("[13] the rest of training: the masked-position head, "
+            "Recompute, sparse gradients at a 1M-row table, the optimizer "
+            "wrappers, the loss and metric ops")
+        report["sparse_recompute"] = sparse_recompute_phase(
+            device, BertConfig.base(), report["training"]["step_ms"])
+        sr = report["sparse_recompute"]
+        for name, n in list(sr["masked"]["launches"].items()) \
+                + list(sr["recompute"]["launches"].items()):
+            report["kernels"][name]["launches"] += n
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5749,6 +6658,29 @@ def main():
             "dlast", "dmean", "param_max_diff", "bit_equal",
             "thread_bit_equal")},
         queue3_max_rel_err=max(ds["queue3"].values()))}))
+    sr = report["sparse_recompute"]
+    print(json.dumps({"sparse_recompute": dict(
+        card=card,
+        masked={k: sr["masked"][k] for k in (
+            "step_ms", "tokens_per_s", "phase5_step_ms", "turns_ms",
+            "head_device_ms_saved", "launches")} | dict(
+            device_ms_per_step={k: v.get("device_ms_per_step") for k, v in
+                                sr["masked"]["profile"].items()},
+            parity={k: sr["masked"]["parity"][k][
+                "max_dloss"] for k in ("blocks", "unfused_lowering")},
+            dense_head_rel_err=sr["masked"]["dense_head"]["rel_err"]),
+        recompute={k: sr["recompute"][k] for k in (
+            "step_ms", "unfused_step_ms", "peak_bytes", "unfused_peak_bytes",
+            "launches", "max_dloss", "max_grad_rel_err")},
+        sparse={k: {m: v for m, v in sr["sparse"][k].items()
+                    if m != "losses"} for k in ("sgd", "adam", "lazy_adam")}
+        | {"oob": sr["sparse"]["oob"]},
+        wrappers=dict(
+            gradient_merge_rel_err=sr["wrappers"]["gradient_merge"][
+                "rel_err"],
+            ema_rel_err=sr["wrappers"]["ema"]["rel_err"],
+            programs=sr["wrappers"]["programs"]),
+        loss_ops_max_rel_err=max(sr["loss_ops"].values()))}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

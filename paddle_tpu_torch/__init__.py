@@ -18,6 +18,14 @@ GradientClipByGlobalNorm(1.0)).minimize(loss)`` (every dense optimizer,
 ``regularizer``, ``clip``, the ``layers`` learning-rate schedules), run
 it with ``Executor`` or under ``resilience.ResilientLoop`` (atomic
 checkpoints, auto-resume, NaN rollback), save and load with ``io``.
+Sparse (SelectedRows) gradients of ``layers.embedding(is_sparse=True)``
+update through SGD and Adam (``lazy_mode``), the clips and the
+regularizers; the wrappers ``RecomputeOptimizer``,
+``GradientMergeOptimizer``, ``ExponentialMovingAverage``,
+``ModelAverage``, ``LookaheadOptimizer`` and ``DGCMomentumOptimizer``
+and the loss and metric layers are ported, and
+``models.build_bert_pretrain(max_masked=...)`` builds the
+masked-position head.
 As in the JAX package the GEMM-epilogue fusion pass is on by default
 (core/fusion.py: the fused matmul-epilogue, FFN-chain and qkv-folded
 flash kernels); a ``CompiledProgram`` whose ``BuildStrategy`` sets
@@ -37,7 +45,7 @@ local or remote (``fs``), drives ``Executor.train_from_dataset``
 (core/trainer.py: chunks of K steps of one lowered block); ``DataLoader``
 and ``DataFeeder`` feed ``Executor.run``; ``get_flags``/``set_flags``
 hold ``FLAGS_check_nan_inf`` and ``FLAGS_benchmark``.  No Executor
-meshes, sparse gradients or AMP yet.
+meshes (so no ``PipelineOptimizer``) or AMP yet.
 """
 from ._device import resolve_device, set_strict_fp32
 from .core import (  # noqa: F401

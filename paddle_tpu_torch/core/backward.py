@@ -5,10 +5,11 @@ that both packages append the same grad ops under the same names (parity:
 python/paddle/fluid/backward.py:1133 append_backward, gradient
 aggregation by sum-op insertion, backward.py:961).  It is pure IR: every
 forward op on the loss's path gets the same generic ``vjp_grad`` op keyed
-by the forward op's uid; core/lowering.py runs it with autograd.
-
-Not carried over: the SelectedRows (is_sparse embedding) gradient —
-``layers.embedding(is_sparse=True)`` raises (ROADMAP.md, Queue 1 item 3).
+by the forward op's uid; core/lowering.py runs it with autograd.  A
+``lookup_table`` with ``is_sparse=True`` whose table has no other use on
+the loss's path gets a SelectedRows gradient instead: a
+``lookup_table_sparse_grad`` op writing (Values, Rows) — the ``@GRAD``
+variable and its ``@ROWS`` twin, named in ``gvar.sparse_rows``.
 """
 from __future__ import annotations
 
@@ -159,11 +160,48 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None):
         terms.append(t)
         return t
 
+    # Sparse embedding grads (SelectedRows parity): a lookup_table with
+    # is_sparse=True whose table is consumed by NO other grad-relevant op
+    # gets a (Rows, Values) gradient instead of a dense [vocab, dim]
+    # scatter — see ops/tensor.py lookup_table_sparse_grad.  Multi-use
+    # tables fall back to dense (the aggregation sum needs dense terms).
+    sparse_uids = set()
+    for i, op in enumerate(fwd_ops):
+        if (op.type == "lookup_table" and op.attrs.get("is_sparse")
+                and op.inputs["W"][0] in requires):
+            w = op.inputs["W"][0]
+            uses = sum(
+                1 for j, o in enumerate(fwd_ops)
+                if relevant[j] and w in o.input_names())
+            if uses == 1:
+                sparse_uids.add(op.uid)
+
     # -- 4. emit vjp_grad ops in reverse topological order -----------------
     for i in reversed(range(len(fwd_ops))):
         if not relevant[i]:
             continue
         op = fwd_ops[i]
+        if op.uid in sparse_uids:
+            og = _finalize(op.outputs["Out"][0])
+            if og == EMPTY_VAR_NAME:
+                continue
+            w_name = op.inputs["W"][0]
+            g_term = _new_term(w_name)
+            rows_name = g_term + "@ROWS"
+            w_var = block.var(w_name)
+            gvar = block.var(g_term)
+            gvar.shape = [None, w_var.shape[1]]
+            block.create_var(name=rows_name, shape=[None], dtype="int64",
+                             stop_gradient=True)
+            block.append_op(
+                type="lookup_table_sparse_grad",
+                inputs={"Ids": list(op.inputs["Ids"]), "OutGrad": [og]},
+                outputs={"Values": [g_term], "Rows": [rows_name]},
+                attrs={"padding_idx": op.attrs.get("padding_idx", -1)},
+                infer_shape=False,
+            )
+            gvar.sparse_rows = rows_name
+            continue
         if op.type == "while" and op.attrs.get("max_iters") is None:
             # the JAX package's lax.while_loop has no reverse-mode, and the
             # port keeps its contract; the reference builds while_grad

@@ -45,8 +45,19 @@ is scanned for NaN and Inf, and the first raises ``RuntimeError`` naming
 the op's index, type and output, as in the JAX lowering.  The flag is
 read once per op list; off, the step pays that one read.
 
-Not ported: recompute, pipeline and AMP.  Their ops are not registered,
-so a program that holds one raises at run time, naming the op.
+Recompute (``recompute_grad``, appended by RecomputeOptimizer): the ops
+before it run under autograd in segments cut after each checkpoint
+variable's producer, each segment under non-reentrant
+``torch.utils.checkpoint``, so only the segments' inputs and live
+outputs stay alive; the op then takes ``autograd.grad`` of the loss,
+which runs each segment's forward once more — two forwards a step, as
+XLA's CSE leaves the JAX package's ``jax.checkpoint`` re-trace.  Every
+random op draws from ``fold_seed(seed, op.uid)``, so a recomputed
+dropout draws the same bits.  The fusion pass plans no group in such a
+program (core/fusion.py).
+
+Not ported: pipeline and AMP.  Their ops are not registered, so a
+program that holds one raises at run time, naming the op.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ import contextlib
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from .. import profiler as _prof
 from .._rng import fold_seed
@@ -64,6 +76,7 @@ from .program import EMPTY_VAR_NAME, Program
 from .registry import REGISTRY, OpContext
 
 VJP_GRAD_OP = "vjp_grad"
+RECOMPUTE_GRAD_OP = "recompute_grad"
 
 #: ops that run a sub-block of the program (parity: the JAX lowering's
 #: BLOCK_OPS and the reference's while_op.cc, conditional_block_op.cc,
@@ -134,6 +147,7 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
     if fuse_epilogues and block_idx == 0:
         fusion_plan = plan_fusion(program, ops, feed_names, fetch_names,
                                   block_patterns=fuse_block_epilogues)
+    recompute = _plan_recompute(program, ops, fetch_names, persist_out)
 
     def run_block(feeds, mut_params, const_params, seed):
         env = {}
@@ -141,9 +155,19 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         env.update(mut_params)
         env.update(feeds)
         fusion = None if fusion_plan is None else FusionExec(fusion_plan)
+        vjps = {}
+        rest = ops
+        if recompute is not None:
+            rest = ops[recompute.op_index:]
+            _run_recompute_forward(program, recompute, env, seed, vjps,
+                                   device, is_test)
         with torch.no_grad():
-            _interp_ops(program, ops, env, seed, {}, vjp_uids, device,
+            _interp_ops(program, rest, env, seed, vjps, vjp_uids, device,
                         fusion, is_test)
+        if recompute is not None:
+            # the forward's values carry its (freed) graph
+            env = {n: v.detach() if torch.is_tensor(v) else v
+                   for n, v in env.items()}
         fetches = [env[n] for n in fetch_names]
         new_persist = {n: env[n] for n in persist_out}
         return fetches, new_persist
@@ -203,6 +227,8 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
                         op.attrs.get("fwd_uid"))
                     outs = (_run_vjp_grad(op, env, vjps) if grp is None
                             else run_fused_grad(op, fusion, grp, env))
+                elif op.type == RECOMPUTE_GRAD_OP:
+                    outs = _run_recompute_grad(op, env, vjps)
                 elif plan is not None and op.uid in plan.by_last:
                     outs = run_fused_group(fusion, plan.by_last[op.uid],
                                            env, seed, device, vjp_uids,
@@ -418,6 +444,89 @@ _BLOCK_RUNNERS = {
     "switch": _run_switch,
     "static_rnn": _run_static_rnn,
 }
+
+
+@dataclasses.dataclass
+class _RecomputePlan:
+    op_index: int   # the recompute_grad op's index in block 0
+    op: object
+    # (ops, names each segment outputs) in program order
+    segments: list
+
+
+def _plan_recompute(program, ops, fetch_names, persist_out):
+    """Cut the forward before a ``recompute_grad`` op into segments:
+    each ends with the op that writes a checkpoint variable.  A segment
+    outputs only the names something after it reads (a later op, any
+    sub-block, a fetch, a persistable written back, the loss); the rest
+    of its values live only inside it.  None without such an op."""
+    at = [i for i, op in enumerate(ops) if op.type == RECOMPUTE_GRAD_OP]
+    if not at:
+        return None
+    r = at[0]
+    rop = ops[r]
+    ckpts = set(rop.attrs.get("checkpoints") or ())
+    cuts, start = [], 0
+    for i, op in enumerate(ops[:r]):
+        if ckpts & set(op.output_names()):
+            cuts.append((start, i + 1))
+            start = i + 1
+    if start < r:
+        cuts.append((start, r))
+    always = set(fetch_names) | set(persist_out) | set(rop.input_names())
+    for blk in program.blocks[1:]:
+        for o in blk.ops:
+            always.update(o.input_names())
+    segments = []
+    for a, b in cuts:
+        later = set(always)
+        for o in ops[b:]:
+            later.update(o.input_names())
+        produced = []
+        for o in ops[a:b]:
+            produced += [n for n in o.output_names()
+                         if n != EMPTY_VAR_NAME and n not in produced]
+        segments.append((ops[a:b], tuple(n for n in produced
+                                         if n in later)))
+    return _RecomputePlan(op_index=r, op=rop, segments=segments)
+
+
+def _run_recompute_forward(program, plan, env, seed, vjps, device, is_test):
+    """The forward before a ``recompute_grad`` op, under autograd, one
+    checkpointed segment at a time (see the module docstring).  The
+    parameters the op differentiates become leaves; they wait in
+    ``vjps`` under the op's uid."""
+    leaves = {n: _leaf(env[n]) for n in plan.op.inputs["Params"]}
+    env.update(leaves)
+    with torch.enable_grad():
+        for seg_ops, out_names in plan.segments:
+            snap = dict(env)
+
+            def seg(seg_ops=seg_ops, out_names=out_names, snap=snap):
+                e = dict(snap)
+                _interp_ops(program, seg_ops, e, seed, {}, frozenset(),
+                            device, None, is_test)
+                return tuple(e[n] for n in out_names)
+
+            # every random op seeds from fold_seed(seed, op.uid): torch's
+            # global RNG state plays no part in a recomputed segment
+            env.update(zip(out_names, _checkpoint(
+                seg, use_reentrant=False, preserve_rng_state=False)))
+    vjps[plan.op.uid] = leaves
+
+
+def _run_recompute_grad(op, env, vjps):
+    """The whole loss's parameter gradients (parity: the JAX lowering's
+    ``_run_recompute_grad``): ``autograd.grad`` through the checkpointed
+    forward, which recomputes each segment; a parameter the loss does
+    not reach gets zeros."""
+    leaves = vjps.pop(op.uid)
+    loss = env[op.inputs["Loss"][0]]
+    names = list(op.inputs["Params"])
+    grads = torch.autograd.grad([loss], [leaves[n] for n in names],
+                                [torch.ones_like(loss)], allow_unused=True)
+    return {"Grad": [torch.zeros_like(leaves[n]) if g is None else g
+                     for n, g in zip(names, grads)]}
 
 
 def _run_vjp_grad(op, env, vjps):

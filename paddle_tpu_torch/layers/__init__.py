@@ -1,15 +1,17 @@
 """paddle_tpu_torch.layers — the layer library (counterpart of
 paddle_tpu.layers): what the BERT builders, the fc and 4-D attention
 programs, the learning-rate schedules and gradient clipping use, the
-control-flow layers (While, cond, Switch, StaticRNN), and every
-generated unary/binary layer of the JAX package.  Importing it patches
+loss and metric layers, the control-flow layers (While, cond, Switch,
+StaticRNN), and every generated unary/binary layer of the JAX package.  Importing it patches
 Variable's operators (math_op_patch)."""
 from ..core.program import data  # noqa: F401  (layers.data parity)
 from .nn import *  # noqa: F401,F403
 from .nn import _BINARY_OPS, _UNARY_OPS  # noqa: F401
 from .nn import (  # noqa: F401
-    dropout, embedding, fc, fused_multihead_attention, layer_norm,
-    softmax_with_cross_entropy, square_error_cost,
+    accuracy, auc, cross_entropy, dropout, embedding, fc,
+    fused_multihead_attention, huber_loss, layer_norm,
+    sigmoid_cross_entropy_with_logits, softmax_with_cross_entropy,
+    square_error_cost,
 )
 from .tensor import (  # noqa: F401
     argmax, argmin, assign, cast, clip, clip_by_norm, concat, cumsum,

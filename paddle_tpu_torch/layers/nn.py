@@ -7,10 +7,10 @@ exports the comparisons of layers/control_flow.py, which take
 Each layer creates parameters through LayerHelper and appends ops
 (parity: python/paddle/fluid/layers/nn.py + fluid/layer_helper.py).
 Ported: the layers the BERT builders, a small fc program and the 4-D
-attention program (``square_error_cost``) emit, and every generated
-unary and binary layer of the JAX file.  Conv, pool, the norms other
-than layer_norm and the loss and metric layers wait (ROADMAP.md Queue 1
-items 3 and 6).
+attention program (``square_error_cost``) emit, the loss and metric
+layers, and every generated unary and binary layer of the JAX file.
+Conv, pool and the norms other than layer_norm wait (ROADMAP.md Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -56,12 +56,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, padding_idx=None,
               param_attr=None, dtype="float32", name=None):
-    """Embedding lookup (parity: layers/nn.py embedding).  The sparse
-    (SelectedRows) gradient is not ported: ``is_sparse=True`` raises."""
-    if is_sparse:
-        raise NotImplementedError(
-            "is_sparse embeddings (SelectedRows gradients) are not ported "
-            "to paddle_tpu_torch")
+    """Embedding lookup (parity: layers/nn.py embedding).
+
+    is_sparse=True requests the SelectedRows gradient path: the table's
+    gradient materializes as (rows, values) — O(batch·dim) memory
+    regardless of vocab size — and SGD/Adam apply row updates.  Falls
+    back to the dense grad when the table has multiple grad-relevant
+    uses (the aggregation sum needs dense terms)."""
     helper = LayerHelper("embedding", name=name)
     input = helper.input(input)
     w = helper.create_parameter(
@@ -139,6 +140,74 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100,
+                  name=None):
+    helper = LayerHelper("cross_entropy", name=name)
+    input, label = helper.input(input), helper.input(label)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input.name], "Label": [label.name]},
+        outputs={"Y": [out.name]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    x, label = helper.input(x), helper.input(label)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x.name], "Label": [label.name]},
+        outputs={"Out": [out.name]},
+        attrs={"ignore_index": ignore_index, "normalize": normalize},
+    )
+    return out
+
+
+def huber_loss(input, label, delta=1.0, name=None):
+    helper = LayerHelper("huber_loss", name=name)
+    input, label = helper.input(input), helper.input(label)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(
+        type="huber_loss",
+        inputs={"X": [input.name], "Y": [label.name]},
+        outputs={"Out": [out.name], "Residual": [residual.name]},
+        attrs={"delta": delta},
+    )
+    return out
+
+
+def accuracy(input, label, k=1, name=None):
+    helper = LayerHelper("accuracy", name=name)
+    input, label = helper.input(input), helper.input(label)
+    acc = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [input.name], "Label": [label.name]},
+        outputs={"Accuracy": [acc.name]},
+        attrs={"k": k},
+    )
+    return acc
+
+
+def auc(input, label, name=None):
+    helper = LayerHelper("auc", name=name)
+    input, label = helper.input(input), helper.input(label)
+    a = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="auc",
+        inputs={"Predict": [input.name], "Label": [label.name]},
+        outputs={"AUC": [a.name]},
+        attrs={},
+    )
+    return a
 
 
 def square_error_cost(input, label, name=None):

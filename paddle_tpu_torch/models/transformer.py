@@ -164,9 +164,14 @@ def encoder_layer(x, attn_bias, cfg: BertConfig, name: str, is_test=False):
     return _graph_ln(layers.elementwise_add(x, ffn), f"{name}.ln2")
 
 
-def bert_encoder(src_ids, input_mask, cfg: BertConfig, is_test=False):
+def bert_encoder(src_ids, input_mask, cfg: BertConfig, is_test=False,
+                 boundaries=None):
     """src_ids: [B, L] int; input_mask: [B, L] float (1 = real token).
-    Returns the [B, L, H] sequence output."""
+    Returns the [B, L, H] sequence output.
+
+    If `boundaries` is a list, the embedding output and every layer output
+    Variable are appended to it — the checkpoints RecomputeOptimizer
+    takes (and the pipeline cut points of the JAX package)."""
     emb = layers.embedding(
         src_ids, (cfg.vocab_size, cfg.hidden_size),
         param_attr=_w("embeddings.word", cfg))
@@ -185,9 +190,13 @@ def bert_encoder(src_ids, input_mask, cfg: BertConfig, is_test=False):
     # additive attention bias: [B, 1, 1, L], 0 for keep, -1e4 for pad
     bias = layers.scale(input_mask, scale=1e4, bias=-1e4)
     attn_bias = layers.unsqueeze(bias, [1, 2])
+    if boundaries is not None:
+        boundaries.append(x)
     for i in range(cfg.num_layers):
         x = encoder_layer(x, attn_bias, cfg, f"encoder.layer{i}",
                           is_test=is_test)
+        if boundaries is not None:
+            boundaries.append(x)
     return x
 
 
@@ -204,25 +213,71 @@ def bert_pretrain_loss(seq_out, masked_labels, cfg: BertConfig):
         total, layers.elementwise_max(valid, 1.0))
 
 
+def bert_pretrain_loss_masked(seq_out, mask_pos_flat, mask_labels, cfg):
+    """MLM head over gathered masked positions ONLY (parity: ERNIE's
+    mask_pos pipeline — the reference gathers ~15% masked positions with
+    host-computed flat indices before the vocab projection, so the
+    [B·L, vocab] logits tensor never exists).
+
+    seq_out: [B, L, H]; mask_pos_flat: [n] int (position + b·L, computed
+    host-side where B is known); mask_labels: [n, 1] int, -1 = padding
+    slot (ignored)."""
+    h = cfg.hidden_size
+    flat = layers.reshape(seq_out, [-1, h])              # [B*L, H]
+    picked = layers.gather(flat, mask_pos_flat)          # [n, H]
+    logits = layers.fc(
+        picked, cfg.vocab_size, num_flatten_dims=1,
+        param_attr=_w("mlm.out.w", cfg), bias_attr=_b("mlm.out.b"))
+    loss = layers.softmax_with_cross_entropy(
+        logits, mask_labels, ignore_index=-1)
+    total = layers.reduce_sum(loss)
+    valid = layers.reduce_sum(
+        layers.cast(layers.not_equal(mask_labels, -1), "float32"))
+    return layers.elementwise_div(
+        total, layers.elementwise_max(valid, 1.0))
+
+
 def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
-                        num_pipeline_stages=None, max_masked=None):
-    """Declares the feeds (src_ids [B, L] int64, input_mask [B, L]
-    float32, masked_labels [B, L, 1] int64 with -1 = unmasked) and builds
-    the pretrain graph with the dense MLM head.  Returns (loss, feeds).
-    The masked-position head and pipeline cuts are not ported."""
+                        num_pipeline_stages=None, max_masked=None,
+                        want_boundaries=False):
+    """Declares feeds and builds the full pretrain graph.  Returns
+    (loss, feeds dict).
+
+    max_masked: if set, use the masked-position head — feeds gain
+    "mask_pos" ([B·max_masked] flat indices = pos + b·seq_len) and
+    "masked_labels" becomes [B·max_masked, 1] (-1 pads); if None, the
+    dense full-sequence head (labels [B, L, 1], -1 = unmasked).
+
+    want_boundaries: also return the embedding and per-layer output
+    Variables (RecomputeOptimizer's checkpoints).  Pipeline cuts
+    (``num_pipeline_stages``) are not ported."""
     from ..core.program import data
 
-    if max_masked is not None or num_pipeline_stages:
+    if num_pipeline_stages:
         raise NotImplementedError(
-            "the masked-position head (max_masked) and pipeline cuts are "
-            "not ported to paddle_tpu_torch")
+            "pipeline cuts (num_pipeline_stages) are not ported to "
+            "paddle_tpu_torch yet (ROADMAP.md, Queue 1 item 5: meshes in "
+            "the Executor)")
     src_ids = data("src_ids", [None, seq_len], "int64")
     input_mask = data("input_mask", [None, seq_len], "float32")
-    seq_out = bert_encoder(src_ids, input_mask, cfg, is_test=is_test)
-    masked_labels = data("masked_labels", [None, seq_len, 1], "int64")
-    loss = bert_pretrain_loss(seq_out, masked_labels, cfg)
-    return loss, {"src_ids": src_ids, "input_mask": input_mask,
-                  "masked_labels": masked_labels}
+    boundaries = [] if want_boundaries else None
+    seq_out = bert_encoder(src_ids, input_mask, cfg, is_test=is_test,
+                           boundaries=boundaries)
+    if max_masked is not None:
+        mask_pos = data("mask_pos", [None], "int64")
+        masked_labels = data("masked_labels", [None, 1], "int64")
+        loss = bert_pretrain_loss_masked(seq_out, mask_pos, masked_labels,
+                                         cfg)
+        feeds = {"src_ids": src_ids, "input_mask": input_mask,
+                 "mask_pos": mask_pos, "masked_labels": masked_labels}
+    else:
+        masked_labels = data("masked_labels", [None, seq_len, 1], "int64")
+        loss = bert_pretrain_loss(seq_out, masked_labels, cfg)
+        feeds = {"src_ids": src_ids, "input_mask": input_mask,
+                 "masked_labels": masked_labels}
+    if want_boundaries:
+        return loss, feeds, boundaries
+    return loss, feeds
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,12 @@
-"""Neural-net ops of the ported training path: layer norm, dropout,
-softmax with cross entropy, the squared error.
+"""Neural-net ops of the ported training path: layer norm, dropout, the
+losses (softmax and plain cross entropy, sigmoid cross entropy, smooth
+L1, Huber, the squared error) and the batch metrics (accuracy, AUC).
 
 Counterpart of paddle_tpu/ops/nn.py (parity: operators/layer_norm_op.cc,
-dropout_op.cc, softmax_with_cross_entropy_op.cc), with its numerics:
+dropout_op.cc, softmax_with_cross_entropy_op.cc, cross_entropy_op.cc,
+sigmoid_cross_entropy_with_logits_op.cc, smooth_l1_loss_op.cc,
+huber_loss_op.cc, metrics/accuracy_op.cc, metrics/auc_op.cc), with its
+numerics:
 layer norm over the trailing axes with the population variance and eps
 1e-5; cross entropy with ``ignore_index``.  Dropout draws its mask from a
 ``torch.Generator`` seeded with the op's seed, so it cannot repeat the
@@ -77,6 +81,100 @@ def softmax_with_cross_entropy(ctx, inputs, attrs):
         picked = torch.take_along_dim(logp, safe, dim=axis)
         loss = torch.where(valid, -picked, torch.zeros_like(picked))
     return out(Softmax=logp.exp(), Loss=loss)
+
+
+@register_op("cross_entropy", inputs=("X", "Label"), outputs=("Y",),
+             no_grad_slots=("Label",))
+def cross_entropy(ctx, inputs, attrs):
+    """Parity: operators/cross_entropy_op.cc — X is a probability
+    distribution (post-softmax); hard or soft labels."""
+    x = single(inputs, "X")
+    label = single(inputs, "Label")
+    eps = 1e-12
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x.clamp_min(eps))).sum(-1, keepdim=True)
+    else:
+        if label.dim() == x.dim():
+            label = label.squeeze(-1)
+        label = label.long()
+        valid = (label != attrs.get("ignore_index", -100))[..., None]
+        safe = label.clamp(0, x.shape[-1] - 1)
+        picked = torch.take_along_dim(x, safe[..., None], dim=-1)
+        loss = torch.where(valid, -torch.log(picked.clamp_min(eps)),
+                           torch.zeros_like(picked))
+    return {"Y": [loss]}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=("X", "Label"),
+             outputs=("Out",), no_grad_slots=("Label",))
+def sigmoid_cross_entropy_with_logits(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    label = single(inputs, "Label")
+    loss = x.clamp_min(0.0) - x * label + torch.log1p(torch.exp(-x.abs()))
+    ignore = attrs.get("ignore_index", -100)
+    if ignore >= 0:
+        loss = torch.where(label != ignore, loss, torch.zeros_like(loss))
+    if attrs.get("normalize", False):
+        n = (label != ignore).to(x.dtype).sum().clamp_min(1.0)
+        loss = loss / n
+    return out(Out=loss)
+
+
+@register_op("smooth_l1_loss", inputs=("X", "Y"), outputs=("Out", "Diff"))
+def smooth_l1_loss(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    y = single(inputs, "Y")
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = x - y
+    ad = diff.abs()
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if x.dim() > 1:
+        loss = loss.sum(dim=tuple(range(1, x.dim())))[..., None]
+    return out(Out=loss, Diff=diff)
+
+
+@register_op("huber_loss", inputs=("X", "Y"), outputs=("Out", "Residual"))
+def huber_loss(ctx, inputs, attrs):
+    x = single(inputs, "X")
+    y = single(inputs, "Y")
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = r.abs()
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return out(Out=loss, Residual=r)
+
+
+@register_op("accuracy", inputs=("Out", "Label"), outputs=("Accuracy",),
+             no_grad_slots=("Out", "Label"))
+def accuracy(ctx, inputs, attrs):
+    """Top-1 accuracy over the batch (argmax's first maximum, as
+    jnp.argmax)."""
+    pred = single(inputs, "Out")
+    label = single(inputs, "Label")
+    if label.dim() == pred.dim():
+        label = label.squeeze(-1)
+    top1 = pred.argmax(-1)
+    return {"Accuracy": [(top1 == label.to(top1.dtype)).float().mean()]}
+
+
+@register_op("auc", inputs=("Predict", "Label"), outputs=("AUC",),
+             no_grad_slots=("Predict", "Label"))
+def auc(ctx, inputs, attrs):
+    """Batch AUC by the rank statistic (parity: metrics/auc_op.cc,
+    simplified to a stateless batch computation, as in the JAX
+    package): tied scores take ranks in a stable sort's order."""
+    pred = single(inputs, "Predict")
+    label = single(inputs, "Label").reshape(-1).float()
+    score = pred[..., -1].reshape(-1) if pred.dim() > 1 else pred.reshape(-1)
+    order = torch.argsort(score, stable=True)
+    ranks = torch.empty_like(score).index_put(
+        (order,), torch.arange(1, score.shape[0] + 1, dtype=score.dtype,
+                               device=score.device))
+    n_pos = label.sum()
+    n_neg = label.shape[0] - n_pos
+    auc_val = ((ranks * label).sum() - n_pos * (n_pos + 1) / 2.0) \
+        / (n_pos * n_neg).clamp_min(1.0)
+    return {"AUC": [auc_val]}
 
 
 @register_op("mse_loss", inputs=("X", "Y"), outputs=("Out",))

@@ -6,15 +6,18 @@ Counterpart of paddle_tpu/ops/optim.py, formula for formula (parity:
 operators/optimizers/).  As in the reference, parameter updates are ops
 INSIDE the program; each returns the updated parameter and accumulators
 as new tensors (never writing an input in place) and the Executor
-writes them back to the scope.  ``sgd_sparse`` and ``adam_sparse`` wait
-for sparse gradients; the JAX package's bf16-moment switch
-(``acc_dtype``) is not carried over.
+writes them back to the scope.  ``sgd_sparse`` and ``adam_sparse``
+take a SelectedRows gradient (Values, Rows): duplicate rows merge in a
+fixed order and the scatter drops padding and out-of-range rows
+(ops/misc2.py).  The JAX package's bf16-moment switch (``acc_dtype``) is
+not carried over.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import out, register_op, single
+from .misc2 import merge_table_rows, scatter_rows
 
 
 @register_op("sgd", inputs=("Param", "Grad", "LearningRate"),
@@ -24,6 +27,68 @@ def sgd(ctx, inputs, attrs):
     g = single(inputs, "Grad")
     lr = single(inputs, "LearningRate")
     return {"ParamOut": [p - lr.to(p.dtype) * g.to(p.dtype)]}
+
+
+@register_op("sgd_sparse", inputs=("Param", "Values", "Rows",
+                                   "LearningRate"),
+             outputs=("ParamOut",))
+def sgd_sparse(ctx, inputs, attrs):
+    """SGD over a SelectedRows gradient (parity: sgd_op.cc's
+    SelectedRows branch): the merged rows' updates are added to their
+    rows — no dense [vocab, dim] gradient ever exists; duplicate rows
+    add up as the dense sum would."""
+    p = single(inputs, "Param")
+    lr = single(inputs, "LearningRate").to(p.dtype)
+    merged, idx = merge_table_rows(single(inputs, "Values").to(p.dtype),
+                                   single(inputs, "Rows"), p.shape[0])
+    return {"ParamOut": [scatter_rows(p, idx, -lr * merged, True)]}
+
+
+@register_op("adam_sparse",
+             inputs=("Param", "Values", "Rows", "Moment1", "Moment2",
+                     "LearningRate", "Beta1Pow", "Beta2Pow"),
+             outputs=("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+                      "Beta2PowOut"))
+def adam_sparse(ctx, inputs, attrs):
+    """Adam over a SelectedRows gradient (parity: adam_op.cc
+    SelectedRows branch).
+
+    Default (lazy_mode=False, the reference's default): EVERY row's
+    moments decay each step and every param row updates — dense Adam on
+    the scattered gradient.
+
+    lazy_mode=True (adam_op.cc lazy_mode): moments and parameters update
+    ONLY on the merged, touched rows; padding and out-of-range rows
+    touch none."""
+    p = single(inputs, "Param")
+    m1 = single(inputs, "Moment1")
+    m2 = single(inputs, "Moment2")
+    lr = single(inputs, "LearningRate").to(p.dtype)
+    b1p = single(inputs, "Beta1Pow")
+    b2p = single(inputs, "Beta2Pow")
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    n = p.shape[0]
+    merged, idx = merge_table_rows(single(inputs, "Values").to(p.dtype),
+                                   single(inputs, "Rows"), n)
+    lr_t = lr * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    pows = {"Beta1PowOut": [b1p * b1], "Beta2PowOut": [b2p * b2]}
+    if not attrs.get("lazy_mode", False):
+        g = scatter_rows(torch.zeros_like(p), idx, merged, False)
+        m1_out = b1 * m1 + (1.0 - b1) * g
+        m2_out = b2 * m2 + (1.0 - b2) * g * g
+        p_out = p - lr_t * m1_out / (torch.sqrt(m2_out) + eps)
+        return {"ParamOut": [p_out], "Moment1Out": [m1_out],
+                "Moment2Out": [m2_out], **pows}
+    # the dropped row n reads as row 0 here; its update is sliced off
+    safe = idx.clamp(max=n - 1)
+    m1r = b1 * m1[safe] + (1.0 - b1) * merged
+    m2r = b2 * m2[safe] + (1.0 - b2) * merged * merged
+    upd = -lr_t * m1r / (torch.sqrt(m2r) + eps)
+    return {"ParamOut": [scatter_rows(p, idx, upd, True)],
+            "Moment1Out": [scatter_rows(m1, idx, m1r, False)],
+            "Moment2Out": [scatter_rows(m2, idx, m2r, False)], **pows}
 
 
 @register_op("momentum",

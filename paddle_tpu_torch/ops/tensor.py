@@ -1,7 +1,6 @@
 """Tensor-manipulation ops.
 
-Counterpart of paddle_tpu/ops/tensor.py, op for op but
-``lookup_table_sparse_grad`` (sparse gradients are not ported), plus
+Counterpart of paddle_tpu/ops/tensor.py, op for op, plus
 ``assign_value`` (paddle_tpu/initializer.py registers it there) (parity:
 the reference's assign/cast/concat/split/reshape/transpose/slice/gather/
 stack/fill_constant/sum/... operator files).  Views where torch gives
@@ -272,6 +271,29 @@ def lookup_table(ctx, inputs, attrs):
     if padding_idx is not None and padding_idx >= 0:
         res = res.masked_fill((ids == padding_idx)[..., None], 0.0)
     return out(Out=res)
+
+
+@register_op("lookup_table_sparse_grad", inputs=("Ids", "OutGrad"),
+             outputs=("Values", "Rows"),
+             no_grad_slots=("Ids", "OutGrad"))
+def lookup_table_sparse_grad(ctx, inputs, attrs):
+    """SelectedRows-form embedding gradient (parity:
+    operators/lookup_table_op.cc grad with is_sparse=True +
+    framework/selected_rows.h:32): (Rows=[n] ids, Values=[n, dim]
+    cotangents) instead of a dense [vocab, dim] buffer — O(batch·dim)
+    memory regardless of vocab.  The ids stay as fed, as in the JAX
+    package; the consumers (ops/misc2.py, ops/optim.py) wrap an id in
+    [-vocab, 0) and drop one outside [-vocab, vocab), the forward's rule."""
+    ids = single(inputs, "Ids")
+    og = single(inputs, "OutGrad")
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    rows = ids.reshape(-1)
+    values = og.reshape(-1, og.shape[-1])
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        values = values.masked_fill((rows == padding_idx)[:, None], 0.0)
+    return out(Values=values, Rows=rows)
 
 
 @register_op("shape", inputs=("Input",), outputs=("Out",),

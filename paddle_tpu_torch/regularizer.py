@@ -2,7 +2,10 @@
 (parity: python/paddle/fluid/regularizer.py).
 
 As in the reference, regularization is appended to the gradient as ops
-(grad += coeff * penalty'(param)) before the optimizer op consumes it."""
+(grad += coeff * penalty'(param)) before the optimizer op consumes it.
+A SelectedRows gradient is densified first (``sparse_to_dense_grad``,
+from ``Optimizer._append_regularization``), so the decay term is dense,
+as the reference's sum op makes it (regularizer.py:42)."""
 from __future__ import annotations
 
 from .layers.helper import LayerHelper

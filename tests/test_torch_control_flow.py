@@ -14,9 +14,9 @@ norm, the StaticRNN training losses within 2e-3 (``_PARITY_TOL``,
 ``__graft_entry__.py:26``).  Each case also holds the port to the JAX
 test's own expected values.
 
-The JAX package's ``test_while_max_iters_under_recompute`` waits for the
-port of RecomputeOptimizer (ROADMAP.md Queue 1 item 3): its port case
-checks that the optimizer raises ``NotImplementedError``.
+The JAX package's ``test_while_max_iters_under_recompute`` trains a
+bounded While under RecomputeOptimizer; its port case trains the same
+program from the same weights, losses within 1e-5 relative.
 """
 import numpy as np
 import pytest
@@ -445,12 +445,54 @@ def test_while_rejects_non_bool_condition():
                 P.layers.While(i)
 
 
+def _while_under_recompute(P):
+    L = P.layers
+    x = P.data("x", shape=[2, 4], dtype="float32")
+    nv = P.data("n", shape=[1], dtype="int64")
+    s = L.fc(x, size=4, act="tanh")
+    i = L.fill_constant([1], "int64", 0)
+    c = L.less_than(i, nv)
+    loop = L.While(c, max_iters=3)
+    with loop.block():
+        L.assign(L.fc(s, size=4, act="tanh"), s)
+        L.increment(i)
+        L.less_than(i, nv, cond=c)
+    mid = L.fc(s, size=4, act="relu")
+    loss = L.mean(L.square(mid))
+    opt = P.optimizer.RecomputeOptimizer(P.optimizer.SGD(0.1))
+    opt._set_checkpoints([mid])
+    opt.minimize(loss)
+    return loss
+
+
 def test_while_max_iters_under_recompute_waits_for_recompute():
-    """The JAX case trains a bounded While under RecomputeOptimizer; the
-    port has no recompute yet, and says so."""
-    with pt.new_program_scope():
-        with pytest.raises(NotImplementedError, match="Recompute"):
-            pt.optimizer.RecomputeOptimizer(pt.optimizer.SGD(0.1))
+    """The JAX case: a bounded While trains under RecomputeOptimizer (the
+    checkpointed forward runs the loop again in the backward); six SGD
+    steps from the JAX startup's weights give the JAX package's losses."""
+    feed = {"x": np.random.RandomState(7).rand(2, 4).astype(np.float32),
+            "n": np.array([2], np.int64)}
+    losses, init = [], None
+    for P in (jpt, pt):
+        main, startup = P.Program(), P.Program()
+        startup.random_seed = 3
+        with P.program_guard(main, startup), P.unique_name.guard():
+            loss = _while_under_recompute(P)
+        scope = P.Scope()
+        if P is jpt:
+            exe = P.Executor()
+            with P.scope_guard(scope):
+                exe.run(startup)
+            init = {v.name: np.asarray(scope.find_var(v.name))
+                    for v in main.list_vars() if v.persistable}
+        else:
+            exe = P.Executor(P.CPUPlace())
+            P.io.load_params(scope, init, "cpu", program=main)
+        with P.scope_guard(scope):
+            losses.append([float(exe.run(main, feed=feed,
+                                         fetch_list=[loss])[0])
+                           for _ in range(6)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    assert losses[1][-1] < losses[1][0], losses[1]
 
 
 def _dropout_rnn(P):

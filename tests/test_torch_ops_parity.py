@@ -1,7 +1,8 @@
 """Ops and constructors where the port once parted from the JAX package,
 held against it on the CPU: a reduce over an empty ``dim``, a squeeze of
 an axis whose size is not 1, and the constructor keywords
-``NgramDrafter(max_seqs=...)`` and ``AdamOptimizer(lazy_mode=...)``.
+``NgramDrafter(max_seqs=...)`` and ``AdamOptimizer(lazy_mode=...)``
+(its lazy mode on dense and sparse gradients).
 
 Tolerance: exact — the reductions here are identities or sums of a few
 small integers in float32.
@@ -111,6 +112,23 @@ def test_adam_takes_lazy_mode_false_like_the_jax_package(lazy_mode):
 
 
 def test_adam_lazy_mode_true_is_refused_until_sparse_gradients():
-    jpt.optimizer.AdamOptimizer(0.01, lazy_mode=True)   # the reference takes it
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        pt.optimizer.AdamOptimizer(0.01, lazy_mode=True)
+    """``lazy_mode=True`` is taken as the JAX package takes it: on a
+    dense gradient it changes nothing (the same ``adam`` ops as
+    ``lazy_mode=False``); on an ``is_sparse`` table it marks the
+    ``adam_sparse`` op lazy."""
+    for sparse in (False, True):
+        ops = []
+        for pkg in (pt, jpt):
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.program_guard(main, startup), pkg.unique_name.guard():
+                ids = pkg.data("ids", [4, 1], "int64")
+                emb = pkg.layers.embedding(ids, (10, 6), is_sparse=sparse)
+                loss = pkg.layers.mean(pkg.layers.fc(emb, 3))
+                pkg.optimizer.AdamOptimizer(0.01, lazy_mode=True) \
+                    .minimize(loss)
+            ops.append([(o.type, o.attrs.get("lazy_mode"))
+                        for o in main.global_block().ops
+                        if o.type.startswith("adam")])
+        assert ops[0] == ops[1]
+        assert ops[0][0] == (("adam_sparse", True) if sparse
+                             else ("adam", None))

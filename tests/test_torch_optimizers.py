@@ -341,5 +341,50 @@ def test_current_lr_and_set_lr():
 
 
 def test_sparse_and_lazy_paths_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        pt.optimizer.Adam(0.1, lazy_mode=True)
+    """The sparse and lazy paths, once refused, now take the JAX
+    package's ops: an ``is_sparse`` table under ``Adam(lazy_mode=True)``
+    builds the same program (``lookup_table_sparse_grad``, a lazy
+    ``adam_sparse``), and two steps from the same weights give the same
+    losses and state within 1e-5; only Momentum-like optimizers refuse
+    the SelectedRows gradient, with the JAX package's ValueError."""
+    def build(P, opt):
+        main, startup = P.Program(), P.Program()
+        startup.random_seed = 5
+        with P.program_guard(main, startup), P.unique_name.guard():
+            ids = P.data("ids", [6, 1], "int64")
+            y = P.data("y", [6, 3])
+            emb = P.layers.embedding(ids, (20, 3), is_sparse=True)
+            loss = P.layers.mean(P.layers.square_error_cost(emb, y))
+            opt(P).minimize(loss)
+        return main, startup, loss
+
+    lazy = lambda P: P.optimizer.Adam(0.1, lazy_mode=True)  # noqa: E731
+    jmain, jstartup, jloss = build(jpt, lazy)
+    main, _, loss = build(pt, lazy)
+    types = [o.type for o in main.global_block().ops]
+    assert types == [o.type for o in jmain.global_block().ops]
+    assert "lookup_table_sparse_grad" in types
+    assert [o.attrs["lazy_mode"] for o in main.global_block().ops
+            if o.type == "adam_sparse"] == [True]
+    r = np.random.RandomState(1)
+    feed = {"ids": r.randint(0, 20, (6, 1)).astype(np.int64),
+            "y": r.rand(6, 3).astype(np.float32)}
+    jscope, jexe = jpt.Scope(), jpt.Executor()
+    with jpt.scope_guard(jscope):
+        jexe.run(jstartup)
+        init = {v.name: np.asarray(jscope.find_var(v.name))
+                for v in jmain.list_vars() if v.persistable}
+        want = [float(jexe.run(jmain, feed=feed, fetch_list=[jloss])[0])
+                for _ in range(2)]
+        jstate = {n: np.asarray(jscope.find_var(n)) for n in init}
+    scope, exe = pt.Scope(), pt.Executor(pt.CPUPlace())
+    pt.io.load_params(scope, init, "cpu", program=main)
+    got = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                         scope=scope)[0]) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=PROGRAM_TOL)
+    for n, w in jstate.items():
+        np.testing.assert_allclose(scope.find_var(n).numpy(), w,
+                                   rtol=PROGRAM_TOL, atol=1e-6, err_msg=n)
+    for P in (jpt, pt):
+        with pytest.raises(ValueError, match="SelectedRows"):
+            build(P, lambda P: P.optimizer.Momentum(0.1, 0.9))
