@@ -3423,18 +3423,23 @@ CLUSTER_LOG_DIR = OUT_DIR / "phase9"
 
 
 def cluster_engine(model="base", layers=None, scheduling="chunked",
-                   device=None):
-    """The worker factory of phase 9b (``chip_smoke:cluster_engine`` in a
-    WorkerSpec; a worker process imports this file as a module): phase
-    3a's engine — ``BertConfig.<model>()`` with initializer_range 0.6,
-    its weights made from SEED, cut to ``layers`` layers when given — on
-    the card unless ``device`` says otherwise."""
+                   device=None, seed=SEED, tune_dir=None):
+    """The worker factory of phases 9b and 14c (``chip_smoke:
+    cluster_engine`` in a WorkerSpec; a worker process imports this file
+    as a module): phase 3a's engine — ``BertConfig.<model>()`` with
+    initializer_range 0.6, its weights made from ``seed``, cut to
+    ``layers`` layers when given — on the card unless ``device`` says
+    otherwise.  ``tune_dir``: the process's tuning store is its own file
+    there (``PADDLE_TPU_AUTOTUNE_CACHE``)."""
     from paddle_tpu_torch.generation import GenerationConfig, GenerationEngine
     from paddle_tpu_torch.models import BertConfig, lm_random_params
 
+    if tune_dir is not None:
+        os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = os.path.join(
+            tune_dir, f"worker-{os.getpid()}.json")
     model_cfg = dataclasses.replace(getattr(BertConfig, model)(),
                                     initializer_range=0.6)
-    params = lm_random_params(model_cfg, np.random.RandomState(SEED))
+    params = lm_random_params(model_cfg, np.random.RandomState(seed))
     if layers:
         model_cfg, params = cut_model(model_cfg, params, layers)
     return GenerationEngine(model_cfg, params, GenerationConfig(
@@ -6453,6 +6458,686 @@ def sparse_recompute_phase(device, cfg, phase5_step_ms=float("nan")):
     return out
 
 
+# -- phase 14: the serving artifact, the tuning plane, the fleet --------------
+
+#: 14a: the artifact's logits against the Predictor's (max abs; the same
+#: kernels in the same order, so bit-equal is expected)
+ARTIFACT_ATOL = 1e-6
+#: 14a: timed runs of each artifact in the loading process, and of the
+#: Predictor
+ARTIFACT_RUNS = 3
+#: 14b: calls a tuning candidate is timed over
+TUNE_REPS = 200
+#: 14b: the FFN geometry of the plan search (BERT-base's training FFN:
+#: M = 32 x 128 rows)
+PLAN_GEOMETRY = (4096, 768, 3072, 768)
+#: 14b/14c: greedy tokens a request (the depth-2 token gates): a request
+#: lasts long enough to be in flight when its worker is killed
+FLEET_NEW = MAX_SEQ_LEN - PROMPT_LEN
+#: 14c: requests of the autoscaler's burst, and of each other scenario
+FLEET_BURST, FLEET_REQUESTS = 24, 8
+#: 14c: each worker's log directory
+FLEET_LOG_DIR = OUT_DIR / "phase14"
+
+#: the loading process of 14a: it imports the loader alone (no program
+#: IR), loads each artifact, runs it and reports launches, plain calls,
+#: times and the modules it imported
+ARTIFACT_CHILD = r'''
+import json, sys, time
+import numpy as np
+import torch
+from paddle_tpu_torch import _cuda
+from paddle_tpu_torch.inference.predictor import load_exported
+
+args = json.loads(sys.argv[1])
+buf, want = np.load(args["inputs"]), np.load(args["want"])
+on_card = args["device"].startswith("cuda")
+plain = {"n": 0}
+names = {"ops.flash_attention": ("flash_ref_forward", "flash_ref_forward_flat",
+                                 "attention", "attention_packed"),
+         "ops.attention_epilogue": ("qkv_ref_forward", "flash_ref_forward"),
+         "ops.fused_matmul": ("reference_matmul_epilogue",),
+         "ops.ffn_chain": ("reference_ffn_chain",)}
+import importlib
+for m, fns in names.items():
+    mod = importlib.import_module("paddle_tpu_torch." + m)
+    for n in fns:
+        def counted(*a, _fn=getattr(mod, n), **kw):
+            plain["n"] += 1
+            return _fn(*a, **kw)
+        setattr(mod, n, counted)
+
+def sync():
+    if on_card:
+        torch.cuda.synchronize()
+
+out = {}
+for tag in ("baked", "unbaked"):
+    t0 = time.perf_counter()
+    call = load_exported(args[tag])
+    load_s = time.perf_counter() - t0
+    got = call({"src_ids": buf})[0].cpu().numpy()        # first run
+    _cuda.reset_launches()
+    plain["n"] = 0
+    runs = []
+    for _ in range(args["runs"]):
+        sync()
+        t0 = time.perf_counter()
+        got = call({"src_ids": buf})[0].cpu().numpy()
+        runs.append(time.perf_counter() - t0)
+    out[tag] = dict(load_s=load_s, run_s=runs,
+                    launches={k: v / args["runs"]
+                              for k, v in _cuda.LAUNCHES.items() if v},
+                    plain_calls=plain["n"],
+                    max_abs_err=float(np.abs(got.astype(np.float64)
+                                             - want).max()),
+                    shape=list(got.shape),
+                    finite=bool(np.isfinite(got).all()))
+try:
+    load_exported(args["foreign"])({"src_ids": buf})
+    out["foreign"] = "accepted"
+except ValueError as e:
+    out["foreign"] = str(e)
+out["modules"] = sorted(m for m in sys.modules
+                        if m.startswith("paddle_tpu_torch"))
+print("ARTIFACT_CHILD " + json.dumps(out))
+'''
+
+
+def _logits_program(cfg):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import build_lm_logits
+
+    def logits_graph(c):
+        src = pt.data("src_ids", [N_PROMPTS, MAX_SEQ_LEN], "int64")
+        return build_lm_logits(src, c)
+
+    return lm_graph_program(logits_graph, cfg)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def artifact_phase(device, cfg, root):
+    """Phase 14a: build_lm_logits at [N_PROMPTS, MAX_SEQ_LEN] (the
+    serving LM, dropout 0, weights from the startup program's seed)
+    frozen into a Predictor, exported baked and unbaked
+    (``export_stablehlo``: a torch.export program whose fused groups are
+    the kernels' torch.library operators), then loaded and run in a
+    fresh process that imports the loader alone.  Gates: the logits
+    within ARTIFACT_ATOL of the Predictor's, #9/#10/#11 once per layer a
+    run there, no plain version, no program IR, layers or models
+    imported there, a foreign sidecar refused at load and at a
+    write_sidecar=False export.  Returns (report, state for 14b)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.inference.sidecar import write_weight_sidecar
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    main, startup, out = _logits_program(cfg)
+    exe, scope = _executor(device), pt.Scope()
+    exe.run(startup, scope=scope)
+    path = os.path.join(root, "logits")
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(path, ["src_ids"], [out], exe,
+                                   main_program=main)
+    config = inference.Config(path)
+    if not on_card:
+        config.disable_gpu()
+    pred = inference.create_predictor(config)
+    buf = np.asarray(make_prompts(np.random.RandomState(SEED + 14),
+                                  N_PROMPTS, MAX_SEQ_LEN, cfg.vocab_size),
+                     np.int64)
+    want, = pred.run([buf])
+    pred_s = []
+    for _ in range(ARTIFACT_RUNS):
+        sync(device)
+        t0 = time.perf_counter()
+        want, = pred.run([buf])
+        pred_s.append(time.perf_counter() - t0)
+
+    arts, export_s, text = {}, {}, {}
+    for tag, bake in (("baked", True), ("unbaked", False)):
+        arts[tag] = os.path.join(root, f"logits_{tag}.pt2")
+        t0 = time.perf_counter()
+        text[tag] = pred.export_stablehlo(arts[tag],
+                                          example_inputs={"src_ids": buf},
+                                          bake_weights=bake)
+        export_s[tag] = time.perf_counter() - t0
+    graph = open(text["baked"]).read()
+    ops = {k: graph.count(f"paddle_tpu_torch.{k}.default")
+           for k in ("flash_kernel_forward_qkv", "fused_matmul_kernel",
+                     "ffn_chain_kernel", "flash_kernel_forward")}
+    if ops != {"flash_kernel_forward_qkv": L, "fused_matmul_kernel": L,
+               "ffn_chain_kernel": L, "flash_kernel_forward": 0}:
+        raise AssertionError(f"the artifact's graph holds the kernels' "
+                             f"operators {ops}, one of #9/#10/#11 per layer "
+                             f"expected")
+    # a sidecar of another model: refused by a write_sidecar=False export
+    # (before anything is written) and at load (the argument count)
+    arts["foreign"] = os.path.join(root, "logits_foreign.pt2")
+    shutil.copyfile(arts["baked"], arts["foreign"])
+    write_weight_sidecar(arts["foreign"] + ".weights",
+                         {"w_other": np.zeros((3, 3), np.float32)})
+    try:
+        pred.export_stablehlo(arts["foreign"],
+                              example_inputs={"src_ids": buf},
+                              bake_weights=False, write_sidecar=False)
+        raise AssertionError("a foreign sidecar passed the export's check")
+    except ValueError as e:
+        if "does not match" not in str(e):
+            raise
+        export_refusal = str(e)
+    np.save(os.path.join(root, "inputs.npy"), buf)
+    np.save(os.path.join(root, "want.npy"), want)
+    args = dict(arts, inputs=os.path.join(root, "inputs.npy"),
+                want=os.path.join(root, "want.npy"), runs=ARTIFACT_RUNS,
+                device=str(device))
+    repo = str(Path(__file__).resolve().parent)
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, json.dumps(args)], cwd=repo,
+        capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=repo))
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("ARTIFACT_CHILD ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"the loading process failed (rc "
+                             f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    child = json.loads(line[0][len("ARTIFACT_CHILD "):])
+    want_launch = {"flash_fwd_qkv": L, "gemm_epilogue": L, "ffn_chain": L} \
+        if on_card else {}
+    heavy = [m for m in child["modules"] for p in (
+        "paddle_tpu_torch.core", "paddle_tpu_torch.layers",
+        "paddle_tpu_torch.models") if m == p or m.startswith(p + ".")]
+    sizes = dict(baked=os.path.getsize(arts["baked"]),
+                 unbaked=os.path.getsize(arts["unbaked"]),
+                 sidecar=_dir_bytes(arts["unbaked"] + ".weights"))
+    for tag in ("baked", "unbaked"):
+        c = child[tag]
+        log(f"  14a {tag}: artifact {sizes[tag]} bytes"
+            + (f" + sidecar {sizes['sidecar']} bytes" if tag == "unbaked"
+               else "") + f"; export {export_s[tag]:.2f} s, load "
+            f"{c['load_s']:.2f} s (a fresh process), runs "
+            + ", ".join(f"{s * 1e3:.1f}" for s in c["run_s"])
+            + " ms (the Predictor's "
+            + ", ".join(f"{s * 1e3:.1f}" for s in pred_s) + " ms); max abs "
+            f"err {c['max_abs_err']:.3e}; launches a run {c['launches']}; "
+            f"plain calls {c['plain_calls']}")
+        if not (c["finite"] and c["shape"] == list(want.shape)
+                and c["max_abs_err"] <= ARTIFACT_ATOL
+                and c["launches"] == want_launch
+                and (c["plain_calls"] == 0 or not on_card)):
+            raise AssertionError(f"14a {tag}: {c}")
+    if heavy or "belongs to a different export" not in child["foreign"]:
+        raise AssertionError(f"14a loading process: imported {heavy}; "
+                             f"foreign sidecar: {child['foreign']}")
+    log(f"  14a the loading process imported {len(child['modules'])} "
+        f"modules of the port, none of core/layers/models; a foreign "
+        f"sidecar refused at load and at export")
+    report = dict(bytes=sizes, export_s=export_s, predictor_run_s=pred_s,
+                  graph_ops=ops, child=child, export_refusal=export_refusal,
+                  launches={k: int(v) for k, v in
+                            child["baked"]["launches"].items()})
+    return report, dict(pred=pred, buf=buf, want=want, exe=exe, scope=scope,
+                        path=path)
+
+
+def tuning_phase(device, cfg, params_np, art, root):
+    """Phase 14b: the tuning plane on the card, its store a file in
+    ``root``.  The ragged search (``search_geometry("ragged", ...)``) at
+    the chunked engine's geometry: each block_rows candidate's time and
+    its attestation against ``ragged_ref_attention``; a chunked engine
+    with ``ragged_block_rows=None`` resolving the searched value from
+    the store (harvest source "cache"), its greedy tokens at depth
+    REFERENCE_LAYERS equal to a block_rows=1 engine's; the fusion-plan
+    search at PLAN_GEOMETRY (the chain, #11, against two #10 launches);
+    then a per_gemm override in force for the logits' FFN geometry: a
+    new Predictor launches #11 0 and #10 3 x L times a run (the FFN's
+    two GEMMs beside each layer's attention-output group), within
+    LOGITS_ROW_RTOL of the chain's logits at depths 1..REFERENCE_LAYERS
+    (phase 11c's gate)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda, inference
+    from paddle_tpu_torch.generation import (GenerationConfig,
+                                             GenerationEngine,
+                                             SamplingParams)
+    from paddle_tpu_torch.models import lm_params_from_numpy
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.tuning import (TuningStore, autotune_fusion_plan,
+                                         make_key, search_geometry)
+    from paddle_tpu_torch.tuning.plans import plan_key
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    nh, dh = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    gen = GenerationConfig(page_size=PAGE_SIZE, max_seqs=MAX_SEQS,
+                           max_seq_len=MAX_SEQ_LEN, seed=SEED)
+    rows = MAX_SEQS + gen.prefill_chunk
+    geometry = f"r{rows}h{nh}d{dh}p{PAGE_SIZE}"
+    store = TuningStore(os.environ["PADDLE_TPU_AUTOTUNE_CACHE"])
+    kind = at.device_kind(device)
+    out = {"device_kind": kind, "geometry": geometry}
+
+    rep = search_geometry("ragged", geometry, reps=TUNE_REPS, device=device,
+                          store=store)
+    for c in rep["candidates"]:
+        log(f"  14b ragged {geometry} block_rows {c['block_rows']}: "
+            + (f"{c['ms']:.5f} ms, " if "ms" in c else "")
+            + (f"parity {c.get('parity')}, max abs err "
+               f"{c.get('max_abs_err', float('nan')):.3e}"
+               if "error" not in c else f"refused: {c['error']}"))
+    entry = store.get(make_key("ragged", kind, geometry, "float32"))
+    bm = rep["config"]["block_rows"]
+    if on_card and not (entry and entry["attestation"]["parity"] is True
+                        and entry["device_kind"]
+                        == torch.cuda.get_device_name(device)
+                        and entry["config"]["block_rows"] == bm):
+        raise AssertionError(f"14b: no attested ragged entry under the "
+                             f"card's kind: {entry}")
+    if not on_card:
+        # nothing is timed or written on the CPU: put the winner by hand
+        store.put(make_key("ragged", kind, geometry, "float32"),
+                  {"block_rows": bm},
+                  attestation={"parity": True, "ref": "rehearsal"})
+    out["ragged"] = {k: rep[k] for k in ("config", "ms", "heuristic_ms",
+                                         "speedup", "candidates")}
+
+    cut, cut_params = cut_model(cfg, params_np, REFERENCE_LAYERS)
+    prompts = make_prompts(np.random.RandomState(SEED + 1), N_PROMPTS,
+                           PROMPT_LEN, cfg.vocab_size)
+    greedy = SamplingParams(max_new_tokens=FLEET_NEW)
+    hits0 = _series_total("autotune_cache_hits_total", kernel="ragged",
+                           source="cache")
+    params = lm_params_from_numpy(cut_params, device)
+    tokens = {}
+    ragged_launches = 0
+    for tag, rows_cfg in (("resolved", None), ("block_rows_1", 1)):
+        eng = GenerationEngine(cut, params, dataclasses.replace(
+            gen, ragged_block_rows=rows_cfg), device=device)
+        if tag == "resolved":
+            hits = _series_total("autotune_cache_hits_total",
+                                  kernel="ragged", source="cache") - hits0
+            resolved = eng._bm
+        eng.warmup()
+        _cuda.reset_launches()
+        res = eng.generate(prompts, sampling=greedy)
+        steps = eng.stats.snapshot()["steps"]
+        tokens[tag] = [list(r.tokens) for r in res]
+        got = _cuda.LAUNCHES["ragged_paged_attention"]
+        if tag == "resolved":
+            ragged_launches = got
+        if on_card and got != REFERENCE_LAYERS * steps:
+            raise AssertionError(f"14b {tag}: #1 launched {got} times in "
+                                 f"{steps} steps")
+        del eng
+    parity = float(np.mean([a == b for a, b in zip(tokens["resolved"],
+                                                   tokens["block_rows_1"])]))
+    log(f"  14b engine (ragged_block_rows=None): resolved block_rows "
+        f"{resolved} from the store (harvest source=cache +{hits}); "
+        f"greedy tokens at depth {REFERENCE_LAYERS} equal to a "
+        f"block_rows=1 engine's: parity {parity}")
+    if resolved != bm or hits != 1 or parity != 1.0:
+        raise AssertionError(f"14b engine: resolved {resolved} (store "
+                             f"{bm}), cache hits {hits}, parity {parity}")
+    out["engine"] = dict(resolved=resolved, parity=parity,
+                         launches=ragged_launches)
+
+    M, K, F, N = PLAN_GEOMETRY
+    plan = autotune_fusion_plan(M, K, F, N, reps=TUNE_REPS, device=device,
+                                store=store)
+    log(f"  14b fusion plan at M {M} K {K} F {F} N {N}: chain "
+        f"{plan['chain_ms']} ms, per_gemm {plan['per_gemm_ms']} ms, "
+        f"winner {plan['plan']} (max abs err vs reference_ffn_chain "
+        f"{plan['max_abs_err']})")
+    if set(plan["max_abs_err"]) != {"chain", "per_gemm"} or (
+            on_card and plan["plan"] not in ("chain", "per_gemm")):
+        raise AssertionError(f"14b plan search: {plan}")
+    out["plan"] = {k: plan[k] for k in ("plan", "chain_ms", "per_gemm_ms",
+                                        "speedup", "max_abs_err")}
+
+    # the chain's logits at depths 1..REFERENCE_LAYERS, before the override
+    bs_cuts = {}
+    for depth in range(1, REFERENCE_LAYERS + 1):
+        cmain, _, cout = _logits_program(dataclasses.replace(
+            cfg, num_layers=depth))
+        f, = art["exe"].run(cmain.clone(for_test=True),
+                            feed={"src_ids": art["buf"]},
+                            fetch_list=[cout.name], scope=art["scope"])
+        bs_cuts[depth] = f
+    Mr = N_PROMPTS * MAX_SEQ_LEN
+    store.put(plan_key(kind, Mr, cfg.hidden_size, cfg.ffn_size,
+                       cfg.hidden_size, "float32"), {"plan": "per_gemm"},
+              kernel="fusion_plan", attestation={"parity": True,
+                                                 "ref": "override"})
+    config = inference.Config(art["path"])
+    if not on_card:
+        config.disable_gpu()
+    pred = inference.create_predictor(config)
+    pred.run([art["buf"]])
+    _cuda.reset_launches()
+    with _PlainCalls() as plain:
+        over, = pred.run([art["buf"]])
+    launches = _launch_gate(dict(_cuda.LAUNCHES), {
+        "flash_fwd_qkv": L, "gemm_epilogue": 3 * L}, "the per_gemm logits",
+        on_card)
+    if on_card and plain.calls:
+        raise AssertionError("the per_gemm logits called plain versions")
+    rel = {}
+    for depth, chain in bs_cuts.items():
+        cmain, _, cout = _logits_program(dataclasses.replace(
+            cfg, num_layers=depth))
+        g, = art["exe"].run(cmain.clone(for_test=True),
+                            feed={"src_ids": art["buf"]},
+                            fetch_list=[cout.name], scope=art["scope"])
+        rel[depth] = float(_rows_rel(g, chain).max())
+    rel_full = float(_rows_rel(over, art["want"]).max())
+    log(f"  14b per_gemm override in force: launches a logits run "
+        f"{launches}; per-position relative error against the chain's "
+        f"logits, max: " + ", ".join(f"depth {d} {v:.3e}"
+                                    for d, v in rel.items())
+        + f" (gate {LOGITS_ROW_RTOL:g}); full depth {rel_full:.3e} "
+        f"(reported)")
+    if any(v > LOGITS_ROW_RTOL for v in rel.values()):
+        raise AssertionError(f"14b: per_gemm logits off the chain's: {rel}")
+    out["override"] = dict(launches=launches, rel_err_by_depth=rel,
+                           rel_err_full=rel_full)
+    return out
+
+
+def _fleet_results(futs, timeout=600):
+    return [list(f.result(timeout=timeout).tokens) for f in futs]
+
+
+def _wait(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _kill_in_flight(gr, victim):
+    """SIGKILL ``victim``'s process once the router has a request in
+    flight on it; returns the kill's time."""
+    import signal
+
+    model = gr.cfg.default_model
+    _wait(lambda: gr.fleet_signals()[model]["inflight"] > 0, 60.0,
+          "a request in flight")
+    t0 = time.perf_counter()
+    os.kill(victim.proc.pid, signal.SIGKILL)
+    return t0
+
+
+def fleet_phase(device, cfg, root, model="base"):
+    """Phase 14c: the fleet over worker processes on the one card: a
+    GenerationRouter over a WorkerPool of chunked engines
+    (``cluster_engine`` at depth REFERENCE_LAYERS, phase 9's spawn
+    path), requests of FLEET_NEW greedy tokens held to one in-process
+    engine's tokens.  In order: the Autoscaler scales 1 -> 2 under a
+    burst; the tuning verbs (harvest, a search on the idle rank, a push,
+    every worker's pull); the Autoscaler drains 2 -> 1 when idle; a
+    RollingSwap onto the same weights under traffic, then onto another
+    seed's (canary abort, ``fleet.rollout`` degraded, the old version
+    serving); the Supervisor respawns a SIGKILLed worker with requests
+    in flight, then, its budget spent, degrades
+    ``fleet.supervisor:<model>``, fires one incident bundle and the
+    router fails the parked request with the model named.  One card runs
+    every worker: the phase measures the control plane (spawn to
+    attached, drain, respawn, a swap), not capacity."""
+    from paddle_tpu_torch.cluster import (ClusterConfig, GenerationRouter,
+                                          WorkerPool, WorkerSpec)
+    from paddle_tpu_torch.fleet import (ROLLOUT_DEGRADE_KEY, Autoscaler,
+                                        HysteresisPolicy, RollingSwap,
+                                        Supervisor)
+    from paddle_tpu_torch.generation import SamplingParams
+    from paddle_tpu_torch.observability import flightrec
+    from paddle_tpu_torch.resilience.retry import degradations
+    from paddle_tpu_torch.tuning import TuningService, TuningStore
+
+    kw = dict(model=model, layers=REFERENCE_LAYERS,
+              device=None if device.type == "cuda" else "cpu",
+              tune_dir=str(root))
+    spec = WorkerSpec("chip_smoke:cluster_engine", kw, role="generate")
+    greedy = SamplingParams(max_new_tokens=FLEET_NEW)
+    prompts = make_prompts(np.random.RandomState(SEED + 1), FLEET_BURST,
+                           PROMPT_LEN, cfg.vocab_size)
+    ref_engine = cluster_engine(**dict(kw, device=str(device), tune_dir=None))
+    ref = [list(r.tokens) for r in ref_engine.generate(prompts,
+                                                       sampling=greedy)]
+    del ref_engine
+    out = {}
+    pool = gr = scaler = sup = None
+    flightrec.arm()
+    try:
+        t0 = time.perf_counter()
+        pool = WorkerPool(spec, 1, log_dir=str(FLEET_LOG_DIR),
+                          ready_timeout_s=CLUSTER_READY_S)
+        pool.wait_ready()
+        out["first_ready_s"] = time.perf_counter() - t0
+        gr = GenerationRouter(pool, config=ClusterConfig(
+            reroute_wait_for_respawn=True, respawn_wait_timeout_s=600.0))
+        scaler = Autoscaler(gr, pool, policy=HysteresisPolicy(
+            min_workers=1, max_workers=2, high_queue_depth=4,
+            up_ticks=1, down_ticks=2, cooldown_s=0.0))
+
+        # the burst: 1 -> 2
+        futs = [gr.submit(p, sampling=greedy) for p in prompts]
+        t0 = time.perf_counter()
+        up = scaler.tick()
+        out["spawn_to_attached_s"] = time.perf_counter() - t0
+        got = _fleet_results(futs)
+        n_workers = len(gr.workers_for())
+        log(f"  14c autoscaler: burst of {len(prompts)} -> {up}; spawn to "
+            f"attached {out['spawn_to_attached_s']:.2f} s; workers "
+            f"{n_workers}; tokens equal to one engine's: {got == ref}")
+        if not (up and up[0]["action"] == "up" and up[0]["ok"]
+                and n_workers == 2 and got == ref):
+            raise AssertionError(f"14c scale-up: {up}, workers {n_workers}"
+                                 f", parity {got == ref}")
+
+        # the tuning verbs over the two workers
+        handles = gr.workers_for()
+        svc = TuningService(gr.workers_for, store=TuningStore(
+            os.path.join(root, "router_tune.json")), reps=TUNE_REPS,
+            device=device)
+        observed = svc.harvest(include_local=False)
+        # the workers' engines: MAX_SEQS slots + a 16-row chunk
+        geometry = (f"r{MAX_SEQS + min(16, MAX_SEQ_LEN)}h{cfg.num_heads}"
+                    f"d{cfg.hidden_size // cfg.num_heads}p{PAGE_SIZE}")
+        ragged = [r for r in observed if r["kernel"] == "ragged"
+                  and r["geometry"] == geometry]
+        idle = handles[-1]
+        search = idle.call("tuning_search", kernel="ragged",
+                           geometry=ragged[0]["geometry"], reps=TUNE_REPS,
+                           plan_search=False,
+                           device=None if device.type == "cuda" else "cpu")
+        pulled = idle.call("tuning_pull")["entries"]
+        if device.type != "cuda":
+            # the CPU times nothing and persists nothing: attest by hand
+            from paddle_tpu_torch.tuning import make_key
+
+            key = make_key("ragged", "cpu", ragged[0]["geometry"], "float32")
+            pulled = {key: {"config": {"block_rows": 1}, "version": 1,
+                            "attestation": {"parity": True,
+                                            "ref": "rehearsal"}}}
+        svc.store.merge(pulled)
+        pushed = svc.push()
+        pulls = [h.call("tuning_pull")["entries"] for h in handles]
+        keys = sorted(pulled)
+        seen = [all(k in p and p[k]["attestation"]["parity"] is True
+                    for k in keys) for p in pulls]
+        seen_geoms = [(r["kernel"], r["geometry"], r["count"])
+                      for r in observed]
+        log(f"  14c tuning: harvested {seen_geoms}; "
+            f"searched on rank {idle.rank}: {search['report']['config']} "
+            f"({search['report']['ms']} ms); pushed to "
+            f"{sorted(pushed)}; every worker's pull holds {keys}: {seen}")
+        if not (ragged and keys and all(seen)
+                and all(r.get("ok") for r in pushed.values())):
+            raise AssertionError(f"14c tuning verbs: {pushed}, {seen}")
+        out["tuning"] = dict(observed=observed, search=search["report"],
+                             keys=keys, pushed={k: {
+                                 "applied": v.get("applied"),
+                                 "rejected": v.get("rejected")}
+                                 for k, v in pushed.items()})
+
+        # idle: 2 -> 1
+        scaler.tick()
+        t0 = time.perf_counter()
+        down = scaler.tick()
+        out["drain_s"] = time.perf_counter() - t0
+        n_workers = len(gr.workers_for())
+        log(f"  14c autoscaler idle: {down}; drain {out['drain_s']:.3f} s; "
+            f"workers {n_workers}")
+        if not (down and down[0]["action"] == "down" and down[0]["ok"]
+                and n_workers == 1):
+            raise AssertionError(f"14c scale-down: {down}")
+
+        # the rolling swap onto the same weights, under traffic
+        futs = [gr.submit(p, sampling=greedy)
+                for p in prompts[:FLEET_REQUESTS]]
+        t0 = time.perf_counter()
+        roll = RollingSwap(gr, pool, spawn_kwargs={"spec": spec}).run()
+        out["swap_s_per_worker"] = (time.perf_counter() - t0) / max(
+            1, roll.replaced)
+        got = _fleet_results(futs)
+        log(f"  14c rolling swap, same weights: replaced {roll.replaced}, "
+            f"aborted {roll.aborted}; {out['swap_s_per_worker']:.2f} s a "
+            f"worker; tokens under the swap equal: "
+            f"{got == ref[:FLEET_REQUESTS]}")
+        if roll.aborted or roll.replaced != 1 \
+                or got != ref[:FLEET_REQUESTS]:
+            raise AssertionError(f"14c same-weights swap: {roll}")
+        # onto another seed's weights: the canary aborts
+        other = WorkerSpec(spec.factory, dict(kw, seed=SEED + 1),
+                           role="generate")
+        bad = RollingSwap(gr, pool, spawn_kwargs={"spec": other}).run()
+        after = [list(r.tokens) for r in gr.generate(
+            prompts[:2], sampling=greedy)]
+        log(f"  14c rolling swap, another seed: aborted {bad.aborted} "
+            f"({bad.reason}); fleet.rollout degraded "
+            f"{degradations.is_degraded(ROLLOUT_DEGRADE_KEY)}; the old "
+            f"version serves: {after == ref[:2]}")
+        if not (bad.aborted and bad.reason == "parity canary mismatch"
+                and degradations.is_degraded(ROLLOUT_DEGRADE_KEY)
+                and after == ref[:2]):
+            raise AssertionError(f"14c mismatched swap: {bad}")
+        out["rollout_abort"] = bad.reason
+
+        # the supervisor: a SIGKILL with requests in flight
+        sup = Supervisor(gr, pool, max_respawns=1, base_delay=0.0,
+                         stability_window_s=3600.0).start()
+        victim = gr.workers_for()[0]
+        futs = [gr.submit(p, sampling=greedy)
+                for p in prompts[:FLEET_REQUESTS]]
+        t0 = _kill_in_flight(gr, victim)
+        _wait(lambda: any(h.rank != victim.rank and h.alive
+                          for h in gr.workers_for()), CLUSTER_READY_S,
+              "the respawn")
+        out["respawn_s"] = time.perf_counter() - t0
+        got = _fleet_results(futs)
+        log(f"  14c supervisor: worker {victim.rank} killed, respawned in "
+            f"{out['respawn_s']:.2f} s; in-flight requests completed with "
+            f"the reference tokens: {got == ref[:FLEET_REQUESTS]}")
+        if got != ref[:FLEET_REQUESTS]:
+            raise AssertionError("14c: requests in flight at the kill "
+                                 "lost their tokens")
+        # the budget spent: the next crash degrades the model
+        victim = gr.workers_for()[0]
+        triggers = []
+        listener = lambda *t: triggers.append(t)   # noqa: E731
+        flightrec.add_trigger_listener(listener)
+        fut = gr.submit(prompts[0], sampling=greedy)
+        _kill_in_flight(gr, victim)
+        key = f"fleet.supervisor:{gr.cfg.default_model}"
+        _wait(lambda: degradations.is_degraded(key), 120.0,
+              "the supervisor's verdict")
+        try:
+            fut.result(timeout=60)
+            parked = "served"
+        except Exception as e:  # noqa: BLE001 — the expected failure
+            parked = f"{type(e).__name__}: {e}"
+        flightrec.remove_trigger_listener(listener)
+        fired = [t for t in triggers if t[0] == "degrade"
+                 and t[2].get("model") == str(gr.cfg.default_model)]
+        log(f"  14c supervisor budget spent: {key} degraded; flight "
+            f"triggers {[t[0] for t in triggers]} (the supervisor's "
+            f"degrade incidents: {len(fired)}); the parked request: "
+            f"{parked}")
+        if not (len(fired) == 1 and "degraded permanently" in parked
+                and repr(gr.cfg.default_model) in parked):
+            raise AssertionError(f"14c exhausted supervisor: triggers "
+                                 f"{triggers}, parked {parked}")
+        out["triggers"] = [t[0] for t in triggers]
+        out["parked_failure"] = parked
+        snap = gr.stats()
+        out["router"] = {k: snap[k] for k in (
+            "requests_ok", "requests_failed", "reroutes")}
+        out["degradations"] = [e["key"] for e in snap["kernel_degradations"]]
+    except Exception:
+        if pool is not None:
+            _log_tails({"fleet": pool})
+        raise
+    finally:
+        for part in (sup, scaler):
+            if part is not None:
+                part.stop()
+        if gr is not None:
+            gr.close()
+        if pool is not None:
+            pool.close()
+        flightrec.disarm(clear=True)
+        degradations.reset()
+    left = [h.proc.pid for h in (pool.handles() if pool else [])
+            if h.proc is not None and h.proc.poll() is None]
+    if left:
+        raise AssertionError(f"worker processes left running: {left}")
+    return out
+
+
+def fleet_tuning_artifact_phase(device, gen_cfg, params_np, cfg=None,
+                                model="base"):
+    """Phase 14: the serving artifact (14a), the tuning plane (14b) and
+    the fleet (14c) at BertConfig.base() width (``cfg``: phase 3's serving
+    LM at dropout 0 unless given), every file in a temporary directory
+    removed in a finally; the tuning store is a file there."""
+    import tempfile
+
+    from paddle_tpu_torch.models import BertConfig
+
+    cfg = cfg or dataclasses.replace(BertConfig.base(), initializer_range=0.6,
+                                     hidden_dropout=0.0, attn_dropout=0.0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_p14_")
+    saved = os.environ.get("PADDLE_TPU_AUTOTUNE_CACHE")
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = os.path.join(root,
+                                                           "autotune.json")
+    try:
+        report, art = artifact_phase(device, cfg, root)
+        report["tuning"] = tuning_phase(device, cfg, params_np, art, root)
+        del art
+        report["fleet"] = fleet_phase(device, cfg, root, model=model)
+    finally:
+        if saved is None:
+            os.environ.pop("PADDLE_TPU_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    # each kernel's launches on its main runs: an artifact run (14a), the
+    # resolved engine's generate and the per_gemm logits run (14b)
+    launches = collections.Counter(report["launches"])
+    launches.update(report["tuning"]["override"]["launches"])
+    launches["ragged_paged_attention"] += \
+        report["tuning"]["engine"]["launches"]
+    report["launches"] = {k: v for k, v in launches.items() if v}
+    return report
+
+
 
 def main():
     import torch
@@ -6471,6 +7156,13 @@ def main():
     device = torch.device("cuda")
     set_strict_fp32()       # full float32 matmuls (no TF32) for every phase
     report = {}
+    # the tuning store every engine resolves block_rows from: empty, in a
+    # temporary directory (phase 14 searches into its own)
+    import tempfile
+
+    tune_root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = os.path.join(tune_root,
+                                                           "autotune.json")
     try:
         card = card_line()
         log(f"[1] card: {card}")
@@ -6593,10 +7285,21 @@ def main():
         for name, n in list(sr["masked"]["launches"].items()) \
                 + list(sr["recompute"]["launches"].items()):
             report["kernels"][name]["launches"] += n
+
+        log("[14] the serving artifact (torch.export of a frozen "
+            "Predictor, loaded in a fresh process), the tuning plane "
+            "(block_rows and fusion-plan searches), the fleet (autoscaler, "
+            "supervisor, rolling swap, tuning verbs) over worker processes")
+        report["fleet_tuning_artifact"] = fleet_tuning_artifact_phase(
+            device, gen_cfg, params_np)
+        for name, n in report["fleet_tuning_artifact"]["launches"].items():
+            report["kernels"][name]["launches"] += n
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tune_root, ignore_errors=True)
 
     line = {"kernels": []}
     for k in KERNELS:
@@ -6681,6 +7384,26 @@ def main():
             ema_rel_err=sr["wrappers"]["ema"]["rel_err"],
             programs=sr["wrappers"]["programs"]),
         loss_ops_max_rel_err=max(sr["loss_ops"].values()))}))
+    ft = report["fleet_tuning_artifact"]
+    tu, fl = ft["tuning"], ft["fleet"]
+    print(json.dumps({"fleet_tuning_artifact": dict(
+        card=card,
+        artifact=dict(
+            bytes=ft["bytes"], export_s=ft["export_s"],
+            predictor_run_s=ft["predictor_run_s"],
+            **{tag: {k: ft["child"][tag][k] for k in (
+                "load_s", "run_s", "max_abs_err", "launches",
+                "plain_calls")} for tag in ("baked", "unbaked")}),
+        tuning=dict(
+            geometry=tu["geometry"], device_kind=tu["device_kind"],
+            ragged={f"block_rows_{c['block_rows']}": c.get(
+                "ms", c.get("error")) for c in tu["ragged"]["candidates"]},
+            ragged_winner=tu["ragged"]["config"], engine=tu["engine"],
+            plan=tu["plan"], override=tu["override"]),
+        fleet={k: fl[k] for k in (
+            "first_ready_s", "spawn_to_attached_s", "drain_s",
+            "swap_s_per_worker", "respawn_s", "router", "degradations",
+            "parked_failure")})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

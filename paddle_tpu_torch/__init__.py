@@ -44,44 +44,52 @@ MultiSlot text files, parsed by the native slot parser (``native/``),
 local or remote (``fs``), drives ``Executor.train_from_dataset``
 (core/trainer.py: chunks of K steps of one lowered block); ``DataLoader``
 and ``DataFeeder`` feed ``Executor.run``; ``get_flags``/``set_flags``
-hold ``FLAGS_check_nan_inf`` and ``FLAGS_benchmark``.  No Executor
-meshes (so no ``PipelineOptimizer``) or AMP yet.
+hold ``FLAGS_check_nan_inf`` and ``FLAGS_benchmark``.  A Predictor
+exports its frozen program as a ``torch.export`` artifact that
+``inference.load_exported`` runs without the program IR; ``fleet``
+(autoscaler, supervisor, rolling swap) keeps a ``cluster`` of worker
+processes serving, and ``tuning`` searches and distributes kernel
+configurations (kernel #1's ``block_rows``, the FFN's fusion plan).  No
+Executor meshes (so no ``PipelineOptimizer``) or AMP yet.
 """
+import importlib
+
 from ._device import resolve_device, set_strict_fp32
-from .core import (  # noqa: F401
-    CPUPlace,
-    CUDAPlace,
-    Executor,
-    Parameter,
-    Place,
-    Program,
-    Scope,
-    Variable,
-    append_backward,
-    data,
-    default_main_program,
-    default_startup_program,
-    global_scope,
-    gradients,
-    program_guard,
-    scope_guard,
-)
-from .core import unique_name  # noqa: F401
-from . import ops  # noqa: F401  (registers all operators)
-from . import compiler, initializer, io, layers, optimizer  # noqa: F401
-from . import clip, regularizer  # noqa: F401
-from . import inference  # noqa: F401  (Config, Predictor)
-from .compiler import BuildStrategy, CompiledProgram  # noqa: F401
-from .param_attr import ParamAttr  # noqa: F401
-from . import profiler  # noqa: F401
-from . import resilience  # noqa: F401  (checkpoints, resilient train loop)
-from . import observability  # noqa: F401  (metrics registry, span tracer)
-from . import dataio, fs  # noqa: F401  (data pipeline, local/HDFS files)
-from .data_feeder import DataFeeder  # noqa: F401
-from .dataio import DataLoader  # noqa: F401
-from .dataset import (DatasetFactory, InMemoryDataset,  # noqa: F401
-                      QueueDataset)
-from .flags import get_flags, set_flags  # noqa: F401
+
+#: public names and the module each comes from.  They load at first
+#: access (PEP 562): a process that only loads a serving artifact
+#: (``inference.load_exported``) imports no Program, Executor, layers or
+#: models.  Importing ``core`` registers every operator.
+_LAZY = {
+    **dict.fromkeys((
+        "CPUPlace", "CUDAPlace", "Executor", "Parameter", "Place",
+        "Program", "Scope", "Variable", "append_backward", "data",
+        "default_main_program", "default_startup_program",
+        "global_scope", "gradients", "program_guard", "scope_guard",
+        "unique_name"), ".core"),
+    "BuildStrategy": ".compiler", "CompiledProgram": ".compiler",
+    "ParamAttr": ".param_attr", "DataFeeder": ".data_feeder",
+    "DataLoader": ".dataio", "DatasetFactory": ".dataset",
+    "InMemoryDataset": ".dataset", "QueueDataset": ".dataset",
+    "get_flags": ".flags", "set_flags": ".flags",
+}
+
+
+def __getattr__(name):
+    target = _LAZY.get(name)
+    if target is not None:
+        value = getattr(importlib.import_module(target, __name__), name)
+    else:
+        try:
+            value = importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value
+
 
 __version__ = "0.1.0"
 
@@ -90,6 +98,9 @@ def new_program_scope():
     """Fresh main/startup programs, scope and name generator (parity:
     fluid tests' new_program_scope)."""
     import contextlib
+
+    from .core import Program, Scope, program_guard, scope_guard, \
+        unique_name
 
     @contextlib.contextmanager
     def _guard():

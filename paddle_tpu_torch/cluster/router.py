@@ -1,11 +1,6 @@
 """Router — the cluster's front door.
 
-Counterpart of paddle_tpu/cluster/router.py, copied.  One branch is
-left out: the JAX router fails a request parked for respawn once the
-fleet supervisor permanently degrades its model (a degradation-registry
-verdict); the port has no degradation registry and no fleet tier yet,
-so a parked request ends on its deadline or on
-``respawn_wait_timeout_s``.
+Counterpart of paddle_tpu/cluster/router.py, copied.
 
 Speaks the same client surface as `serving.InferenceServer`
 (``submit() -> future`` / ``infer()`` / ``stats()`` / ``close(drain)``)
@@ -53,6 +48,7 @@ import numpy as np
 from ..observability import flightrec as _flightrec
 from ..observability import ledger as _ledger
 from ..observability import tracing as _tracing
+from ..resilience.retry import degradations
 from ..serving.batcher import (RequestTimeoutError, ServerClosedError,
                                ServingError)
 from .rpc import WorkerUnavailable
@@ -124,8 +120,9 @@ class ClusterConfig:
       costing dropped requests.  An empty pool has no dispatcher left
       to pop the queue, so a dedicated park monitor enforces the
       bound: it fails a parked request the moment its deadline
-      expires or ``respawn_wait_timeout_s`` elapses with no capacity
-      restored.
+      expires, the supervisor permanently degrades the model
+      (``fleet.supervisor:<model>`` crash-loop budget exhausted), or
+      ``respawn_wait_timeout_s`` elapses with no capacity restored.
     - ``respawn_wait_timeout_s``: longest a request parked by
       ``reroute_wait_for_respawn`` may wait for a replacement worker
       — the backstop for deadline-less requests when no supervisor is
@@ -452,7 +449,7 @@ class _RouterBase:
         self._cancel_thread = None
         # reroute_wait_for_respawn: requests parked on an empty pool
         # (no dispatcher left to pop them) watched by a lazy monitor
-        # thread that enforces deadline / park timeout
+        # thread that enforces deadline / degradation / park timeout
         self._parked = {}         # id(req) -> (req, queue, parked_at)
         self._park_thread = None
 
@@ -987,7 +984,8 @@ class _RouterBase:
                 # attaches — the dispatcher it starts picks it up.  An
                 # empty pool has nobody left to pop the queue, so the
                 # park monitor (not the expiry-check-at-pop) enforces
-                # the deadline and the respawn_wait_timeout_s backstop.
+                # the deadline, the supervisor's permanent-degrade
+                # verdict, and the respawn_wait_timeout_s backstop.
                 self.stats_.on_reroute()
                 self._park_for_respawn(req, queue)
                 queue.put(req, front=True)
@@ -1035,8 +1033,10 @@ class _RouterBase:
 
     def _park_tick(self, now=None):
         """One monitor pass over the parked set.  A parked request
-        fails the moment (a) its deadline expires or (b) it has waited
-        past ``respawn_wait_timeout_s`` (the backstop for deadline-less
+        fails the moment (a) its deadline expires, (b) the supervisor
+        permanently degrades its model (crash-loop budget exhausted —
+        capacity is never coming back), or (c) it has waited past
+        ``respawn_wait_timeout_s`` (the backstop for deadline-less
         requests with no supervisor healing the pool).  A failed
         request stays physically queued; the dispatch loop's done-check
         skips it if a replacement worker ever does pop it."""
@@ -1052,6 +1052,13 @@ class _RouterBase:
                 self.stats_.on_deadline_expired("router")
                 req.set_error(RequestTimeoutError(
                     "deadline passed while parked for respawn"))
+                purge.append(queue)
+            elif degradations.is_degraded(
+                    f"fleet.supervisor:{req.model}"):
+                req.set_error(WorkerUnavailable(
+                    f"model {req.model!r} degraded permanently "
+                    f"(supervisor crash-loop budget exhausted) while "
+                    f"parked for respawn"))
                 purge.append(queue)
             elif cap is not None and now - parked_at > cap:
                 req.set_error(WorkerUnavailable(

@@ -8,9 +8,10 @@ kernel_degradations appended), and the gauges —
 alongside the serving and generation metrics.
 
 Counterpart of paddle_tpu/cluster/stats.py, copied: the series and the
-snapshot's keys are the JAX router's.  ``kernel_degradations`` is always
-an empty list: the port has no degradation registry (a kernel launches
-or raises)."""
+snapshot's keys are the JAX router's.  ``kernel_degradations`` lists the
+degradation registry's events, which in the port are the control
+plane's alone (``fleet.*``, ``tuning.*``: a kernel launches or
+raises)."""
 from __future__ import annotations
 
 import itertools
@@ -284,7 +285,9 @@ class ClusterStats:
             "stream_fallbacks_total": snap["stream_fallbacks"],
             "latency_ms": lat,
         })
-        snap["kernel_degradations"] = []
+        from ..resilience.retry import degradations
+
+        snap["kernel_degradations"] = degradations.events()
         return snap
 
     def dump_json(self, path):

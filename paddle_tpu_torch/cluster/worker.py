@@ -1,10 +1,11 @@
 """Cluster worker: one engine process serving RPC ops from the router.
 
-Counterpart of paddle_tpu/cluster/worker.py, copied without the tuning
-verbs (``tuning_push``/``tuning_pull``/``tuning_search``: the port has
-no tuning plane yet, so they answer as unknown ops).  The engine of a
-prefill/decode/generate worker is a port `GenerationEngine`, on the
-card unless its factory asks for the CPU.
+Counterpart of paddle_tpu/cluster/worker.py, copied, the tuning verbs
+included (``tuning_push`` merges attested configs into the worker's
+``TuningStore``, ``tuning_pull`` reads it back, ``tuning_search`` runs
+one parity-gated Hopper search on this worker: paddle_tpu_torch/
+tuning).  The engine of a prefill/decode/generate worker is a port
+`GenerationEngine`, on the card unless its factory asks for the CPU.
 
 A worker is spawned with ``python -m paddle_tpu_torch.cluster.worker`` (the
 pool builds the command line and the launch.py env contract:
@@ -537,6 +538,44 @@ class WorkerServicer:
         return {"ok": True, "dump": flightrec.get_recorder().dump(),
                 "armed": flightrec.armed(), "role": self.role,
                 "rank": self.rank, "pid": os.getpid()}
+
+    def _op_tuning_push(self, msg):
+        """The tuning-plane distribution verb: the autotune daemon
+        pushes parity-attested kernel configs fleet-wide; this worker
+        merges them into its local TuningStore (version-arbitrated,
+        attestation-gated) so the next resolve hits cache instead of
+        searching on-path."""
+        from ..tuning import TuningStore
+
+        st = TuningStore(msg.get("path"))
+        applied, rejected = st.merge(msg["entries"], distributed=True)
+        return {"ok": True, "applied": applied, "rejected": rejected,
+                "path": st.path, "role": self.role, "rank": self.rank}
+
+    def _op_tuning_pull(self, msg):
+        """Read back this worker's full versioned tuning store — the
+        daemon's harvest side and `autotune_report --all` use it."""
+        from ..tuning import TuningStore
+
+        st = TuningStore(msg.get("path"))
+        return {"ok": True, "entries": st.read(), "path": st.path,
+                "role": self.role, "rank": self.rank}
+
+    def _op_tuning_search(self, msg):
+        """Run one parity-gated autotune search on THIS worker (the
+        daemon targets an idle rank so the search never lands on a
+        serving path) and persist the winner locally."""
+        from ..tuning import search_geometry
+
+        report = search_geometry(
+            msg["kernel"], msg["geometry"],
+            dtype=msg.get("dtype", "float32"),
+            reps=int(msg.get("reps", 10)),
+            force_time=bool(msg.get("force_time", False)),
+            plan_search=bool(msg.get("plan_search", True)),
+            device=msg.get("device"))
+        return {"ok": True, "report": report, "role": self.role,
+                "rank": self.rank}
 
     def _op_profile_start(self, msg):
         from .. import profiler as _prof

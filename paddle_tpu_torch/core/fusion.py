@@ -19,7 +19,10 @@ differentiable group at its last member's position:
 * ``gemm`` groups on the fused matmul-epilogue kernel
   (ops/fused_matmul.py);
 * ``ffn_chain`` groups on the two-GEMM chain kernel (ops/ffn_chain.py),
-  else on two fused matmul-epilogue calls;
+  else on two fused matmul-epilogue calls; a measured plan in the
+  tuning store (tuning/plans.py, ``per_gemm`` or ``chain`` for the
+  geometry on this device) decides ahead of the static rule, consulted
+  once per lowered group;
 * ``attn`` groups on the qkv-folded flash forward
   (ops/attention_epilogue.py), any tail replayed;
 * a group whose shapes or dtypes its kernel does not take: a replay of
@@ -48,8 +51,8 @@ package: ``fused_epilogue_hits_total{pattern}`` per group and
 ``fused_block_hits_total{pattern}`` per block family.
 
 Not carried over from the JAX package: its environment switches, the
-degradation registry and fault injection (whose only job is to fall
-back), the tuning-plan override and AMP.
+kernels' degradation and fault injection (whose only job is to fall
+back) and AMP.
 """
 from __future__ import annotations
 
@@ -996,7 +999,9 @@ def _try_kernel_ffn(grp, gins, seed, is_test=False):
     x2 = x.reshape(m_rows, k_dim)
     res2 = None if res is None else res.reshape(m_rows, n_dim)
 
-    if fc.ffn_chain_shapes_ok(m_rows, k_dim, f_dim, n_dim, x.dtype):
+    chain_ok = fc.ffn_chain_shapes_ok(m_rows, k_dim, f_dim, n_dim, x.dtype)
+    plan = _plan_override(grp, (m_rows, k_dim, f_dim, n_dim), x, chain_ok)
+    if chain_ok and plan != "per_gemm":
         y2 = fc.fused_ffn_chain(x2, w1, b1, w2, b2, residual=res2,
                                 gamma=gamma, beta=beta, seed=dseed,
                                 spec=spec)
@@ -1010,6 +1015,25 @@ def _try_kernel_ffn(grp, gins, seed, is_test=False):
     y2 = fm.fused_matmul(h1, w2, b2, res2, gamma, beta, dseed,
                          spec._replace(act=None))
     return len(grp.members), {grp.final_slot: [y2.reshape(out_shape)]}
+
+
+def _plan_override(grp, geom, x, chain_ok):
+    """The measured fusion plan for this FFN geometry (M, K, F, N) on
+    x's device (tuning/plans.py), resolved once per group and geometry
+    of a lowering, as the JAX package resolves it at trace time; never
+    raises.  A stored ``chain`` this process cannot run (the chain's
+    shape rule fails) is rejected for the life of the process."""
+    key = ("plan", geom, x.dtype, x.device)
+    if key not in grp.extra:
+        from ..tuning import plans
+
+        plan = plans.fusion_plan_override(*geom, x.dtype, device=x.device)
+        if plan == "chain" and not chain_ok:
+            plans.reject_plan(*geom, x.dtype,
+                              reason="chain ineligible here")
+            plan = None
+        grp.extra[key] = plan
+    return grp.extra[key]
 
 
 def _try_kernel_gemm(grp, gins, seed, is_test=False):

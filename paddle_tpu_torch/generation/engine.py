@@ -123,7 +123,8 @@ class GenerationConfig:
     - ``prefill_chunk``: prompt tokens fed per chunked step (default
       min(16, max_seq_len)).
     - ``ragged_block_rows``: rows per page-table binding in the ragged
-      attention (None -> 1).
+      attention (None -> ``resolve_block_rows``: the
+      ``PADDLE_TPU_RAGGED_BM`` override, the tuning store, then 1).
     - ``prefill_batch_buckets`` / ``prefill_seq_buckets``: the closed
       prefill shape grid of LEGACY scheduling (ShapeBucketer semantics;
       powers of two up to max_seqs and from page_size up to
@@ -360,7 +361,17 @@ class GenerationEngine:
         self._slot_temps = np.zeros(S, np.float32)
         self._slot_tks = np.zeros(S, np.int32)
         self._slot_tps = np.ones(S, np.float32)
-        self._bm = int(cfg.ragged_block_rows or 1)
+        if cfg.scheduling == "chunked" and cfg.ragged_block_rows is None:
+            from .ragged_attention import resolve_block_rows
+
+            # the env override, the tuning store, then 1 (as the JAX
+            # engine resolves it)
+            self._bm = resolve_block_rows(
+                S + cfg.prefill_chunk, model_cfg.num_heads,
+                h // model_cfg.num_heads, cfg.page_size, dtype=cfg.dtype,
+                device=self.device)
+        else:
+            self._bm = int(cfg.ragged_block_rows or 1)
         self._nb = S + _cdiv(cfg.prefill_chunk, self._bm)  # row blocks
         self._rows = self._nb * self._bm                   # step shape R
         if cfg.speculation == "draft" and draft_model is None:

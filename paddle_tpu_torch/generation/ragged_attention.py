@@ -23,6 +23,10 @@ live and nothing else:
   softmax.  CPU tensors take it; ``chip_smoke.py`` holds the kernel
   against it on the card.
 
+``resolve_block_rows`` picks the chunked engine's rows per page-table
+binding: the ``PADDLE_TPU_RAGGED_BM`` override, then the tuning store's
+searched value for the card (ops/autotune.py), then 1.
+
 Shapes (packed head layout, H = num_heads * d_head):
   q [R, H]; k_pages/v_pages [num_pages, page_size, H];
   block_tables [R // block_rows, pages_per_seq] int32;
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -39,7 +44,7 @@ from .. import _cuda
 from .attention import paged_ref_decode_attention, split_spans
 
 __all__ = ["ragged_paged_attention", "ragged_ref_attention",
-           "ragged_kernel_attention", "KERNEL"]
+           "ragged_kernel_attention", "resolve_block_rows", "KERNEL"]
 
 #: launch-counter key and source name of the kernel
 KERNEL = "ragged_attention"
@@ -140,3 +145,50 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, row_lens,
             q, k_pages, v_pages, block_tables, row_lens, num_heads,
             block_rows=block_rows, sm_scale=sm_scale)
     raise ValueError(f"no ragged attention for device {q.device}")
+
+
+def resolve_block_rows(num_rows, num_heads, d_head, page_size,
+                       dtype="float32", device=None):
+    """Row-tile (block_rows) resolution for the chunked engine, as the
+    JAX package's:
+
+      1. ``PADDLE_TPU_RAGGED_BM`` env override (explicit operator
+         intent),
+      2. the tuning store (ops.autotune, keyed by ``device``'s kind and
+         the ragged geometry; written by a search timed on the card),
+      3. default 1 — fully mixed rows, no block-granularity waste.
+
+    Each resolution publishes the tuning plane's harvest series
+    (``tuning.observe.record_resolution``) with its source."""
+    def _harvest(source, bm):
+        try:
+            from ..tuning.observe import record_resolution
+
+            record_resolution(
+                "ragged",
+                f"r{num_rows}h{num_heads}d{d_head}p{page_size}",
+                source, str(bm), dtype=str(dtype))
+        except Exception:  # noqa: BLE001 — telemetry never raises
+            pass
+
+    env = os.environ.get("PADDLE_TPU_RAGGED_BM")
+    if env:
+        try:
+            bm = max(1, int(env))
+            _harvest("env", bm)
+            return bm
+        except ValueError:
+            pass
+    try:
+        from ..ops import autotune as at
+
+        bm = at.cached_ragged_block_rows(
+            num_rows, num_heads, d_head, page_size, dtype=dtype,
+            device=device)
+        if bm:
+            _harvest("cache", int(bm))
+            return int(bm)
+    except Exception:  # noqa: BLE001 — cache trouble is just a miss
+        pass
+    _harvest("heuristic", 1)
+    return 1

@@ -7,10 +7,16 @@ A frozen program (``io.save_inference_model``) is loaded once into a
 ``Predictor``, which runs it through the port's Executor: lowered once
 per input-shape signature, the GEMM-epilogue fusion pass on, the
 hand-written kernels on the card (``Config.disable_gpu()`` asks for the
-CPU).  Zero-copy handles hold host arrays.  The JAX package's
-framework-free artifact (``export_stablehlo``/``load_exported``, a
-jax.export module) and its PJRT loader (``native_serving``) are not
-ported (ROADMAP.md, Queue 1 item 4)."""
+CPU).  Zero-copy handles hold host arrays.
+
+The framework-free artifact: ``Predictor.export_stablehlo`` writes a
+``torch.export`` program of the lowered block (the JAX package writes a
+jax.export module) whose fused groups are the kernels' ``torch.library``
+operators, and ``load_exported`` runs it with torch and those operators
+alone; an unbaked export's weights live in a sidecar of the JAX
+package's format (``sidecar``).  The JAX package's PJRT loader and C++
+CLI (``native_serving``) are the TPU's native path and have no
+counterpart here."""
 from .config import Config
 from .predictor import Predictor, create_predictor, load_exported
 

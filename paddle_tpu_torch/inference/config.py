@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import os
 
-from ..core.types import CPUPlace, CUDAPlace
-
 __all__ = ["Config"]
 
 
@@ -44,7 +42,8 @@ class Config:
 
     # -- optimization knobs ------------------------------------------------
     def switch_ir_optim(self, x=True):
-        self._ir_optim = bool(x)  # informational: the fusion pass is on
+        # off: the Predictor runs (and exports) the unfused lowering
+        self._ir_optim = bool(x)
 
     def ir_optim(self):
         return self._ir_optim
@@ -71,6 +70,8 @@ class Config:
 
     def _place(self):
         """The Executor's place: the card unless ``disable_gpu()``."""
+        from ..core.types import CPUPlace, CUDAPlace
+
         return CUDAPlace(self._device_id) if self._use_gpu else CPUPlace()
 
     # -- accepted no-ops for reference API compatibility -------------------

@@ -30,9 +30,10 @@ further writes and are surfaced in :meth:`summary`.  Call
 flush the file.
 
 Counterpart of paddle_tpu/observability/monitor.py, copied (the metric
-names and labels are the JAX package's).  The port has no degradation
-registry (it never falls back), so ``kernel_degradations_total`` in
-each record reads 0.
+names and labels are the JAX package's).  The port's degradation
+registry holds control-plane seams only (it never falls back from a
+kernel), so ``kernel_degradations_total`` in each record counts the
+fleet's and the tuning plane's permanent decisions.
 """
 from __future__ import annotations
 

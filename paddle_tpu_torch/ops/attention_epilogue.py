@@ -162,6 +162,11 @@ def fused_qkv_attention(x, w, b_qkv, num_heads, attn_bias=None,
                              f"key-padding bias [B, 1, 1, T]; got "
                              f"{tuple(attn_bias.shape)}")
         kp = _key_padding(attn_bias, B, T)
+    if torch.compiler.is_exporting():
+        from . import _library      # the traced forward (ops/_library.py)
+        return _library.flash_forward_qkv(torch.matmul(x, w), b_qkv,
+                                          num_heads, kp, causal, sm_scale,
+                                          dropout_rate, seed)[0]
     return _QKVAttention.apply(x, w, b_qkv, kp, int(num_heads), bool(causal),
                                float(sm_scale), float(dropout_rate),
                                int(seed))

@@ -217,6 +217,10 @@ def fused_ffn_chain(x, w1, b1=None, w2=None, b2=None, residual=None,
     the activation between the GEMMs, the rest the output epilogue.  The
     kernel on CUDA tensors (or a raise), the plain version on CPU
     tensors."""
+    if torch.compiler.is_exporting():
+        from . import _library      # the traced forward (ops/_library.py)
+        return _library.ffn_chain(x, w1, b1, w2, b2, residual, gamma, beta,
+                                  seed, spec)
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no FFN chain for device {x.device}")
     return _FFNChain.apply(x, w1, b1, w2, b2, residual, gamma, beta,

@@ -1,5 +1,6 @@
 """Flash attention, forward and backward, over packed heads and over the
-flat [B, H, T, D] layout, and the ``fused_attention`` op.
+flat [B, H, T, D] layout (the ``fused_attention`` op over them registers
+in ops/nn.py).
 
 Counterpart of paddle_tpu/ops/pallas_ops.py: ``flash_attention_packed``
 (its packed-layout custom VJP over the Pallas kernels ``_fwd_kernel_packed``,
@@ -56,7 +57,6 @@ import math
 import torch
 
 from .. import _cuda
-from ..core.registry import out, register_op, single
 from .attention import _NEG_INF, _heads, attention, attention_packed
 
 __all__ = ["flash_attention_packed", "flash_ref_forward",
@@ -483,6 +483,10 @@ def flash_attention_packed(q, k, v, num_heads, bias=None, causal=False,
         return attention_packed(q, k, v, num_heads, causal=causal,
                                 sm_scale=sm_scale, bias=bias,
                                 dropout_rate=dropout_rate, generator=gen)
+    if torch.compiler.is_exporting():
+        from . import _library      # the traced forward (ops/_library.py)
+        return _library.flash_forward(q, k, v, num_heads, kp, causal,
+                                      sm_scale, dropout_rate, seed)[0]
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash attention for device {q.device}")
     return _FlashAttention.apply(q, k, v, kp, int(num_heads), bool(causal),
@@ -818,36 +822,3 @@ def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None,
                          generator=gen)
     o, _ = _flash_call(q, k, v, bias, causal, sm_scale, dropout_rate, seed)
     return o
-
-
-# -- the operator ------------------------------------------------------------
-
-@register_op(OP, inputs=("Q", "K", "V", "Bias"),
-             outputs=("Out",), needs_rng=True, no_grad_slots=("Bias",))
-def fused_attention_op(ctx, inputs, attrs):
-    """Fused scaled-dot-product attention op (parity:
-    operators/fused/multihead_matmul_op.cu, but trainable).
-
-    Packed Q/K/V [B, T, H] with attr num_heads, or Q/K/V [B, H, T, D]:
-    the flash kernels of that layout on the card, their plain versions on
-    the CPU, shapes alone on ``meta``.  Bias (optional): additive,
-    broadcastable to [B, 1, 1, Tk] (packed) or [B, H, 1, Tk] (4-D); any
-    other shape raises on the card and takes the plain composite on the
-    CPU.  Attrs: causal, sm_scale, dropout_rate (0 at inference)."""
-    q = single(inputs, "Q")
-    k = single(inputs, "K")
-    v = single(inputs, "V")
-    bias = single(inputs, "Bias")
-    causal = bool(attrs.get("causal", False))
-    sm_scale = attrs.get("sm_scale")
-    rate = 0.0 if ctx.is_test else float(attrs.get("dropout_rate", 0.0))
-    if q.device.type == "meta":
-        return out(Out=torch.empty(tuple(q.shape[:-1]) + (v.shape[-1],),
-                                   dtype=q.dtype, device="meta"))
-    if q.dim() == 3:
-        return out(Out=flash_attention_packed(
-            q, k, v, int(attrs["num_heads"]), bias=bias, causal=causal,
-            sm_scale=sm_scale, dropout_rate=rate, seed=ctx.rng or 0))
-    return out(Out=flash_attention(q, k, v, bias=bias, causal=causal,
-                                   sm_scale=sm_scale, dropout_rate=rate,
-                                   seed=ctx.rng or 0))

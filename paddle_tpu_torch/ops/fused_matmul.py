@@ -285,6 +285,10 @@ def fused_matmul(x, w, bias=None, residual=None, gamma=None, beta=None,
     bias/gamma/beta [N] or None; residual [M, N] or None; ``seed`` keys
     the dropout mask.  The kernel on CUDA tensors (or a raise), the
     plain version on CPU tensors."""
+    if torch.compiler.is_exporting():
+        from . import _library      # the traced forward (ops/_library.py)
+        return _library.fused_matmul(x, w, bias, residual, gamma, beta,
+                                     seed, spec)
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no fused matmul for device {x.device}")
     return _FusedMatmul.apply(x, w, bias, residual, gamma, beta, int(seed),

@@ -10,7 +10,9 @@ numerics:
 layer norm over the trailing axes with the population variance and eps
 1e-5; cross entropy with ``ignore_index``.  Dropout draws its mask from a
 ``torch.Generator`` seeded with the op's seed, so it cannot repeat the
-JAX package's mask: parity runs at dropout 0.
+JAX package's mask: parity runs at dropout 0.  The ``fused_attention``
+op over the flash kernels (ops/flash_attention.py) registers here, so
+the kernel wrappers load without the program IR.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import out, register_op, single
+from . import flash_attention as _fa
 
 
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),
@@ -182,3 +185,36 @@ def mse_loss(ctx, inputs, attrs):
     x = single(inputs, "X")
     y = single(inputs, "Y")
     return out(Out=(x - y) ** 2)
+
+
+# -- the fused_attention operator (ops/flash_attention.py's kernels) --------
+
+@register_op(_fa.OP, inputs=("Q", "K", "V", "Bias"),
+             outputs=("Out",), needs_rng=True, no_grad_slots=("Bias",))
+def fused_attention_op(ctx, inputs, attrs):
+    """Fused scaled-dot-product attention op (parity:
+    operators/fused/multihead_matmul_op.cu, but trainable).
+
+    Packed Q/K/V [B, T, H] with attr num_heads, or Q/K/V [B, H, T, D]:
+    the flash kernels of that layout on the card, their plain versions on
+    the CPU, shapes alone on ``meta``.  Bias (optional): additive,
+    broadcastable to [B, 1, 1, Tk] (packed) or [B, H, 1, Tk] (4-D); any
+    other shape raises on the card and takes the plain composite on the
+    CPU.  Attrs: causal, sm_scale, dropout_rate (0 at inference)."""
+    q = single(inputs, "Q")
+    k = single(inputs, "K")
+    v = single(inputs, "V")
+    bias = single(inputs, "Bias")
+    causal = bool(attrs.get("causal", False))
+    sm_scale = attrs.get("sm_scale")
+    rate = 0.0 if ctx.is_test else float(attrs.get("dropout_rate", 0.0))
+    if q.device.type == "meta":
+        return out(Out=torch.empty(tuple(q.shape[:-1]) + (v.shape[-1],),
+                                   dtype=q.dtype, device="meta"))
+    if q.dim() == 3:
+        return out(Out=_fa.flash_attention_packed(
+            q, k, v, int(attrs["num_heads"]), bias=bias, causal=causal,
+            sm_scale=sm_scale, dropout_rate=rate, seed=ctx.rng or 0))
+    return out(Out=_fa.flash_attention(q, k, v, bias=bias, causal=causal,
+                                       sm_scale=sm_scale, dropout_rate=rate,
+                                       seed=ctx.rng or 0))

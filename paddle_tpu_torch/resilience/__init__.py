@@ -4,7 +4,9 @@ jittered backoff (:mod:`.retry`) and seeded fault injection
 (:mod:`.faults`); atomic, versioned, checksummed checkpoints
 (:mod:`.checkpoint`, :class:`CheckpointManager`) and the auto-resuming,
 NaN-guarded train loop (:mod:`.train_loop`, :class:`ResilientLoop`).
-The port has no degradation registry (it never falls back).
+The degradation registry (:data:`degradations`) holds the control
+plane's permanent decisions only (``fleet.*``, ``tuning.*`` keys): the
+port never falls back from a kernel.
 
 ``CheckpointManager``, ``CheckpointError``, ``ResilientLoop`` and
 ``NonFiniteLossError`` resolve lazily, as in the JAX package: the
@@ -18,8 +20,9 @@ import importlib
 from .atomic import atomic_output, fsync_dir  # noqa: F401
 from .faults import (FaultPlan, InjectedFault, Preempted,  # noqa: F401
                      active_plan, maybe_delay, maybe_fail)
-from .retry import (RetryError, TransientError, backoff_delays,  # noqa: F401
-                    retry, retry_call)
+from .retry import (DegradationRegistry, RetryError,  # noqa: F401
+                    TransientError, backoff_delays, degradations, retry,
+                    retry_call)
 
 _LAZY = {
     "CheckpointManager": ".checkpoint",
@@ -41,4 +44,4 @@ def __getattr__(name):
 __all__ = ["atomic_output", "fsync_dir", "FaultPlan", "InjectedFault",
            "Preempted", "active_plan", "maybe_delay", "maybe_fail",
            "RetryError", "TransientError", "backoff_delays", "retry",
-           "retry_call", "checkpoint", "train_loop", *_LAZY]
+           "retry_call", "DegradationRegistry", "degradations", "checkpoint", "train_loop", *_LAZY]

@@ -1,25 +1,41 @@
-"""Retry with jittered exponential backoff.
+"""Retry with jittered exponential backoff, and the control plane's
+degradation registry.
 
 Counterpart of paddle_tpu/resilience/retry.py (`TransientError`,
-`RetryError`, `backoff_delays`, `retry_call`, `retry`, copied): the
-cluster control plane's connect loop retries through
-:func:`retry_call`.  The jitter stream is seeded, and both the clock
-and the sleep function are injectable, so tests assert the exact
-backoff schedule against a fake clock with zero real sleeping.
+`RetryError`, `backoff_delays`, `retry_call`, `retry`,
+`DegradationRegistry`, `degradations`, copied): the cluster control
+plane's connect loop retries through :func:`retry_call`.  The jitter
+stream is seeded, and both the clock and the sleep function are
+injectable, so tests assert the exact backoff schedule against a fake
+clock with zero real sleeping.
 
 Only transient failures are retried: :class:`TransientError` is the
-marker type (`cluster.rpc.WorkerUnavailable` derives from it).  The
-JAX module's ``DegradationRegistry`` is not here: the port never falls
-back from a kernel to a reference path.
+marker type (`cluster.rpc.WorkerUnavailable` derives from it).
+
+:class:`DegradationRegistry` records the control plane's permanent
+decisions, and only those: a rollout halted by its parity canary
+(``fleet.rollout``), a model whose crash loop exhausted its respawn
+budget (``fleet.supervisor:<model>``), a tuned config or fusion plan
+refused (``tuning.*``).  ``degrade`` takes keys under ``fleet.`` and
+``tuning.`` and raises ``ValueError`` on any other: in the JAX package
+the registry also switches a failed kernel to its reference path; the
+port never does that (a wrapper launches its kernel or raises), and a
+degraded tuning key falls back to a plan that still runs the port's
+kernels.
 """
 from __future__ import annotations
 
 import functools
 import random
+import threading
 import time
 
 __all__ = ["TransientError", "RetryError", "retry", "retry_call",
-           "backoff_delays"]
+           "backoff_delays", "DegradationRegistry", "degradations",
+           "CONTROL_PLANE_PREFIXES"]
+
+#: the key families ``degrade`` takes: control-plane seams only
+CONTROL_PLANE_PREFIXES = ("fleet.", "tuning.")
 
 
 class TransientError(RuntimeError):
@@ -130,3 +146,81 @@ def retry(**policy):
         return wrapped
 
     return deco
+
+
+class DegradationRegistry:
+    """Process-wide record of control-plane seams permanently switched
+    off (a halted rollout, a crash-looping model, a rejected tuned
+    config).
+
+    Keys are stable strings under ``fleet.`` or ``tuning.``
+    ("fleet.rollout", "fleet.supervisor:<model>",
+    "tuning.distributed_config:<store key>").  ``degrade`` is idempotent
+    per key — the first event is recorded with its cause, later ones
+    only bump the count.  Thread-safe: the router, the fleet's loops
+    and the tuning service may all consult it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._events = {}
+
+    def is_degraded(self, key):
+        with self._lock:
+            return key in self._events
+
+    def degrade(self, key, error=None, detail=None):
+        """Mark ``key`` degraded; returns True the FIRST time (so call
+        sites can log/record exactly once).  A key outside the control
+        plane's families raises ``ValueError``."""
+        if not str(key).startswith(CONTROL_PLANE_PREFIXES):
+            raise ValueError(
+                f"degradation key {key!r} is not a control-plane seam "
+                f"(keys start with {' or '.join(CONTROL_PLANE_PREFIXES)}):"
+                f" the port never degrades a kernel to a reference path")
+        with self._lock:
+            ev = self._events.get(key)
+            if ev is not None:
+                ev["count"] += 1
+                first = False
+            else:
+                self._events[key] = {
+                    "key": key,
+                    "error": f"{type(error).__name__}: {error}"
+                             if error is not None else None,
+                    "detail": detail,
+                    "count": 1,
+                }
+                first = True
+        # registry mirror (outside the lock): fleet dashboards scrape
+        # degradation the same way they scrape latency
+        _count("kernel_degradations_total",
+               "fast paths permanently degraded to reference", key=key)
+        if first:
+            # first degradation of a seam is an incident-class moment:
+            # capture the flight rings while the lead-up is still in
+            # them.  Lazy + best-effort, same rules as _count.
+            try:
+                from ..observability import flightrec
+
+                flightrec.trigger("degrade", detail=key, key=key)
+            except Exception:  # noqa: BLE001 — telemetry never raises
+                pass
+        return first
+
+    def events(self):
+        """JSON-able snapshot, stable order (for stats export)."""
+        with self._lock:
+            return [dict(self._events[k]) for k in sorted(self._events)]
+
+    def reset(self, key=None):
+        """Forget degradations (tests only — production degradation is
+        for the life of the process)."""
+        with self._lock:
+            if key is None:
+                self._events.clear()
+            else:
+                self._events.pop(key, None)
+
+
+#: The process-wide registry the fleet and the tuning plane consult.
+degradations = DegradationRegistry()

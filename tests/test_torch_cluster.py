@@ -508,16 +508,19 @@ def test_prefill_that_finishes_returns_without_decode():
             dp.close()
 
 
-def test_worker_servicer_verbs():
-    """The servicer's envelope: health, an unknown op (the tuning verbs
-    are not ported) and an engine error answer as data; a cancelled or
-    expired request is bounced at admission."""
+def test_worker_servicer_verbs(tmp_path):
+    """The servicer's envelope: health, a tuning verb (an empty push
+    answers ``ok``), an unknown op and an engine error answer as data;
+    a cancelled or expired request is bounced at admission."""
     s = WorkerServicer("decode", lambda: _engine(), rank=3)
     assert s.handle({"op": "health"})["rank"] == 3
-    for op in ("tuning_push", "no_such_op"):
-        resp = s.handle({"op": op})
-        assert resp == {"ok": False, "error": f"unknown op {op!r}",
-                        "error_type": "ValueError"}
+    resp = s.handle({"op": "tuning_push", "entries": {},
+                     "path": str(tmp_path / "tune.json")})
+    assert resp["ok"] is True and resp["applied"] == [] \
+        and resp["rejected"] == {} and resp["rank"] == 3
+    resp = s.handle({"op": "no_such_op"})
+    assert resp == {"ok": False, "error": "unknown op 'no_such_op'",
+                    "error_type": "ValueError"}
     resp = s.handle({"op": "stream_commit", "stream_id": "x",
                      "last_token": 1})
     assert resp["ok"] is False and resp["error_type"] == "ValueError"
