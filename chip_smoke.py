@@ -7139,6 +7139,513 @@ def fleet_tuning_artifact_phase(device, gen_cfg, params_np, cfg=None,
 
 
 
+# -- phase 15: parallelism in the Program front end ----------------------------
+
+#: 15a/15c steps, 15b ranks' depth and steps, 15d's MoE shape
+PAR_STEPS = 5
+PAR_DEPTH, PAR_RANK_STEPS = 2, 3
+PIPE_STAGES, PIPE_MICROBATCHES = 4, 4
+MOE_TOKENS, MOE_EXPERTS, MOE_TOP_K, MOE_STEPS, MOE_CPU_STEPS = 4096, 8, 2, 5, 2
+PAR_RANK_TIMEOUT_S = 600.0
+#: 15b's mesh cases: (name, mesh axes, ZeRO-1, Megatron rules)
+PAR_CASES = (("data2", {"data": 2}, False, False),
+             ("zero1", {"data": 2}, True, False),
+             ("model2", {"model": 2}, False, True))
+#: the kernels of 15a's step, each once per layer per step
+DP_KERNELS = FUSED_STEP_KERNELS
+
+
+def _zero_dropout(cfg, layers=None):
+    return dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0,
+                               **({} if layers is None else
+                                  {"num_layers": layers}))
+
+
+def _all_labels_batch(vocab, device):
+    """train_batch's token ids with a label at every position (no mask),
+    so every pipeline microbatch holds the same count
+    (``_bert_pipe_case``'s feed)."""
+    feed = train_batch(vocab, device)
+    feed["input_mask"] = feed["input_mask"].new_ones(
+        feed["input_mask"].shape)
+    feed["masked_labels"] = feed["src_ids"][..., None].clone()
+    return feed
+
+
+def dp_world1_phase(device, cfg):
+    """15a: phase 5's program at dropout 0 through
+    ``CompiledProgram(main).with_data_parallel()`` over a one-rank NCCL
+    group (a file store in a temporary directory), against plain
+    ``Executor.run`` steps from the same weights: PAR_STEPS steps each,
+    losses and parameters bit-equal, the fused kernels once per layer per
+    step; then both timed in turns and one profiled data-parallel step
+    (the NCCL kernels' device ms)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    on_card = device.type == "cuda"
+    cfg = _zero_dropout(cfg)
+    L = cfg.num_layers
+    main, startup, loss, _, params = build_train(cfg)
+    exe = _executor(device)
+    feed = train_batch(cfg.vocab_size, device)
+    scopes = {"plain": pt.Scope(), "dp": pt.Scope()}
+    exe.run(startup, scope=scopes["plain"])
+    _load(scopes["dp"], _snapshot(scopes["plain"], main), main)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1)
+        try:
+            dp = pt.CompiledProgram(main).with_data_parallel(
+                places=[exe.place])
+            targets = {"plain": main, "dp": dp}
+            for name in ("plain", "dp"):
+                with _PlainCalls() as plain:
+                    _cuda.reset_launches()
+                    out[name] = [exe.run(targets[name], feed=feed,
+                                         fetch_list=[loss],
+                                         scope=scopes[name],
+                                         return_numpy=False)[0]
+                                 for _ in range(PAR_STEPS)]
+                    sync(device)
+                    out[name + "_launches"] = {
+                        k: _cuda.LAUNCHES.get(k, 0) for k in DP_KERNELS}
+                    out[name + "_plain_calls"] = plain.calls
+            unequal = [p for p in params if not torch.equal(
+                scopes["plain"].find_var(p), scopes["dp"].find_var(p))]
+            turns = {"plain": [], "dp": []}
+            for name in ("dp", "plain", "plain", "dp"):
+                t0 = time.perf_counter()
+                for _ in range(COMPARE_STEPS):
+                    exe.run(targets[name], feed=feed, fetch_list=[loss],
+                            scope=scopes[name], return_numpy=False)
+                sync(device)
+                turns[name].append((time.perf_counter() - t0)
+                                   / COMPARE_STEPS * 1e3)
+            prof = _profile_nccl(exe, dp, feed, loss, scopes["dp"], device)
+            degree = dp.data_parallel_degree
+        finally:
+            dist.destroy_process_group()
+    losses = {k: [float(x) for x in out[k]] for k in ("plain", "dp")}
+    same_losses = all(torch.equal(a, b) for a, b in zip(out["plain"],
+                                                          out["dp"]))
+    want = L * PAR_STEPS if on_card else 0
+    log(f"  15a data parallel at world 1 (one-rank "
+        f"{'NCCL' if on_card else 'gloo'} group, data_parallel_degree "
+        f"{degree}), {TRAIN_BATCH} x {TRAIN_SEQ}, dropout 0: losses "
+        + " ".join(f"{x:.6f}" for x in losses["dp"]) + f"; bit-equal to "
+        f"the plain steps: losses {same_losses}, parameters "
+        f"{len(params) - len(unequal)}/{len(params)}; launches "
+        f"{out['dp_launches']} (= {L} x {PAR_STEPS} = {want} each); step "
+        f"in turns dp {turns['dp'][0]:.3f}/{turns['dp'][1]:.3f}, plain "
+        f"{turns['plain'][0]:.3f}/{turns['plain'][1]:.3f} ms; profiled dp "
+        f"step: device kernels {prof.get('device_ms_per_step', 'not measured')}"
+        f" ms, {prof.get('nccl_kernels_per_step', 'not measured')} NCCL "
+        f"kernels taking {prof.get('nccl_ms_per_step', 'not measured')} ms")
+    if not same_losses or unequal:
+        raise AssertionError(f"15a: the data-parallel step is not the plain "
+                             f"one: losses {losses}, unequal {unequal[:5]}")
+    if any(n != want for n in out["dp_launches"].values()):
+        raise AssertionError(f"15a: launches {out['dp_launches']}, expected "
+                             f"{want} each")
+    if on_card and out["dp_plain_calls"]:
+        raise AssertionError("15a: a plain kernel version ran on the card")
+    return dict(losses=losses["dp"], launches=out["dp_launches"],
+                degree=degree, step_ms=sum(turns["dp"]) / 2,
+                plain_step_ms=sum(turns["plain"]) / 2, turns_ms=turns,
+                profile=prof)
+
+
+def _profile_nccl(exe, program, feed, loss, scope, device):
+    """One step under torch.profiler: its device time and the NCCL
+    kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        exe.run(program, feed=feed, fetch_list=[loss], scope=scope)
+        sync(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = _span_summary(prof, wall_us, 1, ("nccl", "Nccl"))
+    if out is None:
+        return dict(wall_ms=wall_us / 1e3)
+    from torch.autograd import DeviceType
+
+    nccl = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "nccl" in e.name.lower())
+    return dict(wall_ms=wall_us / 1e3,
+                device_ms_per_step=out["device_ms_per_step"],
+                nccl_kernels_per_step=nccl,
+                nccl_ms_per_step=out["named_kernels_ms_per_step"],
+                device_busy_share=out["device_busy_share"])
+
+
+def build_moe(pkg_ops=None):
+    """``_dryrun_expert``'s program at BERT-base FFN width: x [N, 768],
+    MOE_EXPERTS experts of hidden 3072, top MOE_TOP_K, the squared error
+    against y plus 0.01 x the aux loss, Adam(1e-3)."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED + 15
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.data("x", [None, 768])
+        y = pt.data("y", [None, 768])
+        out, aux = pt.layers.moe(x, num_experts=MOE_EXPERTS,
+                                 hidden_size=3072, top_k=MOE_TOP_K)
+        loss = pt.layers.elementwise_add(
+            pt.layers.mean(pt.layers.square_error_cost(out, y)),
+            pt.layers.scale(aux, 0.01))
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def moe_feed(device):
+    rng = np.random.RandomState(SEED + 16)
+    x = rng.randn(MOE_TOKENS, 768).astype(np.float32)
+    return _on(device, {"x": x, "y": np.tanh(x[:, ::-1]).astype(np.float32)})
+
+
+def _run_steps(exe, program, feed, loss, scope, steps):
+    return [float(exe.run(program, feed=feed, fetch_list=[loss],
+                          scope=scope)[0]) for _ in range(steps)]
+
+
+def _par_rank(rank, store, out_dir, cfg_dict, weights_path):
+    """One of 15b/15d's two gloo ranks on the card (or the CPU in a
+    rehearsal): PAR_CASES on the depth-PAR_DEPTH program from its
+    startup's seed, then the MoE program at {expert: 2} from the
+    parent's weights."""
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import set_strict_fp32
+    from paddle_tpu_torch.compiler import BuildStrategy, CompiledProgram
+    from paddle_tpu_torch.models import BertConfig, tp_sharding_rules
+    from paddle_tpu_torch.observability import get_registry
+    from paddle_tpu_torch.parallel import build_mesh, moe_sharding_rules
+    from paddle_tpu_torch.tools.mem_report import optimizer_state_report
+
+    set_strict_fp32()
+    device = torch.device(cfg_dict.pop("device"))
+    globals().update(cfg_dict.pop("globals"))
+    cfg = BertConfig(**cfg_dict)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    res = {}
+    try:
+        exe = _executor(device)
+        feed = train_batch(cfg.vocab_size, device)
+        for name, axes, reduce, rules in PAR_CASES:
+            main, startup, loss, _, _ = build_train(cfg)
+            scope = pt.Scope()
+            exe.run(startup, scope=scope)
+            bs = BuildStrategy()
+            if reduce:
+                bs.reduce_strategy = BuildStrategy.ReduceStrategy.Reduce
+            target = CompiledProgram(main, build_strategy=bs).with_sharding(
+                build_mesh(axes, device_type=device.type),
+                param_rules=tp_sharding_rules() if rules else None)
+            t0 = time.perf_counter()
+            losses = _run_steps(exe, target, feed, loss, scope,
+                                PAR_RANK_STEPS)
+            sync(device)
+            r = dict(losses=losses, wall_s=time.perf_counter() - t0)
+            if reduce:
+                r["report"] = optimizer_state_report(
+                    get_registry().snapshot())
+            if rules:
+                r["qkv_shard"] = tuple(scope.find_var(
+                    "encoder.layer0.attn.qkv.w").shape)
+            res[name] = r
+            del scope
+        main, _, loss = build_moe()
+        scope = pt.Scope()
+        w = np.load(weights_path)
+        pt.io.load_params(scope, {n: w[n] for n in w.files}, device,
+                          program=main)
+        target = CompiledProgram(main).with_sharding(
+            build_mesh({"expert": 2}, device_type=device.type),
+            param_rules=moe_sharding_rules())
+        t0 = time.perf_counter()
+        losses = _run_steps(exe, target, moe_feed(device), loss, scope,
+                            MOE_CPU_STEPS)
+        res["expert2"] = dict(losses=losses,
+                              wall_s=time.perf_counter() - t0,
+                              w1_shard=tuple(scope.find_var(next(
+                                  p.name for p in main.all_parameters()
+                                  if "expert_w1" in p.name)).shape))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def par_ranks_phase(device, cfg, moe_weights_path):
+    """15b and 15d's expert axis: two gloo ranks sharing the card
+    (torch.multiprocessing, spawn), each building the depth-PAR_DEPTH
+    program from the startup's seed and the MoE program from the parent's
+    weights.  Returns their results."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cfg_dict = dict(dataclasses.asdict(cfg), device=str(device),
+                    globals=dict(TRAIN_BATCH=TRAIN_BATCH,
+                                 TRAIN_SEQ=TRAIN_SEQ,
+                                 MOE_TOKENS=MOE_TOKENS,
+                                 MOE_EXPERTS=MOE_EXPERTS,
+                                 MOE_CPU_STEPS=MOE_CPU_STEPS,
+                                 PAR_RANK_STEPS=PAR_RANK_STEPS))
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _par_rank, args=(f"{tmp}/store", tmp, cfg_dict,
+                             moe_weights_path),
+            nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + PAR_RANK_TIMEOUT_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise AssertionError(f"15b: the gloo ranks still run after "
+                                     f"{PAR_RANK_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks
+
+
+def pipeline_full_phase(device, cfg):
+    """15c: build_bert_pretrain(cfg, TRAIN_SEQ, num_pipeline_stages=
+    PIPE_STAGES) under PipelineOptimizer(Adam, num_microbatches=
+    PIPE_MICROBATCHES), its stages in sequence under
+    torch.utils.checkpoint, against the unfused plain program from the
+    same weights, at dropout 0 with a label at every position: PAR_STEPS
+    steps each, losses within PARITY_LOSS_TOL, the unfused kernels'
+    launches a step as the recomputed schedule implies, step ms and peak
+    memory of both."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.models import build_bert_pretrain
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = device.type == "cuda"
+    cfg = _zero_dropout(cfg)
+    L, M = cfg.num_layers, PIPE_MICROBATCHES
+    exe = _executor(device)
+    feed = _all_labels_batch(cfg.vocab_size, device)
+    bs = pt.BuildStrategy()
+    bs.fuse_epilogues = False
+    pmain, pstart = pt.Program(), pt.Program()
+    pstart.random_seed = SEED + 11
+    with pt.program_guard(pmain, pstart), pt.unique_name.guard():
+        ploss, _, cuts = build_bert_pretrain(
+            cfg, seq_len=TRAIN_SEQ, num_pipeline_stages=PIPE_STAGES)
+        pt.optimizer.PipelineOptimizer(
+            pt.optimizer.Adam(TRAIN_LR), cut_list=cuts,
+            num_microbatches=M).minimize(ploss)
+    main, _, loss, _, _ = build_train(cfg)
+    scope = pt.Scope()
+    exe.run(pstart, scope=scope)
+    weights = _snapshot(scope, pmain)
+    runs = {}
+    for name, program, lv in (("pipeline", pmain, ploss),
+                              ("unfused", pt.CompiledProgram(
+                                  main, build_strategy=bs), loss)):
+        scope = pt.Scope()
+        _load(scope, weights, pmain if name == "pipeline" else main)
+        sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        first = float(exe.run(program, feed=feed, fetch_list=[lv],
+                              scope=scope)[0])
+        with _PlainCalls() as plain:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            rest = [exe.run(program, feed=feed, fetch_list=[lv],
+                            scope=scope, return_numpy=False)[0]
+                    for _ in range(PAR_STEPS - 1)]
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+        runs[name] = dict(
+            losses=[first] + [float(x) for x in rest],
+            step_ms=wall / (PAR_STEPS - 1) * 1e3, launches=launches,
+            plain_calls=plain.calls, plans=_plan_kinds(
+                pmain if name == "pipeline" else main),
+            peak=torch.cuda.max_memory_allocated(device) if on_card else 0)
+        del scope
+    p, u = runs["pipeline"], runs["unfused"]
+    steps = PAR_STEPS - 1
+    want = ({fa.FWD: 2 * L * M * steps, fa.DQ: L * M * steps,
+             fa.DKV: L * M * steps} if on_card else {})
+    dloss = max(abs(a - b) for a, b in zip(p["losses"], u["losses"]))
+    log(f"  15c pipeline, {PIPE_STAGES} stages in sequence x {M} "
+        f"microbatches, {TRAIN_BATCH} x {TRAIN_SEQ}, dropout 0: losses "
+        + " ".join(f"{x:.6f}" for x in p["losses"]) + f"; unfused plain "
+        + " ".join(f"{x:.6f}" for x in u["losses"]) + f"; max |dloss| "
+        f"{dloss:.3e}; {p['step_ms']:.3f} ms/step against "
+        f"{u['step_ms']:.3f}; peak {p['peak'] / 2**30:.3f} GiB against "
+        f"{u['peak'] / 2**30:.3f}; launches {p['launches']} over {steps} "
+        f"steps (want {want})")
+    if any(plan is not None for plan in p["plans"]):
+        raise AssertionError(f"15c: fusion plan {p['plans']}")
+    if p["launches"] != want:
+        raise AssertionError(f"15c: launches {p['launches']}, expected "
+                             f"{want}")
+    if on_card and p["plain_calls"]:
+        raise AssertionError("15c: a plain kernel version ran on the card")
+    if not dloss < PARITY_LOSS_TOL:
+        raise AssertionError("15c: the pipelined losses diverge")
+    per_step = {k: n // steps for k, n in p["launches"].items()}
+    return dict(losses=p["losses"], unfused_losses=u["losses"],
+                max_dloss=dloss, step_ms=p["step_ms"],
+                unfused_step_ms=u["step_ms"], peak_bytes=p["peak"],
+                unfused_peak_bytes=u["peak"], launches_per_step=per_step,
+                launches=p["launches"])
+
+
+def moe_phase(device, root):
+    """15d: the MoE program at x [MOE_TOKENS, 768] on one rank for
+    MOE_STEPS steps (step ms, the dispatch tensor's bytes, peak memory);
+    its first MOE_CPU_STEPS losses against the same program on this
+    machine's CPU from the same weights.  Writes the weights to
+    ``root`` for the expert-axis ranks; returns (report, weights path)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    on_card = device.type == "cuda"
+    main, startup, loss = build_moe()
+    exe = _executor(device)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    weights = {n: t.detach().cpu().numpy()
+               for n, t in _snapshot(scope, main).items()}
+    path = os.path.join(root, "moe_weights.npz")
+    np.savez(path, **weights)
+    feed = moe_feed(device)
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    first = _run_steps(exe, main, feed, loss, scope, MOE_CPU_STEPS)
+    sync(device)
+    t0 = time.perf_counter()
+    rest = _run_steps(exe, main, feed, loss, scope,
+                      MOE_STEPS - MOE_CPU_STEPS)
+    sync(device)
+    step_ms = (time.perf_counter() - t0) / (MOE_STEPS - MOE_CPU_STEPS) * 1e3
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    del scope
+    cpu = pt.Executor(pt.CPUPlace())
+    cscope = pt.Scope()
+    pt.io.load_params(cscope, weights, "cpu", program=main)
+    cfeed = {n: t.cpu() for n, t in feed.items()}
+    t0 = time.perf_counter()
+    cpu_losses = _run_steps(cpu, main, cfeed, loss, cscope, MOE_CPU_STEPS)
+    cpu_s = time.perf_counter() - t0
+    capacity = max(1, int(MOE_TOP_K * MOE_TOKENS / MOE_EXPERTS * 2.0))
+    dispatch_bytes = MOE_TOKENS * MOE_EXPERTS * capacity * 4
+    dloss = max(abs(a - b) for a, b in zip(first, cpu_losses))
+    log(f"  15d MoE x [{MOE_TOKENS}, 768], {MOE_EXPERTS} experts of 3072, "
+        f"top {MOE_TOP_K}, capacity {capacity}: losses "
+        + " ".join(f"{x:.6f}" for x in first + rest) + f"; CPU "
+        + " ".join(f"{x:.6f}" for x in cpu_losses) + f" ({cpu_s:.1f} s); "
+        f"max |dloss| {dloss:.3e}; {step_ms:.3f} ms/step; dispatch "
+        f"{dispatch_bytes} bytes; peak {peak / 2**30:.3f} GiB")
+    if not all(np.isfinite(first + rest)):
+        raise AssertionError("15d: a MoE loss is not finite")
+    if not dloss < PARITY_LOSS_TOL:
+        raise AssertionError("15d: the card's MoE losses leave the CPU's")
+    return dict(losses=first + rest, cpu_losses=cpu_losses, max_dloss=dloss,
+                step_ms=step_ms, dispatch_bytes=dispatch_bytes,
+                capacity=capacity, peak_bytes=peak), path
+
+
+def parallel_phase(device, cfg, phase5_step_ms=float("nan")):
+    """Phase 15: data parallel at world 1 (15a), two gloo ranks on the
+    card (15b: data 2, ZeRO-1, model 2 at depth PAR_DEPTH; 15d's expert
+    axis), the pipeline at full width (15c), MoE at BERT-base FFN width
+    (15d)."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+
+    out = {"phase5_step_ms": phase5_step_ms}
+    out["dp"] = dp_world1_phase(device, cfg)
+    out["pipeline"] = pipeline_full_phase(device, cfg)
+    with tempfile.TemporaryDirectory() as root:
+        out["moe"], path = moe_phase(device, root)
+        cut = _zero_dropout(cfg, PAR_DEPTH)
+        # the one-rank references of 15b: the same programs, plain
+        exe = _executor(device)
+        feed = train_batch(cut.vocab_size, device)
+        main, startup, loss, _, _ = build_train(cut)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        t0 = time.perf_counter()
+        ref = _run_steps(exe, main, feed, loss, scope, PAR_RANK_STEPS)
+        sync(device)
+        ref_ms = (time.perf_counter() - t0) / PAR_RANK_STEPS * 1e3
+        del scope
+        t0 = time.perf_counter()
+        ranks = par_ranks_phase(device, cut, path)
+        spawn_s = time.perf_counter() - t0
+    moe_ref = out["moe"]["losses"][:MOE_CPU_STEPS]
+    cases = {}
+    for name, _, reduce, rules in PAR_CASES + (("expert2", None, False,
+                                                False),):
+        want = moe_ref if name == "expert2" else ref
+        got = [r[name] for r in ranks]
+        d = max(abs(a - b) for r in got for a, b in zip(r["losses"], want))
+        cases[name] = dict(losses=got[0]["losses"], max_dloss=d,
+                           step_ms=got[0]["wall_s"] / len(want) * 1e3)
+        if not d < PARITY_LOSS_TOL:
+            raise AssertionError(f"15b {name}: losses {[r['losses'] for r in got]}"
+                                 f" against the one-rank {want}")
+        if reduce:
+            rep = got[0]["report"]
+            cases[name]["report"] = rep
+            if not (rep and rep["dp_degree"] == 2
+                    and rep["ratio_vs_ideal"] < 1.5):
+                raise AssertionError(f"15b zero1: optimizer_state_report "
+                                     f"{rep}")
+        if rules:
+            shards = [tuple(r["qkv_shard"]) for r in got]
+            cases[name]["qkv_shard"] = shards[0]
+            if any(s != (cut.hidden_size, 3 * cut.hidden_size // 2)
+                   for s in shards):
+                raise AssertionError(f"15b model2: qkv shards {shards}")
+        if name == "expert2":
+            cases[name]["w1_shard"] = tuple(got[0]["w1_shard"])
+    log(f"  15b two gloo ranks on the card, depth {PAR_DEPTH}, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} split {TRAIN_BATCH // 2}/"
+        f"{TRAIN_BATCH // 2} (gloo goes through the "
+        f"host: no NCCL number): one-rank step {ref_ms:.3f} ms; "
+        + "; ".join(f"{k} max |dloss| {v['max_dloss']:.3e} step "
+                    f"{v['step_ms']:.1f} ms" for k, v in cases.items())
+        + f"; ZeRO-1 per-device ratio "
+        f"{cases['zero1']['report']['ratio_vs_ideal']}; qkv shard "
+        f"{cases['model2']['qkv_shard']}; MoE w1 shard "
+        f"{cases['expert2']['w1_shard']}; spawn {spawn_s:.1f} s")
+    out["ranks"] = dict(cases=cases, one_rank_step_ms=ref_ms,
+                        one_rank_losses=ref, spawn_s=spawn_s)
+    return out
+
+
 def main():
     import torch
 
@@ -7294,6 +7801,17 @@ def main():
             device, gen_cfg, params_np)
         for name, n in report["fleet_tuning_artifact"]["launches"].items():
             report["kernels"][name]["launches"] += n
+
+        log("[15] parallelism in the Program front end: data parallel at "
+            "world 1 over NCCL, two gloo ranks on the card (data 2, ZeRO-1, "
+            "model 2, expert 2), the pipeline at full width, MoE at "
+            "BERT-base FFN width")
+        report["parallel"] = parallel_phase(device, BertConfig.base(),
+                                            report["training"]["step_ms"])
+        par = report["parallel"]
+        for name, n in list(par["dp"]["launches"].items()) \
+                + list(par["pipeline"]["launches"].items()):
+            report["kernels"][name]["launches"] += n
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -7404,6 +7922,26 @@ def main():
             "first_ready_s", "spawn_to_attached_s", "drain_s",
             "swap_s_per_worker", "respawn_s", "router", "degradations",
             "parked_failure")})}))
+    par = report["parallel"]
+    print(json.dumps({"parallel": dict(
+        card=card, phase5_step_ms=par["phase5_step_ms"],
+        dp={k: par["dp"][k] for k in (
+            "step_ms", "plain_step_ms", "degree", "launches")} | dict(
+            nccl_ms_per_step=par["dp"]["profile"].get("nccl_ms_per_step"),
+            nccl_kernels_per_step=par["dp"]["profile"].get(
+                "nccl_kernels_per_step"),
+            device_ms_per_step=par["dp"]["profile"].get(
+                "device_ms_per_step")),
+        ranks={k: {m: v[m] for m in ("max_dloss", "step_ms")}
+               for k, v in par["ranks"]["cases"].items()} | dict(
+            one_rank_step_ms=par["ranks"]["one_rank_step_ms"],
+            zero1_ratio=par["ranks"]["cases"]["zero1"]["report"][
+                "ratio_vs_ideal"]),
+        pipeline={k: par["pipeline"][k] for k in (
+            "step_ms", "unfused_step_ms", "peak_bytes", "unfused_peak_bytes",
+            "max_dloss", "launches_per_step")},
+        moe={k: par["moe"][k] for k in (
+            "step_ms", "dispatch_bytes", "peak_bytes", "max_dloss")})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

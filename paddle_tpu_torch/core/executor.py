@@ -24,6 +24,16 @@ Dataset-driven training: ``train_from_dataset`` and
 ``infer_from_dataset`` drive a ``dataset.QueueDataset`` or
 ``InMemoryDataset`` through core/trainer.py's multi-step loop.
 
+Meshes: a ``CompiledProgram`` after ``with_data_parallel`` or
+``with_sharding`` runs on its mesh (core/spmd.py): the caller feeds the
+global batch and each rank keeps the dim-0 slice at its coordinates on
+the batch axes (for a pipelined program, its part of every microbatch);
+a persistable the mesh shards is held in the scope as the rank's shard
+(the scope's ``_shardings`` names them, so a checkpoint gathers them
+whole); fetches come back global; the lowering cache is keyed by the
+CompiledProgram's ``fingerprint()``.  Under a pipe axis the rank drops
+the other stages' parameters and accumulators from the scope.
+
 Placement: ``Executor()`` runs on the first CUDA card and raises when
 there is none; ``Executor(CPUPlace())`` runs the plain PyTorch path on
 the CPU (the tests do); ``Executor(CUDAPlace(i))`` names a card.
@@ -60,6 +70,7 @@ from ..observability.monitor import (EXECUTOR_COMPILE_SECONDS,
                                      EXECUTOR_COMPILES,
                                      OPTIMIZER_STATE_BYTES)
 from ..observability.registry import get_registry
+from . import spmd
 from .lowering import lower_block
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope
@@ -83,20 +94,23 @@ def _record_compile(seconds):
         pass
 
 
-def _record_optimizer_state_bytes(block, placed):
+def _record_optimizer_state_bytes(block, compiled, placed):
     """Gauge the optimizer-state footprint of a compiled program:
-    ``optimizer_state_bytes{placement="global"}`` (unique logical bytes)
-    and ``{placement="per_device"}`` (bytes resident on one device —
-    the same, as the port has no mesh yet).  Best-effort: telemetry
-    must never fail a training step."""
+    ``optimizer_state_bytes{placement="global"}`` (unique logical bytes,
+    from the program's shapes) and ``{placement="per_device"}`` (bytes
+    resident on this rank: its shards under ZeRO-1 or a rule).  Replicated
+    state reports per_device == global.  Best-effort: telemetry must
+    never fail a training step."""
     try:
-        total = 0
+        total = per_dev = 0
         for name, val in placed.items():
             var = block._find_var_recursive(name)
             if var is None or not getattr(var, "is_optimizer_state",
                                           False):
                 continue
-            total += val.numel() * val.element_size()
+            full = var.shape if var.shape is not None else val.shape
+            total += int(np.prod(full, dtype=np.int64)) * val.element_size()
+            per_dev += val.numel() * val.element_size()
         if total == 0:
             # a program with no optimizer state (forward only, SGD) must
             # not clobber the training program's footprint
@@ -105,10 +119,11 @@ def _record_optimizer_state_bytes(block, placed):
             OPTIMIZER_STATE_BYTES,
             "optimizer accumulator bytes (global vs per-device)")
         gauge.set(total, placement="global")
-        gauge.set(total, placement="per_device")
+        gauge.set(per_dev, placement="per_device")
         get_registry().gauge(
             "data_parallel_degree",
-            "data-axis size of the active mesh").set(1)    # no mesh yet
+            "data-axis size of the active mesh").set(
+                compiled.data_parallel_degree if compiled.has_mesh else 1)
     except Exception:  # noqa: BLE001 — metrics are non-load-bearing
         pass
 
@@ -164,21 +179,29 @@ class Executor:
         fetch_names = tuple(
             f.name if isinstance(f, Variable) else str(f) for f in fetch_list)
         block = program.global_block()
+        mesh = compiled if compiled is not None and compiled.has_mesh \
+            else None
 
         dev_feed = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
+        if mesh is not None:
+            dev_feed = {n: spmd.local_feed(mesh, program, t)
+                        for n, t in dev_feed.items()}
         sig = (tuple(sorted((n, tuple(t.shape), str(t.dtype))
                             for n, t in dev_feed.items())), fetch_names,
-               str(self.device), fuse, fuse_block, nan_check)
+               str(self.device), fuse, fuse_block,
+               None if mesh is None else mesh.fingerprint(), nan_check)
         lowered, was_miss = self._cached_lowering(
             program, sig, lambda: lower_block(
                 program, 0, tuple(dev_feed), fetch_names, self.device,
-                fuse_epilogues=fuse, fuse_block_epilogues=fuse_block))
+                fuse_epilogues=fuse, fuse_block_epilogues=fuse_block,
+                mesh=mesh))
         fetches = self._run_lowered(
             program, lowered, scope,
             lambda mut, const: lowered.fn(dev_feed, mut, const,
                                           self._next_seed(program)),
             # once per lowering: publish the optimizer-state footprint
-            record_state=was_miss and compiled is not None)
+            record_state=was_miss and compiled is not None,
+            compiled=compiled)
         if return_numpy:
             return [f.detach().cpu().numpy() for f in fetches]
         return [f.detach() for f in fetches]
@@ -199,7 +222,7 @@ class Executor:
         return lowered, True
 
     def _run_lowered(self, program, lowered, scope, body, steps=1,
-                     record_state=False):
+                     record_state=False, compiled=None):
         """The step body that ``run`` and the dataset trainer share:
         read the lowering's mutable and constant persistables from the
         scope, call ``body(mut, const) -> (fetches, new persistables)``
@@ -209,12 +232,17 @@ class Executor:
         detached.  ``steps`` is how many steps ``body`` ran.  Returns the
         fetches."""
         block = program.global_block()
-        mut = {n: self._from_scope(scope, block, n)
+        mplan = lowered.mesh_plan
+        if mplan is not None and lowered.runs == 0:
+            for n in mplan.remote:
+                if scope.has_var(n):
+                    scope.erase(n)
+        mut = {n: self._from_scope(scope, block, n, mplan)
                for n in lowered.mut_param_names}
-        const = {n: self._from_scope(scope, block, n)
+        const = {n: self._from_scope(scope, block, n, mplan)
                  for n in lowered.const_param_names}
         if record_state:
-            _record_optimizer_state_bytes(block, {**const, **mut})
+            _record_optimizer_state_bytes(block, compiled, {**const, **mut})
         loads = _cuda.library_loads()
         t0 = time.perf_counter()
         # while a device trace runs, the run is also a Kineto range, so
@@ -254,22 +282,25 @@ class Executor:
             var.dtype is not None else None
         return t.to(device=self.device, dtype=dtype)
 
-    def _from_scope(self, scope: Scope, block, name: str):
+    def _from_scope(self, scope: Scope, block, name: str, mplan=None):
         val = scope.find_var(name)
         if val is None:
             raise RuntimeError(
                 f"Variable '{name}' is not initialized in the scope. "
                 f"Run the startup program (exe.run(default_startup_program())) "
                 f"or feed it.")
-        if torch.is_tensor(val) and val.device == self.device:
-            return val
-        var = block._find_var_recursive(name)
-        t = val if torch.is_tensor(val) else _host_tensor(val)
-        dtype = runtime_dtype(var.dtype) if var is not None and \
-            var.dtype is not None else None
-        t = t.to(device=self.device, dtype=dtype)
-        scope.set_var(name, t)
-        return t
+        if not (torch.is_tensor(val) and val.device == self.device):
+            var = block._find_var_recursive(name)
+            t = val if torch.is_tensor(val) else _host_tensor(val)
+            dtype = runtime_dtype(var.dtype) if var is not None and \
+                var.dtype is not None else None
+            val = t.to(device=self.device, dtype=dtype)
+            scope.set_var(name, val)
+        if mplan is not None:
+            # a whole value where the mesh holds a shard: keep the
+            # rank's shard (the first run, or after a restore)
+            val = spmd.place(scope, mplan, name, val)
+        return val
 
     @staticmethod
     def _next_seed(program: Program) -> int:
@@ -293,7 +324,11 @@ class Executor:
         fetched values."""
         from .trainer import run_from_dataset
 
-        program, _, fuse, fuse_block = fusion_knobs(program)
+        program, compiled, fuse, fuse_block = fusion_knobs(program)
+        if compiled is not None and compiled.has_mesh:
+            raise NotImplementedError(
+                "train_from_dataset over a mesh is not ported (ROADMAP.md, "
+                "Queue 1 item 5): run the CompiledProgram with Executor.run")
         scope = scope or global_scope()
         return run_from_dataset(self, program, dataset, scope, fetch_list,
                                 fetch_info, print_period, debug,

@@ -56,8 +56,20 @@ random op draws from ``fold_seed(seed, op.uid)``, so a recomputed
 dropout draws the same bits.  The fusion pass plans no group in such a
 program (core/fusion.py).
 
-Not ported: pipeline and AMP.  Their ops are not registered, so a
-program that holds one raises at run time, naming the op.
+Pipelines (``pipeline_grad``, appended by PipelineOptimizer): the
+forward lives in a sub-block, split at the cut variables into preamble,
+S stages and head by dataflow (``plan_pipeline``, the JAX lowering's
+rules and error texts); the stages run under ``parallel.pipeline``'s
+GPipe schedule (over the mesh's ``pipe`` axis, or in sequence without
+one), each under ``torch.utils.checkpoint``, and the op takes
+``autograd.grad`` of the unweighted mean of the per-microbatch losses.
+The fusion pass plans nothing in such a program (core/fusion.py).
+
+Meshes (a CompiledProgram with one): core/spmd.py plans the batch split,
+the forward sums, the gradient sum and the sharded storage once per
+lowering, and its ``MeshExec`` runs them each step.
+
+Not ported: AMP.
 """
 from __future__ import annotations
 
@@ -70,6 +82,7 @@ from torch.utils.checkpoint import checkpoint as _checkpoint
 from .. import profiler as _prof
 from .._rng import fold_seed
 from ..flags import flag as _flag
+from . import spmd
 from .fusion import UNBOUND, FusionExec, plan_fusion, run_fused_grad, \
     run_fused_group
 from .program import EMPTY_VAR_NAME, Program
@@ -77,6 +90,7 @@ from .registry import REGISTRY, OpContext
 
 VJP_GRAD_OP = "vjp_grad"
 RECOMPUTE_GRAD_OP = "recompute_grad"
+PIPELINE_GRAD_OP = "pipeline_grad"
 
 #: ops that run a sub-block of the program (parity: the JAX lowering's
 #: BLOCK_OPS and the reference's while_op.cc, conditional_block_op.cc,
@@ -94,6 +108,7 @@ class LoweredBlock:
     fetch_names: tuple
     runs: int = 0   # steps run through fn (the Executor counts them)
     fusion_plan: object = None  # core/fusion.FusionPlan, or None
+    mesh_plan: object = None    # core/spmd.MeshPlan, or None
 
 
 def analyze_block(program: Program, block_idx: int, feed_names, fetch_names):
@@ -126,17 +141,21 @@ def analyze_block(program: Program, block_idx: int, feed_names, fetch_names):
 
 
 def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
-                device, fuse_epilogues=False,
-                fuse_block_epilogues=False) -> LoweredBlock:
+                device, fuse_epilogues=False, fuse_block_epilogues=False,
+                mesh=None) -> LoweredBlock:
     """The block as ``fn(feeds, mut_params, const_params, seed)``: every
     op's outputs land on ``device`` (ops with tensor inputs follow their
     inputs; ops that create tensors use ``OpContext.device``).  With
     ``fuse_epilogues`` block 0 runs its matched chains as fused groups
-    (``fuse_block_epilogues`` adds the block patterns)."""
+    (``fuse_block_epilogues`` adds the block patterns).  ``mesh``: a
+    CompiledProgram with a mesh — the feeds are the rank's slices, the
+    sharded persistables the rank's shards, and the fetches come back
+    global (core/spmd.py)."""
     block = program.blocks[block_idx]
     ops = list(block.ops)
     feed_names = tuple(feed_names)
     fetch_names = tuple(fetch_names)
+    _refuse_hidden_fetches(program, ops, fetch_names)
     mut, const, persist_out = analyze_block(
         program, block_idx, feed_names, fetch_names)
     vjp_uids = frozenset(
@@ -148,34 +167,99 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         fusion_plan = plan_fusion(program, ops, feed_names, fetch_names,
                                   block_patterns=fuse_block_epilogues)
     recompute = _plan_recompute(program, ops, fetch_names, persist_out)
+    mplan = None
+    if mesh is not None and mesh.has_mesh:
+        if block_idx != 0:
+            raise ValueError("a mesh runs block 0")
+        remote = _remote_pipeline_names(program, ops, mesh)
+        persist = [n for n in dict.fromkeys(mut + const + persist_out)
+                   if _persistable(block, n)]
+        mplan = spmd.plan_mesh(program, ops, mesh, feed_names, persist,
+                               remote)
+        if fusion_plan is not None:
+            fused = set(fusion_plan.skip_uids) | set(fusion_plan.by_last)
+            bad = fused & set(mplan.forward_sums)
+            if bad:
+                raise NotImplementedError(
+                    f"a fused group holds a reduction over the batch "
+                    f"({spmd.ITEM5})")
+        mut = tuple(n for n in mut if n not in remote)
+        const = tuple(n for n in const if n not in remote)
+        persist_out = tuple(n for n in persist_out if n not in remote)
+    start = recompute.op_index if recompute is not None else 0
+    # the gradient sum runs between rest[:sync] and rest[sync:]
+    sync = len(ops) if mplan is None else max(mplan.sync_index - start, 0)
 
     def run_block(feeds, mut_params, const_params, seed):
         env = {}
         env.update(const_params)
         env.update(mut_params)
         env.update(feeds)
-        fusion = None if fusion_plan is None else FusionExec(fusion_plan)
-        vjps = {}
-        rest = ops
-        if recompute is not None:
-            rest = ops[recompute.op_index:]
-            _run_recompute_forward(program, recompute, env, seed, vjps,
-                                   device, is_test)
-        with torch.no_grad():
-            _interp_ops(program, rest, env, seed, vjps, vjp_uids, device,
-                        fusion, is_test)
-        if recompute is not None:
-            # the forward's values carry its (freed) graph
-            env = {n: v.detach() if torch.is_tensor(v) else v
-                   for n, v in env.items()}
-        fetches = [env[n] for n in fetch_names]
-        new_persist = {n: env[n] for n in persist_out}
+        mx = None if mplan is None else spmd.MeshExec(mplan)
+        prev = spmd.set_active(mx)
+        try:
+            if mx is not None:
+                env = mx.enter(env)
+                seed = mx.step_seed(seed)
+            fusion = None if fusion_plan is None else FusionExec(fusion_plan)
+            vjps = {}
+            rest = ops[start:]
+            if recompute is not None:
+                _run_recompute_forward(program, recompute, env, seed, vjps,
+                                       device, is_test)
+            with torch.no_grad():
+                _interp_ops(program, rest[:sync], env, seed, vjps, vjp_uids,
+                            device, fusion, is_test)
+                if mx is not None:
+                    mx.sum_grads(env)
+                    _interp_ops(program, rest[sync:], env, seed, vjps,
+                                vjp_uids, device, fusion, is_test)
+            if recompute is not None:
+                # the forward's values carry its (freed) graph
+                env = {n: v.detach() if torch.is_tensor(v) else v
+                       for n, v in env.items()}
+            if mx is None:
+                fetches = [env[n] for n in fetch_names]
+                new_persist = {n: env[n] for n in persist_out}
+            else:
+                fetches = [mx.fetch(n, env[n]) for n in fetch_names]
+                new_persist = {n: mx.store(n, env[n]) for n in persist_out}
+        finally:
+            spmd.set_active(prev)
         return fetches, new_persist
 
     return LoweredBlock(fn=run_block, feed_names=feed_names,
                         mut_param_names=mut, const_param_names=const,
                         persist_out_names=persist_out,
-                        fetch_names=fetch_names, fusion_plan=fusion_plan)
+                        fetch_names=fetch_names, fusion_plan=fusion_plan,
+                        mesh_plan=mplan)
+
+
+def _persistable(block, name):
+    var = block._find_var_recursive(name)
+    return var is not None and var.persistable
+
+
+def _refuse_hidden_fetches(program, ops, fetch_names):
+    """Under PipelineOptimizer the forward lives in a sub-block: only the
+    loss (and top-level vars) can be fetched (the JAX lowering's check,
+    its message)."""
+    for top_op in ops:
+        if top_op.type != PIPELINE_GRAD_OP:
+            continue
+        sub_produced = set()
+        for o in program.blocks[top_op.attrs["sub_block"]].ops:
+            sub_produced.update(o.output_names())
+        hidden = [n for n in fetch_names
+                  if n in sub_produced
+                  and n not in top_op.outputs.get("Loss", [])]
+        if hidden:
+            raise ValueError(
+                f"Cannot fetch {hidden}: under PipelineOptimizer the "
+                f"forward runs microbatched inside the pipeline "
+                f"schedule, so only the loss "
+                f"({top_op.outputs['Loss']}) and top-level variables "
+                f"are fetchable")
 
 
 def _leaf(v):
@@ -214,10 +298,13 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
     program's) is ORed into every op's own ``is_test`` attr."""
     plan = fusion.plan if fusion is not None else None
     scoped = _prof.device_tracing()
+    mx = spmd.active()
     nan_check = _flag("FLAGS_check_nan_inf")
     for i, op in enumerate(ops):
         if plan is not None and op.uid in plan.skip_uids:
             continue
+        if mx is not None and op.uid in mx.plan.skip_uids:
+            continue    # the update of another pipeline stage's parameter
         # per-op trace attribution (the JAX lowering's named_scope)
         with (torch.profiler.record_function(_op_scope_name(op))
               if scoped else _NO_SCOPE):
@@ -229,6 +316,9 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
                             else run_fused_grad(op, fusion, grp, env))
                 elif op.type == RECOMPUTE_GRAD_OP:
                     outs = _run_recompute_grad(op, env, vjps)
+                elif op.type == PIPELINE_GRAD_OP:
+                    outs = _run_pipeline_grad(program, op, env, seed,
+                                              device, is_test)
                 elif plan is not None and op.uid in plan.by_last:
                     outs = run_fused_group(fusion, plan.by_last[op.uid],
                                            env, seed, device, vjp_uids,
@@ -248,14 +338,16 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
                         is_test=is_test or bool(op.attrs.get("is_test",
                                                              False)),
                         attrs=op.attrs, device=device)
+                    if mx is not None and op.uid in mx.plan.update_ops:
+                        ins = mx.slice_update(op, ins)
                     if op.uid in vjp_uids:
                         ins = {slot: [_leaf(v) for v in vals]
                                for slot, vals in ins.items()}
                         with torch.enable_grad():
-                            outs = opdef.compute(ctx, ins, op.attrs)
+                            outs = _compute(opdef, ctx, ins, op, mx)
                         vjps[op.uid] = (ins, outs)
                     else:
-                        outs = opdef.compute(ctx, ins, op.attrs)
+                        outs = _compute(opdef, ctx, ins, op, mx)
             except KeyError as e:
                 raise RuntimeError(
                     f"Lowering failed at op #{i} {op!r}: missing variable "
@@ -269,6 +361,25 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
                     if nan_check:
                         _check_nan_inf(op, i, n, v)
     return env
+
+
+def _compute(opdef, ctx, ins, op, mx):
+    """One op's compute; under a mesh, a reduction over the batch goes
+    through the forward sum and an update op's parameter comes back
+    whole (core/spmd.py)."""
+    if mx is not None and op.uid in mx.plan.moe:
+        mx.moe_mode = mx.plan.moe[op.uid]
+        try:
+            return opdef.compute(ctx, ins, op.attrs)
+        finally:
+            mx.moe_mode = None
+    outs = opdef.compute(ctx, ins, op.attrs)
+    if mx is not None:
+        if op.uid in mx.plan.forward_sums:
+            outs = mx.reduce_outs(op, outs)
+        elif op.uid in mx.plan.update_ops:
+            outs = mx.gather_update(op, outs)
+    return outs
 
 
 def _check_nan_inf(op, op_idx, name, value):
@@ -566,3 +677,372 @@ def _run_vjp_grad(op, env, vjps):
         result["IG@" + slot][j] = (g if g is not None
                                    else torch.zeros_like(t)).detach()
     return result
+
+
+# -- pipelines (PipelineOptimizer's pipeline_grad) ---------------------------
+
+@dataclasses.dataclass
+class _PipelinePlan:
+    cut_vars: list
+    num_microbatches: int
+    axis_name: str
+    pre_ops: list
+    stage_ops: list
+    post_ops: list
+    plists: list          # each stage's parameter names, in first-read order
+    homogeneous: bool
+    t_ext: list           # side inputs the stages read
+    post_ext: set         # what the head reads besides the last cut var
+    produced_in_sub: set
+    param_names: list
+    loss_name: str
+
+
+def _canon_attr(v):
+    import numpy as _np
+
+    return v.tolist() if isinstance(v, _np.ndarray) else v
+
+
+def plan_pipeline(program, op):
+    """Split a ``pipeline_grad`` op's sub-block at its cut variables into
+    preamble, S stages and head, by dataflow (the JAX lowering's
+    ``_run_pipeline_grad`` rules and error texts): ops inside the stage
+    region that do not (transitively) consume the first cut variable
+    are hoisted into the preamble.  Cached on the op."""
+    cached = getattr(op, "_pipeline_plan", None)
+    if cached is not None:
+        return cached
+    attrs = op.attrs
+    cut_vars = list(attrs["cut_vars"])
+    fwd_ops = program.blocks[attrs["sub_block"]].ops
+    param_names = list(op.inputs["Params"])
+    param_set = set(param_names)
+    prod_idx = {}
+    for i, fop in enumerate(fwd_ops):
+        for n in fop.output_names():
+            if n in cut_vars and n not in prod_idx:
+                prod_idx[n] = i
+    missing = [c for c in cut_vars if c not in prod_idx]
+    if missing:
+        raise ValueError(f"pipeline cut vars not produced in block: {missing}")
+    idxs = [prod_idx[c] for c in cut_vars]
+    if idxs != sorted(idxs):
+        raise ValueError("pipeline cut vars must be produced in order")
+    region = fwd_ops[idxs[0] + 1: idxs[-1] + 1]
+    tainted = {cut_vars[0]}
+    stage_region, hoisted = [], []
+    for o in region:
+        if any(n in tainted for n in o.input_names()):
+            stage_region.append(o)
+            tainted.update(o.output_names())
+        else:
+            hoisted.append(o)
+    pre_ops = fwd_ops[: idxs[0] + 1] + hoisted
+    bnd_pos = {}
+    for i, o in enumerate(stage_region):
+        for n in o.output_names():
+            if n in cut_vars[1:] and n not in bnd_pos:
+                bnd_pos[n] = i
+    off_stream = [c for c in cut_vars[1:] if c not in bnd_pos]
+    if off_stream:
+        raise ValueError(
+            f"pipeline cut vars {off_stream} are not on the pipeline "
+            f"dataflow stream (their producers do not transitively consume "
+            f"the first cut var '{cut_vars[0]}'); cut at activations that "
+            f"flow stage-to-stage, not at feed-derived side values")
+    ridx = [-1] + [bnd_pos[c] for c in cut_vars[1:]]
+    stage_ops = [stage_region[ridx[s] + 1: ridx[s + 1] + 1]
+                 for s in range(len(cut_vars) - 1)]
+    post_ops = fwd_ops[idxs[-1] + 1:]
+
+    def _stage_signature(ops_s, s, plist):
+        produced = {}
+        sig = []
+        for i, o in enumerate(ops_s):
+            canon_in = []
+            for slot, names in sorted(o.inputs.items()):
+                for pos, n in enumerate(names):
+                    if n in param_set:
+                        canon_in.append((slot, pos, "param", plist.index(n)))
+                    elif n == cut_vars[s]:
+                        canon_in.append((slot, pos, "stream"))
+                    elif n in produced:
+                        canon_in.append((slot, pos, "local", produced[n]))
+                    else:
+                        canon_in.append((slot, pos, "ext", n))
+            for slot, names in sorted(o.outputs.items()):
+                for pos, n in enumerate(names):
+                    produced[n] = (i, slot, pos)
+            attrs_c = sorted((k, repr(_canon_attr(v)))
+                             for k, v in o.attrs.items())
+            sig.append((o.type, tuple(canon_in), tuple(attrs_c)))
+        return sig
+
+    t_types = [o.type for o in stage_ops[0]]
+    plists, extsets = [], []
+    for s, ops_s in enumerate(stage_ops):
+        produced = set()
+        plist, ext = [], set()
+        for o in ops_s:
+            for n in o.input_names():
+                if n in param_set:
+                    if n not in plist:
+                        plist.append(n)
+                elif n not in produced and n != cut_vars[s]:
+                    ext.add(n)
+            produced.update(o.output_names())
+        plists.append(plist)
+        extsets.append(ext)
+    homogeneous = (
+        all([o.type for o in ops_s] == t_types for ops_s in stage_ops)
+        and all(len(pl) == len(plists[0]) for pl in plists)
+        and all(e == extsets[0] for e in extsets))
+    if homogeneous:
+        t_sig = _stage_signature(stage_ops[0], 0, plists[0])
+        for s in range(1, len(stage_ops)):
+            sig_s = _stage_signature(stage_ops[s], s, plists[s])
+            if sig_s != t_sig:
+                import warnings
+
+                diff = next(i for i, (a, b) in enumerate(zip(t_sig, sig_s))
+                            if a != b)
+                warnings.warn(
+                    f"pipeline stage {s} op {diff} "
+                    f"({stage_ops[s][diff].type}) differs from stage 0 in "
+                    f"attrs/wiring; falling back to the HETEROGENEOUS "
+                    f"path (per-stage bodies). Make the stages exactly "
+                    f"isomorphic to regain the stacked fast path.\n"
+                    f"stage0: {t_sig[diff]}\nstage{s}: {sig_s[diff]}",
+                    stacklevel=2)
+                homogeneous = False
+                break
+    stage_produced = []
+    for ops_s in stage_ops:
+        prod = set()
+        for o in ops_s:
+            prod.update(o.output_names())
+        stage_produced.append(prod)
+    for s, ext in enumerate(extsets):
+        for n in ext:
+            owners = [j for j, prod in enumerate(stage_produced)
+                      if j != s and n in prod]
+            if owners:
+                raise ValueError(
+                    f"pipeline stage {s} reads '{n}', an internal of "
+                    f"stage {owners[0]}; stages may only exchange data "
+                    f"through the cut variables — cut at activations "
+                    f"that flow stage-to-stage, or move the shared "
+                    f"computation into the preamble")
+    t_ext = sorted(set().union(*extsets)) if not homogeneous \
+        else sorted(extsets[0])
+    produced_in_sub = set()
+    for fop in fwd_ops:
+        produced_in_sub.update(fop.output_names())
+    post_produced, post_ext = set(), set()
+    for o in post_ops:
+        for n in o.input_names():
+            if (n not in post_produced and n not in param_set
+                    and n != cut_vars[-1]):
+                post_ext.add(n)
+        post_produced.update(o.output_names())
+    bad = post_ext & (produced_in_sub - set(cut_vars))
+    bad -= {n for o in pre_ops for n in o.output_names()}
+    if bad:
+        raise ValueError(
+            f"pipeline head reads stage-internal vars {sorted(bad)}; it may "
+            f"only read the last cut var, preamble outputs, and feeds")
+    plan = _PipelinePlan(
+        cut_vars=cut_vars, num_microbatches=int(attrs["num_microbatches"]),
+        axis_name=attrs.get("axis_name", "pipe"), pre_ops=pre_ops,
+        stage_ops=stage_ops, post_ops=post_ops, plists=plists,
+        homogeneous=homogeneous, t_ext=t_ext, post_ext=post_ext,
+        produced_in_sub=produced_in_sub, param_names=param_names,
+        loss_name=op.outputs["Loss"][0])
+    op._pipeline_plan = plan
+    return plan
+
+
+def _remote_pipeline_names(program, ops, compiled):
+    """Under a mesh whose pipe axis has more than one rank: the names
+    this rank does not hold — every other stage's parameters, their
+    gradients and their optimizer accumulators."""
+    from ..parallel import mesh as mesh_lib
+
+    remote = set()
+    for op in ops:
+        if op.type != PIPELINE_GRAD_OP:
+            continue
+        pp = plan_pipeline(program, op)
+        P = mesh_lib.axis_size(compiled.mesh, pp.axis_name)
+        if pp.axis_name not in mesh_lib.axis_names(compiled.mesh):
+            continue
+        S = len(pp.stage_ops)
+        if P != S:
+            raise ValueError(
+                f"pipeline has {S} stages but mesh axis '{pp.axis_name}' "
+                f"has size {P}; they must match (one stage per pipeline "
+                f"rank)")
+        d = mesh_lib.axis_rank(compiled.mesh, pp.axis_name)
+        for s, plist in enumerate(pp.plists):
+            if s != d:
+                remote.update(plist)
+    if not remote:
+        return frozenset()
+    block = program.global_block()
+    for op in ops:
+        if op.inputs.get("Param", [None])[0] in remote:
+            for n in [*op.input_names(), *op.output_names()]:
+                var = block._find_var_recursive(n)
+                if var is not None and getattr(var, "is_optimizer_state",
+                                               False):
+                    remote.add(n)
+    remote.update(n + "@GRAD" for n in list(remote))
+    return frozenset(remote)
+
+
+def _run_pipeline_grad(program, op, env, seed, device, is_test):
+    """Pipelined forward + backward (parity: the JAX lowering's
+    ``_run_pipeline_grad``, PipelineOptimizer fluid/optimizer.py:3374).
+    The preamble runs once on the whole batch, the stages under
+    ``parallel.pipeline.gpipe`` (homogeneous stages share stage 0's ops
+    as their template; heterogeneous ones run their own), the head once
+    per microbatch; the loss is the unweighted mean of the microbatch
+    losses and the op returns its gradients.  A parameter another
+    pipeline rank holds gets no gradient here (``UNBOUND``)."""
+    import warnings
+
+    from ..parallel import mesh as mesh_lib
+    from ..parallel.pipeline import gpipe, gpipe_het, split_microbatches
+
+    pp = plan_pipeline(program, op)
+    attrs = op.attrs
+    cut_vars, M = pp.cut_vars, pp.num_microbatches
+    param_set = set(pp.param_names)
+    mx = spmd.active()
+    mesh = mx.mesh if mx is not None else None
+    piped = mesh is not None and pp.axis_name in mesh_lib.axis_names(mesh)
+    d = mesh_lib.axis_rank(mesh, pp.axis_name) if piped else 0
+    leaves = {n: _leaf(env[n]) for n in pp.param_names if n in env}
+    base_env = {k: v for k, v in env.items()
+                if k not in pp.produced_in_sub and k not in param_set}
+    S = len(pp.stage_ops)
+    block = program.global_block()
+    with torch.enable_grad():
+        env2 = dict(base_env)
+        env2.update(leaves)
+        _interp_ops(program, pp.pre_ops, env2, seed, {}, frozenset(),
+                    device, None, is_test)
+        b0 = env2[cut_vars[0]]
+        B = b0.shape[0]
+        bcast_names = set(attrs.get("broadcast_inputs") or ())
+        try:
+            cut0_shape = block.var(cut_vars[0]).shape
+        except (KeyError, ValueError, AttributeError):
+            cut0_shape = None
+        symbolic_batch = bool(cut0_shape) and cut0_shape[0] in (-1, None)
+        if not symbolic_batch:
+            warnings.warn(
+                "pipeline program has a static (literal) batch dim, so "
+                "the split/broadcast decision for side inputs falls "
+                "back to the leading-dim==batch heuristic; declare "
+                "feeds with batch None (pt.data default) for derived "
+                "provenance, or list shared tensors in "
+                "PipelineOptimizer(broadcast_inputs=[...])",
+                stacklevel=2)
+
+        def leading_is_batch(name):
+            if not symbolic_batch:
+                return True
+            try:
+                var = block.var(name)
+            except (KeyError, ValueError, AttributeError):
+                return True
+            if getattr(var, "is_data", False):
+                return True
+            shp = var.shape
+            return bool(shp) and len(shp) >= 1 and shp[0] in (-1, None)
+
+        def per_batch(n, v):
+            return (n not in bcast_names and torch.is_tensor(v)
+                    and v.dim() >= 1 and v.shape[0] == B
+                    and leading_is_batch(n))
+
+        x_mb = split_microbatches(b0, M)
+        s_consts_mb = {n: split_microbatches(env2[n], M)
+                       for n in pp.t_ext if per_batch(n, env2[n])}
+        s_consts = {n: env2[n] for n in pp.t_ext
+                    if not per_batch(n, env2[n])}
+        if pp.homogeneous:
+            t_params = pp.plists[0]
+            template = pp.stage_ops[0]
+            if piped:
+                stacked = [leaves[pp.plists[d][k]][None]
+                           for k in range(len(t_params))]
+            else:
+                stacked = [torch.stack([leaves[pp.plists[s][k]]
+                                        for s in range(S)])
+                           for k in range(len(t_params))]
+
+            def stage_fn(params, act, consts_one, stage_idx, mb_idx):
+                senv = dict(consts_one)
+                senv[cut_vars[0]] = act
+                senv.update(zip(t_params, params))
+                srng = fold_seed(fold_seed(seed, 7919 + stage_idx), mb_idx)
+                _interp_ops(program, template, senv, srng, {}, frozenset(),
+                            device, None, is_test)
+                return senv[cut_vars[1]]
+
+            out_mb = gpipe(stage_fn, stacked, x_mb, consts_mb=s_consts_mb,
+                           consts=s_consts, mesh=mesh if piped else None,
+                           axis_name=pp.axis_name)
+        else:
+            def make_stage(s):
+                def fn(act, consts_one, mb_idx):
+                    senv = dict(consts_one)
+                    senv[cut_vars[s]] = act
+                    srng = fold_seed(fold_seed(seed, 7919 + s), mb_idx)
+                    _interp_ops(program, pp.stage_ops[s], senv, srng, {},
+                                frozenset(), device, None, is_test)
+                    return senv[cut_vars[s + 1]]
+                return fn
+
+            stage_params = [{n: leaves[n] for n in plist if n in leaves}
+                            for plist in pp.plists]
+            try:
+                out_mb = gpipe_het(
+                    [make_stage(s) for s in range(S)], x_mb,
+                    consts_mb=s_consts_mb, consts=s_consts,
+                    mesh=mesh if piped else None, axis_name=pp.axis_name,
+                    stage_params=stage_params)
+            except RuntimeError as e:
+                if "size" not in str(e) and "shape" not in str(e):
+                    raise
+                raise ValueError(
+                    f"heterogeneous pipeline stages must produce cut "
+                    f"activations of ONE shared shape/dtype (they ride "
+                    f"the same stage-to-stage transfers) — cut at points "
+                    f"after any regime change (e.g. after the "
+                    f"conv→sequence reshape): {e}") from e
+        p_consts_mb = {n: split_microbatches(env2[n], M)
+                       for n in pp.post_ext if per_batch(n, env2[n])}
+        p_consts = {n: env2[n] for n in pp.post_ext
+                    if not per_batch(n, env2[n])}
+        losses = []
+        for m in range(M):
+            penv = dict(p_consts)
+            penv.update(leaves)
+            penv.update({n: v[m] for n, v in p_consts_mb.items()})
+            penv[cut_vars[-1]] = out_mb[m]
+            _interp_ops(program, pp.post_ops, penv,
+                        fold_seed(seed, 104729 + m), {}, frozenset(),
+                        device, None, is_test)
+            losses.append(penv[pp.loss_name].reshape(()))
+        loss = torch.stack(losses).mean()
+    names = [n for n in pp.param_names if n in leaves]
+    grads = dict(zip(names, torch.autograd.grad(
+        [loss], [leaves[n] for n in names], allow_unused=True)))
+    return {"Loss": [loss.detach()],
+            "Grad": [UNBOUND if n not in leaves else
+                     (torch.zeros_like(leaves[n]) if grads[n] is None
+                      else grads[n]) for n in pp.param_names]}

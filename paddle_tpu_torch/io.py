@@ -50,12 +50,15 @@ def _host(val):
 def _collect(program, scope, predicate, host=_host):
     """{name: host(value)} of the program's variables that ``predicate``
     keeps and the scope holds."""
+    from .core.spmd import whole_value
+
     out = {}
     for var in program.list_vars():
         if predicate(var) and scope.has_var(var.name):
             val = scope.find_var(var.name)
             if val is not None:
-                out[var.name] = host(val)
+                # a mesh's shard is gathered whole (every rank saves)
+                out[var.name] = host(whole_value(scope, var.name, val))
     return out
 
 

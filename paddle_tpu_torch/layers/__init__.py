@@ -9,7 +9,7 @@ from .nn import *  # noqa: F401,F403
 from .nn import _BINARY_OPS, _UNARY_OPS  # noqa: F401
 from .nn import (  # noqa: F401
     accuracy, auc, cross_entropy, dropout, embedding, fc,
-    fused_multihead_attention, huber_loss, layer_norm,
+    fused_multihead_attention, huber_loss, layer_norm, moe,
     sigmoid_cross_entropy_with_logits, softmax_with_cross_entropy,
     square_error_cost,
 )

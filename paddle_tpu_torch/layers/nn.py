@@ -8,7 +8,8 @@ Each layer creates parameters through LayerHelper and appends ops
 (parity: python/paddle/fluid/layers/nn.py + fluid/layer_helper.py).
 Ported: the layers the BERT builders, a small fc program and the 4-D
 attention program (``square_error_cost``) emit, the loss and metric
-layers, and every generated unary and binary layer of the JAX file.
+layers, ``moe``, and every generated unary and binary layer of the
+JAX file.
 Conv, pool and the norms other than layer_norm wait (ROADMAP.md Queue 1
 item 6).
 """
@@ -221,6 +222,67 @@ def square_error_cost(input, label, name=None):
         attrs={},
     )
     return out
+
+
+def moe(input, num_experts, hidden_size, top_k=2, capacity_factor=2.0,
+        act="gelu", param_attr=None, name=None):
+    """Mixture-of-Experts FFN layer over stacked expert weights (see
+    ops/moe.py; beyond-reference — SURVEY.md §7 expert axis).
+
+    Returns (out, aux_loss).  Add ``aux_loss`` (scaled) to the training
+    loss to balance expert load.  For expert parallelism, shard the
+    stacked parameters over the ``expert`` mesh axis with
+    ``parallel.moe_sharding_rules()``."""
+    from ..core import unique_name
+    from ..initializer import NormalInitializer
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("moe", name=name)
+    x = helper.input(input)
+    d = x.shape[-1]
+    e, h = int(num_experts), int(hidden_size)
+    if int(top_k) > e:
+        raise ValueError(
+            f"moe top_k={top_k} cannot exceed num_experts={e}")
+    base = ParamAttr._to_attr(param_attr)
+
+    def _named(suffix, is_bias=False):
+        # ".expert_" in the name marks expert-stacked params so
+        # parallel.moe_sharding_rules() can shard dim 0 over the
+        # ``expert`` mesh axis; regularizer/trainable/lr propagate from
+        # the user's param_attr (initializer applies to weights only)
+        return ParamAttr(
+            name=unique_name.generate(f"{helper.name}.expert_{suffix}"),
+            initializer=(base.initializer
+                         if base is not None and not is_bias else None),
+            regularizer=base.regularizer if base is not None else None,
+            trainable=base.trainable if base is not None else True,
+            learning_rate=base.learning_rate if base is not None else 1.0)
+
+    gate_w = helper.create_parameter(
+        param_attr, [d, e], x.dtype,
+        default_initializer=NormalInitializer(0.0, 0.02))
+    w1 = helper.create_parameter(_named("w1"), [e, d, h], x.dtype,
+                                 default_initializer=XavierInitializer())
+    b1 = helper.create_parameter(_named("b1", is_bias=True), [e, h],
+                                 x.dtype, is_bias=True)
+    w2 = helper.create_parameter(_named("w2"), [e, h, d], x.dtype,
+                                 default_initializer=XavierInitializer())
+    b2 = helper.create_parameter(_named("b2", is_bias=True), [e, d],
+                                 x.dtype, is_bias=True)
+    out_var = helper.create_variable_for_type_inference(x.dtype)
+    # aux must be differentiable: its gradient is what trains the gate
+    # toward balanced expert load
+    aux = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [x.name], "GateW": [gate_w.name], "W1": [w1.name],
+                "B1": [b1.name], "W2": [w2.name], "B2": [b2.name]},
+        outputs={"Out": [out_var.name], "AuxLoss": [aux.name]},
+        attrs={"top_k": top_k, "capacity_factor": capacity_factor,
+               "act": act},
+    )
+    return out_var, aux
 
 
 def fused_multihead_attention(q, k, v, attn_bias=None, dropout_rate=0.0,

@@ -39,7 +39,8 @@ __all__ = ["BertConfig", "encoder_layer", "bert_encoder",
            "build_lm_logits", "build_lm_greedy_infer",
            "LM_PARAM_SUFFIXES", "lm_param_names", "lm_params_from_scope",
            "lm_random_params", "lm_params_from_numpy", "lm_embed",
-           "lm_layer_qkv", "lm_layer_finish", "lm_logits", "lm_forward"]
+           "lm_layer_qkv", "lm_layer_finish", "lm_logits", "lm_forward",
+           "tp_sharding_rules"]
 
 
 @dataclasses.dataclass
@@ -241,7 +242,8 @@ def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
                         num_pipeline_stages=None, max_masked=None,
                         want_boundaries=False):
     """Declares feeds and builds the full pretrain graph.  Returns
-    (loss, feeds dict).
+    (loss, feeds dict); with num_pipeline_stages also returns the cut
+    list (S+1 boundary Variables) for optimizer.PipelineOptimizer.
 
     max_masked: if set, use the masked-position head — feeds gain
     "mask_pos" ([B·max_masked] flat indices = pos + b·seq_len) and
@@ -249,18 +251,12 @@ def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
     dense full-sequence head (labels [B, L, 1], -1 = unmasked).
 
     want_boundaries: also return the embedding and per-layer output
-    Variables (RecomputeOptimizer's checkpoints).  Pipeline cuts
-    (``num_pipeline_stages``) are not ported."""
+    Variables (e.g. as RecomputeOptimizer checkpoints)."""
     from ..core.program import data
 
-    if num_pipeline_stages:
-        raise NotImplementedError(
-            "pipeline cuts (num_pipeline_stages) are not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md, Queue 1 item 5: meshes in "
-            "the Executor)")
     src_ids = data("src_ids", [None, seq_len], "int64")
     input_mask = data("input_mask", [None, seq_len], "float32")
-    boundaries = [] if want_boundaries else None
+    boundaries = [] if (num_pipeline_stages or want_boundaries) else None
     seq_out = bert_encoder(src_ids, input_mask, cfg, is_test=is_test,
                            boundaries=boundaries)
     if max_masked is not None:
@@ -275,9 +271,34 @@ def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
         loss = bert_pretrain_loss(seq_out, masked_labels, cfg)
         feeds = {"src_ids": src_ids, "input_mask": input_mask,
                  "masked_labels": masked_labels}
-    if want_boundaries:
-        return loss, feeds, boundaries
-    return loss, feeds
+    if not num_pipeline_stages:
+        if want_boundaries:
+            return loss, feeds, boundaries
+        return loss, feeds
+    S = num_pipeline_stages
+    if cfg.num_layers % S:
+        raise ValueError(f"{cfg.num_layers} layers not divisible into "
+                         f"{S} pipeline stages")
+    k = cfg.num_layers // S
+    cut_list = [boundaries[i] for i in range(0, cfg.num_layers + 1, k)]
+    return loss, feeds, cut_list
+
+
+def tp_sharding_rules():
+    """Megatron-style tensor-parallel placement over the `model` axis
+    (the JAX package's rules).  The port stores each rank's shard and
+    gathers the whole weight before the forward (core/spmd.py); the
+    compute stays whole on every model rank."""
+    return [
+        (r"\.attn\.qkv\.w$", (None, "model")),
+        (r"\.attn\.qkv\.b$", ("model",)),
+        (r"\.attn\.out\.w$", ("model", None)),
+        (r"\.ffn\.in\.w$", (None, "model")),
+        (r"\.ffn\.in\.b$", ("model",)),
+        (r"\.ffn\.out\.w$", ("model", None)),
+        (r"embeddings\.word$", ("model", None)),
+        (r"mlm\.out\.w$", (None, "model")),
+    ]
 
 
 # --------------------------------------------------------------------------

@@ -733,16 +733,131 @@ class RecomputeOptimizer(Optimizer):
         return opt_ops, params_grads
 
 
-class PipelineOptimizer:
-    """Pipeline-parallel training (parity: the JAX package's
-    PipelineOptimizer, fluid/optimizer.py:3374) needs a device mesh with a
-    ``pipe`` axis, which the port's Executor does not have yet."""
+class PipelineOptimizer(Optimizer):
+    """Pipeline-parallel training (parity: fluid/optimizer.py:3374
+    PipelineOptimizer and the JAX package's; executed by
+    pipeline_trainer.cc + section_worker.cc in the reference).
+
+    Usage::
+
+        opt = optimizer.PipelineOptimizer(
+            optimizer.Adam(1e-4),
+            cut_list=[emb_out, layer2_out, layer4_out],  # S+1 boundaries
+            num_microbatches=4)
+        opt.minimize(loss)
+
+    ``cut_list`` gives S+1 boundary variables: everything before the first
+    is the preamble (embedding), the S segments between consecutive cuts
+    are the pipeline stages, and everything after the last is the head
+    (loss).  Run the program through a CompiledProgram whose mesh has a
+    ``pipe`` axis of size S to pipeline over ranks (GPipe, one stage per
+    rank — parallel/pipeline.py); without one the stages run in sequence
+    with the same numerics.  Each stage runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward).
+
+    Semantics (microbatching contract, as in the JAX package):
+      * The reported/optimized loss is the UNWEIGHTED MEAN of the
+        per-microbatch losses.  This equals the full-batch loss when the
+        head's normalization is microbatch-invariant (mean-reduced losses,
+        or count-normalized losses with equal counts per microbatch).  A
+        head that normalizes by a data-dependent count (e.g. MLM valid
+        tokens) differs slightly from the unpipelined program when counts
+        vary across microbatches.
+      * Side inputs consumed by stages/head are split into microbatches
+        when their leading dim is the batch, else broadcast; a shared
+        tensor whose leading dim coincidentally equals the batch size
+        must be named in ``broadcast_inputs``.
+      * After minimize, only the loss (plus top-level and persistable
+        vars) can be fetched: intermediate activations live inside the
+        microbatched schedule.
+    """
 
     def __init__(self, optimizer, cut_list=None, num_microbatches=2,
                  axis_name="pipe", broadcast_inputs=None):
-        raise NotImplementedError(
-            "PipelineOptimizer is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 5: meshes in the Executor)")
+        self._inner = optimizer
+        self._cut_list = list(cut_list or [])
+        self._num_microbatches = int(num_microbatches)
+        self._axis_name = axis_name
+        self._broadcast_inputs = [
+            v.name if isinstance(v, Variable) else str(v)
+            for v in (broadcast_inputs or [])]
+        self.type = "pipeline"
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .core.program import GRAD_SUFFIX
+
+        program = loss.block.program
+        block = program.global_block()
+        no_grad = {v.name if isinstance(v, Variable) else str(v)
+                   for v in (no_grad_set or ())}
+        if parameter_list is not None:
+            wanted = {p.name if isinstance(p, Variable) else p
+                      for p in parameter_list}
+            params = [p for p in block.all_parameters()
+                      if p.trainable and p.name in wanted]
+        else:
+            params = [p for p in block.all_parameters() if p.trainable]
+        params = [p for p in params if p.name not in no_grad]
+        param_names = [p.name for p in params]
+        cuts = [c.name if isinstance(c, Variable) else str(c)
+                for c in self._cut_list]
+        if len(cuts) < 2:
+            raise ValueError(
+                "PipelineOptimizer needs a cut_list of at least 2 boundary "
+                "variables (S+1 boundaries for S stages)")
+
+        # move the whole forward into a sub-block; the main block keeps one
+        # pipeline_grad op that owns it (mirrors the reference's per-section
+        # sub-programs, optimizer.py:3374 _split_program)
+        sub = program.create_block(parent_idx=0)
+        program.rollback()
+        sub.ops = block.ops
+        block.ops = []
+        for op in sub.ops:
+            op.block = sub
+
+        produced = set()
+        externals = []
+        param_name_set = set(param_names)
+        seen_ext = set()
+        for op in sub.ops:
+            for n in op.input_names():
+                if (n not in produced and n not in param_name_set
+                        and n not in seen_ext):
+                    seen_ext.add(n)
+                    externals.append(n)
+            produced.update(op.output_names())
+
+        grad_vars = []
+        for p in params:
+            g = block.create_var(
+                name=p.name + GRAD_SUFFIX, shape=p.shape, dtype=p.dtype,
+                stop_gradient=True)
+            grad_vars.append(g)
+        block.append_op(
+            type="pipeline_grad",
+            inputs={"Params": param_names, "X": externals},
+            outputs={"Loss": [loss.name],
+                     "Grad": [g.name for g in grad_vars]},
+            attrs={"sub_block": sub.idx,
+                   "cut_vars": cuts,
+                   "num_microbatches": self._num_microbatches,
+                   "axis_name": self._axis_name,
+                   "broadcast_inputs": self._broadcast_inputs},
+            infer_shape=False,
+        )
+        return list(zip(params, grad_vars))
+
+    def apply_gradients(self, params_grads):
+        return self._inner.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        opt_ops = self._inner.apply_gradients(params_grads)
+        return opt_ops, params_grads
 
 
 class _DeferredBlock:

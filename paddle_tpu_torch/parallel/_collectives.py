@@ -11,13 +11,27 @@
 
 A group of one rank (or ``None``: no process group) makes both the
 identity, with nothing sent.
+
+The Program lowering's collectives under a mesh (core/spmd.py,
+core/lowering.py, parallel/pipeline.py, ops/moe.py), each over the group
+of one named mesh axis (``DeviceMesh.get_group(axis)``):
+
+* ``forward_sum`` — the sum over the group whose backward passes the
+  cotangent through unscaled (``backward_sum`` is its dual);
+* ``all_gather`` — concatenation along a dim whose backward keeps the
+  rank's slice (``gather_along`` without autograd);
+* ``sum_gradients`` — the bucketed sum of parameter gradients;
+* ``exchange`` — point-to-point sends and receives (the pipeline's
+  stage-to-stage transfers), ``broadcast_from`` one rank's tensor.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["group_rank_size", "shift", "ring_shift", "all_to_all"]
+__all__ = ["group_rank_size", "shift", "ring_shift", "all_to_all",
+           "forward_sum", "backward_sum", "all_gather", "gather_along",
+           "sum_gradients", "broadcast_from", "exchange"]
 
 
 def group_rank_size(group):
@@ -106,3 +120,157 @@ def all_to_all(x, group, split_axis, concat_axis):
     if size == 1:
         return x
     return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+# -- the collectives of the Program lowering under a mesh ---------------------
+# (data parallelism, ZeRO-1, sharded parameters, pipeline stages, MoE).
+# Unlike the ring's, these run whenever the axis has a process group, a
+# one-rank group included (the data-parallel step on one card still goes
+# through its all-reduce); ``None`` (no process group) is the identity.
+
+class _ForwardSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def forward_sum(x, group):
+    """The sum of ``x`` over ``group``'s ranks; the backward passes the
+    cotangent through unscaled.  Every rank computes the same value from
+    the sum (a global loss), so each rank's cotangent is already the
+    whole one: summing it again (``torch.distributed.nn``'s all_reduce,
+    or ``psum``'s transpose under ``shard_map``) would scale the gradient
+    by the group's size."""
+    if group is None:
+        return x
+    return _ForwardSum.apply(x, group)
+
+
+class _BackwardSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def backward_sum(x, group):
+    """``x`` itself; the backward sums the cotangent over ``group`` (the
+    dual of :func:`forward_sum`: a value every rank holds whole, each
+    rank using it for its own part of the work, as the expert ranks use
+    the tokens and the gates)."""
+    if group is None:
+        return x
+    return _BackwardSum.apply(x, group)
+
+
+def gather_along(x, group, dim=0):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (not
+    differentiable)."""
+    if group is None:
+        return x
+    size = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts).movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim, x.shape[dim])
+        return gather_along(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, n = ctx.args
+        rank = dist.get_rank(group)
+        return g.narrow(dim, rank * n, n), None, None
+
+
+def all_gather(x, group, dim=0):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order; the
+    backward keeps the rank's own slice of the cotangent (each rank
+    computes the same function of the gathered value, so its cotangent
+    of its own slice is whole)."""
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, dim)
+
+
+#: bytes of one bucket of the gradient sum
+BUCKET_BYTES = 64 << 20
+
+
+def sum_gradients(tensors, group, bucket_bytes=BUCKET_BYTES):
+    """Each tensor summed over ``group``, in buckets: tensors of one dtype
+    are copied into flat buffers of up to ``bucket_bytes``, each buffer
+    all-reduced once, and the sums copied out (the reference's
+    fuse_all_reduce_op_pass).  Returns new tensors in the input order;
+    the inputs are not changed."""
+    tensors = list(tensors)
+    if group is None or not tensors:
+        return tensors
+    out = [None] * len(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault((t.dtype, t.device), []).append(i)
+    for idx in by_dtype.values():
+        bucket, nbytes = [], 0
+        for k, i in enumerate(idx):
+            t = tensors[i]
+            bucket.append(i)
+            nbytes += t.numel() * t.element_size()
+            if nbytes >= bucket_bytes or k == len(idx) - 1:
+                flat = torch.cat([tensors[j].reshape(-1) for j in bucket])
+                dist.all_reduce(flat, group=group)
+                off = 0
+                for j in bucket:
+                    n = tensors[j].numel()
+                    out[j] = flat[off:off + n].view_as(tensors[j])
+                    off += n
+                bucket, nbytes = [], 0
+    return out
+
+
+def broadcast_from(x, group, src):
+    """``x`` of group rank ``src`` on every rank of ``group`` (a new
+    tensor; ``x`` gives the shape and dtype elsewhere)."""
+    if group is None:
+        return x
+    x = x.contiguous().clone()
+    dist.broadcast(x, dist.get_global_rank(group, src), group=group)
+    return x
+
+
+def exchange(sends, recvs, group):
+    """Point-to-point transfers over ``group`` in one batch: ``sends`` is
+    [(tensor, group rank)], ``recvs`` [(like tensor, group rank)] (a
+    buffer shaped like the tensor is received).  Returns the received
+    tensors in order.  Both ends of a transfer must post it in the same
+    call, as the pipeline's ticks do."""
+    ops, got = [], []
+    for t, dst in sends:
+        ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                              dist.get_global_rank(group, dst), group))
+    for like, src in recvs:
+        buf = torch.empty_like(like)
+        got.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf,
+                              dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return got

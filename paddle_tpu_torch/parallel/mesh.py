@@ -13,12 +13,22 @@ Axis conventions (used across parallel/ and models/):
 
 The caller starts the process group (``init_process_group`` with its
 address, world size and rank): nothing here reads a cluster from the
-environment.
+environment.  Without a process group, ``LocalMesh`` is the one-rank
+mesh of this process (no group, no collective: the JAX package's
+one-device mesh).
+
+``Sharding`` is the placement descriptor the Executor reads (the JAX
+package's ``NamedSharding``): a mesh and a spec, one entry per leading
+dim — ``None`` (whole), an axis name, or a tuple of axis names (major
+first) whose ranks split that dim in row-major order.  ``replicated``
+and ``batch_sharding`` make the two common ones.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
@@ -79,3 +89,129 @@ def single_device_mesh(device_type=None):
     """A one-process {data: 1} mesh (the default group must hold one
     process)."""
     return build_mesh({DATA_AXIS: 1}, device_type=device_type)
+
+
+class LocalMesh:
+    """A mesh of this process alone: every axis has size 1 and no group
+    (``get_group`` is ``None``, which the collectives take as the
+    identity).  What ``CompiledProgram.with_data_parallel()`` runs on
+    when no process group is initialized."""
+
+    def __init__(self, axes=None, device_type=None):
+        axes = dict(axes or {DATA_AXIS: 1})
+        if any(v not in (1, -1) for v in axes.values()):
+            raise ValueError(f"a mesh {axes} over more than one process "
+                             f"needs an initialized process group")
+        self.mesh_dim_names = tuple(axes)
+        self.mesh = torch.zeros([1] * len(axes), dtype=torch.int64)
+        self.device_type = resolve_device(device_type).type
+
+    def get_group(self, mesh_dim=None):
+        return None
+
+    def get_local_rank(self, mesh_dim=None):
+        return 0
+
+    def __repr__(self):
+        return f"LocalMesh({dict.fromkeys(self.mesh_dim_names, 1)})"
+
+
+def axis_names(mesh):
+    return tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+
+
+def axis_size(mesh, axis):
+    """Size of ``axis`` on ``mesh`` (1 for a mesh without it, or None)."""
+    names = axis_names(mesh)
+    if axis not in names:
+        return 1
+    return int(mesh.mesh.shape[names.index(axis)])
+
+
+def axis_rank(mesh, axis):
+    """This process's coordinate on ``axis`` (0 without it)."""
+    if axis not in axis_names(mesh):
+        return 0
+    return int(mesh.get_local_rank(axis))
+
+
+def axis_group(mesh, axis):
+    """The process group of ``axis`` (None: no such axis, or no group)."""
+    if axis not in axis_names(mesh):
+        return None
+    return mesh.get_group(axis)
+
+
+def _axes_of(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A placement: ``spec[i]`` names the mesh axes that split dim ``i``
+    (the dims past the spec are whole)."""
+
+    mesh: object
+    spec: tuple = ()
+
+    @property
+    def is_replicated(self):
+        return all(not _axes_of(e) for e in self.spec)
+
+    def parts(self, dim):
+        return math.prod(axis_size(self.mesh, a)
+                         for a in _axes_of(self.spec[dim])) \
+            if dim < len(self.spec) else 1
+
+    def index(self, dim):
+        """This rank's shard index along ``dim`` (row-major over the
+        entry's axes)."""
+        idx = 0
+        for a in _axes_of(self.spec[dim]) if dim < len(self.spec) else ():
+            idx = idx * axis_size(self.mesh, a) + axis_rank(self.mesh, a)
+        return idx
+
+    def shard_shape(self, shape):
+        shape = list(shape)
+        for d in range(min(len(self.spec), len(shape))):
+            k = self.parts(d)
+            if shape[d] % k:
+                raise ValueError(
+                    f"dim {d} of {tuple(shape)} does not split into {k} "
+                    f"shards over {_axes_of(self.spec[d])}")
+            shape[d] //= k
+        return tuple(shape)
+
+    def local(self, x):
+        """This rank's shard of the full tensor ``x``."""
+        self.shard_shape(x.shape)
+        for d in range(min(len(self.spec), x.dim())):
+            k = self.parts(d)
+            if k > 1:
+                n = x.shape[d] // k
+                x = x.narrow(d, self.index(d) * n, n)
+        return x
+
+    def gather(self, x):
+        """The full tensor from this rank's shard ``x`` (an all-gather
+        over each splitting axis, innermost first; no autograd)."""
+        from ._collectives import gather_along
+
+        for d in range(min(len(self.spec), x.dim())):
+            for a in reversed(_axes_of(self.spec[d])):
+                if axis_size(self.mesh, a) > 1:
+                    x = gather_along(x, axis_group(self.mesh, a), d)
+        return x
+
+
+def replicated(mesh):
+    """Every rank holds the whole value."""
+    return Sharding(mesh, ())
+
+
+def batch_sharding(mesh, axis=DATA_AXIS):
+    """Dim 0 (the batch) split over ``axis`` (an axis name or a tuple of
+    them); the other dims whole."""
+    return Sharding(mesh, (axis,))

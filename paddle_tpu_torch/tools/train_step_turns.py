@@ -13,6 +13,13 @@ on one card.  After chip_smoke's warm-up steps, each turn runs
 ``--steps`` steps and synchronises; the last line printed is one JSON
 object with each turn's ms/step, the program's op count and the card.
 Exits non-zero without a CUDA card.
+
+``--data-parallel`` times, in one checkout, the same step through
+``CompiledProgram(main).with_data_parallel()`` over a one-rank NCCL
+group (a file store in a temporary directory) against the plain step,
+both from the same weights at dropout 0, in turns (plain, data
+parallel, data parallel, plain, ...): ``plain_ms_per_step`` and
+``dp_ms_per_step`` in the JSON.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--turns", type=int, default=3)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--data-parallel", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -42,6 +50,8 @@ def main(argv=None):
     pt.set_strict_fp32()
     device = torch.device("cuda")
     cfg = BertConfig.base()
+    if args.data_parallel:
+        return _data_parallel_turns(cs, pt, cfg, device, args)
     main_prog, startup, loss, _, _ = cs.build_train(cfg)
     exe = pt.Executor(pt.CUDAPlace(0))
     scope = pt.Scope()
@@ -60,6 +70,47 @@ def main(argv=None):
         turns.append((time.perf_counter() - t0) / args.steps * 1e3)
     print(json.dumps({"ms_per_step": turns,
                       "ops": len(main_prog.global_block().ops),
+                      "card": cs.card_line(), "checkout": str(Path.cwd())}))
+    return 0
+
+
+def _data_parallel_turns(cs, pt, cfg, device, args):
+    import tempfile
+
+    import torch.distributed as dist
+
+    cfg = cs._zero_dropout(cfg)
+    main_prog, startup, loss, _, _ = cs.build_train(cfg)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scopes = {"plain": pt.Scope(), "dp": pt.Scope()}
+    exe.run(startup, scope=scopes["plain"])
+    cs._load(scopes["dp"], cs._snapshot(scopes["plain"], main_prog),
+             main_prog)
+    feed = cs.train_batch(cfg.vocab_size, device)
+    turns = {"plain": [], "dp": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            targets = {"plain": main_prog, "dp": pt.CompiledProgram(
+                main_prog).with_data_parallel(places=[exe.place])}
+            for name in ("plain", "dp"):
+                for _ in range(cs.TRAIN_WARMUP):
+                    exe.run(targets[name], feed=feed, fetch_list=[loss],
+                            scope=scopes[name])
+            order = ["plain", "dp", "dp", "plain"] * ((args.turns + 1) // 2)
+            for name in order:
+                t0 = time.perf_counter()
+                for _ in range(args.steps):
+                    exe.run(targets[name], feed=feed, fetch_list=[loss],
+                            scope=scopes[name], return_numpy=False)
+                cs.sync(device)
+                turns[name].append((time.perf_counter() - t0)
+                                   / args.steps * 1e3)
+        finally:
+            dist.destroy_process_group()
+    print(json.dumps({"plain_ms_per_step": turns["plain"],
+                      "dp_ms_per_step": turns["dp"],
                       "card": cs.card_line(), "checkout": str(Path.cwd())}))
     return 0
 

@@ -417,14 +417,30 @@ def test_executor_knobs_select_the_plan():
 
 
 def test_compiled_program_has_no_mesh_yet():
+    """A CompiledProgram has no mesh until ``with_data_parallel`` (without
+    a process group: the one-rank {data: 1} mesh of this process) or
+    ``with_sharding`` gives it one; the mesh methods then report the
+    JAX package's answers."""
+    from paddle_tpu_torch.parallel import LocalMesh
+
     main, _, _, _ = _build(pt, "classifier")
     cp = pt.CompiledProgram(main)
     assert cp.build_strategy.fuse_epilogues is True
     assert cp.build_strategy.fuse_block_epilogues is True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cp.with_data_parallel()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cp.with_sharding(None)
+    assert not cp.has_mesh and cp.data_parallel_degree == 1
+    assert cp.with_data_parallel(places=[pt.CPUPlace()]) is cp
+    assert isinstance(cp.mesh, LocalMesh) and cp.has_mesh
+    assert not cp.is_multiprocess and not cp.reduce_mode
+    assert cp.feed_sharding("x", 2).spec == ("data",)
+    assert cp.feed_sharding("lr", 0).is_replicated
+    sharded = pt.CompiledProgram(main).with_sharding(
+        LocalMesh({"data": 1, "model": 1}, device_type="cpu"),
+        param_rules=[(r"fc_0\.w_0$", (None, "model"))])
+    assert sharded.param_sharding("fc_0.w_0", ndim=2).spec == (None, "model")
+    assert sharded.param_sharding("fc_0.b_0", ndim=1).is_replicated
+    assert sharded.fingerprint() != cp.fingerprint()
+    assert pt.CompiledProgram._zero1_spec((None, "model"), (16, 32), 2) == \
+        ("data", "model")
     with pytest.raises(ValueError, match="already compiled"):
         pt.CompiledProgram(cp)
 

@@ -500,13 +500,28 @@ def test_dgc_error_feedback_conserves_gradient_mass():
 # -- the names the JAX package exports ---------------------------------------
 
 def test_short_aliases_and_pipeline_refusal():
+    """The short aliases exist in both packages, and PipelineOptimizer and
+    ``num_pipeline_stages`` build in both: the same cut list and the same
+    program desc (one pipeline_grad op over the forward's sub-block)."""
     for name in ("DGCMomentum", "Recompute", "GradientMerge", "EMA",
                  "Lookahead", "Pipeline"):
         assert hasattr(pt.optimizer, name) and hasattr(jpt.optimizer, name)
     assert pt.optimizer.EMA is pt.optimizer.ExponentialMovingAverage
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pt.optimizer.PipelineOptimizer(pt.optimizer.SGD(0.1))
-    with pt.new_program_scope():
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build_bert_pretrain(BertConfig.tiny(), 32,
-                                num_pipeline_stages=2)
+    from paddle_tpu.models import BertConfig as JaxBertConfig
+    from paddle_tpu.models import build_bert_pretrain as jax_build
+
+    built = {}
+    for pkg, cfg, build in ((pt, BertConfig.tiny(), build_bert_pretrain),
+                            (jpt, JaxBertConfig.tiny(), jax_build)):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            loss, _, cuts = build(cfg, 32, num_pipeline_stages=2)
+            pkg.optimizer.PipelineOptimizer(
+                pkg.optimizer.SGD(0.1), cut_list=cuts,
+                num_microbatches=2).minimize(loss)
+        built[pkg] = ([c.name for c in cuts],
+                      [[op.type for op in b.ops] for b in main.blocks],
+                      main.global_block().ops[0].attrs["cut_vars"])
+    assert built[pt] == built[jpt]
+    assert len(built[pt][0]) == 3
+    assert built[pt][1][0][0] == "pipeline_grad"
