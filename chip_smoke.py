@@ -272,6 +272,47 @@ Phases (any failure exits non-zero and prints no result):
    e. the loss and metric ops (cross_entropy, sigmoid cross entropy,
       smooth L1, Huber, accuracy, AUC) on the card against the CPU over
       their tests' inputs, outputs and gradients within 1e-5.
+16. the parameter-server tier (phases 14 and 15 are described at their
+   functions; their lines come before the kernels line too):
+   a. build_bert_pretrain(BertConfig.base(), 128) at dropout 0 through
+      the PS fleet (sync, server sgd, SGD(0.01), dense blocks of 64: 150
+      tables of 2,068,149 blocks) with one pserver process on the host,
+      each trainer a process of its own on the card (chip_smoke.py
+      --child bert_ps) that only loads the kernels built here: one
+      trainer, 3 steps on the 32 x 128 batch — losses within 1e-5
+      relative of plain SGD steps of the same program on the card from
+      the same weights, the PS's parameters after the last step within
+      1e-5 relative norm of theirs; two trainers of 16 rows each, 3
+      steps — the parameters both pull after the last barrier bit-equal
+      (a digest), within 1e-5 relative norm of θ − lr·(g₀ + g₁) from each
+      half at the same θ; the step split into pull, step and push ms,
+      the bytes each way, the server's RSS; each trainer's launches of
+      the qkv-folded forward, the fused matmul, the FFN chain and the
+      flash dq and dk/dv kernels (12 a step each) join the kernels line,
+      and no plain version may run;
+   b. tests/dist_fleet_ps.py's program in the sync, async and GEO modes
+      at once, 2 pservers x 2 trainers each (the trainers on the card,
+      their startup run on the host), 12 steps: every trainer's losses
+      learn (tests/test_fleet_ps.py's criterion), the two trainers' fc_w
+      after a barrier within 1e-5, sync's save_persistables writes the
+      servers' snapshots;
+   c. DeviceCachedEmbedding of 262,144 x 128 on the card over a PS table
+      of 1,000,000 x 128, phase 13c's Zipf ids (4096 a batch), the
+      program gathering cache[slots]: after each push the cached rows
+      within 1e-6 relative norm of the PS's own pull; hit rate, pulls and
+      ms a step;
+   d. the collective fleet (CollectiveOptimizer(Adam(1e-4))) on phase
+      5's program at dropout 0 over a one-rank NCCL group started by
+      ensure_distributed_initialized, against plain steps from the same
+      weights: 5 steps, losses and all 150 parameters bit-equal, the
+      fused kernels 12 x 5 times each; allreduce_bandwidth over that
+      group (min_s, no GB/s at world 1); LocalSGD (k 2) at
+      tests/dist_local_sgd.py's program on two gloo ranks on the card
+      started by python -m paddle_tpu_torch.distributed.launch: after
+      each sync both ranks hold the mean of their pre-sync weights
+      within 1e-6.
+   Its numbers go on a {"ps": {...}} line before the kernels line; its
+   children's logs under chiprun_out/phase16/.
 Phase 2 also holds the packed and the qkv-folded flash forwards at the
 decoder's causal shape (8 x 128, 12 heads of 64, no key bias) against
 their plain versions and times them beside SDPA's causal forward.
@@ -279,7 +320,9 @@ their plain versions and times them beside SDPA's causal forward.
 Before the card's line come {"observability": {...}} (phase 8's
 numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 {"control_flow": {...}} (phase 11's), {"dataset": {...}} (phase 12's),
-{"sparse_recompute": {...}} (phase 13's) and {"kernels": [...]}, one
+{"sparse_recompute": {...}} (phase 13's), {"fleet_tuning_artifact":
+{...}} (phase 14's), {"parallel": {...}} (phase 15's), {"ps": {...}}
+(phase 16's) and {"kernels": [...]}, one
 entry per
 kernel with its own launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
@@ -289,7 +332,9 @@ steps for the flat kernels; the packed flash forward adds one phase-11
 greedy generate's, and the qkv-folded forward, the fused matmul and the
 FFN chain one phase-11 logits run's, and the five fused-step kernels
 phase 12c's QueueDataset epoch's, 13a's timed steps' and (the packed
-forward, dq and dk/dv) 13b's Recompute steps'.  Details go to
+forward, dq and dk/dv) 13b's Recompute steps', and the five
+fused-step kernels phase 16a's trainer processes' and 16d's collective
+steps'.  Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
@@ -7646,9 +7691,926 @@ def parallel_phase(device, cfg, phase5_step_ms=float("nan")):
     return out
 
 
+# -- phase 16: the parameter-server tier --------------------------------------
+
+PS_STEPS, PS_LR, PS_BLOCK_DIM = 3, 0.01, 64
+PS_RTOL = 1e-5
+#: the PS parameters' distance from the reference over the reference's own
+#: 3-step update (PS_RTOL of ‖θ‖ alone passes a table whose pushes never
+#: landed); the card measured 1.9–2.7e-4 of it
+PS_UPDATE_RTOL = 1e-3
+PS_CHILD_TIMEOUT_S = 600.0
+PS_MODES_STEPS, PS_GEO_PUSH_NUMS = 12, 4
+CACHE_CAPACITY, CACHE_LR, CACHE_RTOL = 262_144, 0.5, 1e-6
+LSGD_STEPS, LSGD_TOL = 4, 1e-6
+BENCH_SIZES_MB = (4, 16, 64)
+PS_LOG_DIR = OUT_DIR / "phase16"
+
+
+def _child(name, **kwargs):
+    """The command line of a phase-16 child process: this script with
+    ``--child <name> <json kwargs>`` (``child_main`` runs it)."""
+    return [sys.executable, "-u", str(Path(__file__).resolve()), "--child",
+            name, json.dumps(kwargs)]
+
+
+def _child_env(extra):
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def _ps_role_env(role, idx, server_ports, n_trainers):
+    """The fleet's role contract (PaddleCloudRoleMaker's variables); a
+    pserver sees no card."""
+    env = {"TRAINING_ROLE": role,
+           "PADDLE_PSERVERS_IP_PORT_LIST": ",".join(
+               f"127.0.0.1:{p}" for p in server_ports),
+           "PADDLE_TRAINER_ENDPOINTS": ",".join(
+               f"127.0.0.1:{20000 + i}" for i in range(n_trainers))}
+    if role == "PSERVER":
+        env.update(PADDLE_PSERVER_ID=str(idx), CUDA_VISIBLE_DEVICES="")
+    else:
+        env["PADDLE_TRAINER_ID"] = str(idx)
+    return env
+
+
+class _Children:
+    """Processes started by a phase-16 part, each logging to its own file
+    under ``log_dir``: ``wait`` for some, a failure raises with the logs'
+    tails, and leaving the block stops every one still running."""
+
+    def __init__(self, log_dir):
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.procs = {}
+
+    def start(self, tag, cmd, env):
+        out = open(self.log_dir / f"{tag}.log", "w")
+        self.procs[tag] = (subprocess.Popen(
+            cmd, env=_child_env(env), stdout=out,
+            stderr=subprocess.STDOUT), out)
+        return self.procs[tag][0]
+
+    def tail(self, tag, n=3000):
+        return (self.log_dir / f"{tag}.log").read_text()[-n:]
+
+    def wait(self, tags, timeout=PS_CHILD_TIMEOUT_S, what="16"):
+        deadline = time.monotonic() + timeout
+        for tag in tags:
+            p = self.procs[tag][0]
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                raise AssertionError(
+                    f"{what}: {tag} " + ("still runs" if rc is None else
+                                         f"exited with {rc}")
+                    + f"; its log ends:\n{self.tail(tag)}")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.distributed.launch import terminate_procs
+
+        terminate_procs([p for p, _ in self.procs.values()], timeout=10.0)
+        for _, out in self.procs.values():
+            out.close()
+        return False
+
+
+def _reserve(n):
+    from paddle_tpu_torch.distributed.launch import reserve_ports
+
+    return reserve_ports(n)
+
+
+def _rss_bytes(pid):
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def build_ps_bert(cfg, mode):
+    """build_bert_pretrain(cfg, TRAIN_SEQ) in fresh programs under the
+    names phase 16's trainers build: ``mode`` "plain" minimizes
+    SGD(PS_LR), "grads" appends the backward only (the PS program's ops),
+    "fleet" goes through the PS fleet's distributed_optimizer (sync,
+    server sgd, blocks of PS_BLOCK_DIM) and needs the role variables.
+    Returns (main, startup, loss, [(param, grad) names])."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import build_bert_pretrain
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED + 11
+    main.random_seed = SEED + 12
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = build_bert_pretrain(cfg, seq_len=TRAIN_SEQ)
+        opt = pt.optimizer.SGD(PS_LR)
+        if mode == "plain":
+            _, pg = opt.minimize(loss)
+        elif mode == "grads":
+            pg = opt.backward(loss)
+        else:
+            from paddle_tpu_torch.incubate.fleet.base.role_maker import \
+                PaddleCloudRoleMaker
+            from paddle_tpu_torch.incubate.fleet.parameter_server import (
+                DistributeTranspilerConfig, fleet)
+
+            fleet.init(PaddleCloudRoleMaker(is_collective=False))
+            ps_cfg = DistributeTranspilerConfig()
+            ps_cfg.block_dim = PS_BLOCK_DIM
+            _, pg = fleet.distributed_optimizer(opt, ps_cfg).minimize(loss)
+    return main, startup, loss, [(p.name, g.name) for p, g in pg]
+
+
+def _digest(arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def bert_ps_child(cfg, device, weights, feed, out, steps, globals_):
+    """One 16a trainer, through the PS fleet alone — init_worker (worker
+    0 seeds the tables from ``weights``), ``steps``
+    exe.run(fleet.main_program) on the npz ``feed`` with the launch counts
+    reset before them; then the digest of the parameters it pulls after
+    the last barrier, its launches, losses and each step's ``ps:pull``,
+    ``ps:step`` and ``ps:push`` spans (host ms) into ``out``."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda, profiler, set_strict_fp32
+    from paddle_tpu_torch.incubate.fleet.parameter_server import fleet
+    from paddle_tpu_torch.models import BertConfig
+
+    globals().update(globals_)
+    main, startup, loss, _ = build_ps_bert(BertConfig(**cfg), "fleet")
+    set_strict_fp32()
+    device = torch.device(device)
+    if device.type == "cpu":
+        torch.set_num_threads(2)     # trainers share the host's cores
+    exe = _executor(device)
+    if fleet.worker_index() == 0:
+        # only worker 0 seeds the tables; every step pulls them all
+        w = np.load(weights)
+        pt.io.load_params(pt.global_scope(), {n: w[n] for n in w.files},
+                          device, program=main)
+    t0 = time.perf_counter()
+    fleet.init_worker()
+    init_s = time.perf_counter() - t0
+    f = np.load(feed)
+    feed = {n: torch.from_numpy(f[n]).to(device) for n in f.files}
+    profiler.reset_profiler()
+    profiler.start_profiler("CPU")      # host spans only
+    try:
+        with _PlainCalls() as plain:
+            _cuda.reset_launches()
+            losses = [float(exe.run(fleet.main_program, feed=feed,
+                                    fetch_list=[loss])[0])
+                      for _ in range(steps)]
+            launches = {k: _cuda.LAUNCHES.get(k, 0)
+                        for k in FUSED_STEP_KERNELS}
+    finally:
+        profiler.stop_profiler(quiet=True)
+    spans = collections.defaultdict(dict)
+    for name, t0, t1, _, args in profiler._events:
+        if name.startswith("ps:"):
+            spans[args["step"]][name[3:]] = (t1 - t0) * 1e3
+    timings = [spans[k] for k in sorted(spans)]
+    tables = fleet._dense_tables
+    digest = _digest(tables[n].pull() for n in sorted(tables))
+    blocks = sum(t.n_blocks for t in tables.values())
+    fleet.stop_worker()
+    with open(out, "w") as fh:
+        json.dump(dict(losses=losses, launches=launches,
+                       plain_calls=plain.calls, timings=timings,
+                       digest=digest, init_s=init_s, blocks=blocks), fh)
+
+
+def _ps_run(device, cfg, params, weights, feeds, root, tag):
+    """Start one pserver process (``PSServerProcess`` with the arguments
+    the PS fleet's ``run_server`` passes: one table of PS_BLOCK_DIM-wide
+    blocks, sgd, init range 0.1, seed 1234) and a trainer process per feed
+    file (16a); returns the trainers' results, the parameters the PS
+    holds after them (host numpy by name, ``params`` the program's) and
+    the server's RSS when it listens and after the trainers."""
+    from paddle_tpu_torch.distributed.ps import PSClient, PSServerProcess
+    from paddle_tpu_torch.distributed.ps_sharded import (DenseTable,
+                                                         ShardedPSClient)
+
+    n = len(feeds)
+    g = dict(TRAIN_SEQ=TRAIN_SEQ, PS_LR=PS_LR, PS_BLOCK_DIM=PS_BLOCK_DIM)
+    args = dict(cfg=dataclasses.asdict(cfg), device=str(device),
+                weights=weights, steps=PS_STEPS, globals_=g)
+    outs = [os.path.join(root, f"{tag}_trainer{i}.json") for i in range(n)]
+    res = _reserve(1)
+    port = res.ports[0]
+    res.release()
+    server = PSServerProcess(port, num_tables=1, dim=PS_BLOCK_DIM,
+                             optimizer="sgd", init_range=0.1, seed=1234,
+                             num_workers=n)
+    try:
+        PSClient("127.0.0.1", port).close()        # it listens
+        rss0 = _rss_bytes(server.proc.pid)
+        with _Children(PS_LOG_DIR / tag) as ch:
+            for i in range(n):
+                ch.start(f"trainer{i}", _child("bert_ps", feed=feeds[i],
+                                               out=outs[i], **args),
+                         _ps_role_env("TRAINER", i, [port], n))
+            ch.wait([f"trainer{i}" for i in range(n)], what=f"16a {tag}")
+        rss = _rss_bytes(server.proc.pid)
+        client = ShardedPSClient([("127.0.0.1", port)], worker_id=0)
+        try:
+            final = {p.name: DenseTable(client, 0, p.name, p.shape,
+                                        PS_BLOCK_DIM).pull()
+                     for p in params}
+            client.stop_servers()
+        finally:
+            client.close()
+        if server.wait(timeout=30) != 0:
+            raise AssertionError(f"16a {tag}: the pserver exited with "
+                                 f"{server.proc.returncode}")
+    finally:
+        server.kill()
+    results = []
+    for o in outs:
+        with open(o) as fh:
+            results.append(json.load(fh))
+    return results, final, (rss0, rss)
+
+
+def _step_split(results):
+    """Mean pull/step/push ms over the trainers' steps after the first
+    (the first lowers the program)."""
+    rows = [t for r in results for t in r["timings"][1:]]
+    return {k: float(np.mean([t[k] for t in rows])) for k in
+            ("pull", "step", "push")}
+
+
+def bert_ps_phase(device, cfg, root):
+    """16a: build_bert_pretrain(cfg, TRAIN_SEQ) at dropout 0 through the
+    PS fleet (sync, server sgd) with one pserver process: one trainer
+    process on the TRAIN_BATCH batch against plain SGD(PS_LR) steps of the
+    same program from the same weights, then two trainer processes of
+    half the rows each against θ − lr·(g₀ + g₁) at the same θ."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    on_card = device.type == "cuda"
+    cfg = _zero_dropout(cfg)
+    exe = _executor(device)
+    main, startup, loss, pg = build_ps_bert(cfg, "plain")
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    names = [p for p, _ in pg]
+    w0 = {n: scope.find_var(n).detach().cpu().numpy() for n in names}
+    weights = os.path.join(root, "ps_weights.npz")
+    np.savez(weights, **w0)
+    batch = {k: v.cpu().numpy() for k, v in
+             train_batch(cfg.vocab_size, torch.device("cpu")).items()}
+    half = TRAIN_BATCH // 2
+    feeds = {"full": os.path.join(root, "feed_full.npz"),
+             "half0": os.path.join(root, "feed_half0.npz"),
+             "half1": os.path.join(root, "feed_half1.npz")}
+    np.savez(feeds["full"], **batch)
+    np.savez(feeds["half0"], **{k: v[:half] for k, v in batch.items()})
+    np.savez(feeds["half1"], **{k: v[half:] for k, v in batch.items()})
+    dev_batch = _on(device, batch)
+    # the one-trainer reference: plain SGD steps from the same weights
+    ref_losses = [float(exe.run(main, feed=dev_batch, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(PS_STEPS)]
+    ref_one = {n: scope.find_var(n).detach().cpu().numpy() for n in names}
+    del scope
+    # the two-trainer reference: θ − lr·(g₀ + g₁), each half's gradient
+    # at the same θ
+    gmain, _, gloss, gpg = build_ps_bert(cfg, "grads")
+    gscope = pt.Scope()
+    pt.io.load_params(gscope, w0, device, program=gmain)
+    halves = [_on(device, {k: v[:half] for k, v in batch.items()}),
+              _on(device, {k: v[half:] for k, v in batch.items()})]
+    ref_two_losses = [[], []]
+    for _ in range(PS_STEPS):
+        grads = []
+        for h in range(2):
+            got = exe.run(gmain, feed=halves[h],
+                          fetch_list=[gloss] + [g for _, g in gpg],
+                          scope=gscope, return_numpy=False)
+            ref_two_losses[h].append(float(got[0]))
+            grads.append(got[1:])
+        for (p, _), g0, g1 in zip(gpg, *grads):
+            gscope.set_var(p, gscope.find_var(p) - PS_LR * (g0 + g1))
+    ref_two = {n: gscope.find_var(n).detach().cpu().numpy() for n in names}
+    del gscope, grads, halves, dev_batch
+    sync(device)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(np.sqrt(sum(float(np.sum((a[n].astype(np.float64)
+                                               - b[n]) ** 2)) for n in a)
+                             / sum(float(np.sum(b[n].astype(np.float64)
+                                                ** 2)) for n in b)))
+
+    def update_rel(a, b):
+        """The difference of two runs over the reference's update."""
+        return float(np.sqrt(sum(float(np.sum((a[n].astype(np.float64)
+                                               - b[n]) ** 2)) for n in a)
+                             / sum(float(np.sum((b[n].astype(np.float64)
+                                                 - w0[n]) ** 2))
+                                   for n in b)))
+
+    params = main.global_block().all_parameters()
+    t0 = time.perf_counter()
+    one, one_final, (one_rss0, one_rss) = _ps_run(
+        device, cfg, params, weights, [feeds["full"]], root, "one")
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two, two_final, (_, two_rss) = _ps_run(
+        device, cfg, params, weights, [feeds["half0"], feeds["half1"]],
+        root, "two")
+    two_s = time.perf_counter() - t0
+    want = cfg.num_layers * PS_STEPS if on_card else 0
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(one[0]["losses"], ref_losses))
+    one_rel, two_rel = rel(one_final, ref_one), rel(two_final, ref_two)
+    two_loss_rel = max(abs(a - b) / abs(b) for r, ref in zip(
+        two, ref_two_losses) for a, b in zip(r["losses"], ref))
+    launches = collections.Counter()
+    for r in one + two:
+        launches.update(r["launches"])
+    blocks = one[0]["blocks"]
+    split_one, split_two = _step_split(one), _step_split(two)
+    out = dict(
+        losses=one[0]["losses"], ref_losses=ref_losses,
+        loss_rel_err=loss_rel, param_rel_err=one_rel,
+        update_rel_err=update_rel(one_final, ref_one),
+        two_losses=[r["losses"] for r in two],
+        two_loss_rel_err=two_loss_rel, two_param_rel_err=two_rel,
+        two_update_rel_err=update_rel(two_final, ref_two),
+        two_bit_equal=two[0]["digest"] == two[1]["digest"],
+        launches=dict(launches),
+        trainer_launches=[r["launches"] for r in one + two],
+        plain_calls=sum(r["plain_calls"] for r in one + two),
+        step_split_ms=split_one, two_step_split_ms=split_two,
+        blocks=blocks, bytes_each_way=blocks * PS_BLOCK_DIM * 4,
+        rpcs_each_way=len(names), server_rss_bytes=one_rss,
+        server_rss_listening_bytes=one_rss0,
+        two_server_rss_bytes=two_rss, init_s=one[0]["init_s"],
+        wall_s=one_s, two_wall_s=two_s)
+    log(f"  16a BERT through one pserver (sync, server sgd, lr {PS_LR}), "
+        f"{len(names)} dense tables of {blocks} blocks of {PS_BLOCK_DIM} "
+        f"({out['bytes_each_way']} bytes each way a step, one RPC a "
+        f"parameter): one trainer's losses "
+        + " ".join(f"{x:.6f}" for x in out["losses"])
+        + f" (plain SGD {' '.join(f'{x:.6f}' for x in ref_losses)}; "
+        f"relative {loss_rel:.3e}), PS parameters after {PS_STEPS} steps "
+        f"within {one_rel:.3e} relative norm of the plain steps' "
+        f"({out['update_rel_err']:.3e} of the update); step split pull "
+        f"{split_one['pull']:.1f} / step {split_one['step']:.1f} / push "
+        f"{split_one['push']:.1f} ms; worker 0's init_worker (the "
+        f"server's first touch of every row) {out['init_s']:.2f} s; "
+        f"server RSS {one_rss} bytes ({one_rss0} "
+        f"when it listened, before any row); two "
+        f"trainers: parameters bit-equal {out['two_bit_equal']}, within "
+        f"{two_rel:.3e} relative norm of θ − lr·(g₀ + g₁) "
+        f"({out['two_update_rel_err']:.3e} of the update), losses within "
+        f"{two_loss_rel:.3e}; split pull {split_two['pull']:.1f} / step "
+        f"{split_two['step']:.1f} / push {split_two['push']:.1f} ms; "
+        f"launches {out['launches']} (= {want} a trainer each); "
+        f"{one_s:.1f} s and {two_s:.1f} s with the spawns")
+    if not (loss_rel <= PS_RTOL and one_rel <= PS_RTOL):
+        raise AssertionError(f"16a: one trainer departs from plain SGD: "
+                             f"losses {loss_rel}, parameters {one_rel}")
+    if not (out["two_bit_equal"] and two_rel <= PS_RTOL):
+        raise AssertionError(f"16a: two trainers: bit-equal "
+                             f"{out['two_bit_equal']}, relative {two_rel}")
+    for what, err in (("one trainer", out["update_rel_err"]),
+                      ("two trainers", out["two_update_rel_err"])):
+        if not err <= PS_UPDATE_RTOL:
+            raise AssertionError(f"16a: {what}: the PS update departs from "
+                                 f"the reference's by {err} of it")
+    if any(n != want for r in one + two for n in r["launches"].values()):
+        raise AssertionError(f"16a: launches {out['trainer_launches']}, "
+                             f"expected {want} each")
+    if on_card and out["plain_calls"]:
+        raise AssertionError("16a: a plain kernel version ran on the card")
+    return out
+
+
+def _fleet_modes_model(mode):
+    """tests/dist_fleet_ps.py's program."""
+    import paddle_tpu_torch as pt
+
+    y = pt.data("y", [8, 1])
+    if mode == "geo":
+        x = pt.data("x", [8, 4])
+        h = pt.layers.fc(x, 8, act="relu",
+                         param_attr=pt.ParamAttr(name="fc_w"))
+        pred = pt.layers.fc(h, 1, param_attr=pt.ParamAttr(name="fc_o"))
+    else:
+        ids = pt.data("ids", [8, 1], "int64")
+        emb = pt.layers.embedding(ids, (50, 4), is_sparse=True,
+                                  param_attr=pt.ParamAttr(name="table"))
+        emb = pt.layers.reshape(emb, [8, 4])
+        pred = pt.layers.fc(emb, 1, param_attr=pt.ParamAttr(name="fc_w"))
+    return pt.layers.mean(pt.layers.square_error_cost(pred, y))
+
+
+def fleet_modes_child(mode, out_dir, device, steps=PS_MODES_STEPS):
+    """One role of tests/dist_fleet_ps.py through the port's PS fleet:
+    pserver, or trainer on ``device`` — 12 steps on one fixed batch; the
+    sync mode's first worker saves the servers' snapshot; every trainer
+    reports the fc_w the PS holds after a barrier (async: after flushing
+    its communicators)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.incubate.fleet.base.role_maker import \
+        PaddleCloudRoleMaker
+    from paddle_tpu_torch.incubate.fleet.parameter_server import (
+        DistributeTranspilerConfig, fleet)
+
+    main_prog, startup = pt.Program(), pt.Program()
+    startup.random_seed = 17
+    with pt.program_guard(main_prog, startup), pt.unique_name.guard():
+        loss = _fleet_modes_model(mode)
+        fleet.init(PaddleCloudRoleMaker(is_collective=False))
+        cfg = DistributeTranspilerConfig()
+        cfg.sync_mode = mode == "sync"
+        cfg.geo_sgd_mode = mode == "geo"
+        cfg.geo_sgd_need_push_nums = PS_GEO_PUSH_NUMS
+        fleet.distributed_optimizer(pt.optimizer.SGD(0.1), cfg).minimize(
+            loss)
+    if fleet.is_server():
+        fleet.init_server()
+        fleet.run_server()
+        return
+    exe = _executor(torch.device(device))
+    exe.run(fleet.startup_program)
+    fleet.init_worker()
+    wid = fleet.worker_index()
+    rng = np.random.RandomState(100 + wid)
+    feed = {"y": rng.randn(8, 1).astype(np.float32)}
+    if mode == "geo":
+        feed["x"] = rng.randn(8, 4).astype(np.float32)
+    else:
+        feed["ids"] = rng.randint(0, 50, (8, 1)).astype(np.int64)
+    losses = [float(exe.run(fleet.main_program, feed=feed,
+                            fetch_list=[loss])[0]) for _ in range(steps)]
+    if mode == "sync" and fleet.is_first_worker():
+        fleet.save_persistables(exe, os.path.join(out_dir, "snapshot"))
+    if fleet._communicators:
+        for c in fleet._communicators.values():
+            c.flush()
+    fleet._client.barrier()      # every worker's pushes have landed
+    if mode == "geo":
+        final_w = fleet._geo_worker.pull_all()["fc_w"]
+    else:
+        final_w = fleet._dense_tables["fc_w"].pull()
+    on = [str(v.device) for v in (pt.global_scope().find_var("fc_w"),)]
+    fleet.stop_worker()
+    with open(os.path.join(out_dir, f"worker_{wid}.json"), "w") as f:
+        json.dump({"losses": losses, "final_w": final_w.ravel().tolist(),
+                   "scope_device": on[0]}, f)
+
+
+def _modes_learn(mode, losses):
+    """16b's learn gate on the two trainers' losses, one that holds
+    whatever the startup's draw (tests/test_fleet_ps.py's "min of the last
+    4 < 0.7 x max of the first 2" depends on it): sync — both trainers
+    compute at one θ, and the server steps θ by lr·(g₀ + g₁), so their
+    summed loss falls at every step; GEO — between two exchanges of
+    deltas each trainer takes plain local SGD steps on its own batch, so
+    its loss falls at each of them; async — the trainers race, so each
+    trainer's last loss is below its first."""
+    a = np.asarray(losses, np.float64)
+    if not np.isfinite(a).all():
+        return False
+    if mode == "sync":
+        return bool(np.all(np.diff(a.sum(axis=0)) < 0))
+    if mode == "geo":
+        local = [k for k in range(a.shape[1] - 1)
+                 if (k + 1) % PS_GEO_PUSH_NUMS != 0]
+        return bool(np.all(a[:, [k + 1 for k in local]] < a[:, local]))
+    return bool(np.all(a[:, -1] < a[:, 0]))
+
+
+def fleet_modes_phase(device, root):
+    """16b: the three modes at tests/dist_fleet_ps.py's program, 2
+    pservers x 2 trainers on the card each, all three at once: every
+    trainer's losses learn (``_modes_learn``), the two trainers' fc_w
+    after a barrier agree within 1e-5 (sync, GEO and async), sync writes
+    the servers' snapshot through save_persistables."""
+    out = {}
+    t0 = time.perf_counter()
+    with _Children(PS_LOG_DIR / "modes") as ch:
+        dirs, trainers = {}, []
+        for mode in ("sync", "async", "geo"):
+            dirs[mode] = os.path.join(root, f"modes_{mode}")
+            os.makedirs(dirs[mode], exist_ok=True)
+            res = _reserve(2)
+            ports = res.ports
+            res.release()
+            for i in range(2):
+                ch.start(f"{mode}_pserver{i}",
+                         _child("fleet_modes", mode=mode,
+                                out_dir=dirs[mode], device="cpu"),
+                         _ps_role_env("PSERVER", i, ports, 2))
+            for i in range(2):
+                trainers.append(f"{mode}_trainer{i}")
+                ch.start(trainers[-1],
+                         _child("fleet_modes", mode=mode,
+                                out_dir=dirs[mode], device=str(device)),
+                         _ps_role_env("TRAINER", i, ports, 2))
+        ch.wait(trainers, what="16b")
+    wall_s = time.perf_counter() - t0
+    for mode, d in dirs.items():
+        rs = []
+        for i in range(2):
+            with open(os.path.join(d, f"worker_{i}.json")) as f:
+                rs.append(json.load(f))
+        learn = _modes_learn(mode, [r["losses"] for r in rs])
+        # tests/test_fleet_ps.py's ratio, reported beside the gate
+        ratio = [min(r["losses"][-4:]) / max(r["losses"][:2]) for r in rs]
+        w0, w1 = (np.asarray(r["final_w"]) for r in rs)
+        agree = float(np.max(np.abs(w0 - w1)
+                             / np.maximum(np.abs(w1), 1e-30)))
+        snaps = sorted(f for f in os.listdir(d) if f.startswith("snapshot"))
+        out[mode] = dict(losses=[r["losses"] for r in rs], learn=learn,
+                         last4_over_first2=ratio,
+                         w_rel_diff=agree, snapshots=snaps,
+                         scope_device=rs[0]["scope_device"])
+        log(f"  16b {mode}: 2 pservers x 2 trainers, {PS_MODES_STEPS} steps "
+            f"(scope on {rs[0]['scope_device']}): losses "
+            + " | ".join(" ".join(f"{x:.4f}" for x in r["losses"][::3])
+                         for r in rs)
+            + f"; learn {learn} (min of the last 4 over max of the first "
+            f"2: {ratio[0]:.4f}, {ratio[1]:.4f}); fc_w after a barrier "
+            f"within {agree:.3e}"
+            + (f"; snapshot files {snaps}" if mode == "sync" else ""))
+        if not learn:
+            raise AssertionError(f"16b {mode}: losses do not learn")
+        if not np.allclose(w0, w1, rtol=1e-5, atol=1e-7):
+            raise AssertionError(f"16b {mode}: workers disagree: {w0} {w1}")
+        if mode == "sync" and not (snaps and all(os.path.getsize(
+                os.path.join(d, s)) > 0 for s in snaps)):
+            raise AssertionError(f"16b sync: no server snapshot in {d}")
+        if device.type == "cuda" and not rs[0]["scope_device"].startswith(
+                "cuda"):
+            raise AssertionError("16b: the trainer's scope is not on the card")
+    out["wall_s"] = wall_s
+    return out
+
+
+def cache_phase(device):
+    """16c: DeviceCachedEmbedding (capacity CACHE_CAPACITY) over a PS
+    table of SPARSE_VOCAB x SPARSE_DIM, phase 13c's Zipf id stream: the
+    program gathers cache[slots], its gradient rows push with the sgd
+    mirror; after each push the cached rows within CACHE_RTOL of the
+    PS's own pull."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.ps import (DeviceCachedEmbedding,
+                                                 PSClient, PSServerProcess)
+
+    exe = _executor(device)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        cache = pt.data("cache", [CACHE_CAPACITY, SPARSE_DIM])
+        cache.stop_gradient = False
+        slots = pt.data("slots", [SPARSE_IDS], "int64")
+        target = pt.data("target", [SPARSE_IDS, SPARSE_DIM])
+        rows = pt.layers.gather(cache, slots)
+        loss = pt.layers.mean(pt.layers.square_error_cost(rows, target))
+        (gcache,) = pt.gradients([loss], [cache])
+    res = _reserve(1)
+    port = res.ports[0]
+    res.release()
+    srv = PSServerProcess(port, num_tables=1, dim=SPARSE_DIM,
+                          optimizer="sgd", init_range=0.1, seed=SEED)
+    client = None
+    try:
+        client = PSClient("127.0.0.1", port)
+        dce = DeviceCachedEmbedding(client, 0, SPARSE_DIM, CACHE_CAPACITY,
+                                    device=device)
+        steps = []
+        for f in sparse_feeds():
+            ids = f["ids"].ravel() % SPARSE_VOCAB
+            before = dce.stats()
+            t0 = time.perf_counter()
+            s = dce.lookup_slots(ids)
+            lv, g = exe.run(main, feed={
+                "cache": dce.cache, "slots": s.astype(np.int64),
+                "target": f["target"]}, fetch_list=[loss, gcache],
+                return_numpy=False)
+            uniq, first = np.unique(ids, return_index=True)
+            idx = torch.as_tensor(s[first].astype(np.int64), device=device)
+            dce.push(uniq, g.index_select(0, idx).cpu().numpy(), CACHE_LR)
+            sync(device)
+            wall = time.perf_counter() - t0
+            cached = np.asarray(sorted(dce._slot_of), np.int64)
+            truth = client.pull(0, cached, SPARSE_DIM)
+            got = dce.cache.index_select(0, torch.as_tensor(
+                [dce._slot_of[int(i)] for i in cached],
+                device=device)).cpu().numpy()
+            err = float(np.linalg.norm((got - truth).astype(np.float64))
+                        / np.linalg.norm(truth.astype(np.float64)))
+            after = dce.stats()
+            steps.append(dict(
+                loss=float(lv), ms=wall * 1e3, rel_err=err,
+                unique=int(len(uniq)),
+                misses=after["misses"] - before["misses"],
+                pulls=after["pulls"] - before["pulls"],
+                cached=after["cached"]))
+        client.stop_server()
+        srv.wait(timeout=30)
+    finally:
+        if client is not None:
+            client.close()
+        srv.kill()
+    hit = [1.0 - s["misses"] / s["unique"] for s in steps]
+    worst = max(s["rel_err"] for s in steps)
+    out = dict(steps=steps, hit_rate=hit, max_rel_err=worst,
+               step_ms=float(np.mean([s["ms"] for s in steps[1:]])),
+               pulls_per_step=[s["pulls"] for s in steps],
+               cache_bytes=CACHE_CAPACITY * SPARSE_DIM * 4)
+    log(f"  16c DeviceCachedEmbedding: {CACHE_CAPACITY} x {SPARSE_DIM} on "
+        f"{device.type} ({out['cache_bytes']} bytes) over a "
+        f"{SPARSE_VOCAB}-row PS table, {SPARSE_IDS} Zipf({SPARSE_ZIPF_A}) "
+        f"ids a batch: hit rate " + " ".join(f"{h:.3f}" for h in hit)
+        + f"; pulls a step {out['pulls_per_step']}; cached rows within "
+        f"{worst:.3e} of the PS's pull after each push; step "
+        f"{out['step_ms']:.2f} ms (after the first); losses "
+        + " ".join(f"{s['loss']:.5f}" for s in steps))
+    if not worst <= CACHE_RTOL:
+        raise AssertionError(f"16c: the cache departs from the PS: {worst}")
+    return out
+
+
+def collective_phase(device, cfg):
+    """16d's first part: Collective + CollectiveOptimizer(Adam(TRAIN_LR))
+    on phase 5's program at dropout 0 over a one-rank NCCL group (gloo on
+    the CPU) started by ensure_distributed_initialized, against plain
+    Executor.run steps from the same weights: PAR_STEPS steps, losses
+    and parameters bit-equal, the fused kernels once per layer per step;
+    then allreduce_bandwidth over the same group."""
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.distributed.allreduce_bench import \
+        allreduce_bandwidth
+    from paddle_tpu_torch.distributed.collectives import \
+        ensure_distributed_initialized
+    from paddle_tpu_torch.incubate.fleet.base.role_maker import \
+        UserDefinedRoleMaker
+    from paddle_tpu_torch.incubate.fleet.collective import fleet
+
+    on_card = device.type == "cuda"
+    cfg = _zero_dropout(cfg)
+    L = cfg.num_layers
+    exe = _executor(device)
+    feed = train_batch(cfg.vocab_size, device)
+    res = _reserve(1)
+    port = res.ports[0]
+    res.release()
+    # the rank's device and backend: PADDLE_TRAINER_DEVICE, else the card
+    # and NCCL (a CPU rehearsal sets it to cpu, and gets gloo)
+    ensure_distributed_initialized(f"127.0.0.1:{port}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        fleet.init(UserDefinedRoleMaker(current_id=0, worker_num=1))
+        if fleet.device.type != device.type:
+            raise AssertionError(f"16d: the fleet's rank runs on "
+                                 f"{fleet.device}, the phase on {device}")
+        main, startup, loss, _, params = build_train(
+            cfg, wrap=lambda opt, _: fleet.distributed_optimizer(opt))
+        plain_main, _, plain_loss, _, _ = build_train(cfg)
+        scopes = {"plain": pt.Scope(), "fleet": pt.Scope()}
+        exe.run(startup, scope=scopes["plain"])
+        _load(scopes["fleet"], _snapshot(scopes["plain"], main), main)
+        runs = {}
+        for name, prog, lv in (("plain", plain_main, plain_loss),
+                               ("fleet", fleet.main_program, loss)):
+            with _PlainCalls() as plain:
+                _cuda.reset_launches()
+                runs[name] = [exe.run(prog, feed=feed, fetch_list=[lv],
+                                      scope=scopes[name],
+                                      return_numpy=False)[0]
+                              for _ in range(PAR_STEPS)]
+                sync(device)
+                runs[name + "_launches"] = {
+                    k: _cuda.LAUNCHES.get(k, 0) for k in DP_KERNELS}
+                runs[name + "_plain_calls"] = plain.calls
+        same = all(torch.equal(a, b) for a, b in zip(runs["plain"],
+                                                      runs["fleet"]))
+        unequal = [p for p in params if not torch.equal(
+            scopes["plain"].find_var(p), scopes["fleet"].find_var(p))]
+        degree = fleet.main_program.data_parallel_degree
+        del scopes
+        bench = allreduce_bandwidth(BENCH_SIZES_MB, reps=5, inner=8,
+                                    device=device)
+    finally:
+        dist.destroy_process_group()
+    want = L * PAR_STEPS if on_card else 0
+    out = dict(losses=[float(x) for x in runs["fleet"]], bit_equal=same,
+               params_equal=len(params) - len(unequal),
+               params=len(params), launches=runs["fleet_launches"],
+               degree=degree, backend=backend, allreduce=bench)
+    log(f"  16d Collective + CollectiveOptimizer(Adam({TRAIN_LR})) over a "
+        f"one-rank {backend} group (data_parallel_degree {degree}), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, dropout 0: losses "
+        + " ".join(f"{x:.6f}" for x in out["losses"])
+        + f"; bit-equal to the plain steps: losses {same}, parameters "
+        f"{out['params_equal']}/{len(params)}; launches "
+        f"{out['launches']} (= {want} each); allreduce_bandwidth at world "
+        f"1: " + ", ".join(f"{b['payload_mb']} MB {b['min_s']} s (gbps "
+                           f"{b['gbps']})" for b in bench))
+    if not same or unequal:
+        raise AssertionError(f"16d: the collective fleet's step is not the "
+                             f"plain one: unequal {unequal[:5]}")
+    if any(n != want for n in out["launches"].values()):
+        raise AssertionError(f"16d: launches {out['launches']}, expected "
+                             f"{want} each")
+    if on_card and runs["fleet_plain_calls"]:
+        raise AssertionError("16d: a plain kernel version ran on the card")
+    if any(b["gbps"] is not None or not b["min_s"] > 0 for b in bench):
+        raise AssertionError(f"16d: allreduce_bandwidth at world 1: {bench}")
+    return out
+
+
+def local_sgd_rank(out_dir):
+    """One rank of tests/dist_local_sgd.py's program under the port's
+    launcher (``chip_smoke.py --local-sgd-rank <dir>``): the collective
+    fleet with LocalSGD (k 2) from the launcher's variables, LSGD_STEPS
+    local SGD(0.1) steps on rank-specific data, each step's weights
+    before and after the syncer."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.launch import trainer_device
+    from paddle_tpu_torch.incubate.fleet.base.role_maker import \
+        PaddleCloudRoleMaker
+    from paddle_tpu_torch.incubate.fleet.collective import (
+        DistributedStrategy, fleet)
+
+    device = trainer_device()
+    fleet.init(PaddleCloudRoleMaker())
+    rank = fleet.worker_index()
+    main_prog, startup = pt.Program(), pt.Program()
+    startup.random_seed = 42
+    with pt.program_guard(main_prog, startup), pt.unique_name.guard():
+        x = pt.data("x", [None, 2])
+        y = pt.data("y", [None, 1])
+        pred = pt.layers.fc(x, 1, param_attr=pt.ParamAttr(name="w"),
+                            bias_attr=False)
+        loss = pt.layers.mean(pt.layers.square_error_cost(pred, y))
+        strategy = DistributedStrategy()
+        strategy.use_local_sgd = True
+        strategy.local_sgd_k_steps = 2
+        fleet.distributed_optimizer(pt.optimizer.SGD(0.1),
+                                    strategy).minimize(loss)
+    exe = _executor(device)
+    scope = pt.global_scope()
+    exe.run(startup)
+    syncer = fleet.local_sgd_syncer
+    rng = np.random.RandomState(100 + rank)
+    X = rng.randn(4, 2).astype(np.float32)
+    Y = rng.rand(4, 1).astype(np.float32)
+    hist = []
+    for step in range(LSGD_STEPS):
+        exe.run(fleet.main_program, feed={"x": X, "y": Y})
+        pre = scope.find_var("w").detach().cpu().numpy().ravel().tolist()
+        synced = syncer.step_end(scope)
+        w = scope.find_var("w")
+        hist.append({"step": step, "synced": bool(synced), "pre": pre,
+                     "w": w.detach().cpu().numpy().ravel().tolist(),
+                     "device": str(w.device)})
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"lsgd_rank_{rank}.json"), "w") as f:
+        json.dump(hist, f)
+    return 0
+
+
+def local_sgd_start(device, root):
+    """Start 16d's LocalSGD launch (``python -m
+    paddle_tpu_torch.distributed.launch``, two ranks); ``local_sgd_phase``
+    waits for it and checks it."""
+    out_dir = os.path.join(root, "lsgd")
+    log_dir = PS_LOG_DIR / "local_sgd"
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node=2", f"--log_dir={log_dir}"] \
+        + (["--use_cpu_devices=1"] if device.type == "cpu" else []) \
+        + [str(Path(__file__).resolve()), "--local-sgd-rank", out_dir]
+    proc = subprocess.Popen(cmd, env=_child_env({}), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, out_dir, log_dir, time.perf_counter()
+
+
+def local_sgd_phase(device, root, started=None):
+    """16d's second part: tests/dist_local_sgd.py's program on two ranks
+    started by ``python -m paddle_tpu_torch.distributed.launch`` (gloo:
+    the two ranks share the card; CPU ranks in a rehearsal): after each
+    sync step both ranks hold the mean of their pre-sync weights within
+    LSGD_TOL.  ``started``: ``local_sgd_start``'s launch, else one is
+    started here."""
+    proc, out_dir, log_dir, t0 = started or local_sgd_start(device, root)
+    try:
+        stdout, stderr = proc.communicate(timeout=PS_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()     # the launcher tears its ranks down
+        stdout, stderr = proc.communicate()
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        logs = "".join(f"\n--- {p.name} ---\n{p.read_text()[-3000:]}"
+                       for p in sorted(Path(log_dir).glob("*.log")))
+        raise AssertionError(f"16d: the launcher exited {proc.returncode}:"
+                             f"\n{stdout[-2000:]}\n{stderr[-3000:]}{logs}")
+    ranks = []
+    for i in range(2):
+        with open(os.path.join(out_dir, f"lsgd_rank_{i}.json")) as f:
+            ranks.append(json.load(f))
+    worst, syncs = 0.0, 0
+    for a, b in zip(*ranks):
+        if not a["synced"]:
+            continue
+        syncs += 1
+        mean = (np.asarray(a["pre"], np.float64)
+                + np.asarray(b["pre"], np.float64)) / 2
+        worst = max(worst, float(np.max(np.abs(np.asarray(a["w"]) - mean))),
+                    float(np.max(np.abs(np.asarray(b["w"]) - mean))))
+    diverged = any(a["pre"] != b["pre"] for a, b in zip(*ranks))
+    out = dict(syncs=syncs, max_err=worst, diverged=diverged, wall_s=wall_s,
+               device=ranks[0][0]["device"])
+    log(f"  16d LocalSGD (k 2) on two gloo ranks on {out['device']} through "
+        f"the launcher: {syncs} syncs, both ranks at the mean of their "
+        f"pre-sync weights within {worst:.3e}; local weights diverged "
+        f"between syncs {diverged}; {wall_s:.1f} s with the launch")
+    if not (syncs == LSGD_STEPS // 2 and worst <= LSGD_TOL and diverged):
+        raise AssertionError(f"16d: LocalSGD {out}")
+    if device.type == "cuda" and not out["device"].startswith("cuda"):
+        raise AssertionError("16d: the LocalSGD ranks did not run on the card")
+    return out
+
+
+def ps_phase(device, cfg, phase5_step_ms=float("nan")):
+    """Phase 16: BERT through a pserver (16a), the PS fleet's three modes
+    (16b), the device-cached embedding (16c), the collective fleet, the
+    launcher with LocalSGD and the all-reduce harness (16d)."""
+    import tempfile
+
+    out = {"phase5_step_ms": phase5_step_ms}
+    with tempfile.TemporaryDirectory() as root:
+        out["bert"] = bert_ps_phase(device, cfg, root)
+        out["cache"] = cache_phase(device)
+        out["collective"] = collective_phase(device, cfg)
+        # 16b and the LocalSGD launch are process start-ups and gates, no
+        # timings: they run side by side
+        lsgd = local_sgd_start(device, root)
+        try:
+            out["modes"] = fleet_modes_phase(device, root)
+        finally:
+            out["local_sgd"] = local_sgd_phase(device, root, lsgd)
+    out["launches"] = {k: out["bert"]["launches"].get(k, 0)
+                       + out["collective"]["launches"].get(k, 0)
+                       for k in FUSED_STEP_KERNELS}
+    return out
+
+
+#: the phase-16 child processes ``chip_smoke.py --child <name> <json>``
+#: runs
+CHILDREN = {"bert_ps": bert_ps_child, "fleet_modes": fleet_modes_child}
+
+
+def child_main(argv):
+    """Run a phase-16 child: ``--child <name> <json kwargs>`` or
+    ``--local-sgd-rank <out_dir>``."""
+    if argv[0] == "--local-sgd-rank":
+        return local_sgd_rank(argv[1])
+    CHILDREN[argv[1]](**json.loads(argv[2]))
+    return 0
+
+
 def main():
     import torch
 
+    if len(sys.argv) > 1:
+        return child_main(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7812,6 +8774,17 @@ def main():
         for name, n in list(par["dp"]["launches"].items()) \
                 + list(par["pipeline"]["launches"].items()):
             report["kernels"][name]["launches"] += n
+
+        log("[16] the parameter-server tier: BERT-base through a pserver "
+            "(one and two trainer processes), the PS fleet's sync, async "
+            "and GEO modes, the device-cached embedding at 1M x 128, the "
+            "collective fleet, LocalSGD through the launcher, the "
+            "all-reduce harness")
+        torch.cuda.empty_cache()
+        report["ps"] = ps_phase(device, BertConfig.base(),
+                                report["training"]["step_ms"])
+        for name, n in report["ps"]["launches"].items():
+            report["kernels"][name]["launches"] += n
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -7942,6 +8915,24 @@ def main():
             "max_dloss", "launches_per_step")},
         moe={k: par["moe"][k] for k in (
             "step_ms", "dispatch_bytes", "peak_bytes", "max_dloss")})}))
+    ps = report["ps"]
+    print(json.dumps({"ps": dict(
+        card=card, phase5_step_ms=ps["phase5_step_ms"],
+        bert={k: ps["bert"][k] for k in (
+            "loss_rel_err", "param_rel_err", "update_rel_err",
+            "two_bit_equal", "two_param_rel_err", "two_update_rel_err",
+            "step_split_ms", "two_step_split_ms", "bytes_each_way",
+            "rpcs_each_way", "blocks", "server_rss_bytes",
+            "server_rss_listening_bytes", "init_s", "launches")},
+        modes={m: {k: ps["modes"][m][k] for k in ("learn", "w_rel_diff")}
+               for m in ("sync", "async", "geo")},
+        cache={k: ps["cache"][k] for k in (
+            "hit_rate", "pulls_per_step", "step_ms", "max_rel_err")},
+        collective={k: ps["collective"][k] for k in (
+            "bit_equal", "params_equal", "backend", "launches")},
+        local_sgd={k: ps["local_sgd"][k] for k in ("syncs", "max_err")},
+        allreduce=[{k: b[k] for k in ("payload_mb", "min_s", "gbps")}
+                   for b in ps["collective"]["allreduce"]])}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -49,18 +49,22 @@ exports its frozen program as a ``torch.export`` artifact that
 ``inference.load_exported`` runs without the program IR; ``fleet``
 (autoscaler, supervisor, rolling swap) keeps a ``cluster`` of worker
 processes serving, and ``tuning`` searches and distributes kernel
-configurations (kernel #1's ``block_rows``, the FFN's fusion plan).  No
-Executor meshes (so no ``PipelineOptimizer``) or AMP yet.
+configurations (kernel #1's ``block_rows``, the FFN's fusion plan).
+``CompiledProgram`` runs on meshes of ``torch.distributed`` ranks (data,
+ZeRO-1, Megatron and expert rules, ``PipelineOptimizer``).
+``distributed`` holds the native parameter server, GEO-SGD, the
+collectives and the multi-process launcher, and ``incubate.fleet`` the
+fleet's parameter-server and collective modes.  No AMP yet.
 """
 import importlib
-
-from ._device import resolve_device, set_strict_fp32
 
 #: public names and the module each comes from.  They load at first
 #: access (PEP 562): a process that only loads a serving artifact
 #: (``inference.load_exported``) imports no Program, Executor, layers or
-#: models.  Importing ``core`` registers every operator.
+#: models, and a parameter-server process (``distributed.ps``) not even
+#: torch.  Importing ``core`` registers every operator.
 _LAZY = {
+    "resolve_device": "._device", "set_strict_fp32": "._device",
     **dict.fromkeys((
         "CPUPlace", "CUDAPlace", "Executor", "Parameter", "Place",
         "Program", "Scope", "Variable", "append_backward", "data",

@@ -20,6 +20,10 @@ host sync per op on the card) and the fusion pass is off, and the flag
 joins the cache signature; under ``FLAGS_benchmark`` each run waits for
 the card before it returns.
 
+Runtime-wrapped programs: an object with ``custom_run(executor, feed,
+fetch_list, scope, return_numpy)`` passed to ``run`` is handed the run,
+as in the JAX Executor (the fleet's PS mode wraps its step so).
+
 Dataset-driven training: ``train_from_dataset`` and
 ``infer_from_dataset`` drive a ``dataset.QueueDataset`` or
 ``InMemoryDataset`` through core/trainer.py's multi-step loop.
@@ -167,7 +171,14 @@ class Executor:
         """Run a program's global block: feed -> compute -> fetch.
 
         Persistable outputs (parameters, optimizer accumulators) are
-        written back into the scope, detached, after the step."""
+        written back into the scope, detached, after the step.
+
+        A program object with ``custom_run`` (the fleet's PS-mode
+        ``fleet.main_program``) is handed the run: it orchestrates its
+        pulls and pushes around the step."""
+        if program is not None and hasattr(program, "custom_run"):
+            return program.custom_run(self, feed, fetch_list, scope,
+                                      return_numpy)
         program, compiled, fuse, fuse_block = fusion_knobs(program)
         nan_check = _flag("FLAGS_check_nan_inf")
         # the per-op scan must see every op's output: no fused groups

@@ -160,6 +160,7 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
         program, block_idx, feed_names, fetch_names)
     vjp_uids = frozenset(
         op.attrs["fwd_uid"] for op in ops if op.type == VJP_GRAD_OP)
+    _mark_shared_vjps(ops)
     # a program cloned for test runs every op with is_test semantics
     is_test = program.is_test
     fusion_plan = None
@@ -640,18 +641,35 @@ def _run_recompute_grad(op, env, vjps):
                      for n, g in zip(names, grads)]}
 
 
+def _mark_shared_vjps(ops):
+    """A forward op that more than one backward pass differentiates (a
+    ``gradients()`` call, then ``minimize()`` of the same loss) keeps its
+    graph for the later ones: every ``vjp_grad`` op but the last of its
+    forward op gets ``_vjp_retain``."""
+    last = {}
+    for op in ops:
+        if op.type == VJP_GRAD_OP:
+            last[op.attrs["fwd_uid"]] = op.uid
+    for op in ops:
+        if op.type == VJP_GRAD_OP:
+            op._vjp_retain = last[op.attrs["fwd_uid"]] != op.uid
+
+
 def _run_vjp_grad(op, env, vjps):
     """Execute a generic gradient op: ``torch.autograd.grad`` through the
-    forward op's own graph, then drop it.  Outputs without a cotangent
-    (no grad var, integer outputs, outputs autograd did not track) take a
-    zero cotangent by being left out, as ``_zero_cotangent`` does in the
-    JAX package; an input autograd did not reach gets zeros."""
+    forward op's own graph, then drop it (keep it, when a later backward
+    pass differentiates the same op: ``_mark_shared_vjps``).  Outputs
+    without a cotangent (no grad var, integer outputs, outputs autograd
+    did not track) take a zero cotangent by being left out, as
+    ``_zero_cotangent`` does in the JAX package; an input autograd did
+    not reach gets zeros."""
     fwd_uid = op.attrs["fwd_uid"]
     if fwd_uid not in vjps:
         raise RuntimeError(
             f"vjp_grad op references forward op uid={fwd_uid} which was not "
             f"executed in this block (grad ops must follow their forward op)")
-    ins, outs = vjps.pop(fwd_uid)
+    retain = getattr(op, "_vjp_retain", False)
+    ins, outs = vjps[fwd_uid] if retain else vjps.pop(fwd_uid)
     prims, cts = [], []
     for slot, vals in outs.items():
         names = op.inputs.get("OG@" + slot, [])
@@ -671,7 +689,8 @@ def _run_vjp_grad(op, env, vjps):
                 targets.append(v)
     grads = [None] * len(targets)
     if prims and targets:
-        grads = torch.autograd.grad(prims, targets, cts, allow_unused=True)
+        grads = torch.autograd.grad(prims, targets, cts, allow_unused=True,
+                                    retain_graph=retain)
     result = {"IG@" + slot: [None] * len(vals) for slot, vals in ins.items()}
     for (slot, j), g, t in zip(wanted, grads, targets):
         result["IG@" + slot][j] = (g if g is not None

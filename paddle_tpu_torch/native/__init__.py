@@ -1,18 +1,25 @@
 """Native (C++) components of the port, built at first use with the
 system's g++.
 
-Counterpart of paddle_tpu/native/__init__.py for the MultiSlot parser:
-``slot_parser.cpp`` is the JAX package's source, copied unchanged, and
-builds with ``g++ -O3 -std=c++17 -shared -fPIC`` into
-``paddle_tpu_torch/_build/`` (git ignores it), rebuilt when the source or
-the command changes (``build_if_stale``).  Nothing builds at import.
+Counterpart of paddle_tpu/native/__init__.py for the MultiSlot parser
+and the parameter server.  ``slot_parser.cpp`` is the JAX package's
+source, copied unchanged, and builds with ``g++ -O3 -std=c++17 -shared
+-fPIC`` into ``paddle_tpu_torch/_build/`` (git ignores it), rebuilt when
+the source or the command changes (``build_if_stale``).
+``ps_server.cpp`` is the JAX package's parameter server (its wire
+protocol, ``splitmix64`` row init, sgd/adagrad update, barriers,
+heartbeats and save format byte for byte) with one repair: ``SAVE``
+closes the file and reads the stream's state before it answers, so a
+client's ``save`` returns only once the file is whole on disk, and a
+failed write answers 1.  It builds with ``g++ -O2 -std=c++17 -shared
+-fPIC -pthread`` (``get_ps_server``).  Nothing builds at import.
 
 No quiet fallback: a failed build raises with the compiler's stderr.
 ``parse_multislot_file_python`` is the plain version, the same format
 in pure Python; setting ``_lib, _tried = None, True`` routes
 ``parse_multislot_file`` to it (the tests do, to hold one against the
-other).  The parameter server and the PJRT loader of the JAX package's
-``native/`` are not ported here.
+other).  The PJRT loader of the JAX package's ``native/`` is not ported
+here.
 """
 from __future__ import annotations
 
@@ -22,16 +29,19 @@ import subprocess
 
 import numpy as np
 
-__all__ = ["build_if_stale", "get_slot_parser", "parse_multislot_file",
-           "parse_multislot_file_python"]
+__all__ = ["build_if_stale", "get_ps_server", "get_slot_parser",
+           "parse_multislot_file", "parse_multislot_file_python"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "_slot_parser.so")
 _SRC_PATH = os.path.join(_HERE, "slot_parser.cpp")
+_PS_LIB_PATH = os.path.join(_BUILD_DIR, "_ps_server.so")
+_PS_SRC_PATH = os.path.join(_HERE, "ps_server.cpp")
 
 _lib = None
 _tried = False
+_ps_lib = None
 
 
 def build_if_stale(out, cmd, srcs, subst=None):
@@ -118,6 +128,52 @@ def get_slot_parser():
     lib.pt_free.argtypes = [ctypes.c_void_p]
     _lib, _tried = lib, True
     return _lib
+
+
+def get_ps_server():
+    """The ctypes library of ps_server.cpp (server and client ABI), built
+    on the first call.  Raises when the build fails (and tries again on
+    the next call)."""
+    global _ps_lib
+    if _ps_lib is not None:
+        return _ps_lib
+    build_if_stale(
+        _PS_LIB_PATH,
+        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
+         _PS_SRC_PATH, "-o", _PS_LIB_PATH],
+        [_PS_SRC_PATH])
+    lib = ctypes.CDLL(_PS_LIB_PATH)
+    lib.pt_ps_serve.restype = ctypes.c_int
+    lib.pt_ps_serve.argtypes = [
+        ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_char_p,
+        ctypes.c_float, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int64]
+    lib.pt_ps_connect.restype = ctypes.c_void_p
+    lib.pt_ps_connect.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                  ctypes.c_uint32]
+    lib.pt_ps_pull.restype = ctypes.c_int
+    lib.pt_ps_pull.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_void_p]
+    lib.pt_ps_push.restype = ctypes.c_int
+    lib.pt_ps_push.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_float]
+    for name in ("pt_ps_barrier", "pt_ps_heartbeat", "pt_ps_stop"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p]
+    for name in ("pt_ps_save", "pt_ps_load"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.pt_ps_stats.restype = ctypes.c_int
+    lib.pt_ps_stats.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32)]
+    lib.pt_ps_disconnect.restype = None
+    lib.pt_ps_disconnect.argtypes = [ctypes.c_void_p]
+    _ps_lib = lib
+    return lib
 
 
 def parse_multislot_file(path, slot_types):

@@ -3,6 +3,7 @@
 its entry points run on the card unless the caller asks for the CPU.
 """
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -149,3 +150,65 @@ print("ok")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and "ok" in proc.stdout, \
         proc.stdout + proc.stderr
+
+
+PS_TIER = ("paddle_tpu_torch.native", "paddle_tpu_torch.distributed",
+           "paddle_tpu_torch.distributed.ps",
+           "paddle_tpu_torch.distributed.ps_sharded",
+           "paddle_tpu_torch.distributed.geo",
+           "paddle_tpu_torch.distributed.collectives",
+           "paddle_tpu_torch.distributed.launch",
+           "paddle_tpu_torch.distributed.allreduce_bench",
+           "paddle_tpu_torch.incubate",
+           "paddle_tpu_torch.incubate.fleet.base",
+           "paddle_tpu_torch.incubate.fleet.parameter_server",
+           "paddle_tpu_torch.incubate.fleet.collective",
+           "paddle_tpu_torch.incubate.fleet.collective.local_sgd",
+           "paddle_tpu_torch.incubate.fleet.utils")
+
+
+def test_the_ps_tier_imports_no_jax():
+    """The parameter-server tier's modules, imported without the rest of
+    the port in a fresh process (as the pserver child and the launcher's
+    ranks start), leave JAX and the JAX package out."""
+    code = ("import importlib, sys\n"
+            f"for m in {PS_TIER!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'paddle_tpu'))\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_pserver_child_sees_no_card(monkeypatch):
+    """``PSServerProcess`` starts the port's server (never the JAX
+    package's) with no card visible, and sets no JAX variable."""
+    from paddle_tpu_torch.distributed import ps
+
+    seen = {}
+
+    class Popen:
+        def __init__(self, cmd, env):
+            seen.update(cmd=cmd, env=env)
+
+    monkeypatch.setattr(ps, "get_ps_server", lambda: None)
+    monkeypatch.setattr(ps.subprocess, "Popen", Popen)
+    ps.PSServerProcess(1234, num_tables=2, dim=8)
+    assert seen["env"]["CUDA_VISIBLE_DEVICES"] == ""
+    assert not any(k.startswith("JAX_") and k not in os.environ
+                   for k in seen["env"])
+    assert "from paddle_tpu_torch.distributed.ps import serve_forever" \
+        in seen["cmd"][2]
+    assert "paddle_tpu." not in seen["cmd"][2]
+    # the child's import line loads neither JAX nor torch
+    monkeypatch.undo()
+    line = seen["cmd"][2].split(";")[0]
+    proc = subprocess.run(
+        [sys.executable, "-c", line + "\nimport sys\nsys.exit(sorted(m for m "
+         "in sys.modules if m.split('.')[0] in ('jax', 'paddle_tpu', "
+         "'torch')) != [])"], cwd=ROOT, capture_output=True, text=True,
+        timeout=60)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
