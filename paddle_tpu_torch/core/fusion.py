@@ -38,7 +38,9 @@ one gradient per member from backward.py, which sums them with its own
 ``sum`` op.  The first member grad op (the last member's) calls
 ``torch.autograd.grad`` once and caches the per-leaf gradients; every
 member grad op binds its own ``IG@slot`` outputs from that cache, and
-internal edges stay unbound (``UNBOUND``).  The gradient ``sum`` ops of
+internal edges stay unbound (``UNBOUND``).  A group that two backward
+passes differentiate (``gradients()``, then ``minimize()``) runs
+``autograd.grad`` once a pass, keeping its graph until the last.  The gradient ``sum`` ops of
 internal edges (the qkv gradient summed over its three slices) are
 skipped: their inputs are never bound.
 
@@ -1084,24 +1086,28 @@ def _try_kernel_gemm(grp, gins, seed, is_test=False):
 def run_fused_grad(op, fx, grp, env):
     """Execute one member's vjp_grad op from the shared group graph.
 
-    The first group grad op (the LAST forward member's, by reverse
-    emission order) takes the final output's cotangent from env and runs
-    ``torch.autograd.grad`` once over every leaf; each member grad op
-    then binds its own ``IG@slot`` outputs from the cached per-(uid,
-    slot, idx) gradients.  Internal-edge gradients stay unbound
-    (UNBOUND) — nothing outside the group reads them, by construction of
-    the plan.  A leaf autograd did not reach gets zeros."""
+    Each backward pass over the group starts at the LAST forward
+    member's grad op (reverse emission order): it takes the final
+    output's cotangent from env and runs ``torch.autograd.grad`` once
+    over every leaf into a fresh per-(uid, slot, idx) cache; each member
+    grad op of that pass then binds its own ``IG@slot`` outputs from the
+    cache.  The graph is kept while another pass is still to come (the
+    last member's grad op carries ``_vjp_retain``: a ``gradients()``
+    call, then ``minimize()`` of the same loss) and dropped after the
+    last.  Internal-edge gradients stay unbound (UNBOUND) — nothing
+    outside the group reads them, by construction of the plan.  A leaf
+    autograd did not reach gets zeros."""
     st = fx.state.get(grp.gid)
     if st is None:
         raise RuntimeError(
             f"fused group {grp.pattern}: grad op before forward execution")
     gins, prim_outs, grads = st
-    if grads is None:
-        if op.attrs["fwd_uid"] != grp.last_uid:
+    uid = op.attrs["fwd_uid"]
+    if uid == grp.last_uid:
+        if prim_outs is None:
             raise RuntimeError(
-                f"fused group {grp.pattern}: grad ops out of order "
-                f"(got fwd_uid={op.attrs['fwd_uid']}, expected "
-                f"{grp.last_uid} first)")
+                f"fused group {grp.pattern}: a backward pass after the "
+                f"group's graph was dropped")
         prims, cts = [], []
         for slot, vals in prim_outs.items():
             names = op.inputs.get("OG@" + slot, [])
@@ -1114,16 +1120,22 @@ def run_fused_grad(op, fx, grp, env):
                 cts.append(env[n].to(p.dtype))
         keys = [k for k, v in gins.items()
                 if torch.is_tensor(v) and v.requires_grad]
+        retain = getattr(op, "_vjp_retain", False)
         got = [None] * len(keys)
         if prims and keys:
             got = torch.autograd.grad(prims, [gins[k] for k in keys], cts,
-                                      allow_unused=True)
+                                      allow_unused=True,
+                                      retain_graph=retain)
         grads = {k: (g if g is not None
                      else torch.zeros_like(gins[k])).detach()
                  for k, g in zip(keys, got)}
-        st[1] = None          # the forward graph is consumed
+        if not retain:
+            st[1] = None      # the forward graph is consumed
         st[2] = grads
-    uid = op.attrs["fwd_uid"]
+    elif grads is None:
+        raise RuntimeError(
+            f"fused group {grp.pattern}: grad ops out of order "
+            f"(got fwd_uid={uid}, expected {grp.last_uid} first)")
     member = next(m for m in grp.members if m.uid == uid)
     return {"IG@" + slot: [grads.pop((uid, slot, j), UNBOUND)
                            for j in range(len(names))]

@@ -13,7 +13,10 @@ semantics global:
 
   - row-local ops (``ROW_LOCAL``: elementwise, activations, casts and
     comparisons, ``mul``/``matmul`` over the last dims, ``layer_norm``,
-    dropout, ``lookup_table``, the attention op, the per-row losses) and
+    dropout, ``lookup_table``, the attention op, the convolutions and
+    pooling, the per-row losses; ``batch_norm`` only on its running
+    statistics: its batch statistics are the global batch's in the JAX
+    package, sync-BN, which waits) and
     the ops of ``AXIS_OPS`` (softmax, concat, reshape, transpose, ...)
     when they leave dim 0 alone: they run unchanged;
   - the reductions ``reduce_sum``, ``reduce_mean`` and ``mean`` over dim
@@ -66,6 +69,7 @@ elementwise_floordiv pow scale clip maximum_eps where
 equal not_equal less_than less_equal greater_than greater_equal
 logical_and logical_or logical_xor logical_not cast assign sum
 dropout layer_norm lookup_table mul matmul fused_attention one_hot
+conv2d depthwise_conv2d conv2d_transpose pool2d label_smooth
 softmax_with_cross_entropy cross_entropy sigmoid_cross_entropy_with_logits
 huber_loss smooth_l1_loss mse_loss tril_triu
 fill_constant_batch_size_like uniform_random_batch_size_like
@@ -207,6 +211,12 @@ def plan_mesh(program, ops, compiled, feed_names, persist_names,
             elif op.type == "layer_norm":
                 if op.attrs.get("begin_norm_axis", 1) == 0:
                     _refuse(op, hit[0], "normalizing over dim 0")
+            elif op.type == "batch_norm":
+                if not (program.is_test or op.attrs.get("is_test", False)
+                        or op.attrs.get("use_global_stats", False)):
+                    _refuse(op, hit[0], "for batch statistics, which are "
+                            "the global batch's in the JAX package "
+                            "(sync-BN is not ported)")
             elif op.type not in ROW_LOCAL:
                 _refuse(op, hit[0], "")
             sharded.update(outs)

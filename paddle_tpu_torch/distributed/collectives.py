@@ -57,17 +57,26 @@ def cross_process_mean(arr, group=None) -> np.ndarray:
     """Mean of ``arr`` (an array or a tensor) across the processes of the
     default group (or ``group``); identity in one process.
 
-    Returns HOST numpy, as the JAX package's does: an ``all_reduce`` sum
-    over the group divided by its size, on the card under NCCL."""
+    Returns HOST numpy with ``np.mean``'s dtype and accumulation, as the
+    JAX package's ``np.mean`` over the gathered stack: an ``all_reduce``
+    sum over the group (on the card under NCCL) in float64 for integer
+    and bool inputs and in at least float32 for floating ones, divided
+    by the group's size, then cast to the dtype ``np.mean`` returns."""
     if not dist.is_initialized() or dist.get_world_size(group) <= 1:
         return _host(arr)
     t = arr.detach() if torch.is_tensor(arr) else torch.from_numpy(
         np.ascontiguousarray(arr))
+    result = np.mean(np.zeros(1, _host(t[:0]).dtype)).dtype
+    if t.is_floating_point():
+        acc = torch.promote_types(t.dtype, torch.float32)
+    else:
+        acc = torch.float64
     if dist.get_backend(group) == "nccl":
         t = t.to(torch.device("cuda", torch.cuda.current_device()))
-    t = t.clone()
+    t = t.to(acc, copy=True)
     dist.all_reduce(t, group=group)
-    return (t / dist.get_world_size(group)).cpu().numpy()
+    return (t / dist.get_world_size(group)).cpu().numpy().astype(
+        result, copy=False)
 
 
 def dgc_sparse_allreduce(grad, k, group=None):

@@ -1,15 +1,18 @@
 """paddle_tpu_torch.layers — the layer library (counterpart of
 paddle_tpu.layers): what the BERT builders, the fc and 4-D attention
 programs, the learning-rate schedules and gradient clipping use, the
-loss and metric layers, the control-flow layers (While, cond, Switch,
+conv, pool and batch-norm layers of the vision models, ``label_smooth``
+and the beam decoder's layers (``gather_nd``, ``beam_search``,
+``beam_search_decode``), the loss and metric layers, the control-flow layers (While, cond, Switch,
 StaticRNN), and every generated unary/binary layer of the JAX package.  Importing it patches
 Variable's operators (math_op_patch)."""
 from ..core.program import data  # noqa: F401  (layers.data parity)
 from .nn import *  # noqa: F401,F403
 from .nn import _BINARY_OPS, _UNARY_OPS  # noqa: F401
 from .nn import (  # noqa: F401
-    accuracy, auc, cross_entropy, dropout, embedding, fc,
-    fused_multihead_attention, huber_loss, layer_norm, moe,
+    accuracy, auc, batch_norm, conv2d, conv2d_transpose, cross_entropy,
+    dropout, embedding, fc, fused_multihead_attention, huber_loss,
+    layer_norm, moe, pool2d,
     sigmoid_cross_entropy_with_logits, softmax_with_cross_entropy,
     square_error_cost,
 )
@@ -28,6 +31,8 @@ from .control_flow import (  # noqa: F401  (overrides nn's plain compare ops
     StaticRNN, Switch, While, cond, equal, greater_equal, greater_than,
     increment, less_equal, less_than, not_equal,
 )
+from .extras import label_smooth  # noqa: F401
+from .wave2 import beam_search, beam_search_decode, gather_nd  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
     natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay,

@@ -7,15 +7,17 @@ exports the comparisons of layers/control_flow.py, which take
 Each layer creates parameters through LayerHelper and appends ops
 (parity: python/paddle/fluid/layers/nn.py + fluid/layer_helper.py).
 Ported: the layers the BERT builders, a small fc program and the 4-D
-attention program (``square_error_cost``) emit, the loss and metric
-layers, ``moe``, and every generated unary and binary layer of the
-JAX file.
-Conv, pool and the norms other than layer_norm wait (ROADMAP.md Queue 1
-item 6).
+attention program (``square_error_cost``) emit, the conv, pool and
+batch-norm layers of the vision models, the loss and metric layers,
+``moe``, and every generated unary and binary layer of the JAX file.
+The other norms wait (ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
-from ..initializer import ConstantInitializer, XavierInitializer
+import numpy as np
+
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           XavierInitializer)
 from .helper import LayerHelper
 
 
@@ -78,6 +80,165 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
                "is_sparse": bool(is_sparse)},
     )
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """2-D convolution, NCHW (parity: layers/nn.py conv2d)."""
+    helper = LayerHelper("conv2d", name=name)
+    input = helper.input(input)
+    c_in = input.shape[1]
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size, filter_size)
+    filter_shape = [num_filters, c_in // groups, fsize[0], fsize[1]]
+    fan_in = (c_in // groups) * fsize[0] * fsize[1]
+    w = helper.create_parameter(
+        param_attr, filter_shape, input.dtype,
+        default_initializer=NormalInitializer(0.0, np.sqrt(2.0 / fan_in)),
+    )
+    # reference dispatch (layers/nn.py conv2d l_type): a conv whose
+    # groups == input channels is the depthwise op
+    l_type = "conv2d"
+    if groups > 1 and groups == c_in and num_filters % c_in == 0:
+        l_type = "depthwise_conv2d"
+    inputs = {"Input": [input.name], "Filter": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b.name]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type=l_type,
+        inputs=inputs,
+        outputs={"Output": [out.name]},
+        attrs={
+            "strides": list(stride) if isinstance(stride, (list, tuple))
+            else [stride, stride],
+            "paddings": list(padding) if isinstance(padding, (list, tuple))
+            else [padding, padding],
+            "dilations": list(dilation) if isinstance(dilation, (list, tuple))
+            else [dilation, dilation],
+            "groups": groups,
+        },
+    )
+    return helper.append_activation(out, act)
+
+
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name)
+    input = helper.input(input)
+    c_in = input.shape[1]
+    fsize = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size, filter_size)
+    w = helper.create_parameter(
+        param_attr, [c_in, num_filters, fsize[0], fsize[1]], input.dtype,
+        default_initializer=XavierInitializer())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [out.name]},
+        attrs={
+            "strides": list(stride) if isinstance(stride, (list, tuple))
+            else [stride, stride],
+            "paddings": list(padding) if isinstance(padding, (list, tuple))
+            else [padding, padding],
+        },
+    )
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        tmp = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(
+            type="elementwise_add",
+            inputs={"X": [out.name], "Y": [b.name]},
+            outputs={"Out": [tmp.name]},
+            attrs={"axis": 1},
+        )
+        out = tmp
+    return helper.append_activation(out, act)
+
+
+def pool2d(input, pool_size=2, pool_type="max", pool_stride=None,
+           pool_padding=0, global_pooling=False, exclusive=True,
+           adaptive=False, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    input = helper.input(input)
+    if pool_stride is None:
+        pool_stride = pool_size
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": list(pool_size) if isinstance(pool_size, (list, tuple))
+            else [pool_size, pool_size],
+            "strides": list(pool_stride)
+            if isinstance(pool_stride, (list, tuple))
+            else [pool_stride, pool_stride],
+            "paddings": list(pool_padding)
+            if isinstance(pool_padding, (list, tuple))
+            else [pool_padding, pool_padding],
+            "global_pooling": global_pooling,
+            "exclusive": exclusive,
+            "adaptive": adaptive,
+        },
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False, name=None):
+    """BatchNorm with persistable running stats (parity: layers/nn.py
+    batch_norm + operators/batch_norm_op.cc)."""
+    helper = LayerHelper("batch_norm", name=name)
+    input = helper.input(input)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        param_attr, [c], input.dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+
+    def _stat_var(nm, init):
+        main_block = helper.main_program.global_block()
+        v = main_block.create_var(name=nm, shape=[c], dtype=input.dtype,
+                                  persistable=True, stop_gradient=True)
+        sb = helper.startup_program.global_block()
+        sv = sb.create_var(name=nm, shape=[c], dtype=input.dtype,
+                           persistable=True, stop_gradient=True)
+        ConstantInitializer(init).append_op(sv, sb)
+        return v
+
+    from ..core import unique_name
+
+    mean = _stat_var(
+        moving_mean_name or unique_name.generate(f"{helper.name}.mean"), 0.0)
+    var = _stat_var(
+        moving_variance_name
+        or unique_name.generate(f"{helper.name}.var"), 1.0)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name],
+                "Bias": [bias.name], "Mean": [mean.name],
+                "Variance": [var.name]},
+        outputs={"Y": [y.name], "MeanOut": [mean.name],
+                 "VarianceOut": [var.name], "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats},
+    )
+    return helper.append_activation(y, act)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -1,13 +1,20 @@
-"""Neural-net ops of the ported training path: layer norm, dropout, the
-losses (softmax and plain cross entropy, sigmoid cross entropy, smooth
-L1, Huber, the squared error) and the batch metrics (accuracy, AUC).
+"""Neural-net ops of the ported training path: the convolutions, pooling,
+batch and layer norm, dropout, the losses (softmax and plain cross
+entropy, sigmoid cross entropy, smooth L1, Huber, the squared error) and
+the batch metrics (accuracy, AUC).
 
-Counterpart of paddle_tpu/ops/nn.py (parity: operators/layer_norm_op.cc,
+Counterpart of paddle_tpu/ops/nn.py (parity: operators/conv_op.cc,
+conv_transpose_op.cc, pool_op.cc, batch_norm_op.cc, layer_norm_op.cc,
 dropout_op.cc, softmax_with_cross_entropy_op.cc, cross_entropy_op.cc,
 sigmoid_cross_entropy_with_logits_op.cc, smooth_l1_loss_op.cc,
 huber_loss_op.cc, metrics/accuracy_op.cc, metrics/auc_op.cc), with its
 numerics:
-layer norm over the trailing axes with the population variance and eps
+NCHW convolutions with symmetric paddings (``F.conv2d``, cuDNN on the
+card: the JAX package has no Pallas kernel for them, and
+``_device.set_strict_fp32`` keeps cuDNN off TF32); max pooling over
+``-inf`` padding, average pooling dividing by the real cells when
+``exclusive``; batch norm with f32 batch statistics (the population
+variance) and f32 running statistics; layer norm over the trailing axes with the population variance and eps
 1e-5; cross entropy with ``ignore_index``.  Dropout draws its mask from a
 ``torch.Generator`` seeded with the op's seed, so it cannot repeat the
 JAX package's mask: parity runs at dropout 0.  The ``fused_attention``
@@ -21,6 +28,139 @@ import torch.nn.functional as F
 
 from ..core.registry import out, register_op, single
 from . import flash_attention as _fa
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+@register_op("conv2d", inputs=("Input", "Filter", "Bias"),
+             outputs=("Output",))
+def conv2d(ctx, inputs, attrs):
+    """NCHW input, OIHW filter, optional per-channel Bias."""
+    x = single(inputs, "Input")
+    w = single(inputs, "Filter")
+    b = single(inputs, "Bias")
+    y = F.conv2d(x, w, None if b is None else b.reshape(-1),
+                 _pair(attrs.get("strides", [1, 1])),
+                 _pair(attrs.get("paddings", [0, 0])),
+                 _pair(attrs.get("dilations", [1, 1])),
+                 int(attrs.get("groups", 1)))
+    return {"Output": [y]}
+
+
+@register_op("depthwise_conv2d", inputs=("Input", "Filter", "Bias"),
+             outputs=("Output",))
+def depthwise_conv2d(ctx, inputs, attrs):
+    # conv2d's body with groups defaulted to the channel count, as the
+    # JAX package shares it
+    x = single(inputs, "Input")
+    attrs = dict(attrs)
+    attrs["groups"] = int(attrs.get("groups", x.shape[1]))
+    return conv2d(ctx, inputs, attrs)
+
+
+@register_op("conv2d_transpose", inputs=("Input", "Filter"),
+             outputs=("Output",))
+def conv2d_transpose(ctx, inputs, attrs):
+    """The JAX package's op: ``lax.conv_transpose(x, swapaxes(w, 0, 1),
+    transpose_kernel=True)``, which is torch's ``conv_transpose2d`` over
+    the filter with its first two axes swapped — so the filter's axis 1
+    is the input's channels, as in that op (its layer creates [in_c,
+    out_c, H, W], which runs only when the two are equal).  Its explicit
+    padding ``p`` pads the stride-dilated input: torch's ``padding = k -
+    1 - p``; a ``p`` past ``k - 1`` only adds zero borders."""
+    x = single(inputs, "Input")
+    w = single(inputs, "Filter").transpose(0, 1)
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    tpad = [int(k) - 1 - p for k, p in zip(w.shape[2:], pads)]
+    y = F.conv_transpose2d(x, w, None, strides,
+                           tuple(max(q, 0) for q in tpad))
+    extra = [max(-q, 0) for q in tpad]
+    if any(extra):
+        y = F.pad(y, (extra[1], extra[1], extra[0], extra[0]))
+    return {"Output": [y]}
+
+
+@register_op("pool2d", inputs=("X",), outputs=("Out",))
+def pool2d(ctx, inputs, attrs):
+    """max / avg over NCHW windows; ``global_pooling`` takes the whole
+    map, ``adaptive`` (divisible sizes) an output of ``ksize``."""
+    x = single(inputs, "X")
+    ptype = attrs.get("pooling_type", "max")
+    if attrs.get("global_pooling", False):
+        ksize, pads, strides = (x.shape[2], x.shape[3]), (0, 0), (1, 1)
+    else:
+        ksize = _pair(attrs.get("ksize", [2, 2]))
+        strides = _pair(attrs.get("strides", ksize))
+        pads = _pair(attrs.get("paddings", [0, 0]))
+    if attrs.get("adaptive", False):
+        oh, ow = ksize
+        ksize = (x.shape[2] // oh, x.shape[3] // ow)
+        strides, pads = ksize, (0, 0)
+    ksize = tuple(int(k) for k in ksize)
+    # torch pads at most half a window itself; wider pads go in first
+    own = all(p <= k // 2 for p, k in zip(pads, ksize))
+    pad4 = (pads[1], pads[1], pads[0], pads[0])
+    if ptype == "max":
+        if own:
+            return out(Out=F.max_pool2d(x, ksize, strides, pads))
+        return out(Out=F.max_pool2d(F.pad(x, pad4, value=float("-inf")),
+                                    ksize, strides))
+    exclusive = attrs.get("exclusive", True) and pads != (0, 0)
+    if own:
+        return out(Out=F.avg_pool2d(x, ksize, strides, pads,
+                                    count_include_pad=not exclusive))
+    window = float(ksize[0] * ksize[1])
+    summed = F.avg_pool2d(F.pad(x, pad4), ksize, strides) * window
+    if not exclusive:
+        return out(Out=summed / window)
+    ones = F.pad(torch.ones_like(x[:1, :1]), pad4)
+    counts = F.avg_pool2d(ones, ksize, strides) * window
+    return out(Out=summed / counts)
+
+
+@register_op("batch_norm",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"))
+def batch_norm(ctx, inputs, attrs):
+    """Parity: operators/batch_norm_op.cc.  Training normalizes by the
+    batch mean and population variance (taken in f32) and emits the
+    running statistics ``momentum * old + (1 - momentum) * batch`` in
+    f32 (MeanOut/VarianceOut alias the Mean/Variance persistables);
+    ``is_test`` or ``use_global_stats`` normalizes by the running
+    statistics.  The statistics outputs carry no graph: nothing
+    differentiates them."""
+    x = single(inputs, "X")
+    scale = single(inputs, "Scale")
+    bias = single(inputs, "Bias")
+    mean = single(inputs, "Mean").detach()
+    var = single(inputs, "Variance").detach()
+    eps = float(attrs.get("epsilon", 1e-5))
+    momentum = float(attrs.get("momentum", 0.9))
+    nhwc = attrs.get("data_layout", "NCHW") != "NCHW" and x.dim() > 2
+    xc = x.movedim(-1, 1) if nhwc else x
+    if ctx.is_test or attrs.get("use_global_stats", False):
+        y = F.batch_norm(xc, mean.to(x.dtype), var.to(x.dtype), scale, bias,
+                         False, 0.0, eps)
+        saved_mean, saved_var = mean, var
+        mean_out, var_out = mean.float(), var.float()
+    else:
+        axes = (0,) + tuple(range(2, xc.dim()))
+        batch_var, batch_mean = torch.var_mean(xc.detach().float(),
+                                               dim=axes, correction=0)
+        y = F.batch_norm(xc, None, None, scale, bias, True, 0.0, eps)
+        saved_mean, saved_var = batch_mean, batch_var
+        mean_out = momentum * mean.float() + (1.0 - momentum) * batch_mean
+        var_out = momentum * var.float() + (1.0 - momentum) * batch_var
+    if nhwc:
+        y = y.movedim(1, -1)
+    return out(Y=y, MeanOut=mean_out, VarianceOut=var_out,
+               SavedMean=saved_mean, SavedVariance=saved_var)
 
 
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),

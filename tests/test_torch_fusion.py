@@ -164,7 +164,34 @@ def _bert(P, fused_attention):
     return ("src_ids", "input_mask", "masked_labels"), [loss.name]
 
 
+def _nmt_big(P):
+    """The NMT training program at NMTConfig.big(), 256/256 (the IR
+    only: no weights are made)."""
+    import paddle_tpu.models as jm
+    import paddle_tpu_torch.models as pm
+
+    m = jm if P is jpt else pm
+    loss, feeds = m.build_nmt_train(m.NMTConfig.big(), 256, 256)
+    P.optimizer.Adam(1e-4).minimize(loss)
+    return tuple(feeds), [loss.name]
+
+
+def _resnet50(P):
+    """ResNet-50 at 224 as bench.py builds it, Momentum(0.1, 0.9)."""
+    import paddle_tpu.models as jm
+    import paddle_tpu_torch.models as pm
+
+    m = jm if P is jpt else pm
+    img = P.data("img", [None, 3, 224, 224])
+    label = P.data("label", [None, 1], "int64")
+    _, loss, _ = m.resnet(img, label, depth=50)
+    P.optimizer.Momentum(0.1, momentum=0.9).minimize(loss)
+    return ("img", "label"), [loss.name]
+
+
 PROGRAMS = {
+    "nmt_big": _nmt_big,
+    "resnet50": _resnet50,
     "bert_tiny_fused_attention": lambda P: _bert(P, True),
     "bert_tiny_unfused_attention": lambda P: _bert(P, False),
     "encoder_block": _encoder_block,
@@ -251,6 +278,24 @@ def test_expected_groups():
          ("ffn_chain",
           "mul+bias+gelu+mul+bias+dropout+residual+layer_norm")] * 2
         + [("gemm", "mul+bias")])
+
+
+def test_nmt_and_resnet_plans():
+    """The JAX planner's plans of the two bench models, group for group
+    above; here their counts: NMT-big's 12 self-attention entries (6
+    causal), 12 relu FFNs and 18 residual norms with their dropout, and
+    the cross-attentions' 12 q/kv projections; ResNet-50's classifier
+    alone."""
+    from collections import Counter
+
+    nmt = _plans("nmt_big", True)[1]
+    assert Counter(g["pattern"] for g in nmt["groups"]) == {
+        "mul+bias+slice3+attention": 12,
+        "mul+bias+relu+mul+bias+dropout+residual+layer_norm": 12,
+        "mul+bias+dropout+residual+layer_norm": 18, "mul+bias": 12}
+    rn = _plans("resnet50", True)[1]
+    assert [(g["kind"], g["pattern"]) for g in rn["groups"]] == [
+        ("gemm", "mul+bias")]
 
 
 def test_internal_grad_sum_of_qkv_is_skipped():

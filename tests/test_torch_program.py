@@ -87,11 +87,11 @@ def test_unported_op_builds_and_raises_at_run_time():
         x = pt.data("x", [None, 4])
         block = pt.default_main_program().global_block()
         out = block.create_var(name="y")
-        block.append_op(type="conv2d", inputs={"Input": [x.name]},
-                        outputs={"Output": [out.name]}, attrs={})
+        block.append_op(type="group_norm", inputs={"X": [x.name]},
+                        outputs={"Y": [out.name]}, attrs={})
         assert out.shape is None          # built, no shape inferred
         exe = pt.Executor(pt.CPUPlace())
-        with pytest.raises(NotImplementedError, match="'conv2d'"):
+        with pytest.raises(NotImplementedError, match="'group_norm'"):
             exe.run(feed={"x": np.zeros((2, 4), np.float32)},
                     fetch_list=[out])
 
