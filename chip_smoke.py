@@ -10,8 +10,9 @@ Phases (any failure exits non-zero and prints no result):
    the ragged paged attention and the paged decode attention of the
    serving paths, the flash-attention forward, dq and dk/dv kernels (packed
    and flat layouts) and the qkv-folded flash forward of training (one
-   source), and the fused
-   matmul epilogue and the FFN chain of the fusion pass (one source);
+   source, and one more for their bfloat16 and float16 entries), and the
+   fused matmul epilogue and the FFN chain of the fusion pass (the same,
+   two sources);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it and at edge cases, with its time, the plain
    version's time, a PyTorch library call's time and the least time the
@@ -352,6 +353,51 @@ Phases (any failure exits non-zero and prints no result):
       smallest gap between adjacent final beam scores.
    Its numbers go on a {"bench_models": {...}} line before the kernels
    line.
+18. bf16 and fp16 AMP training (contrib.mixed_precision.decorate; the
+   lowering's dtype policy; the fused groups in the kernels' bfloat16
+   and float16 variants):
+   a. build_bert_pretrain(BertConfig.large(), 512, max_masked=80) under
+      decorate(Adam(1e-4), "bfloat16"), batch 16, dropout 0.1, fusion
+      on (bench.py:3121): 2 warm-up and 10 timed steps — the lowered
+      plan equal to the port's planner's, finite losses, per step the
+      bf16 #9, #5 and #6 once an attention group and #10 once a GEMM
+      group and twice an FFN group (N 1024 is past #11's rule), #11
+      never, no plain version, no library load after the first step;
+      step ms, tokens/s, peak memory, one profiled step (busy share, the
+      port's kernels' share); then the same program without AMP, 3
+      steps: the f32 step beside it;
+   b. the same at BertConfig.base(), 64 x 128, max_masked=20
+      (bench.py:3124), #11 in bf16 once an FFN;
+   c. BERT-base cut to 2 layers at 8 x 128 under decorate(SGD(0.1),
+      "float16") with dynamic loss scaling from 2^24 (its scaled
+      gradients overflow float16: the first steps shrink the scale, the
+      later grow it every 2 good steps): loss_scaling, good_steps and
+      bad_steps after every step equal to the port's CPU run of the same
+      program and weights, the float16 variants launched;
+   d. phase 17's ResNet-50 (Momentum(0.1, 0.9), batch 256 halved until
+      it fits; cuDNN's bf16 convolutions, batch norm on the gray path
+      with its Mean/Variance kept float32, #10 bf16 for the classifier)
+      and NMT-big at 32 x 256/256 (#9, #3, #5, #6, #10 in bf16 at phase
+      17b's counts) under bf16 AMP: 2 warm-up and 5 timed steps each —
+      finite losses, the launches, no plain version; step ms, images/s,
+      target tokens/s, peak memory;
+   e. BERT-large cut to 2 layers (4 x 128), ResNet-18 (16 images of 112,
+      Momentum(0.001, 0.9)) and NMT-big cut to 2 + 2 layers (4 x
+      64/64), dropout 0: the card's first bf16 loss within 5e-3
+      relative of the port's CPU run of the same program and weights,
+      and the 5-step bf16 trajectory within 5e-2 relative of the f32 one
+      from the same weights (tests/test_amp.py:87's bound).
+   Its numbers go on an {"amp": {...}} line before the kernels line.
+Phase 2 also holds the bfloat16 and float16 variants of the packed
+flash kernels (#3, #5, #6), the qkv-folded forward (#9), the fused
+matmul (#10) and the FFN chain (#11) against their plain versions in the
+same element type, at BERT-large's attention (16 x 512, 16 heads of 64,
+key padding, dropout 0.1) and GEMMs (M 8192: K 1024 -> N 1024, 3072,
+4096; K 4096 -> N 1024), BERT-base's FFN and attention output (M 8192),
+a key-padding bias with one fully padded row and T 100 (off the 32-row
+tiles), with the stated tolerances (AMP_TOL), and times each beside its
+plain version, the library call in the same dtype and its bound at the
+bf16 tensor-core rate (and the 1xTF32 rate its design runs at).
 Phase 2 also holds the packed and the qkv-folded flash forwards at the
 decoder's causal shape (8 x 128, 12 heads of 64, no key bias) against
 their plain versions and times them beside SDPA's causal forward, and
@@ -368,10 +414,10 @@ numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 {"control_flow": {...}} (phase 11's), {"dataset": {...}} (phase 12's),
 {"sparse_recompute": {...}} (phase 13's), {"fleet_tuning_artifact":
 {...}} (phase 14's), {"parallel": {...}} (phase 15's), {"ps": {...}}
-(phase 16's), {"bench_models": {...}} (phase 17's) and {"kernels":
-[...]}, one
-entry per
-kernel with its own launches, error and times; the last line is
+(phase 16's), {"bench_models": {...}} (phase 17's), {"amp": {...}}
+(phase 18's) and {"kernels": [...]}, one entry per kernel (each
+bfloat16 and float16 variant beside its float32 entry) with its own
+launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
 path's run: the unfused lowering's for the packed flash forward, the
 fused training steps' for the other training kernels, phase 6's timed
@@ -382,7 +428,9 @@ phase 12c's QueueDataset epoch's, 13a's timed steps' and (the packed
 forward, dq and dk/dv) 13b's Recompute steps', and the five
 fused-step kernels phase 16a's trainer processes' and 16d's collective
 steps', and phase 17's runs theirs (17a's and 17b's timed steps, 17b's
-base steps, 17c's timed beam runs).  Details go to
+base steps, 17c's timed beam runs); a variant's are phase 18's (18a's
+and 18b's timed steps, 18c's card steps, 18d's timed steps).  Details go
+to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
@@ -441,42 +489,61 @@ KERNELS = [
          replaces="paddle_tpu/generation/attention.py:101",
          build="paged_decode"),
     dict(name="flash_fwd_packed", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/pallas_ops.py:148",
          build="flash_attention"),
     dict(name="flash_bwd_dq_packed", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/pallas_ops.py:445",
          build="flash_attention"),
     dict(name="flash_bwd_dkv_packed", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/pallas_ops.py:502",
          build="flash_attention"),
     dict(name="flash_fwd_qkv", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/attention_epilogue.py:119",
          build="flash_attention"),
     dict(name="gemm_epilogue", route="cuda",
-         source="paddle_tpu_torch/csrc/gemm_epilogue.cu",
+         source="paddle_tpu_torch/csrc/gemm_epilogue.cuh",
          replaces="paddle_tpu/ops/pallas_matmul.py:161",
          build="gemm_epilogue"),
     dict(name="ffn_chain", route="cuda",
-         source="paddle_tpu_torch/csrc/gemm_epilogue.cu",
+         source="paddle_tpu_torch/csrc/gemm_epilogue.cuh",
          replaces="paddle_tpu/ops/pallas_ffn_chain.py:163",
          build="gemm_epilogue"),
     dict(name="flash_fwd_flat", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/pallas_ops.py:88",
          build="flash_attention"),
     dict(name="flash_bwd_dq_flat", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/pallas_ops.py:335",
          build="flash_attention"),
     dict(name="flash_bwd_dkv_flat", route="cuda",
-         source="paddle_tpu_torch/csrc/flash_attention.cu",
+         source="paddle_tpu_torch/csrc/flash_attention.cuh",
          replaces="paddle_tpu/ops/pallas_ops.py:381",
          build="flash_attention"),
 ]
+
+
+def _with_variants(kernels):
+    """Each kernel that AMP runs followed by its bfloat16 and float16
+    entries (built from ``<source>_amp.cu``), so the kernels line lists
+    every variant beside its float32 entry."""
+    out = []
+    for k in kernels:
+        out.append(k)
+        if k["name"] in ("flash_fwd_packed", "flash_bwd_dq_packed",
+                         "flash_bwd_dkv_packed", "flash_fwd_qkv",
+                         "gemm_epilogue", "ffn_chain"):
+            out += [dict(k, name=f"{k['name']}_{sfx}",
+                         build=f"{k['build']}_amp") for sfx in ("bf16",
+                                                                "f16")]
+    return out
+
+
+KERNELS = _with_variants(KERNELS)
 #: legacy prompts: two prefill seq buckets (16 and 32) at page_size 16
 LEGACY_LENGTHS = (8, 12, 16, 20, 24, 28, 32, 32)
 #: shared prefix of the prefix-cache prompts: 4 full pages
@@ -1769,6 +1836,463 @@ FLAT_CASES = {
 }
 
 
+# -- phase 2: the bfloat16 and float16 variants (AMP) -------------------------
+
+#: AMP's element types, and the kernels that run in them (the packed flash
+#: entries, the qkv-folded forward, the fused matmul and the FFN chain)
+AMP_DTYPES = ("bfloat16", "float16")
+AMP_KERNEL_NAMES = ("flash_fwd_packed", "flash_bwd_dq_packed",
+                    "flash_bwd_dkv_packed", "flash_fwd_qkv", "gemm_epilogue",
+                    "ffn_chain")
+#: dense bf16/fp16 tensor-core FLOP/s (the H100 SXM datasheet): the peak
+#: rate for the variants' input type; beside it the 1xTF32 rate
+#: (TF32_FLOPS) that their one TF32 product a step runs at
+BF16_FLOPS = 989e12
+#: a bfloat16/float16 kernel against its plain version at the same
+#: rounding points, summed in float32 in other orders: an output in the
+#: element type may round to the neighbouring value, and a rounded input
+#: of a product (p, ds) may too, so the worst element is held to a few
+#: units of the type's last place at the output's scale, and (bfloat16)
+#: the mean to a fraction of one: (max, mean) errors as fractions of
+#: max|ref|; float32 outputs (lse, dbias) as the float32 cases' atol
+AMP_TOL = {"bfloat16": (2.0 ** -6, 2.0 ** -9),
+           "float16": (2.0 ** -9, None)}
+AMP_F32_ATOL = 1e-4
+#: dbias (float32) as a fraction of max|ref|: a fully padded row's scores
+#: sit near -1e4, where float32's spacing is 2^-10, so the kernel's and
+#: the plain version's p, both recomputed from scores summed in other
+#: orders, part by up to ~1e-3 relative there, and ds and dbias with them
+AMP_DBIAS_RTOL = 1e-3
+#: BERT-large's attention and GEMMs (bench.py:3121: 16 x 512, 16 heads of
+#: 64, hidden 1024, FFN 4096) and BERT-base's FFN at 64 x 128 (bench.py:
+#: 3124); the edge cases: a key-padding bias with one fully padded row,
+#: and T off the kernels' 32-row tiles
+AMP_FLASH_CASES = {
+    "large": (16, 512, 512, 16, 64, False, True, 0.1),
+    "pad_row": (2, 128, 128, 4, 64, False, True, 0.0),
+    "t100": (4, 100, 100, 8, 64, True, False, 0.0),
+}
+AMP_QKV_CASES = {
+    "large": (16, 512, 16, 64, False, True, 0.1),
+    "t100": (4, 100, 8, 64, False, True, 0.0),
+}
+AMP_GEMM_CASES = {
+    "large_attn_out": (8192, 1024, 1024, dict(
+        residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "large_ffn_up": (8192, 1024, 4096, dict(act="gelu")),
+    "large_n3072": (8192, 1024, 3072, dict()),
+    "large_ffn_down": (8192, 4096, 1024, dict(
+        residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "base_attn_out": (8192, 768, 768, dict(
+        residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "ragged": (1000, 512, 1000, dict(
+        act="gelu", residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+}
+AMP_FFN_CASES = {
+    "base": (8192, 768, 3072, 768, dict(
+        act="gelu", residual=True, gamma=True, beta=True, dropout_rate=0.1,
+        norm="layer_norm")),
+    "ragged": (1000, 256, 1024, 512, dict(
+        act="gelu", residual=True, gamma=True, dropout_rate=0.1,
+        norm="rms_norm")),
+}
+#: the case each kernel's variant is timed at
+AMP_TIMED = {"flash_fwd_packed": "large", "flash_bwd_dq_packed": "large",
+             "flash_bwd_dkv_packed": "large", "flash_fwd_qkv": "large",
+             "gemm_epilogue": "large_ffn_down", "ffn_chain": "base"}
+
+
+#: each AMP case's float32 inputs, made once for both element types
+_AMP_DATA = {}
+
+
+def _amp_data(key, make):
+    if key not in _AMP_DATA:
+        _AMP_DATA[key] = make()
+    return _AMP_DATA[key]
+
+
+def amp_name(kernel, dtype):
+    """The kernels-line name (and LAUNCHES key) of a variant."""
+    from paddle_tpu_torch import _cuda
+
+    return _cuda.launch_key(kernel, dtype)
+
+
+def _amp_err(got, want, dtype, what):
+    """(max, mean) |got - want| over max|want|; raises past AMP_TOL."""
+    import torch
+
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max()) or 1.0
+    diff = (got - want).abs()
+    mx, mean = float(diff.max()) / scale, float(diff.mean()) / scale
+    tmax, tmean = AMP_TOL[dtype]
+    if not (mx <= tmax and (tmean is None or mean <= tmean)
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(
+            f"{what} ({dtype}): max error {mx:.3e} (tolerance {tmax:.3e}) "
+            f"mean {mean:.3e} (tolerance {tmean}) of max|ref| {scale:.4g}")
+    return float(diff.max()), mx, mean
+
+
+def _amp_bound(flops, nbytes):
+    """(ms, bound_by, bytes, flops, tf32_ms): the larger of the bytes over
+    HBM's rate and the flops over the bf16/fp16 tensor-core peak; beside
+    it the same with the flops at the 1xTF32 rate this design runs."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops,
+            max(t_bytes, flops / TF32_FLOPS * 1e3))
+
+
+def _amp_flash(device, dt, name, spec, report, timed):
+    """One flash case in element type ``dt``: the packed forward and the
+    backward pair against flash_ref_forward / _backward (the kernels' own
+    dropout mask handed to the plain versions)."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dt)
+    c, do = _amp_data(("flash", spec), lambda: flash_case(device, *spec))
+    B, Tq, H = c["q"].shape
+    Tk, nh, rate = c["k"].shape[1], c["num_heads"], c["dropout_rate"]
+    bias = c["bias"]
+    if name == "pad_row":
+        bias = bias.clone()
+        bias[-1] = -1e4                      # one row with every key padded
+    if not c["q"].is_contiguous():           # strided views of one qkv
+        qkv = torch.cat([c["q"], c["k"], c["v"]], -1).to(dtype)
+        q, k, v = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:]
+    else:
+        q, k, v = (c[n].to(dtype) for n in ("q", "k", "v"))
+    do = do.to(dtype)
+    mask = (fa.flash_kernel_dropout_mask(B, nh, Tq, Tk, rate, c["seed"],
+                                         device) if rate else None)
+    kw = dict(causal=c["causal"], dropout_rate=rate)
+    o, lse = fa.flash_kernel_forward(q, k, v, nh, bias=bias, seed=c["seed"],
+                                     **kw)
+    o_ref, lse_ref = fa.flash_ref_forward(q, k, v, nh, bias=bias,
+                                          keep_mask=mask, **kw)
+    delta = fa.flash_delta(o, do, nh)
+    dq = fa.flash_kernel_dq(q, k, v, bias, do, lse, delta, nh,
+                            seed=c["seed"], **kw)
+    dk, dv, dbias_h = fa.flash_kernel_dkv(q, k, v, bias, do, lse, delta, nh,
+                                          seed=c["seed"], **kw)
+    rq, rk, rv, rb = fa.flash_ref_backward(q, k, v, bias, o, lse, do, nh,
+                                           keep_mask=mask, **kw)
+    sync(device)
+    if not (o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+            and lse.dtype == dbias_h.dtype == torch.float32):
+        raise AssertionError(f"flash {dt} {name}: output dtypes "
+                             f"{o.dtype} {dq.dtype} {lse.dtype}")
+    errs = {"o": _amp_err(o, o_ref, dt, f"flash {name} o"),
+            "dq": _amp_err(dq, rq, dt, f"flash {name} dq"),
+            "dk": _amp_err(dk, rk, dt, f"flash {name} dk"),
+            "dv": _amp_err(dv, rv, dt, f"flash {name} dv")}
+    dbias = dbias_h.sum(1)
+    f32 = {"lse": float((lse - lse_ref).abs().max()),
+           "dbias": float((dbias - rb).abs().max())}
+    dbias_rel = f32["dbias"] / (float(rb.abs().max()) or 1.0)
+    if f32["lse"] > AMP_F32_ATOL or dbias_rel > AMP_DBIAS_RTOL:
+        raise AssertionError(f"flash {dt} {name}: float32 outputs {f32} "
+                             f"(dbias {dbias_rel:.2e} of max|ref|) past "
+                             f"{AMP_F32_ATOL} / {AMP_DBIAS_RTOL}")
+    log(f"  flash {dt} {name}: B={B} Tq={Tq} Tk={Tk} nh={nh} D={H // nh} "
+        f"causal={c['causal']} dropout={rate} max/mean error of max|ref| "
+        + " ".join(f"{n}={e[1]:.2e}/{e[2]:.2e}" for n, e in errs.items())
+        + " " + " ".join(f"{n}={e:.2e}" for n, e in f32.items())
+        + f" (dbias {dbias_rel:.2e} of max|ref|; tol {AMP_TOL[dt]}, lse "
+        f"{AMP_F32_ATOL:g}, dbias {AMP_DBIAS_RTOL:g} of max|ref|)")
+    for kern, outs in ((fa.FWD, ("o",)), (fa.DQ, ("dq",)),
+                       (fa.DKV, ("dk", "dv"))):
+        r = report[amp_name(kern, dtype)]
+        err = max([errs[n][0] for n in outs]
+                  + ([f32["lse"]] if kern == fa.FWD else [])
+                  + ([f32["dbias"]] if kern == fa.DKV else []))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"][name] = {n: errs[n][1] for n in outs}
+    if name != timed:
+        return
+    import torch.nn.functional as F
+
+    D = H // nh
+    args = (q, k, v)
+    t = {fa.FWD: time_ms(lambda: fa.flash_kernel_forward(
+            *args, nh, bias=bias, seed=c["seed"], **kw), device, iters=50),
+         fa.DQ: time_ms(lambda: fa.flash_kernel_dq(
+            *args, bias, do, lse, delta, nh, seed=c["seed"], **kw), device,
+            iters=50),
+         fa.DKV: time_ms(lambda: fa.flash_kernel_dkv(
+            *args, bias, do, lse, delta, nh, seed=c["seed"], **kw), device,
+            iters=50)}
+    plain = {fa.FWD: time_ms(lambda: fa.flash_ref_forward(
+        *args, nh, bias=bias, keep_mask=mask, **kw), device, iters=5)}
+    plain[fa.DQ] = plain[fa.DKV] = time_ms(lambda: fa.flash_ref_backward(
+        *args, bias, o, lse, do, nh, keep_mask=mask, **kw), device, iters=5)
+    heads = [x.reshape(B, -1, nh, D).transpose(1, 2).contiguous()
+             .requires_grad_() for x in args]
+    am = bias.to(dtype)[:, None, None, :]
+    lib = {fa.FWD: time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, attn_mask=am, dropout_p=rate), device, iters=50)}
+    out = F.scaled_dot_product_attention(*heads, attn_mask=am,
+                                         dropout_p=rate)
+    do_h = do.reshape(B, Tq, nh, D).transpose(1, 2).contiguous()
+    lib[fa.DQ] = lib[fa.DKV] = time_ms(lambda: torch.autograd.grad(
+        out, heads, do_h, retain_graph=True), device, iters=50)
+    unit = B * nh * Tq * Tk * D
+    qb, kvb, rows = 2 * B * Tq * H, 2 * B * Tk * H, 4 * B * nh * Tq
+    work = {fa.FWD: (4 * unit, 2 * qb + 2 * kvb + 4 * B * Tk + rows),
+            fa.DQ: (6 * unit, 3 * qb + 2 * kvb + 4 * B * Tk + 2 * rows),
+            fa.DKV: (8 * unit, 2 * qb + 4 * kvb + 4 * B * Tk + 2 * rows
+                     + 4 * B * nh * Tk)}
+    for kern in (fa.FWD, fa.DQ, fa.DKV):
+        bms, by, nb, fl, tf32 = _amp_bound(*work[kern])
+        report[amp_name(kern, dtype)]["timing"] = dict(
+            ms=t[kern], plain_ms=plain[kern], library_ms=lib[kern],
+            bound_ms=bms, bound_by=by, bytes=nb, flops=fl, tf32_bound_ms=tf32,
+            bound_rate="bf16/fp16 tensor cores 989 TFLOP/s (tf32_bound_ms: "
+            "the 1xTF32 rate, 495 TFLOP/s, that the design runs at)",
+            library="SDPA " + ("forward" if kern == fa.FWD else
+                               "backward (dq, dk, dv together)")
+            + f" in {dt}, the bias as attn_mask",
+            shape=dict(B=B, T=Tq, nh=nh, D=D, dropout=rate))
+        log(f"  {amp_name(kern, dtype)} timing ({name}): ms={t[kern]:.5f} "
+            f"plain_ms={plain[kern]:.5f} library_ms={lib[kern]:.5f} "
+            f"bound_ms={bms:.6f} ({by}; 1xTF32 {tf32:.6f})")
+
+
+def _amp_qkv(device, dt, name, spec, report, timed):
+    """One qkv-folded forward case in ``dt``: o and lse against
+    qkv_ref_forward on the same pre-bias qkv (the dropout mask the
+    kernels draw)."""
+    import torch
+
+    from paddle_tpu_torch.ops import attention_epilogue as ae
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dtype = getattr(torch, dt)
+    B, T, nh, D, causal, has_bias, rate = spec
+    H = nh * D
+    g = torch.Generator().manual_seed(SEED + 2200 + len(name))
+    qkv = torch.randn(B, T, 3 * H, generator=g).to(device, dtype)
+    b_qkv = (0.1 * torch.randn(3 * H, generator=g)).to(device)
+    bias = padding_bias(B, T).reshape(B, T).to(device) if has_bias else None
+    seed = SEED + 2300
+    mask = (fa.flash_kernel_dropout_mask(B, nh, T, T, rate, seed, device)
+            if rate else None)
+    o, lse = fa.flash_kernel_forward_qkv(qkv, b_qkv, nh, bias, causal,
+                                         dropout_rate=rate, seed=seed)
+    o_ref, lse_ref = ae.qkv_ref_forward(qkv, b_qkv, nh, bias, causal,
+                                        dropout_rate=rate, keep_mask=mask)
+    sync(device)
+    err = _amp_err(o, o_ref, dt, f"flash_fwd_qkv {name} o")
+    lse_err = float((lse - lse_ref).abs().max())
+    if o.dtype != dtype or lse_err > AMP_F32_ATOL:
+        raise AssertionError(f"flash_fwd_qkv {dt} {name}: {o.dtype}, lse "
+                             f"error {lse_err}")
+    log(f"  flash_fwd_qkv {dt} {name}: B={B} T={T} nh={nh} D={D} causal="
+        f"{causal} bias={has_bias} dropout={rate} o max/mean error of "
+        f"max|ref| {err[1]:.2e}/{err[2]:.2e} lse {lse_err:.2e}")
+    r = report[amp_name(fa.QKV, dtype)]
+    r["max_abs_err"] = max(r["max_abs_err"], err[0], lse_err)
+    r["cases"][name] = dict(o=err[1], lse=lse_err)
+    if name != timed:
+        return
+    import torch.nn.functional as F
+
+    ms = time_ms(lambda: fa.flash_kernel_forward_qkv(
+        qkv, b_qkv, nh, bias, causal, dropout_rate=rate, seed=seed), device,
+        iters=50)
+    plain_ms = time_ms(lambda: ae.qkv_ref_forward(
+        qkv, b_qkv, nh, bias, causal, dropout_rate=rate, keep_mask=mask),
+        device, iters=5)
+    q, k, v = ((qkv[..., i * H:(i + 1) * H] + b_qkv[i * H:(i + 1) * H]
+                .to(dtype)).reshape(B, T, nh, D).transpose(1, 2)
+               for i in range(3))
+    am = None if bias is None else bias.to(dtype)[:, None, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=am, dropout_p=rate, is_causal=causal), device,
+        iters=50)
+    unit = B * nh * T * T * D
+    bms, by, nb, fl, tf32 = _amp_bound(
+        4 * unit, 2 * 3 * B * T * H + 4 * 3 * H + 4 * B * T
+        + 2 * B * T * H + 4 * B * nh * T)
+    r["timing"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=by, bytes=nb, flops=fl, tf32_bound_ms=tf32,
+        bound_rate="bf16/fp16 tensor cores 989 TFLOP/s (tf32_bound_ms: the "
+        "1xTF32 rate)",
+        library=f"SDPA forward in {dt} on the biased heads (the bias add "
+        "and the head split not timed)",
+        shape=dict(B=B, T=T, nh=nh, D=D, dropout=rate))
+    log(f"  {amp_name(fa.QKV, dtype)} timing ({name}): ms={ms:.5f} plain_ms="
+        f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={bms:.6f} ({by}; "
+        f"1xTF32 {tf32:.6f})")
+
+
+def _amp_gemm(device, dt, name, M, K, N, opts, report, timed, made):
+    """One fused matmul-epilogue case in ``dt``: y and z0 against
+    reference_matmul_epilogue (the kernel's keep mask handed over); x, w
+    and the residual in ``dt``, bias, gamma and beta float32."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    dtype = getattr(torch, dt)
+    c = dict(_amp_data(("gemm", name), lambda: {
+        k: (v.to(device) if torch.is_tensor(v) else v)
+        for k, v in _epi_case(M, K, N, 60 + len(made), **opts).items()}))
+    for k in ("x", "w", "residual"):
+        if c[k] is not None:
+            c[k] = c[k].to(dtype)
+    made[name] = c
+    args = [c[k] for k in ("x", "w", "bias", "residual", "gamma", "beta")]
+    y, z0, mask = fm.fused_matmul_kernel(*args, seed=c["seed"],
+                                         spec=c["spec"])
+    y_ref, z0_ref = fm.reference_matmul_epilogue(*args, spec=c["spec"],
+                                                 mask=mask)
+    sync(device)
+    if mask is not None:
+        _keep_ok(mask, c["spec"].dropout_rate)
+    errs = [_amp_err(y, y_ref, dt, f"gemm_epilogue {name} y")]
+    if z0 is not None:
+        errs.append(_amp_err(z0, z0_ref, dt, f"gemm_epilogue {name} z0"))
+    if y.dtype != dtype:
+        raise AssertionError(f"gemm_epilogue {dt} {name}: y is {y.dtype}")
+    log(f"  gemm_epilogue {dt} {name}: M={M} K={K} N={N} {c['spec']} "
+        f"max/mean error of max|ref| "
+        + " ".join(f"{n}={e[1]:.2e}/{e[2]:.2e}"
+                   for n, e in zip(("y", "z0"), errs)))
+    r = report[amp_name(fm.LAUNCH, dtype)]
+    r["max_abs_err"] = max([r["max_abs_err"]] + [e[0] for e in errs])
+    r["cases"][name] = errs[0][1]
+    if name != timed:
+        return
+    ms = time_ms(lambda: fm.fused_matmul_kernel(*args, seed=c["seed"],
+                                                spec=c["spec"]), device,
+                 iters=50)
+    plain_ms = time_ms(lambda: fm.reference_matmul_epilogue(
+        *args, spec=c["spec"], mask=mask), device, iters=10)
+    bias_t = c["bias"].to(dtype)
+    lib_ms = time_ms(lambda: torch.addmm(bias_t, c["x"], c["w"]), device,
+                     iters=50)
+    z0b = 2 * M * N if z0 is not None else 0
+    nbytes = (2 * (M * K + K * N + M * N) + z0b
+              + (M * N if mask is not None else 0)
+              + (2 * M * N if c["residual"] is not None else 0) + 4 * 3 * N
+              + (4 * M * N if c["spec"].norm and N > 768 else 0))
+    bms, by, nb, fl, tf32 = _amp_bound(2 * M * K * N, nbytes)
+    r["timing"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=by, bytes=nb, flops=fl, tf32_bound_ms=tf32,
+        bound_rate="bf16/fp16 tensor cores 989 TFLOP/s (tf32_bound_ms: the "
+        "1xTF32 rate)",
+        library=f"torch.addmm in {dt} (cuBLAS): the GEMM and bias alone",
+        shape=dict(M=M, K=K, N=N, spec=str(c["spec"])))
+    log(f"  {amp_name(fm.LAUNCH, dtype)} timing ({name}): ms={ms:.5f} "
+        f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms="
+        f"{bms:.6f} ({by}; 1xTF32 {tf32:.6f}; {fl / ms / 1e9:.1f} TFLOP/s)")
+
+
+def _amp_ffn(device, dt, name, M, K, F, N, opts, report, timed):
+    """One FFN-chain case in ``dt`` against reference_ffn_chain (the
+    kernel's keep mask handed over)."""
+    import torch
+
+    from paddle_tpu_torch.ops import ffn_chain as fc
+
+    dtype = getattr(torch, dt)
+    opts = dict(opts)
+    c = _epi_case(M, K, F, 80, **opts)
+
+    def make():
+        c2 = _epi_case(M, F, N, 81, residual=opts.get("residual", False),
+                       gamma=opts.get("gamma", False),
+                       beta=opts.get("beta", False))
+        return [None if t is None else t.to(device) for t in (
+            c["x"], c["w"], c["bias"], c2["w"], c2["bias"], c2["residual"],
+            c2["gamma"], c2["beta"])]
+
+    args = list(_amp_data(("ffn", name), make))
+    for i in (0, 1, 3, 5):
+        if args[i] is not None:
+            args[i] = args[i].to(dtype)
+    y, mask = fc.ffn_chain_kernel(*args, seed=c["seed"], spec=c["spec"])
+    y_ref = fc.reference_ffn_chain(*args, spec=c["spec"], mask=mask)
+    sync(device)
+    if mask is not None:
+        _keep_ok(mask, c["spec"].dropout_rate)
+    err = _amp_err(y, y_ref, dt, f"ffn_chain {name} y")
+    if y.dtype != dtype:
+        raise AssertionError(f"ffn_chain {dt} {name}: y is {y.dtype}")
+    log(f"  ffn_chain {dt} {name}: M={M} K={K} F={F} N={N} {c['spec']} "
+        f"y max/mean error of max|ref| {err[1]:.2e}/{err[2]:.2e}")
+    r = report[amp_name(fc.LAUNCH, dtype)]
+    r["max_abs_err"] = max(r["max_abs_err"], err[0])
+    r["cases"][name] = err[1]
+    if name != timed:
+        return
+    x, w1, b1, w2, b2 = args[:5]
+    ms = time_ms(lambda: fc.ffn_chain_kernel(*args, seed=c["seed"],
+                                             spec=c["spec"]), device,
+                 iters=20)
+    plain_ms = time_ms(lambda: fc.reference_ffn_chain(
+        *args, spec=c["spec"], mask=mask), device, iters=5)
+    b1t, b2t = b1.to(dtype), b2.to(dtype)
+    lib_ms = time_ms(lambda: torch.addmm(b2t, torch.addmm(b1t, x, w1), w2),
+                     device, iters=20)
+    nbytes = (2 * (M * K + K * F + F * N + 2 * M * N) + 4 * (F + 3 * N)
+              + M * N)
+    bms, by, nb, fl, tf32 = _amp_bound(2 * M * (K * F + F * N), nbytes)
+    r["timing"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=by, bytes=nb, flops=fl,
+        fma_bound_ms=max(nb / HBM_BYTES_PER_S, fl / FP32_FLOPS) * 1e3,
+        tf32_bound_ms=tf32,
+        bound_rate="bf16/fp16 tensor cores 989 TFLOP/s (fma_bound_ms: the "
+        "float32 FMA rate, 67 TFLOP/s, that this kernel runs at)",
+        library=f"two torch.addmm in {dt} (cuBLAS): the GEMMs and biases "
+        "alone",
+        shape=dict(M=M, K=K, F=F, N=N, spec=str(c["spec"])))
+    log(f"  {amp_name(fc.LAUNCH, dtype)} timing ({name}): ms={ms:.5f} "
+        f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms="
+        f"{bms:.6f} ({by}; {fl / ms / 1e9:.1f} TFLOP/s)")
+
+
+def amp_kernel_phase(device):
+    """The bfloat16 and float16 variants of the six kernels AMP runs,
+    each against its plain version in its own element type at
+    BERT-large's attention and GEMM shapes, BERT-base's FFN and the edge
+    cases, then timed at the main path's shape beside the plain version,
+    the library call in the same dtype and the bound.  -> {variant name:
+    {"max_abs_err", "cases", "timing"}}."""
+    report = {amp_name(k, dt): dict(max_abs_err=0.0, cases={})
+              for k in AMP_KERNEL_NAMES for dt in AMP_DTYPES}
+    for dt in AMP_DTYPES:
+        for name, spec in AMP_FLASH_CASES.items():
+            _amp_flash(device, dt, name, spec, report,
+                       AMP_TIMED["flash_fwd_packed"])
+        for name, spec in AMP_QKV_CASES.items():
+            _amp_qkv(device, dt, name, spec, report,
+                     AMP_TIMED["flash_fwd_qkv"])
+        made = {}
+        for name, (M, K, N, opts) in AMP_GEMM_CASES.items():
+            _amp_gemm(device, dt, name, M, K, N, opts, report,
+                      AMP_TIMED["gemm_epilogue"], made)
+        for name, (M, K, F, N, opts) in AMP_FFN_CASES.items():
+            _amp_ffn(device, dt, name, M, K, F, N, opts, report,
+                     AMP_TIMED["ffn_chain"])
+    _AMP_DATA.clear()
+    return report
+
+
 def padding_bias(B, Tk):
     """The 0 / -1e4 key-padding bias [B, 1, 1, Tk] that masks the last
     quarter of every row's keys, as an input mask makes it."""
@@ -2508,12 +3032,12 @@ def server_phase(engine, model_cfg):
 
 # -- phase 5: training ------------------------------------------------------
 
-def build_train(cfg, max_masked=None, wrap=None):
-    """build_bert_pretrain(cfg, TRAIN_SEQ, max_masked=...) +
+def build_train(cfg, max_masked=None, wrap=None, seq_len=None):
+    """build_bert_pretrain(cfg, seq_len or TRAIN_SEQ, max_masked=...) +
     Adam(TRAIN_LR).minimize in fresh programs -> (main, startup, loss,
     grad names, param names).  ``wrap(adam, boundaries)`` returns the
-    optimizer to minimize with (phase 13's wrappers; ``boundaries`` are
-    the embedding's and every layer's outputs)."""
+    optimizer to minimize with (phase 13's wrappers, phase 18's AMP;
+    ``boundaries`` are the embedding's and every layer's outputs)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import build_bert_pretrain
 
@@ -2522,7 +3046,7 @@ def build_train(cfg, max_masked=None, wrap=None):
     main.random_seed = SEED + 12
     with pt.program_guard(main, startup), pt.unique_name.guard():
         loss, _, bounds = build_bert_pretrain(
-            cfg, seq_len=TRAIN_SEQ, max_masked=max_masked,
+            cfg, seq_len=seq_len or TRAIN_SEQ, max_masked=max_masked,
             want_boundaries=True)
         opt = pt.optimizer.Adam(TRAIN_LR)
         if wrap is not None:
@@ -5943,19 +6467,20 @@ WRAPPER_STEPS, WRAPPER_RTOL = 6, 1e-5
 LOSS_OPS_RTOL, LOSS_OPS_ATOL = 1e-5, 1e-6
 
 
-def masked_arrays(vocab, batch, seed=SEED + 8):
+def masked_arrays(vocab, batch, seed=SEED + 8, seq=None, masked=None):
     """bench.py's masked-head feeds as numpy arrays: ids from a seed, no
-    padding, MASKED distinct positions a row as the flat index pos +
-    b·TRAIN_SEQ, labels the ids there; also the [batch, MASKED]
-    positions."""
+    padding, ``masked`` (MASKED) distinct positions a row of ``seq``
+    (TRAIN_SEQ) as the flat index pos + b·seq, labels the ids there;
+    also the [batch, masked] positions."""
+    seq, masked = seq or TRAIN_SEQ, masked or MASKED
     rng = np.random.RandomState(seed)
-    src = rng.randint(0, vocab, (batch, TRAIN_SEQ)).astype(np.int64)
-    pos = np.stack([rng.choice(TRAIN_SEQ, MASKED, replace=False)
+    src = rng.randint(0, vocab, (batch, seq)).astype(np.int64)
+    pos = np.stack([rng.choice(seq, masked, replace=False)
                     for _ in range(batch)])
-    flat = (pos + np.arange(batch)[:, None] * TRAIN_SEQ).reshape(-1)
+    flat = (pos + np.arange(batch)[:, None] * seq).reshape(-1)
     labels = np.take_along_axis(src, pos, 1).reshape(-1, 1)
     return {"src_ids": src,
-            "input_mask": np.ones((batch, TRAIN_SEQ), np.float32),
+            "input_mask": np.ones((batch, seq), np.float32),
             "mask_pos": flat.astype(np.int64),
             "masked_labels": labels.astype(np.int64)}, pos
 
@@ -8942,9 +9467,11 @@ def conv_matmul_flops(program):
     return total
 
 
-def build_resnet(depth, image, classes):
+def build_resnet(depth, image, classes, amp=None, lr=None):
     """resnet(img, label, depth) + Momentum(RESNET_LR, RESNET_MOMENTUM) in
-    fresh programs -> (main, startup, loss, forward FLOPs an image)."""
+    fresh programs -> (main, startup, loss, forward FLOPs an image);
+    ``amp``: the optimizer under contrib.mixed_precision.decorate in that
+    dtype (bench.py:231); ``lr`` in place of RESNET_LR."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import resnet
 
@@ -8955,7 +9482,8 @@ def build_resnet(depth, image, classes):
         label = pt.data("label", [None, 1], "int64")
         _, loss, _ = resnet(img, label, depth=depth, class_num=classes)
         flops = conv_matmul_flops(main)
-        pt.optimizer.Momentum(RESNET_LR, RESNET_MOMENTUM).minimize(loss)
+        _amp_wrap(pt.optimizer.Momentum(lr or RESNET_LR, RESNET_MOMENTUM),
+                  amp).minimize(loss)
     return main, startup, loss, flops
 
 
@@ -9144,8 +9672,18 @@ def resnet_phase(device, depth=RESNET_DEPTH, image=RESNET_IMAGE,
                 parity=parity, profile=prof)
 
 
-def build_nmt(cfg, src_len, tgt_len, lr=NMT_LR):
-    """build_nmt_train + Adam(lr) in fresh programs."""
+def _amp_wrap(opt, amp):
+    """``opt`` under bf16/fp16 AMP (``amp`` its dtype), or as it is."""
+    if amp is None:
+        return opt
+    from paddle_tpu_torch.contrib import mixed_precision
+
+    return mixed_precision.decorate(opt, amp_dtype=amp)
+
+
+def build_nmt(cfg, src_len, tgt_len, lr=NMT_LR, amp=None):
+    """build_nmt_train + Adam(lr) in fresh programs (``amp``: under
+    decorate in that dtype, bench.py:273)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import build_nmt_train
 
@@ -9154,7 +9692,7 @@ def build_nmt(cfg, src_len, tgt_len, lr=NMT_LR):
     main.random_seed = SEED + 1712
     with pt.program_guard(main, startup), pt.unique_name.guard():
         loss, _ = build_nmt_train(cfg, src_len, tgt_len)
-        pt.optimizer.Adam(lr).minimize(loss)
+        _amp_wrap(pt.optimizer.Adam(lr), amp).minimize(loss)
     return main, startup, loss
 
 
@@ -9490,6 +10028,542 @@ def bench_models_phase(device, nmt_cfg=None, nmt_base_cfg=None,
     return out
 
 
+# -- phase 18: bf16 and fp16 AMP training -----------------------------------
+
+#: 18a, the bench's headline (bench.py:3121): BERT-large at 16 x 512, the
+#: masked head at 80 positions a row; 18b (bench.py:3124): BERT-base at
+#: 64 x 128, 20 positions.  Both under decorate(Adam(1e-4), "bfloat16"),
+#: dropout 0.1, the fusion pass on
+AMP_LARGE = (16, 512, 80)
+AMP_BASE = (64, 128, 20)
+AMP_WARMUP, AMP_STEPS, AMP_F32_STEPS = 2, 10, 3
+#: 18c: BERT-base cut to 2 layers at 8 x 128 under decorate(SGD(0.1),
+#: "float16") with dynamic loss scaling from a scale whose scaled
+#: gradients overflow float16 (tests/test_amp.py:44's recipe, its
+#: incr_every_n_steps=2, started past the overflow): the first steps find
+#: inf and shrink the scale, the later ones grow it
+#: and the unfused lowering's steps from the same weights (the packed
+#: float16 kernels of the fused_attention op)
+AMP_F16_UNFUSED = 2
+AMP_F16 = dict(layers=2, batch=8, seq=128, masked=20, steps=8,
+               init_loss_scaling=2.0 ** 24, incr_every_n_steps=2,
+               decr_every_n_nan_or_inf=1, decr_ratio=2.0 ** -4)
+#: 18d: the bench's other two models under bf16 AMP, phase 17's
+#: configurations: warm-up and timed steps (cut before any gate is)
+AMP_MODEL_WARMUP, AMP_MODEL_STEPS = 2, 5
+#: 18e: the three models cut to 2 layers (ResNet: the zoo's smallest
+#: depth, 18, on 16 images of 112, enough that 5 steps do not memorise
+#: them) — the card's first bf16 step against the port's CPU run of the
+#: same program and weights (relative), and at dropout 0 the bf16 loss
+#: trajectory against the f32 one from the same weights on the card
+#: (tests/test_amp.py:87's bound).  The ResNet runs Momentum(0.001, 0.9):
+#: at the bench's 0.1 the first steps of a batch-norm net from random
+#: weights are chaotic (phase 17a's note), so any two runs that round
+#: differently part by far more than 5e-2 whatever their arithmetic
+AMP_CPU_LOSS_RTOL = 5e-3
+AMP_CURVE_RTOL = 5e-2
+AMP_CURVE_STEPS = 5
+AMP_GATE_BERT = (4, 128, 20)
+AMP_GATE_RESNET = dict(depth=18, image=112, classes=1000, batch=16,
+                       lr=1e-3)
+AMP_GATE_NMT = (4, 64, 64)
+
+
+def amp_masked_feed(vocab, batch, seq, masked, device, seed=SEED + 1800):
+    """masked_arrays at ``seq`` and ``masked`` positions a row, on
+    ``device``."""
+    return _on(device, masked_arrays(vocab, batch, seed, seq, masked)[0])
+
+
+def build_amp_bert(cfg, seq, masked, amp, opt=None, **amp_kw):
+    """build_train at ``seq`` with ``masked`` positions a row, its Adam
+    (or ``opt()``) under decorate(..., amp, **amp_kw) (as it is with
+    ``amp`` None) -> (main, startup, loss)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+
+    def wrap(adam, _):
+        o = opt() if opt is not None else adam
+        return o if amp is None else mixed_precision.decorate(
+            o, amp_dtype=amp, **amp_kw)
+
+    return build_train(cfg, masked, wrap, seq_len=seq)[:3]
+
+
+def amp_plan_launches(main, feed_names, loss, cfg, rows, dtype, on_card):
+    """The groups of the port's planner for ``main`` (what a CPU lowering
+    plans: the planner reads the program alone) and each kernel
+    variant's launches a step they give: #9, #5 and #6 one an attention
+    group, #10 one a GEMM group within its rule (the MLM head's logits,
+    N 30522, replay) and two an FFN group past the chain's rule (#11 one
+    an FFN group within it)."""
+    from paddle_tpu_torch.core.fusion import plan_fusion
+    from paddle_tpu_torch.ops import ffn_chain as fc
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    plan = plan_fusion(main, list(main.global_block().ops), feed_names,
+                       (loss.name,), block_patterns=True)
+    kinds = collections.Counter(g.kind for g in plan.groups)
+    chain = fc.ffn_chain_shapes_ok(rows, cfg.hidden_size, cfg.ffn_size,
+                                   cfg.hidden_size, dtype)
+    block = main.global_block()
+
+    def w_shape(grp):
+        uid, slot, j = grp.roles["w"]
+        member = next(m for m in grp.members if m.uid == uid)
+        return block.var(member.inputs[slot][j]).shape
+
+    gemms = sum(fm.fused_shapes_ok(1, *w_shape(g), dtype)
+                for g in plan.groups if g.kind == "gemm")
+    want = {fa.QKV: kinds["attn"], fa.DQ: kinds["attn"],
+            fa.DKV: kinds["attn"],
+            fm.LAUNCH: gemms + (0 if chain else 2 * kinds["ffn_chain"]),
+            fc.LAUNCH: kinds["ffn_chain"] if chain else 0, fa.FWD: 0}
+    return plan, kinds, {amp_name(k, dtype): (n if on_card else 0)
+                         for k, n in want.items()}
+
+
+def _plan_key(plan):
+    return [(g.kind, g.pattern, tuple(m.uid for m in g.members))
+            for g in plan.groups]
+
+
+def amp_bert_phase(device, cfg, shape, what):
+    """18a / 18b: ``cfg`` pretraining under bf16 AMP at ``shape`` (batch,
+    seq, masked positions) through the default fused program: the plan
+    equal to the planner's, finite losses, each bf16 variant's launches
+    per step as the plan gives them, no plain version and no library
+    load after the warm-up; step ms, tokens/s, peak memory, one profiled
+    step; then the same program without AMP for AMP_F32_STEPS steps."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    on_card = device.type == "cuda"
+    B, T, masked = shape
+    bf16 = torch.bfloat16
+    main, startup, loss = build_amp_bert(cfg, T, masked, "bfloat16")
+    exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = amp_masked_feed(cfg.vocab_size, B, T, masked, device)
+    plan, kinds, want = amp_plan_launches(main, tuple(feed), loss, cfg,
+                                          B * T, bf16, on_card)
+    _free_card(device)
+    t0 = time.perf_counter()
+    warm = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+            for _ in range(AMP_WARMUP)]
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    lowered = [lw.fusion_plan for lw in main._exec_cache.values()]
+    if [_plan_key(p) for p in lowered] != [_plan_key(plan)]:
+        raise AssertionError(f"{what}: the lowered plan is not the "
+                             f"planner's {dict(kinds)}")
+    with _PlainCalls() as plain:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        losses = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)[0] for _ in range(AMP_STEPS)]
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    losses = [float(x) for x in warm + losses]
+    step_ms = wall / AMP_STEPS * 1e3
+    tokens_per_s = B * T * AMP_STEPS / wall
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    got = {k: launches.get(k, 0) for k in want}
+    per_step = {k: n * AMP_STEPS for k, n in want.items()}
+    log(f"  {what}: bf16 AMP, {B} x {T} ({masked} masked a row), groups "
+        f"{dict(kinds)}: {AMP_WARMUP} warm-up steps {warm_s:.2f} s; "
+        f"{AMP_STEPS} steps {step_ms:.3f} ms/step, {tokens_per_s:.1f} "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {got} (want {per_step}); plain versions "
+        f"{plain.calls}; libraries loaded after the first step "
+        f"{exe.compiles_after_first_step}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+    if got != per_step:
+        raise AssertionError(f"{what}: launches {got}, expected {per_step}")
+    if on_card and plain.calls:
+        raise AssertionError(f"{what}: a plain kernel version ran")
+    if exe.compiles_after_first_step:
+        raise AssertionError(f"{what}: a library loaded after the first "
+                             f"step")
+    prof = _profile_step(exe, main, feed, loss, scope, device,
+                         f"{what} bf16", names=("flash_", "gemm_tc_kernel",
+                                                "ffn_chain"))
+    del scope, exe
+    _free_card(device)
+    # the same program without AMP: the f32 step beside it
+    main32, startup32, loss32 = build_amp_bert(cfg, T, masked, None)
+    exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup32, scope=scope)
+    exe.run(main32, feed=feed, fetch_list=[loss32], scope=scope)
+    sync(device)
+    t0 = time.perf_counter()
+    f32_losses = [exe.run(main32, feed=feed, fetch_list=[loss32],
+                          scope=scope, return_numpy=False)[0]
+                  for _ in range(AMP_F32_STEPS)]
+    sync(device)
+    f32_ms = (time.perf_counter() - t0) / AMP_F32_STEPS * 1e3
+    f32_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    log(f"  {what} f32 (no AMP), {AMP_F32_STEPS} steps: {f32_ms:.3f} "
+        f"ms/step, {B * T / f32_ms * 1e3:.1f} tokens/s, peak "
+        f"{f32_peak / 2**30:.2f} GiB; losses "
+        + " ".join(f"{float(x):.4f}" for x in f32_losses))
+    del scope, exe
+    _free_card(device)
+    return dict(batch=B, seq=T, masked=masked, losses=losses,
+                step_ms=step_ms, tokens_per_s=tokens_per_s, peak_bytes=peak,
+                launches=got, plan_groups=dict(kinds),
+                busy_share=prof.get("device_busy_share"),
+                kernels_share=prof.get("named_share"),
+                device_ms=prof.get("device_ms_per_step"), profile=prof,
+                f32_step_ms=f32_ms, f32_peak_bytes=f32_peak,
+                f32_losses=[float(x) for x in f32_losses])
+
+
+def _amp_scaling_names(program):
+    names = {}
+    for n in (v.name for v in program.list_vars() if v.persistable):
+        for key in ("loss_scaling", "good_steps", "bad_steps"):
+            if n.rsplit("_", 1)[0] == key:
+                names[key] = n
+    return names
+
+
+def amp_f16_phase(device, cfg):
+    """18c: fp16 AMP with dynamic loss scaling, the card against the
+    port's CPU run of the same program and weights: loss_scaling,
+    good_steps and bad_steps equal after every step (the overflowing
+    ones too), the float16 variants launched; then AMP_F16_UNFUSED steps
+    of the program's unfused lowering from the same weights on the card,
+    whose attention ops run the packed float16 forward (#3) once a layer
+    a step."""
+    import dataclasses as dc
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    p = AMP_F16
+    cut = dc.replace(cfg, num_layers=p["layers"])
+    kw = {k: p[k] for k in ("init_loss_scaling", "incr_every_n_steps",
+                            "decr_every_n_nan_or_inf", "decr_ratio")}
+    main, startup, loss = build_amp_bert(
+        cut, p["seq"], p["masked"], "float16",
+        opt=lambda: pt.optimizer.SGD(0.1), **kw)
+    names = _amp_scaling_names(main)
+    runs = {}
+    weights = None
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        exe = pt.Executor(pt.CUDAPlace(0) if dev.type == "cuda"
+                          else pt.CPUPlace())
+        if weights is None:
+            scope = pt.Scope()
+            exe.run(startup, scope=scope)
+            weights = _host_arrays(scope, main)
+        scope = _scope_from(weights, dev, main)
+        feed = amp_masked_feed(cut.vocab_size, p["batch"], p["seq"],
+                               p["masked"], dev)
+        _cuda.reset_launches()
+        losses, states = [], []
+        for _ in range(p["steps"]):
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0]))
+            states.append(tuple(float(scope.find_var(names[k]).item())
+                                for k in ("loss_scaling", "good_steps",
+                                          "bad_steps")))
+        runs[dev.type] = dict(losses=losses, states=states,
+                              launches=dict(_cuda.LAUNCHES),
+                              seconds=time.perf_counter() - t0)
+    card, cpu = runs[device.type], runs["cpu"]
+    f16 = torch.float16
+    kernels = [amp_name(k, f16) for k in (
+        "flash_fwd_qkv", "flash_bwd_dq_packed", "flash_bwd_dkv_packed",
+        "gemm_epilogue", "ffn_chain")]
+    got = {k: card["launches"].get(k, 0) for k in kernels}
+    bs = pt.BuildStrategy()
+    bs.fuse_epilogues = False
+    unfused = pt.CompiledProgram(main, build_strategy=bs)
+    exe = pt.Executor(pt.CUDAPlace(0) if device.type == "cuda"
+                      else pt.CPUPlace())
+    scope = _scope_from(weights, device, main)
+    feed = amp_masked_feed(cut.vocab_size, p["batch"], p["seq"],
+                           p["masked"], device)
+    _cuda.reset_launches()
+    unfused_losses = [float(exe.run(unfused, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0])
+                      for _ in range(AMP_F16_UNFUSED)]
+    fwd = amp_name("flash_fwd_packed", f16)
+    unfused_got = {k: _cuda.LAUNCHES.get(k, 0) for k in (
+        fwd, amp_name("flash_bwd_dq_packed", f16),
+        amp_name("flash_bwd_dkv_packed", f16))}
+    want_fwd = p["layers"] * AMP_F16_UNFUSED if device.type == "cuda" \
+        else 0
+    log(f"  fp16 unfused lowering, {AMP_F16_UNFUSED} steps: losses "
+        + " ".join(f"{x:.4f}" for x in unfused_losses)
+        + f"; launches {unfused_got} ({fwd} want {want_fwd})")
+    if unfused_got[fwd] != want_fwd \
+            or not all(np.isfinite(unfused_losses)):
+        raise AssertionError(f"fp16 unfused lowering: launches "
+                             f"{unfused_got}, losses {unfused_losses}")
+    for k, n in unfused_got.items():
+        got[k] = got.get(k, 0) + n
+    log(f"  fp16 AMP, BERT-base cut to {p['layers']} layers at "
+        f"{p['batch']} x {p['seq']}, SGD(0.1), scale from "
+        f"{p['init_loss_scaling']:g}: (scale, good, bad) on the card "
+        f"{card['states']}, on the CPU {cpu['states']}; losses card "
+        + " ".join(f"{x:.4f}" for x in card["losses"]) + " cpu "
+        + " ".join(f"{x:.4f}" for x in cpu["losses"])
+        + f"; float16 launches {got}; card {card['seconds']:.1f} s, CPU "
+        f"{cpu['seconds']:.1f} s")
+    if card["states"] != cpu["states"]:
+        raise AssertionError("fp16 loss scaling on the card differs from "
+                             "the CPU's")
+    if card["states"][0][0] >= p["init_loss_scaling"]:
+        raise AssertionError("fp16: the first step did not overflow")
+    if device.type == "cuda" and not all(got.values()):
+        raise AssertionError(f"fp16: a float16 variant did not launch: "
+                             f"{got}")
+    if not all(np.isfinite(card["losses"])):
+        raise AssertionError(f"fp16: a loss is not finite: {card['losses']}")
+    return dict(states=card["states"], cpu_states=cpu["states"],
+                losses=card["losses"], cpu_losses=cpu["losses"],
+                launches=got)
+
+
+def amp_models_phase(device, nmt_cfg=None, resnet_kw=None):
+    """18d: ResNet-50 (phase 17a's batch, halved until it fits) under
+    decorate(Momentum(0.1, 0.9), "bfloat16") and NMT-big at 32 x 256/256
+    under decorate(Adam(1e-4), "bfloat16"), dropout 0.3: finite losses,
+    the bf16 variants' launches per step (ResNet: #10 once, the
+    classifier; NMT: phase 17b's counts), no plain version; step ms,
+    images/s, target tokens/s, peak memory.  ``nmt_cfg`` and
+    ``resnet_kw`` (depth, image, classes) replace NMT-big and ResNet-50
+    in a rehearsal."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.models import NMTConfig
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    rk = dict(dict(depth=RESNET_DEPTH, image=RESNET_IMAGE,
+                   classes=RESNET_CLASSES), **(resnet_kw or {}))
+    on_card = device.type == "cuda"
+    bf16 = torch.bfloat16
+    out = {}
+    exe = pt.Executor(pt.CUDAPlace(0) if on_card else pt.CPUPlace())
+
+    def timed(main, loss, feed, scope, want, what, units):
+        losses = [exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0] for _ in range(AMP_MODEL_WARMUP)]
+        sync(device)
+        with _PlainCalls() as plain:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            losses += [exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, return_numpy=False)[0]
+                       for _ in range(AMP_MODEL_STEPS)]
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+        losses = [float(x) for x in losses]
+        got = {k: launches.get(k, 0) for k in want}
+        want = {k: n * AMP_MODEL_STEPS for k, n in want.items()}
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        step_ms = wall / AMP_MODEL_STEPS * 1e3
+        log(f"  {what}: {AMP_MODEL_STEPS} steps {step_ms:.3f} ms/step, "
+            f"{units / step_ms * 1e3:.1f} a second, peak "
+            f"{peak / 2**30:.2f} GiB; losses "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; launches {got} (want {want}); plain versions "
+            f"{plain.calls}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{what}: a loss is not finite")
+        if got != want or (on_card and plain.calls):
+            raise AssertionError(f"{what}: launches {got}, expected {want}, "
+                                 f"plain calls {plain.calls}")
+        return dict(steps=AMP_MODEL_STEPS, step_ms=step_ms,
+                    per_s=units / step_ms * 1e3, peak_bytes=peak,
+                    losses=losses, launches=got)
+
+    for batch in RESNET_BATCHES:
+        _free_card(device)
+        main, startup, loss, _ = build_resnet(
+            rk["depth"], rk["image"], rk["classes"], amp="bfloat16")
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        feed = resnet_feed(batch, rk["image"], rk["classes"], device)
+        try:
+            r = timed(main, loss, feed, scope,
+                      {amp_name(fm.LAUNCH, bf16): 1 if on_card else 0},
+                      f"ResNet-{rk['depth']} bf16 AMP at batch {batch}",
+                      batch)
+        except RuntimeError as e:
+            if not _step_oom(e):
+                raise
+            log(f"  ResNet bf16 at batch {batch}: out of memory, halving")
+            del scope, feed
+            continue
+        r.update(batch=batch, images_per_s=r.pop("per_s"))
+        out["resnet"] = r
+        break
+    del scope, feed
+    _free_card(device)
+    cfg = nmt_cfg or NMTConfig.big()
+    main, startup, loss = build_nmt(cfg, NMT_SRC, NMT_TGT, amp="bfloat16")
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = nmt_feed(cfg, NMT_BATCH, NMT_SRC, NMT_TGT, device)
+    want = {amp_name(k, bf16): n
+            for k, n in nmt_step_launches(cfg, on_card).items()}
+    r = timed(main, loss, feed, scope, want,
+              f"NMT-big bf16 AMP at {NMT_BATCH} x {NMT_SRC}/{NMT_TGT}",
+              NMT_BATCH * NMT_TGT)
+    r["target_tokens_per_s"] = r.pop("per_s")
+    out["nmt"] = r
+    del scope, feed
+    _free_card(device)
+    return out
+
+
+def _amp_gate_run(device, build, feed_fn, steps, weights=None):
+    """Build with ``build(amp)`` for amp in (bf16, None), run ``steps``
+    steps of each from the same startup weights on ``device``; the
+    weights come from the bf16 program's startup (or ``weights``) ->
+    ({amp: losses}, weights)."""
+    import paddle_tpu_torch as pt
+
+    out = {}
+    for amp in ("bfloat16", None):
+        main, startup, loss = build(amp)
+        exe = pt.Executor(pt.CUDAPlace(0) if device.type == "cuda"
+                          else pt.CPUPlace())
+        if weights is None:
+            scope = pt.Scope()
+            exe.run(startup, scope=scope)
+            weights = _host_arrays(scope, main)
+        scope = _scope_from(weights, device, main)
+        feed = feed_fn(device)
+        out[amp] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0]) for _ in range(steps)]
+        del scope
+    return out, weights
+
+
+def amp_gates_phase(device, bert=None, nmt=None):
+    """18e: BERT-large cut to 2 layers (dropout 0, 4 x 128), ResNet-18 on
+    4 images, NMT-big cut to 2 + 2 layers (dropout 0, 4 x 64/64): the
+    card's first bf16 step within AMP_CPU_LOSS_RTOL of the port's CPU run
+    of the same program and weights, and on the card the bf16 loss
+    trajectory within AMP_CURVE_RTOL of the f32 one from the same
+    weights.  ``bert`` and ``nmt`` (configurations) replace the cut
+    BERT-large and NMT-big in a rehearsal."""
+    import dataclasses as dc
+
+    import torch
+
+    from paddle_tpu_torch.models import BertConfig, NMTConfig
+
+    cpu = torch.device("cpu")
+    bert = dc.replace(bert or BertConfig.large(), num_layers=2,
+                      hidden_dropout=0.0, attn_dropout=0.0)
+    B, T, masked = AMP_GATE_BERT
+    rk = AMP_GATE_RESNET
+    nmt = dc.replace(nmt or NMTConfig.big(), num_encoder_layers=2,
+                     num_decoder_layers=2, dropout=0.0, attn_dropout=0.0)
+    nb, ns, nt = AMP_GATE_NMT
+
+    def bert_build(amp):
+        return build_amp_bert(bert, T, masked, amp)
+
+    def resnet_build(amp):
+        return build_resnet(rk["depth"], rk["image"], rk["classes"],
+                            amp=amp, lr=rk["lr"])[:3]
+
+    def nmt_build(amp):
+        return build_nmt(nmt, ns, nt, amp=amp)
+
+    models = {
+        "bert_large_2l": (bert_build, lambda d: amp_masked_feed(
+            bert.vocab_size, B, T, masked, d)),
+        "resnet18": (resnet_build, lambda d: resnet_feed(
+            rk["batch"], rk["image"], rk["classes"], d)),
+        "nmt_big_2l": (nmt_build, lambda d: nmt_feed(nmt, nb, ns, nt, d)),
+    }
+    out = {}
+    for name, (build, feed_fn) in models.items():
+        t0 = time.perf_counter()
+        card, weights = _amp_gate_run(device, build, feed_fn,
+                                      AMP_CURVE_STEPS)
+        t1 = time.perf_counter()
+        host, _ = _amp_gate_run(cpu, build, feed_fn, 1, weights)
+        t2 = time.perf_counter()
+        first = abs(card["bfloat16"][0] - host["bfloat16"][0]) \
+            / abs(host["bfloat16"][0])
+        curve = max(abs(a - b) / abs(b)
+                    for a, b in zip(card["bfloat16"], card[None]))
+        log(f"  {name}: first bf16 loss card {card['bfloat16'][0]:.6f}, "
+            f"cpu {host['bfloat16'][0]:.6f} (rel {first:.2e}, tol "
+            f"{AMP_CPU_LOSS_RTOL:g}); bf16 trajectory "
+            + " ".join(f"{x:.4f}" for x in card["bfloat16"]) + " f32 "
+            + " ".join(f"{x:.4f}" for x in card[None])
+            + f" (worst rel {curve:.2e}, tol {AMP_CURVE_RTOL:g}); card "
+            f"{t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
+        if not (first <= AMP_CPU_LOSS_RTOL and curve <= AMP_CURVE_RTOL):
+            raise AssertionError(f"18e {name}: first-step rel {first}, "
+                                 f"trajectory rel {curve}")
+        out[name] = dict(first_rel=first, curve_rel=curve,
+                         bf16=card["bfloat16"], f32=card[None],
+                         cpu_first=host["bfloat16"][0])
+        _free_card(device)
+    return out
+
+
+def amp_phase(device, large_cfg=None, base_cfg=None, nmt_cfg=None,
+              resnet_kw=None):
+    """Phase 18: 18a BERT-large, 18b BERT-base (bf16), 18c fp16 loss
+    scaling against the CPU, 18d ResNet-50 and NMT-big (bf16), 18e the
+    gates against the CPU and against f32.  The configurations replace
+    the bench's in a rehearsal."""
+    from paddle_tpu_torch.models import BertConfig
+
+    t0 = time.perf_counter()
+    large_cfg = large_cfg or BertConfig.large()
+    base_cfg = base_cfg or BertConfig.base()
+    parts = dict(
+        large=lambda: amp_bert_phase(device, large_cfg, AMP_LARGE,
+                                     "18a BERT-large"),
+        base=lambda: amp_bert_phase(device, base_cfg, AMP_BASE,
+                                    "18b BERT-base"),
+        f16=lambda: amp_f16_phase(device, base_cfg),
+        models=lambda: amp_models_phase(device, nmt_cfg, resnet_kw),
+        gates=lambda: amp_gates_phase(device, large_cfg, nmt_cfg))
+    out, part_s = {}, {}
+    for name, run in parts.items():
+        t1 = time.perf_counter()
+        out[name] = run()
+        part_s[name] = time.perf_counter() - t1
+    out["part_s"] = part_s
+    launches = collections.Counter()
+    for part in (out["large"], out["base"], out["f16"],
+                 out["models"]["resnet"], out["models"]["nmt"]):
+        launches.update(part["launches"])
+    out["launches"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 18 took {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items())
+        + f"); launches {out['launches']}")
+    return out
+
+
 CHILDREN = {"bert_ps": bert_ps_child, "fleet_modes": fleet_modes_child}
 
 
@@ -9556,6 +10630,7 @@ def main():
             report["kernels"][name]["timing"]["decoder_causal"] = t
         for name, cases in p17_kernel_timing(device).items():
             report["kernels"][name]["timing"].update(cases)
+        report["kernels"].update(amp_kernel_phase(device))
 
         log("[3] engine at BertConfig.base() width")
         t0 = time.perf_counter()
@@ -9691,6 +10766,20 @@ def main():
         report["bench_models"] = bench_models_phase(device)
         for name, n in report["bench_models"]["launches"].items():
             report["kernels"][name]["launches"] += n
+
+        log("[18] bf16 and fp16 AMP training: BERT-large at 16 x 512 and "
+            "BERT-base at 64 x 128 (bf16), fp16 loss scaling against the "
+            "CPU, ResNet-50 and NMT-big (bf16), the gates against the CPU "
+            "and f32")
+        _free_card(device)
+        report["amp"] = amp_phase(device)
+        for name, n in report["amp"]["launches"].items():
+            report["kernels"][name]["launches"] = \
+                report["kernels"][name].get("launches", 0) + n
+        idle = [k["name"] for k in KERNELS
+                if not report["kernels"][k["name"]].get("launches")]
+        if idle:
+            raise AssertionError(f"kernels no path launched: {idle}")
     except Exception:  # noqa: BLE001 — any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -9862,6 +10951,23 @@ def main():
         beam={k: bb[k] for k in (
             "run_ms", "decode_step_ms", "sentences_per_s", "launches",
             "gate")})}))
+    am = report["amp"]
+    print(json.dumps({"amp": dict(
+        card=card, seconds=am["seconds"],
+        **{k: {m: am[k][m] for m in (
+            "batch", "seq", "masked", "step_ms", "tokens_per_s",
+            "peak_bytes", "busy_share", "kernels_share", "launches",
+            "f32_step_ms", "f32_peak_bytes")} for k in ("large", "base")},
+        f16={k: am["f16"][k] for k in ("states", "cpu_states",
+                                       "launches")},
+        resnet={k: am["models"]["resnet"][k] for k in (
+            "batch", "steps", "step_ms", "images_per_s", "peak_bytes",
+            "launches")},
+        nmt={k: am["models"]["nmt"][k] for k in (
+            "steps", "step_ms", "target_tokens_per_s", "peak_bytes",
+            "launches")},
+        gates={k: {m: v[m] for m in ("first_rel", "curve_rel")}
+               for k, v in am["gates"].items()})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

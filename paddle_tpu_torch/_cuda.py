@@ -30,7 +30,8 @@ import time
 from pathlib import Path
 
 __all__ = ["LAUNCHES", "NVCC_FLAGS", "build", "library", "library_loads",
-           "reset_launches", "check"]
+           "reset_launches", "check", "ELEMENT_TYPES", "type_suffix",
+           "launch_key", "source_text"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -43,6 +44,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = collections.Counter()
 #: kernel name -> (seconds, nvcc's stderr) of the build this process ran
 BUILD_LOG = {}
+
+#: the element types of the kernels that AMP runs, and the suffix of
+#: their C entries ("gemm_epilogue_bf16"); a float32 launch counts under
+#: the kernel's own name, the others under "<name>_<suffix>"
+ELEMENT_TYPES = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
+
+
+def type_suffix(dtype):
+    """The C entry suffix of a torch dtype ("f32", "bf16", "f16");
+    KeyError for any other."""
+    return ELEMENT_TYPES[str(dtype).replace("torch.", "")]
+
+
+def launch_key(name, dtype):
+    """The LAUNCHES key of kernel ``name`` launched in ``dtype``."""
+    suffix = type_suffix(dtype)
+    return name if suffix == "f32" else f"{name}_{suffix}"
+
 
 _lock = threading.Lock()
 _libs = {}
@@ -77,6 +96,19 @@ def _target(name):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def source_text(name):
+    """The text of ``csrc/<name>.cu`` with each ``#include "<header>.cuh"``
+    of csrc inlined: one self-contained translation unit, for a tool that
+    compiles a patched copy elsewhere."""
+    text = (CSRC / f"{name}.cu").read_text()
+    for header in sorted(CSRC.glob("*.cuh")):
+        inc = f'#include "{header.name}"\n'
+        if inc in text:
+            body = header.read_text().replace("#pragma once\n", "", 1)
+            text = text.replace(inc, body, 1)
+    return text
 
 
 def build(names):

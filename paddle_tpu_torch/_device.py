@@ -8,6 +8,9 @@ visible.  There is no silent move to the CPU — tests pass
 Matmuls stay in full float32: TF32 is switched off for both cuBLAS and
 cuDNN whenever a CUDA device is resolved, so the card computes the same
 arithmetic the JAX reference does on the CPU (up to summation order).
+bfloat16 and float16 matmuls (AMP's products outside the fused groups)
+sum in float32: cuBLAS's reduced-precision reductions are switched off,
+as the JAX dots reduce with ``preferred_element_type=float32``.
 """
 from __future__ import annotations
 
@@ -17,8 +20,11 @@ __all__ = ["resolve_device", "set_strict_fp32"]
 
 
 def set_strict_fp32():
-    """Full-precision float32 matmuls and convolutions (no TF32)."""
+    """Full-precision float32 matmuls and convolutions (no TF32), and
+    bfloat16/float16 matmuls that reduce in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

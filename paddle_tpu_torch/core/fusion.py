@@ -52,9 +52,15 @@ Each plan publishes its groups on the metrics registry, as in the JAX
 package: ``fused_epilogue_hits_total{pattern}`` per group and
 ``fused_block_hits_total{pattern}`` per block family.
 
-Not carried over from the JAX package: its environment switches, the
+Under AMP (``program._amp_dtype``) the planner's groups are the same;
+at run time a group's kernel takes x and the weights (and the residual)
+in the AMP dtype, biases, gamma, beta and the key-padding bias in
+float32, as the JAX ``_try_kernel_*`` cast them, and a replayed member
+takes its inputs under the policy.
+
+Not carried over from the JAX package: its environment switches and the
 kernels' degradation and fault injection (whose only job is to fall
-back) and AMP.
+back).
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ import dataclasses
 import torch
 
 from .._rng import fold_seed
+from ..contrib.mixed_precision.policy import amp_cast, amp_torch_dtype
 from ..observability.monitor import FUSED_BLOCK_HITS, FUSED_EPILOGUE_HITS
 from ..observability.registry import get_registry
 from .program import EMPTY_VAR_NAME
@@ -779,26 +786,31 @@ def _group_inputs(grp, env, need_grad):
     return gins
 
 
-def run_fused_group(fx, grp, env, seed, device, vjp_uids, is_test=False):
+def run_fused_group(fx, grp, env, seed, device, vjp_uids, is_test=False,
+                    amp=None):
     """Execute one fused group at the last member's program position;
     returns the last member's outputs (detached).  When a member has a
     grad op the group runs under autograd and its leaves and outputs
     stay in ``fx.state`` for ``run_fused_grad``.  ``is_test`` (a program
     cloned for test) turns every member's dropout off, as the op's own
-    ``is_test`` attr does."""
+    ``is_test`` attr does.  ``amp`` (the program's AMP dtype): the kernel
+    takes its products' operands in that dtype and a replayed member its
+    inputs under the policy, as the JAX group function casts them; the
+    casts are inside the group's graph, so the leaves' gradients come
+    back in the leaves' own dtypes (float32 for the master weights)."""
     need_grad = any(m.uid in vjp_uids for m in grp.members)
     gins = _group_inputs(grp, env, need_grad)
     with torch.enable_grad() if need_grad else contextlib.nullcontext():
-        outs = _run_group(grp, gins, seed, device, is_test)
+        outs = _run_group(grp, gins, seed, device, is_test, amp)
     if need_grad:
         fx.state[grp.gid] = [gins, outs, None]
     return {slot: [v.detach() if torch.is_tensor(v) else v for v in vals]
             for slot, vals in outs.items()}
 
 
-def _run_group(grp, gins, seed, device, is_test=False):
+def _run_group(grp, gins, seed, device, is_test=False, amp=None):
 
-    cov = _try_kernel(grp, gins, seed, is_test)
+    cov = _try_kernel(grp, gins, seed, is_test, amp)
     tmp = {}
     last_outs = None
     start_at = 0
@@ -823,6 +835,8 @@ def _run_group(grp, gins, seed, device, is_test=False):
                       else gins.get((m.uid, slot, j))
                       for j, n in enumerate(names)]
                for slot, names in m.inputs.items()}
+        if amp is not None:
+            ins = amp_cast(ins, m.type, amp)
         opdef = REGISTRY.get(m.type)
         ctx = OpContext(
             rng=fold_seed(seed, m.uid) if opdef.needs_rng else None,
@@ -838,7 +852,7 @@ def _run_group(grp, gins, seed, device, is_test=False):
     return last_outs
 
 
-def _try_kernel(grp, gins, seed, is_test=False):
+def _try_kernel(grp, gins, seed, is_test=False, amp=None):
     """Lower the group onto its kernel when the shapes and dtypes allow.
 
     Returns ``(n_covered, outs)`` — the number of leading members the
@@ -847,10 +861,10 @@ def _try_kernel(grp, gins, seed, is_test=False):
     attention kernel covers through the fused_attention member and
     leaves any dropout/residual/norm tail to the replay loop."""
     if grp.kind == "attn":
-        return _try_kernel_attn(grp, gins, seed, is_test)
+        return _try_kernel_attn(grp, gins, seed, is_test, amp)
     if grp.kind == "ffn_chain":
-        return _try_kernel_ffn(grp, gins, seed, is_test)
-    outs = _try_kernel_gemm(grp, gins, seed, is_test)
+        return _try_kernel_ffn(grp, gins, seed, is_test, amp)
+    outs = _try_kernel_gemm(grp, gins, seed, is_test, amp)
     return None if outs is None else (len(grp.members), outs)
 
 
@@ -860,6 +874,16 @@ def _group_getv(grp, gins):
         return None if r is None else gins.get(r)
 
     return getv
+
+
+def _to_amp(amp, *tensors):
+    """The kernel operands in the AMP dtype (None passes; no AMP: as
+    they are)."""
+    if amp is None:
+        return tensors
+    dt = amp_torch_dtype(amp)
+    return tuple(t if t is None or t.dtype == dt else t.to(dt)
+                 for t in tensors)
 
 
 def _floating(*tensors):
@@ -893,7 +917,7 @@ def _dropout(grp, seed, is_test=False):
     return rate, (fold_seed(seed, grp.dropout["uid"]) if rate > 0.0 else 0)
 
 
-def _try_kernel_attn(grp, gins, seed, is_test=False):
+def _try_kernel_attn(grp, gins, seed, is_test=False, amp=None):
     """qkv projection + bias + slice3 + packed flash attention as one
     kernel entry (ops/attention_epilogue.py): the qkv bias add and the
     softmax scale apply in the flash forward kernel."""
@@ -906,6 +930,7 @@ def _try_kernel_attn(grp, gins, seed, is_test=False):
         return None
     if not _floating(x, w, b_qkv, attn_bias):
         return None
+    x, w = _to_amp(amp, x, w)
     mm = grp.members[0]
     if x.dim() != 3 or w.dim() != 2:
         return None
@@ -937,7 +962,7 @@ def _try_kernel_attn(grp, gins, seed, is_test=False):
     return grp.extra["attn_pos"] + 1, {"Out": [o]}
 
 
-def _try_kernel_ffn(grp, gins, seed, is_test=False):
+def _try_kernel_ffn(grp, gins, seed, is_test=False, amp=None):
     """FFN up/down chain: the two-GEMM chain kernel where
     ``ffn_chain_shapes_ok`` holds (ops/ffn_chain.py), else two fused
     matmul-epilogue calls, else None (replay)."""
@@ -953,6 +978,7 @@ def _try_kernel_ffn(grp, gins, seed, is_test=False):
         return None
     if not _floating(x, w1, b1, w2, b2, res, gamma, beta):
         return None
+    x, w1, w2, res = _to_amp(amp, x, w1, w2, res)
     if w1.dim() != 2 or w2.dim() != 2:
         return None
     rows = _rows(grp.members[0], x)
@@ -1038,7 +1064,7 @@ def _plan_override(grp, geom, x, chain_ok):
     return grp.extra[key]
 
 
-def _try_kernel_gemm(grp, gins, seed, is_test=False):
+def _try_kernel_gemm(grp, gins, seed, is_test=False, amp=None):
     """The fused matmul-epilogue kernel when the shapes allow: the final
     member's outputs dict, or None for the replay path."""
     from ..ops import fused_matmul as fm
@@ -1051,6 +1077,7 @@ def _try_kernel_gemm(grp, gins, seed, is_test=False):
         return None
     if not _floating(x, w, bias, res, gamma, beta):
         return None
+    x, w, res = _to_amp(amp, x, w, res)
     if w.dim() != 2:
         return None
     rows = _rows(grp.members[0], x)

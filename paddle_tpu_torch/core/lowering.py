@@ -69,7 +69,14 @@ Meshes (a CompiledProgram with one): core/spmd.py plans the batch split,
 the forward sums, the gradient sum and the sharded storage once per
 lowering, and its ``MeshExec`` runs them each step.
 
-Not ported: AMP.
+AMP (``program._amp_dtype``, set by contrib/mixed_precision's
+``decorate``): the dtype policy applies to every op's inputs just before
+its compute (``policy.amp_cast``, the JAX lowering's ``_amp_cast``), in
+block 0, in sub-blocks, in recompute segments and in a fused group's
+replayed members; it rewrites no op of the program.  A forward op's leaf
+copies are taken after the cast, so its ``vjp_grad`` returns gradients in
+the dtypes the op computed in, as the JAX ``jax.vjp`` of the cast inputs
+does; the persistables stay float32 master weights.
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from .. import profiler as _prof
 from .._rng import fold_seed
+from ..contrib.mixed_precision.policy import amp_cast
 from ..flags import flag as _flag
 from . import spmd
 from .fusion import UNBOUND, FusionExec, plan_fusion, run_fused_grad, \
@@ -301,6 +309,7 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
     scoped = _prof.device_tracing()
     mx = spmd.active()
     nan_check = _flag("FLAGS_check_nan_inf")
+    amp = getattr(program, "_amp_dtype", None)
     for i, op in enumerate(ops):
         if plan is not None and op.uid in plan.skip_uids:
             continue
@@ -323,7 +332,7 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
                 elif plan is not None and op.uid in plan.by_last:
                     outs = run_fused_group(fusion, plan.by_last[op.uid],
                                            env, seed, device, vjp_uids,
-                                           is_test)
+                                           is_test, amp)
                 elif op.type in BLOCK_OPS:
                     outs = _run_block_op(program, op, env, seed, vjps,
                                          vjp_uids, device, is_test)
@@ -331,6 +340,8 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
                     opdef = REGISTRY.get(op.type)
                     ins = {slot: [env[n] for n in names]
                            for slot, names in op.inputs.items()}
+                    if amp is not None:
+                        ins = amp_cast(ins, op.type, amp)
                     ctx = OpContext(
                         # fold by uid: unique program-wide, so no two ops
                         # share a stream

@@ -43,8 +43,8 @@ class DistributedStrategy(BuildStrategy):
       * use_dgc: requires optimizer.DGCMomentumOptimizer (validated).
       * forward_recompute + recompute_checkpoints: wraps the inner
         optimizer in RecomputeOptimizer.
-      * use_amp + amp_loss_scaling: AMP is not ported (ROADMAP.md,
-        Queue 1 item 3); minimize raises.
+      * use_amp + amp_loss_scaling: wraps the inner optimizer in
+        contrib.mixed_precision.decorate (bfloat16 AMP).
     """
 
     def __init__(self):
@@ -126,10 +126,6 @@ class CollectiveOptimizer(DistributedOptimizer):
 
         inner = self._optimizer
         strategy = self._strategy or DistributedStrategy()
-        if getattr(strategy, "use_amp", False):
-            raise NotImplementedError(
-                "strategy.use_amp: AMP is not ported (ROADMAP.md, Queue 1 "
-                "item 3's AMP bullet)")
         if getattr(strategy, "use_dgc", False):
             from ....optimizer import DGCMomentumOptimizer
 
@@ -143,6 +139,11 @@ class CollectiveOptimizer(DistributedOptimizer):
             rc = RecomputeOptimizer(inner)
             rc._set_checkpoints(list(strategy.recompute_checkpoints))
             inner = rc
+        if getattr(strategy, "use_amp", False):
+            from ....contrib import mixed_precision as amp
+
+            inner = amp.decorate(
+                inner, init_loss_scaling=strategy.amp_loss_scaling)
 
         opt_ops, params_grads = inner.minimize(
             loss, startup_program, parameter_list, no_grad_set)

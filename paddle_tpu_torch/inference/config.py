@@ -3,9 +3,11 @@ AnalysisConfig — inference/api/paddle_analysis_config.h).
 
 The device is the card (``cuda:0``) unless the caller asks otherwise:
 ``enable_use_gpu(device_id=N)`` picks ``cuda:N`` and ``disable_gpu()``
-the CPU.  ``enable_bfloat16`` raises: no kernel of the port has a bf16
-variant yet.  ``enable_mkldnn`` and the thread count are accepted and
-do nothing, as in the JAX package; ``enable_tensorrt_engine`` raises."""
+the CPU.  ``enable_bfloat16`` runs the program under bfloat16 AMP (its
+fused groups through the kernels' bfloat16 variants), as the JAX
+package's Predictor does.  ``enable_mkldnn`` and the thread count are
+accepted and do nothing, as in the JAX package;
+``enable_tensorrt_engine`` raises."""
 from __future__ import annotations
 
 import os
@@ -20,6 +22,7 @@ class Config:
         self._params_file = params_file
         self._ir_optim = True
         self._profile = False
+        self._bf16 = False
         self._memory_optim = True
         self._use_gpu = True
         self._device_id = 0
@@ -55,10 +58,9 @@ class Config:
         self._profile = True
 
     def enable_bfloat16(self):
-        raise NotImplementedError(
-            "bfloat16 inference is not ported to paddle_tpu_torch: it "
-            "waits for AMP (ROADMAP.md, Queue 1 item 3's AMP bullet), "
-            "after the kernels' bf16 variants (Queue 2 note A)")
+        """Low-precision inference: the Predictor runs its program under
+        bfloat16 AMP (``program._amp_dtype``)."""
+        self._bf16 = True
 
     # -- placement ---------------------------------------------------------
     def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):

@@ -69,6 +69,8 @@ class Predictor:
                 dirname, self._exe, model_filename=model_fn,
                 params_filename=params_fn)
         self._profiling = False
+        if config._bf16:
+            prog._amp_dtype = "bfloat16"
         self._program = prog
         #: what the Executor runs: the program, or with the analysis
         #: passes off the unfused lowering (a CompiledProgram without
@@ -168,6 +170,10 @@ class Predictor:
         if example_inputs is None:
             raise ValueError("export_stablehlo needs example_inputs "
                              "(dict name->array) to fix shapes")
+        if getattr(self._program, "_amp_dtype", None) is not None:
+            raise NotImplementedError(
+                "exporting a bfloat16 Predictor (enable_bfloat16) is not "
+                "ported: ROADMAP.md, Queue 1 item 3 (the bf16 artifact)")
         block = self._program.global_block()
         feed = {n: self._exe._feed_tensor(block, n, example_inputs[n])
                 for n in self._feed_names}

@@ -9,7 +9,7 @@ attention front half lowers as
 
 The qkv GEMM stays ``torch.matmul`` (the JAX package leaves it to XLA);
 everything after it is one kernel: ``flash_fwd_qkv`` (csrc/
-flash_attention.cu, beside ``flash_fwd_packed``) reads q, k and v at
+flash_attention.cuh, beside ``flash_fwd_packed``) reads q, k and v at
 column offsets 0, H and 2H of the PRE-bias [B, T, 3H] projection, adds
 the matching slice of b_qkv as it loads them, and applies the scale on
 the scores, so neither the biased qkv nor its three slices are written.
@@ -23,6 +23,13 @@ into the three column slices of one [B, T, 3H] dqkv, and close the bias
 and GEMM adjoints with torch ops.  CPU tensors take the plain versions
 (``qkv_ref_forward`` and ops/flash_attention.py's ``flash_ref_backward``)
 with a keep mask from a ``torch.Generator``.
+
+Under AMP x and w come in bfloat16 or float16 (b_qkv and the key bias
+float32), and the entry rounds where the JAX one does: the projection
+sums in float32 and is stored in the element type, the bias is added in
+float32 and q, k, v rounded back (in the kernel as they land), and the
+GEMM adjoints sum in float32 and are rounded to the element type
+(``matmul_f32``); the qkv bias's gradient stays float32.
 """
 from __future__ import annotations
 
@@ -30,20 +37,23 @@ import math
 
 import torch
 
-from .flash_attention import (_key_padding, _cpu_keep_mask, flash_delta,
+from .flash_attention import (PACKED_DTYPES, _key_padding, _cpu_keep_mask,
+                              flash_delta,
                               flash_kernel_dkv, flash_kernel_dq,
                               flash_kernel_forward_qkv, flash_ref_backward,
                               flash_ref_forward)
+from .fused_matmul import matmul_f32
 
 __all__ = ["attn_epilogue_shapes_ok", "key_padding_ok", "qkv_ref_forward",
            "plain_qkv_attention", "fused_qkv_attention"]
 
 
 def attn_epilogue_shapes_ok(T, H, num_heads, dtype=torch.float32):
-    """The port's rule: float32, heads that split H, at most 128 dims a
-    head (the packed flash kernels read each head by offset through
-    strided views, so the TPU's H % 128 lane rule does not apply)."""
-    if dtype != torch.float32 or T < 1 or num_heads <= 0 \
+    """The port's rule: float32, bfloat16 or float16, heads that split H,
+    at most 128 dims a head (the packed flash kernels read each head by
+    offset through strided views, so the TPU's H % 128 lane rule does
+    not apply)."""
+    if dtype not in PACKED_DTYPES or T < 1 or num_heads <= 0 \
             or H % num_heads:
         return False
     return 0 < H // num_heads <= 128
@@ -56,9 +66,13 @@ def key_padding_ok(bias, B, T):
 
 
 def _split(qkv, b_qkv):
+    """The biased q, k, v views of the pre-bias qkv: the bias added in
+    float32 and rounded to qkv's element type, as the kernel adds it as
+    each tile lands."""
     H = qkv.shape[-1] // 3
-    qb = qkv + b_qkv
+    qb = (qkv.float() + b_qkv.float()).to(qkv.dtype)
     return qb[..., :H], qb[..., H:2 * H], qb[..., 2 * H:]
+
 
 
 def qkv_ref_forward(qkv, b_qkv, num_heads, bias=None, causal=False,
@@ -78,7 +92,7 @@ def plain_qkv_attention(x, w, b_qkv, num_heads, attn_bias=None,
     GEMM + bias, split, packed attention.  Differentiable by autograd."""
     B, T, _ = x.shape
     kp = None if attn_bias is None else _key_padding(attn_bias, B, T)
-    return qkv_ref_forward(torch.matmul(x, w), b_qkv, num_heads, kp, causal,
+    return qkv_ref_forward(matmul_f32(x, w), b_qkv, num_heads, kp, causal,
                            sm_scale, dropout_rate, keep_mask)[0]
 
 
@@ -89,7 +103,7 @@ class _QKVAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b_qkv, bias, num_heads, causal, sm_scale,
                 dropout_rate, seed):
-        qkv = torch.matmul(x, w)                       # [B, T, 3H]
+        qkv = matmul_f32(x, w)                         # [B, T, 3H]
         mask = None
         if x.device.type == "cuda":
             o, lse = flash_kernel_forward_qkv(
@@ -133,9 +147,9 @@ class _QKVAttention(torch.autograd.Function):
         B, T, K = x.shape
         d2 = dqkv.reshape(B * T, -1)
         needs = ctx.needs_input_grad
-        dx = torch.matmul(dqkv, w.t()) if needs[0] else None
-        dw = torch.matmul(x.reshape(B * T, K).t(), d2) if needs[1] else None
-        db = d2.sum(dim=0) if needs[2] else None
+        dx = matmul_f32(dqkv, w.t()) if needs[0] else None
+        dw = matmul_f32(x.reshape(B * T, K).t(), d2) if needs[1] else None
+        db = d2.float().sum(dim=0).to(b_qkv.dtype) if needs[2] else None
         if bias is None or not needs[3]:
             dbias = None
         return dx, dw, db, dbias, None, None, None, None, None

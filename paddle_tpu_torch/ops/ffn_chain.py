@@ -13,11 +13,13 @@ of the [64, N] output accumulator; the row norm of the output epilogue
 sums across the pair.  The epilogue's arithmetic and its dropout mask
 are ops/fused_matmul.py's.
 
-* ``csrc/gemm_epilogue.cu``, kernel ``ffn_chain`` (CUDA C++ for sm_90a,
-  float32): y and, when dropout is live, the keep mask (uint8), keyed
-  by (seed, row, column) like ``gemm_epilogue``'s.  ``ffn_chain_kernel``
-  launches it, adds one to ``_cuda.LAUNCHES["ffn_chain"]`` and raises on
-  anything the kernel does not take.
+* ``csrc/gemm_epilogue.cuh``, kernel ``ffn_chain`` (CUDA C++ for
+  sm_90a, float32, and in bfloat16 and float16 for AMP, whose activated
+  panel is rounded to that type before GEMM2): y and, when dropout is
+  live, the keep mask (uint8), keyed by (seed, row, column) like
+  ``gemm_epilogue``'s.  ``ffn_chain_kernel`` launches it, adds one to
+  ``_cuda.LAUNCHES["ffn_chain"]`` (``ffn_chain_bf16``, ``_f16``) and
+  raises on anything the kernel does not take.
 * ``reference_ffn_chain`` — the same arithmetic in plain PyTorch, given
   the mask; CPU tensors take it.
 
@@ -35,15 +37,15 @@ import ctypes
 import torch
 
 from .. import _cuda
-from .fused_matmul import (EpilogueSpec, _ACTS, _NORMS, _apply_act,
-                           _epilogue_from_z0, check_operand, cpu_keep_mask,
-                           dense, seed_words)
+from .fused_matmul import (DTYPES, EpilogueSpec, _ACTS, _NORMS,
+                           _apply_act, _epilogue_from_z0, check_operand,
+                           cpu_keep_mask, dense, seed_words)
 
 __all__ = ["ffn_chain_shapes_ok", "ffn_chain_smem_bytes",
            "reference_ffn_chain", "ffn_chain_kernel", "fused_ffn_chain",
            "KERNEL", "LAUNCH"]
 
-KERNEL = "gemm_epilogue"
+KERNEL, AMP_KERNEL = "gemm_epilogue", "gemm_epilogue_amp"
 LAUNCH = "ffn_chain"
 
 #: the kernel's tiles: rows of a two-CTA cluster, F panel (each CTA
@@ -74,12 +76,14 @@ def ffn_chain_smem_bytes():
 
 def ffn_chain_shapes_ok(M, K, F, N, dtype=torch.float32):
     """The chain kernel's rule, a static function of shapes and dtype:
-    float32; K a multiple of 16 and F of 128; N a multiple of 4, at most
+    float32, bfloat16 or float16 (x, the weights, the residual and y;
+    the biases, gamma and beta float32); K a multiple of 16 and F of
+    128; N a multiple of 4, at most
     768 (each CTA of the pair holds half of the accumulator row in
     registers).  x is streamed in k tiles, so shared memory does not
     grow with K.  It takes BERT-base's FFN (M 4096, K 768, F 3072, N
     768)."""
-    return (dtype == torch.float32 and M >= 1
+    return (dtype in DTYPES and M >= 1
             and K >= K_MULTIPLE and K % K_MULTIPLE == 0
             and F >= F_MULTIPLE and F % F_MULTIPLE == 0
             and N >= 4 and N % 4 == 0 and N <= MAX_N)
@@ -89,16 +93,21 @@ def ffn_chain_shapes_ok(M, K, F, N, dtype=torch.float32):
 
 def _chain(x, w1, b1, w2, b2, residual, gamma, beta, spec, mask):
     """The chain's arithmetic in float32 PyTorch (differentiable): what
-    the plain forward computes and what backward recomputes."""
+    the plain forward computes and what backward recomputes.  In a
+    bfloat16/float16 variant the activated intermediate is rounded to
+    the element type before GEMM2 (the JAX kernel's ``h1.astype``) and y
+    is returned in it."""
     z1 = torch.matmul(x.float(), w1.float())
     if b1 is not None:
         z1 = z1 + b1.float()
     h1 = _apply_act(z1, spec.act, spec.act_approximate)
+    if x.dtype != torch.float32:
+        h1 = h1.to(x.dtype).float()
     z2 = torch.matmul(h1, w2.float())
     if b2 is not None:
         z2 = z2 + b2.float()
     return _epilogue_from_z0(z2, mask, residual, gamma, beta,
-                             spec._replace(act=None))
+                             spec._replace(act=None)).to(x.dtype)
 
 
 def reference_ffn_chain(x, w1, b1=None, w2=None, b2=None, residual=None,
@@ -118,8 +127,8 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _I, _F, _U, _U, _P]
 
 
-def _fn(lib):
-    fn = lib.ffn_chain_f32
+def _fn(lib, suffix="f32"):
+    fn = getattr(lib, f"ffn_chain_{suffix}")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = _I
@@ -146,13 +155,14 @@ def ffn_chain_kernel(x, w1, b1, w2, b2=None, residual=None, gamma=None,
         raise ValueError(f"unknown epilogue {spec}")
     if not 0.0 <= spec.dropout_rate < 1.0:
         raise ValueError(f"dropout rate {spec.dropout_rate} not in [0, 1)")
-    dev = x.device
-    for name, t, shape in (("x", x, (M, K)), ("w1", w1, (K, F)),
-                           ("b1", b1, (F,)), ("w2", w2, (F, N)),
-                           ("b2", b2, (N,)), ("residual", residual, (M, N)),
-                           ("gamma", gamma, (N,)), ("beta", beta, (N,))):
-        check_operand(name, t, shape, dev)
-    y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    for name, t, shape, tdt in (
+            ("x", x, (M, K), dt), ("w1", w1, (K, F), dt),
+            ("b1", b1, (F,), f32), ("w2", w2, (F, N), dt),
+            ("b2", b2, (N,), f32), ("residual", residual, (M, N), dt),
+            ("gamma", gamma, (N,), f32), ("beta", beta, (N,), f32)):
+        check_operand(name, t, shape, dev, tdt)
+    y = torch.empty((M, N), dtype=dt, device=dev)
     mask = (torch.empty((M, N), dtype=torch.uint8, device=dev)
             if spec.dropout_rate > 0.0 else None)
     s0, s1 = seed_words(seed)
@@ -160,9 +170,9 @@ def ffn_chain_kernel(x, w1, b1, w2, b2=None, residual=None, gamma=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _cuda.library(KERNEL)
+    lib = _cuda.library(KERNEL if dt == torch.float32 else AMP_KERNEL)
     with torch.cuda.device(dev):
-        rc = _fn(lib)(
+        rc = _fn(lib, _cuda.type_suffix(dt))(
             ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(residual),
             ptr(gamma), ptr(beta), ptr(y), ptr(mask), M, K, F, N,
             _ACTS[spec.act], int(bool(spec.act_approximate)),
@@ -170,7 +180,7 @@ def ffn_chain_kernel(x, w1, b1, w2, b2=None, residual=None, gamma=None,
             float(spec.norm_eps), s0, s1,
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "ffn_chain launch")
-    _cuda.LAUNCHES[LAUNCH] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(LAUNCH, dt)] += 1
     return y, mask
 
 
@@ -204,7 +214,7 @@ class _FFNChain(torch.autograd.Function):
         with torch.enable_grad():
             y = _chain(*ins, ctx.spec, mask)
             wanted = [t for t in ins if t is not None and t.requires_grad]
-            got = iter(torch.autograd.grad(y, wanted, dy.float()))
+            got = iter(torch.autograd.grad(y, wanted, dy.to(y.dtype)))
         grads = [next(got) if t is not None and t.requires_grad else None
                  for t in ins]
         return (*grads, None, None)

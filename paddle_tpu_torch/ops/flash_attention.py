@@ -19,8 +19,9 @@ recomputes the probabilities.
 Two implementations behind one autograd function, chosen by where the
 tensors live and nothing else:
 
-* ``csrc/flash_attention.cu`` — hand-written CUDA kernels for Hopper
-  (sm_90a), float32: ``flash_fwd_packed`` (o and lse),
+* ``csrc/flash_attention.cuh`` — hand-written CUDA kernels for Hopper
+  (sm_90a), float32 (entries in ``flash_attention.cu``):
+  ``flash_fwd_packed`` (o and lse),
   ``flash_bwd_dq_packed`` and ``flash_bwd_dkv_packed`` (dk, dv and a
   per-head dbias the wrapper sums over heads, as the JAX wrapper sums
   its lane groups), and the same three on the flat layout,
@@ -33,14 +34,21 @@ tensors live and nothing else:
   wrapper adds one to
   ``_cuda.LAUNCHES[name]`` per launch and raises on anything its kernel
   cannot take (a bias that is not key-padding shaped, d_head > 128, a
-  non-float32 tensor); there is no fallback.  The dropout mask comes
+  tensor of another dtype); there is no fallback.  The packed entries
+  and the qkv entry also run in bfloat16 and float16 (AMP; entries in
+  ``flash_attention_amp.cu``, counted under ``<name>_bf16`` and
+  ``<name>_f16``): q, k, v, dout and o, dq, dk, dv in that type, lse,
+  delta, the key bias and dbias float32, one TF32 product per product
+  (a bfloat16/float16 value is exact in TF32) and the JAX kernels'
+  rounding points.  The dropout mask comes
   from Philox keyed by the op's seed, regenerated in every kernel;
   ``flash_kernel_dropout_mask`` writes it out so the plain version can
   be handed the same mask.
 * ``flash_ref_forward`` / ``flash_ref_backward`` (and ``*_flat``) — the
-  same arithmetic in plain PyTorch, given the keep mask.  CPU tensors take them (their mask
-  from a ``torch.Generator`` seeded by the op's seed); ``chip_smoke.py``
-  holds the kernels against them on the card.
+  same arithmetic in plain PyTorch, given the keep mask, rounding a
+  bfloat16/float16 call where its kernel does.  CPU tensors take them
+  (their mask from a ``torch.Generator`` seeded by the op's seed);
+  ``chip_smoke.py`` holds the kernels against them on the card.
 
 ``delta = rowsum(do * o)`` per head (minus the lse cotangent on the flat
 path: ``ds = p * (dp - (delta - dlse))``) is a small torch op between the
@@ -68,11 +76,14 @@ __all__ = ["flash_attention_packed", "flash_ref_forward",
            "flash_delta_flat", "flash_kernel_dq_flat", "flash_kernel_dkv_flat",
            "flash_kernel_backward_flat", "flash_forward_flat",
            "flash_backward_flat", "OP", "KERNEL", "FWD", "DQ", "DKV",
-           "QKV", "FWD_FLAT", "DQ_FLAT", "DKV_FLAT"]
+           "QKV", "FWD_FLAT", "DQ_FLAT", "DKV_FLAT", "AMP_KERNEL",
+           "PACKED_DTYPES"]
 
-#: the operator type, the kernels' source name and their launch-counter keys
+#: the operator type, the kernels' source names (float32; the packed
+#: entries in bfloat16 and float16) and their launch-counter keys
 OP = "fused_attention"
 KERNEL = "flash_attention"
+AMP_KERNEL = "flash_attention_amp"
 FWD, DQ, DKV = "flash_fwd_packed", "flash_bwd_dq_packed", "flash_bwd_dkv_packed"
 #: the qkv-folded forward (ops/attention_epilogue.py)
 QKV = "flash_fwd_qkv"
@@ -86,7 +97,7 @@ _MASK = "flash_dropout_mask"
 
 def _scores(qh, kh, bias, causal, sm_scale):
     """[B, nh, Tq, Tk] f32 scores with bias [B, Tk] and the causal mask."""
-    s = torch.matmul(qh, kh.transpose(-1, -2)).float() * sm_scale
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * sm_scale
     if bias is not None:
         s = s + bias.float()[:, None, None, :]
     if causal:
@@ -109,6 +120,25 @@ def _dropped(x, keep_mask, dropout_rate):
                        torch.zeros_like(x))
 
 
+def _rounded(x, dtype):
+    """float32 ``x`` rounded to ``dtype`` and widened back: a rounding
+    point of the kernels in a bfloat16/float16 variant (none in float32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _attend(s, v, keep_mask, dropout_rate, dtype):
+    """o = drop(softmax(s)) v in float32.  In a bfloat16/float16 variant
+    the kernels round the unnormalised probabilities exp(s - max) to the
+    element type before the product and divide by the row sum after it
+    (the JAX kernels' ``p.astype(v.dtype)``)."""
+    if dtype == torch.float32:
+        return torch.matmul(_dropped(torch.softmax(s, dim=-1), keep_mask,
+                                     dropout_rate), v.float())
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pt = _rounded(_dropped(e, keep_mask, dropout_rate), dtype)
+    return torch.matmul(pt, v.float()) / e.sum(dim=-1, keepdim=True)
+
+
 def flash_ref_forward(q, k, v, num_heads, bias=None, causal=False,
                       sm_scale=None, dropout_rate=0.0, keep_mask=None):
     """Plain forward: q [B, Tq, H], k/v [B, Tk, H], bias [B, Tk] or None,
@@ -118,8 +148,7 @@ def flash_ref_forward(q, k, v, num_heads, bias=None, causal=False,
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
     s = _scores(_heads(q, num_heads), _heads(k, num_heads), bias, causal,
                 sm_scale)
-    p = _dropped(torch.softmax(s, dim=-1), keep_mask, dropout_rate)
-    o = torch.matmul(p, _heads(v, num_heads).float())
+    o = _attend(s, _heads(v, num_heads), keep_mask, dropout_rate, q.dtype)
     return _merge(o).to(q.dtype), torch.logsumexp(s, dim=-1)
 
 
@@ -127,9 +156,12 @@ def flash_ref_backward(q, k, v, bias, o, lse, do, num_heads, causal=False,
                        sm_scale=None, dropout_rate=0.0, keep_mask=None):
     """Plain backward, the kernels' arithmetic: p = exp(s - lse),
     ds = p * (drop(dp) - rowsum(do * o)) -> (dq, dk, dv [B, T, H],
-    dbias [B, Tk] summed over heads and queries)."""
+    dbias [B, Tk] summed over heads and queries).  In a bfloat16/float16
+    variant ds is rounded to the element type before ds k and ds^T q, and
+    drop(p) before drop(p)^T do; dbias sums the float32 ds."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    dt = q.dtype
     qh, kh, vh = (_heads(x, num_heads).float() for x in (q, k, v))
     oh, doh = _heads(o, num_heads).float(), _heads(do, num_heads).float()
     p = torch.exp(_scores(qh, kh, bias, causal, sm_scale) - lse[..., None])
@@ -137,10 +169,11 @@ def flash_ref_backward(q, k, v, bias, o, lse, do, num_heads, causal=False,
                   dropout_rate)
     delta = (doh * oh).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
-    dq = torch.matmul(ds, kh) * sm_scale
-    dk = torch.matmul(ds.transpose(-1, -2), qh) * sm_scale
-    dv = torch.matmul(_dropped(p, keep_mask, dropout_rate).transpose(-1, -2),
-                      doh)
+    dst = _rounded(ds, dt)
+    dq = torch.matmul(dst, kh) * sm_scale
+    dk = torch.matmul(dst.transpose(-1, -2), qh) * sm_scale
+    dv = torch.matmul(_rounded(_dropped(p, keep_mask, dropout_rate), dt)
+                      .transpose(-1, -2), doh)
     return (_merge(dq).to(q.dtype), _merge(dk).to(k.dtype),
             _merge(dv).to(v.dtype), ds.sum(dim=(1, 2)))
 
@@ -160,6 +193,11 @@ _ARGTYPES = {
     "flash_dropout_mask_u8": [_P, _I, _I, _I, _I, _F, _U, _U, _P],
     "flash_fwd_qkv_f32": [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _P] + _DIMS,
 }
+# the packed entries and the qkv entry in bfloat16 and float16 (AMP)
+for _base in ("flash_fwd_packed", "flash_bwd_dq_packed",
+              "flash_bwd_dkv_packed", "flash_fwd_qkv"):
+    for _sfx in ("bf16", "f16"):
+        _ARGTYPES[f"{_base}_{_sfx}"] = _ARGTYPES[f"{_base}_f32"]
 _FLAT = [_P, _LL, _LL, _LL] * 3 + [_P, _LL, _LL]    # q, k, v, bias (strided)
 _ARGTYPES.update({
     "flash_fwd_flat_f32": _FLAT + [_P, _LL, _LL, _LL, _P] + _DIMS,
@@ -168,6 +206,11 @@ _ARGTYPES.update({
     "flash_bwd_dkv_flat_f32": _FLAT + [_P, _LL, _LL, _LL, _P, _P, _P, _P,
                                        _P] + _DIMS,
 })
+
+
+def _library(dtype):
+    """The library of the entries of ``dtype``."""
+    return _cuda.library(KERNEL if dtype == torch.float32 else AMP_KERNEL)
 
 
 def _fn(lib, name):
@@ -187,8 +230,14 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: the element types of the packed entries (the flat ones: float32)
+PACKED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def _check(q, k, v, num_heads, bias):
-    """Shapes, dtypes and layouts the kernels take; raises otherwise."""
+    """Shapes, dtypes and layouts the kernels take; raises otherwise.
+    q, k and v share one element type of PACKED_DTYPES; the key-padding
+    bias is float32."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("flash kernels take packed [B, T, H] q, k, v")
     B, Tq, H = q.shape
@@ -205,8 +254,9 @@ def _check(q, k, v, num_heads, bias):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in PACKED_DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"{name} must be float32, bfloat16 or float16 "
+                            f"like q ({q.dtype}), got {t.dtype}")
         if t.stride(2) != 1:
             raise ValueError(f"{name}: the head dimension must be "
                              f"contiguous (stride(2) == 1)")
@@ -237,18 +287,18 @@ def flash_kernel_forward(q, k, v, num_heads, bias=None, causal=False,
     B, Tq, Tk, H, D = _check(q, k, v, num_heads, bias)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    o = torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, Tq, H), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, num_heads, Tq), dtype=torch.float32,
                       device=q.device)
-    lib = _cuda.library(KERNEL)
+    lib = _library(q.dtype)
     with torch.cuda.device(q.device):
-        rc = _fn(lib, "flash_fwd_packed_f32")(
+        rc = _fn(lib, f"{FWD}_{_cuda.type_suffix(q.dtype)}")(
             *_strided(q), *_strided(k), *_strided(v),
             None if bias is None else bias.data_ptr(), *_strided(o),
             lse.data_ptr(), *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal,
                                    dropout_rate, seed, q.device))
     _cuda.check(lib, rc, "flash_fwd_packed launch")
-    _cuda.LAUNCHES[FWD] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(FWD, q.dtype)] += 1
     return o, lse
 
 
@@ -273,18 +323,18 @@ def flash_kernel_forward_qkv(qkv, b_qkv, num_heads, bias=None, causal=False,
                          f"{b_qkv.dtype} on {b_qkv.device}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    o = torch.empty((B, T, H), dtype=torch.float32, device=qkv.device)
+    o = torch.empty((B, T, H), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, num_heads, T), dtype=torch.float32,
                       device=qkv.device)
-    lib = _cuda.library(KERNEL)
+    lib = _library(qkv.dtype)
     with torch.cuda.device(qkv.device):
-        rc = _fn(lib, "flash_fwd_qkv_f32")(
+        rc = _fn(lib, f"{QKV}_{_cuda.type_suffix(qkv.dtype)}")(
             *_strided(qkv), b_qkv.data_ptr(),
             None if bias is None else bias.data_ptr(), *_strided(o),
             lse.data_ptr(), *_dims(B, num_heads, T, T, D, sm_scale, causal,
                                    dropout_rate, seed, qkv.device))
     _cuda.check(lib, rc, "flash_fwd_qkv launch")
-    _cuda.LAUNCHES[QKV] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(QKV, qkv.dtype)] += 1
     return o, lse
 
 
@@ -298,11 +348,11 @@ def flash_delta(o, do, num_heads):
 
 def _check_bwd(q, k, v, bias, do, lse, delta, num_heads):
     B, Tq, Tk, H, D = _check(q, k, v, num_heads, bias)
-    if tuple(do.shape) != (B, Tq, H) or do.dtype != torch.float32 \
+    if tuple(do.shape) != (B, Tq, H) or do.dtype != q.dtype \
             or do.stride(2) != 1 or do.device != q.device:
-        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must be float32 "
-                         f"[{B}, {Tq}, {H}] on {q.device} with a contiguous "
-                         f"head dim")
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must be "
+                         f"{q.dtype} [{B}, {Tq}, {H}] on {q.device} with a "
+                         f"contiguous head dim")
     for name, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != (B, num_heads, Tq) or t.dtype != torch.float32 \
                 or not t.is_contiguous() or t.device != q.device:
@@ -311,14 +361,14 @@ def _check_bwd(q, k, v, bias, do, lse, delta, num_heads):
     return B, Tq, Tk, H, D
 
 
-def _out(out, B, T, H, device, name):
-    """The caller's [B, T, H] output (any row and batch strides, the
-    head dimension contiguous), checked, or a new one."""
+def _out(out, B, T, H, device, name, dtype=torch.float32):
+    """The caller's [B, T, H] output of ``dtype`` (any row and batch
+    strides, the head dimension contiguous), checked, or a new one."""
     if out is None:
-        return torch.empty((B, T, H), dtype=torch.float32, device=device)
-    if tuple(out.shape) != (B, T, H) or out.dtype != torch.float32 \
+        return torch.empty((B, T, H), dtype=dtype, device=device)
+    if tuple(out.shape) != (B, T, H) or out.dtype != dtype \
             or out.stride(2) != 1 or out.device != device:
-        raise ValueError(f"{name} must be float32 [{B}, {T}, {H}] on "
+        raise ValueError(f"{name} must be {dtype} [{B}, {T}, {H}] on "
                          f"{device} with a contiguous head dim; got "
                          f"{tuple(out.shape)} {out.dtype} on {out.device}")
     return out
@@ -332,17 +382,17 @@ def flash_kernel_dq(q, k, v, bias, do, lse, delta, num_heads, causal=False,
     B, Tq, Tk, H, D = _check_bwd(q, k, v, bias, do, lse, delta, num_heads)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    dq = _out(out, B, Tq, H, q.device, "out")
-    lib = _cuda.library(KERNEL)
+    dq = _out(out, B, Tq, H, q.device, "out", q.dtype)
+    lib = _library(q.dtype)
     with torch.cuda.device(q.device):
-        rc = _fn(lib, "flash_bwd_dq_packed_f32")(
+        rc = _fn(lib, f"{DQ}_{_cuda.type_suffix(q.dtype)}")(
             *_strided(q), *_strided(k), *_strided(v),
             None if bias is None else bias.data_ptr(), *_strided(do),
             lse.data_ptr(), delta.data_ptr(), *_strided(dq),
             *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal, dropout_rate,
                    seed, q.device))
     _cuda.check(lib, rc, "flash_bwd_dq_packed launch")
-    _cuda.LAUNCHES[DQ] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(DQ, q.dtype)] += 1
     return dq
 
 
@@ -355,13 +405,13 @@ def flash_kernel_dkv(q, k, v, bias, do, lse, delta, num_heads, causal=False,
     B, Tq, Tk, H, D = _check_bwd(q, k, v, bias, do, lse, delta, num_heads)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    dk, dv = (_out(o, B, Tk, H, q.device, name)
+    dk, dv = (_out(o, B, Tk, H, q.device, name, q.dtype)
               for o, name in zip(out or (None, None), ("out[0]", "out[1]")))
     dbias_h = torch.empty((B, num_heads, Tk), dtype=torch.float32,
                           device=q.device)
-    lib = _cuda.library(KERNEL)
+    lib = _library(q.dtype)
     with torch.cuda.device(q.device):
-        rc = _fn(lib, "flash_bwd_dkv_packed_f32")(
+        rc = _fn(lib, f"{DKV}_{_cuda.type_suffix(q.dtype)}")(
             *_strided(q), *_strided(k), *_strided(v),
             None if bias is None else bias.data_ptr(), *_strided(do),
             lse.data_ptr(), delta.data_ptr(), *_strided(dk), *_strided(dv),
@@ -369,7 +419,7 @@ def flash_kernel_dkv(q, k, v, bias, do, lse, delta, num_heads, causal=False,
             *_dims(B, num_heads, Tq, Tk, D, sm_scale, causal, dropout_rate,
                    seed, q.device))
     _cuda.check(lib, rc, "flash_bwd_dkv_packed launch")
-    _cuda.LAUNCHES[DKV] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(DKV, q.dtype)] += 1
     return dk, dv, dbias_h
 
 

@@ -15,7 +15,7 @@ distributed shared memory.
 Two implementations behind one autograd function, chosen by where the
 tensors live and nothing else:
 
-* ``csrc/gemm_epilogue.cu``, kernel ``gemm_epilogue`` (CUDA C++ for
+* ``csrc/gemm_epilogue.cuh``, kernel ``gemm_epilogue`` (CUDA C++ for
   sm_90a, float32): x @ w on the tensor cores as 3xTF32 ``mma.sync``
   (each operand split into two TF32 parts, three products: float32's
   accuracy), the epilogue on the accumulators; it writes y, the
@@ -25,17 +25,22 @@ tensors live and nothing else:
   element where its Philox-4x32-10 bits, keyed by (seed, row, column),
   exceed rate * 2^32.  ``fused_matmul_kernel`` launches it, adds one to
   ``_cuda.LAUNCHES["gemm_epilogue"]`` and raises on anything the kernel
-  does not take; there is no fallback.
+  does not take; there is no fallback.  In bfloat16 and float16 (AMP,
+  ``gemm_epilogue_bf16``/``_f16`` from ``gemm_epilogue_amp.cu``): x, w,
+  the residual, y and z0 in that type, bias, gamma and beta float32,
+  one TF32 product a step, z0 and y rounded where the JAX kernel
+  rounds them.
 * ``reference_matmul_epilogue`` — the same arithmetic in plain PyTorch,
-  given the keep mask.  CPU tensors take it (their mask from a
-  ``torch.Generator`` seeded by the op's seed); ``chip_smoke.py`` holds
-  the kernel against it on the card.
+  given the keep mask, in the call's element type.  CPU tensors take it
+  (their mask from a ``torch.Generator`` seeded by the op's seed);
+  ``chip_smoke.py`` holds the kernel against it on the card.
 
 Backward is plain PyTorch on both devices, as the JAX custom VJP's is
 pure XLA: the epilogue is replayed under autograd from the saved z0 and
 mask (no z0 when the epilogue is affine in it: its gradient does not
 depend on the point), ``dbias`` is a sum, ``dx`` and ``dw`` are
-``torch.matmul``.
+``torch.matmul`` (``matmul_f32``: summed in float32 and rounded to the
+element type, where the JAX VJP rounds them).
 """
 from __future__ import annotations
 
@@ -47,10 +52,13 @@ import torch
 from .. import _cuda
 
 __all__ = ["EpilogueSpec", "fused_shapes_ok", "reference_matmul_epilogue",
-           "fused_matmul_kernel", "fused_matmul", "KERNEL", "LAUNCH"]
+           "fused_matmul_kernel", "fused_matmul", "matmul_f32", "KERNEL",
+           "LAUNCH", "DTYPES", "AMP_KERNEL"]
 
-#: the kernels' source name and this kernel's launch-counter key
+#: the kernels' source names (float32; bfloat16 and float16) and this
+#: kernel's launch-counter key
 KERNEL = "gemm_epilogue"
+AMP_KERNEL = "gemm_epilogue_amp"
 LAUNCH = "gemm_epilogue"
 
 #: the kernel's whole-row limit (the norm epilogue reduces a row of N
@@ -78,11 +86,17 @@ class EpilogueSpec(NamedTuple):
     norm_eps: float = 1e-5
 
 
+#: the kernel's element types: x, w, the residual, y and z0 share one;
+#: bias, gamma and beta are float32
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def fused_shapes_ok(M, K, N, dtype=torch.float32):
     """The kernel's own rule, a static function of shapes and dtype:
-    float32; K a multiple of BLOCK_K; N a multiple of 4 (16-byte rows)
-    and at most MAX_N (the whole-row epilogue); any M."""
-    return (dtype == torch.float32 and M >= 1 and K >= BLOCK_K
+    float32, bfloat16 or float16; K a multiple of BLOCK_K (16-byte rows
+    of x in every element type); N a multiple of 4 and at most MAX_N
+    (the whole-row epilogue); any M."""
+    return (dtype in DTYPES and M >= 1 and K >= BLOCK_K
             and K % BLOCK_K == 0 and N >= 4 and N % 4 == 0 and N <= MAX_N)
 
 
@@ -124,25 +138,35 @@ def reference_matmul_epilogue(x, w, bias=None, residual=None, gamma=None,
                               beta=None, spec=EpilogueSpec(), mask=None):
     """Plain forward of the kernel (the JAX package's
     reference_matmul_epilogue, with z0 too): x [M, K], w [K, N], keep
-    mask [M, N] (needed when dropout is live) -> (y, z0) float32 [M, N]."""
-    z0 = torch.matmul(x.float(), w.float())
+    mask [M, N] (needed when dropout is live) -> (y, z0) [M, N] in x's
+    element type.  The product sums in float32 and the epilogue runs on
+    the float32 z; z0 and y are rounded to the element type as the
+    kernel stores them (the JAX kernel's ``z.astype`` and ``h.astype``)."""
+    z = torch.matmul(x.float(), w.float())
     if bias is not None:
-        z0 = z0 + bias.float()
+        z = z + bias.float()
     if spec.dropout_rate > 0.0 and mask is None:
         raise ValueError("dropout_rate > 0 needs the keep mask")
-    return _epilogue_from_z0(z0, mask, residual, gamma, beta, spec), z0
+    y = _epilogue_from_z0(z, mask, residual, gamma, beta, spec)
+    return y.to(x.dtype), z.to(x.dtype)
 
 
 # -- the kernel --------------------------------------------------------------
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _ARGTYPES = [_P] * 9 + [_I, _I, _I, _I, _I, _F, _I, _F, _U, _U, _P]
+#: the bfloat16/float16 entries take the float32 scratch of the pre-norm
+#: rows after the mask
+_ARGTYPES_T = [_P] * 10 + _ARGTYPES[9:]
+#: rows of N at most this wide are normalised in registers (one chunk
+#: of the kernel: pick_nb in csrc/gemm_epilogue.cuh)
+NORM_IN_REGISTERS = 768
 
 
-def _fn(lib):
-    fn = lib.gemm_epilogue_f32
+def _fn(lib, suffix="f32"):
+    fn = getattr(lib, f"gemm_epilogue_{suffix}")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES if suffix == "f32" else _ARGTYPES_T
         fn.restype = _I
     return fn
 
@@ -152,15 +176,15 @@ def seed_words(seed):
     return seed & 0xFFFFFFFF, seed >> 32
 
 
-def check_operand(name, t, shape, device):
-    """Raise unless ``t`` is a contiguous, 16-byte aligned float32
-    tensor of ``shape`` on ``device`` (None passes)."""
+def check_operand(name, t, shape, device, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous, 16-byte aligned tensor of
+    ``dtype`` and ``shape`` on ``device`` (None passes)."""
     if t is None:
         return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, the kernel "
                          f"needs {tuple(shape)}")
@@ -187,15 +211,22 @@ def fused_matmul_kernel(x, w, bias=None, residual=None, gamma=None,
         raise ValueError(f"unknown epilogue {spec}")
     if not 0.0 <= spec.dropout_rate < 1.0:
         raise ValueError(f"dropout rate {spec.dropout_rate} not in [0, 1)")
-    dev = x.device
-    for name, t, shape in (("x", x, (M, K)), ("w", w, (K, N)),
-                           ("bias", bias, (N,)), ("residual", residual,
-                                                  (M, N)),
-                           ("gamma", gamma, (N,)), ("beta", beta, (N,))):
-        check_operand(name, t, shape, dev)
-    y = torch.empty((M, N), dtype=torch.float32, device=dev)
+    dev, dt = x.device, x.dtype
+    for name, t, shape, tdt in (
+            ("x", x, (M, K), dt), ("w", w, (K, N), dt),
+            ("bias", bias, (N,), torch.float32),
+            ("residual", residual, (M, N), dt),
+            ("gamma", gamma, (N,), torch.float32),
+            ("beta", beta, (N,), torch.float32)):
+        check_operand(name, t, shape, dev, tdt)
+    y = torch.empty((M, N), dtype=dt, device=dev)
     z0 = (torch.empty_like(y) if spec.act is not None or spec.norm
           is not None else None)
+    # a bfloat16/float16 y is stored after the norm: rows wider than one
+    # chunk of the kernel wait for it in float32 scratch
+    ybuf = (torch.empty((M, N), dtype=torch.float32, device=dev)
+            if dt != torch.float32 and spec.norm is not None
+            and N > NORM_IN_REGISTERS else None)
     mask = (torch.empty((M, N), dtype=torch.uint8, device=dev)
             if spec.dropout_rate > 0.0 else None)
     s0, s1 = seed_words(seed)
@@ -203,20 +234,35 @@ def fused_matmul_kernel(x, w, bias=None, residual=None, gamma=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _cuda.library(KERNEL)
+    lib = _cuda.library(KERNEL if dt == torch.float32 else AMP_KERNEL)
     with torch.cuda.device(dev):
-        rc = _fn(lib)(
-            ptr(x), ptr(w), ptr(bias), ptr(residual), ptr(gamma), ptr(beta),
-            ptr(y), ptr(z0), ptr(mask), M, K, N, _ACTS[spec.act],
-            int(bool(spec.act_approximate)), float(spec.dropout_rate),
-            _NORMS[spec.norm], float(spec.norm_eps), s0, s1,
-            torch.cuda.current_stream(dev).cuda_stream)
+        args = (ptr(x), ptr(w), ptr(bias), ptr(residual), ptr(gamma),
+                ptr(beta), ptr(y), ptr(z0), ptr(mask), M, K, N,
+                _ACTS[spec.act], int(bool(spec.act_approximate)),
+                float(spec.dropout_rate), _NORMS[spec.norm],
+                float(spec.norm_eps), s0, s1,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if dt == torch.float32:
+            rc = _fn(lib)(*args)
+        else:
+            rc = _fn(lib, _cuda.type_suffix(dt))(*args[:9], ptr(ybuf),
+                                                 *args[9:])
     _cuda.check(lib, rc, "gemm_epilogue launch")
-    _cuda.LAUNCHES[LAUNCH] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(LAUNCH, dt)] += 1
     return y, z0, mask
 
 
 # -- autograd ----------------------------------------------------------------
+
+def matmul_f32(a, b):
+    """a @ b summed in float32 and rounded to a's element type (the JAX
+    ``dot_general(..., preferred_element_type=float32).astype``): the
+    card's bfloat16/float16 matmul reduces in float32
+    (``set_strict_fp32``); on the CPU the operands are widened first."""
+    if a.dtype == torch.float32 or a.device.type == "cuda":
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
 
 def cpu_keep_mask(seed, rate, shape):
     """The CPU path's keep mask, drawn as the dropout op draws its own
@@ -256,11 +302,16 @@ class _FusedMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        """The JAX custom VJP's: the epilogue replayed in float32 from
+        z0; in a bfloat16/float16 variant dz0 and dres come back in the
+        element type (z0 and the residual are stored in it), dx and dw
+        sum in float32 and are rounded to it, dbias stays float32."""
         x, w, bias, residual, gamma, beta, z0, mask = ctx.saved_tensors
         needs = ctx.needs_input_grad
         dy = dy.float()
         # affine epilogue: its gradient does not depend on z0
-        z0p = (z0 if z0 is not None else torch.zeros_like(dy)) \
+        z0p = (z0 if z0 is not None
+               else torch.zeros(dy.shape, dtype=x.dtype, device=dy.device)) \
             .detach().requires_grad_()
         extra = [t.detach().requires_grad_() if t is not None and need
                  else t for t, need in ((residual, needs[3]),
@@ -273,9 +324,10 @@ class _FusedMatmul(torch.autograd.Function):
         dz0 = next(got)
         dres, dgamma, dbeta = (next(got) if t is not None
                                and t.requires_grad else None for t in extra)
-        dx = torch.matmul(dz0, w.t()) if needs[0] else None
-        dw = torch.matmul(x.t(), dz0) if needs[1] else None
-        dbias = dz0.sum(dim=0) if bias is not None and needs[2] else None
+        dx = matmul_f32(dz0, w.t()) if needs[0] else None
+        dw = matmul_f32(x.t(), dz0) if needs[1] else None
+        dbias = (dz0.float().sum(dim=0).to(bias.dtype)
+                 if bias is not None and needs[2] else None)
         return dx, dw, dbias, dres, dgamma, dbeta, None, None
 
 

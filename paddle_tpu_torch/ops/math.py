@@ -9,8 +9,11 @@ operators/matmul_op.cc, mul_op.cc, elementwise/, reduce_ops/,
 activation_op.cc, scale_op.cc, clip_op.cc, top_k_op.cc, arg_max/min,
 cumsum).  XLA compiled these for the JAX package with no Pallas kernel;
 here they are plain PyTorch.  Float32 matmuls go to cuBLAS in full
-float32 (no TF32, see _device.py).  Every function also runs on ``meta``
-tensors (shape inference).
+float32 (no TF32, see _device.py); bfloat16 and float16 ones (AMP) sum in
+float32 and round the product to their type, as the JAX dots do: cuBLAS
+with its reduced-precision reductions off on the card, widened operands
+elsewhere (``fused_matmul.matmul_f32``).  Every function also runs on
+``meta`` tensors (shape inference).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import out, register_op, single
+from .fused_matmul import matmul_f32
 
 
 # -- matmul family ---------------------------------------------------------
@@ -30,7 +34,7 @@ def matmul(ctx, inputs, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False):
         y = y.transpose(-1, -2)
-    res = torch.matmul(x, y)
+    res = matmul_f32(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         res = res * alpha
@@ -48,7 +52,7 @@ def mul(ctx, inputs, attrs):
     xs, ys = tuple(x.shape), tuple(y.shape)
     x2 = x.reshape(-1, _prod(xs[xnc:]))
     y2 = y.reshape(_prod(ys[:ync]), -1)
-    return out(Out=torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:]))
+    return out(Out=matmul_f32(x2, y2).reshape(xs[:xnc] + ys[ync:]))
 
 
 def _prod(dims):

@@ -100,7 +100,7 @@ def build(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / "flash_attention_variants.cu"
     src.write_text(patched_source(
-        (_cuda.CSRC / "flash_attention.cu").read_text()))
+        _cuda.source_text("flash_attention")))
     procs = {}
     builds = {**VARIANTS, SHAPE_VARIANT: ("FB_OTHER_SHAPE",)}
     for name, macros in builds.items():

@@ -80,7 +80,7 @@ def build(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / "gemm_epilogue_variants.cu"
     src.write_text(patched_source(
-        (_cuda.CSRC / "gemm_epilogue.cu").read_text()))
+        _cuda.source_text("gemm_epilogue")))
     procs = {}
     for name, macros in VARIANTS.items():
         so = out_dir / f"lib{name}.so"

@@ -1138,3 +1138,222 @@ def test_dataloader_double_buffer_lands_on_the_card(device):
         assert b["x"].device.type == "cuda"
         sums.append(b["x"].sum())
     assert [float(s) for s in sums] == [i * 512.0 * 512 for i in range(24)]
+
+
+# -- the bfloat16 and float16 variants (AMP) ----------------------------------
+
+#: variant against its plain version in the same element type (both round
+#: at the kernels' points and sum in float32 in other orders): the worst
+#: element and (bfloat16) the mean as fractions of max|ref|, chip_smoke.py's
+#: AMP_TOL; lse within FLASH_FWD_ATOL-scale float32 noise, dbias within
+#: 1e-3 of max|ref| (a fully padded row's scores sit near -1e4, where
+#: float32's spacing is 2^-10)
+AMP_TOL = {torch.bfloat16: (2.0 ** -6, 2.0 ** -9),
+           torch.float16: (2.0 ** -9, None)}
+AMP_DTYPES = [torch.bfloat16, torch.float16]
+AMP_IDS = ["bf16", "f16"]
+
+
+def _amp_close(got, want, dtype, what):
+    assert got.dtype == dtype, (what, got.dtype)
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    scale = float(want.abs().max()) or 1.0
+    diff = (got - want).abs()
+    tmax, tmean = AMP_TOL[dtype]
+    assert float(diff.max()) <= tmax * scale, (what, float(diff.max()), scale)
+    if tmean is not None:
+        assert float(diff.mean()) <= tmean * scale, (what, float(diff.mean()))
+
+
+AMP_FLASH_CASES = {
+    "step": (16, 128, 128, 8, 64, False, True, 0.1),
+    "causal_t100": (4, 100, 100, 8, 64, True, False, 0.0),
+    "pad_row": (2, 128, 128, 4, 64, False, True, 0.0),
+    "d32": (4, 128, 128, 8, 32, False, False, 0.0),
+    "d128": (4, 128, 128, 4, 128, False, True, 0.0),
+}
+
+
+@pytest.mark.parametrize("dtype", AMP_DTYPES, ids=AMP_IDS)
+@pytest.mark.parametrize("case", sorted(AMP_FLASH_CASES))
+def test_packed_flash_variants_match_plain_versions(device, dtype, case):
+    """The bf16/f16 packed forward and backward pair against the plain
+    versions in the same element type (the kernels' own dropout mask
+    handed over): o, dq, dk, dv in the element type, lse and dbias in
+    float32, one launch each under the variant's own counter."""
+    c, do = _flash_case(device, *AMP_FLASH_CASES[case])
+    B, Tq, H = c["q"].shape
+    Tk, nh, rate = c["k"].shape[1], c["num_heads"], c["dropout_rate"]
+    bias = c["bias"].clone()
+    if case == "pad_row":
+        bias[-1] = -1e4
+    if not c["q"].is_contiguous():
+        qkv = torch.cat([c["q"], c["k"], c["v"]], -1).to(dtype)
+        q, k, v = qkv[..., :H], qkv[..., H:2 * H], qkv[..., 2 * H:]
+    else:
+        q, k, v = (c[n].to(dtype) for n in ("q", "k", "v"))
+    do = do.to(dtype)
+    mask = (fa.flash_kernel_dropout_mask(B, nh, Tq, Tk, rate, c["seed"],
+                                         device) if rate else None)
+    kw = dict(causal=c["causal"], dropout_rate=rate)
+    keys = [_cuda.launch_key(n, dtype) for n in (fa.FWD, fa.DQ, fa.DKV)]
+    before = {n: _cuda.LAUNCHES[n] for n in keys}
+    o, lse = fa.flash_kernel_forward(q, k, v, nh, bias=bias, seed=c["seed"],
+                                     **kw)
+    o_ref, lse_ref = fa.flash_ref_forward(q, k, v, nh, bias=bias,
+                                          keep_mask=mask, **kw)
+    dq, dk, dv, dbias = fa.flash_kernel_backward(q, k, v, bias, o, lse, do,
+                                                 nh, seed=c["seed"], **kw)
+    rq, rk, rv, rb = fa.flash_ref_backward(q, k, v, bias, o, lse, do, nh,
+                                           keep_mask=mask, **kw)
+    torch.cuda.synchronize()
+    assert {n: _cuda.LAUNCHES[n] - before[n] for n in keys} == \
+        dict.fromkeys(keys, 1)
+    _amp_close(o, o_ref, dtype, "o")
+    for name, g, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        _amp_close(g, r, dtype, name)
+    assert lse.dtype == dbias.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    assert float((dbias - rb).abs().max()) <= 1e-3 * float(rb.abs().max())
+
+
+@pytest.mark.parametrize("dtype", AMP_DTYPES, ids=AMP_IDS)
+@pytest.mark.parametrize("causal,rate", [(False, 0.1), (True, 0.0)],
+                         ids=["dropout", "causal"])
+def test_qkv_forward_variants_match_plain_version(device, dtype, causal,
+                                                  rate):
+    """flash_fwd_qkv in the element type against qkv_ref_forward (the
+    bias added in float32 and rounded, as the kernel does), then the
+    entry's gradients through the bf16/f16 dq and dk/dv kernels against
+    the plain composite's in the same dtype."""
+    B, T, nh, D = 8, 128, 8, 64
+    H = nh * D
+    g = torch.Generator().manual_seed(17)
+    x = _rnd(g, device, B, T, H).to(dtype)
+    w = _rnd(g, device, H, 3 * H, scale=H ** -0.5).to(dtype)
+    b = _rnd(g, device, 3 * H, scale=0.1)
+    pad = torch.zeros(B, 1, 1, T)
+    pad[: B // 2, ..., T - T // 4:] = -1e4
+    mask4 = pad.to(device)
+    kp = mask4.reshape(B, T).contiguous()
+    seed = 4321
+    keep = (fa.flash_kernel_dropout_mask(B, nh, T, T, rate, seed, device)
+            if rate else None)
+    qkv = fm.matmul_f32(x, w)
+    key = _cuda.launch_key(fa.QKV, dtype)
+    before = _cuda.LAUNCHES[key]
+    o, lse = fa.flash_kernel_forward_qkv(qkv, b, nh, kp, causal,
+                                         dropout_rate=rate, seed=seed)
+    o_ref, lse_ref = ae.qkv_ref_forward(qkv, b, nh, kp, causal,
+                                        dropout_rate=rate, keep_mask=keep)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 1
+    _amp_close(o, o_ref, dtype, "o")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    if rate:
+        return
+    do = _rnd(g, device, B, T, H).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    got = torch.autograd.grad(ae.fused_qkv_attention(
+        *leaves, nh, mask4, causal), leaves, do)
+    leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+    want = torch.autograd.grad(ae.plain_qkv_attention(
+        *leaves, nh, mask4, causal), leaves, do)
+    for name, a, r in zip(("dx", "dw"), got, want):
+        _amp_close(a, r, dtype, name)
+    assert got[2].dtype == torch.float32
+    _amp_close(got[2].to(dtype), want[2].to(dtype), dtype, "db")
+
+
+AMP_GEMM_CASES = {
+    "attn_out_n768": (512, 768, 768, dict(residual=True, norm="layer_norm",
+                                          dropout_rate=0.1)),
+    "wide_norm_n1024": (512, 1024, 1024, dict(residual=True,
+                                              norm="layer_norm",
+                                              dropout_rate=0.1)),
+    "gelu_n3072": (256, 1024, 3072, dict(act="gelu")),
+    "rms_ragged": (300, 520, 1000, dict(residual=True, norm="rms_norm")),
+    "k24_relu": (100, 24, 256, dict(act="relu", bias=False)),
+}
+
+
+@pytest.mark.parametrize("dtype", AMP_DTYPES, ids=AMP_IDS)
+@pytest.mark.parametrize("case", sorted(AMP_GEMM_CASES))
+def test_gemm_epilogue_variants_match_plain_version(device, dtype, case):
+    """gemm_epilogue in the element type against reference_matmul_epilogue
+    (x, w and the residual in the element type; bias, gamma, beta
+    float32): y and z0, the norm in registers (N 768) and after the
+    cluster barrier from the float32 scratch (N 1024, N 1000)."""
+    M, K, N, opts = AMP_GEMM_CASES[case]
+    opts = dict(opts)
+    has_bias, has_res = opts.pop("bias", True), opts.pop("residual", False)
+    spec = fm.EpilogueSpec(**opts)
+    g = torch.Generator().manual_seed(19)
+    x = _rnd(g, device, M, K).to(dtype)
+    w = _rnd(g, device, K, N, scale=K ** -0.5).to(dtype)
+    bias = _rnd(g, device, N, scale=0.1) if has_bias else None
+    res = _rnd(g, device, M, N).to(dtype) if has_res else None
+    gamma, beta = ((_rnd(g, device, N, scale=0.1, shift=1.0),
+                    _rnd(g, device, N, scale=0.1))
+                   if spec.norm else (None, None))
+    args = (x, w, bias, res, gamma, beta)
+    key = _cuda.launch_key(fm.LAUNCH, dtype)
+    before = _cuda.LAUNCHES[key]
+    y, z0, mask = fm.fused_matmul_kernel(*args, seed=99, spec=spec)
+    y_ref, z0_ref = fm.reference_matmul_epilogue(*args, spec=spec, mask=mask)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 1
+    _amp_close(y, y_ref, dtype, "y")
+    if z0 is not None:
+        _amp_close(z0, z0_ref, dtype, "z0")
+
+
+@pytest.mark.parametrize("dtype", AMP_DTYPES, ids=AMP_IDS)
+@pytest.mark.parametrize("case", ["bert_ffn", "m40_n384", "ragged_rms",
+                                  "k16_n4"])
+def test_ffn_chain_variants_match_plain_version(device, dtype, case):
+    """ffn_chain in the element type against reference_ffn_chain (the
+    activated panel rounded to the element type before GEMM2)."""
+    M, K, F, N, opts = FFN_CASES[case]
+    opts = dict(opts)
+    has_b2 = opts.pop("b2", True)
+    spec = fm.EpilogueSpec(**opts)
+    g = torch.Generator().manual_seed(23)
+    x = _rnd(g, device, M, K).to(dtype)
+    w1 = _rnd(g, device, K, F, scale=K ** -0.5).to(dtype)
+    b1 = _rnd(g, device, F, scale=0.1)
+    w2 = _rnd(g, device, F, N, scale=F ** -0.5).to(dtype)
+    b2 = _rnd(g, device, N, scale=0.1) if has_b2 else None
+    res = _rnd(g, device, M, N).to(dtype) if spec.norm else None
+    gamma, beta = ((_rnd(g, device, N, scale=0.1, shift=1.0),
+                    _rnd(g, device, N, scale=0.1))
+                   if spec.norm else (None, None))
+    args = (x, w1, b1, w2, b2, res, gamma, beta)
+    key = _cuda.launch_key(fc.LAUNCH, dtype)
+    before = _cuda.LAUNCHES[key]
+    y, mask = fc.ffn_chain_kernel(*args, seed=5, spec=spec)
+    y_ref = fc.reference_ffn_chain(*args, spec=spec, mask=mask)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 1
+    _amp_close(y, y_ref, dtype, "y")
+
+
+def test_variant_wrappers_raise_instead_of_falling_back(device):
+    """Mixed element types and float64 are refused, as is a bfloat16
+    flat call (the flat kernels are float32 only)."""
+    x = torch.zeros(64, 768, device=device, dtype=torch.bfloat16)
+    w = torch.zeros(768, 768, device=device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fm.fused_matmul_kernel(x, w.float())
+    with pytest.raises(TypeError):
+        fm.fused_matmul_kernel(x, w, bias=torch.zeros(
+            768, device=device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="fused_shapes_ok"):
+        fm.fused_matmul_kernel(x.double(), w.double())
+    q = torch.zeros(2, 16, 128, device=device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fa.flash_kernel_forward(q, q.half(), q, 2)
+    with pytest.raises(TypeError):
+        fa.flash_kernel_forward_flat(*(torch.zeros(
+            1, 2, 16, 64, device=device, dtype=torch.bfloat16),) * 3)

@@ -149,8 +149,9 @@ def test_shape_rule_edges():
     """It takes BERT-base's FFN (M 4096, K 768, F 3072, N 768) and
     BERT-tiny's; N above 768 (each CTA of the pair holds half of the
     accumulator row in registers), F not a multiple of 128, K not of 16
-    or another dtype do not fit.  Shared memory is the same for every
-    shape and within a block's."""
+    or a dtype other than float32, bfloat16 and float16 (AMP) do not
+    fit.  Shared memory is the same for every shape and within a
+    block's."""
     assert fc.ffn_chain_shapes_ok(4096, 768, 3072, 768)
     assert fc.ffn_chain_shapes_ok(256, 128, 128, 128)
     assert fc.ffn_chain_shapes_ok(64, 64, 128, 64)
@@ -159,5 +160,7 @@ def test_shape_rule_edges():
     assert not fc.ffn_chain_shapes_ok(4096, 768, 3000, 768)
     assert not fc.ffn_chain_shapes_ok(4096, 760, 3072, 768)
     assert not fc.ffn_chain_shapes_ok(0, 768, 3072, 768)
-    assert not fc.ffn_chain_shapes_ok(4096, 768, 3072, 768, torch.float16)
+    assert fc.ffn_chain_shapes_ok(4096, 768, 3072, 768, torch.float16)
+    assert fc.ffn_chain_shapes_ok(4096, 768, 3072, 768, torch.bfloat16)
+    assert not fc.ffn_chain_shapes_ok(4096, 768, 3072, 768, torch.float64)
     assert fc.ffn_chain_smem_bytes() == 222224 <= fc.SMEM_LIMIT

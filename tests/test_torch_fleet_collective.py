@@ -125,11 +125,6 @@ def test_strategy_knobs(cpu_rank):
         loss = _model(pt)
         fleet.init(UserDefinedRoleMaker(worker_num=1))
         s = DistributedStrategy()
-        s.use_amp = True
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            fleet.distributed_optimizer(pt.optimizer.SGD(0.1),
-                                        s).minimize(loss)
-        s = DistributedStrategy()
         s.use_dgc = True
         with pytest.raises(ValueError, match="DGCMomentumOptimizer"):
             fleet.distributed_optimizer(pt.optimizer.SGD(0.1),
@@ -139,6 +134,52 @@ def test_strategy_knobs(cpu_rank):
         fleet.distributed_optimizer(pt.optimizer.SGD(0.1), s).minimize(loss)
     assert any(op.type == "recompute_grad"
                for op in main.global_block().ops)
+
+
+def _amp_fleet_program(pkg, fleet_mod):
+    """The program a collective fleet builds under ``use_amp``."""
+    from importlib import import_module
+
+    maker = import_module(f"{pkg.__name__}.incubate.fleet.base.role_maker")
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        loss = _model(pkg)
+        fleet_mod.fleet.init(maker.UserDefinedRoleMaker(worker_num=1))
+        s = fleet_mod.DistributedStrategy()
+        s.use_amp = True
+        s.amp_loss_scaling = 2.0 ** 10
+        opt = fleet_mod.fleet.distributed_optimizer(pkg.optimizer.SGD(0.1),
+                                                    s)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def test_use_amp_wraps_the_optimizer(cpu_rank):
+    """``use_amp`` decorates the inner optimizer (bfloat16 AMP, the
+    strategy's ``amp_loss_scaling`` as its initial scale): the program
+    carries the AMP dtype and the same ops and persistables as the JAX
+    package's fleet builds (under bfloat16 neither creates the
+    loss-scaling variables, which only float16 needs), and it trains."""
+    from paddle_tpu.incubate.fleet import collective as jfleet
+    from paddle_tpu_torch.incubate.fleet import collective as pfleet
+
+    main, startup, loss = _amp_fleet_program(pt, pfleet)
+    jmain, _, _ = _amp_fleet_program(jpt, jfleet)
+    assert main._amp_dtype == jmain._amp_dtype == "bfloat16"
+    assert [op.type for op in main.global_block().ops] == \
+        [op.type for op in jmain.global_block().ops]
+    persist = sorted(v.name for v in main.list_vars() if v.persistable)
+    assert persist == sorted(v.name for v in jmain.list_vars()
+                             if v.persistable)
+    assert not any("loss_scaling" in n for n in persist)
+    X, Y = _data()
+    exe = pt.Executor(pt.CPUPlace())
+    with pt.scope_guard(pt.Scope()):
+        exe.run(startup)
+        losses = [float(exe.run(pfleet.fleet.main_program,
+                                feed={"x": X, "y": Y},
+                                fetch_list=[loss])[0]) for _ in range(5)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
 def test_collective_fleet_defaults_to_the_card(monkeypatch):

@@ -142,7 +142,8 @@ def test_affine_epilogue_saves_no_z0():
 def test_shape_rule():
     """The kernel's own rule: BERT-base's attention output (4096 x 768 x
     768) and FFN halves fit; the 30522-wide MLM head does not (it
-    replays, as on a TPU); K must tile by 8, N by 4; float32 only."""
+    replays, as on a TPU); K must tile by 8, N by 4; float32, bfloat16
+    (AMP) and float16, nothing else."""
     assert fm.fused_shapes_ok(4096, 768, 768)
     assert fm.fused_shapes_ok(4096, 768, 3072)
     assert fm.fused_shapes_ok(4096, 3072, 768)
@@ -151,4 +152,7 @@ def test_shape_rule():
     assert not fm.fused_shapes_ok(4096, 768, 8196)
     assert not fm.fused_shapes_ok(4096, 804, 768)
     assert not fm.fused_shapes_ok(4096, 768, 766)
-    assert not fm.fused_shapes_ok(4096, 768, 768, torch.bfloat16)
+    assert fm.fused_shapes_ok(4096, 768, 768, torch.bfloat16)
+    assert fm.fused_shapes_ok(4096, 768, 768, torch.float16)
+    assert not fm.fused_shapes_ok(4096, 768, 768, torch.float64)
+    assert not fm.fused_shapes_ok(4096, 804, 768, torch.bfloat16)

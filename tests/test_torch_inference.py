@@ -16,9 +16,10 @@
   too.
 * ``export_stablehlo``/``load_exported`` round-trip the fc model (a
   ``torch.export`` artifact; tests/test_torch_export.py holds it against
-  the JAX package's); ``enable_bfloat16`` raises ``NotImplementedError``
-  naming the ROADMAP item; without ``disable_gpu()`` the Predictor runs
-  on the card (and raises here).
+  the JAX package's); ``enable_bfloat16`` runs the program under
+  bfloat16 AMP, as the JAX package's Predictor does, and matches the JAX
+  bf16 Predictor; without ``disable_gpu()`` the Predictor runs on the
+  card (and raises here).
 """
 import dataclasses
 import json
@@ -116,10 +117,33 @@ def test_config_validation(tmp_path):
         inference.create_predictor(cfg)
     with pytest.raises(NotImplementedError):
         cfg.enable_tensorrt_engine()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        cfg.enable_bfloat16()
+    cfg.enable_bfloat16()                   # AMP: tested below
     cfg.enable_mkldnn()                     # accepted, as in the JAX package
     assert isinstance(cfg._place(), pt.CPUPlace)
+
+
+#: bf16 Predictor against the JAX one: both round the products' inputs
+#: and outputs to bfloat16 at the same points and sum in float32, so only
+#: the order of the sums may differ (bf16 against f32 differs by ~1e-3)
+BF16_ATOL = 1e-4
+
+
+def test_bfloat16_predictor_matches_the_jax_one(saved_model):
+    d, xv, ref = saved_model
+    cfg = _config(d)
+    cfg.enable_bfloat16()
+    pred = inference.create_predictor(cfg)
+    assert pred._program._amp_dtype == "bfloat16"
+    out, = pred.run([xv])
+    jcfg = jinference.Config(d)
+    jcfg.enable_bfloat16()
+    jref, = jinference.create_predictor(jcfg).run([xv])
+    assert out.dtype == np.float32          # softmax runs in float32
+    np.testing.assert_allclose(out, np.asarray(jref), rtol=0,
+                               atol=BF16_ATOL)
+    assert not np.array_equal(out, ref)     # the products did round
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        pred.export_stablehlo(os.path.join(d, "bf16.pt2"), {"x": xv})
 
 
 def test_two_file_set_model_form(saved_model):

@@ -104,11 +104,43 @@ def test_executor_defaults_to_the_card():
     assert got.shape == (4, 2) and exe.device.type == "cpu"
 
 
+def test_the_amp_modules_are_covered():
+    """contrib/mixed_precision and ops/amp_ops.py are among the sources
+    the import checks walk, and import alone without jax."""
+    rel = {str(p.relative_to(PORT)) for p in _sources() if PORT in p.parents}
+    for name in ("contrib/__init__.py", "contrib/mixed_precision/__init__.py",
+                 "contrib/mixed_precision/policy.py",
+                 "contrib/mixed_precision/decorator.py", "ops/amp_ops.py"):
+        assert name in rel, name
+    code = ("import sys\n"
+            "import paddle_tpu_torch.contrib.mixed_precision as amp\n"
+            "import paddle_tpu_torch.ops.amp_ops\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]\n"
+            "sys.exit(1 if bad or not callable(amp.decorate) else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_strict_fp32_is_stated():
     paddle_tpu_torch.set_strict_fp32()
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_reduced_precision_reductions_are_off():
+    """bfloat16 and float16 matmuls (AMP's products outside the fused
+    groups) sum in float32, as the JAX dots with
+    ``preferred_element_type=float32`` do: ``set_strict_fp32`` turns off
+    cuBLAS's reduced-precision reductions, which default on."""
+    m = torch.backends.cuda.matmul
+    m.allow_bf16_reduced_precision_reduction = True
+    m.allow_fp16_reduced_precision_reduction = True
+    paddle_tpu_torch.set_strict_fp32()
+    assert m.allow_bf16_reduced_precision_reduction is False
+    assert m.allow_fp16_reduced_precision_reduction is False
 
 
 def test_parallel_stands_alone_and_defaults_to_the_card(tmp_path):

@@ -105,12 +105,15 @@ def test_dropout_matches_the_plain_composite():
 def test_shape_rule():
     """The port's rule: any head count that splits H into heads of at
     most 128 dims (the TPU's H % 128 lane rule does not carry over);
-    float32; a key-padding bias only."""
+    float32, bfloat16 and float16 (AMP), no other dtype; a key-padding
+    bias only."""
     assert ae.attn_epilogue_shapes_ok(128, 768, 12)
     assert ae.attn_epilogue_shapes_ok(32, 64, 4)       # H % 128 != 0: fine
     assert not ae.attn_epilogue_shapes_ok(128, 768, 5)
     assert not ae.attn_epilogue_shapes_ok(128, 1024, 4)  # d_head 256
-    assert not ae.attn_epilogue_shapes_ok(128, 768, 12, torch.float16)
+    assert ae.attn_epilogue_shapes_ok(128, 768, 12, torch.float16)
+    assert ae.attn_epilogue_shapes_ok(128, 768, 12, torch.bfloat16)
+    assert not ae.attn_epilogue_shapes_ok(128, 768, 12, torch.float64)
     assert ae.key_padding_ok(torch.zeros(2, 1, 1, 32), 2, 32)
     assert ae.key_padding_ok(torch.zeros(1, 1, 1, 32), 2, 32)
     assert not ae.key_padding_ok(torch.zeros(2, 1, 32, 32), 2, 32)

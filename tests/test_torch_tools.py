@@ -10,12 +10,15 @@ from paddle_tpu_torch.tools import (ffn_chain_breakdown, flash_breakdown,
 
 
 @pytest.mark.parametrize("tool,source", [
-    (ffn_chain_breakdown, "gemm_epilogue.cu"),
-    (flash_breakdown, "flash_attention.cu"),
-    (gemm_breakdown, "gemm_epilogue.cu"),
+    (ffn_chain_breakdown, "gemm_epilogue"),
+    (flash_breakdown, "flash_attention"),
+    (gemm_breakdown, "gemm_epilogue"),
 ])
 def test_breakdown_switches_match_the_source(tool, source):
-    text = (_cuda.CSRC / source).read_text()
+    # the float32 entries' source with its kernel header inlined: what
+    # the tool patches and builds
+    text = _cuda.source_text(source)
+    assert "#include \"" + source + ".cuh\"" not in text
     patched = tool.patched_source(text)
     for macros in tool.VARIANTS.values():
         for macro in macros:
