@@ -275,9 +275,10 @@ Phases (any failure exits non-zero and prints no result):
       their tests' inputs, outputs and gradients within 1e-5.
 16. the parameter-server tier (phases 14 and 15 are described at their
    functions; their lines come before the kernels line too):
-   a. build_bert_pretrain(BertConfig.base(), 128) at dropout 0 through
-      the PS fleet (sync, server sgd, SGD(0.01), dense blocks of 64: 150
-      tables of 2,068,149 blocks) with one pserver process on the host,
+   a. build_bert_pretrain(BertConfig.base() cut to PS_DEPTH = 6 layers,
+      128) at dropout 0 through the PS fleet (sync, server sgd,
+      SGD(0.01), dense blocks of 64: a table a parameter; 150 tables of
+      2,068,149 blocks at 12 layers) with one pserver process on the host,
       each trainer a process of its own on the card (chip_smoke.py
       --child bert_ps) that only loads the kernels built here: one
       trainer, 3 steps on the 32 x 128 batch — losses within 1e-5
@@ -289,7 +290,8 @@ Phases (any failure exits non-zero and prints no result):
       half at the same θ; the step split into pull, step and push ms,
       the bytes each way, the server's RSS; each trainer's launches of
       the qkv-folded forward, the fused matmul, the FFN chain and the
-      flash dq and dk/dv kernels (12 a step each) join the kernels line,
+      flash dq and dk/dv kernels (one a layer a step each) join the
+      kernels line,
       and no plain version may run;
    b. tests/dist_fleet_ps.py's program in the sync, async and GEO modes
       at once, 2 pservers x 2 trainers each (the trainers on the card,
@@ -305,8 +307,8 @@ Phases (any failure exits non-zero and prints no result):
    d. the collective fleet (CollectiveOptimizer(Adam(1e-4))) on phase
       5's program at dropout 0 over a one-rank NCCL group started by
       ensure_distributed_initialized, against plain steps from the same
-      weights: 5 steps, losses and all 150 parameters bit-equal, the
-      fused kernels 12 x 5 times each; allreduce_bandwidth over that
+      weights: 5 steps, losses and all parameters bit-equal, the
+      fused kernels once a layer a step each; allreduce_bandwidth over that
       group (min_s, no GB/s at world 1); LocalSGD (k 2) at
       tests/dist_local_sgd.py's program on two gloo ranks on the card
       started by python -m paddle_tpu_torch.distributed.launch: after
@@ -388,6 +390,39 @@ Phases (any failure exits non-zero and prints no result):
       and the 5-step bf16 trajectory within 5e-2 relative of the f32 one
       from the same weights (tests/test_amp.py:87's bound).
    Its numbers go on an {"amp": {...}} line before the kernels line.
+19. the Megatron split and sync-BN, on two gloo ranks sharing the card
+   (one spawn, torch.multiprocessing), each job against the one-rank run
+   of the same program on the card from the same startup seed:
+   a. BERT-base at full width (12 layers, 12 heads, F 3072), 32 x 128,
+      dropout 0, at {model: 2} under tp_sharding_rules: 5 Adam steps
+      fused and 5 unfused — losses within 2e-3, every whole parameter
+      after the steps within 1e-3 of the one rank's, and each
+      parameter's distance from the one rank's within 0.1 of the one
+      rank's update of it (relative norms; TP_PARAM_REL_TOL says why);
+      per rank and step
+      the qkv-folded forward and the flash dq and dk/dv kernels 12 times
+      on 6 heads (the unfused program: the packed forward), the fused
+      matmul 12 times with its epilogue off and the FFN chain 12 times
+      at F 1536 with its epilogue off (none unfused); no weight gathered
+      whole; the collectives over model as planned (25 forward sums, 26
+      backward sums, the logits' gather); peak memory a rank beside one
+      rank's;
+   b. NMT-big (dropout 0) at {model: 2} under nmt_tp_sharding_rules, 16
+      x 128/128, 3 steps: losses within 2e-3, the parameters held as in
+      a; #9 12, #3 6, #5 and #6 18 a step, #10 launched;
+   c. ResNet-50 at {data: 2}, 32 images a rank, Momentum(0.001, 0.9),
+      against one rank at 64: 2 steps, losses within 2e-3, the running
+      statistics after the first within 1e-4 (the world-1 mesh's run
+      beside them: how far two f32 runs part without a second rank);
+      its control at Momentum(0.01, 0.9), the two ranks and the world-1
+      mesh each against one rank, recorded (its losses not gated), the
+      statistics held as in c.
+   Phase 2 holds every kernel at the split's shapes against its plain
+   version, gradients too (TP_SPLIT_CASES, the tp cases of QKV_CASES
+   and FLASH_CASES).
+   Its numbers go on a {"tensor_parallel": {...}} line before the
+   kernels line; the split runs' launches (rank 0's) join the kernels
+   line.
 Phase 2 also holds the bfloat16 and float16 variants of the packed
 flash kernels (#3, #5, #6), the qkv-folded forward (#9), the fused
 matmul (#10) and the FFN chain (#11) against their plain versions in the
@@ -415,7 +450,8 @@ numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 {"sparse_recompute": {...}} (phase 13's), {"fleet_tuning_artifact":
 {...}} (phase 14's), {"parallel": {...}} (phase 15's), {"ps": {...}}
 (phase 16's), {"bench_models": {...}} (phase 17's), {"amp": {...}}
-(phase 18's) and {"kernels": [...]}, one entry per kernel (each
+(phase 18's), {"tensor_parallel": {...}} (phase 19's) and {"kernels":
+[...]}, one entry per kernel (each
 bfloat16 and float16 variant beside its float32 entry) with its own
 launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
@@ -429,7 +465,8 @@ forward, dq and dk/dv) 13b's Recompute steps', and the five
 fused-step kernels phase 16a's trainer processes' and 16d's collective
 steps', and phase 17's runs theirs (17a's and 17b's timed steps, 17b's
 base steps, 17c's timed beam runs); a variant's are phase 18's (18a's
-and 18b's timed steps, 18c's card steps, 18d's timed steps).  Details go
+and 18b's timed steps, 18c's card steps, 18d's timed steps), and the
+float32 training kernels phase 19's split runs' (rank 0's).  Details go
 to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
@@ -589,6 +626,11 @@ FLASH_CASES = {
     # keys)
     "nmt_cross": (32, 256, 256, 16, 64, False, True, 0.1),
     "beam_cross": (32, 32, 64, 16, 64, False, True, 0.0),
+    # phase 19: one of two model ranks' heads: BERT-base's unfused
+    # attention (6 of 12, strided slices of the rank's qkv) and NMT-big's
+    # cross-attention (8 of 16, q and kv from their own products)
+    "tp_heads": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 6, 64, False, True, 0.0),
+    "tp_nmt_cross": (16, 128, 128, 8, 64, False, False, 0.0),
 }
 #: phase 11's causal LM attention (B, T, heads, d_head): #3 in the
 #: StaticRNN decoder's unfused op, #9 in the fused build_lm_logits; no
@@ -1241,6 +1283,18 @@ GEMM_CASES = {
     "nmt_n3072": (8192, 1024, 3072, dict()),
     "nmt_kv": (8192, 1024, 2048, dict()),
     "resnet_fc": (256, 2048, 1000, dict()),
+    # phase 19: the Megatron split's GEMMs on one of two model ranks
+    # (TP_SPLIT_CASES): BERT-base's row-parallel attention output (K
+    # 384, epilogue off) at 19a's rows; NMT-big's at 19b's, its
+    # row-parallel self/cross outputs (K 512) and FFN down half (K 2048)
+    # with the epilogue off, the FFN's column half (relu), the cross q
+    # and kv at their local columns
+    "tp_attn_out": (TRAIN_BATCH * TRAIN_SEQ, 384, 768, dict(bias=False)),
+    "tp_nmt_out": (2048, 512, 1024, dict(bias=False)),
+    "tp_nmt_ffn_up": (2048, 1024, 2048, dict(act="relu")),
+    "tp_nmt_ffn_down": (2048, 2048, 1024, dict(bias=False)),
+    "tp_nmt_cross_q": (2048, 1024, 512, dict()),
+    "tp_nmt_cross_kv": (2048, 1024, 1024, dict()),
 }
 #: FFN-chain cases: (M, K, F, N, options); "step" is one layer's FFN
 FFN_CASES = {
@@ -1268,6 +1322,10 @@ FFN_CASES = {
                                        beta=True, norm="layer_norm")),
     "k2048": (256, 2048, 1024, 768, dict(act="gelu", residual=True,
                                          dropout_rate=0.1)),
+    # phase 19: BERT-base's FFN on one of two model ranks (F 1536, gelu,
+    # no b2, no tail: the sum over model and the epilogue follow)
+    "tp_split": (TRAIN_BATCH * TRAIN_SEQ, 768, 1536, 768, dict(
+        act="gelu", bias=False)),
 }
 #: qkv-folded flash forward cases: (B, T, nh, D, causal, key-padding bias,
 #: dropout rate); "step" is one layer of the training step
@@ -1281,7 +1339,21 @@ QKV_CASES = {
     # 0.1) and its decoder's causal one
     "nmt": (32, 256, 16, 64, False, True, 0.1),
     "nmt_causal": (32, 256, 16, 64, True, False, 0.1),
+    # phase 19: one of two model ranks' heads (QKV_HIDDEN: x keeps the
+    # layer's whole width) in BERT-base (6 of 12) and NMT-big's encoder
+    # and decoder (8 of 16) at 19a's and 19b's batches
+    "tp": (TRAIN_BATCH, TRAIN_SEQ, 6, 64, False, True, 0.1),
+    "tp_nmt": (16, 128, 8, 64, False, True, 0.0),
+    "tp_nmt_causal": (16, 128, 8, 64, True, False, 0.0),
 }
+#: the input width K of the qkv cases whose heads are a model rank's part
+#: of the layer (x [B, T, K], w [K, 3 nh D]); the others read nh D
+QKV_HIDDEN = {"tp": 768, "tp_nmt": 1024, "tp_nmt_causal": 1024}
+#: the phase-2 cases at the split's shapes (phase 19): their gradients
+#: are held against the plain versions' too
+TP_SPLIT_CASES = ("tp_attn_out", "tp_nmt_out", "tp_nmt_ffn_up",
+                  "tp_nmt_ffn_down", "tp_nmt_cross_q", "tp_nmt_cross_kv",
+                  "tp_split")
 #: fused matmul / FFN chain against their plain versions: atol + rtol
 #: (float32 sums over K = 768 or F = 3072 unit-scale products in another
 #: order than cuBLAS's; the norm divides by a row's spread)
@@ -1336,18 +1408,49 @@ def _keep_ok(mask, rate):
 def _grad_check(fn_kernel, fn_plain, inputs, dy, rel=False):
     """Gradients of a kernel-backed autograd function against those of
     its plain version: the worst atol excess at EPI_RTOL, or with
-    ``rel`` (excess, the worst relative norm error of a gradient)."""
+    ``rel`` (excess, the worst relative norm error of a gradient).  A
+    None input stays None and has no gradient."""
     import torch
 
-    leaves = [t.detach().clone().requires_grad_() for t in inputs]
-    got = torch.autograd.grad(fn_kernel(*leaves), leaves, dy)
-    leaves = [t.detach().clone().requires_grad_() for t in inputs]
-    want = torch.autograd.grad(fn_plain(*leaves), leaves, dy)
+    live = [i for i, t in enumerate(inputs) if t is not None]
+
+    def grads(fn):
+        args = list(inputs)
+        for i in live:
+            args[i] = inputs[i].detach().clone().requires_grad_()
+        return torch.autograd.grad(fn(*args), [args[i] for i in live], dy)
+
+    got, want = grads(fn_kernel), grads(fn_plain)
     excess = max(_tol_excess(a, b, EPI_ATOL, EPI_RTOL)
                  for a, b in zip(got, want))
     if not rel:
         return excess
     return excess, max(_rel_norm(a, b) for a, b in zip(got, want))
+
+
+def _relu_tied_plain(fm, spec, mask, z0, z0_ref):
+    """The plain version whose gradients a case's kernel is held to, and
+    for a relu epilogue the count of products on the other side of 0
+    from the plain ones.  Under relu the plain version is handed the
+    kernel's activation mask (z0 > 0), as it is handed the kernel's
+    dropout mask: a product within rounding of 0 may fall on either
+    side, and its element of dy then counts in one gradient and not in
+    the other."""
+    if spec.act != "relu":
+        return (lambda *t: fm.reference_matmul_epilogue(
+            *t, spec=spec, mask=mask)[0]), None
+    if spec.norm is not None or spec.dropout_rate > 0.0:
+        raise ValueError("a relu case's gradients are checked without a "
+                         "dropout or norm after it")
+    active = z0 > 0
+    ties = int((active != (z0_ref > 0)).sum())
+    affine = spec._replace(act=None)
+
+    def plain(x, w, bias, residual, gamma, beta):
+        z = fm.reference_matmul_epilogue(x, w, bias, spec=affine)[0]
+        z = z * active.to(z.dtype)
+        return z if residual is None else z + residual
+    return plain, ties
 
 
 def epilogue_kernel_phase(device):
@@ -1382,20 +1485,26 @@ def epilogue_kernel_phase(device):
         if z0 is not None:
             excess = max(excess, _tol_excess(z0, z0_ref, EPI_ATOL, EPI_RTOL))
             err = max(err, float((z0 - z0_ref).abs().max()))
-        if name == "step":
+        grads = name == "step" or name in TP_SPLIT_CASES
+        grad_note = ""
+        if grads:
             dy = torch.randn(M, N, generator=torch.Generator().manual_seed(
                 SEED + 5)).to(device)
-            excess = max(excess, _grad_check(
+            plain, ties = _relu_tied_plain(fm, c["spec"], mask, z0, z0_ref)
+            g_excess = _grad_check(
                 lambda *t: fm.fused_matmul(*t, seed=c["seed"],
                                            spec=c["spec"]),
-                lambda *t: fm.reference_matmul_epilogue(
-                    *t, spec=c["spec"], mask=mask)[0],
-                args, dy))
+                plain, args, dy)
+            excess = max(excess, g_excess)
+            grad_note = f"; gradients: worst excess {g_excess:.3e}" + (
+                f", the kernel's relu mask handed over ({ties} products "
+                f"on the other side of 0 from the plain ones)"
+                if ties is not None else "")
         z0_note = "z0 checked" if z0 is not None else "no z0 (affine)"
         log(f"  gemm_epilogue {name}: M={M} K={K} N={N} {c['spec']} "
             + (f"keep={keep:.5f} " if keep is not None else "")
             + f"max_abs_err={err:.3e} ({z0_note}; atol {EPI_ATOL:g} rtol "
-            f"{EPI_RTOL:g}{', gradients too' if name == 'step' else ''})")
+            f"{EPI_RTOL:g}{grad_note})")
         if not (excess <= EPI_ATOL and bool(torch.isfinite(y).all())):
             raise AssertionError(f"gemm_epilogue disagrees with plain on "
                                  f"{name}")
@@ -1432,7 +1541,8 @@ def epilogue_kernel_phase(device):
                                      f"gemm_epilogue's at the same seed")
         err = float((y - y_ref).abs().max())
         excess = _tol_excess(y, y_ref, EPI_ATOL, EPI_RTOL)
-        if name == "step":
+        grads = name == "step" or name in TP_SPLIT_CASES
+        if grads:
             dy = torch.randn(M, N, generator=torch.Generator().manual_seed(
                 SEED + 6)).to(device)
             excess = max(excess, _grad_check(
@@ -1445,7 +1555,7 @@ def epilogue_kernel_phase(device):
             f"{has_b2} " + (f"keep={keep:.5f} (== gemm_epilogue's mask) "
                             if keep is not None else "")
             + f"max_abs_err={err:.3e} (atol {EPI_ATOL:g} rtol {EPI_RTOL:g}"
-            f"{', gradients too' if name == 'step' else ''})")
+            f"{', gradients too' if grads else ''})")
         if not (excess <= EPI_ATOL and bool(torch.isfinite(y).all())):
             raise AssertionError(f"ffn_chain disagrees with plain on {name}")
         report[fc.LAUNCH]["max_abs_err"] = max(
@@ -1522,9 +1632,10 @@ def qkv_kernel_phase(device):
     worst, cases, made = 0.0, {}, {}
     for name, (B, T, nh, D, causal, with_bias, rate) in QKV_CASES.items():
         H = nh * D
+        K = QKV_HIDDEN.get(name, H)
         g = torch.Generator().manual_seed(SEED + 500 + len(cases))
-        x = torch.randn(B, T, H, generator=g).to(device)
-        w = (torch.randn(H, 3 * H, generator=g) * H ** -0.5).to(device)
+        x = torch.randn(B, T, K, generator=g).to(device)
+        w = (torch.randn(K, 3 * H, generator=g) * K ** -0.5).to(device)
         b = (torch.randn(3 * H, generator=g) * 0.1).to(device)
         mask4 = None
         if with_bias:
@@ -1555,7 +1666,7 @@ def qkv_kernel_phase(device):
         long_rows = name in QKV_LONG_ROWS
         grad_ok = (grad_rel <= QKV_GRAD_REL_TOL if long_rows
                    else grad_excess <= EPI_ATOL)
-        log(f"  flash_fwd_qkv {name}: B={B} T={T} nh={nh} D={D} causal="
+        log(f"  flash_fwd_qkv {name}: B={B} T={T} K={K} nh={nh} D={D} causal="
             f"{causal} bias={with_bias} dropout={rate} max_abs_err={err:.3e} "
             f"(atol {FLASH_FWD_ATOL:g}); gradients through dq/dk-dv: worst "
             f"excess {grad_excess:.3e} (atol {EPI_ATOL:g} rtol {EPI_RTOL:g}"
@@ -8476,6 +8587,10 @@ def parallel_phase(device, cfg, phase5_step_ms=float("nan")):
 # -- phase 16: the parameter-server tier --------------------------------------
 
 PS_STEPS, PS_LR, PS_BLOCK_DIM = 3, 0.01, 64
+#: phase 16's BERT-base depth: cut from 12 to 6 layers when phase 19
+#: joined, to keep the script inside its time limit (a PS step moves
+#: every parameter each way through the host)
+PS_DEPTH = 6
 PS_RTOL = 1e-5
 #: the PS parameters' distance from the reference over the reference's own
 #: 3-step update (PS_RTOL of ‖θ‖ alone passes a table whose pushes never
@@ -10567,6 +10682,354 @@ def amp_phase(device, large_cfg=None, base_cfg=None, nmt_cfg=None,
 CHILDREN = {"bert_ps": bert_ps_child, "fleet_modes": fleet_modes_child}
 
 
+# -- phase 19: the Megatron split under {model: 2}, sync-BN under {data: 2} ---
+
+#: 19a's steps (each of fused and unfused), 19b's steps and shape (NMT-big
+#: at full depth, dropout 0), 19c's steps, images a rank and learning
+#: rate (ResNet-50's early-layer gradients are ill-conditioned at random
+#: weights: on an H100 at 0.01 the second step's loss parted from one
+#: rank's by 4.3e-3, the first's by 2e-6), and the rate of 19c's control
+#: run (recorded, not gated: the two ranks and the world-1 mesh each
+#: against one rank at the rate that parted), the gates, the ranks' time
+#: limit.  Whole parameters are held by their worst element and by each
+#: parameter's distance from the one rank's over the one rank's update
+#: of it (relative norms).  A rank whose shard of a parameter never
+#: updated leaves at least 0.7 of that update; one product on the other
+#: side of relu's 0 from the one rank's (phase 2 counts one in 4M at
+#: NMT's FFN) gives its unit a gradient in one run only, and Adam then
+#: moves that element by about lr a step in that run alone: 1/sqrt(n) of
+#: an n-element parameter's update, 1/32 at 1024.
+TP_STEPS, TP_NMT_STEPS = 5, 3
+TP_NMT_BATCH, TP_NMT_LEN = 16, 128
+TP_BN_STEPS, TP_BN_PER_RANK, TP_BN_LR = 2, 32, 1e-3
+TP_BN_CONTROL_LR = 1e-2
+TP_PARAM_TOL, TP_PARAM_REL_TOL, TP_STAT_TOL = 1e-3, 0.1, 1e-4
+TP_RANK_TIMEOUT_S = 900.0
+#: overrides of BertConfig.base() and NMTConfig.big() (a rehearsal's cuts)
+TP_BERT, TP_NMT = {}, {}
+#: 19a's kernels per layer, rank and step (6 of 12 heads a rank): the
+#: attention output on #10 with its epilogue off, the FFN on #11 at F
+#: 1536 with its epilogue off (the vocab logits, N 15261, replay)
+TP_FUSED_KERNELS = {"flash_fwd_qkv": 1, "flash_bwd_dq_packed": 1,
+                    "flash_bwd_dkv_packed": 1, "gemm_epilogue": 1,
+                    "ffn_chain": 1}
+TP_UNFUSED_KERNELS = {"flash_fwd_packed": 1, "flash_bwd_dq_packed": 1,
+                      "flash_bwd_dkv_packed": 1, "gemm_epilogue": 0,
+                      "ffn_chain": 0}
+
+
+def _tp_target(main, axes, fuse=True, rules=None, device_type="cuda"):
+    from paddle_tpu_torch.compiler import BuildStrategy, CompiledProgram
+    from paddle_tpu_torch.parallel import build_mesh
+
+    bs = BuildStrategy()
+    bs.fuse_epilogues = fuse
+    target = CompiledProgram(main, build_strategy=bs)
+    if axes is None:
+        return target
+    if axes == "local":
+        # {data: 1} without a process group: the mesh lowering at world 1
+        from paddle_tpu_torch.parallel import LocalMesh
+
+        return target.with_sharding(LocalMesh(device_type=device_type))
+    return target.with_sharding(build_mesh(axes, device_type=device_type),
+                                param_rules=rules)
+
+
+def _tp_jobs(device):
+    """19a-c's programs, feeds and meshes, the same in the parent (one
+    rank, no mesh) and in the two ranks."""
+    from paddle_tpu_torch.models import (BertConfig, NMTConfig,
+                                         nmt_tp_sharding_rules,
+                                         tp_sharding_rules)
+
+    bert = dataclasses.replace(_zero_dropout(BertConfig.base()), **TP_BERT)
+    nmt = dataclasses.replace(NMTConfig.big(), dropout=0.0,
+                              attn_dropout=0.0, **TP_NMT)
+    jobs = []
+    for fuse in (True, False):
+        jobs.append(dict(
+            name="bert_fused" if fuse else "bert_unfused", fuse=fuse,
+            steps=TP_STEPS, axes={"model": 2}, rules=tp_sharding_rules,
+            build=lambda: build_train(bert)[:3],
+            feed=lambda: train_batch(bert.vocab_size, device)))
+    jobs.append(dict(
+        name="nmt_big", fuse=True, steps=TP_NMT_STEPS, axes={"model": 2},
+        rules=nmt_tp_sharding_rules,
+        build=lambda: build_nmt(nmt, TP_NMT_LEN, TP_NMT_LEN),
+        feed=lambda: nmt_feed(nmt, TP_NMT_BATCH, TP_NMT_LEN, TP_NMT_LEN,
+                              device)))
+    for name, lr in (("resnet50", TP_BN_LR),
+                     ("resnet50_control", TP_BN_CONTROL_LR)):
+        jobs.append(dict(
+            name=name, fuse=True, steps=TP_BN_STEPS, axes={"data": 2},
+            rules=None,
+            build=lambda lr=lr: build_resnet(RESNET_DEPTH, RESNET_IMAGE,
+                                             RESNET_CLASSES, lr=lr)[:3],
+            feed=lambda: resnet_feed(2 * TP_BN_PER_RANK, RESNET_IMAGE,
+                                     RESNET_CLASSES, device)))
+    return jobs
+
+
+def _bn_stats(main, scope):
+    """The batch-norm running statistics as host arrays."""
+    names = [v.name for v in main.list_vars() if v.persistable
+             and v.name.startswith("batch_norm")
+             and (".mean" in v.name or ".variance" in v.name)]
+    return {n: scope.find_var(n).detach().float().cpu() for n in names}
+
+
+def _params(main, scope):
+    return {p.name: scope.find_var(p.name).detach().float().cpu().clone()
+            for p in main.all_parameters()}
+
+
+def _tp_run(job, exe, device, axes, init=None):
+    """One job's steps from its startup (``axes`` None: one rank) ->
+    (losses, scope, main, launches, peak bytes, wall s, stats after the
+    first step); ``init``, a dict, receives the startup's parameters."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    main, startup, loss = job["build"]()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    if init is not None:
+        init.update(_params(main, scope))
+    target = _tp_target(main, axes, job["fuse"],
+                        job["rules"]() if axes and job["rules"] else None,
+                        device.type)
+    feed = job["feed"]()
+    _free_card(device)
+    sync(device)
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    losses, stats = [], None
+    for s in range(job["steps"]):
+        losses.append(float(exe.run(target, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        if stats is None:
+            stats = _bn_stats(main, scope)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    return losses, scope, main, launches, peak, wall, stats
+
+
+def _tp_rank(rank, store, out_dir, job_dev, ref_dir):
+    """One of phase 19's two gloo ranks on the card (or the CPU in a
+    rehearsal): every job of ``_tp_jobs`` on its mesh, each rank's whole
+    parameters after the steps held against the one-rank run's."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import set_strict_fp32
+    from paddle_tpu_torch.core.spmd import whole_value
+
+    set_strict_fp32()
+    device = torch.device(job_dev.pop("device"))
+    globals().update(job_dev.pop("globals"))
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    res = {}
+    try:
+        exe = _executor(device)
+        for job in _tp_jobs(device):
+            losses, scope, main, launches, peak, wall, stats = _tp_run(
+                job, exe, device, job["axes"])
+            ref = torch.load(os.path.join(ref_dir, job["name"] + ".pt"),
+                             weights_only=False)
+            # the worst element, and the worst parameter's distance over
+            # the one rank's update of it, with the count of its elements
+            # that parted by more than a tenth of its largest move
+            dparam, rel, worst, parted = 0.0, 0.0, None, None
+            for n, want in ref["params"].items():
+                got = whole_value(scope, n, scope.find_var(n))
+                d = got.detach().float().cpu() - want
+                dparam = max(dparam, float(d.abs().max()))
+                norm, top = ref["moved"][n]
+                r = float(d.norm()) / max(norm, 1e-30)
+                if worst is None or r > rel:
+                    rel, worst = r, n
+                    parted = [int((d.abs() > 0.1 * top).sum()), d.numel()]
+            dstat = max((float((stats[n] - v).abs().max())
+                         for n, v in ref["stats"].items()), default=0.0)
+            plan = next(lw.mesh_plan for lw in main._exec_cache.values()
+                        if lw.mesh_plan is not None)
+            split = plan.split
+            qkv = scope.find_var("encoder.layer0.attn.qkv.w")
+            res[job["name"]] = dict(
+                losses=losses, launches=launches, peak_bytes=peak,
+                step_ms=wall / job["steps"] * 1e3, max_dparam=dparam,
+                max_dparam_rel=rel, worst_param=worst,
+                worst_param_parted=parted, max_dstat=dstat,
+                stats=dict(plan.last_stats),
+                planned=None if split is None else split.planned,
+                qkv_shard=None if qkv is None else list(qkv.shape))
+            del scope, main
+            _free_card(device)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"tp{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tensor_parallel_phase(device):
+    """Phase 19: BERT-base at {model: 2} fused and unfused (19a), NMT-big
+    at {model: 2} (19b), ResNet-50 at {data: 2} under sync-BN (19c, and
+    its control at TP_BN_CONTROL_LR), on two gloo ranks sharing the
+    card, each against the one-rank run of the same program on the
+    card."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    exe = _executor(device)
+    one = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for job in _tp_jobs(device):
+            init = {}
+            losses, scope, main, launches, peak, wall, stats = _tp_run(
+                job, exe, device, None, init)
+            params = _params(main, scope)
+            moved = {n: (float((v - init[n]).norm()),
+                         float((v - init[n]).abs().max()))
+                     for n, v in params.items()}
+            torch.save(dict(params=params, moved=moved, stats=stats),
+                       os.path.join(tmp, job["name"] + ".pt"))
+            one[job["name"]] = dict(losses=losses, launches=launches,
+                                    peak_bytes=peak,
+                                    step_ms=wall / job["steps"] * 1e3)
+            del scope, main, params, init
+            _free_card(device)
+            if job["name"].startswith("resnet50"):
+                # the same statistics' formula at world 1: how far two
+                # f32 runs of this step part without a second rank
+                one[job["name"]]["world1_losses"] = _tp_run(
+                    job, exe, device, "local")[0]
+                _free_card(device)
+        job_dev = dict(device=str(device), globals=dict(
+            TRAIN_BATCH=TRAIN_BATCH, TRAIN_SEQ=TRAIN_SEQ, TP_STEPS=TP_STEPS,
+            TP_NMT_STEPS=TP_NMT_STEPS, TP_NMT_BATCH=TP_NMT_BATCH,
+            TP_NMT_LEN=TP_NMT_LEN, TP_BN_STEPS=TP_BN_STEPS,
+            TP_BN_PER_RANK=TP_BN_PER_RANK, RESNET_IMAGE=RESNET_IMAGE,
+            RESNET_DEPTH=RESNET_DEPTH, RESNET_CLASSES=RESNET_CLASSES,
+            TP_BERT=TP_BERT, TP_NMT=TP_NMT))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            _tp_rank, args=(f"{tmp}/store", tmp, job_dev, tmp), nprocs=2,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_RANK_TIMEOUT_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise AssertionError(f"19: the gloo ranks still run after "
+                                     f"{TP_RANK_TIMEOUT_S} s")
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"tp{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = {"spawn_s": spawn_s, "jobs": {}}
+    for name, ref in one.items():
+        got = [r[name] for r in ranks]
+        out["jobs"][name] = j = dict(
+            one_rank=ref, ranks=got,
+            max_dloss=max(abs(a - b) for g in got
+                          for a, b in zip(g["losses"], ref["losses"])),
+            max_dparam=max(g["max_dparam"] for g in got),
+            max_dparam_rel=max(g["max_dparam_rel"] for g in got),
+            **{k: max(got, key=lambda g: g["max_dparam_rel"])[k]
+               for k in ("worst_param", "worst_param_parted")},
+            max_dstat=max(g["max_dstat"] for g in got))
+        if "world1_losses" in ref:
+            j["world1_dloss"] = max(abs(a - b) for a, b in zip(
+                ref["world1_losses"], ref["losses"]))
+        log(f"  19 {name}, two ranks at "
+            f"{'{data: 2}' if name.startswith('resnet') else '{model: 2}'}: "
+            f"losses {[g['losses'] for g in got]} against one rank's "
+            f"{ref['losses']}: max |dloss| {j['max_dloss']:.3e}"
+            + (f" (the world-1 mesh against one rank: "
+               f"{j['world1_dloss']:.3e})" if "world1_dloss" in j else "")
+            + f", whole params {j['max_dparam']:.3e} (worst parameter "
+            f"{j['worst_param']}: {j['max_dparam_rel']:.3e} of the one "
+            f"rank's update; {j['worst_param_parted'][0]} of its "
+            f"{j['worst_param_parted'][1]} elements parted by more than a "
+            f"tenth of its largest move), stats "
+            f"{j['max_dstat']:.3e}; step {got[0]['step_ms']:.1f} ms a rank "
+            f"(gloo through the host) against {ref['step_ms']:.1f} one "
+            f"rank; peak {[g['peak_bytes'] for g in got]} B a rank against "
+            f"{ref['peak_bytes']}; launches a rank {got[0]['launches']}; "
+            f"collectives {got[0]['stats']}")
+    for name, j in out["jobs"].items():
+        if name != "resnet50_control" and not j["max_dloss"] \
+                < PARITY_LOSS_TOL:
+            raise AssertionError(f"19 {name}: max |dloss| "
+                                 f"{j['max_dloss']:.3e}")
+        if not name.startswith("resnet") and not (
+                j["max_dparam"] < TP_PARAM_TOL
+                and j["max_dparam_rel"] < TP_PARAM_REL_TOL):
+            raise AssertionError(
+                f"19 {name}: whole parameters {j['max_dparam']:.3e} from "
+                f"the one rank's, {j['worst_param']} "
+                f"{j['max_dparam_rel']:.3e} of its update")
+        if name.startswith("resnet") and not j["max_dstat"] < TP_STAT_TOL:
+            raise AssertionError(f"19c {name}: running statistics "
+                                 f"{j['max_dstat']:.3e} from the one rank's")
+        for g in j["ranks"]:
+            if g["stats"].get("whole_gathers", 0):
+                raise AssertionError(f"19 {name}: whole gathers "
+                                     f"{g['stats']}")
+            if g["planned"] is not None:
+                seen = {k: g["stats"].get(k, 0) for k in g["planned"]}
+                if seen != g["planned"]:
+                    raise AssertionError(f"19 {name}: collectives {seen}, "
+                                         f"planned {g['planned']}")
+    from paddle_tpu_torch.models import BertConfig, NMTConfig
+
+    bert = dataclasses.replace(BertConfig.base(), **TP_BERT)
+    nl = dataclasses.replace(NMTConfig.big(), **TP_NMT).num_encoder_layers
+    for name, want in (("bert_fused", TP_FUSED_KERNELS),
+                       ("bert_unfused", TP_UNFUSED_KERNELS)):
+        for g in out["jobs"][name]["ranks"]:
+            got = {k: g["launches"].get(k, 0) for k in want}
+            if device.type == "cuda" and got != {
+                    k: v * bert.num_layers * TP_STEPS
+                    for k, v in want.items()}:
+                raise AssertionError(f"19a {name}: launches {got} per rank "
+                                     f"in {TP_STEPS} steps, want {want} a "
+                                     f"layer and step")
+            if g["qkv_shard"] != [bert.hidden_size,
+                                  3 * bert.hidden_size // 2]:
+                raise AssertionError(f"19a: qkv shard {g['qkv_shard']}")
+    nmt = out["jobs"]["nmt_big"]["ranks"][0]["launches"]
+    # self-attention on #9 (encoder and decoder), the cross-attention on
+    # #3, both backward kernels for all three
+    want_nmt = {"flash_fwd_qkv": 2 * nl, "flash_fwd_packed": nl,
+                "flash_bwd_dq_packed": 3 * nl, "flash_bwd_dkv_packed": 3 * nl}
+    if device.type == "cuda" and (
+            {k: nmt.get(k, 0) for k in want_nmt}
+            != {k: v * TP_NMT_STEPS for k, v in want_nmt.items()}
+            or not nmt.get("gemm_epilogue")):
+        raise AssertionError(f"19b: launches {nmt}")
+    if device.type == "cuda" and not out["jobs"]["resnet50"]["ranks"][0][
+            "launches"].get("gemm_epilogue"):
+        raise AssertionError("19c: the classifier's #10 never launched")
+    # phase 19's launches on the kernels line: rank 0's of the split runs
+    out["launches"] = {}
+    for j in out["jobs"].values():
+        for k, n in j["ranks"][0]["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    return out
+
+
 def child_main(argv):
     """Run a phase-16 child: ``--child <name> <json kwargs>`` or
     ``--local-sgd-rank <out_dir>``."""
@@ -10754,8 +11217,9 @@ def main():
             "collective fleet, LocalSGD through the launcher, the "
             "all-reduce harness")
         torch.cuda.empty_cache()
-        report["ps"] = ps_phase(device, BertConfig.base(),
-                                report["training"]["step_ms"])
+        report["ps"] = ps_phase(device, dataclasses.replace(
+            BertConfig.base(), num_layers=PS_DEPTH),
+            report["training"]["step_ms"])
         for name, n in report["ps"]["launches"].items():
             report["kernels"][name]["launches"] += n
 
@@ -10774,6 +11238,15 @@ def main():
         _free_card(device)
         report["amp"] = amp_phase(device)
         for name, n in report["amp"]["launches"].items():
+            report["kernels"][name]["launches"] = \
+                report["kernels"][name].get("launches", 0) + n
+
+        log("[19] the Megatron split: BERT-base (fused and unfused) and "
+            "NMT-big at {model: 2} against one rank, ResNet-50 at {data: 2} "
+            "under sync-BN, two gloo ranks on the card")
+        _free_card(device)
+        report["tensor_parallel"] = tensor_parallel_phase(device)
+        for name, n in report["tensor_parallel"]["launches"].items():
             report["kernels"][name]["launches"] = \
                 report["kernels"][name].get("launches", 0) + n
         idle = [k["name"] for k in KERNELS
@@ -10968,6 +11441,19 @@ def main():
             "launches")},
         gates={k: {m: v[m] for m in ("first_rel", "curve_rel")}
                for k, v in am["gates"].items()})}))
+    tp = report["tensor_parallel"]
+    print(json.dumps({"tensor_parallel": dict(
+        card=card, spawn_s=tp["spawn_s"], **{name: dict(
+            max_dloss=j["max_dloss"], max_dparam=j["max_dparam"],
+            max_dparam_rel=j["max_dparam_rel"], worst_param=j["worst_param"],
+            worst_param_parted=j["worst_param_parted"],
+            max_dstat=j["max_dstat"], **({"world1_dloss": j["world1_dloss"]}
+                                         if "world1_dloss" in j else {}),
+            one_rank={k: j["one_rank"][k] for k in (
+                "losses", "step_ms", "peak_bytes")},
+            ranks=[{k: g[k] for k in (
+                "losses", "step_ms", "peak_bytes", "launches", "stats")}
+                for g in j["ranks"]]) for name, j in tp["jobs"].items()})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

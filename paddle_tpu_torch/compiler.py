@@ -23,8 +23,11 @@ the port runs them itself:
   sum, so the step computes the loss of the global batch;
 * parameter gradients are summed over the data axis (bucketed);
 * a parameter a rule shards (and its accumulators) is stored as the
-  rank's shard and gathered whole before the forward; each rank updates
-  its shard;
+  rank's shard; each rank updates its shard.  Over a ``model`` axis of
+  more than one rank the Megatron split computes on the shards (each
+  rank its heads, FFN columns and vocab rows); a sharded parameter some
+  other op reads is gathered whole before the forward;
+* batch norm in training takes the global batch's statistics (sync-BN);
 * ``ReduceStrategy.Reduce`` (ZeRO-1) with a data axis of size > 1
   shards every optimizer accumulator 1/dp on its first free divisible
   dim: each rank updates its slice of parameter and gradient, then the

@@ -158,6 +158,30 @@ def _host_tensor(value):
     return torch.from_numpy(arr)
 
 
+def _agree_seed(program: Program, mesh, seed: int) -> int:
+    """The auto seed of the process at the mesh's first coordinates, sent
+    along each axis's group in turn; once per program and mesh (again if
+    the program's seed changed since, as a restore sets it)."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh as mesh_lib
+
+    key = (mesh_lib.axis_names(mesh), tuple(mesh.mesh.flatten().tolist()))
+    agreed = program.__dict__.setdefault("_agreed_seeds", {})
+    if agreed.get(key) == seed:
+        return seed
+    for axis in mesh_lib.axis_names(mesh):
+        group = mesh_lib.axis_group(mesh, axis)
+        if group is None or mesh_lib.axis_size(mesh, axis) == 1:
+            continue
+        box = [seed]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                   group=group)
+        seed = int(box[0])
+    agreed[key] = seed
+    return seed
+
+
 class Executor:
     def __init__(self, place: Place = None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -209,7 +233,7 @@ class Executor:
         fetches = self._run_lowered(
             program, lowered, scope,
             lambda mut, const: lowered.fn(dev_feed, mut, const,
-                                          self._next_seed(program)),
+                                          self._next_seed(program, mesh)),
             # once per lowering: publish the optimizer-state footprint
             record_state=was_miss and compiled is not None,
             compiled=compiled)
@@ -314,7 +338,12 @@ class Executor:
         return val
 
     @staticmethod
-    def _next_seed(program: Program) -> int:
+    def _next_seed(program: Program, mesh=None) -> int:
+        """The step's seed.  A program without ``random_seed`` draws one
+        once; over a mesh of processes the mesh's first rank's seed is
+        agreed (``_agree_seed``), so the ranks' replicated values draw one
+        dropout mask (core/spmd.py folds in the coordinates that must
+        differ)."""
         counter = getattr(program, "_rng_counter", 0)
         program._rng_counter = counter + 1
         seed = program.random_seed
@@ -322,7 +351,9 @@ class Executor:
             seed = getattr(program, "_auto_seed", None)
             if seed is None:
                 seed = int(np.random.randint(0, 2**31 - 1))
-                program._auto_seed = seed
+            if mesh is not None and mesh.is_multiprocess:
+                seed = _agree_seed(program, mesh.mesh, seed)
+            program._auto_seed = seed
         return fold_seed(seed, counter)
 
     def train_from_dataset(self, program=None, dataset=None, scope=None,

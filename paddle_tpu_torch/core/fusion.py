@@ -58,6 +58,26 @@ in the AMP dtype, biases, gamma, beta and the key-padding bias in
 float32, as the JAX ``_try_kernel_*`` cast them, and a replayed member
 takes its inputs under the policy.
 
+Under the Megatron split (core/spmd.py, a ``model`` axis of P ranks) the
+plan is the same, group for group; a group runs on its rank's part:
+each member's input transforms (``OpSplit.pre``) apply to the group's
+operands inside its graph, then
+
+* the qkv + attention group runs ``fused_qkv_attention`` on the rank's
+  [K, 3H/P] head-grouped weight with nh/P heads and the explicit softmax
+  scale, its dropout bits folded with the model rank;
+* a row-parallel GEMM group (its product split on K: the attention
+  output) runs the matmul-epilogue kernel with its epilogue off, sums
+  the partial product over ``model``, then applies bias, activation,
+  dropout, residual and norm in plain PyTorch (``_epilogue_from_z0``);
+* the FFN chain runs the chain kernel at the local F with its output
+  epilogue off (else the per-GEMM route: the column half with bias and
+  activation, the row half with its epilogue off), the same sum, the
+  same plain epilogue;
+* a column-parallel GEMM group runs its kernel on the local columns.
+
+A replayed member runs through ``MeshExec.run_op``, as an unfused op.
+
 Not carried over from the JAX package: its environment switches and the
 kernels' degradation and fault injection (whose only job is to fall
 back).
@@ -809,8 +829,12 @@ def run_fused_group(fx, grp, env, seed, device, vjp_uids, is_test=False,
 
 
 def _run_group(grp, gins, seed, device, is_test=False, amp=None):
+    from . import spmd
 
-    cov = _try_kernel(grp, gins, seed, is_test, amp)
+    mx = spmd.active()
+    if mx is not None and mx.split is None:
+        mx = None
+    cov = _try_kernel(grp, gins, seed, is_test, amp, mx)
     tmp = {}
     last_outs = None
     start_at = 0
@@ -843,7 +867,8 @@ def _run_group(grp, gins, seed, device, is_test=False, amp=None):
             is_test=is_test or bool(m.attrs.get("is_test", False)),
             attrs=m.attrs,
             device=device)
-        outs = opdef.compute(ctx, ins, m.attrs)
+        outs = (opdef.compute(ctx, ins, m.attrs) if mx is None
+                else mx.run_op(opdef, ctx, ins, m))
         for slot, names in m.outputs.items():
             for n, v in zip(names, outs.get(slot, [])):
                 if n != EMPTY_VAR_NAME:
@@ -852,7 +877,50 @@ def _run_group(grp, gins, seed, device, is_test=False, amp=None):
     return last_outs
 
 
-def _try_kernel(grp, gins, seed, is_test=False, amp=None):
+def _rank_operands(grp, gins, mx):
+    """The group's operands on this model rank: each member's input
+    transforms applied (bsum, narrow, gather); as they are without a
+    split."""
+    if mx is None:
+        return gins
+    res = dict(gins)
+    for m in grp.members:
+        rec = mx.split_of(m)
+        if rec is None:
+            continue
+        for (slot, j), how in rec.pre.items():
+            key = (m.uid, slot, j)
+            if key in res and torch.is_tensor(res[key]):
+                res[key] = mx.transform(how, res[key])
+    return res
+
+
+def _row_split(grp, mx, role):
+    """Whether the member holding ``role`` is a row-parallel product."""
+    if mx is None or role not in grp.roles:
+        return False
+    uid = grp.roles[role][0]
+    rec = mx.split_of(next(m for m in grp.members if m.uid == uid))
+    return rec is not None and rec.kind == "row"
+
+
+def _after_sum(mx, z, bias, res, gamma, beta, spec, rate, dseed):
+    """A row-parallel product's epilogue: the partial product summed
+    over ``model``, then bias, activation, dropout, residual and norm in
+    plain PyTorch on the whole value (every model rank computes the same
+    bits: its dropout seed does not fold the model rank)."""
+    from ..ops.fused_matmul import _epilogue_from_z0
+    from ..ops.nn import keep_mask
+
+    z = mx.model_sum(z).float()
+    if bias is not None:
+        z = z + bias.float()
+    mask = (keep_mask(dseed, rate, z.shape, z.device)
+            if rate > 0.0 else None)
+    return _epilogue_from_z0(z, mask, res, gamma, beta, spec)
+
+
+def _try_kernel(grp, gins, seed, is_test=False, amp=None, mx=None):
     """Lower the group onto its kernel when the shapes and dtypes allow.
 
     Returns ``(n_covered, outs)`` — the number of leading members the
@@ -860,11 +928,12 @@ def _try_kernel(grp, gins, seed, is_test=False, amp=None):
     replay path.  GEMM and FFN-chain kernels cover the whole group; the
     attention kernel covers through the fused_attention member and
     leaves any dropout/residual/norm tail to the replay loop."""
+    gins = _rank_operands(grp, gins, mx)
     if grp.kind == "attn":
-        return _try_kernel_attn(grp, gins, seed, is_test, amp)
+        return _try_kernel_attn(grp, gins, seed, is_test, amp, mx)
     if grp.kind == "ffn_chain":
-        return _try_kernel_ffn(grp, gins, seed, is_test, amp)
-    outs = _try_kernel_gemm(grp, gins, seed, is_test, amp)
+        return _try_kernel_ffn(grp, gins, seed, is_test, amp, mx)
+    outs = _try_kernel_gemm(grp, gins, seed, is_test, amp, mx)
     return None if outs is None else (len(grp.members), outs)
 
 
@@ -917,7 +986,7 @@ def _dropout(grp, seed, is_test=False):
     return rate, (fold_seed(seed, grp.dropout["uid"]) if rate > 0.0 else 0)
 
 
-def _try_kernel_attn(grp, gins, seed, is_test=False, amp=None):
+def _try_kernel_attn(grp, gins, seed, is_test=False, amp=None, mx=None):
     """qkv projection + bias + slice3 + packed flash attention as one
     kernel entry (ops/attention_epilogue.py): the qkv bias add and the
     softmax scale apply in the flash forward kernel."""
@@ -945,24 +1014,28 @@ def _try_kernel_attn(grp, gins, seed, is_test=False, amp=None):
     if tuple(b_qkv.shape) != (3 * h,):
         return None
     attn_m = grp.members[grp.extra["attn_pos"]]
-    nh = int(attn_m.attrs["num_heads"])
+    rec = None if mx is None else mx.split_of(attn_m)
+    attrs = attn_m.attrs if rec is None or rec.attrs is None else rec.attrs
+    nh = int(attrs["num_heads"])
     if not ae.attn_epilogue_shapes_ok(t_len, h, nh, x.dtype):
         return None
     if attn_bias is not None and not ae.key_padding_ok(attn_bias, b, t_len):
         return None
-    rate = 0.0 if is_test or attn_m.attrs.get("is_test", False) \
-        else float(attn_m.attrs.get("dropout_rate", 0.0))
+    rate = 0.0 if is_test or attrs.get("is_test", False) \
+        else float(attrs.get("dropout_rate", 0.0))
     if rate >= 1.0:
         return None
+    aseed = fold_seed(seed, attn_m.uid)
+    if rec is not None and rec.model_rng:
+        aseed = mx.model_seed(aseed)
     o = ae.fused_qkv_attention(
         x, w, b_qkv, nh, attn_bias=attn_bias,
-        causal=bool(attn_m.attrs.get("causal", False)),
-        sm_scale=attn_m.attrs.get("sm_scale"), dropout_rate=rate,
-        seed=fold_seed(seed, attn_m.uid))
+        causal=bool(attrs.get("causal", False)),
+        sm_scale=attrs.get("sm_scale"), dropout_rate=rate, seed=aseed)
     return grp.extra["attn_pos"] + 1, {"Out": [o]}
 
 
-def _try_kernel_ffn(grp, gins, seed, is_test=False, amp=None):
+def _try_kernel_ffn(grp, gins, seed, is_test=False, amp=None, mx=None):
     """FFN up/down chain: the two-GEMM chain kernel where
     ``ffn_chain_shapes_ok`` holds (ops/ffn_chain.py), else two fused
     matmul-epilogue calls, else None (replay)."""
@@ -1029,6 +1102,23 @@ def _try_kernel_ffn(grp, gins, seed, is_test=False, amp=None):
 
     chain_ok = fc.ffn_chain_shapes_ok(m_rows, k_dim, f_dim, n_dim, x.dtype)
     plan = _plan_override(grp, (m_rows, k_dim, f_dim, n_dim), x, chain_ok)
+    if _row_split(grp, mx, "w2"):
+        # the rank's F columns: the product over them is partial until
+        # the sum over model; the output epilogue waits for it
+        act_only = fm.EpilogueSpec(act=grp.act,
+                                   act_approximate=spec.act_approximate)
+        if chain_ok and plan != "per_gemm":
+            z = fc.fused_ffn_chain(x2, w1, b1, w2, None, spec=act_only)
+        elif (fm.fused_shapes_ok(m_rows, k_dim, f_dim, x.dtype)
+              and fm.fused_shapes_ok(m_rows, f_dim, n_dim, x.dtype)):
+            h1 = fm.fused_matmul(x2, w1, b1, spec=act_only)
+            z = fm.fused_matmul(h1, w2, spec=fm.EpilogueSpec())
+        else:
+            return None
+        y2 = _after_sum(mx, z, b2, res2, gamma, beta,
+                        spec._replace(act=None), rate, dseed)
+        return len(grp.members), {grp.final_slot: [
+            y2.to(x.dtype).reshape(out_shape)]}
     if chain_ok and plan != "per_gemm":
         y2 = fc.fused_ffn_chain(x2, w1, b1, w2, b2, residual=res2,
                                 gamma=gamma, beta=beta, seed=dseed,
@@ -1064,7 +1154,7 @@ def _plan_override(grp, geom, x, chain_ok):
     return grp.extra[key]
 
 
-def _try_kernel_gemm(grp, gins, seed, is_test=False, amp=None):
+def _try_kernel_gemm(grp, gins, seed, is_test=False, amp=None, mx=None):
     """The fused matmul-epilogue kernel when the shapes allow: the final
     member's outputs dict, or None for the replay path."""
     from ..ops import fused_matmul as fm
@@ -1104,6 +1194,14 @@ def _try_kernel_gemm(grp, gins, seed, is_test=False, amp=None):
         dropout_rate=float(rate),
         norm=grp.norm["type"] if grp.norm else None,
         norm_eps=grp.norm["eps"] if grp.norm else 1e-5)
+    if _row_split(grp, mx, "w"):
+        # K is the rank's slice: the kernel's product, epilogue off, is
+        # partial until the sum over model
+        z = fm.fused_matmul(x.reshape(M, K), w, spec=fm.EpilogueSpec())
+        y2 = _after_sum(mx, z, bias, None if res is None
+                        else res.reshape(M, N), gamma, beta, spec, rate,
+                        dseed)
+        return {grp.final_slot: [y2.to(x.dtype).reshape(out_shape)]}
     y2 = fm.fused_matmul(x.reshape(M, K), w, bias,
                          None if res is None else res.reshape(M, N),
                          gamma, beta, dseed, spec)

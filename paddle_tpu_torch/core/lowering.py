@@ -66,8 +66,12 @@ one), each under ``torch.utils.checkpoint``, and the op takes
 The fusion pass plans nothing in such a program (core/fusion.py).
 
 Meshes (a CompiledProgram with one): core/spmd.py plans the batch split,
-the forward sums, the gradient sum and the sharded storage once per
-lowering, and its ``MeshExec`` runs them each step.
+the forward sums, sync-BN, the gradient sum, the sharded storage and
+the Megatron split over a ``model`` axis once per lowering, and its
+``MeshExec`` runs them each step: an op the split plans runs through
+``MeshExec.run_op`` (its inputs' collectives, its attrs and random bits
+on the rank, its outputs' sums), inside the op's own autograd graph so
+that its ``vjp_grad`` differentiates through them.
 
 AMP (``program._amp_dtype``, set by contrib/mixed_precision's
 ``decorate``): the dtype policy applies to every op's inputs just before
@@ -233,6 +237,7 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
             else:
                 fetches = [mx.fetch(n, env[n]) for n in fetch_names]
                 new_persist = {n: mx.store(n, env[n]) for n in persist_out}
+                mx.finish()
         finally:
             spmd.set_active(prev)
         return fetches, new_persist
@@ -377,20 +382,24 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
 
 def _compute(opdef, ctx, ins, op, mx):
     """One op's compute; under a mesh, a reduction over the batch goes
-    through the forward sum and an update op's parameter comes back
-    whole (core/spmd.py)."""
-    if mx is not None and op.uid in mx.plan.moe:
+    through the forward sum, batch statistics are the global batch's, an
+    op of the model split runs on the rank's part and an update op's
+    parameter comes back whole (core/spmd.py)."""
+    if mx is None:
+        return opdef.compute(ctx, ins, op.attrs)
+    if op.uid in mx.plan.moe:
         mx.moe_mode = mx.plan.moe[op.uid]
         try:
             return opdef.compute(ctx, ins, op.attrs)
         finally:
             mx.moe_mode = None
-    outs = opdef.compute(ctx, ins, op.attrs)
-    if mx is not None:
-        if op.uid in mx.plan.forward_sums:
-            outs = mx.reduce_outs(op, outs)
-        elif op.uid in mx.plan.update_ops:
-            outs = mx.gather_update(op, outs)
+    if op.uid in mx.plan.sync_bn:
+        return mx.sync_batch_norm(ins, op.attrs)
+    outs = mx.run_op(opdef, ctx, ins, op)
+    if op.uid in mx.plan.forward_sums:
+        outs = mx.reduce_outs(op, outs)
+    elif op.uid in mx.plan.update_ops:
+        outs = mx.gather_update(op, outs)
     return outs
 
 

@@ -32,7 +32,10 @@ port's flash and GEMM-epilogue kernels.  The design:
 Tensor-parallel placement: nmt_tp_sharding_rules() gives the Megatron
 layout over the `model` mesh axis for every attention/ffn block in both
 stacks (qkv/q/kv & ffn-in column-sharded, out row-sharded, embedding
-row-sharded over vocab).
+row-sharded over vocab).  Under a mesh with `model` > 1 each rank
+computes its own heads and FFN columns, looks up its own vocab rows
+and projects the tied logits onto them, gathered along the vocab before
+the smoothed cross-entropy (core/spmd.py).
 """
 from __future__ import annotations
 
@@ -368,7 +371,8 @@ def build_nmt_beam_infer(cfg: NMTConfig, src_len: int, batch: int,
 
 def nmt_tp_sharding_rules():
     """Megatron placement over the `model` axis for both stacks (same
-    contract as models.tp_sharding_rules for BERT)."""
+    contract as models.tp_sharding_rules for BERT: the split computes,
+    no weight is gathered whole inside a step)."""
     return [
         (r"nmt\..*\.(self|cross)\.qkv\.w$", (None, "model")),
         (r"nmt\..*\.(self|cross)\.qkv\.b$", ("model",)),

@@ -286,9 +286,13 @@ def build_bert_pretrain(cfg: BertConfig, seq_len: int, is_test=False,
 
 def tp_sharding_rules():
     """Megatron-style tensor-parallel placement over the `model` axis
-    (the JAX package's rules).  The port stores each rank's shard and
-    gathers the whole weight before the forward (core/spmd.py); the
-    compute stays whole on every model rank."""
+    (the JAX package's rules).  Under a mesh with `model` > 1 each rank
+    stores its shard (the fused qkv weight and bias head-grouped: its
+    own heads' q, k and v columns) and computes its own heads, FFN
+    columns and vocab rows: column-parallel qkv, `ffn.in` and MLM
+    logits, row-parallel `attn.out` and `ffn.out` summed over `model`,
+    the vocab-parallel embedding (core/spmd.py); no weight is gathered
+    whole inside a step."""
     return [
         (r"\.attn\.qkv\.w$", (None, "model")),
         (r"\.attn\.qkv\.b$", ("model",)),

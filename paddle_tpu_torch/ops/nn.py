@@ -182,6 +182,14 @@ def layer_norm(ctx, inputs, attrs):
     return out(Y=y, Mean=mean, Variance=var)
 
 
+def keep_mask(seed, rate, shape, device):
+    """The dropout op's boolean keep mask for ``seed``: the one draw that
+    the op and the row-parallel epilogue (core/fusion.py) both make."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.rand(tuple(shape), generator=gen, device=device) \
+        < 1.0 - rate
+
+
 @register_op("dropout", inputs=("X",), outputs=("Out", "Mask"),
              needs_rng=True)
 def dropout(ctx, inputs, attrs):
@@ -197,9 +205,7 @@ def dropout(ctx, inputs, attrs):
         z = torch.zeros_like(x)
         return out(Out=z, Mask=z)
     keep_prob = 1.0 - p
-    gen = torch.Generator(device=x.device).manual_seed(ctx.rng)
-    m = (torch.rand(x.shape, generator=gen, device=x.device)
-         < keep_prob).to(x.dtype)
+    m = keep_mask(ctx.rng, p, x.shape, x.device).to(x.dtype)
     y = x * m / keep_prob if impl == "upscale_in_train" else x * m
     return out(Out=y, Mask=m)
 

@@ -18,6 +18,9 @@ of one named mesh axis (``DeviceMesh.get_group(axis)``):
 
 * ``forward_sum`` — the sum over the group whose backward passes the
   cotangent through unscaled (``backward_sum`` is its dual);
+* ``sum_both_ways`` — the sum whose backward sums the cotangents too
+  (a statistic that every rank's rows feed and every rank reads:
+  sync-BN's batch sums);
 * ``all_gather`` — concatenation along a dim whose backward keeps the
   rank's slice (``gather_along`` without autograd);
 * ``sum_gradients`` — the bucketed sum of parameter gradients;
@@ -30,7 +33,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["group_rank_size", "shift", "ring_shift", "all_to_all",
-           "forward_sum", "backward_sum", "all_gather", "gather_along",
+           "forward_sum", "backward_sum", "sum_both_ways", "all_gather",
+           "gather_along",
            "sum_gradients", "broadcast_from", "exchange"]
 
 
@@ -154,9 +158,37 @@ def forward_sum(x, group):
 
 class _BackwardSum(torch.autograd.Function):
     @staticmethod
+    def forward(ctx, x, group, tally):
+        ctx.group, ctx.tally = group, tally
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        if ctx.tally is not None:
+            ctx.tally["backward_sum"] += 1
+        return g, None, None
+
+
+def backward_sum(x, group, tally=None):
+    """``x`` itself; the backward sums the cotangent over ``group`` (the
+    dual of :func:`forward_sum`: a value every rank holds whole, each
+    rank using it for its own part of the work, as the expert ranks use
+    the tokens and the gates).  ``tally`` (a Counter): its
+    ``backward_sum`` entry counts the backward's all-reduces."""
+    if group is None:
+        return x
+    return _BackwardSum.apply(x, group, tally)
+
+
+class _SumBothWays(torch.autograd.Function):
+    @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return x.view_as(x)
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -165,14 +197,16 @@ class _BackwardSum(torch.autograd.Function):
         return g, None
 
 
-def backward_sum(x, group):
-    """``x`` itself; the backward sums the cotangent over ``group`` (the
-    dual of :func:`forward_sum`: a value every rank holds whole, each
-    rank using it for its own part of the work, as the expert ranks use
-    the tokens and the gates)."""
+def sum_both_ways(x, group):
+    """The sum of ``x`` over ``group``, whose backward sums the
+    cotangents over ``group`` as well: each rank's cotangent of the sum
+    is only its own rows' share (the sum feeds every rank's rows, as a
+    batch statistic does), and every rank's ``x`` owes the whole of it.
+    ``forward_sum``'s identity backward would drop the other ranks'
+    shares."""
     if group is None:
         return x
-    return _BackwardSum.apply(x, group)
+    return _SumBothWays.apply(x, group)
 
 
 def gather_along(x, group, dim=0):

@@ -21,7 +21,11 @@ one-device mesh).
 package's ``NamedSharding``): a mesh and a spec, one entry per leading
 dim — ``None`` (whole), an axis name, or a tuple of axis names (major
 first) whose ranks split that dim in row-major order.  ``replicated``
-and ``batch_sharding`` make the two common ones.
+and ``batch_sharding`` make the two common ones.  ``groups`` stores a
+split dim that packs g equal blocks (a fused qkv projection's [q | k |
+v] columns) head-grouped: rank r holds block r of each group, side by
+side (``[q_r | k_r | v_r]``), so its shard holds whole heads; ``local``
+and ``gather`` convert between that and the whole tensor's order.
 """
 from __future__ import annotations
 
@@ -155,10 +159,25 @@ class Sharding:
 
     mesh: object
     spec: tuple = ()
+    #: per dim, how many equal blocks the split keeps together (1: none)
+    groups: tuple = ()
 
     @property
     def is_replicated(self):
         return all(not _axes_of(e) for e in self.spec)
+
+    def group_count(self, dim):
+        return self.groups[dim] if dim < len(self.groups) else 1
+
+    def without(self, axis):
+        """This placement with ``axis`` dropped from every entry: the
+        slicing left to do on a value already split over ``axis``."""
+        spec = []
+        for e in self.spec:
+            rest = tuple(a for a in _axes_of(e) if a != axis)
+            spec.append(None if not rest else
+                        rest[0] if len(rest) == 1 else rest)
+        return Sharding(self.mesh, tuple(spec))
 
     def parts(self, dim):
         return math.prod(axis_size(self.mesh, a)
@@ -177,10 +196,12 @@ class Sharding:
         shape = list(shape)
         for d in range(min(len(self.spec), len(shape))):
             k = self.parts(d)
-            if shape[d] % k:
+            if shape[d] % (k * self.group_count(d)):
                 raise ValueError(
                     f"dim {d} of {tuple(shape)} does not split into {k} "
-                    f"shards over {_axes_of(self.spec[d])}")
+                    f"shards over {_axes_of(self.spec[d])}"
+                    + (f" in {self.group_count(d)} groups"
+                       if self.group_count(d) > 1 else ""))
             shape[d] //= k
         return tuple(shape)
 
@@ -190,8 +211,7 @@ class Sharding:
         for d in range(min(len(self.spec), x.dim())):
             k = self.parts(d)
             if k > 1:
-                n = x.shape[d] // k
-                x = x.narrow(d, self.index(d) * n, n)
+                x = take_block(x, d, k, self.index(d), self.group_count(d))
         return x
 
     def gather(self, x):
@@ -200,10 +220,38 @@ class Sharding:
         from ._collectives import gather_along
 
         for d in range(min(len(self.spec), x.dim())):
+            k = 1
             for a in reversed(_axes_of(self.spec[d])):
                 if axis_size(self.mesh, a) > 1:
                     x = gather_along(x, axis_group(self.mesh, a), d)
+                    k *= axis_size(self.mesh, a)
+            if k > 1:
+                x = ungroup(x, d, k, self.group_count(d))
         return x
+
+
+def take_block(x, dim, parts, index, groups=1):
+    """Block ``index`` of ``parts`` along ``dim``, taken in each of
+    ``groups`` equal groups and the pieces laid side by side."""
+    n = x.shape[dim] // (parts * groups)
+    if groups == 1:
+        return x.narrow(dim, index * n, n)
+    shape = tuple(x.shape)
+    v = x.reshape(shape[:dim] + (groups, parts, n) + shape[dim + 1:])
+    return v.select(dim + 1, index).reshape(
+        shape[:dim] + (groups * n,) + shape[dim + 1:])
+
+
+def ungroup(x, dim, parts, groups=1):
+    """The whole tensor's order from the ranks' shards concatenated in
+    rank order along ``dim`` (the inverse of ``take_block`` over every
+    index)."""
+    if groups == 1:
+        return x
+    shape = tuple(x.shape)
+    n = shape[dim] // (parts * groups)
+    v = x.reshape(shape[:dim] + (parts, groups, n) + shape[dim + 1:])
+    return v.transpose(dim, dim + 1).reshape(shape)
 
 
 def replicated(mesh):

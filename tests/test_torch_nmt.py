@@ -15,9 +15,8 @@ against the JAX package on the CPU, from the same weights.
   with ``io.load_params``; every loss within 2e-3 (``_PARITY_TOL``).
 * The beam decoder at ``NMTConfig.tiny()`` (B 2, K 3, T 6): ids equal,
   scores within 1e-5.
-* ``resnet`` under a one-rank data mesh raises, naming Queue 1 item 5
-  (its batch norm's statistics are the global batch's in the JAX
-  package: sync-BN).
+
+ResNet under a data mesh (sync-BN) is held in test_torch_sync_bn.py.
 """
 import dataclasses
 
@@ -334,25 +333,3 @@ def test_beam_decoder_matches_the_jax_package():
                                atol=1e-5)
     # a beam search, not a copy of one path: the beams differ
     assert len({tuple(pids[:, 0, k]) for k in range(BEAM["beam_size"])}) > 1
-
-
-# -- meshes --------------------------------------------------------------------
-
-def test_resnet_under_a_data_mesh_raises_naming_sync_bn():
-    from paddle_tpu_torch.models import resnet_cifar10
-
-    main, startup = pt.Program(), pt.Program()
-    with pt.program_guard(main, startup), pt.unique_name.guard():
-        img = pt.data("img", [None, 3, 32, 32])
-        label = pt.data("label", [None, 1], "int64")
-        _, loss, _ = resnet_cifar10(img, label, depth=8)
-        pt.optimizer.Momentum(0.1, 0.9).minimize(loss)
-    scope, exe = pt.Scope(), pt.Executor(pt.CPUPlace())
-    exe.run(startup, scope=scope)
-    prog = pt.CompiledProgram(main).with_data_parallel(
-        places=[pt.CPUPlace()])
-    feed = {"img": np.zeros((2, 3, 32, 32), np.float32),
-            "label": np.zeros((2, 1), np.int64)}
-    with pytest.raises(NotImplementedError,
-                       match=r"batch_norm.*sync-BN.*Queue 1 item 5"):
-        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
