@@ -275,7 +275,7 @@ Phases (any failure exits non-zero and prints no result):
       their tests' inputs, outputs and gradients within 1e-5.
 16. the parameter-server tier (phases 14 and 15 are described at their
    functions; their lines come before the kernels line too):
-   a. build_bert_pretrain(BertConfig.base() cut to PS_DEPTH = 6 layers,
+   a. build_bert_pretrain(BertConfig.base() cut to PS_DEPTH = 2 layers,
       128) at dropout 0 through the PS fleet (sync, server sgd,
       SGD(0.01), dense blocks of 64: a table a parameter; 150 tables of
       2,068,149 blocks at 12 layers) with one pserver process on the host,
@@ -423,6 +423,35 @@ Phases (any failure exits non-zero and prints no result):
    Its numbers go on a {"tensor_parallel": {...}} line before the
    kernels line; the split runs' launches (rank 0's) join the kernels
    line.
+20. dygraph (imperative mode), the model dygraph_bert: BertConfig.base()
+   widths from paddle_tpu_torch.dygraph.nn (word, position and type
+   Embeddings, LayerNorm; per layer a qkv Linear, three slices,
+   fused_multihead_attention with the key-padding bias and dropout 0.1,
+   an output Linear, residual + LayerNorm, a gelu Linear, a Linear,
+   residual + LayerNorm; logits tied to the word embedding), random
+   weights from dygraph.seed:
+   a. 32 x 128, Adam(1e-4), eager: 2 warm-up and 10 timed steps — finite
+      losses, the packed flash forward, dq and dk/dv kernels once a layer
+      a step each and no other port kernel, no plain version, no library
+      loaded after warm-up; step ms, peak memory, host us per eager op,
+      one profiled step's busy share; at 2 layers and dropout 0, 2 steps
+      of 8 rows on the card against the same steps on the CPU: losses
+      within 2e-3, parameters within 1e-3;
+   b. save_dygraph of the model and Adam's state, load_dygraph into a
+      fresh model and optimizer: the next step (the same seed) bit-equal
+      to the uninterrupted one — loss, parameters and Adam's state;
+   c. TracedLayer.trace in eval mode, run through the Executor (the
+      fusion pass on): the qkv-folded forward, the fused matmul and the
+      FFN chain once a layer each and nothing else, no plain version,
+      logits within 1e-4 of the eager forward; save_inference_model,
+      then a Predictor on it within 1e-5;
+   d. a @declarative function whose while has a tensor trip count (a
+      While op) at [4096, 768] x [768, 768] through the Executor, against
+      its eager call: within 1e-5;
+   e. DataParallel at world 1 over a one-rank NCCL group: scale_loss,
+      apply_collective_grads, one step bit-equal to a plain eager step
+      from the same state and seed.
+   Its numbers go on a {"dygraph": {...}} line before the kernels line.
 Phase 2 also holds the bfloat16 and float16 variants of the packed
 flash kernels (#3, #5, #6), the qkv-folded forward (#9), the fused
 matmul (#10) and the FFN chain (#11) against their plain versions in the
@@ -450,8 +479,8 @@ numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 {"sparse_recompute": {...}} (phase 13's), {"fleet_tuning_artifact":
 {...}} (phase 14's), {"parallel": {...}} (phase 15's), {"ps": {...}}
 (phase 16's), {"bench_models": {...}} (phase 17's), {"amp": {...}}
-(phase 18's), {"tensor_parallel": {...}} (phase 19's) and {"kernels":
-[...]}, one entry per kernel (each
+(phase 18's), {"tensor_parallel": {...}} (phase 19's), {"dygraph":
+{...}} (phase 20's) and {"kernels": [...]}, one entry per kernel (each
 bfloat16 and float16 variant beside its float32 entry) with its own
 launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
@@ -466,8 +495,10 @@ fused-step kernels phase 16a's trainer processes' and 16d's collective
 steps', and phase 17's runs theirs (17a's and 17b's timed steps, 17b's
 base steps, 17c's timed beam runs); a variant's are phase 18's (18a's
 and 18b's timed steps, 18c's card steps, 18d's timed steps), and the
-float32 training kernels phase 19's split runs' (rank 0's).  Details go
-to
+float32 training kernels phase 19's split runs' (rank 0's), and phase
+20's: the packed flash forward, dq and dk/dv kernels its timed eager
+steps', the qkv-folded forward, the fused matmul and the FFN chain its
+timed traced run's.  Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
@@ -3276,17 +3307,27 @@ def launch_cost_us(device, n=2000):
 def _profile_step(exe, program, feed, loss, scope, device, what,
                   names=("flash_", "gemm_epilogue", "ffn_chain"),
                   label="the port's kernels"):
-    """One training step under torch.profiler: its wall time and the
-    device summary of _span_summary, whose named kernels (``label``)
-    are those whose names hold one of ``names``, with their share of the
-    device time."""
+    """One Executor training step under torch.profiler
+    (_profile_call)."""
+    return _profile_call(
+        lambda: exe.run(program, feed=feed, fetch_list=[loss], scope=scope),
+        device, what, names, label)
+
+
+def _profile_call(step, device, what,
+                  names=("flash_", "gemm_epilogue", "ffn_chain"),
+                  label="the port's kernels"):
+    """One call of ``step`` (a training step) under torch.profiler: its
+    wall time and the device summary of _span_summary, whose named
+    kernels (``label``) are those whose names hold one of ``names``,
+    with their share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        exe.run(program, feed=feed, fetch_list=[loss], scope=scope)
+        step()
         sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
     out = _span_summary(prof, wall_us, 1, names)
@@ -8588,9 +8629,10 @@ def parallel_phase(device, cfg, phase5_step_ms=float("nan")):
 
 PS_STEPS, PS_LR, PS_BLOCK_DIM = 3, 0.01, 64
 #: phase 16's BERT-base depth: cut from 12 to 6 layers when phase 19
-#: joined, to keep the script inside its time limit (a PS step moves
-#: every parameter each way through the host)
-PS_DEPTH = 6
+#: joined and to 2 when phase 20 did, to keep the script inside its time
+#: limit (a PS step moves every parameter each way through the host; the
+#: launch gates scale with the depth)
+PS_DEPTH = 2
 PS_RTOL = 1e-5
 #: the PS parameters' distance from the reference over the reference's own
 #: 3-step update (PS_RTOL of ‖θ‖ alone passes a table whose pushes never
@@ -11039,6 +11081,553 @@ def child_main(argv):
     return 0
 
 
+# -- phase 20: dygraph (imperative mode) --------------------------------------
+
+#: phase 20's eager training: warm-up and timed steps (phase 5's batch,
+#: sequence and Adam rate), the 2-layer card-against-CPU parity cut
+#: (dropout 0; losses within phase 5's PARITY_LOSS_TOL, every parameter
+#: within DY_PARAM_ATOL), the traced program against the eager forward,
+#: the @declarative loop's trips
+DY_WARMUP, DY_STEPS = 2, 10
+DY_PARITY_LAYERS, DY_PARITY_BATCH, DY_PARITY_STEPS = 2, 8, 2
+DY_PARAM_ATOL = 1e-3
+DY_TRACE_ATOL = 1e-4
+DY_PREDICTOR_ATOL = 1e-5
+DY_LOOP_TRIPS, DY_LOOP_ATOL = 4, 1e-5
+DY_SEED = SEED + 20
+#: the package phase 20d's function is transpiled over (to_static copies
+#: a function's globals when it transpiles)
+_PT = None
+
+
+def dygraph_bert(pkg, cfg):
+    """BERT's encoder and tied MLM logits as a dygraph Layer of ``pkg``
+    (paddle_tpu_torch here; the CPU tests build the same source over the
+    JAX package too): word, position and type Embeddings then LayerNorm;
+    per layer a qkv Linear(H, 3H), three slices, fused_multihead_attention
+    (num_heads, the key-padding bias, cfg.attn_dropout, is_test in eval
+    mode), an output Linear, residual + LayerNorm, Linear(H, F, gelu),
+    Linear(F, H), residual + LayerNorm; logits = h · word_embᵀ.  Weights
+    are N(0, initializer_range) (LayerNorm 1/0, biases 0), drawn from
+    ``pkg.dygraph.seed``.  forward(src, pos, sent, bias) -> logits
+    [B, T, V]."""
+    import math
+
+    dg, dnn, L = pkg.dygraph, pkg.dygraph.nn, pkg.layers
+    H, nh, F = cfg.hidden_size, cfg.num_heads, cfg.ffn_size
+
+    def w():
+        return pkg.ParamAttr(initializer=pkg.initializer.NormalInitializer(
+            0.0, cfg.initializer_range))
+
+    class EncoderLayer(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.qkv = dnn.Linear(H, 3 * H, param_attr=w())
+            self.out = dnn.Linear(H, H, param_attr=w())
+            self.ln1 = dnn.LayerNorm(H)
+            self.ffn_in = dnn.Linear(H, F, param_attr=w(), act="gelu")
+            self.ffn_out = dnn.Linear(F, H, param_attr=w())
+            self.ln2 = dnn.LayerNorm(H)
+
+        def forward(self, x, bias):
+            qkv = self.qkv(x)
+            q = L.slice(qkv, [2], [0], [H])
+            k = L.slice(qkv, [2], [H], [2 * H])
+            v = L.slice(qkv, [2], [2 * H], [3 * H])
+            ctxt = L.fused_multihead_attention(
+                q, k, v, attn_bias=bias, dropout_rate=cfg.attn_dropout,
+                sm_scale=1.0 / math.sqrt(H // nh),
+                is_test=not self.training, num_heads=nh)
+            x = self.ln1(x + self.out(ctxt))
+            return self.ln2(x + self.ffn_out(self.ffn_in(x)))
+
+    class Bert(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = dnn.Embedding([cfg.vocab_size, H], param_attr=w())
+            self.pos = dnn.Embedding([cfg.max_position, H], param_attr=w())
+            self.sent = dnn.Embedding([cfg.type_vocab_size, H],
+                                      param_attr=w())
+            self.ln = dnn.LayerNorm(H)
+            self.encoder = [self.add_sublayer(f"layer{i}", EncoderLayer())
+                            for i in range(cfg.num_layers)]
+
+        def forward(self, src, pos, sent, bias):
+            x = self.ln(self.word(src) + self.pos(pos) + self.sent(sent))
+            for layer in self.encoder:
+                x = layer(x, bias)
+            return L.matmul(x, self.word.weight, transpose_y=True)
+
+    return Bert()
+
+
+def dygraph_arrays(cfg, batch, seq, seed=DY_SEED):
+    """Phase 20's batch from a numpy seed: token ids, position and type
+    ids, the key-padding bias [B, 1, 1, T] (-1e4 on a quarter of the
+    rows' padded tails, train_batch's mask), labels [B, T, 1] at ~15% of
+    the real positions (-1 elsewhere) and their count ``n_valid``."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    mask = np.ones((batch, seq), np.float32)
+    for b in range(batch // 4):
+        mask[b, rng.randint(seq // 2, seq):] = 0.0
+    labels = np.full((batch, seq, 1), -1, np.int64)
+    pick = (rng.rand(batch, seq) < 0.15) & (mask > 0)
+    labels[pick] = src[pick][:, None]
+    return dict(src=src, pos=np.tile(np.arange(seq, dtype=np.int64),
+                                     (batch, 1)),
+                sent=np.zeros((batch, seq), np.int64),
+                bias=((mask - 1.0) * 1e4)[:, None, None, :],
+                labels=labels, n_valid=max(int(pick.sum()), 1))
+
+
+def dygraph_feeds(pkg, arrays):
+    """dygraph_arrays' arrays as VarBases on the guard's device."""
+    return {k: v if k == "n_valid" else pkg.dygraph.to_variable(v)
+            for k, v in arrays.items()}
+
+
+def dygraph_loss(pkg, model, feeds):
+    """The mean MLM cross entropy over the labelled positions; ``feeds``:
+    dygraph_arrays' arrays, or dygraph_feeds' VarBases of them."""
+    dg, L = pkg.dygraph, pkg.layers
+    v = {k: dg.to_variable(feeds[k])
+         for k in ("src", "pos", "sent", "bias", "labels")}
+    logits = model(v["src"], v["pos"], v["sent"], v["bias"])
+    ce = L.softmax_with_cross_entropy(logits, v["labels"], ignore_index=-1)
+    return L.reduce_sum(ce) * (1.0 / feeds["n_valid"])
+
+
+def dygraph_step(pkg, model, opt, feeds):
+    """One eager training step: forward, backward, the optimizer, clear;
+    returns the loss VarBase."""
+    loss = dygraph_loss(pkg, model, feeds)
+    loss.backward()
+    opt.minimize(loss)
+    model.clear_gradients()
+    return loss
+
+
+def _dy_params(model):
+    return {k: np.asarray(v).copy() for k, v in model.state_dict().items()}
+
+
+class _EagerOps:
+    """Counts the registered op computes (the eager op dispatches of a
+    dygraph model without inline ops) while active."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.core.registry import REGISTRY
+
+        self.n, self.saved = 0, []
+        for od in REGISTRY._ops.values():
+            self.saved.append((od, od.compute))
+
+            def counted(*a, _fn=od.compute, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+
+            od.compute = counted
+        return self
+
+    def __exit__(self, *exc):
+        for od, fn in self.saved:
+            od.compute = fn
+        return False
+
+
+def dygraph_train_phase(device, cfg):
+    """20a: phase 5's batch through dygraph_bert(cfg) eagerly with
+    Adam(TRAIN_LR): DY_WARMUP + DY_STEPS steps — finite losses, the packed
+    flash forward, dq and dk/dv kernels once a layer a step each and no
+    other port kernel, no plain version; step ms, peak memory, host µs
+    per eager op (the forward's dispatch over its op count), one profiled
+    step's busy share.  Returns (report, model, optimizer, feeds)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda, dygraph as dg
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    with dg.guard(device):
+        dg.seed(DY_SEED)
+        t0 = time.perf_counter()
+        with pt.unique_name.guard():
+            model = dygraph_bert(pt, cfg)
+        sync(device)
+        build_s = time.perf_counter() - t0
+        opt = pt.optimizer.Adam(TRAIN_LR, parameter_list=model.parameters())
+        feeds = dygraph_feeds(pt, dygraph_arrays(cfg, TRAIN_BATCH,
+                                                 TRAIN_SEQ))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        losses = [dygraph_step(pt, model, opt, feeds)
+                  for _ in range(DY_WARMUP)]
+        sync(device)
+        loads = _cuda.library_loads()
+        with _PlainCalls() as plain:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            losses += [dygraph_step(pt, model, opt, feeds)
+                       for _ in range(DY_STEPS)]
+            sync(device)
+            wall = time.perf_counter() - t0
+            launches = _launch_gate(
+                dict(_cuda.LAUNCHES), {fa.FWD: L * DY_STEPS,
+                                       fa.DQ: L * DY_STEPS,
+                                       fa.DKV: L * DY_STEPS},
+                "20a eager steps", on_card)
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        losses = [float(x.numpy()) for x in losses]
+        # the host's cost: the forward's dispatch (enqueued, not synced)
+        # over its eager ops, and the whole step's
+        sync(device)
+        with _EagerOps() as ops:
+            t0 = time.perf_counter()
+            loss = dygraph_loss(pt, model, feeds)
+            fwd_host_s = time.perf_counter() - t0
+        n_fwd = ops.n
+        sync(device)
+        with _EagerOps() as ops:
+            t0 = time.perf_counter()
+            loss.backward()
+            opt.minimize(loss)
+            model.clear_gradients()
+            rest_host_s = time.perf_counter() - t0
+        n_opt = ops.n
+        sync(device)
+        prof = _profile_call(lambda: dygraph_step(pt, model, opt, feeds),
+                             device, "20a eager", ("flash_",),
+                             "the flash kernels")
+    step_ms = wall / DY_STEPS * 1e3
+    out = dict(
+        build_s=build_s, step_ms=step_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * DY_STEPS / wall,
+        losses=losses, launches=launches, plain_calls=plain.calls,
+        loads_after_warmup=_cuda.library_loads() - loads, peak_bytes=peak,
+        n_params=sum(int(np.prod(p.shape)) for p in model.parameters()),
+        forward_ops=n_fwd, forward_host_ms=fwd_host_s * 1e3,
+        host_us_per_op=fwd_host_s * 1e6 / max(n_fwd, 1),
+        update_ops=n_opt, backward_update_host_ms=rest_host_s * 1e3,
+        profile=prof)
+    log(f"  20a dygraph BERT ({out['n_params']} parameters, {L} layers) "
+        f"eager, batch {TRAIN_BATCH} x {TRAIN_SEQ}, Adam({TRAIN_LR:g}), "
+        f"attention dropout {cfg.attn_dropout}: built in {build_s:.2f} s; "
+        f"{DY_STEPS} steps {step_ms:.3f} ms/step "
+        f"({out['tokens_per_s']:.1f} tokens/s); losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches}; plain versions {plain.calls}; "
+        f"libraries loaded after warm-up {out['loads_after_warmup']}; "
+        f"peak memory {peak / 2**30:.2f} GiB; forward: {n_fwd} eager ops "
+        f"in {fwd_host_s * 1e3:.2f} ms of host "
+        f"({out['host_us_per_op']:.1f} us an op); backward + Adam + clear "
+        f"{rest_host_s * 1e3:.2f} ms of host ({n_opt} eager ops)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"20a: a loss is not finite: {losses}")
+    if on_card and (plain.calls or out["loads_after_warmup"]):
+        raise AssertionError(f"20a: plain versions {plain.calls}, loads "
+                             f"{out['loads_after_warmup']}")
+    return out, model, opt, feeds
+
+
+def dygraph_parity_phase(device, cfg):
+    """20a's gate: dygraph_bert(cfg) cut to DY_PARITY_LAYERS at dropout 0,
+    DY_PARITY_STEPS Adam steps on DY_PARITY_BATCH rows on the card and
+    the same steps from the same weights on the CPU (the kernels' plain
+    versions): every loss within PARITY_LOSS_TOL, every parameter after
+    the steps within DY_PARAM_ATOL (the distance over the CPU run's own
+    update reported)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph as dg
+
+    small = _zero_dropout(cfg, DY_PARITY_LAYERS)
+    arrays = dygraph_arrays(small, DY_PARITY_BATCH, TRAIN_SEQ)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        with dg.guard(dev):
+            dg.seed(DY_SEED)
+            with pt.unique_name.guard():
+                model = dygraph_bert(pt, small)
+            if runs:
+                model.set_state_dict(runs[0]["w0"])
+            w0 = _dy_params(model)
+            opt = pt.optimizer.Adam(TRAIN_LR,
+                                    parameter_list=model.parameters())
+            losses = [float(dygraph_step(pt, model, opt, arrays).numpy())
+                      for _ in range(DY_PARITY_STEPS)]
+            runs.append(dict(w0=w0, losses=losses, w=_dy_params(model)))
+    card, cpu = runs
+    dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    dparam = max(float(np.max(np.abs(card["w"][k] - cpu["w"][k])))
+                 for k in cpu["w"])
+    upd = float(np.sqrt(sum(np.sum((card["w"][k].astype(np.float64)
+                                    - cpu["w"][k]) ** 2) for k in cpu["w"])
+                        / sum(np.sum((cpu["w"][k].astype(np.float64)
+                                      - cpu["w0"][k]) ** 2)
+                              for k in cpu["w"])))
+    out = dict(card_losses=card["losses"], cpu_losses=cpu["losses"],
+               max_dloss=dloss, max_dparam=dparam, update_rel=upd)
+    log(f"  20a parity at {DY_PARITY_LAYERS} layers, dropout 0, "
+        f"{DY_PARITY_BATCH} x {TRAIN_SEQ}: card losses "
+        + " ".join(f"{x:.6f}" for x in card["losses"]) + ", CPU "
+        + " ".join(f"{x:.6f}" for x in cpu["losses"])
+        + f"; max |dloss| {dloss:.3e} (gate {PARITY_LOSS_TOL}), max "
+        f"|dparam| {dparam:.3e} (gate {DY_PARAM_ATOL}), distance over the "
+        f"CPU run's update {upd:.3e}")
+    if dloss > PARITY_LOSS_TOL or dparam > DY_PARAM_ATOL:
+        raise AssertionError(f"20a parity: {out}")
+    return out
+
+
+def dygraph_resume_phase(device, cfg, model, opt, feeds, root):
+    """20b: save_dygraph of the model and Adam's state, load_dygraph into
+    a fresh model and optimizer: the next step (the same seed) bit-equal
+    to the uninterrupted step — its loss and every parameter."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph as dg
+
+    path = os.path.join(root, "bert")
+    with dg.guard(device):
+        t0 = time.perf_counter()
+        dg.save_dygraph(model.state_dict(), path)
+        dg.save_dygraph(opt.state_dict(), path)
+        save_s = time.perf_counter() - t0
+        dg.seed(DY_SEED + 1)
+        loss_a = float(dygraph_step(pt, model, opt, feeds).numpy())
+        after_a = _dy_params(model)
+        with pt.unique_name.guard():
+            fresh = dygraph_bert(pt, cfg)
+        fopt = pt.optimizer.Adam(TRAIN_LR, parameter_list=fresh.parameters())
+        t0 = time.perf_counter()
+        params, state = dg.load_dygraph(path)
+        fresh.set_state_dict(params)
+        fopt.set_state_dict(state)
+        load_s = time.perf_counter() - t0
+        dg.seed(DY_SEED + 1)
+        loss_b = float(dygraph_step(pt, fresh, fopt, feeds).numpy())
+        after_b = _dy_params(fresh)
+        state_a, state_b = opt.state_dict(), fopt.state_dict()
+    differ = [k for k in after_a if not np.array_equal(after_a[k],
+                                                       after_b[k])]
+    state_differ = {k: float(np.max(np.abs(v - state_b[k])))
+                    for k, v in state_a.items()
+                    if not np.array_equal(v, state_b[k])}
+    nbytes = sum(os.path.getsize(path + s) for s in (".pdparams", ".pdopt"))
+    out = dict(save_s=save_s, load_s=load_s, bytes=nbytes, loss=loss_a,
+               resumed_loss=loss_b, params_differ=len(differ),
+               state_differ=state_differ)
+    log(f"  20b save_dygraph (.pdparams + .pdopt, {nbytes} bytes) "
+        f"{save_s:.2f} s, load_dygraph into a fresh model and Adam "
+        f"{load_s:.2f} s; the next step: loss {loss_a!r} uninterrupted, "
+        f"{loss_b!r} resumed; parameters differing {len(differ)}; Adam "
+        f"state entries differing {len(state_differ)} "
+        f"{sorted(state_differ.items(), key=lambda kv: -kv[1])[:4]}")
+    if loss_a != loss_b or differ or state_differ:
+        raise AssertionError(f"20b: the resumed step is not bit-equal: "
+                             f"{out}, {differ[:5]}")
+    return out
+
+
+def dygraph_traced_phase(device, cfg, model, feeds, root):
+    """20c: TracedLayer.trace of the trained model in eval mode, run
+    through the port's Executor (the fusion pass on): the qkv-folded
+    forward, the fused matmul and the FFN chain once a layer each and no
+    other port kernel, no plain version, the logits within DY_TRACE_ATOL
+    of the eager forward's; save_inference_model, then a Predictor on it
+    giving the traced run's logits within DY_PREDICTOR_ATOL."""
+    from paddle_tpu_torch import _cuda, dygraph as dg, inference
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    ins = [feeds[k] for k in ("src", "pos", "sent", "bias")]
+    with dg.guard(device):
+        model.eval()
+        try:
+            t0 = time.perf_counter()
+            eager, traced = dg.TracedLayer.trace(model, ins)
+            trace_s = time.perf_counter() - t0
+            eager = eager.numpy()
+            traced(ins)             # lowers (plans) the program
+            sync(device)
+            with _PlainCalls() as plain:
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                got, = traced(ins)
+                run_s = time.perf_counter() - t0
+                launches = _launch_gate(
+                    dict(_cuda.LAUNCHES), {"flash_fwd_qkv": L,
+                                           "gemm_epilogue": L,
+                                           "ffn_chain": L},
+                    "20c the traced program", on_card)
+            kinds = _plan_kinds(traced.program)
+            path = os.path.join(root, "traced")
+            traced.save_inference_model(path)
+        finally:
+            model.train()
+    config = inference.Config(path)
+    if not on_card:
+        config.disable_gpu()
+    pred = inference.create_predictor(config)
+    served, = pred.run([x.numpy() for x in ins])
+    err = float(np.max(np.abs(got - eager)))
+    perr = float(np.max(np.abs(served - got)))
+    n_ops = len(traced.program.global_block().ops)
+    out = dict(trace_s=trace_s, run_s=run_s, ops=n_ops, launches=launches,
+               plan_groups=[dict(k) for k in kinds if k], max_abs_err=err,
+               predictor_max_abs_err=perr, plain_calls=plain.calls)
+    log(f"  20c TracedLayer: {n_ops} ops traced in {trace_s:.2f} s; plan "
+        f"{out['plan_groups']}; a run {run_s * 1e3:.1f} ms, launches "
+        f"{launches}, plain versions {plain.calls}; logits within "
+        f"{err:.3e} of the eager forward (gate {DY_TRACE_ATOL}); the "
+        f"Predictor on its save_inference_model within {perr:.3e}")
+    want_kinds = collections.Counter(attn=L, gemm=L, ffn_chain=L)
+    if kinds != [want_kinds] or err > DY_TRACE_ATOL \
+            or perr > DY_PREDICTOR_ATOL or (on_card and plain.calls):
+        raise AssertionError(f"20c: {out}")
+    return out
+
+
+def _dy_power_loop(x, w, n):
+    """Phase 20d's function: n rounds of x <- tanh(x w).  Transpiled by
+    to_static, its while's predicate is a tensor when n is one (a While
+    op in the program) and a Python bool in the eager call."""
+    i = 0
+    while i < n:
+        x = _PT.layers.tanh(_PT.layers.matmul(x, w))
+        i = i + 1
+    return x
+
+
+def dygraph_to_static_phase(device, cfg):
+    """20d: _dy_power_loop under @declarative at BERT-base width (x
+    [B·T, H], w [H, H]) built into a program with a tensor trip count —
+    a While op, run through the Executor on the card — against its eager
+    call with DY_LOOP_TRIPS as a Python int: within DY_LOOP_ATOL."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph as dg
+
+    global _PT
+    _PT = pt
+    f = dg.declarative(_dy_power_loop)
+    H = cfg.hidden_size
+    rng = np.random.RandomState(DY_SEED + 2)
+    x = rng.randn(TRAIN_BATCH * TRAIN_SEQ, H).astype(np.float32)
+    w = (rng.randn(H, H) / np.sqrt(H)).astype(np.float32)
+    with pt.new_program_scope():
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            xv = pt.data("x", [TRAIN_BATCH * TRAIN_SEQ, H])
+            wv = pt.data("w", [H, H])
+            nv = pt.data("n", [1], "int64")
+            y = f(xv, wv, pt.layers.reduce_sum(nv))
+        types = [o.type for o in main.global_block().ops]
+        exe = _executor(device)
+        t0 = time.perf_counter()
+        static, = exe.run(main, feed={"x": x, "w": w, "n": np.array(
+            [DY_LOOP_TRIPS], np.int64)}, fetch_list=[y])
+        static_s = time.perf_counter() - t0
+    with dg.guard(device):
+        eager = f(dg.to_variable(x), dg.to_variable(w), DY_LOOP_TRIPS).numpy()
+    err = float(np.max(np.abs(static - eager)))
+    out = dict(ops=types, static_s=static_s, max_abs_err=err)
+    log(f"  20d @declarative while at [{TRAIN_BATCH * TRAIN_SEQ}, {H}] x "
+        f"[{H}, {H}], {DY_LOOP_TRIPS} trips: program ops {types} "
+        f"({static_s:.2f} s through the Executor); against the eager call "
+        f"within {err:.3e} (gate {DY_LOOP_ATOL})")
+    if "while" not in types or err > DY_LOOP_ATOL:
+        raise AssertionError(f"20d: {out}")
+    return out
+
+
+def dygraph_dp_phase(device, cfg, model, opt, feeds, root):
+    """20e: DataParallel at world 1 over a one-rank group (NCCL on the
+    card): scale_loss, backward, apply_collective_grads, Adam — one step
+    bit-equal to a plain eager step from the same state (saved before
+    the plain step, loaded back after it) and the same seed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import dygraph as dg
+
+    on_card = device.type == "cuda"
+    path = os.path.join(root, "dp")
+    with dg.guard(device):
+        dg.save_dygraph(model.state_dict(), path)
+        dg.save_dygraph(opt.state_dict(), path)
+        dg.seed(DY_SEED + 3)
+        plain = float(dygraph_step(pt, model, opt, feeds).numpy())
+        want = _dy_params(model)
+        params, state = dg.load_dygraph(path)
+        model.set_state_dict(params)
+        opt.set_state_dict(state)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl" if on_card else "gloo",
+                                    store=dist.FileStore(f"{tmp}/store", 1),
+                                    rank=0, world_size=1)
+            try:
+                dp = dg.DataParallel(model, dg.parallel.Env())
+                dg.seed(DY_SEED + 3)
+                loss = dygraph_loss(pt, dp, feeds)
+                loss = dp.scale_loss(loss)
+                loss.backward()
+                dp.apply_collective_grads()
+                opt.minimize(loss)
+                dp.clear_gradients()
+                got_loss = float(loss.numpy())
+                nranks, backend = dp.nranks, dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+        got = _dy_params(model)
+    differ = [k for k in want if not np.array_equal(want[k], got[k])]
+    out = dict(nranks=nranks, backend=backend, loss=got_loss,
+               plain_loss=plain, params_differ=len(differ))
+    log(f"  20e DataParallel over a one-rank {backend} group (nranks "
+        f"{nranks}): loss {got_loss!r} against the plain step's "
+        f"{plain!r}; parameters differing {len(differ)}")
+    if got_loss != plain or differ:
+        raise AssertionError(f"20e: {out}")
+    return out
+
+
+def dygraph_phase(device, cfg=None):
+    """Phase 20: dygraph — 20a eager training of dygraph_bert at
+    BertConfig.base() (and the 2-layer card-against-CPU parity), 20b
+    save/load_dygraph resume, 20c TracedLayer through the Executor and a
+    Predictor, 20d a @declarative tensor while, 20e DataParallel at world
+    1.  Files in a temporary directory (removed in a finally)."""
+    import tempfile
+
+    if cfg is None:
+        from paddle_tpu_torch.models import BertConfig
+
+        cfg = BertConfig.base()
+    t0 = time.perf_counter()
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_dygraph_")
+    try:
+        out["train"], model, opt, feeds = dygraph_train_phase(device, cfg)
+        out["parity"] = dygraph_parity_phase(device, cfg)
+        out["resume"] = dygraph_resume_phase(device, cfg, model, opt, feeds,
+                                             root)
+        out["traced"] = dygraph_traced_phase(device, cfg, model, feeds, root)
+        out["to_static"] = dygraph_to_static_phase(device, cfg)
+        out["dp"] = dygraph_dp_phase(device, cfg, model, opt, feeds, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = collections.Counter(out["train"]["launches"])
+    launches.update(out["traced"]["launches"])
+    out["launches"] = dict(launches)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     import torch
 
@@ -11249,6 +11838,15 @@ def main():
         for name, n in report["tensor_parallel"]["launches"].items():
             report["kernels"][name]["launches"] = \
                 report["kernels"][name].get("launches", 0) + n
+
+        log("[20] dygraph: BERT-base trained eagerly (#3, #5, #6), "
+            "save/load_dygraph, TracedLayer through the Executor (#9, #10, "
+            "#11) and a Predictor, a @declarative while, DataParallel")
+        _free_card(device)
+        report["dygraph"] = dygraph_phase(device, BertConfig.base())
+        for name, n in report["dygraph"]["launches"].items():
+            report["kernels"][name]["launches"] = \
+                report["kernels"][name].get("launches", 0) + n
         idle = [k["name"] for k in KERNELS
                 if not report["kernels"][k["name"]].get("launches")]
         if idle:
@@ -11454,6 +12052,24 @@ def main():
             ranks=[{k: g[k] for k in (
                 "losses", "step_ms", "peak_bytes", "launches", "stats")}
                 for g in j["ranks"]]) for name, j in tp["jobs"].items()})}))
+    dy = report["dygraph"]
+    print(json.dumps({"dygraph": dict(
+        card=card, seconds=dy["seconds"],
+        train={k: dy["train"][k] for k in (
+            "step_ms", "tokens_per_s", "peak_bytes", "launches",
+            "forward_ops", "host_us_per_op", "backward_update_host_ms")}
+        | dict(busy_share=dy["train"]["profile"].get("device_busy_share"),
+               device_ms=dy["train"]["profile"].get("device_ms_per_step"),
+               phase5_step_ms=report["training"]["step_ms"]),
+        parity={k: dy["parity"][k] for k in (
+            "max_dloss", "max_dparam", "update_rel")},
+        resume={k: dy["resume"][k] for k in (
+            "save_s", "load_s", "bytes", "params_differ")},
+        traced={k: dy["traced"][k] for k in (
+            "run_s", "launches", "max_abs_err", "predictor_max_abs_err")},
+        to_static_max_abs_err=dy["to_static"]["max_abs_err"],
+        dp={k: dy["dp"][k] for k in ("backend", "nranks", "params_differ")})
+    }))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,13 @@ configurations (kernel #1's ``block_rows``, the FFN's fusion plan).
 ZeRO-1, Megatron and expert rules, ``PipelineOptimizer``).
 ``distributed`` holds the native parameter server, GEO-SGD, the
 collectives and the multi-process launcher, and ``incubate.fleet`` the
-fleet's parameter-server and collective modes.  No AMP yet.
+fleet's parameter-server and collective modes; ``contrib.
+mixed_precision`` trains in bfloat16 or float16.  ``dygraph`` is the
+imperative mode: ``dygraph.guard()``, ``VarBase`` over torch autograd,
+``Layer`` and ``dygraph.nn``, the optimizers' eager ``minimize``,
+``save_dygraph``/``load_dygraph``, ``TracedLayer``, ``to_static`` and
+``DataParallel`` (like every subpackage, ``paddle_tpu_torch.dygraph``
+loads at first access).
 """
 import importlib
 
@@ -126,4 +132,4 @@ __all__ = ["resolve_device", "set_strict_fp32", "__version__",
            "CompiledProgram", "gradients", "clip", "regularizer",
            "resilience", "inference", "fs", "dataio", "DataLoader",
            "DataFeeder", "DatasetFactory", "InMemoryDataset", "QueueDataset",
-           "get_flags", "set_flags"]
+           "get_flags", "set_flags", "dygraph"]

@@ -1,11 +1,16 @@
 """LayerHelper: the protocol every layer uses to create parameters and
-append ops — a copy of paddle_tpu/layers/helper.py without the dygraph
-branches (parity: python/paddle/fluid/layer_helper.py).
+append ops — a copy of paddle_tpu/layers/helper.py (parity:
+python/paddle/fluid/layer_helper.py).
 
 A parameter is created in BOTH programs, like the reference:
   * the main program's global block holds the Parameter descriptor;
   * the startup program's global block gets the matching var + its init op,
     so running the startup program materializes weights in the scope.
+
+Inside ``dygraph.guard()`` a layer function runs eagerly instead: its
+variables are placeholder VarBases and its ops run at once through
+``dygraph.engine.EagerBlock``; a layer that would create parameters
+raises, naming the class-style layers of ``paddle_tpu_torch.dygraph.nn``.
 """
 from __future__ import annotations
 
@@ -34,8 +39,21 @@ class LayerHelper:
     def startup_program(self):
         return default_startup_program()
 
+    @staticmethod
+    def _dygraph():
+        from ..dygraph import base as dg
+
+        return dg.enabled()
+
     def create_parameter(self, attr, shape, dtype="float32", is_bias=False,
                          default_initializer=None):
+        if self._dygraph():
+            raise RuntimeError(
+                f"layers.{self.layer_type} creates parameters and cannot "
+                f"be used in dygraph mode; use the class-style layers in "
+                f"paddle_tpu_torch.dygraph.nn (Linear, Conv2D, BatchNorm, "
+                f"Embedding, ...) instead — reference behavior "
+                f"(dygraph/nn.py)")
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
@@ -58,6 +76,12 @@ class LayerHelper:
 
     def create_variable_for_type_inference(self, dtype="float32",
                                            stop_gradient=False):
+        if self._dygraph():
+            from ..dygraph.varbase import VarBase
+
+            return VarBase(None, name=unique_name.generate(
+                f"{self.name}.tmp"), dtype=dtype,
+                stop_gradient=stop_gradient)
         return self.main_program.current_block().create_var(
             name=unique_name.generate(f"{self.name}.tmp"),
             dtype=dtype,
@@ -65,6 +89,10 @@ class LayerHelper:
         )
 
     def append_op(self, *args, **kwargs):
+        if self._dygraph():
+            from ..dygraph.engine import EagerBlock
+
+            return EagerBlock().append_op(*args, **kwargs)
         return self.main_program.current_block().append_op(*args, **kwargs)
 
     def append_activation(self, out_var, act):
@@ -82,5 +110,15 @@ class LayerHelper:
     def input(self, x):
         """Accept Variable or name; return Variable."""
         if isinstance(x, str):
+            if self._dygraph():
+                from ..dygraph.engine import lookup_var
+
+                return lookup_var(x)
             return self.main_program.current_block().var(x)
+        if self._dygraph():
+            from ..dygraph.engine import register_var
+            from ..dygraph.varbase import VarBase
+
+            if isinstance(x, VarBase):
+                register_var(x)   # its name resolves to this very VarBase
         return x

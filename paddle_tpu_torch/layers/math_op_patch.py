@@ -83,7 +83,8 @@ def monkey_patch_variable():
             f"bool(Variable '{self.name}') is undefined in a static "
             f"graph: Python would silently treat the tensor as truthy "
             f"(e.g. an infinite `while`). Use layers.cond / layers.While "
-            f"for tensor control flow; for None-checks use `is not "
-            f"None`.")
+            f"or decorate the function with "
+            f"@paddle_tpu_torch.dygraph.to_static to convert tensor "
+            f"control flow; for None-checks use `is not None`.")
 
     Variable.__bool__ = _no_bool

@@ -254,11 +254,37 @@ def one_hot(ctx, inputs, attrs):
     return out(Out=(x.long().unsqueeze(-1) == depth).to(torch.float32))
 
 
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` whose table gradient sums a repeated id's rows in
+    a fixed order (ops/misc2.py's ``merge_table_rows`` and
+    ``scatter_rows``, the SelectedRows path's): CUDA's embedding
+    backward adds them in an order that changes from run to run, so two
+    runs of one step parted in the last bits of a row many ids read
+    (the type embedding's row 0, read by every token)."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = w.shape
+        return F.embedding(ids, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .misc2 import merge_table_rows, scatter_rows
+
+        ids, = ctx.saved_tensors
+        merged, rows = merge_table_rows(g.reshape(-1, g.shape[-1]),
+                                        ids.reshape(-1),
+                                        ctx.table_shape[0])
+        return scatter_rows(g.new_zeros(ctx.table_shape), rows, merged,
+                            accumulate=False), None
+
+
 @register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",),
              no_grad_slots=("Ids",))
 def lookup_table(ctx, inputs, attrs):
     """Embedding lookup (parity: operators/lookup_table_op.cc); its
-    gradient is autograd's dense scatter-add into the table."""
+    gradient is the dense table of each id's summed rows (``_Lookup``)."""
     w = single(inputs, "W")
     ids = single(inputs, "Ids")
     if ids.dim() >= 2 and ids.shape[-1] == 1:
@@ -266,7 +292,10 @@ def lookup_table(ctx, inputs, attrs):
     # jnp.take's index rule: a negative id wraps, one past the table
     # gives a NaN row
     safe, invalid = _take_index(ids, w.shape[0])
-    res = _fill_invalid(F.embedding(safe, w), invalid[..., None])
+    looked = (_Lookup.apply(w, safe)
+              if torch.is_grad_enabled() and w.requires_grad
+              else F.embedding(safe, w))
+    res = _fill_invalid(looked, invalid[..., None])
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         res = res.masked_fill((ids == padding_idx)[..., None], 0.0)

@@ -22,8 +22,15 @@ it, and a regularizer densifies it first (``_densify_sparse_grad``).
 ``RecomputeOptimizer`` appends one ``recompute_grad`` op in place of
 the per-op gradients (core/lowering.py runs the forward in checkpointed
 segments).  Not ported: ``PipelineOptimizer`` (it raises: ROADMAP.md,
-Queue 1 item 5) and dygraph mode (``state_dict`` and ``set_state_dict``
-raise, as the JAX package's do in static mode).
+Queue 1 item 5).
+
+Inside ``dygraph.guard()`` (paddle_tpu_torch.dygraph) ``minimize`` updates
+the ``parameter_list`` eagerly from each parameter's ``.grad`` after
+``loss.backward()``: the same clip, regularization and update ops run at
+once through ``dygraph.engine.EagerBlock``, the learning rate and the
+accumulators are VarBases, and ``state_dict``/``set_state_dict`` carry
+the accumulators (keyed ``<param>::<accumulator>``, marked
+``@opt_marker@`` for ``save_dygraph``); in static mode both raise.
 """
 from __future__ import annotations
 
@@ -95,19 +102,98 @@ class Optimizer:
         self._name = name
         self._lr_var = None
         self._accumulators = {}  # (acc_name, param_name) -> Variable
-        # dygraph's parameter list: kept for signature parity (the port
-        # has no dygraph mode)
+        # dygraph: params this optimizer owns (reference: dygraph-mode
+        # optimizers take parameter_list in the ctor)
         self._parameter_list = parameter_list
         self.type = type(self).__name__.lower()
 
+    # -- dygraph (imperative) path ----------------------------------------
+    @staticmethod
+    def _in_dygraph():
+        from .dygraph import base as dg
+
+        return dg.enabled()
+
+    def _dygraph_minimize(self, loss, parameter_list=None):
+        """Apply this optimizer eagerly to parameters' accumulated .grad
+        (parity: dygraph-mode Optimizer.minimize after loss.backward()).
+
+        Reuses the SAME _append_optimize_op as the static path: the eager
+        block resolves variable names to live VarBases and executes the
+        optimizer op immediately (imperative/tracer.h TraceOp analog)."""
+        from .dygraph import base as dg
+        from .dygraph.engine import EagerBlock, register_var
+        from .dygraph.varbase import VarBase
+
+        params = parameter_list or self._parameter_list
+        if params is None:
+            raise ValueError(
+                "dygraph minimize needs parameter_list (pass it to the "
+                "optimizer constructor or to minimize())")
+        block = EagerBlock()
+        with dg.no_grad():
+            self._create_global_learning_rate()
+            params_grads = []
+            for p in params:
+                if p.grad is None or not getattr(p, "trainable", True):
+                    continue
+                g = VarBase(p.grad, name=p.name + "@GRAD",
+                            stop_gradient=True)
+                register_var(p)
+                params_grads.append((p, g))
+            # reference order: clip first, then regularization
+            if self.grad_clip is not None:
+                params_grads = self.grad_clip.apply(params_grads)
+            params_grads = self._append_regularization(params_grads)
+            for p, g in params_grads:
+                self._append_optimize_op(block, (p, g))
+        return [], params_grads
+
     def state_dict(self):
-        raise RuntimeError(_STATE_DICT_STATIC)
+        """Dygraph: accumulator state for save_dygraph (marked so
+        save_dygraph writes a .pdopt file), host numpy by
+        ``<param>::<accumulator>``."""
+        if not self._in_dygraph():
+            raise RuntimeError(_STATE_DICT_STATIC)
+        out = {"@opt_marker@": np.asarray(1)}
+        for (acc, pname), v in self._accumulators.items():
+            out[f"{pname}::{acc}"] = v.numpy()
+        return out
 
     def set_state_dict(self, state):
-        raise RuntimeError(_STATE_DICT_STATIC)
+        """Dygraph: restore accumulator state.  Works before the first
+        minimize(): entries for accumulators that do not exist yet are
+        stashed and applied when _add_accumulator creates them."""
+        if not self._in_dygraph():
+            raise RuntimeError(_STATE_DICT_STATIC)
+        state = dict(state)
+        state.pop("@opt_marker@", None)
+        for (acc, pname), v in self._accumulators.items():
+            key = f"{pname}::{acc}"
+            if key in state:
+                v.value = state.pop(key)
+        self._pending_state = getattr(self, "_pending_state", {})
+        self._pending_state.update(state)
 
     # -- learning rate -----------------------------------------------------
     def _create_global_learning_rate(self):
+        if self._in_dygraph():
+            from .dygraph.varbase import VarBase
+
+            if isinstance(self._learning_rate, VarBase):
+                self._lr_var = self._learning_rate
+            elif self._lr_var is None or not isinstance(self._lr_var,
+                                                        VarBase):
+                import torch
+
+                from .dygraph.base import current_device
+
+                self._lr_var = VarBase(
+                    torch.tensor(float(self._learning_rate),
+                                 dtype=torch.float32,
+                                 device=current_device()),
+                    name=unique_name.generate("@lr@"), stop_gradient=True)
+            return
         if isinstance(self._learning_rate, Variable):
             self._lr_var = self._learning_rate
             return
@@ -145,6 +231,26 @@ class Optimizer:
         key = (name, param.name)
         if key in self._accumulators:
             return self._accumulators[key]
+        if self._in_dygraph():
+            import torch
+
+            from .core.types import runtime_dtype
+            from .dygraph.varbase import VarBase
+
+            shape = [int(d) for d in (shape if shape is not None
+                                      else param.shape)]
+            pending = getattr(self, "_pending_state", {})
+            restored = pending.pop(f"{param.name}::{name}", None)
+            dev = param.value.device
+            v = VarBase(
+                torch.tensor(restored, device=dev) if restored is not None
+                else torch.full(shape, float(fill_value),
+                                dtype=runtime_dtype(dtype or param.dtype),
+                                device=dev),
+                name=unique_name.generate(f"{param.name}_{name}"),
+                stop_gradient=True, persistable=True)
+            self._accumulators[key] = v
+            return v
         main = default_main_program().global_block()
         startup = default_startup_program().global_block()
         var_name = unique_name.generate(f"{param.name}_{name}")
@@ -209,6 +315,8 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        if self._in_dygraph():
+            return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         opt_ops = self.apply_gradients(params_grads)
