@@ -137,9 +137,10 @@ Phases (any failure exits non-zero and prints no result):
       through the monolithic handoff; the pools close in a finally and
       no worker process may outlive them (their logs: workerlog.0 under
       chiprun_out/phase9/<depth>_<role>/);
-10. BERT-base pretraining with the published recipe (Devlin et al. 2018,
-   appendix A.2; the global-norm clip of Paddle's BERT optimization.py)
-   through the default fused program: linear warmup over 4 steps, then
+10. BERT pretraining at BertConfig.base() widths cut to RECIPE_DEPTH = 2
+   layers, with the published recipe (Devlin et al. 2018, appendix A.2;
+   the global-norm clip of Paddle's BERT optimization.py) through the
+   default fused program: linear warmup over 4 steps, then
    linear decay to step 12 (warmup 10,000 and 1,000,000 steps in the
    recipe, cut so that one run crosses both), AdamW(weight_decay 0.01),
    GradientClipByGlobalNorm(1.0), dropout 0.1, 32 x 128, in a
@@ -147,7 +148,7 @@ Phases (any failure exits non-zero and prints no result):
    temporary directory (removed in a finally):
    a. 12 steps, a checkpoint every 4: every step's LR within 2 ulp of the
       schedule's float32 closed form, the clip's scale in (0, 1], finite
-      losses, the five fused-step kernels 12 x 12 times each, the packed
+      losses, the five fused-step kernels 12 x 4 times each, the packed
       flash forward and every plain kernel version never, no library
       loaded after the first step; the save's time on the step path, the
       background write's, a version's bytes and the disk peak;
@@ -160,7 +161,7 @@ Phases (any failure exits non-zero and prints no result):
       nan_skip flight-recorder trigger;
    d. the eval clone (taken before minimize) on a held-out batch: two
       runs bit-equal, the qkv-folded flash, fused matmul and FFN-chain
-      kernels 12 times each and nothing else, within 2e-3 of the unfused
+      kernels 4 times each and nothing else, within 2e-3 of the unfused
       clone, and save_inference_model then load_inference_model into a
       fresh scope giving the same bits;
    e. 10 steps without checkpoints: the recipe's step ms beside phase 5's.
@@ -210,11 +211,12 @@ Phases (any failure exits non-zero and prints no result):
       input_mask, masked_labels; 128 values each, ~15% labelled): the
       native slot parser and the plain Python parser give equal arrays,
       ms per part;
-   c. BertConfig.base() (dropout 0.1) from 2-D feeds (build_dataset_bert)
-      with Adam(1e-4), batch 32, 8 steps a chunk: one QueueDataset epoch
-      and one InMemoryDataset epoch after local_shuffle(seed), both
-      train_from_dataset(thread=2) — 12 attention, 13 fused-matmul and
-      12 FFN-chain groups, the five fused-step kernels once per layer per
+   c. BertConfig.base() widths cut to DATASET_DEPTH = 2 layers (dropout
+      0.1) from 2-D feeds (build_dataset_bert) with Adam(1e-4), batch 32,
+      8 steps a chunk: one QueueDataset epoch and one InMemoryDataset
+      epoch after local_shuffle(seed), both train_from_dataset(thread=2)
+      — 4 attention, 5 fused-matmul and 4 FFN-chain groups (one a layer,
+      and the head's), the five fused-step kernels once per layer per
       step and the packed flash forward never, no plain version, no
       library loaded after the first chunk, finite chunk losses, the
       batches pulled by the "paddle_tpu-feed" thread; step ms and
@@ -275,7 +277,7 @@ Phases (any failure exits non-zero and prints no result):
       their tests' inputs, outputs and gradients within 1e-5.
 16. the parameter-server tier (phases 14 and 15 are described at their
    functions; their lines come before the kernels line too):
-   a. build_bert_pretrain(BertConfig.base() cut to PS_DEPTH = 2 layers,
+   a. build_bert_pretrain(BertConfig.base() cut to PS_DEPTH = 1 layer,
       128) at dropout 0 through the PS fleet (sync, server sgd,
       SGD(0.01), dense blocks of 64: a table a parameter; 150 tables of
       2,068,149 blocks at 12 layers) with one pserver process on the host,
@@ -393,23 +395,25 @@ Phases (any failure exits non-zero and prints no result):
 19. the Megatron split and sync-BN, on two gloo ranks sharing the card
    (one spawn, torch.multiprocessing), each job against the one-rank run
    of the same program on the card from the same startup seed:
-   a. BERT-base at full width (12 layers, 12 heads, F 3072), 32 x 128,
+   a. BERT-base widths (12 heads, F 3072) cut to 2 layers, 32 x 128,
       dropout 0, at {model: 2} under tp_sharding_rules: 5 Adam steps
       fused and 5 unfused — losses within 2e-3, every whole parameter
       after the steps within 1e-3 of the one rank's, and each
       parameter's distance from the one rank's within 0.1 of the one
       rank's update of it (relative norms; TP_PARAM_REL_TOL says why);
       per rank and step
-      the qkv-folded forward and the flash dq and dk/dv kernels 12 times
-      on 6 heads (the unfused program: the packed forward), the fused
-      matmul 12 times with its epilogue off and the FFN chain 12 times
-      at F 1536 with its epilogue off (none unfused); no weight gathered
-      whole; the collectives over model as planned (25 forward sums, 26
-      backward sums, the logits' gather); peak memory a rank beside one
-      rank's;
-   b. NMT-big (dropout 0) at {model: 2} under nmt_tp_sharding_rules, 16
-      x 128/128, 3 steps: losses within 2e-3, the parameters held as in
-      a; #9 12, #3 6, #5 and #6 18 a step, #10 launched;
+      the qkv-folded forward and the flash dq and dk/dv kernels once a
+      layer on 6 heads (the unfused program: the packed forward), the
+      fused matmul once a layer with its epilogue off and the FFN chain
+      once a layer at F 1536 with its epilogue off (none unfused); no
+      weight gathered whole; the collectives over model as planned (two
+      forward and two backward sums a layer and the embeddings' and
+      head's, the logits' gather); peak memory a rank beside one rank's;
+   b. NMT-big widths (dropout 0) cut to 1 + 1 layers at {model: 2}
+      under nmt_tp_sharding_rules, 16 x 128/128, 3 steps: losses within
+      2e-3, the parameters held as in a; #9 2, #3 1, #5 and #6 3 a step
+      and encoder-decoder layer pair,
+      #10 launched;
    c. ResNet-50 at {data: 2}, 32 images a rank, Momentum(0.001, 0.9),
       against one rank at 64: 2 steps, losses within 2e-3, the running
       statistics after the first within 1e-4 (the world-1 mesh's run
@@ -452,6 +456,31 @@ Phases (any failure exits non-zero and prints no result):
       apply_collective_grads, one step bit-equal to a plain eager step
       from the same state and seed.
    Its numbers go on a {"dygraph": {...}} line before the kernels line.
+21. the sequence and recurrent tier (ops/sequence.py, ops/rnn.py,
+   ops/fused.py, layers/rnn.py, layers/sequence_lod.py, models/seq2seq.py;
+   ids and lengths from a seed):
+   a. seq2seq_train at the RNNencdec-30 baseline of Bahdanau, Cho &
+      Bengio 2015 (§4.2, appendix B: GRU encoder and decoder of 1000
+      units, 620-wide embeddings, vocabularies of 30,000, minibatch 80,
+      30 tokens a side) under Adadelta(eps 1e-6, rho 0.95) and a
+      global-norm clip of 1: 2 warm-up and 10 timed steps — step ms,
+      target tokens/s, peak, one profiled step's busy share; the fusion
+      pass plans no group (the decoder's fcs live in the StaticRNN
+      sub-block, the encoder's projection has no bias) and none of the
+      eleven kernels launches; then greedy (30 tokens) and beam (K 4)
+      decoding on the trained weights, ms a decode step, no launch;
+   b. the PaddlePaddle book's stacked_lstm_net (embedding 128, hid_dim
+      512, 3 dynamic_lstms alternating direction, max pooling, 2
+      classes) at 128 x 256, lengths 32..256, Adam: 2 warm-up and
+      LSTM_STEPS timed steps — step ms, sequences/s, one profiled step;
+      #10 once a step for each GEMM group of the plan within its rule
+      (the three fcs; the 2-class output replays);
+   c. the card against the CPU at hidden 64, vocab 512, 8 x 12: both
+      models' losses within 2e-3 over 3 steps and parameters within
+      1e-3 from the same startup weights, greedy and beam ids on the
+      trained weights equal, and every case of SEQ_OP_CASES (the 39 new
+      ops) forward within 1e-5 and gradients within 1e-4.
+   Its numbers go on a {"sequence": {...}} line before the kernels line.
 Phase 2 also holds the bfloat16 and float16 variants of the packed
 flash kernels (#3, #5, #6), the qkv-folded forward (#9), the fused
 matmul (#10) and the FFN chain (#11) against their plain versions in the
@@ -480,7 +509,8 @@ numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 {...}} (phase 14's), {"parallel": {...}} (phase 15's), {"ps": {...}}
 (phase 16's), {"bench_models": {...}} (phase 17's), {"amp": {...}}
 (phase 18's), {"tensor_parallel": {...}} (phase 19's), {"dygraph":
-{...}} (phase 20's) and {"kernels": [...]}, one entry per kernel (each
+{...}} (phase 20's), {"sequence": {...}} (phase 21's) and {"kernels":
+[...]}, one entry per kernel (each
 bfloat16 and float16 variant beside its float32 entry) with its own
 launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
@@ -498,7 +528,8 @@ and 18b's timed steps, 18c's card steps, 18d's timed steps), and the
 float32 training kernels phase 19's split runs' (rank 0's), and phase
 20's: the packed flash forward, dq and dk/dv kernels its timed eager
 steps', the qkv-folded forward, the fused matmul and the FFN chain its
-timed traced run's.  Details go to
+timed traced run's; the fused matmul adds phase 21b's timed steps'.
+Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
 The script imports nothing of JAX and nothing of paddle_tpu.
@@ -1326,6 +1357,11 @@ GEMM_CASES = {
     "tp_nmt_ffn_down": (2048, 2048, 1024, dict(bias=False)),
     "tp_nmt_cross_q": (2048, 1024, 512, dict()),
     "tp_nmt_cross_kv": (2048, 1024, 1024, dict()),
+    # phase 21b: the stacked-LSTM classifier's fcs at 128 x 256 rows, the
+    # first over the 128-wide embedding, the others over the concat of
+    # the last fc (512) and lstm (128); bias only
+    "lstm_fc_emb": (128 * 256, 128, 512, dict()),
+    "lstm_fc_cat": (128 * 256, 640, 512, dict()),
 }
 #: FFN-chain cases: (M, K, F, N, options); "step" is one layer's FFN
 FFN_CASES = {
@@ -1385,6 +1421,8 @@ QKV_HIDDEN = {"tp": 768, "tp_nmt": 1024, "tp_nmt_causal": 1024}
 TP_SPLIT_CASES = ("tp_attn_out", "tp_nmt_out", "tp_nmt_ffn_up",
                   "tp_nmt_ffn_down", "tp_nmt_cross_q", "tp_nmt_cross_kv",
                   "tp_split")
+#: the GEMM cases of phase 21b's classifier (gradients checked too)
+SEQ_GEMM_CASES = ("lstm_fc_emb", "lstm_fc_cat")
 #: fused matmul / FFN chain against their plain versions: atol + rtol
 #: (float32 sums over K = 768 or F = 3072 unit-scale products in another
 #: order than cuBLAS's; the norm divides by a row's spread)
@@ -1516,7 +1554,7 @@ def epilogue_kernel_phase(device):
         if z0 is not None:
             excess = max(excess, _tol_excess(z0, z0_ref, EPI_ATOL, EPI_RTOL))
             err = max(err, float((z0 - z0_ref).abs().max()))
-        grads = name == "step" or name in TP_SPLIT_CASES
+        grads = name == "step" or name in TP_SPLIT_CASES + SEQ_GEMM_CASES
         grad_note = ""
         if grads:
             dy = torch.randn(M, N, generator=torch.Generator().manual_seed(
@@ -1812,15 +1850,17 @@ def decoder_attention_phase(device):
 #: forward and its backward pair at NMT-big's self-attention (QKV_CASES),
 #: the packed forward and backward at its cross-attention and the beam
 #: decoder's (FLASH_CASES), the fused matmul at its GEMMs (GEMM_CASES)
+#: and at phase 21b's
 P17_QKV_TIMED = ("nmt", "nmt_causal")
 P17_FLASH_TIMED = ("nmt_cross", "beam_cross")
 P17_GEMM_TIMED = ("nmt_ffn_up", "nmt_ffn_down", "nmt_n3072", "nmt_kv",
-                  "resnet_fc")
+                  "resnet_fc") + SEQ_GEMM_CASES
 
 
 def p17_kernel_timing(device):
-    """Times of #9, #3, #5/#6 and #10 at phase 17's shapes (their
-    correctness is held in the case tables above): each with the plain
+    """Times of #9, #3, #5/#6 and #10 at phase 17's shapes, and of #10 at
+    phase 21b's (their correctness is held in the case tables above):
+    each with the plain
     version's time, a library call's (SDPA forward / backward, or
     ``addmm``: the GEMM and bias alone) and its bound.  Returns
     {kernel: {case: timing dict}}."""
@@ -1837,7 +1877,7 @@ def p17_kernel_timing(device):
         t.update(shape=shape, library=library,
                  bound_rate="3xTF32 on the tensor cores, 495 TFLOP/s TF32")
         out[kernel][case] = t
-        log(f"  {kernel} at phase 17's {case} {shape}: ms={t['ms']:.5f} "
+        log(f"  {kernel} at {case} {shape}: ms={t['ms']:.5f} "
             f"plain_ms={t['plain_ms']:.5f} library_ms={t['library_ms']:.5f}"
             f" bound_ms={t['bound_ms']:.6f} ({t['bound_by']})")
 
@@ -4925,6 +4965,10 @@ def cluster_phase(device, model_cfg, gen_cfg, params_np, model="base"):
 RECIPE_PEAK_LR, RECIPE_WARMUP, RECIPE_DECAY = 1e-4, 4, 12
 RECIPE_WEIGHT_DECAY, RECIPE_CLIP_NORM = 0.01, 1.0
 RECIPE_STEPS, RECIPE_CKPT_EVERY, RECIPE_KEEP = 12, 4, 2
+#: the recipe's BERT depth at BertConfig.base() widths (cut from 12 to 4
+#: when phase 21 joined, then to 2, to keep the script inside its time
+#: limit)
+RECIPE_DEPTH = 2
 RECIPE_PREEMPT, RECIPE_NAN = 6, 2
 #: the recipe's fetched LR against its closed form: units in the last place
 RECIPE_LR_ULPS = 2
@@ -6012,6 +6056,10 @@ def control_flow_phase(device, gen_cfg, cfg=None):
 
 #: MultiSlot parts of phase 12: parts x instances, three slots of TRAIN_SEQ
 DATASET_PARTS, DATASET_INSTANCES = 4, 256
+#: phase 12's BERT depth at BertConfig.base() widths (cut from 12 to 4
+#: when phase 21 joined, then to 2, to keep the script inside its time
+#: limit)
+DATASET_DEPTH = 2
 #: steps per chunk of the dataset trainer (set_steps_per_dispatch)
 DATASET_K = 8
 #: parser threads of the threaded feed (train_from_dataset(thread=...))
@@ -8629,10 +8677,10 @@ def parallel_phase(device, cfg, phase5_step_ms=float("nan")):
 
 PS_STEPS, PS_LR, PS_BLOCK_DIM = 3, 0.01, 64
 #: phase 16's BERT-base depth: cut from 12 to 6 layers when phase 19
-#: joined and to 2 when phase 20 did, to keep the script inside its time
-#: limit (a PS step moves every parameter each way through the host; the
-#: launch gates scale with the depth)
-PS_DEPTH = 2
+#: joined, to 2 when phase 20 did and to 1 when phase 21 did, to keep the
+#: script inside its time limit (a PS step moves every parameter each way
+#: through the host; the launch gates scale with the depth)
+PS_DEPTH = 1
 PS_RTOL = 1e-5
 #: the PS parameters' distance from the reference over the reference's own
 #: 3-step update (PS_RTOL of ‖θ‖ alone passes a table whose pushes never
@@ -10747,8 +10795,12 @@ TP_BN_STEPS, TP_BN_PER_RANK, TP_BN_LR = 2, 32, 1e-3
 TP_BN_CONTROL_LR = 1e-2
 TP_PARAM_TOL, TP_PARAM_REL_TOL, TP_STAT_TOL = 1e-3, 0.1, 1e-4
 TP_RANK_TIMEOUT_S = 900.0
-#: overrides of BertConfig.base() and NMTConfig.big() (a rehearsal's cuts)
-TP_BERT, TP_NMT = {}, {}
+#: overrides of BertConfig.base() and NMTConfig.big(): the depths cut
+#: from 12 and 6 + 6 (to 4 and 2 + 2, then 2 and 1 + 1) when phase 21
+#: joined, to keep the script inside its time limit (the split is per
+#: layer: every gate holds at any depth)
+TP_BERT = {"num_layers": 2}
+TP_NMT = {"num_encoder_layers": 1, "num_decoder_layers": 1}
 #: 19a's kernels per layer, rank and step (6 of 12 heads a rank): the
 #: attention output on #10 with its epilogue off, the FFN on #11 at F
 #: 1536 with its epilogue off (the vocab logits, N 15261, replay)
@@ -11628,6 +11680,843 @@ def dygraph_phase(device, cfg=None):
     return out
 
 
+# -- phase 21: the sequence and recurrent tier ------------------------------
+
+#: 21a, the RNNencdec-30 baseline of Bahdanau, Cho & Bengio 2015 (§4.2,
+#: appendix B): GRU encoder and decoder of 1000 units, 620-wide
+#: embeddings, 30,000-word vocabularies, minibatch 80, 30 tokens a side;
+#: Adadelta(eps 1e-6, rho 0.95) under a global-norm clip of 1
+S2S = dict(vocab=30000, embed=620, hidden=1000, batch=80, src_len=30,
+           tgt_len=30)
+S2S_WARMUP, S2S_STEPS = 2, 10
+#: the decoders on the trained weights: greedy to 30 tokens, beam K 4
+S2S_DECODE_LEN, S2S_BEAM, S2S_DECODE_RUNS = 30, 4, 2
+#: 21b, the PaddlePaddle book's stacked_lstm_net (understand_sentiment):
+#: embedding 128, hid_dim 512 (H = 128), 3 stacked dynamic_lstms
+#: alternating direction, fc over the concat of each pair, max pooling
+#: of both branches, 2 classes; batch 128 at T 256, lengths 32..256
+#: from the seed, Adam
+LSTM_CLS = dict(vocab=10000, emb=128, hid=512, stacked=3, classes=2,
+                batch=128, seq=256, min_len=32)
+LSTM_LR = 1e-3
+LSTM_WARMUP, LSTM_STEPS = 2, 3
+#: 21c, card against the CPU at a small width
+SEQ_SMALL = dict(hidden=64, vocab=512, batch=8, seq=12)
+SEQ_PARITY_STEPS = 3
+SEQ_LOSS_TOL = 2e-3
+SEQ_PARAM_TOL = 1e-3
+SEQ_OP_FWD_TOL = 1e-5
+SEQ_OP_GRAD_TOL = 1e-4
+SEQ_SEED = SEED + 2100
+
+
+def _tied_max(r):
+    """[4, 6, 3] with lengths (3, 0, 6, 1): row 0's steps 0 and 2 tie at
+    the maximum of every channel, row 1 has no live step."""
+    x = r.randn(4, 6, 3).astype(np.float32)
+    x[0, 0] = x[0, 2] = 5.0
+    return {"X": x, "SeqLen": np.array([3, 0, 6, 1], np.int64)}
+
+
+def _lens(*v):
+    return np.array(v, np.int64)
+
+
+def _w(r, *shape, scale=0.5):
+    return (r.randn(*shape) * scale).astype(np.float32)
+
+
+def _cudnn_blob(r, D, H, L):
+    n = sum(4 * H * (D if i == 0 else H) + 4 * H * H + 8 * H
+            for i in range(L))
+    return _w(r, n)
+
+
+#: every op of ops/sequence.py, ops/rnn.py and ops/fused.py, and
+#: cos_sim: name -> (op type, inputs from a RandomState — a slot's array
+#: or list of arrays —, attrs, the input slots differentiated, and the
+#: output slots given a cotangent: None for every float output).  The
+#: edge cases: a MAX tie and a length-0 row, a window of 4, scatter ids
+#: repeated, negative and out of range, slices past the row
+SEQ_OP_CASES = {
+    "sequence_mask": ("sequence_mask", lambda r: {
+        "X": _lens(0, 3, 5, 2)}, {"maxlen": 5, "out_dtype": "float32"},
+        (), None),
+    **{f"sequence_pool_{p}": ("sequence_pool", _tied_max,
+                              {"pooltype": p.upper()}, ("X",), None)
+       for p in ("sum", "average", "sqrt", "max", "last", "first")},
+    "sequence_softmax": ("sequence_softmax", lambda r: {
+        "X": r.randn(4, 6).astype(np.float32),
+        "SeqLen": _lens(3, 1, 6, 0)}, {}, ("X",), None),
+    "sequence_reverse": ("sequence_reverse", lambda r: {
+        "X": r.randn(4, 5, 2).astype(np.float32),
+        "SeqLen": _lens(5, 2, 0, 3)}, {}, ("X",), None),
+    "sequence_expand_as": ("sequence_expand_as", lambda r: {
+        "X": r.randn(3, 4).astype(np.float32),
+        "Y": r.randn(3, 5, 2).astype(np.float32),
+        "SeqLen": _lens(5, 1, 3)}, {}, ("X",), None),
+    "sequence_concat": ("sequence_concat", lambda r: {
+        "X": r.randn(3, 4, 2).astype(np.float32), "XLen": _lens(4, 1, 0),
+        "Y": r.randn(3, 3, 2).astype(np.float32), "YLen": _lens(2, 3, 1)},
+        {}, ("X", "Y"), None),
+    **{f"sequence_conv_{k}": ("sequence_conv", lambda r, k=k: {
+        "X": r.randn(3, 7, 4).astype(np.float32), "SeqLen": _lens(7, 4, 1),
+        "Filter": _w(r, k * 4, 5)}, {"contextLength": k},
+        ("X", "Filter"), None) for k in (3, 4)},
+    "sequence_expand": ("sequence_expand", lambda r: {
+        "X": r.randn(3, 4).astype(np.float32),
+        "Y": r.randn(3, 5).astype(np.float32)}, {}, ("X",), None),
+    **{f"sequence_pad_{n}": ("sequence_pad", lambda r: {
+        "X": r.randn(3, 5, 2).astype(np.float32),
+        "PadValue": np.array([-1.5], np.float32), "SeqLen": _lens(5, 2, 0)},
+        {"padded_length": n}, ("X",), None) for n in (4, 7)},
+    "sequence_unpad": ("sequence_unpad", lambda r: {
+        "X": r.randn(3, 5, 2).astype(np.float32),
+        "Length": _lens(5, 3, 0)}, {}, ("X",), None),
+    "sequence_reshape": ("sequence_reshape", lambda r: {
+        "X": r.randn(2, 6, 4).astype(np.float32)}, {"new_dim": 8},
+        ("X",), None),
+    "sequence_slice": ("sequence_slice", lambda r: {
+        "X": r.randn(4, 6, 2).astype(np.float32),
+        "Offset": _lens(1, 4, 7, -1).reshape(-1, 1),
+        "Length": _lens(3, 3, 2, 2).reshape(-1, 1)}, {}, ("X",), None),
+    "sequence_scatter": ("sequence_scatter", lambda r: {
+        "X": r.randn(3, 6).astype(np.float32),
+        "Ids": np.array([[0, 2, 2, 9], [-1, 5, 1, -8], [3, 3, 3, 6]],
+                        np.int64),
+        "Updates": r.randn(3, 4).astype(np.float32)}, {},
+        ("X", "Updates"), None),
+    "sequence_enumerate": ("sequence_enumerate", lambda r: {
+        "X": r.randint(1, 9, (2, 5)).astype(np.int64)},
+        {"win_size": 3, "pad_value": 0}, (), None),
+    "sequence_erase": ("sequence_erase", lambda r: {
+        "X": np.array([[2, 4, 5, 2, 7, 1], [5, 5, 3, 0, 2, 6]], np.int64)},
+        {"tokens": [2, 5]}, (), None),
+    "cos_sim": ("cos_sim", lambda r: {
+        "X": r.randn(4, 5).astype(np.float32),
+        "Y": r.randn(4, 5).astype(np.float32)}, {}, ("X", "Y"), None),
+    "cos_sim_row": ("cos_sim", lambda r: {
+        "X": r.randn(4, 5).astype(np.float32),
+        "Y": r.randn(1, 5).astype(np.float32)}, {}, ("X", "Y"), None),
+    "lstm_peepholes_mask": ("lstm", lambda r: {
+        "Input": r.randn(3, 5, 16).astype(np.float32), "Weight": _w(r, 4, 16),
+        "Bias": _w(r, 1, 28), "H0": _w(r, 3, 4), "C0": _w(r, 3, 4),
+        "SequenceLength": _lens(5, 2, 0)}, {"use_peepholes": True},
+        ("Input", "Weight", "Bias", "H0", "C0"), None),
+    "lstm_reverse_mask": ("lstm", lambda r: {
+        "Input": r.randn(3, 5, 16).astype(np.float32), "Weight": _w(r, 4, 16),
+        "Bias": _w(r, 1, 16), "SequenceLength": _lens(3, 5, 1)},
+        {"use_peepholes": False, "is_reverse": True},
+        ("Input", "Weight", "Bias"), None),
+    "lstm_reverse_peepholes": ("lstm", lambda r: {
+        "Input": r.randn(2, 4, 16).astype(np.float32), "Weight": _w(r, 4, 16),
+        "Bias": _w(r, 1, 28), "H0": _w(r, 2, 4), "C0": _w(r, 2, 4)},
+        {"use_peepholes": True, "is_reverse": True,
+         "candidate_activation": "relu"},
+        ("Input", "Weight", "Bias", "H0", "C0"), None),
+    "gru_mask": ("gru", lambda r: {
+        "Input": r.randn(3, 5, 12).astype(np.float32), "Weight": _w(r, 4, 12),
+        "Bias": _w(r, 1, 12), "H0": _w(r, 3, 4),
+        "SequenceLength": _lens(5, 2, 0)}, {},
+        ("Input", "Weight", "Bias", "H0"), None),
+    "gru_reverse_origin": ("gru", lambda r: {
+        "Input": r.randn(3, 5, 12).astype(np.float32), "Weight": _w(r, 4, 12),
+        "Bias": _w(r, 1, 12), "SequenceLength": _lens(1, 5, 3)},
+        {"is_reverse": True, "origin_mode": True},
+        ("Input", "Weight", "Bias"), None),
+    "gru_plain": ("gru", lambda r: {
+        "Input": r.randn(2, 4, 12).astype(np.float32),
+        "Weight": _w(r, 4, 12)}, {"activation": "relu"},
+        ("Input", "Weight"), None),
+    "fc": ("fc", lambda r: {
+        "Input": r.randn(2, 3, 4).astype(np.float32), "W": _w(r, 4, 5),
+        "Bias": _w(r, 5)}, {"in_num_col_dims": 2, "activation_type": "relu"},
+        ("Input", "W", "Bias"), None),
+    **{f"gru_unit_{m}": ("gru_unit", lambda r: {
+        "Input": r.randn(3, 12).astype(np.float32),
+        "HiddenPrev": _w(r, 3, 4), "Weight": _w(r, 4, 12),
+        "Bias": _w(r, 1, 12)}, {"origin_mode": m == "origin",
+                                "gate_activation": 1, "activation": 2},
+        ("Input", "HiddenPrev", "Weight", "Bias"), None)
+       for m in ("default", "origin")},
+    "lstm_unit": ("lstm_unit", lambda r: {
+        "X": r.randn(3, 16).astype(np.float32), "C_prev": _w(r, 3, 4)},
+        {"forget_bias": 1.0}, ("X", "C_prev"), None),
+    "lstmp": ("lstmp", lambda r: {
+        "Input": r.randn(2, 4, 16).astype(np.float32), "Weight": _w(r, 3, 16),
+        "ProjWeight": _w(r, 4, 3), "Bias": _w(r, 1, 16), "H0": _w(r, 2, 3),
+        "C0": _w(r, 2, 4)}, {"cell_clip": 0.8, "proj_clip": 0.6,
+                              "proj_activation": "tanh"},
+        ("Input", "Weight", "ProjWeight", "Bias", "H0", "C0"),
+        ("Projection", "Cell", "BatchGate", "BatchHidden")),
+    "cudnn_lstm": ("cudnn_lstm", lambda r: {
+        "Input": r.randn(4, 2, 3).astype(np.float32), "InitH": _w(r, 2, 2, 5),
+        "InitC": _w(r, 2, 2, 5), "W": _cudnn_blob(r, 3, 5, 2)},
+        {"hidden_size": 5, "num_layers": 2},
+        ("Input", "InitH", "InitC", "W"), None),
+    "fusion_lstm": ("fusion_lstm", lambda r: {
+        "X": r.randn(2, 4, 3).astype(np.float32), "WeightX": _w(r, 3, 16),
+        "WeightH": _w(r, 4, 16), "Bias": _w(r, 1, 28)},
+        {"use_peepholes": True}, ("X", "WeightX", "WeightH", "Bias"), None),
+    "fusion_gru": ("fusion_gru", lambda r: {
+        "X": r.randn(2, 4, 3).astype(np.float32), "H0": _w(r, 2, 4),
+        "WeightX": _w(r, 3, 12), "WeightH": _w(r, 4, 12),
+        "Bias": _w(r, 1, 12)}, {"is_reverse": True},
+        ("X", "H0", "WeightX", "WeightH", "Bias"), None),
+    "fused_embedding_seq_pool": ("fused_embedding_seq_pool", lambda r: {
+        "W": r.randn(10, 4).astype(np.float32),
+        "Ids": r.randint(0, 10, (3, 5, 1)).astype(np.int64)},
+        {"padding_idx": 0, "combiner": "sum"}, ("W",), None),
+    "fused_elemwise_add_relu": ("fused_elemwise_activation", lambda r: {
+        "X": r.randn(3, 4).astype(np.float32),
+        "Y": r.randn(3, 4).astype(np.float32)},
+        {"functor_list": ["elementwise_add", "relu"]}, ("X", "Y"), None),
+    "fused_elemwise_scale_mul": ("fused_elemwise_activation", lambda r: {
+        "X": r.randn(3, 4).astype(np.float32),
+        "Y": r.randn(3, 4).astype(np.float32)},
+        {"functor_list": ["scale", "elementwise_mul"], "scale": 0.5},
+        ("X", "Y"), None),
+    "fused_fc_elementwise_layernorm": ("fused_fc_elementwise_layernorm",
+                                       lambda r: {
+        "X": r.randn(4, 6).astype(np.float32), "W": _w(r, 6, 5),
+        "Bias0": _w(r, 5), "Y": r.randn(4, 5).astype(np.float32),
+        "Scale": 1 + _w(r, 5), "Bias1": _w(r, 5)}, {"epsilon": 1e-5},
+        ("X", "W", "Bias0", "Y", "Scale", "Bias1"), ("Out",)),
+    "fused_batch_norm_act": ("fused_batch_norm_act", lambda r: {
+        "X": r.randn(4, 3, 2, 2).astype(np.float32), "Scale": 1 + _w(r, 3),
+        "Bias": _w(r, 3), "Mean": _w(r, 3),
+        "Variance": (1 + r.rand(3)).astype(np.float32)},
+        {"act_type": "relu", "momentum": 0.9, "epsilon": 1e-5},
+        ("X", "Scale", "Bias"), ("Y",)),
+    "fusion_repeated_fc_relu": ("fusion_repeated_fc_relu", lambda r: {
+        "X": r.randn(3, 4).astype(np.float32),
+        "W": [_w(r, 4, 5), _w(r, 5, 2)], "Bias": [_w(r, 5), _w(r, 2)]}, {},
+        ("X", "W", "Bias"), None),
+    **{f"fusion_seqconv_eltadd_relu_{k}": (
+        "fusion_seqconv_eltadd_relu", lambda r, k=k: {
+            "X": r.randn(2, 5, 3).astype(np.float32),
+            "Filter": _w(r, k * 3, 4), "Bias": _w(r, 4)},
+        {"contextLength": k}, ("X", "Filter", "Bias"), None)
+       for k in (3, 4)},
+    "fusion_seqexpand_concat_fc": ("fusion_seqexpand_concat_fc", lambda r: {
+        "X": [r.randn(2, 4, 3).astype(np.float32),
+              r.randn(2, 2).astype(np.float32),
+              r.randn(2, 1).astype(np.float32)],
+        "FCWeight": _w(r, 6, 5), "FCBias": _w(r, 5)},
+        {"fc_activation": "tanh"}, ("X", "FCWeight", "FCBias"), None),
+    "fusion_seqpool_concat": ("fusion_seqpool_concat", lambda r: {
+        "X": [r.randn(2, 4, 3).astype(np.float32),
+              r.randn(2, 4, 2).astype(np.float32)]}, {"pooltype": "SQRT"},
+        ("X",), None),
+    "fusion_seqpool_cvm_concat": ("fusion_seqpool_cvm_concat", lambda r: {
+        "X": [r.rand(2, 4, 3).astype(np.float32),
+              r.rand(2, 4, 4).astype(np.float32)],
+        "CVM": r.rand(2, 2).astype(np.float32)},
+        {"pooltype": "SUM", "use_cvm": True}, ("X",), None),
+    "fusion_squared_mat_sub": ("fusion_squared_mat_sub", lambda r: {
+        "X": r.randn(3, 4).astype(np.float32),
+        "Y": r.randn(4, 5).astype(np.float32)}, {"scalar": 0.5},
+        ("X", "Y"), None),
+    "fusion_transpose_flatten_concat": (
+        "fusion_transpose_flatten_concat", lambda r: {
+            "X": [r.randn(2, 3, 4).astype(np.float32),
+                  r.randn(2, 3, 5).astype(np.float32)]},
+        {"trans_axis": [0, 2, 1], "flatten_axis": 1, "concat_axis": 1},
+        ("X",), None),
+    "multihead_matmul": ("multihead_matmul", lambda r: {
+        "Input": r.randn(2, 4, 6).astype(np.float32), "W": _w(r, 6, 18),
+        "Bias": _w(r, 18), "BiasQK": r.randn(2, 2, 4, 4).astype(np.float32)},
+        {"head_number": 2, "alpha": 0.5}, ("Input", "W", "Bias"), None),
+    "conv2d_fusion": ("conv2d_fusion", lambda r: {
+        "Input": r.randn(2, 3, 5, 5).astype(np.float32),
+        "Filter": _w(r, 4, 3, 3, 3), "Bias": _w(r, 4),
+        "ResidualData": r.randn(2, 4, 5, 5).astype(np.float32)},
+        {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+         "groups": 1, "activation": "relu"},
+        ("Input", "Filter", "Bias", "ResidualData"), None),
+    "gather_mm": ("gather_mm", lambda r: {
+        "X": r.randn(5, 3).astype(np.float32),
+        "Index": np.array([4, -1, 7, 0], np.int64)}, {}, ("X",), None),
+}
+
+
+def seq_case_arrays(name):
+    """The case's inputs: numpy arrays (or lists of them, by slot) from
+    the case's own seed."""
+    make = SEQ_OP_CASES[name][1]
+    return make(np.random.RandomState(
+        SEQ_SEED + sorted(SEQ_OP_CASES).index(name)))
+
+
+def seq_cotangent(name, slot, i, shape):
+    r = np.random.RandomState(SEQ_SEED + 7919 * (
+        1 + sorted(SEQ_OP_CASES).index(name)) + 31 * len(slot) + i)
+    return r.randn(*shape).astype(np.float32)
+
+
+def seq_op_run(name, device):
+    """The case's op on ``device`` through the port's registry: every
+    output (numpy, slot -> list) and the gradient of each differentiated
+    input slot under the case's output cotangents."""
+    import torch
+
+    from paddle_tpu_torch.core import REGISTRY
+    from paddle_tpu_torch.core.registry import OpContext
+
+    op_type, _, attrs, grad_slots, cot_slots = SEQ_OP_CASES[name]
+    arrays = seq_case_arrays(name)
+    ins, leaves = {}, []
+    for slot, v in arrays.items():
+        vs = v if isinstance(v, list) else [v]
+        ts = []
+        for a in vs:
+            t = torch.as_tensor(a).to(device)
+            if slot in grad_slots:
+                t.requires_grad_()
+                leaves.append((slot, len(ts), t))
+            ts.append(t)
+        ins[slot] = ts
+    with torch.enable_grad():
+        res = REGISTRY.get(op_type).compute(
+            OpContext(attrs=attrs, device=device), ins, attrs)
+        outs, cots = [], []
+        for slot in sorted(res):
+            if cot_slots is not None and slot not in cot_slots:
+                continue
+            for i, t in enumerate(res[slot]):
+                if t.is_floating_point() and t.requires_grad:
+                    outs.append(t)
+                    cots.append(torch.as_tensor(seq_cotangent(
+                        name, slot, i, tuple(t.shape))).to(device))
+        grads = torch.autograd.grad(
+            outs, [t for _, _, t in leaves], cots,
+            allow_unused=True) if leaves and outs else [None] * len(leaves)
+    fwd = {slot: [t.detach().cpu().numpy() for t in ts]
+           for slot, ts in res.items()}
+    back = {}
+    for (slot, i, t), g in zip(leaves, grads):
+        back.setdefault(slot, []).append(
+            np.zeros(tuple(t.shape), np.float32) if g is None
+            else g.detach().cpu().numpy())
+    return fwd, back
+
+
+def _max_abs(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return float("inf")
+    if not np.issubdtype(a.dtype, np.floating):
+        return 0.0 if np.array_equal(a, b) else float("inf")
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max(
+        initial=0.0))
+
+
+def seq_ops_phase(device):
+    """21c, ops: every case of SEQ_OP_CASES on ``device`` against the
+    same op on the CPU: outputs within SEQ_OP_FWD_TOL (ints equal),
+    gradients within SEQ_OP_GRAD_TOL."""
+    import torch
+
+    worst = {}
+    cpu = torch.device("cpu")
+    for name in sorted(SEQ_OP_CASES):
+        fwd, back = seq_op_run(name, device)
+        hf, hb = seq_op_run(name, cpu)
+        ef = max(_max_abs(a, b) for s in hf for a, b in zip(fwd[s], hf[s]))
+        eb = max((_max_abs(a, b) for s in hb for a, b in zip(back[s],
+                                                               hb[s])),
+                 default=0.0)
+        worst[name] = dict(forward=ef, grad=eb)
+        if not (ef <= SEQ_OP_FWD_TOL and eb <= SEQ_OP_GRAD_TOL):
+            raise AssertionError(f"21c op {name}: card against CPU "
+                                 f"forward {ef:.3e}, gradient {eb:.3e}")
+    fmax = max(v["forward"] for v in worst.values())
+    gmax = max(v["grad"] for v in worst.values())
+    log(f"  21c ops: {len(worst)} cases of "
+        f"{len({c[0] for c in SEQ_OP_CASES.values()})} ops on the card "
+        f"against the CPU: forward max |d| {fmax:.3e} (tol "
+        f"{SEQ_OP_FWD_TOL:g}), gradient max |d| {gmax:.3e} (tol "
+        f"{SEQ_OP_GRAD_TOL:g})")
+    return dict(cases=worst, forward_max=fmax, grad_max=gmax)
+
+
+def build_s2s(cfg, decoders=False):
+    """seq2seq_train at ``cfg`` under Adadelta(1.0, eps 1e-6, rho 0.95)
+    and GradientClipByGlobalNorm(1.0), built under unique_name.guard();
+    with ``decoders`` also the greedy (S2S_DECODE_LEN tokens) and beam
+    (K S2S_BEAM) programs over the same named parameters.  Returns
+    (main, startup, loss, {name: (program, fetches)})."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import (seq2seq_beam_search_infer,
+                                         seq2seq_greedy_infer, seq2seq_train)
+
+    V, E, H = cfg["vocab"], cfg["embed"], cfg["hidden"]
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEQ_SEED + 11     # 0 would draw a fresh seed
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        src = pt.data("src", [None, cfg["src_len"]], "int64")
+        tgt_in = pt.data("tgt_in", [None, cfg["tgt_len"]], "int64")
+        tgt_out = pt.data("tgt_out", [None, cfg["tgt_len"]], "int64")
+        loss, _ = seq2seq_train(src, tgt_in, tgt_out, V, V, embed_dim=E,
+                                hidden_dim=H)
+        pt.optimizer.Adadelta(
+            1.0, epsilon=1e-6, rho=0.95,
+            grad_clip=pt.clip.GradientClipByGlobalNorm(1.0)).minimize(loss)
+    decode = {}
+    if decoders:
+        for kind in ("greedy", "beam"):
+            prog = pt.Program()
+            with pt.program_guard(prog, pt.Program()), \
+                    pt.unique_name.guard():
+                s = pt.data("src", [cfg["batch"], cfg["src_len"]], "int64")
+                if kind == "greedy":
+                    fetch = [seq2seq_greedy_infer(
+                        s, V, V, max_len=S2S_DECODE_LEN, embed_dim=E,
+                        hidden_dim=H)]
+                else:
+                    fetch = list(seq2seq_beam_search_infer(
+                        s, V, V, max_len=S2S_DECODE_LEN,
+                        beam_size=S2S_BEAM, embed_dim=E, hidden_dim=H))
+            decode[kind] = (prog, fetch)
+    return main, startup, loss, decode
+
+
+def s2s_feed(cfg, device, seed=SEQ_SEED + 1):
+    """Source and target ids from the seed (2.. vocab; 0 is BOS, 1 EOS),
+    the decoder input the target shifted right behind BOS."""
+    import torch
+
+    r = np.random.RandomState(seed)
+    B, V = cfg["batch"], cfg["vocab"]
+    src = r.randint(2, V, (B, cfg["src_len"])).astype(np.int64)
+    tgt = r.randint(2, V, (B, cfg["tgt_len"])).astype(np.int64)
+    tgt_in = np.concatenate([np.zeros((B, 1), np.int64), tgt[:, :-1]], 1)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in (("src", src), ("tgt_in", tgt_in), ("tgt_out", tgt))}
+
+
+def build_lstm_classifier(cfg, lr=LSTM_LR):
+    """The book's stacked_lstm_net over padded batches plus lengths:
+    embedding, fc, dynamic_lstm, then (fc over the concat of the last
+    fc and lstm, dynamic_lstm reversed every other layer) up to
+    ``stacked`` layers; max sequence_pool of the last fc and lstm, an fc
+    with softmax to ``classes`` and cross entropy; Adam(lr).  Returns
+    (main, startup, loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEQ_SEED + 21
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        words = pt.data("words", [None, cfg["seq"]], "int64")
+        lens = pt.data("lens", [None], "int64")
+        label = pt.data("label", [None, 1], "int64")
+        emb = layers.embedding(words, [cfg["vocab"], cfg["emb"]])
+        fc = layers.fc(emb, cfg["hid"], num_flatten_dims=2)
+        lstm, _ = layers.dynamic_lstm(fc, cfg["hid"], sequence_length=lens)
+        for i in range(2, cfg["stacked"] + 1):
+            fc = layers.fc(layers.concat([fc, lstm], axis=2), cfg["hid"],
+                           num_flatten_dims=2)
+            lstm, _ = layers.dynamic_lstm(fc, cfg["hid"],
+                                          is_reverse=i % 2 == 0,
+                                          sequence_length=lens)
+        pooled = layers.concat([
+            layers.sequence_pool(fc, "max", seq_len=lens),
+            layers.sequence_pool(lstm, "max", seq_len=lens)], axis=1)
+        prediction = layers.fc(pooled, cfg["classes"], act="softmax")
+        loss = layers.mean(layers.cross_entropy(prediction, label))
+        pt.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss
+
+
+def lstm_feed(cfg, device, seed=SEQ_SEED + 2):
+    """Word ids, lengths in [min_len, seq] and labels from the seed; ids
+    past a row's length are 0."""
+    import torch
+
+    r = np.random.RandomState(seed)
+    B, T = cfg["batch"], cfg["seq"]
+    lens = r.randint(min(cfg["min_len"], T), T + 1, (B,)).astype(np.int64)
+    words = r.randint(1, cfg["vocab"], (B, T)).astype(np.int64)
+    words[np.arange(T)[None, :] >= lens[:, None]] = 0
+    label = r.randint(0, cfg["classes"], (B, 1)).astype(np.int64)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in (("words", words), ("lens", lens), ("label", label))}
+
+
+def seq_plan_launches(main, loss, feed_names, rows):
+    """The port planner's groups for ``main`` (a list), #10's launches a
+    step they give (one a GEMM group within the kernel's shape rule at
+    ``rows`` rows; the 2-class output replays) and those groups' (M, K,
+    N)."""
+    from paddle_tpu_torch.core.fusion import plan_fusion
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    plan = plan_fusion(main, list(main.global_block().ops), feed_names,
+                       (loss.name,), block_patterns=True)
+    groups = plan.groups if plan is not None else []
+    block = main.global_block()
+    shapes = []
+    for g in groups:
+        uid, slot, j = g.roles["w"]
+        member = next(m for m in g.members if m.uid == uid)
+        K, N = block.var(member.inputs[slot][j]).shape
+        if g.kind == "gemm" and fm.fused_shapes_ok(rows, K, N):
+            shapes.append((rows, K, N))
+    return groups, {fm.LAUNCH: len(shapes)} if shapes else {}, shapes
+
+
+def _child_processes():
+    """The live processes whose parent is this one (from /proc)."""
+    n = 0
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            n += int(stat.read_text().rsplit(")", 1)[1].split()[1]) \
+                == os.getpid()
+        except (OSError, IndexError, ValueError):
+            pass
+    return n
+
+
+class _GcClock:
+    """The host milliseconds the cyclic garbage collector paused this
+    process, and its collections by generation, inside the block
+    (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.ms, self.runs, self._t0 = 0.0, [0, 0, 0], None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.runs[info["generation"]] += 1
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._note)
+
+
+def _timed_steps(exe, main, feed, loss, scope, device, warmup, steps):
+    """``warmup`` steps, then ``steps`` synchronised steps under the
+    launch counters: (losses, ms a step, launches, peak bytes, the
+    host's account of the timed steps: the process's and this thread's
+    CPU ms and the garbage collector's pause ms a step, its collections
+    by generation, the objects it tracks, the other Python threads
+    alive, whether a trace or profile hook is set)."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import _cuda
+
+    warm = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0]) for _ in range(warmup)]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    sync(device)
+    _cuda.reset_launches()
+    tracked = len(gc.get_objects())
+    with _GcClock() as clock:
+        cpu0, own0 = time.process_time(), time.thread_time()
+        t0 = time.perf_counter()
+        got = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0] for _ in range(steps)]
+        sync(device)
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        cpu_ms = (time.process_time() - cpu0) / steps * 1e3
+        own_ms = (time.thread_time() - own0) / steps * 1e3
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+    others = [t.name for t in threading.enumerate()
+              if t is not threading.current_thread()]
+    host = dict(cpu_ms_per_step=cpu_ms, thread_cpu_ms_per_step=own_ms,
+                gc_ms_per_step=clock.ms / steps,
+                gc_collections=clock.runs, gc_tracked_objects=tracked,
+                load_average=os.getloadavg()[0],
+                child_processes=_child_processes(), other_threads=others,
+                trace_hooks=[sys.gettrace() is not None,
+                             sys.getprofile() is not None],
+                profiler_on=bool(torch._C._autograd._profiler_enabled()))
+    return warm + [float(x) for x in got], step_ms, launches, peak, host
+
+
+def _host_top(step, n=8):
+    """One call of ``step`` under cProfile: its ``n`` functions of most
+    own host time, as (function, own ms, calls)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(step)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return [(f"{Path(f).name}:{line} {fn}", tt * 1e3, nc)
+            for (f, line, fn), (_, nc, tt, _, _) in rows]
+
+
+def _log_host(what, step_ms, host):
+    log(f"  {what} host: {host['cpu_ms_per_step']:.2f} ms of process CPU "
+        f"({host['thread_cpu_ms_per_step']:.2f} ms on this thread; "
+        f"{len(host['other_threads'])} other Python threads "
+        f"{collections.Counter(host['other_threads']).most_common(8)}; "
+        f"trace/profile hooks {host['trace_hooks']}) "
+        f"and {host['gc_ms_per_step']:.2f} ms of garbage-collector pauses "
+        f"a {step_ms:.2f} ms step (collections by generation "
+        f"{host['gc_collections']}, {host['gc_tracked_objects']} tracked "
+        f"objects; load average {host['load_average']:.2f}, "
+        f"{host['child_processes']} child processes, profiler on: "
+        f"{host['profiler_on']})")
+    for name, ms, calls in host.get("top", ()):
+        log(f"    {ms:9.2f} ms own host time, {calls} calls: {name} "
+            f"(one step under cProfile)")
+
+
+def s2s_phase(device, cfg=None):
+    """21a: seq2seq_train at RNNencdec-30 width (S2S): S2S_WARMUP +
+    S2S_STEPS steps of Adadelta under the clip — step ms, target
+    tokens/s, peak, one profiled step's busy share, and no launch of the
+    eleven kernels (the fusion pass plans no group: the decoder's fcs are
+    in the StaticRNN sub-block, the encoder's projection has no bias);
+    then greedy and beam decoding on the trained weights (ms a decode
+    step), again with no launch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+
+    cfg = cfg or S2S
+    on_card = device.type == "cuda"
+    _free_card(device)
+    t0 = time.perf_counter()
+    main, startup, loss, decode = build_s2s(cfg, decoders=True)
+    build_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(p.shape))
+                   for p in main.global_block().all_parameters())
+    exe, scope = _executor(device), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = s2s_feed(cfg, device)
+    groups, want, _ = seq_plan_launches(main, loss, tuple(feed),
+                                        cfg["batch"] * cfg["tgt_len"])
+    losses, step_ms, launches, peak, host = _timed_steps(
+        exe, main, feed, loss, scope, device, S2S_WARMUP, S2S_STEPS)
+    tokens_s = cfg["batch"] * cfg["tgt_len"] / (step_ms / 1e3)
+    log(f"  21a seq2seq (GRU {cfg['hidden']}, embeddings {cfg['embed']}, "
+        f"vocab {cfg['vocab']}, {n_params} parameters) at {cfg['batch']} x "
+        f"{cfg['src_len']}/{cfg['tgt_len']}, Adadelta under a global-norm "
+        f"clip of 1: built in {build_s:.2f} s; {S2S_STEPS} steps "
+        f"{step_ms:.3f} ms/step, {tokens_s:.1f} target tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB; plan groups {len(groups)}; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches}")
+    if groups or want:
+        raise AssertionError(f"21a: the plan holds groups: "
+                             f"{[g.pattern for g in groups]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"21a: a loss is not finite: {losses}")
+    _launch_gate(launches, {}, "21a", on_card)
+    host["top"] = _host_top(lambda: exe.run(main, feed=feed,
+                                            fetch_list=[loss], scope=scope))
+    _log_host("21a", step_ms, host)
+    prof = _profile_step(exe, main, feed, loss, scope, device, "seq2seq")
+    dec = {}
+    src = {"src": feed["src"]}
+    for kind, (prog, fetch) in decode.items():
+        res = exe.run(prog, feed=src, fetch_list=fetch, scope=scope)
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(S2S_DECODE_RUNS):
+            res = exe.run(prog, feed=src, fetch_list=fetch, scope=scope)
+        sync(device)
+        run_ms = (time.perf_counter() - t0) / S2S_DECODE_RUNS * 1e3
+        _launch_gate(dict(_cuda.LAUNCHES), {}, f"21a {kind}", on_card)
+        ids = np.asarray(res[0])
+        want_shape = (S2S_DECODE_LEN, cfg["batch"],
+                      1 if kind == "greedy" else S2S_BEAM)
+        if ids.shape != want_shape or ids.min() < 0 \
+                or ids.max() >= cfg["vocab"]:
+            raise AssertionError(f"21a {kind}: ids {ids.shape} in "
+                                 f"[{ids.min()}, {ids.max()}]")
+        dec[kind] = dict(run_ms=run_ms,
+                         decode_step_ms=run_ms / S2S_DECODE_LEN,
+                         distinct_tokens=int(len(np.unique(ids))))
+        log(f"  21a {kind} decode ({cfg['batch']} sentences, "
+            f"{S2S_DECODE_LEN} steps" + (f", K {S2S_BEAM}"
+                                         if kind == "beam" else "")
+            + f"): {run_ms:.1f} ms a run, {run_ms / S2S_DECODE_LEN:.3f} ms "
+            f"a decode step; {dec[kind]['distinct_tokens']} distinct ids")
+    del scope, feed
+    _free_card(device)
+    return dict(config=dict(cfg), parameters=n_params, losses=losses,
+                step_ms=step_ms, target_tokens_per_s=tokens_s,
+                peak_bytes=peak, plan_groups=len(groups),
+                launches={}, profile=prof, decode=dec, host=host)
+
+
+def lstm_phase(device, cfg=None):
+    """21b: the stacked-LSTM classifier (LSTM_CLS) under Adam:
+    LSTM_WARMUP + LSTM_STEPS steps — step ms, sequences/s, one profiled
+    step; #10 launched once a step for each GEMM group the plan holds
+    within its rule (the three fcs; the 2-class fc replays)."""
+    import paddle_tpu_torch as pt
+
+    cfg = cfg or LSTM_CLS
+    on_card = device.type == "cuda"
+    _free_card(device)
+    main, startup, loss = build_lstm_classifier(cfg)
+    exe, scope = _executor(device), pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = lstm_feed(cfg, device)
+    groups, per_step, shapes = seq_plan_launches(
+        main, loss, tuple(feed), cfg["batch"] * cfg["seq"])
+    # every shape the path hands #10 is held against the plain version
+    # in phase 2 (GEMM_CASES)
+    held = {(M, K, N) for M, K, N, _ in GEMM_CASES.values()}
+    if on_card and not set(shapes) <= held:
+        raise AssertionError(f"21b: #10 shapes {set(shapes) - held} are not "
+                             f"GEMM_CASES cases")
+    losses, step_ms, launches, peak, host = _timed_steps(
+        exe, main, feed, loss, scope, device, LSTM_WARMUP, LSTM_STEPS)
+    want = {k: v * LSTM_STEPS for k, v in per_step.items()}
+    patterns = dict(collections.Counter(g.pattern for g in groups))
+    log(f"  21b stacked LSTM ({cfg['stacked']} x H {cfg['hid'] // 4}, "
+        f"embedding {cfg['emb']}) at {cfg['batch']} x {cfg['seq']} "
+        f"(lengths {int(feed['lens'].min())}..{int(feed['lens'].max())}), "
+        f"Adam: {LSTM_STEPS} steps {step_ms:.3f} ms/step, "
+        f"{cfg['batch'] / (step_ms / 1e3):.1f} sequences/s, peak "
+        f"{peak / 2**30:.2f} GiB; plan {patterns}; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {launches} (want {want})")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"21b: a loss is not finite: {losses}")
+    got = _launch_gate(launches, want, "21b", on_card)
+    _log_host("21b", step_ms, host)
+    prof = _profile_step(exe, main, feed, loss, scope, device,
+                         "stacked LSTM")
+    del scope, feed
+    _free_card(device)
+    return dict(config=dict(cfg), losses=losses, step_ms=step_ms,
+                sequences_per_s=cfg["batch"] / (step_ms / 1e3),
+                peak_bytes=peak, plan=patterns, launches=got,
+                launches_per_step=per_step, gemm_shapes=shapes, profile=prof,
+                host=host)
+
+
+def _small_models():
+    """21c's programs at SEQ_SMALL: seq2seq (and its decoders) and the
+    stacked-LSTM classifier, with their feeds' shapes."""
+    c = SEQ_SMALL
+    s2s = dict(vocab=c["vocab"], embed=c["hidden"], hidden=c["hidden"],
+               batch=c["batch"], src_len=c["seq"], tgt_len=c["seq"])
+    cls = dict(vocab=c["vocab"], emb=c["hidden"], hid=4 * c["hidden"],
+               stacked=3, classes=2, batch=c["batch"], seq=c["seq"],
+               min_len=2)
+    return s2s, cls
+
+
+def _train_both(device, build, feed_fn, steps):
+    """The same program and startup weights trained ``steps`` steps on
+    ``device`` and on the CPU: (card losses, CPU losses, the largest
+    parameter difference after the last step)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    main, startup, loss = build()[:3]
+    cpu = torch.device("cpu")
+    init = pt.Scope()
+    _executor(cpu).run(startup, scope=init)
+    weights = _host_arrays(init, main)
+    runs = []
+    for where in (device, cpu):
+        scope = _scope_from(weights, where, main)
+        feed = feed_fn(where)
+        exe = _executor(where)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(steps)]
+        runs.append((losses, _host_arrays(scope, main), scope))
+    (cl, cw, cscope), (hl, hw, _) = runs
+    dparam = max(_max_abs(cw[n], hw[n]) for n in hw)
+    return cl, hl, dparam, cscope, main
+
+
+def seq_parity_phase(device):
+    """21c, models: seq2seq and the stacked-LSTM classifier at SEQ_SMALL
+    on the card and on the CPU from the same startup weights — losses
+    within SEQ_LOSS_TOL over SEQ_PARITY_STEPS steps, parameters within
+    SEQ_PARAM_TOL — then greedy and beam ids on the trained seq2seq
+    weights equal to the CPU's."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    s2s, cls = _small_models()
+    out = {}
+    cpu = torch.device("cpu")
+    for what, build, feed_fn in (
+            ("seq2seq", lambda: build_s2s(s2s, decoders=True),
+             lambda d: s2s_feed(s2s, d)),
+            ("lstm_classifier", lambda: build_lstm_classifier(cls),
+             lambda d: lstm_feed(cls, d))):
+        cl, hl, dparam, scope, main = _train_both(device, build, feed_fn,
+                                                  SEQ_PARITY_STEPS)
+        dloss = max(abs(a - b) for a, b in zip(cl, hl))
+        out[what] = dict(card_losses=cl, cpu_losses=hl, max_dloss=dloss,
+                         max_dparam=dparam)
+        log(f"  21c {what} at hidden {SEQ_SMALL['hidden']}, vocab "
+            f"{SEQ_SMALL['vocab']}, {SEQ_SMALL['batch']} x "
+            f"{SEQ_SMALL['seq']}: card losses {cl}, CPU {hl}; max |dloss| "
+            f"{dloss:.3e} (tol {SEQ_LOSS_TOL:g}), max |dparam| "
+            f"{dparam:.3e} (tol {SEQ_PARAM_TOL:g})")
+        if not (np.isfinite(cl).all() and dloss <= SEQ_LOSS_TOL
+                and dparam <= SEQ_PARAM_TOL):
+            raise AssertionError(f"21c {what}: card against CPU |dloss| "
+                                 f"{dloss}, |dparam| {dparam}")
+        if what != "seq2seq":
+            continue
+        _, _, _, decode = build_s2s(s2s, decoders=True)
+        weights = _host_arrays(scope, main)
+        src = s2s_feed(s2s, cpu)["src"]
+        for kind, (prog, fetch) in decode.items():
+            ids = []
+            for where in (device, cpu):
+                sc = _scope_from({n: weights[n] for n in
+                                  pt.io.persistable_names(prog)}, where,
+                                 prog)
+                ids.append([np.asarray(x) for x in _executor(where).run(
+                    prog, feed={"src": src.to(where)}, fetch_list=fetch,
+                    scope=sc)])
+            equal = bool(np.array_equal(ids[0][0], ids[1][0]))
+            out[what][f"{kind}_ids_equal"] = equal
+            log(f"  21c {kind} ids on the trained weights equal the "
+                f"CPU's: {equal}")
+            if not equal:
+                raise AssertionError(f"21c {kind}: the card's ids are not "
+                                     f"the CPU's")
+    return out
+
+
+def seq_phase(device, s2s_cfg=None, lstm_cfg=None):
+    """Phase 21: the sequence and recurrent tier — 21a seq2seq at
+    RNNencdec-30 width with its decoders, 21b the stacked-LSTM
+    classifier, 21c the card against the CPU (every new op, both models
+    at a small width, the decoders' ids)."""
+    t0 = time.perf_counter()
+    out = dict(seq2seq=s2s_phase(device, s2s_cfg),
+               lstm=lstm_phase(device, lstm_cfg))
+    out["parity"] = seq_parity_phase(device)
+    out["ops"] = seq_ops_phase(device)
+    out["launches"] = dict(out["lstm"]["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 21 took {out['seconds']:.1f} s; launches "
+        f"{out['launches']}")
+    return out
+
+
 def main():
     import torch
 
@@ -11753,8 +12642,10 @@ def main():
 
         log("[10] BERT pretraining with the published recipe: schedule, "
             "clip, AdamW, checkpoints, resume, NaN rollback, eval clone")
-        report["recipe"] = recipe_phase(device, BertConfig.base(),
-                                        report["training"]["step_ms"])
+        report["recipe"] = recipe_phase(
+            device, dataclasses.replace(BertConfig.base(),
+                                        num_layers=RECIPE_DEPTH),
+            report["training"]["step_ms"])
 
         log("[11] control flow: the StaticRNN greedy decoder, the "
             "Predictor and its server, build_lm_logits, loop backward")
@@ -11765,8 +12656,10 @@ def main():
         log("[12] training from files: the repaired ops on the card, the "
             "slot parser, BERT-base through train_from_dataset, parity "
             "with Executor.run, the flags")
-        report["dataset"] = dataset_phase(device, BertConfig.base(),
-                                          report["training"]["step_ms"])
+        report["dataset"] = dataset_phase(
+            device, dataclasses.replace(BertConfig.base(),
+                                        num_layers=DATASET_DEPTH),
+            report["training"]["step_ms"])
         for name, n in report["dataset"]["launches"].items():
             report["kernels"][name]["launches"] += n
 
@@ -11845,6 +12738,15 @@ def main():
         _free_card(device)
         report["dygraph"] = dygraph_phase(device, BertConfig.base())
         for name, n in report["dygraph"]["launches"].items():
+            report["kernels"][name]["launches"] = \
+                report["kernels"][name].get("launches", 0) + n
+        log("[21] the sequence and recurrent tier: seq2seq at "
+            "RNNencdec-30 width (GRU 1000, vocab 30,000) with its greedy "
+            "and beam decoders, the book's stacked-LSTM classifier (#10), "
+            "the card against the CPU")
+        _free_card(device)
+        report["sequence"] = seq_phase(device)
+        for name, n in report["sequence"]["launches"].items():
             report["kernels"][name]["launches"] = \
                 report["kernels"][name].get("launches", 0) + n
         idle = [k["name"] for k in KERNELS
@@ -12070,6 +12972,28 @@ def main():
         to_static_max_abs_err=dy["to_static"]["max_abs_err"],
         dp={k: dy["dp"][k] for k in ("backend", "nranks", "params_differ")})
     }))
+    sq = report["sequence"]
+    print(json.dumps({"sequence": dict(
+        card=card, seconds=sq["seconds"],
+        seq2seq={k: sq["seq2seq"][k] for k in (
+            "parameters", "step_ms", "target_tokens_per_s", "peak_bytes",
+            "plan_groups", "launches")} | dict(
+            host={k: v for k, v in sq["seq2seq"]["host"].items()
+                  if k != "top"},
+            busy_share=sq["seq2seq"]["profile"].get("device_busy_share"),
+            device_ms=sq["seq2seq"]["profile"].get("device_ms_per_step"),
+            decode_step_ms={k: v["decode_step_ms"]
+                            for k, v in sq["seq2seq"]["decode"].items()}),
+        lstm={k: sq["lstm"][k] for k in (
+            "step_ms", "sequences_per_s", "peak_bytes", "plan",
+            "launches_per_step", "launches")} | dict(
+            host=sq["lstm"]["host"],
+            busy_share=sq["lstm"]["profile"].get("device_busy_share"),
+            device_ms=sq["lstm"]["profile"].get("device_ms_per_step")),
+        parity={k: {m: v[m] for m in v if m.startswith("max_")
+                    or m.endswith("_equal")}
+                for k, v in sq["parity"].items()},
+        ops={k: sq["ops"][k] for k in ("forward_max", "grad_max")})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

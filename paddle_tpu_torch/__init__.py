@@ -60,7 +60,11 @@ imperative mode: ``dygraph.guard()``, ``VarBase`` over torch autograd,
 ``Layer`` and ``dygraph.nn``, the optimizers' eager ``minimize``,
 ``save_dygraph``/``load_dygraph``, ``TracedLayer``, ``to_static`` and
 ``DataParallel`` (like every subpackage, ``paddle_tpu_torch.dygraph``
-loads at first access).
+loads at first access).  The sequence and recurrent tier takes a padded
+batch plus a lengths tensor in place of LoD (``lod`` converts ragged
+host data): the sequence ops and layers, ``lstm``/``gru`` and the fused
+RNN ops, ``layers.dynamic_lstm``/``dynamic_gru``/``lstm``, and the
+models ``seq2seq_*`` and ``word2vec_ngram``.
 """
 import importlib
 
@@ -132,4 +136,4 @@ __all__ = ["resolve_device", "set_strict_fp32", "__version__",
            "CompiledProgram", "gradients", "clip", "regularizer",
            "resilience", "inference", "fs", "dataio", "DataLoader",
            "DataFeeder", "DatasetFactory", "InMemoryDataset", "QueueDataset",
-           "get_flags", "set_flags", "dygraph"]
+           "get_flags", "set_flags", "dygraph", "lod"]

@@ -1,7 +1,8 @@
 """Second-wave layer wrappers of the port: ``label_smooth``.
 
 Counterpart of paddle_tpu/layers/extras.py (parity: fluid.layers
-label_smooth); its other layers wait (ROADMAP.md Queue 1 item 6).
+label_smooth); its other 16 layers wait (ROADMAP.md Queue 1 item
+6.4).
 """
 from __future__ import annotations
 

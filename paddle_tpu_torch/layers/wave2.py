@@ -1,16 +1,21 @@
 """Third-wave layer wrappers of the port: ``gather_nd``, ``beam_search``
-and ``beam_search_decode``, the layers of the NMT beam decoder.
+and ``beam_search_decode`` (the NMT beam decoder's layers), ``cos_sim``
+and the sequence layers ``sequence_pad``, ``_unpad``, ``_reshape``,
+``_slice``, ``_scatter``, ``_enumerate``, ``_erase`` and ``_expand``.
 
 Counterpart of paddle_tpu/layers/wave2.py (parity: the corresponding
 fluid.layers functions); its other layers wait (ROADMAP.md Queue 1 item
-6).  ``_simple`` manufactures the one-input/one-output wrappers, as the
+6.4).  ``_simple`` manufactures the one-input/one-output wrappers, as the
 reference's ``layer_function_generator`` does.
 """
 from __future__ import annotations
 
 from .helper import LayerHelper
 
-__all__ = ["gather_nd", "beam_search", "beam_search_decode"]
+__all__ = ["gather_nd", "beam_search", "beam_search_decode", "cos_sim",
+           "sequence_pad", "sequence_unpad", "sequence_reshape",
+           "sequence_slice", "sequence_scatter", "sequence_enumerate",
+           "sequence_erase", "sequence_expand"]
 
 
 def _simple(op_type, in_slots, attrs, helper_name=None, out_slot="Out",
@@ -74,3 +79,64 @@ def beam_search_decode(ids, scores, parent_idx, beam_size, end_id,
                               "SentenceScores": [ssc.name]},
                      attrs={"beam_size": beam_size, "end_id": end_id})
     return sent, ssc
+
+
+def cos_sim(x, y, name=None):
+    helper = LayerHelper("cos_sim")
+    xv, yv = helper.input(x), helper.input(y)
+    o = helper.create_variable_for_type_inference(xv.dtype)
+    xn = helper.create_variable_for_type_inference(xv.dtype)
+    yn = helper.create_variable_for_type_inference(xv.dtype)
+    helper.append_op(type="cos_sim",
+                     inputs={"X": [xv.name], "Y": [yv.name]},
+                     outputs={"Out": [o.name], "XNorm": [xn.name],
+                              "YNorm": [yn.name]}, attrs={})
+    return o
+
+
+def sequence_pad(x, pad_value, maxlen=None, length=None, name=None):
+    helper = LayerHelper("sequence_pad")
+    xv, pv = helper.input(x), helper.input(pad_value)
+    ins = {"X": [xv.name], "PadValue": [pv.name]}
+    if length is not None:
+        ins["SeqLen"] = [helper.input(length).name]
+    o = helper.create_variable_for_type_inference(xv.dtype)
+    ol = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(type="sequence_pad", inputs=ins,
+                     outputs={"Out": [o.name], "Length": [ol.name]},
+                     attrs={"padded_length": maxlen or -1})
+    return o, ol
+
+
+def sequence_unpad(x, length, name=None):
+    return _simple("sequence_unpad", {"X": x, "Length": length}, {})
+
+
+def sequence_reshape(input, new_dim, name=None):
+    return _simple("sequence_reshape", {"X": input}, {"new_dim": new_dim})
+
+
+def sequence_slice(input, offset, length, name=None):
+    return _simple("sequence_slice",
+                   {"X": input, "Offset": offset, "Length": length}, {})
+
+
+def sequence_scatter(input, index, updates, name=None):
+    return _simple("sequence_scatter",
+                   {"X": input, "Ids": index, "Updates": updates}, {})
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None):
+    return _simple("sequence_enumerate", {"X": input},
+                   {"win_size": win_size, "pad_value": pad_value},
+                   stop_gradient=True)
+
+
+def sequence_erase(input, tokens, name=None):
+    return _simple("sequence_erase", {"X": input},
+                   {"tokens": list(tokens)}, stop_gradient=True)
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    return _simple("sequence_expand", {"X": x, "Y": y},
+                   {"ref_level": ref_level})

@@ -2,8 +2,8 @@
 — simple_img_conv_pool, img_conv_group, sequence_conv_pool, glu,
 scaled_dot_product_attention; same signatures, layers-level bodies).
 
-Counterpart of paddle_tpu/nets.py.  ``sequence_conv_pool`` raises until
-the sequence ops are ported (ROADMAP.md Queue 1 item 6)."""
+Counterpart of paddle_tpu/nets.py.  Sequence batches are padded plus a
+lengths Variable (``seq_len``), as in the JAX package."""
 from __future__ import annotations
 
 from . import layers
@@ -73,10 +73,12 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
     """sequence_conv -> sequence_pool (nets.py:251).  ``seq_len`` is the
     lengths Variable this framework's dense-padded sequence policy uses
     in place of the reference's implicit LoD."""
-    raise NotImplementedError(
-        "nets.sequence_conv_pool needs sequence_conv and sequence_pool, "
-        "which are not ported to paddle_tpu_torch yet (ROADMAP.md, "
-        "Queue 1 item 6)")
+    conv_out = layers.sequence_conv(
+        input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, bias_attr=bias_attr, act=act,
+        seq_len=seq_len)
+    return layers.sequence_pool(conv_out, pool_type=pool_type,
+                                seq_len=seq_len)
 
 
 def glu(input, dim=-1):

@@ -13,8 +13,9 @@ import importlib
 from .attention import attention, attention_packed
 
 #: the modules whose import registers program operators
-_REGISTERING = ("amp_ops", "decode", "manip", "math", "misc", "misc2",
-                "moe", "nn", "optim", "random", "tensor")
+_REGISTERING = ("amp_ops", "decode", "fused", "manip", "math", "misc",
+                "misc2", "moe", "nn", "optim", "random", "rnn", "sequence",
+                "tensor")
 
 
 def register_all():

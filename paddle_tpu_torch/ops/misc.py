@@ -1,8 +1,8 @@
 """Miscellaneous ops of the port: ``label_smooth``.
 
 Counterpart of paddle_tpu/ops/misc.py (parity:
-operators/label_smooth_op.cc); the rest of that file waits (ROADMAP.md
-Queue 1 item 6).
+operators/label_smooth_op.cc); its other 15 ops wait (ROADMAP.md
+Queue 1 item 6.5).
 """
 from __future__ import annotations
 

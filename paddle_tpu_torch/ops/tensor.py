@@ -280,6 +280,17 @@ class _Lookup(torch.autograd.Function):
                             accumulate=False), None
 
 
+def embedding_rows(w, ids):
+    """The rows of table ``w`` at ``ids`` under jnp.take's index rule (a
+    negative id wraps, one past the table gives a NaN row), through
+    ``_Lookup`` when the table takes a gradient."""
+    safe, invalid = _take_index(ids, w.shape[0])
+    looked = (_Lookup.apply(w, safe)
+              if torch.is_grad_enabled() and w.requires_grad
+              else F.embedding(safe, w))
+    return _fill_invalid(looked, invalid[..., None])
+
+
 @register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",),
              no_grad_slots=("Ids",))
 def lookup_table(ctx, inputs, attrs):
@@ -289,13 +300,7 @@ def lookup_table(ctx, inputs, attrs):
     ids = single(inputs, "Ids")
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    # jnp.take's index rule: a negative id wraps, one past the table
-    # gives a NaN row
-    safe, invalid = _take_index(ids, w.shape[0])
-    looked = (_Lookup.apply(w, safe)
-              if torch.is_grad_enabled() and w.requires_grad
-              else F.embedding(safe, w))
-    res = _fill_invalid(looked, invalid[..., None])
+    res = embedding_rows(w, ids)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         res = res.masked_fill((ids == padding_idx)[..., None], 0.0)

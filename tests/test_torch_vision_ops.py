@@ -389,7 +389,23 @@ def test_nets_match_the_jax_package(case):
 
 
 def test_sequence_conv_pool_raises_naming_queue_1_item_6():
-    with pt.new_program_scope():
-        x = pt.data("x", [None, 5, 8])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            pt.nets.sequence_conv_pool(x, 4, 3)
+    """The sequence ops are ported (Queue 1 item 6.5), so
+    ``sequence_conv_pool`` builds; without the lengths Variable it
+    raises the JAX package's ValueError naming ``seq_len=``."""
+    import paddle_tpu as jpt
+
+    for P in (jpt, pt):
+        with P.new_program_scope():
+            x = P.data("x", [None, 5, 8])
+            with pytest.raises(ValueError, match="requires seq_len="):
+                P.nets.sequence_conv_pool(x, 4, 3)
+    types = {}
+    for P in (jpt, pt):
+        with P.new_program_scope():
+            x = P.data("x", [None, 5, 8])
+            n = P.data("n", [None], "int64")
+            y = P.nets.sequence_conv_pool(x, 4, 3, seq_len=n)
+            types[P] = [op.type for op in
+                        P.default_main_program().global_block().ops]
+            assert list(y.shape)[-1] == 4
+    assert types[pt] == types[jpt]
