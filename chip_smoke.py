@@ -481,6 +481,40 @@ Phases (any failure exits non-zero and prints no result):
       trained weights equal, and every case of SEQ_OP_CASES (the 39 new
       ops) forward within 1e-5 and gradients within 1e-4.
    Its numbers go on a {"sequence": {...}} line before the kernels line.
+22. serving with a 16-bit KV cache (GenerationConfig.dtype "bfloat16" or
+   "float16": parameters and arithmetic stay float32, K/V round as they
+   enter the cache):
+   a. the bfloat16 and float16 entries of the ragged (#1) and paged
+      decode (#2) kernels at phase 2's cases with the pages cast, each
+      within contract_bound of its plain version on the TPU kernel's
+      rounding contract (p rounded to the pages' type for P.V only, the
+      context not rounded), inactive rows exact zeros; timed at the step
+      and long cases beside the plain version, SDPA over the gathered
+      context with q cast to the pages' type, and the bound in the
+      pages' bytes;
+   b. the engine at BertConfig.base() width with a float32, a bfloat16
+      and a float16 cache, chunked and legacy, 8 prompts x 16 greedy
+      tokens each, the six engines driven in KV16_TURNS turns: every
+      request finishes, nothing loads after warmup, the cache type's
+      entry launches once per layer a step and no float32 entry does,
+      the parameters stay float32; then a bfloat16 block_rows search
+      into the tuning store, every candidate held against its plain
+      version, which a bf16 chunked engine resolves and a float32 one
+      does not; at REFERENCE_LAYERS the card's bf16 engine and the
+      CPU's plain one, each teacher-forced against a recompute on its
+      own rounding contract (KV16_LOGIT_TOL, KV16_AT_MAX), their
+      matched prefix reported;
+   c. one bf16 request prefilled and handed to a decode engine through
+      cluster/rpc.py's framing in this process: the words arrive
+      bit-equal as bf16 words, import then export is bit-equal in a paged
+      and a dense cache, the decoded tokens equal the monolithic run's,
+      and the frame is about half a float32 handoff's;
+   d. build_lm_logits at BertConfig.base() width (KV16_PREDICTOR_LAYERS
+      layers) frozen into an enable_bfloat16() Predictor, exported
+      baked and with its sidecar, loaded back: outputs within
+      ARTIFACT_ATOL of the Predictor's, the bf16 entries of #9, #10, #11
+      once per layer a run.
+   Its numbers go on a {"kv16": {...}} line before the kernels line.
 Phase 2 also holds the bfloat16 and float16 variants of the packed
 flash kernels (#3, #5, #6), the qkv-folded forward (#9), the fused
 matmul (#10) and the FFN chain (#11) against their plain versions in the
@@ -509,8 +543,8 @@ numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 {...}} (phase 14's), {"parallel": {...}} (phase 15's), {"ps": {...}}
 (phase 16's), {"bench_models": {...}} (phase 17's), {"amp": {...}}
 (phase 18's), {"tensor_parallel": {...}} (phase 19's), {"dygraph":
-{...}} (phase 20's), {"sequence": {...}} (phase 21's) and {"kernels":
-[...]}, one entry per kernel (each
+{...}} (phase 20's), {"sequence": {...}} (phase 21's), {"kv16": {...}}
+(phase 22's) and {"kernels": [...]}, one entry per kernel (each
 bfloat16 and float16 variant beside its float32 entry) with its own
 launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
@@ -528,7 +562,9 @@ and 18b's timed steps, 18c's card steps, 18d's timed steps), and the
 float32 training kernels phase 19's split runs' (rank 0's), and phase
 20's: the packed flash forward, dq and dk/dv kernels its timed eager
 steps', the qkv-folded forward, the fused matmul and the FFN chain its
-timed traced run's; the fused matmul adds phase 21b's timed steps'.
+timed traced run's; the fused matmul adds phase 21b's timed steps'; the
+16-bit-page entries of #1 and #2 are phase 22b's engine runs' (chunked
+for #1, legacy for #2).
 Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
@@ -628,8 +664,10 @@ KERNELS = [
 
 def _with_variants(kernels):
     """Each kernel that AMP runs followed by its bfloat16 and float16
-    entries (built from ``<source>_amp.cu``), so the kernels line lists
-    every variant beside its float32 entry."""
+    entries (built from ``<source>_amp.cu``), and each serving kernel
+    followed by its 16-bit-page entries (the same source: a 16-bit KV
+    cache, phase 22), so the kernels line lists every variant beside its
+    float32 entry."""
     out = []
     for k in kernels:
         out.append(k)
@@ -639,6 +677,9 @@ def _with_variants(kernels):
             out += [dict(k, name=f"{k['name']}_{sfx}",
                          build=f"{k['build']}_amp") for sfx in ("bf16",
                                                                 "f16")]
+        if k["name"] in ("ragged_paged_attention", "paged_decode_attention"):
+            out += [dict(k, name=f"{k['name']}_{sfx}")
+                    for sfx in ("bf16", "f16")]
     return out
 
 
@@ -878,9 +919,10 @@ def ragged_case(rng, kind, num_heads, hidden, block_rows, device):
 
 
 def ragged_bound_ms(case):
-    """Least time for the rows' work: bytes = q + out + tables + lengths
-    + the distinct K/V positions the rows need (each read once); ops =
-    2 flops per element of q.k and of p.v over every visible key."""
+    """Least time for the rows' work: bytes = q + out (float32) + tables
+    + lengths + the distinct K/V positions the rows need (each read
+    once, in the pages' element size); ops = 2 flops per element of q.k
+    and of p.v over every visible key."""
     tables = case["block_tables"].cpu().numpy()
     lens = case["row_lens"].cpu().numpy()
     R, H = case["q"].shape
@@ -895,8 +937,9 @@ def ragged_bound_ms(case):
         if rem:
             needed[row[full], :rem] = True
         flops += 4 * n * H
+    esz = case["k_pages"].element_size()
     nbytes = (2 * R * H * 4 + tables.size * 4 + lens.size * 4
-              + int(needed.sum()) * H * 4 * 2)
+              + int(needed.sum()) * H * esz * 2)
     return _bound(flops, nbytes)
 
 
@@ -904,14 +947,17 @@ def paged_timing(fn, plain, case, tables, lens_key, bound, device):
     """Device times of one case: the kernel, its launch floor (the same
     kernel on the same shapes with every length 0), the plain version,
     PyTorch's fused attention over the rows' context gathered beforehand
-    (a yardstick the port never calls), and the bound."""
+    (a yardstick the port never calls; with 16-bit pages q is cast to
+    their type, so it is not quite the kernel's function), and the
+    bound."""
     import torch
     import torch.nn.functional as F
 
     ms = time_ms(lambda: fn(**case), device)
     empty = dict(case, **{lens_key: torch.zeros_like(case[lens_key])})
     floor_ms = time_ms(lambda: fn(**empty), device)
-    plain_ms = time_ms(lambda: plain(**case), device)
+    # the plain version takes ~100x the kernel's time: 50 calls average it
+    plain_ms = time_ms(lambda: plain(**case), device, iters=50)
     R, H = case["q"].shape
     nh = case["num_heads"]
     D = H // nh
@@ -919,7 +965,7 @@ def paged_timing(fn, plain, case, tables, lens_key, bound, device):
     idx = tables.long()
     kctx = case["k_pages"][idx].reshape(R, L, nh, D).transpose(1, 2)
     vctx = case["v_pages"][idx].reshape(R, L, nh, D).transpose(1, 2)
-    qh = case["q"].reshape(R, nh, 1, D)
+    qh = case["q"].to(kctx.dtype).reshape(R, nh, 1, D)
     mask = (torch.arange(L, device=device)[None, None, None, :]
             < case[lens_key].long()[:, None, None, None])
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -1030,15 +1076,17 @@ def decode_case(rng, head_dim, device, tight=False, long=False):
 
 
 def decode_bound_ms(case):
-    """Least time for the slots' work: bytes = q + out + the table + the
-    lengths + K and V of every key < eff_len (each read once); ops = 2
-    flops per element of q.k and of p.v over every live key."""
+    """Least time for the slots' work: bytes = q + out (float32) + the
+    table + the lengths + K and V of every key < eff_len (each read once,
+    in the pages' element size); ops = 2 flops per element of q.k and of
+    p.v over every live key."""
     cap = case["page_table"].shape[1] * PAGE_SIZE
     lens = np.minimum(case["eff_lens"].cpu().numpy(), cap)
     S, H = case["q"].shape
     keys = int(lens.sum())
+    esz = case["k_pages"].element_size()
     nbytes = (2 * S * H * 4 + case["page_table"].numel() * 4 + S * 4
-              + keys * H * 4 * 2)
+              + keys * H * esz * 2)
     flops = 4 * keys * H
     return _bound(flops, nbytes)
 
@@ -12517,6 +12565,537 @@ def seq_phase(device, s2s_cfg=None, lstm_cfg=None):
     return out
 
 
+# -- phase 22: bf16 and f16 serving (a 16-bit KV cache) ----------------------
+
+#: the KV cache dtypes phase 22 serves with
+KV16_DTYPES = ("bfloat16", "float16")
+#: 22b: requests and new tokens of each engine run at BertConfig.base()
+#: width (phase 3's prompts and weights), and the turns over the six
+#: engines (float32, bf16, f16 caches; chunked and legacy)
+KV16_PROMPTS, KV16_NEW, KV16_TURNS = 8, 16, 2
+#: 22b's card-against-CPU check: new tokens at REFERENCE_LAYERS depth.
+#: The card's bf16 engine runs the kernels, on the TPU kernel's rounding
+#: contract; the CPU's plain bf16 engine runs the JAX reference's (the
+#: JAX engine's tokens on the CPU).  The two contracts part by about one
+#: bf16 ulp of each context, which flips near-tied greedy tokens (the CPU
+#: rehearsal with the kernel's contract emulated: matched prefix 0.89
+#: chunked, 0.97 legacy at base width, 2 layers, 8 x 32 tokens), so the
+#: check is teacher-forced: every token of each engine must reach, within
+#: KV16_LOGIT_TOL, the max logit of a recompute of its own sequence with
+#: the cache's rounding on its own contract (``kv16_gaps``); the matched
+#: prefix of the two engines is reported.
+KV16_REF_NEW = 32
+#: the card's kernels part from the plain version of their contract by
+#: up to ~4e-3 at unit scale in bf16 (22a), about as far as the two
+#: contracts part; in the CPU rehearsal that contract difference moved a
+#: teacher-forced logit by at most 0.56 at base width, 2 layers, where
+#: logits have a spread of ~16 (initializer_range 0.6 over 768 wide
+#: tied embeddings) and a wrong attention moves them by many units
+KV16_LOGIT_TOL = 1.0
+#: and each engine's greedy token is its recompute's argmax at this share
+#: of positions or more (the card's kernels: 0.9922-0.9961 at depth 2,
+#: 8 x 32 tokens, on NVIDIA H100 80GB HBM3 at 700 W; the CPU's: 1.0): a
+#: near tie may flip, a faulty attention flips tokens throughout
+KV16_AT_MAX = 0.98
+
+
+def _cast_pages(case, dtype):
+    """A phase-2 case with its K/V pages in ``dtype`` (q stays float32)."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    return dict(case, k_pages=case["k_pages"].to(dt),
+                v_pages=case["v_pages"].to(dt))
+
+
+def kv16_kernel_phase(device, model_cfg):
+    """22a: the bfloat16 and float16 entries of #1 and #2 at phase 2's
+    cases (the step, block_rows 2, full rows, the decode head dims, a
+    tight pool, the long cases), each against its plain version on the
+    TPU kernel's rounding contract (``ragged_flash_plain_attention``,
+    ``paged_flash_plain_decode_attention``) within ``contract_bound``
+    element by element (2u of sum_j p_j |v_j| / l + 1e-5), inactive rows
+    exact zeros; then timed at the step and long cases beside the plain
+    version, SDPA over the gathered context (q cast to the pages' type)
+    and the bound in the pages' bytes.  -> {entry name: report}."""
+    import torch
+
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.generation.attention import (
+        contract_bound, paged_decode_attention,
+        paged_flash_plain_decode_attention)
+    from paddle_tpu_torch.generation.ragged_attention import (
+        ragged_flash_plain_attention, ragged_paged_attention)
+
+    kinds = {
+        "ragged_paged_attention": (
+            ragged_paged_attention, ragged_flash_plain_attention,
+            ragged_cases(device, model_cfg), "row_lens", "block_tables",
+            ragged_bound_ms),
+        "paged_decode_attention": (
+            paged_decode_attention, paged_flash_plain_decode_attention,
+            decode_cases(device), "eff_lens", "page_table",
+            decode_bound_ms)}
+    report = {}
+    for kernel, (fn, plain, cases, lens_key, table_key, bound) in \
+            kinds.items():
+        for dt in KV16_DTYPES:
+            name = _cuda.launch_key(kernel, dt)
+            r = report[name] = dict(max_abs_err=0.0, cases={})
+            for cname, c32 in cases.items():
+                c = _cast_pages(c32, dt)
+                out = fn(**c)
+                ref = plain(**c)
+                lim = contract_bound(plain, **c)
+                sync(device)
+                err = (out - ref).abs()
+                live = c[lens_key] > 0
+                worst = float(err.max())
+                ratio = float((err / lim).max())
+                zeros = bool((out[~live] == 0).all())
+                log(f"  22a {name} {cname}: max_abs_err={worst:.3e}, "
+                    f"largest share of contract_bound {ratio:.3f}, "
+                    f"inactive rows exact zero={zeros}")
+                if not (bool(torch.isfinite(out).all()) and ratio <= 1.0
+                        and zeros):
+                    raise AssertionError(
+                        f"22a {name} disagrees with its plain version on "
+                        f"{cname}")
+                r["cases"][cname] = dict(max_abs_err=worst,
+                                         bound_share=ratio)
+                r["max_abs_err"] = max(r["max_abs_err"], worst)
+                del out, ref, lim
+            for cname, key in (("step", "timing"), ("long", "timing_long")):
+                c = _cast_pages(cases[cname], dt)
+                tables = c[table_key]
+                if table_key == "block_tables":
+                    tables = tables.repeat_interleave(c["block_rows"], 0)
+                r[key] = paged_timing(fn, plain, c, tables, lens_key,
+                                      bound, device)
+                log_timing(f"22a {name}", cname, r[key])
+                del c
+    return report
+
+
+def kv16_engine(device, model_cfg, params, dtype, scheduling, **kw):
+    """A warmed-up engine at phase 3's geometry with a ``dtype`` KV
+    cache."""
+    from paddle_tpu_torch.generation import (GenerationConfig,
+                                             GenerationEngine)
+
+    eng = GenerationEngine(model_cfg, params, GenerationConfig(
+        page_size=PAGE_SIZE, max_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
+        seed=SEED, dtype=dtype, scheduling=scheduling, **kw), device=device)
+    eng.warmup()
+    return eng
+
+
+def kv16_drive(device, eng, prompts, max_new):
+    """``prompts`` greedy through a kv16_engine.  Gates: every request
+    finishes, no library built or loaded after warmup, the entry of the
+    cache's type launched once per layer a step (chunked: #1; legacy: #2
+    a decode step) and, with a 16-bit cache, no float32 launch of #1 or
+    #2; the parameters float32.  -> report (decode tokens/s from this
+    run's steps)."""
+    import torch
+
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.generation import SamplingParams
+
+    model_cfg, cfg = eng.model_cfg, eng.cfg
+    before = eng.stats.snapshot()
+    results, launches, wall = drive(
+        eng, prompts, SamplingParams(max_new_tokens=max_new), device)
+    snap = eng.stats.snapshot()
+    chunked = cfg.scheduling == "chunked"
+    kernel = "ragged_paged_attention" if chunked else "paged_decode_attention"
+    name = _cuda.launch_key(kernel, cfg.dtype)
+    key = "steps" if chunked else "decode_steps"
+    steps = snap[key] - before[key]
+    n = launches.get(name, 0)
+    f32 = {k: launches.get(k, 0) for k in ("ragged_paged_attention",
+                                           "paged_decode_attention")}
+    tokens = len(prompts) * (max_new - 1)     # the first comes of prefill
+    what = (f"{cfg.dtype} {cfg.scheduling} engine (depth "
+            f"{model_cfg.num_layers})")
+    check_finished(results, max_new, model_cfg.vocab_size, what)
+    if snap["compiles_after_warmup"] != 0:
+        raise AssertionError(f"{what}: a library was loaded after warmup")
+    if any(p.dtype != torch.float32 for p in eng.params.values()):
+        raise AssertionError(f"{what}: a parameter is not float32")
+    if device.type == "cuda" and (n != model_cfg.num_layers * steps or (
+            cfg.dtype != "float32" and any(f32.values()))):
+        raise AssertionError(f"{what}: launches {launches}")
+    return dict(steps=steps, launches=n, wall_s=wall, float32_launches=f32,
+                tokens_per_s=tokens / wall, results=results,
+                compiles_after_warmup=snap["compiles_after_warmup"])
+
+
+def kv16_gaps(params, model_cfg, prompts, results, dtype, device,
+              legacy=False, kernel_contract=False):
+    """Teacher-forced recompute of each request's tokens with the cache's
+    rounding: every key and value rounded to ``dtype`` as it enters the
+    cache, attention on the JAX reference's contract
+    (``gathered_decode_attention``: what the CPU engine computes) or,
+    ``kernel_contract``, on the TPU kernel's (``gathered_flash_attention``:
+    what the card's kernels compute), one sequence at a time.  Legacy
+    scheduling's prefill attends over the prompt's own float32 K/V, so
+    there the prompt's rows take the unrounded attention (their K/V
+    still enter the cache rounded).
+    Returns, per request, how far each greedy token's logit falls below
+    that position's max logit."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.generation.attention import (
+        gathered_decode_attention, gathered_flash_attention)
+    from paddle_tpu_torch.models.transformer import (lm_embed,
+                                                     lm_layer_finish,
+                                                     lm_layer_qkv,
+                                                     lm_logits)
+
+    dt = getattr(torch, dtype)
+    attend = (gathered_flash_attention if kernel_contract
+              else gathered_decode_attention)
+    nh = model_cfg.num_heads
+    scale = 1.0 / math.sqrt(model_cfg.hidden_size // nh)
+    out = []
+    with torch.no_grad():
+        for p, r in zip(prompts, results):
+            seq = torch.tensor(p + r.tokens[:-1], device=device)
+            n = seq.numel()
+            pos = torch.arange(n, device=device)
+            x = lm_embed(params, model_cfg, seq, pos)          # [n, H]
+            for i in range(model_cfg.num_layers):
+                q, k, v = lm_layer_qkv(params, model_cfg, i, x)
+                ctxt = attend(
+                    q, k.to(dt).expand(n, n, -1), v.to(dt).expand(n, n, -1),
+                    pos + 1, nh, sm_scale=scale)
+                if legacy:
+                    plain = gathered_decode_attention(
+                        q, k.expand(n, n, -1), v.expand(n, n, -1), pos + 1,
+                        nh, sm_scale=scale)
+                    ctxt = torch.where((pos < len(p))[:, None], plain, ctxt)
+                x = lm_layer_finish(params, model_cfg, i, x, ctxt)
+            logits = lm_logits(params, model_cfg, x)          # [n, V]
+            rows = logits[len(p) - 1:]
+            chosen = rows.gather(1, torch.tensor(
+                r.tokens, device=device)[:, None])[:, 0]
+            out.append((rows.max(dim=1).values - chosen).cpu().numpy())
+    return out
+
+
+def kv16_reference(device, model_cfg, params_np, dtype, prompts):
+    """22b's card-against-CPU check at REFERENCE_LAYERS depth (see
+    KV16_LOGIT_TOL), chunked and legacy."""
+    import torch
+
+    from paddle_tpu_torch.generation import (GenerationConfig,
+                                             GenerationEngine,
+                                             SamplingParams)
+    from paddle_tpu_torch.models import lm_params_from_numpy
+
+    cut, cut_np = cut_model(model_cfg, params_np, REFERENCE_LAYERS)
+    cut_dev = lm_params_from_numpy(cut_np, device)
+    greedy = SamplingParams(max_new_tokens=KV16_REF_NEW)
+    out = {}
+    for sched in ("chunked", "legacy"):
+        cfg = GenerationConfig(page_size=PAGE_SIZE, max_seqs=MAX_SEQS,
+                               max_seq_len=MAX_SEQ_LEN, seed=SEED,
+                               dtype=dtype, scheduling=sched)
+        card = GenerationEngine(cut, cut_dev, cfg, device=device)
+        cpu = GenerationEngine(cut, cut_np, cfg, device="cpu")
+        got = card.generate(prompts, greedy)
+        want = cpu.generate(prompts, greedy)
+        if device.type == "cuda":
+            sync(device)
+        gaps = {}
+        for tag, res in (("card", got), ("cpu", want)):
+            g = kv16_gaps(cut_dev, cut, prompts, res, dtype, device,
+                          legacy=sched == "legacy",
+                          kernel_contract=tag == "card"
+                          and device.type == "cuda")
+            g = np.concatenate(g)
+            gaps[tag] = (float(g.max()), float(np.mean(g == 0)))
+        match = matched_prefix(got, want)
+        same = all(a.tokens == b.tokens for a, b in zip(got, want))
+        log(f"  22b {dtype} {sched} depth {REFERENCE_LAYERS}: tokens equal "
+            f"to the CPU plain engine's: {same} (matched prefix "
+            f"{match:.4f}); worst logit gap to the max of the recompute "
+            f"on each engine's own contract: card {gaps['card'][0]:.3e}, "
+            f"CPU {gaps['cpu'][0]:.3e} (tol {KV16_LOGIT_TOL:g}); share of "
+            f"positions at the max: {gaps['card'][1]:.4f}, "
+            f"{gaps['cpu'][1]:.4f} (at least {KV16_AT_MAX:g})")
+        for tag in gaps:
+            if not (gaps[tag][0] <= KV16_LOGIT_TOL
+                    and gaps[tag][1] >= KV16_AT_MAX):
+                raise AssertionError(
+                    f"22b {sched}: a {tag} token is not its recompute's "
+                    f"argmax within {KV16_LOGIT_TOL}, or fewer than "
+                    f"{KV16_AT_MAX:.0%} of them are at the max")
+        out[sched] = dict(tokens_equal=same, matched_prefix=match,
+                          card_worst_gap=gaps["card"][0],
+                          cpu_worst_gap=gaps["cpu"][0],
+                          card_at_max=gaps["card"][1],
+                          cpu_at_max=gaps["cpu"][1])
+        del card, cpu
+        torch.cuda.empty_cache() if device.type == "cuda" else None
+    return out, (cut, cut_np, cut_dev)
+
+
+def kv16_handoff(device, cut_models, prompt):
+    """22c: one request prefilled by a bf16 engine and handed to a bf16
+    decode engine through cluster/rpc.py's framing (send_msg / recv_msg
+    over a socket pair, in this process): the words that arrive equal
+    the words exported, bit for bit and as BF16_WORDS; imported into the
+    decode engine's paged cache and a dense cache and exported again,
+    unchanged; the decoded tokens equal the decode engine's own
+    monolithic run of the prompt; the frame's bytes against a float32
+    engine's handoff of the same prompt."""
+    import socket
+
+    from paddle_tpu_torch.cluster.rpc import recv_msg, send_msg
+    from paddle_tpu_torch.generation import (DenseKVCache, GenerationConfig,
+                                             GenerationEngine,
+                                             SamplingParams)
+    from paddle_tpu_torch.generation.kv_cache import BF16_WORDS
+
+    cut, _, cut_dev = cut_models
+    sp = SamplingParams(max_new_tokens=KV16_REF_NEW)
+
+    def engine(dtype):
+        return GenerationEngine(cut, cut_dev, GenerationConfig(
+            page_size=PAGE_SIZE, max_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
+            seed=SEED, dtype=dtype), device=device)
+
+    frames = {}
+    for dtype in ("bfloat16", "float32"):
+        pre = engine(dtype)
+        h, done, _ = pre.prefill_detached(prompt, sp)
+        if done:
+            raise AssertionError("22c: the request finished at prefill")
+        a, b = socket.socketpair()
+        try:
+            t0 = time.perf_counter()
+            sender = threading.Thread(target=send_msg,
+                                      args=(a, {"handoff": h}))
+            sender.start()
+            got = recv_msg(b)["handoff"]
+            sender.join()
+            wire_s = time.perf_counter() - t0
+        finally:
+            a.close()
+            b.close()
+        import pickle
+
+        frames[dtype] = dict(
+            bytes=len(pickle.dumps({"handoff": h},
+                                   protocol=pickle.HIGHEST_PROTOCOL)),
+            kv_bytes=int(h.kv_k.nbytes + h.kv_v.nbytes), wire_ms=wire_s * 1e3,
+            handoff=got, sent=h)
+        del pre
+    h, got = frames["bfloat16"]["sent"], frames["bfloat16"]["handoff"]
+    words = (got.kv_k.dtype == BF16_WORDS
+             and np.array_equal(got.kv_k, h.kv_k)
+             and np.array_equal(got.kv_v, h.kv_v))
+    dec = engine("bfloat16")
+    dense = DenseKVCache(num_layers=cut.num_layers, hidden=cut.hidden_size,
+                         max_seqs=1, max_len=MAX_SEQ_LEN,
+                         dtype=dec.cache.k.dtype, device=device)
+    round_trip = {}
+    for cache in (dec.cache, dense):
+        slot = cache.free_slots()[0]
+        cache.admit(slot, got.prompt_len)
+        cache.import_seq(slot, got.kv_k, got.kv_v)
+        k, v = cache.export_seq(slot, got.prompt_len)
+        cache.release(slot)
+        round_trip[cache.kind] = bool(np.array_equal(k, got.kv_k)
+                                      and np.array_equal(v, got.kv_v)
+                                      and k.dtype == BF16_WORDS)
+    toks = dec.decode_prefilled([got])[0].tokens
+    mono = dec.generate([prompt], sp)[0].tokens
+    ratio = frames["bfloat16"]["bytes"] / frames["float32"]["bytes"]
+    log(f"  22c bf16 handoff of a {len(prompt)}-token prompt: frame "
+        f"{frames['bfloat16']['bytes']} bytes (K/V "
+        f"{frames['bfloat16']['kv_bytes']}) against float32's "
+        f"{frames['float32']['bytes']} ({ratio:.4f}); words arrive "
+        f"bit-equal as bf16 words: {words}; import then export bit-equal: "
+        f"{round_trip}; decoded tokens equal the monolithic run's: "
+        f"{toks == mono}")
+    if not (words and all(round_trip.values()) and toks == mono
+            and ratio < 0.6):
+        raise AssertionError("22c: the bf16 handoff changed its K/V or "
+                             "its tokens, or shipped widened floats")
+    return dict(frame_bytes={k: f["bytes"] for k, f in frames.items()},
+                kv_bytes={k: f["kv_bytes"] for k, f in frames.items()},
+                wire_ms={k: f["wire_ms"] for k, f in frames.items()},
+                bytes_ratio=ratio, words_equal=words,
+                round_trip=round_trip, tokens_equal=toks == mono)
+
+
+#: 22d: depth of the bf16 Predictor's build_lm_logits (BertConfig.base()
+#: width, [N_PROMPTS, MAX_SEQ_LEN] tokens)
+KV16_PREDICTOR_LAYERS = 1
+
+
+def bf16_artifact_phase(device, cfg):
+    """22d: build_lm_logits frozen into an ``enable_bfloat16()``
+    Predictor, exported (baked and with its sidecar), loaded back in this
+    process, and run: the outputs within ARTIFACT_ATOL of the
+    Predictor's, the bf16 entries of #9/#10/#11 once per layer a run."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda, inference
+
+    on_card = device.type == "cuda"
+    L = cfg.num_layers
+    root = tempfile.mkdtemp(prefix="chip_smoke_22d_")
+    try:
+        main, startup, out = _logits_program(cfg)
+        exe, scope = _executor(device), pt.Scope()
+        exe.run(startup, scope=scope)
+        path = os.path.join(root, "logits")
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(path, ["src_ids"], [out], exe,
+                                       main_program=main)
+        config = inference.Config(path)
+        config.enable_bfloat16()
+        if not on_card:
+            config.disable_gpu()
+        pred = inference.create_predictor(config)
+        buf = np.asarray(make_prompts(np.random.RandomState(SEED + 22),
+                                      N_PROMPTS, MAX_SEQ_LEN,
+                                      cfg.vocab_size), np.int64)
+        want, = pred.run([buf])
+        report = {}
+        for tag, bake in (("baked", True), ("unbaked", False)):
+            art = os.path.join(root, f"bf16_{tag}.pt2")
+            t0 = time.perf_counter()
+            pred.export_stablehlo(art, {"src_ids": buf}, bake_weights=bake)
+            export_s = time.perf_counter() - t0
+            fn = inference.load_exported(art)
+            fn({"src_ids": buf})
+            sync(device)
+            _cuda.reset_launches()
+            got, = fn({"src_ids": buf})
+            sync(device)
+            launches = dict(_cuda.LAUNCHES)
+            got = got.float().cpu().numpy()
+            err = float(np.abs(got - want).max())
+            log(f"  22d bf16 artifact {tag}: export {export_s:.2f} s; "
+                f"output {got.shape} max abs err {err:.3e} against the "
+                f"Predictor (atol {ARTIFACT_ATOL:g}); launches a run "
+                f"{launches}")
+            want_launch = {f"{k}_bf16": L for k in (
+                "flash_fwd_qkv", "gemm_epilogue", "ffn_chain")} \
+                if on_card else {}
+            if not (np.isfinite(got).all() and got.shape == want.shape
+                    and err <= ARTIFACT_ATOL and launches == want_launch):
+                raise AssertionError(f"22d {tag}: the bf16 artifact does "
+                                     f"not reproduce its Predictor")
+            report[tag] = dict(max_abs_err=err, export_s=export_s,
+                               launches=launches)
+        return report
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def kv16_phase(device, model_cfg, params_np):
+    """Phase 22: serving with a 16-bit KV cache.  22a the bf16 and f16
+    entries of #1 and #2 against their plain versions and timed; 22b
+    the engine at BertConfig.base() width with a float32, a bf16 and an
+    f16 cache, chunked and legacy, driven in turns; a bf16 block_rows
+    search that a bf16 engine (not a float32 one) then resolves; the
+    card against the CPU at REFERENCE_LAYERS; 22c one bf16 handoff through
+    the RPC framing; 22d the bf16 Predictor's artifact.  Returns
+    (report, {entry: launches on its engine run})."""
+    import torch
+
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.generation import GenerationConfig, GenerationEngine
+    from paddle_tpu_torch.models import lm_params_from_numpy
+    from paddle_tpu_torch.tuning import search_geometry
+
+    t0 = time.perf_counter()
+    report = dict(kernels=kv16_kernel_phase(device, model_cfg))
+    log(f"  22a took {time.perf_counter() - t0:.1f} s")
+    params = lm_params_from_numpy(params_np, device)
+    prompts = make_prompts(np.random.RandomState(SEED + 1), KV16_PROMPTS,
+                           PROMPT_LEN, model_cfg.vocab_size)
+    launches, engines = {}, {}
+    for dtype in ("float32", *KV16_DTYPES):
+        for sched in ("chunked", "legacy"):
+            engines[f"{dtype}_{sched}"] = kv16_engine(
+                device, model_cfg, params, dtype, sched)
+    # turns over the six engines, so the host's drift over the run falls
+    # on every cache dtype alike; each drive is gated
+    runs = {k: [] for k in engines}
+    for _ in range(KV16_TURNS):
+        for key, eng in engines.items():
+            runs[key].append(kv16_drive(device, eng, prompts, KV16_NEW))
+    for key, rs in runs.items():
+        tps = [r["tokens_per_s"] for r in rs]
+        r = {k: v for k, v in rs[0].items() if k != "results"}
+        r.update(tokens_per_s=tps, median_tokens_per_s=float(np.median(tps)))
+        report[key] = r
+        log(f"  22b {key} (depth {model_cfg.num_layers}): {KV16_PROMPTS} "
+            f"requests x {KV16_NEW} new tokens, {r['steps']} steps; "
+            f"{r['launches']} launches of its cache type's entry (= "
+            f"{model_cfg.num_layers} x steps), float32 entries "
+            f"{r['float32_launches']}; generated tokens/s by turn "
+            + ", ".join(f"{t:.1f}" for t in tps))
+        if not key.startswith("float32"):
+            dtype, sched = key.split("_")
+            kernel = ("ragged_paged_attention" if sched == "chunked"
+                      else "paged_decode_attention")
+            launches[_cuda.launch_key(kernel, dtype)] = r["launches"]
+    del engines
+    # the bf16 search into the (empty) tuning store: a bf16 chunked engine
+    # then resolves its block_rows from it, a float32 one does not
+    nh = model_cfg.num_heads
+    geometry = (f"r{MAX_SEQS + min(16, MAX_SEQ_LEN)}h{nh}"
+                f"d{model_cfg.hidden_size // nh}p{PAGE_SIZE}")
+    search = search_geometry("ragged", geometry, dtype="bfloat16",
+                             reps=TUNE_REPS, device=device)
+    resolved = {dt: GenerationEngine(model_cfg, params, GenerationConfig(
+        page_size=PAGE_SIZE, max_seqs=MAX_SEQS, max_seq_len=MAX_SEQ_LEN,
+        dtype=dt), device=device)._bm for dt in ("bfloat16", "float32")}
+    log(f"  22b bf16 block_rows search at {geometry}: {search['config']} "
+        f"({search['ms']} ms; block_rows 1 {search['heuristic_ms']} ms); "
+        f"stored: {search['entry'] is not None}; engines resolve "
+        f"{resolved}; candidates {search['candidates']}")
+    # every bf16 candidate is held against its plain version: one that
+    # raised or disagreed fails the phase, as does an empty store
+    failed = [c for c in search["candidates"] if "error" in c]
+    if device.type == "cuda" and (
+            failed or search["config"] is None or search["entry"] is None
+            or resolved["bfloat16"] != search["config"]["block_rows"]
+            or resolved["float32"] != 1):
+        raise AssertionError(f"22b: the bf16 block_rows search failed or "
+                             f"did not resolve by dtype: failed "
+                             f"candidates {failed}, resolved {resolved}")
+    report["resolved_block_rows"] = resolved
+    report["search"] = {k: search[k] for k in ("config", "ms",
+                                               "heuristic_ms")}
+    log(f"  22b engines took {time.perf_counter() - t0:.1f} s")
+    report["reference"], cut = kv16_reference(device, model_cfg, params_np,
+                                              "bfloat16", prompts)
+    log(f"  22b reference took {time.perf_counter() - t0:.1f} s")
+    report["handoff"] = kv16_handoff(device, cut, prompts[0])
+    del params
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+    report["artifact"] = bf16_artifact_phase(
+        device, dataclasses.replace(model_cfg,
+                                    num_layers=KV16_PREDICTOR_LAYERS,
+                                    hidden_dropout=0.0, attn_dropout=0.0))
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  phase 22 took {report['seconds']:.1f} s; launches {launches}")
+    return report, launches
+
+
+
 def main():
     import torch
 
@@ -12749,6 +13328,17 @@ def main():
         for name, n in report["sequence"]["launches"].items():
             report["kernels"][name]["launches"] = \
                 report["kernels"][name].get("launches", 0) + n
+        log("[22] bf16 and f16 serving: #1 and #2 with 16-bit pages "
+            "against their plain versions, the bf16 engine at "
+            "BertConfig.base() width (chunked, legacy, card against CPU), "
+            "a bf16 handoff through the RPC framing, the bf16 Predictor's "
+            "artifact, the f16 engine")
+        _free_card(device)
+        report["kv16"], kv16_launches = kv16_phase(device, model_cfg,
+                                                   params_np)
+        report["kernels"].update(report["kv16"].pop("kernels"))
+        for name, n in kv16_launches.items():
+            report["kernels"][name]["launches"] = n
         idle = [k["name"] for k in KERNELS
                 if not report["kernels"][k["name"]].get("launches")]
         if idle:
@@ -12994,6 +13584,14 @@ def main():
                     or m.endswith("_equal")}
                 for k, v in sq["parity"].items()},
         ops={k: sq["ops"][k] for k in ("forward_max", "grad_max")})}))
+    kv = report["kv16"]
+    print(json.dumps({"kv16": dict(
+        card=card, seconds=kv["seconds"], search=kv["search"],
+        engines={k: kv[k] for k in kv if k.endswith(("_chunked",
+                                                     "_legacy"))},
+        resolved_block_rows=kv["resolved_block_rows"],
+        reference=kv["reference"], handoff=kv["handoff"],
+        artifact=kv["artifact"])}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -69,13 +69,15 @@ def timed_backend(service_ms=20.0, width=8):
 
 def tiny_lm_engine(seed=0, max_seqs=4, max_seq_len=64,
                    scheduling="chunked", speculation=None, spec_k=4,
-                   prefix_cache=False, num_pages=None, device=None):
+                   prefix_cache=False, num_pages=None, device=None,
+                   dtype="float32"):
     """Factory (for WorkerSpec / prefill+decode+generate roles): a small
     LM GenerationEngine with DETERMINISTIC params — every process that
     calls this with the same seed holds bit-identical weights (the JAX
     package's factory draws the same ones), which is what makes
     cross-process token parity a meaningful check.  ``device=None`` is
-    the card; a spec's kwargs pass ``{"device": "cpu"}`` without one."""
+    the card; a spec's kwargs pass ``{"device": "cpu"}`` without one.
+    ``dtype`` is the KV cache's (GenerationConfig.dtype)."""
     from ..generation import GenerationConfig, GenerationEngine
     from ..models.transformer import BertConfig, lm_random_params
 
@@ -92,7 +94,8 @@ def tiny_lm_engine(seed=0, max_seqs=4, max_seq_len=64,
     gcfg = GenerationConfig(
         page_size=8, max_seqs=max_seqs, max_seq_len=max_seq_len,
         seed=seed, scheduling=scheduling, speculation=speculation,
-        spec_k=spec_k, prefix_cache=prefix_cache, num_pages=num_pages)
+        spec_k=spec_k, prefix_cache=prefix_cache, num_pages=num_pages,
+        dtype=dtype)
     return GenerationEngine(cfg, params, gcfg, device=device)
 
 

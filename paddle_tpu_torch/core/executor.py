@@ -182,6 +182,16 @@ def _agree_seed(program: Program, mesh, seed: int) -> int:
     return seed
 
 
+def _host_array(t):
+    """A fetch as a numpy array.  numpy has no bfloat16: a bfloat16 fetch
+    (a bf16 AMP program's logits) comes back widened to float32, which is
+    exact."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 class Executor:
     def __init__(self, place: Place = None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -238,7 +248,7 @@ class Executor:
             record_state=was_miss and compiled is not None,
             compiled=compiled)
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            return [_host_array(f) for f in fetches]
         return [f.detach() for f in fetches]
 
     @staticmethod

@@ -1,4 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), float32.
+// Paged decode attention for Hopper (sm_90a): float32 pages, and bfloat16
+// and float16 pages (a 16-bit KV cache; q and the output stay float32).
 //
 // Replaces the Pallas TPU kernel paddle_tpu/generation/attention.py
 // `_paged_decode_kernel` (launched by `paged_flash_decode_attention`), the
@@ -9,10 +10,13 @@
 // keys 0..len-1 of its page list page_table[s] (len = eff_lens[s], clipped
 // to pages_per_seq * page_size).  len == 0 is an empty slot and writes
 // exact zeros.  Scores, softmax and the weighted sum are float32, as in
-// the TPU kernel.
+// the TPU kernel; 16-bit pages are widened in registers and p is rounded
+// to the pages' type for P.V only, as the TPU kernel's p.astype(v.dtype)
+// (paged_split.cuh).
 //
 // What bounds it on this card: bytes.  Each (slot, head) reads len * 2 *
-// head_dim floats of K/V once and does 0.5 flop per byte read, far below
+// head_dim elements of K/V once and does 0.5 flop per byte read (1 in 16
+// bits), far below
 // the H100's ~20 flop/byte float32 ridge, so the least time is the K/V of
 // the live keys over the 3.35 TB/s of HBM.
 //
@@ -55,31 +59,37 @@
 
 namespace {
 
-template <int W>
+template <typename T, int W>
 __global__ void __launch_bounds__(paged_split::kThreads)
 paged_decode_kernel(const float* __restrict__ q, long long q_row_stride,
-                    const float* __restrict__ k_pages,
-                    const float* __restrict__ v_pages,
+                    const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
                     const int* __restrict__ page_table,
                     const int* __restrict__ eff_lens,
                     float* __restrict__ out, int hidden, int page_size,
                     int num_pages, int pages_per_seq, int span_pages,
                     float sm_scale) {
-  paged_split::split_body<W>(q, q_row_stride, k_pages, v_pages, page_table,
-                             eff_lens, out, hidden, page_size, num_pages,
-                             pages_per_seq, 1, span_pages, sm_scale);
+  paged_split::split_body<T, W>(q, q_row_stride, k_pages, v_pages,
+                                page_table, eff_lens, out, hidden,
+                                page_size, num_pages, pages_per_seq, 1,
+                                span_pages, sm_scale);
 }
 
-template <int W>
-int launch(const float* q, long long q_row_stride, const float* k_pages,
-           const float* v_pages, const int* page_table, const int* eff_lens,
+template <typename T>
+int launch(const float* q, long long q_row_stride, const void* k_pages,
+           const void* v_pages, const int* page_table, const int* eff_lens,
            float* out, int seqs, int hidden, int num_heads, int page_size,
            int num_pages, int pages_per_seq, int span_pages, float sm_scale,
-           cudaStream_t stream) {
-  return paged_split::launch_split(
-      paged_decode_kernel<W>, seqs, num_heads, pages_per_seq, span_pages,
-      stream, q, q_row_stride, k_pages, v_pages, page_table, eff_lens, out,
-      hidden, page_size, num_pages, pages_per_seq, span_pages, sm_scale);
+           void* stream) {
+  const T* kp = static_cast<const T*>(k_pages);
+  const T* vp = static_cast<const T*>(v_pages);
+  return paged_split::by_head_dim<T>(hidden / num_heads, [&](auto w) {
+    return paged_split::launch_split(
+        paged_decode_kernel<T, decltype(w)::value>, seqs, num_heads,
+        pages_per_seq, span_pages, (cudaStream_t)stream, q, q_row_stride,
+        kp, vp, page_table, eff_lens, out, hidden, page_size, num_pages,
+        pages_per_seq, span_pages, sm_scale);
+  });
 }
 
 }  // namespace
@@ -87,34 +97,26 @@ int launch(const float* q, long long q_row_stride, const float* k_pages,
 extern "C" {
 
 // Launch on `stream`; returns the launch's CUDA error (0 = launched).  The
-// wrapper guarantees head_dim in {4, 8, 16, 32, 64, 128}, 16-byte aligned
-// K/V rows, and span_pages from the span rule (at most 8 spans).
-int paged_decode_attention_f32(const float* q, long long q_row_stride,
-                               const float* k_pages, const float* v_pages,
-                               const int* page_table, const int* eff_lens,
-                               float* out, int seqs, int hidden,
-                               int num_heads, int page_size, int num_pages,
-                               int pages_per_seq, int span_pages,
-                               float sm_scale, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (hidden / num_heads) {
-#define PAGED_SPLIT_CASE(D)                                                 \
-  case D:                                                                   \
-    return launch<D / 4>(q, q_row_stride, k_pages, v_pages, page_table,    \
-                         eff_lens, out, seqs, hidden, num_heads, page_size, \
-                         num_pages, pages_per_seq, span_pages, sm_scale,   \
-                         st);
-    PAGED_SPLIT_CASE(4)
-    PAGED_SPLIT_CASE(8)
-    PAGED_SPLIT_CASE(16)
-    PAGED_SPLIT_CASE(32)
-    PAGED_SPLIT_CASE(64)
-    PAGED_SPLIT_CASE(128)
-#undef PAGED_SPLIT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+// wrapper guarantees head_dim in {4, 8, 16, 32, 64, 128} (16-bit pages:
+// from 8), 16-byte aligned K/V rows, and span_pages from the span rule (at
+// most 8 spans).  k_pages/v_pages hold float, __nv_bfloat16 or __half as
+// the entry's suffix says.
+#define PAGED_DECODE_ENTRY(SUFFIX, T)                                       \
+  int paged_decode_attention_##SUFFIX(                                      \
+      const float* q, long long q_row_stride, const void* k_pages,          \
+      const void* v_pages, const int* page_table, const int* eff_lens,      \
+      float* out, int seqs, int hidden, int num_heads, int page_size,       \
+      int num_pages, int pages_per_seq, int span_pages, float sm_scale,     \
+      void* stream) {                                                       \
+    return launch<T>(q, q_row_stride, k_pages, v_pages, page_table,         \
+                     eff_lens, out, seqs, hidden, num_heads, page_size,     \
+                     num_pages, pages_per_seq, span_pages, sm_scale,        \
+                     stream);                                               \
   }
-}
+PAGED_DECODE_ENTRY(f32, float)
+PAGED_DECODE_ENTRY(bf16, __nv_bfloat16)
+PAGED_DECODE_ENTRY(f16, __half)
+#undef PAGED_DECODE_ENTRY
 
 const char* paddle_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -1,20 +1,27 @@
-// Split-key paged attention for Hopper (sm_90a), float32: the one design
-// behind csrc/ragged_attention.cu (kernel #1) and csrc/paged_decode.cu
-// (kernel #2, the same function with block_rows = 1).
+// Split-key paged attention for Hopper (sm_90a): the one design behind
+// csrc/ragged_attention.cu (kernel #1) and csrc/paged_decode.cu (kernel
+// #2, the same function with block_rows = 1), a template over the pages'
+// element type T: float, __nv_bfloat16 or __half (a 16-bit KV cache).
 //
 // What it computes: R rows, each with ONE query vector q[r] of `hidden` =
-// num_heads * head_dim floats.  Row r attends, per head, over keys
+// num_heads * head_dim floats (q and the output are float32 whatever T
+// is).  Row r attends, per head, over keys
 // 0..len-1 of the page list tables[r / block_rows] (len = lens[r], clipped
 // to pages_per_seq * page_size), where key j lives at page
 // tables[..][j / page_size], slot j % page_size of the pool
 // k_pages/v_pages [num_pages, page_size, hidden].  len <= 0 writes exact
 // zeros.  A page id outside the pool traps.  Scores, softmax statistics
-// and the accumulator are float32.
+// and the accumulator are float32.  With 16-bit pages the rounding points
+// are the TPU kernel's: K and V are widened to float32 in registers, the
+// scores and the softmax denominator l use the unrounded p, and only the
+// P.V product takes p rounded to T (float32 sums); the output is not
+// rounded to T.
 //
-// What bounds it: bytes.  Each key costs 2 * head_dim floats of K/V for 2
-// flops per float, a matrix-vector product at 0.5 flop per byte against the
-// H100's ~20 flop/byte float32 ridge, so the least time is the live K/V
-// over the 3.35 TB/s of HBM.  One query per row gives the tensor cores
+// What bounds it: bytes.  Each key costs 2 * head_dim elements of K/V for
+// 2 flops per element, a matrix-vector product at 0.5 flop per byte in
+// float32 (1 in 16 bits) against the H100's ~20 flop/byte float32 ridge,
+// so the least time is the live K/V over the 3.35 TB/s of HBM: a 16-bit
+// cache halves it.  One query per row gives the tensor cores
 // nothing to tile: they would buy nothing here, so the products are FMA.
 //
 // Design:
@@ -31,10 +38,11 @@
 //     peers' states through distributed shared memory, in rank order, and
 //     writes the row: one launch, no workspace, no atomics, the same bits
 //     on every run.  A row whose keys fit in one span skips the barriers.
-//   * Inside a span, lane groups of head_dim / 4 lanes each take one key,
-//     a float4 of its head slice per lane (a group reads a key's slice as
-//     one coalesced segment).  A stage is kUnroll keys a group; each lane
-//     copies its own float4 of those keys' K and V rows into a kStages-deep
+//   * Inside a span, lane groups of head_dim / E lanes each take one key,
+//     16 bytes of its head slice per lane (E = 4 floats or 8 16-bit
+//     values; a group reads a key's slice as one coalesced segment).  A
+//     stage is kUnroll keys a group; each lane copies its own 16 bytes of
+//     those keys' K and V rows into a kStages-deep
 //     cp.async ring in shared memory and later reads back only what it
 //     copied, so the ring needs no block barrier, and kStages - 1 stages
 //     of 16-byte copies stay in flight while a stage is consumed.  The page
@@ -60,8 +68,12 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <type_traits>
 
 namespace paged_split {
 
@@ -134,6 +146,112 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+// One lane's share of a key: the 16 bytes it copies (E elements of T), its
+// slice of q and of the accumulator, in float32.  Lane<float> keeps the
+// float32 kernel's float4 arithmetic and accesses statement for statement,
+// so its ptxas allocation stays comparable across changes.
+template <typename T>
+struct Lane;
+
+template <>
+struct Lane<float> {
+  static constexpr int E = 4;
+  float4 q, acc;
+  __device__ __forceinline__ void load_q(const float* qr) {
+    q = make_float4(__ldg(qr), __ldg(qr + 1), __ldg(qr + 2), __ldg(qr + 3));
+  }
+  __device__ __forceinline__ void zero() {
+    acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ float dot(const float4& k) const {
+    return dot4(q, k);
+  }
+  __device__ __forceinline__ void scale(float alpha) {
+    acc.x *= alpha;
+    acc.y *= alpha;
+    acc.z *= alpha;
+    acc.w *= alpha;
+  }
+  __device__ __forceinline__ void add(float p, const float4& v) {
+    acc.x += p * v.x;
+    acc.y += p * v.y;
+    acc.z += p * v.z;
+    acc.w += p * v.w;
+  }
+  // into slot i of the groups' accumulators, read as float4s
+  __device__ __forceinline__ void store(float4* slots, int i) const {
+    slots[i] = acc;
+  }
+};
+
+// 16-bit pages: 8 values a lane, widened to float32 in registers
+__device__ __forceinline__ float2 widen2(__nv_bfloat162 h) {
+  return __bfloat1622float2(h);
+}
+__device__ __forceinline__ float2 widen2(__half2 h) {
+  return __half22float2(h);
+}
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float round_to(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
+}
+
+template <typename T, typename T2>
+struct Lane16 {
+  static constexpr int E = 8;
+  float q[E], acc[E];
+  __device__ __forceinline__ void load_q(const float* qr) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) q[e] = __ldg(qr + e);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  }
+  static __device__ __forceinline__ void widen(const float4& raw,
+                                               float (&f)[E]) {
+    const T2* h = reinterpret_cast<const T2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 w = widen2(h[i]);
+      f[2 * i] = w.x;
+      f[2 * i + 1] = w.y;
+    }
+  }
+  __device__ __forceinline__ float dot(const float4& raw) const {
+    float k[E];
+    widen(raw, k);
+    float s = q[0] * k[0];
+#pragma unroll
+    for (int e = 1; e < E; ++e) s += q[e] * k[e];
+    return s;
+  }
+  __device__ __forceinline__ void scale(float alpha) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= alpha;
+  }
+  // P.V takes p rounded to T (the TPU kernel's p.astype(v.dtype)); the
+  // caller's softmax denominator sums the unrounded p
+  __device__ __forceinline__ void add(float p, const float4& raw) {
+    const float pt = round_to(p, static_cast<const T*>(nullptr));
+    float v[E];
+    widen(raw, v);
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += pt * v[e];
+  }
+  __device__ __forceinline__ void store(float4* slots, int i) const {
+    slots[2 * i] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    slots[2 * i + 1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+};
+
+template <>
+struct Lane<__nv_bfloat16> : Lane16<__nv_bfloat16, __nv_bfloat162> {};
+template <>
+struct Lane<__half> : Lane16<__half, __half2> {};
+
 // (head, row) of this CTA.  With rows inner, as blocks are dispatched in
 // grid order, a ragged step's decode rows (HBM-bound) and its prefill
 // chunk's rows (which re-read one sequence's pages from L2) overlap in
@@ -148,12 +266,13 @@ __device__ __forceinline__ void cta_coords(int& head, int& row) {
 #endif
 }
 
-// A CTA's shared memory: the ring (each thread's own float4 slots, [stage]
-// [K or V][key][thread], so a warp's accesses are conflict-free), the lane
-// groups' states, and the span's state its cluster's rank 0 reads.
-template <int W>
+// A CTA's shared memory: the ring (each thread's own 16-byte slots,
+// [stage][K or V][key][thread], so a warp's accesses are conflict-free),
+// the lane groups' states, and the span's state its cluster's rank 0
+// reads.  E: elements of a 16-byte slot.
+template <int W, int E>
 struct Smem {
-  static constexpr int D = 4 * W;
+  static constexpr int D = E * W;
   static constexpr int G = kThreads / W;
   float4 ring[kStages][2][kUnroll][kThreads];
   float m[G], l[G];
@@ -162,17 +281,19 @@ struct Smem {
   float span_acc[D];
 };
 
-// One CTA: span `split` of (row, head).  W = head_dim / 4 lanes per key;
-// POW2: page_size is a power of two (a key's page and slot by shift and
-// mask, not by division).
-template <int W, bool POW2>
+// One CTA: span `split` of (row, head).  T: the pages' element type; W =
+// head_dim / E lanes per key; POW2: page_size is a power of two (a key's
+// page and slot by shift and mask, not by division).
+template <typename T, int W, bool POW2>
 __device__ __forceinline__ void split_span(
-    Smem<W>& sm, const float* __restrict__ q, long long q_row_stride,
-    const float* __restrict__ k_pages, const float* __restrict__ v_pages,
-    const int* __restrict__ tables, const int* __restrict__ lens,
-    float* __restrict__ out, int hidden, int page_size, int num_pages,
-    int pages_per_seq, int block_rows, int span_pages, float sm_scale) {
-  constexpr int D = 4 * W;
+    Smem<W, Lane<T>::E>& sm, const float* __restrict__ q,
+    long long q_row_stride, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const int* __restrict__ lens, float* __restrict__ out, int hidden,
+    int page_size, int num_pages, int pages_per_seq, int block_rows,
+    int span_pages, float sm_scale) {
+  constexpr int E = Lane<T>::E;
+  constexpr int D = E * W;
   constexpr int G = kThreads / W;  // lane groups
   constexpr int kStageKeys = G * kUnroll;
   const int split = blockIdx.x;
@@ -186,7 +307,7 @@ __device__ __forceinline__ void split_span(
   const int span_keys = span_pages * page_size;
   const int* table = tables + (size_t)(row / block_rows) * pages_per_seq +
                      (size_t)split * span_pages;
-  const size_t col = (size_t)head * D + 4 * sub;
+  const size_t col = (size_t)head * D + E * sub;
 
   // page ids of stage c, one per key of this lane's group below `bound`
   auto load_pages = [&](int c, int(&page)[kUnroll], int bound) {
@@ -204,9 +325,8 @@ __device__ __forceinline__ void split_span(
       min(span_keys, (pages_per_seq - split * span_pages) * page_size);
 #pragma unroll
   for (int c = 0; c < kStages; ++c) load_pages(c, first[c], table_keys);
-  const float* qr = q + row * q_row_stride + col;
-  const float4 qv = make_float4(__ldg(qr), __ldg(qr + 1), __ldg(qr + 2),
-                                __ldg(qr + 3));
+  Lane<T> lane;
+  lane.load_q(q + row * q_row_stride + col);
 
   const int cap = pages_per_seq * page_size;
   int len = __ldg(lens + row);
@@ -224,7 +344,8 @@ __device__ __forceinline__ void split_span(
   int n = len - split * span_keys;  // this span's keys
   n = n < span_keys ? n : span_keys;
   const int stages = (n + kStageKeys - 1) / kStageKeys;
-  // this lane's float4 of stage c's K and V rows into ring slot c % kStages
+  // this lane's 16 bytes of stage c's K and V rows into ring slot
+  // c % kStages
   // (zeros past the span), then one commit group, empty or not
   auto issue = [&](int c, const int(&page)[kUnroll]) {
     const int st = c % kStages;
@@ -251,7 +372,7 @@ __device__ __forceinline__ void split_span(
   for (int u = 0; u < kUnroll; ++u) next[u] = first[kStages - 1][u];
 
   float m = -CUDART_INF_F, l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  lane.zero();
   // every thread runs the same stages (n is the CTA's), so the shuffles of
   // a warp always find all 32 lanes
   for (int c = 0; c < stages; ++c) {
@@ -263,7 +384,7 @@ __device__ __forceinline__ void split_span(
     float cmax = -CUDART_INF_F;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      s[u] = group_sum<W>(dot4(qv, sm.ring[st][0][u][t])) * sm_scale;
+      s[u] = group_sum<W>(lane.dot(sm.ring[st][0][u][t])) * sm_scale;
       if (c * kStageKeys + u * G + group >= n) s[u] = -CUDART_INF_F;
       cmax = fmaxf(cmax, s[u]);
     }
@@ -271,19 +392,12 @@ __device__ __forceinline__ void split_span(
     const float m_new = fmaxf(m, cmax);
     const float alpha = exp_(m - m_new);  // 0 on the group's first stage
     float psum = 0.f;
-    acc.x *= alpha;
-    acc.y *= alpha;
-    acc.z *= alpha;
-    acc.w *= alpha;
+    lane.scale(alpha);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const float p = exp_(s[u] - m_new);  // 0 for a key past the span
-      const float4 v = sm.ring[st][1][u][t];
       psum += p;
-      acc.x += p * v.x;
-      acc.y += p * v.y;
-      acc.z += p * v.z;
-      acc.w += p * v.w;
+      lane.add(p, sm.ring[st][1][u][t]);
     }
     l = l * alpha + psum;
     m = m_new;
@@ -295,7 +409,7 @@ __device__ __forceinline__ void split_span(
     sm.m[group] = m;
     sm.l[group] = l;
   }
-  reinterpret_cast<float4*>(sm.acc)[group * W + sub] = acc;
+  lane.store(reinterpret_cast<float4*>(sm.acc), group * W + sub);
   __syncthreads();
   float mx = -CUDART_INF_F;
 #pragma unroll
@@ -354,22 +468,49 @@ __device__ __forceinline__ void split_span(
   cluster_sync();  // no live CTA leaves while rank 0 still reads its state
 }
 
-template <int W>
+template <typename T, int W>
 __device__ __forceinline__ void split_body(
     const float* __restrict__ q, long long q_row_stride,
-    const float* __restrict__ k_pages, const float* __restrict__ v_pages,
+    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const int* __restrict__ tables, const int* __restrict__ lens,
     float* __restrict__ out, int hidden, int page_size, int num_pages,
     int pages_per_seq, int block_rows, int span_pages, float sm_scale) {
-  __shared__ __align__(16) Smem<W> sm;
+  __shared__ __align__(16) Smem<W, Lane<T>::E> sm;
   if ((page_size & (page_size - 1)) == 0)
-    split_span<W, true>(sm, q, q_row_stride, k_pages, v_pages, tables, lens,
-                        out, hidden, page_size, num_pages, pages_per_seq,
-                        block_rows, span_pages, sm_scale);
+    split_span<T, W, true>(sm, q, q_row_stride, k_pages, v_pages, tables,
+                           lens, out, hidden, page_size, num_pages,
+                           pages_per_seq, block_rows, span_pages, sm_scale);
   else
-    split_span<W, false>(sm, q, q_row_stride, k_pages, v_pages, tables,
-                         lens, out, hidden, page_size, num_pages,
-                         pages_per_seq, block_rows, span_pages, sm_scale);
+    split_span<T, W, false>(sm, q, q_row_stride, k_pages, v_pages, tables,
+                            lens, out, hidden, page_size, num_pages,
+                            pages_per_seq, block_rows, span_pages, sm_scale);
+}
+
+// The launch of head_dim `d` for element type T: `go` is called with
+// std::integral_constant<int, W> (W = d / E lanes a key) for each head_dim
+// the kernels take (4..128 for float, 8..128 for 16 bits); any other d is
+// cudaErrorInvalidValue.
+template <typename T, typename Go>
+int by_head_dim(int d, Go go) {
+  constexpr int E = Lane<T>::E;
+  switch (d) {
+    case 4:
+      if constexpr (E == 4) return go(std::integral_constant<int, 1>());
+      break;
+    case 8:
+      return go(std::integral_constant<int, 8 / E>());
+    case 16:
+      return go(std::integral_constant<int, 16 / E>());
+    case 32:
+      return go(std::integral_constant<int, 32 / E>());
+    case 64:
+      return go(std::integral_constant<int, 64 / E>());
+    case 128:
+      return go(std::integral_constant<int, 128 / E>());
+    default:
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch `kernel` over (spans, heads, rows) with the spans of a (row, head)

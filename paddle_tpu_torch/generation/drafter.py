@@ -111,7 +111,8 @@ class DraftModelDrafter:
                 f"engine max_seq_len {max_len}")
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
-        self.params = lm_params_from_numpy(params, self.device, dtype)
+        # the draft model computes in float32; only its cache is dtype
+        self.params = lm_params_from_numpy(params, self.device)
         self.max_seqs = int(max_seqs)
         self.max_len = int(max_len)
         self._sm_scale = 1.0 / math.sqrt(

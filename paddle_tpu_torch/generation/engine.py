@@ -90,7 +90,10 @@ from .sampler import (SamplingParams, batch_sampling_arrays, fold_data_for,
 __all__ = ["GenerationConfig", "GenerationEngine", "GenerationResult",
            "StreamEvent", "PrefillHandoff"]
 
-_DTYPES = {"float32": torch.float32}
+#: the KV cache's dtypes, by the names jnp.dtype gives them (the
+#: parameters and the model's arithmetic stay float32 whatever the cache)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def _pow2_buckets(lo, hi):
@@ -143,7 +146,10 @@ class GenerationConfig:
     - ``spec_ngram``: longest suffix n-gram the ngram drafter matches.
     - ``reference_attention``: run the plain PyTorch attention instead
       of the CUDA kernels — the parity oracle, never chosen implicitly.
-    - ``dtype``: cache and parameter dtype ("float32").
+    - ``dtype``: the KV cache's dtype: "float32", "bfloat16" or
+      "float16".  The parameters stay float32 and the model computes in
+      float32; only K/V are rounded as they enter the cache (the JAX
+      engine's rule).
     - ``seed``: sampling root seed (per-token fold keys).
     """
 
@@ -233,9 +239,9 @@ class GenerationConfig:
                 f"prefill_seq_buckets {self.prefill_seq_buckets} exceed "
                 f"max_seq_len {self.max_seq_len}")
         if self.dtype not in _DTYPES:
-            raise NotImplementedError(
-                f"dtype {self.dtype!r}: the port runs float32 (bf16 is "
-                f"later work)")
+            raise ValueError(
+                f"dtype {self.dtype!r}: the KV cache takes one of "
+                f"{sorted(_DTYPES)}")
 
 
 @dataclasses.dataclass
@@ -256,7 +262,9 @@ class PrefillHandoff:
     prompt's K/V for every layer as host arrays [L, prompt_len, H]
     (page layout is NOT part of the contract; each side scatters into
     its own cache), the first sampled token, and the sampling params.
-    numpy-only so it pickles over the cluster control plane."""
+    numpy-only so it pickles over the cluster control plane.  The K/V
+    arrays are the prefill cache's words (bfloat16 as raw 16-bit words:
+    kv_cache.kv_to_host)."""
 
     prompt_len: int
     last_token: int
@@ -331,8 +339,8 @@ class GenerationEngine:
         self.cfg = cfg = config or GenerationConfig()
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
-        dtype = _DTYPES[cfg.dtype]
-        self.params = lm_params_from_numpy(params, self.device, dtype)
+        dtype = _DTYPES[cfg.dtype]          # the cache's, not the model's
+        self.params = lm_params_from_numpy(params, self.device)
         h = model_cfg.hidden_size
         self._sm_scale = 1.0 / math.sqrt(h // model_cfg.num_heads)
         if cfg.max_seq_len > model_cfg.max_position:
@@ -701,7 +709,8 @@ class GenerationEngine:
         transfer with the remaining prefill compute.
 
         Yields ``{"kind": "chunk", "start", "end", "k", "v"}`` items
-        ([L, end-start, H] host arrays) covering positions [0, plen),
+        ([L, end-start, H] host arrays of the cache's words,
+        ``kv_cache.kv_to_host``) covering positions [0, plen),
         then one ``{"kind": "final", "prompt_len", "last_token",
         "done", "finish_reason", "cached_len"}``.  A locally-cached
         prefix is exported from the pool in the first chunk (no

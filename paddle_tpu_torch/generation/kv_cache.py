@@ -48,6 +48,15 @@ to the host — and ``import_span`` such arrays back into a slot's pages
 — one copy to the device, then one index-put.  Neither computes, and
 arrays of the cache's dtype (what an export gives) are not cast: the
 bits that leave one pool are the bits that land in the other.
+
+The arrays are the cache's own words (``kv_to_host``): float32 and
+float16 as numpy arrays of that dtype, bfloat16 — which numpy lacks —
+as its raw 16-bit words, uint16 under the one-field record dtype
+``BF16_WORDS`` whose field is named "bfloat16".  So every array names
+its own dtype, through slices, concatenation and pickling, and the
+cluster passes it on without knowing it; ``import_span`` reads the
+words back by it (``kv_from_host``).  Nothing is widened on the wire:
+a 16-bit cache ships half the bytes of a float32 one.
 """
 from __future__ import annotations
 
@@ -61,7 +70,8 @@ from .attention import (gathered_decode_attention, paged_decode_attention,
                         paged_plain_decode_attention)
 from .ragged_attention import ragged_paged_attention, ragged_ref_attention
 
-__all__ = ["CacheFullError", "PagedKVCache", "DenseKVCache", "PrefixIndex"]
+__all__ = ["CacheFullError", "PagedKVCache", "DenseKVCache", "PrefixIndex",
+           "BF16_WORDS", "kv_to_host", "kv_from_host"]
 
 
 class CacheFullError(RuntimeError):
@@ -119,10 +129,37 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _to_host(t):
-    """A host numpy copy of ``t`` that never aliases the cache (on the
-    CPU ``.cpu()`` would hand back the tensor itself)."""
-    return t.to("cpu", copy=True).numpy()
+#: bfloat16 K/V on the host: its raw 16-bit words, under a record dtype
+#: whose one field names the type
+BF16_WORDS = np.dtype([("bfloat16", np.uint16)])
+
+
+def kv_to_host(t):
+    """A host numpy copy of cache K/V ``t`` in the cache's own words,
+    never aliasing the cache (on the CPU ``.cpu()`` would hand back the
+    tensor itself): float32/float16 as themselves, bfloat16 as its raw
+    16-bit words (``BF16_WORDS``)."""
+    t = t.to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_WORDS)
+    return t.numpy()
+
+
+def kv_from_host(a, device, dtype):
+    """The words of ``kv_to_host`` as a tensor of ``dtype`` on
+    ``device``: the bits as they left, cast only where the receiving
+    cache's dtype differs from theirs.  Float arrays of another
+    precision are cast, as the JAX cache's import casts them; anything
+    else (a bare uint16 array among them) raises."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == BF16_WORDS:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif a.dtype.kind == "f":
+        t = torch.from_numpy(a)
+    else:
+        raise TypeError(f"K/V words must be a float array or BF16_WORDS, "
+                        f"got {a.dtype}")
+    return t.to(device=device, dtype=dtype)
 
 
 class _CacheBase:
@@ -159,34 +196,34 @@ class _CacheBase:
     # -- cross-process handoff (cluster prefill/decode split) --------------
     def export_seq(self, slot, length):
         """Host copies of the slot's K/V for positions < ``length``: two
-        float arrays [L, length, H] — what a prefill worker ships."""
+        arrays [L, length, H] of the cache's words (``kv_to_host``) —
+        what a prefill worker ships."""
         return self.export_span(slot, 0, length)
 
     def import_seq(self, slot, k_seq, v_seq):
-        """Scatter host K/V [L, T, H] into the (already admitted) slot at
-        positions 0..T-1 — the receiving half of a prefill handoff."""
+        """Scatter host K/V [L, T, H] (``kv_to_host`` words) into the
+        (already admitted) slot at positions 0..T-1 — the receiving half
+        of a prefill handoff."""
         self.import_span(slot, 0, k_seq, v_seq)
 
     def export_span(self, slot, start, end):
         """Host copies of the slot's K/V for positions [start, end) — the
         chunk-granular unit the cluster streams as each prefill chunk
-        retires: two float arrays [L, end - start, H]."""
+        retires: two arrays [L, end - start, H] of the cache's words
+        (``kv_to_host``)."""
         index = self._span_index(slot, int(start), int(end))
-        return _to_host(self.k[index]), _to_host(self.v[index])
+        return kv_to_host(self.k[index]), kv_to_host(self.v[index])
 
     def import_span(self, slot, start, k_seq, v_seq):
-        """Scatter host K/V [L, T, H] into the slot at positions
-        start..start+T-1 — the receiving half of one streamed chunk."""
+        """Scatter host K/V [L, T, H] — ``kv_to_host`` words, as an
+        export gives them — into the slot at positions start..start+T-1:
+        the receiving half of one streamed chunk."""
         T = k_seq.shape[1]
         if T == 0:
             return
         index = self._span_index(slot, int(start), int(start) + T)
-        self.k[index] = self._from_host(k_seq)
-        self.v[index] = self._from_host(v_seq)
-
-    def _from_host(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=self.k.device, dtype=self.k.dtype)
+        self.k[index] = kv_from_host(k_seq, self.k.device, self.k.dtype)
+        self.v[index] = kv_from_host(v_seq, self.k.device, self.k.dtype)
 
 
 class PagedKVCache(_CacheBase):

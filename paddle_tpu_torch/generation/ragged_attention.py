@@ -11,17 +11,22 @@ Two implementations behind one entry point, chosen by where the tensors
 live and nothing else:
 
 * ``csrc/ragged_attention.cu`` — the hand-written CUDA kernel for
-  Hopper (sm_90a), float32: the split-key design of
-  ``csrc/paged_split.cuh`` (each row's keys cut into spans of whole
-  pages by ``attention.split_spans``, the spans of a (row, head) one
+  Hopper (sm_90a): the split-key design of ``csrc/paged_split.cuh``
+  (each row's keys cut into spans of whole pages by
+  ``attention.split_spans``, the spans of a (row, head) one
   thread-block cluster that merges them), shared with the paged decode
-  kernel.  ``ragged_paged_attention`` launches it for CUDA tensors, adds
-  one to ``_cuda.LAUNCHES["ragged_paged_attention"]`` per launch, and
+  kernel, with float32, bfloat16 and float16 pages (q and the output
+  float32).  ``ragged_paged_attention`` launches it for CUDA tensors,
+  adds one to ``_cuda.LAUNCHES["ragged_paged_attention"]`` per launch
+  (16-bit pages: ``"ragged_paged_attention_bf16"`` / ``"_f16"``), and
   raises on anything it cannot take; there is no fallback.
 * ``ragged_ref_attention`` — plain PyTorch: expand the block tables to
   per-row page lists, gather, and run the decode reference's masked
-  softmax.  CPU tensors take it; ``chip_smoke.py`` holds the kernel
-  against it on the card.
+  softmax (the JAX reference's rounding contract for a 16-bit cache;
+  attention.py's module doc).  CPU tensors take it; ``chip_smoke.py``
+  holds the float32 kernel against it on the card, and the 16-bit
+  kernels against ``ragged_flash_plain_attention``, the plain version on
+  the TPU kernel's contract.
 
 ``resolve_block_rows`` picks the chunked engine's rows per page-table
 binding: the ``PADDLE_TPU_RAGGED_BM`` override, then the tuning store's
@@ -41,10 +46,12 @@ import os
 import torch
 
 from .. import _cuda
-from .attention import paged_ref_decode_attention, split_spans
+from .attention import (check_pages, paged_flash_plain_decode_attention,
+                        paged_ref_decode_attention, split_spans)
 
 __all__ = ["ragged_paged_attention", "ragged_ref_attention",
-           "ragged_kernel_attention", "resolve_block_rows", "KERNEL"]
+           "ragged_flash_plain_attention", "ragged_kernel_attention",
+           "resolve_block_rows", "KERNEL"]
 
 #: launch-counter key and source name of the kernel
 KERNEL = "ragged_attention"
@@ -63,8 +70,19 @@ def ragged_ref_attention(q, k_pages, v_pages, block_tables, row_lens,
     return torch.where(active, out, torch.zeros_like(out))
 
 
-def _bind(lib):
-    fn = lib.ragged_paged_attention_f32
+def ragged_flash_plain_attention(q, k_pages, v_pages, block_tables,
+                                 row_lens, num_heads, block_rows=1,
+                                 sm_scale=None):
+    """Plain version on the TPU kernel's rounding contract (what the
+    16-bit kernels are held against): per-row page lists, then
+    ``attention.gathered_flash_attention``; inactive rows give zeros."""
+    rows = block_tables.repeat_interleave(block_rows, dim=0)   # [R, pps]
+    return paged_flash_plain_decode_attention(
+        q, k_pages, v_pages, rows, row_lens, num_heads, sm_scale=sm_scale)
+
+
+def _bind(lib, dtype):
+    fn = getattr(lib, f"ragged_paged_attention_{_cuda.type_suffix(dtype)}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p,
@@ -78,13 +96,7 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
     """Launch the CUDA kernel (CUDA tensors only; see module doc)."""
     R, H = q.shape
     NP, PS, Hk = k_pages.shape
-    if H % num_heads:
-        raise ValueError(f"hidden {H} does not split into {num_heads} heads")
-    D = H // num_heads
-    if D < 4 or D > 128 or 128 % D:
-        raise ValueError(
-            f"head_dim {D}: the kernel takes head_dim in "
-            f"{{4, 8, 16, 32, 64, 128}}")
+    D = check_pages(q, k_pages, v_pages, num_heads)
     if block_rows < 1 or R % block_rows:
         raise ValueError(f"{R} rows do not tile by block_rows={block_rows}")
     if R > 65535:
@@ -100,8 +112,8 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
     if tuple(row_lens.shape) != (R,):
         raise ValueError(f"row_lens {tuple(row_lens.shape)} must be [{R}]")
     for name, t, dt in (("q", q, torch.float32),
-                        ("k_pages", k_pages, torch.float32),
-                        ("v_pages", v_pages, torch.float32),
+                        ("k_pages", k_pages, k_pages.dtype),
+                        ("v_pages", v_pages, k_pages.dtype),
                         ("block_tables", block_tables, torch.int32),
                         ("row_lens", row_lens, torch.int32)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -118,7 +130,7 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
         sm_scale = 1.0 / math.sqrt(D)
     out = torch.empty((R, H), dtype=q.dtype, device=q.device)
     lib = _cuda.library(KERNEL)
-    fn = _bind(lib)
+    fn = _bind(lib, k_pages.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), q.stride(0), k_pages.data_ptr(),
@@ -128,7 +140,7 @@ def ragged_kernel_attention(q, k_pages, v_pages, block_tables, row_lens,
                 split_spans(block_tables.shape[1], PS)[0], float(sm_scale),
                 stream)
     _cuda.check(lib, rc, "ragged_paged_attention launch")
-    _cuda.LAUNCHES[_COUNTER] += 1
+    _cuda.LAUNCHES[_cuda.launch_key(_COUNTER, k_pages.dtype)] += 1
     return out
 
 

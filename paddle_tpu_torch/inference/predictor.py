@@ -170,10 +170,6 @@ class Predictor:
         if example_inputs is None:
             raise ValueError("export_stablehlo needs example_inputs "
                              "(dict name->array) to fix shapes")
-        if getattr(self._program, "_amp_dtype", None) is not None:
-            raise NotImplementedError(
-                "exporting a bfloat16 Predictor (enable_bfloat16) is not "
-                "ported: ROADMAP.md, Queue 1 item 3 (the bf16 artifact)")
         block = self._program.global_block()
         feed = {n: self._exe._feed_tensor(block, n, example_inputs[n])
                 for n in self._feed_names}
@@ -224,8 +220,7 @@ class Predictor:
                 shutil.rmtree(sidecar)
         elif write_sidecar:
             from .sidecar import write_weight_sidecar
-            write_weight_sidecar(sidecar, {n: _host(v)
-                                           for n, v in params.items()})
+            write_weight_sidecar(sidecar, params)
         return text_path
 
     @staticmethod
@@ -233,7 +228,7 @@ class Predictor:
         """The sidecar at ``sidecar`` must hold exactly ``params``
         (same names, dtype codes, shapes) for a write_sidecar=False
         export to be loadable."""
-        from .sidecar import dtype_code, weight_cli_entries
+        from .sidecar import code_of, weight_cli_entries
 
         if not os.path.isdir(sidecar):
             raise ValueError(
@@ -241,7 +236,7 @@ class Predictor:
                 f"existing weight sidecar at '{sidecar}' (produced by a "
                 f"previous bake_weights=False export of this predictor); "
                 f"none found — export once with write_sidecar=True first")
-        expected = {name: (dtype_code(_np_dtype(v)), tuple(v.shape))
+        expected = {name: (code_of(v), tuple(v.shape))
                     for name, v in params.items()}
         try:
             entries = weight_cli_entries(sidecar)
@@ -262,15 +257,6 @@ class Predictor:
                 f"stale: {stale or 'none'}, dtype/shape changed: "
                 f"{changed or 'none'}); it belongs to a different "
                 f"model — re-export with write_sidecar=True")
-
-
-def _np_dtype(t):
-    """A tensor's dtype as numpy names it."""
-    return np.dtype(str(t.dtype).replace("torch.", ""))
-
-
-def _host(t):
-    return t.detach().cpu().numpy()
 
 
 class _Frozen(torch.nn.Module):

@@ -21,7 +21,7 @@ import shutil
 import numpy as np
 
 __all__ = ["write_weight_sidecar", "weight_cli_entries", "read_raw_array",
-           "dtype_code"]
+           "dtype_code", "code_of", "host_words"]
 
 _DTYPE_TO_CODE = {"float32": "f32", "int32": "s32", "int64": "s64",
                   "bool": "pred", "bfloat16": "bf16"}
@@ -42,23 +42,46 @@ def dtype_code(dt):
     return _DTYPE_TO_CODE[str(np.dtype(_lowered_dtype(dt)))]
 
 
+def code_of(value):
+    """The manifest code a parameter (numpy array or tensor) is stored
+    under, without copying it."""
+    name = str(value.dtype).replace("torch.", "")
+    return "bf16" if name == "bfloat16" else dtype_code(name)
+
+
+def host_words(value):
+    """(numpy array, manifest code) of one parameter as the sidecar
+    stores it: a bfloat16 tensor as its raw 16-bit words (code "bf16"),
+    anything else as a numpy array, int64 narrowed to int32."""
+    if str(getattr(value, "dtype", "")) == "torch.bfloat16":
+        import torch
+
+        words = value.detach().cpu().contiguous().view(torch.int16)
+        return words.numpy().view(np.uint16), "bf16"
+    if hasattr(value, "detach"):
+        value = value.detach().cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(value))
+    if arr.dtype == np.int64:
+        arr = arr.astype(np.int32)   # x64-off lowering contract
+    return arr, _DTYPE_TO_CODE[str(arr.dtype)]
+
+
 def write_weight_sidecar(weights_dir, params):
     """Write {name: array} as the weights-as-arguments sidecar:
     manifest.json (argument ORDER = sorted names) + one raw .bin per
-    parameter.  An existing sidecar at this path is REPLACED wholesale —
-    stale w*.bin files from a bigger previous export must not linger."""
+    parameter (``host_words``: numpy arrays or tensors; bfloat16 as raw
+    16-bit words).  An existing sidecar at this path is REPLACED
+    wholesale — stale w*.bin files from a bigger previous export must not
+    linger."""
     if os.path.isdir(weights_dir):
         shutil.rmtree(weights_dir)
     os.makedirs(weights_dir)
     manifest = []
     for i, name in enumerate(sorted(params)):
-        arr = np.ascontiguousarray(np.asarray(params[name]))
-        if arr.dtype == np.int64:
-            arr = arr.astype(np.int32)   # x64-off lowering contract
+        arr, code = host_words(params[name])
         fn = f"w{i}.bin"
         arr.tofile(os.path.join(weights_dir, fn))
-        manifest.append({"name": name,
-                         "dtype": _DTYPE_TO_CODE[str(arr.dtype)],
+        manifest.append({"name": name, "dtype": code,
                          "shape": list(arr.shape), "file": fn})
     with open(os.path.join(weights_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)

@@ -15,6 +15,12 @@ namespace, each with the shapes and dtypes of its outputs:
 * ``ffn_chain_kernel`` — #11, the FFN chain (ops/ffn_chain.py
   ``ffn_chain_kernel``) -> y.
 
+Each fake returns what the launch function returns: the output in the
+input's element type (float32, or bfloat16/float16 for the AMP
+variants: #3's ``o`` in q's, #9's in qkv's, #10's and #11's ``y`` in
+x's) and #3's and #9's ``lse`` in float32, so a bf16 Predictor's trace
+carries the dtypes its run has.
+
 On CUDA tensors each operator runs the existing launch function (which
 counts ``_cuda.LAUNCHES``); on other tensors it runs the plain version,
 the keep mask drawn from the seed as the CPU wrappers draw it.  There is
@@ -94,7 +100,7 @@ def _flash_cuda(q, k, v, num_heads, bias, causal, sm_scale, dropout_rate,
 def _flash_fake(q, k, v, num_heads, bias, causal, sm_scale, dropout_rate,
                 seed):
     B, Tq, H = q.shape
-    return (q.new_empty((B, Tq, H), dtype=torch.float32),
+    return (q.new_empty((B, Tq, H)),
             q.new_empty((B, num_heads, Tq), dtype=torch.float32))
 
 
@@ -118,7 +124,7 @@ def _qkv_cuda(qkv, b_qkv, num_heads, bias, causal, sm_scale, dropout_rate,
 def _qkv_fake(qkv, b_qkv, num_heads, bias, causal, sm_scale, dropout_rate,
               seed):
     B, T, H3 = qkv.shape
-    return (qkv.new_empty((B, T, H3 // 3), dtype=torch.float32),
+    return (qkv.new_empty((B, T, H3 // 3)),
             qkv.new_empty((B, num_heads, T), dtype=torch.float32))
 
 
@@ -142,7 +148,7 @@ def _gemm_cuda(x, w, bias, residual, gamma, beta, seed, act,
 
 
 def _gemm_fake(x, w, *rest):
-    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.float32)
+    return x.new_empty((x.shape[0], w.shape[1]))
 
 
 # -- #11 ---------------------------------------------------------------------
@@ -165,7 +171,7 @@ def _chain_cuda(x, w1, b1, w2, b2, residual, gamma, beta, seed, act,
 
 
 def _chain_fake(x, w1, b1, w2, *rest):
-    return x.new_empty((x.shape[0], w2.shape[1]), dtype=torch.float32)
+    return x.new_empty((x.shape[0], w2.shape[1]))
 
 
 _IMPLS = {

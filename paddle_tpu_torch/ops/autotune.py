@@ -261,10 +261,11 @@ def autotune_attn(T, H, num_heads, dtype="float32", **kwargs):
 
 
 def ragged_probe(rows, num_heads, d_head, page_size, pages_per_seq, device,
-                 seed=0):
-    """The search's probe step, from a numpy seed: q [rows, H], K/V pages
-    and row lengths — ragged decode rows in the head, a causal prefill
-    chunk (len = position + 1) in the tail, row 0 inactive."""
+                 seed=0, dtype="float32"):
+    """The search's probe step, from a numpy seed: q [rows, H] float32,
+    K/V pages in ``dtype`` (the engine's cache dtype) and row lengths —
+    ragged decode rows in the head, a causal prefill chunk (len =
+    position + 1) in the tail, row 0 inactive."""
     import torch
 
     H = num_heads * d_head
@@ -279,6 +280,8 @@ def ragged_probe(rows, num_heads, d_head, page_size, pages_per_seq, device,
     lens[rows - chunk:] = np.arange(1, chunk + 1)
     lens[0] = 0
     on = [torch.from_numpy(a).to(device) for a in (q, k, v, lens)]
+    page_dtype = getattr(torch, dtype_name(dtype))
+    on[1], on[2] = on[1].to(page_dtype), on[2].to(page_dtype)
     return (*on, num_pages, rng)
 
 
@@ -288,20 +291,25 @@ def autotune_ragged(rows, num_heads, d_head, page_size, pages_per_seq,
     """Search block_rows for one ragged-attention geometry on kernel #1.
 
     Every candidate that tiles ``rows`` runs the kernel's wrapper and
-    the plain ``ragged_ref_attention`` on the same probe step (its own
-    page tables: one per block of rows); a candidate that raises or
-    disagrees beyond (rtol, atol) is skipped, the others are timed
+    its plain version on the same probe step (its own page tables: one
+    per block of rows), its K/V pages in ``dtype``; a candidate that
+    raises or disagrees beyond (rtol, atol) — for 16-bit pages, beyond
+    ``attention.contract_bound`` against the plain version on the
+    kernel's rounding contract — is skipped, the others are timed
     (:func:`time_ms`, ``reps`` calls).  Returns {"block_rows", "ms",
     "parity_only", "candidates": [...]} and, on the card with ``write``,
     persists the winner under the card's device kind."""
     from .._device import resolve_device
     from ..generation import ragged_attention as ra
+    from ..generation.attention import contract_bound
 
     device = resolve_device(device)
     on_card = device.type == "cuda"
     parity_only = not on_card and not force_time
     q, k_pages, v_pages, lens, num_pages, rng = ragged_probe(
-        rows, num_heads, d_head, page_size, pages_per_seq, device, seed)
+        rows, num_heads, d_head, page_size, pages_per_seq, device, seed,
+        dtype)
+    sixteen = k_pages.element_size() == 2
 
     import torch
 
@@ -312,8 +320,14 @@ def autotune_ragged(rows, num_heads, d_head, page_size, pages_per_seq,
         tables = torch.from_numpy(rng.randint(
             1, num_pages, size=(rows // bm, pages_per_seq)).astype(
                 np.int32)).to(device)
-        ref = ra.ragged_ref_attention(q, k_pages, v_pages, tables, lens,
-                                      num_heads, block_rows=bm)
+        args = (q, k_pages, v_pages, tables, lens, num_heads)
+        if sixteen and on_card:
+            plain = ra.ragged_flash_plain_attention
+            ref = plain(*args, block_rows=bm)
+            bound = contract_bound(plain, *args, block_rows=bm)
+        else:
+            ref = ra.ragged_ref_attention(*args, block_rows=bm)
+            bound = atol + rtol * ref.abs()
 
         def run(bm=bm, tables=tables):
             return ra.ragged_paged_attention(
@@ -326,7 +340,7 @@ def autotune_ragged(rows, num_heads, d_head, page_size, pages_per_seq,
             results.append({"block_rows": bm, "error": repr(e)})
             continue
         err = float((got - ref).abs().max())
-        if not torch.allclose(got, ref, rtol=rtol, atol=atol):
+        if not bool(((got - ref).abs() <= bound).all()):
             results.append({"block_rows": bm, "error": "parity mismatch",
                             "max_abs_err": err})
             continue

@@ -160,8 +160,10 @@ def search_geometry(kernel, geometry, dtype="float32", reps=10,
             key, report["config"], kernel=kernel, geometry=geometry,
             dtype=str(dtype), device_kind=kind, ms=ms, heuristic_ms=heur,
             speedup=speed,
-            attestation=_attestation(device, "ragged_ref_attention",
-                                     rtol, atol))
+            attestation=_attestation(
+                device, "ragged_flash_plain_attention (contract_bound)"
+                if device.type == "cuda" and str(dtype) != "float32"
+                else "ragged_ref_attention", rtol, atol))
     return report
 
 

@@ -27,7 +27,11 @@ gradients'; the tensor-core forwards (#4, #9) hold the forward's at T
 atol 1e-4 / rtol 1e-4 — float32 sums over K = 768 (F = 3072) unit-scale
 products in another order than cuBLAS's (the fused matmul's as 3xTF32,
 which rounds as float32 does), then a norm that divides by a row's
-spread.
+spread.  The serving kernels' bfloat16 and float16 entries (16-bit
+pages, a 16-bit KV cache) hold their plain version on the TPU kernel's
+rounding contract within ``attention.contract_bound``: 1e-5 plus 2u (u
+the type's unit roundoff) of sum_j p_j |v_j| / l, since both round each
+p_j to the type relative to their own running maximum.
 """
 import numpy as np
 import pytest
@@ -35,10 +39,12 @@ import torch
 
 from paddle_tpu_torch import _cuda
 from paddle_tpu_torch.generation.attention import (
-    paged_decode_attention, paged_kernel_decode_attention,
+    contract_bound, paged_decode_attention,
+    paged_flash_plain_decode_attention, paged_kernel_decode_attention,
     paged_ref_decode_attention, split_spans)
 from paddle_tpu_torch.generation.ragged_attention import (
-    ragged_kernel_attention, ragged_paged_attention, ragged_ref_attention)
+    ragged_flash_plain_attention, ragged_kernel_attention,
+    ragged_paged_attention, ragged_ref_attention)
 from paddle_tpu_torch.ops import attention_epilogue as ae
 from paddle_tpu_torch.ops import ffn_chain as fc
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -1357,3 +1363,134 @@ def test_variant_wrappers_raise_instead_of_falling_back(device):
     with pytest.raises(TypeError):
         fa.flash_kernel_forward_flat(*(torch.zeros(
             1, 2, 16, 64, device=device, dtype=torch.bfloat16),) * 3)
+
+
+# -- 16-bit pages: the bfloat16 and float16 entries of #1 and #2 --------------
+
+PAGE16 = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _pages16(args, dtype):
+    q, k, v, *rest = args
+    return (q, k.to(PAGE16[dtype]), v.to(PAGE16[dtype]), *rest)
+
+
+def _within_contract(got, plain, args, **kw):
+    want = plain(*args, **kw)
+    bound = contract_bound(plain, *args, **kw)
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= bound).all()), \
+        float(((got - want).abs() / bound).max())
+
+
+@pytest.mark.parametrize("dtype", sorted(PAGE16))
+@pytest.mark.parametrize("head_dim", [8, 32, 64, 128])
+@pytest.mark.parametrize("block_rows", [1, 2])
+def test_ragged_16bit_entries_match_plain_version(device, dtype, head_dim,
+                                                  block_rows):
+    args = _pages16(_case(np.random.RandomState(head_dim + block_rows),
+                          device, "mixed", block_rows, 12, head_dim), dtype)
+    key = _cuda.launch_key("ragged_paged_attention", dtype)
+    before, f32 = _cuda.LAUNCHES[key], _cuda.LAUNCHES[
+        "ragged_paged_attention"]
+    got = ragged_paged_attention(*args, block_rows=block_rows)
+    again = ragged_paged_attention(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 2
+    assert _cuda.LAUNCHES["ragged_paged_attention"] == f32
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    _within_contract(got, ragged_flash_plain_attention, args,
+                     block_rows=block_rows)
+    assert (got[args[4] == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", sorted(PAGE16))
+@pytest.mark.parametrize("head_dim", [8, 64, 128])
+def test_ragged_16bit_split_edge_lengths(device, dtype, head_dim):
+    args = _pages16(_split_case(device, head_dim, 2, seed=head_dim + 5),
+                    dtype)
+    got = ragged_paged_attention(*args, block_rows=2)
+    torch.cuda.synchronize()
+    _within_contract(got, ragged_flash_plain_attention, args, block_rows=2)
+    assert (got[args[4] == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", sorted(PAGE16))
+@pytest.mark.parametrize("head_dim", [8, 32, 64, 128])
+@pytest.mark.parametrize("pages_per_seq", [1, 8, 128])
+def test_paged_decode_16bit_entries_match_plain_version(device, dtype,
+                                                        head_dim,
+                                                        pages_per_seq):
+    args = _pages16(_decode_case(np.random.RandomState(head_dim),
+                                 device, 12, head_dim,
+                                 pages_per_seq=pages_per_seq), dtype)
+    key = _cuda.launch_key("paged_decode_attention", dtype)
+    before, f32 = _cuda.LAUNCHES[key], _cuda.LAUNCHES[
+        "paged_decode_attention"]
+    got = paged_decode_attention(*args)
+    again = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 2
+    assert _cuda.LAUNCHES["paged_decode_attention"] == f32
+    assert torch.equal(got, again)
+    _within_contract(got, paged_flash_plain_decode_attention, args)
+    assert (got[args[4] == 0] == 0).all()
+
+
+def test_16bit_strided_q_and_sm_scale(device):
+    """q as the engine passes it (a column slice of the qkv projection,
+    float32) over bfloat16 pages, an explicit softmax scale."""
+    q, k, v, tables, lens, nh = _pages16(
+        _case(np.random.RandomState(9), device, "mixed", 1, 12, 64),
+        "bfloat16")
+    qkv = torch.cat([q, torch.randn_like(q), torch.randn_like(q)], dim=1)
+    qs = qkv[:, :q.shape[1]]
+    got = ragged_kernel_attention(qs, k, v, tables, lens, nh, sm_scale=0.3)
+    torch.cuda.synchronize()
+    _within_contract(got, ragged_flash_plain_attention,
+                     (q, k, v, tables, lens, nh), sm_scale=0.3)
+
+
+def test_16bit_wrappers_raise_instead_of_falling_back(device):
+    q, k, v, tables, lens, nh = _case(np.random.RandomState(10), device,
+                                      "decode", 1, 32, 4)
+    with pytest.raises(ValueError, match="16-bit"):
+        ragged_kernel_attention(q, k.bfloat16(), v.bfloat16(), tables, lens,
+                                nh)
+    q, k, v, tables, lens, nh = _decode_case(np.random.RandomState(11),
+                                             device, 12, 64)
+    with pytest.raises(TypeError, match="k_pages / v_pages"):
+        paged_kernel_decode_attention(q, k.bfloat16(), v.half(), tables,
+                                      lens, nh)
+    with pytest.raises(TypeError, match="k_pages / v_pages"):
+        paged_kernel_decode_attention(q, k.double(), v.double(), tables,
+                                      lens, nh)
+    with pytest.raises(TypeError, match="q must be"):
+        paged_kernel_decode_attention(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), tables, lens, nh)
+
+
+@pytest.mark.parametrize("dtype", sorted(PAGE16))
+def test_16bit_handoff_round_trip_is_bit_exact(device, dtype):
+    """A 16-bit cache on the card exports its own words (bfloat16 as
+    BF16_WORDS) and takes them back bit for bit."""
+    from paddle_tpu_torch.generation import PagedKVCache
+    from paddle_tpu_torch.generation.kv_cache import BF16_WORDS
+
+    L, H, page = 2, 768, 16
+    cache = PagedKVCache(num_layers=L, hidden=H, page_size=page,
+                         num_pages=17, max_seqs=2, max_len=128,
+                         dtype=PAGE16[dtype], device=device)
+    cache.admit(1, 20)
+    cache.admit(0, 45)
+    g = torch.Generator().manual_seed(14)
+    k = torch.randn(L, 45, H, generator=g).to(PAGE16[dtype])
+    v = torch.randn(L, 45, H, generator=g).to(PAGE16[dtype])
+    words = [t.view(torch.int16).numpy().view(BF16_WORDS) for t in (k, v)]
+    if dtype == "float16":
+        words = [t.numpy() for t in (k, v)]
+    cache.import_seq(0, *words)
+    got = cache.export_seq(0, 45)
+    for a, b in zip(got, words):
+        assert a.dtype == b.dtype and a.itemsize == 2
+        assert np.array_equal(a.view(np.uint16), b.view(np.uint16))

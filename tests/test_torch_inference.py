@@ -17,9 +17,9 @@
 * ``export_stablehlo``/``load_exported`` round-trip the fc model (a
   ``torch.export`` artifact; tests/test_torch_export.py holds it against
   the JAX package's); ``enable_bfloat16`` runs the program under
-  bfloat16 AMP, as the JAX package's Predictor does, and matches the JAX
-  bf16 Predictor; without ``disable_gpu()`` the Predictor runs on the
-  card (and raises here).
+  bfloat16 AMP, as the JAX package's Predictor does, matches the JAX
+  bf16 Predictor, and its artifact loads back with its outputs; without
+  ``disable_gpu()`` the Predictor runs on the card (and raises here).
 """
 import dataclasses
 import json
@@ -142,8 +142,13 @@ def test_bfloat16_predictor_matches_the_jax_one(saved_model):
     np.testing.assert_allclose(out, np.asarray(jref), rtol=0,
                                atol=BF16_ATOL)
     assert not np.array_equal(out, ref)     # the products did round
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        pred.export_stablehlo(os.path.join(d, "bf16.pt2"), {"x": xv})
+    # the bf16 Predictor's artifact, baked and with its weight sidecar,
+    # loads back and gives the Predictor's outputs bit for bit
+    for bake in (True, False):
+        path = os.path.join(d, f"bf16_{bake}.pt2")
+        pred.export_stablehlo(path, {"x": xv}, bake_weights=bake)
+        got, = inference.load_exported(path)({"x": xv})
+        np.testing.assert_array_equal(got.float().numpy(), out)
 
 
 def test_two_file_set_model_form(saved_model):
