@@ -515,6 +515,28 @@ Phases (any failure exits non-zero and prints no result):
       ARTIFACT_ATOL of the Predictor's, the bf16 entries of #9, #10, #11
       once per layer a run.
    Its numbers go on a {"kv16": {...}} line before the kernels line.
+23. data parallelism beyond the row-local ops (core/spmd.py's classes;
+   each job against its one-rank run on the card):
+   a. 21b's stacked LSTM at 128 x 256 through with_data_parallel() over
+      a one-rank NCCL group, LSTM_WARMUP + LSTM_STEPS steps: losses
+      within 2e-3 of 21b's, #10 launched as often as in 21b;
+   b. the same program at {data: 2} over two gloo ranks sharing the
+      card: losses within 2e-3, parameters within 1e-3, #10 at M 16,384
+      on each rank as often as one rank's;
+   c. seq2seq at SEQ_SMALL (its StaticRNN decoder, Adadelta under the
+      clip) and phase 13c's 1M x 128 sparse table under SGD and lazy
+      Adam (its SelectedRows rows gathered, no dense table gradient):
+      losses within 2e-3, parameters within 1e-3 (the table: the rows
+      touched);
+   d. BERT-base at 2 layers, 64 x 128 a rank, decorate(Adam(1e-4),
+      "bfloat16"), fused: losses and parameters within 5e-2 relative,
+      the bf16 entries of #9, #5, #6, #10, #11 on each rank as often as
+      one rank's; then under fp16 loss scaling with an inf in one of
+      rank 1's rows: both ranks skip that step and halve the scale as
+      one rank does.
+   Each rank's step ms against one rank's, the gradient sum's bytes and
+   ms, the collectives and launches go on a {"data_parallel_seq": {...}}
+   line before the kernels line.
 Phase 2 also holds the bfloat16 and float16 variants of the packed
 flash kernels (#3, #5, #6), the qkv-folded forward (#9), the fused
 matmul (#10) and the FFN chain (#11) against their plain versions in the
@@ -544,7 +566,8 @@ numbers), {"cluster": {...}} (phase 9's), {"recipe": {...}} (phase 10's),
 (phase 16's), {"bench_models": {...}} (phase 17's), {"amp": {...}}
 (phase 18's), {"tensor_parallel": {...}} (phase 19's), {"dygraph":
 {...}} (phase 20's), {"sequence": {...}} (phase 21's), {"kv16": {...}}
-(phase 22's) and {"kernels": [...]}, one entry per kernel (each
+(phase 22's), {"data_parallel_seq": {...}} (phase 23's) and
+{"kernels": [...]}, one entry per kernel (each
 bfloat16 and float16 variant beside its float32 entry) with its own
 launches, error and times; the last line is
 {"ok": true, "device": {...}}.  A kernel's launches are those of its own
@@ -564,7 +587,8 @@ float32 training kernels phase 19's split runs' (rank 0's), and phase
 steps', the qkv-folded forward, the fused matmul and the FFN chain its
 timed traced run's; the fused matmul adds phase 21b's timed steps'; the
 16-bit-page entries of #1 and #2 are phase 22b's engine runs' (chunked
-for #1, legacy for #2).
+for #1, legacy for #2); phase 23 adds 23a's and rank 0's launches of
+23b-d.
 Details go to
 chiprun_out/chip_smoke.json, phase 8's traces (gzipped Kineto and host
 Chrome traces) and metrics under chiprun_out/phase8/.
@@ -1410,6 +1434,9 @@ GEMM_CASES = {
     # the last fc (512) and lstm (128); bias only
     "lstm_fc_emb": (128 * 256, 128, 512, dict()),
     "lstm_fc_cat": (128 * 256, 640, 512, dict()),
+    # phase 23b: the same fcs on one of two data ranks (64 x 256 rows)
+    "dp_lstm_fc_emb": (64 * 256, 128, 512, dict()),
+    "dp_lstm_fc_cat": (64 * 256, 640, 512, dict()),
 }
 #: FFN-chain cases: (M, K, F, N, options); "step" is one layer's FFN
 FFN_CASES = {
@@ -1470,7 +1497,8 @@ TP_SPLIT_CASES = ("tp_attn_out", "tp_nmt_out", "tp_nmt_ffn_up",
                   "tp_nmt_ffn_down", "tp_nmt_cross_q", "tp_nmt_cross_kv",
                   "tp_split")
 #: the GEMM cases of phase 21b's classifier (gradients checked too)
-SEQ_GEMM_CASES = ("lstm_fc_emb", "lstm_fc_cat")
+SEQ_GEMM_CASES = ("lstm_fc_emb", "lstm_fc_cat", "dp_lstm_fc_emb",
+                  "dp_lstm_fc_cat")
 #: fused matmul / FFN chain against their plain versions: atol + rtol
 #: (float32 sums over K = 768 or F = 3072 unit-scale products in another
 #: order than cuBLAS's; the norm divides by a row's spread)
@@ -13096,6 +13124,513 @@ def kv16_phase(device, model_cfg, params_np):
 
 
 
+# -- phase 23: data-parallel training of the sequence tier, sparse gradients
+# and AMP -------------------------------------------------------------------
+
+#: (c)'s and (d)'s steps
+DPS_STEPS = 3
+#: (d): BERT-base cut to phase 19's depth (overrides of BertConfig.base())
+#: at 18b's rows a rank (64 x 128, 20 masked positions a row) at
+#: {data: 2}
+DPS_BERT_CFG = {"num_layers": 2}
+DPS_BERT = (128, 128, 20)
+#: (d)'s fp16 run: dynamic loss scaling from 2^10, halved on one
+#: overflow; an inf in the last row's input mask (one of rank 1's rows)
+#: at step DPS_INF_STEP
+DPS_F16 = dict(init_loss_scaling=2.0 ** 10, incr_every_n_steps=1000,
+               decr_every_n_nan_or_inf=1, decr_ratio=0.5)
+DPS_INF_STEP = 1
+#: every job against one rank: each parameter leaf's change over the
+#: steps, the norm of the two runs' difference over the norm of one
+#: rank's change (Adam moves a leaf by about lr a step whatever its size,
+#: so a gate on the parameters themselves cannot see a wrong step);
+#: (d) also each finite step's loss, relative, both sides in the same
+#: 16-bit type.  Set from sound card runs (float32 jobs read <= 7.7e-6,
+#: bf16 2.47e-2 on a zero-initialised bias, f16 7.6e-3, losses 2.2e-6);
+#: the planted faults of paddle_tpu_torch/tools/dps_faults.py (no
+#: gradient sum, rank 0's half of the batch alone) read >= 0.7 there
+DPS_CHANGE_RTOL = 1e-3
+DPS_AMP_CHANGE_RTOL = 5e-2
+DPS_AMP_LOSS_RTOL = 1e-4
+#: timed gradient sums a rank (zeros of the summed gradients' shapes)
+DPS_SUM_REPS = 3
+DPS_TIMEOUT_S = 900.0
+#: (d)'s bf16 launch keys, equal on each rank to one rank's
+DPS_BF16_KERNELS = ("flash_fwd_qkv", "flash_bwd_dq_packed",
+                    "flash_bwd_dkv_packed", "gemm_epilogue", "ffn_chain")
+
+
+def _dps_jobs(device):
+    """(b)-(d)'s programs and feeds (a function of the step), the same in
+    the parent (one rank) and in the two ranks (each keeping its half of
+    every feed)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import BertConfig
+
+    s2s, _ = _small_models()
+    bert = dataclasses.replace(_zero_dropout(BertConfig.base()),
+                               **DPS_BERT_CFG)
+    B, T, masked = DPS_BERT
+    sparse = sparse_feeds(DPS_STEPS)
+
+    def bert_feed(step, inf):
+        f = amp_masked_feed(bert.vocab_size, B, T, masked, device)
+        if inf and step == DPS_INF_STEP:
+            f["input_mask"] = f["input_mask"].clone()
+            f["input_mask"][-1, 0] = float("inf")
+        return f
+
+    def job(name, build, feed, steps=DPS_STEPS, **kw):
+        return dict(name=name, build=build, feed=feed, steps=steps, **kw)
+
+    return [
+        job("lstm", lambda: build_lstm_classifier(LSTM_CLS),
+            lambda s: lstm_feed(LSTM_CLS, device),
+            steps=LSTM_WARMUP + LSTM_STEPS),
+        job("seq2seq", lambda: build_s2s(s2s)[:3],
+            lambda s: s2s_feed(s2s, device)),
+        job("sparse_sgd", lambda: build_sparse(
+            True, lambda: SPARSE_RUNS["sgd"](pt)),
+            lambda s: _on(device, sparse[s]), rows=sparse),
+        job("sparse_lazy_adam", lambda: build_sparse(
+            True, lambda: SPARSE_RUNS["lazy_adam"](pt)),
+            lambda s: _on(device, sparse[s]), rows=sparse),
+        job("bert_bf16", lambda: build_amp_bert(bert, T, masked, "bfloat16"),
+            lambda s: bert_feed(s, False), bf16=True),
+        job("bert_f16", lambda: build_amp_bert(bert, T, masked, "float16",
+                                               **DPS_F16),
+            lambda s: bert_feed(s, True), f16=True),
+    ]
+
+
+def _dps_touched(job):
+    """The table rows a sparse job's feeds touch (as table indices)."""
+    return np.unique(np.concatenate([f["ids"].ravel() for f in job["rows"]])
+                     % SPARSE_VOCAB)
+
+
+def _dps_params(job, main, scope):
+    """The job's parameters as host float32 (whole; a sparse table's
+    touched rows only)."""
+    from paddle_tpu_torch.core.spmd import whole_value
+
+    out = {}
+    for p in main.all_parameters():
+        v = whole_value(scope, p.name, scope.find_var(p.name))
+        if "rows" in job and p.name == "table":
+            import torch
+
+            v = v[torch.from_numpy(_dps_touched(job)).to(v.device)]
+        out[p.name] = v.detach().float().cpu()
+    return out
+
+
+def _dps_run(job, exe, device, mode):
+    """One job's steps from its startup: ``mode`` None (one rank, no
+    mesh), "world" (with_data_parallel() over the process group) or
+    "data2" ({data: 2} over the two ranks) -> (report, program, scope,
+    the parameters after the startup)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.compiler import CompiledProgram
+    from paddle_tpu_torch.parallel import build_mesh
+
+    main, startup, loss = job["build"]()
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    p0 = _dps_params(job, main, scope)
+    target = main
+    if mode == "world":
+        target = CompiledProgram(main).with_data_parallel(places=[exe.place])
+    elif mode == "data2":
+        target = CompiledProgram(main).with_data_parallel(
+            mesh=build_mesh({"data": 2}, device_type=device.type))
+    names = _amp_scaling_names(main) if job.get("f16") else {}
+    _free_card(device)
+    sync(device)
+    before = dict(_cuda.LAUNCHES)
+    losses, walls, scales = [], [], []
+    for s in range(job["steps"]):
+        feed = job["feed"](s)
+        t0 = time.perf_counter()
+        got = exe.run(target, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0]
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(got))
+        if names:
+            scales.append(tuple(float(scope.find_var(names[k]).item())
+                                for k in ("loss_scaling", "good_steps",
+                                          "bad_steps")))
+    launches = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+    plan = next((lw.mesh_plan for lw in main._exec_cache.values()
+                 if getattr(lw, "mesh_plan", None) is not None), None)
+    res = dict(losses=losses, scales=scales, launches=launches,
+               peak_bytes=peak,
+               # the first step lowers the program: the others are timed
+               step_ms=float(np.mean(walls[1:] or walls)) * 1e3,
+               stats={} if plan is None else dict(plan.last_stats))
+    if plan is not None and mode == "data2":
+        res["grad_sum"] = _dps_grad_sum(main, plan, device)
+    return res, main, scope, p0
+
+
+def _dps_compare(got, got0, ref):
+    """A rank's parameters ``got`` (after its startup: ``got0``) against
+    one rank's ``ref`` ({"p0": after the startup, "p": after the
+    steps}) -> (startups equal, max |d|, the largest relative change
+    error: |got - p| / |p - p0| per leaf, 0 where neither moved, and
+    that leaf's name)."""
+    import torch
+
+    same = all(torch.equal(got0[n], v) for n, v in ref["p0"].items())
+    dmax, rel, worst = 0.0, 0.0, None
+    for n, v in ref["p"].items():
+        d = float((got[n] - v).norm())
+        dmax = max(dmax, float((got[n] - v).abs().max()))
+        moved = float((v - ref["p0"][n]).norm())
+        r = d / moved if moved else (0.0 if d == 0 else float("inf"))
+        if worst is None or r > rel:
+            rel, worst = r, n
+    return same, dmax, rel, worst
+
+
+def _dps_grad_sum(main, plan, device):
+    """The gradient sum's bytes a step and its ms: the bucketed sum over
+    the data axis of zeros shaped like the summed gradients, timed
+    DPS_SUM_REPS times after one untimed call."""
+    import torch
+
+    from paddle_tpu_torch.parallel import _collectives as col
+    from paddle_tpu_torch.parallel import mesh as mesh_lib
+
+    block = main.global_block()
+    grads = [torch.zeros(tuple(block.var(n).shape), device=device)
+             for n in plan.grad_names]
+    group = mesh_lib.axis_group(plan.compiled.mesh, mesh_lib.DATA_AXIS)
+    col.sum_gradients(grads, group)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(DPS_SUM_REPS):
+        col.sum_gradients(grads, group)
+    sync(device)
+    return dict(bytes=int(sum(g.numel() * g.element_size() for g in grads)),
+                ms=(time.perf_counter() - t0) / DPS_SUM_REPS * 1e3,
+                tensors=len(grads))
+
+
+def _dps_rank(rank, store, out_dir, job_dev, ref_dir):
+    """One of phase 23's two gloo ranks on the card (or the CPU in a
+    rehearsal): every job of ``_dps_jobs`` at {data: 2}, each rank's
+    parameters after the steps held against the one-rank run's."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import set_strict_fp32
+
+    set_strict_fp32()
+    device = torch.device(job_dev.pop("device"))
+    globals().update(job_dev.pop("globals"))
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    res = {}
+    try:
+        exe = _executor(device)
+        for job in _dps_jobs(device):
+            r, main, scope, got0 = _dps_run(job, exe, device, "data2")
+            ref = torch.load(os.path.join(ref_dir, job["name"] + ".pt"),
+                             weights_only=False)
+            got = _dps_params(job, main, scope)
+            (r["same_start"], r["max_dparam"], r["max_dchange_rel"],
+             r["worst_leaf"]) = _dps_compare(got, got0, ref)
+            res[job["name"]] = r
+            del scope, main, got, got0, ref
+            _free_card(device)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"dps{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _dps_spawn(device, tmp, globals_):
+    import torch.multiprocessing as mp
+
+    job_dev = dict(device=str(device), globals=globals_)
+    ctx = mp.start_processes(
+        _dps_rank, args=(f"{tmp}/store", tmp, job_dev, tmp), nprocs=2,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + DPS_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            raise AssertionError(f"23: the gloo ranks still run after "
+                                 f"{DPS_TIMEOUT_S} s")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"dps{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _dps_collectives(device):
+    """The data axis's new collectives (parallel/_collectives.py) over
+    the live one-rank group on ``device`` (NCCL on the card): values and
+    gradients, which at one rank are the identity's (the max's tie share
+    and the product's other factors included) -> the largest error."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import _collectives as col
+
+    g = dist.group.WORLD
+    x = torch.randn(4, 3, device=device, requires_grad=True)
+    w = torch.randn(4, 3, device=device)
+    errs = []
+    for fn in (lambda t: col.gather_whole(t, g, 0),
+               lambda t: col.take_rows(t, g, 1 if t.dim() > 1 else 0)):
+        y = fn(x)
+        (gx,) = torch.autograd.grad((y * w).sum(), [x])
+        errs += [float((y.detach() - x.detach()).abs().max()),
+                 float((gx - w).abs().max())]
+    v = torch.tensor([3.0, 1.0, 3.0], device=device, requires_grad=True)
+    local = v.amax()
+    m = col.reduce_extreme(local, (v == local).sum(), g, "max")
+    (gv,) = torch.autograd.grad(m * 4.0, [v])
+    errs += [abs(float(m.detach()) - 3.0),
+             float((gv - torch.tensor([2.0, 0.0, 2.0], device=device))
+                   .abs().max())]
+    p = torch.tensor([2.0, 5.0], device=device, requires_grad=True)
+    prod = col.reduce_prod(p.prod(), g)
+    (gp,) = torch.autograd.grad(prod, [p])
+    errs += [abs(float(prod.detach()) - 10.0),
+             float((gp - torch.tensor([5.0, 2.0], device=device))
+                   .abs().max())]
+    flag = torch.tensor(True, device=device)
+    errs.append(0.0 if bool(col.reduce_logical(flag, g, "all"))
+                and bool(col.reduce_logical(~flag, g, "any")) is False
+                else 1.0)
+    rows = torch.arange(6, device=device).reshape(3, 2)
+    errs.append(float((col.gather_rows(rows, g) - rows).abs().max()))
+    return max(errs)
+
+
+def _dps_world1(device, exe, job, plain):
+    """23a: the stacked LSTM through with_data_parallel() over a one-rank
+    NCCL group against 21b's plain steps (``plain``: its losses and #10's
+    launches a step) -> (report, its parameters after the startup and
+    after the steps)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    on_card = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1)
+        try:
+            r, main, scope, p0 = _dps_run(job, exe, device, "world")
+            params = dict(p0=p0, p=_dps_params(job, main, scope))
+            r["collectives_max_err"] = _dps_collectives(device)
+        finally:
+            dist.destroy_process_group()
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    want = plain["launches_per_step"].get(fm.LAUNCH, 0) * job["steps"] \
+        if on_card else 0
+    dloss = max(abs(a - b) for a, b in zip(r["losses"], plain["losses"]))
+    log(f"  23a stacked LSTM at {LSTM_CLS['batch']} x {LSTM_CLS['seq']}, "
+        f"with_data_parallel() over a one-rank "
+        f"{'NCCL' if on_card else 'gloo'} group: losses "
+        + " ".join(f"{x:.6f}" for x in r["losses"])
+        + f" against 21b's " + " ".join(f"{x:.6f}" for x in plain["losses"])
+        + f": max |dloss| {dloss:.3e} (tol {SEQ_LOSS_TOL:g}); step "
+        f"{r['step_ms']:.1f} ms against 21b's {plain['step_ms']:.1f}; "
+        f"#10 launches {r['launches'].get(fm.LAUNCH, 0)} (want {want}); "
+        f"collectives {r['stats']}; the data axis's collectives over that "
+        f"group against the identity: max error "
+        f"{r['collectives_max_err']:.3e}")
+    if r["collectives_max_err"] != 0.0:
+        raise AssertionError(f"23a: the collectives over one rank part from "
+                             f"the identity by {r['collectives_max_err']}")
+    if not (np.isfinite(r["losses"]).all() and dloss <= SEQ_LOSS_TOL):
+        raise AssertionError(f"23a: losses {r['losses']} against 21b's "
+                             f"{plain['losses']}")
+    if r["launches"].get(fm.LAUNCH, 0) != want:
+        raise AssertionError(f"23a: #10 launched {r['launches']}, want "
+                             f"{want}")
+    r["max_dloss"] = dloss
+    return r, params
+
+
+def dp_seq_phase(device, plain_lstm):
+    """Phase 23: data-parallel training beyond the row-local ops.  23a the
+    stacked LSTM at LSTM_CLS width over one NCCL rank against 21b
+    (``plain_lstm``: phase 21b's report); then two gloo ranks sharing the
+    card at {data: 2}, each job against its one-rank run on the card:
+    23b the stacked LSTM, 23c seq2seq (StaticRNN, Adadelta under the
+    clip) at SEQ_SMALL and phase 13c's 1M-row sparse table under SGD and
+    lazy Adam (its SelectedRows rows gathered, no dense table gradient),
+    23d BERT-base at 2 layers under bf16 AMP (fused: #9, #5, #6, #10, #11
+    in bf16) and under fp16 loss scaling with an inf in one rank's
+    rows."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import _cuda
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    t0 = time.perf_counter()
+    on_card = device.type == "cuda"
+    exe = _executor(device)
+    jobs = _dps_jobs(device)
+    out = {"jobs": {}}
+    _cuda.reset_launches()
+    lstm_one, lstm_params = _dps_world1(device, exe, jobs[0], plain_lstm)
+    out["world1"] = lstm_one
+    launches = dict(lstm_one["launches"])
+    one = {"lstm": lstm_one}
+    # #10's shapes on a rank at {data: 2}: held in phase 2 (GEMM_CASES)
+    main, _, loss = jobs[0]["build"]()
+    rows = LSTM_CLS["batch"] // 2 * LSTM_CLS["seq"]
+    _, per_step, shapes = seq_plan_launches(
+        main, loss, ("words", "lens", "label"), rows)
+    held = {(M, K, N) for M, K, N, _ in GEMM_CASES.values()}
+    if on_card and not set(shapes) <= held:
+        raise AssertionError(f"23b: #10 shapes {set(shapes) - held} are not "
+                             f"GEMM_CASES cases")
+    del main
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(lstm_params, os.path.join(tmp, "lstm.pt"))
+        for job in jobs[1:]:
+            r, main, scope, p0 = _dps_run(job, exe, device, None)
+            torch.save(dict(p0=p0, p=_dps_params(job, main, scope)),
+                       os.path.join(tmp, job["name"] + ".pt"))
+            one[job["name"]] = r
+            del main, scope
+            _free_card(device)
+        t1 = time.perf_counter()
+        ranks = _dps_spawn(device, tmp, dict(
+            LSTM_CLS=LSTM_CLS, LSTM_WARMUP=LSTM_WARMUP,
+            LSTM_STEPS=LSTM_STEPS, SEQ_SMALL=SEQ_SMALL, DPS_STEPS=DPS_STEPS,
+            DPS_BERT=DPS_BERT, DPS_BERT_CFG=DPS_BERT_CFG,
+            SPARSE_VOCAB=SPARSE_VOCAB, SPARSE_DIM=SPARSE_DIM,
+            SPARSE_IDS=SPARSE_IDS, DPS_SUM_REPS=DPS_SUM_REPS))
+        out["spawn_s"] = time.perf_counter() - t1
+    for name, ref in one.items():
+        got = [r[name] for r in ranks]
+        j = out["jobs"][name] = dict(one_rank=ref, ranks=got)
+        amp = name.startswith("bert")
+        j["max_dloss"] = max(abs(a - b) / (abs(b) if amp else 1.0)
+                             for g in got for a, b in zip(g["losses"],
+                                                          ref["losses"])
+                             if np.isfinite(b))
+        j["max_dparam"] = max(g["max_dparam"] for g in got)
+        worst = max(got, key=lambda g: g["max_dchange_rel"])
+        j["max_dchange_rel"] = worst["max_dchange_rel"]
+        j["worst_leaf"] = worst["worst_leaf"]
+        j["same_start"] = all(g["same_start"] for g in got)
+        sums = got[0].get("grad_sum", {})
+        log(f"  23{'b' if name == 'lstm' else 'd' if amp else 'c'}"
+            f" {name} at {{data: 2}}, two gloo ranks on the card: losses "
+            f"{[g['losses'] for g in got]} against one rank's "
+            f"{ref['losses']}: max |dloss| {j['max_dloss']:.3e}"
+            f"{' (relative)' if amp else ''}, params max |d| "
+            f"{j['max_dparam']:.3e}, relative to one rank's change "
+            f"{j['max_dchange_rel']:.3e} ({j['worst_leaf']})"
+            f"{'; the touched rows' if 'sparse' in name else ''}, "
+            f"startups equal {j['same_start']}; step "
+            f"{[round(g['step_ms'], 1) for g in got]} ms a rank against "
+            f"{ref['step_ms']:.1f} one rank; gradient sum "
+            f"{sums.get('bytes', 0)} B in {sums.get('tensors', 0)} tensors, "
+            f"{sums.get('ms', float('nan')):.2f} ms; peak "
+            f"{[g['peak_bytes'] for g in got]} B a rank against "
+            f"{ref['peak_bytes']}; launches a rank {got[0]['launches']} "
+            f"against one rank's {ref['launches']}; collectives "
+            f"{got[0]['stats']}"
+            + (f"; (scale, good, bad) {[g['scales'] for g in got]} against "
+               f"one rank's {ref['scales']}" if ref["scales"] else ""))
+        for k, n in got[0]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    out["gemm_shapes"] = shapes
+    out["per_step"] = per_step
+    failed = dp_seq_failures(out, on_card)
+    if failed:
+        raise AssertionError("23: " + "; ".join(failed))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 23 took {out['seconds']:.1f} s (the ranks "
+        f"{out['spawn_s']:.1f} s); launches {launches}")
+    return out
+
+
+def dp_seq_failures(out, on_card):
+    """Phase 23's gates on (b)-(d) of its report ``out`` -> the failed
+    ones, each a line."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_matmul as fm
+
+    failed = []
+    for name, j in out["jobs"].items():
+        ref, got = j["one_rank"], j["ranks"]
+        amp = name.startswith("bert")
+        if name == "bert_f16":
+            # both ranks skip the step whose rows hold the inf and halve
+            # the scale together, as one rank does
+            scales = [g["scales"] for g in got]
+            s0 = DPS_F16["init_loss_scaling"]
+            want = json.loads(json.dumps(ref["scales"]))
+            if not (scales[0] == scales[1] == want
+                    and scales[0][DPS_INF_STEP - 1][0] == s0
+                    and scales[0][DPS_INF_STEP][0] == s0 / 2):
+                failed.append(f"23d fp16: (scale, good, bad) {scales} "
+                              f"against {want}")
+        if not j["same_start"]:
+            failed.append(f"{name}: a rank's startup differs from one "
+                          f"rank's")
+        tol = DPS_AMP_LOSS_RTOL if amp else SEQ_LOSS_TOL
+        if not j["max_dloss"] <= tol:
+            failed.append(f"{name}: max |dloss| {j['max_dloss']} "
+                          f"(tol {tol})")
+        if not amp and not j["max_dparam"] <= SEQ_PARAM_TOL:
+            failed.append(f"{name}: params max |d| {j['max_dparam']} "
+                          f"(tol {SEQ_PARAM_TOL})")
+        ctol = DPS_AMP_CHANGE_RTOL if amp else DPS_CHANGE_RTOL
+        if not j["max_dchange_rel"] <= ctol:
+            failed.append(f"{name}: a leaf's change parts from one rank's "
+                          f"by {j['max_dchange_rel']} of it (tol {ctol})")
+        for g in got:
+            if g["stats"].get("whole_gathers", 0):
+                failed.append(f"{name}: whole gathers {g['stats']}")
+            if "sparse" in name and g["stats"].get(
+                    "sparse_row_gathers") != 1:
+                failed.append(f"{name}: collectives {g['stats']}")
+    lstm = out["jobs"]["lstm"]
+    for g in lstm["ranks"]:
+        want = out["per_step"].get(fm.LAUNCH, 0) * len(g["losses"]) \
+            if on_card else 0
+        if g["launches"].get(fm.LAUNCH, 0) != want:
+            failed.append(f"23b: #10 launched {g['launches']} a rank, "
+                          f"want {want}")
+    bf = out["jobs"]["bert_bf16"]
+    keys = [amp_name(k, torch.bfloat16) for k in DPS_BF16_KERNELS]
+    for g in bf["ranks"]:
+        seen = {k: g["launches"].get(k, 0) for k in keys}
+        want = {k: bf["one_rank"]["launches"].get(k, 0) for k in keys}
+        if seen != want or (on_card and not all(want.values())):
+            failed.append(f"23d: bf16 launches {seen} a rank, one rank's "
+                          f"{want}")
+    return failed
+
+
 def main():
     import torch
 
@@ -13339,6 +13874,15 @@ def main():
         report["kernels"].update(report["kv16"].pop("kernels"))
         for name, n in kv16_launches.items():
             report["kernels"][name]["launches"] = n
+        log("[23] data parallel beyond the row-local ops: the stacked LSTM "
+            "over one NCCL rank and two gloo ranks, seq2seq's StaticRNN, "
+            "the 1M-row sparse table's SelectedRows gradients, bf16 and "
+            "fp16 AMP BERT at {data: 2}")
+        _free_card(device)
+        report["dp_seq"] = dp_seq_phase(device, report["sequence"]["lstm"])
+        for name, n in report["dp_seq"]["launches"].items():
+            report["kernels"][name]["launches"] = \
+                report["kernels"][name].get("launches", 0) + n
         idle = [k["name"] for k in KERNELS
                 if not report["kernels"][k["name"]].get("launches")]
         if idle:
@@ -13592,6 +14136,22 @@ def main():
         resolved_block_rows=kv["resolved_block_rows"],
         reference=kv["reference"], handoff=kv["handoff"],
         artifact=kv["artifact"])}))
+    dps = report["dp_seq"]
+    print(json.dumps({"data_parallel_seq": dict(
+        card=card, seconds=dps["seconds"], spawn_s=dps["spawn_s"],
+        world1={k: dps["world1"][k] for k in (
+            "step_ms", "max_dloss", "launches", "stats",
+            "collectives_max_err")},
+        **{name: dict(
+            max_dloss=j["max_dloss"], max_dparam=j["max_dparam"],
+            max_dchange_rel=j["max_dchange_rel"],
+            worst_leaf=j["worst_leaf"], same_start=j["same_start"],
+            one_rank={k: j["one_rank"][k] for k in (
+                "losses", "step_ms", "peak_bytes", "launches")},
+            ranks=[{k: g.get(k) for k in (
+                "losses", "step_ms", "peak_bytes", "launches", "stats",
+                "scales", "grad_sum")} for g in j["ranks"]])
+           for name, j in dps["jobs"].items()})}))
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -153,7 +153,7 @@ class CompiledProgram:
                 raise NotImplementedError(
                     f"batch axes other than '{mesh_lib.DATA_AXIS}' "
                     f"({other}) are not ported (ROADMAP.md, Queue 1 item "
-                    f"5): split the batch over the data axis")
+                    f"5.4): split the batch over the data axis")
             self._batch_axes = tuple(batch_axes)
         self._mesh = mesh
         if param_rules is not None:

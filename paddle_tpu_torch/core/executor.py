@@ -380,7 +380,8 @@ class Executor:
         if compiled is not None and compiled.has_mesh:
             raise NotImplementedError(
                 "train_from_dataset over a mesh is not ported (ROADMAP.md, "
-                "Queue 1 item 5): run the CompiledProgram with Executor.run")
+                "Queue 1 item 5; the JAX package's loop takes no mesh): run "
+                "the CompiledProgram with Executor.run")
         scope = scope or global_scope()
         return run_from_dataset(self, program, dataset, scope, fetch_list,
                                 fetch_info, print_period, debug,

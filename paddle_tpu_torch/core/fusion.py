@@ -145,7 +145,7 @@ class FusionExec:
 
 
 def plan_fusion(program, ops, feed_names, fetch_names,
-                block_patterns=False):
+                block_patterns=False, exclude=frozenset()):
     """Match fusible GEMM-epilogue chains in a top-level op list.
 
     With ``block_patterns`` the pass additionally matches block-level
@@ -153,6 +153,9 @@ def plan_fusion(program, ops, feed_names, fetch_names,
     qkv-projection -> slice x3 -> fused_attention spans, and
     mul -> bias -> act -> mul FFN up/down chains (both with the same
     optional dropout/residual/norm tail as the single-GEMM matcher).
+
+    ``exclude``: op uids no group may hold (under a mesh, the ops that
+    do not run row by row: core/spmd.py).
 
     Returns a FusionPlan, or None when nothing fuses (or the program
     uses recompute/pipeline grads, whose forward re-traces would not see
@@ -232,7 +235,8 @@ def plan_fusion(program, ops, feed_names, fetch_names,
 
     # a group's grad ops (if any) must start at the LAST member — the
     # group cotangents are seeded from that op's output gradients
-    groups = [g for g in groups if _grad_order_ok(g, ops)]
+    groups = [g for g in groups if _grad_order_ok(g, ops)
+              and not any(m.uid in exclude for m in g.members)]
     if not groups:
         return None
     for gid, g in enumerate(groups):

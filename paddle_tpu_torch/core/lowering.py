@@ -65,13 +65,17 @@ one), each under ``torch.utils.checkpoint``, and the op takes
 ``autograd.grad`` of the unweighted mean of the per-microbatch losses.
 The fusion pass plans nothing in such a program (core/fusion.py).
 
-Meshes (a CompiledProgram with one): core/spmd.py plans the batch split,
-the forward sums, sync-BN, the gradient sum, the sharded storage and
-the Megatron split over a ``model`` axis once per lowering, and its
-``MeshExec`` runs them each step: an op the split plans runs through
-``MeshExec.run_op`` (its inputs' collectives, its attrs and random bits
-on the rank, its outputs' sums), inside the op's own autograd graph so
-that its ``vjp_grad`` differentiates through them.
+Meshes (a CompiledProgram with one): core/spmd.py plans the batch split
+(each op's class, the sub-blocks of the block ops included), the
+gradient sum, the sharded storage and the Megatron split over a
+``model`` axis once per lowering, and its ``MeshExec`` runs them each
+step: an op runs through ``MeshExec.run`` (its inputs gathered whole or
+its outputs summed over the batch, its inputs' collectives, its attrs
+and random bits on the model rank, its outputs' sums), inside the op's
+own autograd graph so that its ``vjp_grad`` differentiates through
+them.  The block ops convert their carried values before a loop
+(``MeshExec.block_pre``); the fusion pass plans no group around an op
+that does not run row by row under the mesh.
 
 AMP (``program._amp_dtype``, set by contrib/mixed_precision's
 ``decorate``): the dtype policy applies to every op's inputs just before
@@ -175,10 +179,6 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
     _mark_shared_vjps(ops)
     # a program cloned for test runs every op with is_test semantics
     is_test = program.is_test
-    fusion_plan = None
-    if fuse_epilogues and block_idx == 0:
-        fusion_plan = plan_fusion(program, ops, feed_names, fetch_names,
-                                  block_patterns=fuse_block_epilogues)
     recompute = _plan_recompute(program, ops, fetch_names, persist_out)
     mplan = None
     if mesh is not None and mesh.has_mesh:
@@ -189,16 +189,19 @@ def lower_block(program: Program, block_idx: int, feed_names, fetch_names,
                    if _persistable(block, n)]
         mplan = spmd.plan_mesh(program, ops, mesh, feed_names, persist,
                                remote)
-        if fusion_plan is not None:
-            fused = set(fusion_plan.skip_uids) | set(fusion_plan.by_last)
-            bad = fused & set(mplan.forward_sums)
-            if bad:
-                raise NotImplementedError(
-                    f"a fused group holds a reduction over the batch "
-                    f"({spmd.ITEM5})")
         mut = tuple(n for n in mut if n not in remote)
         const = tuple(n for n in const if n not in remote)
         persist_out = tuple(n for n in persist_out if n not in remote)
+    fusion_plan = None
+    if fuse_epilogues and block_idx == 0:
+        # under a mesh a group is cut where one of its ops does not run
+        # row by row (a sum over the batch inside a product's chain)
+        fusion_plan = plan_fusion(
+            program, ops, feed_names, fetch_names,
+            block_patterns=fuse_block_epilogues,
+            exclude=frozenset() if mplan is None else frozenset(
+                uid for uid, m in mplan.modes.items()
+                if m.kind != "local"))
     start = recompute.op_index if recompute is not None else 0
     # the gradient sum runs between rest[:sync] and rest[sync:]
     sync = len(ops) if mplan is None else max(mplan.sync_index - start, 0)
@@ -381,10 +384,11 @@ def _interp_ops(program, ops, env, seed, vjps, vjp_uids, device,
 
 
 def _compute(opdef, ctx, ins, op, mx):
-    """One op's compute; under a mesh, a reduction over the batch goes
-    through the forward sum, batch statistics are the global batch's, an
-    op of the model split runs on the rank's part and an update op's
-    parameter comes back whole (core/spmd.py)."""
+    """One op's compute; under a mesh, an op that reads batch-sharded
+    values runs as its class says (core/spmd.py: a sum over the batch,
+    sync-BN, the op on the whole batch, ...), an op of the model split
+    runs on the rank's part and an update op's parameter comes back
+    whole."""
     if mx is None:
         return opdef.compute(ctx, ins, op.attrs)
     if op.uid in mx.plan.moe:
@@ -393,12 +397,8 @@ def _compute(opdef, ctx, ins, op, mx):
             return opdef.compute(ctx, ins, op.attrs)
         finally:
             mx.moe_mode = None
-    if op.uid in mx.plan.sync_bn:
-        return mx.sync_batch_norm(ins, op.attrs)
-    outs = mx.run_op(opdef, ctx, ins, op)
-    if op.uid in mx.plan.forward_sums:
-        outs = mx.reduce_outs(op, outs)
-    elif op.uid in mx.plan.update_ops:
+    outs = mx.run(opdef, ctx, ins, op)
+    if op.uid in mx.plan.update_ops:
         outs = mx.gather_update(op, outs)
     return outs
 
@@ -455,8 +455,22 @@ def _run_subblock(program, block_idx, env, seed, device, is_test):
 
 def _truth(t):
     """A scalar condition tensor as a Python bool (a host sync on the
-    card)."""
+    card).  Under a mesh it is the same on every rank (core/spmd.py,
+    "Control flow")."""
     return bool(t.reshape(()))
+
+
+def _mesh_pre(op, env):
+    """Under a mesh, a block op's loop values split as its sub-block
+    wants them (core/spmd.py ``BlockMode.pre``)."""
+    mx = spmd.active()
+    if mx is not None:
+        mx.block_pre(op, env)
+
+
+def _branch_out(op, blk, j, v):
+    mx = spmd.active()
+    return v if mx is None else mx.branch_out(op, blk, j, v)
 
 
 def _run_while(program, op, ins, outer_env, seed, device, is_test):
@@ -478,6 +492,7 @@ def _run_while(program, op, ins, outer_env, seed, device, is_test):
     cond_name = op.inputs["Condition"][0]
     out_names = list(op.outputs["Out"])
     base_env = _subblock_env(op, ins, outer_env)
+    _mesh_pre(op, base_env)
     sub_idx = op.attrs["sub_block"]
     max_iters = op.attrs.get("max_iters")
     carry = {n: base_env[n] for n in sorted(set(out_names) | {cond_name})}
@@ -507,7 +522,8 @@ def _run_cond(program, op, ins, outer_env, seed, device, is_test):
                             op.attrs["false_out_names"])
     env = dict(base_env)
     _run_subblock(program, block_idx, env, seed, device, is_test)
-    return {"Out": [env[n] for n in names]}
+    return {"Out": [_branch_out(op, block_idx, j, env[n])
+                    for j, n in enumerate(names)]}
 
 
 def _run_switch(program, op, ins, outer_env, seed, device, is_test):
@@ -528,12 +544,16 @@ def _run_switch(program, op, ins, outer_env, seed, device, is_test):
         denv = dict(base_env)
         _run_subblock(program, default_block, denv, seed, device, is_test)
     outs = []
-    for n in op.outputs["Out"]:
+    for j, n in enumerate(op.outputs["Out"]):
         acc = denv.get(n, base_env.get(n))
-        for cname, cenv in zip(reversed(cond_names), reversed(case_envs)):
+        if default_block is not None and acc is not None:
+            acc = _branch_out(op, default_block, j, acc)
+        for cname, cenv, bi in zip(reversed(cond_names), reversed(case_envs),
+                                   reversed(op.attrs["case_blocks"])):
             v = cenv.get(n)
             if v is None:
                 continue
+            v = _branch_out(op, bi, j, v)
             pred = base_env[cname].reshape(()).to(torch.bool)
             acc = torch.where(pred, v, acc)
         outs.append(acc)
@@ -547,6 +567,7 @@ def _run_static_rnn(program, op, ins, outer_env, seed, device, is_test):
     axis 0, and step ``t`` draws from ``fold_seed(seed, t)``.  No host
     sync."""
     base_env = _subblock_env(op, ins, outer_env)
+    _mesh_pre(op, base_env)
     sub_idx = op.attrs["sub_block"]
     xs = list(zip(op.attrs["x_local_names"], op.inputs.get("X", [])))
     mem_locals = op.attrs["mem_local_names"]
@@ -655,8 +676,10 @@ def _run_recompute_grad(op, env, vjps):
     leaves = vjps.pop(op.uid)
     loss = env[op.inputs["Loss"][0]]
     names = list(op.inputs["Params"])
+    mx = spmd.active()
+    seed = torch.ones_like(loss) * (1.0 if mx is None else mx.seed_scale())
     grads = torch.autograd.grad([loss], [leaves[n] for n in names],
-                                [torch.ones_like(loss)], allow_unused=True)
+                                [seed], allow_unused=True)
     return {"Grad": [torch.zeros_like(leaves[n]) if g is None else g
                      for n, g in zip(names, grads)]}
 
@@ -1079,8 +1102,10 @@ def _run_pipeline_grad(program, op, env, seed, device, is_test):
             losses.append(penv[pp.loss_name].reshape(()))
         loss = torch.stack(losses).mean()
     names = [n for n in pp.param_names if n in leaves]
+    scale = 1.0 if mx is None else mx.seed_scale()
     grads = dict(zip(names, torch.autograd.grad(
-        [loss], [leaves[n] for n in names], allow_unused=True)))
+        [loss], [leaves[n] for n in names], [torch.full_like(loss, scale)],
+        allow_unused=True)))
     return {"Loss": [loss.detach()],
             "Grad": [UNBOUND if n not in leaves else
                      (torch.zeros_like(leaves[n]) if grads[n] is None

@@ -8,35 +8,90 @@ runs (``MeshExec``, once per step) the collectives that keep the
 semantics global:
 
 * **Batch-sharded values.**  Every feed of rank >= 1 is split along dim
-  0 over the batch axes; a value derived from one along dim 0 stays
-  split.  The ops that may read such a value:
+  0 over the batch axes; a value derived from one stays split, along
+  the dim its op moves the batch to (``MeshPlan.batch_dims``: a
+  time-major transpose leaves it split along dim 1, a StaticRNN's step
+  input along dim 0 again).  Every registered op has a class
+  (``OP_CLASSES``; ``op_class``), which decides how it reads such a
+  value:
 
-  - row-local ops (``ROW_LOCAL``: elementwise, activations, casts and
-    comparisons, ``mul``/``matmul`` over the last dims, ``layer_norm``,
-    dropout, ``lookup_table``, the attention op, the convolutions and
-    pooling, the per-row losses) and
-    the ops of ``AXIS_OPS`` (softmax, concat, reshape, transpose, ...)
-    when they leave dim 0 alone: they run unchanged;
-  - the reductions ``reduce_sum``, ``reduce_mean`` and ``mean`` over dim
-    0 (or over everything): the rank's partial result goes through
-    ``forward_sum`` (its backward passes the cotangent through
-    unscaled), so a count-normalized loss divides the global sum by the
-    global count;
-  - ``moe_ffn`` (ops/moe.py), which routes the global token set itself;
-  - ``batch_norm`` in training (sync-BN, as the JAX package's statistics
-    are the global batch's): the channel sums and the count go through
-    one all-reduce, the global mean's squared deviations through a
-    second, both with an all-reduce backward (``sum_both_ways``: each
-    rank's rows feed the statistics every rank reads); the running
-    statistics follow the global ones on every rank.
+  - ``elementwise`` and ``row`` ops act within one row of the batch dim
+    (``row``: the padded sequence layout keeps a sequence in a row, so
+    ``lstm``, ``gru``, the ``sequence_*`` ops and the fused RNN and fc
+    ops are row ops at dim 0, ``cudnn_lstm`` at its time-major dim 1;
+    products, lookups, norms and per-row losses at any leading dim);
+    ``axis`` and ``shape`` ops too while they leave the batch dim whole
+    (``_Planner.local_dims``): they run unchanged;
+  - ``sum`` reductions over the batch dim (``reduce_sum``,
+    ``reduce_mean``, ``mean``, ``accuracy``, ``squared_l2_norm``) sum
+    the ranks' partial results (``sum_both_ways``), so a
+    count-normalized loss divides the global sum by the global count;
+  - ``extreme`` reductions over it (``reduce_max``/``min``/``prod``/
+    ``all``/``any``) reduce the partials by their own kind
+    (``reduce_extreme``: the backward goes to the tied elements of
+    every rank, evenly, as jnp.max's does; ``reduce_prod``;
+    ``reduce_logical``);
+  - ``batch_stats``: ``batch_norm`` and ``fused_batch_norm_act`` in
+    training take the global batch's statistics (sync-BN,
+    ``MeshExec.sync_batch_norm``: the channel sums and the count through
+    one all-reduce, the squared deviations through a second, both with
+    an all-reduce backward; ``fused_batch_norm_act`` then applies its
+    ``act_type`` as its own compute does); the running statistics follow
+    the global ones on every rank;
+  - ``size``: ``shape`` reports the global batch dim;
+  - ``moe``: ``moe_ffn`` (ops/moe.py) routes the global token set;
+  - ``sparse_grad``: ``lookup_table_sparse_grad`` runs on the rank's
+    ids; its (Values, Rows) pair is gathered whole at the gradient sum;
+  - ``whole`` — the row movers (``gather``, ``scatter``, ``gather_nd``,
+    ``gather_mm``, ``fusion_transpose_flatten_concat``, an ``axis`` or
+    ``shape`` op along the batch dim), the metrics (``auc``, a stateless
+    rank statistic of the batch) and beam search, and any ``after_sum``
+    or ``source`` op that reads a batch-sharded value: its batch-sharded
+    inputs are gathered whole (``gather_whole``), every rank runs the op
+    on the global batch, and an output that keeps the batch dim
+    (``RESHARD``: cumsum, softmax and concat along it) is cut to
+    the rank's rows again (``take_rows``); the others stay whole;
+  - ``after_sum`` ops (the optimizers and update ops, the clips,
+    ``check_finite_and_unscale``, ``update_loss_scaling``, ``isfinite``,
+    the SelectedRows ops) read summed gradients: every rank holds the
+    same values, so every rank takes the same step, skips the same
+    AMP step and keeps the same loss scale.
 
-  Any other op that reads a batch-sharded value raises, naming the op
-  and Queue 1 item 5.
-* **Gradients.**  The backward is linear in the cotangents, so each
-  rank's parameter gradients are its part of the global ones; after the
-  last op that writes a parameter gradient they are summed over the data
-  axis (``sum_gradients``, bucketed), before clipping, regularization
-  and the update read them.
+* **Control flow.**  ``while``, ``conditional_block``, ``switch`` and
+  ``static_rnn`` are planned through their sub-blocks with the same
+  classes: a StaticRNN's step input split along dim d > 0 is split along
+  d - 1 in the step (one split along its time dim 0 is gathered whole
+  first), its step outputs stacked along a new dim 0 are split one dim
+  further out; a loop-carried value or memory whose body splits it
+  starts as the rank's rows of its initial value (or whole, the other
+  way round).  A condition the host reads (``while``,
+  ``conditional_block``, ``switch``) is the same on every rank, so every
+  rank runs the same trips and branches: one that is itself
+  batch-sharded (a per-row predicate where a scalar is read) is refused,
+  as the JAX package's ``lax`` loops and branches refuse one, and any
+  other that derives from batch data does so through a ``sum``,
+  ``extreme``, ``size`` or ``whole`` op, whose result is already reduced
+  over ``data`` (each element of an all-reduce comes out of one
+  reduction, sent to every rank) or computed from the gathered batch on
+  every rank alike.
+
+* **Gradients: the rule for whole values.**  A rank's cotangent of a
+  batch-sharded value is that of its own rows, exact.  A rank's
+  cotangent of a whole value (a parameter, a reduction's result, a row
+  mover's whole output, the loss) is its *share*: the shares of the
+  ranks add up to the cotangent.  So the loss's seed is 1/P on each of
+  the P ranks over ``data`` (``MeshPlan.seeds``; Recompute's and the
+  pipeline's seeds too); a sum over the batch sums the shares again in
+  its backward (``sum_both_ways``); ``gather_whole``'s backward is a
+  reduce-scatter, ``take_rows``'s puts the rank's rows back among
+  zeros.  A parameter that every rank reads whole after a gather gets a
+  share of its gradient on each rank, and the parameter gradients are
+  summed over the data axis (``sum_gradients``, bucketed) after the last
+  op that writes one, before clipping, regularization and the update
+  read them; SelectedRows gradients are gathered there instead
+  (``gather_rows``, the ranks' row counts first), so the sparse updates
+  see the global gradient and no dense table gradient is formed.
+
 * **The Megatron split** (a ``model`` axis of P > 1 ranks; the JAX
   package hands the same rules to XLA's partitioner): ``plan_split``
   propagates a second property beside the batch split, values split
@@ -82,7 +137,7 @@ semantics global:
   is then gathered again (over ``data`` alone for a parameter the split
   consumes).  The step writes shards back.
 * **Fetches** come back global: a batch-sharded value is gathered along
-  dim 0, a sharded accumulator whole.
+  its batch dim, a sharded accumulator whole.
 """
 from __future__ import annotations
 
@@ -100,9 +155,17 @@ from .program import EMPTY_VAR_NAME, GRAD_SUFFIX
 
 ITEM5 = "ROADMAP.md, Queue 1 item 5"
 
-#: ops that work row by row: every output row depends on the same rows of
-#: the batch-sharded inputs
-ROW_LOCAL = frozenset("""
+#: the ops that run sub-blocks (core/lowering.py's BLOCK_OPS)
+BLOCK_OPS = ("while", "conditional_block", "switch", "static_rnn")
+
+
+def _words(s):
+    return frozenset(s.split())
+
+
+#: every registered op's class under a batch split (module docstring)
+OP_CLASSES = {
+    "elementwise": _words("""
 abs acos asin atan ceil cos cosh erf exp floor log log10 log1p log2
 reciprocal round rsqrt sign sin sinh sqrt square tan tanh
 relu relu6 elu gelu leaky_relu sigmoid logsigmoid softplus softsign swish
@@ -111,68 +174,104 @@ elementwise_add elementwise_sub elementwise_mul elementwise_div
 elementwise_max elementwise_min elementwise_pow elementwise_mod
 elementwise_floordiv pow scale clip maximum_eps where
 equal not_equal less_than less_equal greater_than greater_equal
-logical_and logical_or logical_xor logical_not cast assign sum
-dropout layer_norm lookup_table mul matmul fused_attention one_hot
-conv2d depthwise_conv2d conv2d_transpose pool2d label_smooth
-softmax_with_cross_entropy cross_entropy sigmoid_cross_entropy_with_logits
-huber_loss smooth_l1_loss mse_loss tril_triu
+logical_and logical_or logical_xor logical_not cast assign sum dropout
+sigmoid_cross_entropy_with_logits huber_loss smooth_l1_loss mse_loss
+fused_elemwise_activation"""),
+    "row": _words("""
+mul matmul fc lookup_table layer_norm one_hot label_smooth tril_triu
+softmax_with_cross_entropy cross_entropy cos_sim fused_attention
+conv2d depthwise_conv2d conv2d_transpose pool2d conv2d_fusion
 fill_constant_batch_size_like uniform_random_batch_size_like
 gaussian_random_batch_size_like
-""".split())
+lstm gru lstmp cudnn_lstm lstm_unit gru_unit fusion_lstm fusion_gru
+sequence_concat sequence_conv sequence_enumerate sequence_erase
+sequence_expand sequence_expand_as sequence_mask sequence_pad
+sequence_pool sequence_reshape sequence_reverse sequence_scatter
+sequence_slice sequence_softmax sequence_unpad
+fused_embedding_seq_pool fused_fc_elementwise_layernorm
+fusion_repeated_fc_relu fusion_seqconv_eltadd_relu
+fusion_seqexpand_concat_fc fusion_seqpool_concat fusion_seqpool_cvm_concat
+fusion_squared_mat_sub multihead_matmul"""),
+    "axis": _words("""
+softmax log_softmax cumsum concat split stack unstack arg_max arg_min
+top_k"""),
+    "shape": _words("reshape transpose squeeze unsqueeze slice expand pad"),
+    "sum": _words("reduce_sum reduce_mean mean accuracy squared_l2_norm"),
+    "extreme": _words("reduce_max reduce_min reduce_prod reduce_all "
+                      "reduce_any"),
+    "batch_stats": _words("batch_norm fused_batch_norm_act"),
+    "size": _words("shape"),
+    "moe": _words("moe_ffn"),
+    "sparse_grad": _words("lookup_table_sparse_grad"),
+    "whole": _words("""
+gather gather_nd scatter gather_mm fusion_transpose_flatten_concat auc
+beam_search beam_search_decode frobenius_norm"""),
+    "after_sum": _words("""
+sgd momentum adam adamw adamax adagrad adadelta decayed_adagrad rmsprop
+ftrl lamb lars_momentum dpsgd sgd_sparse adam_sparse
+check_finite_and_unscale update_loss_scaling isfinite clip_by_norm
+dgc_clip_by_norm average_accumulates increment merge_selected_rows
+get_tensor_from_selected_rows sparse_to_dense_grad clip_sparse
+squared_l2_norm_sparse"""),
+    "source": _words("""
+fill_constant assign_value range uniform_random gaussian_random
+truncated_gaussian_random"""),
+}
+_CLASS_OF = {t: c for c, ts in OP_CLASSES.items() for t in ts}
 
-#: ops that are row-local unless their axis attr names dim 0
-AXIS_OPS = {"softmax": ("axis", -1), "log_softmax": ("axis", -1),
-            "cumsum": ("axis", -1), "concat": ("axis", 0),
-            "split": ("axis", 0), "stack": ("axis", 0),
-            "unstack": ("axis", 0), "arg_max": ("axis", -1),
-            "arg_min": ("axis", -1), "top_k": (None, -1)}
-
-#: reductions that become a forward sum when they reduce dim 0 (top-1
-#: accuracy is a mean over the rows)
-REDUCTIONS = {"reduce_sum": "sum", "reduce_mean": "mean", "mean": "mean",
-              "accuracy": "mean"}
-
-def _leaves_dim0(op, ndim):
-    """Whether a shape op keeps dim 0 where it is (a batch-sharded input
-    stays split along dim 0 of its output)."""
-    a = op.attrs
-    if op.type == "reshape":
-        shape = list(a.get("shape", ()))
-        return bool(shape) and shape[0] in (0, -1)
-    if op.type == "transpose":
-        perm = list(a.get("axis", ()))
-        return bool(perm) and perm[0] == 0
-    if op.type == "unsqueeze":
-        axes = a.get("axes") or ()
-        return 0 not in [x % (ndim + len(axes)) for x in axes]
-    if op.type == "squeeze":
-        axes = a.get("axes") or ()
-        return bool(axes) and 0 not in [x % max(ndim, 1) for x in axes]
-    if op.type == "slice":
-        return 0 not in [x % max(ndim, 1) for x in a.get("axes", ())]
-    if op.type == "expand":
-        times = list(a.get("expand_times", ()))
-        return not times or times[0] == 1
-    if op.type == "pad":
-        p = list(a.get("paddings", ()))
-        return len(p) < 2 or (p[0] == 0 and p[1] == 0)
-    return False
+#: ``axis`` ops whose output along the batch dim is a batch again: after
+#: they run on the whole value, the rank takes its rows back
+RESHARD = frozenset("softmax log_softmax cumsum concat".split())
+#: the batch dim of a ``row`` op other than dim 0: the products, lookups,
+#: norms and per-row losses take any leading dim (``_Planner.local_dims``),
+#: the sequence, recurrent, convolution and fused ops dim 0, or this
+_AT_DIM = {"cudnn_lstm": 1}
+#: outputs of a row op that hold no batch rows
+_NOT_ROWS = {"fusion_squared_mat_sub": ("SquaredY",)}
+#: the reductions of the ``extreme`` class, by op
+_EXTREME = {"reduce_max": "max", "reduce_min": "min", "reduce_prod": "prod",
+            "reduce_all": "all", "reduce_any": "any"}
+#: ``sum`` reductions: a forward sum, or a sum then a division by P
+_SUM_KIND = {"reduce_sum": "sum", "reduce_mean": "mean", "mean": "mean",
+             "accuracy": "mean", "squared_l2_norm": "sum"}
 
 
-SHAPE_OPS = ("reshape", "transpose", "squeeze", "unsqueeze", "slice",
-             "expand", "pad")
+def op_class(op_type):
+    """The class of ``op_type`` under a batch split (``OP_CLASSES``), or
+    None for an op this module does not know."""
+    return _CLASS_OF.get(op_type)
 
 
-def _reduces_dim0(op, ndim):
-    if op.type in ("mean", "accuracy"):
-        return True
-    dim = op.attrs.get("dim", None)
-    if op.attrs.get("reduce_all", False) or dim is None:
-        return True
-    dims = dim if isinstance(dim, (list, tuple)) else [dim]
-    if not dims:
-        return False
-    return 0 in [d % max(ndim, 1) for d in dims]
+@dataclasses.dataclass
+class OpMode:
+    """How one op that reads a batch-sharded value runs on its rank.
+    ``kind``: "local" (unchanged), "sum" (a sum over the batch: ``how``
+    "sum" or "mean"), "extreme" (``how`` the reduction, ``dims`` the
+    input dims it reduces, ``keep`` its keep_dim), "sync_bn", "size"
+    (``dims`` (the batch dim,)), "moe" or "whole" (``gather``: (slot,
+    j) -> the dim to gather; ``reshard``: (slot, j) -> the dim to cut
+    the rank's rows along)."""
+
+    kind: str
+    how: str = ""
+    dims: tuple = ()
+    keep: bool = False
+    gather: dict = dataclasses.field(default_factory=dict)
+    reshard: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class BlockMode:
+    """How a block op's sub-blocks run on the rank.  ``pre``: outer name
+    -> (its batch dim or None, the dim the loop wants or None): a step
+    input split along time, or a carried value or memory that the body
+    splits otherwise, is gathered whole and/or cut to the rank's rows
+    before the loop; ``outs``: (branch block, Out j) -> the dim a
+    branch's output is gathered along (the branches split it unlike each
+    other)."""
+
+    pre: dict = dataclasses.field(default_factory=dict)
+    outs: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -180,8 +279,8 @@ class MeshPlan:
     """What ``plan_mesh`` derives from the program, once per lowering."""
 
     compiled: object
-    batch_sharded: frozenset      # names split along dim 0
-    forward_sums: dict            # op uid -> "sum" | "mean"
+    batch_dims: dict              # batch-sharded name -> its batch dim
+    modes: dict                   # op uid -> OpMode (batch-reading ops)
     sync_index: int               # block-0 op index of the gradient sum
     grad_names: tuple             # parameter gradients summed over data
     specs: dict                   # persistable -> storage Sharding
@@ -191,7 +290,10 @@ class MeshPlan:
     skip_uids: frozenset          # update ops of another stage's params
     remote: frozenset             # names another pipeline rank holds
     split: object = None          # SplitPlan under a model axis, or None
-    sync_bn: frozenset = frozenset()   # batch_norm uids on batch statistics
+    blocks: dict = dataclasses.field(default_factory=dict)  # uid->BlockMode
+    seeds: frozenset = frozenset()   # fill_constant uids of loss seeds
+    #: (Values, Rows) of each SelectedRows gradient gathered at the sum
+    sparse_grads: tuple = ()
     #: the steps' collectives and whole gathers so far (MeshExec adds
     #: each step's), and the last step's alone
     stats: collections.Counter = dataclasses.field(
@@ -204,97 +306,107 @@ def _var_shape(block, name):
     return None if var is None or var.shape is None else tuple(var.shape)
 
 
+def _axes(a, ndim):
+    a = a if isinstance(a, (list, tuple)) else [a]
+    return [int(x) % max(ndim, 1) for x in a]
+
+
+def _reduced(op, ndim):
+    """The dims a reduction op reduces (every dim for a full one)."""
+    if op.type in ("mean", "accuracy", "squared_l2_norm"):
+        return list(range(ndim))
+    dim = op.attrs.get("dim", None)
+    if op.attrs.get("reduce_all", False) or dim is None:
+        return list(range(ndim))
+    return _axes(dim, ndim)
+
+
+def _after_reduce(d, dims, keep):
+    """Where dim ``d`` lands after reducing ``dims`` (not one of them)."""
+    return d if keep else d - sum(x < d for x in dims)
+
+
+def _shape_dim(op, d, ndim, out_ndim):
+    """Where a shape op moves batch dim ``d``, or None when it cuts,
+    merges or expands that dim."""
+    a = op.attrs
+    t = op.type
+    if t == "transpose":
+        perm = _axes(a.get("axis", ()), ndim)
+        return perm.index(d) if d in perm else None
+    if t == "reshape":
+        shape = list(a.get("shape", ()))
+        # the dims up to d are copied ("0") or the batch dim alone is
+        # inferred ("-1") with every later dim kept as a literal
+        if d < len(shape) and all(s == 0 for s in shape[:d]) \
+                and shape[d] in (0, -1):
+            return d
+        return None
+    if t == "unsqueeze":
+        axes = sorted(_axes(a.get("axes") or (), out_ndim))
+        nd = d
+        for x in axes:
+            if x <= nd:
+                nd += 1
+        return nd
+    if t == "squeeze":
+        axes = _axes(a.get("axes") or (), ndim)
+        if not axes or d in axes:
+            return None
+        return d - sum(x < d for x in axes)
+    if t == "slice":
+        return None if d in _axes(a.get("axes", ()), ndim) else d
+    if t == "expand":
+        times = list(a.get("expand_times", ()))
+        return d if not times or times[d] == 1 else None
+    if t == "pad":
+        p = list(a.get("paddings", ()))
+        return d if len(p) < 2 * d + 2 or (p[2 * d] == 0
+                                           and p[2 * d + 1] == 0) else None
+    return None
+
+
+def _refuse(op, name, how):
+    raise NotImplementedError(
+        f"op '{op.type}' reads the batch-sharded value '{name}'"
+        f"{' ' + how if how else ''} ({ITEM5})")
+
+
 def plan_mesh(program, ops, compiled, feed_names, persist_names,
               remote=frozenset()):
-    """The mesh plan of block 0's op list (see the module docstring);
-    raises for a program that reads a batch-sharded value in an op this
-    module does not know how to run under a batch split.  ``remote``:
-    the parameters (and their gradients and accumulators) another
-    pipeline stage's rank holds — their update ops are skipped here."""
+    """The mesh plan of block 0's op list and its sub-blocks (see the
+    module docstring); raises for a program whose ops this module has no
+    class for.  ``remote``: the parameters (and their gradients and
+    accumulators) another pipeline stage's rank holds — their update ops
+    are skipped here."""
     block = program.global_block()
     batch_axes = compiled.batch_axes
-    sharded = set()
+    dims = {}
     if batch_axes:
         for n in feed_names:
             shp = _var_shape(block, n)
             if shp is None or len(shp) >= 1:
-                sharded.add(n)
-    forward_sums, moe, sync_bn = {}, {}, set()
-    fwd_inputs = {}
-
-    def visit(op_list):
-        for op in op_list:
-            ins = [n for n in op.input_names() if n != EMPTY_VAR_NAME]
-            hit = [n for n in ins if n in sharded]
-            outs = [n for n in op.output_names() if n != EMPTY_VAR_NAME]
-            fwd_inputs[op.uid] = op.inputs
-            if op.type == "moe_ffn":
-                moe[op.uid] = (op.inputs["X"][0] in sharded,
-                               op.inputs["W1"][0])
-            if op.type == "vjp_grad":
-                src = fwd_inputs.get(op.attrs.get("fwd_uid"), {})
-                for slot, names in op.outputs.items():
-                    fwd = src.get(slot[3:], []) if slot.startswith("IG@") \
-                        else []
-                    for n, f in zip(names, fwd):
-                        if n != EMPTY_VAR_NAME and f in sharded:
-                            sharded.add(n)
-                continue
-            if op.type == "pipeline_grad":
-                visit(program.blocks[op.attrs["sub_block"]].ops)
-                continue
-            if op.type == "recompute_grad" or not hit:
-                continue
-            ndim = len(_var_shape(block, hit[0]) or (1,))
-            if op.type in REDUCTIONS:
-                if _reduces_dim0(op, ndim):
-                    forward_sums[op.uid] = REDUCTIONS[op.type]
-                    continue
-            elif op.type == "moe_ffn":
-                sharded.add(op.outputs["Out"][0])
-                continue
-            elif op.type in AXIS_OPS:
-                key, default = AXIS_OPS[op.type]
-                axis = op.attrs.get(key, default) if key else default
-                if axis % max(ndim, 1) == 0:
-                    _refuse(op, hit[0], f"along axis {axis}")
-            elif op.type in SHAPE_OPS:
-                if not _leaves_dim0(op, ndim):
-                    _refuse(op, hit[0], "moving or cutting dim 0")
-            elif op.type == "layer_norm":
-                if op.attrs.get("begin_norm_axis", 1) == 0:
-                    _refuse(op, hit[0], "normalizing over dim 0")
-            elif op.type == "batch_norm":
-                if op.inputs["X"][0] not in sharded:
-                    _refuse(op, hit[0], "as a statistic")
-                if not (program.is_test or op.attrs.get("is_test", False)
-                        or op.attrs.get("use_global_stats", False)):
-                    sync_bn.add(op.uid)
-                # the statistics outputs are the global batch's
-                sharded.add(op.outputs["Y"][0])
-                continue
-            elif op.type not in ROW_LOCAL:
-                _refuse(op, hit[0], "")
-            sharded.update(outs)
-
-    visit(ops)
+                dims[n] = 0
     params = {p.name for p in program.all_parameters()}
     pgrads = {p + GRAD_SUFFIX for p in params}
     last = -1
+    sparse = []
     for i, op in enumerate(ops):
-        outs = op.output_names()
+        outs = list(op.output_names())
         if pgrads & set(outs):
             last = i
-        if batch_axes and any(n.endswith(GRAD_SUFFIX + "@ROWS")
-                              for n in outs):
-            raise NotImplementedError(
-                f"sparse (SelectedRows) gradients under a mesh are not "
-                f"ported ({ITEM5}): use is_sparse=False")
+        for n in outs:
+            if n.endswith(GRAD_SUFFIX + "@ROWS") and batch_axes:
+                sparse.append((n[:-len("@ROWS")], n))
     sync_index = last + 1
+    planner = _Planner(program, dims)
+    planner.visit(ops, sync_index, [n for pair in sparse for n in pair])
+    sparse_values = {v for v, _ in sparse}
     grad_names = []
     for op in ops[:sync_index]:
         for n in op.output_names():
-            if n in pgrads and n not in grad_names and n not in remote:
+            if n in pgrads and n not in grad_names and n not in remote \
+                    and n not in sparse_values:
                 grad_names.append(n)
 
     # storage: rule specs, accumulators follow their parameter, ZeRO-1
@@ -356,20 +468,388 @@ def plan_mesh(program, ops, compiled, feed_names, persist_names,
                 f"op '{op.type}' reads a sharded accumulator without its "
                 f"parameter's slice ({ITEM5})")
     moe_modes = {}
-    for uid, (batch, w1_name) in moe.items():
+    for uid, (batch, w1_name) in planner.moe.items():
         w1 = specs.get(w1_name)
         first = w1.spec[0] if w1 is not None and w1.spec else None
         moe_modes[uid] = {
             "batch": batch,
             "expert_axis": mesh_lib.EXPERT_AXIS
             if first == mesh_lib.EXPERT_AXIS else None}
-    return MeshPlan(compiled=compiled, batch_sharded=frozenset(sharded),
-                    forward_sums=forward_sums, sync_index=sync_index,
+    return MeshPlan(compiled=compiled, batch_dims=dict(planner.dims),
+                    modes=planner.modes, sync_index=sync_index,
                     grad_names=tuple(grad_names), specs=specs,
                     full_shapes=full_shapes, update_ops=update_ops,
                     moe=moe_modes, skip_uids=frozenset(skip),
                     remote=frozenset(remote), split=split,
-                    sync_bn=frozenset(sync_bn))
+                    blocks=planner.blocks, seeds=frozenset(planner.seeds),
+                    sparse_grads=tuple(sparse))
+
+
+class _Planner:
+    """The walk of ``plan_mesh`` over block 0 and its sub-blocks: the
+    batch dim of every batch-sharded value (``dims``) and each op's
+    ``OpMode`` or ``BlockMode``."""
+
+    def __init__(self, program, dims):
+        self.program = program
+        self.dims = dims
+        self.modes, self.blocks, self.moe = {}, {}, {}
+        self.seeds = set()
+        self.fwd_inputs = {}
+        #: every block's variables' shapes (a sub-block's own included)
+        self.shapes = {}
+        for blk in reversed(program.blocks):
+            for name, var in blk.vars.items():
+                if var.shape is not None:
+                    self.shapes[name] = tuple(var.shape)
+
+    def nd(self, n):
+        return len(self.shapes.get(n, ()))
+
+    def unsplit_rows(self, op, aligned):
+        """Whether an input the batch split leaves whole has a batch of
+        rows at its dim ``aligned(slot, name)`` (declared -1 there): an
+        op that reads it beside a split input must see the whole batch.
+        Parameters and other static shapes never do."""
+        for slot, names in op.inputs.items():
+            for n in names:
+                if n == EMPTY_VAR_NAME or n in self.dims:
+                    continue
+                k = aligned(slot, n)
+                shp = self.shapes.get(n, ())
+                if k is not None and 0 <= k < len(shp) \
+                        and shp[k] in (-1, None):
+                    return True
+        return False
+
+    def visit(self, op_list, sync_index=None, after_sum=()):
+        for i, op in enumerate(op_list):
+            if i == sync_index:
+                # the SelectedRows gradients are whole after the sum
+                for n in after_sum:
+                    self.dims.pop(n, None)
+            self.fwd_inputs[op.uid] = op.inputs
+            ins = [n for n in op.input_names() if n != EMPTY_VAR_NAME]
+            outs = [n for n in op.output_names() if n != EMPTY_VAR_NAME]
+            if op.type == "vjp_grad":
+                src = self.fwd_inputs.get(op.attrs.get("fwd_uid"), {})
+                for slot, names in op.outputs.items():
+                    fwd = src.get(slot[3:], []) if slot.startswith("IG@") \
+                        else []
+                    for n, f in zip(names, fwd):
+                        if n != EMPTY_VAR_NAME and f in self.dims:
+                            self.dims[n] = self.dims[f]
+                continue
+            if op.type == "pipeline_grad":
+                self.visit(self.program.blocks[op.attrs["sub_block"]].ops)
+                continue
+            if op.type == "recompute_grad":
+                continue
+            if op.type in BLOCK_OPS:
+                self.visit_block_op(op)
+                continue
+            hit = {n: self.dims[n] for n in ins if n in self.dims}
+            if not hit:
+                if op.type == "fill_constant" and len(outs) == 1 \
+                        and outs[0].endswith(GRAD_SUFFIX) \
+                        and outs[0][:-len(GRAD_SUFFIX)] not in self.dims:
+                    self.seeds.add(op.uid)      # the seed of a whole loss
+                for n in outs:
+                    self.dims.pop(n, None)
+                continue
+            if op_class(op.type) is None:
+                _refuse(op, next(iter(hit)), "in an op with no class "
+                        "under a batch split")
+            mode, out_dims = self.classify(op, hit)
+            self.modes[op.uid] = mode
+            for n in outs:
+                self.dims.pop(n, None)
+            self.dims.update(out_dims)
+
+    # -- one op ---------------------------------------------------------
+    def slot_dims(self, op):
+        """(slot, j) -> batch dim of every batch-sharded input."""
+        return {(slot, j): self.dims[n]
+                for slot, names in op.inputs.items()
+                for j, n in enumerate(names) if n in self.dims}
+
+    def classify(self, op, hit):
+        """(OpMode, {output name: batch dim}) of an op that reads the
+        batch-sharded inputs ``hit``."""
+        cls = op_class(op.type)
+        name0 = next(iter(hit))
+        d = hit[name0]
+        nd0 = self.nd(name0)
+        outs = {slot: [n for n in names if n != EMPTY_VAR_NAME]
+                for slot, names in op.outputs.items()}
+        if cls == "moe":
+            self.moe[op.uid] = (op.inputs["X"][0] in self.dims,
+                                op.inputs["W1"][0])
+            return OpMode("moe"), {op.outputs["Out"][0]: d}
+        if cls == "batch_stats":
+            x = op.inputs["X"][0]
+            if x not in self.dims or self.dims[x] != 0:
+                return self.whole(op)
+            training = not (self.program.is_test
+                            or op.attrs.get("is_test", False)
+                            or op.attrs.get("use_global_stats", False))
+            # the statistics outputs are the global batch's
+            return OpMode("sync_bn" if training else "local"), \
+                {op.outputs["Y"][0]: 0}
+        if cls == "sparse_grad":
+            return OpMode("local"), {n: 0 for n in op.output_names()
+                                     if n != EMPTY_VAR_NAME}
+        if cls in ("sum", "extreme"):
+            red = _reduced(op, nd0)
+            keep = bool(op.attrs.get("keep_dim", False))
+            if d not in red:
+                return OpMode("local"), {
+                    op.outputs["Out"][0]: _after_reduce(d, red, keep)}
+            if cls == "sum":
+                return OpMode("sum", how=_SUM_KIND[op.type]), {}
+            return OpMode("extreme", how=_EXTREME[op.type],
+                          dims=tuple(red), keep=keep), {}
+        if cls == "size":
+            return OpMode("size", dims=(d,)), {}
+        if cls in ("elementwise", "row", "axis", "shape"):
+            got = self.local_dims(op, cls, hit, outs)
+            if got is not None:
+                return OpMode("local"), got
+        return self.whole(op)
+
+    def whole(self, op):
+        """The ``whole`` mode: gather the batch-sharded inputs, run on
+        the global batch, cut the rows of a ``RESHARD`` output back."""
+        gather = self.slot_dims(op)
+        reshard, out_dims = {}, {}
+        if op.type in RESHARD:
+            d = min(gather.values())
+            for slot, names in op.outputs.items():
+                for j, n in enumerate(names):
+                    if n != EMPTY_VAR_NAME and self.nd(n) > d:
+                        reshard[(slot, j)] = d
+                        out_dims[n] = d
+        return OpMode("whole", gather=gather, reshard=reshard), out_dims
+
+    def local_dims(self, op, cls, hit, outs):
+        """The outputs' batch dims when ``op`` runs unchanged on its rows,
+        or None when it must see the whole batch."""
+        t, a = op.type, op.attrs
+        name0 = next(iter(hit))
+        d = hit[name0]
+        nd0 = self.nd(name0)
+        all_outs = [n for ns in outs.values() for n in ns]
+
+        def every(dim):
+            return {n: dim for n in all_outs}
+
+        if cls == "elementwise":
+            if t.startswith("elementwise_") or t == "fused_elemwise_activation":
+                x, y = op.inputs["X"][0], op.inputs["Y"][0]
+                nx, ny = self.nd(x), self.nd(y)
+                axis = a.get("axis", -1)
+                off = nx - ny if axis is None or axis == -1 or nx == ny \
+                    else axis
+                want = {self.dims[x]} if x in self.dims else set()
+                if y in self.dims:
+                    want.add(self.dims[y] + off)
+                if len(want) != 1:
+                    return None
+                d = want.pop()
+                if self.unsplit_rows(
+                        op, lambda slot, n: d - (off if slot == "Y" else 0)):
+                    return None
+                return every(d)
+            if len(set(hit.values())) != 1 \
+                    or self.unsplit_rows(op, lambda slot, n: d):
+                return None
+            return every(d)
+        if cls == "axis":
+            if len(set(hit.values())) != 1 \
+                    or self.unsplit_rows(op, lambda slot, n: d):
+                return None
+            key = "axis" if t != "top_k" else None
+            axis = a.get(key, -1 if t not in ("concat", "split", "stack",
+                                              "unstack") else 0) \
+                if key else -1
+            if t == "stack":
+                out_nd = nd0 + 1
+                axis %= out_nd
+                if axis <= d:
+                    return every(d + 1)
+                return every(d)
+            axis %= max(nd0, 1)
+            if axis == d:
+                return None
+            if t == "concat" and len(hit) != len(
+                    [n for n in op.inputs["X"] if n != EMPTY_VAR_NAME]):
+                return None
+            if t in ("unstack", "arg_max", "arg_min"):
+                return every(d - (axis < d))
+            return every(d)
+        if cls == "shape":
+            out = op.outputs["Out"][0]
+            nd_ = _shape_dim(op, d, nd0, self.nd(out))
+            if nd_ is None:
+                return None
+            return {n: nd_ for n in all_outs
+                    if n == out or self.nd(n) > nd_}
+        # row ops
+        slots = self.slot_dims(op)
+        dset = set(slots.values())
+        if len(dset) != 1 or self.unsplit_rows(op, lambda slot, n: d):
+            return None
+        at = _AT_DIM.get(t, 0)
+        if t in ("mul", "fc"):
+            xs = "X" if t == "mul" else "Input"
+            if set(k[0] for k in slots) != {xs}:
+                return None
+            k = int(a.get("x_num_col_dims" if t == "mul"
+                          else "in_num_col_dims", 1))
+            return every(d) if d < k else None
+        if t == "matmul":
+            xn, yn = op.inputs["X"][0], op.inputs["Y"][0]
+            nx, ny = self.nd(xn), self.nd(yn)
+            if yn in self.dims:
+                # a batched product: both split along one batch dim
+                if xn not in self.dims or nx != ny or d >= nx - 2:
+                    return None
+                return every(d)
+            if d < nx - 2 or (d == nx - 2 and not a.get("transpose_X")):
+                return every(d)
+            return None
+        if t == "lookup_table":
+            if set(k[0] for k in slots) != {"Ids"}:
+                return None
+            return every(d)
+        if t == "layer_norm":
+            if d >= int(a.get("begin_norm_axis", 1)):
+                return None
+            return {n: d for n in all_outs
+                    if n == op.outputs["Y"][0] or self.nd(n) > d}
+        if t in ("softmax_with_cross_entropy", "cross_entropy",
+                 "one_hot", "label_smooth", "cos_sim"):
+            ax = int(a.get("axis", -1)) % max(nd0, 1)
+            if d >= nd0 - 1 or (t == "softmax_with_cross_entropy"
+                                and ax == d):
+                return None
+            return every(d)
+        if t == "tril_triu":
+            return every(d) if d < nd0 - 2 else None
+        if t.endswith("_batch_size_like"):
+            if int(a.get("input_dim_idx", 0)) != d:
+                return {}
+            return every(int(a.get("output_dim_idx", 0)))
+        if d != at:
+            return None
+        skip = _NOT_ROWS.get(t, ())
+        return {n: at for slot, ns in outs.items() if slot not in skip
+                for n in ns}
+
+    # -- block ops ------------------------------------------------------
+    def visit_block_op(self, op):
+        """A block op's sub-blocks, to a fixed point of the carried
+        values' batch dims (a few passes at most)."""
+        rec = BlockMode()
+        self.blocks[op.uid] = rec
+        init = dict(self.dims)
+        for _ in range(4):
+            before = dict(self.dims)
+            if op.type == "static_rnn":
+                self.plan_static_rnn(op, rec, init)
+            elif op.type == "while":
+                self.plan_while(op, rec, init)
+            else:
+                self.plan_branches(op, rec)
+            if self.dims == before:
+                break
+
+    def start(self, rec, init, n):
+        """Where carried value ``n`` is split as the loop starts."""
+        how = rec.pre.get(n)
+        return init.get(n) if how is None else how[1]
+
+    def settle(self, rec, init, n, d):
+        """The body splits carried value ``n`` along ``d`` (None: whole):
+        its initial value is converted to match before the loop."""
+        if d == init.get(n):
+            rec.pre.pop(n, None)
+        else:
+            rec.pre[n] = (init.get(n), d)
+
+    def plan_static_rnn(self, op, rec, init):
+        a = op.attrs
+        for ln, n in zip(a["x_local_names"], op.inputs.get("X", [])):
+            d = init.get(n)
+            if d == 0:
+                rec.pre[n] = (0, None)          # split along time: whole
+                d = None
+            self.set(ln, None if d is None else d - 1)
+        inits = op.inputs.get("Init", [])
+        for ln, n in zip(a["mem_local_names"], inits):
+            self.set(ln, self.start(rec, init, n))
+        self.visit(self.program.blocks[a["sub_block"]].ops)
+        for ln, un, n in zip(a["mem_local_names"], a["mem_update_names"],
+                             inits):
+            if self.dims.get(un) != self.start(rec, init, n):
+                self.settle(rec, init, n, self.dims.get(un))
+        for n, sn in zip(op.outputs.get("Out", []), a["step_out_names"]):
+            d = self.dims.get(sn)
+            self.set(n, None if d is None else d + 1)
+        for n, un in zip(op.outputs.get("LastMem", []),
+                         a["mem_update_names"]):
+            self.set(n, self.dims.get(un))
+
+    def plan_while(self, op, rec, init):
+        cond = op.inputs["Condition"][0]
+        names = list(op.outputs["Out"])
+        for n in names:
+            self.set(n, self.start(rec, init, n))
+        self.visit(self.program.blocks[op.attrs["sub_block"]].ops)
+        for n in names:
+            if self.dims.get(n) != self.start(rec, init, n):
+                self.settle(rec, init, n, self.dims.get(n))
+        if cond in self.dims:
+            _refuse(op, cond, "as its loop condition: a per-row predicate "
+                    "where a scalar is read")
+
+    def plan_branches(self, op, rec):
+        a = op.attrs
+        if op.type == "conditional_block":
+            conds = op.inputs["Cond"]
+            pairs = [(a["true_block"], a["true_out_names"]),
+                     (a["false_block"], a["false_out_names"])]
+        else:
+            conds = op.inputs.get("Conds", [])
+            pairs = [(b, op.outputs["Out"]) for b in a["case_blocks"]]
+            if a.get("default_block") is not None:
+                pairs.append((a["default_block"], op.outputs["Out"]))
+        for c in conds:
+            if c in self.dims:
+                _refuse(op, c, "as its branch condition: a per-row "
+                        "predicate where a scalar is read")
+        found = {}
+        for blk, names in pairs:
+            self.visit(self.program.blocks[blk].ops)
+            for j, n in enumerate(names):
+                found.setdefault(j, {})[blk] = self.dims.get(n)
+        rec.outs = {}
+        for j, n in enumerate(op.outputs["Out"]):
+            ds = set(found.get(j, {None: self.dims.get(n)}).values())
+            if len(ds) == 1:
+                self.set(n, ds.pop())
+                continue
+            # the branches split it unlike each other: whole after either
+            for blk, d in found[j].items():
+                if d is not None:
+                    rec.outs[(blk, j)] = d
+            self.set(n, None)
+
+    def set(self, n, d):
+        if d is None:
+            self.dims.pop(n, None)
+        else:
+            self.dims[n] = d
 
 
 def pipeline_microbatches(program):
@@ -431,13 +911,6 @@ def whole_value(scope, name, val):
     if tuple(val.shape) == full:
         return val
     return sh.gather(val)
-
-
-def _refuse(op, name, how):
-    raise NotImplementedError(
-        f"op '{op.type}' reads the batch-sharded value '{name}'"
-        f"{' ' + how if how else ''}: under a data mesh only row-local "
-        f"ops, full reductions and moe_ffn are ported ({ITEM5})")
 
 
 # -- the Megatron split over the model axis ----------------------------------
@@ -947,9 +1420,10 @@ class MeshExec:
             value = mesh_lib.ungroup(
                 col.gather_along(value, self.model_group, d), d,
                 self.split.parts, g)
-        if name in self.plan.batch_sharded and value.dim() >= 1:
+        d = self.plan.batch_dims.get(name)
+        if d is not None and value.dim() > d:
             for a, g in reversed(self.batch_groups):
-                value = col.gather_along(value, g, 0)
+                value = col.gather_along(value, g, d)
             return value
         sh = self.plan.specs.get(name)
         if sh is not None and tuple(value.shape) != \
@@ -957,20 +1431,101 @@ class MeshExec:
             return sh.gather(value)
         return value
 
-    # -- per op -----------------------------------------------------------
-    def reduce_outs(self, op, outs):
-        kind = self.plan.forward_sums[op.uid]
-        res = {}
-        for slot, vals in outs.items():
-            new = []
-            for v in vals:
-                for _, g in self.batch_groups:
-                    v = col.forward_sum(v, g)
-                if kind == "mean":
-                    v = v / self.batch_parts
-                new.append(v)
-            res[slot] = new
-        return res
+    # -- per op: the batch split ----------------------------------------
+    def run(self, opdef, ctx, ins, op):
+        """One op's compute on this rank under its ``OpMode`` (the module
+        docstring): unchanged, a sum or an extreme reduction over the
+        batch, sync-BN, the global batch's size, or the op on the whole
+        batch; a loss's seed divided among the ranks."""
+        mode = self.plan.modes.get(op.uid)
+        if mode is not None and mode.kind == "sync_bn":
+            res = self.sync_batch_norm(ins, op.attrs)
+            if op.type == "fused_batch_norm_act":
+                from ..ops.fused import bn_act_outputs
+
+                res = bn_act_outputs(res, op.attrs)
+            return res
+        if mode is not None and mode.gather:
+            ins = {slot: list(vals) for slot, vals in ins.items()}
+            for (slot, j), d in mode.gather.items():
+                ins[slot][j] = self.gather_whole(ins[slot][j], d)
+        outs = self.run_op(opdef, ctx, ins, op)
+        if op.uid in self.plan.seeds and self.batch_parts > 1:
+            return {slot: [v / self.batch_parts for v in vals]
+                    for slot, vals in outs.items()}
+        if mode is None or mode.kind == "local":
+            return outs
+        outs = {slot: list(vals) for slot, vals in outs.items()}
+        if mode.kind == "whole":
+            for (slot, j), d in mode.reshard.items():
+                outs[slot][j] = col.take_rows(outs[slot][j],
+                                              self.data_group, d)
+        elif mode.kind == "sum":
+            for slot, vals in outs.items():
+                outs[slot] = [self.batch_sum(v, mode.how) for v in vals]
+        elif mode.kind == "extreme":
+            x = ins["X"][0]
+            outs["Out"] = [self.batch_extreme(x, outs["Out"][0], mode)]
+        elif mode.kind == "size":
+            v = outs["Out"][0].clone()
+            v[mode.dims[0]] *= self.batch_parts
+            outs["Out"] = [v]
+        return outs
+
+    def batch_sum(self, v, how):
+        """The ranks' partial sums added up; each rank's cotangent of
+        the sum is a share, so the backward sums the shares again."""
+        for _, g in self.batch_groups:
+            v = col.sum_both_ways(v, g)
+            self.stats["batch_sums"] += 1
+        return v / self.batch_parts if how == "mean" else v
+
+    def batch_extreme(self, x, y, mode):
+        """The ranks' partial ``mode.how`` reductions ``y`` of ``x``
+        reduced over the data axis."""
+        self.stats["batch_reductions"] += 1
+        g = self.data_group
+        if mode.how in ("all", "any"):
+            return col.reduce_logical(y, g, mode.how)
+        if mode.how == "prod":
+            return col.reduce_prod(y, g)
+        with torch.no_grad():
+            kept = [1 if i in mode.dims else s
+                    for i, s in enumerate(x.shape)]
+            hits = (x == y.reshape(kept)).sum(dim=mode.dims,
+                                              keepdim=mode.keep)
+        return col.reduce_extreme(y, hits.reshape(y.shape), g, mode.how)
+
+    def gather_whole(self, v, d):
+        self.stats["batch_gathers"] += 1
+        return col.gather_whole(v, self.data_group, d)
+
+    def seed_scale(self):
+        """The factor of a loss's seed on this rank (Recompute's and the
+        pipeline's backward seed their loss themselves)."""
+        return 1.0 / self.batch_parts
+
+    # -- block ops --------------------------------------------------------
+    def block_pre(self, op, env):
+        """A block op's carried values, memories and step inputs split as
+        its loop wants them (``BlockMode.pre``), in ``env``."""
+        rec = self.plan.blocks.get(op.uid)
+        if rec is None:
+            return
+        for n, (src, dst) in rec.pre.items():
+            v = env[n]
+            if src is not None:
+                v = self.gather_whole(v, src)
+            if dst is not None:
+                v = col.take_rows(v, self.data_group, dst)
+            env[n] = v
+
+    def branch_out(self, op, blk, j, v):
+        """A branch's output ``j`` whole where the other branches split it
+        otherwise."""
+        rec = self.plan.blocks.get(op.uid)
+        d = None if rec is None else rec.outs.get((blk, j))
+        return v if d is None else self.gather_whole(v, d)
 
     def slice_update(self, op, ins):
         sh, full = self.plan.update_ops[op.uid]
@@ -989,12 +1544,20 @@ class MeshExec:
         return res
 
     def sum_grads(self, env):
-        names = [n for n in self.plan.grad_names if n in env]
-        if self.data_group is None or not names:
+        """The parameter gradients summed over the data axis; each
+        SelectedRows gradient's values and rows gathered instead (the
+        global gradient, its rows in the global batch's order)."""
+        if self.data_group is None:
             return
+        names = [n for n in self.plan.grad_names if n in env]
         for n, v in zip(names, col.sum_gradients(
                 [env[n] for n in names], self.data_group)):
             env[n] = v
+        for vals, rows in self.plan.sparse_grads:
+            if vals in env and rows in env:
+                env[vals] = col.gather_rows(env[vals], self.data_group)
+                env[rows] = col.gather_rows(env[rows], self.data_group)
+                self.stats["sparse_row_gathers"] += 1
 
     def step_seed(self, seed):
         """Ranks on different data coordinates draw different random

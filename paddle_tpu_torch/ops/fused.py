@@ -329,7 +329,13 @@ def fused_batch_norm_act(ctx, inputs, attrs):
     """fused/fused_batch_norm_act_op.cc: batch_norm + activation."""
     from .nn import batch_norm
 
-    res = batch_norm(ctx, inputs, attrs)
+    return bn_act_outputs(batch_norm(ctx, inputs, attrs), attrs)
+
+
+def bn_act_outputs(res, attrs):
+    """fused_batch_norm_act's outputs from batch_norm's ``res`` (here, or
+    sync-BN's under a data mesh: core/spmd.py): Y through the op's
+    activation, an empty ReserveSpace."""
     res["Y"] = [_act(attrs.get("act_type", "relu"))(res["Y"][0])]
     res["ReserveSpace"] = [torch.zeros((0,), dtype=torch.float32,
                                        device=res["Y"][0].device)]

@@ -18,8 +18,9 @@ Under a mesh (core/spmd.py) the op keeps GSPMD's global semantics:
   gradient), routes the whole token set in the global order with the
   global capacity, and keeps its own rows of the dispatch tensor; the
   experts' inputs are the forward sum of the ranks' dispatched tokens,
-  and the aux loss's mean probabilities the forward sum of the ranks'
-  partial sums over the global N.  The experts' inputs need no sum in
+  and the aux loss's mean probabilities the sum of the ranks' partial
+  sums over the global N (``sum_both_ways``: a rank's cotangent of the
+  loss is its share, core/spmd.py's rule).  The experts' inputs need no sum in
   the backward: a capacity slot holds one token and the experts work
   slot by slot, so a rank's cotangent of a slot is nonzero only where
   the rank's own outputs read it, and there it is whole;
@@ -135,6 +136,7 @@ def moe_ffn(ctx, inputs, attrs):
     frac = top1.mean(dim=0)
     psum = probs.sum(dim=0)
     for _, g in data:
-        psum = col.forward_sum(psum, g)
+        # every rank's cotangent of the mean is a share (core/spmd.py)
+        psum = col.sum_both_ways(psum, g)
     aux = (frac * (psum / n_all)).sum() * e
     return out(Out=y.reshape(x.shape), AuxLoss=aux)

@@ -23,6 +23,17 @@ of one named mesh axis (``DeviceMesh.get_group(axis)``):
   sync-BN's batch sums);
 * ``all_gather`` — concatenation along a dim whose backward keeps the
   rank's slice (``gather_along`` without autograd);
+* ``gather_whole`` — the same concatenation whose backward sums the
+  cotangents over the group and keeps the rank's slice (a
+  reduce-scatter), and ``take_rows`` — the rank's slice of a whole value
+  whose backward puts the cotangent back in place among zeros: the
+  data axis's row movers (core/spmd.py's rule: a rank's cotangent of a
+  whole value is its share of the whole one);
+* ``reduce_extreme``, ``reduce_prod``, ``reduce_logical`` — the max,
+  min, product, and and or of the ranks' partial reductions, the first
+  two with jnp.max's tie rule in their backward;
+* ``gather_rows`` — the ragged all-gather of rows (each rank's count
+  sent first), for SelectedRows gradients;
 * ``sum_gradients`` — the bucketed sum of parameter gradients;
 * ``exchange`` — point-to-point sends and receives (the pipeline's
   stage-to-stage transfers), ``broadcast_from`` one rank's tensor.
@@ -34,7 +45,8 @@ import torch.distributed as dist
 
 __all__ = ["group_rank_size", "shift", "ring_shift", "all_to_all",
            "forward_sum", "backward_sum", "sum_both_ways", "all_gather",
-           "gather_along",
+           "gather_along", "gather_whole", "take_rows", "reduce_extreme",
+           "reduce_prod", "reduce_logical", "gather_rows",
            "sum_gradients", "broadcast_from", "exchange"]
 
 
@@ -242,6 +254,156 @@ def all_gather(x, group, dim=0):
     if group is None:
         return x
     return _AllGather.apply(x, group, dim)
+
+
+def _rank_slice(x, group, dim):
+    """The rank's equal part of ``x`` along ``dim`` (raises when the
+    group's size does not divide it)."""
+    rank, size = group_rank_size(group)
+    n = x.shape[dim]
+    if n % size:
+        raise ValueError(f"a dim of {n} rows does not split into {size} "
+                         f"ranks")
+    per = n // size
+    return x.narrow(dim, rank * per, per)
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return gather_along(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.args
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=group)
+        return _rank_slice(g, group, dim).contiguous(), None, None
+
+
+def gather_whole(x, group, dim=0):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order, every
+    rank then computing on the whole value; the backward sums the ranks'
+    cotangent shares and keeps the rank's slice (a reduce-scatter)."""
+    if group is None:
+        return x
+    return _GatherWhole.apply(x, group, dim)
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim, tuple(x.shape))
+        return _rank_slice(x, group, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, shape = ctx.args
+        full = g.new_zeros(shape)
+        _rank_slice(full, group, dim).copy_(g)
+        return full, None, None
+
+
+def take_rows(x, group, dim=0):
+    """The rank's equal part of a whole ``x`` along ``dim``; the backward
+    puts the rank's cotangent in place among zeros (its share of the
+    whole value's cotangent)."""
+    if group is None:
+        return x
+    return _TakeRows.apply(x, group, dim)
+
+
+class _ReduceExtreme(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, ties, group, kind):
+        out = y.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if kind == "max"
+                        else dist.ReduceOp.MIN, group=group)
+        ctx.save_for_backward(y, out, ties)
+        ctx.group = group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, out, ties = ctx.saved_tensors
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        mine = (y == out).to(ties.dtype) * ties
+        total = mine.clone()
+        dist.all_reduce(total, group=ctx.group)
+        return g * (mine / total).to(g.dtype), None, None, None
+
+
+def reduce_extreme(y, ties, group, kind):
+    """The max (``kind`` "max") or min of the ranks' partial reductions
+    ``y``; ``ties`` counts, for each element of ``y``, the rank's input
+    elements equal to it.  The backward sums the cotangent shares and
+    hands each rank the part of its tied elements among every rank's, so
+    the local reduction's own backward splits it evenly over the ties:
+    jnp.max's rule over the global batch."""
+    if group is None:
+        return y
+    return _ReduceExtreme.apply(y, ties.to(torch.float32), group, kind)
+
+
+class _ReduceProd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        rank, size = group_rank_size(group)
+        parts = [torch.empty_like(y) for _ in range(size)]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        parts = torch.stack(parts)
+        ctx.save_for_backward(parts)
+        ctx.group, ctx.rank = group, rank
+        return parts.prod(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (parts,) = ctx.saved_tensors
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        others = torch.cat([parts[:ctx.rank], parts[ctx.rank + 1:]])
+        return g * others.prod(0), None
+
+
+def reduce_prod(y, group):
+    """The product of the ranks' partial products ``y``; the backward
+    multiplies the summed cotangent by the other ranks' partials (exact
+    where the rank's own partial is zero)."""
+    if group is None:
+        return y
+    return _ReduceProd.apply(y, group)
+
+
+def reduce_logical(y, group, kind):
+    """The and (``kind`` "all") or or ("any") of the ranks' booleans
+    ``y`` (no gradient)."""
+    if group is None:
+        return y
+    v = y.to(torch.int32)
+    dist.all_reduce(v, op=dist.ReduceOp.MIN if kind == "all"
+                    else dist.ReduceOp.MAX, group=group)
+    return v.to(y.dtype)
+
+
+def gather_rows(x, group):
+    """The ranks' ``x`` concatenated along dim 0 in rank order, where
+    each rank's row count may differ: the counts go first, then the rows
+    padded to the largest count (not differentiable)."""
+    if group is None:
+        return x
+    size = dist.get_world_size(group)
+    n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+    counts = [torch.empty_like(n) for _ in range(size)]
+    dist.all_gather(counts, n, group=group)
+    counts = [int(c) for c in counts]
+    top = max(counts)
+    pad = x.new_zeros((top,) + tuple(x.shape[1:]))
+    pad[:x.shape[0]] = x
+    parts = [torch.empty_like(pad) for _ in range(size)]
+    dist.all_gather(parts, pad, group=group)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
 #: bytes of one bucket of the gradient sum
